@@ -1,0 +1,202 @@
+"""Serve app: continuous batching over the paged KV cache, validated —
+the counterpart of ``hpc_patterns_tpu/apps/serve_app.py`` (greedy).
+
+A stream of requests with varied prompt lengths (``--prompt-mix``) and
+budgets is served through ``models.serving.ContinuousBatcher`` (page
+free-list, bucketed admission, chunked ragged decode), then EVERY
+sequence is held against its standalone ``paged_generate``. On the card
+both run the hand-written kernels in bf16, where a batch-8 and a
+batch-1 matmul may round a near-tie differently: a divergence passes
+only where the standalone's top-1/top-2 logit gap at that step is below
+``TIE_TOL``. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
+
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
+        --dtype float32
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness.verdict import Verdict
+from hpc_patterns_tpu_torch.models.decode import paged_generate
+from hpc_patterns_tpu_torch.models.serving import (
+    ContinuousBatcher,
+    bucket_ladder,
+    pad_to_bucket,
+    tie_aware_compare,
+)
+from hpc_patterns_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_params,
+)
+from hpc_patterns_tpu_torch.topology import resolve_device
+
+#: top-1/top-2 logit gap below which an engine-vs-standalone divergence
+#: counts as a near-tie: bf16 matmuls at two batch sizes may round a
+#: near-tie either way; f32 on the CPU is exact in practice
+TIE_TOL = {"bfloat16": 0.05, "float32": 1e-4}
+
+#: the serving benchmark's chip shape (``benchmarks/bench_serving.py``):
+#: model widths, then the engine and stream geometry
+CHIP_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8,
+                  d_ff=4096, dtype="bfloat16")
+CHIP_SERVE = dict(slots=8, chunk=16, page_size=256, prompt_len=512,
+                  max_budget=512)
+
+
+def bench_stream(n: int, prompt_len: int, max_budget: int, vocab: int):
+    """The serving benchmark's request stream (``RandomState(7)``):
+    prompts 1/2, 3/4 or 1x of ``prompt_len``; long-tail budgets 1/8,
+    1/4 or 1x of ``max_budget`` at 0.5/0.3/0.2."""
+    rng = np.random.RandomState(7)
+    lengths = [prompt_len // 2, (3 * prompt_len) // 4, prompt_len]
+    reqs = []
+    for _ in range(n):
+        t = int(rng.choice(lengths))
+        prompt = rng.randint(0, vocab, size=t).astype(np.int32)
+        budget = int(rng.choice([max(1, max_budget // 8),
+                                 max(1, max_budget // 4), max_budget],
+                                p=[0.5, 0.3, 0.2]))
+        reqs.append((prompt, budget))
+    return reqs
+
+
+def engine_geometry(reqs, *, slots: int, chunk: int, page_size: int,
+                    prompt_len: int, **_) -> dict:
+    """``ContinuousBatcher`` keyword arguments for ``reqs``: the ladder
+    over ``prompt_len``, a table wide enough for the largest request
+    (bucket pad included) and ``slots`` such rows of pool."""
+    buckets = bucket_ladder(prompt_len)
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(
+            len(p), b, page_size, padded_len=pad_to_bucket(buckets, len(p)))
+        for p, b in reqs)
+    return dict(slots=slots, pool_pages=slots * pages_per_seq,
+                pages_per_seq=pages_per_seq, page_size=page_size,
+                chunk=chunk, prompt_buckets=buckets)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default=None,
+                   help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--slots", type=int, default=2,
+                   help="concurrent rows in the pool")
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--chunk", type=int, default=4,
+                   help="decode steps per dispatch (admission granularity)")
+    p.add_argument("--prompt-len", type=int, default=12)
+    p.add_argument("--prompt-mix", action="store_true",
+                   help="vary prompt lengths 1/2..1x of --prompt-len")
+    p.add_argument("--budget", type=int, default=12,
+                   help="max new tokens per request (actual budgets vary "
+                        "1/4..1x)")
+    p.add_argument("--d-model", type=int, default=64)
+    p.add_argument("--n-layers", type=int, default=2)
+    p.add_argument("--n-heads", type=int, default=4)
+    p.add_argument("--n-kv-heads", type=int, default=0)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--pos-embed", default="learned",
+                   choices=["learned", "rope"])
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"], help="compute dtype")
+    return p
+
+
+def make_requests(n: int, prompt_len: int, budget: int, vocab: int,
+                  mix: bool):
+    """The JAX app's request stream (``RandomState(7)``): prompt lengths
+    1/2..1x of ``prompt_len`` with ``mix``, budgets one of 1/4, 1/2, 1x
+    of ``budget``."""
+    rng = np.random.RandomState(7)
+    reqs = []
+    for _ in range(n):
+        plen = (int(rng.randint(max(1, prompt_len // 2), prompt_len + 1))
+                if mix else prompt_len)
+        prompt = rng.randint(0, vocab, size=plen).astype(np.int32)
+        b = int(rng.choice([max(1, budget // 4), max(1, budget // 2),
+                            budget]))
+        reqs.append((prompt, b))
+    return reqs
+
+
+def run(args) -> int:
+    dev = resolve_device(args.device)
+    if args.requests < 1 or args.slots < 1 or args.budget < 1:
+        print("ERROR: --requests/--slots/--budget must be >= 1")
+        print("FAILURE")
+        return 1
+    need = args.prompt_len + args.budget
+    cfg = TransformerConfig(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=need,
+        n_kv_heads=args.n_kv_heads, pos_embed=args.pos_embed,
+        dtype=args.dtype, decode_attn="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev,
+                         dtype=torch_dtype(args.dtype))
+    buckets = bucket_ladder(args.prompt_len)
+    pages_per_seq = ContinuousBatcher.pages_needed(
+        args.prompt_len, args.budget, args.page_size,
+        padded_len=pad_to_bucket(buckets, args.prompt_len))
+    pool_pages = args.slots * pages_per_seq
+    reqs = make_requests(args.requests, args.prompt_len, args.budget,
+                         cfg.vocab, args.prompt_mix)
+
+    def serve():
+        eng = ContinuousBatcher(
+            params, cfg, slots=args.slots, pool_pages=pool_pages,
+            pages_per_seq=pages_per_seq, page_size=args.page_size,
+            chunk=args.chunk, prompt_buckets=buckets, device=dev)
+        ids = [eng.submit(p, b) for p, b in reqs]
+        got = eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return {i: got[sid] for i, sid in enumerate(ids)}, eng
+
+    serve()  # warm-up: kernel build, library init, allocator
+    t0 = time.perf_counter()
+    out, eng = serve()
+    dt = time.perf_counter() - t0
+    served = sum(len(v) for v in out.values())
+
+    tol = TIE_TOL[args.dtype]
+    counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
+    for i, (prompt, budget) in enumerate(reqs):
+        want, margins = paged_generate(
+            params, torch.from_numpy(prompt)[None, :], cfg, budget,
+            page_size=args.page_size, device=dev, with_margins=True)
+        verdict = tie_aware_compare(out[i], want[0].cpu().numpy(),
+                                    margins[0].cpu().numpy(), tol)
+        counts[verdict] += 1
+        if verdict == "mismatch":
+            print(f"MISMATCH seq {i}: engine {out[i][:8]}... vs "
+                  f"standalone {want[0, :8].tolist()}...")
+    leaked = pool_pages - eng.free_page_count
+    ok = counts["mismatch"] == 0 and served > 0 and leaked == 0
+    print(f"serve[{dev}, {args.slots} slots, pool {pool_pages}p x "
+          f"{args.page_size}] {args.requests} reqs, {served} tokens: "
+          f"{dt:.3f}s, {served / dt:,.1f} tok/s; oracle exact "
+          f"{counts['exact']}, near-tie {counts['near_tie']} (gap < {tol}),"
+          f" mismatch {counts['mismatch']}; pages leaked {leaked}")
+    verdict = Verdict(success=ok,
+                      messages=("SUCCESS" if ok else "FAILURE",))
+    print(verdict.summary_line())
+    return verdict.exit_code
+
+
+def main(argv=None) -> int:
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,258 @@
+"""Decoder-only transformer: the counterpart of
+``hpc_patterns_tpu/models/transformer.py`` for what serving needs —
+the config, parameter init, the layer pieces shared with decode
+(``_rmsnorm``, ``apply_rope``, ``project_qkv``, ``matmul_weight``) and a
+logits-only ``forward`` for the parity test.
+
+Params keep the JAX layout: a plain dict with the same keys, layer
+weights stacked on a leading ``n_layers`` axis, so a JAX params tree
+maps over key for key (``models/convert.py``) and both sides compute
+the same thing from the same numbers. Weights are cast to the compute
+dtype at use, as in JAX; storing them already in that dtype
+(``init_params(..., dtype=torch.bfloat16)``) gives the same numbers and
+skips the per-use cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
+from hpc_patterns_tpu_torch.parallel.ring_attention import full_attention
+from hpc_patterns_tpu_torch.topology import resolve_device
+
+ATTENTION_IMPLS = ("full", "flash", "ring", "ring_flash", "ulysses",
+                   "ulysses_flash")
+
+#: sibling-key suffix of a quantized weight's scales in the JAX tree
+QUANT_SCALE_SUFFIX = "_qscale"
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Same fields, defaults and validation as the JAX config (see its
+    docstrings for each knob); this slice runs ``attention`` in
+    ("full", "flash"), dense MLPs and compute-dtype KV caches."""
+    vocab: int = 32768
+    d_model: int = 768
+    n_heads: int = 12
+    n_layers: int = 12
+    d_ff: int = 3072
+    max_seq: int = 2048
+    dtype: str = "bfloat16"
+    attention: str = "full"
+    n_kv_heads: int = 0
+    remat_policy: str = "split"
+    scan_layers: bool = True
+    pos_embed: str = "learned"
+    rope_theta: float = 10000.0
+    remat: bool = False
+    n_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    n_experts_top_k: int = 1
+    moe_dispatch: str = "auto"
+    fsdp: bool = False
+    axis_fsdp: str = "fsdp"
+    loss_chunk: int = 0
+    mlp_impl: str = "dense"
+    decode_attn: str = "flash"
+    kv_cache_dtype: str = "compute"
+    axis_dp: str = "dp"
+    axis_sp: str = "sp"
+    axis_tp: str = "tp"
+    axis_ep: str = "ep"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_model % self.n_heads:
+            raise ValueError(
+                f"d_model {self.d_model} % n_heads {self.n_heads} != 0")
+        return self.d_model // self.n_heads
+
+    def __post_init__(self):
+        if self.pos_embed not in ("learned", "rope"):
+            raise ValueError(
+                f"pos_embed {self.pos_embed!r} not in ('learned', 'rope')")
+        if self.pos_embed == "rope" and self.head_dim % 2:
+            raise ValueError("rope needs an even head_dim")
+        if self.attention not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"attention {self.attention!r} not in {ATTENTION_IMPLS}")
+        if self.loss_chunk < 0 or (self.loss_chunk and
+                                   self.vocab % self.loss_chunk):
+            raise ValueError(
+                f"loss_chunk {self.loss_chunk} must be 0 or divide "
+                f"vocab {self.vocab}")
+        if self.moe_dispatch not in ("auto", "einsum", "scatter"):
+            raise ValueError(
+                f"moe_dispatch {self.moe_dispatch!r} not in "
+                "('auto', 'einsum', 'scatter')")
+        if self.n_experts and not (
+                1 <= self.n_experts_top_k <= max(self.n_experts, 1)):
+            raise ValueError(
+                f"n_experts_top_k {self.n_experts_top_k} outside "
+                f"[1, n_experts={self.n_experts}]")
+        if self.kv_cache_dtype not in ("compute", "int8", "fp8"):
+            raise ValueError(
+                f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                "('compute', 'int8', 'fp8')")
+        if self.decode_attn not in ("flash", "gather", "paged_flash"):
+            raise ValueError(
+                f"decode_attn {self.decode_attn!r} not in "
+                "('flash', 'gather', 'paged_flash')")
+        if self.mlp_impl not in ("dense", "fused"):
+            raise ValueError(
+                f"mlp_impl {self.mlp_impl!r} not in ('dense', 'fused')")
+        if self.remat_policy not in ("nothing", "attn", "dots", "dots_attn",
+                                     "split"):
+            raise ValueError(
+                f"remat_policy {self.remat_policy!r} not in "
+                "('nothing', 'attn', 'dots', 'dots_attn', 'split')")
+        if self.n_kv_heads < 0 or self.n_kv_heads > self.n_heads or (
+                self.n_kv_heads and self.n_heads % self.n_kv_heads):
+            raise ValueError(
+                f"n_kv_heads {self.n_kv_heads} must be in [1, n_heads] and "
+                f"divide n_heads {self.n_heads} (0 = MHA)")
+
+
+def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
+                device=None, dtype: torch.dtype = torch.float32):
+    """Random params with the JAX init's shapes and scales
+    (``transformer.py::init_params``): normal draws from ``generator``
+    (on the generator's own device), then moved to ``device`` (default
+    ``cuda``; raises without a GPU unless ``device="cpu"``) and stored
+    in ``dtype``. Dense models only."""
+    dev = resolve_device(device)
+    if cfg.n_experts:
+        raise NotImplementedError("MoE params belong to a later slice")
+    D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+
+    def initn(shape, scale):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * scale
+        return w.to(device=dev, dtype=dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    layers = {
+        "ln1_scale": ones((L, D)),
+        "ln2_scale": ones((L, D)),
+        "wqkv": initn((L, D, D + 2 * cfg.kv_heads * cfg.head_dim),
+                      D ** -0.5),
+        "wo": initn((L, D, D), (2 * D * L) ** -0.5),
+        "w1": initn((L, D, Fd), D ** -0.5),
+        "w2": initn((L, Fd, D), (2 * Fd * L) ** -0.5),
+    }
+    params = {"embed": initn((V, D), 0.02)}
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = initn((cfg.max_seq, D), 0.02)
+    params["layers"] = layers
+    params["ln_f_scale"] = ones((D,))
+    params["lm_head"] = initn((D, V), D ** -0.5)
+    return params
+
+
+def matmul_weight(tree, name: str, dt: torch.dtype):
+    """A plain matmul weight cast to the compute dtype. A quantized tree
+    (a ``<name>_qscale`` sibling) raises: int8 weights are a later
+    slice."""
+    if name + QUANT_SCALE_SUFFIX in tree:
+        raise NotImplementedError(
+            f"quantized weight {name!r}: int8 weight serving is not "
+            "ported yet")
+    return tree[name].to(dt)
+
+
+def layer_params(params, l: int):
+    """Layer ``l``'s slice of the stacked layer weights (views)."""
+    return {k: v[l] for k, v in params["layers"].items()}
+
+
+def _rmsnorm(x, scale):
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale.to(x.dtype)
+
+
+def apply_rope(x, positions, cfg: TransformerConfig):
+    """Rotate each (first-half, second-half) feature pair of ``x``
+    (..., T, heads, head_dim) by pos * theta^(-2i/d), in f32, cast
+    back. ``positions``: int or (..., T) integer tensor of global
+    positions (a decode step passes a scalar or (B,))."""
+    half = x.shape[-1] // 2
+    inv_freq = cfg.rope_theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    pos = torch.as_tensor(positions, device=x.device).float()
+    angles = pos[..., None] * inv_freq
+    cos = torch.cos(angles).unsqueeze(-2)  # broadcast over heads
+    sin = torch.sin(angles).unsqueeze(-2)
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def project_qkv(h, lp, cfg: TransformerConfig):
+    """Fused qkv projection + head split (the JAX split order: q, then
+    the kv_heads-narrow k, then v). ``h`` (..., d_model) -> q
+    (..., n_heads, Dh), k/v (..., kv_heads, Dh)."""
+    *lead, D = h.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    qkv = h @ matmul_weight(lp, "wqkv", h.dtype)
+    q, k, v = torch.split(qkv, [D, Hkv * Dh, Hkv * Dh], dim=-1)
+    return (q.reshape(*lead, H, Dh), k.reshape(*lead, Hkv, Dh),
+            v.reshape(*lead, Hkv, Dh))
+
+
+def mlp(x, lp, cfg: TransformerConfig):
+    """Pre-norm dense MLP block with residual (tanh gelu, as
+    ``jax.nn.gelu``'s default)."""
+    dt = x.dtype
+    h = _rmsnorm(x, lp["ln2_scale"])
+    h = F.gelu(h @ matmul_weight(lp, "w1", dt), approximate="tanh")
+    return x + h @ matmul_weight(lp, "w2", dt)
+
+
+def attention(q, k, v, cfg: TransformerConfig):
+    """Causal self-attention per ``cfg.attention``: "flash" runs
+    ``ops.flash_attention`` (the Hopper kernel on CUDA), "full" the
+    dense grouped-query path. Sharded impls belong to a later slice."""
+    if cfg.attention == "flash":
+        return flash_attention(q, k, v, causal=True)
+    if cfg.attention == "full":
+        return full_attention(q, k, v, causal=True)
+    raise NotImplementedError(
+        f"attention {cfg.attention!r} needs a mesh; not ported yet")
+
+
+def forward(params, tokens, cfg: TransformerConfig):
+    """Next-token logits (B, T, vocab) f32 for ``tokens`` (B, T)."""
+    if cfg.n_experts or cfg.mlp_impl != "dense":
+        raise NotImplementedError("dense MLP models only in this slice")
+    dt = torch_dtype(cfg.dtype)
+    B, T = tokens.shape
+    x = params["embed"].to(dt)[tokens]
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"].to(dt)[:T]
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        h = _rmsnorm(x, lp["ln1_scale"])
+        q, k, v = project_qkv(h, lp, cfg)
+        if cfg.pos_embed == "rope":
+            pos = torch.arange(T, device=x.device)
+            q = apply_rope(q, pos, cfg)
+            k = apply_rope(k, pos, cfg)
+        o = attention(q, k, v, cfg)
+        x = x + o.reshape(B, T, cfg.d_model) @ matmul_weight(lp, "wo", dt)
+        x = mlp(x, lp, cfg)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return (x @ matmul_weight(params, "lm_head", dt)).float()
