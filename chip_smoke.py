@@ -38,7 +38,20 @@ Phases, each printing JSON lines:
               the on-card engine for its four pairs; the busy-wait
               launches equal the compute submits the phase counted, the
               pipeline launches the ``overlap_run`` calls;
-6. the ``{"kernels": [...]}`` line, the card's name and power limit
+6. comm     — the communication suite's entry points over logical
+              ranks on the card (the kernels were held against their
+              plain versions in phase 2): ``allreduce_app --sweep
+              --min-p 3 -p 25`` at world 4, f32, over all four
+              algorithms (every point on its oracle); one fused point
+              each at world 2 and 8 and in bf16 and int32; the
+              Communicator's ``allreduce_into(bias, relu)`` on the
+              analytic oracle and its fused ``allgather_matmul`` exactly
+              equal to the collective route on integer-valued data;
+              ``pingpong_app`` over p 3-25 on both routes (the fused one
+              through ``fused_permute``); ``interop_app`` (every leg);
+              the port bench's collective keys. Each kernel's launches
+              equal the calls of its entry point the phase counted;
+7. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -86,6 +99,15 @@ OVERLAP_CHECK_PASSES = 2
 PIPE_TIMED = dict(chunks=16, rows=2048, trips=8, passes=1)
 # the busy-wait kernel's timed row: the suite's compute buffer
 BUSY_TIMED = dict(n=1024, trips=300)
+# the comm kernels' timed rows: the allreduce app's top point (2^25 f32 per
+# rank, the reference's default -p) and the bench's allgather_matmul shape,
+# at the app's default 4 ranks
+COMM_WORLD = 4
+RING_ELEMENTS = 1 << 25
+AGMM_SHAPE = (256, 1024, 1024)
+ALIAS_SHAPE = (8, 128)
+# sweep repetitions in the comm phase (the app's default is 10)
+SWEEP_REPS = 3
 # the serving benchmark's chip stream, cut from 32 requests to 16
 N_REQUESTS = 16
 SERVE_CUTS = {"requests": "32 -> 16"}
@@ -633,6 +655,334 @@ def phase_dispatch():
     return launches
 
 
+def fused_allreduce_case(gen):
+    from hpc_patterns_tpu_torch.comm import fused
+
+    dev = torch.device("cuda")
+    W, n = COMM_WORLD, RING_ELEMENTS
+    sets = [(torch.randn(W, n, generator=gen, device=dev),)
+            for _ in range(n_sets(W * n * 4))]
+    x = sets[0][0]
+    got = fused.fused_allreduce(x)
+    want = fused.fused_allreduce_reference(x, lane=fused.CARD_LANE)
+    fused.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), "fused_allreduce at 2^25 x 4 == plain "
+          "bitwise")
+    bias = torch.randn(n, generator=gen, device=dev)
+    got = fused.allreduce_into(x, bias=bias, epilogue="relu")
+    want = fused.fused_allreduce_reference(x, bias=bias, epilogue="relu",
+                                           lane=fused.CARD_LANE)
+    fused.synchronize()
+    check(torch.equal(got, want), "allreduce_into(bias, relu) at 2^25 x 4 "
+          "== plain bitwise")
+    del got, want, bias
+    checked = []
+    for world, dtype, n_chk in ((2, torch.float32, 65), (3, torch.bfloat16,
+                                                         4099),
+                                (8, torch.int32, 40), (8, torch.bfloat16,
+                                                       1 << 20)):
+        xc = (torch.randn(world, n_chk, generator=gen, device=dev) * 8)
+        xc = xc.to(dtype)
+        bias = xc[0].clone()
+        for kw in ({}, {"bias": bias, "epilogue": "relu"}):
+            g2 = fused.fused_allreduce(xc, **kw)
+            w2 = fused.fused_allreduce_reference(xc, lane=fused.CARD_LANE,
+                                                 **kw)
+            fused.synchronize()
+            check(torch.equal(g2, w2), f"fused_allreduce world {world} "
+                  f"{dtype} n {n_chk} {sorted(kw)}: == plain bitwise")
+        checked.append([world, str(dtype).split(".")[-1], n_chk])
+    ms = device_ms(fused.fused_allreduce, sets)
+    fused.synchronize()
+    plain = device_ms(lambda v: fused.fused_allreduce_reference(
+        v, lane=fused.CARD_LANE), sets, n=5)
+    lib = device_ms(lambda v: v.sum(0, keepdim=True).expand_as(v).contiguous(),
+                    sets)
+    b_ms, b_by = bound(2.0 * W * n * 4, (W - 1) * n, F32_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "fused_allreduce",
+           "shape": {"ranks": W, "elements_per_rank": n, "dtype": "float32",
+                     "lane": fused.CARD_LANE},
+           "checked": {"world_dtype_n": checked, "bias_relu": True,
+                       "bitwise": True},
+           "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "library": "sum(0).expand_as.contiguous",
+           "bound_ms": b_ms, "bound_by": b_by,
+           # the ring's own traffic: each rank reads its input and its two
+           # phases' slots and writes slots and output
+           "ring_bytes": (2 + 4 * (W - 1) / W) * W * n * 4,
+           "input_sets": len(sets)}
+    emit(row)
+    return row
+
+
+def allgather_matmul_case(gen):
+    from hpc_patterns_tpu_torch.comm import fused
+
+    dev = torch.device("cuda")
+    W, (m, k, n) = COMM_WORLD, AGMM_SHAPE
+    per = W * (m * k + k * n) * 4
+    sets = [(torch.randn(W, m, k, generator=gen, device=dev),
+             torch.randn(W, k, n, generator=gen, device=dev))
+            for _ in range(n_sets(per))]
+    x, w = sets[0]
+    got = fused.allgather_matmul(x, w)
+    want = fused.allgather_matmul_reference(x, w)
+    fused.synchronize()
+    diff = (got - want).abs()
+    # the stated bound (fused.allgather_matmul_tolerance): two f32 orders
+    # of the k-sum; the control is the same product with TF32 inputs,
+    # which must fail it
+    tol = fused.allgather_matmul_tolerance(x, w, want)
+    check(bool((diff <= tol).all()), f"allgather_matmul {AGMM_SHAPE} x {W}: "
+          f"max err / bound {(diff / tol).max().item()}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = (fused.allgather_matmul_reference(x, w) - want).abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_over = (tf32 > tol).float().mean().item()
+    check(tf32_over > 0, "control: a TF32 product must fail the bound")
+    for dtype in (torch.bfloat16, torch.int32):
+        if dtype == torch.int32:
+            xs = torch.randint(-3, 4, (8, 3, 16), generator=gen, device=dev,
+                               dtype=dtype)
+            ws = torch.randint(-3, 4, (8, 16, 8), generator=gen, device=dev,
+                               dtype=dtype)
+        else:
+            xs, ws = x.to(dtype), w.to(dtype)
+        g2 = fused.allgather_matmul(xs, ws)
+        w2 = fused.allgather_matmul_reference(xs, ws)
+        fused.synchronize()
+        d2 = (g2.float() - w2.float()).abs()
+        check(bool((d2 <= fused.allgather_matmul_tolerance(xs, ws, w2)).all()),
+              f"allgather_matmul {dtype}: within tolerance")
+    ms = device_ms(fused.allgather_matmul, sets)
+    fused.synchronize()
+    plain = device_ms(fused.allgather_matmul_reference, sets)
+    lib = device_ms(lambda a, b: torch.matmul(a.reshape(1, W * m, k), b),
+                    sets)
+    flops = 2.0 * W * (W * m) * k * n
+    b_ms, b_by = bound(per + W * W * m * n * 4, flops, F32_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "allgather_matmul",
+           "shape": {"ranks": W, "m": m, "k": k, "n": n, "dtype": "float32"},
+           "checked": {"bf16": list(AGMM_SHAPE), "int32": [3, 16, 8]},
+           "max_abs_err": diff.max().item(), "tol": tol.max().item(),
+           "max_err_over_bound": (diff / tol).max().item(),
+           "tf32_control": {"max_abs_err": tf32.max().item(),
+                            "max_err_over_bound": (tf32 / tol).max().item(),
+                            "share_over_bound": tf32_over},
+           "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "library": "matmul (batched, fp32)", "bound_ms": b_ms,
+           "bound_by": b_by, "flops": flops, "input_sets": len(sets)}
+    emit(row)
+    return row
+
+
+def fused_permute_case(gen):
+    from hpc_patterns_tpu_torch.comm import fused, ring
+
+    dev = torch.device("cuda")
+    W, n = COMM_WORLD, RING_ELEMENTS
+    sets = [(torch.randn(W, n, generator=gen, device=dev),)
+            for _ in range(n_sets(W * n * 4))]
+    x = sets[0][0]
+    pairs = [(r, r ^ 1) for r in range(W)]
+    for perm in [pairs] + [ring._ring_perm(W, s) for s in (1, -1, 3)]:
+        got = fused.fused_permute(x, perm)
+        fused.synchronize()
+        check(torch.equal(got, fused.fused_permute_reference(x, perm)),
+              f"fused_permute {perm}: == plain bitwise")
+    src = torch.tensor([r ^ 1 for r in range(W)], device=dev)
+    ms = device_ms(lambda v: fused.fused_permute(v, pairs), sets)
+    fused.synchronize()
+    plain = device_ms(lambda v: fused.fused_permute_reference(v, pairs), sets)
+    lib = device_ms(lambda v: v.index_select(0, src), sets)
+    b_ms, b_by = bound(2.0 * W * n * 4, 0.0, F32_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "fused_permute",
+           "shape": {"ranks": W, "elements_per_rank": n, "dtype": "float32",
+                     "perm": "r^1"},
+           "checked": {"perms": ["r^1", "+1", "-1", "+3"], "bitwise": True},
+           "max_abs_err": 0.0, "tol": 0.0, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "library": "index_select", "bound_ms": b_ms,
+           "bound_by": b_by, "input_sets": len(sets)}
+    emit(row)
+    return row
+
+
+def alias_case(gen):
+    from hpc_patterns_tpu_torch.interop import device as idev
+
+    dev = torch.device("cuda")
+    rows, cols = ALIAS_SHAPE
+    x = torch.randn(rows, cols, generator=gen, device=dev)
+    want = x.clone().mul_(2.0).add_(1.0)
+    ptr = x.data_ptr()
+    got = idev.alias_inplace(x)
+    torch.cuda.synchronize()
+    check(got.data_ptr() == ptr and torch.equal(got, want),
+          "alias_inplace: in place (data_ptr) and == x*2+1 bitwise")
+    sets = [(torch.zeros(rows, cols, device=dev),) for _ in range(4)]
+    ms = device_ms(idev.alias_inplace, sets)
+    plain = device_ms(idev.alias_inplace_reference, sets)
+    lib = device_ms(lambda v: v.mul_(2).add_(1), sets)
+    b_ms, b_by = bound(2.0 * rows * cols * 4, 2.0 * rows * cols,
+                       F32_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "alias_inplace",
+           "shape": {"rows": rows, "cols": cols, "dtype": "float32"},
+           "max_abs_err": 0.0, "tol": 0.0, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "library": "mul_(2).add_(1)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+def run_app(main, argv, log):
+    """An app's ``main`` in-process with a JSONL log and its printed lines
+    in a file beside it: (exit code, records)."""
+    import contextlib
+
+    with open(log.with_suffix(".out"), "w") as out, \
+            contextlib.redirect_stdout(out):
+        code = main(argv + ["--log", str(log)])
+    return code, [json.loads(ln) for ln in log.read_text().splitlines()]
+
+
+def phase_comm():
+    from hpc_patterns_tpu_torch import bench
+    from hpc_patterns_tpu_torch.apps import (
+        allreduce_app,
+        interop_app,
+        pingpong_app,
+    )
+    from hpc_patterns_tpu_torch.comm import fused
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+    from hpc_patterns_tpu_torch.interop import device as idev
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_comm"
+    logs.mkdir(parents=True, exist_ok=True)
+    counted = {"fused_allreduce": 0, "allgather_matmul": 0,
+               "fused_permute": 0, "alias_inplace": 0}
+    originals = {"fused_allreduce": fused.fused_allreduce,
+                 "allgather_matmul": fused.allgather_matmul,
+                 "fused_permute": fused.fused_permute}
+    orig_alias = idev.alias_inplace
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            counted[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(fused, name, counting(name, fn))
+    idev.alias_inplace = counting("alias_inplace", orig_alias)
+    for k in fused.launches:
+        fused.launches[k] = 0
+    idev.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    try:
+        # the busbw-vs-size curve, every point on its oracle
+        t0 = time.perf_counter()
+        code, recs = run_app(allreduce_app.main,
+                             ["--sweep", "--min-p", "3", "-p", "25",
+                              "--world", str(COMM_WORLD), "--device", "cuda",
+                              "--repetitions", str(SWEEP_REPS),
+                              "--warmup", "1"], logs / "sweep.jsonl")
+        res = [r for r in recs if r.get("kind") == "result"]
+        check(code == 0 and len(res) == 4 * 23 and all(r["success"]
+                                                       for r in res),
+              f"allreduce sweep: rc {code}, {sum(r['success'] for r in res)}"
+              f"/{len(res)} points passed")
+        curve = {}
+        for r in res:
+            alg = r["name"][len("allreduce["):-1]
+            curve.setdefault(alg, []).append(
+                [r["elements"], r["elapsed_s"] * 1e3, r["busbw_gbps"]])
+        emit({"phase": "comm", "sweep": "allreduce", "world": COMM_WORLD,
+              "points": len(res), "repetitions": SWEEP_REPS,
+              "curve_elements_ms_busbw": curve,
+              "seconds": time.perf_counter() - t0})
+        # one fused point each at world 2 and 8, and in bf16 and int32
+        points = []
+        for world, dtype in ((2, "float32"), (8, "float32"),
+                             (COMM_WORLD, "bfloat16"), (COMM_WORLD, "int32")):
+            code, recs = run_app(allreduce_app.main,
+                                 ["-p", "20", "--algorithm", "fused",
+                                  "--world", str(world), "--dtype", dtype,
+                                  "--device", "cuda", "--repetitions",
+                                  str(SWEEP_REPS)],
+                                 logs / f"point_{world}_{dtype}.jsonl")
+            (r,) = [x for x in recs if x.get("kind") == "result"]
+            check(code == 0 and r["success"] and r["world"] == world,
+                  f"fused point world {world} {dtype}")
+            points.append([world, dtype, r["elapsed_s"] * 1e3,
+                           r["busbw_gbps"]])
+        emit({"phase": "comm", "fused_points_world_dtype_ms_busbw": points})
+        # the Communicator's fused consumer ops at the bench shapes, on
+        # oracles of their own: rank-valued rows sum exactly to W(W-1)/2,
+        # and integer-valued f32 products sum exactly in either order
+        comm = Communicator({"x": COMM_WORLD}, "x", device=dev)
+        x = comm.rank_filled(RING_ELEMENTS)
+        bias = torch.randn(RING_ELEMENTS, generator=gen, device=dev)
+        got = comm.allreduce_into(x, bias=bias, epilogue="relu")
+        comm.synchronize()
+        check(torch.equal(got, torch.relu(
+            comm.expected_allreduce_value() + bias).expand_as(x)),
+              "Communicator allreduce_into(bias, relu) on the oracle")
+        del x, got
+        m, k, n = AGMM_SHAPE
+        xa = torch.randint(-3, 4, (COMM_WORLD, m, k), generator=gen,
+                           device=dev).float()
+        wa = torch.randint(-3, 4, (COMM_WORLD, k, n), generator=gen,
+                           device=dev).float()
+        got = comm.allgather_matmul(xa, wa, "fused")
+        want = comm.allgather_matmul(xa, wa, "collective")
+        comm.synchronize()
+        check(torch.equal(got, want), "Communicator allgather_matmul on "
+              "integer-valued f32 == the collective route")
+        # ping-pong on both routes, and the interop app
+        for alg in ("collective", "fused"):
+            t0 = time.perf_counter()
+            code, recs = run_app(pingpong_app.main,
+                                 ["--min-p", "3", "-p", "25", "--device",
+                                  "cuda", "--algorithm", alg,
+                                  "--repetitions", str(SWEEP_REPS)],
+                                 logs / f"pingpong_{alg}.jsonl")
+            res = [r for r in recs if r.get("kind") == "result"]
+            check(code == 0 and len(res) == 23
+                  and all(r["success"] for r in res),
+                  f"pingpong_app --algorithm {alg} rc {code}")
+            emit({"phase": "comm", "pingpong": alg,
+                  "elements_us_gbps": [[r["elements"], r["latency_us"],
+                                        r["bandwidth_gbps"]] for r in res],
+                  "world": res[0]["world"],
+                  "seconds": time.perf_counter() - t0})
+        code, recs = run_app(interop_app.main, ["--device", "cuda"],
+                             logs / "interop.jsonl")
+        (r,) = [x for x in recs if x.get("kind") == "result"]
+        check(code == 0 and r["success"] and all(r["checks"].values()),
+              f"interop_app: {r['checks']}")
+        emit({"phase": "comm", "interop": r["checks"]})
+        # the port bench's collective keys
+        detail = bench.fused_collective_detail(dev)
+        emit({"phase": "comm", "bench_detail": detail})
+        comm.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(fused, name, fn)
+        idev.alias_inplace = orig_alias
+    launches = dict(fused.launches, alias_inplace=idev.launches)
+    emit({"phase": "comm", "launches": launches, "counted": counted,
+          "seconds": time.perf_counter() - t_phase})
+    for name in counted:
+        check(launches[name] > 0 and launches[name] == counted[name],
+              f"{name} launches == calls counted: {launches} {counted}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -646,6 +996,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     phase_build()
     pre, dec = phase_kernels()
     kgen = torch.Generator(device="cuda").manual_seed(2)
@@ -654,6 +1005,13 @@ def main() -> int:
     launches = phase_serve()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
+    cgen = torch.Generator(device="cuda").manual_seed(4)
+    ring_row = fused_allreduce_case(cgen)
+    agmm_row = allgather_matmul_case(cgen)
+    perm_row = fused_permute_case(cgen)
+    alias_row = alias_case(cgen)
+    launches_comm = phase_comm()
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [
@@ -677,6 +1035,26 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/concurrency/pipeline.py:74",
          "launches": launches_overlap["overlap_pipeline"],
          **{k: pipe[k] for k in keys}},
+        {"name": "fused_allreduce", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_ring.cu",
+         "replaces": "hpc_patterns_tpu/comm/fused.py:424",
+         "launches": launches_comm["fused_allreduce"],
+         **{k: ring_row[k] for k in keys}},
+        {"name": "allgather_matmul", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_ring.cu",
+         "replaces": "hpc_patterns_tpu/comm/fused.py:570",
+         "launches": launches_comm["allgather_matmul"],
+         **{k: agmm_row[k] for k in keys}},
+        {"name": "fused_permute", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_ring.cu",
+         "replaces": "hpc_patterns_tpu/comm/fused.py:335",
+         "launches": launches_comm["fused_permute"],
+         **{k: perm_row[k] for k in keys}},
+        {"name": "alias_inplace", "route": "cuda",
+         "source": f"{PKG}/csrc/alias_inplace.cu",
+         "replaces": "hpc_patterns_tpu/interop/device.py:104",
+         "launches": launches_comm["alias_inplace"],
+         **{k: alias_row[k] for k in keys}},
     ]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,14 @@ Ported so far, with kernels written by hand for ``sm_90a``:
 - the concurrency suite — ``concurrency/`` and ``apps/concurrency_app.py``,
   ``apps/sweep.py``, ``bench.py``; ``csrc/busy_wait.cu`` (the compute
   command's FMA chain) and ``csrc/overlap_pipeline.cu`` (bulk copies
-  between global and shared memory racing the chain in one kernel).
+  between global and shared memory racing the chain in one kernel);
+- the communication suite over logical ranks on one card — ``comm/``
+  (ring engine, collectives, ``Communicator``), ``apps/allreduce_app.py``,
+  ``apps/pingpong_app.py``; ``csrc/fused_ring.cu`` (the fused ring
+  allreduce, the all-gather matmul and the device-initiated permute, every
+  rank a group of CTAs in one cooperative launch);
+- interop — ``interop/`` and ``apps/interop_app.py``;
+  ``csrc/alias_inplace.cu`` (an in-place kernel on a PyTorch buffer).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise

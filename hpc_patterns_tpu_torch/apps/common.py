@@ -1,0 +1,54 @@
+"""Shared app scaffolding — the counterpart of
+``hpc_patterns_tpu/apps/common.py``: the communicator an app runs over
+and its reporting units.
+
+The port runs every rank of a communicator in one process on one card
+(logical ranks, see :mod:`hpc_patterns_tpu_torch.comm`), so the
+cross-process reductions of the JAX module are the identity here.
+"""
+
+from __future__ import annotations
+
+from hpc_patterns_tpu_torch.comm.communicator import Communicator
+
+#: ranks when the app is not told (``--world -1``): the reference CTest's
+#: ``mpirun -np 4``
+DEFAULT_WORLD = 4
+
+
+def make_communicator(device, world: int = -1, *, even: bool = False,
+                      axis: str = "x") -> Communicator:
+    """The app's communicator: ``world`` logical ranks on a 1-D mesh
+    (``-1``: :data:`DEFAULT_WORLD`) on ``device`` (``cuda`` unless
+    ``"cpu"``). ``even=True`` reproduces the reference's even-rank-count
+    precondition (allreduce-mpi-sycl.cpp:95-97) by dropping one rank from
+    an odd world."""
+    if world == -1:
+        world = DEFAULT_WORLD
+    if world < 1:
+        raise ValueError(f"world must be >= 1 or -1, got {world}")
+    if even and world % 2 and world > 1:
+        world -= 1
+    return Communicator({axis: world}, axis, device=device)
+
+
+def allreduce_bus_bandwidth_gbps(nbytes: int, seconds: float,
+                                 world: int) -> float:
+    """Bus bandwidth for an allreduce: algbw · 2(size−1)/size, the
+    ring-limit normalization that makes world sizes comparable (the
+    BASELINE.json "allreduce GB/s" metric); 0 for world=1."""
+    if seconds <= 0:
+        return float("inf")
+    return (nbytes / seconds / 1e9) * (2 * (world - 1) / world)
+
+
+def local_rows(global_tensor) -> list:
+    """``(rank, row)`` pairs this process can address: every row, since
+    all ranks live in this process."""
+    return list(enumerate(global_tensor))
+
+
+def all_processes_agree(ok: bool) -> bool:
+    """Cross-process AND of a local verdict: the identity in one
+    process."""
+    return bool(ok)

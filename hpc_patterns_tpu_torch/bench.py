@@ -21,6 +21,10 @@ Prints ONE JSON line:
   {"metric": "onchip_overlap_speedup", "value": <speedup>, "unit": "x",
    "vs_baseline": <...>, "detail": {...}}
 
+The detail also carries the collective keys of the JAX bench's
+``_fused_collective_detail`` (:func:`fused_collective_detail`), measured
+over ``COMM_WORLD`` logical ranks on the card.
+
     python -m hpc_patterns_tpu_torch.bench                 # 16 x 2048 x 128
     python -m hpc_patterns_tpu_torch.bench --chunk-rows 32768   # past L2
     python -m hpc_patterns_tpu_torch.bench --device cpu    # 4 x 8 x 128
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import torch
 
@@ -50,6 +55,13 @@ MAX_TRIPS = 4096
 CAL_PASSES = 1000
 TARGET_S = 1.0
 PAIRS = 5
+# the collective keys: 4 logical ranks (the reference CTest's -np 4),
+# 2^20 f32 per rank, allgather_matmul at the JAX chip shape per rank; the
+# CPU rehearsal keeps the JAX CPU smoke's sizes
+COMM_WORLD = 4
+COMM_ELEMENTS, CPU_COMM_ELEMENTS = 1 << 20, 1 << 11
+AGMM_SHAPE, CPU_AGMM_SHAPE = (256, 1024, 1024), (4, 32, 16)
+COMM_REPS, CPU_COMM_REPS = 10, 3
 
 
 def overlap_headline(x: torch.Tensor, *, cal_passes: int = CAL_PASSES,
@@ -119,6 +131,65 @@ def overlap_headline(x: torch.Tensor, *, cal_passes: int = CAL_PASSES,
             "unit": "x", "vs_baseline": vs_baseline, "detail": detail}
 
 
+def fused_collective_detail(device) -> dict:
+    """The JAX bench's collective keys (bench.py:84-157) over
+    :data:`COMM_WORLD` logical ranks:
+
+    - ``fused_allreduce_gbps``: ring-normalized bus bandwidth of
+      ``Communicator.allreduce(algorithm="fused")`` — the ring inside one
+      kernel;
+    - ``allreduce_busbw_gbps``: the same on ``algorithm="collective"``
+      (one PyTorch reduction over the ranks);
+    - ``allreduce_gbps_by_algorithm``: fused, collective, ring_chunked;
+    - ``allreduce_overlap_frac``: 1 - t(fused allgather_matmul) /
+      t(collective gather-then-matmul), clamped at 0.
+
+    Each time is the best of a few calls, each ending in a synchronize.
+    On one card the ring's "wire" is device memory."""
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+
+    cpu = device.type == "cpu"
+    n = CPU_COMM_ELEMENTS if cpu else COMM_ELEMENTS
+    reps = CPU_COMM_REPS if cpu else COMM_REPS
+    comm = Communicator({"x": COMM_WORLD}, "x", device=device)
+
+    def best_seconds(fn, *args):
+        fn(*args)  # build and warm outside the timing
+        comm.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(*args)
+            comm.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    x = comm.shard(torch.ones(comm.size, n, device=device))
+    nbytes = n * x.element_size()
+    gbps = {}
+    for alg in ("fused", "collective", "ring_chunked"):
+        t = best_seconds(comm.jit_allreduce(x, alg), x)
+        gbps[alg] = 2 * nbytes * (comm.size - 1) / comm.size / t / 1e9
+    m, k, n_w = CPU_AGMM_SHAPE if cpu else AGMM_SHAPE
+    xa = torch.ones(comm.size, m, k, device=device)
+    w = torch.ones(comm.size, k, n_w, device=device)
+    t_fused = best_seconds(lambda a, b: comm.allgather_matmul(a, b, "fused"),
+                           xa, w)
+    t_host = best_seconds(
+        lambda a, b: comm.allgather_matmul(a, b, "collective"), xa, w)
+    return {
+        "fused_allreduce_gbps": gbps["fused"],
+        "allreduce_busbw_gbps": gbps["collective"],
+        "allreduce_overlap_frac": max(0.0, 1.0 - t_fused / t_host),
+        "allreduce_gbps_by_algorithm": gbps,
+        "comm_world": comm.size,
+        "comm_elements_per_rank": n,
+        "agmm_shape_per_rank": [m, k, n_w],
+        "agmm_fused_ms": t_fused * 1e3,
+        "agmm_collective_ms": t_host * 1e3,
+    }
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,
@@ -141,6 +212,7 @@ def main(argv=None) -> int:
     rec = (overlap_headline(x, cal_passes=CPU_CAL_PASSES,
                             target_s=CPU_TARGET_S) if cpu
            else overlap_headline(x))
+    rec["detail"].update(fused_collective_detail(dev))
     print(json.dumps(rec), flush=True)
     return 0
 

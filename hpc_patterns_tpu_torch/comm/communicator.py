@@ -1,0 +1,246 @@
+"""Array-level communicator over logical ranks — the counterpart of
+``hpc_patterns_tpu/comm/communicator.py``.
+
+The JAX ``Communicator`` binds one axis of a device mesh and exposes
+collectives over global arrays whose leading dimension is sharded on that
+axis: row r is rank r's buffer. The port keeps exactly that view on one
+card: a mesh is a ``{name: size}`` shape, the ranks of its axis are
+logical, and a "global array" is one ``(size, ...)`` tensor on the
+communicator's device. The host-driven algorithms (``collective``,
+``ring``, ``ring_chunked``) are PyTorch ops over rows; ``fused`` runs the
+whole ring inside one CUDA kernel (:mod:`.fused`).
+
+Every operation keeps a closure cached per (shape, dtype, axis,
+algorithm), as the JAX one caches its jitted closures, so a sweep that
+races algorithms at one shape builds each route once.
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from hpc_patterns_tpu_torch.comm import collectives, fused, ring
+from hpc_patterns_tpu_torch.topology import resolve_device
+
+Algorithm = Literal["collective", "ring", "ring_chunked", "fused"]
+
+# allreduce algorithm table: library collective vs hand-built rings vs the
+# device-initiated fused ring (SURVEY.md §2.3(b))
+_ALLREDUCE = {
+    "collective": lambda x: collectives.allreduce(x, "sum"),
+    "ring": ring.ring_allreduce,
+    # chunk over the trailing (data) axis of each rank's shard
+    "ring_chunked": lambda x: ring.ring_allreduce_chunked(
+        x, scatter_axis=x.dim() - 2),
+}
+
+
+class Communicator:
+    """Collectives over one named axis of a logical mesh.
+
+    ``Communicator({"x": 4}, "x")`` plays ``MPI_COMM_WORLD`` over 4 ranks;
+    ``size`` is ``MPI_Comm_size``. Tensors passed in have a leading
+    dimension equal to ``size`` (one row per rank) and are moved to the
+    communicator's device (``cuda`` unless ``device="cpu"``)."""
+
+    def __init__(self, mesh_shape: dict, axis: str = "x", device=None):
+        if axis not in mesh_shape:
+            raise ValueError(
+                f"axis {axis!r} not in mesh axes {tuple(mesh_shape)}")
+        self.mesh_shape = {k: int(v) for k, v in mesh_shape.items()}
+        self.axis = axis
+        self.device = resolve_device(device)
+        self._jit_allreduce_cache: dict = {}
+        self._agmm_cache: dict = {}
+
+    @property
+    def size(self) -> int:
+        return self.mesh_shape[self.axis]
+
+    def shard(self, x) -> torch.Tensor:
+        """A ``(size, ...)`` tensor on the communicator's device — each
+        rank's buffer allocated and initialized (allreduce-mpi-sycl.cpp:
+        154-164)."""
+        x = torch.as_tensor(x)
+        if x.shape[0] != self.size:
+            raise ValueError(
+                f"leading dim {x.shape[0]} != communicator size {self.size}")
+        return x.to(self.device)
+
+    # -- the fused route over the mesh's flat rank order -------------------
+
+    def _geometry(self) -> fused.RingGeometry | None:
+        """``None`` on a 1-D mesh (the identity ring); else the ring of
+        :attr:`axis` inside the row-major flat rank order, whose replicas
+        run the same schedule (the JAX ``_fused_route``)."""
+        if len(self.mesh_shape) == 1:
+            return None
+        return fused.mesh_ring_geometry(self.mesh_shape, self.axis)
+
+    def _fused_call(self, fn, *xs):
+        """``fn(*operands, geometry=...)`` over the flat rank order: a 1-D
+        mesh runs as is; a multi-axis mesh expands every operand's rows to
+        the flat ranks (row f = ring position pos(f)), runs, and folds one
+        representative row per position back (JAX ``_fused_shmap``)."""
+        g = self._geometry()
+        if g is None:
+            return fn(*xs, geometry=None)
+        idx = torch.tensor(g.positions(), device=self.device)
+        sel = torch.tensor(g.ring_ids(), device=self.device)
+        return fn(*(v[idx] for v in xs), geometry=g)[sel]
+
+    # -- collectives over (size, ...) tensors ------------------------------
+
+    def allreduce(self, x, algorithm: Algorithm = "collective"
+                  ) -> torch.Tensor:
+        """Elementwise sum across ranks; every row of the result holds the
+        sum (MPI_Allreduce semantics; the hand ring of
+        allreduce-mpi-sycl.cpp:173-182 for ``"ring"``; the two-phase ring
+        for ``"ring_chunked"``; the same ring inside one kernel for
+        ``"fused"``)."""
+        x = self.shard(x)
+        return self.jit_allreduce(x, algorithm)(x)
+
+    def jit_allreduce(self, x, algorithm: Algorithm = "collective"):
+        """The allreduce closure for ``x``'s shape — what a benchmark
+        times. Cached per (shape, dtype, axis, algorithm)."""
+        if algorithm not in ("collective", "ring", "ring_chunked", "fused"):
+            raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
+        key = (tuple(x.shape), str(x.dtype).removeprefix("torch."),
+               self.axis, algorithm)
+        fn = self._jit_allreduce_cache.get(key)
+        if fn is None:
+            if algorithm == "fused":
+                def fn(v):
+                    return self._fused_call(
+                        lambda a, geometry: fused.fused_allreduce(
+                            a, geometry=geometry), v)
+            else:
+                fn = _ALLREDUCE[algorithm]
+            self._jit_allreduce_cache[key] = fn
+        return fn
+
+    def pingpong(self, x, algorithm: str = "collective") -> torch.Tensor:
+        """Pairwise even/odd exchange: row r swaps with row r^1 — the
+        pt2pt ping-pong config of BASELINE.json."""
+        x = self.shard(x)
+        return self.jit_pingpong(x, algorithm)(x)
+
+    def jit_pingpong(self, x, algorithm: str = "collective"):
+        """The pairwise-exchange closure (for timing loops):
+        ``"collective"`` permutes the rows with PyTorch ops
+        (``ring.pairwise_exchange``); ``"fused"`` has the device issue the
+        copies (:func:`fused.fused_permute`)."""
+        if algorithm == "collective":
+            return ring.pairwise_exchange
+        if algorithm != "fused":
+            raise ValueError(f"pingpong algorithm {algorithm!r} not in "
+                             "('collective', 'fused')")
+        pairs = [(r, r ^ 1) for r in range(self.size)]
+
+        def fn(v):
+            return self._fused_call(
+                lambda a, geometry: fused.fused_permute(
+                    a, pairs, geometry=geometry), v)
+        return fn
+
+    def sendrecv_ring(self, x, shift: int = 1) -> torch.Tensor:
+        """One ring hop: row r moves to row (r+shift) % size
+        (SendRecvRing, allreduce-mpi-sycl.cpp:43-59)."""
+        return ring.ring_shift(self.shard(x), shift)
+
+    def all_gather(self, x) -> torch.Tensor:
+        """Every rank receives every row: (size, n) -> (size, size, n)."""
+        return collectives.all_gather(self.shard(x), tiled=False)
+
+    def reduce_scatter(self, x) -> torch.Tensor:
+        """(size, size*n) rows -> (size, n): rank r gets chunk r of the
+        sum."""
+        x = self.shard(x)
+        return collectives.reduce_scatter(x, scatter_axis=x.dim() - 2)
+
+    def all_to_all(self, x) -> torch.Tensor:
+        """Row r's chunk c goes to row c's chunk r (MPI_Alltoall)."""
+        x = self.shard(x)
+        return collectives.all_to_all(x, split_axis=x.dim() - 2,
+                                      concat_axis=x.dim() - 2)
+
+    # -- fused collective + consumer ops -----------------------------------
+
+    def allgather_matmul(self, x, w, algorithm: str = "fused"
+                         ) -> torch.Tensor:
+        """``all_gather(x) @ w`` with per-rank weight panels: ``x``
+        (size, m, k), ``w`` (size, k, n); row r of the result is
+        ``gathered_x @ w[r]``, shape (size*m, n). ``"fused"`` runs the
+        gather ring inside one kernel, each arriving shard feeding a
+        matmul tile; ``"collective"`` gathers first, then computes the
+        tiles (f32 accumulation, cast back) — the plain version."""
+        if algorithm not in ("fused", "collective"):
+            raise ValueError(
+                f"allgather_matmul algorithm {algorithm!r} not in "
+                "('fused', 'collective')")
+        x, w = self.shard(x), self.shard(w)
+        if x.dim() != 3 or w.dim() != 3:
+            raise ValueError(
+                f"want x (size, m, k) and w (size, k, n), got "
+                f"{tuple(x.shape)} and {tuple(w.shape)}")
+        key = (tuple(x.shape), str(x.dtype), tuple(w.shape), str(w.dtype),
+               self.axis, algorithm)
+        fn = self._agmm_cache.get(key)
+        if fn is None:
+            if algorithm == "fused":
+                def fn(a, b):
+                    return self._fused_call(fused.allgather_matmul, a, b)
+            else:
+                fn = fused.allgather_matmul_reference
+            self._agmm_cache[key] = fn
+        return fn(x, w)
+
+    def allreduce_into(self, x, bias=None, epilogue=None,
+                       algorithm: str = "fused") -> torch.Tensor:
+        """Allreduce(sum) with its consumer fused in: every row holds
+        ``epilogue(sum_ranks(x) + bias)`` in ``x``'s dtype. On ``"fused"``
+        the bias and epilogue apply to each reduced chunk as it lands (the
+        kernel takes epilogue None or ``"relu"``); ``"collective"`` sums,
+        then applies them as ordinary ops."""
+        if algorithm not in ("fused", "collective"):
+            raise ValueError(
+                f"allreduce_into algorithm {algorithm!r} not in "
+                "('fused', 'collective')")
+        x = self.shard(x)
+        row_bias = (None if bias is None else
+                    torch.as_tensor(bias, device=self.device).to(x.dtype))
+        if algorithm == "fused":
+            return self._fused_call(
+                lambda a, geometry: fused.allreduce_into(
+                    a, bias=row_bias, epilogue=epilogue, geometry=geometry),
+                x)
+        out = collectives.allreduce(x, "sum")
+        if row_bias is not None:
+            out = out + row_bias
+        # the same dtype contract as the fused route
+        return fused._apply_epilogue(out, epilogue).to(x.dtype)
+
+    # -- miniapp-style buffer init -----------------------------------------
+
+    def rank_filled(self, n: int, dtype="float32") -> torch.Tensor:
+        """The miniapp's ``Initialize``: rank r's buffer filled with r
+        (allreduce-mpi-sycl.cpp:33-41), so the allreduce oracle is
+        ``size*(size-1)/2``. Built on the device."""
+        from hpc_patterns_tpu_torch.dtypes import get_traits
+
+        dt = get_traits(dtype).dtype
+        ranks = torch.arange(self.size, device=self.device).to(dt)
+        return ranks[:, None].expand(self.size, n).contiguous()
+
+    def expected_allreduce_value(self) -> float:
+        """The analytic oracle: Σ ranks = size(size-1)/2."""
+        return self.size * (self.size - 1) / 2
+
+    def synchronize(self) -> None:
+        """Wait for the card and raise if a fused ring launch timed out
+        (:func:`fused.synchronize`); nothing to wait for on the CPU."""
+        if self.device.type == "cuda":
+            fused.synchronize(self.device)

@@ -8,7 +8,11 @@ counterpart of ``hpc_patterns_tpu/harness/timing.py``.
 - PyTorch returns before the card finishes, so a timed call must end in
   a completion barrier: :func:`measure_forced` reads the result back to
   the host, and :func:`amortized_seconds` differences two pass counts so
-  launch and readback latency cancel.
+  launch and readback latency cancel;
+- :func:`blocking` wraps a call so that it ends in
+  ``torch.cuda.synchronize``; :func:`max_across_processes` is the
+  distributed MAX of a time (allreduce-mpi-sycl.cpp:188-190), the
+  identity in one process, where every logical rank lives.
 """
 
 from __future__ import annotations
@@ -60,6 +64,29 @@ def measure(fn: Callable[[], object], *, repetitions: int = 10,
         fn()
         times.append(time.perf_counter() - t0)
     return TimingResult(tuple(times))
+
+
+def blocking(fn: Callable[..., object], *args, **kwargs
+             ) -> Callable[[], object]:
+    """A zero-argument thunk for :func:`measure`: ``fn(*args, **kwargs)``,
+    then a synchronize of the card when CUDA is in use (a no-op cost on
+    the CPU path)."""
+    import torch
+
+    def thunk():
+        out = fn(*args, **kwargs)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        return out
+
+    return thunk
+
+
+def max_across_processes(seconds: float) -> float:
+    """Cross-process MAX of a local elapsed time. The port runs every
+    logical rank in one process (multi-process launches are not ported
+    yet), so it returns the input."""
+    return seconds
 
 
 def measure_forced(fn: Callable[[], object], *, repetitions: int = 5,

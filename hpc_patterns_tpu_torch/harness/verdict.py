@@ -7,6 +7,8 @@ their own tests: they check their claim and exit 0/1).
   theoretical / 1.3; WARN (unbalanced commands) if theoretical <= 1.5.
 - OMP rule (omp_con.cpp:223-244): PASS iff concurrent_total <=
   1.3 * max_single_command; WARN if theoretical <= 1.3.
+- the allreduce oracle (allreduce-mpi-sycl.cpp:192-204): every element
+  equals the closed-form value, per rank (:func:`correctness_verdict`).
 """
 
 from __future__ import annotations
@@ -91,3 +93,37 @@ def concurrency_verdict(
     return Verdict(success=ok, messages=tuple(msgs), speedup=speedup,
                    max_theoretical_speedup=max_theoretical,
                    warned_unbalanced=warned)
+
+
+def correctness_verdict(result, expected_scalar: float, *, dtype=None,
+                        rank: int = 0) -> Verdict:
+    """Analytic-oracle elementwise validation (allreduce-mpi-sycl.cpp:
+    192-204). ``result``: a numpy array or a CPU tensor; ``dtype``: a
+    registry name or torch dtype (default: the result's own)."""
+    import numpy as np
+    import torch
+
+    from hpc_patterns_tpu_torch.dtypes import get_traits, validate_allreduce
+
+    if torch.is_tensor(result):
+        dt = dtype if dtype is not None else result.dtype
+        arr = (result.float() if result.dtype == torch.bfloat16
+               else result).numpy()
+    else:
+        arr = np.asarray(result)
+        dt = dtype if dtype is not None else torch.from_numpy(arr[:0]).dtype
+    ok = validate_allreduce(arr, expected_scalar, dt)
+    if ok:
+        msgs = (f"Passed {rank}", "SUCCESS")
+    else:
+        traits = get_traits(dt)
+        atol = traits.tolerance if not traits.exact_sum else 0.0
+        bad = np.flatnonzero(~np.isclose(arr.astype(np.float64),
+                                         float(expected_scalar), atol=atol,
+                                         rtol=1e-6))
+        first = int(bad[0]) if bad.size else -1
+        msgs = (f"rank {rank}: {bad.size}/{arr.size} elements wrong, "
+                f"first at [{first}] = "
+                f"{arr.flat[first] if first >= 0 else '?'} "
+                f"expected {expected_scalar}", "FAILURE")
+    return Verdict(success=ok, messages=msgs)

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 #: every kernel source of the package; all build together
-SOURCES = ("flash_prefill", "paged_decode", "busy_wait", "overlap_pipeline")
+SOURCES = ("flash_prefill", "paged_decode", "busy_wait", "overlap_pipeline",
+           "fused_ring", "alias_inplace")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +108,11 @@ def load(name: str) -> ctypes.CDLL:
         build_all()
         lib = _libs[name]
     return lib
+
+
+def is_loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` is built and loaded in this process."""
+    return name in _libs
 
 
 def check(rc: int, what: str) -> None:

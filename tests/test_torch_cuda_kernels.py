@@ -12,13 +12,21 @@ bf16 before p.v as the TPU kernel does); decode 1e-4 (f32 math on both
 sides, only the summation order differs). Matmuls of the plain versions
 run in full f32 (``allow_tf32`` off). The busy-wait and overlap-pipeline
 kernels equal their plain versions bit for bit (every step one fmaf
-rounding, checksums summed in the same order).
+rounding, checksums summed in the same order). The fused ring kernels
+equal their plain versions bit for bit (the allreduce over the same chunk
+layout, the permute exactly), except allgather_matmul, whose f32 sums run
+in another order than the library GEMM: within 1e-5 * k * max|x| * max|w|
+for float32, plus one bf16 ulp of the output for bfloat16, exact for
+int32 at small values. The alias kernel equals ``x * 2 + 1`` bitwise, in
+place.
 """
 
 import pytest
 import torch
 
+from hpc_patterns_tpu_torch.comm import fused
 from hpc_patterns_tpu_torch.concurrency import commands, kernels, pipeline
+from hpc_patterns_tpu_torch.interop import device as interop_device
 from hpc_patterns_tpu_torch.ops import flash_attention as fa
 from hpc_patterns_tpu_torch.ops import flash_decode as fd
 
@@ -145,3 +153,172 @@ def test_commands_on_the_card_use_streams_and_pinned_memory(gen):
     assert kernels.launches == before + 1
     assert bool((m2d._dev == 3.0).all()) and bool((d2m._host == 5.0).all())
     assert torch.equal(c._pending, kernels.busy_wait_reference(c.x, 5))
+
+
+def _ring_input(gen, ranks, shard, dtype):
+    x = torch.randn(ranks, *shard, generator=gen, device="cuda") * 8
+    return x.to(torch.int32) if dtype == torch.int32 else x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("size", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n", [40, 65, 4096])
+def test_fused_allreduce_kernel_equals_plain_bitwise(gen, size, dtype, n):
+    x = _ring_input(gen, size, (n,), dtype)
+    before = fused.launches["fused_allreduce"]
+    got = fused.fused_allreduce(x)
+    fused.synchronize()
+    assert fused.launches["fused_allreduce"] == before + 1
+    want = fused.fused_allreduce_reference(x, lane=fused.CARD_LANE)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shard", [(3, 40), (2, 5, 24), (1 << 25,)],
+                         ids=["3x40", "2x5x24", "bench-2^25"])
+def test_fused_allreduce_kernel_shapes(gen, shard):
+    x = _ring_input(gen, 4, shard, torch.float32)
+    got = fused.fused_allreduce(x)
+    fused.synchronize()
+    assert torch.equal(got, fused.fused_allreduce_reference(
+        x, lane=fused.CARD_LANE))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_allreduce_into_bias_relu_equals_plain_bitwise(gen, dtype):
+    x = _ring_input(gen, 8, (65,), dtype)
+    bias = _ring_input(gen, 1, (65,), dtype)[0]
+    got = fused.allreduce_into(x, bias=bias, epilogue="relu")
+    fused.synchronize()
+    want = fused.fused_allreduce_reference(x, bias=bias, epilogue="relu",
+                                           lane=fused.CARD_LANE)
+    assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused.allreduce_into(x, epilogue=torch.tanh)
+
+
+@pytest.mark.parametrize("size,stride,total", [(4, 1, 8), (2, 4, 8),
+                                               (2, 2, 8)])
+def test_fused_kernels_over_a_multi_axis_geometry(gen, size, stride, total):
+    g = fused.RingGeometry(size=size, stride=stride, total=total)
+    x = _ring_input(gen, total, (40,), torch.float32)
+    got = fused.fused_allreduce(x, geometry=g)
+    fused.synchronize()
+    assert torch.equal(got, fused.fused_allreduce_reference(
+        x, geometry=g, lane=fused.CARD_LANE))
+    assert torch.equal(fused.fused_ring_shift(x, 1, geometry=g),
+                       fused.fused_permute_reference(
+                           x, fused.ring._ring_perm(size, 1), geometry=g))
+    a = _ring_input(gen, total, (4, 16), torch.float32)
+    w = _ring_input(gen, total, (16, 8), torch.float32)
+    got = fused.allgather_matmul(a, w, geometry=g)
+    fused.synchronize()
+    want = fused.allgather_matmul_reference(a, w, geometry=g)
+    assert bool(((got - want).abs() <= fused.allgather_matmul_tolerance(
+        a, w, want, geometry=g)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("size,m,k,n", [(8, 3, 16, 8), (4, 64, 128, 96),
+                                        (3, 70, 40, 130),
+                                        (4, 256, 1024, 1024)],
+                         ids=["battery", "aligned", "ragged", "bench"])
+def test_allgather_matmul_kernel_matches_plain(gen, dtype, size, m, k, n):
+    if dtype == torch.int32:
+        x = torch.randint(-3, 4, (size, m, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        w = torch.randint(-3, 4, (size, k, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    else:
+        x = torch.randn(size, m, k, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(size, k, n, generator=gen, device="cuda").to(dtype)
+    before = fused.launches["allgather_matmul"]
+    got = fused.allgather_matmul(x, w)
+    fused.synchronize()
+    assert fused.launches["allgather_matmul"] == before + 1
+    want = fused.allgather_matmul_reference(x, w)
+    assert got.shape == (size, size * m, n) and got.dtype == dtype
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        err = (got.float() - want.float()).abs()
+        tol = fused.allgather_matmul_tolerance(x, w, want)
+        assert bool((err <= tol).all()), err.max().item()
+
+
+def test_allgather_matmul_tolerance_rejects_tf32(gen):
+    # the control: the same product with TF32 inputs must fail the bound
+    # that the kernel passes, or the bound could not tell f32 FFMA apart
+    x = torch.randn(4, 256, 1024, generator=gen, device="cuda")
+    w = torch.randn(4, 1024, 1024, generator=gen, device="cuda")
+    want = fused.allgather_matmul_reference(x, w)
+    tol = fused.allgather_matmul_tolerance(x, w, want)
+    got = fused.allgather_matmul(x, w)
+    fused.synchronize()
+    assert bool(((got - want).abs() <= tol).all())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fused.allgather_matmul_reference(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert not bool(((tf32 - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("shard", [(24,), (2, 4, 3, 8), (1 << 20,), (7,)])
+def test_fused_permute_kernel_equals_plain_bitwise(gen, dtype, shard):
+    size = 8
+    x = (torch.randn(size, *shard, generator=gen, device="cuda") * 50
+         ).to(dtype)
+    perms = [[(i, i ^ 1) for i in range(size)]] + [
+        fused.ring._ring_perm(size, s) for s in (1, -1, 3)]
+    for perm in perms:
+        before = fused.launches["fused_permute"]
+        got = fused.fused_permute(x, perm)
+        fused.synchronize()
+        assert fused.launches["fused_permute"] == before + 1
+        assert torch.equal(got, fused.fused_permute_reference(x, perm))
+    with pytest.raises(ValueError, match="partial"):
+        fused.fused_permute(x, [(0, 1), (1, 0)])
+
+
+def test_fused_permute_kernel_at_the_bench_shape(gen):
+    x = torch.randn(4, 1 << 25, generator=gen, device="cuda")
+    for perm in ([(r, r ^ 1) for r in range(4)],
+                 fused.ring._ring_perm(4, 1), fused.ring._ring_perm(4, 3)):
+        got = fused.fused_permute(x, perm)
+        fused.synchronize()
+        assert torch.equal(got, fused.fused_permute_reference(x, perm))
+
+
+def test_missing_rank_times_out_instead_of_hanging(gen):
+    # launch the ring one rank short: rank 0 waits for a neighbour that
+    # never runs; the spin must give up, abort the launch and raise
+    x = _ring_input(gen, 4, (4096,), torch.float32)
+    g = fused.RingGeometry(size=4)
+    fused._fused_allreduce_launch(x, None, None, g, ranks_launched=3)
+    with pytest.raises(RuntimeError, match="timed out"):
+        fused.synchronize()
+    # the next launch starts from fresh scratch and is right again
+    got = fused.fused_allreduce(x)
+    fused.synchronize()
+    assert torch.equal(got, fused.fused_allreduce_reference(
+        x, lane=fused.CARD_LANE))
+
+
+@pytest.mark.parametrize("rows,cols", [(8, 128), (3, 5), (1024, 1024)])
+def test_alias_kernel_writes_in_place_bitwise(gen, rows, cols):
+    x = torch.randn(rows, cols, generator=gen, device="cuda")
+    want = x.clone().mul_(2.0).add_(1.0)
+    ptr = x.data_ptr()
+    before = interop_device.launches
+    out = interop_device.alias_inplace(x)
+    torch.cuda.synchronize()
+    assert interop_device.launches == before + 1
+    assert out.data_ptr() == ptr == x.data_ptr()
+    assert torch.equal(out, want)
+    ok, ev = interop_device.kernel_alias_proof()
+    assert ok and ev["pointer_ok"] and not ev["interpret"], ev

@@ -85,3 +85,29 @@ def test_entry_points_raise_without_gpu_and_run_on_cpu(no_gpu):
     out = decode.paged_generate(params, prompt, cfg, 2, page_size=8,
                                 device="cpu")
     assert out.shape == (1, 2)
+
+
+def test_comm_and_interop_entry_points_raise_without_gpu(no_gpu, capsys):
+    from hpc_patterns_tpu_torch.apps import (
+        allreduce_app,
+        common,
+        interop_app,
+        pingpong_app,
+    )
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+    from hpc_patterns_tpu_torch.interop import device
+
+    for call in (lambda: Communicator({"x": 4}, "x"),
+                 lambda: common.make_communicator(None),
+                 lambda: allreduce_app.main(["-p", "4"]),
+                 lambda: pingpong_app.main(["-p", "4"]),
+                 lambda: interop_app.main(["-n", "64"]),
+                 device.kernel_alias_proof,
+                 device.donation_alias_proof):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    c = Communicator({"x": 4}, "x", device="cpu")
+    assert c.device.type == "cpu"
+    assert allreduce_app.main(["-p", "4", "--device", "cpu",
+                               "--repetitions", "1"]) == 0
+    capsys.readouterr()
