@@ -15,7 +15,9 @@ Phases, each printing JSON lines:
               bitwise, every pipeline mode with its written array), with
               the kernel's, the plain version's and, where one exists,
               one library call's device time (yardstick only; the port
-              never calls it) beside the kernel's bound;
+              never calls it) beside the kernel's bound; the decode
+              kernels on bf16, int8 and fp8 caches (the linear cache,
+              the paged cache, the exact-softmax paged route);
 3. serve    — the serving benchmark's chip model at full width (vocab
              32768, d_model 1024, 8 heads of 128, 8 layers, d_ff 4096,
              bf16, page 256, 8 slots, chunk 16, prompts up to 512,
@@ -51,7 +53,19 @@ Phases, each printing JSON lines:
               through ``fused_permute``); ``interop_app`` (every leg);
               the port bench's collective keys. Each kernel's launches
               equal the calls of its entry point the phase counted;
-7. the ``{"kernels": [...]}`` line, the card's name and power limit
+7. quant    — the quantized-KV counterpart of the serving benchmark's
+              ``run_quantized``: the precision law on the chip model
+              (bf16 KV against int8 KV, then fp8 KV; 4 prompts of 512, 8
+              teacher-forced steps on the linear cache's flash route)
+              checked against ``DEFAULT_BOUNDS``; then 8 requests of the
+              bench stream served at int8 KV on the ``flash`` route and
+              on the ``paged_flash`` route (and timed in bf16 for
+              comparison), every sequence held against its standalone
+              ``paged_generate`` under the same config (tie-aware), no
+              page leaked; the pool bytes against a bf16 pool of equal
+              geometry; each decode kernel's launches equal to n_layers x
+              the decode steps that ran it;
+8. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -85,8 +99,12 @@ FFMA_LATENCY_CYCLES = 4  # a dependent FFMA's latency on Hopper
 # prefill — bf16 in/out; the kernel rounds p to bf16 before p.v (as the
 #   TPU kernel does) and the output to bf16, each ~2^-8 relative on
 #   values of order 1;
-# decode  — f32 math on both sides over the same pool values; only the
-#   summation order differs (online softmax page by page vs one softmax).
+# decode  — f32 math on both sides over the same cache values; only the
+#   summation order differs (online softmax block by block vs one
+#   softmax), and for one-byte caches where the scales are folded in
+#   (the kernels scale scores and probabilities, the plain versions
+#   dequantize first). The same for the linear, paged and exact-softmax
+#   decode kernels.
 PREFILL_ATOL = 2e-2
 DECODE_ATOL = 1e-4
 # the overlap phase: (chunks, chunk rows, calibration passes) per shape;
@@ -108,9 +126,13 @@ AGMM_SHAPE = (256, 1024, 1024)
 ALIAS_SHAPE = (8, 128)
 # sweep repetitions in the comm phase (the app's default is 10)
 SWEEP_REPS = 3
-# the serving benchmark's chip stream, cut from 32 requests to 16
+# the serving benchmark's chip stream, cut from 32 requests to 16; the
+# quant phase serves 8 of them per route
 N_REQUESTS = 16
-SERVE_CUTS = {"requests": "32 -> 16"}
+N_QUANT_REQUESTS = 8
+SERVE_CUTS = {"requests": "32 -> 16", "quant_requests": "16 -> 8"}
+# the quant phase's precision law: prompts x length, teacher-forced steps
+LAW_PROMPTS, LAW_PROMPT_LEN, LAW_STEPS = 4, 512, 8
 
 
 def emit(obj) -> None:
@@ -210,12 +232,37 @@ def prefill_case(gen, B, T, H, Hkv, D):
     return row
 
 
-def decode_case(gen, B, H, Hkv, D, P, pages, dtype):
-    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+def _cache(gen, shape, kv):
+    """Random K or V rows on the card in ``kv`` storage ("bfloat16",
+    "float32", "int8", "fp8"): (values, f32 scales of shape[:-1] or
+    None)."""
+    from hpc_patterns_tpu_torch.models.decode import _quantize_rows
 
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    if kv in ("int8", "fp8"):
+        return _quantize_rows(x, kv)
+    return x.to(getattr(torch, kv)), None
+
+
+def _kv_bytes(kv) -> int:
+    return {"float32": 4, "bfloat16": 2, "int8": 1, "fp8": 1}[kv]
+
+
+def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
+    """A paged decode kernel (``paged_decode``: kernel 6, online softmax;
+    ``paged_attention``: kernel 7, exact softmax) on ``kv`` pools through
+    a permuted table at ragged fills, against its plain version (the
+    gather route) on the same inputs."""
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+    from hpc_patterns_tpu_torch.ops import paged_attention as pa
+
+    fn = {"paged_decode": fd.flash_decode_paged,
+          "paged_attention": pa.paged_attention_decode}[kernel]
     dev = torch.device("cuda")
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
     n_pool = B * pages + 1
-    esz = torch.tensor([], dtype=dtype).element_size()
+    esz, qsz = _kv_bytes(kv), 4 if kv == "float32" else 2
+    quant = kv in ("int8", "fp8")
     # ragged fills: 0, a page's last row, the next page's first, the top,
     # the rest drawn
     pos = torch.randint(0, pages * P, (B,), generator=gen, device=dev)
@@ -224,36 +271,108 @@ def decode_case(gen, B, H, Hkv, D, P, pages, dtype):
     pos = pos.to(torch.int32)
     table = torch.randperm(n_pool, generator=gen, device=dev)[:B * pages]
     table = table.to(torch.int32).reshape(B, pages).contiguous()
-    pool_bytes = 2 * n_pool * Hkv * P * D * esz
+    pool_bytes = 2 * n_pool * Hkv * P * (D * esz + 4 * quant)
     sets = []
     for _ in range(n_sets(pool_bytes)):
-        q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
-        kp = torch.randn(n_pool, Hkv, P, D, generator=gen,
-                         device=dev).to(dtype)
-        vp = torch.randn(n_pool, Hkv, P, D, generator=gen,
-                         device=dev).to(dtype)
-        sets.append((q, kp, vp, table, pos))
-    got = fd.flash_decode_paged(*sets[0])
-    want = fd.flash_decode_paged_reference(*sets[0])
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(qdt)
+        kp, ks = _cache(gen, (n_pool, Hkv, P, D), kv)
+        vp, vs = _cache(gen, (n_pool, Hkv, P, D), kv)
+        if quant:
+            ks, vs = (ks[:, :, None, :].contiguous(),
+                      vs[:, :, None, :].contiguous())
+        sets.append((q, kp, vp, table, pos, ks, vs))
+
+    def run(q, kp, vp, tbl, p, ks, vs):
+        return fn(q, kp, vp, tbl, p, k_scale_pool=ks, v_scale_pool=vs)
+
+    def plain(q, kp, vp, tbl, p, ks, vs):
+        return fd.flash_decode_paged_reference(q, kp, vp, tbl, p,
+                                               k_scale_pool=ks,
+                                               v_scale_pool=vs)
+
+    got, want = run(*sets[0]), plain(*sets[0])
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    check(bool(torch.isfinite(got).all()), "decode output finite")
+    check(bool(torch.isfinite(got).all()), f"{kernel} output finite")
     check(err <= DECODE_ATOL,
-          f"decode {B, H, Hkv, D, P, pages, dtype}: max err {err} > "
+          f"{kernel} {B, H, Hkv, D, P, pages, kv}: max err {err} > "
           f"{DECODE_ATOL}")
-    ms = device_ms(fd.flash_decode_paged, sets)
-    plain = device_ms(fd.flash_decode_paged_reference, sets)
+    ms = device_ms(run, sets)
+    plain_ms = device_ms(plain, sets)
     live = int((pos.long() + 1).sum())  # rows this run's fills need
-    nbytes = (2 * live * Hkv * D * esz + B * H * D * esz + B * H * D * 4
-              + table.numel() * 4 + B * 4)
+    nbytes = (2 * live * Hkv * (D * esz + 4 * quant) + B * H * D * qsz
+              + B * H * D * 4 + table.numel() * 4 + B * 4)
     flops = 4.0 * H * D * live
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-    row = {"phase": "kernel", "name": "paged_decode",
+    row = {"phase": "kernel", "name": kernel,
            "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "P": P,
-                     "pages": pages, "dtype": str(dtype).split(".")[-1],
+                     "pages": pages, "kv": kv, "q": str(qdt)[6:],
                      "pos": pos.tolist()},
            "max_abs_err": err, "tol": DECODE_ATOL, "ms": ms,
-           "plain_ms": plain, "library_ms": None, "library": None,
+           "plain_ms": plain_ms, "library_ms": None, "library": None,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops, "input_sets": len(sets)}
+    emit(row)
+    return row
+
+
+def linear_decode_case(gen, B, H, Hkv, D, S, pos, kv):
+    """Kernel 5 (``flash_decode``) on a linear ``kv`` cache of S rows at
+    the shared fill ``pos``, against its plain version; the yardstick is
+    one ``scaled_dot_product_attention`` call (``enable_gqa``, a boolean
+    mask past ``pos``) on a compute-dtype cache of the same values (no
+    library call reads int8/fp8 K/V; the dequantization is made outside
+    the timing)."""
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
+    esz, qsz = _kv_bytes(kv), 4 if kv == "float32" else 2
+    quant = kv in ("int8", "fp8")
+    cache_bytes = 2 * B * Hkv * S * (D * esz + 4 * quant)
+    sets, lib_sets = [], []
+    mask = (torch.arange(S, device=dev) <= pos)[None, None, None, :]
+    for _ in range(n_sets(cache_bytes)):
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(qdt)
+        kc, ks = _cache(gen, (B, Hkv, S, D), kv)
+        vc, vs = _cache(gen, (B, Hkv, S, D), kv)
+        sets.append((q, kc, vc, ks, vs))
+        kd = fd.dequant(kc, ks) if quant else kc
+        vd = fd.dequant(vc, vs) if quant else vc
+        lib_sets.append((q[:, :, None, :], kd.to(qdt), vd.to(qdt)))
+
+    def run(q, kc, vc, ks, vs):
+        return fd.flash_decode_attention(q, kc, vc, pos, k_scale=ks,
+                                         v_scale=vs)
+
+    def plain(q, kc, vc, ks, vs):
+        return fd.flash_decode_attention_reference(q, kc, vc, pos,
+                                                   k_scale=ks, v_scale=vs)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got, want = run(*sets[0]), plain(*sets[0])
+    lib_out = sdpa(*lib_sets[0], attn_mask=mask, enable_gqa=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "flash_decode output finite")
+    check(err <= DECODE_ATOL, f"flash_decode {B, H, Hkv, D, S, pos, kv}: "
+          f"max err {err} > {DECODE_ATOL}")
+    check(lib_out.shape == (B, H, 1, D), "the SDPA yardstick's shape")
+    ms = device_ms(run, sets)
+    plain_ms = device_ms(plain, sets)
+    lib = device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                         enable_gqa=True), lib_sets)
+    live = B * (pos + 1)
+    nbytes = (2 * live * Hkv * (D * esz + 4 * quant) + B * H * D * qsz
+              + B * H * D * 4)
+    flops = 4.0 * H * D * live
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "flash_decode",
+           "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "S": S, "pos": pos,
+                     "kv": kv, "q": str(qdt)[6:]},
+           "max_abs_err": err, "tol": DECODE_ATOL, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib,
+           "library": "sdpa (enable_gqa, bool mask; compute-dtype cache)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops, "input_sets": len(sets)}
     emit(row)
@@ -262,14 +381,32 @@ def decode_case(gen, B, H, Hkv, D, P, pages, dtype):
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
     # the serving path's shapes first (those feed the kernels line)
-    pre = prefill_case(gen, 1, 512, 8, 8, 128)
+    rows["flash_prefill"] = prefill_case(gen, 1, 512, 8, 8, 128)
     prefill_case(gen, 1, 256, 8, 8, 128)
     prefill_case(gen, 1, 512, 8, 2, 128)  # GQA
-    dec = decode_case(gen, 8, 8, 8, 128, 256, 4, torch.bfloat16)
-    decode_case(gen, 8, 8, 2, 128, 256, 4, torch.bfloat16)  # GQA
-    decode_case(gen, 4, 8, 8, 64, 16, 6, torch.float32)
-    return pre, dec
+    rows["paged_decode"] = decode_case(gen, 8, 8, 8, 128, 256, 4, "bfloat16")
+    decode_case(gen, 8, 8, 2, 128, 256, 4, "bfloat16")  # GQA
+    decode_case(gen, 4, 8, 8, 64, 16, 6, "float32")
+    # the quantized decode path: kernel 6 on one-byte pools, kernel 7 on
+    # bf16 and one-byte pools, kernel 5 at the precision law's shape
+    rows["paged_decode_quant"] = decode_case(gen, 8, 8, 8, 128, 256, 4,
+                                             "int8")
+    decode_case(gen, 8, 8, 8, 128, 256, 4, "fp8")
+    decode_case(gen, 8, 8, 2, 128, 256, 4, "int8")  # GQA
+    rows["paged_attention"] = decode_case(gen, 8, 8, 8, 128, 256, 4, "int8",
+                                          "paged_attention")
+    for kv, hkv in (("bfloat16", 8), ("fp8", 8), ("int8", 2)):
+        decode_case(gen, 8, 8, hkv, 128, 256, 4, kv, "paged_attention")
+    decode_case(gen, 4, 8, 8, 64, 16, 6, "float32", "paged_attention")
+    S = LAW_PROMPT_LEN + LAW_STEPS
+    rows["flash_decode"] = linear_decode_case(gen, LAW_PROMPTS, 8, 8, 128, S,
+                                              S - 1, "int8")
+    for kv, hkv in (("bfloat16", 8), ("fp8", 8), ("int8", 2)):
+        linear_decode_case(gen, LAW_PROMPTS, 8, hkv, 128, S, S - 1, kv)
+    linear_decode_case(gen, 4, 8, 8, 64, 600, 300, "float32")
+    return rows
 
 
 def phase_serve():
@@ -320,13 +457,14 @@ def phase_serve():
 
     eng = engine()
     fa.launches = 0
-    fd.launches = 0
+    fd.launches["paged_decode"] = 0
     t0 = time.perf_counter()
     ids = [eng.submit(p, b) for p, b in reqs]
     got = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_prefill": fa.launches, "paged_decode": fd.launches}
+    launches = {"flash_prefill": fa.launches,
+                "paged_decode": fd.launches["paged_decode"]}
     out = {i: got[sid] for i, sid in enumerate(ids)}
     served = sum(len(v) for v in out.values())
 
@@ -395,6 +533,171 @@ def phase_serve():
           f"engine vs standalone: {counts} {detail}")
     check(plain_counts["mismatch"] == 0,
           f"kernel route vs plain route: {plain_counts}")
+    return launches
+
+
+def phase_quant():
+    """The quantized-KV serving check (``run_quantized``'s counterpart):
+    the precision law first, then int8 serving on both kernel routes."""
+    import dataclasses
+
+    from hpc_patterns_tpu_torch.apps.serve_app import (
+        CHIP_MODEL,
+        CHIP_SERVE,
+        TIE_TOL,
+        bench_stream,
+        engine_geometry,
+    )
+    from hpc_patterns_tpu_torch.harness.cli import resolve_kv_cache_dtype
+    from hpc_patterns_tpu_torch.models import quantization
+    from hpc_patterns_tpu_torch.models.decode import (
+        init_paged_cache,
+        paged_generate,
+    )
+    from hpc_patterns_tpu_torch.models.serving import (
+        ContinuousBatcher,
+        tie_aware_compare,
+    )
+    from hpc_patterns_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+    from hpc_patterns_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    s = CHIP_SERVE
+    dev = torch.device("cuda")
+    tie_tol = TIE_TOL[CHIP_MODEL["dtype"]]
+    cfg = TransformerConfig(**CHIP_MODEL,
+                            max_seq=s["prompt_len"] + s["max_budget"],
+                            decode_attn="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+
+    # 1. the law gate on the linear cache's flash route (kernel 5), both
+    # variants' decode steps counted
+    steps = {"n": 0}
+    step = quantization.decode_step
+
+    def counted_step(*a, **k):
+        steps["n"] += 1
+        return step(*a, **k)
+
+    rng = np.random.RandomState(7)
+    prompts = np.stack([rng.randint(0, cfg.vocab, size=LAW_PROMPT_LEN)
+                        .astype(np.int32) for _ in range(LAW_PROMPTS)])
+    laws = {}
+    quantization.decode_step = counted_step
+    fd.launches["flash_decode"] = 0
+    try:
+        for spec in ("int8", "fp8"):
+            _, kv = resolve_kv_cache_dtype(spec, note=print, device=dev)
+            t0 = time.perf_counter()
+            law = quantization.precision_law(
+                params, cfg, params,
+                dataclasses.replace(cfg, kv_cache_dtype=kv), prompts,
+                steps=LAW_STEPS)
+            laws[spec] = {"kv": kv, "greedy_agreement": law.greedy_agreement,
+                          "tv_mean": law.tv_mean, "tv_max": law.tv_max,
+                          "steps": law.steps,
+                          "seconds": time.perf_counter() - t0}
+            emit({"phase": "quant", "law": spec, **laws[spec],
+                  "bounds": quantization.DEFAULT_BOUNDS})
+            law.check()
+    finally:
+        quantization.decode_step = step
+    launches = {"flash_decode": fd.launches["flash_decode"]}
+    check(launches["flash_decode"] > 0
+          and launches["flash_decode"] == cfg.n_layers * steps["n"],
+          f"flash_decode launches {launches['flash_decode']} == n_layers x "
+          f"{steps['n']} law decode steps")
+
+    # 2. serving: 8 requests of the bench stream, int8 KV on the flash
+    # route (kernel 6q) and on the paged_flash route (kernel 7); the bf16
+    # pool served once for comparison
+    reqs = bench_stream(N_REQUESTS, s["prompt_len"], s["max_budget"],
+                        cfg.vocab)[:N_QUANT_REQUESTS]
+    geom = engine_geometry(reqs, **s)
+    served = {}
+    runs = (("bf16", cfg, None),
+            ("int8_flash", dataclasses.replace(cfg, kv_cache_dtype="int8"),
+             "paged_decode"),
+            ("int8_paged_flash",
+             dataclasses.replace(cfg, kv_cache_dtype="int8",
+                                 decode_attn="paged_flash"),
+             "paged_attention"))
+    for name, c, kernel in runs:
+        warm = ContinuousBatcher(params, c, **geom, device=dev)
+        warm.submit(reqs[0][0], 4)
+        warm.run()
+        eng = ContinuousBatcher(params, c, **geom, device=dev)
+        torch.cuda.synchronize()
+        fd.launches["paged_decode"] = 0
+        pa.launches = 0
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, b) for p, b in reqs]
+        got = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_launch = {"paged_decode": fd.launches["paged_decode"],
+                    "paged_attention": pa.launches}
+        tokens = sum(len(got[i]) for i in ids)
+        rec = {"phase": "quant", "serve": name, "kv": c.kv_cache_dtype,
+               "decode_attn": c.decode_attn, "requests": len(reqs),
+               "served_tokens": tokens, "seconds": dt,
+               "tokens_per_s": tokens / dt, "decode_steps": eng.decode_steps,
+               "admissions": eng.admissions, "launches": n_launch}
+        check(eng.free_page_count == geom["pool_pages"],
+              f"{name}: all pages back on the free list")
+        if kernel is not None:
+            other = ({"paged_decode", "paged_attention"} - {kernel}).pop()
+            check(n_launch[kernel] == cfg.n_layers * eng.decode_steps
+                  and n_launch[other] == 0,
+                  f"{name}: {kernel} launches {n_launch} == n_layers x "
+                  f"{eng.decode_steps} decode steps")
+            launches[kernel] = n_launch[kernel]
+            counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
+            detail = []
+            for i, (p, b) in zip(ids, reqs):
+                want, margins = paged_generate(
+                    params, torch.from_numpy(p)[None, :], c, b,
+                    page_size=s["page_size"], device=dev, with_margins=True)
+                want, margins = want[0].cpu().numpy(), margins[0].cpu().numpy()
+                v = tie_aware_compare(got[i], want, margins, tie_tol)
+                counts[v] += 1
+                if v != "exact":
+                    j = int(np.nonzero(got[i] != want)[0][0])
+                    detail.append({"seq": i, "verdict": v, "step": j,
+                                   "gap": float(margins[j])})
+            rec.update(oracle=counts, tie_tol=tie_tol, divergences=detail)
+            check(counts["mismatch"] == 0,
+                  f"{name}: engine vs standalone {counts} {detail}")
+        emit(rec)
+        served[name] = rec
+
+    # 3. pool bytes at equal geometry: int8 values + f32 scale pools over a
+    # bf16 pool (closed form (D + 4) / (2 D) per row and kv head)
+    def pool_bytes(c):
+        cache = init_paged_cache(c, s["slots"], geom["pages_per_seq"],
+                                 s["page_size"],
+                                 pool_pages=geom["pool_pages"] + 1,
+                                 device=dev)
+        return sum(t.numel() * t.element_size() for k, v in cache.items()
+                   if k != "table" for t in v)
+
+    q_bytes = pool_bytes(dataclasses.replace(cfg, kv_cache_dtype="int8"))
+    bf16_bytes = pool_bytes(dataclasses.replace(cfg, dtype="bfloat16"))
+    frac = q_bytes / bf16_bytes
+    want_frac = (cfg.head_dim + 4) / (2 * cfg.head_dim)
+    emit({"phase": "quant", "kv_pool_bytes": q_bytes,
+          "bf16_pool_bytes": bf16_bytes, "kv_pool_bytes_frac": frac,
+          "closed_form": want_frac, "launches": launches,
+          "law_decode_steps": steps["n"],
+          "seconds": time.perf_counter() - t_phase})
+    check(abs(frac - want_frac) < 1e-9 and 0.5 < frac < 0.55,
+          f"kv_pool_bytes_frac {frac} == (D + 4) / 2D = {want_frac}")
     return launches
 
 
@@ -998,7 +1301,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    pre, dec = phase_kernels()
+    rows = phase_kernels()
     kgen = torch.Generator(device="cuda").manual_seed(2)
     busy = busy_wait_case(kgen)
     pipe = pipeline_case(kgen)["overlap"]
@@ -1011,6 +1314,7 @@ def main() -> int:
     perm_row = fused_permute_case(cgen)
     alias_row = alias_case(cgen)
     launches_comm = phase_comm()
+    launches_quant = phase_quant()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1019,12 +1323,27 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches["flash_prefill"],
-         **{k: pre[k] for k in keys}},
+         **{k: rows["flash_prefill"][k] for k in keys}},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
          "launches": launches["paged_decode"],
-         **{k: dec[k] for k in keys}},
+         **{k: rows["paged_decode"][k] for k in keys}},
+        {"name": "flash_decode", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_decode.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
+         "launches": launches_quant["flash_decode"],
+         **{k: rows["flash_decode"][k] for k in keys}},
+        {"name": "paged_decode_quant", "route": "cuda",
+         "source": f"{PKG}/csrc/paged_decode.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
+         "launches": launches_quant["paged_decode"],
+         **{k: rows["paged_decode_quant"][k] for k in keys}},
+        {"name": "paged_attention", "route": "cuda",
+         "source": f"{PKG}/csrc/paged_attention.cu",
+         "replaces": "hpc_patterns_tpu/ops/paged_attention.py:61",
+         "launches": launches_quant["paged_attention"],
+         **{k: rows["paged_attention"][k] for k in keys}},
         {"name": "busy_wait", "route": "cuda",
          "source": f"{PKG}/csrc/busy_wait.cu",
          "replaces": "hpc_patterns_tpu/concurrency/kernels.py:32",

@@ -3,11 +3,13 @@ chip shape (``serve_app.CHIP_MODEL``/``CHIP_SERVE``, the stream of
 ``chip_smoke.py``) through ``ContinuousBatcher``, once without and once
 under ``torch.profiler``. Prints one JSON line: the wall time of both
 runs, the device's busy share (union of kernel intervals over the
-profiled wall) and device time by kernel class (the two ported kernels,
-library GEMMs, the rest) and by kernel name.
+profiled wall), device kernels per decode step, and device time by
+kernel class (the ported kernels, library GEMMs, the rest) and by kernel
+name. ``--kv-dtype`` as ``serve_app``'s.
 
     python -m hpc_patterns_tpu_torch.apps.profile_serve \\
-        [--requests 16] [--trace chiprun_out/serve_trace.json]
+        [--requests 16] [--kv-dtype int8] \\
+        [--trace serve_trace.json]
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ from hpc_patterns_tpu_torch.apps.serve_app import (
     bench_stream,
     engine_geometry,
 )
+from hpc_patterns_tpu_torch.harness.cli import (
+    add_kv_dtype_arg,
+    resolve_kv_cache_dtype,
+)
 from hpc_patterns_tpu_torch.models.serving import ContinuousBatcher
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -34,6 +40,8 @@ from hpc_patterns_tpu_torch.topology import resolve_device
 
 #: kernel-name fragments of each class (first match wins)
 CLASSES = (("paged_decode", ("paged_decode",)),
+           ("paged_attention", ("paged_attention",)),
+           ("flash_decode", ("flash_decode",)),
            ("flash_prefill", ("flash_prefill",)),
            ("gemm", ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
 
@@ -62,18 +70,26 @@ def main(argv=None) -> int:
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--trace", default=None,
                    help="also write the Chrome trace here")
+    add_kv_dtype_arg(p, default=None)
     args = p.parse_args(argv)
     dev = resolve_device(None)
     s = CHIP_SERVE
-    cfg = TransformerConfig(**CHIP_MODEL,
+    model = dict(CHIP_MODEL)
+    kv = "compute"
+    if args.kv_dtype is not None:
+        compute, kv = resolve_kv_cache_dtype(args.kv_dtype, device=dev)
+        model["dtype"] = compute or model["dtype"]
+    cfg = TransformerConfig(**model,
                             max_seq=s["prompt_len"] + s["max_budget"],
-                            decode_attn="flash")
+                            decode_attn="flash", kv_cache_dtype=kv)
     params = init_params(cfg,
                          generator=torch.Generator(device=dev).manual_seed(0),
-                         device=dev, dtype=torch.bfloat16)
+                         device=dev, dtype=getattr(torch, cfg.dtype))
     reqs = bench_stream(args.requests, s["prompt_len"], s["max_budget"],
                         cfg.vocab)
     geom = engine_geometry(reqs, **s)
+
+    steps = {}
 
     def serve() -> tuple[int, float]:
         eng = ContinuousBatcher(params, cfg, **geom, device=dev)
@@ -82,6 +98,7 @@ def main(argv=None) -> int:
             eng.submit(prompt, budget)
         got = eng.run()
         torch.cuda.synchronize(dev)
+        steps["decode"] = eng.decode_steps
         return sum(len(v) for v in got.values()), time.perf_counter() - t0
 
     serve()  # warm-up: kernel build, library init, allocator
@@ -109,10 +126,13 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "phase": "profile_serve", "device": torch.cuda.get_device_name(dev),
-        "requests": args.requests, "tokens": tokens,
+        "requests": args.requests, "dtype": cfg.dtype,
+        "kv_cache_dtype": cfg.kv_cache_dtype, "tokens": tokens,
         "wall_s": wall, "tokens_per_s": tokens / wall,
         "profiled_wall_s": wall_prof,
         "device_kernels": len(kernels),
+        "decode_steps": steps["decode"],
+        "device_kernels_per_decode_step": len(kernels) / steps["decode"],
         "device_busy_s": busy_us / 1e6 if kernels else None,
         "device_busy_frac": (busy_us / 1e6 / wall_prof) if kernels
         else None,

@@ -8,9 +8,14 @@ sequence is held against its standalone ``paged_generate``. On the card
 both run the hand-written kernels in bf16, where a batch-8 and a
 batch-1 matmul may round a near-tie differently: a divergence passes
 only where the standalone's top-1/top-2 logit gap at that step is below
-``TIE_TOL``. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
+``TIE_TOL``. ``--kv-dtype int8|fp8`` serves one-byte KV pools with
+per-row scales (the standalone runs under the same quantized config, so
+the oracle stays within one precision); ``f32``/``bf16`` set the compute
+dtype instead. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
 
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda \\
+        --kv-dtype int8
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
         --dtype float32
 """
@@ -25,6 +30,10 @@ import numpy as np
 import torch
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness.cli import (
+    add_kv_dtype_arg,
+    resolve_kv_cache_dtype,
+)
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
 from hpc_patterns_tpu_torch.models.decode import paged_generate
 from hpc_patterns_tpu_torch.models.serving import (
@@ -109,6 +118,7 @@ def build_parser():
                    choices=["learned", "rope"])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"], help="compute dtype")
+    add_kv_dtype_arg(p, default=None)
     return p
 
 
@@ -136,14 +146,19 @@ def run(args) -> int:
         print("FAILURE")
         return 1
     need = args.prompt_len + args.budget
+    dtype, kv_cache_dtype = args.dtype, "compute"
+    if args.kv_dtype is not None:
+        compute, kv_cache_dtype = resolve_kv_cache_dtype(args.kv_dtype,
+                                                         device=dev)
+        dtype = compute or dtype
     cfg = TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=need,
         n_kv_heads=args.n_kv_heads, pos_embed=args.pos_embed,
-        dtype=args.dtype, decode_attn="flash")
+        dtype=dtype, decode_attn="flash", kv_cache_dtype=kv_cache_dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, generator=gen, device=dev,
-                         dtype=torch_dtype(args.dtype))
+                         dtype=torch_dtype(dtype))
     buckets = bucket_ladder(args.prompt_len)
     pages_per_seq = ContinuousBatcher.pages_needed(
         args.prompt_len, args.budget, args.page_size,
@@ -169,7 +184,7 @@ def run(args) -> int:
     dt = time.perf_counter() - t0
     served = sum(len(v) for v in out.values())
 
-    tol = TIE_TOL[args.dtype]
+    tol = TIE_TOL[dtype]
     counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
     for i, (prompt, budget) in enumerate(reqs):
         want, margins = paged_generate(
@@ -183,7 +198,8 @@ def run(args) -> int:
                   f"standalone {want[0, :8].tolist()}...")
     leaked = pool_pages - eng.free_page_count
     ok = counts["mismatch"] == 0 and served > 0 and leaked == 0
-    print(f"serve[{dev}, {args.slots} slots, pool {pool_pages}p x "
+    print(f"serve[{dev}, {dtype}, kv {kv_cache_dtype}, "
+          f"{args.slots} slots, pool {pool_pages}p x "
           f"{args.page_size}] {args.requests} reqs, {served} tokens: "
           f"{dt:.3f}s, {served / dt:,.1f} tok/s; oracle exact "
           f"{counts['exact']}, near-tie {counts['near_tie']} (gap < {tol}),"

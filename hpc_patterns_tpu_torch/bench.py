@@ -50,6 +50,11 @@ CHUNK_ROWS = 2048
 # the CPU run keeps the JAX bench's interpreter shape and only rehearses
 # the protocol, with a short calibration and measurement
 CPU_CHUNKS, CPU_CHUNK_ROWS, CPU_CAL_PASSES, CPU_TARGET_S = 4, 8, 2, 1e-3
+# the CPU rehearsal's floor on a per-pass reading: the plain ``dma`` mode
+# costs almost nothing per pass there, so its differenced time can clamp
+# to 0 and leave the protocol with no pairs; a reading below the floor
+# counts as the floor. The card has none: a zero there stays degenerate.
+CPU_MIN_PASS_S = 1e-7
 PROBE_TRIPS = 64
 MAX_TRIPS = 4096
 CAL_PASSES = 1000
@@ -70,10 +75,12 @@ def overlap_headline(x: torch.Tensor, *, cal_passes: int = CAL_PASSES,
     tripcount, :data:`PAIRS` (serial, overlap) pairs and the median ratio.
     Returns the headline record (see the module docstring)."""
 
+    floor = CPU_MIN_PASS_S if x.device.type == "cpu" else 0.0
+
     def per_pass(mode, trips):
-        return pipeline.per_pass_seconds(x, mode, trips,
-                                         cal_passes=cal_passes,
-                                         target_s=target_s)
+        return max(floor, pipeline.per_pass_seconds(x, mode, trips,
+                                                    cal_passes=cal_passes,
+                                                    target_s=target_s))
 
     t_dma = per_pass("dma", PROBE_TRIPS)
     t_probe = per_pass("compute", PROBE_TRIPS)

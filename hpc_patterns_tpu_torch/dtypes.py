@@ -3,7 +3,9 @@
 Two tables:
 
 - :func:`torch_dtype`: the model compute dtypes a config may name
-  (``float32``, ``bfloat16``; fp8/int8 storage belongs to a later slice);
+  (``float32``, ``bfloat16``) and the one-byte KV storage dtypes
+  (``int8``, ``float8_e4m3fn``), with :func:`supports_fp8` for the
+  latter;
 - :data:`REGISTRY`: the collectives' dtype traits, the analog of the
   reference's ``mpi_datatype.hpp`` trait template (10 specializations and
   an ``MPI_BYTE`` default, mpi_datatype.hpp:24-51). Same ten entries,
@@ -21,17 +23,51 @@ import torch
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
+    # KV storage only (models/decode.py::_kv_storage_dtype)
+    "int8": torch.int8,
+    "float8_e4m3fn": torch.float8_e4m3fn,
 }
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """``"float32"`` / ``"bfloat16"`` -> the torch dtype; anything else
-    raises (fp8/int8 storage belongs to a later slice)."""
+    """A dtype name of :data:`_DTYPES` -> the torch dtype; anything else
+    raises."""
     try:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(
             f"dtype {name!r} not in {tuple(_DTYPES)}") from None
+
+
+_FP8_SUPPORT: dict[str, bool] = {}
+
+
+def supports_fp8(device=None) -> bool:
+    """Can ``device`` (default: ``cuda`` when a card is present, else
+    the CPU) run the fp8 KV pipeline: store ``float8_e4m3fn``, widen it
+    to f32 and matmul the result? Probed once per device type by running
+    that op sequence; any error reads as "no". A card also needs compute
+    capability >= 8.9 (fp8 arrived with Ada and Hopper). The counterpart
+    of ``hpc_patterns_tpu/dtypes.py::supports_fp8``: the ``--kv-dtype``
+    resolver (``harness/cli.py``) degrades fp8 to int8 with a note when
+    this fails."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type not in _FP8_SUPPORT:
+        ok = True
+        try:
+            if dev.type == "cuda":
+                ok = torch.cuda.get_device_capability(dev) >= (8, 9)
+            if ok:
+                x = torch.linspace(-1.0, 1.0, 16, device=dev)
+                q = (x * 448.0).to(torch.float8_e4m3fn)
+                a = q.float().reshape(4, 4)
+                ok = bool(torch.isfinite(a @ a).all())
+        except Exception:  # noqa: BLE001 - any failure means "no fp8"
+            ok = False
+        _FP8_SUPPORT[dev.type] = ok
+    return _FP8_SUPPORT[dev.type]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,3 +72,55 @@ def add_memory_kind_args(p: argparse.ArgumentParser) -> None:
                    const="device",
                    help="reference -S shared USM; runs in device memory")
     p.set_defaults(memory_kind="device")
+
+
+#: the serving precision knob's legal values (the JAX package's
+#: ``harness/cli.py::KV_DTYPE_CHOICES``, copied: the port imports nothing
+#: of it)
+KV_DTYPE_CHOICES = ("f32", "bf16", "int8", "fp8")
+
+#: --kv-dtype value -> (compute dtype override or None, kv_cache_dtype)
+_KV_DTYPE_MAP = {
+    "f32": ("float32", "compute"),
+    "bf16": ("bfloat16", "compute"),
+    "int8": (None, "int8"),
+    "fp8": (None, "fp8"),
+}
+
+
+def add_kv_dtype_arg(p: argparse.ArgumentParser,
+                     default: str | None = "f32") -> None:
+    """The ``--kv-dtype`` serving-precision flag."""
+    p.add_argument(
+        "--kv-dtype",
+        default=default,
+        choices=list(KV_DTYPE_CHOICES),
+        help="KV-cache precision: f32/bf16 store the compute dtype "
+             "(scale-free) and set it; int8/fp8 store one byte per "
+             "element with per-row f32 dequant scales (half the pool "
+             "bytes of bf16) and keep the compute dtype. fp8 degrades "
+             "to int8 with a note where dtypes.supports_fp8() fails",
+    )
+
+
+def resolve_kv_cache_dtype(spec: str, *, note=print, device=None):
+    """Resolve a ``--kv-dtype`` value into ``(compute_dtype_override,
+    kv_cache_dtype)``; an override of None keeps the config's dtype.
+    The one degrade point: ``fp8`` where ``device`` cannot run the fp8
+    pipeline becomes ``int8`` with a loud note."""
+    spec = (spec or "f32").strip().lower()
+    if spec not in _KV_DTYPE_MAP:
+        raise argparse.ArgumentTypeError(
+            f"--kv-dtype must be one of {KV_DTYPE_CHOICES}, got "
+            f"{spec!r}")
+    compute, kv = _KV_DTYPE_MAP[spec]
+    if kv == "fp8":
+        from hpc_patterns_tpu_torch import dtypes
+
+        if not dtypes.supports_fp8(device):
+            note("NOTE: device cannot run float8_e4m3fn "
+                 "(dtypes.supports_fp8 probe failed) - degrading "
+                 "--kv-dtype fp8 to int8 (same pool bytes, integer "
+                 "grid instead of a floating one)")
+            kv = "int8"
+    return compute, kv

@@ -1,22 +1,30 @@
-"""Prefill and paged decode: the counterpart of the paged half of
-``hpc_patterns_tpu/models/decode.py``.
+"""Prefill and decode over the linear and the paged KV cache: the
+counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
 
 - :func:`prefill` runs the prompt in one batched pass and captures each
   layer's K/V (the bucketed ``last_pos`` route included); padded
   lengths that are multiples of 128 go through the flash prefill kernel,
   others through ``full_attention`` (``decode.py:290-304``).
-- The paged cache is per-layer page pools (pool_pages, kv_heads,
-  page_size, head_dim) plus one (batch, pages_per_seq) int32 table.
-  Unlike JAX's immutable arrays, the port writes the pools IN PLACE
-  (:func:`paged_prefill`, :func:`_pool_write`): the pool is the serving
-  capacity, and a copy per write would double it.
-- :func:`paged_decode_step` routes attention by ``cfg.decode_attn``:
-  "flash" runs ``ops.flash_decode.flash_decode_paged`` (the Hopper kernel
-  on CUDA), "gather" the kernel's plain version — the table-gather
-  view of ``_paged_attend_gather`` — on any device; "paged_flash" is
-  not ported yet.
+- The KV cache stores the compute dtype, or one byte per value
+  (``cfg.kv_cache_dtype`` "int8"/"fp8") with per-row f32 dequant scales
+  (:func:`_quantize_rows`) beside it: "k_scale"/"v_scale".
+- The linear cache (:func:`init_cache`) is per-layer (B, kv_heads,
+  max_len, head_dim) buffers; :func:`decode_step` writes one row and
+  attends on the "flash" route (``ops.flash_decode.
+  flash_decode_attention``, the Hopper kernel on CUDA) or the "gather"
+  route (its plain version; "paged_flash" means gather here, as in JAX).
+  :func:`generate` composes prefill and steps, greedy or sampled.
+- The paged cache (:func:`init_paged_cache`) is per-layer page pools
+  (pool_pages, kv_heads, page_size, head_dim) plus one (batch,
+  pages_per_seq) int32 table; :func:`paged_decode_step` routes by
+  ``cfg.decode_attn``: "flash" (``flash_decode_paged``), "paged_flash"
+  (``ops.paged_attention.paged_attention_decode``, the exact-softmax
+  kernel) or "gather" (the plain table-gather view).
 
-Greedy decoding only; compute-dtype KV only.
+Unlike JAX's immutable arrays, the port writes caches and pools IN PLACE
+(a copy per write would double the serving capacity), so the step
+functions return logits only. Sampling takes a ``torch.Generator``;
+its draws cannot match JAX's threefry stream.
 """
 
 from __future__ import annotations
@@ -35,30 +43,84 @@ from hpc_patterns_tpu_torch.models.transformer import (
 )
 from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
 from hpc_patterns_tpu_torch.ops.flash_decode import (
+    _NEG_INF,
+    flash_decode_attention,
+    flash_decode_attention_reference,
     flash_decode_paged,
     flash_decode_paged_reference,
+    raw,
 )
+from hpc_patterns_tpu_torch.ops.paged_attention import paged_attention_decode
 from hpc_patterns_tpu_torch.parallel.ring_attention import full_attention
 from hpc_patterns_tpu_torch.topology import resolve_device
 
+#: KV storage dtypes carrying per-row dequant scales
+KV_QUANTIZED = ("int8", "fp8")
+
+#: float8_e4m3fn's largest finite value, the fp8 analog of int8's 127
+FP8_MAX = 448.0
+
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.kv_cache_dtype != "compute":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: quantized KV pools "
-            "are not ported yet (compute-dtype pools only)")
     if cfg.n_experts or cfg.mlp_impl != "dense":
         raise NotImplementedError("dense MLP models only in this slice")
+
+
+def _kv_quantized(cfg: TransformerConfig) -> bool:
+    return cfg.kv_cache_dtype in KV_QUANTIZED
+
+
+def _kv_storage_dtype(cfg: TransformerConfig) -> torch.dtype:
+    """The dtype KV values are stored in: the compute dtype, int8 or
+    float8_e4m3fn (one byte per value for both quantized forms)."""
+    if cfg.kv_cache_dtype == "int8":
+        return torch.int8
+    if cfg.kv_cache_dtype == "fp8":
+        return torch.float8_e4m3fn
+    return torch_dtype(cfg.dtype)
+
+
+def _quantize_rows(x, kv_dtype: str = "int8"):
+    """Per-row symmetric quantization of (..., D) rows: (values, f32
+    scales (...,)) with ``x ~= q * scale``. "int8": round half to even
+    onto the +-127 grid; "fp8": the row's amax scaled onto
+    float8_e4m3fn's +-448 and the cast rounds. The same f32 ops as JAX,
+    so equal rows give equal bytes."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    if kv_dtype == "fp8":
+        scale = torch.clamp(amax / FP8_MAX, min=1e-8)
+        q = (x32 / scale[..., None]).to(torch.float8_e4m3fn)
+    else:
+        scale = torch.clamp(amax / 127.0, min=1e-8)
+        q = torch.clamp(torch.round(x32 / scale[..., None]), -127,
+                        127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_cache(cache, cfg: TransformerConfig):
+    """Compute-dtype {"k", "v"} per-layer tuples -> the quantized form
+    with "k_scale"/"v_scale" tuples (identity for a compute-dtype cfg)."""
+    if not _kv_quantized(cfg):
+        return cache
+    out = {}
+    for name in ("k", "v"):
+        q, s = zip(*(_quantize_rows(c, cfg.kv_cache_dtype)
+                     for c in cache[name]))
+        out[name], out[name + "_scale"] = tuple(q), tuple(s)
+    return out
 
 
 def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
             last_pos=None):
     """The prompt (B, T) in one pass, capturing K/V. Returns
-    (logits (B, vocab) f32, {"k", "v"}: per-layer tuples of
-    (B, kv_heads, max_len, head_dim) caches in the compute dtype, zero
-    past T). ``last_pos``: int or (B,) — the position whose logits come
-    back (default the last): the bucketed-prompt route, where a prompt
-    right-padded to a ladder rung answers for its true end."""
+    (logits (B, vocab) f32, cache): per-layer (B, kv_heads, max_len,
+    head_dim) "k"/"v" in the compute dtype, zero past T — or, for a
+    quantized ``cfg.kv_cache_dtype``, their one-byte form plus
+    (B, kv_heads, max_len) f32 "k_scale"/"v_scale". ``last_pos``: int or
+    (B,) — the position whose logits come back (default the last): the
+    bucketed-prompt route, where a prompt right-padded to a ladder rung
+    answers for its true end."""
     _check_supported(cfg)
     B, T = prompt.shape
     if not 0 < T <= max_len <= cfg.max_seq:
@@ -100,73 +162,8 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
         x_last = x[torch.arange(B, device=x.device),
                    lp_.expand(B) if lp_.ndim == 0 else lp_]
     logits = x_last @ matmul_weight(params, "lm_head", dt)
-    return logits.float(), {"k": tuple(ks), "v": tuple(vs)}
-
-
-def init_paged_cache(cfg: TransformerConfig, batch: int,
-                     pages_per_seq: int, page_size: int,
-                     pool_pages: int | None = None, table=None, *,
-                     device=None):
-    """Zeroed per-layer page pools (pool_pages, kv_heads, page_size,
-    head_dim) in the compute dtype plus a (batch, pages_per_seq) int32
-    ``table`` (default: the identity layout, which needs a page per
-    (sequence, slot)). ``device``: default ``cuda``."""
-    _check_supported(cfg)
-    dev = resolve_device(device)
-    if pool_pages is None:
-        pool_pages = batch * pages_per_seq
-    if table is None:
-        if pool_pages < batch * pages_per_seq:
-            raise ValueError(
-                f"pool_pages {pool_pages} < batch*pages_per_seq "
-                f"{batch * pages_per_seq}: the default identity table "
-                "needs a page per (sequence, slot); pass an explicit table")
-        table = torch.arange(batch * pages_per_seq, dtype=torch.int32)
-        table = table.reshape(batch, pages_per_seq)
-    dt = torch_dtype(cfg.dtype)
-    shape = (pool_pages, cfg.kv_heads, page_size, cfg.head_dim)
-    return {
-        "k": tuple(torch.zeros(shape, dtype=dt, device=dev)
-                   for _ in range(cfg.n_layers)),
-        "v": tuple(torch.zeros(shape, dtype=dt, device=dev)
-                   for _ in range(cfg.n_layers)),
-        "table": torch.as_tensor(table, dtype=torch.int32).to(dev),
-    }
-
-
-def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
-                  page_size: int, last_pos=None):
-    """Prompt pass writing into the paged cache: :func:`prefill` captures
-    K/V at the prompt length, then each layer's pages scatter into the
-    pools through ``cache["table"]`` — IN PLACE. Returns
-    (last_logits, cache)."""
-    B, T = prompt.shape
-    P = page_size
-    t_pad = -(-T // P) * P
-    n_used = t_pad // P
-    table = cache["table"]
-    if n_used > table.shape[1]:
-        raise ValueError(f"prompt needs {n_used} pages; table has "
-                         f"{table.shape[1]}")
-    logits, lin = prefill(params, prompt, cfg, T, last_pos=last_pos)
-    idx = table[:, :n_used].long()  # (B, n_used)
-    for name in ("k", "v"):
-        for l, pool in enumerate(cache[name]):
-            a = lin[name][l]
-            if t_pad > T:
-                a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - T))
-            # (B, Hkv, t_pad, D) -> (B, n_used, Hkv, P, D) page blocks
-            pages = a.reshape(B, cfg.kv_heads, n_used, P,
-                              cfg.head_dim).transpose(1, 2)
-            pool[idx] = pages.to(pool.dtype)  # in-place scatter
-    return logits, cache
-
-
-def _pool_write(pool, page_ids, offset, rows):
-    """Write one (B, Hkv, D) K/V row per sequence into page
-    ``page_ids[b]`` at slot ``offset`` (int or (B,)) — an in-place
-    scatter into the pool (the port mutates; JAX returns a new pool)."""
-    pool[page_ids, :, offset, :] = rows.to(pool.dtype)
+    return logits.float(), _quantize_cache({"k": tuple(ks), "v": tuple(vs)},
+                                           cfg)
 
 
 def _token_step(params, pos, tokens, cfg: TransformerConfig, attend):
@@ -196,27 +193,324 @@ def _token_step(params, pos, tokens, cfg: TransformerConfig, attend):
     return (x @ matmul_weight(params, "lm_head", dt)).float()
 
 
+# ---------------------------------------------------------------------------
+# Linear KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
+               device=None):
+    """Zeroed linear cache: "k"/"v" per-layer tuples of (B, kv_heads,
+    max_len, head_dim) in the storage dtype; a quantized
+    ``cfg.kv_cache_dtype`` adds (B, kv_heads, max_len) f32
+    "k_scale"/"v_scale" tuples. ``device``: default ``cuda``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+
+    def fresh(sh, dt):
+        return tuple(torch.zeros(sh, dtype=dt, device=dev)
+                     for _ in range(cfg.n_layers))
+
+    cache = {"k": fresh(shape, _kv_storage_dtype(cfg)),
+             "v": fresh(shape, _kv_storage_dtype(cfg))}
+    if _kv_quantized(cfg):
+        cache["k_scale"] = fresh(shape[:-1], torch.float32)
+        cache["v_scale"] = fresh(shape[:-1], torch.float32)
+    return cache
+
+
+def decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
+    """One token for every sequence at the shared position ``pos`` (a
+    host int: the true current length). ``tokens`` (B,) int. Each
+    layer's new K/V row (quantized for a one-byte cache) is written in
+    place at row ``pos``, then attention runs per ``cfg.decode_attn``:
+    "flash" is ``flash_decode_attention`` (the Hopper kernel on CUDA),
+    anything else its plain version. Returns logits (B, vocab) f32."""
+    _check_supported(cfg)
+    pos = int(pos)
+    max_len = cache["k"][0].shape[2]
+    if not 0 <= pos < max_len:
+        raise ValueError(f"position {pos} outside the cache [0, {max_len})")
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    quant = _kv_quantized(cfg)
+    attend_fn = (flash_decode_attention if cfg.decode_attn == "flash"
+                 else flash_decode_attention_reference)
+
+    def attend(l, q, k_new, v_new):
+        kc, vc = cache["k"][l], cache["v"][l]
+        ks = vs = None
+        if quant:
+            ks, vs = cache["k_scale"][l], cache["v_scale"][l]
+            k_new, k_s = _quantize_rows(k_new, cfg.kv_cache_dtype)
+            v_new, v_s = _quantize_rows(v_new, cfg.kv_cache_dtype)
+            ks[:, :, pos] = k_s
+            vs[:, :, pos] = v_s
+        raw(kc)[:, :, pos] = raw(k_new.to(kc.dtype))
+        raw(vc)[:, :, pos] = raw(v_new.to(vc.dtype))
+        return attend_fn(q.contiguous(), kc, vc, pos, k_scale=ks,
+                         v_scale=vs, scale=scale)
+
+    return _token_step(params, pos, tokens, cfg, attend)
+
+
+def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig):
+    """Multi-token cache extension: ``tokens`` (B, c) at positions
+    ``pos .. pos+c-1`` against the cache, writing their K/V in place and
+    returning logits (B, c, vocab) f32 for every chunk position —
+    :func:`decode_step` generalized from c = 1 (the verification
+    primitive of speculative decoding). Query i attends rows <= pos+i.
+    Compute-dtype caches only, always the gather form (JAX
+    ``decode.py:510-583``)."""
+    if cfg.kv_cache_dtype != "compute":
+        raise ValueError("extend_step supports compute-dtype caches only")
+    _check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    B, c = tokens.shape
+    pos = int(pos)
+    S = cache["k"][0].shape[2]
+    if pos < 0 or pos + c > S:
+        raise ValueError(f"positions {pos}..{pos + c - 1} outside the "
+                         f"cache [0, {S})")
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    Hkv, g, Dh = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim
+    dev = tokens.device
+    positions = pos + torch.arange(c, device=dev)
+    x = params["embed"].to(dt)[tokens]  # (B, c, D)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"].to(dt)[pos:pos + c]
+    # query i sees cache rows <= pos + i (its own row included)
+    visible = torch.arange(S, device=dev)[None, :] <= positions[:, None]
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        kc, vc = cache["k"][l], cache["v"][l]
+        hn = _rmsnorm(x, lp["ln1_scale"])
+        q, k_new, v_new = project_qkv(hn, lp, cfg)  # (B, c, H/Hkv, Dh)
+        if cfg.pos_embed == "rope":
+            q = apply_rope(q, positions, cfg)
+            k_new = apply_rope(k_new, positions, cfg)
+        kc[:, :, pos:pos + c] = k_new.transpose(1, 2).to(dt)
+        vc[:, :, pos:pos + c] = v_new.transpose(1, 2).to(dt)
+        qg = q.reshape(B, c, Hkv, g, Dh).float()
+        s = torch.einsum("bckgd,bksd->bkgcs", qg, kc.float()) * scale
+        s = torch.where(visible, s, torch.full_like(s, _NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgcs,bksd->bckgd", p, vc.float())
+        x = x + o.reshape(B, c, cfg.d_model).to(dt) @ matmul_weight(
+            lp, "wo", dt)
+        x = mlp(x, lp, cfg)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return (x @ matmul_weight(params, "lm_head", dt)).float()
+
+
+# ---------------------------------------------------------------------------
+# Token choice and generation loops
+# ---------------------------------------------------------------------------
+
+def _topk_mask(logits, top_k: int):
+    """Top-k truncation (0 = off): everything below the kth-highest
+    logit goes to -inf; ties at the kth value all survive."""
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits >= kth, logits,
+                             torch.full_like(logits, float("-inf")))
+    return logits
+
+
+def _pick(logits, generator: torch.Generator | None = None,
+          temperature: float = 0.0, top_k: int = 0):
+    """Next token, int32: argmax (first maximal index) when
+    ``temperature <= 0``; else a draw from softmax(top-k-masked logits /
+    temperature) with ``generator`` (required then, on the logits'
+    device)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        raise ValueError("sampling (temperature > 0) needs a "
+                         "torch.Generator")
+    probs = torch.softmax(_topk_mask(logits.float(), top_k) / temperature,
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def _top2_margin(logits):
+    """top-1 minus top-2 logit per row (how close the greedy pick was
+    to a tie)."""
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _check_sampling(cfg: TransformerConfig, temperature: float,
+                    top_k: int, generator):
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a "
+                         "torch.Generator")
+    if not 0 <= top_k <= cfg.vocab:
+        raise ValueError(f"top_k {top_k} outside [0, vocab]")
+
+
+def _generation_loop(step, logits, T: int, new_tokens: int, pick,
+                     with_margins: bool):
+    """The loop shared by the linear and paged caches: pick the first
+    token from the prefill logits, then ``new_tokens - 1`` steps
+    ``step(pos, tok) -> logits``. Returns (B, new_tokens) int32 (and the
+    per-step top-1/top-2 gaps with ``with_margins``)."""
+    tok = pick(logits)
+    toks, margins = [tok], [_top2_margin(logits)] if with_margins else []
+    for i in range(new_tokens - 1):
+        logits = step(T + i, tok)
+        tok = pick(logits)
+        toks.append(tok)
+        if with_margins:
+            margins.append(_top2_margin(logits))
+    out = torch.stack(toks, dim=1)
+    if with_margins:
+        return out, torch.stack(margins, dim=1)
+    return out
+
+
+def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
+             generator: torch.Generator | None = None,
+             temperature: float = 0.0, top_k: int = 0, device=None,
+             with_margins: bool = False):
+    """Continuation tokens (B, new_tokens) int32 from a fresh linear
+    cache: one prefill, then ``new_tokens - 1`` :func:`decode_step` s.
+    Greedy by default; temperature/top-k sampling when ``temperature >
+    0`` (``generator`` required then). ``device``: default ``cuda``;
+    params and prompt must live there. ``with_margins``: also return
+    each step's top-1/top-2 logit gap (B, new_tokens) f32."""
+    dev = resolve_device(device)
+    if new_tokens < 1:
+        raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    prompt = torch.as_tensor(prompt).to(dev)
+    T = prompt.shape[1]
+    if T + new_tokens > cfg.max_seq:
+        raise ValueError(
+            f"prompt {T} + new {new_tokens} exceeds max_seq {cfg.max_seq}")
+    _check_sampling(cfg, temperature, top_k, generator)
+    logits, cache = prefill(params, prompt, cfg, T + new_tokens)
+    return _generation_loop(
+        lambda pos, tok: decode_step(params, cache, pos, tok, cfg),
+        logits, T, new_tokens,
+        lambda lg: _pick(lg, generator, temperature, top_k), with_margins)
+
+
+def greedy_generate(params, prompt, cfg: TransformerConfig,
+                    new_tokens: int, *, device=None):
+    """Greedy continuation (B, new_tokens) int32 on the linear cache."""
+    return generate(params, prompt, cfg, new_tokens, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: TransformerConfig, batch: int,
+                     pages_per_seq: int, page_size: int,
+                     pool_pages: int | None = None, table=None, *,
+                     device=None):
+    """Zeroed per-layer page pools (pool_pages, kv_heads, page_size,
+    head_dim) in the storage dtype plus a (batch, pages_per_seq) int32
+    ``table`` (default: the identity layout, which needs a page per
+    (sequence, slot)). A quantized ``cfg.kv_cache_dtype`` adds per-row
+    f32 scale pools "k_scale"/"v_scale" (pool_pages, kv_heads, 1,
+    page_size). ``device``: default ``cuda``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if pool_pages is None:
+        pool_pages = batch * pages_per_seq
+    if table is None:
+        if pool_pages < batch * pages_per_seq:
+            raise ValueError(
+                f"pool_pages {pool_pages} < batch*pages_per_seq "
+                f"{batch * pages_per_seq}: the default identity table "
+                "needs a page per (sequence, slot); pass an explicit table")
+        table = torch.arange(batch * pages_per_seq, dtype=torch.int32)
+        table = table.reshape(batch, pages_per_seq)
+
+    def fresh(sh, dt):
+        return tuple(torch.zeros(sh, dtype=dt, device=dev)
+                     for _ in range(cfg.n_layers))
+
+    dt = _kv_storage_dtype(cfg)
+    shape = (pool_pages, cfg.kv_heads, page_size, cfg.head_dim)
+    cache = {"k": fresh(shape, dt), "v": fresh(shape, dt),
+             "table": torch.as_tensor(table, dtype=torch.int32).to(dev)}
+    if _kv_quantized(cfg):
+        sshape = (pool_pages, cfg.kv_heads, 1, page_size)
+        cache["k_scale"] = fresh(sshape, torch.float32)
+        cache["v_scale"] = fresh(sshape, torch.float32)
+    return cache
+
+
+def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
+                  page_size: int, last_pos=None):
+    """Prompt pass writing into the paged cache: :func:`prefill` captures
+    (and, for a one-byte cache, quantizes) K/V at the prompt length,
+    then each layer's pages — and scale rows — scatter into the pools
+    through ``cache["table"]``, IN PLACE. Returns (last_logits, cache)."""
+    B, T = prompt.shape
+    P = page_size
+    t_pad = -(-T // P) * P
+    n_used = t_pad // P
+    table = cache["table"]
+    if n_used > table.shape[1]:
+        raise ValueError(f"prompt needs {n_used} pages; table has "
+                         f"{table.shape[1]}")
+    logits, lin = prefill(params, prompt, cfg, T, last_pos=last_pos)
+    idx = table[:, :n_used].long()  # (B, n_used)
+    Hkv, Dh = cfg.kv_heads, cfg.head_dim
+    for name in lin:
+        for l, pool in enumerate(cache[name]):
+            a = raw(lin[name][l])  # (B, Hkv, T[, D])
+            scales = a.ndim == 3
+            if scales:  # (pool, Hkv, 1, P) pools: pages as (Hkv, P, 1)
+                a = a[..., None]
+            if t_pad > T:
+                a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - T))
+            # (B, Hkv, t_pad, X) -> (B, n_used, Hkv, P, X) page blocks
+            pages = a.reshape(B, Hkv, n_used, P, a.shape[-1]).transpose(1, 2)
+            if scales:
+                pages = pages.transpose(-1, -2)
+            dst = raw(pool)
+            dst[idx] = pages.to(dst.dtype)  # in-place scatter
+    return logits, cache
+
+
+def _pool_write(pool, page_ids, offset, rows):
+    """Write one (B, Hkv, D) K/V row per sequence into page
+    ``page_ids[b]`` at slot ``offset`` (int or (B,)) — an in-place
+    scatter into the pool (the port mutates; JAX returns a new pool)."""
+    raw(pool)[page_ids, :, offset, :] = raw(rows.to(pool.dtype))
+
+
+def _scale_write(pool, page_ids, offset, rows):
+    """The scale companion of :func:`_pool_write` for the (pool_pages,
+    kv_heads, 1, page_size) scale pools: one (B, kv_heads) row of scales
+    lands at lane ``offset`` of its page."""
+    pool[page_ids, :, 0, offset] = rows.to(pool.dtype)
+
+
 def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
     """One token per sequence against the paged cache. ``tokens`` (B,);
     ``pos``: a shared int or a (B,) int32 tensor of per-sequence
-    positions (ragged). Each layer's new K/V row is written in place
-    into page ``table[b, pos // P]`` at slot ``pos % P``, then attention
-    runs per ``cfg.decode_attn``. Returns logits (B, vocab) f32; the
-    cache is updated in place.
+    positions (ragged). Each layer's new K/V row (quantized, with its
+    scales, for a one-byte cache) is written in place into page
+    ``table[b, pos // P]`` at slot ``pos % P``, then attention runs per
+    ``cfg.decode_attn``: "flash" (``flash_decode_paged``), "paged_flash"
+    (``paged_attention_decode``; both the Hopper kernels on CUDA) or
+    "gather" (the plain view on any device). Returns logits (B, vocab)
+    f32; the cache is updated in place.
 
     CONTRACT: every position < pages_per_seq * page_size. An int or CPU
     ``pos`` is checked here; a CUDA ``pos`` is not (checking would force
-    a device sync) and the kernel clamps it to the table's last page."""
+    a device sync) and the kernels clamp it to the table's last page."""
     _check_supported(cfg)
-    if cfg.decode_attn == "paged_flash":
-        raise NotImplementedError(
-            "decode_attn='paged_flash' needs the exact-softmax paged "
-            "kernel hpc_patterns_tpu/ops/paged_attention.py::"
-            "_paged_attention_kernel, not ported yet")
     table = cache["table"]
     P = cache["k"][0].shape[2]
     pages = table.shape[1]
     scale = 1.0 / (cfg.head_dim ** 0.5)
+    quant = _kv_quantized(cfg)
     ragged = torch.is_tensor(pos) and pos.ndim == 1
     if not ragged:
         pos = int(pos)
@@ -233,42 +527,44 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
     else:
         page_ids = table[:, pos // P].long()
         offset = pos % P
+    attend_fn = {"flash": flash_decode_paged,
+                 "paged_flash": paged_attention_decode}.get(cfg.decode_attn)
 
     def attend(l, q, k_new, v_new):
         k_pool, v_pool = cache["k"][l], cache["v"][l]
+        ks = vs = None
+        if quant:
+            ks, vs = cache["k_scale"][l], cache["v_scale"][l]
+            k_new, k_s = _quantize_rows(k_new, cfg.kv_cache_dtype)
+            v_new, v_s = _quantize_rows(v_new, cfg.kv_cache_dtype)
+            _scale_write(ks, page_ids, offset, k_s)
+            _scale_write(vs, page_ids, offset, v_s)
         _pool_write(k_pool, page_ids, offset, k_new)
         _pool_write(v_pool, page_ids, offset, v_new)
-        if cfg.decode_attn == "gather":
-            return flash_decode_paged_reference(q, k_pool, v_pool, table,
-                                                pos, scale)
-        return flash_decode_paged(q.contiguous(), k_pool, v_pool, table,
-                                  pos, scale=scale)
+        if attend_fn is None:
+            return flash_decode_paged_reference(
+                q, k_pool, v_pool, table, pos, scale, k_scale_pool=ks,
+                v_scale_pool=vs)
+        return attend_fn(q.contiguous(), k_pool, v_pool, table, pos,
+                         k_scale_pool=ks, v_scale_pool=vs, scale=scale)
 
     return _token_step(params, pos, tokens, cfg, attend)
 
 
-def _pick(logits):
-    """Greedy next token: argmax (first maximal index), int32."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
-def _top2_margin(logits):
-    """top-1 minus top-2 logit per row (how close the greedy pick was
-    to a tie)."""
-    top = torch.topk(logits, 2, dim=-1).values
-    return top[..., 0] - top[..., 1]
-
-
 def paged_generate(params, prompt, cfg: TransformerConfig,
                    new_tokens: int, *, page_size: int = 512,
-                   pages_per_seq: int | None = None, device=None,
+                   pages_per_seq: int | None = None,
+                   generator: torch.Generator | None = None,
+                   temperature: float = 0.0, top_k: int = 0, device=None,
                    with_margins: bool = False):
-    """Greedy continuation (B, new_tokens) int32 served from a fresh
-    paged cache: one prefill, then ``new_tokens - 1`` decode steps at a
-    shared position. ``device``: default ``cuda`` (raises without a GPU
-    unless ``device="cpu"``); params and prompt must live there.
-    ``with_margins``: also return each step's top-1/top-2 logit gap
-    (B, new_tokens) f32 — what a tie-aware comparison needs."""
+    """Continuation (B, new_tokens) int32 served from a fresh paged
+    cache: one prefill, then ``new_tokens - 1`` decode steps at a shared
+    position. Greedy by default; temperature/top-k sampling when
+    ``temperature > 0`` (``generator`` required then). ``device``:
+    default ``cuda`` (raises without a GPU unless ``device="cpu"``);
+    params and prompt must live there. ``with_margins``: also return
+    each step's top-1/top-2 logit gap (B, new_tokens) f32 — what a
+    tie-aware comparison needs."""
     dev = resolve_device(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
@@ -283,17 +579,10 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
     if pages_per_seq * page_size < need:
         raise ValueError(f"{pages_per_seq} pages of {page_size} < {need} "
                          "tokens")
+    _check_sampling(cfg, temperature, top_k, generator)
     cache = init_paged_cache(cfg, B, pages_per_seq, page_size, device=dev)
     logits, cache = paged_prefill(params, prompt, cfg, cache, page_size)
-    tok = _pick(logits)
-    toks, margins = [tok], [_top2_margin(logits)] if with_margins else []
-    for i in range(new_tokens - 1):
-        logits = paged_decode_step(params, cache, T + i, tok, cfg)
-        tok = _pick(logits)
-        toks.append(tok)
-        if with_margins:
-            margins.append(_top2_margin(logits))
-    out = torch.stack(toks, dim=1)
-    if with_margins:
-        return out, torch.stack(margins, dim=1)
-    return out
+    return _generation_loop(
+        lambda pos, tok: paged_decode_step(params, cache, pos, tok, cfg),
+        logits, T, new_tokens,
+        lambda lg: _pick(lg, generator, temperature, top_k), with_margins)

@@ -5,8 +5,9 @@
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
   (:meth:`EngineCore.pages_needed`) and returns them on completion;
-- one extra TRASH page: idle slots point their whole table row at it,
-  so their frozen decode writes land in garbage nobody reads;
+- one extra TRASH page (with its scale rows in a quantized pool): idle
+  slots point their whole table row at it, so their frozen decode
+  writes land in garbage nobody reads;
 - prompts right-pad to a bucket ladder rung (:func:`bucket_ladder`,
   :func:`pad_to_bucket`); the one-row prefill writes through the shared
   pool and its logits come from the last real token;
@@ -19,15 +20,19 @@
   re-targets the row's own last slot; an emitted ``eos_id`` pulls the
   limit down.
 
+The pool stores ``cfg.kv_cache_dtype``: the compute dtype, or int8/fp8
+values with per-row scale pools, served on any ``cfg.decode_attn``
+route ("flash", "paged_flash", "gather").
+
 Greedy only. Sampling (``temperature > 0``), preemption, tiered
 residency, prefix sharing, draft-assisted rounds, meshes, SLO tracking
 and the chaos/reqtrace hooks belong to later slices: asking for them
 raises ``ValueError``.
 
 Correctness contract: every sequence's tokens equal the standalone
-``paged_generate`` for the same prompt and budget (exactly in f32 on the
-CPU; up to near-ties where bf16 matmuls at batch 8 and batch 1 round
-differently on the card).
+``paged_generate`` for the same prompt, budget and config (exactly in f32
+on the CPU; up to near-ties where bf16 matmuls at batch 8 and batch 1
+round differently on the card).
 """
 
 from __future__ import annotations
@@ -267,9 +272,10 @@ class EngineCore:
         padded = self._bucket_len(T)
         prompt = np.zeros((padded,), np.int32)
         prompt[:T] = req.prompt  # pad K/V is cursor-masked garbage
-        one = {"k": self.cache["k"], "v": self.cache["v"],
-               "table": torch.from_numpy(row[None, :].copy()).to(
-                   self.device)}
+        # the shared pools (scale pools too, for a one-byte cache) under
+        # this row's own one-row table
+        one = dict(self.cache)
+        one["table"] = torch.from_numpy(row[None, :].copy()).to(self.device)
         logits, _ = paged_prefill(
             self.params, torch.from_numpy(prompt)[None, :].to(self.device),
             self.cfg, one, self.page_size, last_pos=T - 1)

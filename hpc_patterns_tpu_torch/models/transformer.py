@@ -8,7 +8,8 @@ Params keep the JAX layout: a plain dict with the same keys, layer
 weights stacked on a leading ``n_layers`` axis, so a JAX params tree
 maps over key for key (``models/convert.py``) and both sides compute
 the same thing from the same numbers. Weights are cast to the compute
-dtype at use, as in JAX; storing them already in that dtype
+dtype at use, as in JAX (int8-quantized ones dequantized at use:
+:func:`quantize_weights_int8`, :func:`matmul_weight`); storing them already in that dtype
 (``init_params(..., dtype=torch.bfloat16)``) gives the same numbers and
 skips the per-use cast.
 """
@@ -35,8 +36,9 @@ QUANT_SCALE_SUFFIX = "_qscale"
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX config (see its
-    docstrings for each knob); this slice runs ``attention`` in
-    ("full", "flash"), dense MLPs and compute-dtype KV caches."""
+    docstrings for each knob); the port runs ``attention`` in
+    ("full", "flash"), dense MLPs, and KV caches in the compute dtype,
+    int8 or fp8."""
     vocab: int = 32768
     d_model: int = 768
     n_heads: int = 12
@@ -162,15 +164,56 @@ def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
     return params
 
 
+def _quantize_channels(w):
+    """Per-output-channel symmetric int8 quantization of a matmul weight
+    ``(..., d_in, d_out)``: (int8 values, f32 scales ``(..., d_out)``)
+    with ``w ~= q * scale`` (JAX ``transformer.py::_quantize_channels``:
+    the same f32 ops, so the bytes agree on equal inputs)."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+#: the decode-matmul weights :func:`quantize_weights_int8` covers (every
+#: per-layer GEMM of the step, plus ``lm_head``)
+QUANTIZED_LAYER_WEIGHTS = ("wqkv", "wo", "w1", "w2")
+
+
+def quantize_weights_int8(params):
+    """Int8 weights for the decode matmuls: ``wqkv``/``wo``/``w1``/``w2``
+    per layer and ``lm_head`` become int8 values with per-output-channel
+    f32 scales under ``<name>_qscale`` sibling keys; norms and the
+    embedding stay as they are. Dequant happens at use
+    (:func:`matmul_weight`). Returns a new dict; ``params`` is not
+    changed."""
+    if "router" in params["layers"]:
+        raise ValueError(
+            "quantize_weights_int8 covers dense decode layers "
+            f"({QUANTIZED_LAYER_WEIGHTS}); MoE expert weights would need "
+            "per-expert channel scales")
+    layers = dict(params["layers"])
+    for name in QUANTIZED_LAYER_WEIGHTS:
+        layers[name], layers[name + QUANT_SCALE_SUFFIX] = _quantize_channels(
+            layers[name])
+    out = dict(params)
+    out["layers"] = layers
+    out["lm_head"], out["lm_head" + QUANT_SCALE_SUFFIX] = _quantize_channels(
+        params["lm_head"])
+    return out
+
+
 def matmul_weight(tree, name: str, dt: torch.dtype):
-    """A plain matmul weight cast to the compute dtype. A quantized tree
-    (a ``<name>_qscale`` sibling) raises: int8 weights are a later
-    slice."""
-    if name + QUANT_SCALE_SUFFIX in tree:
-        raise NotImplementedError(
-            f"quantized weight {name!r}: int8 weight serving is not "
-            "ported yet")
-    return tree[name].to(dt)
+    """The dequant-at-use accessor of a (possibly int8-quantized) matmul
+    weight: a plain weight is cast to the compute dtype; a quantized one
+    (a ``<name>_qscale`` sibling) is widened to f32, scaled per output
+    channel (the last axis) and cast to ``dt`` — JAX's order."""
+    w = tree[name]
+    qs = tree.get(name + QUANT_SCALE_SUFFIX)
+    if qs is None:
+        return w.to(dt)
+    return (w.float() * qs.float()[..., None, :]).to(dt)
 
 
 def layer_params(params, l: int):

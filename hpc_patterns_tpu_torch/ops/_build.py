@@ -6,8 +6,9 @@ build takes seconds), under ``build/`` at the repository root, and is
 loaded with ``ctypes``. Nothing builds at import: the first kernel call
 in a process builds every source at once — one ``nvcc`` per source, all
 started together — and later calls reuse the loaded libraries. A
-library's file name carries a hash of its source and flags, so an
-edited source never loads a stale binary. A failed build raises with
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header never
+loads a stale binary. A failed build raises with
 ``nvcc``'s output.
 """
 
@@ -25,8 +26,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 #: every kernel source of the package; all build together
-SOURCES = ("flash_prefill", "paged_decode", "busy_wait", "overlap_pipeline",
-           "fused_ring", "alias_inplace")
+SOURCES = ("flash_prefill", "paged_decode", "flash_decode",
+           "paged_attention", "busy_wait", "overlap_pipeline", "fused_ring",
+           "alias_inplace")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +53,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

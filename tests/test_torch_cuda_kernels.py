@@ -9,7 +9,10 @@ file imports no JAX, so it also runs where JAX is missing:
 
 Tolerances (max abs error): prefill 2e-2 (bf16 in and out, p rounded to
 bf16 before p.v as the TPU kernel does); decode 1e-4 (f32 math on both
-sides, only the summation order differs). Matmuls of the plain versions
+sides, only the summation order differs; for one-byte caches the decode
+kernels fold the scales into scores and probabilities where the plain
+versions dequantize first, one more f32 rounding per term) — the paged,
+linear and exact-softmax decode kernels alike. Matmuls of the plain versions
 run in full f32 (``allow_tf32`` off). The busy-wait and overlap-pipeline
 kernels equal their plain versions bit for bit (every step one fmaf
 rounding, checksums summed in the same order). The fused ring kernels
@@ -27,8 +30,10 @@ import torch
 from hpc_patterns_tpu_torch.comm import fused
 from hpc_patterns_tpu_torch.concurrency import commands, kernels, pipeline
 from hpc_patterns_tpu_torch.interop import device as interop_device
+from hpc_patterns_tpu_torch.models.decode import _quantize_rows
 from hpc_patterns_tpu_torch.ops import flash_attention as fa
 from hpc_patterns_tpu_torch.ops import flash_decode as fd
+from hpc_patterns_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +95,152 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     table = torch.zeros(2, 2, dtype=torch.int64, device="cuda")
     with pytest.raises(ValueError, match="int32"):
         fd.flash_decode_paged(qd, pool, pool, table, 3)
+
+
+KV_DTYPES = ["bfloat16", "float32", "int8", "fp8"]
+
+
+def _cache(gen, shape, kv, qdt):
+    """Random K or V rows in ``kv`` storage: (values, f32 scales of
+    shape[:-1] or None); compute-dtype caches take q's dtype."""
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    if kv in ("int8", "fp8"):
+        return _quantize_rows(x, kv)
+    return x.to(qdt), None
+
+
+def _qdtype(kv, f32_with=()):
+    """q's dtype: a compute-dtype cache's own; bf16 for a one-byte cache
+    unless it is in ``f32_with`` (each one-byte cache meets both q dtypes
+    across the tests below)."""
+    return (torch.float32 if kv == "float32" or kv in f32_with
+            else torch.bfloat16)
+
+
+def _pools(gen, kv, B, H, Hkv, D, P, pages, qdt):
+    n_pool = B * pages + 2
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(qdt)
+    kp, ks = _cache(gen, (n_pool, Hkv, P, D), kv, qdt)
+    vp, vs = _cache(gen, (n_pool, Hkv, P, D), kv, qdt)
+    if ks is not None:
+        ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+    table = torch.randperm(n_pool, generator=gen, device="cuda")[:B * pages]
+    return q, kp, vp, ks, vs, table.to(torch.int32).reshape(B, pages)
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D,P", [(8, 8, 128, 256), (8, 2, 128, 256),
+                                       (8, 2, 64, 16), (4, 4, 16, 16),
+                                       (4, 1, 32, 16), (8, 8, 64, 300)])
+def test_paged_decode_kernel_all_pool_dtypes(gen, kv, H, Hkv, D, P):
+    # int8/fp8 pools with scale pools through a permuted table, ragged and
+    # shared positions, MHA/GQA/MQA; P 300 streams a page in two blocks
+    B, pages = 4, 3
+    qdt = _qdtype(kv)
+    q, kp, vp, ks, vs, table = _pools(gen, kv, B, H, Hkv, D, P, pages, qdt)
+    pos = torch.tensor([0, P - 1, P, pages * P - 1], dtype=torch.int32,
+                       device="cuda")
+    for p in (pos, 2 * P - 3):
+        n = fd.launches["paged_decode"]
+        got = fd.flash_decode_paged(q, kp, vp, table, p, k_scale_pool=ks,
+                                    v_scale_pool=vs)
+        torch.cuda.synchronize()
+        assert fd.launches["paged_decode"] == n + 1
+        want = fd.flash_decode_paged_reference(q, kp, vp, table, p,
+                                               k_scale_pool=ks,
+                                               v_scale_pool=vs)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 128), (8, 2, 128), (4, 1, 64),
+                                     (4, 4, 16), (8, 4, 32)])
+def test_flash_decode_linear_kernel_matches_plain(gen, kv, H, Hkv, D):
+    # S_max 600: three 256-row blocks, the last ragged
+    B, S = 3, 600
+    qdt = _qdtype(kv, f32_with=("int8",))
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(qdt)
+    kc, ks = _cache(gen, (B, Hkv, S, D), kv, qdt)
+    vc, vs = _cache(gen, (B, Hkv, S, D), kv, qdt)
+    for pos in (0, 255, 256, 511, S - 1):
+        n = fd.launches["flash_decode"]
+        got = fd.flash_decode_attention(q, kc, vc, pos, k_scale=ks,
+                                        v_scale=vs)
+        torch.cuda.synchronize()
+        assert fd.launches["flash_decode"] == n + 1
+        want = fd.flash_decode_attention_reference(q, kc, vc, pos,
+                                                   k_scale=ks, v_scale=vs)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D,P,pages", [(8, 8, 128, 256, 4),
+                                             (8, 2, 128, 256, 4),
+                                             (8, 8, 64, 16, 7),
+                                             (4, 1, 16, 16, 3)])
+def test_paged_attention_kernel_matches_plain(gen, kv, H, Hkv, D, P, pages):
+    B = 4
+    qdt = _qdtype(kv, f32_with=("fp8",))
+    q, kp, vp, ks, vs, table = _pools(gen, kv, B, H, Hkv, D, P, pages, qdt)
+    pos = torch.tensor([0, P - 1, P + 3, pages * P - 1], dtype=torch.int32,
+                       device="cuda")
+    for p in (pos, P // 2):
+        n = pa.launches
+        got = pa.paged_attention_decode(q, kp, vp, table, p, k_scale_pool=ks,
+                                        v_scale_pool=vs)
+        torch.cuda.synchronize()
+        assert pa.launches == n + 1
+        want = fd.flash_decode_paged_reference(q, kp, vp, table, p,
+                                               k_scale_pool=ks,
+                                               v_scale_pool=vs)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_paged_attention_raises_past_its_shared_memory_budget(gen):
+    # g 8 x 8192 score rows x 4 bytes = 256 KB > 227 KB: a ValueError that
+    # names the limit, never a quiet fallback; 4096 rows still launch
+    q, kp, vp, _, _, _ = _pools(gen, "bfloat16", 1, 8, 1, 64, 256, 1,
+                                torch.bfloat16)
+    table = torch.zeros(1, 32, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="limit"):
+        pa.paged_attention_decode(q, kp, vp, table, 5)
+    got = pa.paged_attention_decode(q, kp, vp, table[:, :16], 5)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_paged_reference(q, kp, vp, table[:, :16], 5)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_decode_wrappers_reject_pool_dtypes_they_do_not_take(gen):
+    q = torch.zeros(2, 4, 64, device="cuda", dtype=torch.bfloat16)
+    table = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    sc = torch.ones(4, 4, 1, 16, device="cuda")
+    pools = {dt: torch.zeros(4, 4, 16, 64, device="cuda", dtype=dt)
+             for dt in (torch.float16, torch.float32, torch.int8,
+                        torch.float8_e4m3fn, torch.float8_e5m2)}
+    paged = (fd.flash_decode_paged, pa.paged_attention_decode)
+    for fn in paged:
+        for dt in (torch.float16, torch.float32, torch.float8_e5m2):
+            with pytest.raises(ValueError):  # not q's dtype, not one-byte
+                fn(q, pools[dt], pools[dt], table, 3)
+        with pytest.raises(ValueError, match="needs"):
+            fn(q, pools[torch.int8], pools[torch.int8], table, 3)
+        with pytest.raises(ValueError, match="float32"):
+            fn(q, pools[torch.int8], pools[torch.int8], table, 3,
+               k_scale_pool=sc.double(), v_scale_pool=sc.double())
+        with pytest.raises(ValueError, match="f32/bf16 q"):
+            fn(q.half(), pools[torch.int8], pools[torch.int8], table, 3,
+               k_scale_pool=sc, v_scale_pool=sc)
+    lin = torch.zeros(2, 4, 32, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(q, lin, lin, 3)
+    with pytest.raises(ValueError, match="refuses"):
+        fd.flash_decode_attention(q, lin.bfloat16(), lin.bfloat16(), 3,
+                                  k_scale=sc[:2, :, 0, :32],
+                                  v_scale=sc[:2, :, 0, :32])
+    with pytest.raises(ValueError, match="D in"):
+        q48 = torch.zeros(2, 4, 48, device="cuda")
+        p48 = torch.zeros(4, 4, 16, 48, device="cuda")
+        fd.flash_decode_paged(q48, p48, p48, table, 3)
 
 
 @pytest.mark.parametrize("n,trips", [(1024, 1), (1024, 7), (1024, 300),

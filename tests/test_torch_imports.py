@@ -9,6 +9,7 @@ raise instead of running on the host.
 """
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -84,6 +85,16 @@ def test_entry_points_raise_without_gpu_and_run_on_cpu(no_gpu):
                                   pages_per_seq=2, page_size=8)
     out = decode.paged_generate(params, prompt, cfg, 2, page_size=8,
                                 device="cpu")
+    assert out.shape == (1, 2)
+    # the linear cache and the quantized path: the same rule
+    qcfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode.generate(params, prompt, qcfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode.init_cache(qcfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode.init_paged_cache(qcfg, 1, 2, 8)
+    out = decode.generate(params, prompt, qcfg, 2, device="cpu")
     assert out.shape == (1, 2)
 
 

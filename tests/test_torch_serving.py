@@ -3,9 +3,13 @@ models.serving``): mixed-length requests through fewer slots than
 requests, with a bucket ladder, each sequence equal to the port's own
 standalone ``paged_generate``; every page back on the free list at the
 end; the sizing helpers equal to the JAX engine's; the greedy engine's
-tokens equal to the JAX engine's on the same params. All on the CPU in
+tokens equal to the JAX engine's on the same params; quantized pools
+(int8, fp8) on the "flash" and "paged_flash" routes, each sequence equal
+to the standalone under the same quantized config. All on the CPU in
 f32, where greedy tokens must be equal (no tolerance).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -68,6 +72,27 @@ def test_engine_equals_standalone_and_frees_every_page(model, slots):
     assert eng.free_page_count == eng.pool_pages
     assert not eng.has_work() and eng.admissions == len(reqs)
     assert (eng._table == eng.trash).all()
+
+
+@pytest.mark.parametrize("route", ["flash", "paged_flash"])
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_engine_equals_standalone(model, kv, route):
+    _, tcfg, _, tp = model
+    qcfg = dataclasses.replace(tcfg, kv_cache_dtype=kv, decode_attn=route)
+    reqs = _requests(seed=3)
+    eng = _engine(tp, qcfg)
+    # the shared pool stores one byte per value, with scale pools (the
+    # trash page's included)
+    assert eng.cache["k"][0].dtype == (torch.int8 if kv == "int8"
+                                       else torch.float8_e4m3fn)
+    assert eng.cache["k_scale"][0].shape[0] == eng.pool_pages + 1
+    ids = [eng.submit(p, b) for p, b in reqs]
+    got = eng.run()
+    for sid, (p, b) in zip(ids, reqs):
+        want = paged_generate(tp, torch.from_numpy(p)[None], qcfg, b,
+                              page_size=P, device="cpu")[0].numpy()
+        np.testing.assert_array_equal(got[sid], want)
+    assert eng.free_page_count == eng.pool_pages
 
 
 def test_engine_matches_jax_engine(model):
@@ -152,6 +177,16 @@ def test_tie_aware_compare():
     assert tsrv.tie_aware_compare([1, 2, 9, 4], want, gaps,
                                   0.05) == "mismatch"
     assert tsrv.tie_aware_compare([1, 2], want, gaps, 0.05) == "mismatch"
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_serve_app_kv_dtype_cpu_succeeds(capsys, kv):
+    rc = serve_app.main(["--device", "cpu", "--dtype", "float32",
+                         "--prompt-mix", "--requests", "4", "--slots", "2",
+                         "--n-kv-heads", "2", "--kv-dtype", kv])
+    out = capsys.readouterr().out
+    assert rc == 0 and out.strip().endswith("SUCCESS"), out
+    assert f"kv {kv}" in out and "mismatch 0" in out
 
 
 def test_serve_app_cpu_succeeds(capsys):

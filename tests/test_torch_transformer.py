@@ -119,7 +119,12 @@ def test_rmsnorm_rope_and_qkv_split_match_jax():
 
 
 def test_quantized_weight_tree_raises():
-    _, tcfg = _pair()
-    tree = {"w": torch.zeros(2, 2), "w_qscale": torch.ones(2)}
-    with pytest.raises(NotImplementedError, match="quantized"):
-        ttf.matmul_weight(tree, "w", torch.float32)
+    # int8 weights are ported: a quantized tree dequantizes at use
+    # (values times per-output-channel scales); what still raises is
+    # quantizing an MoE tree, as in JAX
+    tree = {"w": torch.tensor([[1, -2], [3, 4]], dtype=torch.int8),
+            "w_qscale": torch.tensor([0.5, 2.0])}
+    got = ttf.matmul_weight(tree, "w", torch.float32)
+    assert torch.equal(got, torch.tensor([[0.5, -4.0], [1.5, 8.0]]))
+    with pytest.raises(ValueError, match="MoE"):
+        ttf.quantize_weights_int8({"layers": {"router": torch.zeros(1)}})
