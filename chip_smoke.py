@@ -65,7 +65,30 @@ Phases, each printing JSON lines:
               page leaked; the pool bytes against a bf16 pool of equal
               geometry; each decode kernel's launches equal to n_layers x
               the decode steps that ran it;
-8. the ``{"kernels": [...]}`` line, the card's name and power limit
+8. kernel   — the training kernels (kernels 1-4) at one layer of the
+              training benchmark's step (B 8, T 2048, H 8, D 128, causal,
+              bf16): the forward with lse, the fused, dq and dkv backward
+              kernels, each against its plain version (stated tolerances)
+              and called twice for equal bits, timed beside its plain
+              version, its bound and SDPA, and both backward routes end
+              to end; the same at GQA (Hkv 2); then
+              ``flash_attention_block`` at offsets with Tq != Tk, a
+              fully-future block and dead rows, its gradients through out
+              and lse against autograd of the plain forward in f32;
+9. train    — ``train_app`` in-process at the training benchmark's chip
+              model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
+              d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
+              --resume-check and --generate 16): SUCCESS, the first loss
+              near ln 32768, the losses falling, the forward and fused
+              backward launches equal to n_layers x the gradient passes
+              counted, generate's flash_decode launches equal to n_layers
+              x its decode steps; ``eval_app`` on its checkpoint; then on
+              one batch at the checkpoint's trained params flash against
+              full attention (loss, each gradient leaf's cosine), the
+              split backward against the fused one, one step with the
+              slab limit forced to 0 (kernels 3-4), and one step profiled
+              (device-busy share, top kernels);
+10. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -107,6 +130,13 @@ FFMA_LATENCY_CYCLES = 4  # a dependent FFMA's latency on Hopper
 #   decode kernels.
 PREFILL_ATOL = 2e-2
 DECODE_ATOL = 1e-4
+# the training kernels: lse is f32 on both sides from the same bf16 scores
+# (only the summation order differs); the backward kernels' error is
+# taken over max|plain| — their outputs are bf16, and P and dS are rounded
+# to bf16 before their products (as the TPU kernels do), where an f32
+# difference in the last place can move a rounding
+LSE_ATOL = 1e-3
+BWD_RTOL = 2e-2
 # the overlap phase: (chunks, chunk rows, calibration passes) per shape;
 # each per-pass measurement aims at OVERLAP_TARGET_S of device time
 OVERLAP_SHAPES = ((16, 2048, 200), (16, 32768, 20))
@@ -133,6 +163,34 @@ N_QUANT_REQUESTS = 8
 SERVE_CUTS = {"requests": "32 -> 16", "quant_requests": "16 -> 8"}
 # the quant phase's precision law: prompts x length, teacher-forced steps
 LAW_PROMPTS, LAW_PROMPT_LEN, LAW_STEPS = 4, 512, 8
+# the training benchmark's chip model (benchmarks/bench_train.py:39-55:
+# d_ff = 4 x d_model as train_app builds it; bf16, learned positions,
+# flash attention, dense MLP and loss) and batch, run through train_app;
+# cut from bench_train's 32 amortized iterations to 8 steps
+TRAIN_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8,
+                   d_ff=4096, dtype="bfloat16")
+TRAIN_BATCH = (8, 2048)
+TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048", "--d-model",
+              "1024", "--n-layers", "8", "--n-heads", "8", "--vocab",
+              "32768", "--attention", "flash", "--resume-check",
+              "--generate", "16"]
+TRAIN_CUTS = {"iterations": "32 amortized (bench_train) -> 8 steps"}
+# flash vs full attention on one batch at the trained chip model, bf16:
+# the flash kernels round P to bf16 before P.V where the dense path keeps
+# f32; held on the loss and on every gradient leaf's 1 - cosine (the
+# worst leaf, so the attention projections' gradients cannot hide behind
+# the embedding's); the split and fused backward routes differ only in
+# where dQ is summed. Limits about 10x the readings of a sound run on the
+# H100 (loss 3.7e-6 relative; worst leaf 9.3e-6 flash vs full, 3.4e-6
+# split vs fused; PERF.md)
+TRAIN_LOSS_RTOL = 4e-5
+TRAIN_GAP_FULL = 1e-4
+TRAIN_GAP_SPLIT = 4e-5
+# the first loss against ln(vocab): at init the logits have a variance
+# near 1, which lifts the expected logsumexp by about half of it
+TRAIN_FIRST_LOSS_ATOL = 1.0
+# the training kernels' timed shape: one layer of the chip model's step
+TRAIN_KERNEL_SHAPE = dict(B=8, T=2048, H=8, Hkv=8, D=128)
 
 
 def emit(obj) -> None:
@@ -187,6 +245,14 @@ def phase_build():
                       for k, v in info.items()}})
 
 
+def _sdpa_layout(q, k, v):
+    """(B, T, H, D) -> SDPA's (B, H, T, D), K/V expanded to H heads."""
+    g = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(g, 2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(g, 2).transpose(1, 2).contiguous())
+
+
 def prefill_case(gen, B, T, H, Hkv, D):
     from hpc_patterns_tpu_torch.ops import flash_attention as fa
 
@@ -206,19 +272,12 @@ def prefill_case(gen, B, T, H, Hkv, D):
     check(bool(torch.isfinite(got).all()), "prefill output finite")
     check(err <= PREFILL_ATOL,
           f"prefill {B, T, H, Hkv, D}: max err {err} > {PREFILL_ATOL}")
-    g = H // Hkv
-
-    def lib_args(q, k, v):  # SDPA's layout, made outside the timing
-        return (q.transpose(1, 2).contiguous(),
-                k.repeat_interleave(g, 2).transpose(1, 2).contiguous(),
-                v.repeat_interleave(g, 2).transpose(1, 2).contiguous())
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = device_ms(lambda *a: fa.flash_attention(*a, causal=True), sets)
     plain = device_ms(
         lambda *a: fa.flash_attention_reference(*a, causal=True), sets)
     lib = device_ms(lambda *a: sdpa(*a, is_causal=True),
-                    [lib_args(*s) for s in sets])
+                    [_sdpa_layout(*s) for s in sets])  # made untimed
     flops = 4.0 * B * H * D * T * (T + 1) / 2  # causal q.k and p.v
     b_ms, b_by = bound(per, flops, BF16_FLOPS_PER_S)
     row = {"phase": "kernel", "name": "flash_prefill",
@@ -456,14 +515,14 @@ def phase_serve():
     torch.cuda.synchronize()
 
     eng = engine()
-    fa.launches = 0
+    fa.launches["fwd"] = 0
     fd.launches["paged_decode"] = 0
     t0 = time.perf_counter()
     ids = [eng.submit(p, b) for p, b in reqs]
     got = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_prefill": fa.launches,
+    launches = {"flash_prefill": fa.launches["fwd"],
                 "paged_decode": fd.launches["paged_decode"]}
     out = {i: got[sid] for i, sid in enumerate(ids)}
     served = sum(len(v) for v in out.values())
@@ -1286,6 +1345,401 @@ def phase_comm():
     return launches
 
 
+# ---------------------------------------------------------------- training
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_kernel_cases(gen, B, T, H, Hkv, D):
+    """Kernels 1-4 at a training shape (self-attention, causal): the
+    forward with lse, then the fused, dq and dkv backward kernels on the
+    forward kernel's out/lse, each held against its plain version and
+    called twice for equal bits; then each one's time beside its plain
+    version's, its bound and SDPA's (forward; fwd+bwd less fwd for the
+    backward rows), and both backward routes end to end."""
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    bh, bkv = B * T * H * D * 2, B * T * Hkv * D * 2  # bf16 tensor bytes
+    per = 3 * bh + 2 * bkv + 2 * B * H * T * 4
+    sets = []
+    for _ in range(n_sets(per)):
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        do = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+        out, lse = fa.flash_attention_block(q, k, v, 0, 0)
+        lse = lse.permute(0, 2, 1).contiguous()
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+        sets.append((q, k, v, do, lse, delta.contiguous(), out))
+    q, k, v, do, lse, delta, out = sets[0]
+    shape = {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "dtype": "bfloat16"}
+    rows = {}
+
+    # forward with lse
+    w_out, w_lse = fa.flash_attention_reference(q, k, v, True, with_lse=True)
+    again = fa.flash_attention_block(q, k, v, 0, 0)
+    torch.cuda.synchronize()
+    err = (out.float() - w_out.float()).abs().max().item()
+    lse_err = (lse - w_lse).abs().max().item()
+    check(bool(torch.isfinite(out).all()), "flash fwd output finite")
+    check(err <= PREFILL_ATOL and lse_err <= LSE_ATOL,
+          f"flash fwd {shape}: max err {err}, lse {lse_err}")
+    check(torch.equal(again[0], out) and torch.equal(
+        again[1].permute(0, 2, 1), lse), "flash fwd deterministic")
+    # multiply-adds of one causal product: T(T+1)/2 visible (q, k) pairs
+    tri = B * H * D * T * (T + 1) / 2
+    rows["flash_fwd_lse"] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+                             "tol": PREFILL_ATOL, "lse_tol": LSE_ATOL,
+                             "flops": 4 * tri,
+                             "bytes": 2 * bh + 2 * bkv + B * H * T * 4}
+
+    # the backward kernels
+    args = (q, k, v, do, lse, delta)
+    dk, dv, slab = fa.flash_attention_fused_bwd(*args)
+    dq = fa.flash_attention_dq(*args)
+    dk2, dv2 = fa.flash_attention_dkv(*args)
+    w_dk, w_dv, w_slab = fa.flash_attention_fused_bwd_reference(*args)
+    w_dq = fa.flash_attention_dq_reference(*args)
+    seen = fa._written(T, T, 0, 0, True, dev)[:, None, :, None]
+    seen = seen.expand_as(slab)
+    pairs = {"fused_bwd": ((dk, w_dk), (dv, w_dv),
+                           (slab[seen], w_slab[seen])),
+             "dq": ((dq, w_dq),),
+             "dkv": ((dk2, w_dk), (dv2, w_dv))}
+    # each output against BWD_RTOL x its own max|plain|; the row reports
+    # the absolute error and that relative reading beside it
+    errs = {n: max(_rel_err(a, b) for a, b in ps) for n, ps in pairs.items()}
+    abs_errs = {n: max((a.float() - b.float()).abs().max().item()
+                       for a, b in ps) for n, ps in pairs.items()}
+    del pairs
+    re = fa.flash_attention_fused_bwd(*args)
+    same = (torch.equal(re[0], dk) and torch.equal(re[1], dv)
+            and torch.equal(re[2][seen], slab[seen])
+            and torch.equal(fa.flash_attention_dq(*args), dq)
+            and all(torch.equal(a, b) for a, b in
+                    zip(fa.flash_attention_dkv(*args), (dk2, dv2))))
+    torch.cuda.synchronize()
+    check(same, f"backward kernels deterministic at {shape}")
+    for name, e in errs.items():
+        check(e <= BWD_RTOL, f"{name} {shape}: max err / max|plain| {e} > "
+              f"{BWD_RTOL}")
+    del w_dk, w_dv, w_slab, w_dq, re
+    # bytes: inputs read once, outputs written once; of the slab, only the
+    # slots of visible (kv tile, q tile) pairs are written by the kernel
+    io = 2 * bh + 2 * bkv + 2 * B * H * T * 4  # q, do, k, v, lse, delta
+    slab_bytes = sum(T - r for r in fa._unwritten_rows(T, T, 0, 0, True)) \
+        * B * H * D * 2
+    rows["fused_bwd"] = {"flops": 10 * tri, "bytes": io + 2 * bkv + slab_bytes,
+                         "slab_written_bytes": slab_bytes,
+                         "slab_bytes": slab.numel() * 2}
+    rows["dq"] = {"flops": 6 * tri, "bytes": io + bh}
+    rows["dkv"] = {"flops": 8 * tri, "bytes": io + 2 * bkv}
+    for name, e in errs.items():
+        rows[name].update(max_abs_err=abs_errs[name], max_rel_err=e,
+                          rel_tol=BWD_RTOL,
+                          rel_err_is="max abs err / max |plain|, worst "
+                          "output")
+    del dk, dv, slab, dq, dk2, dv2
+
+    # times: the kernels, their plain versions, SDPA
+    fwd = lambda q, k, v, do, lse, delta, out: fa.flash_attention_block(
+        q, k, v, 0, 0)
+    fwd_plain = lambda q, k, v, do, lse, delta, out: \
+        fa.flash_attention_reference(q, k, v, True, with_lse=True)
+    kern = {"fused_bwd": fa.flash_attention_fused_bwd,
+            "dq": fa.flash_attention_dq, "dkv": fa.flash_attention_dkv}
+    plain = {"fused_bwd": fa.flash_attention_fused_bwd_reference,
+             "dq": fa.flash_attention_dq_reference,
+             "dkv": fa.flash_attention_dkv_reference}
+    rows["flash_fwd_lse"]["ms"] = device_ms(fwd, sets)
+    rows["flash_fwd_lse"]["plain_ms"] = device_ms(fwd_plain, sets, n=5)
+    for name in kern:
+        rows[name]["ms"] = device_ms(lambda *a, f=kern[name]: f(*a[:6]),
+                                     sets)
+        rows[name]["plain_ms"] = device_ms(
+            lambda *a, f=plain[name]: f(*a[:6]), sets, n=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = []
+    for (q_, k_, v_, do_, *_) in sets:
+        lq, lk, lv = (x.requires_grad_() for x in _sdpa_layout(q_, k_, v_))
+        lib_sets.append((lq, lk, lv, do_.transpose(1, 2).contiguous()))
+    lib_fwd = device_ms(lambda q, k, v, g: sdpa(q, k, v, is_causal=True),
+                        lib_sets)
+    lib_fb = device_ms(lambda q, k, v, g: torch.autograd.grad(
+        sdpa(q, k, v, is_causal=True), (q, k, v), g), lib_sets)
+    rows["flash_fwd_lse"]["library_ms"] = lib_fwd
+    for name in kern:
+        rows[name]["library_ms"] = lib_fb - lib_fwd
+    # both routes of the whole backward (Delta, kernels, slab sum)
+    for route in ("fused", "split"):
+        rows[f"route_{route}_ms"] = device_ms(
+            lambda q, k, v, do, lse, delta, out, r=route: fa._backward(
+                q, k, v, out, lse, 0, 0, do, None, causal=True, scale=None,
+                bwd=r), sets)
+    for name in ("flash_fwd_lse", *kern):
+        r = rows[name]
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
+                                             BF16_FLOPS_PER_S)
+        emit({"phase": "kernel", "name": name, "shape": shape,
+              "library": "sdpa (is_causal; backward = fwd+bwd less fwd)",
+              "input_sets": len(sets), **r})
+    plan = fa.plan_backward(B, T, T, H, D, 2)
+    emit({"phase": "kernel", "name": "flash_bwd_routes", "shape": shape,
+          "auto_plan": plan, "fused_route_ms": rows["route_fused_ms"],
+          "split_route_ms": rows["route_split_ms"]})
+    return rows
+
+
+def block_case(gen):
+    """``flash_attention_block`` on the card at offsets with Tq != Tk, a
+    fully-future block and rows before every key (dead): out and lse
+    against the plain forward, then gradients through out AND lse against
+    autograd of the plain forward in f32, on both backward routes."""
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    results = []
+    for (Tq, Tk, qo, ko) in ((256, 512, 512, 128), (512, 256, 0, 192),
+                             (256, 256, 0, 4096)):
+        B, H, Hkv, D = 2, 8, 2, 128
+        q = torch.randn(B, Tq, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Tk, Hkv, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Tk, Hkv, D, generator=gen, device=dev).bfloat16()
+        g = torch.randn(B, Tq, H, D, generator=gen, device=dev)
+        gl = torch.randn(B, Tq, H, generator=gen, device=dev)
+        ref_in = [x.float().requires_grad_() for x in (q, k, v)]
+        w_out, w_lse = fa.flash_attention_reference(
+            *ref_in, True, q_offset=qo, k_offset=ko, with_lse=True)
+        w_lse = w_lse.permute(0, 2, 1)
+        w_grads = torch.autograd.grad(
+            (w_out * g).sum() + (w_lse.clamp_min(-30) * gl).sum(), ref_in)
+        rec = {"Tq": Tq, "Tk": Tk, "q_offset": qo, "k_offset": ko}
+        for bwd in ("fused", "split"):
+            t_in = [x.detach().requires_grad_() for x in (q, k, v)]
+            out, lse = fa.flash_attention_block(*t_in, qo, ko, bwd=bwd)
+            grads = torch.autograd.grad(
+                (out.float() * g).sum() + (lse.clamp_min(-30) * gl).sum(),
+                t_in)
+            torch.cuda.synchronize()
+            err = (out.float() - w_out.float()).abs().max().item()
+            lse_err = (lse - w_lse).abs().max().item()
+            gerr = max(_rel_err(a, b) if b.abs().max() > 0 else
+                       a.float().abs().max().item()
+                       for a, b in zip(grads, w_grads))
+            dead = max(0, min(Tq, ko - qo))  # rows before every key
+            check(err <= PREFILL_ATOL and lse_err <= LSE_ATOL
+                  and gerr <= BWD_RTOL,
+                  f"block {rec} {bwd}: out {err} lse {lse_err} grads {gerr}")
+            check(bool((out[:, :dead] == 0).all())
+                  and bool((lse[:, :dead] < -1e29).all()),
+                  f"block {rec}: {dead} dead rows give out 0, lse -1e30")
+            rec[bwd] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+                        "grad_err": gerr}
+        rec["dead_rows"] = dead
+        results.append(rec)
+    emit({"phase": "kernel", "name": "flash_attention_block",
+          "cases": results, "tol": PREFILL_ATOL, "lse_tol": LSE_ATOL,
+          "grad_tol": BWD_RTOL})
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """The leaf paths of a nested dict, in ``tree_leaves``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _cosine_gaps(names, a, b) -> dict:
+    """1 - cosine of each pair of gradient leaves, by leaf name (in f64,
+    so the reading sits above the sum's own rounding)."""
+    gaps = {}
+    for n, x, y in zip(names, a, b):
+        x, y = x.double().flatten(), y.double().flatten()
+        gaps[n] = 1.0 - (x @ y / (x.norm() * y.norm())).item()
+    return gaps
+
+
+def phase_train():
+    """``train_app`` in-process at the training benchmark's chip model,
+    ``eval_app`` on its checkpoint, then the routes on one batch: flash
+    against full attention, the split backward against the fused one,
+    one step on the split route, one profiled step."""
+    import dataclasses
+    import shutil
+
+    from hpc_patterns_tpu_torch.apps import eval_app, train_app
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.models import decode as dec
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+    from hpc_patterns_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_train"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    ckdir = logs / "ckpt"
+    passes = {"grad": 0, "decode": 0}
+    orig_make, orig_decode = train_app.make_train_step, dec.decode_step
+
+    def counting_make(cfg, **kw):
+        step = orig_make(cfg, **kw)
+
+        def counted(*a):
+            passes["grad"] += kw.get("accum_steps", 1)
+            return step(*a)
+        return counted
+
+    def counting_decode(*a, **kw):  # --generate's steps
+        passes["decode"] += 1
+        return orig_decode(*a, **kw)
+
+    for key in fa.launches:
+        fa.launches[key] = 0
+    fd.launches["flash_decode"] = 0
+    train_app.make_train_step = counting_make
+    dec.decode_step = counting_decode
+    try:
+        t0 = time.perf_counter()
+        code, recs = run_app(train_app.main, TRAIN_ARGV + [
+            "--device", "cuda", "--checkpoint-dir", str(ckdir)],
+            logs / "train.jsonl")
+        app_s = time.perf_counter() - t0
+    finally:
+        train_app.make_train_step = orig_make
+        dec.decode_step = orig_decode
+    launches = dict(fa.launches, flash_decode=fd.launches["flash_decode"])
+    steps = [r for r in recs if r.get("kind") == "step"]
+    (res,) = [r for r in recs if r.get("kind") == "result"]
+    losses = [r["loss"] for r in steps]
+    L = TRAIN_MODEL["n_layers"]
+    B, T = TRAIN_BATCH
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, max_seq=T, attention="flash")
+    n_params = sum(x.numel() for x in tr.tree_leaves(
+        tf.init_params(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev, dtype=torch.bfloat16)))
+    step_s = res["step_time_s"]
+    flops_tok = 6 * n_params + 12 * L * T * cfg.d_model * 0.5  # bench_train
+    tflops = flops_tok * B * T / step_s / 1e12
+    out = (logs / "train.out").read_text()
+    emit({"phase": "train", "argv": TRAIN_ARGV, "cuts": TRAIN_CUTS,
+          "rc": code, "success": res["success"], "losses": losses,
+          "step_ms": step_s * 1e3, "steps_ms": [r["dt_s"] * 1e3
+                                                for r in steps],
+          "tokens_per_s": res["tokens_per_s"], "n_params": n_params,
+          "model_tflops": tflops, "share_of_989": tflops / 989,
+          "launches": launches, "grad_passes": passes["grad"],
+          "decode_steps": passes["decode"],
+          "app_seconds": app_s,
+          "resume": [ln for ln in out.splitlines() if "resume" in ln]})
+    check(code == 0 and res["success"], f"train_app SUCCESS (rc {code})")
+    check(abs(losses[0] - math.log(cfg.vocab)) < TRAIN_FIRST_LOSS_ATOL,
+          f"first loss {losses[0]} near ln {cfg.vocab}")
+    check(losses[-1] < losses[0], f"losses decrease: {losses}")
+    plan = fa.plan_backward(B, T, T, cfg.n_heads, cfg.head_dim, 2)
+    check(plan["fused"] and plan["n_chunks"] == 1,
+          f"auto picks the unchunked fused route at the chip shape: {plan}")
+    check(launches["fwd_lse"] == L * passes["grad"]
+          and launches["fused_bwd"] == L * passes["grad"]
+          and launches["dq"] == 0 and launches["dkv"] == 0,
+          f"training launches == {L} layers x {passes['grad']} grad "
+          f"passes: {launches}")
+    check(launches["fwd"] == L, f"generate's prefill ran the forward once "
+          f"per layer: {launches}")
+    n_new = int(TRAIN_ARGV[TRAIN_ARGV.index("--generate") + 1])
+    check(passes["decode"] == n_new - 1
+          and launches["flash_decode"] == L * passes["decode"],
+          f"generate's {passes['decode']} decode steps ran flash_decode once "
+          f"per layer: {launches}")
+    train_launches = {"flash_fwd_lse": launches["fwd_lse"],
+                      "fused_bwd": launches["fused_bwd"],
+                      "flash_decode": launches["flash_decode"]}
+
+    code, recs = run_app(eval_app.main, [
+        "--device", "cuda", "--checkpoint-dir", str(ckdir), "--batches",
+        "2", "--batch", str(B), "--seq", str(T), "--d-model",
+        str(cfg.d_model), "--n-layers", str(L), "--n-heads",
+        str(cfg.n_heads), "--vocab", str(cfg.vocab), "--attention",
+        "flash"], logs / "eval.jsonl")
+    (ev,) = [r for r in recs if r.get("kind") == "result"]
+    emit({"phase": "train", "eval": {k: ev[k] for k in (
+        "success", "mean_nll", "perplexity", "batches")}})
+    check(code == 0 and ev["success"], f"eval_app on the checkpoint: {ev}")
+
+    # the routes on one batch, at the trained state from the checkpoint
+    params, opt_state = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    params, opt_state, _ = restore_checkpoint(ckdir, params, opt_state)
+    shutil.rmtree(ckdir)
+    leaves = tr.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    names = _leaf_names(params)
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           B, T, device=dev)
+
+    def loss_grads(c):
+        loss = tf.loss_fn(params, tokens, c)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    l_flash, g_flash = loss_grads(cfg)
+    l_full, g_full = loss_grads(dataclasses.replace(cfg, attention="full"))
+    gap_full = _cosine_gaps(names, g_flash, g_full)
+    del g_full
+    limit = fa._FUSED_SLAB_LIMIT
+    fa._FUSED_SLAB_LIMIT = 0  # the split route: kernels 3-4
+    try:
+        l_split, g_split = loss_grads(cfg)
+        gap_split = _cosine_gaps(names, g_flash, g_split)
+        del g_split
+        for key in fa.launches:
+            fa.launches[key] = 0
+        step = tr.make_train_step(cfg)
+        l_step = step(params, opt_state, tokens)[0].item()
+        split_launches = dict(fa.launches)
+    finally:
+        fa._FUSED_SLAB_LIMIT = limit
+    del g_flash
+    prof = device_profile(lambda: step(params, opt_state, tokens)[0].item())
+    worst_full = max(gap_full.values())
+    worst_split = max(gap_split.values())
+    emit({"phase": "train", "routes": {
+        "params": "trained (the checkpoint of step 8)",
+        "loss_flash": l_flash, "loss_full": l_full,
+        "loss_rel_diff": abs(l_flash - l_full) / abs(l_full),
+        "grad_gap_flash_full": gap_full, "loss_split": l_split,
+        "grad_gap_fused_split": gap_split, "loss_split_step": l_step,
+        "split_launches": split_launches},
+        "tol": {"loss_rel": TRAIN_LOSS_RTOL, "gap_full": TRAIN_GAP_FULL,
+                "gap_split": TRAIN_GAP_SPLIT},
+        "profile_one_step": prof,
+        "seconds": time.perf_counter() - t_phase})
+    check(abs(l_flash - l_full) <= TRAIN_LOSS_RTOL * abs(l_full)
+          and worst_full <= TRAIN_GAP_FULL,
+          f"flash vs full: loss {l_flash} vs {l_full}, worst leaf 1 - "
+          f"cosine {worst_full}")
+    check(l_split == l_flash and l_step == l_flash
+          and worst_split <= TRAIN_GAP_SPLIT,
+          f"split vs fused route: loss {l_split}/{l_step} vs {l_flash}, "
+          f"worst leaf 1 - cosine {worst_split}")
+    check(split_launches["dq"] == L and split_launches["dkv"] == L
+          and split_launches["fused_bwd"] == 0
+          and split_launches["fwd_lse"] == L,
+          f"the split step launched dq and dkv once per layer: "
+          f"{split_launches}")
+    train_launches.update(dq=split_launches["dq"],
+                          dkv=split_launches["dkv"])
+    return train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1315,9 +1769,17 @@ def main() -> int:
     alias_row = alias_case(cgen)
     launches_comm = phase_comm()
     launches_quant = phase_quant()
+    tgen = torch.Generator(device="cuda").manual_seed(5)
+    train_rows = train_kernel_cases(tgen, **TRAIN_KERNEL_SHAPE)
+    train_kernel_cases(tgen, **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA
+    block_case(tgen)
+    launches_train = phase_train()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the backward rows also carry the error the check holds: relative to
+    # max|plain| of each output
+    rel = ("max_rel_err", "rel_tol")
     emit({"kernels": [
         {"name": "flash_prefill", "route": "cuda",
          "source": f"{PKG}/csrc/flash_prefill.cu",
@@ -1332,7 +1794,11 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": f"{PKG}/csrc/flash_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
-         "launches": launches_quant["flash_decode"],
+         "launches": launches_quant["flash_decode"]
+         + launches_train["flash_decode"],
+         "launches_by_path": {"quant": launches_quant["flash_decode"],
+                              "train_generate":
+                              launches_train["flash_decode"]},
          **{k: rows["flash_decode"][k] for k in keys}},
         {"name": "paged_decode_quant", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
@@ -1374,6 +1840,26 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/interop/device.py:104",
          "launches": launches_comm["alias_inplace"],
          **{k: alias_row[k] for k in keys}},
+        {"name": "flash_fwd_lse", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_prefill.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
+         "launches": launches_train["flash_fwd_lse"],
+         **{k: train_rows["flash_fwd_lse"][k] for k in keys}},
+        {"name": "fused_bwd", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_attention_bwd.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_attention.py:235",
+         "launches": launches_train["fused_bwd"],
+         **{k: train_rows["fused_bwd"][k] for k in keys + rel}},
+        {"name": "dq", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_attention_bwd.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
+         "launches": launches_train["dq"],
+         **{k: train_rows["dq"][k] for k in keys + rel}},
+        {"name": "dkv", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_attention_bwd.cu",
+         "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
+         "launches": launches_train["dkv"],
+         **{k: train_rows["dkv"][k] for k in keys + rel}},
     ]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,7 +22,13 @@ Ported so far, with kernels written by hand for ``sm_90a``:
   allreduce, the all-gather matmul and the device-initiated permute, every
   rank a group of CTAs in one cooperative launch);
 - interop — ``interop/`` and ``apps/interop_app.py``;
-  ``csrc/alias_inplace.cu`` (an in-place kernel on a PyTorch buffer).
+  ``csrc/alias_inplace.cu`` (an in-place kernel on a PyTorch buffer);
+- single-device training — ``models/train.py`` (adamw + clip, the step),
+  the loss in ``models/transformer.py``, ``utils/`` (data, checkpoints),
+  ``apps/train_app.py`` and ``apps/eval_app.py``; the flash-attention
+  backward ``csrc/flash_attention_bwd.cu`` (fused, dQ and dK/dV kernels)
+  and the forward's logsumexp and global offsets in
+  ``csrc/flash_prefill.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise

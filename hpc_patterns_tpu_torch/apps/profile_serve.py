@@ -31,6 +31,7 @@ from hpc_patterns_tpu_torch.harness.cli import (
     add_kv_dtype_arg,
     resolve_kv_cache_dtype,
 )
+from hpc_patterns_tpu_torch.harness.profiling import union_us
 from hpc_patterns_tpu_torch.models.serving import ContinuousBatcher
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -51,18 +52,6 @@ def _classify(name: str) -> str:
         if any(f in name for f in frags):
             return cls
     return "other"
-
-
-def _union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def main(argv=None) -> int:
@@ -121,7 +110,7 @@ def main(argv=None) -> int:
     for name, (us, _) in by_name.items():
         cls = _classify(name)
         by_class[cls] = by_class.get(cls, 0.0) + us
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
+    busy_us = union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({

@@ -1,0 +1,295 @@
+"""Trainer app: the transformer trained end to end on one device — the
+counterpart of ``hpc_patterns_tpu/apps/train_app.py`` (its single-device
+path).
+
+Self-validating: the loss must be finite every step (the run halts at
+the first non-finite one) and fall over the run on one static batch;
+with ``--resume-check`` the state is checkpointed, restored, and one
+step from each is compared bit for bit. ``--generate N`` then decodes N
+tokens greedily from the trained params. Reports the steady-state step
+time (min over steps after the first) and tokens/s. Prints
+SUCCESS/FAILURE (exit 0/1).
+
+    python -m hpc_patterns_tpu_torch.apps.train_app --device cpu \\
+        --steps 3 --batch 2 --seq 64 --d-model 64 --n-layers 2 \\
+        --n-heads 4 --vocab 256 --attention flash --resume-check
+    python -m hpc_patterns_tpu_torch.apps.train_app --attention flash \\
+        --steps 8 --batch 8 --seq 2048 --d-model 1024 --n-layers 8 \\
+        --n-heads 8 --vocab 32768 --resume-check --generate 16
+
+Not ported yet (each prints ``ERROR: ... not ported yet`` and FAILURE):
+meshes (``--dp/--fsdp/--sp/--tp/--ep`` > 1, ``--dcn-dp``), ``--pp``,
+``--remat``, ``--n-experts``, ``--mlp-impl fused``, ``--offload-opt``,
+and the attention impls that need a mesh.
+"""
+
+from __future__ import annotations
+
+import sys
+import tempfile
+import time
+
+import torch
+
+from hpc_patterns_tpu_torch.harness.cli import base_parser
+from hpc_patterns_tpu_torch.harness.runlog import RunLog
+from hpc_patterns_tpu_torch.harness.verdict import Verdict
+from hpc_patterns_tpu_torch.models.train import (
+    init_train_state,
+    make_batch,
+    make_optimizer,
+    make_train_step,
+)
+from hpc_patterns_tpu_torch.models.transformer import (
+    ATTENTION_IMPLS,
+    TransformerConfig,
+)
+from hpc_patterns_tpu_torch.topology import resolve_device
+
+
+def build_parser():
+    p = base_parser(__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=256)
+    p.add_argument("--d-model", type=int, default=256)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--n-kv-heads", type=int, default=0,
+                   help="grouped-query attention KV heads (0 = MHA)")
+    p.add_argument("--vocab", type=int, default=1024)
+    p.add_argument("--attention", default="full",
+                   choices=list(ATTENTION_IMPLS))
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing (not ported yet)")
+    p.add_argument("--remat-policy", default="split",
+                   choices=["nothing", "attn", "dots", "dots_attn", "split"])
+    p.add_argument("--loss-chunk", type=int, default=0, metavar="C",
+                   help="online-logsumexp cross-entropy over vocab chunks "
+                        "of C (must divide --vocab): the (B,T,V) f32 logits "
+                        "never materialize (0 = dense)")
+    p.add_argument("--pos-embed", default="learned",
+                   choices=["learned", "rope"])
+    for axis in ("dp", "fsdp", "sp", "tp", "pp", "ep"):
+        p.add_argument(f"--{axis}", type=int, default=1,
+                       help="mesh axis size (only 1: meshes are not "
+                            "ported yet)")
+    p.add_argument("--dcn-dp", action="store_true",
+                   help="multi-slice placement (not ported yet)")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="microbatches per step for --pp (not ported yet)")
+    p.add_argument("--n-experts", type=int, default=0,
+                   help="MoE experts per layer (not ported yet; 0 = dense)")
+    p.add_argument("--n-experts-top-k", type=int, default=1)
+    p.add_argument("--moe-dispatch", default="auto",
+                   choices=["auto", "einsum", "scatter"])
+    p.add_argument("--mlp-impl", default="dense", choices=["dense", "fused"],
+                   help="dense MLP, or the fused MLP kernels (not ported "
+                        "yet)")
+    p.add_argument("--drop-rate-every", type=int, default=10, metavar="N",
+                   help="MoE routing-drop telemetry period (MoE only)")
+    p.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
+                   help="stream fresh synthetic batches through the async "
+                        "prefetch loader (0 = one static batch)")
+    p.add_argument("--data", default=None, metavar="TOKENS.bin",
+                   help="raw binary token file (--data-dtype) streamed via "
+                        "np.memmap instead of synthetic batches; implies "
+                        "--prefetch 2 unless set")
+    p.add_argument("--data-dtype", default="uint16",
+                   choices=["uint16", "uint32", "int32"])
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--schedule", default="constant",
+                   choices=["constant", "cosine"])
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient-accumulation micro-steps per update "
+                        "(batch must divide by it)")
+    p.add_argument("--offload-opt", action="store_true",
+                   help="host-resident optimizer moments (not ported yet)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume-check", action="store_true",
+                   help="save+restore after the run and verify one step "
+                        "from each gives the same loss, bit for bit")
+    p.add_argument("--generate", type=int, default=0, metavar="N",
+                   help="after training, greedy-decode N tokens from the "
+                        "first half of the batch with the trained params")
+    return p
+
+
+def _unported(args) -> str | None:
+    """The first flag this port cannot run yet, named, or None."""
+    for axis in ("dp", "fsdp", "sp", "tp", "ep"):
+        if getattr(args, axis) > 1:
+            return f"--{axis} {getattr(args, axis)} (meshes)"
+    checks = [(args.dcn_dp, "--dcn-dp (multi-slice meshes)"),
+              (args.pp > 1, f"--pp {args.pp} (pipeline parallelism)"),
+              (args.remat, "--remat (activation checkpointing)"),
+              (args.n_experts > 0, "--n-experts (MoE layers)"),
+              (args.mlp_impl == "fused", "--mlp-impl fused (the fused MLP "
+                                         "kernels)"),
+              (args.offload_opt, "--offload-opt (memory/)"),
+              (args.attention not in ("full", "flash"),
+               f"--attention {args.attention} (needs a mesh)")]
+    return next((what for bad, what in checks if bad), None)
+
+
+def _fail(log, msg) -> int:
+    log.print(f"ERROR: {msg}")
+    log.print("FAILURE")
+    return 1
+
+
+def _batches(args, cfg, dev):
+    """The prefetched batch stream, or None for one static batch."""
+    prefetch = args.prefetch or (2 if args.data else 0)
+    if not prefetch:
+        return None
+    from hpc_patterns_tpu_torch.utils.data import (
+        PrefetchLoader,
+        device_placer,
+        memmap_tokens,
+        synthetic_tokens,
+    )
+
+    if args.data:
+        source = memmap_tokens(args.data, batch=args.batch, seq=args.seq,
+                               dtype=args.data_dtype, steps=args.steps,
+                               vocab=cfg.vocab)
+    else:
+        source = synthetic_tokens(1, batch=args.batch, seq=args.seq,
+                                  vocab=cfg.vocab, steps=args.steps)
+    return iter(PrefetchLoader(source, depth=prefetch,
+                               place=device_placer(dev)))
+
+
+def _train_loop(args, log, cfg, dev, params, opt_state, step_fn) -> int:
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = make_batch(gen, cfg, args.batch, args.seq, device=dev)
+    batch_iter = _batches(args, cfg, dev)
+    losses, t_steps = [], []
+    ckpt_path = None
+    diverged = False
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        batch = next(batch_iter) if batch_iter is not None else tokens
+        loss, params, opt_state = step_fn(params, opt_state, batch)
+        loss_val = float(loss)  # blocks: the readback is the fence
+        t_steps.append(time.perf_counter() - t0)
+        losses.append(loss_val)
+        log.emit(kind="step", step=i, loss=loss_val, dt_s=t_steps[-1])
+        if loss_val != loss_val or abs(loss_val) == float("inf"):
+            log.print(f"ERROR: non-finite loss {loss_val} at step {i} — "
+                      f"halting early ({args.steps - 1 - i} steps skipped)")
+            diverged = True
+            break
+
+    finite = all(x == x and abs(x) != float("inf") for x in losses)
+    # one step has nothing to compare, and prefetched batches are fresh
+    # i.i.d. draws each step: finiteness is the check in those modes
+    learned = (args.steps < 2 or batch_iter is not None
+               or losses[-1] < losses[0])
+    if diverged and (args.resume_check or args.checkpoint_dir
+                     or args.generate):
+        log.print("note: checkpoint/resume/generate legs skipped "
+                  "(diverged state)")
+
+    resume_ok = True
+    if diverged:
+        pass
+    elif args.resume_check:
+        from hpc_patterns_tpu_torch.utils.checkpoint import (
+            restore_checkpoint,
+            save_checkpoint,
+        )
+
+        ckdir = args.checkpoint_dir or tempfile.mkdtemp(prefix="hpcpat_ckpt_")
+        ckpt_path = save_checkpoint(ckdir, params, opt_state, step=args.steps)
+        r_params, r_opt, r_step = restore_checkpoint(ckdir, params, opt_state)
+        loss_a = float(step_fn(params, opt_state, tokens)[0])
+        loss_b = float(step_fn(r_params, r_opt, tokens)[0])
+        resume_ok = loss_a == loss_b and r_step == args.steps
+        del r_params, r_opt
+        log.print(f"resume-check: saved {ckpt_path}, losses {loss_a:.6f} vs "
+                  f"{loss_b:.6f}")
+    elif args.checkpoint_dir:
+        from hpc_patterns_tpu_torch.utils.checkpoint import save_checkpoint
+
+        ckpt_path = save_checkpoint(args.checkpoint_dir, params, opt_state,
+                                    step=args.steps)
+        log.print(f"saved {ckpt_path}")
+
+    generate_ok = True
+    if diverged:
+        pass
+    elif args.generate and args.seq // 2 + args.generate > cfg.max_seq:
+        log.print(f"note: --generate {args.generate} skipped (prompt "
+                  f"{args.seq // 2} + N > max_seq {cfg.max_seq})")
+    elif args.generate:
+        from hpc_patterns_tpu_torch.models.decode import greedy_generate
+
+        prompt = tokens[:, :args.seq // 2]
+        with torch.no_grad():
+            toks = greedy_generate(params, prompt, cfg, args.generate,
+                                   device=dev)
+        generate_ok = (tuple(toks.shape) == (prompt.shape[0], args.generate)
+                       and int(toks.min()) >= 0
+                       and int(toks.max()) < cfg.vocab)
+        log.print(f"generate: {toks.shape[0]}x{args.generate} tokens, "
+                  f"sample {toks[0, :8].tolist()}")
+
+    ok = finite and learned and resume_ok and generate_ok
+    steady = t_steps[1:] or t_steps  # the first step builds the kernels
+    step_s = min(steady)
+    tokens_per_s = args.batch * args.seq / step_s
+    log.emit(kind="result", name="train", success=ok, steps=args.steps,
+             loss_first=losses[0], loss_last=losses[-1], step_time_s=step_s,
+             tokens_per_s=tokens_per_s, mesh=None, attention=args.attention,
+             checkpoint=ckpt_path, device=str(dev))
+    log.print(f"train[{args.attention}] {args.steps} steps: loss "
+              f"{losses[0]:.4f}->{losses[-1]:.4f}, {step_s * 1e3:.1f} ms/step,"
+              f" {tokens_per_s:,.0f} tok/s")
+    verdict = Verdict(success=ok, messages=("SUCCESS" if ok else "FAILURE",))
+    log.print(verdict.summary_line())
+    return verdict.exit_code
+
+
+def run(args) -> int:
+    log = RunLog(args.log, truncate=not args.log_append)
+    if args.prefetch < 0:
+        return _fail(log, f"--prefetch must be >= 0, got {args.prefetch}")
+    if args.steps < 1:
+        return _fail(log, f"--steps must be >= 1, got {args.steps}")
+    unported = _unported(args)
+    if unported:
+        return _fail(log, f"{unported}: not ported yet")
+    if args.remat_policy != "split":
+        return _fail(log, "--remat-policy has no effect without --remat (no "
+                          "checkpointing happens; all activations are saved)")
+    if args.accum > 1 and args.batch % args.accum:
+        return _fail(log, f"--batch {args.batch} must divide by --accum "
+                          f"{args.accum}")
+    try:
+        cfg = TransformerConfig(
+            vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+            n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,
+            attention=args.attention, n_kv_heads=args.n_kv_heads,
+            pos_embed=args.pos_embed, loss_chunk=args.loss_chunk)
+        optimizer = make_optimizer(args.lr, schedule=args.schedule,
+                                   warmup_steps=args.warmup_steps,
+                                   total_steps=args.steps)
+        step_fn = make_train_step(cfg, optimizer=optimizer,
+                                  accum_steps=args.accum)
+    except ValueError as e:
+        return _fail(log, str(e))
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt_state = init_train_state(gen, cfg, optimizer, device=dev)
+    return _train_loop(args, log, cfg, dev, params, opt_state, step_fn)
+
+
+def main(argv=None) -> int:
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,3 +32,48 @@ def maybe_trace(enabled: bool, logdir: str | None = None):
         yield logdir
     Path(logdir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def device_profile(fn, *, top: int = 5) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` (CPU + CUDA) and
+    synchronize: its host wall, the device's busy time and share (the
+    union of kernel intervals over that wall), the kernel count, and the
+    ``top`` kernels by device time. Needs a card."""
+    import time
+
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += e.time_range.end - e.time_range.start
+        rec[1] += 1
+    busy = union_us((e.time_range.start, e.time_range.end)
+                     for e in kernels) / 1e6
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_frac": busy / wall if wall > 0 else None,
+            "device_kernels": len(kernels),
+            "top_kernels": [{"name": n[:120], "s": us / 1e6, "count": c}
+                            for n, (us, c) in ranked]}

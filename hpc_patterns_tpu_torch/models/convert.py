@@ -60,3 +60,32 @@ def params_from_jax(tree, *, device=None, dtype: torch.dtype | None = None):
         return t.to(dev)
 
     return conv(tree)
+
+
+def _find_adam(state):
+    """The first node of an optax state tree with ``mu``, ``nu`` and
+    ``count`` (``ScaleByAdamState``), depth first."""
+    if all(hasattr(state, a) for a in ("mu", "nu", "count")):
+        return state
+    if isinstance(state, dict):
+        state = list(state.values())
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(state, *, device=None):
+    """optax's ``chain(clip_by_global_norm, adamw)`` state (handed over as
+    numpy leaves, e.g. ``jax.tree.map(np.asarray, opt_state)``) -> the
+    port's AdamW state ``{"mu", "nu", "count"}`` on ``device``: the adam
+    moments tree for tree, the update count as an int (the schedule's
+    count, where there is one, moves in step with it)."""
+    adam = _find_adam(state)
+    if adam is None:
+        raise ValueError("no optax adam state (mu, nu, count) in the tree")
+    return {"mu": params_from_jax(adam.mu, device=device),
+            "nu": params_from_jax(adam.nu, device=device),
+            "count": int(np.asarray(adam.count))}

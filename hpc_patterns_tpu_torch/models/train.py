@@ -1,0 +1,241 @@
+"""Training step: the counterpart of ``hpc_patterns_tpu/models/train.py``
+for one device.
+
+The step is forward (compute dtype), loss, backward through PyTorch's
+autograd (the flash route through the hand-written backward kernels),
+then the optimizer's update applied to the f32 master params IN PLACE
+under ``torch.no_grad()`` — the port's counterpart of JAX's donated,
+in-HBM update. The optimizer is optax's ``chain(clip_by_global_norm,
+adamw)`` written out, with optax's numbers:
+
+- clip scales every gradient by ``max_norm / g_norm`` (as ``(g / g_norm)
+  * max_norm``) only when ``g_norm >= max_norm`` — no epsilon, unlike
+  ``torch.nn.utils.clip_grad_norm_``;
+- Adam's moments and bias correction as ``scale_by_adam`` (b1 0.9, b2
+  0.999, eps 1e-8 outside the square root);
+- weight decay on every leaf, norms and embeddings included (optax's
+  ``adamw`` with no mask);
+- the learning-rate schedule is read at the update count *before* the
+  increment, so a warmup's first update has lr 0.
+
+Not ported yet: host-offloaded optimizer state (``offload_opt_state``,
+``residency``; they wait for ``memory/``), the per-step metrics registry
+(``record_step_metrics``), meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from hpc_patterns_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_params,
+    loss_fn,
+)
+from hpc_patterns_tpu_torch.topology import resolve_device
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict in JAX's flatten order (keys
+    sorted), so leaf-ordered sums (the global norm) follow it."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: ``init -> end`` over ``transition_steps``
+    updates, then held (a constant ``init`` if the steps are <= 0)."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count):
+        frac = 1 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with exponent 1."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs decay_steps > 0, got "
+                         f"{decay_steps}")
+
+    def schedule(count):
+        c = min(count, decay_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float):
+    """optax.warmup_cosine_decay_schedule from 0: linear warmup to the
+    peak, then cosine decay to ``end_value`` at ``decay_steps`` (warmup
+    included)."""
+    warm = linear_schedule(0.0, peak_value, warmup_steps)
+    alpha = 0.0 if peak_value == 0 else end_value / peak_value
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                                  alpha)
+    return lambda count: (warm(count) if count < warmup_steps
+                          else decay(count - warmup_steps))
+
+
+@dataclasses.dataclass
+class AdamW:
+    """optax ``chain(clip_by_global_norm(grad_clip), adamw(lr,
+    weight_decay=...))`` over nested dicts of tensors. State: ``{"mu",
+    "nu"}`` trees of f32 zeros like the params and the update ``count``."""
+    learning_rate: float | Callable[[int], float] = 3e-4
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count) if callable(lr) else lr)
+
+    def init(self, params) -> dict:
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                           requires_grad=False)
+        return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+                "count": 0}
+
+    @torch.no_grad()
+    def update(self, grads: list, state: dict, params) -> None:
+        """One update, in place: ``grads`` in :func:`tree_leaves` order of
+        ``params``; the moments, the count and the params change."""
+        ps = tree_leaves(params)
+        mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < self.grad_clip
+        count = state["count"]
+        # bias corrections and the step size in f32, as optax computes them
+        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** (count + 1)
+        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** (count + 1)
+        step = -self.lr(count)
+        for p, g, mu, nu in zip(ps, grads, mus, nus):
+            g = torch.where(keep, g, (g / g_norm) * self.grad_clip)
+            mu.mul_(self.b1).add_((1 - self.b1) * g)
+            nu.mul_(self.b2).add_((1 - self.b2) * g.square())
+            u = (mu / c1.item()) / (torch.sqrt(nu / c2.item()) + self.eps)
+            p.add_(step * (u + self.weight_decay * p))
+        state["count"] = count + 1
+
+
+def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
+                   grad_clip: float = 1.0, *, warmup_steps: int = 0,
+                   total_steps: int = 0, schedule: str = "constant") -> AdamW:
+    """adamw + global-norm clip with the JAX module's schedules:
+    ``constant`` (a linear warmup from 0 over ``warmup_steps`` first, if
+    any) or ``cosine`` (linear warmup, then cosine decay to 10% of the
+    peak at ``total_steps``, which must exceed ``warmup_steps``)."""
+    if schedule == "constant":
+        lr = (linear_schedule(0.0, learning_rate, warmup_steps)
+              if warmup_steps else learning_rate)
+    elif schedule == "cosine":
+        if total_steps <= warmup_steps:
+            raise ValueError(
+                f"cosine needs total_steps > warmup_steps, got "
+                f"{total_steps} <= {warmup_steps}")
+        lr = warmup_cosine_decay_schedule(learning_rate, warmup_steps,
+                                          total_steps, 0.1 * learning_rate)
+    else:
+        raise ValueError(f"schedule {schedule!r} not in (constant, cosine)")
+    return AdamW(lr, weight_decay, grad_clip)
+
+
+def offload_opt_state(opt_state, kind: str = "pinned_host"):
+    """Not ported yet: host-resident optimizer state waits for the
+    port's ``memory/`` (memory kinds, residency)."""
+    raise NotImplementedError(
+        "offload_opt_state is not ported yet (needs memory/)")
+
+
+def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
+                    accum_steps: int = 1, offload_opt_example=None,
+                    residency=None):
+    """``step(params, opt_state, tokens) -> (loss, params, opt_state)``:
+    the loss (f32, detached) of ``tokens`` at the params it was given,
+    then the update applied in place (the same ``params`` and
+    ``opt_state`` objects come back). ``accum_steps > 1`` splits the
+    batch into that many micro-batches and takes the mean of their
+    mean losses and gradients (accumulated in f32) before the one update
+    — the same numbers as the whole batch, at a fraction of the
+    activation memory."""
+    if offload_opt_example is not None or residency is not None:
+        raise NotImplementedError(
+            "offloaded optimizer state / residency streaming is not "
+            "ported yet (needs memory/)")
+    optimizer = optimizer or make_optimizer()
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def grads_of(params, tokens):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = loss_fn(params, tokens, cfg)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    def step(params, opt_state, tokens):
+        if accum_steps == 1:
+            loss, grads = grads_of(params, tokens)
+        else:
+            B = tokens.shape[0]
+            if B % accum_steps:
+                raise ValueError(f"batch {B} must divide by accum_steps "
+                                 f"{accum_steps}")
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in tree_leaves(params)]
+            for mb in tokens.reshape(accum_steps, B // accum_steps, -1):
+                loss_i, g_i = grads_of(params, mb)
+                loss = loss + loss_i
+                grads = [a + b for a, b in zip(grads, g_i)]
+            scale = 1.0 / accum_steps
+            loss, grads = loss * scale, [g * scale for g in grads]
+        optimizer.update(grads, opt_state, params)
+        return loss, params, opt_state
+
+    return step
+
+
+def init_train_state(generator: torch.Generator, cfg: TransformerConfig,
+                     optimizer: AdamW | None = None, *, device=None):
+    """(params, opt_state): f32 master params from ``generator`` on
+    ``device`` (default ``cuda``), requiring grad, and the optimizer's
+    zero state beside them."""
+    optimizer = optimizer or make_optimizer()
+    params = init_params(cfg, generator=generator, device=device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params, optimizer.init(params)
+
+
+def make_batch(generator: torch.Generator, cfg: TransformerConfig,
+               batch: int, seq: int, *, device=None):
+    """Synthetic (batch, seq) int32 tokens drawn from ``generator`` (on
+    its own device), moved to ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                           device=generator.device, dtype=torch.int32)
+    return tokens.to(dev)

@@ -1,8 +1,11 @@
 """Decoder-only transformer: the counterpart of
-``hpc_patterns_tpu/models/transformer.py`` for what serving needs —
-the config, parameter init, the layer pieces shared with decode
-(``_rmsnorm``, ``apply_rope``, ``project_qkv``, ``matmul_weight``) and a
-logits-only ``forward`` for the parity test.
+``hpc_patterns_tpu/models/transformer.py`` — the config, parameter init,
+the layer pieces shared with decode (``_rmsnorm``, ``apply_rope``,
+``project_qkv``, ``matmul_weight``), the trunk (``forward_hidden``,
+``forward``) and the training loss (``masked_causal_nll``,
+``chunked_masked_causal_nll``, ``loss_fn``), differentiable with
+PyTorch's autograd (the flash route through the hand-written backward
+kernels of ``ops/flash_attention.py``).
 
 Params keep the JAX layout: a plain dict with the same keys, layer
 weights stacked on a leading ``n_layers`` axis, so a JAX params tree
@@ -20,6 +23,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
 from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
@@ -267,35 +271,147 @@ def mlp(x, lp, cfg: TransformerConfig):
 
 def attention(q, k, v, cfg: TransformerConfig):
     """Causal self-attention per ``cfg.attention``: "flash" runs
-    ``ops.flash_attention`` (the Hopper kernel on CUDA), "full" the
-    dense grouped-query path. Sharded impls belong to a later slice."""
+    ``ops.flash_attention`` (the Hopper kernels on CUDA, forward and
+    backward), "full" the dense grouped-query path. Sharded impls belong
+    to a later slice."""
     if cfg.attention == "flash":
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
     if cfg.attention == "full":
         return full_attention(q, k, v, causal=True)
     raise NotImplementedError(
         f"attention {cfg.attention!r} needs a mesh; not ported yet")
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """Next-token logits (B, T, vocab) f32 for ``tokens`` (B, T)."""
-    if cfg.n_experts or cfg.mlp_impl != "dense":
-        raise NotImplementedError("dense MLP models only in this slice")
-    dt = torch_dtype(cfg.dtype)
-    B, T = tokens.shape
+def _check_trainable(cfg: TransformerConfig) -> None:
+    """The options of the JAX trunk this port does not run yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE layers (n_experts > 0) are not ported yet: they arrive with "
+            "the parallelism slice (ep axis, models/pp.py)")
+    if cfg.mlp_impl != "dense":
+        raise NotImplementedError(
+            "mlp_impl='fused' (the fused-MLP kernels) is not ported yet: it "
+            "is the next slice")
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True (and its policies, via torch.utils.checkpoint) is "
+            "not ported yet: it arrives with the fused-MLP slice")
+
+
+def _embed_tokens(params, tokens, cfg: TransformerConfig, dt):
+    """Token + learned-position embedding lookup in the compute dtype
+    (the tables are cast at use, as in JAX)."""
     x = params["embed"].to(dt)[tokens]
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"].to(dt)[:T]
+        x = x + params["pos_embed"].to(dt)[:tokens.shape[1]]
+    return x
+
+
+def _layer(x, lp, cfg: TransformerConfig):
+    """One pre-norm block: attention, output projection and residual,
+    then the dense MLP block."""
+    B, T, D = x.shape
+    h = _rmsnorm(x, lp["ln1_scale"])
+    q, k, v = project_qkv(h, lp, cfg)
+    if cfg.pos_embed == "rope":
+        pos = torch.arange(T, device=x.device)
+        q = apply_rope(q, pos, cfg)
+        k = apply_rope(k, pos, cfg)
+    o = attention(q, k, v, cfg)
+    x = x + o.reshape(B, T, D) @ matmul_weight(lp, "wo", x.dtype)
+    return mlp(x, lp, cfg)
+
+
+def forward_hidden(params, tokens, cfg: TransformerConfig):
+    """The trunk of :func:`forward` without the LM head: final-norm
+    hidden states (B, T, d_model) in the compute dtype, plus the summed
+    MoE aux loss (a zero for dense models)."""
+    _check_trainable(cfg)
+    dt = torch_dtype(cfg.dtype)
+    x = _embed_tokens(params, tokens, cfg, dt)
+    # one unbind per stacked weight: its backward stacks the per-layer
+    # grads once (indexing each layer would build L full-size zeros)
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
-        h = _rmsnorm(x, lp["ln1_scale"])
-        q, k, v = project_qkv(h, lp, cfg)
-        if cfg.pos_embed == "rope":
-            pos = torch.arange(T, device=x.device)
-            q = apply_rope(q, pos, cfg)
-            k = apply_rope(k, pos, cfg)
-        o = attention(q, k, v, cfg)
-        x = x + o.reshape(B, T, cfg.d_model) @ matmul_weight(lp, "wo", dt)
-        x = mlp(x, lp, cfg)
-    x = _rmsnorm(x, params["ln_f_scale"])
-    return (x @ matmul_weight(params, "lm_head", dt)).float()
+        x = _layer(x, {k: v[l] for k, v in layers.items()}, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _rmsnorm(x, params["ln_f_scale"]), aux
+
+
+def forward(params, tokens, cfg: TransformerConfig, *,
+            return_aux: bool = False):
+    """Next-token logits (B, T, vocab) f32 for ``tokens`` (B, T); with
+    ``return_aux`` also the MoE aux loss (zero for dense models)."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    logits = (x @ matmul_weight(params, "lm_head", x.dtype)).float()
+    return (logits, aux) if return_aux else logits
+
+
+def _last_position_mask(tokens, dtype):
+    B, T = tokens.shape
+    keep = torch.arange(T, device=tokens.device) < T - 1
+    return keep.to(dtype).expand(B, T)
+
+
+def masked_causal_nll(logits, tokens):
+    """Mean next-token NLL with the final position masked out: logits
+    (B, T, V) f32 against ``tokens`` rolled left by one."""
+    targets = torch.roll(tokens, -1, dims=1).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    nll = logz - gold
+    mask = _last_position_mask(tokens, nll.dtype)
+    return (nll * mask).sum() / mask.sum()
+
+
+def _nll_chunk(m, s, gold, x, wc, targets, lo: int):
+    """One vocab chunk of the online logsumexp: (running max, rescaled
+    sum of exps, gold logit) after logits x @ wc for vocab ids
+    lo .. lo + chunk."""
+    chunk = wc.shape[1]
+    logits_c = (x @ wc).float()
+    m_new = torch.maximum(m, logits_c.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits_c - m_new[..., None]).sum(-1)
+    local = targets - lo
+    in_chunk = (local >= 0) & (local < chunk)
+    picked = logits_c.gather(-1, local.clamp(0, chunk - 1)[..., None])[..., 0]
+    return m_new, s, torch.where(in_chunk, picked, gold)
+
+
+def chunked_masked_causal_nll(x, lm_head, tokens, *, chunk: int):
+    """:func:`masked_causal_nll` without the (B, T, V) logits: a loop over
+    vocab chunks carries the online logsumexp state and picks each
+    target's gold logit from the chunk that owns it; each chunk runs under
+    ``torch.utils.checkpoint`` (JAX's ``@jax.checkpoint`` body), so the
+    backward recomputes its logits and only the (B, T) carry is saved.
+    ``x`` (B, T, d_model) from :func:`forward_hidden`, ``lm_head``
+    (d_model, V) in the compute dtype; ``chunk`` must divide V."""
+    B, T = tokens.shape
+    V = lm_head.shape[1]
+    if V % chunk:
+        raise ValueError(f"loss chunk {chunk} must divide vocab {V}")
+    targets = torch.roll(tokens, -1, dims=1).long()
+    m = torch.full((B, T), -torch.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+    for lo in range(0, V, chunk):
+        m, s, gold = checkpoint(_nll_chunk, m, s, gold, x,
+                                lm_head[:, lo:lo + chunk], targets, lo,
+                                use_reentrant=False)
+    nll = m + torch.log(s) - gold
+    mask = _last_position_mask(tokens, nll.dtype)
+    return (nll * mask).sum() / mask.sum()
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig):
+    """Causal LM loss: predict token t+1 from the prefix up to t (mean
+    NLL), the final position masked out. ``cfg.loss_chunk`` picks the
+    chunked loss (no logits)."""
+    if cfg.loss_chunk:
+        x, _ = forward_hidden(params, tokens, cfg)
+        return chunked_masked_causal_nll(
+            x, matmul_weight(params, "lm_head", x.dtype), tokens,
+            chunk=cfg.loss_chunk)
+    return masked_causal_nll(forward(params, tokens, cfg), tokens)

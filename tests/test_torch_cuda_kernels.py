@@ -8,7 +8,11 @@ file imports no JAX, so it also runs where JAX is missing:
         tests/test_torch_cuda_kernels.py
 
 Tolerances (max abs error): prefill 2e-2 (bf16 in and out, p rounded to
-bf16 before p.v as the TPU kernel does); decode 1e-4 (f32 math on both
+bf16 before p.v as the TPU kernel does), its lse 1e-3 (f32 on both sides
+from bf16 scores: only the summation order differs); the three backward
+kernels 2e-2 x max|plain| (bf16 outputs, and P and dS rounded to bf16
+before their products, where an f32 difference in the last place can
+move a rounding); decode 1e-4 (f32 math on both
 sides, only the summation order differs; for one-byte caches the decode
 kernels fold the scales into scores and probabilities where the plain
 versions dequantize first, one more f32 rounding per term) — the paged,
@@ -53,12 +57,119 @@ def test_flash_prefill_kernel_matches_plain(gen, T, H, Hkv, D):
     q = torch.randn(2, T, H, D, generator=gen, device="cuda").bfloat16()
     k = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").bfloat16()
     v = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").bfloat16()
-    n = fa.launches
+    n = fa.launches["fwd"]
     got = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.launches == n + 1
+    assert fa.launches["fwd"] == n + 1
     want = fa.flash_attention_reference(q, k, v, causal=True)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# (B, Tq, Tk, H, Hkv, D, q_offset, k_offset, causal): the training shape's
+# heads, GQA, offsets with Tq != Tk both ways, rows before every key, a
+# fully-future block, non-causal, the small head dims
+FLASH_CASES = [(2, 256, 256, 8, 8, 128, 0, 0, True),
+               (2, 256, 256, 8, 2, 128, 0, 0, True),
+               (1, 128, 256, 4, 2, 64, 128, 0, True),
+               (1, 256, 128, 4, 4, 32, 0, 96, True),
+               (1, 128, 128, 4, 2, 16, 0, 4096, True),
+               (1, 128, 192, 4, 1, 64, 0, 0, False)]
+BWD_TOL = 2e-2
+
+
+def _flash_inputs(gen, B, Tq, Tk, H, Hkv, D):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    return r(B, Tq, H, D), r(B, Tk, Hkv, D), r(B, Tk, Hkv, D), r(B, Tq, H, D)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_with_lse_and_offsets_matches_plain(gen, case):
+    B, Tq, Tk, H, Hkv, D, qo, ko, causal = case
+    q, k, v, _ = _flash_inputs(gen, B, Tq, Tk, H, Hkv, D)
+    n = fa.launches["fwd_lse"]
+    out, lse = fa.flash_attention_block(q, k, v, qo, ko, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches["fwd_lse"] == n + 1
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, causal, q_offset=qo, k_offset=ko, with_lse=True)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    torch.testing.assert_close(lse, want_lse.permute(0, 2, 1), atol=1e-3,
+                               rtol=1e-5)
+    if ko >= qo + Tq:  # fully future: out 0, lse ~ -1e30
+        assert (out == 0).all() and (lse < -1e29).all()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_kernels_match_plain_and_are_deterministic(gen, case):
+    B, Tq, Tk, H, Hkv, D, qo, ko, causal = case
+    q, k, v, do = _flash_inputs(gen, B, Tq, Tk, H, Hkv, D)
+    out, lse = fa.flash_attention_reference(
+        q, k, v, causal, q_offset=qo, k_offset=ko, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    kw = dict(q_offset=qo, k_offset=ko, causal=causal)
+    n = dict(fa.launches)
+    dk, dv, slab = fa.flash_attention_fused_bwd(*args, **kw)
+    dq = fa.flash_attention_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert [fa.launches[x] - n[x] for x in ("fused_bwd", "dq", "dkv")] == [
+        1, 1, 1]
+    w_dk, w_dv, w_slab = fa.flash_attention_fused_bwd_reference(*args, **kw)
+    w_dq = fa.flash_attention_dq_reference(*args, **kw)
+    seen = fa._written(Tq, Tk, qo, ko, causal, q.device)[:, None, :, None]
+    seen = seen.expand_as(slab)
+    for got, want in ((dk, w_dk), (dv, w_dv), (dk2, w_dk), (dv2, w_dv),
+                      (dq, w_dq), (slab[seen], w_slab[seen])):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        if want.numel() and want.float().abs().max() > 0:
+            assert _rel(got, want) <= BWD_TOL
+        else:
+            assert (got == 0).all()
+    again = fa.flash_attention_fused_bwd(*args, **kw)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(again[2][seen], slab[seen])
+    assert torch.equal(fa.flash_attention_dq(*args, **kw), dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.flash_attention_dkv(*args, **kw), (dk2, dv2)))
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_flash_autograd_on_the_card_matches_the_plain_route(gen, bwd):
+    q, k, v, g = _flash_inputs(gen, 2, 256, 256, 4, 2, 64)
+    got = []
+    for t in ((q, k, v), (q.cpu(), k.cpu(), v.cpu())):
+        t = [x.detach().float().to(x.device).bfloat16().requires_grad_()
+             for x in t]
+        out = fa.flash_attention(*t, causal=True, bwd=bwd)
+        got.append(torch.autograd.grad(out, t, g.to(out.device)))
+    for a, b in zip(*got):
+        assert _rel(a.cpu(), b) <= BWD_TOL
+
+
+def test_flash_backward_wrappers_raise_on_what_the_kernels_take_not(gen):
+    q, k, v, do = _flash_inputs(gen, 1, 128, 128, 4, 2, 64)
+    lse = torch.zeros(1, 4, 128, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention_dq(q, k, v, do, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_dkv(q.float(), k.float(), v.float(), do.float(),
+                               lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_fused_bwd(q, k, v, do, lse[:, :, :64], lse)
+    with pytest.raises(ValueError, match="T % 64"):
+        short = lse[..., :96].contiguous()
+        fa.flash_attention_dq(q[:, :96].contiguous(), k, v,
+                              do[:, :96].contiguous(), short, short)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_dkv(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, do, lse, lse)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

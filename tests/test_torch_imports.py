@@ -122,3 +122,24 @@ def test_comm_and_interop_entry_points_raise_without_gpu(no_gpu, capsys):
     assert allreduce_app.main(["-p", "4", "--device", "cpu",
                                "--repetitions", "1"]) == 0
     capsys.readouterr()
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu, capsys):
+    from hpc_patterns_tpu_torch.apps import eval_app, train_app
+    from hpc_patterns_tpu_torch.models import train
+    from hpc_patterns_tpu_torch.utils import data
+
+    cfg = transformer.TransformerConfig(vocab=32, d_model=16, n_heads=2,
+                                        n_layers=1, d_ff=32, max_seq=64,
+                                        dtype="float32")
+    small = ["--steps", "1", "--batch", "1", "--seq", "64", "--d-model",
+             "16", "--n-layers", "1", "--n-heads", "2", "--vocab", "32"]
+    for call in (lambda: train.init_train_state(torch.Generator(), cfg),
+                 lambda: train.make_batch(torch.Generator(), cfg, 1, 8),
+                 data.device_placer,
+                 lambda: train_app.main(small),
+                 lambda: eval_app.main(small[2:] + ["--batches", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert train_app.main(small + ["--device", "cpu"]) == 0
+    capsys.readouterr()
