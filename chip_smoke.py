@@ -74,7 +74,13 @@ Phases, each printing JSON lines:
               to end; the same at GQA (Hkv 2); then
               ``flash_attention_block`` at offsets with Tq != Tk, a
               fully-future block and dead rows, its gradients through out
-              and lse against autograd of the plain forward in f32;
+              and lse against autograd of the plain forward in f32; then
+              the fused MLP kernels (kernels 8-9) at one layer's MLP of
+              the same step (N 16384, D 1024, F 4096, bf16): the forward,
+              the save-a forward, the backward's dx and dW kernels, each
+              against its plain version and twice for equal bits, timed
+              beside its bound, its plain version and the dense chain in
+              the library (forward, and its autograd backward);
 9. train    — ``train_app`` in-process at the training benchmark's chip
               model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
               d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
@@ -82,11 +88,20 @@ Phases, each printing JSON lines:
               near ln 32768, the losses falling, the forward and fused
               backward launches equal to n_layers x the gradient passes
               counted, generate's flash_decode launches equal to n_layers
-              x its decode steps; ``eval_app`` on its checkpoint; then on
-              one batch at the checkpoint's trained params flash against
-              full attention (loss, each gradient leaf's cosine), the
-              split backward against the fused one, one step with the
-              slab limit forced to 0 (kernels 3-4), and one step profiled
+              x its decode steps; then on the same seed and batch with
+              --mlp-impl fused (8 steps), and with it --remat under the
+              split and nothing policies (5 steps each): SUCCESS, step
+              time, tokens/s and peak memory of every run, the losses
+              equal to the fused run's, each kernel's launches equal to
+              n_layers x the gradient passes (the MLP and flash forwards
+              twice under nothing, once under split); ``eval_app`` on the
+              dense checkpoint; then on one batch at the checkpoint's
+              trained params flash against full attention (loss, each
+              gradient leaf's cosine), the split backward against the
+              fused one, the fused MLP against the dense one and the
+              kernel backward against the save-a one (``xla_a``: the
+              save-a forward once per layer), one step with the slab
+              limit forced to 0 (kernels 3-4), and one step profiled
               (device-busy share, top kernels);
 10. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -170,11 +185,26 @@ LAW_PROMPTS, LAW_PROMPT_LEN, LAW_STEPS = 4, 512, 8
 TRAIN_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8,
                    d_ff=4096, dtype="bfloat16")
 TRAIN_BATCH = (8, 2048)
-TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048", "--d-model",
-              "1024", "--n-layers", "8", "--n-heads", "8", "--vocab",
-              "32768", "--attention", "flash", "--resume-check",
-              "--generate", "16"]
-TRAIN_CUTS = {"iterations": "32 amortized (bench_train) -> 8 steps"}
+TRAIN_BASE = ["--batch", "8", "--seq", "2048", "--d-model", "1024",
+              "--n-layers", "8", "--n-heads", "8", "--vocab", "32768",
+              "--attention", "flash"]
+TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
+              "16"]
+# the fused MLP runs on the same model, seed and batch: the kernels alone,
+# then under the split and nothing remat policies
+FUSED_RUNS = {
+    "fused": {"steps": 8, "argv": ["--mlp-impl", "fused"]},
+    "fused_remat_split": {"steps": 5, "argv": [
+        "--mlp-impl", "fused", "--remat", "--remat-policy", "split"]},
+    "fused_remat_nothing": {"steps": 5, "argv": [
+        "--mlp-impl", "fused", "--remat", "--remat-policy", "nothing"]},
+}
+TRAIN_CUTS = {"iterations": "32 amortized (bench_train) -> 8 steps",
+              "fused_runs": "no --resume-check or --generate (the dense "
+                            "run drives both)",
+              "remat_runs": "8 -> 5 steps (the fifth is the first "
+                            "below the first loss: the fourth spikes at "
+                            "lr 3e-4 from init)"}
 # flash vs full attention on one batch at the trained chip model, bf16:
 # the flash kernels round P to bf16 before P.V where the dense path keeps
 # f32; held on the loss and on every gradient leaf's 1 - cosine (the
@@ -186,11 +216,31 @@ TRAIN_CUTS = {"iterations": "32 amortized (bench_train) -> 8 steps"}
 TRAIN_LOSS_RTOL = 4e-5
 TRAIN_GAP_FULL = 1e-4
 TRAIN_GAP_SPLIT = 4e-5
+# the fused MLP against the dense one at the same trained params: the
+# dense path rounds a = x W1 to bf16 before gelu, the kernel keeps it in
+# f32; and the kernel backward against the save-a backward (xla_a), which
+# starts from a rounded to bf16 and forms its products in f32 library
+# GEMMs. Limits about 10x the readings of a sound run on the H100 (loss
+# 3.5e-6 relative, worst leaf 9.5e-6 at lm_head; xla_a worst leaf 3.4e-6
+# at embed; PERF.md)
+TRAIN_LOSS_MLP_RTOL = 4e-5
+TRAIN_GAP_MLP = 1e-4
+TRAIN_GAP_XLA_A = 4e-5
 # the first loss against ln(vocab): at init the logits have a variance
 # near 1, which lifts the expected logsumexp by about half of it
 TRAIN_FIRST_LOSS_ATOL = 1.0
 # the training kernels' timed shape: one layer of the chip model's step
 TRAIN_KERNEL_SHAPE = dict(B=8, T=2048, H=8, Hkv=8, D=128)
+# the fused MLP kernels' timed shape: one layer's MLP of the same step
+# (tokens B x T, d_model, d_ff), which is also benchmarks/bench_mlp.py's
+MLP_SHAPE = dict(N=8 * 2048, D=1024, F=4096)
+# fused MLP kernels against their plain versions, each output's max abs
+# error over its max|plain|: y, a, dx, g and da are bf16, and g and da are
+# rounded to bf16 from f32 values whose sums run in another order (which
+# can move a rounding); dW1 and dW2 are f32 sums of the same bf16 products
+# in another order
+MLP_RTOL = 2e-2
+MLP_DW_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -1546,6 +1596,127 @@ def block_case(gen):
           "grad_tol": BWD_RTOL})
 
 
+def fused_mlp_cases(gen, N, D, F):
+    """Kernels 8-9 at one layer's MLP of the chip model's step (bf16): the
+    forward, the save-a forward, and the backward's dx and dW kernels,
+    each against its plain version on the same inputs and twice for equal
+    bits; then each one's time beside its plain version's, its bound and
+    the dense chain's (``F.gelu(x @ w1, approximate="tanh") @ w2``; its
+    autograd backward, fwd+bwd less fwd, for the backward rows), and the
+    whole kernel backward (both kernels and the dW casts)."""
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
+
+    dev = torch.device("cuda")
+    nd, df = N * D * 2, D * F * 2  # bf16 bytes of x (or dy) and one weight
+    sets = []
+    for _ in range(n_sets(2 * nd + 2 * df)):
+        x = torch.randn(N, D, generator=gen, device=dev).bfloat16()
+        w1 = (torch.randn(D, F, generator=gen, device=dev)
+              * D ** -0.5).bfloat16()
+        w2 = (torch.randn(F, D, generator=gen, device=dev)
+              * F ** -0.5).bfloat16()
+        dy = torch.randn(N, D, generator=gen, device=dev).bfloat16()
+        sets.append((x, w1, w2, dy))
+    x, w1, w2, dy = sets[0]
+    shape = {"N": N, "D": D, "F": F, "dtype": "bfloat16"}
+    rows = {}
+
+    def errs(pairs, tol):
+        rel = max(_rel_err(a, b) for a, b in pairs)
+        ab = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+        return {"max_abs_err": ab, "max_rel_err": rel, "rel_tol": tol,
+                "rel_err_is": "max abs err / max |plain|, worst output"}
+
+    y = fm.fused_mlp_forward(x, w1, w2)
+    ys, a = fm.fused_mlp_forward(x, w1, w2, save_a=True)
+    w_y, w_a = fm.fused_mlp_forward_reference(x, w1, w2, save_a=True)
+    same = (torch.equal(fm.fused_mlp_forward(x, w1, w2), y)
+            and torch.equal(ys, y))
+    rows["fused_mlp_fwd"] = errs([(y, w_y)], MLP_RTOL)
+    rows["fused_mlp_fwd_save_a"] = errs([(ys, w_y), (a, w_a)], MLP_RTOL)
+    del w_y, w_a, ys, a
+    dx, g, da = fm.fused_mlp_bwd_dx(x, w1, w2, dy)
+    w_dx, w_g, w_da = fm.fused_mlp_bwd_dx_reference(x, w1, w2, dy)
+    rows["fused_mlp_bwd_dx"] = errs([(dx, w_dx), (g, w_g), (da, w_da)],
+                                    MLP_RTOL)
+    del w_dx, w_g, w_da
+    dw1, dw2 = fm.fused_mlp_bwd_dw(x, g, da, dy)
+    rows["fused_mlp_bwd_dw"] = errs(
+        list(zip((dw1, dw2), fm.fused_mlp_bwd_dw_reference(x, g, da, dy))),
+        MLP_DW_RTOL)
+    same = same and all(torch.equal(p, q) for p, q in zip(
+        fm.fused_mlp_bwd_dx(x, w1, w2, dy), (dx, g, da))) and all(
+        torch.equal(p, q) for p, q in zip(fm.fused_mlp_bwd_dw(x, g, da, dy),
+                                          (dw1, dw2)))
+    torch.cuda.synchronize()
+    check(same and bool(torch.isfinite(y).all()),
+          f"fused MLP kernels finite and deterministic at {shape}")
+    for name, r in rows.items():
+        check(r["max_rel_err"] <= r["rel_tol"],
+              f"{name} {shape}: max err / max|plain| {r['max_rel_err']} > "
+              f"{r['rel_tol']}")
+    del dx, dw1, dw2
+
+    # operations (2 N D F per block product) and bytes (inputs read once,
+    # outputs written once) of each kernel's function
+    prod = 2 * N * D * F
+    rows["fused_mlp_fwd"].update(flops=2 * prod, bytes=2 * nd + 2 * df)
+    rows["fused_mlp_fwd_save_a"].update(flops=2 * prod,
+                                        bytes=2 * nd + 2 * df + N * F * 2)
+    rows["fused_mlp_bwd_dx"].update(flops=3 * prod,
+                                    bytes=4 * nd + 2 * df + 2 * N * F * 2)
+    rows["fused_mlp_bwd_dw"].update(flops=2 * prod,
+                                    bytes=2 * nd + 2 * N * F * 2 + 4 * df)
+    gda = [fm.fused_mlp_bwd_dx(*st)[1:] for st in sets]
+    kern = {"fused_mlp_fwd": lambda x, w1, w2, dy, g, da:
+            fm.fused_mlp_forward(x, w1, w2),
+            "fused_mlp_fwd_save_a": lambda x, w1, w2, dy, g, da:
+            fm.fused_mlp_forward(x, w1, w2, save_a=True),
+            "fused_mlp_bwd_dx": lambda x, w1, w2, dy, g, da:
+            fm.fused_mlp_bwd_dx(x, w1, w2, dy),
+            "fused_mlp_bwd_dw": lambda x, w1, w2, dy, g, da:
+            fm.fused_mlp_bwd_dw(x, g, da, dy)}
+    plain = {"fused_mlp_fwd": lambda x, w1, w2, dy, g, da:
+             fm.fused_mlp_forward_reference(x, w1, w2),
+             "fused_mlp_fwd_save_a": lambda x, w1, w2, dy, g, da:
+             fm.fused_mlp_forward_reference(x, w1, w2, save_a=True),
+             "fused_mlp_bwd_dx": lambda x, w1, w2, dy, g, da:
+             fm.fused_mlp_bwd_dx_reference(x, w1, w2, dy),
+             "fused_mlp_bwd_dw": lambda x, w1, w2, dy, g, da:
+             fm.fused_mlp_bwd_dw_reference(x, g, da, dy)}
+    args = [(*st, *gd) for st, gd in zip(sets, gda)]
+    for name in kern:
+        rows[name]["ms"] = device_ms(kern[name], args)
+        rows[name]["plain_ms"] = device_ms(plain[name], args, n=5)
+    route_ms = device_ms(lambda x, w1, w2, dy, g, da: fm._backward_kernel(
+        x, w1, w2, dy, dict(block_t=512, block_f=512)), args)
+    del gda, args
+    gelu = torch.nn.functional.gelu
+    lib_sets = [tuple(t.clone().requires_grad_() for t in st[:3]) + st[3:]
+                for st in sets]
+    lib_fwd = device_ms(lambda x, w1, w2, dy: gelu(
+        x @ w1, approximate="tanh") @ w2, lib_sets)
+    lib_fb = device_ms(lambda x, w1, w2, dy: torch.autograd.grad(
+        gelu(x @ w1, approximate="tanh") @ w2, (x, w1, w2), dy), lib_sets)
+    for name in rows:
+        r = rows[name]
+        r["library_ms"] = lib_fwd if "fwd" in name else lib_fb - lib_fwd
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
+                                             BF16_FLOPS_PER_S)
+        emit({"phase": "kernel", "name": name, "shape": shape,
+              "library": "gelu(x @ w1, tanh) @ w2" + (
+                  "" if "fwd" in name else
+                  " autograd backward (fwd+bwd less fwd; the whole "
+                  "backward)"),
+              "input_sets": len(sets), **r})
+    bwd_bound, _ = bound(0, 5 * prod, BF16_FLOPS_PER_S)
+    emit({"phase": "kernel", "name": "fused_mlp_bwd_route", "shape": shape,
+          "route_ms": route_ms, "bound_ms": bwd_bound,
+          "bound_is": "the TPU kernel's 5 block products at 989 TF/s",
+          "library_ms": lib_fb - lib_fwd})
+    return rows
+
+
 def _leaf_names(tree, prefix="") -> list:
     """The leaf paths of a nested dict, in ``tree_leaves``'s order."""
     if isinstance(tree, dict):
@@ -1564,29 +1735,16 @@ def _cosine_gaps(names, a, b) -> dict:
     return gaps
 
 
-def phase_train():
-    """``train_app`` in-process at the training benchmark's chip model,
-    ``eval_app`` on its checkpoint, then the routes on one batch: flash
-    against full attention, the split backward against the fused one,
-    one step on the split route, one profiled step."""
-    import dataclasses
-    import shutil
-
-    from hpc_patterns_tpu_torch.apps import eval_app, train_app
-    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+def _train_run(argv, log) -> dict:
+    """``train_app`` in-process with every launch count set to 0 just
+    before and read just after, the gradient passes and decode steps
+    counted, and the peak device memory from a reset just before."""
+    from hpc_patterns_tpu_torch.apps import train_app
     from hpc_patterns_tpu_torch.models import decode as dec
-    from hpc_patterns_tpu_torch.models import train as tr
-    from hpc_patterns_tpu_torch.models import transformer as tf
     from hpc_patterns_tpu_torch.ops import flash_attention as fa
     from hpc_patterns_tpu_torch.ops import flash_decode as fd
-    from hpc_patterns_tpu_torch.utils.checkpoint import restore_checkpoint
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
 
-    t_phase = time.perf_counter()
-    dev = torch.device("cuda")
-    logs = ROOT / "build" / "smoke_train"
-    shutil.rmtree(logs, ignore_errors=True)
-    logs.mkdir(parents=True)
-    ckdir = logs / "ckpt"
     passes = {"grad": 0, "decode": 0}
     orig_make, orig_decode = train_app.make_train_step, dec.decode_step
 
@@ -1602,44 +1760,88 @@ def phase_train():
         passes["decode"] += 1
         return orig_decode(*a, **kw)
 
-    for key in fa.launches:
-        fa.launches[key] = 0
+    for counts in (fa.launches, fm.launches):
+        for key in counts:
+            counts[key] = 0
     fd.launches["flash_decode"] = 0
     train_app.make_train_step = counting_make
     dec.decode_step = counting_decode
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
-        code, recs = run_app(train_app.main, TRAIN_ARGV + [
-            "--device", "cuda", "--checkpoint-dir", str(ckdir)],
-            logs / "train.jsonl")
+        code, recs = run_app(train_app.main, argv + ["--device", "cuda"], log)
         app_s = time.perf_counter() - t0
     finally:
         train_app.make_train_step = orig_make
         dec.decode_step = orig_decode
-    launches = dict(fa.launches, flash_decode=fd.launches["flash_decode"])
+    peak = torch.cuda.max_memory_allocated()
     steps = [r for r in recs if r.get("kind") == "step"]
     (res,) = [r for r in recs if r.get("kind") == "result"]
-    losses = [r["loss"] for r in steps]
+    return {"code": code, "res": res, "losses": [r["loss"] for r in steps],
+            "steps_ms": [r["dt_s"] * 1e3 for r in steps],
+            "launches": dict(fa.launches,
+                             flash_decode=fd.launches["flash_decode"]),
+            "mlp_launches": dict(fm.launches), "passes": passes,
+            "app_seconds": app_s, "peak_bytes": peak,
+            "peak_over_start_bytes": peak - base,
+            "out": log.with_suffix(".out").read_text()}
+
+
+def phase_train():
+    """``train_app`` in-process at the training benchmark's chip model
+    (dense MLP, then the fused MLP kernels without and with remat),
+    ``eval_app`` on the dense run's checkpoint, then the routes on one
+    batch: flash against full attention, the split backward against the
+    fused one, the fused MLP against the dense one and its save-a
+    backward, one step on the split route, one profiled step."""
+    import dataclasses
+    import os
+    import shutil
+
+    from hpc_patterns_tpu_torch.apps import eval_app
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
+    from hpc_patterns_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_train"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    ckdir = logs / "ckpt"
+    run = _train_run(TRAIN_ARGV + ["--checkpoint-dir", str(ckdir)],
+                     logs / "train.jsonl")
+    code, res, losses = run["code"], run["res"], run["losses"]
+    launches, passes = run["launches"], run["passes"]
     L = TRAIN_MODEL["n_layers"]
     B, T = TRAIN_BATCH
     cfg = tf.TransformerConfig(**TRAIN_MODEL, max_seq=T, attention="flash")
     n_params = sum(x.numel() for x in tr.tree_leaves(
         tf.init_params(cfg, generator=torch.Generator(device=dev)
                        .manual_seed(0), device=dev, dtype=torch.bfloat16)))
-    step_s = res["step_time_s"]
     flops_tok = 6 * n_params + 12 * L * T * cfg.d_model * 0.5  # bench_train
-    tflops = flops_tok * B * T / step_s / 1e12
-    out = (logs / "train.out").read_text()
+
+    def speed(r):
+        step_s = r["res"]["step_time_s"]
+        tflops = flops_tok * B * T / step_s / 1e12
+        return {"step_ms": step_s * 1e3, "steps_ms": r["steps_ms"],
+                "tokens_per_s": r["res"]["tokens_per_s"],
+                "model_tflops": tflops, "share_of_989": tflops / 989,
+                "peak_bytes": r["peak_bytes"],
+                "peak_over_start_bytes": r["peak_over_start_bytes"]}
+
     emit({"phase": "train", "argv": TRAIN_ARGV, "cuts": TRAIN_CUTS,
           "rc": code, "success": res["success"], "losses": losses,
-          "step_ms": step_s * 1e3, "steps_ms": [r["dt_s"] * 1e3
-                                                for r in steps],
-          "tokens_per_s": res["tokens_per_s"], "n_params": n_params,
-          "model_tflops": tflops, "share_of_989": tflops / 989,
-          "launches": launches, "grad_passes": passes["grad"],
-          "decode_steps": passes["decode"],
-          "app_seconds": app_s,
-          "resume": [ln for ln in out.splitlines() if "resume" in ln]})
+          **speed(run), "n_params": n_params,
+          "launches": launches, "mlp_launches": run["mlp_launches"],
+          "grad_passes": passes["grad"], "decode_steps": passes["decode"],
+          "app_seconds": run["app_seconds"],
+          "resume": [ln for ln in run["out"].splitlines() if "resume" in ln]})
     check(code == 0 and res["success"], f"train_app SUCCESS (rc {code})")
     check(abs(losses[0] - math.log(cfg.vocab)) < TRAIN_FIRST_LOSS_ATOL,
           f"first loss {losses[0]} near ln {cfg.vocab}")
@@ -1659,9 +1861,42 @@ def phase_train():
           and launches["flash_decode"] == L * passes["decode"],
           f"generate's {passes['decode']} decode steps ran flash_decode once "
           f"per layer: {launches}")
+    check(not any(run["mlp_launches"].values()),
+          f"the dense run launched no fused MLP kernel: {run['mlp_launches']}")
     train_launches = {"flash_fwd_lse": launches["fwd_lse"],
                       "fused_bwd": launches["fused_bwd"],
                       "flash_decode": launches["flash_decode"]}
+
+    # the fused MLP kernels on the same seed and batch, without and with
+    # remat: the MLP forward and the flash forward run once per layer and
+    # gradient pass, twice under "nothing" (the region's recompute reruns
+    # both kernels), once under "split" (both outside every region)
+    fused_runs = {}
+    for name, extra in FUSED_RUNS.items():
+        r = _train_run(["--steps", str(extra["steps"]), *TRAIN_BASE,
+                        *extra["argv"]], logs / f"{name}.jsonl")
+        la, ml, p = r["launches"], r["mlp_launches"], r["passes"]["grad"]
+        fused_runs[name] = r
+        emit({"phase": "train", "run": name, "argv": extra["argv"],
+              "steps": extra["steps"], "rc": r["code"],
+              "success": r["res"]["success"], "losses": r["losses"],
+              **speed(r), "launches": la, "mlp_launches": ml,
+              "grad_passes": p, "app_seconds": r["app_seconds"]})
+        check(r["code"] == 0 and r["res"]["success"],
+              f"train_app {name} SUCCESS (rc {r['code']})")
+        reruns = 2 if "nothing" in extra["argv"] else 1
+        check(ml["fwd"] == L * p * reruns and la["fwd_lse"] == L * p * reruns
+              and ml["bwd_dx"] == L * p and ml["bwd_dw"] == L * p
+              and la["fused_bwd"] == L * p and ml["fwd_save_a"] == 0
+              and la["dq"] == la["dkv"] == la["fwd"] == 0,
+              f"{name}: launches == {L} layers x {p} grad passes (forwards "
+              f"x {reruns}): {la} {ml}")
+    first = fused_runs["fused"]["losses"]
+    for name, r in fused_runs.items():
+        n = len(r["losses"])
+        check(all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                  for a, b in zip(r["losses"], first[:n])),
+              f"{name} losses {r['losses']} follow the fused run's {first}")
 
     code, recs = run_app(eval_app.main, [
         "--device", "cuda", "--checkpoint-dir", str(ckdir), "--batches",
@@ -1694,6 +1929,20 @@ def phase_train():
     l_full, g_full = loss_grads(dataclasses.replace(cfg, attention="full"))
     gap_full = _cosine_gaps(names, g_flash, g_full)
     del g_full
+    fused_cfg = dataclasses.replace(cfg, mlp_impl="fused")
+    l_fused, g_fused = loss_grads(fused_cfg)
+    gap_fused = _cosine_gaps(names, g_flash, g_fused)
+    # the save-a forward kernel on the path: HPCPAT_FUSED_MLP_BWD=xla_a
+    for key in fm.launches:
+        fm.launches[key] = 0
+    os.environ["HPCPAT_FUSED_MLP_BWD"] = "xla_a"
+    try:
+        l_xla_a, g_xla_a = loss_grads(fused_cfg)
+    finally:
+        del os.environ["HPCPAT_FUSED_MLP_BWD"]
+    xla_a_launches = dict(fm.launches)
+    gap_xla_a = _cosine_gaps(names, g_fused, g_xla_a)
+    del g_fused, g_xla_a
     limit = fa._FUSED_SLAB_LIMIT
     fa._FUSED_SLAB_LIMIT = 0  # the split route: kernels 3-4
     try:
@@ -1711,15 +1960,24 @@ def phase_train():
     prof = device_profile(lambda: step(params, opt_state, tokens)[0].item())
     worst_full = max(gap_full.values())
     worst_split = max(gap_split.values())
+    worst_fused = max(gap_fused.values())
+    worst_xla_a = max(gap_xla_a.values())
     emit({"phase": "train", "routes": {
         "params": "trained (the checkpoint of step 8)",
         "loss_flash": l_flash, "loss_full": l_full,
         "loss_rel_diff": abs(l_flash - l_full) / abs(l_full),
         "grad_gap_flash_full": gap_full, "loss_split": l_split,
         "grad_gap_fused_split": gap_split, "loss_split_step": l_step,
-        "split_launches": split_launches},
+        "split_launches": split_launches, "loss_fused_mlp": l_fused,
+        "loss_fused_mlp_rel_diff": abs(l_fused - l_flash) / abs(l_flash),
+        "grad_gap_dense_fused_mlp": gap_fused, "loss_xla_a": l_xla_a,
+        "grad_gap_fused_mlp_kernel_xla_a": gap_xla_a,
+        "xla_a_launches": xla_a_launches},
         "tol": {"loss_rel": TRAIN_LOSS_RTOL, "gap_full": TRAIN_GAP_FULL,
-                "gap_split": TRAIN_GAP_SPLIT},
+                "gap_split": TRAIN_GAP_SPLIT,
+                "loss_rel_fused_mlp": TRAIN_LOSS_MLP_RTOL,
+                "gap_fused_mlp": TRAIN_GAP_MLP,
+                "gap_xla_a": TRAIN_GAP_XLA_A},
         "profile_one_step": prof,
         "seconds": time.perf_counter() - t_phase})
     check(abs(l_flash - l_full) <= TRAIN_LOSS_RTOL * abs(l_full)
@@ -1735,8 +1993,28 @@ def phase_train():
           and split_launches["fwd_lse"] == L,
           f"the split step launched dq and dkv once per layer: "
           f"{split_launches}")
+    check(abs(l_fused - l_flash) <= TRAIN_LOSS_MLP_RTOL * abs(l_flash)
+          and worst_fused <= TRAIN_GAP_MLP,
+          f"fused vs dense MLP: loss {l_fused} vs {l_flash}, worst leaf 1 - "
+          f"cosine {worst_fused}")
+    check(l_xla_a == l_fused and worst_xla_a <= TRAIN_GAP_XLA_A
+          and xla_a_launches["fwd_save_a"] == L
+          and xla_a_launches["fwd"] == xla_a_launches["bwd_dx"] == 0,
+          f"xla_a: loss {l_xla_a} vs {l_fused}, worst leaf 1 - cosine "
+          f"{worst_xla_a}, launches {xla_a_launches}")
     train_launches.update(dq=split_launches["dq"],
                           dkv=split_launches["dkv"])
+    by_run = {n: r["mlp_launches"] for n, r in fused_runs.items()}
+    mlp = {k: sum(m[k] for m in by_run.values())
+           for k in ("fwd", "bwd_dx", "bwd_dw")}
+    train_launches.update(
+        fused_mlp_fwd=mlp["fwd"], fused_mlp_bwd_dx=mlp["bwd_dx"],
+        fused_mlp_bwd_dw=mlp["bwd_dw"],
+        fused_mlp_fwd_save_a=xla_a_launches["fwd_save_a"],
+        fused_mlp_by_run=by_run)
+    for name in ("fused_mlp_fwd", "fused_mlp_fwd_save_a", "fused_mlp_bwd_dx",
+                 "fused_mlp_bwd_dw"):
+        check(train_launches[name] > 0, f"{name} ran on the main path")
     return train_launches
 
 
@@ -1773,6 +2051,7 @@ def main() -> int:
     train_rows = train_kernel_cases(tgen, **TRAIN_KERNEL_SHAPE)
     train_kernel_cases(tgen, **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA
     block_case(tgen)
+    mlp_rows = fused_mlp_cases(tgen, **MLP_SHAPE)
     launches_train = phase_train()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1860,6 +2139,20 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
          "launches": launches_train["dkv"],
          **{k: train_rows["dkv"][k] for k in keys + rel}},
+        *({"name": name, "route": "cuda",
+           "source": f"{PKG}/csrc/fused_mlp.cu",
+           "replaces": f"hpc_patterns_tpu/ops/fused_mlp.py:{line}",
+           "launches": launches_train[name],
+           **({"launches_by_run": {
+               r: m[name.replace("fused_mlp_", "")]
+               for r, m in launches_train["fused_mlp_by_run"].items()}}
+              if name != "fused_mlp_fwd_save_a" else
+              {"launches_by_run": {"xla_a step": launches_train[name]}}),
+           **{k: mlp_rows[name][k] for k in keys + rel}}
+          for name, line in (("fused_mlp_fwd", 65),
+                             ("fused_mlp_fwd_save_a", 148),
+                             ("fused_mlp_bwd_dx", 93),
+                             ("fused_mlp_bwd_dw", 93))),
     ]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,10 +17,19 @@ SUCCESS/FAILURE (exit 0/1).
         --steps 8 --batch 8 --seq 2048 --d-model 1024 --n-layers 8 \\
         --n-heads 8 --vocab 32768 --resume-check --generate 16
 
+``--mlp-impl fused`` runs the fused MLP kernels (``ops/fused_mlp.py``);
+``--remat`` checkpoints each layer under ``--remat-policy`` (JAX's
+policies, on ``torch.utils.checkpoint``):
+
+    python -m hpc_patterns_tpu_torch.apps.train_app --attention flash \
+        --steps 8 --batch 8 --seq 2048 --d-model 1024 --n-layers 8 \
+        --n-heads 8 --vocab 32768 --mlp-impl fused --remat \
+        --remat-policy split
+
 Not ported yet (each prints ``ERROR: ... not ported yet`` and FAILURE):
 meshes (``--dp/--fsdp/--sp/--tp/--ep`` > 1, ``--dcn-dp``), ``--pp``,
-``--remat``, ``--n-experts``, ``--mlp-impl fused``, ``--offload-opt``,
-and the attention impls that need a mesh.
+``--n-experts``, ``--offload-opt``, and the attention impls that need a
+mesh.
 """
 
 from __future__ import annotations
@@ -61,7 +70,9 @@ def build_parser():
     p.add_argument("--attention", default="full",
                    choices=list(ATTENTION_IMPLS))
     p.add_argument("--remat", action="store_true",
-                   help="activation checkpointing (not ported yet)")
+                   help="activation checkpointing: recompute each layer's "
+                        "activations in the backward, keeping what "
+                        "--remat-policy names")
     p.add_argument("--remat-policy", default="split",
                    choices=["nothing", "attn", "dots", "dots_attn", "split"])
     p.add_argument("--loss-chunk", type=int, default=0, metavar="C",
@@ -84,8 +95,9 @@ def build_parser():
     p.add_argument("--moe-dispatch", default="auto",
                    choices=["auto", "einsum", "scatter"])
     p.add_argument("--mlp-impl", default="dense", choices=["dense", "fused"],
-                   help="dense MLP, or the fused MLP kernels (not ported "
-                        "yet)")
+                   help="dense-layer MLP: two library GEMMs, or the fused "
+                        "matmul-gelu-matmul kernels (the d_ff activation "
+                        "never in device memory in the forward)")
     p.add_argument("--drop-rate-every", type=int, default=10, metavar="N",
                    help="MoE routing-drop telemetry period (MoE only)")
     p.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
@@ -123,10 +135,7 @@ def _unported(args) -> str | None:
             return f"--{axis} {getattr(args, axis)} (meshes)"
     checks = [(args.dcn_dp, "--dcn-dp (multi-slice meshes)"),
               (args.pp > 1, f"--pp {args.pp} (pipeline parallelism)"),
-              (args.remat, "--remat (activation checkpointing)"),
               (args.n_experts > 0, "--n-experts (MoE layers)"),
-              (args.mlp_impl == "fused", "--mlp-impl fused (the fused MLP "
-                                         "kernels)"),
               (args.offload_opt, "--offload-opt (memory/)"),
               (args.attention not in ("full", "flash"),
                f"--attention {args.attention} (needs a mesh)")]
@@ -262,7 +271,7 @@ def run(args) -> int:
     unported = _unported(args)
     if unported:
         return _fail(log, f"{unported}: not ported yet")
-    if args.remat_policy != "split":
+    if args.remat_policy != "split" and not args.remat:
         return _fail(log, "--remat-policy has no effect without --remat (no "
                           "checkpointing happens; all activations are saved)")
     if args.accum > 1 and args.batch % args.accum:
@@ -273,7 +282,9 @@ def run(args) -> int:
             vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
             n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,
             attention=args.attention, n_kv_heads=args.n_kv_heads,
-            pos_embed=args.pos_embed, loss_chunk=args.loss_chunk)
+            pos_embed=args.pos_embed, loss_chunk=args.loss_chunk,
+            remat=args.remat, remat_policy=args.remat_policy,
+            mlp_impl=args.mlp_impl)
         optimizer = make_optimizer(args.lr, schedule=args.schedule,
                                    warmup_steps=args.warmup_steps,
                                    total_steps=args.steps)

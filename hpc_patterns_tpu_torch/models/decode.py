@@ -62,7 +62,9 @@ FP8_MAX = 448.0
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.n_experts or cfg.mlp_impl != "dense":
+    """Dense layers only; either ``mlp_impl`` decodes through the dense
+    :func:`mlp` (JAX decode never reads ``mlp_impl``)."""
+    if cfg.n_experts:
         raise NotImplementedError("dense MLP models only in this slice")
 
 

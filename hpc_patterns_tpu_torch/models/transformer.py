@@ -5,7 +5,9 @@ the layer pieces shared with decode (``_rmsnorm``, ``apply_rope``,
 ``forward``) and the training loss (``masked_causal_nll``,
 ``chunked_masked_causal_nll``, ``loss_fn``), differentiable with
 PyTorch's autograd (the flash route through the hand-written backward
-kernels of ``ops/flash_attention.py``).
+kernels of ``ops/flash_attention.py``, ``mlp_impl="fused"`` through those
+of ``ops/fused_mlp.py``), with JAX's activation-checkpointing policies
+(``remat``, ``remat_policy``) on ``torch.utils.checkpoint``.
 
 Params keep the JAX layout: a plain dict with the same keys, layer
 weights stacked on a leading ``n_layers`` axis, so a JAX params tree
@@ -20,13 +22,18 @@ skips the per-use cast.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
 from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
+from hpc_patterns_tpu_torch.ops.fused_mlp import fused_mlp
 from hpc_patterns_tpu_torch.parallel.ring_attention import full_attention
 from hpc_patterns_tpu_torch.topology import resolve_device
 
@@ -41,8 +48,9 @@ QUANT_SCALE_SUFFIX = "_qscale"
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX config (see its
     docstrings for each knob); the port runs ``attention`` in
-    ("full", "flash"), dense MLPs, and KV caches in the compute dtype,
-    int8 or fp8."""
+    ("full", "flash"), dense layers with either ``mlp_impl`` (decode runs
+    the dense MLP for both, as in JAX), every ``remat_policy``, and KV
+    caches in the compute dtype, int8 or fp8."""
     vocab: int = 32768
     d_model: int = 768
     n_heads: int = 12
@@ -260,13 +268,28 @@ def project_qkv(h, lp, cfg: TransformerConfig):
             v.reshape(*lead, Hkv, Dh))
 
 
-def mlp(x, lp, cfg: TransformerConfig):
-    """Pre-norm dense MLP block with residual (tanh gelu, as
+def _mlp_dense(h, lp):
+    """The dense MLP on post-norm activations (tanh gelu, as
     ``jax.nn.gelu``'s default)."""
-    dt = x.dtype
-    h = _rmsnorm(x, lp["ln2_scale"])
+    dt = h.dtype
     h = F.gelu(h @ matmul_weight(lp, "w1", dt), approximate="tanh")
-    return x + h @ matmul_weight(lp, "w2", dt)
+    return h @ matmul_weight(lp, "w2", dt)
+
+
+def _mlp_fused(h, lp):
+    """The fused MLP kernels (``ops/fused_mlp.py``) on post-norm
+    activations; a quantized tree is dequantized at entry (the kernels
+    take dense compute-dtype operands). Single device only: the mesh
+    branch of JAX's ``_mlp_fused`` belongs to the parallelism slice."""
+    dt = h.dtype
+    return fused_mlp(h, matmul_weight(lp, "w1", dt),
+                     matmul_weight(lp, "w2", dt))
+
+
+def mlp(x, lp, cfg: TransformerConfig):
+    """Pre-norm dense MLP block with residual: decode's MLP for either
+    ``mlp_impl`` (the same function; JAX decode does the same)."""
+    return x + _mlp_dense(_rmsnorm(x, lp["ln2_scale"]), lp)
 
 
 def attention(q, k, v, cfg: TransformerConfig):
@@ -289,14 +312,6 @@ def _check_trainable(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "MoE layers (n_experts > 0) are not ported yet: they arrive with "
             "the parallelism slice (ep axis, models/pp.py)")
-    if cfg.mlp_impl != "dense":
-        raise NotImplementedError(
-            "mlp_impl='fused' (the fused-MLP kernels) is not ported yet: it "
-            "is the next slice")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True (and its policies, via torch.utils.checkpoint) is "
-            "not ported yet: it arrives with the fused-MLP slice")
 
 
 def _embed_tokens(params, tokens, cfg: TransformerConfig, dt):
@@ -308,33 +323,121 @@ def _embed_tokens(params, tokens, cfg: TransformerConfig, dt):
     return x
 
 
-def _layer(x, lp, cfg: TransformerConfig):
-    """One pre-norm block: attention, output projection and residual,
-    then the dense MLP block."""
-    B, T, D = x.shape
+@torch.library.custom_op("hpcpat::attn_out", mutates_args=())
+def attn_out(o: torch.Tensor) -> torch.Tensor:
+    """The attention output under a name a checkpoint policy can save
+    (JAX's ``checkpoint_name(o, "attn_out")``): a copy, with the identity
+    gradient. Only a layer checkpointed under the "attn" and "dots_attn"
+    policies calls it, so it costs nothing elsewhere."""
+    return o.clone()
+
+
+attn_out.register_fake(torch.empty_like)
+attn_out.register_autograd(lambda ctx, g: g)
+
+#: the ops whose outputs each ``remat_policy`` keeps (None: a plain
+#: checkpoint keeps nothing). "dots" is JAX's
+#: ``dots_with_no_batch_dims_saveable``: the 2-D products (every
+#: projection reaches dispatch as ``mm``; the port has no biased
+#: ``addmm``) are saved, the batched ``bmm`` of full attention
+#: recomputes. A kernel launched through ctypes is no op here, so its
+#: outputs always recompute (as a ``custom_vjp``'s residuals do in JAX):
+#: "split" keeps the kernels out of every checkpointed region instead.
+_MM = torch.ops.aten.mm.default
+_ATTN_OUT = torch.ops.hpcpat.attn_out.default
+REMAT_SAVES = {"nothing": None, "attn": (_ATTN_OUT,), "dots": (_MM,),
+               "dots_attn": (_MM, _ATTN_OUT)}
+
+
+def _remat(fn, policy: str):
+    """``fn`` under ``torch.utils.checkpoint`` keeping the outputs of
+    ``REMAT_SAVES[policy]``; everything else recomputes in the
+    backward. The cache holds op outputs only, never an ``empty``
+    buffer a kernel writes into."""
+    saves = REMAT_SAVES[policy]
+    if saves is None:
+        return partial(checkpoint, fn, use_reentrant=False)
+    return partial(checkpoint, fn, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, list(saves)))
+
+
+def _qkv_block(x, lp, cfg: TransformerConfig):
+    """Pre-attention: norm, fused qkv projection and rope (the narrow
+    K/V for GQA). Split out so ``remat_policy="split"`` can checkpoint it
+    apart from the attention kernel."""
+    T = x.shape[1]
     h = _rmsnorm(x, lp["ln1_scale"])
     q, k, v = project_qkv(h, lp, cfg)
     if cfg.pos_embed == "rope":
         pos = torch.arange(T, device=x.device)
         q = apply_rope(q, pos, cfg)
         k = apply_rope(k, pos, cfg)
-    o = attention(q, k, v, cfg)
+    return q, k, v
+
+
+def _post_attn(x, o, lp):
+    """Output projection, residual and the pre-MLP norm: the first half
+    of :func:`_post_block`, split out so split remat can checkpoint it
+    while the fused MLP kernel stays outside the region."""
+    B, T, D = x.shape
     x = x + o.reshape(B, T, D) @ matmul_weight(lp, "wo", x.dtype)
-    return mlp(x, lp, cfg)
+    return x, _rmsnorm(x, lp["ln2_scale"])
+
+
+def _post_block(x, o, lp, cfg: TransformerConfig):
+    """Post-attention: output projection, residual, norm, the MLP per
+    ``cfg.mlp_impl`` and its residual."""
+    x, h = _post_attn(x, o, lp)
+    if cfg.mlp_impl == "fused":
+        return x + _mlp_fused(h, lp)
+    return x + _mlp_dense(h, lp)
+
+
+def _layer(x, lp, cfg: TransformerConfig, split_remat: bool = False,
+           tag_attn: bool = False):
+    """One pre-norm block: attention, then the MLP block.
+
+    ``split_remat``: checkpoint the qkv block and the post block apart
+    (the "dots" policy in each), with attention outside every region,
+    so the flash kernel's residuals persist and its forward runs once;
+    with ``mlp_impl="fused"`` only o-proj/residual/norm are checkpointed
+    and the MLP kernel runs on the saved norm output, outside too.
+    ``tag_attn``: name the attention output for the "attn" policies."""
+    pre, post = _qkv_block, _post_block
+    if split_remat:
+        pre, post = _remat(pre, "dots"), _remat(post, "dots")
+    q, k, v = pre(x, lp, cfg)
+    o = attention(q, k, v, cfg)
+    if tag_attn:
+        o = attn_out(o)
+    if split_remat and cfg.mlp_impl == "fused":
+        x1, hn = _remat(_post_attn, "dots")(x, o, lp)
+        return x1 + _mlp_fused(hn, lp)
+    return post(x, o, lp, cfg)
 
 
 def forward_hidden(params, tokens, cfg: TransformerConfig):
     """The trunk of :func:`forward` without the LM head: final-norm
     hidden states (B, T, d_model) in the compute dtype, plus the summed
-    MoE aux loss (a zero for dense models)."""
+    MoE aux loss (a zero for dense models). With ``cfg.remat`` (and
+    gradients enabled) each layer runs under its ``remat_policy``: a
+    checkpoint of the whole layer keeping :data:`REMAT_SAVES`, or the
+    per-block split of :func:`_layer`."""
     _check_trainable(cfg)
     dt = torch_dtype(cfg.dtype)
     x = _embed_tokens(params, tokens, cfg, dt)
+    layer = partial(_layer, cfg=cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        if cfg.remat_policy == "split":
+            layer = partial(layer, split_remat=True)
+        else:
+            layer = _remat(partial(layer, tag_attn=cfg.remat_policy in (
+                "attn", "dots_attn")), cfg.remat_policy)
     # one unbind per stacked weight: its backward stacks the per-layer
     # grads once (indexing each layer would build L full-size zeros)
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for l in range(cfg.n_layers):
-        x = _layer(x, {k: v[l] for k, v in layers.items()}, cfg)
+        x = layer(x, {k: v[l] for k, v in layers.items()})
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _rmsnorm(x, params["ln_f_scale"]), aux
 

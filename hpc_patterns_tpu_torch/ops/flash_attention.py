@@ -36,6 +36,9 @@ from hpc_patterns_tpu_torch.ops import _build
 #: without lse (inference) and with it (training), and the three backward
 #: kernels
 launches = {"fwd": 0, "fwd_lse": 0, "fused_bwd": 0, "dq": 0, "dkv": 0}
+#: forward passes in this process, on any device (where activation
+#: checkpointing reruns the forward, this counts it)
+calls = {"forward": 0}
 
 #: the forward kernel's query/key tile; T must be a multiple of it
 BLOCK = 64
@@ -167,6 +170,7 @@ def flash_attention_reference(q, k, v, causal: bool = True,
 def _forward(q, k, v, q_offset, k_offset, causal, scale, with_lse):
     """Kernel 1 on a card (counted), its plain version on the CPU.
     Returns (out, lse or None)."""
+    calls["forward"] += 1
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     if not _on_card(q):

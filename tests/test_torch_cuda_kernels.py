@@ -25,7 +25,11 @@ layout, the permute exactly), except allgather_matmul, whose f32 sums run
 in another order than the library GEMM: within 1e-5 * k * max|x| * max|w|
 for float32, plus one bf16 ulp of the output for bfloat16, exact for
 int32 at small values. The alias kernel equals ``x * 2 + 1`` bitwise, in
-place.
+place. The fused MLP kernels: y, a, dx, g and da within 2e-2 x max|plain|
+(bf16 outputs; g and da rounded to bf16 from f32 values whose sums run
+in another order, which can move a rounding), dW1 and dW2 within 1e-3 x
+max|plain| on the same g and da (f32 sums of the same bf16 products,
+in another order); each kernel twice for equal bits.
 """
 
 import pytest
@@ -37,6 +41,7 @@ from hpc_patterns_tpu_torch.interop import device as interop_device
 from hpc_patterns_tpu_torch.models.decode import _quantize_rows
 from hpc_patterns_tpu_torch.ops import flash_attention as fa
 from hpc_patterns_tpu_torch.ops import flash_decode as fd
+from hpc_patterns_tpu_torch.ops import fused_mlp as fm
 from hpc_patterns_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -584,3 +589,95 @@ def test_alias_kernel_writes_in_place_bitwise(gen, rows, cols):
     assert torch.equal(out, want)
     ok, ev = interop_device.kernel_alias_proof()
     assert ok and ev["pointer_ok"] and not ev["interpret"], ev
+
+
+MLP_TOL = 2e-2
+DW_TOL = 1e-3
+
+
+def _mlp_inputs(gen, N, D, F):
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+    return (r(N, D), r(D, F, scale=D ** -0.5), r(F, D, scale=F ** -0.5),
+            r(N, D))
+
+
+# (N, D, F): the chip model's layer (B 8 x T 2048, d_model 1024, d_ff
+# 4096), off-size token counts and d_ff panels, the narrowest width
+MLP_CASES = [(16384, 1024, 4096), (100, 1024, 320), (4096, 512, 2048),
+             (37, 128, 136)]
+
+
+@pytest.mark.parametrize("N,D,F", MLP_CASES)
+def test_fused_mlp_forward_kernels_match_plain(gen, N, D, F):
+    x, w1, w2, _ = _mlp_inputs(gen, N, D, F)
+    n = dict(fm.launches)
+    y = fm.fused_mlp_forward(x, w1, w2)
+    ys, a = fm.fused_mlp_forward(x, w1, w2, save_a=True)
+    torch.cuda.synchronize()
+    assert (fm.launches["fwd"] - n["fwd"],
+            fm.launches["fwd_save_a"] - n["fwd_save_a"]) == (1, 1)
+    want, want_a = fm.fused_mlp_forward_reference(x, w1, w2, save_a=True)
+    assert _rel(y, want) <= MLP_TOL and _rel(a, want_a) <= MLP_TOL
+    assert torch.equal(ys, y)  # the same arithmetic with or without a
+    assert torch.equal(fm.fused_mlp_forward(x, w1, w2), y)
+
+
+@pytest.mark.parametrize("N,D,F", MLP_CASES)
+def test_fused_mlp_backward_kernels_match_plain_and_are_deterministic(
+        gen, N, D, F):
+    x, w1, w2, dy = _mlp_inputs(gen, N, D, F)
+    n = dict(fm.launches)
+    dx, g, da = fm.fused_mlp_bwd_dx(x, w1, w2, dy)
+    dw1, dw2 = fm.fused_mlp_bwd_dw(x, g, da, dy)
+    torch.cuda.synchronize()
+    assert (fm.launches["bwd_dx"] - n["bwd_dx"],
+            fm.launches["bwd_dw"] - n["bwd_dw"]) == (1, 1)
+    w_dx, w_g, w_da = fm.fused_mlp_bwd_dx_reference(x, w1, w2, dy)
+    for got, want in ((dx, w_dx), (g, w_g), (da, w_da)):
+        assert torch.isfinite(got).all() and _rel(got, want) <= MLP_TOL
+    w_dw1, w_dw2 = fm.fused_mlp_bwd_dw_reference(x, g, da, dy)
+    assert dw1.dtype == torch.float32 == dw2.dtype
+    assert _rel(dw1, w_dw1) <= DW_TOL and _rel(dw2, w_dw2) <= DW_TOL
+    again = fm.fused_mlp_bwd_dx(x, w1, w2, dy)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, g, da)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        fm.fused_mlp_bwd_dw(x, g, da, dy), (dw1, dw2)))
+
+
+@pytest.mark.parametrize("mode", fm.BWD_MODES)
+def test_fused_mlp_autograd_on_the_card(gen, monkeypatch, mode):
+    monkeypatch.setenv("HPCPAT_FUSED_MLP_BWD", mode)
+    x, w1, w2, dy = _mlp_inputs(gen, 2 * 100, 256, 1024)
+    ins = [t.clone().requires_grad_() for t in (x, w1, w2)]
+    n = dict(fm.launches)
+    y = fm.fused_mlp(ins[0].reshape(2, 100, 256), ins[1], ins[2])
+    grads = torch.autograd.grad(y, ins, dy.reshape(2, 100, 256))
+    torch.cuda.synchronize()
+    fwd = "fwd_save_a" if mode == "xla_a" else "fwd"
+    kernel_bwd = 1 if mode == "kernel" else 0
+    assert {k: fm.launches[k] - n[k] for k in fm.launches} == {
+        "fwd": int(fwd == "fwd"), "fwd_save_a": int(fwd != "fwd"),
+        "bwd_dx": kernel_bwd, "bwd_dw": kernel_bwd}
+    want = fm.fused_mlp_backward_reference(x, w1, w2, dy)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and _rel(got, w) <= MLP_TOL
+
+
+def test_fused_mlp_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x, w1, w2, dy = _mlp_inputs(gen, 64, 256, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fm.fused_mlp(x.float(), w1.float(), w2.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_mlp(x, w2.t(), w1.t())
+    xs, w1s, w2s, _ = _mlp_inputs(gen, 64, 96, 512)
+    with pytest.raises(ValueError, match="d_model a multiple of 128"):
+        fm.fused_mlp(xs, w1s, w2s)
+    xw, w1w, w2w, _ = _mlp_inputs(gen, 64, 2048, 512)
+    with pytest.raises(ValueError, match="up|d_model"):
+        fm.fused_mlp(xw, w1w, w2w)
+    with pytest.raises(ValueError, match="d_ff a multiple of 8"):
+        fm.fused_mlp(x, w1[:, :500].contiguous(), w2[:500].contiguous())
+    with pytest.raises(ValueError, match="x on"):
+        fm.fused_mlp_forward(x, w1.cpu(), w2)

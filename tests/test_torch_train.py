@@ -96,8 +96,7 @@ def test_chunked_loss_equals_dense_and_checks_the_chunk():
         ttf.chunked_masked_causal_nll(x, head, tokens, chunk=48)
 
 
-@pytest.mark.parametrize("kw", [{"remat": True}, {"n_experts": 2},
-                                {"mlp_impl": "fused"}])
+@pytest.mark.parametrize("kw", [{"n_experts": 2}])
 def test_unported_trunk_options_raise(kw):
     _, tcfg = _pair()
     jcfg, _ = _pair()
@@ -357,9 +356,8 @@ def test_train_app_data_file(tmp_path, capsys):
     assert capsys.readouterr().out.strip().endswith("SUCCESS")
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"], ["--remat"],
-                                  ["--n-experts", "2"],
-                                  ["--mlp-impl", "fused"], ["--offload-opt"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"],
+                                  ["--n-experts", "2"], ["--offload-opt"],
                                   ["--dcn-dp"], ["--attention", "ring"]])
 def test_train_app_unported_flags_fail(flag, capsys):
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
