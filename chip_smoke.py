@@ -17,7 +17,14 @@ Phases, each printing JSON lines:
               one library call's device time (yardstick only; the port
               never calls it) beside the kernel's bound; the decode
               kernels on bf16, int8 and fp8 caches (the linear cache,
-              the paged cache, the exact-softmax paged route);
+              the paged cache, the exact-softmax paged route); kernel 13,
+              the migration exchange, byte for byte (uint8 views) against
+              its plain version on the plane row's bf16 K/V pages (8 kv
+              heads, page 256, D 128) at 1, 2, 5 (a ragged last chunk)
+              and 16 pages, int8 pages with their f32 scale pools and fp8
+              pages, an oversized slab refused with MigrationDmaError
+              before any launch, and timed at one bundle array (2 pages,
+              1 MiB) beside ``landing.copy_(x)``;
 3. serve    — the serving benchmark's chip model at full width (vocab
              32768, d_model 1024, 8 heads of 128, 8 layers, d_ff 4096,
              bf16, page 256, 8 slots, chunk 16, prompts up to 512,
@@ -65,7 +72,22 @@ Phases, each printing JSON lines:
               page leaked; the pool bytes against a bf16 pool of equal
               geometry; each decode kernel's launches equal to n_layers x
               the decode steps that ran it;
-8. kernel   — the training kernels (kernels 1-4) at one layer of the
+8. plane    — the serving plane at the serve phase's model (page 256, 8
+              slots, chunk 16, the plane benchmark's stream: 32 requests,
+              Poisson at 32 rps, seed 11, prompts 32/64/128, budgets
+              32/128/256 at 0.5/0.3/0.2, two classes): the port's
+              ``bench_serving.run_plane`` over dma (single engine,
+              2-replica, 1 prefill + 1 decode replica on logical ranks 0
+              and 1 of the card), then closed-loop 1p/1d legs over dma,
+              device_put and wire (dma's tokens == wire's byte for byte)
+              and 8 requests at int8 KV over dma: every sequence against
+              its standalone ``paged_generate`` (tie-aware), migrations >
+              0, every bundle over the asked transport (a fallback warning
+              fails), kernel 13's launches == the dma bundles' payload
+              arrays (2 x 8 a bf16 bundle, 4 x 8 an int8 one), every arena
+              drained; wall time, tokens/s, goodput, the overlap fraction
+              and bytes a round printed;
+9. kernel   — the training kernels (kernels 1-4) at one layer of the
               training benchmark's step (B 8, T 2048, H 8, D 128, causal,
               bf16): the forward with lse, the fused, dq and dkv backward
               kernels, each against its plain version (stated tolerances)
@@ -81,7 +103,7 @@ Phases, each printing JSON lines:
               against its plain version and twice for equal bits, timed
               beside its bound, its plain version and the dense chain in
               the library (forward, and its autograd backward);
-9. train    — ``train_app`` in-process at the training benchmark's chip
+10. train   — ``train_app`` in-process at the training benchmark's chip
               model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
               d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
               --resume-check and --generate 16): SUCCESS, the first loss
@@ -103,7 +125,7 @@ Phases, each printing JSON lines:
               save-a forward once per layer), one step with the slab
               limit forced to 0 (kernels 3-4), and one step profiled
               (device-busy share, top kernels);
-10. the ``{"kernels": [...]}`` line, the card's name and power limit
+11. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -1249,6 +1271,77 @@ def alias_case(gen):
     return row
 
 
+# kernel 13's checked slabs: the plane row's bf16 K/V pages (8 kv heads,
+# page 256, D 128) at 1, 2, 5 (a ragged last chunk) and 16 pages, int8
+# pages with their f32 scale pools, fp8 pages; timed at one array of a
+# plane bundle: 2 pages x 8 x 256 x 128 bf16 = 1 MiB
+MIGRATION_PAGE = (8, 256, 128)
+MIGRATION_CASES = ((1, MIGRATION_PAGE, torch.bfloat16),
+                   (2, MIGRATION_PAGE, torch.bfloat16),
+                   (5, MIGRATION_PAGE, torch.bfloat16),
+                   (16, MIGRATION_PAGE, torch.bfloat16),
+                   (2, MIGRATION_PAGE, torch.int8),
+                   (2, (8, 1, 256), torch.float32),
+                   (5, MIGRATION_PAGE, torch.float8_e4m3fn))
+MIGRATION_TIMED_PAGES = 2
+
+
+def migration_case(gen):
+    """Kernel 13 against its plain version byte for byte (uint8 views) on
+    every case of MIGRATION_CASES, the oversized slab refused before any
+    launch, then timed at one bundle array of the plane row beside its
+    plain version and ``landing.copy_(x)``."""
+    from hpc_patterns_tpu_torch.comm import migration_dma as md
+
+    dev = torch.device("cuda")
+    checked = []
+    for n_pages, page, dt in MIGRATION_CASES:
+        nbytes = n_pages * math.prod(page) * torch.tensor(
+            [], dtype=dt).element_size()
+        bits = torch.randint(0, 256, (nbytes,), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        x = bits.view(dt).reshape(n_pages, -1)
+        got = md.migration_exchange(x)
+        want = md.migration_exchange_reference(x)
+        md.synchronize()
+        check(torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+              and torch.equal(got.view(torch.uint8).flatten(), bits),
+              f"migration_exchange {n_pages} x {page} {dt}: == plain, "
+              "byte for byte")
+        checked.append({"n_pages": n_pages, "page": list(page),
+                        "dtype": str(dt).replace("torch.", "")})
+    n0 = md.launches["migration_exchange"]
+    big = torch.zeros(1, md.LANDING_LIMIT // 4 + 4, device=dev)
+    try:
+        md.migration_exchange(big)
+        refused = False
+    except md.MigrationDmaError:
+        refused = True
+    check(refused and md.launches["migration_exchange"] == n0,
+          "an oversized slab raises MigrationDmaError before any launch")
+    del big
+    nbytes = MIGRATION_TIMED_PAGES * math.prod(MIGRATION_PAGE) * 2
+    sets = [(torch.randn(MIGRATION_TIMED_PAGES, math.prod(MIGRATION_PAGE),
+                         generator=gen, device=dev).bfloat16(),)
+            for _ in range(math.ceil(150e6 / nbytes))]
+    landing = torch.empty_like(sets[0][0])
+    ms = device_ms(md.migration_exchange, sets)
+    md.synchronize()
+    plain = device_ms(md.migration_exchange_reference, sets)
+    lib = device_ms(landing.copy_, sets)
+    b_ms, b_by = bound(2.0 * nbytes, 0.0, BF16_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "migration_exchange",
+           "shape": {"n_pages": MIGRATION_TIMED_PAGES,
+                     "page": list(MIGRATION_PAGE), "dtype": "bfloat16",
+                     "bytes": nbytes, "page_chunk": md.PAGE_CHUNK},
+           "checked": checked, "budget_refused": refused,
+           "max_abs_err": 0.0, "tol": 0.0, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "library": "landing.copy_(x)",
+           "bound_ms": b_ms, "bound_by": b_by, "input_sets": len(sets)}
+    emit(row)
+    return row
+
+
 def run_app(main, argv, log):
     """An app's ``main`` in-process with a JSONL log and its printed lines
     in a file beside it: (exit code, records)."""
@@ -1789,6 +1882,164 @@ def _train_run(argv, log) -> dict:
             "out": log.with_suffix(".out").read_text()}
 
 
+# the plane phase's closed-loop transports and its int8 leg's requests
+PLANE_TRANSPORTS = ("dma", "device_put", "wire")
+PLANE_INT8_REQUESTS = 8
+
+
+def _plane_leg(bs, stream, oracle, geom, migration, label):
+    """One closed-loop 1p/1d leg (every request submitted up front, so the
+    rounds are deterministic) on logical ranks 0 and 1 of the card:
+    tie-aware oracle, transports, kernel 13's launches against the dma
+    bundles' payload arrays, arenas drained."""
+    from hpc_patterns_tpu_torch.comm import migration_dma as md
+
+    dev = torch.device("cuda")
+    plane = bs.make_plane(
+        stream, ("prefill", "decode"), **geom, migration=migration,
+        device=dev, placed=True,
+        slo_targets=bs.slo.targets_from_classes(bs.SCENARIO_CLASSES))
+    n0 = md.launches["migration_exchange"]
+    t0 = time.perf_counter()
+    ids = {r.index: plane.submit(stream["prompts"][r.index], r.max_new,
+                                 priority=r.priority)
+           for r in stream["schedule"].requests}
+    got = plane.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    md.synchronize()
+    launched = md.launches["migration_exchange"] - n0
+    outs = {i: got[rid] for i, rid in ids.items()}
+    verdicts = oracle.check(outs, label)
+    arrays = sum(len(v) for k, v in plane.replicas[0].engine.cache.items()
+                 if k != "table")
+    check(plane.migrations > 0, f"{label}: migrated")
+    check(dict(plane.migration_transports) == {migration: plane.migrations},
+          f"{label}: transports {dict(plane.migration_transports)}")
+    check(launched == (plane.migrations * arrays if migration == "dma"
+                       else 0),
+          f"{label}: kernel 13 launches {launched} == {arrays} payload "
+          f"arrays x {plane.migrations} dma bundles")
+    for r in plane.replicas:
+        check(r.engine.free_page_count == stream["pool"],
+              f"{label}: replica {r.name} drained")
+    tokens = sum(len(v) for v in outs.values())
+    return outs, launched, {
+        "transport": migration, "requests": len(ids), "seconds": dt,
+        "tokens": tokens, "tokens_per_s": tokens / dt,
+        "goodput_tok_s": plane.last_slo["total"]["goodput_tok_s"]
+        * plane._serve_s / dt,
+        "migrations": plane.migrations, "payload_arrays": arrays,
+        "kernel13_launches": launched,
+        "kv_migration_overlap_frac": plane.last_kv_migration_overlap_frac,
+        "dma_migration_overlap_frac":
+            plane.last_dma_migration_overlap_frac,
+        "migration_bytes_per_round": plane.migration_bytes_per_round,
+        "oracle": verdicts}
+
+
+def phase_plane():
+    """The serving plane at the chip model: the port's ``run_plane`` over
+    dma (single engine, 2-replica, 1p/1d), then closed-loop 1p/1d legs
+    over every transport (dma's tokens == wire's, byte for byte), then 8
+    requests at int8 KV over dma. Counts zeroed just before, read just
+    after; a transport fallback warning fails the phase."""
+    import warnings
+
+    from hpc_patterns_tpu_torch import bench_serving as bs
+    from hpc_patterns_tpu_torch.apps.serve_app import CHIP_MODEL
+    from hpc_patterns_tpu_torch.comm import migration_dma as md
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    conf = bs.plane_full_config(dev)
+    cfg = conf["cfg"]
+    check(all(getattr(cfg, k) == v for k, v in CHIP_MODEL.items())
+          and cfg.decode_attn == "flash",
+          f"the plane runs the serve phase's model: {cfg}")
+    geom = {k: conf[k] for k in ("cfg", "params", "slots", "chunk",
+                                 "page_size")}
+    md.launches["migration_exchange"] = 0
+    fa.launches["fwd"] = 0
+    fd.launches["paged_decode"] = 0
+    stream = bs.plane_stream(**conf)
+    oracle = bs.Oracle(stream, cfg=cfg, params=conf["params"],
+                       page_size=conf["page_size"], device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = bs.run_plane(**conf, migration="dma", oracle=oracle)
+        md.synchronize()
+        k13_open = md.launches["migration_exchange"]
+        closed, outs = {}, {}
+        for mig in PLANE_TRANSPORTS:
+            outs[mig], _, closed[mig] = _plane_leg(
+                bs, stream, oracle, geom, mig, f"plane closed-loop {mig}")
+        for i, toks in outs["dma"].items():
+            check(np.array_equal(toks, outs["wire"][i]),
+                  f"closed-loop dma == wire, byte for byte (request {i})")
+        qconf = bs.with_kv_dtype(dict(conf, n=PLANE_INT8_REQUESTS), "int8")
+        qgeom = dict(geom, cfg=qconf["cfg"])
+        qstream = bs.plane_stream(**qconf)
+        qoracle = bs.Oracle(qstream, cfg=qconf["cfg"], params=conf["params"],
+                            page_size=conf["page_size"], device=dev)
+        _, _, closed["dma_int8"] = _plane_leg(bs, qstream, qoracle, qgeom,
+                                              "dma", "plane int8 dma")
+    md.synchronize()
+    launches = {"migration_exchange": md.launches["migration_exchange"],
+                "flash_prefill": fa.launches["fwd"],
+                "paged_decode": fd.launches["paged_decode"]}
+    fallbacks = [str(w.message) for w in caught
+                 if "fell back" in str(w.message)]
+    check(not fallbacks, f"no transport fallback: {fallbacks}")
+    arrays = closed["dma"]["payload_arrays"]
+    check(res["migrations"] > 0 and res["migration_transports"]
+          == {"dma": res["migrations"]},
+          f"run_plane 1p/1d: every bundle over dma "
+          f"{res['migration_transports']}")
+    check(k13_open == res["migrations"] * arrays,
+          f"run_plane: kernel 13 launches {k13_open} == {arrays} x "
+          f"{res['migrations']} bundles")
+    check(launches["flash_prefill"] > 0 and launches["paged_decode"] > 0,
+          f"the plane ran kernels 1 and 6: {launches}")
+    legs = {leg: {"seconds": res[f"t_{leg}"],
+                  "tokens_per_s": res[f"{leg}_tok_s"],
+                  "goodput_tok_s": res[f"{leg}_goodput_tok_s"],
+                  "oracle": res["oracle"][leg]}
+            for leg in ("single", "plane", "disagg")}
+    emit({"phase": "plane",
+          "config": {"vocab": cfg.vocab, "d_model": cfg.d_model,
+                     "n_heads": cfg.n_heads, "n_layers": cfg.n_layers,
+                     "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+                     "decode_attn": cfg.decode_attn,
+                     **{k: conf[k] for k in ("n", "slots", "chunk",
+                                             "page_size", "prompt_len",
+                                             "max_budget", "rate_rps",
+                                             "seed")}},
+          "cuts": {"chips": "2 -> 2 logical ranks of one card",
+                   "int8_requests": f"32 -> {PLANE_INT8_REQUESTS}"},
+          "open_loop": {**legs,
+                        "migrations": res["migrations"],
+                        "kv_migration_overlap_frac":
+                            res["kv_migration_overlap_frac"],
+                        "dma_migration_overlap_frac":
+                            res["dma_migration_overlap_frac"],
+                        "migration_bytes_per_round":
+                            res["migration_bytes_per_round"],
+                        "ladder_fit": res["ladder_fit"],
+                        "expected_padding_fit":
+                            res["expected_padding_fit"],
+                        "expected_padding_default":
+                            res["expected_padding_default"],
+                        "kernel13_launches": k13_open},
+          "closed_loop": closed, "launches": launches,
+          "note": "replicas are logical ranks 0 and 1 of one card; a "
+                  "migration is a copy within its memory",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_train():
     """``train_app`` in-process at the training benchmark's chip model
     (dense MLP, then the fused MLP kernels without and with remat),
@@ -2045,8 +2296,10 @@ def main() -> int:
     agmm_row = allgather_matmul_case(cgen)
     perm_row = fused_permute_case(cgen)
     alias_row = alias_case(cgen)
+    mig_row = migration_case(cgen)
     launches_comm = phase_comm()
     launches_quant = phase_quant()
+    launches_plane = phase_plane()
     tgen = torch.Generator(device="cuda").manual_seed(5)
     train_rows = train_kernel_cases(tgen, **TRAIN_KERNEL_SHAPE)
     train_kernel_cases(tgen, **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA
@@ -2063,12 +2316,18 @@ def main() -> int:
         {"name": "flash_prefill", "route": "cuda",
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
-         "launches": launches["flash_prefill"],
+         "launches": launches["flash_prefill"]
+         + launches_plane["flash_prefill"],
+         "launches_by_path": {"serve": launches["flash_prefill"],
+                              "plane": launches_plane["flash_prefill"]},
          **{k: rows["flash_prefill"][k] for k in keys}},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
-         "launches": launches["paged_decode"],
+         "launches": launches["paged_decode"]
+         + launches_plane["paged_decode"],
+         "launches_by_path": {"serve": launches["paged_decode"],
+                              "plane": launches_plane["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys}},
         {"name": "flash_decode", "route": "cuda",
          "source": f"{PKG}/csrc/flash_decode.cu",
@@ -2153,6 +2412,11 @@ def main() -> int:
                              ("fused_mlp_fwd_save_a", 148),
                              ("fused_mlp_bwd_dx", 93),
                              ("fused_mlp_bwd_dw", 93))),
+        {"name": "migration_exchange", "route": "cuda",
+         "source": f"{PKG}/csrc/migration_dma.cu",
+         "replaces": "hpc_patterns_tpu/comm/migration_dma.py:110",
+         "launches": launches_plane["migration_exchange"],
+         **{k: mig_row[k] for k in keys}},
     ]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,7 +28,13 @@ Ported so far, with kernels written by hand for ``sm_90a``:
   ``apps/train_app.py`` and ``apps/eval_app.py``; the flash-attention
   backward ``csrc/flash_attention_bwd.cu`` (fused, dQ and dK/dV kernels)
   and the forward's logsumexp and global offsets in
-  ``csrc/flash_prefill.cu``.
+  ``csrc/flash_prefill.cu``; the fused MLP ``csrc/fused_mlp.cu`` and the
+  remat policies;
+- the serving plane's KV handoff — the engine's migration half in
+  ``models/serving.py``, ``serving_plane/`` (router, transports, wire
+  codec), ``harness/loadgen.py``, ``harness/slo.py`` and
+  ``bench_serving.py``; ``csrc/migration_dma.cu`` (the migration
+  exchange between two logical ranks of one card).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise

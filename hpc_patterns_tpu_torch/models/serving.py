@@ -1,6 +1,6 @@
-"""Continuous batching over the ragged paged cache — the greedy core of
-``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
-``ContinuousBatcher``).
+"""Continuous batching over the ragged paged cache — the greedy engine
+of ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
+``ContinuousBatcher``) and its half of the serving plane's KV handoff.
 
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
@@ -8,40 +8,63 @@
 - one extra TRASH page (with its scale rows in a quantized pool): idle
   slots point their whole table row at it, so their frozen decode
   writes land in garbage nobody reads;
-- prompts right-pad to a bucket ladder rung (:func:`bucket_ladder`,
-  :func:`pad_to_bucket`); the one-row prefill writes through the shared
-  pool and its logits come from the last real token;
-- admission happens at chunk boundaries, behind the already-enqueued
-  decode chunk (the CUDA stream orders them, as JAX's async dispatch
-  did); the first-token readback is deferred to the round's sync point;
+- prompts right-pad to a bucket ladder rung (:func:`bucket_ladder`, or
+  one fitted to an observed length sample, :func:`fit_bucket_ladder`);
+  the one-row prefill writes through the shared pool and its logits
+  come from the last real token;
+- admission walks the queue in priority order (lower number first,
+  resumes before fresh arrivals within a class, FCFS with skip inside
+  that), sheds fresh requests whose ``deadline_s`` expired, and happens
+  at chunk boundaries behind the already-enqueued decode chunk (the
+  CUDA stream orders them, as JAX's async dispatch did); the
+  first-token readback is deferred to the round's sync point;
 - a decode chunk is ``chunk`` ragged steps (``paged_decode_step`` with a
   (slots,) position vector): a row advances while ``pos < limit``; its
   position freezes at ``limit`` after it finishes, so a frozen write
   re-targets the row's own last slot; an emitted ``eos_id`` pulls the
-  limit down.
+  limit down;
+- every request has a ``stats`` row (``t_submit``, ``t_first``,
+  ``t_finish``, ``tokens``, ``outcome``, ``preemptions``); with
+  ``slo={priority: SLOTarget}`` each :meth:`ContinuousBatcher.run` ends
+  with the attainment rollup in ``last_slo`` (``harness/slo.py``);
+- KV migration (the serving plane's prefill -> decode handoff,
+  ``serving_plane/``): :meth:`EngineCore.export_migration` detaches a
+  row into a :class:`MigrationBundle` (cursors snapshot to host, its
+  pages gathered on the device into new tensors) and
+  :meth:`EngineCore.install_migration` seats one in another engine
+  (pages copied into the pool in place, cursors seeded; no readback).
+  A migrated row is structurally a resume on another engine, so its
+  tokens equal the colocated engine's byte for byte.
 
 The pool stores ``cfg.kv_cache_dtype``: the compute dtype, or int8/fp8
 values with per-row scale pools, served on any ``cfg.decode_attn``
-route ("flash", "paged_flash", "gather").
+route ("flash", "paged_flash", "gather"); a bundle carries the scale
+pools beside the K/V pages.
 
-Greedy only. Sampling (``temperature > 0``), preemption, tiered
-residency, prefix sharing, draft-assisted rounds, meshes, SLO tracking
-and the chaos/reqtrace hooks belong to later slices: asking for them
-raises ``ValueError``.
+Greedy only. Sampling (``temperature``/``top_k``), preemption,
+``admit_highwater``, tiered residency (``export_swapped``), prefix
+sharing, draft-assisted rounds and meshes belong to later slices:
+asking for them raises ``ValueError``. A bundle from this engine carries
+``key = zeros(2, uint32)``, ``temp = 0.0`` and ``segments = None``; a
+destination always installs the whole payload (prefix resolution waits
+for the prefix cache), though ``rung`` and ``prefix_len`` are written.
 
 Correctness contract: every sequence's tokens equal the standalone
 ``paged_generate`` for the same prompt, budget and config (exactly in f32
 on the CPU; up to near-ties where bf16 matmuls at batch 8 and batch 1
-round differently on the card).
+round differently on the card), migrated or not.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.harness import slo as slolib
 from hpc_patterns_tpu_torch.models.decode import (
     _pick,
     init_paged_cache,
@@ -49,6 +72,7 @@ from hpc_patterns_tpu_torch.models.decode import (
     paged_prefill,
 )
 from hpc_patterns_tpu_torch.models.transformer import TransformerConfig
+from hpc_patterns_tpu_torch.ops.flash_decode import raw
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 
@@ -70,6 +94,76 @@ def bucket_ladder(max_len: int, *, lo: int = 16,
     return tuple(rungs)
 
 
+
+def fit_bucket_ladder(lengths, max_rungs: int, *,
+                      max_len: int | None = None) -> tuple[int, ...]:
+    """Fit a prompt-length ladder to an observed length sample: up to
+    ``max_rungs`` rungs minimizing the expected padding ``E[rung(len) -
+    len]`` over the sample (exact DP over the distinct lengths: optimal
+    rungs sit on sample points). ``max_len``: extend the top rung to
+    cover prompts up to it even if the sample never reached it. Also
+    reachable as ``bucket_ladder.fit``."""
+    lengths = [int(t) for t in lengths]
+    if not lengths or min(lengths) < 1:
+        raise ValueError("fit_bucket_ladder needs a nonempty sample of "
+                         "positive lengths")
+    if max_rungs < 1:
+        raise ValueError(f"max_rungs must be >= 1, got {max_rungs}")
+    counts: dict[int, int] = {}
+    for t in lengths:
+        counts[t] = counts.get(t, 0) + 1
+    if max_len is not None and max_len > max(counts):
+        counts[int(max_len)] = counts.get(int(max_len), 0)
+    cand = sorted(counts)
+    n_cand = len(cand)
+    cnt = np.asarray([counts[c] for c in cand], np.int64)
+    val = np.asarray(cand, np.int64)
+    pc = np.concatenate([[0], np.cumsum(cnt)])
+    pv = np.concatenate([[0], np.cumsum(cnt * val)])
+
+    def seg_waste(i: int, j: int) -> int:
+        # lengths cand[i..j] all pad up to cand[j]
+        return int(val[j] * (pc[j + 1] - pc[i]) - (pv[j + 1] - pv[i]))
+
+    r_max = min(max_rungs, n_cand)
+    inf = float("inf")
+    # dp[r][j]: min waste covering cand[0..j] with r rungs, top = cand[j]
+    dp = [[inf] * n_cand for _ in range(r_max + 1)]
+    back = [[-1] * n_cand for _ in range(r_max + 1)]
+    for j in range(n_cand):
+        dp[1][j] = seg_waste(0, j)
+    for r in range(2, r_max + 1):
+        for j in range(r - 1, n_cand):
+            best, bi = inf, -1
+            for i in range(r - 2, j):
+                w = dp[r - 1][i] + seg_waste(i + 1, j)
+                if w < best:
+                    best, bi = w, i
+            dp[r][j], back[r][j] = best, bi
+    # the ladder must cover the sample max: chains end at the top cand
+    r_best = min(range(1, r_max + 1), key=lambda r: dp[r][n_cand - 1])
+    rungs, j, r = [], n_cand - 1, r_best
+    while r >= 1 and j >= 0:
+        rungs.append(int(val[j]))
+        j = back[r][j]
+        r -= 1
+    return tuple(sorted(rungs))
+
+
+bucket_ladder.fit = fit_bucket_ladder
+
+
+def expected_padding(buckets, lengths) -> float:
+    """Mean padded-minus-true tokens per prompt for ``lengths`` under
+    ``buckets`` (None = exact lengths): what :func:`fit_bucket_ladder`
+    minimizes."""
+    lengths = [int(t) for t in lengths]
+    if not lengths:
+        return 0.0
+    return float(sum(pad_to_bucket(buckets, t) - t
+                     for t in lengths)) / len(lengths)
+
+
 def pad_to_bucket(buckets, prompt_len: int) -> int:
     """The padded prefill length: the smallest rung that fits (the exact
     length when ``buckets`` is None). Pool-sizing callers must use the
@@ -87,20 +181,79 @@ def pad_to_bucket(buckets, prompt_len: int) -> int:
 @dataclass
 class Request:
     """One sequence to serve: ``prompt`` (T,) int32, up to ``max_new``
-    generated tokens (fewer if ``eos_id`` fires)."""
+    generated tokens (fewer if ``eos_id`` fires). ``t_submit`` stamps
+    queue entry (time to first token counts from it). ``priority``:
+    lower number = more important (admission order). ``deadline_s``:
+    queue-time shedding deadline relative to submit (None = never shed).
+    ``resume_prefix``: tokens this request already emitted elsewhere;
+    its prompt then carries them, and the engine prepends them to the
+    output."""
     prompt: np.ndarray
     max_new: int
     seq_id: int = -1
+    t_submit: float = 0.0
+    priority: int = 0
+    deadline_s: float | None = None
+    resume_prefix: np.ndarray | None = None
+
+
+@dataclass
+class MigrationBundle:
+    """One row's complete serving state, detached from its engine — what
+    a prefill-role replica hands a decode-role replica. The fields and
+    their names are JAX's (``hpc_patterns_tpu/models/serving.py``), so
+    the wire codec (``serving_plane/migration.py``) stays byte-compatible
+    across the two packages. ``pages_payload``: {cache key: per-layer
+    tensors with leading dim ``n_pages``} — the K/V pages, plus the scale
+    pools of a quantized cache. A greedy engine's bundle carries ``key =
+    zeros(2, uint32)`` and ``temp = 0.0``."""
+    seq_id: int
+    prompt: np.ndarray       # THIS admission's (possibly resume) prompt
+    out: list                # tokens emitted so far (prefix included)
+    prefix: list             # tokens emitted before THIS admission
+    budget: int
+    pos: int
+    limit: int
+    token: int               # current device token (== out[-1])
+    key: np.ndarray          # (2,) uint32 post-admission key state
+    temp: float              # effective per-row temperature
+    temp_override: float | None
+    priority: int
+    deadline_s: float | None
+    t_submit: float
+    t_first: float | None
+    preemptions: int
+    n_pages: int
+    page_size: int
+    pages_payload: dict
+    seq: int = -1            # plane-assigned migration sequence number
+    #: the admission rung (bucket-padded length) the row prefilled at
+    rung: int = 0
+    #: leading tokens whose pages hold pure-prompt K/V (page-aligned)
+    prefix_len: int = 0
+    #: how the payload reached the installing replica: "local",
+    #: "device_put", "dma" (comm/migration_dma.py) or "wire"
+    transport: str = "local"
+    #: request-lifecycle segments carried across the handoff (None when
+    #: the donor traced nothing — always, until the trace slice)
+    segments: tuple | None = None
 
 
 @dataclass
 class _Slot:
     seq_id: int = -1
     pages: list = field(default_factory=list)
+    prompt_len: int = 0
     budget: int = 0
     out: list = field(default_factory=list)
     active: bool = False
+    t_submit: float = 0.0
     first_dev: torch.Tensor | None = None  # pending first-token readback
+    prompt: np.ndarray | None = None  # THIS admission's unpadded prompt
+    priority: int = 0
+    deadline_s: float | None = None
+    prefix: list = field(default_factory=list)  # tokens before admission
+    padded_len: int = 0      # the admission rung this row prefilled at
 
 
 def _chunk_step(params, cache, pos, limit, tokens, *, cfg, chunk, eos_id):
@@ -123,26 +276,55 @@ def _chunk_step(params, cache, pos, limit, tokens, *, cfg, chunk, eos_id):
     return pos, limit, tokens, torch.stack(outs)
 
 
+def _install_pages(pool, idx, payload):
+    """Copy a migrated row's pages into ``pool`` at page ids ``idx``, in
+    place (``index_copy_``; JAX's ``pool.at[idx].set`` returns a new
+    pool): the device half of :meth:`EngineCore.install_migration`.
+    float8 moves through its byte view, as every gather and scatter of
+    the port does. ``payload`` must already have the pool's dtype and
+    page shape: nothing is cast."""
+    if payload.dtype != pool.dtype or tuple(payload.shape[1:]) \
+            != tuple(pool.shape[1:]) or payload.shape[0] != idx.numel():
+        raise ValueError(
+            f"payload {tuple(payload.shape)} {payload.dtype} does not fit "
+            f"{idx.numel()} page(s) of a {tuple(pool.shape)} {pool.dtype} "
+            "pool")
+    raw(pool).index_copy_(0, idx, raw(payload.to(pool.device)))
+
+
 class EngineCore:
     """Serve :class:`Request`s through ``slots`` concurrent rows of one
-    paged pool. ``pool_pages``: the shared arena (one trash page is
-    appended). ``pages_per_seq``: table width. ``chunk``: decode steps
-    per dispatch (admission granularity). ``prompt_buckets``: the prompt
-    ladder (None = exact lengths). ``device``: default ``cuda`` (raises
-    without a GPU unless ``device="cpu"``); params must live there."""
+    paged pool — the engine core shared by :class:`ContinuousBatcher`
+    and the serving plane's replicas. ``pool_pages``: the shared arena
+    (one trash page is appended). ``pages_per_seq``: table width.
+    ``chunk``: decode steps per dispatch (admission granularity).
+    ``prompt_buckets``: the prompt ladder (None = exact lengths).
+    ``slo``: ``{priority: harness.slo.SLOTarget}`` — each
+    :meth:`ContinuousBatcher.run` then leaves its attainment rollup in
+    ``last_slo``. ``device``: default ``cuda`` (raises without a GPU
+    unless ``device="cpu"``); params must live there."""
+
+    #: a greedy engine (the router checks replicas agree on these)
+    greedy = True
+    temperature = 0.0
+    top_k = 0
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int,
                  pool_pages: int, pages_per_seq: int, page_size: int,
                  chunk: int = 8, eos_id: int | None = None,
-                 prompt_buckets=None, device=None,
-                 temperature: float = 0.0, preempt: bool = False,
+                 prompt_buckets=None, device=None, slo=None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 preempt: bool = False, admit_highwater: float = 1.0,
                  residency=None, prefix_cache: bool = False,
-                 draft_params=None, mesh=None, slo=None):
+                 draft_params=None, mesh=None):
         later = {"temperature > 0 (sampling)": temperature > 0.0,
-                 "preempt": preempt, "residency": residency is not None,
+                 "top_k > 0 (sampling)": top_k > 0,
+                 "preempt": preempt,
+                 "admit_highwater < 1": admit_highwater < 1.0,
+                 "residency": residency is not None,
                  "prefix_cache": prefix_cache,
                  "draft_params": draft_params is not None,
-                 "mesh": mesh is not None, "slo": slo is not None}
+                 "mesh": mesh is not None}
         asked = [name for name, on in later.items() if on]
         if asked:
             raise ValueError(
@@ -171,6 +353,7 @@ class EngineCore:
         self.chunk = chunk
         self.eos_id = -1 if eos_id is None else int(eos_id)
         self.prompt_buckets = prompt_buckets
+        self.slo = slo
         self.trash = pool_pages  # the appended trash page's id
         self.pool_pages = pool_pages
         self._table = np.full((slots, pages_per_seq), self.trash, np.int32)
@@ -188,6 +371,18 @@ class EngineCore:
         self._queue: list[Request] = []
         self.finished: dict[int, np.ndarray] = {}
         self._next_id = 0
+        #: per-request outcome table (``harness/slo.py``'s input), keyed
+        #: by seq_id: priority, t_submit, t_first, t_finish, tokens,
+        #: outcome ("ok" | "shed" | "migrated"), preemptions
+        self.stats: dict[int, dict] = {}
+        self.last_slo: dict | None = None  # attainment of the last run
+        self._serve_s = 0.0  # cumulative run() wall time (goodput base)
+        #: host-clock (dispatch, readback) stamps of decode chunks: the
+        #: serving plane intersects migration windows with them; off on
+        #: the single-process path (the plane turns it on for decode
+        #: replicas)
+        self.track_chunk_windows = False
+        self.chunk_windows: deque = deque(maxlen=8192)
         #: ragged decode steps dispatched (``chunk`` per dispatch) and
         #: admissions (one prefill each) — what kernel launch counts are
         #: checked against
@@ -211,14 +406,33 @@ class EngineCore:
         return self.pages_needed(prompt_len, max_new, self.page_size,
                                  padded_len=self._bucket_len(prompt_len))
 
-    def submit(self, prompt, max_new: int, seq_id: int | None = None) -> int:
+    def _known(self, sid: int) -> bool:
+        return (sid in self.finished
+                or any(r.seq_id == sid for r in self._queue)
+                or any(s.active and s.seq_id == sid for s in self._slots))
+
+    def submit(self, prompt, max_new: int, seq_id: int | None = None, *,
+               temperature: float | None = None, key=None,
+               priority: int = 0, deadline_s: float | None = None,
+               resume_prefix=None) -> int:
         """Enqueue a sequence; returns its id. Tokens appear in
-        ``finished[id]`` once served."""
+        ``finished[id]`` once served. ``priority``: lower = more
+        important. ``deadline_s``: shed the request (empty output,
+        outcome ``"shed"``) if still queued this long after submit.
+        ``resume_prefix``: tokens this request already emitted
+        elsewhere — ``prompt`` must then be the original prompt plus
+        those tokens, and the engine prepends them to the output.
+        ``temperature``/``key`` need a sampling engine (a later slice):
+        a greedy engine raises rather than ignore them."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError(f"prompt must be 1-D nonempty, {prompt.shape}")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if key is not None or temperature is not None:
+            raise ValueError(
+                "per-request temperature/key need a sampling engine; a "
+                "greedy engine would silently ignore them")
         padded = self._bucket_len(int(prompt.size))  # raises off-ladder
         need = self._pages_for(prompt.size, max_new)
         if need > min(self.pages_per_seq, self.pool_pages):
@@ -231,19 +445,63 @@ class EngineCore:
                 f"prompt {prompt.size} + budget {max_new} (bucket pad "
                 f"{padded}) exceeds max_seq {self.cfg.max_seq}")
         sid = self._next_id if seq_id is None else seq_id
-        if (sid in self.finished
-                or any(r.seq_id == sid for r in self._queue)
-                or any(s.active and s.seq_id == sid for s in self._slots)):
+        if self._known(sid):
             raise ValueError(f"seq_id {sid} already queued/active/finished")
+        if resume_prefix is not None:
+            resume_prefix = np.asarray(resume_prefix, np.int32)
+            if resume_prefix.size > prompt.size:
+                raise ValueError(
+                    f"resume_prefix ({resume_prefix.size} tokens) longer "
+                    f"than the prompt ({prompt.size}) that must carry it")
         self._next_id = max(self._next_id, sid) + 1
-        self._queue.append(Request(prompt, max_new, sid))
+        now = time.perf_counter()
+        self._queue.append(Request(prompt, max_new, sid, t_submit=now,
+                                   priority=int(priority),
+                                   deadline_s=deadline_s,
+                                   resume_prefix=resume_prefix))
+        self.stats[sid] = {"priority": int(priority), "t_submit": now,
+                           "t_first": None, "t_finish": None, "tokens": 0,
+                           "outcome": None, "preemptions": 0}
         return sid
 
+    def _queue_order(self) -> list[int]:
+        """Queue indices in admission order: priority class first (lower
+        number = more important), resumes before fresh arrivals within a
+        class, FCFS within that."""
+        return sorted(
+            range(len(self._queue)),
+            key=lambda qi: (self._queue[qi].priority,
+                            self._queue[qi].resume_prefix is None, qi))
+
+    def _shed_expired(self) -> None:
+        """Drop queued FRESH requests whose ``deadline_s`` expired: empty
+        output, outcome ``"shed"`` (resumes are exempt — their tokens are
+        already paid for). Host bookkeeping only."""
+        if not any(r.deadline_s is not None and r.resume_prefix is None
+                   for r in self._queue):
+            return
+        now = time.perf_counter()
+        kept = []
+        for req in self._queue:
+            if (req.deadline_s is None or req.resume_prefix is not None
+                    or now - req.t_submit <= req.deadline_s):
+                kept.append(req)
+                continue
+            self.finished[req.seq_id] = np.zeros((0,), np.int32)
+            rec = self.stats.get(req.seq_id)
+            if rec is not None:
+                rec["outcome"] = "shed"
+                rec["t_finish"] = now
+        self._queue = kept
+
     def _try_admit(self) -> int:
-        """One FCFS-with-skip admission pass (a large request does not
-        block a small one behind it). Returns the number admitted."""
+        """One admission pass per round: shed, then walk the queue in
+        :meth:`_queue_order`, admitting every request that fits (a large
+        request does not block a small one behind it). Returns the
+        number admitted."""
+        self._shed_expired()
         admitted = 0
-        for req in list(self._queue):
+        for req in [self._queue[qi] for qi in self._queue_order()]:
             free_slot = next(
                 (i for i, s in enumerate(self._slots) if not s.active), None)
             if free_slot is None:
@@ -258,16 +516,22 @@ class EngineCore:
             admitted += 1
         return admitted
 
+    def _seat(self, slot: int, pages: list) -> np.ndarray:
+        """Point ``slot``'s table row at ``pages`` (trash beyond) and
+        upload the table. Returns the row."""
+        row = np.full((self.pages_per_seq,), self.trash, np.int32)
+        row[:len(pages)] = pages
+        self._table[slot] = row
+        self.cache["table"] = torch.from_numpy(self._table.copy()).to(
+            self.device)
+        return row
+
     def _admit(self, slot: int, req: Request, need: int):
         """Dispatch-only admission: table upload, one-row bucket-padded
         prefill through the shared pool, first-token pick and cursor
         seeding all enqueue without a host readback."""
         pages = [self.free_pages.pop() for _ in range(need)]
-        row = np.full((self.pages_per_seq,), self.trash, np.int32)
-        row[:need] = pages
-        self._table[slot] = row
-        self.cache["table"] = torch.from_numpy(self._table.copy()).to(
-            self.device)
+        row = self._seat(slot, pages)
         T = int(req.prompt.size)
         padded = self._bucket_len(T)
         prompt = np.zeros((padded,), np.int32)
@@ -289,20 +553,30 @@ class EngineCore:
         self.pos[slot] = T
         self.limit[slot] = lim
         self.tokens[slot] = first
-        self._slots[slot] = _Slot(seq_id=req.seq_id, pages=pages,
-                                  budget=req.max_new, active=True,
-                                  first_dev=first)
+        self._slots[slot] = _Slot(
+            seq_id=req.seq_id, pages=pages, prompt_len=T,
+            budget=req.max_new, active=True, t_submit=req.t_submit,
+            first_dev=first, prompt=req.prompt, priority=req.priority,
+            deadline_s=req.deadline_s,
+            prefix=([] if req.resume_prefix is None
+                    else [int(t) for t in req.resume_prefix]),
+            padded_len=padded)
         self._pending.append(slot)
         self.admissions += 1
 
     def _resolve_pending(self):
         """Read back the admissions' first tokens (the round's sync
-        point) and finish rows done at admission (budget 1 or eos)."""
+        point), stamp time to first token, and finish rows done at
+        admission (budget 1 or eos)."""
         for slot in self._pending:
             st = self._slots[slot]
             first = int(st.first_dev)
             st.first_dev = None
-            st.out = [first]
+            # a resumed row re-opens with everything it already emitted
+            st.out = list(st.prefix) + [first]
+            rec = self.stats.get(st.seq_id)
+            if rec is not None and rec["t_first"] is None:
+                rec["t_first"] = time.perf_counter()
             if (self.eos_id >= 0 and first == self.eos_id) \
                     or st.budget == 1:
                 self._finish(slot)
@@ -310,24 +584,33 @@ class EngineCore:
 
     # -- completion --------------------------------------------------------
 
-    def _finish(self, slot: int):
-        """Record the row's tokens, return its pages to the free list,
-        point its table row at the trash page and zero its cursors."""
-        st = self._slots[slot]
-        self.finished[st.seq_id] = np.asarray(st.out, np.int32)
-        self.free_pages.extend(st.pages)
-        self._table[slot] = self.trash
-        self.cache["table"] = torch.from_numpy(self._table.copy()).to(
-            self.device)
+    def _release_slot(self, slot: int):
+        """Return a row's pages to the free list, point its table row at
+        the trash page and zero its cursors — the shared tail of
+        completion and export."""
+        self.free_pages.extend(self._slots[slot].pages)
+        self._seat(slot, [])
         self._slots[slot] = _Slot()
         self.pos[slot] = 0
         self.limit[slot] = 0
 
+    def _finish(self, slot: int):
+        st = self._slots[slot]
+        self.finished[st.seq_id] = np.asarray(st.out, np.int32)
+        rec = self.stats.get(st.seq_id)
+        if rec is not None:
+            rec["t_finish"] = time.perf_counter()
+            rec["tokens"] = len(st.out)
+            rec["outcome"] = "ok"
+        self._release_slot(slot)
+
     # -- the loop ----------------------------------------------------------
 
     def _dispatch_chunk(self):
-        # the chunk's start cursors: nothing is in flight at a round start
-        pos_start = self.pos.cpu().numpy()
+        # the chunk's start cursors (nothing is in flight at a round
+        # start) as a COPY: on the CPU .cpu().numpy() is a view of
+        # self.pos, which installs and completions write in place
+        pos_start = self.pos.cpu().numpy().copy()
         parts = [i for i, s in enumerate(self._slots) if s.active]
         self.pos, self.limit, self.tokens, out = _chunk_step(
             self.params, self.cache, self.pos, self.limit, self.tokens,
@@ -348,44 +631,228 @@ class EngineCore:
             if pos_start[i] + valid >= limit_new[i]:
                 self._finish(i)
 
-    def service_round(self) -> dict:
+    def service_round(self, *, decode: bool = True,
+                      pre_collect=None) -> dict:
         """ONE scheduler round: dispatch the decode chunk for the rows
         already running, admit behind it, read back first tokens, then
-        collect the chunk. Returns ``{"admitted", "stalled", "active"}``
-        (``stalled``: requests wait, nothing admitted, nothing runs)."""
+        collect the chunk.
+
+        ``decode=False`` is the prefill-role round: admissions run but no
+        decode chunk is dispatched; admitted rows park at their first
+        token for :meth:`export_migration`. ``pre_collect``: called with
+        ``overlapped`` (True iff a decode chunk is in flight) after the
+        admissions and before the chunk's readback — the plane installs
+        arrived migrations there, so their device work enqueues behind
+        the chunk. Returns ``{"admitted", "exposed_s" (admission host
+        time with nothing in flight), "stalled" (requests wait, nothing
+        admitted, nothing runs), "active"}``."""
+        active = lambda: any(s.active for s in self._slots)  # noqa: E731
         inflight = None
-        if any(s.active for s in self._slots):
+        t_chunk0 = 0.0
+        if decode and active():
             inflight = self._dispatch_chunk()
+            t_chunk0 = time.perf_counter()
+        t0 = time.perf_counter()
         admitted = self._try_admit()
         self._resolve_pending()
+        exposed_s = 0.0
         stalled = False
         if inflight is None:
-            if any(s.active for s in self._slots):
+            exposed_s = time.perf_counter() - t0
+            if decode and active():
                 inflight = self._dispatch_chunk()
-            else:
+                t_chunk0 = time.perf_counter()
+            elif not active():
                 stalled = bool(self._queue) and not admitted
+        if pre_collect is not None:
+            pre_collect(inflight is not None)
         if inflight is not None:
             self._collect_chunk(inflight)
-        return {"admitted": admitted, "stalled": stalled,
-                "active": any(s.active for s in self._slots)}
+            if self.track_chunk_windows:
+                self.chunk_windows.append((t_chunk0, time.perf_counter()))
+        return {"admitted": admitted, "exposed_s": exposed_s,
+                "stalled": stalled, "active": active()}
+
+    # -- load observables (what the router reads) --------------------------
 
     @property
     def free_page_count(self) -> int:
         return len(self.free_pages)
 
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def active_count(self) -> int:
+        return sum(1 for s in self._slots if s.active)
+
     def has_work(self) -> bool:
         return bool(self._queue) or any(s.active for s in self._slots)
+
+    def request_pages(self, n_pages: int) -> None:
+        """Install pressure from the router. A no-op: without tiered
+        residency (a later slice) nothing can be evicted for it, and the
+        install waits for ordinary completions."""
+
+    def would_fit(self, prompt_len: int, max_new: int) -> bool:
+        """Could this engine EVER serve the request (table width, pool,
+        ladder, max_seq) — the router's placement feasibility check."""
+        try:
+            padded = self._bucket_len(int(prompt_len))
+        except ValueError:
+            return False
+        need = self._pages_for(prompt_len, max_new)
+        return (need <= min(self.pages_per_seq, self.pool_pages)
+                and max(prompt_len + max_new, padded) <= self.cfg.max_seq)
+
+    # -- migration (the serving plane's KV handoff) ------------------------
+
+    def migration_admissible(self, n_pages: int) -> bool:
+        """Could :meth:`install_migration` of an ``n_pages`` bundle
+        succeed right now (a free slot and the pages)?"""
+        return (any(not s.active for s in self._slots)
+                and n_pages <= len(self.free_pages)
+                and n_pages <= self.pages_per_seq)
+
+    def exportable_slots(self) -> list[int]:
+        """Active rows whose first token is resolved — what a prefill
+        replica offers for migration after a ``decode=False`` round."""
+        return [i for i, s in enumerate(self._slots)
+                if s.active and i not in self._pending]
+
+    def _detach_row(self, slot: int) -> MigrationBundle:
+        """Detach one active row into a :class:`MigrationBundle` and
+        release its slot and pages. Runs at a chunk boundary, so the
+        cursor snapshot is a deliberate sync point; ``tolist`` COPIES the
+        values into host ints (a host view of a cursor tensor would
+        change under a later in-place write). The K/V pages (and scale
+        pools) are gathered on the device with ``pool[idx]``, which
+        makes new tensors: the released pages may be reused at once."""
+        st = self._slots[slot]
+        if not st.active or slot in self._pending or st.prompt is None:
+            raise ValueError(f"slot {slot} has no exportable row")
+        pos, limit, token = torch.stack(
+            [self.pos[slot], self.limit[slot], self.tokens[slot]]).tolist()
+        idx = torch.tensor(st.pages, dtype=torch.long, device=self.device)
+        payload = {name: tuple(raw(pool)[idx].view(pool.dtype)
+                               for pool in pools)
+                   for name, pools in self.cache.items() if name != "table"}
+        rec = self.stats.get(st.seq_id) or {}
+        bundle = MigrationBundle(
+            seq_id=st.seq_id, prompt=st.prompt, out=list(st.out),
+            prefix=list(st.prefix), budget=st.budget, pos=pos,
+            limit=limit, token=token, key=np.zeros(2, np.uint32),
+            temp=0.0, temp_override=None, priority=st.priority,
+            deadline_s=st.deadline_s, t_submit=st.t_submit,
+            t_first=rec.get("t_first"),
+            preemptions=int(rec.get("preemptions") or 0),
+            n_pages=len(st.pages), page_size=self.page_size,
+            pages_payload=payload, rung=int(st.padded_len),
+            prefix_len=((st.prompt_len // self.page_size) * self.page_size
+                        if st.padded_len else 0))
+        self._release_slot(slot)
+        return bundle
+
+    def export_migration(self, slot: int) -> MigrationBundle:
+        """Detach one active row for a cross-engine handoff (the donor
+        half of the plane's KV migration); its stats outcome closes as
+        ``"migrated"``."""
+        bundle = self._detach_row(slot)
+        rec = self.stats.get(bundle.seq_id)
+        if rec is not None:
+            rec["outcome"] = "migrated"
+        return bundle
+
+    def install_migration(self, bundle: MigrationBundle) -> int:
+        """Continue a migrated row in THIS engine — the receiver half of
+        the handoff. Dispatch-only: the table upload, the page copies
+        into the pool and the cursor seeding all enqueue without a host
+        readback, so an in-flight decode chunk is never stalled (the
+        plane calls this from ``service_round``'s ``pre_collect``).
+        The whole payload is installed (prefix resolution waits for the
+        prefix cache). Returns the slot."""
+        if bundle.page_size != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: bundle {bundle.page_size} vs "
+                f"engine {self.page_size} — pools are not layout-"
+                "compatible across different page sizes")
+        pools = {k: len(v) for k, v in self.cache.items() if k != "table"}
+        got = {k: len(v) for k, v in bundle.pages_payload.items()}
+        if got != pools:
+            raise ValueError(
+                f"bundle payload {got} does not match this engine's pools "
+                f"{pools} (another kv_cache_dtype or depth)")
+        if not self.migration_admissible(bundle.n_pages):
+            raise ValueError(
+                f"migration of {bundle.n_pages} page(s) not admissible "
+                f"(free slots {self.slots - self.active_count}, "
+                f"free pages {len(self.free_pages)})")
+        if self._known(bundle.seq_id):
+            raise ValueError(
+                f"seq_id {bundle.seq_id} already known to this engine")
+        return self._attach_row(bundle)
+
+    def _attach_row(self, bundle: MigrationBundle) -> int:
+        """Seat a detached row in this engine (admissibility is the
+        caller's to have checked). Returns the slot."""
+        slot = next(i for i, s in enumerate(self._slots) if not s.active)
+        prompt = np.asarray(bundle.prompt, np.int32)
+        pages = [self.free_pages.pop() for _ in range(bundle.n_pages)]
+        self._seat(slot, pages)
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for name, pools in self.cache.items():
+            if name != "table":
+                for pool, pl in zip(pools, bundle.pages_payload[name]):
+                    _install_pages(pool, idx, pl)
+        self.pos[slot] = int(bundle.pos)
+        self.limit[slot] = int(bundle.limit)
+        self.tokens[slot] = int(bundle.token)
+        self._slots[slot] = _Slot(
+            seq_id=bundle.seq_id, pages=pages, prompt_len=int(prompt.size),
+            budget=bundle.budget, out=list(bundle.out), active=True,
+            t_submit=bundle.t_submit, prompt=prompt,
+            priority=bundle.priority, deadline_s=bundle.deadline_s,
+            prefix=list(bundle.prefix), padded_len=int(bundle.rung))
+        self.stats[bundle.seq_id] = {
+            "priority": bundle.priority, "t_submit": bundle.t_submit,
+            "t_first": bundle.t_first, "t_finish": None, "tokens": 0,
+            "outcome": None, "preemptions": bundle.preemptions}
+        return slot
 
 
 class ContinuousBatcher(EngineCore):
     """The single-process serving engine: ``submit()`` requests, then
     :meth:`run` until everything drains."""
 
-    def run(self, *, max_rounds: int | None = None):
-        """Serve until queue and slots drain (or ``max_rounds``). Returns
-        ``finished``: {seq_id: np.ndarray of emitted tokens}."""
+    def run(self, *, arrivals=None, max_rounds: int | None = None):
+        """Serve until queue, slots and (open-loop) arrivals drain (or
+        ``max_rounds`` rounds ran). Returns ``finished``: {seq_id:
+        np.ndarray of emitted tokens}.
+
+        ``arrivals``: open-loop traffic — ``(t_rel_s, submit_kwargs)``
+        pairs (``harness/loadgen.py`` schedules); each is submitted once
+        the run clock passes its instant, and its ``t_submit`` is that
+        instant (the wait the user saw, not when the loop got to it). The
+        loop idles in bounded sleeps while nothing is servable. A bounded
+        run never waits for a future arrival (undelivered arrivals are
+        dropped: pass them to the continuing call)."""
+        t_run0 = time.perf_counter()
+        pending = (deque(sorted(arrivals, key=lambda a: a[0]))
+                   if arrivals else None)
         rounds = 0
-        while self.has_work():
+        while True:
+            while pending and pending[0][0] <= time.perf_counter() - t_run0:
+                t_arr, kw = pending.popleft()
+                sid = self.submit(**kw)
+                self._queue[-1].t_submit = t_run0 + t_arr
+                self.stats[sid]["t_submit"] = t_run0 + t_arr
+            if not self.has_work():
+                if not pending or max_rounds is not None:
+                    break
+                wait = pending[0][0] - (time.perf_counter() - t_run0)
+                time.sleep(min(max(wait, 0.0), 0.005))
+                continue
             if max_rounds is not None and rounds >= max_rounds:
                 break
             rounds += 1
@@ -394,6 +861,10 @@ class ContinuousBatcher(EngineCore):
                     "serving deadlock: waiting requests but no admissible "
                     "slot/pages (pool too small for the smallest waiting "
                     "request)")
+        self._serve_s += time.perf_counter() - t_run0
+        if self.slo is not None:
+            self.last_slo = slolib.attainment(self.stats, self.slo,
+                                              self._serve_s)
         return self.finished
 
 

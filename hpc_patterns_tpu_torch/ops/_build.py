@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 #: every kernel source of the package; all build together
 SOURCES = ("flash_prefill", "flash_attention_bwd", "paged_decode",
            "flash_decode", "paged_attention", "busy_wait",
-           "overlap_pipeline", "fused_ring", "alias_inplace", "fused_mlp")
+           "overlap_pipeline", "fused_ring", "alias_inplace", "fused_mlp",
+           "migration_dma")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

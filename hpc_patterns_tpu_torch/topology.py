@@ -9,6 +9,8 @@ the host, so no CPU number can pass for a device one.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 
@@ -29,3 +31,29 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
+
+
+@dataclass(frozen=True)
+class LogicalDevice:
+    """One logical endpoint on a physical device: the serving plane's
+    replica placement. JAX places replicas on distinct chips; the port
+    has one card, so two replicas there are two *ranks* on the same
+    ``device`` (the stand-in the ring kernels also use), and a pair of
+    endpoints that differ in rank is a real source/destination pair for
+    the migration exchange (``comm/migration_dma.py``). ``device`` is
+    resolved like every entry point's (``cuda`` raises without a GPU)."""
+
+    device: torch.device
+    rank: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+        if self.rank < 0:
+            raise ValueError(f"rank must be >= 0, got {self.rank}")
+
+    @property
+    def type(self) -> str:
+        return self.device.type
+
+    def __str__(self) -> str:
+        return f"{self.device}/rank{self.rank}"

@@ -29,13 +29,19 @@ place. The fused MLP kernels: y, a, dx, g and da within 2e-2 x max|plain|
 (bf16 outputs; g and da rounded to bf16 from f32 values whose sums run
 in another order, which can move a rounding), dW1 and dW2 within 1e-3 x
 max|plain| on the same g and da (f32 sums of the same bf16 products,
-in another order); each kernel twice for equal bits.
+in another order); each kernel twice for equal bits. The migration
+exchange (kernel 13) equals its plain version byte for byte (compared as
+uint8) at every pool dtype, ragged chunkings and rows that are not a
+multiple of 16 bytes; a launch one sender short times out and raises.
 """
+
+import math
 
 import pytest
 import torch
 
 from hpc_patterns_tpu_torch.comm import fused
+from hpc_patterns_tpu_torch.comm import migration_dma as md
 from hpc_patterns_tpu_torch.concurrency import commands, kernels, pipeline
 from hpc_patterns_tpu_torch.interop import device as interop_device
 from hpc_patterns_tpu_torch.models.decode import _quantize_rows
@@ -681,3 +687,58 @@ def test_fused_mlp_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fm.fused_mlp(x, w1[:, :500].contiguous(), w2[:500].contiguous())
     with pytest.raises(ValueError, match="x on"):
         fm.fused_mlp_forward(x, w1.cpu(), w2)
+
+
+# (n_pages, page shape, dtype): the plane row's bf16 K/V pages (8 kv heads,
+# page 256, D 128) at 1, 2, 5 (a ragged last chunk) and 16 pages; int8 and
+# fp8 pages with their f32 scale pools; rows of 24 and 13 bytes (the
+# byte-wise route)
+MIGRATION_CASES = [(1, (8, 256, 128), torch.bfloat16),
+                   (2, (8, 256, 128), torch.bfloat16),
+                   (5, (8, 256, 128), torch.bfloat16),
+                   (16, (8, 256, 128), torch.bfloat16),
+                   (2, (8, 256, 128), torch.int8),
+                   (2, (8, 1, 256), torch.float32),
+                   (5, (8, 256, 128), torch.float8_e4m3fn),
+                   (3, (2, 3), torch.float32),
+                   (9, (13,), torch.int8)]
+
+
+@pytest.mark.parametrize("n_pages,page,dtype", MIGRATION_CASES)
+@pytest.mark.parametrize("page_chunk", [1, md.PAGE_CHUNK])
+def test_migration_exchange_kernel_bytes_equal_plain(gen, n_pages, page,
+                                                     dtype, page_chunk):
+    nbytes = n_pages * math.prod(page) * torch.tensor([], dtype=dtype
+                                                      ).element_size()
+    bits = torch.randint(0, 256, (nbytes,), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    x = bits.view(dtype).reshape(n_pages, -1)
+    n = md.launches["migration_exchange"]
+    got = md.migration_exchange(x, page_chunk)
+    md.synchronize()
+    assert md.launches["migration_exchange"] == n + 1
+    assert got.data_ptr() != x.data_ptr() and got.dtype == dtype
+    want = md.migration_exchange_reference(x, page_chunk)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8).flatten(), bits)
+
+
+def test_migration_exchange_missing_sender_times_out(gen):
+    x = torch.randn(4, 8 * 256 * 128, generator=gen, device="cuda")
+    G = md._senders(x.device, md.PAGE_CHUNK * x.shape[1] * 4)
+    if G < 2:
+        pytest.skip("one sender CTA: nothing to leave out")
+    md.migration_exchange(x, senders_launched=G - 1)
+    with pytest.raises(RuntimeError, match="timed out"):
+        md.synchronize()
+    got = md.migration_exchange(x)  # the next launch is right again
+    md.synchronize()
+    assert torch.equal(got, x)
+
+
+def test_migration_exchange_budget_refuses_before_launching(gen):
+    big = torch.zeros(1, md.LANDING_LIMIT // 4 + 4, device="cuda")
+    n = md.launches["migration_exchange"]
+    with pytest.raises(md.MigrationDmaError, match="budget"):
+        md.migration_exchange(big)
+    assert md.launches["migration_exchange"] == n

@@ -148,7 +148,7 @@ def test_sizing_helpers_equal_jax(max_len):
 @pytest.mark.parametrize("kw", [
     {"temperature": 0.7}, {"preempt": True}, {"residency": object()},
     {"prefix_cache": True}, {"draft_params": {}}, {"mesh": object()},
-    {"slo": object()},
+    {"admit_highwater": 0.9},
 ])
 def test_later_slice_options_raise(model, kw):
     _, tcfg, _, tp = model
