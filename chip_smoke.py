@@ -8,7 +8,12 @@ Phases, each printing JSON lines:
 
 1. build    — compile every kernel source under
               ``hpc_patterns_tpu_torch/csrc/`` with nvcc for sm_90a into
-              ``build/`` (all sources in parallel) and load them;
+              ``build/`` (all sources in parallel) and load them, printing
+              each one's ptxas registers and spills; count the HGMMA,
+              UTMALDG, UTMASTG and LDGSTS instructions of kernel 1's
+              library (``cuobjdump -sass``) and fail if it holds no
+              HGMMA (the forward must run on wgmma); list the forward's
+              instances whose wgmma ptxas serialized (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
               (stated tolerance; the busy-wait and pipeline kernels
@@ -138,6 +143,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -212,6 +218,10 @@ TRAIN_BASE = ["--batch", "8", "--seq", "2048", "--d-model", "1024",
               "--attention", "flash"]
 TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
               "16"]
+# kernel 1's SASS instructions counted in phase build: the warpgroup MMA
+# (HGMMA, which must be there), the TMA's tensor loads and stores, and
+# cp.async (LDGSTS, the pre-Hopper copy, expected 0)
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -315,6 +325,19 @@ def phase_build():
                           "ptxas": [ln.strip() for ln in v["log"].splitlines()
                                     if "Used" in ln or "spill" in ln]}
                       for k, v in info.items()}})
+    # kernel 1 must run on Hopper's warpgroup MMA, fed by the TMA
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._target("flash_prefill"))],
+        capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in SASS_OPS}
+    # kernels whose wgmma ptxas serialized (note C7513; expected none)
+    serialized = re.findall(r"C7513\).*?flash_fwd_kernelILi(\d+)ELi(\d)",
+                            info["flash_prefill"]["log"])
+    emit({"phase": "build", "source": "flash_prefill", "sass": counts,
+          "wgmma_serialized": [f"D{d} x{n} warpgroups" for d, n in serialized],
+          "log_cached": info["flash_prefill"]["cached"]})
+    check(counts["HGMMA"] > 0, f"flash_prefill's SASS holds HGMMA: {counts}")
 
 
 def _sdpa_layout(q, k, v):
@@ -358,7 +381,8 @@ def prefill_case(gen, B, T, H, Hkv, D):
            "max_abs_err": err, "tol": PREFILL_ATOL, "ms": ms,
            "plain_ms": plain, "library_ms": lib, "library": "sdpa",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": per,
-           "flops": flops, "input_sets": len(sets)}
+           "flops": flops, "tflops": flops / ms / 1e9,
+           "input_sets": len(sets)}
     emit(row)
     return row
 
@@ -1623,6 +1647,8 @@ def train_kernel_cases(gen, B, T, H, Hkv, D):
             lambda q, k, v, do, lse, delta, out, r=route: fa._backward(
                 q, k, v, out, lse, 0, 0, do, None, causal=True, scale=None,
                 bwd=r), sets)
+    rows["flash_fwd_lse"]["tflops"] = (rows["flash_fwd_lse"]["flops"]
+                                       / rows["flash_fwd_lse"]["ms"] / 1e9)
     for name in ("flash_fwd_lse", *kern):
         r = rows[name]
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
@@ -2320,7 +2346,7 @@ def main() -> int:
          + launches_plane["flash_prefill"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "plane": launches_plane["flash_prefill"]},
-         **{k: rows["flash_prefill"][k] for k in keys}},
+         **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)}},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
@@ -2382,7 +2408,8 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches_train["flash_fwd_lse"],
-         **{k: train_rows["flash_fwd_lse"][k] for k in keys}},
+         **{k: train_rows["flash_fwd_lse"][k]
+            for k in keys + ("tflops",)}},
         {"name": "fused_bwd", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:235",

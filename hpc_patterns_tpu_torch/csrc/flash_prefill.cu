@@ -1,4 +1,6 @@
-// Causal flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Causal flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out:
+// wgmma with register accumulators, a TMA + mbarrier K/V ring, and the
+// online softmax on the accumulator fragments.
 //
 // Replaces: hpc_patterns_tpu/ops/flash_attention.py::_kernel (the Pallas
 // forward reached through flash_attention / flash_attention_block /
@@ -9,290 +11,835 @@
 // in GLOBAL positions: query row i of the call sits at q_offset + i, key j
 // at k_offset + j, and Tq may differ from Tk (one block of a ring step).
 // Rows with nothing visible (a fully-future block, or a row before every
-// key) output 0 and lse = m + log(max(l, 1e-30)) ~ -1e30, as the Pallas
-// kernel's epilogue. The lse output (f32, (B*H, Tq): the backward's
-// residual) is written only when its pointer is not null — the serving
-// path's launch passes null and offsets 0.
+// key) output 0 and lse ~ -1e30, as the Pallas kernel's epilogue. The lse
+// output (f32, (B*H, Tq), natural log: the backward's residual) is written
+// only when its pointer is not null — the serving path passes null.
 //
-// Layout: q, o (B, Tq, H, D); k, v (B, Tk, Hkv, D) — the JAX layout, so
-// the wrapper needs no transpose.
+// Layout: q, o (B, Tq, H, D); k, v (B, Tk, Hkv, D) — the JAX layout. The
+// tensor maps are 4-D (D, heads, T, B), so a tile that runs past T is
+// zero-filled by the TMA (never read from the next batch) and a store
+// past Tq is dropped by it.
 //
-// Design: one CTA (4 warps) per (q tile of 64 rows, b*H + h). The TPU's
-// sequential kv grid axis becomes a loop inside the block that stops at
-// the causal diagonal (the clamped index map + pl.when(visible) of the
-// Pallas kernel). K/V tiles are staged in shared memory with 16-byte
-// loads into padded rows (no bank conflicts across a fragment's 16 rows);
-// both products run on the tensor cores through WMMA 16x16x16 bf16
-// fragments. Each warp owns 16 query rows end to end (scores,
-// softmax, rescale, p.v), so the only block-wide barriers are around the
-// K/V tile loads.
+// Design. The TPU kernel keeps m, l and acc in VMEM scratch across a
+// sequential kv grid axis; here they live in registers and the kv loop
+// runs inside the block. One CTA per (block of query rows, b*H + h):
+// NWG consumer warpgroups of 64 rows each (one wgmma M) and one producer
+// warpgroup, of which one thread issues every copy:
+// - copies: Q once per warpgroup, then K and V tiles of BK = 128 keys
+//   into two rings of STAGES slots, each slot a full/empty mbarrier pair
+//   (the TMA completes full with its bytes; the 128 threads of each live
+//   consumer warpgroup arrive on empty once the product reading the slot
+//   has completed). K and V have rings of their own because a K tile is
+//   done one step before the V tile of the same keys;
+// - S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory
+//   with the swizzle the TMA map wrote (128B for D >= 64, whose rows are
+//   cut into 64-column atoms; 64B at D 32; 32B at D 16);
+// - softmax in place on the S fragment: a thread holds 2 rows x 32
+//   columns, a row spans the 4 threads of a quad (two shfl_xor); scores
+//   go to the log2 domain (scale * log2 e folded in, one MUFU.EX2 each;
+//   lse converted back to natural log); only tiles that cross the
+//   diagonal or the Tk edge are masked (selects), and a warpgroup stops
+//   at its own diagonal;
+// - O += P V: P is rounded to bf16 in registers and fed as wgmma's
+//   register A operand (m64n{D}k16, the RS form); V is the MN-major B
+//   operand (transpose bit). O stays in registers for the whole loop: no
+//   S, P or O tile touches shared memory;
+// - overlap: in step j, S_j = Q K_j^T and O += P_{j-1} V_{j-1} are in
+//   flight together; the softmax of S_j runs once S_j has landed, while
+//   the P V product still runs, and P_j is packed only after that product
+//   has completed (so no register it reads is redefined while it runs:
+//   ptxas would otherwise serialize every product of the kernel, C7513);
+// - epilogue: O / max(l, 1e-30), dead rows 0, written bf16 into the
+//   warpgroup's own (finished) Q slot with the map's swizzle and stored
+//   by one TMA store; lse by one thread of each quad.
+// With two consumer warpgroups the producer drops to 24 registers and the
+// consumers rise to 240 (setmaxnreg; launch bounds give 168 x 384).
+// CTA rows: 128 (two warpgroups), or 64 (one) when the 128-row grid would
+// leave SMs idle (the serving prefill: B 1, T 512, H 8 is 32 CTAs of 128
+// rows on 132 SMs, 64 of 64) — a shape rule in dispatch(), no knob. The
+// grid walks the query blocks from the last, so that under a causal mask
+// the longest CTAs start first. No atomics and no split across CTAs: two
+// calls give equal bits.
 //
-// What bounds it on the H100: at the serving shapes (T <= 1024, D = 128)
-// the work is small — T=512, H=8 is ~4 MiB of q/k/v/o (1.3 us at
-// 3.35 TB/s) and ~0.54 GFLOP causal (0.5 us at 989 TF/s) — so the kernel
-// is bound by latency and occupancy, not by either roofline: 64 CTAs on
-// 132 SMs, no load/compute overlap (single-buffered tiles), and WMMA
-// rather than wgmma. At the training shape (B 8, T 2048, H 8, D 128,
-// causal: 2048 CTAs, 6.9e10 FLOP, 0.069 ms at 989 TF/s) it is bound by
-// the per-tile work of its 4 warps: the shared-memory accumulator round
-// trip of p.v and the row-serial online softmax. Double buffering with
-// cp.async/TMA, register accumulators and wgmma are the later steps;
-// this version is the simple correct one.
+// What bounds it on the H100: at the training shape (B 8, T 2048, H 8,
+// D 128, causal: 6.9e10 FLOP, 0.069 ms at 989 TF/s against 0.02 ms of
+// bytes) the tensor cores, of which it keeps about 40% busy (0.167 ms on
+// an H100 80GB HBM3 at 700 W): the softmax and the rescale of O still
+// sit between a warpgroup's products, and nothing makes the two consumer
+// warpgroups take turns (no ping-pong). At the serving shape (B 1, T 512,
+// H 8: ~4 MiB, 1.3 us of bytes, 0.5 us of products) latency: 64 CTAs of
+// at most 4 kv tiles each, so the ring never fills and the launch, the Q
+// load and the epilogue dominate (0.011 ms on the same card).
 
+#include <cuda.h>  // CUtensorMap and the encode function's type (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
-
-using namespace nvcuda;
+#include <string.h>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int WARPS = 4;      // each warp owns BQ / WARPS = 16 rows
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr int WG_ROWS = 64;  // query rows of one consumer warpgroup
+constexpr int BK = 128;      // keys per K/V tile
+constexpr int STAGES = 2;    // K/V ring slots
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float DEAD_LSE = -1e30f;
 
-constexpr int LDS = BK + 4;  // f32 score rows (padded)
-constexpr int LDP = BK + 8;  // bf16 probability rows (padded)
-
-template <int D>
-struct Smem {
-  // rows are padded (bf16 D + 8, f32 D + 4) so that the 16 rows a
-  // fragment load touches fall in different banks
-  static constexpr int LD = D + 8;
-  static constexpr int LDO = D + 4;
-  // byte offsets into the dynamic shared buffer; every region 128-aligned
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + BQ * LD * 2;
-  static constexpr size_t v = k + BK * LD * 2;
-  static constexpr size_t s = v + BK * LD * 2;
-  static constexpr size_t p = s + BQ * LDS * 4;
-  static constexpr size_t o = p + BQ * LDP * 2;
-  static constexpr size_t m = o + BQ * LDO * 4;
-  static constexpr size_t l = m + BQ * 4;
-  static constexpr size_t bytes = l + BQ * 4;
+template <int D, int NWG>
+struct Cfg {
+  static constexpr int W = D < 64 ? D : 64;  // columns of one swizzle atom
+  static constexpr int NCH = D / W;          // atoms across a row
+  static constexpr int ROW_BYTES = W * 2;    // 32, 64 or 128: the swizzle
+  // log2 of the 16-byte groups a swizzle row holds; the wgmma layout code
+  static constexpr int SWZ_BITS =
+      ROW_BYTES == 128 ? 3 : ROW_BYTES == 64 ? 2 : 1;
+  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+  static constexpr int Q_CHUNK = WG_ROWS * ROW_BYTES;  // one atom column
+  static constexpr int Q_WG = NCH * Q_CHUNK;           // a warpgroup's Q / O
+  static constexpr int KV_CHUNK = BK * ROW_BYTES;
+  static constexpr int KV_TILE = NCH * KV_CHUNK;       // one K or V tile
+  static constexpr int THREADS = (NWG + 1) * 128;
+  // byte offsets from the 1024-aligned base (every tile a multiple of
+  // 1024 bytes, so each swizzle atom starts on its repeat)
+  static constexpr int q = 0;
+  static constexpr int k = q + NWG * Q_WG;
+  static constexpr int v = k + STAGES * KV_TILE;
+  static constexpr int bar = v + STAGES * KV_TILE;  // q_full, the ring's
+  static constexpr int bytes = bar + (1 + 4 * STAGES) * 8 + 1024;
 };
 
-// copy `rows` rows of D bf16 (row stride `stride` elements) into smem
-// rows of Smem<D>::LD elements, 16 bytes per thread per step
+// ---------------------------------------------------------------- PTX
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D map (coordinates innermost first) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (issue ... wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// the same for P, a product's register input: it stays live (its
+// registers not reused) until the product has completed
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout in bits 62-63
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+         | ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// 2^x in one MUFU.EX2 (flushes a subnormal result to 0, which a
+// probability that small never misses); 2^-inf = 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+// ---------------------------------------------------------------- wgmma
+//
+// m64n128k16 with both operands in shared memory (S = Q K^T), and
+// m64n{16,32,64,128}k16 with A in registers and B MN-major (O += P V).
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// O (m64nD) += P (m64k16, registers) V (k16 x D, MN-major shared memory)
 template <int D>
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                          long stride, int rows) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    int r = i / CHUNKS, c = i % CHUNKS;
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LD + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, b, scale_d);
+  else if constexpr (D == 32) wgmma_rs_n32(o, a, b, scale_d);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, b, scale_d);
+  else wgmma_rs_n128(o, a, b, scale_d);
+}
+
+// ---------------------------------------------------------------- kernel
+
+// the ring's barriers after q_full: K full, K empty, V full, V empty
+enum Ring { K_FULL = 0, K_EMPTY, V_FULL, V_EMPTY };
+
+__device__ __forceinline__ uint32_t ring_bar(uint32_t bars, Ring r, int s) {
+  return bars + 8 * (1 + r * STAGES + s);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Issue S = Q K^T (D / 16 steps of k16, 32 bytes apart inside a
+// swizzle atom, the next atom a chunk away; both operands K-major) or
+// O += P V (BK / 16 steps of 16 keys, 16 rows of the MN-major V).
+// `zero` and `one` are the scale-d flags as registers defined once,
+// before any product (a constant is materialized by a mov between two
+// products: no register a product reads is to be defined among them).
+// The first S step ignores the accumulator.
+template <class C, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_base,
+                                         uint32_t k_base, int zero, int one) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = kk * 16 % C::W * 2, c = kk * 16 / C::W;
+    wgmma_ss_n128(sc,
+                  make_desc(q_base + c * C::Q_CHUNK + off, 16,
+                            8 * C::ROW_BYTES, C::LAYOUT),
+                  make_desc(k_base + c * C::KV_CHUNK + off, 16,
+                            8 * C::ROW_BYTES, C::LAYOUT),
+                  kk > 0 ? one : zero);
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <class C, int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_base, int one) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk],
+                make_desc(v_base + kk * 16 * C::ROW_BYTES, C::KV_CHUNK,
+                          8 * C::ROW_BYTES, C::LAYOUT),
+                one);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// the online softmax of one tile on its S fragment (sc[4j + 2i + e] is
+// row wrow + 8i, column 8j + 2cq + e): updates m and the quad-partial l,
+// returns P rounded to bf16 as wgmma's A fragments (the S fragment of a
+// k16 slice is the A fragment of that slice) and O's rescale alpha
+template <bool EDGE>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int k0, int Tk, int causal, int k_off, int qpos, int cq,
+    float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = sc[4 * j + 2 * i + e] * scale_log2;
+        if constexpr (EDGE) {  // a select, no branch
+          const int kc = k0 + 8 * j + 2 * cq + e;
+          x = kc >= Tk || (causal && k_off + kc > qpos + 8 * i) ? -INFINITY
+                                                                : x;
+        }
+        sc[4 * j + 2 * i + e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+  float mu[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    mu[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // nothing seen yet
+    alpha[i] = exp2_ftz(m[i] - mu[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2_ftz(sc[4 * j + 2 * i + e] - mu[i]);
+        rsum[i] += p;
+        sc[4 * j + 2 * i + e] = p;
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
+}
+
+// P (in sc, f32) rounded to bf16 as wgmma's A fragments: the S fragment
+// of a k16 slice is the A fragment of that slice
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// masked only where the tile crosses the diagonal or the Tk edge
+__device__ __forceinline__ void softmax(
+    float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    bool edge, int k0, int Tk, int causal, int k_off, int qpos, int cq,
+    float scale_log2) {
+  if (edge)
+    softmax_tile<true>(sc, m, l, alpha, k0, Tk, causal, k_off, qpos, cq,
+                       scale_log2);
+  else
+    softmax_tile<false>(sc, m, l, alpha, k0, Tk, causal, k_off, qpos, cq,
+                        scale_log2);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
-                     float scale, int causal, int q_off, int k_off) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using S = Smem<D>;
-  constexpr int LD = S::LD, LDO = S::LDO;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v);
-  float* ss = reinterpret_cast<float*>(smem + S::s);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + S::p);
-  float* os = reinterpret_cast<float*>(smem + S::o);
-  float* ms = reinterpret_cast<float*>(smem + S::m);
-  float* ls = reinterpret_cast<float*>(smem + S::l);
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= alpha[i];
+      o[4 * j + 2 * i + 1] *= alpha[i];
+    }
+}
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = warp * 16;  // this warp's first row inside the tile
-  const int q0 = qt * BQ;      // first query row of this tile
-  const int qg0 = q_off + q0;  // its global position
+// One consumer warpgroup: its 64 rows against the ring's kv tiles up to
+// its own diagonal (the CTA's others it only lets pass). In step j,
+// S_j = Q K_j^T and O += P_{j-1} V_{j-1} are in flight together; the
+// softmax of S_j runs once S_j has landed, while P_{j-1} V_{j-1} still
+// runs; K_j's slot is released when S_j has landed, V_{j-1}'s and P's
+// registers when its product has.
+template <int D, int NWG>
+__device__ __forceinline__ void consume(
+    const CUtensorMap* omap, uint32_t base, unsigned char* gbase,
+    float* __restrict__ lse, int wg, int n_kt, int q0, int bh, int b, int h,
+    int Tq, int Tk, float scale_log2, int causal, int q_off, int k_off) {
+  using C = Cfg<D, NWG>;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, cq = lane % 4;
+  const int wrow = warp * 16 + g;                // row i = 0 in the group
+  const int qfirst = q_off + q0 + wg * WG_ROWS;  // its first row, global
+  const int qpos = qfirst + wrow;                // row i's: + 8 i
+  const uint32_t q_base = base + C::q + wg * C::Q_WG;
+  const uint32_t bars = base + C::bar;
+  auto k_base = [&](int s) { return base + C::k + s * C::KV_TILE; };
+  auto v_base = [&](int s) { return base + C::v + s * C::KV_TILE; };
+  // tiles this warpgroup reads: up to its own last row's diagonal
+  int n_wg = n_kt;
+  if (causal) {
+    const int last = qfirst + WG_ROWS - 1 - k_off;
+    n_wg = last < 0 ? 0 : min(last / BK + 1, n_kt);
+  }
+  auto edge = [&](int k0) {
+    return k0 + BK > Tk || (causal && k_off + k0 + BK - 1 > qfirst);
+  };
 
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  load_tile<D>(qs, q + ((long)b * Tq + q0) * q_stride + (long)h * D,
-               q_stride, BQ);
-  for (int i = threadIdx.x; i < BQ * LDO; i += THREADS) os[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    ms[threadIdx.x] = NEG_INF;
-    ls[threadIdx.x] = 0.f;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+  uint32_t pa[BK / 16][4];
+
+  // the Q slot is also where O is staged: wait for its load in any case
+  if (n_kt > 0) mbar_wait(bars, 0);
+  if (n_wg > 0) {
+    int zero = 0, one = 1;
+    asm volatile("" : "+r"(zero), "+r"(one));
+    mbar_wait(ring_bar(bars, K_FULL, 0), 0);
+    issue_qk<C, D>(sc, q_base, k_base(0), zero, one);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(ring_bar(bars, K_EMPTY, 0));
+    softmax(sc, m, l, alpha, edge(0), 0, Tk, causal, k_off, qpos, cq,
+            scale_log2);
+    pack_p(sc, pa);
+    for (int j = 1; j < n_wg; ++j) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      rescale<D>(o, alpha);  // before either product of the step
+      fence_regs(o);
+      mbar_wait(ring_bar(bars, K_FULL, s), (j / STAGES) & 1);
+      issue_qk<C, D>(sc, q_base, k_base(s), zero, one);
+      mbar_wait(ring_bar(bars, V_FULL, sp), ((j - 1) / STAGES) & 1);
+      issue_pv<C, D>(o, pa, v_base(sp), one);
+      wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+      fence_regs(sc);
+      mbar_arrive(ring_bar(bars, K_EMPTY, s));
+      // in place on S_j's registers; P_{j-1}'s are not touched until
+      // its product has completed
+      softmax(sc, m, l, alpha, edge(j * BK), j * BK, Tk, causal, k_off,
+              qpos, cq, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(ring_bar(bars, V_EMPTY, sp));
+      pack_p(sc, pa);
+    }
+    const int sl = (n_wg - 1) % STAGES;
+    rescale<D>(o, alpha);
+    fence_regs(o);
+    mbar_wait(ring_bar(bars, V_FULL, sl), ((n_wg - 1) / STAGES) & 1);
+    issue_pv<C, D>(o, pa, v_base(sl), one);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(ring_bar(bars, V_EMPTY, sl));
+  }
+  // tiles past this warpgroup's diagonal that the other one reads: take
+  // part in their slots' phases without reading them (waiting for the
+  // load first keeps each arrival in its own tile's phase)
+  for (int j = n_wg; j < n_kt; ++j) {
+    const int s = j % STAGES, ph = (j / STAGES) & 1;
+    mbar_wait(ring_bar(bars, K_FULL, s), ph);
+    mbar_arrive(ring_bar(bars, K_EMPTY, s));
+    mbar_wait(ring_bar(bars, V_FULL, s), ph);
+    mbar_arrive(ring_bar(bars, V_EMPTY, s));
   }
 
-  // causal: tiles wholly in this tile's future contribute nothing and are
-  // not read (the Pallas kernel's clamped index map + pl.when(visible));
-  // a fully-future block walks no tile at all
-  int n_kt = Tk / BK;
+  // epilogue: out = acc / max(l, 1e-30), dead rows 0; lse when asked
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const bool dead = m[i] == -INFINITY;
+    inv[i] = dead ? 0.f : 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cq == 0)
+      lse[(long)bh * Tq + q0 + wg * WG_ROWS + wrow + 8 * i] =
+          dead ? DEAD_LSE : m[i] * LN2 + logf(fmaxf(l[i], 1e-30f));
+  }
+  // bf16 O into this warpgroup's Q slot (its last wgmma has completed),
+  // in the swizzled layout the O map expects
+  unsigned char* ob = gbase + C::q + wg * C::Q_WG;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = 8 * j + 2 * cq;
+      int off = col / C::W * C::Q_CHUNK + (wrow + 8 * i) * C::ROW_BYTES
+                + col % C::W * 2;
+      off ^= ((off >> 7) & ((1 << C::SWZ_BITS) - 1)) << 4;
+      *reinterpret_cast<uint32_t*>(ob + off) =
+          pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      tma_store(omap, q_base + c * C::Q_CHUNK, c * C::W, h, q0 + wg * WG_ROWS,
+                b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(Cfg<D, NWG>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap,
+                 float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
+                 float scale_log2, int causal, int q_off, int k_off) {
+  using C = Cfg<D, NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + C::bar;  // q_full, then the ring's
+
+  // the longest rows (the last query blocks, under a causal mask) first:
+  // blocks launch in x-major order, so the grid's y walks the query
+  // blocks from the last
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * NWG * WG_ROWS;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  // warpgroups with rows below Tq (Tq % 64 == 0: a warpgroup is all in
+  // or all out); the others store nothing and take no part in the ring
+  const int n_live = min(NWG, (Tq - q0) / WG_ROWS);
+  // kv tiles up to the causal diagonal of the last live row (the Pallas
+  // kernel's clamped index map + pl.when(visible)); a fully-future block
+  // loads nothing
+  int n_kt = (Tk + BK - 1) / BK;
   if (causal) {
-    const int last = qg0 + BQ - 1 - k_off;  // newest key offset visible
+    const int last = q_off + q0 + n_live * WG_ROWS - 1 - k_off;
     n_kt = last < 0 ? 0 : min(last / BK + 1, n_kt);
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const long kv_off = ((long)b * Tk + k0) * kv_stride + (long)hk * D;
-    load_tile<D>(ks, k + kv_off, kv_stride, BK);
-    load_tile<D>(vs, v + kv_off, kv_stride, BK);
-    __syncthreads();
-
-    // S[row0:row0+16, :] = Q K^T (f32 accumulate)
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bt;
-        wmma::load_matrix_sync(a, qs + row0 * LD + kk * 16, LD);
-        wmma::load_matrix_sync(bt, ks + n * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(ss + row0 * LDS + n * 16, acc, LDS,
-                              wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring_bar(bars, K_FULL, s), 1);
+      mbar_init(ring_bar(bars, K_EMPTY, s), n_live * 128);
+      mbar_init(ring_bar(bars, V_FULL, s), 1);
+      mbar_init(ring_bar(bars, V_EMPTY, s), n_live * 128);
     }
-    __syncwarp();
-
-    // online softmax over this warp's 16 rows; lane covers 2 columns
-    for (int r = row0; r < row0 + 16; ++r) {
-      const int qpos = qg0 + r;
-      float s2[BK / 32];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j;
-        float s = ss[r * LDS + c] * scale;
-        if (causal && k_off + k0 + c > qpos) s = NEG_INF;
-        s2[j] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = expf(s2[j] - m_new);
-        sum += p;
-        ps[r * LDP + lane + 32 * j] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float rescale = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) os[r * LDO + d] *= rescale;
-      __syncwarp();
-      if (lane == 0) {
-        ms[r] = m_new;
-        ls[r] = ls[r] * rescale + sum;
-      }
-    }
-    __syncwarp();
-
-    // O[row0:row0+16, :] += P V (accumulator round-trips through smem)
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + row0 * LDO + n * 16, LDO,
-                             wmma::mem_row_major);
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bv;
-        wmma::load_matrix_sync(a, ps + row0 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(bv, vs + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(os + row0 * LDO + n * 16, acc, LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // epilogue: out = acc / max(l, 1e-30); rows that saw nothing -> 0;
-  // lse = m + log(max(l, 1e-30)) when asked for
-  __syncthreads();  // m, l of a row with no tile walked come from init
-  for (int r = row0; r < row0 + 16; ++r) {
-    const float m = ms[r];
-    const float lc = fmaxf(ls[r], 1e-30f);
-    const float inv = 1.f / lc;
-    if (lse != nullptr && lane == 0)
-      lse[(long)bh * Tq + q0 + r] = m + logf(lc);
-    __nv_bfloat16* dst =
-        o + ((long)b * Tq + q0 + r) * q_stride + (long)h * D;
-    for (int d = lane; d < D; d += 32) {
-      const float val = (m <= NEG_INF * 0.5f) ? 0.f : os[r * LDO + d] * inv;
-      dst[d] = __float2bfloat16(val);
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it
+  // (and all derived from it: row positions, tile counts, shared
+  // addresses) is warp-uniform: wgmma descriptors then stay in uniform
+  // registers instead of being moved into them between two products,
+  // which would serialize the products (ptxas C7513)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == NWG) {  // producer
+    if constexpr (NWG > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0 && n_kt > 0) {
+      mbar_expect_tx(bars, n_live * C::Q_WG);
+      for (int w = 0; w < n_live; ++w)
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(base + C::q + w * C::Q_WG + c * C::Q_CHUNK, &qmap, c * C::W,
+                   h, q0 + w * WG_ROWS, b, bars);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES, ph = (kt / STAGES - 1) & 1;
+        // each slot is refilled once the consumers released its last tile
+        if (kt >= STAGES) mbar_wait(ring_bar(bars, K_EMPTY, s), ph);
+        mbar_expect_tx(ring_bar(bars, K_FULL, s), C::KV_TILE);
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(base + C::k + s * C::KV_TILE + c * C::KV_CHUNK, &kmap,
+                   c * C::W, hk, kt * BK, b, ring_bar(bars, K_FULL, s));
+        if (kt >= STAGES) mbar_wait(ring_bar(bars, V_EMPTY, s), ph);
+        mbar_expect_tx(ring_bar(bars, V_FULL, s), C::KV_TILE);
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(base + C::v + s * C::KV_TILE + c * C::KV_CHUNK, &vmap,
+                   c * C::W, hk, kt * BK, b, ring_bar(bars, V_FULL, s));
+      }
     }
+  } else {  // consumers
+    if constexpr (NWG > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if (wg < n_live)
+      consume<D, NWG>(&omap, base, gbase, lse, wg, n_kt, q0, bh, b, h, Tq,
+                      Tk, scale_log2, causal, q_off, k_off);
   }
 }
 
-template <int D>
+// ---------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a (B, T, heads, D) bf16 array as a 4-D map (D, heads, T, B) whose box is
+// one swizzle atom's columns of `rows` rows of one head
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                  int B, int T, int heads, int D, int rows) {
+  const int W = D < 64 ? D : 64;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)T * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)W, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// error codes besides cudaError_t: no encode entry point, a refused map
+constexpr int ERR_NO_ENCODE = -2;
+constexpr int ERR_ENCODE = 100000;  // + the CUresult
+
+template <int D, int NWG>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Tq, int Tk, int H, int Hkv, float scale, int causal,
            int q_off, int k_off, cudaStream_t stream) {
-  const size_t bytes = Smem<D>::bytes;
+  using C = Cfg<D, NWG>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODE;
+  CUtensorMap maps[4];
+  const CUresult rs[4] = {
+      make_map(encode, &maps[0], q, B, Tq, H, D, WG_ROWS),
+      make_map(encode, &maps[1], k, B, Tk, Hkv, D, BK),
+      make_map(encode, &maps[2], v, B, Tk, Hkv, D, BK),
+      make_map(encode, &maps[3], o, B, Tq, H, D, WG_ROWS)};
+  for (CUresult r : rs)
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_fwd_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Tq / BQ, B * H);
-  flash_prefill_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Tq, Tk, H,
-      Hkv, scale, causal, q_off, k_off);
+  const int rows = NWG * WG_ROWS;
+  dim3 grid(B * H, (Tq + rows - 1) / rows);
+  flash_fwd_kernel<D, NWG><<<grid, C::THREADS, C::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), Tq, Tk,
+      H, Hkv, scale * LOG2E, causal, q_off, k_off);
   return (int)cudaGetLastError();
+}
+
+template <int NWG>
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int Tq, int Tk, int H, int Hkv, int D, float scale,
+             int causal, int q_off, int k_off, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, NWG>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale,
+                             causal, q_off, k_off, s);
+    case 32:
+      return launch<32, NWG>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale,
+                             causal, q_off, k_off, s);
+    case 64:
+      return launch<64, NWG>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale,
+                             causal, q_off, k_off, s);
+    case 128:
+      return launch<128, NWG>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale,
+                              causal, q_off, k_off, s);
+    default:
+      return -1;
+  }
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
              void* lse, int B, int Tq, int Tk, int H, int Hkv, int D,
-             float scale, int causal, int q_off, int k_off, void* stream) {
+             float scale, int causal, int q_off, int k_off, int rows,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale, causal,
-                        q_off, k_off, s);
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale, causal,
-                        q_off, k_off, s);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale, causal,
-                        q_off, k_off, s);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, scale, causal,
-                         q_off, k_off, s);
-    default:
-      return -1;
+  if (rows == 0) {  // the shape rule: 64-row CTAs when 128 leave SMs idle
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    rows = (long)(Tq + 127) / 128 * B * H < sms ? 64 : 128;
   }
+  if (rows == 64)
+    return launch_d<1>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, D, scale, causal,
+                       q_off, k_off, s);
+  if (rows == 128)
+    return launch_d<2>(q, k, v, o, lse, B, Tq, Tk, H, Hkv, D, scale, causal,
+                       q_off, k_off, s);
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
-// head_dim this build does not take. Tq and Tk must be multiples of 64 (BQ
-// and BK; the Python wrapper checks it as ops/flash_attention.py::BLOCK).
-// Global offsets; lse (B*H, Tq) f32 is written when not null (the serving
-// path passes null, self-attention and offsets 0).
+// Returns cudaGetLastError() after the launch (0 = launched), -1 for a
+// head_dim this build does not take, -2 when cuTensorMapEncodeTiled
+// cannot be reached, 100000 + the CUresult of a refused tensor map. Tq
+// and Tk must be multiples of 64 (ops/flash_attention.py::BLOCK:
+// a warpgroup's 64 query rows; the 128-key tiles mask a ragged Tk edge
+// and the 128-row CTAs a ragged Tq edge). Global offsets; lse (B*H, Tq)
+// f32 is written when not null (the serving path passes null,
+// self-attention and offsets 0).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, void* lse, int B, int Tq, int Tk, int H,
                         int Hkv, int D, float scale, int causal, int q_off,
                         int k_off, void* stream) {
   return dispatch(q, k, v, o, lse, B, Tq, Tk, H, Hkv, D, scale, causal,
-                  q_off, k_off, stream);
+                  q_off, k_off, 0, stream);
+}
+
+// The same with the CTA's query rows given (64 or 128) instead of chosen
+// by the shape rule: for timing the two tiles against each other.
+int flash_attention_fwd_rows(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int Tq, int Tk,
+                             int H, int Hkv, int D, float scale, int causal,
+                             int q_off, int k_off, int rows, void* stream) {
+  return dispatch(q, k, v, o, lse, B, Tq, Tk, H, Hkv, D, scale, causal,
+                  q_off, k_off, rows, stream);
 }
 
 }  // extern "C"

@@ -40,7 +40,9 @@ launches = {"fwd": 0, "fwd_lse": 0, "fused_bwd": 0, "dq": 0, "dkv": 0}
 #: checkpointing reruns the forward, this counts it)
 calls = {"forward": 0}
 
-#: the forward kernel's query/key tile; T must be a multiple of it
+#: the kernels' sequence granule: Tq and Tk must be multiples of it (the
+#: forward's CTAs take 64 or 128 query rows, one warpgroup per 64, and mask
+#: a ragged edge of their 128-key tiles)
 BLOCK = 64
 #: the backward kernels' q and kv tiles (the slab has Tk / BWD_BLOCK_K
 #: slots per row)
@@ -171,27 +173,42 @@ def _forward(q, k, v, q_offset, k_offset, causal, scale, with_lse):
     """Kernel 1 on a card (counted), its plain version on the CPU.
     Returns (out, lse or None)."""
     calls["forward"] += 1
-    B, Tq, H, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
     if not _on_card(q):
         r = flash_attention_reference(q, k, v, causal, scale,
                                       q_offset=q_offset, k_offset=k_offset,
                                       with_lse=with_lse)
         return r if with_lse else (r, None)
+    out, lse = _launch_forward(q, k, v, q_offset, k_offset, causal, scale,
+                               with_lse)
+    launches["fwd_lse" if with_lse else "fwd"] += 1
+    return out, lse
+
+
+def _launch_forward(q, k, v, q_offset, k_offset, causal, scale, with_lse,
+                    rows: int = 0):
+    """One launch of kernel 1 on card tensors, uncounted. ``rows`` is the
+    CTA's query rows (64 or 128); 0 lets the kernel's shape rule choose,
+    as every caller but the tile tests and timings does."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     _check_kernel_operands((("q", q), ("k", k), ("v", v)), Tq, Tk, D)
     lib = _build.load("flash_prefill")
     out = torch.empty_like(q)
     # the serving launch passes no lse: the kernel then skips writing it
     lse = torch.empty(B, H, Tq, dtype=torch.float32,
                       device=q.device) if with_lse else None
-    with torch.cuda.device(q.device):
-        rc = _fn(lib, "flash_attention_fwd", 5, 6, 3)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, B, Tq, Tk, H, Hkv, D,
             _scale(scale, D), int(bool(causal)), int(q_offset),
-            int(k_offset), torch.cuda.current_stream(q.device).cuda_stream)
+            int(k_offset)]
+    if rows:
+        fn = _fn(lib, "flash_attention_fwd_rows", 5, 6, 4)
+        args.append(int(rows))
+    else:
+        fn = _fn(lib, "flash_attention_fwd", 5, 6, 3)
+    with torch.cuda.device(q.device):
+        rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_fwd")
-    launches["fwd_lse" if with_lse else "fwd"] += 1
     return out, lse
 
 

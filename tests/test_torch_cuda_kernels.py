@@ -7,7 +7,9 @@ file imports no JAX, so it also runs where JAX is missing:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda_kernels.py
 
-Tolerances (max abs error): prefill 2e-2 (bf16 in and out, p rounded to
+Kernel 1 (the forward) runs its tile edges at both CTA tiles, 64 and
+128 query rows, twice each for equal bits. Tolerances (max abs error):
+prefill 2e-2 (bf16 in and out, p rounded to
 bf16 before p.v as the TPU kernel does), its lse 1e-3 (f32 on both sides
 from bf16 scores: only the summation order differs); the three backward
 kernels 2e-2 x max|plain| (bf16 outputs, and P and dS rounded to bf16
@@ -114,6 +116,57 @@ def test_flash_forward_with_lse_and_offsets_matches_plain(gen, case):
                                rtol=1e-5)
     if ko >= qo + Tq:  # fully future: out 0, lse ~ -1e30
         assert (out == 0).all() and (lse < -1e29).all()
+
+
+# kernel 1's tile edges, at both CTA tiles (64 and 128 query rows, which
+# the shape rule picks between) and twice for equal bits: (B, Tq, Tk, H,
+# Hkv, D, q_offset, k_offset, causal) — Tq = 64 x odd, where a 128-row
+# CTA's upper warpgroup has no rows, with GQA; offsets that are not
+# tile-aligned, rows before every key; Tk 192 (a ragged 128-key tile)
+# causal and not; a grid smaller than the SM count (B 1, T 128, H 4)
+FWD_EDGE_CASES = [(2, 192, 192, 8, 2, 128, 0, 0, True),
+                  (1, 320, 320, 4, 1, 64, 0, 0, True),
+                  (1, 192, 512, 8, 2, 128, 200, 0, True),
+                  (1, 320, 192, 4, 2, 128, 0, 96, True),
+                  (1, 256, 384, 4, 2, 64, 96, 32, True),
+                  (1, 192, 192, 4, 2, 128, 0, 0, False),
+                  (1, 128, 128, 4, 4, 128, 0, 0, True)]
+
+
+def _forward_edge_case(gen, case, rows):
+    B, Tq, Tk, H, Hkv, D, qo, ko, causal = case
+    q, k, v, _ = _flash_inputs(gen, B, Tq, Tk, H, Hkv, D)
+    out, lse = fa._launch_forward(q, k, v, qo, ko, causal, None, True,
+                                  rows=rows)
+    again = fa._launch_forward(q, k, v, qo, ko, causal, None, True,
+                               rows=rows)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, causal, q_offset=qo, k_offset=ko, with_lse=True)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    dead = max(0, min(Tq, ko - qo)) if causal else 0
+    assert (out[:, :dead] == 0).all() and (lse[..., :dead] < -1e29).all()
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("case", FWD_EDGE_CASES)
+def test_flash_forward_tile_edges_with_lse_equal_bits(gen, case, rows):
+    _forward_edge_case(gen, case, rows)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_forward_every_head_dim_with_lse_equal_bits(gen, D, rows):
+    _forward_edge_case(gen, (2, 192, 320, 4, 2, D, 160, 32, True), rows)
+
+
+def test_flash_forward_refuses_a_cta_tile_it_has_not(gen):
+    q, k, v, _ = _flash_inputs(gen, 1, 128, 128, 4, 2, 64)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fa._launch_forward(q, k, v, 0, 0, True, None, False, rows=96)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)

@@ -143,3 +143,11 @@ def test_training_entry_points_raise_without_gpu(no_gpu, capsys):
             call()
     assert train_app.main(small + ["--device", "cpu"]) == 0
     capsys.readouterr()
+
+
+def test_flash_bench_needs_a_card(no_gpu, capsys):
+    from hpc_patterns_tpu_torch import bench_flash
+
+    assert bench_flash.main([]) == 1
+    assert bench_flash.main(["--other", ".", "--train"]) == 1
+    assert "needs an NVIDIA card" in capsys.readouterr().err
