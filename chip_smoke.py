@@ -9,11 +9,13 @@ Phases, each printing JSON lines:
 1. build    — compile every kernel source under
               ``hpc_patterns_tpu_torch/csrc/`` with nvcc for sm_90a into
               ``build/`` (all sources in parallel) and load them, printing
-              each one's ptxas registers and spills; count the HGMMA,
-              UTMALDG, UTMASTG and LDGSTS instructions of kernel 1's
-              library (``cuobjdump -sass``) and fail if it holds no
-              HGMMA (the forward must run on wgmma); list the forward's
-              instances whose wgmma ptxas serialized (its note C7513);
+              each one's ptxas registers and spills; for kernel 1's and
+              the fused MLP's libraries count the HGMMA, UTMALDG, UTMASTG
+              and LDGSTS instructions (``cuobjdump -sass``), print each
+              kernel's registers and spills, and fail if a library holds
+              no HGMMA (they must run on wgmma), if the fused MLP's holds
+              cp.async (LDGSTS) or spills, or if ptxas serialized the
+              wgmma of any kernel of either (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
               (stated tolerance; the busy-wait and pipeline kernels
@@ -107,7 +109,10 @@ Phases, each printing JSON lines:
               the save-a forward, the backward's dx and dW kernels, each
               against its plain version and twice for equal bits, timed
               beside its bound, its plain version and the dense chain in
-              the library (forward, and its autograd backward);
+              the library (forward, and its autograd backward), each with
+              its launches' plan (cluster size, tiles, waves,
+              ``cudaOccupancyMaxActiveClusters``; the forwards clusters of
+              more than one CTA);
 10. train   — ``train_app`` in-process at the training benchmark's chip
               model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
               d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
@@ -218,10 +223,12 @@ TRAIN_BASE = ["--batch", "8", "--seq", "2048", "--d-model", "1024",
               "--attention", "flash"]
 TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
               "16"]
-# kernel 1's SASS instructions counted in phase build: the warpgroup MMA
-# (HGMMA, which must be there), the TMA's tensor loads and stores, and
-# cp.async (LDGSTS, the pre-Hopper copy, expected 0)
+# the Hopper kernels' SASS instructions counted in phase build (kernel 1
+# and the fused MLP's): the warpgroup MMA (HGMMA, which must be there),
+# the TMA's tensor loads and stores, and cp.async (LDGSTS, the pre-Hopper
+# copy; the fused MLP must have none)
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
+HOPPER_SOURCES = ("flash_prefill", "fused_mlp")
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -314,6 +321,39 @@ def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
+def ptxas_kernels(log: str) -> list:
+    """Each kernel of one nvcc ``-Xptxas -v`` log: its name (template
+    arguments as the mangled ``Li<n>E``/``Lb<n>E`` values), registers,
+    spill stores and loads, and whether ptxas serialized its wgmma (note
+    C7513, which names the kernel)."""
+    rows = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        # the length-prefixed identifier that ends in "_kernel" (its length
+        # may follow other digits: try every tail of each digit run)
+        name, rest = mangled, ""
+        for m in re.finditer(r"\d+", mangled):
+            for i in range(len(m.group())):
+                ident = mangled[m.end():m.end() + int(m.group()[i:])]
+                if ident.endswith("_kernel") and ident[0].isalpha():
+                    name, rest = ident, mangled[m.end() + len(ident):]
+            if rest:
+                break
+        args = re.findall(r"L[ib](\d+)E",
+                          rest[1:rest.find("Ev")]) if rest[:1] == "I" else []
+        used = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        rows.append({"kernel": f"{name}<{','.join(args)}>" if args else name,
+                     "registers": int(used.group(1)) if used else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None,
+                     "wgmma_serialized": any(
+                         "C7513" in ln and mangled in ln
+                         for ln in log.splitlines())})
+    return rows
+
+
 def phase_build():
     from hpc_patterns_tpu_torch.ops import _build
 
@@ -325,19 +365,30 @@ def phase_build():
                           "ptxas": [ln.strip() for ln in v["log"].splitlines()
                                     if "Used" in ln or "spill" in ln]}
                       for k, v in info.items()}})
-    # kernel 1 must run on Hopper's warpgroup MMA, fed by the TMA
+    # kernel 1 and the fused MLP must run on Hopper's warpgroup MMA, fed by
+    # the TMA; the fused MLP without cp.async; no wgmma serialized by
+    # ptxas (note C7513) and no spills
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build._target("flash_prefill"))],
-        capture_output=True, text=True, check=True).stdout
-    counts = {op: sass.count(op) for op in SASS_OPS}
-    # kernels whose wgmma ptxas serialized (note C7513; expected none)
-    serialized = re.findall(r"C7513\).*?flash_fwd_kernelILi(\d+)ELi(\d)",
-                            info["flash_prefill"]["log"])
-    emit({"phase": "build", "source": "flash_prefill", "sass": counts,
-          "wgmma_serialized": [f"D{d} x{n} warpgroups" for d, n in serialized],
-          "log_cached": info["flash_prefill"]["cached"]})
-    check(counts["HGMMA"] > 0, f"flash_prefill's SASS holds HGMMA: {counts}")
+    for name in HOPPER_SOURCES:
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build._target(name))],
+            capture_output=True, text=True, check=True).stdout
+        counts = {op: sass.count(op) for op in SASS_OPS}
+        kernels = ptxas_kernels(info[name]["log"])
+        serialized = [k["kernel"] for k in kernels if k["wgmma_serialized"]]
+        emit({"phase": "build", "source": name, "sass": counts,
+              "wgmma_serialized": serialized,
+              "kernels": [{k: v for k, v in row.items()
+                           if k != "wgmma_serialized"} for row in kernels],
+              "log_cached": info[name]["cached"]})
+        check(counts["HGMMA"] > 0, f"{name}'s SASS holds HGMMA: {counts}")
+        check(name != "fused_mlp" or counts["LDGSTS"] == 0,
+              f"{name}'s SASS holds no cp.async (LDGSTS): {counts}")
+        check(info[name]["cached"] or (kernels and not serialized),
+              f"{name}: ptxas serialized no wgmma (C7513): {serialized}")
+        check(name != "fused_mlp" or info[name]["cached"] or all(
+            k["spill_stores"] == 0 == k["spill_loads"] for k in kernels),
+            f"{name}: no spills: {kernels}")
 
 
 def _sdpa_layout(q, k, v):
@@ -1722,7 +1773,11 @@ def fused_mlp_cases(gen, N, D, F):
     bits; then each one's time beside its plain version's, its bound and
     the dense chain's (``F.gelu(x @ w1, approximate="tanh") @ w2``; its
     autograd backward, fwd+bwd less fwd, for the backward rows), and the
-    whole kernel backward (both kernels and the dW casts)."""
+    whole kernel backward (both kernels and the dW casts). Each row carries
+    its launches' plan (CTAs a cluster, tiles, ring slots, grid,
+    ``cudaOccupancyMaxActiveClusters``, waves); the forwards must run as
+    clusters of more than one CTA at d_model 1024."""
+    from hpc_patterns_tpu_torch import bench_mlp
     from hpc_patterns_tpu_torch.ops import fused_mlp as fm
 
     dev = torch.device("cuda")
@@ -1819,6 +1874,11 @@ def fused_mlp_cases(gen, N, D, F):
         gelu(x @ w1, approximate="tanh") @ w2, (x, w1, w2), dy), lib_sets)
     for name in rows:
         r = rows[name]
+        r["launch_plan"] = bench_mlp.plan(name.replace("fused_mlp_", ""), N,
+                                          D, F)
+        check("fwd" not in name or D != 1024
+              or r["launch_plan"][0]["cluster"] > 1,
+              f"{name} runs as clusters at D 1024: {r['launch_plan']}")
         r["library_ms"] = lib_fwd if "fwd" in name else lib_fb - lib_fwd
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
                                              BF16_FLOPS_PER_S)
@@ -2434,7 +2494,7 @@ def main() -> int:
                for r, m in launches_train["fused_mlp_by_run"].items()}}
               if name != "fused_mlp_fwd_save_a" else
               {"launches_by_run": {"xla_a step": launches_train[name]}}),
-           **{k: mlp_rows[name][k] for k in keys + rel}}
+           **{k: mlp_rows[name][k] for k in keys + rel + ("launch_plan",)}}
           for name, line in (("fused_mlp_fwd", 65),
                              ("fused_mlp_fwd_save_a", 148),
                              ("fused_mlp_bwd_dx", 93),

@@ -5,20 +5,21 @@
 to device memory in the forward. Kernels (``csrc/fused_mlp.cu``), each
 with its plain PyTorch version beside it:
 
-- the forward (the TPU ``_fwd_kernel``): per token tile, the d_ff axis
-  streams through the CTA in panels: a = x W1f (f32), g = gelu(a) rounded
-  to x's dtype, y += g W2f in f32, y rounded once at the end;
+- the forward (the TPU ``_fwd_kernel``): a cluster of CTAs shares each
+  128-token tile, each CTA owning a slice of y's columns in registers; the
+  d_ff axis streams through in panels: a = x W1f (f32), g = gelu(a)
+  rounded to x's dtype and exchanged between the cluster's CTAs in shared
+  memory, y += g W2f in f32, y rounded once at the end;
 - the save-a forward (``_fwd_kernel_save_a``): the same, also writing the
   pre-gelu ``a`` (N, F) in x's dtype for the ``xla_a`` backward;
-- the backward (the TPU ``_bwd_kernel``), in two kernels. The TPU kernel
-  holds (D, bf) f32 dW accumulators in VMEM and writes an (F/bf, N, D)
-  partial-dx slab; an SM holds neither at a width that fills it. So
-  ``bwd_dx`` walks each token tile over the d_ff panels (recompute a and
-  dh = dy W2fᵀ, da = dh gelu'(a) rounded to x's dtype, dx += da W1fᵀ in
-  f32) and also writes g and da; ``bwd_dw`` then forms dW1 = xᵀ da and
-  dW2 = gᵀ dy, each output tile owned by one CTA over the whole token
-  axis. Five block products in all, as on the TPU; deterministic (no
-  float atomics).
+- the backward (the TPU ``_bwd_kernel``). The TPU kernel holds (D, bf)
+  f32 dW accumulators in VMEM and writes an (F/bf, N, D) partial-dx slab;
+  an SM holds neither at a width that fills it. So ``bwd_dx`` recomputes
+  a and dh = dy W2fᵀ tile by tile and writes g and da = dh gelu'(a)
+  (rounded to x's dtype), then forms dx = da W1fᵀ in f32 (two launches);
+  ``bwd_dw`` then forms dW1 = xᵀ da and dW2 = gᵀ dy, each output tile
+  owned by one CTA over the whole token axis. Five block products in all,
+  as on the TPU; deterministic (no float atomics).
 
 On a CUDA tensor each wrapper launches its kernel (bf16, contiguous,
 16-byte aligned, d_model a multiple of 128 up to 1024, d_ff a multiple of
@@ -58,8 +59,8 @@ calls = {"forward": 0}
 BWD_MODES = ("kernel", "xla", "xla_a")
 
 #: the kernels' width contract: d_model a multiple of D_MULTIPLE up to
-#: MAX_D (the token tile's f32 accumulator lives in registers), d_ff a
-#: multiple of F_MULTIPLE (16-byte rows)
+#: MAX_D (the forward's y lives in the registers of a cluster of at most
+#: MAX_D / D_MULTIPLE CTAs), d_ff a multiple of F_MULTIPLE (16-byte rows)
 D_MULTIPLE = 128
 MAX_D = 1024
 F_MULTIPLE = 8
@@ -254,9 +255,9 @@ def fused_mlp_forward(x2, w1, w2, save_a: bool = False, *,
 
 def fused_mlp_bwd_dx(x2, w1, w2, dy2, *, block_t: int = 512,
                      block_f: int = 512):
-    """The backward's dx kernel: (dx, g, da) as
-    :func:`fused_mlp_bwd_dx_reference`. CUDA: the kernel (or raises);
-    CPU: the plain version."""
+    """The backward's dx kernels: (dx, g, da) as
+    :func:`fused_mlp_bwd_dx_reference`. CUDA: g and da, then dx (one
+    entry point, two launches; or raises); CPU: the plain version."""
     _check_shapes(x2, w1, w2)
     if dy2.shape != x2.shape:
         raise ValueError(f"dy {tuple(dy2.shape)} must match x "

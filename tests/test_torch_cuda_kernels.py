@@ -663,9 +663,13 @@ def _mlp_inputs(gen, N, D, F):
 
 
 # (N, D, F): the chip model's layer (B 8 x T 2048, d_model 1024, d_ff
-# 4096), off-size token counts and d_ff panels, the narrowest width
+# 4096), off-size token counts and d_ff panels, the narrowest width; one
+# token past a 128-token tile; ragged N and F at d_model 384 (clusters of
+# 3 CTAs of 128 columns); one token with d_ff 8 (every d_ff column past
+# the first 8 of the CTA's 64 is the TMA's zero fill)
 MLP_CASES = [(16384, 1024, 4096), (100, 1024, 320), (4096, 512, 2048),
-             (37, 128, 136)]
+             (37, 128, 136), (129, 1024, 4096), (300, 384, 264),
+             (1, 128, 8)]
 
 
 @pytest.mark.parametrize("N,D,F", MLP_CASES)

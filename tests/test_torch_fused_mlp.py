@@ -131,6 +131,29 @@ def test_bwd_kernels_plain_versions_match_jax_kernel_9():
     assert torch.equal(g, tfm._gelu(a))
 
 
+@pytest.mark.parametrize("N,D,F", [(300, 384, 264), (1, 128, 8)],
+                         ids=["ragged-d384", "one-token-f8"])
+def test_plain_versions_match_jax_at_the_card_cases(N, D, F):
+    # the shapes the card kernels are held at beside these plain versions:
+    # ragged tokens and d_ff (clusters of 3 CTAs there), one token with
+    # d_ff 8; weights scaled by fan-in, so values stay of order 1
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((N, D), dtype=np.float32)
+    w1 = rng.standard_normal((D, F), dtype=np.float32) * D ** -0.5
+    w2 = rng.standard_normal((F, D), dtype=np.float32) * F ** -0.5
+    dy = rng.standard_normal((N, D), dtype=np.float32)
+    (jx, jw1, jw2, jdy), (tx, tw1, tw2, tdy) = _pair(x, w1, w2, dy)
+    np.testing.assert_allclose(
+        tfm.fused_mlp_forward_reference(tx, tw1, tw2).numpy(),
+        np.asarray(jfm.fused_mlp(jx, jw1, jw2)), atol=FWD_ATOL)
+    want = jfm._backward(jx, jw1, jw2, jdy, 512, 512, None)
+    got = tfm.fused_mlp_backward_reference(tx, tw1, tw2, tdy)
+    for g, w, name in zip(got, want, ("dx", "dw1", "dw2")):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
 def test_gelu_matches_torch_and_jax():
     a = np.linspace(-6, 6, 101, dtype=np.float32)
     ta = torch.from_numpy(a).requires_grad_()
