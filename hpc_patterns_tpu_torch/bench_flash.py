@@ -1,7 +1,9 @@
-"""Kernel 1, the flash-attention forward (``csrc/flash_prefill.cu``), on
-one card: this tree's kernel at each of its CTA tiles against the same
-C entry point built from another checkout, and optionally the training
-step of both checkouts.
+"""The flash-attention kernels on one card: kernel 1, the forward
+(``csrc/flash_prefill.cu``), at each of its CTA tiles, and kernels 2 and
+4, the fused backward and the dK/dV pass (``csrc/flash_attention_bwd.cu``),
+with the fused route around kernel 2, each against the same C entry
+points built from another checkout; optionally the training step of both
+checkouts.
 
     python -m hpc_patterns_tpu_torch.bench_flash [--other DIR] [--train]
 
@@ -11,7 +13,16 @@ with CUDA events over back-to-back calls on inputs cycled past the 50 MB
 L2: the kernel through its shape rule and at 64 and 128 query rows a CTA,
 SDPA (``is_causal``; the yardstick only), and with ``--other`` the other
 checkout's ``flash_attention_fwd`` (same signature), compiled with the
-same flags. The timings run in turns — other, this, this, other — and
+same flags. The backward at the training shape: this tree's
+``flash_attention_fused_bwd`` and ``flash_attention_dkv`` against the
+other checkout's (same C signatures; its slab sized by the keys a slot
+that its ``ops/flash_attention.py`` names, 64 before the 128-key
+redesign), and the fused route
+(Delta, kernel 2, the never-written slab rows zeroed, the f32 slab sum,
+the dk/dv casts) of each: this tree's ``_backward``, the other's as the
+route ran before the redesign, on its slab; SDPA's backward (fwd+bwd
+less fwd) as the yardstick.
+The timings run in turns — other, this, this, other — and
 each output is held against the plain version first. ``--train`` runs
 ``train_app`` at the training benchmark's chip model (8 steps, dense,
 flash) in each checkout, in the same turns, and reads each run's step
@@ -27,6 +38,7 @@ import ctypes
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -43,22 +55,29 @@ BF16_FLOPS_PER_S = 989e12
 SHAPES = (("training", 8, 2048, 8, 128, True),
           ("serving", 1, 512, 8, 128, False))
 ATOL, LSE_ATOL = 2e-2, 1e-3  # chip_smoke.py's PREFILL_ATOL and LSE_ATOL
+# the backward's shape (B, T, H, D: one layer of the training step, causal)
+# and chip_smoke.py's BWD_RTOL (max abs error over max |plain|)
+BWD_SHAPE = (8, 2048, 8, 128)
+BWD_RTOL = 2e-2
 TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048",
               "--d-model", "1024", "--n-layers", "8", "--n-heads", "8",
               "--vocab", "32768", "--attention", "flash", "--device",
               "cuda"]
 
 
-def _other_forward(src: Path):
-    """The other checkout's ``flash_attention_fwd``, built from ``src``
-    with this tree's nvcc flags."""
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    out = _build.BUILD_DIR / f"libother_flash_prefill-{tag}.so"
+def _other_lib(other: Path, name: str) -> ctypes.CDLL:
+    """The other checkout's ``csrc/<name>.cu``, built with this tree's
+    nvcc flags (its own headers beside it)."""
+    csrc = other / "hpc_patterns_tpu_torch" / "csrc"
+    src = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
+    tag = hashlib.sha1(src).hexdigest()[:12]
+    out = _build.BUILD_DIR / f"libother_{name}-{tag}.so"
     if not out.is_file():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                        str(src)], check=True)
-    return fa._fn(ctypes.CDLL(str(out)), "flash_attention_fwd", 5, 6, 3)
+                        str(csrc / f"{name}.cu")], check=True)
+    return ctypes.CDLL(str(out))
 
 
 def _device_ms(fn, sets, n=30):
@@ -133,6 +152,154 @@ def _shape_row(name, B, T, H, D, with_lse, other):
     return row
 
 
+def _kv_tile(other: Path) -> int:
+    """The keys a slab slot in the other checkout's fused backward: its
+    ``BWD_BLOCK_K``."""
+    src = (other / "hpc_patterns_tpu_torch" / "ops"
+           / "flash_attention.py").read_text()
+    return int(re.search(r"^BWD_BLOCK_K = (\d+)$", src, re.M).group(1))
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _fused_route(fused, q, k, v, do, lse, out, block_k):
+    """The fused route as ``fa._backward`` ran it before the 128-key
+    redesign (unchunked, causal, offsets 0: Delta from f32 copies of both
+    operands, the kernel, the never-written slab rows zeroed, the f32 slab
+    sum, dk and dv through f32) around the kernel ``fused`` whose slab has
+    ``block_k`` keys a slot: (dq, dk, dv)."""
+    B, T, H, D = q.shape
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv, slab = fused(q, k, v, do, lse, delta)
+    for j, r in enumerate(fa._unwritten_rows(T, T, 0, 0, True, block_k)):
+        if r:
+            slab[j, :, :r] = 0
+    dq = slab.sum(0, dtype=torch.float32).to(q.dtype)
+    return (dq.reshape(B, H, T, D).permute(0, 2, 1, 3),
+            dk.float().to(k.dtype), dv.float().to(v.dtype))
+
+
+def _backward_row(other, other_kv_tile):
+    """Kernels 2 and 4 and the fused route at the training shape, this
+    tree's against the other checkout's (``other``: its library or None),
+    in turns, each output held against the plain versions first."""
+    B, T, H, D = BWD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    per = 4 * B * T * H * D * 2 + 2 * B * H * T * 4
+    sets = []
+    for _ in range(max(2, min(32, math.ceil(150e6 / per)))):
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                       .bfloat16() for _ in range(4))
+        out, lse = fa._launch_forward(q, k, v, 0, 0, True, None, True)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+        sets.append((q, k, v, do, lse, delta.contiguous(), out))
+    scale = 1.0 / math.sqrt(D)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def this_fused(q, k, v, do, lse, delta, *_):
+        return fa.flash_attention_fused_bwd(q, k, v, do, lse, delta)
+
+    def this_dkv(q, k, v, do, lse, delta, *_):
+        return fa.flash_attention_dkv(q, k, v, do, lse, delta)
+
+    def this_route(q, k, v, do, lse, delta, out):
+        return fa._backward(q, k, v, out, lse, 0, 0, do, None, causal=True,
+                            scale=None, bwd="fused")
+
+    fns = {"fused_bwd": {"this": this_fused}, "dkv": {"this": this_dkv},
+           "route_fused": {"this": this_route}}
+    if other is not None:
+        o_fused = fa._fn(other, "flash_attention_fused_bwd", 9, 6, 3)
+        o_dkv = fa._fn(other, "flash_attention_dkv", 8, 6, 3)
+
+        def theirs_fused(q, k, v, do, lse, delta, *_):
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            slab = torch.empty(fa._n_kv(T, other_kv_tile), B * H, T, D,
+                               dtype=q.dtype, device=q.device)
+            _build.check(o_fused(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), slab.data_ptr(), B, T, T, H, H, D, scale, 1,
+                0, 0, stream()), "other flash_attention_fused_bwd")
+            return dk, dv, slab
+
+        def theirs_dkv(q, k, v, do, lse, delta, *_):
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            _build.check(o_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, T, T, H, H, D, scale, 1, 0, 0, stream()),
+                "other flash_attention_dkv")
+            return dk, dv
+
+        def theirs_route(q, k, v, do, lse, delta, out):
+            return _fused_route(theirs_fused, q, k, v, do, lse, out,
+                                other_kv_tile)
+
+        fns["fused_bwd"]["other"] = theirs_fused
+        fns["dkv"]["other"] = theirs_dkv
+        fns["route_fused"]["other"] = theirs_route
+
+    # every output against the plain versions (dq through its slab: masked
+    # and summed, as the route does)
+    q, k, v, do, lse, delta, out = sets[0]
+    w_dk, w_dv = fa.flash_attention_dkv_reference(q, k, v, do, lse, delta)
+    w_dq = fa.flash_attention_dq_reference(q, k, v, do, lse, delta)
+    errs = {}
+    for name, by in fns.items():
+        for who, fn in by.items():
+            got = fn(*sets[0])
+            if name == "fused_bwd":
+                tile = fa.BWD_BLOCK_K if who == "this" else other_kv_tile
+                rows = fa._unwritten_rows(T, T, 0, 0, True, tile)
+                slab = got[2]
+                for j, r in enumerate(rows):
+                    slab[j, :, :r] = 0
+                dq = slab.sum(0, dtype=torch.float32).to(q.dtype)
+                got = (dq.reshape(B, H, T, D).permute(0, 2, 1, 3), *got[:2])
+            want = (w_dk, w_dv) if name == "dkv" else (w_dq, w_dk, w_dv)
+            e = max(_rel(a, b) for a, b in zip(got, want))
+            if not e <= BWD_RTOL:
+                raise RuntimeError(f"backward {name} {who}: max err / max "
+                                   f"|plain| {e} > {BWD_RTOL}")
+            errs.setdefault(name, {})[who] = e
+    del w_dk, w_dv, w_dq
+    times = {name: {who: [] for who in by} for name, by in fns.items()}
+    for name, by in fns.items():
+        order = (["other"] if "other" in by else []) + ["this"]
+        for who in order + order[::-1]:
+            times[name][who].append(_device_ms(by[who], sets))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = [tuple(x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in s[:3]) + (s[3].transpose(1, 2).contiguous(),)
+                for s in sets]
+    lib_fwd = _device_ms(lambda q, k, v, g: sdpa(q, k, v, is_causal=True),
+                         lib_sets)
+    lib_fb = _device_ms(lambda q, k, v, g: torch.autograd.grad(
+        sdpa(q, k, v, is_causal=True), (q, k, v), g), lib_sets)
+    # chip_smoke.py's bounds: inputs read once, outputs written once (of
+    # the slab only the visible pairs' slots)
+    tri = B * H * D * T * (T + 1) / 2
+    io = 4 * B * T * H * D * 2 + 2 * B * H * T * 4
+    slab = sum(T - r for r in fa._unwritten_rows(T, T, 0, 0, True)) \
+        * B * H * D * 2
+    bounds = {
+        "fused_bwd": max((io + 2 * B * T * H * D * 2 + slab)
+                         / HBM_BYTES_PER_S, 10 * tri / BF16_FLOPS_PER_S),
+        "dkv": max((io + 2 * B * T * H * D * 2) / HBM_BYTES_PER_S,
+                   8 * tri / BF16_FLOPS_PER_S)}
+    row = {"shape": "backward", "B": B, "T": T, "H": H, "D": D,
+           "ms": times, "max_rel_err": errs,
+           "sdpa_bwd_ms": lib_fb - lib_fwd,
+           "bound_ms": {k: v * 1e3 for k, v in bounds.items()},
+           "kv_tile": {"this": fa.BWD_BLOCK_K, "other": other_kv_tile}}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def _train(cwd: Path, label: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         log = Path(tmp) / "train.jsonl"
@@ -166,12 +333,14 @@ def main(argv=None) -> int:
         print("bench_flash: needs an NVIDIA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = None
+    other = other_bwd = None
     if args.other is not None:
-        other = _other_forward(args.other / "hpc_patterns_tpu_torch"
-                               / "csrc" / "flash_prefill.cu")
+        other = fa._fn(_other_lib(args.other, "flash_prefill"),
+                       "flash_attention_fwd", 5, 6, 3)
+        other_bwd = _other_lib(args.other, "flash_attention_bwd")
     for shape in SHAPES:
         _shape_row(*shape, other)
+    _backward_row(other_bwd, _kv_tile(args.other) if args.other else None)
     if args.train:
         here = Path(__file__).resolve().parents[1]
         runs = [(args.other, "other")] if args.other is not None else []

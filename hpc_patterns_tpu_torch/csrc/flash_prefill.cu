@@ -109,32 +109,9 @@ struct Cfg {
 
 // ---------------------------------------------------------------- PTX
 //
-// The shared helpers (mbarriers, TMA, wgmma, descriptors) are in
-// hopper.cuh.
-
-// 2^x in one MUFU.EX2 (flushes a subnormal result to 0, which a
-// probability that small never misses); 2^-inf = 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ---------------------------------------------------------------- wgmma
-//
-// m64n128k16 with both operands in shared memory (S = Q K^T), and
-// m64n{16,32,64,128}k16 with A in registers and B MN-major (O += P V).
-
-// O (m64nD) += P (m64k16, registers) V (k16 x D, MN-major shared memory)
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d) {
-  if constexpr (D == 16) wgmma_rs_n16(o, a, b, scale_d);
-  else if constexpr (D == 32) wgmma_rs_n32(o, a, b, scale_d);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, b, scale_d);
-  else wgmma_rs_n128(o, a, b, scale_d);
-}
+// The shared helpers (mbarriers, TMA, wgmma, descriptors, exp2) are in
+// hopper.cuh: S = Q K^T is wgmma m64n128k16 with both operands in shared
+// memory, O += P V m64n{D}k16 with P in registers and V MN-major.
 
 // ---------------------------------------------------------------- kernel
 
@@ -178,7 +155,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk],
+    wgmma_rs<D>(o, pa[kk],
                 make_desc(v_base + kk * 16 * C::ROW_BYTES, C::KV_CHUNK,
                           8 * C::ROW_BYTES, C::LAYOUT),
                 one);
@@ -486,28 +463,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---------------------------------------------------------------- host
 
-
-// a (B, T, heads, D) bf16 array as a 4-D map (D, heads, T, B) whose box is
-// one swizzle atom's columns of `rows` rows of one head
-CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  int B, int T, int heads, int D, int rows) {
-  const int W = D < 64 ? D : 64;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)T * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)W, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
 
 // error codes besides cudaError_t: no encode entry point, a refused map
 constexpr int ERR_NO_ENCODE = -2;

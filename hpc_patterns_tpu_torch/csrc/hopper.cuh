@@ -1,9 +1,10 @@
 // Hopper (sm_90a) device helpers shared by the port's warp-specialized
-// kernels (csrc/flash_prefill.cu, csrc/fused_mlp.cu): shared-memory
-// addresses, mbarriers (local, and across a thread block cluster), TMA
-// tensor loads and stores (4-D and 2-D), shared-to-peer bulk copies, the
-// wgmma fences, descriptors and products, and the host lookup of
-// cuTensorMapEncodeTiled (no -lcuda).
+// kernels (csrc/flash_prefill.cu, csrc/flash_attention_bwd.cu,
+// csrc/fused_mlp.cu): shared-memory addresses, mbarriers (local, and
+// across a thread block cluster), TMA tensor loads and stores (4-D and
+// 2-D), plain bulk loads, shared-to-peer bulk copies, the wgmma fences,
+// descriptors and products, the host lookup of cuTensorMapEncodeTiled (no
+// -lcuda) and the attention kernels' 4-D tensor maps.
 //
 // wgmma operand layouts used here. A tile loaded by the TMA with the
 // 128-byte swizzle holds rows of 128 bytes (64 bf16), eight rows making
@@ -179,6 +180,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory into shared memory, completing `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16) of this CTA's shared memory into a peer's
 // (`dst` and `bar` mapa addresses), completing the peer's barrier
 __device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src,
@@ -196,6 +209,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 2^x in one MUFU.EX2 (flushes a subnormal result to 0, which a
+// probability that small never misses); 2^-inf = 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   uint32_t u;
@@ -205,9 +226,57 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---------------------------------------------------------------- wgmma
 //
-// m64n{128,256}k16 with both operands in shared memory (TA, TB: the
-// transpose bits, 1 for an MN-major operand), and m64n{16,32,64,128}k16
+// m64n{16,32,64,128,256}k16 with both operands in shared memory (TA, TB:
+// the transpose bits, 1 for an MN-major operand), and m64n{16,32,64,128}k16
 // with A in registers and B MN-major.
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
@@ -367,6 +436,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// m64n{N}k16 for N in {16, 32, 64, 128}: both operands in shared memory
+// (wgmma_ss), or A in registers and B MN-major (wgmma_rs)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, scale_d);
+  else wgmma_ss_n128<TA, TB>(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
+  else wgmma_rs_n128(d, a, b, scale_d);
+}
+
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -400,6 +490,31 @@ EncodeTiled encode_tiled() {
     if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
   return fn;
+}
+
+// a (B, T, heads, D) bf16 array as a 4-D map (D, heads, T, B) whose box is
+// one swizzle atom's columns (64, or D below 64) of `rows` rows of one
+// head, with the swizzle of that atom's row bytes (128, 64 or 32): a box
+// that runs past T is zero-filled on a load and dropped on a store
+inline CUresult make_map(EncodeTiled encode, CUtensorMap* map,
+                         const void* ptr, int B, int T, int heads, int D,
+                         int rows) {
+  const int W = D < 64 ? D : 64;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)T * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)W, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace

@@ -8,7 +8,8 @@ Four kernels, each with its plain PyTorch version beside it:
   softmax with the causal mask in global (q_offset, k_offset) positions,
   GQA, Tq != Tk, and the per-row logsumexp the backward reads;
 - the fused backward (``csrc/flash_attention_bwd.cu``; ``_fused_bwd_kernel``):
-  dK, dV and a partial-dQ slab (n_kv, B*H, Tq, D) summed here;
+  dK, dV and a partial-dQ slab (n_kv, B*H, Tq, D), one slot per 128-key
+  tile, summed here;
 - the dQ pass and the dK/dV pass (same file; ``_dq_kernel``,
   ``_dkv_kernel``): the split backward.
 
@@ -44,10 +45,11 @@ calls = {"forward": 0}
 #: forward's CTAs take 64 or 128 query rows, one warpgroup per 64, and mask
 #: a ragged edge of their 128-key tiles)
 BLOCK = 64
-#: the backward kernels' q and kv tiles (the slab has Tk / BWD_BLOCK_K
-#: slots per row)
+#: the fused backward's q and kv tiles: a CTA owns 128 keys and walks
+#: 64-query tiles, so the slab has ceil(Tk / BWD_BLOCK_K) slots per row
+#: (the last one half when Tk % 128 == 64)
 BWD_BLOCK_Q = 64
-BWD_BLOCK_K = 64
+BWD_BLOCK_K = 128
 
 #: the values of ``bwd``: None/"auto" (fused while the slab fits the
 #: budget), "fused" (one pass, 5 products per visible tile pair, the slab),
@@ -58,7 +60,7 @@ BWD_ROUTES = (None, "auto", "fused", "split")
 # above this byte budget "auto" chunks the queries, then falls back to the
 # split route. The JAX module's variable and default (1.5 GiB), read the
 # same way; 0 forces the split route. The slab here is sized on this
-# port's 64-row kv tile.
+# port's 128-row kv tile.
 _FUSED_SLAB_LIMIT = int(
     os.environ.get("HPCPAT_FLASH_BWD_SLAB_LIMIT", 3 << 29))
 
@@ -266,16 +268,25 @@ def flash_attention_dq_reference(q, k, v, do, lse, delta, *, q_offset=0,
     return dq.to(q.dtype).permute(0, 2, 1, 3)
 
 
-def _unwritten_rows(Tq, Tk, q_offset, k_offset, causal) -> list:
-    """Per kv tile j, how many leading query rows of its slab slots the
-    fused kernel never writes: the rows of the q tiles that cannot see
-    kv tile j (causal: their last global position precedes its first)."""
-    n_kv, n_q = Tk // BWD_BLOCK_K, Tq // BWD_BLOCK_Q
+def _n_kv(Tk, block_k=BWD_BLOCK_K) -> int:
+    """The slab's slots per row: kv tiles of ``block_k`` keys, the last
+    one ragged."""
+    return -(-Tk // block_k)
+
+
+def _unwritten_rows(Tq, Tk, q_offset, k_offset, causal,
+                    block_k=BWD_BLOCK_K) -> list:
+    """Per kv tile j (of ``block_k`` keys: the kernel's, unless a timing
+    masks another build's slab), how many leading query rows of its slab
+    slots the fused kernel never writes: the rows of the q tiles that
+    cannot see kv tile j (causal: their last global position precedes its
+    first)."""
+    n_kv, n_q = _n_kv(Tk, block_k), Tq // BWD_BLOCK_Q
     if not causal:
         return [0] * n_kv
     rows = []
     for j in range(n_kv):
-        k_start = k_offset + j * BWD_BLOCK_K
+        k_start = k_offset + j * block_k
         # first q tile qi with q_offset + (qi + 1) * BQ - 1 >= k_start
         first = -(-(k_start - q_offset + 1 - BWD_BLOCK_Q) // BWD_BLOCK_Q)
         rows.append(min(max(first, 0), n_q) * BWD_BLOCK_Q)
@@ -294,18 +305,22 @@ def flash_attention_fused_bwd_reference(q, k, v, do, lse, delta, *,
                                         q_offset=0, k_offset=0, causal=True,
                                         scale=None):
     """The fused kernel's plain version (``_fused_bwd_kernel``): (dk, dv,
-    slab) with slab (n_kv, B*H, Tq, D) in the input dtype, slot j holding
-    scale * dS[:, kv tile j] K[kv tile j] where the (q tile, kv tile j)
-    pair is visible and NaN where the kernel never writes (what device
-    memory may hold there): the caller must mask by select."""
+    slab) with slab (n_kv, B*H, Tq, D) in the input dtype, n_kv =
+    ceil(Tk / BWD_BLOCK_K), slot j holding scale * dS[:, kv tile j] K[kv
+    tile j] (a ragged last tile's missing keys count 0) where the (q tile,
+    kv tile j) pair is visible and NaN where the kernel never writes (what
+    device memory may hold there): the caller must mask by select."""
     scale = _scale(scale, q.shape[3])
     dk, dv, ds = _dkv_plain(q, k, v, do, lse, delta, q_offset, k_offset,
                             causal, scale)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    n_kv = Tk // BWD_BLOCK_K
-    kf = _expand(k, H).reshape(B, H, n_kv, BWD_BLOCK_K, D)
-    dsj = ds.reshape(B, H, Tq, n_kv, BWD_BLOCK_K).permute(0, 1, 3, 2, 4)
+    n_kv = _n_kv(Tk)
+    pad = n_kv * BWD_BLOCK_K - Tk
+    kf = torch.nn.functional.pad(_expand(k, H), (0, 0, 0, pad))
+    kf = kf.reshape(B, H, n_kv, BWD_BLOCK_K, D)
+    dsj = torch.nn.functional.pad(ds, (0, pad))
+    dsj = dsj.reshape(B, H, Tq, n_kv, BWD_BLOCK_K).permute(0, 1, 3, 2, 4)
     slab = ((dsj @ kf) * scale).to(q.dtype)            # (B, H, n_kv, Tq, D)
     slab = slab.permute(2, 0, 1, 3, 4).reshape(n_kv, B * H, Tq, D)
     seen = _written(Tq, Tk, q_offset, k_offset, causal, q.device)
@@ -340,7 +355,7 @@ def flash_attention_fused_bwd(q, k, v, do, lse, delta, *, q_offset=0,
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    slab = torch.empty(Tk // BWD_BLOCK_K, B * H, Tq, D, dtype=q.dtype,
+    slab = torch.empty(_n_kv(Tk), B * H, Tq, D, dtype=q.dtype,
                        device=q.device)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
@@ -416,7 +431,7 @@ def plan_backward(B, Tq, Tk, H, D, itemsize, bwd=None) -> dict:
     tiles): the slab's bytes, the q-chunk count and whether the fused
     kernel runs."""
     _check_bwd(bwd)
-    slab_bytes = (Tk // BWD_BLOCK_K) * B * H * Tq * D * itemsize
+    slab_bytes = _n_kv(Tk) * B * H * Tq * D * itemsize
     n_chunks = 1
     if bwd in (None, "auto", "fused") and slab_bytes > _FUSED_SLAB_LIMIT:
         while (slab_bytes // n_chunks > _FUSED_SLAB_LIMIT
@@ -440,7 +455,7 @@ def _backward(q, k, v, o, lse, q_offset, k_offset, g, g_lse, *, causal,
     Tk = k.shape[1]
     plan = plan_backward(B, Tq, Tk, H, D, q.element_size(), bwd)
     g = g.contiguous()
-    delta = (g.float() * o.float()).sum(-1)
+    delta = (g.float() * o).sum(-1)  # f32 products of the bf16 values
     if g_lse is not None:
         delta = delta - g_lse
     delta = delta.permute(0, 2, 1).contiguous()
@@ -471,7 +486,9 @@ def _backward(q, k, v, o, lse, q_offset, k_offset, g, g_lse, *, causal,
             if r:
                 slab[j, :, :r] = 0
         parts.append(slab.sum(0, dtype=torch.float32).to(q.dtype))
-        if dk_acc is None:
+        if n == 1:  # the kernel's dk/dv as they are
+            dk_acc, dv_acc = dk_i, dv_i
+        elif dk_acc is None:
             dk_acc, dv_acc = dk_i.float(), dv_i.float()
         else:
             dk_acc += dk_i.float()

@@ -80,13 +80,18 @@ def test_flash_prefill_kernel_matches_plain(gen, T, H, Hkv, D):
 
 # (B, Tq, Tk, H, Hkv, D, q_offset, k_offset, causal): the training shape's
 # heads, GQA, offsets with Tq != Tk both ways, rows before every key, a
-# fully-future block, non-causal, the small head dims
+# fully-future block, non-causal, the small head dims; at D 128, Tk % 128
+# == 64 (the backward's last 128-key tile half) causal at an odd k_offset,
+# square, and non-causal
 FLASH_CASES = [(2, 256, 256, 8, 8, 128, 0, 0, True),
                (2, 256, 256, 8, 2, 128, 0, 0, True),
                (1, 128, 256, 4, 2, 64, 128, 0, True),
                (1, 256, 128, 4, 4, 32, 0, 96, True),
                (1, 128, 128, 4, 2, 16, 0, 4096, True),
-               (1, 128, 192, 4, 1, 64, 0, 0, False)]
+               (1, 128, 192, 4, 1, 64, 0, 0, False),
+               (1, 256, 320, 8, 2, 128, 64, 33, True),
+               (2, 192, 192, 8, 8, 128, 0, 0, True),
+               (1, 128, 192, 4, 2, 128, 0, 0, False)]
 BWD_TOL = 2e-2
 
 
@@ -169,8 +174,7 @@ def test_flash_forward_refuses_a_cta_tile_it_has_not(gen):
         fa._launch_forward(q, k, v, 0, 0, True, None, False, rows=96)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_backward_kernels_match_plain_and_are_deterministic(gen, case):
+def _backward_case(gen, case):
     B, Tq, Tk, H, Hkv, D, qo, ko, causal = case
     q, k, v, do = _flash_inputs(gen, B, Tq, Tk, H, Hkv, D)
     out, lse = fa.flash_attention_reference(
@@ -202,6 +206,17 @@ def test_flash_backward_kernels_match_plain_and_are_deterministic(gen, case):
     assert torch.equal(fa.flash_attention_dq(*args, **kw), dq)
     assert all(torch.equal(a, b) for a, b in zip(
         fa.flash_attention_dkv(*args, **kw), (dk2, dv2)))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_kernels_match_plain_and_are_deterministic(gen, case):
+    _backward_case(gen, case)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_backward_every_head_dim_at_a_half_kv_tile(gen, D):
+    # Tk 320: the last 128-key tile half; offsets on neither tile
+    _backward_case(gen, (1, 192, 320, 4, 2, D, 160, 33, True))
 
 
 @pytest.mark.parametrize("bwd", ["fused", "split"])

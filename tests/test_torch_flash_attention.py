@@ -186,9 +186,10 @@ def test_fused_q_chunked_equals_unchunked(monkeypatch):
     q, k, v = _inputs(41, 1, 256, 4, 2, 16)
     g = _cotangent(42, q.shape)
     want = _grads(q, k, v, g, bwd="fused")
-    # slab = 4 kv tiles x 1 x 4 heads x 256 x 16 x 4 B = 256 KiB; half of
-    # it forces 2 chunks of 128 queries (still a multiple of the q tile)
-    monkeypatch.setattr(fa, "_FUSED_SLAB_LIMIT", 128 << 10)
+    # slab = 2 kv tiles of 128 x 1 x 4 heads x 256 x 16 x 4 B = 128 KiB;
+    # half of it forces 2 chunks of 128 queries (still a multiple of the
+    # q tile)
+    monkeypatch.setattr(fa, "_FUSED_SLAB_LIMIT", 64 << 10)
     plan = fa.plan_backward(1, 256, 256, 4, 16, 4, "fused")
     assert plan["n_chunks"] == 2 and plan["fused"]
     got = _grads(q, k, v, g, bwd="fused")
@@ -197,10 +198,11 @@ def test_fused_q_chunked_equals_unchunked(monkeypatch):
 
 
 def test_auto_route_follows_the_slab_limit(monkeypatch):
-    # the chip shape (B 8, T 2048, H 8, D 128, bf16): n_kv = 32 tiles of
-    # 64 rows, a 1 GiB slab under the 1.5 GiB default -> fused, unchunked
+    # the chip shape (B 8, T 2048, H 8, D 128, bf16): n_kv = 16 tiles of
+    # 128 rows, a 512 MiB slab under the 1.5 GiB default -> fused,
+    # unchunked
     plan = fa.plan_backward(8, 2048, 2048, 8, 128, 2)
-    assert plan == {"slab_bytes": 1 << 30, "n_chunks": 1, "fused": True,
+    assert plan == {"slab_bytes": 1 << 29, "n_chunks": 1, "fused": True,
                     "limit": 3 << 29}
     q, k, v = _inputs(43, 1, 128, 2, 2, 16)
     g = _cotangent(44, q.shape)
@@ -214,7 +216,8 @@ def test_auto_route_follows_the_slab_limit(monkeypatch):
 
 def test_plain_kernel_contracts_agree():
     # the fused plain version's slab, masked by select and summed, is the
-    # dq pass; its dk/dv are the dkv pass; never-written slots are NaN
+    # dq pass; its dk/dv are the dkv pass; never-written slots are NaN.
+    # Tk 192: two kv tiles of 128 keys, the second half
     q, _, _ = _inputs(51, 1, 128, 4, 2, 16)
     _, k, v = _inputs(52, 1, 192, 4, 2, 16)
     q, k, v = _t(q, k, v)
@@ -225,7 +228,7 @@ def test_plain_kernel_contracts_agree():
     kw = dict(q_offset=64, k_offset=0, causal=True)
     dk, dv, slab = fa.flash_attention_fused_bwd(q, k, v, do, lse, delta,
                                                 **kw)
-    assert slab.shape == (3, 4, 128, 16)
+    assert slab.shape == (2, 4, 128, 16)
     seen = fa._written(128, 192, 64, 0, True, q.device)
     assert torch.isnan(slab[~seen[:, None, :, None].expand_as(slab)]).all()
     assert not torch.isnan(slab[seen[:, None, :, None].expand_as(slab)]).any()
@@ -235,6 +238,64 @@ def test_plain_kernel_contracts_agree():
                                .numpy(), want_dq.numpy(), atol=1e-6)
     want_dk, want_dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
     assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+# (Tq, Tk, q_offset, k_offset, causal) with Tk % 128 == 64: the fused
+# route's last kv tile of 128 keys is half (its missing keys masked, causal
+# or not), with offsets that are multiples of neither tile
+HALF_TILE_CASES = {
+    "square_causal": (192, 192, 0, 0, True),
+    "offsets_causal": (128, 320, 224, 96, True),
+    "non_causal": (64, 192, 0, 0, False),
+}
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+@pytest.mark.parametrize("case", list(HALF_TILE_CASES))
+def test_grads_at_a_half_last_kv_tile_match_jax(bwd, case):
+    Tq, Tk, qo, ko, causal = HALF_TILE_CASES[case]
+    q, _, _ = _inputs(71, 1, Tq, 4, 2, 16)
+    _, k, v = _inputs(72, 1, Tk, 4, 2, 16)
+    g = _cotangent(73, q.shape)
+    n_kv = fa.plan_backward(1, Tq, Tk, 4, 16, 4)["slab_bytes"] // (
+        4 * Tq * 16 * 4)
+    assert n_kv == -(-Tk // 128) and Tk % 128 == 64
+
+    def jloss(q, k, v):
+        o, _ = jax_flash_attention_block(q, k, v, qo, ko, causal=causal,
+                                         bwd=bwd, **JAX_BLOCKS)
+        return jnp.sum(o * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _t(q, k, v, grad=True)
+    o, _ = fa.flash_attention_block(tq, tk, tv, qo, ko, causal=causal,
+                                    bwd=bwd)
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(g))
+    assert got[1].shape == k.shape  # dk/dv narrow under GQA
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL)
+
+
+def test_flash_bench_replays_the_fused_route_and_reads_the_kv_tile():
+    # bench_flash times another checkout's fused route by replaying the
+    # route's steps around that checkout's kernel: on this tree's kernel
+    # (its plain version here) the replay gives _backward's grads, and the
+    # tile it masks by is the one the checkout's source names
+    from pathlib import Path
+
+    from hpc_patterns_tpu_torch import bench_flash
+
+    q, k, v = _t(*_inputs(81, 1, 192, 4, 4, 16))
+    do = torch.from_numpy(_cotangent(82, q.shape))
+    out, lse = fa.flash_attention_reference(q, k, v, with_lse=True)
+    want = fa._backward(q, k, v, out, lse, 0, 0, do, None, causal=True,
+                        scale=None, bwd="fused")
+    got = bench_flash._fused_route(fa.flash_attention_fused_bwd, q, k, v,
+                                   do, lse, out, fa.BWD_BLOCK_K)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    root = Path(__file__).resolve().parents[1]
+    assert bench_flash._kv_tile(root) == fa.BWD_BLOCK_K == 128
 
 
 def test_bad_bwd_and_shapes_rejected():
