@@ -15,9 +15,10 @@ Phases, each printing JSON lines:
               (``cuobjdump -sass``), print each kernel's registers and
               spills, and fail if a library holds no HGMMA (they must run
               on wgmma), if the fused MLP's holds cp.async (LDGSTS), if
-              the fused MLP's kernels or the backward's dK/dV template
-              (kernels 2 and 4) spill, or if ptxas serialized the wgmma
-              of any kernel of the three (its note C7513);
+              any kernel of the fused MLP's, the backward's (kernels 2-4)
+              or the linear decode's (kernel 5, whose registers and
+              spills are printed too) spills, or if ptxas serialized the
+              wgmma of any kernel of the three (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
               (stated tolerance; the busy-wait and pipeline kernels
@@ -26,7 +27,11 @@ Phases, each printing JSON lines:
               one library call's device time (yardstick only; the port
               never calls it) beside the kernel's bound; the decode
               kernels on bf16, int8 and fp8 caches (the linear cache,
-              the paged cache, the exact-softmax paged route); kernel 13,
+              the paged cache, the exact-softmax paged route; the linear
+              one twice for equal bits, with the chunks it split the rows
+              into and SDPA's time on each dtype's values, and at two
+              shapes it must run in one chunk: pos 63, and B 33 on 132
+              SMs); kernel 13,
               the migration exchange, byte for byte (uint8 views) against
               its plain version on the plane row's bf16 K/V pages (8 kv
               heads, page 256, D 128) at 1, 2, 5 (a ragged last chunk)
@@ -119,9 +124,11 @@ Phases, each printing JSON lines:
               model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
               d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
               --resume-check and --generate 16): SUCCESS, the first loss
-              near ln 32768, the losses falling, the forward and fused
-              backward launches equal to n_layers x the gradient passes
-              counted, generate's flash_decode launches equal to n_layers
+              near ln 32768, the losses falling, the forward, dq and dkv
+              launches (the card's auto backward is the split route)
+              equal to n_layers x the gradient passes counted, no fused
+              backward launch, generate's flash_decode launches equal to
+              n_layers
               x its decode steps; then on the same seed and batch with
               --mlp-impl fused (8 steps), and with it --remat under the
               split and nothing policies (5 steps each): SUCCESS, step
@@ -132,10 +139,11 @@ Phases, each printing JSON lines:
               dense checkpoint; then on one batch at the checkpoint's
               trained params flash against full attention (loss, each
               gradient leaf's cosine), the split backward against the
-              fused one, the fused MLP against the dense one and the
-              kernel backward against the save-a one (``xla_a``: the
-              save-a forward once per layer), one step with the slab
-              limit forced to 0 (kernels 3-4), and one step profiled
+              fused one (each route named: ``bwd="split"`` and
+              ``bwd="fused"``), the fused MLP against the dense one and
+              the kernel backward against the save-a one (``xla_a``: the
+              save-a forward once per layer), one step on the fused route
+              (kernel 2 once per layer), and one step profiled
               (device-busy share, top kernels);
 11. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -148,6 +156,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -232,9 +241,9 @@ TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 HOPPER_SOURCES = ("flash_prefill", "flash_attention_bwd", "fused_mlp")
 # the kernels that must not spill, by source and name prefix: every one of
-# the fused MLP's, and the backward's dK/dV template (kernels 2 and 4; its
-# dq kernel is still the first, WMMA version)
-NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "dkv_kernel"}
+# the fused MLP's, the attention backward's (kernels 2-4) and the linear
+# decode's (kernel 5: both passes)
+NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "", "flash_decode": ""}
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -336,15 +345,17 @@ def ptxas_kernels(log: str) -> list:
     for block in log.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
         # the length-prefixed identifier that ends in "_kernel" (its length
-        # may follow other digits: try every tail of each digit run)
-        name, rest = mangled, ""
+        # may follow other digits: try every tail of each digit run; the
+        # shortest wins, since a namespace's length and name can read as a
+        # longer prefix, as "12dq9dq_kernel" does for dq::dq_kernel)
+        found = []
         for m in re.finditer(r"\d+", mangled):
             for i in range(len(m.group())):
                 ident = mangled[m.end():m.end() + int(m.group()[i:])]
                 if ident.endswith("_kernel") and ident[0].isalpha():
-                    name, rest = ident, mangled[m.end() + len(ident):]
-            if rest:
-                break
+                    found.append((ident, mangled[m.end() + len(ident):]))
+        name, rest = min(found, key=lambda f: len(f[0])) if found \
+            else (mangled, "")
         args = re.findall(r"L[ib](\d+)E",
                           rest[1:rest.find("Ev")]) if rest[:1] == "I" else []
         used = re.search(r"Used (\d+) registers", block)
@@ -392,13 +403,18 @@ def phase_build():
               f"{name}'s SASS holds no cp.async (LDGSTS): {counts}")
         check(info[name]["cached"] or (kernels and not serialized),
               f"{name}: ptxas serialized no wgmma (C7513): {serialized}")
-        if name in NO_SPILL and not info[name]["cached"]:
-            watched = [k for k in kernels
-                       if k["kernel"].startswith(NO_SPILL[name])]
-            check(bool(watched) and all(
-                k["spill_stores"] == 0 == k["spill_loads"] for k in watched),
-                f"{name}: no spills in {NO_SPILL[name] or 'any kernel'}: "
-                f"{kernels}")
+    for name, prefix in NO_SPILL.items():
+        if info[name]["cached"]:
+            continue
+        kernels = ptxas_kernels(info[name]["log"])
+        if name not in HOPPER_SOURCES:
+            emit({"phase": "build", "source": name, "kernels": [
+                {k: v for k, v in row.items() if k != "wgmma_serialized"}
+                for row in kernels]})
+        watched = [k for k in kernels if k["kernel"].startswith(prefix)]
+        check(bool(watched) and all(
+            k["spill_stores"] == 0 == k["spill_loads"] for k in watched),
+            f"{name}: no spills in {prefix or 'any kernel'}: {kernels}")
 
 
 def _sdpa_layout(q, k, v):
@@ -567,12 +583,17 @@ def linear_decode_case(gen, B, H, Hkv, D, S, pos, kv):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     got, want = run(*sets[0]), plain(*sets[0])
+    again = run(*sets[0])
     lib_out = sdpa(*lib_sets[0], attn_mask=mask, enable_gqa=True)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(bool(torch.isfinite(got).all()), "flash_decode output finite")
     check(err <= DECODE_ATOL, f"flash_decode {B, H, Hkv, D, S, pos, kv}: "
           f"max err {err} > {DECODE_ATOL}")
+    check(torch.equal(got, again), f"flash_decode {B, H, Hkv, D, S, pos, kv}"
+          ": two calls give equal bits")
+    # the split of the live rows the wrapper planned (one chunk: no merge)
+    n_chunks, chunk = fd.decode_chunks(pos, B * Hkv, fd._sm_count(dev))
     check(lib_out.shape == (B, H, 1, D), "the SDPA yardstick's shape")
     ms = device_ms(run, sets)
     plain_ms = device_ms(plain, sets)
@@ -586,6 +607,7 @@ def linear_decode_case(gen, B, H, Hkv, D, S, pos, kv):
     row = {"phase": "kernel", "name": "flash_decode",
            "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "S": S, "pos": pos,
                      "kv": kv, "q": str(qdt)[6:]},
+           "n_chunks": n_chunks, "chunk_rows": chunk,
            "max_abs_err": err, "tol": DECODE_ATOL, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib,
            "library": "sdpa (enable_gqa, bool mask; compute-dtype cache)",
@@ -619,9 +641,24 @@ def phase_kernels():
     S = LAW_PROMPT_LEN + LAW_STEPS
     rows["flash_decode"] = linear_decode_case(gen, LAW_PROMPTS, 8, 8, 128, S,
                                               S - 1, "int8")
+    rows["flash_decode_by_cache"] = {"int8": rows["flash_decode"]}
     for kv, hkv in (("bfloat16", 8), ("fp8", 8), ("int8", 2)):
-        linear_decode_case(gen, LAW_PROMPTS, 8, hkv, 128, S, S - 1, kv)
+        rows["flash_decode_by_cache"][f"{kv}" if hkv == 8 else
+                                      f"{kv}_hkv{hkv}"] = linear_decode_case(
+            gen, LAW_PROMPTS, 8, hkv, 128, S, S - 1, kv)
     linear_decode_case(gen, 4, 8, 8, 64, 600, 300, "float32")
+    # the shapes the planner runs in one chunk (the CTA normalises its rows
+    # in place, no merge): few live rows, and enough kv rows to give every
+    # SM its CTAS_PER_SM CTAs unsplit (B 33 on an H100's 132 SMs)
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+    b_fill = -(-fd.CTAS_PER_SM * fd._sm_count(torch.device("cuda")) // 8)
+    rows["flash_decode_one_chunk"] = {}
+    for key, b, p in (("pos63", LAW_PROMPTS, 63), (f"b{b_fill}", b_fill,
+                                                   S - 1)):
+        r = linear_decode_case(gen, b, 8, 8, 128, S, p, "int8")
+        check(r["n_chunks"] == 1, f"flash_decode B {b} pos {p}: one chunk, "
+              f"got {r['n_chunks']}")
+        rows["flash_decode_one_chunk"][key] = r
     return rows
 
 
@@ -1717,7 +1754,7 @@ def train_kernel_cases(gen, B, T, H, Hkv, D):
         emit({"phase": "kernel", "name": name, "shape": shape,
               "library": "sdpa (is_causal; backward = fwd+bwd less fwd)",
               "input_sets": len(sets), **r})
-    plan = fa.plan_backward(B, T, T, H, D, 2)
+    plan = fa.plan_backward(B, T, T, H, D, 2, on_card=True)
     emit({"phase": "kernel", "name": "flash_bwd_routes", "shape": shape,
           "auto_plan": plan, "fused_route_ms": rows["route_fused_ms"],
           "split_route_ms": rows["route_split_ms"]})
@@ -2141,8 +2178,8 @@ def phase_train():
     (dense MLP, then the fused MLP kernels without and with remat),
     ``eval_app`` on the dense run's checkpoint, then the routes on one
     batch: flash against full attention, the split backward against the
-    fused one, the fused MLP against the dense one and its save-a
-    backward, one step on the split route, one profiled step."""
+    fused one (each named), the fused MLP against the dense one and its
+    save-a backward, one step on the fused route, one profiled step."""
     import dataclasses
     import os
     import shutil
@@ -2193,12 +2230,14 @@ def phase_train():
     check(abs(losses[0] - math.log(cfg.vocab)) < TRAIN_FIRST_LOSS_ATOL,
           f"first loss {losses[0]} near ln {cfg.vocab}")
     check(losses[-1] < losses[0], f"losses decrease: {losses}")
-    plan = fa.plan_backward(B, T, T, cfg.n_heads, cfg.head_dim, 2)
-    check(plan["fused"] and plan["n_chunks"] == 1,
-          f"auto picks the unchunked fused route at the chip shape: {plan}")
+    plan = fa.plan_backward(B, T, T, cfg.n_heads, cfg.head_dim, 2,
+                            on_card=True)
+    check(not plan["fused"],
+          f"the card's auto picks the split route at the chip shape: {plan}")
     check(launches["fwd_lse"] == L * passes["grad"]
-          and launches["fused_bwd"] == L * passes["grad"]
-          and launches["dq"] == 0 and launches["dkv"] == 0,
+          and launches["dq"] == L * passes["grad"]
+          and launches["dkv"] == L * passes["grad"]
+          and launches["fused_bwd"] == 0,
           f"training launches == {L} layers x {passes['grad']} grad "
           f"passes: {launches}")
     check(launches["fwd"] == L, f"generate's prefill ran the forward once "
@@ -2211,7 +2250,7 @@ def phase_train():
     check(not any(run["mlp_launches"].values()),
           f"the dense run launched no fused MLP kernel: {run['mlp_launches']}")
     train_launches = {"flash_fwd_lse": launches["fwd_lse"],
-                      "fused_bwd": launches["fused_bwd"],
+                      "dq": launches["dq"], "dkv": launches["dkv"],
                       "flash_decode": launches["flash_decode"]}
 
     # the fused MLP kernels on the same seed and batch, without and with
@@ -2234,8 +2273,8 @@ def phase_train():
         reruns = 2 if "nothing" in extra["argv"] else 1
         check(ml["fwd"] == L * p * reruns and la["fwd_lse"] == L * p * reruns
               and ml["bwd_dx"] == L * p and ml["bwd_dw"] == L * p
-              and la["fused_bwd"] == L * p and ml["fwd_save_a"] == 0
-              and la["dq"] == la["dkv"] == la["fwd"] == 0,
+              and la["dq"] == la["dkv"] == L * p and ml["fwd_save_a"] == 0
+              and la["fused_bwd"] == la["fwd"] == 0,
               f"{name}: launches == {L} layers x {p} grad passes (forwards "
               f"x {reruns}): {la} {ml}")
     first = fused_runs["fused"]["losses"]
@@ -2268,9 +2307,23 @@ def phase_train():
     tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
                            B, T, device=dev)
 
-    def loss_grads(c):
-        loss = tf.loss_fn(params, tokens, c)
-        return loss.item(), torch.autograd.grad(loss, leaves)
+    def routed(route, fn):
+        """``fn()`` with the model's attention on the backward route
+        ``route`` by name (None: the card's auto, split)"""
+        orig = tf.flash_attention
+        if route is not None:
+            tf.flash_attention = functools.partial(fa.flash_attention,
+                                                   bwd=route)
+        try:
+            return fn()
+        finally:
+            tf.flash_attention = orig
+
+    def loss_grads(c, route=None):
+        def run():
+            loss = tf.loss_fn(params, tokens, c)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+        return routed(route, run)
 
     l_flash, g_flash = loss_grads(cfg)
     l_full, g_full = loss_grads(dataclasses.replace(cfg, attention="full"))
@@ -2290,20 +2343,19 @@ def phase_train():
     xla_a_launches = dict(fm.launches)
     gap_xla_a = _cosine_gaps(names, g_fused, g_xla_a)
     del g_fused, g_xla_a
-    limit = fa._FUSED_SLAB_LIMIT
-    fa._FUSED_SLAB_LIMIT = 0  # the split route: kernels 3-4
-    try:
-        l_split, g_split = loss_grads(cfg)
-        gap_split = _cosine_gaps(names, g_flash, g_split)
-        del g_split
-        for key in fa.launches:
-            fa.launches[key] = 0
-        step = tr.make_train_step(cfg)
-        l_step = step(params, opt_state, tokens)[0].item()
-        split_launches = dict(fa.launches)
-    finally:
-        fa._FUSED_SLAB_LIMIT = limit
     del g_flash
+    # the two backward routes by name: fused (kernel 2 and the slab) and
+    # split (kernels 3 and 4, the card's auto)
+    l_fused_route, g_fused_route = loss_grads(cfg, "fused")
+    l_split, g_split = loss_grads(cfg, "split")
+    gap_split = _cosine_gaps(names, g_fused_route, g_split)
+    del g_fused_route, g_split
+    for key in fa.launches:
+        fa.launches[key] = 0
+    step = tr.make_train_step(cfg)
+    l_step = routed("fused", lambda: step(params, opt_state, tokens)[0]
+                    .item())
+    fused_launches = dict(fa.launches)
     prof = device_profile(lambda: step(params, opt_state, tokens)[0].item())
     worst_full = max(gap_full.values())
     worst_split = max(gap_split.values())
@@ -2313,9 +2365,10 @@ def phase_train():
         "params": "trained (the checkpoint of step 8)",
         "loss_flash": l_flash, "loss_full": l_full,
         "loss_rel_diff": abs(l_flash - l_full) / abs(l_full),
-        "grad_gap_flash_full": gap_full, "loss_split": l_split,
-        "grad_gap_fused_split": gap_split, "loss_split_step": l_step,
-        "split_launches": split_launches, "loss_fused_mlp": l_fused,
+        "grad_gap_flash_full": gap_full, "loss_fused_route": l_fused_route,
+        "loss_split_route": l_split, "grad_gap_fused_split": gap_split,
+        "loss_fused_step": l_step, "fused_step_launches": fused_launches,
+        "loss_fused_mlp": l_fused,
         "loss_fused_mlp_rel_diff": abs(l_fused - l_flash) / abs(l_flash),
         "grad_gap_dense_fused_mlp": gap_fused, "loss_xla_a": l_xla_a,
         "grad_gap_fused_mlp_kernel_xla_a": gap_xla_a,
@@ -2331,15 +2384,14 @@ def phase_train():
           and worst_full <= TRAIN_GAP_FULL,
           f"flash vs full: loss {l_flash} vs {l_full}, worst leaf 1 - "
           f"cosine {worst_full}")
-    check(l_split == l_flash and l_step == l_flash
-          and worst_split <= TRAIN_GAP_SPLIT,
-          f"split vs fused route: loss {l_split}/{l_step} vs {l_flash}, "
-          f"worst leaf 1 - cosine {worst_split}")
-    check(split_launches["dq"] == L and split_launches["dkv"] == L
-          and split_launches["fused_bwd"] == 0
-          and split_launches["fwd_lse"] == L,
-          f"the split step launched dq and dkv once per layer: "
-          f"{split_launches}")
+    check(l_split == l_flash and l_fused_route == l_flash
+          and l_step == l_flash and worst_split <= TRAIN_GAP_SPLIT,
+          f"split vs fused route: loss {l_split}/{l_fused_route}/{l_step} "
+          f"vs {l_flash}, worst leaf 1 - cosine {worst_split}")
+    check(fused_launches["fused_bwd"] == L and fused_launches["dq"] == 0
+          and fused_launches["dkv"] == 0 and fused_launches["fwd_lse"] == L,
+          f"the fused step launched fused_bwd once per layer: "
+          f"{fused_launches}")
     check(abs(l_fused - l_flash) <= TRAIN_LOSS_MLP_RTOL * abs(l_flash)
           and worst_fused <= TRAIN_GAP_MLP,
           f"fused vs dense MLP: loss {l_fused} vs {l_flash}, worst leaf 1 - "
@@ -2349,8 +2401,7 @@ def phase_train():
           and xla_a_launches["fwd"] == xla_a_launches["bwd_dx"] == 0,
           f"xla_a: loss {l_xla_a} vs {l_fused}, worst leaf 1 - cosine "
           f"{worst_xla_a}, launches {xla_a_launches}")
-    train_launches.update(dq=split_launches["dq"],
-                          dkv=split_launches["dkv"])
+    train_launches.update(fused_bwd=fused_launches["fused_bwd"])
     by_run = {n: r["mlp_launches"] for n, r in fused_runs.items()}
     mlp = {k: sum(m[k] for m in by_run.values())
            for k in ("fwd", "bwd_dx", "bwd_dw")}
@@ -2433,7 +2484,15 @@ def main() -> int:
          "launches_by_path": {"quant": launches_quant["flash_decode"],
                               "train_generate":
                               launches_train["flash_decode"]},
-         **{k: rows["flash_decode"][k] for k in keys}},
+         **{k: rows["flash_decode"][k] for k in keys},
+         "by_cache": {c: {k: r[k] for k in ("ms", "library_ms", "bound_ms",
+                                            "max_abs_err", "n_chunks")}
+                      for c, r in rows["flash_decode_by_cache"].items()},
+         "one_chunk": {c: {"B": r["shape"]["B"], "pos": r["shape"]["pos"],
+                           **{k: r[k] for k in ("ms", "library_ms",
+                                                "bound_ms", "max_abs_err",
+                                                "n_chunks")}}
+                       for c, r in rows["flash_decode_one_chunk"].items()}},
         {"name": "paged_decode_quant", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",

@@ -1,9 +1,10 @@
 """The flash-attention kernels on one card: kernel 1, the forward
-(``csrc/flash_prefill.cu``), at each of its CTA tiles, and kernels 2 and
-4, the fused backward and the dK/dV pass (``csrc/flash_attention_bwd.cu``),
-with the fused route around kernel 2, each against the same C entry
-points built from another checkout; optionally the training step of both
-checkouts.
+(``csrc/flash_prefill.cu``), at each of its CTA tiles; kernels 2, 3 and
+4, the fused backward, the dQ pass and the dK/dV pass
+(``csrc/flash_attention_bwd.cu``), with both backward routes around them;
+and kernel 5, the linear-cache decode (``csrc/flash_decode.cu``), each
+against the same C entry points built from another checkout; optionally
+the training step of both checkouts.
 
     python -m hpc_patterns_tpu_torch.bench_flash [--other DIR] [--train]
 
@@ -14,15 +15,22 @@ L2: the kernel through its shape rule and at 64 and 128 query rows a CTA,
 SDPA (``is_causal``; the yardstick only), and with ``--other`` the other
 checkout's ``flash_attention_fwd`` (same signature), compiled with the
 same flags. The backward at the training shape: this tree's
-``flash_attention_fused_bwd`` and ``flash_attention_dkv`` against the
-other checkout's (same C signatures; its slab sized by the keys a slot
-that its ``ops/flash_attention.py`` names, 64 before the 128-key
-redesign), and the fused route
-(Delta, kernel 2, the never-written slab rows zeroed, the f32 slab sum,
-the dk/dv casts) of each: this tree's ``_backward``, the other's as the
-route ran before the redesign, on its slab; SDPA's backward (fwd+bwd
-less fwd) as the yardstick.
-The timings run in turns — other, this, this, other — and
+``flash_attention_fused_bwd``, ``flash_attention_dq`` and
+``flash_attention_dkv`` against the other checkout's (same C signatures;
+its slab sized by the keys a slot that its ``ops/flash_attention.py``
+names, 64 before the 128-key redesign); the fused route (Delta, kernel 2,
+the never-written slab rows zeroed, the f32 slab sum, the dk/dv casts) of
+each: this tree's ``_backward``, the other's as the route ran before the
+128-key redesign, on its slab; and the split route (Delta, then the dQ
+and dK/dV passes) of each; SDPA's backward (fwd+bwd less fwd) as the
+yardstick. Kernel 5 at the precision law's shape (B 4, H 8, D 128, S 520,
+pos 519) on bf16, int8 and fp8 caches and on int8 with 2 kv heads, and
+at two shapes this tree runs in one chunk (pos 63; B 33, 264 kv rows) on
+bf16 and int8: this tree's ``flash_decode_attention`` (the split it plans
+is in the row) against the other checkout's ``flash_decode_split`` on the
+same plan, or, in a checkout from before the split, its one-CTA-per-
+(sequence, kv head) ``flash_decode``; SDPA (``enable_gqa``, a boolean
+mask, on a bf16 cache of the same values) as the yardstick. The timings run in turns — other, this, this, other — and
 each output is held against the plain version first. ``--train`` runs
 ``train_app`` at the training benchmark's chip model (8 steps, dense,
 flash) in each checkout, in the same turns, and reads each run's step
@@ -59,6 +67,18 @@ ATOL, LSE_ATOL = 2e-2, 1e-3  # chip_smoke.py's PREFILL_ATOL and LSE_ATOL
 # and chip_smoke.py's BWD_RTOL (max abs error over max |plain|)
 BWD_SHAPE = (8, 2048, 8, 128)
 BWD_RTOL = 2e-2
+# kernel 5 at the precision law's shape (chip_smoke.py: LAW_PROMPTS
+# prompts of LAW_PROMPT_LEN + LAW_STEPS rows, 8 heads of 128, the last
+# row's step): (H, D, S), then (cache dtype, B, kv heads, pos) per row, q
+# bf16; the last four rows take one chunk on an H100 (132 SMs): few live
+# rows (pos 63), and B * Hkv = 264 kv rows, two CTAs an SM already;
+# chip_smoke.py's DECODE_ATOL
+DECODE_SHAPE = (8, 128, 520)
+DECODE_CASES = (("bfloat16", 4, 8, 519), ("int8", 4, 8, 519),
+                ("fp8", 4, 8, 519), ("int8", 4, 2, 519),
+                ("bfloat16", 4, 8, 63), ("int8", 4, 8, 63),
+                ("bfloat16", 33, 8, 519), ("int8", 33, 8, 519))
+DECODE_ATOL = 1e-4
 TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048",
               "--d-model", "1024", "--n-layers", "8", "--n-heads", "8",
               "--vocab", "32768", "--attention", "flash", "--device",
@@ -205,15 +225,20 @@ def _backward_row(other, other_kv_tile):
     def this_dkv(q, k, v, do, lse, delta, *_):
         return fa.flash_attention_dkv(q, k, v, do, lse, delta)
 
-    def this_route(q, k, v, do, lse, delta, out):
+    def this_dq(q, k, v, do, lse, delta, *_):
+        return (fa.flash_attention_dq(q, k, v, do, lse, delta),)
+
+    def this_route(q, k, v, do, lse, delta, out, bwd="fused"):
         return fa._backward(q, k, v, out, lse, 0, 0, do, None, causal=True,
-                            scale=None, bwd="fused")
+                            scale=None, bwd=bwd)
 
     fns = {"fused_bwd": {"this": this_fused}, "dkv": {"this": this_dkv},
-           "route_fused": {"this": this_route}}
+           "dq": {"this": this_dq}, "route_fused": {"this": this_route},
+           "route_split": {"this": lambda *a: this_route(*a, bwd="split")}}
     if other is not None:
         o_fused = fa._fn(other, "flash_attention_fused_bwd", 9, 6, 3)
         o_dkv = fa._fn(other, "flash_attention_dkv", 8, 6, 3)
+        o_dq = fa._fn(other, "flash_attention_dq", 7, 6, 3)
 
         def theirs_fused(q, k, v, do, lse, delta, *_):
             dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -235,13 +260,29 @@ def _backward_row(other, other_kv_tile):
                 "other flash_attention_dkv")
             return dk, dv
 
+        def theirs_dq(q, k, v, do, lse, delta, *_):
+            dq = torch.empty_like(q)
+            _build.check(o_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, T, H,
+                H, D, scale, 1, 0, 0, stream()), "other flash_attention_dq")
+            return (dq,)
+
         def theirs_route(q, k, v, do, lse, delta, out):
             return _fused_route(theirs_fused, q, k, v, do, lse, out,
                                 other_kv_tile)
 
+        def theirs_split(q, k, v, do, lse, delta, out):
+            # the split route as _backward runs it: Delta, then dq and dkv
+            delta = (do.float() * out).sum(-1).permute(0, 2, 1).contiguous()
+            return (*theirs_dq(q, k, v, do, lse, delta),
+                    *theirs_dkv(q, k, v, do, lse, delta))
+
         fns["fused_bwd"]["other"] = theirs_fused
         fns["dkv"]["other"] = theirs_dkv
+        fns["dq"]["other"] = theirs_dq
         fns["route_fused"]["other"] = theirs_route
+        fns["route_split"]["other"] = theirs_split
 
     # every output against the plain versions (dq through its slab: masked
     # and summed, as the route does)
@@ -260,7 +301,8 @@ def _backward_row(other, other_kv_tile):
                     slab[j, :, :r] = 0
                 dq = slab.sum(0, dtype=torch.float32).to(q.dtype)
                 got = (dq.reshape(B, H, T, D).permute(0, 2, 1, 3), *got[:2])
-            want = (w_dk, w_dv) if name == "dkv" else (w_dq, w_dk, w_dv)
+            want = {"dkv": (w_dk, w_dv), "dq": (w_dq,)}.get(
+                name, (w_dq, w_dk, w_dv))
             e = max(_rel(a, b) for a, b in zip(got, want))
             if not e <= BWD_RTOL:
                 raise RuntimeError(f"backward {name} {who}: max err / max "
@@ -290,14 +332,124 @@ def _backward_row(other, other_kv_tile):
         "fused_bwd": max((io + 2 * B * T * H * D * 2 + slab)
                          / HBM_BYTES_PER_S, 10 * tri / BF16_FLOPS_PER_S),
         "dkv": max((io + 2 * B * T * H * D * 2) / HBM_BYTES_PER_S,
-                   8 * tri / BF16_FLOPS_PER_S)}
+                   8 * tri / BF16_FLOPS_PER_S),
+        "dq": max((io + B * T * H * D * 2) / HBM_BYTES_PER_S,
+                  6 * tri / BF16_FLOPS_PER_S)}
     row = {"shape": "backward", "B": B, "T": T, "H": H, "D": D,
            "ms": times, "max_rel_err": errs,
+           "tflops": {n: {w: f * tri / (min(t) * 1e-3) / 1e12
+                          for w, t in times[n].items()}
+                      for n, f in (("fused_bwd", 10), ("dkv", 8), ("dq", 6))},
            "sdpa_bwd_ms": lib_fb - lib_fwd,
            "bound_ms": {k: v * 1e3 for k, v in bounds.items()},
            "kv_tile": {"this": fa.BWD_BLOCK_K, "other": other_kv_tile}}
     print(json.dumps(row), flush=True)
     return row
+
+
+def _decode_rows(other):
+    """Kernel 5 (``flash_decode_attention`` on the linear cache) at each
+    of :data:`DECODE_CASES`, against the other checkout's kernel
+    (``other``: its library or None; its ``flash_decode_split`` on this
+    tree's plan where it has one, else the one-CTA-per-(sequence, kv head)
+    ``flash_decode`` that came before the split), in turns, each output
+    held against the plain version first; SDPA (``enable_gqa``, a boolean
+    mask past pos, on a compute-dtype cache of the same values,
+    dequantized outside the timing) as the yardstick."""
+    from hpc_patterns_tpu_torch.models.decode import _quantize_rows
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    H, D, S = DECODE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    sms = fd._sm_count(torch.device("cuda"))
+    o_fd, split = None, False
+    if other is not None:
+        o_fd = getattr(other, "flash_decode_split", None)
+        split = o_fd is not None
+        if split:
+            o_fd.argtypes = fd._SPLIT_ARGS
+        else:
+            o_fd = other.flash_decode
+            # q, k, v, ks, vs, pos, out, B, H, Hkv, D, S, scale, q code,
+            # kv code, stream
+            o_fd.argtypes = ([ctypes.c_void_p] * 5
+                             + [ctypes.c_int, ctypes.c_void_p]
+                             + [ctypes.c_int] * 5
+                             + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p])
+        o_fd.restype = ctypes.c_int
+    rows = []
+    for kv, B, Hkv, pos in DECODE_CASES:
+        quant = kv in ("int8", "fp8")
+        esz = 1 if quant else 2
+        per = 2 * B * Hkv * S * (D * esz + 4 * quant)
+        mask = (torch.arange(S, device="cuda") <= pos)[None, None, None, :]
+        n_chunks, chunk = fd.decode_chunks(pos, B * Hkv, sms)
+        sets, lib_sets = [], []
+        for _ in range(max(2, min(32, math.ceil(150e6 / per)))):
+            q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+            kc, vc = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+                      for _ in range(2))
+            if quant:
+                (kc, ks), (vc, vs) = (_quantize_rows(kc, kv),
+                                      _quantize_rows(vc, kv))
+                kd, vd = fd.dequant(kc, ks), fd.dequant(vc, vs)
+            else:
+                kc, vc, ks, vs = kc.bfloat16(), vc.bfloat16(), None, None
+                kd, vd = kc, vc
+            sets.append((q, kc, vc, ks, vs))
+            lib_sets.append((q[:, :, None, :], kd.bfloat16(), vd.bfloat16()))
+
+        def this(q, kc, vc, ks, vs):
+            return fd.flash_decode_attention(q, kc, vc, pos, k_scale=ks,
+                                             v_scale=vs)
+
+        def theirs(q, kc, vc, ks, vs):
+            out = torch.empty(B, H, D, device="cuda")
+            head = [q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                    None if ks is None else ks.data_ptr(),
+                    None if vs is None else vs.data_ptr(), pos,
+                    out.data_ptr()]
+            if split:
+                part = torch.empty(B * H * n_chunks * (D + 2),
+                                   device="cuda")
+                head += [part.data_ptr(), n_chunks, chunk]
+            _build.check(o_fd(*head, B, H, Hkv, D, S, 1.0 / math.sqrt(D), 1,
+                              fd.KV_CODES[kc.dtype], stream()),
+                         "other flash_decode")
+            return out
+
+        fns = {"this": this}
+        if other is not None:
+            fns["other"] = theirs
+        want = fd.flash_decode_attention_reference(
+            *sets[0][:3], pos, k_scale=sets[0][3], v_scale=sets[0][4])
+        errs = {}
+        for who, fn in fns.items():
+            got = fn(*sets[0])
+            e = (got - want).abs().max().item()
+            if not e <= DECODE_ATOL:
+                raise RuntimeError(f"decode {kv} B {B} Hkv {Hkv} pos {pos} "
+                                   f"{who}: max err {e} > {DECODE_ATOL}")
+            errs[who] = e
+        order = (["other"] if other is not None else []) + ["this"]
+        times = {who: [] for who in fns}
+        for who in order + order[::-1]:
+            times[who].append(_device_ms(fns[who], sets))
+        lib = _device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                              enable_gqa=True), lib_sets)
+        nbytes = (2 * B * (pos + 1) * Hkv * (D * esz + 4 * quant)
+                  + B * H * D * 2 + B * H * D * 4)
+        row = {"shape": "decode", "kv": kv, "B": B, "H": H, "Hkv": Hkv,
+               "D": D, "S": S, "pos": pos, "n_chunks": n_chunks,
+               "chunk": chunk, "ms": times, "max_abs_err": errs,
+               "sdpa_ms": lib, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bytes": nbytes}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def _train(cwd: Path, label: str) -> dict:
@@ -333,14 +485,16 @@ def main(argv=None) -> int:
         print("bench_flash: needs an NVIDIA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = other_bwd = None
+    other = other_bwd = other_decode = None
     if args.other is not None:
         other = fa._fn(_other_lib(args.other, "flash_prefill"),
                        "flash_attention_fwd", 5, 6, 3)
         other_bwd = _other_lib(args.other, "flash_attention_bwd")
+        other_decode = _other_lib(args.other, "flash_decode")
     for shape in SHAPES:
         _shape_row(*shape, other)
     _backward_row(other_bwd, _kv_tile(args.other) if args.other else None)
+    _decode_rows(other_decode)
     if args.train:
         here = Path(__file__).resolve().parents[1]
         runs = [(args.other, "other")] if args.other is not None else []

@@ -9,7 +9,9 @@
 // probability (p_j * vscale_j) instead of rescaling the (rows, D) tile;
 // mask -1e30; out = acc / max(l, 1e-30).
 //
-// Thread layout (128 threads per CTA, one CTA per (sequence, kv head)):
+// Online's thread layout (the paged kernels; flash_decode.cu takes only
+// Vec and the constants; 128 threads per CTA, one CTA per (sequence, kv
+// head)):
 // thread (rg, cg) owns the 16-byte column slice cg of the head (4 f32,
 // 8 bf16 or 16 one-byte values) and the block rows r = rg (mod RG). The
 // g = H / Hkv query rows sharing the kv head sit in shared memory in f32;
@@ -34,7 +36,9 @@ constexpr float NEG_INF = -1e30f;
 // whatever the cache length
 constexpr int BLOCK_ROWS = 256;
 
-// one 16-byte load of cache values, widened to f32
+// one 16-byte load of cache values, widened to f32 (load); cvt widens 16
+// bytes already in registers (flash_decode.cu's split pass issues all its
+// loads of a step before it widens any)
 template <typename T>
 struct Vec;
 
@@ -45,13 +49,21 @@ struct Vec<float> {
     float4 x = *reinterpret_cast<const float4*>(p);
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   }
+  // the same widening of 16 bytes already in registers
+  __device__ static void cvt(uint4 x, float* out) {
+    out[0] = __uint_as_float(x.x); out[1] = __uint_as_float(x.y);
+    out[2] = __uint_as_float(x.z); out[3] = __uint_as_float(x.w);
+  }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
   __device__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 x = *reinterpret_cast<const uint4*>(p);
+    cvt(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // the same widening of 16 bytes already in registers
+  __device__ static void cvt(uint4 x, float* out) {
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -66,7 +78,10 @@ template <>
 struct Vec<int8_t> {
   static constexpr int N = 16;
   __device__ static void load(const int8_t* p, float* out) {
-    uint4 x = *reinterpret_cast<const uint4*>(p);
+    cvt(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // the same widening of 16 bytes already in registers
+  __device__ static void cvt(uint4 x, float* out) {
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -80,7 +95,10 @@ template <>
 struct Vec<__nv_fp8_e4m3> {
   static constexpr int N = 16;
   __device__ static void load(const __nv_fp8_e4m3* p, float* out) {
-    uint4 x = *reinterpret_cast<const uint4*>(p);
+    cvt(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // the same widening of 16 bytes already in registers
+  __device__ static void cvt(uint4 x, float* out) {
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)

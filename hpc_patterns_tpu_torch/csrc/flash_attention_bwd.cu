@@ -64,12 +64,27 @@
 // stores. With two consumer warpgroups the producer drops to 24 registers
 // and the consumers rise to 240 (setmaxnreg).
 //
-// dQ (kernel 3: dq_kernel<D>, the first version, WMMA): 8 warps per CTA,
-// 64-row q and kv tiles, WMMA 16x16x16 bf16 fragments, tiles staged in
-// shared memory with padded rows (D + 8 bf16; 64 + 4 f32); S and dP (64 x
-// 64 f32) go through shared memory for the elementwise step; the dQ
-// accumulator stays in registers as fragments. The TPU's sequential grid
-// axis (kv tiles) becomes a loop inside the CTA.
+// dQ (kernel 3: dq::dq_kernel<D>): the dK/dV template turned round, queries
+// as M. One CTA per (block of 128 queries, b*H + h), the query blocks from
+// the last (under a causal mask the longest walks start first). A producer
+// warpgroup (24 registers) loads the CTA's Q and dO tiles once and streams
+// K and V tiles of 64 keys through a ring of STAGES (3) slots; two
+// consumer warpgroups (240 registers) own 64 queries each, their lse and
+// Delta in registers, and per kv tile:
+// - S = Q K^T and dP = dO V^T: wgmma m64n64k16, both operands K-major with
+//   the TMA's swizzle;
+// - P and dS in registers (the mask, a select, only on tiles that cross
+//   the warpgroup's diagonal; Tk is a multiple of the tile, so no Tk edge);
+// - dQ += dS K: wgmma m64n{D}k16 with dS rounded to bf16 as the register A
+//   operand and K the MN-major B (kernel 1's P V), dQ in registers for the
+//   whole walk. dS never touches shared memory and the warpgroups never
+//   meet: each owns its queries outright.
+// The products of a tile overlap the previous tile's dQ product (S_j,
+// dP_j and dS_{j-1} K_{j-1} in flight together; P and dS are taken while
+// the last runs). A warpgroup stops at its own diagonal and lets the
+// other's tiles pass. dQ * scale leaves through the warpgroup's Q slot by
+// a TMA store. With Tq % 128 == 64 the last CTA's second warpgroup has no
+// queries: it loads, computes and stores nothing.
 //
 // What bounds them on the H100 at the training shape (B 8, T 2048, H 8, D
 // 128, causal): the fused kernel does 5 products of 2*64*64*128 FLOP per
@@ -78,259 +93,127 @@
 // writes: with 128-key tiles 272 of the 512 (kv tile, q tile) pairs are
 // visible, 0.285 GB of the 0.54 GB slab, 0.487 GB in all (0.145 ms at 3.35
 // TB/s): bound by the tensor cores. The dK/dV kernel: 1.38e11 FLOP, 0.139
-// ms. On an H100 80GB HBM3 at 700 W (bench_flash.py) the fused kernel
-// takes 0.367 ms (468 TF/s, 2.1x its bound) and the dK/dV one 0.248 ms
-// (555 TF/s, 1.8x): the two warpgroups meet at the dS barrier every pair,
-// so each one's elementwise work (P, dS, the dS and dQ stores) sits
-// between its own products, overlapped only by the other's. ptxas: 168
-// registers at launch (setmaxnreg lifts the consumers to 240), no
-// spills. The dQ kernel keeps the
-// simple design (single-buffered tiles, WMMA, no load/compute overlap)
-// until its own redesign.
+// ms; the dQ kernel: 3 products, 1.03e11 FLOP, 0.104 ms. On an H100 80GB
+// HBM3 at 700 W (bench_flash.py) the fused kernel takes 0.367 ms (468
+// TF/s, 2.1x its bound) and the dK/dV one 0.248 ms (555 TF/s, 1.8x): the
+// two warpgroups meet at the dS barrier every pair, so each one's
+// elementwise work (P, dS, the dS and dQ stores) sits between its own
+// products, overlapped only by the other's. ptxas: 168 registers at
+// launch (setmaxnreg moves them to the consumers), no spills.
 
-#include "hopper.cuh"  // first: cuda_bf16.h before mma.h
+#include <type_traits>
 
-#include <mma.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- dQ
+// ---------------------------------------------------------------- shared
 //
-// Kernel 3 and the helpers it uses.
+// Helpers of both templates (dK/dV and dQ) beyond hopper.cuh's.
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // key rows per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = BK + 4;  // f32 score rows (padded)
-constexpr int LDP = BK + 8;  // bf16 P / dS rows (padded)
+constexpr float LOG2E = 1.4426950408889634f;
 
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// error codes besides cudaError_t: no encode entry point, a refused map
+constexpr int ERR_NO_ENCODE = -2;
+constexpr int ERR_ENCODE = 100000;  // + the CUresult
 
+// the threads of warpgroups `count` / 128 (named barrier `id`; 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// an accumulator whose first product ignores it (scale-d 0): defined for
+// the compiler without an instruction
+template <int N>
+__device__ __forceinline__ void undefined(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
+}
+
+// the f32 fragment rounded to bf16 as wgmma's A fragments: the m64n64
+// fragment of a k16 slice is the A fragment of that slice
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// A bf16 row of D values as the TMA loads it: W columns a swizzle atom
+// (64, or D below 64), NCH atoms across, ROW_BYTES (128, 64 or 32) the
+// swizzle; SWZ_BITS the log2 of the 16-byte groups a swizzle row holds,
+// LAYOUT the wgmma descriptor's code for it. Each template's Cfg adds its
+// tiles' offsets.
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;  // padded bf16 tile row
-  // byte offsets into the dynamic shared buffer; every region 128-aligned
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + BQ * LD * 2;
-  static constexpr size_t k = dout + BQ * LD * 2;
-  static constexpr size_t v = k + BK * LD * 2;
-  static constexpr size_t s = v + BK * LD * 2;       // S, then scratch
-  static constexpr size_t dp = s + BQ * LDS * 4;     // dP (scratch, cont.)
-  static constexpr size_t p = dp + BQ * LDS * 4;
-  static constexpr size_t ds = p + BQ * LDP * 2;
-  static constexpr size_t lse = ds + BQ * LDP * 2;
-  static constexpr size_t delta = lse + BQ * 4;
-  static constexpr size_t bytes = delta + BQ * 4;
-  // the f32 staging of a 64 x D output tile (row stride D + 4) reuses S+dP
-  static_assert(64 * (D + 4) * 4 <= 2 * BQ * LDS * 4, "scratch too small");
+struct Atoms {
+  static constexpr int W = D < 64 ? D : 64;  // columns of one swizzle atom
+  static constexpr int NCH = D / W;          // atoms across a row
+  static constexpr int ROW_BYTES = W * 2;    // 32, 64 or 128: the swizzle
+  // log2 of the 16-byte groups a swizzle row holds; the wgmma layout code
+  static constexpr int SWZ_BITS =
+      ROW_BYTES == 128 ? 3 : ROW_BYTES == 64 ? 2 : 1;
+  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
 };
 
-// `rows` rows of D bf16 (global row stride `stride` elements) into smem
-// rows of `ld` elements, 16 bytes per thread per step
-template <int D>
-__device__ void load_tile(bf16* dst, int ld, const bf16* src, long stride,
-                          int rows) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
+// X = A B^T (m64n64) for 64 rows of A against 64 rows of B, both K-major
+// tiles of D columns (atoms A_CHUNK and B_CHUNK bytes apart): D / 16
+// steps of k16, 32 bytes apart inside a swizzle atom. `zero` and `one`
+// are the scale-d flags as registers defined once, before any product (no
+// register a running product reads is defined between two products). The
+// first step ignores the accumulator.
+template <class C, int D, int A_CHUNK, int B_CHUNK>
+__device__ __forceinline__ void issue_ss(float (&x)[32], uint32_t a_base,
+                                         uint32_t b_base, int zero, int one) {
+  undefined(x);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = kk * 16 % C::W * 2, c = kk * 16 / C::W;
+    wgmma_ss<64, 0, 0>(x,
+                       make_desc(a_base + c * A_CHUNK + off, 16,
+                                 8 * C::ROW_BYTES, C::LAYOUT),
+                       make_desc(b_base + c * B_CHUNK + off, 16,
+                                 8 * C::ROW_BYTES, C::LAYOUT),
+                       kk > 0 ? one : zero);
   }
+  wgmma_commit();
 }
 
-// S = Q K^T and dP = dO V^T for one (q tile, kv tile) pair, f32 into smem
-template <int D>
-__device__ void scores(const bf16* qs, const bf16* dos, const bf16* ks,
-                       const bf16* vs, float* ss, float* dps) {
-  constexpr int LD = Smem<D>::LD;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (BQ / 16) * (BK / 16); t += WARPS) {
-    const int mi = t / (BK / 16), ni = t % (BK / 16);
-    FragC s, dp;
-    wmma::fill_fragment(s, 0.f);
-    wmma::fill_fragment(dp, 0.f);
+// acc (m64n{D}) += A (m64k64, four k16 fragments in registers) B, B a
+// 64 x D tile as the MN-major operand (atoms CHUNK bytes apart): 16 rows
+// a step. The caller fences and commits.
+template <class C, int D, int CHUNK>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t b_base, int one) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBc b;
-      wmma::load_matrix_sync(a, qs + mi * 16 * LD + kk * 16, LD);
-      wmma::load_matrix_sync(b, ks + ni * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(s, a, b, s);
-      wmma::load_matrix_sync(a, dos + mi * 16 * LD + kk * 16, LD);
-      wmma::load_matrix_sync(b, vs + ni * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(dp, a, b, dp);
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<D>(acc, a[kk],
+                make_desc(b_base + kk * 16 * C::ROW_BYTES, CHUNK,
+                          8 * C::ROW_BYTES, C::LAYOUT),
+                one);
+}
+
+// an m64n{N} fragment (rows row0 + 8i, columns 8j + 2cq + e), times `mul`,
+// as bf16 into a tile of atoms `chunk` bytes apart with the swizzle of C
+template <class C, int N>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int chunk,
+                                           const float (&x)[N / 2], int row0,
+                                           int cq, float mul) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = 8 * j + 2 * cq;
+      int off = col / C::W * chunk + (row0 + 8 * i) * C::ROW_BYTES
+                + col % C::W * 2;
+      off ^= ((off >> 7) & ((1 << C::SWZ_BITS) - 1)) << 4;
+      *reinterpret_cast<uint32_t*>(dst + off) =
+          pack_bf16(x[4 * j + 2 * i] * mul, x[4 * j + 2 * i + 1] * mul);
     }
-    wmma::store_matrix_sync(ss + mi * 16 * LDS + ni * 16, s, LDS,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(dps + mi * 16 * LDS + ni * 16, dp, LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// P = exp(S * scale - lse) on visible entries (0 elsewhere) and
-// dS = P * (dP - delta), both rounded to bf16 (P only when `ps` is given)
-__device__ void softmax_grad(const float* ss, const float* dps,
-                             const float* lse_s, const float* delta_s,
-                             bf16* ps, bf16* dss, float scale, int causal,
-                             int qg0, int kg0) {
-  for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {
-    const int r = i / BK, c = i % BK;
-    const bool vis = !causal || kg0 + c <= qg0 + r;
-    const float p = vis ? expf(ss[r * LDS + c] * scale - lse_s[r]) : 0.f;
-    const float ds = p * (dps[r * LDS + c] - delta_s[r]);
-    if (ps != nullptr) ps[r * LDP + c] = __float2bfloat16(p);
-    dss[r * LDP + c] = __float2bfloat16(ds);
-  }
-}
-
-// a 64 x D f32 tile staged in smem (row stride D + 4) -> global bf16 rows
-// (row stride `stride`), times `mul`
-template <int D>
-__device__ void write_rows(bf16* dst, long stride, const float* src,
-                           float mul) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * stride + c] = __float2bfloat16(src[r * (D + 4) + c] * mul);
-  }
-}
-
-// the q-side tiles of one (q head, q tile) pair: Q, dO, lse, delta
-template <int D>
-__device__ void load_q_side(bf16* qs, bf16* dos, float* lse_s,
-                            float* delta_s, const bf16* q, const bf16* dout,
-                            const float* lse, const float* delta, int b,
-                            int h, int H, int Tq, int q0) {
-  const long stride = (long)H * D;
-  const long off = ((long)b * Tq + q0) * stride + (long)h * D;
-  load_tile<D>(qs, Smem<D>::LD, q + off, stride, BQ);
-  load_tile<D>(dos, Smem<D>::LD, dout + off, stride, BQ);
-  const long row = ((long)b * H + h) * Tq + q0;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    lse_s[i] = lse[row + i];
-    delta_s[i] = delta[row + i];
-  }
-}
-
-// dQ: one CTA per (q tile, b*H+h), walking the visible kv tiles
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int Tq, int Tk, int H, int Hkv, float scale,
-          int causal, int q_off, int k_off) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using S = Smem<D>;
-  constexpr int LD = S::LD;
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + S::dout);
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::v);
-  float* ss = reinterpret_cast<float*>(smem + S::s);
-  float* dps = reinterpret_cast<float*>(smem + S::dp);
-  bf16* dss = reinterpret_cast<bf16*>(smem + S::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + S::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + S::delta);
-  float* scratch = ss;
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = qt * BQ;
-  const int qg0 = q_off + q0;
-  const int warp = threadIdx.x / 32;
-  load_q_side<D>(qs, dos, lse_s, delta_s, q, dout, lse, delta, b, h, H, Tq,
-                 q0);
-
-  constexpr int NT = (BQ / 16) * (D / 16);
-  constexpr int TPW = (NT + WARPS - 1) / WARPS;
-  FragC dq_acc[TPW];
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) wmma::fill_fragment(dq_acc[i], 0.f);
-
-  int n_kt = Tk / BK;
-  if (causal) {
-    const int last = qg0 + BQ - 1 - k_off;
-    n_kt = last < 0 ? 0 : min(last / BK + 1, n_kt);
-  }
-  const long kv_stride = (long)Hkv * D;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K and dS are consumed
-    const long kv_off = ((long)b * Tk + k0) * kv_stride + (long)hk * D;
-    load_tile<D>(ks, LD, k + kv_off, kv_stride, BK);
-    load_tile<D>(vs, LD, v + kv_off, kv_stride, BK);
-    __syncthreads();
-    scores<D>(qs, dos, ks, vs, ss, dps);
-    __syncthreads();
-    softmax_grad(ss, dps, lse_s, delta_s, nullptr, dss, scale, causal, qg0,
-                 k_off + k0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int t = warp + i * WARPS;
-      if (t >= NT) break;
-      const int mi = t / (D / 16), ni = t % (D / 16);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, dss + mi * 16 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(bm, ks + kk * 16 * LD + ni * 16, LD);
-        wmma::mma_sync(dq_acc[i], a, bm, dq_acc[i]);
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int t = warp + i * WARPS;
-    if (t >= NT) break;
-    const int mi = t / (D / 16), ni = t % (D / 16);
-    wmma::store_matrix_sync(scratch + mi * 16 * (D + 4) + ni * 16, dq_acc[i],
-                            D + 4, wmma::mem_row_major);
-  }
-  __syncthreads();
-  const long stride = (long)H * D;
-  write_rows<D>(dq + ((long)b * Tq + q0) * stride + (long)h * D, stride,
-                scratch, scale);
-}
-
-template <typename K>
-cudaError_t prepare(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int Tq,
-              int Tk, int H, int Hkv, float scale, int causal, int q_off,
-              int k_off, cudaStream_t stream) {
-  const size_t bytes = Smem<D>::bytes;
-  cudaError_t err = prepare(dq_kernel<D>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Tq / BQ, B * H);
-  dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Tq, Tk, H, Hkv, scale, causal, q_off, k_off);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- dK/dV
@@ -346,28 +229,21 @@ constexpr int WG_KV = 64;     // keys of one consumer warpgroup
 constexpr int NWG = 2;        // consumer warpgroups
 constexpr int THREADS = (NWG + 1) * 128;
 constexpr int STAGES = 2;     // ring slots
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D, bool FUSED>
-struct Cfg {
-  static constexpr int W = D < 64 ? D : 64;  // columns of one swizzle atom
-  static constexpr int NCH = D / W;          // atoms across a row
-  static constexpr int ROW_BYTES = W * 2;    // 32, 64 or 128: the swizzle
-  // log2 of the 16-byte groups a swizzle row holds; the wgmma layout code
-  static constexpr int SWZ_BITS =
-      ROW_BYTES == 128 ? 3 : ROW_BYTES == 64 ? 2 : 1;
-  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
-  static constexpr int Q_CHUNK = Q_ROWS * ROW_BYTES;    // one atom column
-  static constexpr int Q_TILE = NCH * Q_CHUNK;          // a Q or dO tile
-  static constexpr int KV_CHUNK = KV_ROWS * ROW_BYTES;
-  static constexpr int KV_TILE = NCH * KV_CHUNK;        // K or V
-  static constexpr int WG_ROWS = WG_KV * ROW_BYTES;     // a warpgroup's keys
+struct Cfg : Atoms<D> {
+  using A = Atoms<D>;
+  static constexpr int Q_CHUNK = Q_ROWS * A::ROW_BYTES;  // one atom column
+  static constexpr int Q_TILE = A::NCH * Q_CHUNK;       // a Q or dO tile
+  static constexpr int KV_CHUNK = KV_ROWS * A::ROW_BYTES;
+  static constexpr int KV_TILE = A::NCH * KV_CHUNK;     // K or V
+  static constexpr int WG_ROWS = WG_KV * A::ROW_BYTES;  // a warpgroup's keys
   // the pair's dQ partial: one atom of D for each warpgroup at D 128, all
   // of D for one warpgroup (the pairs in turns) below it
-  static constexpr bool SPLIT = NCH == NWG;
+  static constexpr bool SPLIT = A::NCH == NWG;
   static constexpr int DQ_N = SPLIT ? D / NWG : D;
   static constexpr int DQ_BUFS = SPLIT ? 2 : 1;  // a warpgroup's staging
-  static constexpr int DQ_STAGE = DQ_N / W * Q_CHUNK;
+  static constexpr int DQ_STAGE = DQ_N / A::W * Q_CHUNK;
   static constexpr int DS_BYTES = KV_ROWS * Q_ROWS * 2;  // dS^T, bf16
   // byte offsets from the 1024-aligned base (every tile a multiple of
   // 1024 bytes, so each swizzle atom starts on its repeat)
@@ -389,59 +265,6 @@ __device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) {
 }
 __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
   return bars + 8 * (1 + STAGES + s);
-}
-
-// the threads of warpgroups `count` / 128 (named barrier `id`; 0 is
-// __syncthreads')
-__device__ __forceinline__ void named_bar(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
-}
-
-// an accumulator whose first product ignores it (scale-d 0): defined for
-// the compiler without an instruction
-template <int N>
-__device__ __forceinline__ void undefined(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
-}
-
-// X^T = A B^T for this warpgroup's 64 keys (A: its rows of K or V) against
-// the pair's 64 queries (B: the Q or dO tile), both K-major: D / 16 steps
-// of k16, 32 bytes apart inside a swizzle atom, the next atom a chunk
-// away. `zero` and `one` are the scale-d flags as registers defined once,
-// before any product (no register a running product reads is defined
-// between two products). The first step ignores the accumulator.
-template <class C, int D>
-__device__ __forceinline__ void issue_scores(float (&x)[32], uint32_t a_base,
-                                             uint32_t b_base, int zero,
-                                             int one) {
-  undefined(x);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = kk * 16 % C::W * 2, c = kk * 16 / C::W;
-    wgmma_ss<64, 0, 0>(x,
-                       make_desc(a_base + c * C::KV_CHUNK + off, 16,
-                                 8 * C::ROW_BYTES, C::LAYOUT),
-                       make_desc(b_base + c * C::Q_CHUNK + off, 16,
-                                 8 * C::ROW_BYTES, C::LAYOUT),
-                       kk > 0 ? one : zero);
-  }
-  wgmma_commit();
-}
-
-// acc (m64n{D}) += A (m64k64, four k16 fragments in registers) B, B the
-// slot's 64 x D tile (Q or dO) as the MN-major operand: 16 rows a step
-template <class C, int D>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4][4],
-                                         uint32_t b_base, int one) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<D>(acc, a[kk],
-                make_desc(b_base + kk * 16 * C::ROW_BYTES, C::Q_CHUNK,
-                          8 * C::ROW_BYTES, C::LAYOUT),
-                one);
 }
 
 // P^T in place on the S^T fragment (x[4j + 2i + e] is key row + 8i of the
@@ -467,36 +290,6 @@ __device__ __forceinline__ void probs(float (&x)[32], const float* lse_s,
         }
         x[4 * j + 2 * i + e] = p;
       }
-    }
-}
-
-// the f32 fragment rounded to bf16 as wgmma's A fragments: the m64n64
-// fragment of a k16 slice is the A fragment of that slice
-__device__ __forceinline__ void pack_a(const float (&x)[32],
-                                       uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
-// an m64n{N} fragment (rows row0 + 8i, columns 8j + 2cq + e), times `mul`,
-// as bf16 into a tile of atoms `chunk` bytes apart with the swizzle of C
-template <class C, int N>
-__device__ __forceinline__ void stage_rows(unsigned char* dst, int chunk,
-                                           const float (&x)[N / 2], int row0,
-                                           int cq, float mul) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int col = 8 * j + 2 * cq;
-      int off = col / C::W * chunk + (row0 + 8 * i) * C::ROW_BYTES
-                + col % C::W * 2;
-      off ^= ((off >> 7) & ((1 << C::SWZ_BITS) - 1)) << 4;
-      *reinterpret_cast<uint32_t*>(dst + off) =
-          pack_bf16(x[4 * j + 2 * i] * mul, x[4 * j + 2 * i + 1] * mul);
     }
 }
 
@@ -608,8 +401,10 @@ __device__ __forceinline__ void consume(
       const int qg = q_off + qi * Q_ROWS;  // the pair's first query, global
       mbar_wait(full_bar(bars, s), (p / STAGES) & 1);
       float st[32], dpt[32];
-      issue_scores<C, D>(st, k_wg, slot, zero, one);
-      issue_scores<C, D>(dpt, v_wg, slot + C::Q_TILE, zero, one);
+      // S^T = K Q^T, dP^T = V dO^T for this warpgroup's 64 keys
+      issue_ss<C, D, C::KV_CHUNK, C::Q_CHUNK>(st, k_wg, slot, zero, one);
+      issue_ss<C, D, C::KV_CHUNK, C::Q_CHUNK>(dpt, v_wg, slot + C::Q_TILE,
+                                              zero, one);
       wgmma_wait<1>();  // S^T has landed; dP^T may still run
       fence_regs(st);
       if (kwg + WG_KV > Tk || (causal && k_off + kwg + WG_KV - 1 > qg))
@@ -639,8 +434,8 @@ __device__ __forceinline__ void consume(
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
-      issue_rs<C, D>(dv, pa, slot + C::Q_TILE, one);
-      issue_rs<C, D>(dk, dsa, slot, one);
+      issue_rs<C, D, C::Q_CHUNK>(dv, pa, slot + C::Q_TILE, one);
+      issue_rs<C, D, C::Q_CHUNK>(dk, dsa, slot, one);
       wgmma_commit();
       float dq[C::DQ_N / 2];
       bool mine = false;
@@ -810,10 +605,6 @@ CUresult make_slab_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// error codes besides cudaError_t: no encode entry point, a refused map
-constexpr int ERR_NO_ENCODE = -2;
-constexpr int ERR_ENCODE = 100000;  // + the CUresult
-
 template <int D, bool FUSED>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv,
@@ -869,14 +660,323 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace dkv
 
+// ---------------------------------------------------------------- dQ
+//
+// Kernel 3 (the note at the top of the file): dkv's template turned round,
+// queries as M.
+
+namespace dq {
+
+constexpr int WG_Q = 64;              // queries of one consumer warpgroup
+constexpr int NWG = 2;                // consumer warpgroups
+constexpr int Q_ROWS = NWG * WG_Q;    // queries of a CTA
+constexpr int BK = 64;                // keys of a ring slot
+constexpr int THREADS = (NWG + 1) * 128;
+constexpr int STAGES = 3;             // ring slots
+
+template <int D>
+struct Cfg : Atoms<D> {
+  using A = Atoms<D>;
+  static constexpr int Q_CHUNK = WG_Q * A::ROW_BYTES;  // one atom column
+  static constexpr int Q_WG = A::NCH * Q_CHUNK;        // a warpgroup's Q or dO
+  static constexpr int KV_CHUNK = BK * A::ROW_BYTES;
+  static constexpr int KV_TILE = A::NCH * KV_CHUNK;    // a K or V tile
+  // byte offsets from the 1024-aligned base (every tile a multiple of
+  // 1024 bytes, so each swizzle atom starts on its repeat); a ring slot
+  // is a K tile and the V tile of the same keys
+  static constexpr int q = 0;
+  static constexpr int dout = q + NWG * Q_WG;
+  static constexpr int ring = dout + NWG * Q_WG;
+  static constexpr int bar = ring + STAGES * 2 * KV_TILE;  // q_full, ring
+  static constexpr int bytes = bar + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(bytes <= 232448, "shared memory of one CTA");
+};
+
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) {
+  return bars + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
+  return bars + 8 * (1 + STAGES + s);
+}
+
+static_assert(BK == 64, "issue_ss and issue_rs take 64-key tiles");
+
+// dQ (m64n{D}) += dS (m64k64 in registers) K, K the slot's 64 x D tile
+// as the MN-major operand
+template <class C, int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 2],
+                                         const uint32_t (&ds)[BK / 16][4],
+                                         uint32_t k_base, int one) {
+  wgmma_fence();
+  issue_rs<C, D, C::KV_CHUNK>(dq, ds, k_base, one);
+  wgmma_commit();
+}
+
+// P in place on the S fragment (x[4j + 2i + e] is query row + 8i, key
+// column 8j + 2cq + e of the tile): 2^(S scale log2e - lse log2e), 0 where
+// masked (EDGE: the key in the query's future; the only mask, since Tk is
+// a multiple of the tile). kg: the tile's first key, qg: row 0's query,
+// both global.
+template <bool EDGE>
+__device__ __forceinline__ void probs(float (&x)[BK / 2],
+                                      const float (&l2)[2], int kg, int qg,
+                                      int cq, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = exp2_ftz(fmaf(x[4 * j + 2 * i + e], scale_log2, -l2[i]));
+        if constexpr (EDGE)  // a select, no branch
+          p = kg + 8 * j + 2 * cq + e <= qg + 8 * i ? p : 0.f;
+        x[4 * j + 2 * i + e] = p;
+      }
+}
+
+// One consumer warpgroup: its 64 queries against the ring's kv tiles up
+// to its own diagonal (the CTA's others it only lets pass), dQ in
+// registers. In step j, S_j = Q K_j^T, dP_j = dO V_j^T and dQ += dS_{j-1}
+// K_{j-1} are in flight together: P_j is taken once S_j has landed, dS_j
+// once dP_j has, both while the dQ product still runs; dS_j is packed
+// (and slot j-1 released) only once that product has completed, so no
+// register a running product reads is defined (C7513).
+template <int D>
+__device__ __forceinline__ void consume(
+    const CUtensorMap* dqmap, uint32_t base, unsigned char* gbase,
+    const float* __restrict__ lse, const float* __restrict__ delta, int wg,
+    int n_kt, int q0, int bh, int b, int h, int Tq, float scale,
+    float scale_log2, int causal, int q_off, int k_off) {
+  using C = Cfg<D>;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int cq = lane % 4;
+  const int wrow = warp * 16 + lane / 4;     // row i = 0 of the fragment
+  const int qloc = q0 + wg * WG_Q + wrow;     // its query in [0, Tq)
+  const int qfirst = q_off + q0 + wg * WG_Q;  // the warpgroup's first, global
+  const uint32_t q_base = base + C::q + wg * C::Q_WG;
+  const uint32_t do_base = base + C::dout + wg * C::Q_WG;
+  const uint32_t bars = base + C::bar;
+  auto k_base = [&](int s) { return base + C::ring + s * 2 * C::KV_TILE; };
+  auto v_base = [&](int s) { return k_base(s) + C::KV_TILE; };
+  // the thread's two rows: lse (log2 domain) and Delta, read once
+  float l2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long r = (long)bh * Tq + qloc + 8 * i;
+    l2[i] = lse[r] * LOG2E;
+    dl[i] = delta[r];
+  }
+  // tiles this warpgroup reads: up to its own last row's diagonal
+  int n_wg = n_kt;
+  if (causal) {
+    const int last = qfirst + WG_Q - 1 - k_off;
+    n_wg = last < 0 ? 0 : min(last / BK + 1, n_kt);
+  }
+  const int qg = q_off + qloc;  // row i's global position: + 8 i
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float st[BK / 2], dpt[BK / 2];
+  uint32_t dsa[BK / 16][4];
+  int zero = 0, one = 1;
+  asm volatile("" : "+r"(zero), "+r"(one));
+
+  // step j (FIRST: j = 0, no dQ product of a previous tile in flight)
+  auto step = [&](int j, auto first) {
+    constexpr bool FIRST = decltype(first)::value;
+    const int s = j % STAGES, sp = (j + STAGES - 1) % STAGES;
+    const int k0 = j * BK;
+    mbar_wait(full_bar(bars, s), (j / STAGES) & 1);
+    issue_ss<C, D, C::Q_CHUNK, C::KV_CHUNK>(st, q_base, k_base(s), zero,
+                                            one);
+    issue_ss<C, D, C::Q_CHUNK, C::KV_CHUNK>(dpt, do_base, v_base(s), zero,
+                                            one);
+    if constexpr (!FIRST) issue_dq<C, D>(dq, dsa, k_base(sp), one);
+    wgmma_wait<FIRST ? 1 : 2>();  // S_j has landed
+    fence_regs(st);
+    // P, masked only where the tile crosses the warpgroup's diagonal
+    if (causal && k_off + k0 + BK - 1 > qfirst)
+      probs<true>(st, l2, k_off + k0, qg, cq, scale_log2);
+    else
+      probs<false>(st, l2, k_off + k0, qg, cq, scale_log2);
+    wgmma_wait<FIRST ? 0 : 1>();  // dP_j has landed
+    fence_regs(dpt);
+    // dS = P (dP - Delta), in place on dP
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          dpt[4 * jj + 2 * i + e] =
+              st[4 * jj + 2 * i + e] * (dpt[4 * jj + 2 * i + e] - dl[i]);
+    if constexpr (!FIRST) {
+      wgmma_wait<0>();  // dS_{j-1} K_{j-1} has completed
+      fence_regs(dq);
+      fence_regs(dsa);
+      mbar_arrive(empty_bar(bars, sp));
+    }
+    pack_a(dpt, dsa);
+  };
+
+  // the Q slot is also where dQ is staged: wait for its load in any case
+  if (n_kt > 0) mbar_wait(bars, 0);
+  if (n_wg > 0) {
+    step(0, std::true_type{});
+    for (int j = 1; j < n_wg; ++j) step(j, std::false_type{});
+    const int sl = (n_wg - 1) % STAGES;
+    issue_dq<C, D>(dq, dsa, k_base(sl), one);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dsa);
+    mbar_arrive(empty_bar(bars, sl));
+  }
+  // tiles past this warpgroup's diagonal that the other one reads: take
+  // part in their slots' phases without reading them
+  for (int j = n_wg; j < n_kt; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(full_bar(bars, s), (j / STAGES) & 1);
+    mbar_arrive(empty_bar(bars, s));
+  }
+
+  // epilogue: dQ * scale as bf16 into this warpgroup's Q slot (its last
+  // product has completed), in the swizzled layout the map expects, then
+  // one TMA store (rows past Tq never reach here: a warpgroup is all in or
+  // all out)
+  stage_rows<C, D>(gbase + C::q + wg * C::Q_WG, C::Q_CHUNK, dq, wrow, cq,
+                   scale);
+  fence_proxy_async();
+  named_bar(1 + wg, 128);
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      tma_store(dqmap, q_base + c * C::Q_CHUNK, c * C::W, h,
+                q0 + wg * WG_Q, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// dQ: one CTA per (block of 128 queries, b*H + h), the query blocks from
+// the last (under a causal mask the longest walks start first)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap domap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          const __grid_constant__ CUtensorMap dqmap,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          int Tq, int Tk, int H, int Hkv, float scale, float scale_log2,
+          int causal, int q_off, int k_off) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + C::bar;  // q_full, then the ring's
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Q_ROWS;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  // warpgroups with queries below Tq (Tq % 64 == 0: a warpgroup is all in
+  // or all out); the others load, compute and store nothing
+  const int n_live = min(NWG, (Tq - q0) / WG_Q);
+  // kv tiles up to the causal diagonal of the last live query (the Pallas
+  // kernel's clamped index map + pl.when(visible)); a block with none
+  // loads nothing and stores zeros
+  int n_kt = Tk / BK;
+  if (causal) {
+    const int last = q_off + q0 + n_live * WG_Q - 1 - k_off;
+    n_kt = last < 0 ? 0 : min(last / BK + 1, n_kt);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(bars, s), 1);
+      mbar_init(empty_bar(bars, s), n_live * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it
+  // (and all derived from it) is warp-uniform: wgmma descriptors then stay
+  // in uniform registers (ptxas would otherwise serialize the products,
+  // C7513)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == NWG) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0 && n_kt > 0) {
+      mbar_expect_tx(bars, 2 * n_live * C::Q_WG);
+      for (int w = 0; w < n_live; ++w)
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load(base + C::q + w * C::Q_WG + c * C::Q_CHUNK, &qmap,
+                   c * C::W, h, q0 + w * WG_Q, b, bars);
+          tma_load(base + C::dout + w * C::Q_WG + c * C::Q_CHUNK, &domap,
+                   c * C::W, h, q0 + w * WG_Q, b, bars);
+        }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        // each slot is refilled once the consumers released its last tile
+        if (kt >= STAGES) mbar_wait(empty_bar(bars, s), (kt / STAGES - 1) & 1);
+        const uint32_t full = full_bar(bars, s);
+        const uint32_t slot = base + C::ring + s * 2 * C::KV_TILE;
+        mbar_expect_tx(full, 2 * C::KV_TILE);
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load(slot + c * C::KV_CHUNK, &kmap, c * C::W, hk, kt * BK, b,
+                   full);
+          tma_load(slot + C::KV_TILE + c * C::KV_CHUNK, &vmap, c * C::W, hk,
+                   kt * BK, b, full);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if (wg < n_live)
+      consume<D>(&dqmap, base, gbase, lse, delta, wg, n_kt, q0, bh, b, h, Tq,
+                 scale, scale_log2, causal, q_off, k_off);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int B, int Tq,
+           int Tk, int H, int Hkv, float scale, int causal, int q_off,
+           int k_off, cudaStream_t stream) {
+  using C = Cfg<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODE;
+  CUtensorMap maps[5];
+  const CUresult rs[5] = {
+      make_map(encode, &maps[0], q, B, Tq, H, D, WG_Q),
+      make_map(encode, &maps[1], dout, B, Tq, H, D, WG_Q),
+      make_map(encode, &maps[2], k, B, Tk, Hkv, D, BK),
+      make_map(encode, &maps[3], v, B, Tk, Hkv, D, BK),
+      make_map(encode, &maps[4], dq, B, Tq, H, D, WG_Q)};
+  for (CUresult r : rs)
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Tq + Q_ROWS - 1) / Q_ROWS);
+  dq_kernel<D><<<grid, THREADS, C::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), Tq,
+      Tk, H, Hkv, scale, scale * LOG2E, causal, q_off, k_off);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dq
+
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 = launched), or -1
-// for a head_dim this build does not take; the dK/dV entry points also
-// -2 when cuTensorMapEncodeTiled cannot be reached and 100000 + the
-// CUresult of a refused tensor map. Tq and Tk must be multiples of 64
+// Each returns cudaGetLastError() after the launch (0 = launched), -1 for
+// a head_dim this build does not take, -2 when cuTensorMapEncodeTiled
+// cannot be reached and 100000 + the CUresult of a refused tensor map. Tq and Tk must be multiples of 64
 // (ops/flash_attention.py::BLOCK); the wrapper checks shapes, dtypes and
 // contiguity.
 
@@ -911,8 +1011,8 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HPCPAT_DQ(DD)                                                        \
-  return launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, H, Hkv,     \
-                       scale, causal, q_off, k_off, s)
+  return dq::launch<DD>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, H, Hkv,   \
+                        scale, causal, q_off, k_off, s)
   switch (D) {
     case 16: HPCPAT_DQ(16);
     case 32: HPCPAT_DQ(32);

@@ -11,13 +11,15 @@ Four kernels, each with its plain PyTorch version beside it:
   dK, dV and a partial-dQ slab (n_kv, B*H, Tq, D), one slot per 128-key
   tile, summed here;
 - the dQ pass and the dK/dV pass (same file; ``_dq_kernel``,
-  ``_dkv_kernel``): the split backward.
+  ``_dkv_kernel``): the split backward, a card's "auto" route.
 
 On a CUDA tensor each wrapper launches its kernel (bf16, sequence lengths
 multiples of 64, head_dim in (16, 32, 64, 128)) or raises; on a CPU tensor
 it computes its plain version. The autograd functions and the backward's
 routing (fused or split, q-chunking past the slab budget, the slab's
-masked sum) are the same code on both, so the CPU tests cover them.
+masked sum) are the same code on both, so the CPU tests cover them; only
+"auto" differs: split on a card, the JAX slab rule on the CPU
+(:func:`plan_backward`).
 
 Layouts: user tensors are (B, T, heads, D), as in JAX; lse and Delta are
 (B, H, Tq) f32 inside (the kernels' (B*H, Tq) rows) and lse is (B, Tq, H)
@@ -51,16 +53,17 @@ BLOCK = 64
 BWD_BLOCK_Q = 64
 BWD_BLOCK_K = 128
 
-#: the values of ``bwd``: None/"auto" (fused while the slab fits the
-#: budget), "fused" (one pass, 5 products per visible tile pair, the slab),
-#: "split" (dQ pass + dK/dV pass, 7 products, no slab)
+#: the values of ``bwd``: None/"auto" (on a card the split route; on the
+#: CPU fused while the slab fits the budget), "fused" (one pass, 5
+#: products per visible tile pair, the slab), "split" (dQ pass + dK/dV
+#: pass, 7 products, no slab)
 BWD_ROUTES = (None, "auto", "fused", "split")
 
 # The fused backward materializes a (n_kv, B*H, Tq, D) partial-dQ slab;
-# above this byte budget "auto" chunks the queries, then falls back to the
-# split route. The JAX module's variable and default (1.5 GiB), read the
-# same way; 0 forces the split route. The slab here is sized on this
-# port's 128-row kv tile.
+# above this byte budget the CPU's "auto" chunks the queries, then falls
+# back to the split route (a card's "auto" is always split). The JAX
+# module's variable and default (1.5 GiB), read the same way; 0 forces the
+# split route. The slab here is sized on this port's 128-row kv tile.
 _FUSED_SLAB_LIMIT = int(
     os.environ.get("HPCPAT_FLASH_BWD_SLAB_LIMIT", 3 << 29))
 
@@ -426,13 +429,22 @@ def _check_bwd(bwd) -> None:
         raise ValueError(f"bwd {bwd!r} not in {BWD_ROUTES}")
 
 
-def plan_backward(B, Tq, Tk, H, D, itemsize, bwd=None) -> dict:
-    """The backward's route at these shapes (the JAX rule, on this port's
-    tiles): the slab's bytes, the q-chunk count and whether the fused
-    kernel runs."""
+def plan_backward(B, Tq, Tk, H, D, itemsize, bwd=None, *,
+                  on_card: bool = False) -> dict:
+    """The backward's route at these shapes: the slab's bytes, the
+    q-chunk count and whether the fused kernel runs. On the CPU
+    (``on_card`` False) "auto" is the JAX rule on this port's tiles: fused
+    while the slab fits :data:`_FUSED_SLAB_LIMIT`, chunking the queries
+    past it, then split. On a card "auto" is the split route, a departure
+    from the JAX rule: with the wgmma dQ pass, Delta + dq + dkv (0.597 ms)
+    beat the fused route with its slab zeroing and f32 sum (0.971 ms) at
+    the training shape on an H100 (PERF.md), and need no slab."""
     _check_bwd(bwd)
     slab_bytes = _n_kv(Tk) * B * H * Tq * D * itemsize
     n_chunks = 1
+    if on_card and bwd in (None, "auto"):
+        return {"slab_bytes": slab_bytes, "n_chunks": 1, "fused": False,
+                "limit": _FUSED_SLAB_LIMIT}
     if bwd in (None, "auto", "fused") and slab_bytes > _FUSED_SLAB_LIMIT:
         while (slab_bytes // n_chunks > _FUSED_SLAB_LIMIT
                and n_chunks < 16
@@ -450,10 +462,12 @@ def _backward(q, k, v, o, lse, q_offset, k_offset, g, g_lse, *, causal,
     """(dq, dk, dv) for the out-cotangent ``g`` (B, Tq, H, D) and the lse
     cotangent ``g_lse`` (B, Tq, H) or None: Delta = rowsum(g * o) in f32,
     shifted by the lse cotangent (d lse / d s = P), then the route of
-    :func:`plan_backward`. The same code on a card and on the CPU."""
+    :func:`plan_backward` (whose "auto" is split on a card). The same code
+    on a card and on the CPU."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    plan = plan_backward(B, Tq, Tk, H, D, q.element_size(), bwd)
+    plan = plan_backward(B, Tq, Tk, H, D, q.element_size(), bwd,
+                         on_card=_on_card(q))
     g = g.contiguous()
     delta = (g.float() * o).sum(-1)  # f32 products of the bf16 values
     if g_lse is not None:

@@ -3,7 +3,10 @@ counterpart of ``hpc_patterns_tpu/ops/flash_decode.py``.
 
 - :func:`flash_decode_attention`: the LINEAR cache (B, Hkv, S_max, D);
   on CUDA tensors the hand-written Hopper kernel ``csrc/flash_decode.cu``
-  (replacing ``_decode_kernel``), on CPU tensors its plain version
+  (replacing ``_decode_kernel``): the live rows split over the sequence
+  in the chunks :func:`decode_chunks` plans, each chunk's partial
+  softmax merged by lse (one chunk: normalised in place, no merge); on
+  CPU tensors its plain version
   :func:`flash_decode_attention_reference`, ``decode_step``'s masked
   softmax;
 - :func:`flash_decode_paged`: the PAGED cache through a page table; on
@@ -38,10 +41,54 @@ HEAD_DIMS = (16, 32, 64, 128)
 Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
+#: ``flash_decode_split``'s C arguments: q, k, v, ks, vs, pos, out, the
+#: workspace, n_chunks, chunk, B, H, Hkv, D, S, scale, q code, kv code,
+#: stream
+_SPLIT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+               + [ctypes.c_int] * 7
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
 #: one-byte storage dtypes that carry per-row scales
 QUANTIZED = (torch.int8, torch.float8_e4m3fn)
 #: query rows per kv head the kernels take (their G_MAX)
 G_MAX = 8
+#: the linear-cache split: a chunk's rows are a multiple of CHUNK_ROWS
+#: (and at least that many), and the split aims at CTAS_PER_SM CTAs on
+#: each SM. On an H100 at the precision law's shape with 2 kv heads,
+#: 64-row chunks (9 a row) beat 16-row ones (33 a row) by about a third,
+#: the other dtypes equal (bench_flash.py, PERF.md): past a few CTAs an
+#: SM, a chunk's fixed cost (its CTA, its partial's merge) outweighs the
+#: parallelism it adds
+CHUNK_ROWS = 64
+CTAS_PER_SM = 2
+
+
+def decode_chunks(pos: int, rows: int, sms: int) -> tuple[int, int]:
+    """The linear-cache kernel's split of the live rows ``[0, pos]`` of
+    each of ``rows`` (B * Hkv) cache rows on a card of ``sms`` SMs:
+    ``(n_chunks, chunk)``, chunk i holding rows ``[i * chunk, min((i + 1)
+    * chunk, pos + 1))``. Enough chunks for :data:`CTAS_PER_SM` CTAs an
+    SM, none shorter than :data:`CHUNK_ROWS` but the last, none empty;
+    one chunk when ``rows`` alone fills the card or the rows are few."""
+    live = pos + 1
+    if live < 1 or rows < 1 or sms < 1:
+        raise ValueError(f"no rows to split: pos {pos}, rows {rows}, "
+                         f"sms {sms}")
+    want = -(-CTAS_PER_SM * sms // rows)
+    n = max(1, min(want, -(-live // CHUNK_ROWS)))
+    chunk = -(-(-(-live // n)) // CHUNK_ROWS) * CHUNK_ROWS
+    return -(-live // chunk), chunk
+
+
+_sms: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def raw(t: torch.Tensor) -> torch.Tensor:
@@ -277,10 +324,14 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, k_scale=None,
     (B, Hkv, S_max) f32; ``pos``: the shared position being decoded (a
     host int or 0-d CPU tensor; the row at ``pos`` must already hold this
     token's K/V). Returns (B, H, D) f32. The CUDA kernel streams rows
-    ``[0, pos]`` in blocks of 256 (JAX's ``block_s`` has no counterpart),
-    so its shared memory does not grow with S_max. CUDA: the Hopper
-    kernel (the dtypes, D and group sizes of :func:`flash_decode_paged`);
-    anything else raises. CPU: :func:`flash_decode_attention_reference`."""
+    ``[0, pos]`` in the chunks of :func:`decode_chunks` (JAX's
+    ``block_s`` has no counterpart), each chunk a CTA per (sequence, kv
+    head), then merges the chunks' partial softmaxes by lse from an f32
+    workspace of B * H * n_chunks * (D + 2) values; one chunk normalises
+    its rows in place and takes no workspace.
+    CUDA: the Hopper kernel (the dtypes, D and group sizes of
+    :func:`flash_decode_paged`); anything else raises. CPU:
+    :func:`flash_decode_attention_reference`."""
     _check_linear(q, k_cache, v_cache)
     quantized = check_scales(k_cache, k_scale, v_scale)
     if q.device.type == "cpu":
@@ -302,18 +353,21 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, k_scale=None,
         raise ValueError(f"pos {pos_scalar} outside the cache [0, {S})")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    fn = _build.load("flash_decode").flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    n_chunks, chunk = decode_chunks(pos_scalar, B * Hkv,
+                                    _sm_count(q.device))
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = None if n_chunks == 1 else torch.empty(
+        B * H * n_chunks * (D + 2), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_decode").flash_decode_split
+    fn.argtypes = _SPLIT_ARGS
+    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 _ptr(k_scale), _ptr(v_scale), pos_scalar, out.data_ptr(),
-                B, H, Hkv, D, S, float(scale), qc, kc, stream)
+                _ptr(part), n_chunks, chunk, B, H, Hkv, D, S, float(scale),
+                qc, kc, stream)
     _build.check(rc, "flash_decode")
     launches["flash_decode"] += 1
     return out
+

@@ -82,7 +82,8 @@ def test_flash_prefill_kernel_matches_plain(gen, T, H, Hkv, D):
 # heads, GQA, offsets with Tq != Tk both ways, rows before every key, a
 # fully-future block, non-causal, the small head dims; at D 128, Tk % 128
 # == 64 (the backward's last 128-key tile half) causal at an odd k_offset,
-# square, and non-causal
+# square, and non-causal; Tq % 128 == 64 (the dQ kernel's last 128-query
+# block half) causal at an odd q_offset, and non-causal with Tq != Tk
 FLASH_CASES = [(2, 256, 256, 8, 8, 128, 0, 0, True),
                (2, 256, 256, 8, 2, 128, 0, 0, True),
                (1, 128, 256, 4, 2, 64, 128, 0, True),
@@ -91,7 +92,9 @@ FLASH_CASES = [(2, 256, 256, 8, 8, 128, 0, 0, True),
                (1, 128, 192, 4, 1, 64, 0, 0, False),
                (1, 256, 320, 8, 2, 128, 64, 33, True),
                (2, 192, 192, 8, 8, 128, 0, 0, True),
-               (1, 128, 192, 4, 2, 128, 0, 0, False)]
+               (1, 128, 192, 4, 2, 128, 0, 0, False),
+               (2, 320, 384, 8, 2, 128, 65, 0, True),
+               (1, 192, 320, 4, 4, 64, 0, 0, False)]
 BWD_TOL = 2e-2
 
 
@@ -342,25 +345,73 @@ def test_paged_decode_kernel_all_pool_dtypes(gen, kv, H, Hkv, D, P):
         assert (got - want).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("kv", KV_DTYPES)
-@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 128), (8, 2, 128), (4, 1, 64),
-                                     (4, 4, 16), (8, 4, 32)])
-def test_flash_decode_linear_kernel_matches_plain(gen, kv, H, Hkv, D):
-    # S_max 600: three 256-row blocks, the last ragged
-    B, S = 3, 600
+def _linear_decode_positions(gen, kv, B, H, Hkv, D, S, positions):
+    """Kernel 5 at each position against its plain version, twice for
+    equal bits, one launch a call."""
     qdt = _qdtype(kv, f32_with=("int8",))
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(qdt)
     kc, ks = _cache(gen, (B, Hkv, S, D), kv, qdt)
     vc, vs = _cache(gen, (B, Hkv, S, D), kv, qdt)
-    for pos in (0, 255, 256, 511, S - 1):
+    for pos in positions:
         n = fd.launches["flash_decode"]
         got = fd.flash_decode_attention(q, kc, vc, pos, k_scale=ks,
                                         v_scale=vs)
+        again = fd.flash_decode_attention(q, kc, vc, pos, k_scale=ks,
+                                          v_scale=vs)
         torch.cuda.synchronize()
-        assert fd.launches["flash_decode"] == n + 1
+        assert fd.launches["flash_decode"] == n + 2
+        assert torch.equal(got, again), pos
         want = fd.flash_decode_attention_reference(q, kc, vc, pos,
                                                    k_scale=ks, v_scale=vs)
-        assert (got - want).abs().max().item() <= 1e-4
+        assert (got - want).abs().max().item() <= 1e-4, pos
+
+
+def _chunk_edges(pos, rows):
+    """Positions on and next to the edges of the split that ``pos``
+    gets on this card (the rows before the first edge are one chunk)."""
+    n, chunk = fd.decode_chunks(pos, rows, fd._sm_count(torch.device("cuda")))
+    edges = {chunk * i + d for i in range(1, n) for d in (-2, -1, 0)}
+    return {p for p in edges | {fd.CHUNK_ROWS - 1, fd.CHUNK_ROWS}
+            if 0 <= p <= pos}
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 128), (8, 2, 128), (4, 1, 64),
+                                     (4, 4, 16), (8, 4, 32), (8, 1, 128)])
+def test_flash_decode_linear_kernel_matches_plain(gen, kv, H, Hkv, D):
+    # S_max 600 at B 3: positions below CHUNK_ROWS run in one chunk, the
+    # rest split; the split's chunk edges at the last position (pos =
+    # k chunk - 1 ends a chunk, k chunk opens one of a single row);
+    # (8, 1, 128) is g = 8; each position twice for equal bits
+    B, S = 3, 600
+    positions = {0, 255, 256, 511, S - 1} | _chunk_edges(S - 1, B * Hkv)
+    _linear_decode_positions(gen, kv, B, H, Hkv, D, S, sorted(positions))
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 2)])
+def test_flash_decode_linear_kernel_one_chunk_at_a_full_batch(gen, kv, H,
+                                                              Hkv):
+    # enough kv rows (B * Hkv) to give every SM its CTAS_PER_SM CTAs
+    # unsplit (B 33 at Hkv 8 on 132 SMs): one chunk at every position, so
+    # each CTA walks up to 600 rows in several steps, merges its threads'
+    # states by lse and normalises in place
+    D, S = 128, 600
+    sms = fd._sm_count(torch.device("cuda"))
+    B = -(-fd.CTAS_PER_SM * sms // Hkv)
+    positions = (63, 255, 256, 511, S - 1)
+    assert all(fd.decode_chunks(p, B * Hkv, sms)[0] == 1 for p in positions)
+    _linear_decode_positions(gen, kv, B, H, Hkv, D, S, positions)
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 2)])
+def test_flash_decode_linear_kernel_long_cache(gen, kv, H, Hkv):
+    # S_max 4096 full (pos 4095: the split's longest chunks, several steps
+    # a chunk) and next to its chunk edges
+    B, D, S = 2, 128, 4096
+    positions = {S - 1} | set(sorted(_chunk_edges(S - 1, B * Hkv))[-3:])
+    _linear_decode_positions(gen, kv, B, H, Hkv, D, S, sorted(positions))
 
 
 @pytest.mark.parametrize("kv", KV_DTYPES)

@@ -214,6 +214,23 @@ def test_auto_route_follows_the_slab_limit(monkeypatch):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
+def test_card_auto_route_is_split_beside_the_cpu_slab_rule():
+    # the chip shape (B 8, T 2048, H 8, D 128, bf16): on the CPU the JAX
+    # rule (the 512 MiB slab fits 1.5 GiB: fused, unchunked); on a card
+    # "auto" is the split route; the named routes plan alike on both
+    shape = (8, 2048, 2048, 8, 128, 2)
+    assert fa.plan_backward(*shape) == {
+        "slab_bytes": 1 << 29, "n_chunks": 1, "fused": True,
+        "limit": 3 << 29}
+    for bwd in (None, "auto"):
+        assert fa.plan_backward(*shape, bwd, on_card=True) == {
+            "slab_bytes": 1 << 29, "n_chunks": 1, "fused": False,
+            "limit": 3 << 29}
+    for bwd in ("fused", "split"):
+        assert fa.plan_backward(*shape, bwd, on_card=True) == \
+            fa.plan_backward(*shape, bwd)
+
+
 def test_plain_kernel_contracts_agree():
     # the fused plain version's slab, masked by select and summed, is the
     # dq pass; its dk/dv are the dkv pass; never-written slots are NaN.

@@ -177,3 +177,89 @@ def test_paged_scale_branch_matches_jax(kv, H, Hkv):
                                     k_scale_pool=tks, v_scale_pool=tvs,
                                     pages_per_step=2)
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def _chunk_positions(S_max, rows, sms):
+    """0, the smallest chunks' edges, S_max - 1, and every edge (and its
+    neighbours) of the split S_max - 1 gets."""
+    n, chunk = fd.decode_chunks(S_max - 1, rows, sms)
+    edges = {chunk * i + d for i in range(1, n) for d in (-1, 0, 1)}
+    small = {fd.CHUNK_ROWS - 1, fd.CHUNK_ROWS, fd.CHUNK_ROWS + 1}
+    return sorted(p for p in {0, 1, S_max - 2, S_max - 1} | edges | small
+                  if 0 <= p < S_max)
+
+
+@pytest.mark.parametrize("S_max,rows,sms", [(520, 32, 132), (520, 8, 132),
+                                            (4096, 4, 132), (4096, 2, 132),
+                                            (600, 24, 132), (600, 1000, 132),
+                                            (200, 2, 16), (40, 2, 16)])
+def test_decode_chunks_cover_the_live_rows_once(S_max, rows, sms):
+    for pos in _chunk_positions(S_max, rows, sms):
+        n, chunk = fd.decode_chunks(pos, rows, sms)
+        spans = [(i * chunk, min((i + 1) * chunk, pos + 1)) for i in range(n)]
+        # every live row in exactly one chunk, in order, none empty
+        assert [r for lo, hi in spans for r in range(lo, hi)] == \
+            list(range(pos + 1)), (pos, n, chunk)
+        assert all(lo < hi for lo, hi in spans), (pos, n, chunk)
+        assert chunk % fd.CHUNK_ROWS == 0
+        # no more chunks than the CTAs the split aims at need
+        assert n == 1 or (n - 1) * rows < fd.CTAS_PER_SM * sms
+
+
+def test_decode_chunks_at_the_precision_law_shape():
+    # B 4 x Hkv 8 (Hkv 2) cache rows at pos 519 on a 132-SM card: 9 chunks
+    # of 64 rows, 288 (72) CTAs; a card-filling batch or a short fill is
+    # one chunk; nothing to split raises
+    assert fd.decode_chunks(519, 32, 132) == (9, 64)
+    assert fd.decode_chunks(519, 8, 132) == (9, 64)
+    assert fd.decode_chunks(519, 264, 132) == (1, 576)
+    assert fd.decode_chunks(63, 32, 132) == (1, 64)
+    assert fd.decode_chunks(64, 32, 132) == (2, 64)
+    assert fd.decode_chunks(0, 32, 132) == (1, 64)
+    with pytest.raises(ValueError, match="no rows"):
+        fd.decode_chunks(-1, 32, 132)
+
+
+def _split_model(q, k, v, pos, n, chunk, scale):
+    """The split kernel's algebra in plain torch (f32): each chunk's
+    unnormalised softmax (m, l, acc) over its rows, then the merge by lse
+    in chunk order, out = sum acc_i e^(m_i - m*) / max(sum l_i e^(m_i -
+    m*), 1e-30)."""
+    B, H, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    parts = []
+    for i in range(n):
+        lo, hi = i * chunk, min((i + 1) * chunk, pos + 1)
+        s = torch.einsum("bkgd,bksd->bkgs", qg, k[:, :, lo:hi]) * scale
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgs,bksd->bkgd", p, v[:, :, lo:hi])))
+    m_star = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = sum(li * torch.exp(mi - m_star) for mi, li, _ in parts)
+    acc = sum(ai * torch.exp(mi - m_star)[..., None] for mi, _, ai in parts)
+    return (acc / l.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+
+
+@GROUPS
+def test_lse_merge_of_the_split_matches_jax_at_chunk_edges(H, Hkv):
+    # the chunking algebra on the planner's splits, not the kernel (which
+    # the cuda-marked tests hold against its plain version): a 16-SM
+    # card's split of a 200-row cache, up to 4 chunks of 64 rows
+    rng = np.random.default_rng(70 + H + Hkv)
+    B, S, D, sms = 2, 200, 16, 16
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, S, D), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, S, D), dtype=np.float32)
+    splits = set()
+    for pos in _chunk_positions(S, B * Hkv, sms):
+        n, chunk = fd.decode_chunks(pos, B * Hkv, sms)
+        splits.add(n)
+        want = np.asarray(jax_flash_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos),
+            interpret=True))
+        got = _split_model(*map(torch.from_numpy, (q, k, v)), pos, n, chunk,
+                           1.0 / D ** 0.5)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    assert {1, 2, 3, 4} <= splits
