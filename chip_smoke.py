@@ -15,9 +15,11 @@ Phases, each printing JSON lines:
               (``cuobjdump -sass``), print each kernel's registers and
               spills, and fail if a library holds no HGMMA (they must run
               on wgmma), if the fused MLP's holds cp.async (LDGSTS), if
-              any kernel of the fused MLP's, the backward's (kernels 2-4)
-              or the linear decode's (kernel 5, whose registers and
-              spills are printed too) spills, or if ptxas serialized the
+              any kernel of the fused MLP's, the backward's (kernels 2-4),
+              the linear decode's (kernel 5), the all-gather matmul's
+              (kernel 12) or the migration exchange's (kernel 13; the
+              registers and spills of the last three are printed too)
+              spills, or if ptxas serialized the
               wgmma of any kernel of the three (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
@@ -31,7 +33,10 @@ Phases, each printing JSON lines:
               one twice for equal bits, with the chunks it split the rows
               into and SDPA's time on each dtype's values, and at two
               shapes it must run in one chunk: pos 63, and B 33 on 132
-              SMs); kernel 13,
+              SMs); kernel 12, the all-gather matmul, within its stated
+              bound (a TF32 product as the control that must fail it),
+              twice for equal bits, with its launch plan (tile, CTAs a
+              rank, waves); kernel 13,
               the migration exchange, byte for byte (uint8 views) against
               its plain version on the plane row's bf16 K/V pages (8 kv
               heads, page 256, D 128) at 1, 2, 5 (a ragged last chunk)
@@ -241,9 +246,11 @@ TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 HOPPER_SOURCES = ("flash_prefill", "flash_attention_bwd", "fused_mlp")
 # the kernels that must not spill, by source and name prefix: every one of
-# the fused MLP's, the attention backward's (kernels 2-4) and the linear
-# decode's (kernel 5: both passes)
-NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "", "flash_decode": ""}
+# the fused MLP's, the attention backward's (kernels 2-4), the linear
+# decode's (kernel 5: both passes), the all-gather matmul's (kernel 12:
+# every dtype and route) and the migration exchange's (kernel 13)
+NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "", "flash_decode": "",
+            "fused_ring": "allgather_matmul_kernel", "migration_dma": ""}
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -1283,8 +1290,13 @@ def allgather_matmul_case(gen):
             for _ in range(n_sets(per))]
     x, w = sets[0]
     got = fused.allgather_matmul(x, w)
+    again = fused.allgather_matmul(x, w)
     want = fused.allgather_matmul_reference(x, w)
     fused.synchronize()
+    check(torch.equal(got, again), f"allgather_matmul {AGMM_SHAPE} x {W}: "
+          "two calls give equal bits")
+    bm, bn, G, waves = fused.agmm_plan(W, m, n, fused._capacity(
+        "allgather_matmul", 0))
     diff = (got - want).abs()
     # the stated bound (fused.allgather_matmul_tolerance): two f32 orders
     # of the k-sum; the control is the same product with TF32 inputs,
@@ -1322,7 +1334,10 @@ def allgather_matmul_case(gen):
     b_ms, b_by = bound(per + W * W * m * n * 4, flops, F32_FLOPS_PER_S)
     row = {"phase": "kernel", "name": "allgather_matmul",
            "shape": {"ranks": W, "m": m, "k": k, "n": n, "dtype": "float32"},
-           "checked": {"bf16": list(AGMM_SHAPE), "int32": [3, 16, 8]},
+           "checked": {"bf16": list(AGMM_SHAPE), "int32": [3, 16, 8],
+                       "equal_bits": True},
+           "launch_plan": {"tile": [bm, bn], "ctas_a_rank": G,
+                           "ctas": W * G, "waves": waves},
            "max_abs_err": diff.max().item(), "tol": tol.max().item(),
            "max_err_over_bound": (diff / tol).max().item(),
            "tf32_control": {"max_abs_err": tf32.max().item(),
@@ -1457,6 +1472,9 @@ def migration_case(gen):
                      "page": list(MIGRATION_PAGE), "dtype": "bfloat16",
                      "bytes": nbytes, "page_chunk": md.PAGE_CHUNK},
            "checked": checked, "budget_refused": refused,
+           "senders": md._senders(dev, min(md.PAGE_CHUNK,
+                                           MIGRATION_TIMED_PAGES)
+                                  * math.prod(MIGRATION_PAGE) * 2),
            "max_abs_err": 0.0, "tol": 0.0, "ms": ms, "plain_ms": plain,
            "library_ms": lib, "library": "landing.copy_(x)",
            "bound_ms": b_ms, "bound_by": b_by, "input_sets": len(sets)}
@@ -2522,7 +2540,7 @@ def main() -> int:
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:570",
          "launches": launches_comm["allgather_matmul"],
-         **{k: agmm_row[k] for k in keys}},
+         **{k: agmm_row[k] for k in keys + ("launch_plan",)}},
         {"name": "fused_permute", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:335",

@@ -63,6 +63,11 @@ KERNEL_EPILOGUES = {None: 0, "relu": 1}
 #: aborts and :func:`synchronize` raises)
 SPIN_TIMEOUT_NS = 1_000_000_000
 
+#: the all-gather matmul kernel's output tile (rows, columns): each CTA
+#: owns one tile of its rank for every ring step (csrc/fused_ring.cu's
+#: AG_BM, AG_BN)
+AGMM_TILE = (128, 64)
+
 #: kernel launches in this process, by kernel (the main-path witness)
 launches = {"fused_allreduce": 0, "allgather_matmul": 0, "fused_permute": 0}
 
@@ -77,9 +82,8 @@ _STATUS = {1: "allreduce reduce-scatter phase", 2: "allreduce gather phase",
 # earlier shape stay allocated. Launches that share an entry must run in
 # order (one stream), as the epochs count them.
 _scratch: dict = {}
-# co-resident CTAs per (kernel, dtype code, device): the occupancy query
-# costs host time on every call otherwise
-_capacity: dict = {}
+# co-resident CTAs per (kernel, dtype code, device)
+_capacity_cache: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +230,8 @@ def _lib():
         lib.allgather_matmul.restype = i
         lib.fused_permute.argtypes = [vp, vp, vp, vp, vp, u, i, ll, i, ll, vp]
         lib.fused_permute.restype = i
+        lib.allgather_matmul_config.argtypes = [ctypes.POINTER(i)]
+        lib.allgather_matmul_config.restype = None
         _build.check(lib.fused_ring_init(), "fused_ring_init")
         lib._fused_ring_ready = True
     return lib
@@ -251,22 +257,35 @@ def synchronize(device=None) -> None:
         _raise_on_status(_lib())
 
 
-def _grid(kernel: str, dtype_code: int, ranks: int, work_units: int) -> int:
-    """CTAs per rank: as many as are co-resident for all ranks at once
-    (the cooperative launch's ceiling), but no more than the work needs."""
+def _capacity(kernel: str, dtype_code: int) -> int:
+    """Co-resident CTAs of ``kernel`` on the current device (the
+    cooperative launch's ceiling), asked once per (kernel, dtype,
+    device): the occupancy query costs host time on every call
+    otherwise."""
     key = (kernel, dtype_code, torch.cuda.current_device())
-    cap = _capacity.get(key)
+    cap = _capacity_cache.get(key)
     if cap is None:
         c = ctypes.c_int(0)
         _build.check(_lib().fused_ring_capacity(_KERNEL_IDS[kernel],
                                                 dtype_code, ctypes.byref(c)),
                      "fused_ring_capacity")
-        cap = _capacity[key] = c.value
-    per_rank = cap // ranks
+        cap = _capacity_cache[key] = c.value
+    return cap
+
+
+def _per_rank(kernel: str, capacity: int, ranks: int) -> int:
+    per_rank = capacity // ranks
     if per_rank < 1:
         raise ValueError(
-            f"{ranks} ranks exceed the {cap} co-resident CTAs of the "
+            f"{ranks} ranks exceed the {capacity} co-resident CTAs of the "
             f"{kernel} kernel")
+    return per_rank
+
+
+def _grid(kernel: str, dtype_code: int, ranks: int, work_units: int) -> int:
+    """CTAs per rank: as many as are co-resident for all ranks at once
+    (the cooperative launch's ceiling), but no more than the work needs."""
+    per_rank = _per_rank(kernel, _capacity(kernel, dtype_code), ranks)
     return max(1, min(per_rank, work_units))
 
 
@@ -463,6 +482,20 @@ def allgather_matmul_tolerance(x: torch.Tensor, w: torch.Tensor,
     return tol
 
 
+def agmm_plan(total: int, m: int, n: int, capacity: int
+              ) -> tuple[int, int, int, int]:
+    """The all-gather matmul's launch plan: ``(BM, BN, G, waves)``. Each
+    rank's (m, n) product is cut into :data:`AGMM_TILE` tiles; ``G``
+    CTAs a rank (all ``total * G`` co-resident, within ``capacity``) each
+    own ``waves`` of them at every ring step, so ``waves`` is 1 when the
+    grid holds a CTA per tile. Raises when the card cannot hold one CTA
+    per rank."""
+    bm, bn = AGMM_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    G = max(1, min(_per_rank("allgather_matmul", capacity, total), tiles))
+    return bm, bn, G, -(-tiles // G)
+
+
 def allgather_matmul(x: torch.Tensor, w: torch.Tensor, *,
                      geometry: RingGeometry | None = None) -> torch.Tensor:
     """``all_gather(x) @ w`` with the gather ring inside the kernel: each
@@ -492,8 +525,7 @@ def allgather_matmul(x: torch.Tensor, w: torch.Tensor, *,
     _raise_on_status(lib)
     x = x.contiguous()
     w = w.contiguous()
-    blocks = -(-m // 64) * -(-n // 64)
-    G = _grid("allgather_matmul", code, g.total, blocks)
+    _, _, G, _ = agmm_plan(g.total, m, n, _capacity("allgather_matmul", code))
     S = g.size - 1
 
     def make():

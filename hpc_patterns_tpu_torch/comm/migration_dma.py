@@ -8,9 +8,10 @@ Pallas SPMD program over ``[src, dst]`` remote-DMAs the pages chunk by
 chunk into the destination chip; on one H100 the two replicas are two
 *logical ranks* of one card (:class:`~hpc_patterns_tpu_torch.topology.
 LogicalDevice`), and ``csrc/migration_dma.cu`` runs both as one
-cooperative launch — sender CTAs copy each chunk into the destination's
-landing tensor and release that chunk's flags, a receiver CTA acquires
-every flag before the kernel returns. The TPU kernel's byte-inert
+ordinary launch — sender CTAs copy each chunk into the destination's
+landing tensor and arrive on that chunk's counter, and the sender whose
+arrival completes the last chunk acquires every arrival and counts the
+launch as landed; no CTA waits on another. The TPU kernel's byte-inert
 back-copy (dst -> src) is skipped.
 
 - :func:`migration_exchange` — the kernel's wrapper: an ``(n_pages,
@@ -25,9 +26,10 @@ back-copy (dst -> src) is skipped.
 Fallback signals (:class:`MigrationDmaError`, which the router's
 transport ladder catches): :func:`dma_reachable`'s refusal and the byte
 budget, both checked before any launch. A kernel fault — a failed
-build, a refused launch, a timed-out spin — raises a plain
-``RuntimeError``, which the ladder does not catch: a broken kernel must
-not turn into a quiet ``device_put``.
+build, a refused launch, a launch that never landed (:func:`synchronize`
+reads the landed count) — raises a plain ``RuntimeError``, which the
+ladder does not catch: a broken kernel must not turn into a quiet
+``device_put``.
 
 The byte budget is the port's own (the TPU's was the VMEM that held the
 slab and its output). The exchange allocates each slab's landing tensor
@@ -40,10 +42,10 @@ array, at the plane benchmark's shape) — so a transient stays a small,
 bounded share of the card's 80 GB, and a slab past it goes by the ladder
 to a transport that moves it without a second whole copy in flight.
 
-Flags and streams: one flag buffer per device serves one launch in
-flight — every exchange runs on the current stream, in order, so the
+Counters and streams: one counter buffer per device serves one launch
+in flight — every exchange runs on the current stream, in order, so the
 install that consumes a landing tensor is ordered behind the launch that
-wrote it.
+wrote it, and a launch's counters are zeroed by the launch before it.
 """
 
 from __future__ import annotations
@@ -60,30 +62,22 @@ from hpc_patterns_tpu_torch.ops.flash_decode import raw
 from hpc_patterns_tpu_torch.topology import LogicalDevice
 
 #: pages per chunk (the TPU kernel's DMA unit): each chunk has its own
-#: flags, so a receiver sees chunk c land while later chunks still fly
+#: arrival counter, which its senders release as they finish their share
 PAGE_CHUNK = 4
 
 #: one slab's byte budget (see the module docstring)
 LANDING_LIMIT = 256 * 1024 * 1024
 
-#: a receiver spin gives up after this long (the launch then aborts and
-#: the next wrapper call, :func:`synchronize` or :func:`recv_migration`
-#: raises)
-SPIN_TIMEOUT_NS = 1_000_000_000
-
 #: kernel launches in this process (the main-path witness)
 launches = {"migration_exchange": 0}
 
 _THREADS = 256
-#: 16-byte vectors a sender thread copies per chunk (sizes the senders)
-_VECTORS_PER_THREAD = 2
 
-# per device: the flag buffer (grown, never shrunk; every launch takes a
-# new epoch, so a stale flag of any earlier launch never matches), the
-# abort word and the epoch
+# per device: the two counter sets (grown, never shrunk), the landed
+# count the kernel keeps, the epoch and the launches the host made
 _scratch: dict = {}
-# co-resident CTAs per device
-_capacity: dict = {}
+# SMs per device
+_sms: dict = {}
 # what each exchange landed where: id(tensor) -> (weakref, LogicalDevice);
 # on one card every tensor is "on cuda:0", so the logical destination
 # rank can only come from this record
@@ -165,58 +159,67 @@ def _lib():
     if not getattr(lib, "_migration_dma_ready", False):
         vp, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_uint)
-        lib.migration_dma_init.restype = i
-        lib.migration_dma_status.restype = u
-        lib.migration_dma_clear_status.restype = None
-        lib.migration_dma_capacity.argtypes = [ctypes.POINTER(i)]
-        lib.migration_dma_capacity.restype = i
         lib.migration_exchange.argtypes = [vp, vp, vp, vp, u, ll, ll, i, i,
-                                           i, ll, vp]
+                                           i, i, vp]
         lib.migration_exchange.restype = i
-        _build.check(lib.migration_dma_init(), "migration_dma_init")
         lib._migration_dma_ready = True
     return lib
 
 
-def _raise_on_status(lib) -> None:
-    code = lib.migration_dma_status()
-    if code:
-        lib.migration_dma_clear_status()
-        raise RuntimeError(
-            "migration exchange kernel: the receiver's spin timed out (a "
-            "sender never released its chunk flag); the launch aborted")
+def _cuda_device(device=None) -> torch.device:
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dev if dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
 
 
 def synchronize(device=None) -> None:
-    """Wait for the card, then raise if an exchange launch timed out."""
-    torch.cuda.synchronize(device)
-    if _build.is_loaded("migration_dma"):
-        _raise_on_status(_lib())
+    """Wait for the card, then raise ``RuntimeError`` if an exchange
+    launched on it since the last check never landed (a sender CTA never
+    arrived). The check re-bases the count and zeroes the counters, so the
+    next launch is judged afresh."""
+    dev = _cuda_device(device)
+    torch.cuda.synchronize(dev)
+    s = _scratch.get(dev)
+    if s is None:
+        return
+    landed = int(s["landed"].item()) & 0xFFFFFFFF
+    missing = (s["launched"] - landed) & 0xFFFFFFFF
+    if missing:
+        s["launched"] = landed
+        s["counters"].zero_()
+        raise RuntimeError(
+            f"migration exchange kernel: {missing} launch(es) never landed "
+            "(a sender CTA never arrived on its chunk counter)")
+
+
+def sender_plan(chunk_bytes: int, sms: int) -> int:
+    """Sender CTAs of one exchange: one 16-byte vector a thread or more,
+    at most one CTA an SM (each thread then has all its vectors in
+    flight at once)."""
+    return max(1, min(sms, math.ceil(chunk_bytes / (16 * _THREADS))))
 
 
 def _senders(device: torch.device, chunk_bytes: int) -> int:
-    """Sender CTAs: enough for ``_VECTORS_PER_THREAD`` vectors a thread
-    per chunk, at most the co-resident CTAs less the receiver."""
-    cap = _capacity.get(device)
-    if cap is None:
-        c = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _build.check(_lib().migration_dma_capacity(ctypes.byref(c)),
-                         "migration_dma_capacity")
-        cap = _capacity[device] = c.value
-    want = math.ceil(chunk_bytes / (16 * _THREADS * _VECTORS_PER_THREAD))
-    return max(1, min(cap - 1, want))
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sender_plan(chunk_bytes, sms)
 
 
-def _flags(device: torch.device, n: int) -> dict:
+def _counters(device: torch.device, chunks: int) -> dict:
+    """The device's scratch with room for ``chunks`` counters a set, its
+    epoch advanced for one launch."""
     s = _scratch.get(device)
-    if s is None or s["flags"].numel() < n:
-        size = max(n, 2 * s["flags"].numel() if s else 0)
+    if s is None:
         s = _scratch[device] = {
-            "flags": torch.zeros(size, dtype=torch.int32, device=device),
-            "abort": torch.zeros(1, dtype=torch.int32, device=device),
-            "epoch": s["epoch"] if s else 0}
-    s["epoch"] = (s["epoch"] + 1) & 0xFFFFFFFF or 1
+            "landed": torch.zeros(1, dtype=torch.int32, device=device),
+            "counters": None, "set_words": 0, "epoch": 0, "launched": 0}
+    if s["set_words"] < chunks:
+        s["set_words"] = max(chunks, 2 * s["set_words"])
+        s["counters"] = torch.zeros(2 * s["set_words"], dtype=torch.int32,
+                                    device=device)
+    s["epoch"] = (s["epoch"] + 1) & 0xFFFFFFFF
     return s
 
 
@@ -226,9 +229,10 @@ def migration_exchange(x: torch.Tensor, page_chunk: int = PAGE_CHUNK, *,
     into a new landing slab of the same shape and dtype, byte for byte.
     CUDA: the kernel (any dtype; raises :class:`MigrationDmaError` past
     :data:`LANDING_LIMIT` before launching, ``RuntimeError`` if the launch
-    fails). CPU: :func:`migration_exchange_reference`.
+    fails; :func:`synchronize` raises ``RuntimeError`` for a launch that
+    never landed). CPU: :func:`migration_exchange_reference`.
     ``senders_launched`` (card tests only) launches fewer sender CTAs
-    than the receiver waits on, to prove the spin times out."""
+    than each chunk waits for, to prove a missing sender is caught."""
     _check_slab(x)
     if x.device.type == "cpu":
         return migration_exchange_reference(x, page_chunk)
@@ -237,7 +241,6 @@ def migration_exchange(x: torch.Tensor, page_chunk: int = PAGE_CHUNK, *,
     if page_chunk < 1:
         raise ValueError(f"page_chunk must be >= 1, got {page_chunk}")
     lib = _lib()
-    _raise_on_status(lib)
     x = x.contiguous()
     n_pages = x.shape[0]
     row_bytes = x.shape[1] * x.element_size()
@@ -247,14 +250,15 @@ def migration_exchange(x: torch.Tensor, page_chunk: int = PAGE_CHUNK, *,
     chunks = -(-n_pages // page_chunk)
     G = _senders(x.device, min(page_chunk, n_pages) * row_bytes)
     launched = G if senders_launched is None else int(senders_launched)
-    s = _flags(x.device, chunks * G)
+    s = _counters(x.device, chunks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.migration_exchange(
-            x.data_ptr(), landing.data_ptr(), s["flags"].data_ptr(),
-            s["abort"].data_ptr(), s["epoch"], n_pages, row_bytes,
-            page_chunk, G, launched, SPIN_TIMEOUT_NS, stream)
+            x.data_ptr(), landing.data_ptr(), s["counters"].data_ptr(),
+            s["landed"].data_ptr(), s["epoch"], n_pages, row_bytes,
+            page_chunk, s["set_words"], G, launched, stream)
     _build.check(rc, "migration_exchange")
+    s["launched"] = (s["launched"] + 1) & 0xFFFFFFFF
     launches["migration_exchange"] += 1
     return landing
 
@@ -329,8 +333,8 @@ def recv_migration(bundle, device):
     DMA transport, and every payload array must have been landed by an
     exchange on the installing replica's endpoint — its physical device
     AND its logical rank (on one card the device alone proves nothing).
-    Metadata only: no readback. A timed-out earlier exchange raises
-    ``RuntimeError`` here."""
+    Metadata only: no readback (an exchange that never landed raises
+    ``RuntimeError`` from :func:`synchronize`)."""
     if bundle.transport != "dma":
         raise MigrationDmaError(
             f"bundle seq {bundle.seq} arrived with "
@@ -338,8 +342,6 @@ def recv_migration(bundle, device):
     if device is None:
         raise MigrationDmaError(
             "installing replica has no committed device")
-    if _build.is_loaded("migration_dma"):
-        _raise_on_status(_lib())
     dst = _as_logical(device)
     phys, _ = endpoint(dst)
     for name, arrs in bundle.pages_payload.items():

@@ -42,10 +42,21 @@
 // independent, so CTA (rank, g) runs its own two-phase ring over stripe g
 // of every chunk, with one flag per (rank, stripe, phase, step) and no
 // grid-wide barrier, and moves 16-byte vectors. allgather_matmul is bound
-// by its f32 FMAs (67 TF/s outside the tensor cores); the kernel is a
-// plain shared-memory-tiled FFMA product (64x64 output blocks, k tiles of
-// 16, 4x4 outputs a thread), no TF32 and no tensor cores, so that an f32
-// input keeps its precision class.
+// by its f32 FMAs (67 TF/s outside the tensor cores; 0.128 ms at the bench
+// shape, 256 x 1024 x 1024 per rank x 4 ranks), and it keeps an f32 input
+// in its precision class: no TF32, no tensor cores. It is a register-blocked
+// FFMA GEMM whose CTAs each own one 128 x 64 output tile of their rank for
+// all the ring's steps, so a CTA's W column panel stays hot in L2 from step
+// to step, and 4 ranks x 32 tiles are one wave of 128 CTAs on the 132 SMs.
+// Each thread holds 8 x 8 accumulators and reads both operands from
+// shared memory as float4 (one LDS.128 per 16 FFMA); two groups of 128
+// threads split every k tile and add their partial sums in a fixed order,
+// so two calls give equal bits. k tiles of 32 stream through a 4-stage
+// ring with cp.async.cg (16 bytes, L2 only: the arrived shard, which other
+// CTAs wrote, is read after the acquire and never through L1), so three
+// tiles load while one computes. bf16, int32 and rows that are not whole
+// 16-byte vectors take the same products through a register route that
+// widens each element to f32 on its way into shared memory.
 //
 // Exactness: the allreduce's adds are mine + incoming in the chunk order of
 // ring.ring_allreduce_chunked; the bf16 add is __float2bfloat16_rn(float(a)
@@ -298,7 +309,40 @@ fused_allreduce_kernel(RingArgs a, Sync sync) {
 // allgather_matmul
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 16;
+// The product: one CTA owns an AG_BM x AG_BN output tile of its rank for
+// every ring step (several tiles when the grid is short of them). Its
+// two groups (AG_KSPLIT) of AG_GROUP threads each take half of every k
+// tile and add their partial sums in a fixed order once a tile; thread
+// (ty, tx) of a group owns rows ty + 16 i (i < 8) and columns tx*4 + j,
+// 32 + tx*4 + j (j < 4): 8 x 8 f32 accumulators. k tiles of A (m-major,
+// rows padded to AG_LDA so that the four rows a warp reads at once sit on
+// distinct banks) and W (k-major) stream through an AG_STAGES ring. Both
+// reach registers as float4: per 4 k steps a thread reads each of its 8
+// rows once and W's 8 columns of each step once, one LDS.128 per 16 FFMA;
+// 86% of the main loop's instructions are FFMA. Each thread's cp.async
+// sources are set once a tile, so a k tile costs it 6 cp.async and a few
+// adds. What still bounds it is the FFMA stream as nvcc schedules it (two
+// warps a scheduler): on the H100 the products run as slowly with their
+// shared-memory loads taken out as with them (PERF.md, PR 12).
+constexpr int AG_BM = 128, AG_BN = 64, AG_BK = 32, AG_STAGES = 4;
+constexpr int AG_GROUP = 128, AG_KSPLIT = 2, AG_TM = 8;
+constexpr int AG_THREADS = AG_GROUP * AG_KSPLIT;
+constexpr int AG_LDA = AG_BK + 4;
+constexpr int AG_A_FLOATS = AG_BM * AG_LDA;
+constexpr int AG_STAGE_FLOATS = AG_A_FLOATS + AG_BK * AG_BN;
+constexpr int AG_SMEM = AG_STAGES * AG_STAGE_FLOATS * 4;  // 106,496 bytes
+// 16-byte chunks each thread copies a tile (cp.async route), and elements
+// it widens a tile (the register route)
+constexpr int AG_A_CHUNKS = AG_BM * AG_BK / 4 / AG_THREADS;
+constexpr int AG_B_CHUNKS = AG_BK * AG_BN / 4 / AG_THREADS;
+constexpr int AG_A_PER = AG_BM * AG_BK / AG_THREADS, AG_B_PER = AG_BK * AG_BN / AG_THREADS;
+static_assert(AG_BK % (4 * AG_KSPLIT) == 0, "each group takes whole float4s of k");
+static_assert(AG_GROUP * AG_TM * 8 == AG_BM * AG_BN, "a group covers the tile");
+constexpr int AG_ROW_STEP = AG_GROUP / 8;  // a thread's rows: ty + AG_ROW_STEP * i
+static_assert(AG_THREADS % (AG_BK / 4) == 0 && AG_THREADS % (AG_BN / 4) == 0,
+              "a thread copies one column chunk of A and of W");
+static_assert(AG_KSPLIT == 2 && AG_GROUP * AG_TM * 8 <= AG_STAGES * AG_STAGE_FLOATS,
+              "two groups, whose partial sums fit the ring");
 
 struct AgmmArgs {
   const void* x;      // (total, m, k)
@@ -318,68 +362,250 @@ __device__ void copy_stripe(const void* src, void* dst, long long bytes, int g, 
   const long long e1 = e0 + per < n16 ? e0 + per : n16;
   const uint4* s = (const uint4*)src;
   uint4* d = (uint4*)dst;
-  for (long long e = e0 + threadIdx.x; e < e1; e += THREADS) __stcg(d + e, __ldcg(s + e));
+  for (long long e = e0 + threadIdx.x; e < e1; e += AG_THREADS) __stcg(d + e, __ldcg(s + e));
 }
 
-// out block (bm, bn) of a (m, k) @ (k, n) product, f32 accumulation
+__device__ __forceinline__ void cp_async16(float* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  // L2 only (.cg): an arrived shard is never read through a stale L1 line;
+  // a source size of 0 fills the 16 bytes with zeros (the ragged edges)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One tile's loads. On the cp.async route (f32, k % 4 == 0, n % 4 == 0)
+// every thread copies the same column chunk of A and of W each k tile:
+// rows r_a + i * (AG_THREADS / (AG_BK / 4)) of A and r_b + i * ... of W.
 template <class Op>
-__device__ void matmul_block(const typename Op::T* A, const typename Op::T* W,
-                             typename Op::T* C, long long m, long long k, long long n,
-                             long long bm, long long bn, bool a_from_l2) {
+struct AgmmTile {
   using T = typename Op::T;
-  __shared__ float As[BK][BM + 1];  // +1: the transposed stores spread over banks
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (long long k0 = 0; k0 < k; k0 += BK) {
+  static constexpr int A_ROW_STEP = AG_THREADS / (AG_BK / 4);
+  static constexpr int B_ROW_STEP = AG_THREADS / (AG_BN / 4);
+  const T* A;  // (m, k) rows of the shard
+  const T* W;  // (k, n) panel
+  long long m, k, n, row0, col0;
+  // the cp.async route's per-thread state: its column chunk of A and of W
+  const T* a_src;  // row0 + ra of A at k 0
+  const T* b_src;  // row rb of W at col0 + cb * 4
+  int a_col, b_row;  // k of its A chunk in a tile, its first W row
+  int a_rows;        // its A rows inside m
+  bool b_in;         // its W chunk inside n
+  int a_off, b_off;  // where its chunks land in a stage (floats)
+
+  __device__ AgmmTile(const T* A_, const T* W_, long long m_, long long k_, long long n_,
+                      long long row0_, long long col0_)
+      : A(A_), W(W_), m(m_), k(k_), n(n_), row0(row0_), col0(col0_) {
+    const int ca = threadIdx.x % (AG_BK / 4), ra = threadIdx.x / (AG_BK / 4);
+    const int cb = threadIdx.x % (AG_BN / 4), rb = threadIdx.x / (AG_BN / 4);
+    a_col = ca * 4;
+    b_row = rb;
+    a_rows = 0;
 #pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      int idx = tid + i * THREADS, r = idx / BK, c = idx % BK;
-      long long gr = bm * BM + r, gc = k0 + c;
-      float v = 0.f;
-      if (gr < m && gc < k) {
-        const T* p = A + gr * k + gc;
-        v = Op::to_f(a_from_l2 ? __ldcg(p) : *p);
-      }
-      As[c][r] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      int idx = tid + i * THREADS, r = idx / BN, c = idx % BN;
-      long long gr = k0 + r, gc = bn * BN + c;
-      Bs[r][c] = (gr < k && gc < n) ? Op::to_f(W[gr * n + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < AG_A_CHUNKS; ++i) a_rows += row0 + ra + i * A_ROW_STEP < m;
+    b_in = col0 + cb * 4 < n;
+    a_src = A + (row0 + ra) * k + a_col;
+    b_src = W + rb * n + col0 + cb * 4;
+    a_off = ra * AG_LDA + a_col;
+    b_off = AG_A_FLOATS + rb * AG_BN + cb * 4;
   }
+
+  __device__ void issue(float* stage, long long k0) const {
+    const bool ka = k0 + a_col < k;
+    const T* a = a_src + k0;
+    float* as = stage + a_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    long long gr = bm * BM + ty * 4 + i;
+    for (int i = 0; i < AG_A_CHUNKS; ++i) {
+      const bool ok = ka && i < a_rows;
+      cp_async16(as + i * A_ROW_STEP * AG_LDA, ok ? (const void*)(a + i * A_ROW_STEP * k)
+                                                  : (const void*)A, ok);
+    }
+    const T* b = b_src + k0 * n;
+    float* bs = stage + b_off;
+#pragma unroll
+    for (int i = 0; i < AG_B_CHUNKS; ++i) {
+      const bool ok = b_in && k0 + b_row + i * B_ROW_STEP < k;
+      cp_async16(bs + i * B_ROW_STEP * AG_BN, ok ? (const void*)(b + i * B_ROW_STEP * n)
+                                                 : (const void*)W, ok);
+    }
+  }
+
+  // the widening route: each thread widens column tid % AG_BK of every
+  // AG_THREADS / AG_BK-th A row and column tid % AG_BN of every
+  // AG_THREADS / AG_BN-th W row, eight loads in flight before their stores
+  __device__ void fill(float* stage, long long k0) const {
+    constexpr int BATCH = 8, A_STEP = AG_THREADS / AG_BK, B_STEP = AG_THREADS / AG_BN;
+    static_assert(AG_A_PER % BATCH == 0 && AG_B_PER % BATCH == 0, "whole batches");
+    const int ac = threadIdx.x % AG_BK, ar = threadIdx.x / AG_BK;
+    const int bc = threadIdx.x % AG_BN, br = threadIdx.x / AG_BN;
+    const bool a_in = k0 + ac < k, b_in = col0 + bc < n;
+    const T* a = A + (row0 + ar) * k + k0 + ac;
+    const T* b = W + (k0 + br) * n + col0 + bc;
+    float* as = stage + ar * AG_LDA + ac;
+    float* bs = stage + AG_A_FLOATS + br * AG_BN + bc;
+#pragma unroll
+    for (int i0 = 0; i0 < AG_A_PER; i0 += BATCH) {
+      float v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u;
+        v[u] = a_in && row0 + ar + i * A_STEP < m ? Op::to_f(__ldcg(a + i * A_STEP * k)) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) as[(i0 + u) * A_STEP * AG_LDA] = v[u];
+    }
+#pragma unroll
+    for (int i0 = 0; i0 < AG_B_PER; i0 += BATCH) {
+      float v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u;
+        v[u] = b_in && k0 + br + i * B_STEP < k ? Op::to_f(__ldcg(b + i * B_STEP * n)) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) bs[(i0 + u) * B_STEP * AG_BN] = v[u];
+    }
+  }
+};
+
+// This group's share of one k tile: per 4 k steps, each of the thread's
+// rows read once (LDS.128: 4 k values), then per step W's 8 columns
+// (2 LDS.128) for 8 x 8 FFMA.
+__device__ __forceinline__ void agmm_products(const float* stage, int grp, int ty, int tx,
+                                              float (&acc)[AG_TM][8]) {
+  const float* As = stage;
+  const float* Bs = stage + AG_A_FLOATS;
+#pragma unroll
+  for (int kq = 0; kq < AG_BK / AG_KSPLIT; kq += 4) {
+    const int kk = grp * (AG_BK / AG_KSPLIT) + kq;
+    float4 a[AG_TM];
+#pragma unroll
+    for (int i = 0; i < AG_TM; ++i)
+      a[i] = *(const float4*)(As + (ty + AG_ROW_STEP * i) * AG_LDA + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b0 = *(const float4*)(Bs + (kk + q) * AG_BN + tx * 4);
+      const float4 b1 = *(const float4*)(Bs + (kk + q) * AG_BN + 32 + tx * 4);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < AG_TM; ++i) {
+        const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+template <class Op>
+__device__ __forceinline__ void agmm_store(typename Op::T* C, long long m, long long n,
+                                           long long row0, long long col0, int ty, int tx,
+                                           const float (&acc)[AG_TM][8]) {
+  using T = typename Op::T;
+  const bool vec = n % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < AG_TM; ++i) {
+    const long long gr = row0 + ty + AG_ROW_STEP * i;
     if (gr >= m) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      long long gc = bn * BN + tx * 4 + j;
-      if (gc < n) C[gr * n + gc] = Op::from_f(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const long long gc = col0 + h * 32 + tx * 4;
+      T v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = Op::from_f(acc[i][h * 4 + j]);
+      T* p = C + gr * n + gc;
+      if (vec && gc + 3 < n) {
+        if (sizeof(T) == 4) {
+          *(uint4*)p = make_uint4(*(unsigned*)&v[0], *(unsigned*)&v[1], *(unsigned*)&v[2],
+                                  *(unsigned*)&v[3]);
+        } else {
+          *(uint2*)p = make_uint2((unsigned)v[0] | ((unsigned)v[1] << 16),
+                                  (unsigned)v[2] | ((unsigned)v[3] << 16));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gc + j < n) p[j] = v[j];
+      }
     }
   }
 }
 
-template <class Op>
-__global__ void __launch_bounds__(THREADS)
+// out tile (bm, bn) of one (m, k) @ (k, n) product, f32 accumulation
+template <class Op, bool ASYNC>
+__device__ void agmm_tile(const typename Op::T* A, const typename Op::T* W, typename Op::T* C,
+                          long long m, long long k, long long n, long long bm, long long bn,
+                          float* smem) {
+  const int grp = threadIdx.x / AG_GROUP, gt = threadIdx.x % AG_GROUP;
+  const int ty = gt / 8, tx = gt % 8;
+  const AgmmTile<Op> t(A, W, m, k, n, bm * AG_BM, bn * AG_BN);
+  const int KT = (int)((k + AG_BK - 1) / AG_BK);
+  float acc[AG_TM][8];
+#pragma unroll
+  for (int i = 0; i < AG_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  __syncthreads();  // the ring's last readers (an earlier tile) are done
+#pragma unroll
+  for (int s = 0; s < AG_STAGES - 1; ++s) {
+    if constexpr (ASYNC) {
+      if (s < KT) t.issue(smem + s * AG_STAGE_FLOATS, (long long)s * AG_BK);
+      cp_async_commit();
+    } else if (s < KT) {
+      t.fill(smem + s * AG_STAGE_FLOATS, (long long)s * AG_BK);
+    }
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    if constexpr (ASYNC) cp_async_wait<AG_STAGES - 2>();
+    __syncthreads();  // tile kt landed for all; stage (kt-1) % STAGES is free
+    const int nxt = kt + AG_STAGES - 1;
+    float* refill = smem + (nxt % AG_STAGES) * AG_STAGE_FLOATS;
+    if constexpr (ASYNC) {
+      if (nxt < KT) t.issue(refill, (long long)nxt * AG_BK);
+      cp_async_commit();
+    }
+    agmm_products(smem + (kt % AG_STAGES) * AG_STAGE_FLOATS, grp, ty, tx, acc);
+    // the widening route refills after the products, whose operand
+    // registers it then reuses; the next barrier orders its stores
+    if constexpr (!ASYNC) {
+      if (nxt < KT) t.fill(refill, (long long)nxt * AG_BK);
+    }
+  }
+  if constexpr (ASYNC) cp_async_wait<0>();
+  // the second group's partial sums meet the first's in the ring (a fixed
+  // order: two calls give equal bits)
+  __syncthreads();
+  if (grp == 1) {
+#pragma unroll
+    for (int i = 0; i < AG_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) smem[(i * 8 + j) * AG_GROUP + gt] = acc[i][j];
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < AG_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += smem[(i * 8 + j) * AG_GROUP + gt];
+    agmm_store<Op>(C, m, n, t.row0, t.col0, ty, tx, acc);
+  }
+}
+
+template <class Op, bool ASYNC>
+__global__ void __launch_bounds__(AG_THREADS, 1)
 allgather_matmul_kernel(AgmmArgs a, Sync sync) {
   using T = typename Op::T;
+  extern __shared__ __align__(16) float ag_smem[];
   const int f = blockIdx.x / a.G;
   const int g = blockIdx.x % a.G;
   const int size = a.size;
@@ -392,20 +618,20 @@ allgather_matmul_kernel(AgmmArgs a, Sync sync) {
   const T* w = (const T*)a.w + (long long)f * a.k * a.n;
   T* out = (T*)a.out + (long long)f * size * a.m * a.n;
   T* buf = (T*)a.buf;
-  const long long nbm = (a.m + BM - 1) / BM, nbn = (a.n + BN - 1) / BN;
+  const long long nbm = (a.m + AG_BM - 1) / AG_BM, nbn = (a.n + AG_BN - 1) / AG_BN;
   const unsigned want = (unsigned)a.G * sync.epoch;  // G arrivals per launch
 
-  auto tile = [&](const T* A, int j, bool from_l2) {
+  auto tiles = [&](const T* A, int j) {
     for (long long b = g; b < nbm * nbn; b += a.G)
-      matmul_block<Op>(A, w, out + (long long)j * a.m * a.n, a.m, a.k, a.n, b / nbn, b % nbn,
-                       from_l2);
+      agmm_tile<Op, ASYNC>(A, w, out + (long long)j * a.m * a.n, a.m, a.k, a.n, b / nbn,
+                           b % nbn, ag_smem);
   };
 
   // step 0: the local shard leaves for the right neighbour, then the local
   // tile computes while it travels
   copy_stripe(x, buf + ((long long)dst * S) * shard, shard_bytes, g, a.G);
   cta_count(a.counters + (long long)dst * S);
-  tile(x, pos, false);
+  tiles(x, pos);
   for (int s = 1; s < size; ++s) {
     if (!cta_wait(a.counters + (long long)f * S + s - 1, want, sync, 3u)) return;
     const T* in = buf + ((long long)f * S + s - 1) * shard;
@@ -414,7 +640,7 @@ allgather_matmul_kernel(AgmmArgs a, Sync sync) {
       copy_stripe(in, buf + ((long long)dst * S + s) * shard, shard_bytes, g, a.G);
       cta_count(a.counters + (long long)dst * S + s);
     }
-    tile(in, (pos + size - s) % size, true);
+    tiles(in, (pos + size - s) % size);
   }
 }
 
@@ -466,14 +692,27 @@ const void* kernel_for(int which, int dtype) {
     if (dtype == DT_F32) return (const void*)fused_allreduce_kernel<F32>;
     if (dtype == DT_BF16) return (const void*)fused_allreduce_kernel<BF16>;
     if (dtype == DT_I32) return (const void*)fused_allreduce_kernel<I32>;
-  } else if (which == K_AGMM) {
-    if (dtype == DT_F32) return (const void*)allgather_matmul_kernel<F32>;
-    if (dtype == DT_BF16) return (const void*)allgather_matmul_kernel<BF16>;
-    if (dtype == DT_I32) return (const void*)allgather_matmul_kernel<I32>;
   } else if (which == K_PERMUTE) {
     return (const void*)fused_permute_kernel;
   }
   return nullptr;
+}
+
+// The all-gather matmul's two routes: cp.async for f32 rows of whole
+// 16-byte vectors, the widening register route otherwise. Both take
+// AG_SMEM bytes of dynamic shared memory, which must be allowed before
+// the occupancy query and the launch.
+const void* agmm_kernel(int dtype, bool async) {
+  const void* fn = nullptr;
+  if (dtype == DT_F32)
+    fn = async ? (const void*)allgather_matmul_kernel<F32, true>
+               : (const void*)allgather_matmul_kernel<F32, false>;
+  else if (dtype == DT_BF16)
+    fn = (const void*)allgather_matmul_kernel<BF16, false>;
+  else if (dtype == DT_I32)
+    fn = (const void*)allgather_matmul_kernel<I32, false>;
+  if (fn) cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, AG_SMEM);
+  return fn;
 }
 
 Sync make_sync(void* abort_word, unsigned epoch, long long timeout_ns) {
@@ -520,14 +759,37 @@ extern "C" void fused_ring_clear_status() {
 // Co-resident CTAs of one kernel on the current device (blocks per SM
 // from the occupancy query x SMs): the cooperative grid's ceiling.
 extern "C" int fused_ring_capacity(int which, int dtype, int* out) {
-  const void* fn = kernel_for(which, dtype);
-  if (!fn) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, 0);
+  if (which == K_AGMM) {
+    // the smaller of the two routes' ceilings: the wrapper sizes the grid
+    // before the route is known
+    const void* fns[2] = {agmm_kernel(dtype, false), dtype == DT_F32 ? agmm_kernel(dtype, true)
+                                                                     : nullptr};
+    if (!fns[0]) return (int)cudaErrorInvalidValue;
+    per_sm = 1 << 30;
+    for (const void* fn : fns) {
+      int b = 0;
+      if (fn) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, fn, AG_THREADS, AG_SMEM);
+      if (fn && b < per_sm) per_sm = b;
+    }
+  } else {
+    const void* fn = kernel_for(which, dtype);
+    if (!fn) return (int)cudaErrorInvalidValue;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, 0);
+  }
   *out = per_sm * sms;
   return (int)cudaGetLastError();
+}
+
+// The all-gather matmul's launch shape: {tile rows, tile columns, threads
+// a CTA, dynamic shared memory bytes} (the wrapper's plan holds the same).
+extern "C" void allgather_matmul_config(int* out) {
+  out[0] = AG_BM;
+  out[1] = AG_BN;
+  out[2] = AG_THREADS;
+  out[3] = AG_SMEM;
 }
 
 // ranks_launched < total only from the card test that proves a missing
@@ -576,8 +838,15 @@ extern "C" int allgather_matmul(const void* x, const void* w, void* out, void* b
   a.m = m;
   a.k = k;
   a.n = n;
+  const bool async = dtype == DT_F32 && k % 4 == 0 && n % 4 == 0 &&
+                     ((uintptr_t)x | (uintptr_t)w | (uintptr_t)buf) % 16 == 0;
+  const void* fn = agmm_kernel(dtype, async);
+  if (!fn || !g_status_dev) return (int)cudaErrorInvalidValue;
   Sync s = make_sync(abort_word, epoch, timeout_ns);
-  return launch(K_AGMM, dtype, total * G, &a, &s, stream);
+  void* params[] = {&a, &s};
+  cudaLaunchCooperativeKernel(fn, dim3(total * G), dim3(AG_THREADS), params, AG_SMEM,
+                              (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fused_permute(const void* x, void* out, const void* dst, void* counters,

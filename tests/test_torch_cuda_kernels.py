@@ -24,9 +24,11 @@ kernels equal their plain versions bit for bit (every step one fmaf
 rounding, checksums summed in the same order). The fused ring kernels
 equal their plain versions bit for bit (the allreduce over the same chunk
 layout, the permute exactly), except allgather_matmul, whose f32 sums run
-in another order than the library GEMM: within 1e-5 * k * max|x| * max|w|
-for float32, plus one bf16 ulp of the output for bfloat16, exact for
-int32 at small values. The alias kernel equals ``x * 2 + 1`` bitwise, in
+in another order than the library GEMM: within
+``fused.allgather_matmul_tolerance`` (8 sqrt(k) 2^-24 sum|x||w| for
+float32, which a TF32 product fails, plus one bf16 ulp of the output for
+bfloat16), exact for int32 at small values, and equal bits from two
+calls at its tile edges. The alias kernel equals ``x * 2 + 1`` bitwise, in
 place. The fused MLP kernels: y, a, dx, g and da within 2e-2 x max|plain|
 (bf16 outputs; g and da rounded to bf16 from f32 values whose sums run
 in another order, which can move a rounding), dW1 and dW2 within 1e-3 x
@@ -34,9 +36,11 @@ max|plain| on the same g and da (f32 sums of the same bf16 products,
 in another order); each kernel twice for equal bits. The migration
 exchange (kernel 13) equals its plain version byte for byte (compared as
 uint8) at every pool dtype, ragged chunkings and rows that are not a
-multiple of 16 bytes; a launch one sender short times out and raises.
+multiple of 16 bytes; a launch one sender short never lands, and
+``synchronize()`` raises.
 """
 
+import ctypes
 import math
 
 import pytest
@@ -640,6 +644,40 @@ def test_allgather_matmul_kernel_matches_plain(gen, dtype, size, m, k, n):
         assert bool((err <= tol).all()), err.max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size,m,k,n", [(2, 129, 1000, 65),
+                                        (8, 200, 17, 1000),
+                                        (2, 200, 17, 65),
+                                        (8, 129, 1000, 1000)])
+def test_allgather_matmul_kernel_at_its_tile_edges_equal_bits(gen, dtype,
+                                                              size, m, k, n):
+    # rows past a 128-row tile, columns past a 64-column one, k past a
+    # 16-deep stage and rows that are not whole 16-byte vectors (the
+    # widening route), at ring sizes 2 and 8; two calls give equal bits
+    x = torch.randn(size, m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(size, k, n, generator=gen, device="cuda").to(dtype)
+    got = fused.allgather_matmul(x, w)
+    again = fused.allgather_matmul(x, w)
+    fused.synchronize()
+    want = fused.allgather_matmul_reference(x, w)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= fused.allgather_matmul_tolerance(x, w, want)).all())
+    assert torch.equal(got, again)
+
+
+def test_allgather_matmul_plan_matches_the_kernel(gen):
+    # the wrapper's tile is the kernel's, and the bench shape is one wave
+    # on the card (a CTA per tile of every rank)
+    cfg = (ctypes.c_int * 4)()
+    fused._lib().allgather_matmul_config(cfg)
+    assert (cfg[0], cfg[1]) == fused.AGMM_TILE
+    cap = fused._capacity("allgather_matmul", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cap >= sms
+    bm, bn, G, waves = fused.agmm_plan(4, 256, 1024, cap)
+    assert (G, waves) == ((256 // bm) * (1024 // bn), 1)
+
+
 def test_allgather_matmul_tolerance_rejects_tf32(gen):
     # the control: the same product with TF32 inputs must fail the bound
     # that the kernel passes, or the bound could not tell f32 FFMA apart
@@ -846,17 +884,21 @@ def test_migration_exchange_kernel_bytes_equal_plain(gen, n_pages, page,
     assert torch.equal(got.view(torch.uint8).flatten(), bits)
 
 
-def test_migration_exchange_missing_sender_times_out(gen):
+@pytest.mark.parametrize("page_chunk", [1, md.PAGE_CHUNK])
+def test_migration_exchange_missing_sender_times_out(gen, page_chunk):
+    # a launch one sender short never lands: synchronize() raises, and the
+    # counters it left one short poison neither later launch (both sets)
     x = torch.randn(4, 8 * 256 * 128, generator=gen, device="cuda")
-    G = md._senders(x.device, md.PAGE_CHUNK * x.shape[1] * 4)
+    G = md._senders(x.device, page_chunk * x.shape[1] * 4)
     if G < 2:
         pytest.skip("one sender CTA: nothing to leave out")
-    md.migration_exchange(x, senders_launched=G - 1)
-    with pytest.raises(RuntimeError, match="timed out"):
+    md.migration_exchange(x, page_chunk, senders_launched=G - 1)
+    with pytest.raises(RuntimeError, match="never landed"):
         md.synchronize()
-    got = md.migration_exchange(x)  # the next launch is right again
-    md.synchronize()
-    assert torch.equal(got, x)
+    for _ in range(3):  # the next launches are right again
+        got = md.migration_exchange(x, page_chunk)
+        md.synchronize()
+        assert torch.equal(got, x)
 
 
 def test_migration_exchange_budget_refuses_before_launching(gen):

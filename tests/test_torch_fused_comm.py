@@ -260,3 +260,21 @@ def test_kernel_epilogue_codes():
         fused._kernel_epilogue(torch.tanh)
     with pytest.raises(ValueError, match="unknown epilogue"):
         fused._kernel_epilogue("gelu")
+
+
+def test_agmm_plan_is_one_wave_at_the_bench_shape():
+    # 4 ranks x (256/128) x (1024/64) tiles = 128 CTAs on an H100's 132
+    # SMs: a CTA per tile, each walking one tile a ring step
+    assert fused.agmm_plan(4, 256, 1024, 132) == (128, 64, 32, 1)
+    assert fused.agmm_plan(4, 256, 1024, 264) == (128, 64, 32, 1)
+    # ragged edges count a tile each
+    assert fused.agmm_plan(2, 129, 65, 132) == (128, 64, 4, 1)
+    assert fused.agmm_plan(8, 3, 8, 132) == (128, 64, 1, 1)
+
+
+def test_agmm_plan_walks_tiles_when_capacity_is_short():
+    assert fused.agmm_plan(4, 256, 1024, 64) == (128, 64, 16, 2)
+    assert fused.agmm_plan(8, 256, 1024, 40) == (128, 64, 5, 7)
+    assert fused.agmm_plan(8, 129, 1000, 8) == (128, 64, 1, 32)
+    with pytest.raises(ValueError, match="co-resident"):
+        fused.agmm_plan(8, 256, 1024, 7)

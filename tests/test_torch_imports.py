@@ -175,3 +175,23 @@ def test_mlp_bench_imports_without_jax_and_needs_a_card(no_gpu, capsys):
     assert bench_mlp.main([]) == 1
     assert bench_mlp.main(["--other", ".", "--train"]) == 1
     assert "needs an NVIDIA card" in capsys.readouterr().err
+
+
+def test_comm_bench_imports_without_jax_and_needs_a_card(no_gpu, capsys):
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib',\n"
+            "                                  'hpc_patterns_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import hpc_patterns_tpu_torch.bench_comm as b\n"
+            "assert callable(b.main) and callable(b.agmm_row)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    from hpc_patterns_tpu_torch import bench_comm
+
+    assert bench_comm.main([]) == 1
+    assert bench_comm.main(["--other", "."]) == 1
+    assert "needs an NVIDIA card" in capsys.readouterr().err

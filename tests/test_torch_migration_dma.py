@@ -131,6 +131,17 @@ class TestPlainExchange:
             md.migration_exchange(torch.zeros(4, 2), 0)
 
 
+def test_sender_plan_fills_one_cta_an_sm():
+    # one bundle array of the plane (1 MiB) on an H100's 132 SMs: a CTA
+    # an SM, each thread with its two vectors in flight; a smaller chunk
+    # takes a vector a thread; a tiny one a CTA
+    assert md.sender_plan(1 << 20, 132) == 132
+    assert md.sender_plan(1 << 19, 132) == 128
+    assert md.sender_plan(4096 * 3 + 1, 132) == 4
+    assert md.sender_plan(24, 132) == 1
+    assert md.sender_plan(1 << 20, 1) == 1
+
+
 class TestSend:
     @pytest.mark.parametrize("pool", list(POOLS))
     def test_payload_byte_exact_and_landed_on_dst(self, jparams, pool):
