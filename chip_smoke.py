@@ -16,10 +16,11 @@ Phases, each printing JSON lines:
               spills, and fail if a library holds no HGMMA (they must run
               on wgmma), if the fused MLP's holds cp.async (LDGSTS), if
               any kernel of the fused MLP's, the backward's (kernels 2-4),
-              the linear decode's (kernel 5), the all-gather matmul's
-              (kernel 12) or the migration exchange's (kernel 13; the
-              registers and spills of the last three are printed too)
-              spills, or if ptxas serialized the
+              the linear or paged decode's (kernels 5 and 6), the
+              allreduce's or all-gather matmul's (kernels 11 and 12) or
+              the migration exchange's (kernel 13; the registers and
+              spills of the last four are printed too) spills, or if
+              ptxas serialized the
               wgmma of any kernel of the three (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
@@ -29,11 +30,14 @@ Phases, each printing JSON lines:
               one library call's device time (yardstick only; the port
               never calls it) beside the kernel's bound; the decode
               kernels on bf16, int8 and fp8 caches (the linear cache,
-              the paged cache, the exact-softmax paged route; the linear
-              one twice for equal bits, with the chunks it split the rows
-              into and SDPA's time on each dtype's values, and at two
-              shapes it must run in one chunk: pos 63, and B 33 on 132
-              SMs); kernel 12, the all-gather matmul, within its stated
+              the paged cache, the exact-softmax paged route; each twice
+              for equal bits, with SDPA's time on each dtype's values,
+              the two split kernels with the chunks they split the rows
+              into, the linear one at two shapes it must run in one
+              chunk: pos 63, and B 33 on 132 SMs); kernel 11, the
+              allreduce, bitwise with its launch plan and its FIFO within
+              the L2 budget; kernel 12, the all-gather matmul, within its
+              stated
               bound (a TF32 product as the control that must fail it),
               twice for equal bits, with its launch plan (tile, CTAs a
               rank, waves); kernel 13,
@@ -245,12 +249,15 @@ TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
 # the pre-Hopper copy; the fused MLP must have none)
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 HOPPER_SOURCES = ("flash_prefill", "flash_attention_bwd", "fused_mlp")
-# the kernels that must not spill, by source and name prefix: every one of
-# the fused MLP's, the attention backward's (kernels 2-4), the linear
-# decode's (kernel 5: both passes), the all-gather matmul's (kernel 12:
-# every dtype and route) and the migration exchange's (kernel 13)
+# the kernels that must not spill, by source and name prefixes: every one
+# of the fused MLP's, the attention backward's (kernels 2-4), the linear
+# and paged decodes' (kernels 5 and 6: both passes), the allreduce's and
+# the all-gather matmul's (kernels 11 and 12: every dtype, tile and route)
+# and the migration exchange's (kernel 13)
 NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "", "flash_decode": "",
-            "fused_ring": "allgather_matmul_kernel", "migration_dma": ""}
+            "paged_decode": "",
+            "fused_ring": ("fused_allreduce_kernel", "allgather_matmul_kernel"),
+            "migration_dma": ""}
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -488,10 +495,13 @@ def _kv_bytes(kv) -> int:
 
 
 def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
-    """A paged decode kernel (``paged_decode``: kernel 6, online softmax;
-    ``paged_attention``: kernel 7, exact softmax) on ``kv`` pools through
-    a permuted table at ragged fills, against its plain version (the
-    gather route) on the same inputs."""
+    """A paged decode kernel (``paged_decode``: kernel 6, the split
+    merged by lse; ``paged_attention``: kernel 7, exact softmax) on ``kv``
+    pools through a permuted table at ragged fills, against its plain
+    version (the gather route) on the same inputs, twice for equal bits;
+    the yardstick is one ``scaled_dot_product_attention`` call on the same
+    live rows gathered into a linear compute-dtype cache (the gather and
+    dequantization made outside the timing)."""
     from hpc_patterns_tpu_torch.ops import flash_decode as fd
     from hpc_patterns_tpu_torch.ops import paged_attention as pa
 
@@ -529,15 +539,38 @@ def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
                                                k_scale_pool=ks,
                                                v_scale_pool=vs)
 
+    # the yardstick: SDPA (enable_gqa, a boolean mask past each fill) on
+    # the live rows already gathered into a linear compute-dtype cache
+    # (dequantized for one-byte pools), the gather made untimed
+    S = pages * P
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    lib_sets = []
+    for q, kp, vp, tbl, _, ks, vs in sets:
+        kd = fd._gather_pages(kp, tbl.long())
+        vd = fd._gather_pages(vp, tbl.long())
+        if quant:
+            kd = kd.float() * fd._gather_pages(ks.transpose(2, 3), tbl.long())
+            vd = vd.float() * fd._gather_pages(vs.transpose(2, 3), tbl.long())
+        lib_sets.append((q[:, :, None, :], kd.to(qdt), vd.to(qdt)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     got, want = run(*sets[0]), plain(*sets[0])
+    again = run(*sets[0])
+    lib_out = sdpa(*lib_sets[0], attn_mask=mask, enable_gqa=True)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(bool(torch.isfinite(got).all()), f"{kernel} output finite")
     check(err <= DECODE_ATOL,
           f"{kernel} {B, H, Hkv, D, P, pages, kv}: max err {err} > "
           f"{DECODE_ATOL}")
+    check(torch.equal(got, again), f"{kernel} {B, H, Hkv, D, P, pages, kv}: "
+          "two calls give equal bits")
+    check(lib_out.shape == (B, H, 1, D), "the SDPA yardstick's shape")
     ms = device_ms(run, sets)
     plain_ms = device_ms(plain, sets)
+    lib = device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                         enable_gqa=True), lib_sets)
+    del lib_sets
     live = int((pos.long() + 1).sum())  # rows this run's fills need
     nbytes = (2 * live * Hkv * (D * esz + 4 * quant) + B * H * D * qsz
               + B * H * D * 4 + table.numel() * 4 + B * 4)
@@ -548,9 +581,14 @@ def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
                      "pages": pages, "kv": kv, "q": str(qdt)[6:],
                      "pos": pos.tolist()},
            "max_abs_err": err, "tol": DECODE_ATOL, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "library": None,
+           "plain_ms": plain_ms, "library_ms": lib,
+           "library": "sdpa (enable_gqa, bool mask; the live rows gathered "
+                      "into a compute-dtype cache, untimed)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops, "input_sets": len(sets)}
+    if kernel == "paged_decode":
+        n_chunks, chunk = fd.paged_decode_plan(pages, P)
+        row.update(n_chunks=n_chunks, chunk_rows=chunk)
     emit(row)
     return row
 
@@ -1219,6 +1257,8 @@ def phase_dispatch():
 
 
 def fused_allreduce_case(gen):
+    import dataclasses
+
     from hpc_patterns_tpu_torch.comm import fused
 
     dev = torch.device("cuda")
@@ -1256,8 +1296,17 @@ def fused_allreduce_case(gen):
             check(torch.equal(g2, w2), f"fused_allreduce world {world} "
                   f"{dtype} n {n_chk} {sorted(kw)}: == plain bitwise")
         checked.append([world, str(dtype).split(".")[-1], n_chk])
+    # the receive slots are a FIFO within the L2 budget, whatever the size
     ms = device_ms(fused.fused_allreduce, sets)
     fused.synchronize()
+    scratch = fused._scratch["allreduce"]
+    plan = scratch["key"][-1]
+    scratch_bytes = sum(t.numel() * t.element_size()
+                        for t in scratch.values() if torch.is_tensor(t))
+    check(plan.fifo_bytes <= fused.ALLREDUCE_FIFO_BUDGET
+          and scratch["fifo"].numel() == plan.fifo_bytes,
+          f"fused_allreduce FIFO {plan.fifo_bytes} bytes within "
+          f"{fused.ALLREDUCE_FIFO_BUDGET}: {plan}")
     plain = device_ms(lambda v: fused.fused_allreduce_reference(
         v, lane=fused.CARD_LANE), sets, n=5)
     lib = device_ms(lambda v: v.sum(0, keepdim=True).expand_as(v).contiguous(),
@@ -1271,9 +1320,12 @@ def fused_allreduce_case(gen):
            "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain,
            "library_ms": lib, "library": "sum(0).expand_as.contiguous",
            "bound_ms": b_ms, "bound_by": b_by,
-           # the ring's own traffic: each rank reads its input and its two
-           # phases' slots and writes slots and output
-           "ring_bytes": (2 + 4 * (W - 1) / W) * W * n * 4,
+           "launch_plan": dataclasses.asdict(plan),
+           "scratch_bytes": scratch_bytes,
+           "fifo_budget_bytes": fused.ALLREDUCE_FIFO_BUDGET,
+           # the hops' own traffic, written and read in the L2: every rank
+           # hands 2 (W - 1) partials of its chunk along
+           "fifo_traffic_bytes": 2 * 2 * (W - 1) * n * 4,
            "input_sets": len(sets)}
     emit(row)
     return row
@@ -1527,6 +1579,7 @@ def phase_comm():
     for k in fused.launches:
         fused.launches[k] = 0
     idev.launches = 0
+    by_path = {}  # fused_allreduce launches by entry point
     gen = torch.Generator(device=dev).manual_seed(3)
     try:
         # the busbw-vs-size curve, every point on its oracle
@@ -1541,6 +1594,7 @@ def phase_comm():
                                                        for r in res),
               f"allreduce sweep: rc {code}, {sum(r['success'] for r in res)}"
               f"/{len(res)} points passed")
+        by_path["sweep"] = fused.launches["fused_allreduce"]
         curve = {}
         for r in res:
             alg = r["name"][len("allreduce["):-1]
@@ -1566,6 +1620,8 @@ def phase_comm():
             points.append([world, dtype, r["elapsed_s"] * 1e3,
                            r["busbw_gbps"]])
         emit({"phase": "comm", "fused_points_world_dtype_ms_busbw": points})
+        by_path["points"] = fused.launches["fused_allreduce"] - sum(
+            by_path.values())
         # the Communicator's fused consumer ops at the bench shapes, on
         # oracles of their own: rank-valued rows sum exactly to W(W-1)/2,
         # and integer-valued f32 products sum exactly in either order
@@ -1577,6 +1633,8 @@ def phase_comm():
         check(torch.equal(got, torch.relu(
             comm.expected_allreduce_value() + bias).expand_as(x)),
               "Communicator allreduce_into(bias, relu) on the oracle")
+        by_path["communicator"] = fused.launches["fused_allreduce"] - sum(
+            by_path.values())
         del x, got
         m, k, n = AGMM_SHAPE
         xa = torch.randint(-3, 4, (COMM_WORLD, m, k), generator=gen,
@@ -1615,13 +1673,17 @@ def phase_comm():
         detail = bench.fused_collective_detail(dev)
         emit({"phase": "comm", "bench_detail": detail})
         comm.synchronize()
+        by_path["bench"] = fused.launches["fused_allreduce"] - sum(
+            by_path.values())
     finally:
         for name, fn in originals.items():
             setattr(fused, name, fn)
         idev.alias_inplace = orig_alias
     launches = dict(fused.launches, alias_inplace=idev.launches)
     emit({"phase": "comm", "launches": launches, "counted": counted,
+          "fused_allreduce_by_path": by_path,
           "seconds": time.perf_counter() - t_phase})
+    launches["fused_allreduce_by_path"] = by_path
     for name in counted:
         check(launches[name] > 0 and launches[name] == counted[name],
               f"{name} launches == calls counted: {launches} {counted}")
@@ -2515,6 +2577,8 @@ def main() -> int:
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
          "launches": launches_quant["paged_decode"],
+         "launches_by_path": {"quant_int8_flash":
+                              launches_quant["paged_decode"]},
          **{k: rows["paged_decode_quant"][k] for k in keys}},
         {"name": "paged_attention", "route": "cuda",
          "source": f"{PKG}/csrc/paged_attention.cu",
@@ -2535,7 +2599,8 @@ def main() -> int:
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:424",
          "launches": launches_comm["fused_allreduce"],
-         **{k: ring_row[k] for k in keys}},
+         "launches_by_path": launches_comm["fused_allreduce_by_path"],
+         **{k: ring_row[k] for k in keys + ("launch_plan",)}},
         {"name": "allgather_matmul", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:570",

@@ -16,9 +16,9 @@ TB/s and the operations over 67 TF/s f32):
   ``fused.allgather_matmul_tolerance`` and two calls' equal bits;
 - kernel 13 at one array of a plane bundle, 2 pages x 8 x 256 x 128 bf16
   (1 MiB), at ``page_chunk`` 4 and 1, beside ``landing.copy_(x)``;
-- kernels 10 and 11 at 2^25 f32 x 4 ranks (permute r^1, allreduce), to
-  show that what kernel 12 changed in their shared source moved neither,
-  beside ``index_select`` and ``sum(0)`` + expand;
+- kernels 10 and 11 at 2^25 f32 x 4 ranks (permute r^1, allreduce),
+  beside ``index_select`` and ``sum(0)`` + expand, with each side's
+  allreduce scratch and peak memory over one call from fresh scratch;
 - the bench's collective keys for kernel 12 (``bench.py``'s protocol: best
   of a few host-clock calls, each ending in a synchronize):
   ``agmm_fused_ms``, ``agmm_collective_ms`` and ``allreduce_overlap_frac``.
@@ -27,8 +27,10 @@ With ``--other`` the other checkout's ``fused_ring.cu`` and
 ``migration_dma.cu`` are compiled with this tree's nvcc flags and called
 the way that checkout's wrappers call them (its all-gather matmul tiles
 from its ``allgather_matmul_config``, 64 x 64 before it had one; its
-exchange through its cooperative entry with a receiver CTA when it has
-one). Each of its outputs is held against the plain version first. The
+allreduce through ``fused_allreduce_fifo`` on this tree's plan where it
+has one, else through ``fused_allreduce`` with receive slots per (phase,
+step), 2 (W - 1) x a chunk a rank; its exchange through its cooperative
+entry with a receiver CTA when it has one). Each of its outputs is held against the plain version first. The
 timings run in turns — other, this, this, other. Prints one JSON line per
 kernel, one for the bench keys, and the card's name and power limit.
 Needs a card: without one it exits non-zero.
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import subprocess
@@ -86,9 +89,15 @@ class _OtherRing:
         lib.fused_ring_capacity.argtypes = [_I, _I, ctypes.POINTER(_I)]
         lib.allgather_matmul.argtypes = [_V, _V, _V, _V, _V, _V, _U, _I, _I,
                                          _I, _I, _LL, _LL, _LL, _I, _LL, _V]
-        lib.fused_allreduce.argtypes = [_V, _V, _V, _V, _V, _V, _V, _U, _I,
-                                        _I, _I, _I, _LL, _LL, _LL, _I, _I,
-                                        _LL, _I, _V]
+        self.fifo = hasattr(lib, "fused_allreduce_fifo")
+        if self.fifo:
+            lib.fused_allreduce_fifo.argtypes = [
+                _V, _V, _V, _V, _V, _V, _U, _I, _I, _I, _I, _LL, _LL, _LL,
+                _I, _I, _LL, _I, _V]
+        else:
+            lib.fused_allreduce.argtypes = [_V, _V, _V, _V, _V, _V, _V, _U,
+                                            _I, _I, _I, _I, _LL, _LL, _LL,
+                                            _I, _I, _LL, _I, _V]
         lib.fused_permute.argtypes = [_V, _V, _V, _V, _V, _U, _I, _LL, _I,
                                       _LL, _V]
         fused._build.check(lib.fused_ring_init(), "other fused_ring_init")
@@ -139,23 +148,42 @@ class _OtherRing:
     def allreduce(self, x):
         W = x.shape[0]
         m, n, cn, n_pad = fused.ring_layout(x.shape[1:], W, fused.CARD_LANE)
-        G = max(1, min(self._per_rank(0, 0, W),
-                       -(-(m * cn // 4) // (4 * 256))))
-        S = W - 1
-        s = self._scratch(("allreduce", x.shape, G), lambda: {
-            "rs": torch.empty(W * S * m * cn, device=x.device),
-            "ag": torch.empty(W * S * m * cn, device=x.device),
-            "flags": torch.zeros(W * G * 2 * S, dtype=torch.int32,
-                                 device=x.device),
-            "abort": torch.zeros(1, dtype=torch.int32, device=x.device)})
         xp = fused._pad_rows(x, m, n, n_pad)
         out = torch.empty_like(xp)
-        fused._build.check(self.lib.fused_allreduce(
-            xp.data_ptr(), None, out.data_ptr(), s["rs"].data_ptr(),
-            s["ag"].data_ptr(), s["flags"].data_ptr(), s["abort"].data_ptr(),
-            s["epoch"], 0, W, 1, W, m, cn, n_pad, G, 0,
-            fused.SPIN_TIMEOUT_NS, W, self._stream()), "other fused_allreduce")
+        if self.fifo:
+            plan = fused.allreduce_plan(W, m * cn // 4,
+                                        W * self._per_rank(0, 0, W))
+            s = self._scratch(("allreduce", x.shape, plan),
+                              lambda: fused.allreduce_scratch(plan,
+                                                              x.device))
+            rc = self.lib.fused_allreduce_fifo(
+                xp.data_ptr(), None, out.data_ptr(), s["fifo"].data_ptr(),
+                s["flags"].data_ptr(), s["abort"].data_ptr(), s["epoch"], 0,
+                W, 1, W, m, cn, n_pad, plan.ctas_a_rank, 0,
+                fused.SPIN_TIMEOUT_NS, W, self._stream())
+        else:
+            G = max(1, min(self._per_rank(0, 0, W),
+                           -(-(m * cn // 4) // (4 * 256))))
+            S = W - 1
+            s = self._scratch(("allreduce", x.shape, G), lambda: {
+                "rs": torch.empty(W * S * m * cn, device=x.device),
+                "ag": torch.empty(W * S * m * cn, device=x.device),
+                "flags": torch.zeros(W * G * 2 * S, dtype=torch.int32,
+                                     device=x.device),
+                "abort": torch.zeros(1, dtype=torch.int32,
+                                     device=x.device)})
+            rc = self.lib.fused_allreduce(
+                xp.data_ptr(), None, out.data_ptr(), s["rs"].data_ptr(),
+                s["ag"].data_ptr(), s["flags"].data_ptr(),
+                s["abort"].data_ptr(), s["epoch"], 0, W, 1, W, m, cn, n_pad,
+                G, 0, fused.SPIN_TIMEOUT_NS, W, self._stream())
+        fused._build.check(rc, "other fused_allreduce")
         return out[..., :n].reshape(x.shape)
+
+    def scratch_bytes(self, kind: str) -> int:
+        return sum(t.numel() * t.element_size()
+                   for key, s in self.scratch.items() if key[0] == kind
+                   for t in s.values() if torch.is_tensor(t))
 
     def permute(self, x, dst):
         W = x.shape[0]
@@ -365,11 +393,29 @@ def ring_rows(other) -> list:
         if theirs is not None:
             fns["other"] = theirs
         want = plain(sets[0][0])
+        memory = {}
         for side, fn in fns.items():
+            if kernel == 11:  # one call from fresh scratch
+                (other.scratch if side == "other" else fused._scratch
+                 ).clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
             got = fn(sets[0][0])
             (other if side == "other" else fused).synchronize()
             if not torch.equal(got, want):
                 raise RuntimeError(f"{name} {side}: != plain bitwise")
+            if kernel == 11:
+                memory[side] = {
+                    "peak_over_inputs_bytes":
+                        torch.cuda.max_memory_allocated() - held,
+                    "scratch_bytes": (other.scratch_bytes("allreduce")
+                                      if side == "other" else sum(
+                                          t.numel() * t.element_size()
+                                          for t in fused._scratch[
+                                              "allreduce"].values()
+                                          if torch.is_tensor(t)))}
+            del got
         times = _turns(fns, sets)
         fused.synchronize()
         row = {"kernel": kernel, "name": name,
@@ -378,6 +424,10 @@ def ring_rows(other) -> list:
                "ms": times, "library_ms": _device_ms(library, sets),
                "library": lib_name,
                "bound_ms": _bound_ms(2.0 * WORLD * n * 4, 0.0)}
+        if kernel == 11:
+            row["memory"] = memory
+            row["plan"] = dataclasses.asdict(fused._scratch["allreduce"][
+                "key"][-1])
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

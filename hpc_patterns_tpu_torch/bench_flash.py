@@ -2,11 +2,13 @@
 (``csrc/flash_prefill.cu``), at each of its CTA tiles; kernels 2, 3 and
 4, the fused backward, the dQ pass and the dK/dV pass
 (``csrc/flash_attention_bwd.cu``), with both backward routes around them;
-and kernel 5, the linear-cache decode (``csrc/flash_decode.cu``), each
-against the same C entry points built from another checkout; optionally
-the training step of both checkouts.
+kernel 5, the linear-cache decode (``csrc/flash_decode.cu``), and kernel
+6, the paged decode (``csrc/paged_decode.cu``), each against the same C
+entry points built from another checkout; optionally the training step of
+both checkouts (``--train``), or only the decode kernels (``--decode``).
 
     python -m hpc_patterns_tpu_torch.bench_flash [--other DIR] [--train]
+        [--decode]
 
 At the training shape (B 8, T 2048, H 8, D 128, causal, with lse) and the
 serving prefill's (B 1, T 512, H 8, D 128, causal, no lse), each timed
@@ -30,7 +32,15 @@ bf16 and int8: this tree's ``flash_decode_attention`` (the split it plans
 is in the row) against the other checkout's ``flash_decode_split`` on the
 same plan, or, in a checkout from before the split, its one-CTA-per-
 (sequence, kv head) ``flash_decode``; SDPA (``enable_gqa``, a boolean
-mask, on a bf16 cache of the same values) as the yardstick. The timings run in turns — other, this, this, other — and
+mask, on a bf16 cache of the same values) as the yardstick. Kernel 6, the
+paged decode, at the serving shape (B 8, H 8, Hkv 8, D 128, page 256, 4
+pages a sequence, ragged fills up to 1023) on bf16, int8 and fp8 pools:
+this tree's ``flash_decode_paged`` (the chunk :func:`paged_decode_plan`
+sets) against the other checkout's ``paged_decode_split`` on this tree's plan
+where it has one, else its one-CTA-per-(sequence, kv head)
+``paged_decode``; SDPA (``enable_gqa``, a boolean mask past each fill) on
+the live rows gathered into a linear bf16 cache outside the timing as the
+yardstick. The timings run in turns — other, this, this, other — and
 each output is held against the plain version first. ``--train`` runs
 ``train_app`` at the training benchmark's chip model (8 steps, dense,
 flash) in each checkout, in the same turns, and reads each run's step
@@ -79,6 +89,10 @@ DECODE_CASES = (("bfloat16", 4, 8, 519), ("int8", 4, 8, 519),
                 ("bfloat16", 4, 8, 63), ("int8", 4, 8, 63),
                 ("bfloat16", 33, 8, 519), ("int8", 33, 8, 519))
 DECODE_ATOL = 1e-4
+# kernel 6 at the serving shape (chip_smoke.py's decode_case): B, H, Hkv,
+# D, page rows, pages a sequence; the pool dtypes
+PAGED_SHAPE = (8, 8, 8, 128, 256, 4)
+PAGED_KV = ("bfloat16", "int8", "fp8")
 TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048",
               "--d-model", "1024", "--n-layers", "8", "--n-heads", "8",
               "--vocab", "32768", "--attention", "flash", "--device",
@@ -452,6 +466,121 @@ def _decode_rows(other):
     return rows
 
 
+def _paged_rows(other):
+    """Kernel 6 (``flash_decode_paged``) at :data:`PAGED_SHAPE` on each
+    pool dtype of :data:`PAGED_KV` against the other checkout's kernel (its
+    ``paged_decode_split`` on this tree's plan where it has one, else its
+    one-CTA ``paged_decode``), in turns, each output held against the plain
+    version first; SDPA on the live rows gathered into a bf16 cache (the
+    gather made outside the timing) as the yardstick."""
+    from hpc_patterns_tpu_torch.models.decode import _quantize_rows
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    B, H, Hkv, D, P, pages = PAGED_SHAPE
+    n_pool = B * pages + 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    o_fn, o_split = None, False
+    if other is not None:
+        o_split = hasattr(other, "paged_decode_split")
+        o_fn = other.paged_decode_split if o_split else other.paged_decode
+        # the one-CTA entry: q, k, v, ks, vs, table, pos, pos_scalar, out,
+        # B, H, Hkv, D, P, pages, n_pool, scale, q code, kv code, stream
+        o_fn.argtypes = fd._PAGED_ARGS if o_split else (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        o_fn.restype = ctypes.c_int
+    pos = torch.randint(0, pages * P, (B,), generator=gen, device="cuda")
+    pos[:4] = torch.tensor([0, P - 1, P, pages * P - 1], device="cuda")
+    pos = pos.to(torch.int32)
+    table = torch.randperm(n_pool, generator=gen, device="cuda")[:B * pages]
+    table = table.to(torch.int32).reshape(B, pages).contiguous()
+    S = pages * P
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    rows = []
+    for kv in PAGED_KV:
+        quant = kv in ("int8", "fp8")
+        esz = 1 if quant else 2
+        per = 2 * n_pool * Hkv * P * (D * esz + 4 * quant)
+        sets, lib_sets = [], []
+        for _ in range(max(2, min(32, math.ceil(150e6 / per)))):
+            q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+            kp, vp = (torch.randn(n_pool, Hkv, P, D, generator=gen,
+                                  device="cuda") for _ in range(2))
+            if quant:
+                (kp, ks), (vp, vs) = (_quantize_rows(kp, kv),
+                                      _quantize_rows(vp, kv))
+                ks, vs = (ks[:, :, None, :].contiguous(),
+                          vs[:, :, None, :].contiguous())
+                kd = fd._gather_pages(kp, table.long()).float() \
+                    * fd._gather_pages(ks.transpose(2, 3), table.long())
+                vd = fd._gather_pages(vp, table.long()).float() \
+                    * fd._gather_pages(vs.transpose(2, 3), table.long())
+            else:
+                kp, vp, ks, vs = kp.bfloat16(), vp.bfloat16(), None, None
+                kd = fd._gather_pages(kp, table.long())
+                vd = fd._gather_pages(vp, table.long())
+            sets.append((q, kp, vp, ks, vs))
+            lib_sets.append((q[:, :, None, :], kd.bfloat16(), vd.bfloat16()))
+        n_chunks, chunk = fd.paged_decode_plan(pages, P)
+
+        def this(q, kp, vp, ks, vs):
+            return fd.flash_decode_paged(q, kp, vp, table, pos,
+                                         k_scale_pool=ks, v_scale_pool=vs)
+
+        def theirs(q, kp, vp, ks, vs):
+            out = torch.empty(B, H, D, device="cuda")
+            args = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    None if ks is None else ks.data_ptr(),
+                    None if vs is None else vs.data_ptr(), table.data_ptr(),
+                    pos.data_ptr(), 0, out.data_ptr()]
+            if o_split:
+                part = torch.empty(B * H * n_chunks * (D + 2), device="cuda")
+                args += [part.data_ptr(), n_chunks, chunk]
+            _build.check(o_fn(*args, B, H, Hkv, D, P, pages, n_pool,
+                              1.0 / math.sqrt(D), 1,
+                              fd.KV_CODES[kp.dtype], stream()),
+                         "other paged_decode")
+            return out
+
+        fns = {"this": this}
+        if other is not None:
+            fns["other"] = theirs
+        want = fd.flash_decode_paged_reference(
+            sets[0][0], sets[0][1], sets[0][2], table, pos,
+            k_scale_pool=sets[0][3], v_scale_pool=sets[0][4])
+        errs = {}
+        for who, fn in fns.items():
+            e = (fn(*sets[0]) - want).abs().max().item()
+            if not e <= DECODE_ATOL:
+                raise RuntimeError(f"paged decode {kv} {who}: max err {e} "
+                                   f"> {DECODE_ATOL}")
+            errs[who] = e
+        order = (["other"] if other is not None else []) + ["this"]
+        times = {who: [] for who in fns}
+        for who in order + order[::-1]:
+            times[who].append(_device_ms(fns[who], sets))
+        lib = _device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                              enable_gqa=True), lib_sets)
+        live = int((pos.long() + 1).sum())
+        nbytes = (2 * live * Hkv * (D * esz + 4 * quant) + B * H * D * 2
+                  + B * H * D * 4 + table.numel() * 4 + B * 4)
+        row = {"shape": "paged_decode", "kv": kv, "B": B, "H": H,
+               "Hkv": Hkv, "D": D, "P": P, "pages": pages,
+               "pos": pos.tolist(), "n_chunks": n_chunks, "chunk": chunk,
+               "other_split": o_split if other is not None else None,
+               "ms": times, "max_abs_err": errs,
+               "sdpa_ms": lib, "sdpa": "enable_gqa, bool mask; the live rows "
+               "gathered into a bf16 cache outside the timing",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def _train(cwd: Path, label: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         log = Path(tmp) / "train.jsonl"
@@ -480,21 +609,26 @@ def main(argv=None) -> int:
                     help="another checkout of the repository to compare")
     ap.add_argument("--train", action="store_true",
                     help="also run the training step in both checkouts")
+    ap.add_argument("--decode", action="store_true",
+                    help="only the decode kernels (5 and 6)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_flash: needs an NVIDIA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = other_bwd = other_decode = None
+    other = other_bwd = other_decode = other_paged = None
     if args.other is not None:
         other = fa._fn(_other_lib(args.other, "flash_prefill"),
                        "flash_attention_fwd", 5, 6, 3)
         other_bwd = _other_lib(args.other, "flash_attention_bwd")
         other_decode = _other_lib(args.other, "flash_decode")
-    for shape in SHAPES:
-        _shape_row(*shape, other)
-    _backward_row(other_bwd, _kv_tile(args.other) if args.other else None)
+        other_paged = _other_lib(args.other, "paged_decode")
+    if not args.decode:
+        for shape in SHAPES:
+            _shape_row(*shape, other)
+        _backward_row(other_bwd, _kv_tile(args.other) if args.other else None)
     _decode_rows(other_decode)
+    _paged_rows(other_paged)
     if args.train:
         here = Path(__file__).resolve().parents[1]
         runs = [(args.other, "other")] if args.other is not None else []

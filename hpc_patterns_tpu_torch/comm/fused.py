@@ -4,8 +4,10 @@ of ``hpc_patterns_tpu/comm/fused.py``.
 The JAX kernels run the ring inside one Pallas kernel per chip, each hop
 a remote DMA to the neighbour chip. The port has one card and runs every
 rank inside one CUDA kernel (``csrc/fused_ring.cu``): each rank is a
-group of CTAs, a hop is a store into the right neighbour's dedicated
-receive slot in global memory plus a release/acquire flag. So every
+group of CTAs, a hop is a store into the right neighbour's receive slot
+in global memory plus a release/acquire flag (the allreduce's slots a
+small FIFO a link reuses under credits, sized by
+:func:`allreduce_plan` to stay in the L2). So every
 function here takes the **global** tensor, not a rank-local shard: a
 ``(ranks, ...)`` tensor whose row ``r`` is rank ``r``'s buffer.
 
@@ -68,6 +70,19 @@ SPIN_TIMEOUT_NS = 1_000_000_000
 #: AG_BM, AG_BN)
 AGMM_TILE = (128, 64)
 
+#: the allreduce's hop: one tile of a CTA's stripe, in 16-byte vectors,
+#: and its receive slots a ring link (csrc/fused_ring.cu's AR_TILE, 128
+#: threads x 4 = 8 KiB, and AR_SLOTS, which its fused_allreduce_config
+#: reports), and the bytes all of a launch's slots may take together:
+#: well inside the H100's 50 MB L2, so a partial is written and read
+#: there and never reaches DRAM. On an H100 at 2^25 f32 x 4 ranks more
+#: budget, slots or slack did not help (PERF.md)
+ALLREDUCE_TILE_VECTORS = 512
+ALLREDUCE_SLOTS = 4
+ALLREDUCE_FIFO_BUDGET = 16 << 20
+#: u32 words a FIFO counter takes (its own 128-byte line; FLAG_WORDS)
+FIFO_FLAG_WORDS = 32
+
 #: kernel launches in this process, by kernel (the main-path witness)
 launches = {"fused_allreduce": 0, "allgather_matmul": 0, "fused_permute": 0}
 
@@ -75,7 +90,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _KERNEL_IDS = {"fused_allreduce": 0, "allgather_matmul": 1, "fused_permute": 2}
 _THREADS = 256
 _STATUS = {1: "allreduce reduce-scatter phase", 2: "allreduce gather phase",
-           3: "allgather_matmul", 4: "fused_permute"}
+           3: "allgather_matmul", 4: "fused_permute",
+           5: "allreduce FIFO credit"}
 
 # scratch of the kernels (receive slots, flags, epoch): one geometry per
 # kernel, dropped when a call of another geometry comes, so no slots of an
@@ -222,9 +238,12 @@ def _lib():
         lib.fused_ring_clear_status.restype = None
         lib.fused_ring_capacity.argtypes = [i, i, ctypes.POINTER(i)]
         lib.fused_ring_capacity.restype = i
-        lib.fused_allreduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, u, i, i,
-                                        i, i, ll, ll, ll, i, i, ll, i, vp]
-        lib.fused_allreduce.restype = i
+        lib.fused_allreduce_fifo.argtypes = [vp, vp, vp, vp, vp, vp, u, i, i,
+                                             i, i, ll, ll, ll, i, i, ll, i,
+                                             vp]
+        lib.fused_allreduce_fifo.restype = i
+        lib.fused_allreduce_config.argtypes = [ctypes.POINTER(i)]
+        lib.fused_allreduce_config.restype = None
         lib.allgather_matmul.argtypes = [vp, vp, vp, vp, vp, vp, u, i, i, i,
                                          i, ll, ll, ll, i, ll, vp]
         lib.allgather_matmul.restype = i
@@ -374,8 +393,55 @@ def fused_allreduce(x: torch.Tensor, *, op: str = "sum", bias=None,
                                    ranks_launched=g.total)
 
 
+@dataclasses.dataclass(frozen=True)
+class AllreducePlan:
+    """The allreduce kernel's launch: ``ctas_a_rank`` CTAs a rank, each
+    running the ring over one stripe of every chunk in at most ``tiles``
+    tiles of :data:`ALLREDUCE_TILE_VECTORS` 16-byte vectors; the scratch
+    is the FIFO (``fifo_bytes``: :data:`ALLREDUCE_SLOTS` slots a ring
+    link) and two counters a link (``flag_words`` u32: tiles arrived,
+    tiles consumed), which run on from launch to launch."""
+
+    ctas_a_rank: int
+    tiles: int
+    fifo_bytes: int
+    flag_words: int
+
+
+def allreduce_plan(total: int, chunk_vectors: int, capacity: int, *,
+                   ctas_a_rank: int | None = None) -> AllreducePlan:
+    """The FIFO ring's plan for ``total`` flat ranks, chunks of
+    ``chunk_vectors`` 16-byte vectors, on a card that holds ``capacity``
+    co-resident CTAs of the kernel: as many CTAs a rank as are
+    co-resident and have a tile of work, no more than keep every link's
+    slots within :data:`ALLREDUCE_FIFO_BUDGET`. ``ctas_a_rank`` forces
+    fewer (the card tests' stripes of many tiles). Raises when the card
+    cannot hold one CTA per rank."""
+    link = ALLREDUCE_SLOTS * ALLREDUCE_TILE_VECTORS * 16
+    fit = ALLREDUCE_FIFO_BUDGET // (total * link)
+    G = max(1, min(_per_rank("fused_allreduce", capacity, total),
+                   ctas_a_rank or -(-chunk_vectors // ALLREDUCE_TILE_VECTORS),
+                   fit))
+    return AllreducePlan(
+        ctas_a_rank=G, tiles=-(-(-(-chunk_vectors // G))
+                               // ALLREDUCE_TILE_VECTORS),
+        fifo_bytes=total * G * link,
+        flag_words=total * G * 2 * FIFO_FLAG_WORDS)
+
+
+def allreduce_scratch(plan: AllreducePlan, device) -> dict:
+    """The allreduce's scratch for ``plan``: its FIFO, its counters (at
+    0) and the abort word."""
+    return {"fifo": torch.empty(plan.fifo_bytes, dtype=torch.uint8,
+                                device=device),
+            "flags": torch.zeros(plan.flag_words, dtype=torch.int32,
+                                 device=device),
+            "abort": torch.zeros(1, dtype=torch.int32, device=device)}
+
+
 def _fused_allreduce_launch(x, bias, epilogue, g: RingGeometry, *,
-                            ranks_launched: int) -> torch.Tensor:
+                            ranks_launched: int,
+                            ctas_a_rank: int | None = None) -> torch.Tensor:
     code = _dtype_code(x, "fused_allreduce")
     epi = _kernel_epilogue(epilogue)
     shard = x.shape[1:]
@@ -389,29 +455,19 @@ def _fused_allreduce_launch(x, bias, epilogue, g: RingGeometry, *,
     xp = _pad_rows(x, m, n, n_pad)
     bp = (None if bias is None
           else _bias_rows(bias, shard, x.dtype, x.device, m, n, n_pad))
-    chunk_vectors = m * cn // vec
-    G = _grid("fused_allreduce", code, g.total,
-              -(-chunk_vectors // (4 * _THREADS)))
-    S = g.size - 1
-
-    def make():
-        return {"rs": torch.empty(g.total * S * m * cn, dtype=x.dtype,
-                                  device=x.device),
-                "ag": torch.empty(g.total * S * m * cn, dtype=x.dtype,
-                                  device=x.device),
-                "flags": torch.zeros(g.total * G * 2 * S, dtype=torch.int32,
-                                     device=x.device),
-                "abort": torch.zeros(1, dtype=torch.int32, device=x.device)}
-
-    s = _get_scratch(("allreduce", x.device, g, m, cn, x.dtype, G), make)
+    plan = allreduce_plan(g.total, m * cn // vec,
+                          _capacity("fused_allreduce", code),
+                          ctas_a_rank=ctas_a_rank)
+    s = _get_scratch(("allreduce", x.device, g, m, cn, x.dtype, plan),
+                     lambda: allreduce_scratch(plan, x.device))
     out = torch.empty_like(xp)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.fused_allreduce(
+        rc = lib.fused_allreduce_fifo(
             xp.data_ptr(), None if bp is None else bp.data_ptr(),
-            out.data_ptr(), s["rs"].data_ptr(), s["ag"].data_ptr(),
-            s["flags"].data_ptr(), s["abort"].data_ptr(), s["epoch"], code,
-            g.size, g.stride, g.total, m, cn, n_pad, G, epi, SPIN_TIMEOUT_NS,
+            out.data_ptr(), s["fifo"].data_ptr(), s["flags"].data_ptr(),
+            s["abort"].data_ptr(), s["epoch"], code, g.size, g.stride,
+            g.total, m, cn, n_pad, plan.ctas_a_rank, epi, SPIN_TIMEOUT_NS,
             ranks_launched, stream)
     _build.check(rc, "fused_allreduce")
     launches["fused_allreduce"] += 1

@@ -1,6 +1,7 @@
 // Shared device code of the single-query decode kernels (sm_90a):
-// paged_decode.cu (the paged cache), flash_decode.cu (the linear cache)
-// and paged_attention.cu (the exact-softmax paged route).
+// paged_decode.cu (the paged cache), flash_decode.cu (the linear cache),
+// both through decode_split.cuh, and paged_attention.cu (the exact-softmax
+// paged route).
 //
 // The counterpart of hpc_patterns_tpu/ops/flash_decode.py::_softmax_block,
 // the one online-softmax block update behind both JAX decode kernels:
@@ -9,7 +10,7 @@
 // probability (p_j * vscale_j) instead of rescaling the (rows, D) tile;
 // mask -1e30; out = acc / max(l, 1e-30).
 //
-// Online's thread layout (the paged kernels; flash_decode.cu takes only
+// Online's thread layout (paged_attention.cu; the split kernels take only
 // Vec and the constants; 128 threads per CTA, one CTA per (sequence, kv
 // head)):
 // thread (rg, cg) owns the 16-byte column slice cg of the head (4 f32,
@@ -37,7 +38,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BLOCK_ROWS = 256;
 
 // one 16-byte load of cache values, widened to f32 (load); cvt widens 16
-// bytes already in registers (flash_decode.cu's split pass issues all its
+// bytes already in registers (decode_split.cuh's pass 1 issues all its
 // loads of a step before it widens any)
 template <typename T>
 struct Vec;

@@ -13,18 +13,21 @@
 //
 // Ranks are logical: a (total, ...) tensor whose row f is flat rank f's
 // buffer. Every rank runs inside the same kernel as a group of G CTAs. A hop
-// is a store into the right neighbour's dedicated receive slot in global
-// memory followed by a flag the neighbour acquires:
+// is a store into the right neighbour's receive slot in global memory
+// followed by a flag the neighbour acquires:
 //   sender:   all threads store (st.global.cg), __syncthreads(), then one
 //             thread: __threadfence(); st.release.gpu (or red.release.gpu
 //             .add for a counter several CTAs feed);
 //   receiver: one thread spins on ld.acquire.gpu, then __syncthreads();
 //             the slot is read with ld.global.cg (L2, never a stale L1).
-// Receive slots are dedicated per (phase, step): no slot is written twice
-// in a launch, so the race of fused.py:466-470 (a gather-phase write
-// landing in a reduce-scatter slot the neighbour has not read) cannot
-// happen. Flags compare against an epoch, the launch count of the scratch
-// they live in, so no memset is needed between launches.
+// The all-gather matmul's receive slots are dedicated per step: no slot is
+// written twice in a launch, so the race of fused.py:466-470 (a later write
+// landing in a slot the neighbour has not read) cannot happen there. The
+// allreduce's slots are a small FIFO a ring link reuses round after round,
+// guarded by credits (below). Flags compare against the launch's epoch,
+// and the allreduce's counters run on from launch to launch (each CTA
+// reads where its link's counters stand when it starts), so no memset is
+// needed between launches.
 //
 // Deadlock safety: a CTA spinning on a flag whose writer was never
 // scheduled would hang the card, so every kernel launches cooperatively
@@ -36,12 +39,28 @@
 // on (fused_ring_status).
 //
 // What bounds them on the H100: the allreduce and the permute move bytes
-// (each input read once, each output written once at 3.35 TB/s; the ring's
-// own slot traffic is about 2.25x that for the allreduce). The design
-// spreads the ring over the 132 SMs by column stripes: chunk columns are
-// independent, so CTA (rank, g) runs its own two-phase ring over stripe g
-// of every chunk, with one flag per (rank, stripe, phase, step) and no
-// grid-wide barrier, and moves 16-byte vectors. allgather_matmul is bound
+// (each input read once, each output written once at 3.35 TB/s). The
+// allreduce spreads the ring over the 132 SMs by column stripes: chunk
+// columns are independent, so CTA (rank, g) runs its own two-phase ring
+// over stripe g of every chunk, with no grid-wide barrier, and moves
+// 16-byte vectors. Its hops must not add DRAM traffic: a ring of W ranks
+// hands 2 (W - 1) partials of every stripe along, so slots that each hop
+// writes in full and the neighbour reads back cost 2.5x the bound's bytes
+// at W 4 once they outgrow the 50 MB L2. So a hop moves one tile of the
+// stripe (TILE = 128 threads x 4 vectors, 8 KiB) into a FIFO of
+// SLOTS = 4 tiles a link, and the tile a CTA receives is added and sent on
+// at once: the receiver hands a credit back once it has read a slot, and
+// the sender waits for that credit before it overwrites it. Every CTA's
+// FIFO together stays well inside the L2 (the wrapper plans 16 MiB at
+// most), and FIFO stores and loads carry an L2 evict_last policy while x
+// is loaded and out stored as streaming (ld/st.global.cs, evict-first),
+// so a partial is written and read in L2 and only x and out reach DRAM.
+// The partials still cross the L2 twice (written, read back), at W 4 1.5x
+// the bound's bytes again: on the H100 the kernel runs where x, out and
+// the FIFO together hold the L2 at about 4 TB/s (PERF.md). A CTA
+// reads its incoming tile and hands its credit back before it waits for
+// credit on its outgoing link, so a ring whose FIFOs are full still moves.
+// allgather_matmul is bound
 // by its f32 FMAs (67 TF/s outside the tensor cores; 0.128 ms at the bench
 // shape, 256 x 1024 x 1024 per rank x 4 ranks), and it keeps an f32 input
 // in its precision class: no TF32, no tensor cores. It is a register-blocked
@@ -62,7 +81,8 @@
 // ring.ring_allreduce_chunked; the bf16 add is __float2bfloat16_rn(float(a)
 // + float(b)), which is what PyTorch's bf16 add does, and int32 wraps. So
 // the kernel equals the plain version over the same chunk layout bit for
-// bit. The matmul differs from a library GEMM only by summation order.
+// bit (tiling a stripe moves no element's adds). The matmul differs from a
+// library GEMM only by summation order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -152,6 +172,82 @@ __device__ __forceinline__ void cta_count(unsigned* counter) {
   }
 }
 
+// The allreduce's counters only grow, from launch to launch, wrapping at
+// 2^32. cta_spin (thread 0 alone) keeps the value it last acquired in
+// *seen and goes to memory only when that does not reach want (compared
+// across the wrap); it spins until the counter does, and returns false if
+// this launch gave up. The acquire that saw the value
+// precedes the CTA's next barrier, so every thread's accesses after that
+// barrier are ordered after the counted tiles.
+__device__ bool cta_spin(const unsigned* flag, unsigned want, unsigned* seen, const Sync& s,
+                         unsigned code) {
+  unsigned long long t0 = 0;
+  for (unsigned it = 0; (int)(*seen - want) < 0; ++it) {
+    if (it == 1) {
+      t0 = globaltimer();
+    } else if (it > 1 && (it & 63u) == 0) {
+      if (*(volatile unsigned*)s.abort == s.epoch) return false;
+      if (globaltimer() - t0 > s.timeout_ns) {
+        atomicExch(s.abort, s.epoch);
+        *(volatile unsigned*)s.status = code;
+        __threadfence_system();
+        return false;
+      }
+    }
+    if (it) __nanosleep(32);
+    *seen = ld_acquire(flag);
+  }
+  return true;
+}
+
+// The CTA waits on cta_spin: thread 0 spins and leaves the answer in *ok
+// (its own shared word at each wait site, so one barrier suffices: the
+// next write to it lies behind another barrier).
+__device__ bool cta_wait_ge(const unsigned* flag, unsigned want, unsigned* seen,
+                            const Sync& s, unsigned code, volatile int* ok) {
+  if (threadIdx.x == 0) *ok = cta_spin(flag, want, seen, s, code);
+  __syncthreads();
+  return *ok != 0;
+}
+
+// A slot's credit handed back: every thread has its values of the slot in
+// registers (hold() made each load return before the barrier), so the
+// sender's next store into it cannot reach them, and a relaxed store
+// suffices (no fence on the receive path).
+__device__ __forceinline__ void cta_credit(unsigned* flag, unsigned value) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(flag), "r"(value) : "memory");
+}
+
+// The load that produced v has returned: its registers are read here.
+__device__ __forceinline__ void hold(const uint4& v) {
+  asm volatile("" ::"r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// The allreduce's FIFO traffic: L2 only (never a stale L1), kept in the L2
+// ahead of streaming lines (evict_last). x and out stream (evict_first).
+__device__ __forceinline__ unsigned long long l2_evict_last() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint4 ld_fifo(const uint4* p, unsigned long long pol) {
+  uint4 v;
+  asm volatile("ld.global.cg.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(pol)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_fifo(uint4* p, uint4 v, unsigned long long pol) {
+  asm volatile("st.global.cg.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
+               ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
+               : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // element types (16-byte vectors)
 // ---------------------------------------------------------------------------
@@ -200,13 +296,23 @@ enum { EPI_NONE = 0, EPI_RELU = 1 };
 // fused_allreduce
 // ---------------------------------------------------------------------------
 
+// a FIFO counter's stride in words: each counter on its own 128-byte line
+constexpr int FLAG_WORDS = 32;
+// the allreduce's CTA: 128 threads, so that an SM holds several of its
+// rings' CTAs at once, each moving its own tile of AR_VPT vectors a thread
+// (8 KiB: on the H100 faster than 2 and 4 KiB tiles), AR_SLOTS receive
+// slots a link, walking AR_SLOTS - 1 tiles together (one slot of slack: on
+// the H100 at 2^25 f32 x 4 ranks no slower than 6 slots, two of slack or
+// a 24-32 MiB FIFO; PERF.md)
+constexpr int AR_THREADS = 128, AR_VPT = 4, AR_TILE = AR_THREADS * AR_VPT;
+constexpr int AR_SLOTS = 4, AR_INTERLEAVE = AR_SLOTS - 1;
+
 struct RingArgs {
   const uint4* x;     // (total, m, n_pad) in 16-byte vectors
   const uint4* bias;  // (m, n_pad) or null
   uint4* out;         // (total, m, n_pad)
-  uint4* rs;          // (total, size-1, M) reduce-scatter receive slots
-  uint4* ag;          // (total, size-1, M) all-gather receive slots
-  unsigned* flags;    // (total, G, 2, size-1)
+  uint4* fifo;        // (total, G, SLOTS, TILE): each link's receive slots
+  unsigned* flags;    // (total, G, 2, FLAG_WORDS): tiles arrived, consumed
   int size, stride, total, G, epilogue;
   long long m, cnv, n_padv, M;  // M = m * cnv vectors per chunk
 };
@@ -234,74 +340,177 @@ __device__ __forceinline__ uint4 vepi(uint4 v, const uint4* bias, long long bidx
   return v;
 }
 
+// CTA (f, g) runs the ring over stripe g of every chunk of flat rank f.
+// Its outgoing link is (dst, g): slots fifo[dst, g], counters flags[dst,
+// g]; its incoming link (f, g) the same of its own. A tile carries 2S
+// messages, S = size - 1: message 0 the raw local chunk pos - 1, 1 .. S -
+// 1 the reduce-scatter's partials, S the fully reduced chunk pos, S + 1
+// .. 2S - 1 its forwards; message r of a tile leaves once message r - 1
+// of the same tile has arrived. The CTA takes its tiles in groups of L =
+// AR_INTERLEAVE < SLOTS and walks each group message by message, tile by
+// tile (a step: one tile of one message): so a tile it sends depends on
+// one its left neighbour sent L steps earlier, whose hop latency hides
+// behind L steps of work. Item k of a launch is the k-th tile a link
+// carries; base + k + 1 the counters' value once it has arrived (and once
+// it has been consumed), base where the launch found them: every link of
+// stripe g carries the same 2S x tiles items a launch, so all of them
+// stand at the same base, which thread 0 reads from its incoming link's
+// consumed counter (written by this CTA alone, in an earlier
+// launch). Counters that run on cost nothing at a launch's start: on the
+// H100, two sets of counters by the epoch's parity, each launch zeroing
+// the next one's, ran 9% slower at 2^25 f32 x 4 ranks (PERF.md).
+// A step: thread 0 waits for the incoming tile and probes, never waits
+// for, the outgoing credit; one barrier; the tile is read (with the x tile
+// loaded a step ahead), added, written out and stored into the outgoing
+// slot; one barrier; thread 0 hands the read slot's credit back (a relaxed
+// store: every value read from it has landed) and publishes the sent
+// tile (a release store). Only when the probe found no credit does the
+// step hand its credit back first and then wait (two barriers more), so a
+// CTA never holds a slot while it waits: a CTA waiting on credit for item
+// k faces a neighbour that waits on an earlier item, and around the ring
+// someone moves.
 template <class Op>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(AR_THREADS)
 fused_allreduce_kernel(RingArgs a, Sync sync) {
+  constexpr int VPT = AR_VPT, TILE = AR_TILE, SLOTS = AR_SLOTS, L = AR_INTERLEAVE;
+  __shared__ int ok_in, ok_out, ok_wait;
   const int f = blockIdx.x / a.G;  // flat rank
   const int g = blockIdx.x % a.G;  // column stripe
-  const int size = a.size;
+  const int tid = threadIdx.x;
+  const int size = a.size, S = size - 1;
   const int pos = (f / a.stride) % size;
   const int dst = f + (((pos + 1) % size) - pos) * a.stride;
   const long long per = (a.M + a.G - 1) / a.G;
   const long long e0 = (long long)g * per;
   const long long e1 = e0 + per < a.M ? e0 + per : a.M;
-  const long long S = size - 1;
+  const int tiles = e1 > e0 ? (int)((e1 - e0 + TILE - 1) / TILE) : 0;
+  const long long in_link = (long long)f * a.G + g;
+  const long long out_link = (long long)dst * a.G + g;
+  unsigned* arrived_in = a.flags + in_link * 2 * FLAG_WORDS;
+  unsigned* consumed_in = arrived_in + FLAG_WORDS;
+  unsigned* arrived_out = a.flags + out_link * 2 * FLAG_WORDS;
+  const unsigned* consumed_out = arrived_out + FLAG_WORDS;
+  const uint4* fifo_in = a.fifo + in_link * SLOTS * TILE;
+  uint4* fifo_out = a.fifo + out_link * SLOTS * TILE;
+  const unsigned long long keep = l2_evict_last();
+  const unsigned cnv = (unsigned)a.cnv;  // the host checked M < 2^31
+  // where this launch finds the links' counters, and thread 0's last
+  // acquired counters
+  const unsigned base = tid == 0 ? *(volatile const unsigned*)consumed_in : 0u;
+  unsigned seen_in = base, seen_out = base;
 
-  auto xoff = [&](int rank, int chunk, long long e) {
-    long long row = e / a.cnv, col = e % a.cnv;
-    return ((long long)rank * a.m + row) * a.n_padv + chunk * a.cnv + col;
+  auto xoff = [&](int rank, int chunk, unsigned e) {
+    const unsigned row = e / cnv, col = e - row * cnv;
+    return ((long long)rank * a.m + row) * a.n_padv + (long long)chunk * cnv + col;
   };
-  auto boff = [&](int chunk, long long e) {
-    long long row = e / a.cnv, col = e % a.cnv;
-    return row * a.n_padv + chunk * a.cnv + col;
+  auto boff = [&](int chunk, unsigned e) {
+    const unsigned row = e / cnv, col = e - row * cnv;
+    return (long long)row * a.n_padv + (long long)chunk * cnv + col;
   };
-  auto slot = [&](uint4* base, int rank, int s) { return base + ((long long)rank * S + s) * a.M; };
-  auto flag = [&](int rank, int phase, int s) {
-    return a.flags + (((long long)rank * a.G + g) * 2 + phase) * S + s;
+  auto load_x = [&](uint4 (&v)[VPT], int chunk, long long lo) {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const long long e = lo + tid + i * AR_THREADS;
+      v[i] = e < e1 ? __ldcs(a.x + xoff(f, chunk, (unsigned)e)) : make_uint4(0u, 0u, 0u, 0u);
+    }
   };
+  // the local chunk that message r (<= S) carries or adds: 0 the raw
+  // chunk pos - 1, r = s the reduce-scatter step's chunk pos - 1 - s
+  auto x_chunk = [&](int r) { return (pos + 2 * size - 1 - r) % size; };
 
-  // --- phase 1: reduce-scatter. step 0 sends chunk pos-1 raw; step s adds
-  // the local chunk pos-1-s to the partial that arrived (mine + incoming)
-  {
-    const int j = (pos + size - 1) % size;
-    uint4* to = slot(a.rs, dst, 0);
-    for (long long e = e0 + threadIdx.x; e < e1; e += THREADS) __stcg(to + e, a.x[xoff(f, j, e)]);
-    cta_signal(flag(dst, 0, 0), sync.epoch);
-  }
-  for (int s = 1; s < size; ++s) {
-    if (!cta_wait(flag(f, 0, s - 1), sync.epoch, sync, 1u)) return;
-    const int j = (pos + size - 1 - s) % size;
-    const uint4* in = slot(a.rs, f, s - 1);
-    if (s < size - 1) {
-      uint4* to = slot(a.rs, dst, s);
-      for (long long e = e0 + threadIdx.x; e < e1; e += THREADS)
-        __stcg(to + e, vadd<Op>(a.x[xoff(f, j, e)], __ldcg(in + e)));
-      cta_signal(flag(dst, 0, s), sync.epoch);
-    } else {
-      // chunk pos is fully reduced: it starts the gather ring and lands
-      // in the output through the epilogue
-      uint4* to = slot(a.ag, dst, 0);
-      for (long long e = e0 + threadIdx.x; e < e1; e += THREADS) {
-        uint4 v = vadd<Op>(a.x[xoff(f, j, e)], __ldcg(in + e));
-        __stcg(to + e, v);
-        a.out[xoff(f, j, e)] = vepi<Op>(v, a.bias, boff(j, e), a.epilogue);
+  // The walk: groups of n <= L tiles from tile t0, message r, tile u of the
+  // group. xn holds the x tile of the step the walk takes next, loaded a
+  // step ahead so that its DRAM latency hides behind the current step.
+  int t0 = 0, n = tiles < L ? tiles : L, r = 0, u = 0;
+  uint4 xn[VPT];
+  if (tiles) load_x(xn, x_chunk(0), e0);
+  while (t0 < tiles) {
+    const long long lo = e0 + (long long)(t0 + u) * TILE;
+    const unsigned first = (unsigned)t0 * 2u * (unsigned)S;  // the group's first item
+    uint4 v[VPT], xv[VPT];
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) xv[i] = xn[i];
+    int t1 = t0, n1 = n, r1 = r, u1 = u + 1;  // the next step
+    if (u1 == n) {
+      u1 = 0;
+      if (++r1 > 2 * S) {
+        r1 = 0;
+        t1 += n;
+        n1 = tiles - t1 < L ? tiles - t1 : L;
       }
-      cta_signal(flag(dst, 1, 0), sync.epoch);
     }
-  }
-  // --- phase 2: all-gather, each arriving chunk forwarded before it is
-  // written out
-  for (int s = 1; s < size; ++s) {
-    if (!cta_wait(flag(f, 1, s - 1), sync.epoch, sync, 2u)) return;
-    const int j = (pos + size - s) % size;
-    const uint4* in = slot(a.ag, f, s - 1);
-    uint4* to = s < size - 1 ? slot(a.ag, dst, s) : nullptr;
-    for (long long e = e0 + threadIdx.x; e < e1; e += THREADS) {
-      uint4 v = __ldcg(in + e);
-      if (to) __stcg(to + e, v);
-      a.out[xoff(f, j, e)] = vepi<Op>(v, a.bias, boff(j, e), a.epilogue);
+    if (t1 < tiles && r1 <= S) load_x(xn, x_chunk(r1), e0 + (long long)(t1 + u1) * TILE);
+
+    // items: k_in arrives (message r - 1), k_out leaves (message r)
+    const unsigned k_in = first + (unsigned)((r - 1) * n + u);
+    const unsigned k_out = first + (unsigned)(r * n + u);
+    const bool recv = r > 0, send = r < 2 * S;
+    // the outgoing slot is free once the neighbour consumed item k_out -
+    // SLOTS (a launch's first SLOTS items find theirs free)
+    const bool credit = send && k_out >= (unsigned)SLOTS;
+    const unsigned want_credit = base + k_out + 1u - (unsigned)SLOTS;
+    if (tid == 0) {
+      ok_in = !recv ||
+              cta_spin(arrived_in, base + k_in + 1u, &seen_in, sync, r <= S ? 1u : 2u);
+      ok_out = !credit || (int)(seen_out - want_credit) >= 0 ||
+               (int)((seen_out = ld_acquire(consumed_out)) - want_credit) >= 0;
     }
-    if (to) cta_signal(flag(dst, 1, s), sync.epoch);
+    __syncthreads();
+    if (!ok_in) return;  // the launch gave up
+    const bool credit_later = !ok_out;  // every thread reads it before the next barrier
+    if (r == 0) {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) v[i] = xv[i];  // message 0 leaves raw
+    } else {
+      // message r - 1 arrives; reduce-scatter step s = r adds xv to it
+      const uint4* slot = fifo_in + (long long)(k_in % (unsigned)SLOTS) * TILE;
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        v[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (lo + tid + i * AR_THREADS < e1) v[i] = ld_fifo(slot + tid + i * AR_THREADS, keep);
+      }
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        hold(v[i]);
+        if (r <= S) v[i] = vadd<Op>(xv[i], v[i]);  // mine + incoming
+      }
+      if (r >= S) {
+        // chunk jo is fully reduced: it lands in the output through the
+        // epilogue (r = S: chunk pos, which starts the gather)
+        const int jo = (pos + size - (r - S)) % size;
+#pragma unroll
+        for (int i = 0; i < VPT; ++i) {
+          const long long e = lo + tid + i * AR_THREADS;
+          if (e < e1)
+            __stcs(a.out + xoff(f, jo, (unsigned)e),
+                   vepi<Op>(v[i], a.bias, boff(jo, (unsigned)e), a.epilogue));
+        }
+      }
+    }
+    if (credit_later) {
+      // no credit yet: hand back the slot just read before waiting for one
+      if (recv) cta_credit(consumed_in, base + k_in + 1u);
+      if (!cta_wait_ge(consumed_out, want_credit, &seen_out, sync, 5u, &ok_wait)) return;
+    }
+    if (send) {
+      uint4* slot = fifo_out + (long long)(k_out % (unsigned)SLOTS) * TILE;
+#pragma unroll
+      for (int i = 0; i < VPT; ++i)
+        if (lo + tid + i * AR_THREADS < e1) st_fifo(slot + tid + i * AR_THREADS, v[i], keep);
+    }
+    // one barrier: the slot read is handed back (every value read from it
+    // is in registers: a relaxed store) and the tile sent is published
+    __syncthreads();
+    if (tid == 0) {
+      if (recv && !credit_later)
+        asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(consumed_in),
+                     "r"(base + k_in + 1u) : "memory");
+      if (send) st_release(arrived_out, base + k_out + 1u);
+    }
+    t0 = t1;
+    n = n1;
+    r = r1;
+    u = u1;
   }
 }
 
@@ -724,11 +933,12 @@ Sync make_sync(void* abort_word, unsigned epoch, long long timeout_ns) {
   return s;
 }
 
-int launch(int which, int dtype, int blocks, void* args, Sync* sync, void* stream) {
+int launch(int which, int dtype, int blocks, int threads, void* args, Sync* sync,
+           void* stream) {
   const void* fn = kernel_for(which, dtype);
   if (!fn || !g_status_dev) return (int)cudaErrorInvalidValue;
   void* params[] = {args, sync};
-  cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(THREADS), params, 0,
+  cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), params, 0,
                               (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -747,7 +957,8 @@ extern "C" int fused_ring_init() {
 }
 
 // The error code a timed-out spin wrote (0 = none): 1/2 allreduce phase
-// 1/2, 3 allgather_matmul, 4 permute. Read without synchronizing.
+// 1/2, 3 allgather_matmul, 4 permute, 5 an allreduce FIFO credit. Read
+// without synchronizing.
 extern "C" unsigned fused_ring_status() {
   return g_status_host ? *(volatile unsigned*)g_status_host : 0u;
 }
@@ -777,7 +988,8 @@ extern "C" int fused_ring_capacity(int which, int dtype, int* out) {
   } else {
     const void* fn = kernel_for(which, dtype);
     if (!fn) return (int)cudaErrorInvalidValue;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, which == K_ALLREDUCE ? AR_THREADS : THREADS, 0);
   }
   *out = per_sm * sms;
   return (int)cudaGetLastError();
@@ -792,21 +1004,35 @@ extern "C" void allgather_matmul_config(int* out) {
   out[3] = AG_SMEM;
 }
 
+// The allreduce's launch constants: its tile in 16-byte vectors, its
+// receive slots a link, its threads a CTA and a counter's stride in u32
+// words (the wrapper's plan sizes the scratch by them).
+extern "C" void fused_allreduce_config(int* out) {
+  out[0] = AR_TILE;
+  out[1] = AR_SLOTS;
+  out[2] = AR_THREADS;
+  out[3] = FLAG_WORDS;
+}
+
+// The allreduce over `fifo` (total * G * AR_SLOTS * AR_TILE 16-byte
+// vectors) and `flags` (total * G * 2 * FLAG_WORDS u32, zeros before the
+// first launch; every launch on them leaves each link's counters equal, so
+// launches that share them run in stream order with one geometry).
 // ranks_launched < total only from the card test that proves a missing
 // rank times out instead of hanging.
-extern "C" int fused_allreduce(const void* x, const void* bias, void* out, void* rs,
-                               void* ag, void* flags, void* abort_word, unsigned epoch,
-                               int dtype, int size, int stride, int total, long long m,
-                               long long cn, long long n_pad, int G, int epilogue,
-                               long long timeout_ns, int ranks_launched, void* stream) {
+extern "C" int fused_allreduce_fifo(const void* x, const void* bias, void* out, void* fifo,
+                                    void* flags, void* abort_word, unsigned epoch, int dtype,
+                                    int size, int stride, int total, long long m,
+                                    long long cn, long long n_pad, int G, int epilogue,
+                                    long long timeout_ns, int ranks_launched, void* stream) {
   const int vec = dtype == DT_BF16 ? 8 : 4;
-  if (cn % vec || n_pad % vec) return (int)cudaErrorInvalidValue;
+  if (cn % vec || n_pad % vec || m * (cn / vec) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   RingArgs a;
   a.x = (const uint4*)x;
   a.bias = (const uint4*)bias;
   a.out = (uint4*)out;
-  a.rs = (uint4*)rs;
-  a.ag = (uint4*)ag;
+  a.fifo = (uint4*)fifo;
   a.flags = (unsigned*)flags;
   a.size = size;
   a.stride = stride;
@@ -818,7 +1044,7 @@ extern "C" int fused_allreduce(const void* x, const void* bias, void* out, void*
   a.n_padv = n_pad / vec;
   a.M = m * (cn / vec);
   Sync s = make_sync(abort_word, epoch, timeout_ns);
-  return launch(K_ALLREDUCE, dtype, ranks_launched * G, &a, &s, stream);
+  return launch(K_ALLREDUCE, dtype, ranks_launched * G, AR_THREADS, &a, &s, stream);
 }
 
 extern "C" int allgather_matmul(const void* x, const void* w, void* out, void* buf,
@@ -860,5 +1086,5 @@ extern "C" int fused_permute(const void* x, void* out, const void* dst, void* co
   a.G = G;
   a.row_bytes = row_bytes;
   Sync s = make_sync(abort_word, epoch, timeout_ns);
-  return launch(K_PERMUTE, 0, total * G, &a, &s, stream);
+  return launch(K_PERMUTE, 0, total * G, THREADS, &a, &s, stream);
 }

@@ -11,9 +11,12 @@ counterpart of ``hpc_patterns_tpu/ops/flash_decode.py``.
   softmax;
 - :func:`flash_decode_paged`: the PAGED cache through a page table; on
   CUDA tensors ``csrc/paged_decode.cu`` (replacing
-  ``_decode_kernel_paged``), on CPU tensors
-  :func:`flash_decode_paged_reference`, the gather-through-the-table
-  masked softmax of ``models/decode.py::_paged_attend_gather``.
+  ``_decode_kernel_paged``): the same split, each sequence's rows in the
+  fixed chunks :func:`paged_decode_plan` sets (never by the batch, the kv
+  heads or the card), a pass-1 CTA past a sequence's fill doing nothing,
+  merged by lse; on CPU tensors :func:`flash_decode_paged_reference`, the
+  gather-through-the-table masked softmax of
+  ``models/decode.py::_paged_attend_gather``.
 
 Both take caches in the compute dtype or one byte per value (int8,
 float8_e4m3fn) with per-row f32 dequant scales: (B, Hkv, S_max) for the
@@ -48,6 +51,13 @@ _SPLIT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
+#: ``paged_decode_split``'s C arguments: q, k_pool, v_pool, ks_pool,
+#: vs_pool, table, pos, pos_scalar, out, the workspace, n_chunks, chunk, B,
+#: H, Hkv, D, P, pages, n_pool, scale, q code, kv code, stream
+_PAGED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+               + [ctypes.c_int] * 9
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
 #: one-byte storage dtypes that carry per-row scales
 QUANTIZED = (torch.int8, torch.float8_e4m3fn)
 #: query rows per kv head the kernels take (their G_MAX)
@@ -61,6 +71,12 @@ G_MAX = 8
 #: parallelism it adds
 CHUNK_ROWS = 64
 CTAS_PER_SM = 2
+#: the paged split's chunk: rows a pass-1 CTA takes, fixed so that a
+#: sequence's bits never depend on what it is batched with (the engine's
+#: step against a standalone decode); chosen on an H100 at the serving
+#: shape among 64, 128 and 256 rows, the fastest on bf16, int8 and fp8
+#: pools alike (PERF.md)
+PAGED_CHUNK_ROWS = 128
 
 
 def decode_chunks(pos: int, rows: int, sms: int) -> tuple[int, int]:
@@ -78,6 +94,32 @@ def decode_chunks(pos: int, rows: int, sms: int) -> tuple[int, int]:
     n = max(1, min(want, -(-live // CHUNK_ROWS)))
     chunk = -(-(-(-live // n)) // CHUNK_ROWS) * CHUNK_ROWS
     return -(-live // chunk), chunk
+
+
+def paged_decode_chunk(P: int) -> int:
+    """The paged kernel's chunk rows for pages of ``P`` rows:
+    :data:`PAGED_CHUNK_ROWS`; where a page's rows are a multiple of 64, it
+    is halved (down to 64) until it divides the page or is a multiple of
+    it, so that no chunk straddles a page; other page sizes take it as it
+    is (a chunk then spans a page edge). It depends on nothing else: not
+    the batch, the kv heads, the fill or the card."""
+    if P < 1:
+        raise ValueError(f"no paged chunk for P {P}")
+    rows = PAGED_CHUNK_ROWS
+    if P % 64 == 0:
+        while P % rows and rows % P:
+            rows //= 2
+    return rows
+
+
+def paged_decode_plan(pages: int, P: int) -> tuple[int, int]:
+    """``(n_chunks, chunk)`` of the paged kernel for a table of ``pages``
+    pages of ``P`` rows: chunk i holds rows ``[i * chunk, (i + 1) *
+    chunk)`` of every sequence, and n_chunks covers the table's rows
+    (``pos`` lives on the card, so the plan takes the largest fill; a
+    chunk past a sequence's fill runs no work)."""
+    chunk = paged_decode_chunk(P)
+    return -(-pages * P // chunk), chunk
 
 
 _sms: dict[int, int] = {}
@@ -271,7 +313,10 @@ def flash_decode_paged(q, k_pool, v_pool, table, pos, *,
     tensor of per-sequence positions — the row at ``pos`` must already
     hold this token's K/V. Returns (B, H, D) f32. ``pages_per_step`` is
     JAX's grid-step knob and is accepted for parity only: the CUDA kernel
-    streams each live page in blocks of its own (up to 256 rows).
+    splits each sequence's rows into the chunks of
+    :func:`paged_decode_plan` (a CTA each, merged by lse from an f32
+    workspace of B * H * n_chunks * (D + 2) values when the table holds
+    more than one chunk); the host never reads ``pos``.
     CUDA: the Hopper kernel (f32/bf16 q; pools of q's dtype or one-byte;
     D in (16, 32, 64, 128); H / Hkv <= :data:`G_MAX`); anything else
     raises. CPU: :func:`flash_decode_paged_reference`."""
@@ -297,19 +342,20 @@ def flash_decode_paged(q, k_pool, v_pool, table, pos, *,
     pos_ptr, pos_scalar = kernel_pos(pos, q)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    fn = _build.load("paged_decode").paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    n_chunks, chunk = paged_decode_plan(pages, P)
+    fn = _build.load("paged_decode").paged_decode_split
+    fn.argtypes = _PAGED_ARGS
     fn.restype = ctypes.c_int
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    part = None if n_chunks == 1 else torch.empty(
+        B * H * n_chunks * (D + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 _ptr(k_scale_pool), _ptr(v_scale_pool), table.data_ptr(),
-                pos_ptr, pos_scalar, out.data_ptr(), B, H, Hkv, D, P, pages,
-                n_pool, float(scale), qc, kc, stream)
+                pos_ptr, pos_scalar, out.data_ptr(), _ptr(part), n_chunks,
+                chunk, B, H, Hkv, D, P, pages, n_pool, float(scale), qc, kc,
+                stream)
     _build.check(rc, "paged_decode")
     launches["paged_decode"] += 1
     return out

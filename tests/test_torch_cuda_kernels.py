@@ -349,6 +349,79 @@ def test_paged_decode_kernel_all_pool_dtypes(gen, kv, H, Hkv, D, P):
         assert (got - want).abs().max().item() <= 1e-4
 
 
+
+def _seq_pools(gen, kv, n_pool, Hkv, D, P, qdt):
+    kp, ks = _cache(gen, (n_pool, Hkv, P, D), kv, qdt)
+    vp, vs = _cache(gen, (n_pool, Hkv, P, D), kv, qdt)
+    if ks is not None:
+        ks, vs = ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D,P", [(8, 8, 128, 256), (8, 1, 64, 16),
+                                       (8, 2, 32, 300)])
+def test_paged_decode_kernel_is_batch_invariant(gen, kv, H, Hkv, D, P):
+    # one sequence decoded alone (B 1, a table just wide enough) and as
+    # row 5 of a batch of 8 with a wider table gives equal bits: the chunk
+    # is fixed by (P, D, dtype), not by the batch, the kv heads or the
+    # table width; fills on and next to the chunk and page edges
+    qdt = _qdtype(kv)
+    pages, wide = 4, 7
+    kp, vp, ks, vs = _seq_pools(gen, kv, 8 * wide + 1, Hkv, D, P, qdt)
+    q = torch.randn(8, H, D, generator=gen, device="cuda").to(qdt)
+    table = torch.randperm(8 * wide + 1, generator=gen,
+                           device="cuda")[:8 * wide]
+    table = table.to(torch.int32).reshape(8, wide)
+    chunk = fd.paged_decode_plan(pages, P)[1]
+    assert fd.paged_decode_plan(wide, P)[1] == chunk
+    fills = sorted({p for c in (1, 2, 3) for p in (c * chunk - 1, c * chunk)
+                    if p < pages * P} | {0, P - 1, pages * P - 1})
+    for fill in fills:
+        pos = torch.randint(0, wide * P, (8,), generator=gen, device="cuda")
+        pos[5] = fill
+        pos = pos.to(torch.int32)
+        batch = fd.flash_decode_paged(q, kp, vp, table, pos, k_scale_pool=ks,
+                                      v_scale_pool=vs)
+        alone = fd.flash_decode_paged(
+            q[5:6].clone(), kp, vp, table[5:6, :pages].clone(),
+            pos[5:6].clone(), k_scale_pool=ks, v_scale_pool=vs)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batch[5]), fill
+        want = fd.flash_decode_paged_reference(
+            q[5:6], kp, vp, table[5:6, :pages], pos[5:6], k_scale_pool=ks,
+            v_scale_pool=vs)
+        assert (alone - want).abs().max().item() <= 1e-4, fill
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("P,pages", [(256, 8), (192, 8), (16, 64)])
+def test_paged_decode_kernel_chunks_past_every_fill_equal_bits(gen, kv, H,
+                                                               Hkv, P, pages):
+    # a table of 8-24 chunks whose every sequence fills far less of it:
+    # the chunks past each fill run no work and the merge reads none of
+    # them; g from 1 to 8 (G_MAX); the page sizes plan 128-row chunks
+    # inside a page, 64-row ones (P 192) and 128-row ones across eight
+    # pages (P 16); two calls give equal bits, one launch a call
+    B, D = 3, 128
+    qdt = _qdtype(kv, f32_with=("fp8",))
+    q, kp, vp, ks, vs, table = _pools(gen, kv, B, H, Hkv, D, P, pages, qdt)
+    pos = torch.tensor([5, 300, 700], dtype=torch.int32, device="cuda")
+    n_chunks, chunk = fd.paged_decode_plan(pages, P)
+    assert 700 // chunk + 1 < n_chunks  # chunks past every fill
+    n = fd.launches["paged_decode"]
+    got = fd.flash_decode_paged(q, kp, vp, table, pos, k_scale_pool=ks,
+                                v_scale_pool=vs)
+    again = fd.flash_decode_paged(q, kp, vp, table, pos, k_scale_pool=ks,
+                                  v_scale_pool=vs)
+    torch.cuda.synchronize()
+    assert fd.launches["paged_decode"] == n + 2
+    assert torch.equal(got, again)
+    want = fd.flash_decode_paged_reference(q, kp, vp, table, pos,
+                                           k_scale_pool=ks, v_scale_pool=vs)
+    assert (got - want).abs().max().item() <= 1e-4
+
 def _linear_decode_positions(gen, kv, B, H, Hkv, D, S, positions):
     """Kernel 5 at each position against its plain version, twice for
     equal bits, one launch a call."""
@@ -723,6 +796,114 @@ def test_fused_permute_kernel_at_the_bench_shape(gen):
         fused.synchronize()
         assert torch.equal(got, fused.fused_permute_reference(x, perm))
 
+
+
+# (size, stride, total, shard, dtype, CTAs a rank): stripes of many tiles
+# whose last is ragged (few CTAs a rank; M a multiple of no tile), m > 1
+# rows a shard, the rings of multi-axis geometries (stride > 1,
+# replicas), and the plan's own CTA count (None)
+FIFO_CASES = [(4, 1, 4, (3, 70000), torch.float32, 2),
+              (3, 1, 3, (5, 24584), torch.bfloat16, 1),
+              (5, 1, 5, (131079,), torch.int32, 3),
+              (2, 4, 8, (2, 40000), torch.float32, 2),
+              (2, 2, 8, (50000,), torch.bfloat16, 1),
+              (4, 2, 8, (3, 9000), torch.int32, None),
+              (8, 1, 8, (1 << 20,), torch.float32, None)]
+
+
+@pytest.mark.parametrize("case", FIFO_CASES)
+def test_fused_allreduce_fifo_equals_plain_bitwise(gen, case):
+    # stripes of many tiles, walked three at a time through four slots a
+    # link (the rings wait on credits: it must not deadlock), with and
+    # without the bias/relu epilogue
+    size, stride, total, shard, dtype, ctas = case
+    g = fused.RingGeometry(size=size, stride=stride, total=total)
+    x = _ring_input(gen, total, shard, dtype)
+    bias = _ring_input(gen, 1, shard, dtype)[0]
+    for kw in ({}, {"bias": bias, "epilogue": "relu"}):
+        got = fused._fused_allreduce_launch(
+            x, kw.get("bias"), kw.get("epilogue"), g, ranks_launched=total,
+            ctas_a_rank=ctas)
+        fused.synchronize()
+        plan = fused._scratch["allreduce"]["key"][-1]
+        assert ctas is None or plan.ctas_a_rank == ctas
+        assert torch.equal(got, fused.fused_allreduce_reference(
+            x, geometry=g, lane=fused.CARD_LANE, **kw)), kw
+
+
+def test_fused_allreduce_fifo_sequence_and_epoch_wrap(gen):
+    # many back-to-back launches on one scratch whose links' counters (and
+    # epoch) stand just short of the u32 wrap: the counters run on from
+    # launch to launch, each launch reading where they stand, so they pass
+    # 2^32 and many launches' worth of tiles, and each result stays exact
+    x = _ring_input(gen, 4, (3, 20000), torch.float32)
+    want = fused.fused_allreduce_reference(x, lane=fused.CARD_LANE)
+    g = fused.RingGeometry(size=4)
+
+    def call():
+        return fused._fused_allreduce_launch(x, None, None, g,
+                                             ranks_launched=4, ctas_a_rank=2)
+
+    got = call()
+    fused.synchronize()
+    assert torch.equal(got, want)
+    s = fused._scratch["allreduce"]
+    items = 2 * 3 * s["key"][-1].tiles  # tiles a link carries a launch
+    # where a launch at that point of the sequence would leave them
+    s["flags"].fill_(-5 * items - 3)
+    s["epoch"] = (1 << 32) - 20
+    for i in range(60):
+        got = call()
+        if i % 7 == 0:
+            fused.synchronize()
+            assert torch.equal(got, want), i
+    fused.synchronize()
+    assert torch.equal(got, want)
+    assert int(s["flags"][fused.FIFO_FLAG_WORDS]) == 55 * items - 3
+    assert s["epoch"] < 60
+
+
+def test_fused_allreduce_fifo_missing_rank_times_out(gen):
+    # a ring one rank short: the ranks wait on tiles and credits that
+    # never come; the spins give up and the next call raises, then runs
+    # right again on fresh scratch
+    x = _ring_input(gen, 4, (1 << 18,), torch.float32)
+    g = fused.RingGeometry(size=4)
+    fused._fused_allreduce_launch(x, None, None, g, ranks_launched=3,
+                                  ctas_a_rank=2)
+    with pytest.raises(RuntimeError, match="timed out"):
+        fused.synchronize()
+    got = fused.fused_allreduce(x)
+    fused.synchronize()
+    assert torch.equal(got, fused.fused_allreduce_reference(
+        x, lane=fused.CARD_LANE))
+
+
+def test_fused_allreduce_plan_matches_the_kernel(gen):
+    # the wrapper sizes the FIFO and the counters by the kernel's own
+    # tile, slots and counter stride
+    cfg = (ctypes.c_int * 4)()
+    fused._lib().fused_allreduce_config(cfg)
+    assert (cfg[0], cfg[1], cfg[3]) == (fused.ALLREDUCE_TILE_VECTORS,
+                                        fused.ALLREDUCE_SLOTS,
+                                        fused.FIFO_FLAG_WORDS)
+    assert cfg[2] * 4 == fused.ALLREDUCE_TILE_VECTORS  # 4 vectors a thread
+
+
+def test_fused_allreduce_fifo_scratch_stays_in_its_budget(gen):
+    # at the bench shape the receive slots no longer scale with the
+    # tensor: FIFO and counters within the stated L2 budget (+ counters)
+    x = _ring_input(gen, 4, (1 << 25,), torch.float32)
+    got = fused.fused_allreduce(x)
+    fused.synchronize()
+    assert torch.equal(got, fused.fused_allreduce_reference(
+        x, lane=fused.CARD_LANE))
+    s = fused._scratch["allreduce"]
+    plan = s["key"][-1]
+    assert s["fifo"].numel() == plan.fifo_bytes \
+        <= fused.ALLREDUCE_FIFO_BUDGET
+    assert s["flags"].numel() == plan.flag_words
+    assert plan.ctas_a_rank * 4 <= fused._capacity("fused_allreduce", 0)
 
 def test_missing_rank_times_out_instead_of_hanging(gen):
     # launch the ring one rank short: rank 0 waits for a neighbour that

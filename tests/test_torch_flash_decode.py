@@ -263,3 +263,129 @@ def test_lse_merge_of_the_split_matches_jax_at_chunk_edges(H, Hkv):
                            1.0 / D ** 0.5)
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
     assert {1, 2, 3, 4} <= splits
+
+
+# the paged kernel's split: pages of 64 rows, 8 a sequence, so the planned
+# 128-row chunk cuts the table into 4 and a chunk spans two pages
+SPLIT_P, SPLIT_PAGES = 64, 8
+
+
+def _paged_split_model(q, kp, vp, table, pos, chunk, scale, ks=None,
+                       vs=None):
+    """The paged kernel's algebra in plain torch (f32): every sequence's
+    rows in the fixed chunks ``[c * chunk, (c + 1) * chunk)`` of its
+    table, read through the table; a chunk that starts past ``pos[b]``
+    does nothing; a sequence whose live rows all lie in chunk 0 is
+    normalised there; otherwise each live chunk's (m, l, acc), the scores
+    times the k scales and the probabilities times the v scales, merges
+    by lse in chunk order."""
+    B, H, D = q.shape
+    _, Hkv, P, _ = kp.shape
+    pages = table.shape[1]
+    tbl = table.long()
+    kd = fd._gather_pages(kp, tbl).float()
+    vd = fd._gather_pages(vp, tbl).float()
+    ones = torch.ones(kd.shape[:3])
+    ksd = ones if ks is None else fd._gather_pages(ks.transpose(2, 3),
+                                                   tbl)[..., 0]
+    vsd = ones if vs is None else fd._gather_pages(vs.transpose(2, 3),
+                                                   tbl)[..., 0]
+    n_chunks = -(-pages * P // chunk)
+    out = torch.empty(B, H, D)
+    for b in range(B):
+        p = min(max(int(pos[b]), 0), pages * P - 1)
+        qb = q[b].float().reshape(Hkv, H // Hkv, D)
+        parts = []
+        for c in range(n_chunks):
+            lo = c * chunk
+            if lo > p:
+                continue  # past the fill: no work, nothing written
+            hi = min(lo + chunk, p + 1)
+            s = (torch.einsum("kgd,ksd->kgs", qb, kd[b, :, lo:hi]) * scale
+                 * ksd[b, :, None, lo:hi])
+            m = s.amax(-1)
+            e = torch.exp(s - m[..., None])
+            parts.append((m, e.sum(-1), torch.einsum(
+                "kgs,ksd->kgd", e * vsd[b, :, None, lo:hi], vd[b, :, lo:hi])))
+        if len(parts) == 1:  # chunk 0 normalises in place
+            m, l, acc = parts[0]
+        else:
+            m_star = torch.stack([m for m, _, _ in parts]).amax(0)
+            l = sum(li * torch.exp(mi - m_star) for mi, li, _ in parts)
+            acc = sum(ai * torch.exp(mi - m_star)[..., None]
+                      for mi, _, ai in parts)
+        out[b] = (acc / l.clamp_min(1e-30)[..., None]).reshape(H, D)
+    return out
+
+
+def _split_pools(seed, B, H, Hkv, D, kv):
+    """q, a permuted table of SPLIT_PAGES pages, and K/V pools (with
+    scale pools for int8) of SPLIT_P-row pages: the JAX arrays and their
+    port twins."""
+    rng = np.random.default_rng(seed)
+    n_pool = B * SPLIT_PAGES + 3
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    table = rng.permutation(n_pool)[:B * SPLIT_PAGES].astype(np.int32)
+    pools = []
+    for _ in range(2):
+        x = rng.standard_normal((n_pool, Hkv, SPLIT_P, D), dtype=np.float32)
+        if kv == "bfloat16":
+            j = jnp.asarray(x).astype(jnp.bfloat16)
+            pools.append((j, None, _carry(j), None))
+        else:
+            (jq, js), (tq, ts) = _quantized(x, kv)
+            shape = (n_pool, Hkv, 1, SPLIT_P)
+            pools.append((jq, js.reshape(shape), tq, ts.reshape(shape)))
+    return q, table.reshape(B, SPLIT_PAGES), pools
+
+
+@GROUPS
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_paged_split_model_matches_jax_at_chunk_and_page_edges(kv, H, Hkv):
+    # the split algebra on the kernel's fixed plan, not the kernel (which
+    # the cuda-marked tests hold against its plain version): ragged fills
+    # on and next to every chunk and page edge, chunks past each fill,
+    # the one-chunk case normalised in place
+    B, D = 5, 16
+    q, table, ((jk, jks, tk, tks), (jv, jvs, tv, tvs)) = _split_pools(
+        90 + H + Hkv, B, H, Hkv, D, kv)
+    n_chunks, chunk = fd.paged_decode_plan(SPLIT_PAGES, SPLIT_P)
+    assert (n_chunks, chunk) == (4, 128)
+    rows = SPLIT_PAGES * SPLIT_P
+    edges = sorted({e + d for e in range(SPLIT_P, rows, SPLIT_P)
+                    for d in (-1, 0, 1)} | {0, 1, rows - 1})
+    live = set()
+    for i in range(0, len(edges), B):
+        pos = np.array((edges[i:i + B] + edges[:B])[:B], np.int32)
+        want = np.asarray(jax_flash_decode_paged(
+            jnp.asarray(q), jk, jv, jnp.asarray(table), jnp.asarray(pos),
+            k_scale_pool=jks, v_scale_pool=jvs, interpret=True))
+        got = _paged_split_model(torch.from_numpy(q), tk, tv,
+                                 torch.from_numpy(table), pos, chunk,
+                                 1.0 / D ** 0.5, tks, tvs)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        live |= {int(p) // chunk + 1 for p in pos}
+    assert live == {1, 2, 3, 4}
+
+
+def test_paged_decode_plan_depends_on_the_page_size_only():
+    # the chunk is a function of the page size: no batch, kv heads, head
+    # dim, pool dtype, fill or SM count enters the plan (a sequence's bits
+    # then do not depend on what it is batched with), unlike decode_chunks
+    import inspect
+
+    assert list(inspect.signature(fd.paged_decode_plan).parameters) == [
+        "pages", "P"]
+    assert list(inspect.signature(fd.paged_decode_chunk).parameters) == [
+        "P"]
+    for P in (16, 32, 64, 128, 192, 256, 300, 320, 512):
+        chunk = fd.paged_decode_chunk(P)
+        assert chunk % 64 == 0 and chunk <= fd.PAGED_CHUNK_ROWS
+        # no chunk straddles a page of whole 64-row multiples
+        assert P % 64 or P % chunk == 0 or chunk % P == 0
+        for pages in (1, 3, 4, 9):
+            n, c = fd.paged_decode_plan(pages, P)
+            assert c == chunk  # the table's width moves only n
+            assert (n - 1) * c < pages * P <= n * c
+    # the linear cache's planner does look at the batch and the card
+    assert fd.decode_chunks(519, 8, 132) != fd.decode_chunks(519, 264, 132)

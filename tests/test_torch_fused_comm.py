@@ -278,3 +278,62 @@ def test_agmm_plan_walks_tiles_when_capacity_is_short():
     assert fused.agmm_plan(8, 129, 1000, 8) == (128, 64, 1, 32)
     with pytest.raises(ValueError, match="co-resident"):
         fused.agmm_plan(8, 256, 1024, 7)
+
+
+# the allreduce kernel's FIFO plan: co-resident CTAs an H100 holds at 8, 4
+# and 2 of them an SM (132 SMs), at the bench shape (2^25 f32 a rank) and
+# a small one
+CAPACITIES = (132 * 8, 132 * 4, 132 * 2)
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("world", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n", [1 << 25, 65, 100_003])
+def test_allreduce_fifo_plan_fits_the_l2_budget(world, capacity, n):
+    m, _, cn, _ = fused.ring_layout((n,), world, fused.CARD_LANE)
+    M = m * cn // 4  # 16-byte f32 vectors a chunk
+    plan = fused.allreduce_plan(world, M, capacity)
+    # every link's slots together fit the stated L2 budget
+    assert plan.fifo_bytes <= fused.ALLREDUCE_FIFO_BUDGET
+    assert world * plan.ctas_a_rank <= capacity
+    # the kernel's stripes (CTA g takes vectors [g per, (g + 1) per) of
+    # every chunk) cover each vector once, in order, each in at most
+    # plan.tiles tiles (the longest in exactly that many)
+    per = -(-M // plan.ctas_a_rank)
+    stripes = [(min(c * per, M), min((c + 1) * per, M))
+               for c in range(plan.ctas_a_rank)]
+    assert stripes[0][0] == 0 and stripes[-1][1] == M
+    assert all(a[1] == b[0] for a, b in zip(stripes, stripes[1:]))
+    tiles = [-(-(hi - lo) // fused.ALLREDUCE_TILE_VECTORS)
+             for lo, hi in stripes]
+    assert max(tiles) == plan.tiles and min(tiles) >= 1
+    # the scratch it allocates: the FIFO, two counters a link at 0, and
+    # the abort word
+    s = fused.allreduce_scratch(plan, "cpu")
+    assert s["fifo"].numel() * s["fifo"].element_size() == plan.fifo_bytes \
+        == (world * plan.ctas_a_rank * fused.ALLREDUCE_SLOTS
+            * fused.ALLREDUCE_TILE_VECTORS * 16)
+    assert s["flags"].numel() == plan.flag_words \
+        == world * plan.ctas_a_rank * 2 * fused.FIFO_FLAG_WORDS
+    assert not bool(s["flags"].any()) and s["abort"].numel() == 1
+    if n == 1 << 25 and capacity == CAPACITIES[0]:
+        # the bench shape spends most of the budget on many stripes of a
+        # few dozen tiles each: the slots do not scale with the tensor
+        assert plan.fifo_bytes > fused.ALLREDUCE_FIFO_BUDGET // 2
+        assert plan.ctas_a_rank >= 64 and plan.tiles <= 64
+
+
+def test_allreduce_fifo_plan_forced_counts_and_limits():
+    plan = fused.allreduce_plan(4, 100_000, 1056, ctas_a_rank=3)
+    assert plan.ctas_a_rank == 3
+    assert plan.tiles == -(-(-(-100_000 // 3)) // fused.ALLREDUCE_TILE_VECTORS)
+    # on a card of any size the budget caps the CTAs: 8 ranks x 64 CTAs x
+    # 4 slots of 8 KiB fill the 16 MiB
+    big = fused.allreduce_plan(8, 1 << 22, 1 << 20)
+    assert big.ctas_a_rank == 64
+    assert big.fifo_bytes == fused.ALLREDUCE_FIFO_BUDGET
+    # a two-rank geometry of four replicas counts every flat rank's links
+    geo = fused.allreduce_plan(8, 1 << 20, 1056)
+    assert geo.flag_words == 8 * geo.ctas_a_rank * 2 * fused.FIFO_FLAG_WORDS
+    with pytest.raises(ValueError, match="co-resident"):
+        fused.allreduce_plan(8, 1 << 20, 7)
