@@ -16,24 +16,27 @@ Phases, each printing JSON lines:
               spills, and fail if a library holds no HGMMA (they must run
               on wgmma), if the fused MLP's holds cp.async (LDGSTS), if
               any kernel of the fused MLP's, the backward's (kernels 2-4),
-              the linear or paged decode's (kernels 5 and 6), the
-              allreduce's or all-gather matmul's (kernels 11 and 12) or
-              the migration exchange's (kernel 13; the registers and
-              spills of the last four are printed too) spills, or if
+              the linear, paged or exact-softmax decode's (kernels 5, 6
+              and 7), the allreduce's or all-gather matmul's (kernels 11
+              and 12), the migration exchange's (kernel 13) or the overlap
+              pipeline's (kernel 14; the registers and spills of the
+              sources without wgmma are printed too) spills, or if
               ptxas serialized the
               wgmma of any kernel of the three (its note C7513);
 2. kernel   — each kernel's wrapper on card tensors at its path's shapes,
               held against its plain PyTorch version on the same inputs
               (stated tolerance; the busy-wait and pipeline kernels
-              bitwise, every pipeline mode with its written array), with
+              bitwise, every pipeline mode with its written array and
+              its grid plan, each timed mode beside its bound), with
               the kernel's, the plain version's and, where one exists,
               one library call's device time (yardstick only; the port
               never calls it) beside the kernel's bound; the decode
               kernels on bf16, int8 and fp8 caches (the linear cache,
               the paged cache, the exact-softmax paged route; each twice
-              for equal bits, with SDPA's time on each dtype's values,
-              the two split kernels with the chunks they split the rows
-              into, the linear one at two shapes it must run in one
+              for equal bits, with SDPA's time and the bound on each
+              dtype's values, the three split kernels with the chunks
+              they split the rows into, the linear one at two shapes it
+              must run in one
               chunk: pos 63, and B 33 on 132 SMs); kernel 11, the
               allreduce, bitwise with its launch plan and its FIFO within
               the L2 budget; kernel 12, the all-gather matmul, within its
@@ -250,14 +253,15 @@ TRAIN_ARGV = ["--steps", "8", *TRAIN_BASE, "--resume-check", "--generate",
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 HOPPER_SOURCES = ("flash_prefill", "flash_attention_bwd", "fused_mlp")
 # the kernels that must not spill, by source and name prefixes: every one
-# of the fused MLP's, the attention backward's (kernels 2-4), the linear
-# and paged decodes' (kernels 5 and 6: both passes), the allreduce's and
-# the all-gather matmul's (kernels 11 and 12: every dtype, tile and route)
-# and the migration exchange's (kernel 13)
+# of the fused MLP's, the attention backward's (kernels 2-4), the linear,
+# paged and exact-softmax decodes' (kernels 5, 6 and 7: both passes), the
+# allreduce's and the all-gather matmul's (kernels 11 and 12: every dtype,
+# tile and route), the migration exchange's (kernel 13) and the overlap
+# pipeline's (kernel 14: every mode)
 NO_SPILL = {"fused_mlp": "", "flash_attention_bwd": "", "flash_decode": "",
-            "paged_decode": "",
+            "paged_decode": "", "paged_attention": "",
             "fused_ring": ("fused_allreduce_kernel", "allgather_matmul_kernel"),
-            "migration_dma": ""}
+            "migration_dma": "", "overlap_pipeline": ""}
 # the fused MLP runs on the same model, seed and batch: the kernels alone,
 # then under the split and nothing remat policies
 FUSED_RUNS = {
@@ -496,7 +500,8 @@ def _kv_bytes(kv) -> int:
 
 def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
     """A paged decode kernel (``paged_decode``: kernel 6, the split
-    merged by lse; ``paged_attention``: kernel 7, exact softmax) on ``kv``
+    merged by lse; ``paged_attention``: kernel 7, the exact softmax of each
+    chunk, split the same way) on ``kv``
     pools through a permuted table at ragged fills, against its plain
     version (the gather route) on the same inputs, twice for equal bits;
     the yardstick is one ``scaled_dot_product_attention`` call on the same
@@ -586,9 +591,8 @@ def decode_case(gen, B, H, Hkv, D, P, pages, kv, kernel="paged_decode"):
                       "into a compute-dtype cache, untimed)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops, "input_sets": len(sets)}
-    if kernel == "paged_decode":
-        n_chunks, chunk = fd.paged_decode_plan(pages, P)
-        row.update(n_chunks=n_chunks, chunk_rows=chunk)
+    n_chunks, chunk = fd.paged_decode_plan(pages, P)
+    row.update(n_chunks=n_chunks, chunk_rows=chunk)
     emit(row)
     return row
 
@@ -680,8 +684,11 @@ def phase_kernels():
     decode_case(gen, 8, 8, 2, 128, 256, 4, "int8")  # GQA
     rows["paged_attention"] = decode_case(gen, 8, 8, 8, 128, 256, 4, "int8",
                                           "paged_attention")
+    rows["paged_attention_by_cache"] = {"int8": rows["paged_attention"]}
     for kv, hkv in (("bfloat16", 8), ("fp8", 8), ("int8", 2)):
-        decode_case(gen, 8, 8, hkv, 128, 256, 4, kv, "paged_attention")
+        rows["paged_attention_by_cache"][
+            kv if hkv == 8 else f"{kv}_hkv{hkv}"] = decode_case(
+                gen, 8, 8, hkv, 128, 256, 4, kv, "paged_attention")
     decode_case(gen, 4, 8, 8, 64, 16, 6, "float32", "paged_attention")
     S = LAW_PROMPT_LEN + LAW_STEPS
     rows["flash_decode"] = linear_decode_case(gen, LAW_PROMPTS, 8, 8, 128, S,
@@ -1075,6 +1082,8 @@ def pipeline_case(gen):
                       "written_arrays": True}})
 
     C, R = PIPE_TIMED["chunks"], PIPE_TIMED["rows"]
+    blocks, tiles = pl.pipeline_plan(
+        R, torch.cuda.get_device_properties(0).multi_processor_count)
     trips, passes = PIPE_TIMED["trips"], PIPE_TIMED["passes"]
     xb = torch.rand(C, R, 128, generator=gen, device=dev)
     chunk_bytes = C * R * 512.0
@@ -1124,7 +1133,8 @@ def pipeline_case(gen):
                "bound_ms": t_bound * 1e3,
                "bound_by": "bytes" if t_copy >= t_comp else "operations",
                "bytes": passes * copies * chunk_bytes,
-               "flops": t_comp * F32_FLOPS_PER_S}
+               "flops": t_comp * F32_FLOPS_PER_S,
+               "launch_plan": {"blocks": blocks, "tiles": tiles}}
         emit(row)
         rows[mode] = row
     return rows
@@ -1160,9 +1170,10 @@ def phase_overlap():
               "cal_passes": cal, "target_s": OVERLAP_TARGET_S})
         check(not d["degenerate"] and min(times) > 0,
               f"overlap {d['shape']}: every time > 0 ({times})")
-        # the kernel at this shape (past the stripe cap, a ragged last
-        # block) in every mode the bench drove, at the probe and the
-        # balanced tripcounts, against the plain version bitwise
+        # the kernel at this shape (one block an SM, each with an equal
+        # share, in two tiles past the L2) in every mode the bench drove, at
+        # the probe and the balanced tripcounts, against the plain version
+        # bitwise
         checked = []
         for mode in ("dma", "compute", "serial", "overlap"):
             for trips in sorted({bench.PROBE_TRIPS, d["tripcount"]}):
@@ -1175,10 +1186,11 @@ def phase_overlap():
                       f"overlap {d['shape']} {mode} trips {trips}: "
                       "checksum == plain bitwise")
                 checked.append([mode, trips])
+        blocks, tiles = pl.pipeline_plan(R, sms)
         emit({"phase": "overlap", "shape": d["shape"],
               "checked": {"modes_trips": checked,
                           "passes": OVERLAP_CHECK_PASSES, "bitwise": True,
-                          "blocks": -(-R // pl.default_stripe_rows(R, sms))}})
+                          "blocks": blocks, "tiles": tiles}})
     check(launches["overlap_pipeline"] > 0,
           f"the overlap bench launched the pipeline kernel: {launches}")
     return launches
@@ -2514,7 +2526,8 @@ def main() -> int:
     rows = phase_kernels()
     kgen = torch.Generator(device="cuda").manual_seed(2)
     busy = busy_wait_case(kgen)
-    pipe = pipeline_case(kgen)["overlap"]
+    pipe_rows = pipeline_case(kgen)
+    pipe = pipe_rows["overlap"]
     launches = phase_serve()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
@@ -2584,7 +2597,9 @@ def main() -> int:
          "source": f"{PKG}/csrc/paged_attention.cu",
          "replaces": "hpc_patterns_tpu/ops/paged_attention.py:61",
          "launches": launches_quant["paged_attention"],
-         **{k: rows["paged_attention"][k] for k in keys}},
+         **{k: rows["paged_attention"][k] for k in keys},
+         "by_cache": {c: {k: r[k] for k in keys + ("n_chunks",)}
+                      for c, r in rows["paged_attention_by_cache"].items()}},
         {"name": "busy_wait", "route": "cuda",
          "source": f"{PKG}/csrc/busy_wait.cu",
          "replaces": "hpc_patterns_tpu/concurrency/kernels.py:32",
@@ -2594,7 +2609,9 @@ def main() -> int:
          "source": f"{PKG}/csrc/overlap_pipeline.cu",
          "replaces": "hpc_patterns_tpu/concurrency/pipeline.py:74",
          "launches": launches_overlap["overlap_pipeline"],
-         **{k: pipe[k] for k in keys}},
+         **{k: pipe[k] for k in keys + ("launch_plan",)},
+         "by_mode": {m: {k: r[k] for k in keys}
+                     for m, r in pipe_rows.items()}},
         {"name": "fused_allreduce", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:424",

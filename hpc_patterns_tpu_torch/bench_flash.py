@@ -2,51 +2,55 @@
 (``csrc/flash_prefill.cu``), at each of its CTA tiles; kernels 2, 3 and
 4, the fused backward, the dQ pass and the dK/dV pass
 (``csrc/flash_attention_bwd.cu``), with both backward routes around them;
-kernel 5, the linear-cache decode (``csrc/flash_decode.cu``), and kernel
-6, the paged decode (``csrc/paged_decode.cu``), each against the same C
-entry points built from another checkout; optionally the training step of
-both checkouts (``--train``), or only the decode kernels (``--decode``).
+kernel 5, the linear-cache decode (``csrc/flash_decode.cu``), kernel 6,
+the paged decode (``csrc/paged_decode.cu``), and kernel 7, the
+exact-softmax paged decode (``csrc/paged_attention.cu``), each against the
+same C entry points built from another checkout; optionally the training
+step of both checkouts (``--train``), or only the decode kernels
+(``--decode``).
 
     python -m hpc_patterns_tpu_torch.bench_flash [--other DIR] [--train]
         [--decode]
 
-At the training shape (B 8, T 2048, H 8, D 128, causal, with lse) and the
-serving prefill's (B 1, T 512, H 8, D 128, causal, no lse), each timed
-with CUDA events over back-to-back calls on inputs cycled past the 50 MB
-L2: the kernel through its shape rule and at 64 and 128 query rows a CTA,
-SDPA (``is_causal``; the yardstick only), and with ``--other`` the other
-checkout's ``flash_attention_fwd`` (same signature), compiled with the
-same flags. The backward at the training shape: this tree's
+At the training shape (B 8, T 2048, H 8, D 128, causal, with lse) and
+the serving prefill's (B 1, T 512, H 8, D 128, causal, no lse), each
+timed with CUDA events over back-to-back calls on inputs cycled past the
+50 MB L2: the kernel through its shape rule and at 64 and 128 query rows
+a CTA, SDPA (``is_causal``; the yardstick only), and with ``--other``
+the other checkout's ``flash_attention_fwd`` (same signature), compiled
+with the same flags. The backward at the training shape: this tree's
 ``flash_attention_fused_bwd``, ``flash_attention_dq`` and
 ``flash_attention_dkv`` against the other checkout's (same C signatures;
 its slab sized by the keys a slot that its ``ops/flash_attention.py``
-names, 64 before the 128-key redesign); the fused route (Delta, kernel 2,
-the never-written slab rows zeroed, the f32 slab sum, the dk/dv casts) of
-each: this tree's ``_backward``, the other's as the route ran before the
-128-key redesign, on its slab; and the split route (Delta, then the dQ
-and dK/dV passes) of each; SDPA's backward (fwd+bwd less fwd) as the
-yardstick. Kernel 5 at the precision law's shape (B 4, H 8, D 128, S 520,
-pos 519) on bf16, int8 and fp8 caches and on int8 with 2 kv heads, and
-at two shapes this tree runs in one chunk (pos 63; B 33, 264 kv rows) on
-bf16 and int8: this tree's ``flash_decode_attention`` (the split it plans
-is in the row) against the other checkout's ``flash_decode_split`` on the
-same plan, or, in a checkout from before the split, its one-CTA-per-
-(sequence, kv head) ``flash_decode``; SDPA (``enable_gqa``, a boolean
-mask, on a bf16 cache of the same values) as the yardstick. Kernel 6, the
-paged decode, at the serving shape (B 8, H 8, Hkv 8, D 128, page 256, 4
-pages a sequence, ragged fills up to 1023) on bf16, int8 and fp8 pools:
-this tree's ``flash_decode_paged`` (the chunk :func:`paged_decode_plan`
-sets) against the other checkout's ``paged_decode_split`` on this tree's plan
-where it has one, else its one-CTA-per-(sequence, kv head)
-``paged_decode``; SDPA (``enable_gqa``, a boolean mask past each fill) on
-the live rows gathered into a linear bf16 cache outside the timing as the
-yardstick. The timings run in turns — other, this, this, other — and
-each output is held against the plain version first. ``--train`` runs
-``train_app`` at the training benchmark's chip model (8 steps, dense,
-flash) in each checkout, in the same turns, and reads each run's step
-time and tokens/s. Prints one JSON line per shape, one per training run,
-and the card's name and power limit. Needs a card: without one it exits
-non-zero.
+names, 64 before the 128-key redesign); the fused route (Delta, kernel
+2, the never-written slab rows zeroed, the f32 slab sum, the dk/dv
+casts) of each: this tree's ``_backward``, the other's as the route ran
+before the 128-key redesign, on its slab; and the split route (Delta,
+then the dQ and dK/dV passes) of each; SDPA's backward (fwd+bwd less
+fwd) as the yardstick. Kernel 5 at the precision law's shape (B 4, H 8,
+D 128, S 520, pos 519) on bf16, int8 and fp8 caches and on int8 with 2
+kv heads, and at two shapes this tree runs in one chunk (pos 63; B 33,
+264 kv rows) on bf16 and int8: this tree's ``flash_decode_attention``
+(the split it plans is in the row) against the other checkout's
+``flash_decode_split`` on the same plan, or, in a checkout from before
+the split, its one-CTA-per-(sequence, kv head) ``flash_decode``; SDPA
+(``enable_gqa``, a boolean mask, on a bf16 cache of the same values) as
+the yardstick. Kernels 6 and 7, the paged decodes, at the serving shape
+(B 8, H 8, Hkv 8, D 128, page 256, 4 pages a sequence, ragged fills up
+to 1023) on bf16, int8 and fp8 pools and on int8 with 2 kv heads: this
+tree's ``flash_decode_paged`` and ``paged_attention_decode`` (the chunk
+:func:`paged_decode_plan` sets) against the other checkout's
+``paged_decode_split`` and ``paged_attention`` on this tree's plan where
+they take one, else its one-CTA-per-(sequence, kv head) ``paged_decode``
+and ``paged_attention``; SDPA (``enable_gqa``, a boolean mask past each
+fill) on the live rows gathered into a linear bf16 cache outside the
+timing as the yardstick. The timings run in turns — other, this, this,
+other — and each output is held against the plain version first.
+``--train`` runs ``train_app`` at the training benchmark's chip model (8
+steps, dense, flash) in each checkout, in the same turns, and reads each
+run's step time and tokens/s. Prints one JSON line per shape, one per
+training run, and the card's name and power limit. Needs a card: without
+one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -89,10 +93,14 @@ DECODE_CASES = (("bfloat16", 4, 8, 519), ("int8", 4, 8, 519),
                 ("bfloat16", 4, 8, 63), ("int8", 4, 8, 63),
                 ("bfloat16", 33, 8, 519), ("int8", 33, 8, 519))
 DECODE_ATOL = 1e-4
-# kernel 6 at the serving shape (chip_smoke.py's decode_case): B, H, Hkv,
-# D, page rows, pages a sequence; the pool dtypes
-PAGED_SHAPE = (8, 8, 8, 128, 256, 4)
-PAGED_KV = ("bfloat16", "int8", "fp8")
+# kernels 6 and 7 at the serving shape (chip_smoke.py's decode_case): B,
+# H, D, page rows, pages a sequence; (pool dtype, kv heads) per row
+PAGED_SHAPE = (8, 8, 128, 256, 4)
+PAGED_CASES = (("bfloat16", 8), ("int8", 8), ("fp8", 8), ("int8", 2))
+#: the paged kernels: this tree's wrapper and the other checkout's split
+#: and one-CTA C entries
+PAGED_KERNELS = {"paged_decode": ("paged_decode_split", "paged_decode"),
+                 "paged_attention": ("paged_attention", "paged_attention")}
 TRAIN_ARGV = ["--steps", "8", "--batch", "8", "--seq", "2048",
               "--d-model", "1024", "--n-layers", "8", "--n-heads", "8",
               "--vocab", "32768", "--attention", "flash", "--device",
@@ -466,25 +474,35 @@ def _decode_rows(other):
     return rows
 
 
-def _paged_rows(other):
-    """Kernel 6 (``flash_decode_paged``) at :data:`PAGED_SHAPE` on each
-    pool dtype of :data:`PAGED_KV` against the other checkout's kernel (its
-    ``paged_decode_split`` on this tree's plan where it has one, else its
-    one-CTA ``paged_decode``), in turns, each output held against the plain
-    version first; SDPA on the live rows gathered into a bf16 cache (the
-    gather made outside the timing) as the yardstick."""
+def _other_split(other: Path, kernel: str) -> bool:
+    """Whether the other checkout's paged ``kernel`` is split over chunks
+    (its C entry takes the plan and a workspace)."""
+    src = other / "hpc_patterns_tpu_torch" / "csrc" / f"{kernel}.cu"
+    return b"n_chunks" in src.read_bytes()
+
+
+def _paged_rows(kernel, other, o_split):
+    """``kernel`` (``paged_decode``: kernel 6, ``flash_decode_paged``;
+    ``paged_attention``: kernel 7, ``paged_attention_decode``) at
+    :data:`PAGED_SHAPE` on each case of :data:`PAGED_CASES` against the
+    other checkout's kernel (its split C entry on this tree's plan where
+    ``o_split``, else its one-CTA entry), in turns, each output held
+    against the plain version first; SDPA on the live rows gathered into a
+    bf16 cache (the gather made outside the timing) as the yardstick."""
     from hpc_patterns_tpu_torch.models.decode import _quantize_rows
     from hpc_patterns_tpu_torch.ops import flash_decode as fd
+    from hpc_patterns_tpu_torch.ops import paged_attention as pa
 
-    B, H, Hkv, D, P, pages = PAGED_SHAPE
+    B, H, D, P, pages = PAGED_SHAPE
     n_pool = B * pages + 1
     gen = torch.Generator(device="cuda").manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    o_fn, o_split = None, False
+    wrapper = {"paged_decode": fd.flash_decode_paged,
+               "paged_attention": pa.paged_attention_decode}[kernel]
+    o_fn = None
     if other is not None:
-        o_split = hasattr(other, "paged_decode_split")
-        o_fn = other.paged_decode_split if o_split else other.paged_decode
+        o_fn = getattr(other, PAGED_KERNELS[kernel][0 if o_split else 1])
         # the one-CTA entry: q, k, v, ks, vs, table, pos, pos_scalar, out,
         # B, H, Hkv, D, P, pages, n_pool, scale, q code, kv code, stream
         o_fn.argtypes = fd._PAGED_ARGS if o_split else (
@@ -501,7 +519,7 @@ def _paged_rows(other):
     mask = (torch.arange(S, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     rows = []
-    for kv in PAGED_KV:
+    for kv, Hkv in PAGED_CASES:
         quant = kv in ("int8", "fp8")
         esz = 1 if quant else 2
         per = 2 * n_pool * Hkv * P * (D * esz + 4 * quant)
@@ -528,8 +546,8 @@ def _paged_rows(other):
         n_chunks, chunk = fd.paged_decode_plan(pages, P)
 
         def this(q, kp, vp, ks, vs):
-            return fd.flash_decode_paged(q, kp, vp, table, pos,
-                                         k_scale_pool=ks, v_scale_pool=vs)
+            return wrapper(q, kp, vp, table, pos, k_scale_pool=ks,
+                           v_scale_pool=vs)
 
         def theirs(q, kp, vp, ks, vs):
             out = torch.empty(B, H, D, device="cuda")
@@ -543,7 +561,7 @@ def _paged_rows(other):
             _build.check(o_fn(*args, B, H, Hkv, D, P, pages, n_pool,
                               1.0 / math.sqrt(D), 1,
                               fd.KV_CODES[kp.dtype], stream()),
-                         "other paged_decode")
+                         f"other {kernel}")
             return out
 
         fns = {"this": this}
@@ -556,8 +574,8 @@ def _paged_rows(other):
         for who, fn in fns.items():
             e = (fn(*sets[0]) - want).abs().max().item()
             if not e <= DECODE_ATOL:
-                raise RuntimeError(f"paged decode {kv} {who}: max err {e} "
-                                   f"> {DECODE_ATOL}")
+                raise RuntimeError(f"{kernel} {kv} Hkv {Hkv} {who}: max err "
+                                   f"{e} > {DECODE_ATOL}")
             errs[who] = e
         order = (["other"] if other is not None else []) + ["this"]
         times = {who: [] for who in fns}
@@ -568,7 +586,7 @@ def _paged_rows(other):
         live = int((pos.long() + 1).sum())
         nbytes = (2 * live * Hkv * (D * esz + 4 * quant) + B * H * D * 2
                   + B * H * D * 4 + table.numel() * 4 + B * 4)
-        row = {"shape": "paged_decode", "kv": kv, "B": B, "H": H,
+        row = {"shape": kernel, "kv": kv, "B": B, "H": H,
                "Hkv": Hkv, "D": D, "P": P, "pages": pages,
                "pos": pos.tolist(), "n_chunks": n_chunks, "chunk": chunk,
                "other_split": o_split if other is not None else None,
@@ -610,25 +628,30 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="also run the training step in both checkouts")
     ap.add_argument("--decode", action="store_true",
-                    help="only the decode kernels (5 and 6)")
+                    help="only the decode kernels (5, 6 and 7)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_flash: needs an NVIDIA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = other_bwd = other_decode = other_paged = None
+    other = other_bwd = other_decode = None
+    other_paged = {k: (None, False) for k in PAGED_KERNELS}
     if args.other is not None:
-        other = fa._fn(_other_lib(args.other, "flash_prefill"),
-                       "flash_attention_fwd", 5, 6, 3)
-        other_bwd = _other_lib(args.other, "flash_attention_bwd")
+        if not args.decode:
+            other = fa._fn(_other_lib(args.other, "flash_prefill"),
+                           "flash_attention_fwd", 5, 6, 3)
+            other_bwd = _other_lib(args.other, "flash_attention_bwd")
         other_decode = _other_lib(args.other, "flash_decode")
-        other_paged = _other_lib(args.other, "paged_decode")
+        other_paged = {k: (_other_lib(args.other, k),
+                           _other_split(args.other, k))
+                       for k in PAGED_KERNELS}
     if not args.decode:
         for shape in SHAPES:
             _shape_row(*shape, other)
         _backward_row(other_bwd, _kv_tile(args.other) if args.other else None)
     _decode_rows(other_decode)
-    _paged_rows(other_paged)
+    for kernel, (lib, split) in other_paged.items():
+        _paged_rows(kernel, lib, split)
     if args.train:
         here = Path(__file__).resolve().parents[1]
         runs = [(args.other, "other")] if args.other is not None else []

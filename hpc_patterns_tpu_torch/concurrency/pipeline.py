@@ -60,9 +60,11 @@ OUT_BUF_MODES = ("overlap_out", "serial_out", "dma_out",
                  "pair_overlap", "pair_serial")
 #: the values the compute and out modes seed their two slots with
 SEEDS = (0.25, 0.75)
-#: the largest stripe a block copies at once: two slots of 104 rows of
-#: 512 bytes are 104 KiB, so two blocks fit on an SM
-MAX_STRIPE_ROWS = 104
+#: the largest tile a block copies at once: two slots of 112 KiB fit in
+#: the 227 KiB of shared memory one block may use
+SLOT_BYTES_MAX = 112 * 1024
+#: the granule of a block's share of a chunk: 32 floats (128 bytes)
+UNIT_BYTES = 128
 
 #: kernel launches in this process (the main-path witness)
 launches = 0
@@ -146,12 +148,17 @@ def overlap_run_reference(x: torch.Tensor, *, mode: str, tripcount: int = 64,
     return csum, written
 
 
-def default_stripe_rows(chunk_rows: int, sms: int = 132) -> int:
-    """Rows a block takes of each chunk: about one block per SM, a
-    multiple of 8, at most :data:`MAX_STRIPE_ROWS`."""
-    rows = -(-chunk_rows // sms)
-    rows += (-rows) % 8
-    return min(max(rows, 8), MAX_STRIPE_ROWS)
+def pipeline_plan(chunk_rows: int, sms: int = 132) -> tuple[int, int]:
+    """``(blocks, tiles)`` of the kernel's grid for chunks of
+    ``chunk_rows`` rows of 128 f32: one block an SM (fewer when a chunk
+    has fewer than 8 rows a block), each owning an equal share of every
+    chunk (in :data:`UNIT_BYTES` granules, shares differing by at most
+    one), cut into ``tiles`` tiles so that a tile fits a slot of
+    :data:`SLOT_BYTES_MAX`. Block 0's first tile always holds rows 0-7."""
+    units = chunk_rows * 512 // UNIT_BYTES
+    blocks = max(1, min(sms, chunk_rows // 8))
+    share = -(-units // blocks)
+    return blocks, -(-share * UNIT_BYTES // SLOT_BYTES_MAX)
 
 
 def overlap_run(x: torch.Tensor, *, mode: str, tripcount: int = 64,
@@ -159,8 +166,8 @@ def overlap_run(x: torch.Tensor, *, mode: str, tripcount: int = 64,
                 ) -> torch.Tensor:
     """Run one mode over ``x`` (num_chunks, rows, 128) float32; returns
     the (8, 128) checksum. The out and pair modes write their array into
-    ``out`` when it is given (else into scratch). CUDA: the Hopper kernel,
-    one block per :func:`default_stripe_rows` rows of a chunk; CPU:
+    ``out`` when it is given (else into scratch). CUDA: the Hopper kernel
+    on the grid of :func:`pipeline_plan`; CPU:
     :func:`overlap_run_reference`."""
     global launches
     _check(x, mode)
@@ -182,15 +189,14 @@ def overlap_run(x: torch.Tensor, *, mode: str, tripcount: int = 64,
     for name, t in (("x", x), ("out", out)):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    stripe_rows = default_stripe_rows(
+    blocks, tiles = pipeline_plan(
         R, torch.cuda.get_device_properties(x.device).multi_processor_count)
     lib = _build.load("overlap_pipeline")
     fn = lib.overlap_pipeline
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     threads = lib.overlap_pipeline_threads()
-    blocks = -(-R // stripe_rows)
     if mode in OUT_BUF_MODES and out is None:
         out = torch.empty_like(x)
     csum = torch.empty((8, 128), dtype=torch.float32, device=x.device)
@@ -200,7 +206,7 @@ def overlap_run(x: torch.Tensor, *, mode: str, tripcount: int = 64,
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr() if out is not None else None,
                 csum.data_ptr(), sink.data_ptr(), MODES.index(mode), C, R,
-                stripe_rows, trips, passes, stream)
+                blocks, tiles, trips, passes, stream)
     _build.check(rc, f"overlap_pipeline[{mode}]")
     launches += 1
     return csum

@@ -1,5 +1,7 @@
 // The split decode shared by the linear-cache kernel (flash_decode.cu,
-// kernel 5) and the paged one (paged_decode.cu, kernel 6), for Hopper
+// kernel 5) and the paged one (paged_decode.cu, kernel 6), and the paged
+// helpers and lse merge that the exact-softmax kernel 7
+// (paged_attention.cu) shares with kernel 6, for Hopper
 // (sm_90a): flash-decoding, the live rows of each (sequence, kv head)
 // split into chunks of rows, a CTA a chunk, the chunks' partial softmaxes
 // merged by lse.
@@ -10,7 +12,10 @@
 // loads (with their scales) before it reads any, so a CTA has its whole
 // step (up to 32 KB) in flight; scores reduce over the slice's lanes by
 // shuffles, and each thread keeps its own online softmax state (m, l, acc)
-// over its rows. At the end the states merge by lse, first across the row
+// over its rows (JAX's flash_decode.py::_softmax_block: for one-byte
+// caches the per-row dequant scales fold into the score, (q.k8) * scale *
+// kscale, and into the probability, p * vscale; mask -1e30; out = acc /
+// max(l, 1e-30)). At the end the states merge by lse, first across the row
 // groups of a warp (shuffles), then across the four warps (shared memory,
 // in warp order). A chunk that holds every live row of its sequence
 // writes acc / max(l, 1e-30) to out; otherwise its unnormalised (g x D)
@@ -21,7 +26,7 @@
 // functor, maps r to a row index ri so that the row's D values start at
 // k + ri * D (and v + ri * D), and its dequant scales sit at ks[ri] and
 // vs[ri] (LinearRows: the cache row of the sequence; flash_decode.cu;
-// PagedRows: through the page table; paged_decode.cu).
+// PagedRows: through the page table, below).
 //
 // Pass 2 (merge_chunks): one CTA of D threads per query row b * H + h:
 // m* = max m_i, l = sum l_i e^(m_i - m*), out = sum acc_i e^(m_i - m*) /
@@ -289,6 +294,89 @@ cudaError_t launch_merge(void (*kernel)(Exp...), int rows, int D,
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+
+// --- The paged cache: what kernel 6 (paged_decode.cu) and kernel 7
+// (paged_attention.cu) share. Both split a sequence's rows into chunks of a
+// length fixed by the page size alone, a pass-1 CTA each; the host plans
+// n_chunks from the table width (pages * P) and never reads pos.
+
+// the longest chunk a paged CTA takes (the wrappers' plans stay within
+// it): it bounds the pages a chunk touches, chunk / P + 2 with ragged pages
+constexpr int PAGED_CHUNK_MAX = 256;
+
+// Row r of sequence b, kv head hk through the table: the row index
+// (pool row * Hkv + hk) * P + r % P, from the chunk's page bases that
+// stage_pages put in shared memory (page - first). P a power of two takes
+// a shift (p_shift >= 0), any other P a division.
+template <typename TK>
+struct PagedRows {
+  const TK* k;
+  const TK* v;
+  const float* ks;
+  const float* vs;
+  const long* page_base;  // shared: (pid * Hkv + hk) * P for pages first..
+  int first, P, p_shift;
+  __device__ __forceinline__ long index(int r) const {
+    const int page = p_shift >= 0 ? r >> p_shift : r / P;
+    const int in = r - page * P;
+    return page_base[page - first] + in;
+  }
+};
+
+// log2(P) for a power of two, else -1 (PagedRows divides)
+inline int page_shift(int P) {
+  for (int s = 0; s < 31; ++s)
+    if ((1 << s) == P) return s;
+  return -1;
+}
+
+// pos[b] (or the shared pos) clamped into the table's `rows` rows, as the
+// Pallas kernels' index maps clamp; every reader of pos clamps alike, so
+// the passes agree on which chunks a sequence has
+__device__ __forceinline__ int live_pos(const int* pos_vec, int pos_scalar,
+                                        int b, int rows) {
+  const int pos = pos_vec ? pos_vec[b] : pos_scalar;
+  return min(max(pos, 0), rows - 1);
+}
+
+// The page bases of rows [lo, hi) of sequence b, kv head hk into
+// page_base (shared, PAGED_CHUNK_MAX + 2 entries), each table entry
+// clamped into the pool; ends with a block barrier.
+template <typename TK>
+__device__ __forceinline__ PagedRows<TK> stage_pages(
+    long* page_base, const TK* k_pool, const TK* v_pool,
+    const float* ks_pool, const float* vs_pool, const int* table, int b,
+    int hk, int lo, int hi, int Hkv, int P, int p_shift, int pages,
+    int n_pool) {
+  const int first = lo / P, last = (hi - 1) / P;
+  for (int j = first + (int)threadIdx.x; j <= last; j += blockDim.x) {
+    int pid = table[(long)b * pages + j];
+    pid = min(max(pid, 0), n_pool - 1);
+    page_base[j - first] = ((long)pid * Hkv + hk) * P;
+  }
+  __syncthreads();
+  return PagedRows<TK>{k_pool, v_pool, ks_pool, vs_pool, page_base, first,
+                       P, p_shift};
+}
+
+// Pass 2 of a paged kernel: one CTA of D threads per query row b * H + h,
+// over chunks 0 .. pos[b] / chunk; nothing when chunk 0 held them all.
+__global__ void paged_merge_kernel(const float* __restrict__ part_acc,
+                                   const float* __restrict__ part_ml,
+                                   const int* __restrict__ pos_vec,
+                                   int pos_scalar, int rows, int n_chunks,
+                                   int chunk, int H, int D,
+                                   float* __restrict__ out) {
+  const long bh = blockIdx.x;
+  const int live = live_pos(pos_vec, pos_scalar, (int)(bh / H), rows) / chunk
+                   + 1;
+  // pass 1's writes are complete and visible past this point; every CTA
+  // waits, so this grid never ends before pass 1 does
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (live == 1) return;  // pass 1 normalised these rows in place
+  merge_chunks(part_acc, part_ml, bh, n_chunks, live, D, out);
 }
 
 }  // namespace hpc_decode

@@ -37,16 +37,19 @@
 //   (clamped into the table, as the Pallas kernel's index map clamps); a
 //   chunk that starts past pos[b] exits without writing. The live chunk
 //   first loads the (pool row * Hkv + hk) * P of every page it touches into
-//   shared memory, then streams its rows through split_chunk: row r's
-//   values start at ((table[b, r / P] * Hkv + hk) * P + r % P) * D, its
-//   scales at that row index of the scale pools. When pos[b] lies in chunk
-//   0 that CTA normalises its rows in place.
-// - Pass 2 (paged_decode_merge_kernel, a programmatic dependent launch,
-//   only when the table holds more than one chunk) runs one CTA of D
-//   threads per (b, h): it reads pos[b] the same way, returns when chunk 0
-//   held every live row, and otherwise merges chunks 0 .. pos[b] / chunk by
-//   lse in index order. Both readers of pos clamp it alike, so they agree
-//   on which case a sequence is. The host never reads pos.
+//   shared memory (stage_pages), then streams its rows through
+//   split_chunk: row r's values start at ((table[b, r / P] * Hkv + hk) * P
+//   + r % P) * D, its scales at that row index of the scale pools. When
+//   pos[b] lies in chunk 0 that CTA normalises its rows in place.
+// - Pass 2 (paged_merge_kernel, a programmatic dependent launch, only when
+//   the table holds more than one chunk) runs one CTA of D threads per
+//   (b, h): it reads pos[b] the same way, returns when chunk 0 held every
+//   live row, and otherwise merges chunks 0 .. pos[b] / chunk by lse in
+//   index order. Both readers of pos clamp it alike, so they agree on
+//   which case a sequence is. The host never reads pos.
+// The paged helpers (PagedRows, stage_pages, the merge) live in
+// decode_split.cuh, shared with the exact-softmax kernel 7
+// (paged_attention.cu).
 // The workspace is (B*H, n_chunks, D + 2) f32, from the caller.
 
 #include "decode_split.cuh"
@@ -54,36 +57,9 @@
 namespace {
 
 using hpc_decode::G_MAX;
+using hpc_decode::PAGED_CHUNK_MAX;
+using hpc_decode::PagedRows;
 using hpc_decode::THREADS;
-
-// the longest chunk a CTA takes (the wrapper's plans stay within it): it
-// bounds the pages a chunk touches, chunk / P + 2 with ragged pages
-constexpr int CHUNK_MAX = 256;
-
-// Row r of sequence b, kv head hk through the table: the row index
-// (pool row * Hkv + hk) * P + r % P, from the chunk's page bases that
-// pass 1 staged in shared memory (page - first). P a power of two takes
-// a shift (p_shift >= 0), any other P a division.
-template <typename TK>
-struct PagedRows {
-  const TK* k;
-  const TK* v;
-  const float* ks;
-  const float* vs;
-  const long* page_base;  // shared: (pid * Hkv + hk) * P for pages first..
-  int first, P, p_shift;
-  __device__ __forceinline__ long index(int r) const {
-    const int page = p_shift >= 0 ? r >> p_shift : r / P;
-    const int in = r - page * P;
-    return page_base[page - first] + in;
-  }
-};
-
-__device__ __forceinline__ int live_pos(const int* pos_vec, int pos_scalar,
-                                        int b, int rows) {
-  const int pos = pos_vec ? pos_vec[b] : pos_scalar;
-  return min(max(pos, 0), rows - 1);  // the table holds `rows` rows
-}
 
 // Pass 1: one CTA per (b * Hkv + hk, chunk). Chunks past pos[b] exit.
 template <typename TK, int D, int G>
@@ -100,47 +76,23 @@ paged_decode_chunk_kernel(const void* __restrict__ q, int q_bf16,
                           float* __restrict__ part_ml, int n_chunks,
                           int chunk, int H, int Hkv, int P, int p_shift,
                           int pages, int n_pool, float scale) {
-  __shared__ long page_base[CHUNK_MAX + 2];
+  __shared__ long page_base[PAGED_CHUNK_MAX + 2];
   // the merge kernel may be scheduled now: it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int g = H / Hkv;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int c = blockIdx.y;
-  const int pos = live_pos(pos_vec, pos_scalar, b, pages * P);
+  const int pos = hpc_decode::live_pos(pos_vec, pos_scalar, b, pages * P);
   const int lo = c * chunk;
   if (lo > pos) return;  // past the fill: the merge does not read it
   const int hi = min(lo + chunk, pos + 1);
-  const int first = lo / P, last = (hi - 1) / P;
-  for (int j = first + (int)threadIdx.x; j <= last; j += THREADS) {
-    int pid = table[(long)b * pages + j];
-    pid = min(max(pid, 0), n_pool - 1);
-    page_base[j - first] = ((long)pid * Hkv + hk) * P;
-  }
-  __syncthreads();
-  const PagedRows<TK> rows{k_pool, v_pool, ks_pool, vs_pool, page_base,
-                           first, P, p_shift};
+  const PagedRows<TK> rows = hpc_decode::stage_pages(
+      page_base, k_pool, v_pool, ks_pool, vs_pool, table, b, hk, lo, hi, Hkv,
+      P, p_shift, pages, n_pool);
   const long bh0 = (long)b * H + (long)hk * g;
   hpc_decode::split_chunk<TK, D, G>(q, q_bf16, rows, lo, hi, bh0 * D, bh0, g,
                                     c, pos < chunk, out, part_acc, part_ml,
                                     n_chunks, scale);
-}
-
-// Pass 2: one CTA of D threads per query row b * H + h, over chunks 0 ..
-// pos[b] / chunk; nothing when chunk 0 held them all.
-__global__ void paged_decode_merge_kernel(const float* __restrict__ part_acc,
-                                          const float* __restrict__ part_ml,
-                                          const int* __restrict__ pos_vec,
-                                          int pos_scalar, int rows,
-                                          int n_chunks, int chunk, int H,
-                                          int D, float* __restrict__ out) {
-  const long bh = blockIdx.x;
-  const int live = live_pos(pos_vec, pos_scalar, (int)(bh / H), rows) / chunk
-                   + 1;
-  // pass 1's writes are complete and visible past this point; every CTA
-  // waits, so this grid never ends before pass 1 does
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  if (live == 1) return;  // pass 1 normalised these rows in place
-  hpc_decode::merge_chunks(part_acc, part_ml, bh, n_chunks, live, D, out);
 }
 
 template <typename TK, int D, int G>
@@ -149,9 +101,7 @@ int launch(const void* q, int q_bf16, const void* kp, const void* vp,
            const int* pos_vec, int pos_scalar, void* out, float* part,
            int n_chunks, int chunk, int B, int H, int Hkv, int P, int pages,
            int n_pool, float scale, cudaStream_t stream) {
-  int p_shift = -1;
-  for (int s = 0; s < 31; ++s)
-    if ((1 << s) == P) p_shift = s;
+  const int p_shift = hpc_decode::page_shift(P);
   float* part_acc = part;
   float* part_ml = n_chunks > 1 ? part + (long)B * H * n_chunks * D : nullptr;
   paged_decode_chunk_kernel<TK, D, G>
@@ -163,7 +113,7 @@ int launch(const void* q, int q_bf16, const void* kp, const void* vp,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return (int)err;
   return (int)hpc_decode::launch_merge(
-      paged_decode_merge_kernel, B * H, D, n_chunks, stream,
+      hpc_decode::paged_merge_kernel, B * H, D, n_chunks, stream,
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       pos_vec, pos_scalar, pages * P, n_chunks, chunk, H, D,
       static_cast<float*>(out));
@@ -213,7 +163,7 @@ int paged_decode_split(const void* q, const void* k_pool, const void* v_pool,
   using hpc_decode::I8;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H / Hkv > G_MAX) return -2;
-  if (chunk < 1 || chunk > CHUNK_MAX || P < 1 || pages < 1 ||
+  if (chunk < 1 || chunk > PAGED_CHUNK_MAX || P < 1 || pages < 1 ||
       n_chunks != (int)(((long)pages * P + chunk - 1) / chunk) ||
       (n_chunks > 1 && part == nullptr))
     return -3;

@@ -51,7 +51,8 @@ _SPLIT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
-#: ``paged_decode_split``'s C arguments: q, k_pool, v_pool, ks_pool,
+#: ``paged_decode_split``'s C arguments (kernel 7's ``paged_attention``
+#: takes the same): q, k_pool, v_pool, ks_pool,
 #: vs_pool, table, pos, pos_scalar, out, the workspace, n_chunks, chunk, B,
 #: H, Hkv, D, P, pages, n_pool, scale, q code, kv code, stream
 _PAGED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -73,9 +74,9 @@ CHUNK_ROWS = 64
 CTAS_PER_SM = 2
 #: the paged split's chunk: rows a pass-1 CTA takes, fixed so that a
 #: sequence's bits never depend on what it is batched with (the engine's
-#: step against a standalone decode); chosen on an H100 at the serving
-#: shape among 64, 128 and 256 rows, the fastest on bf16, int8 and fp8
-#: pools alike (PERF.md)
+#: step against a standalone decode); chosen for kernel 6 on an H100 at the
+#: serving shape among 64, 128 and 256 rows, the fastest on bf16, int8 and
+#: fp8 pools alike (PERF.md); the exact-softmax kernel 7 takes the same
 PAGED_CHUNK_ROWS = 128
 
 
@@ -97,7 +98,7 @@ def decode_chunks(pos: int, rows: int, sms: int) -> tuple[int, int]:
 
 
 def paged_decode_chunk(P: int) -> int:
-    """The paged kernel's chunk rows for pages of ``P`` rows:
+    """The paged kernels' (6 and 7) chunk rows for pages of ``P`` rows:
     :data:`PAGED_CHUNK_ROWS`; where a page's rows are a multiple of 64, it
     is halved (down to 64) until it divides the page or is a multiple of
     it, so that no chunk straddles a page; other page sizes take it as it
@@ -113,7 +114,7 @@ def paged_decode_chunk(P: int) -> int:
 
 
 def paged_decode_plan(pages: int, P: int) -> tuple[int, int]:
-    """``(n_chunks, chunk)`` of the paged kernel for a table of ``pages``
+    """``(n_chunks, chunk)`` of the paged kernels for a table of ``pages``
     pages of ``P`` rows: chunk i holds rows ``[i * chunk, (i + 1) *
     chunk)`` of every sequence, and n_chunks covers the table's rows
     (``pos`` lives on the card, so the plan takes the largest fill; a
@@ -300,6 +301,48 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def launch_paged(source, entry, q, k_pool, v_pool, table, pos,
+                 k_scale_pool, v_scale_pool, quantized, scale):
+    """Check the operands of a paged kernel on q's card and launch C entry
+    ``entry`` of ``csrc/<source>.cu`` (kernel 6's ``paged_decode_split``
+    or kernel 7's ``paged_attention``: the same C arguments) on the plan
+    of :func:`paged_decode_plan`, with an f32 workspace of B * H *
+    n_chunks * (D + 2) values when the table holds more than one chunk;
+    the host never reads ``pos``. Returns (B, H, D) f32; raises on what
+    the kernels do not take and on a refused launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, D = q.shape
+    n_pool, Hkv, P, _ = k_pool.shape
+    pages = table.shape[1]
+    scales = ((("k_scale_pool", k_scale_pool),
+               ("v_scale_pool", v_scale_pool)) if quantized else ())
+    if table.dtype != torch.int32:
+        raise ValueError(f"table must be int32, got {table.dtype}")
+    qc, kc = check_kernel_operands(
+        q, (("k_pool", k_pool), ("v_pool", v_pool)), scales,
+        (("table", table),))
+    pos_ptr, pos_scalar = kernel_pos(pos, q)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    n_chunks, chunk = paged_decode_plan(pages, P)
+    fn = getattr(_build.load(source), entry)
+    fn.argtypes = _PAGED_ARGS
+    fn.restype = ctypes.c_int
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    part = None if n_chunks == 1 else torch.empty(
+        B * H * n_chunks * (D + 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                _ptr(k_scale_pool), _ptr(v_scale_pool), table.data_ptr(),
+                pos_ptr, pos_scalar, out.data_ptr(), _ptr(part), n_chunks,
+                chunk, B, H, Hkv, D, P, pages, n_pool, float(scale), qc, kc,
+                stream)
+    _build.check(rc, source)
+    return out
+
+
 def flash_decode_paged(q, k_pool, v_pool, table, pos, *,
                        k_scale_pool=None, v_scale_pool=None,
                        scale: float | None = None,
@@ -327,36 +370,9 @@ def flash_decode_paged(q, k_pool, v_pool, table, pos, *,
         return flash_decode_paged_reference(
             q, k_pool, v_pool, table, pos, scale,
             k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    B, H, D = q.shape
-    n_pool, Hkv, P, _ = k_pool.shape
-    pages = table.shape[1]
-    scales = ((("k_scale_pool", k_scale_pool),
-               ("v_scale_pool", v_scale_pool)) if quantized else ())
-    if table.dtype != torch.int32:
-        raise ValueError(f"table must be int32, got {table.dtype}")
-    qc, kc = check_kernel_operands(
-        q, (("k_pool", k_pool), ("v_pool", v_pool)), scales,
-        (("table", table),))
-    pos_ptr, pos_scalar = kernel_pos(pos, q)
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    n_chunks, chunk = paged_decode_plan(pages, P)
-    fn = _build.load("paged_decode").paged_decode_split
-    fn.argtypes = _PAGED_ARGS
-    fn.restype = ctypes.c_int
-    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    part = None if n_chunks == 1 else torch.empty(
-        B * H * n_chunks * (D + 2), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                _ptr(k_scale_pool), _ptr(v_scale_pool), table.data_ptr(),
-                pos_ptr, pos_scalar, out.data_ptr(), _ptr(part), n_chunks,
-                chunk, B, H, Hkv, D, P, pages, n_pool, float(scale), qc, kc,
-                stream)
-    _build.check(rc, "paged_decode")
+    out = launch_paged("paged_decode", "paged_decode_split", q, k_pool,
+                       v_pool, table, pos, k_scale_pool, v_scale_pool,
+                       quantized, scale)
     launches["paged_decode"] += 1
     return out
 

@@ -9,27 +9,23 @@ _paged_attend_gather``: dequantize, scores, mask -1e30, softmax, p.v),
 which is :func:`~hpc_patterns_tpu_torch.ops.flash_decode.
 flash_decode_paged_reference`.
 
-The JAX kernel stages the whole allocated K/V span in VMEM. The card's
-kernel does not: it keeps the (g, pages * P) f32 score row in shared
-memory and streams K once and V once. A score row past the card's
-shared-memory budget raises ``ValueError`` naming the limit; long
-contexts belong on the online-softmax ``flash`` route.
+The JAX kernel stages the whole allocated K/V span in VMEM and takes one
+softmax over it. The card's kernel splits each sequence's rows into the
+fixed chunks of :func:`~hpc_patterns_tpu_torch.ops.flash_decode.
+paged_decode_plan` (set by the page size alone), a CTA each: inside a
+chunk the JAX kernel's form (rows dequantized before the dot, the chunk's
+scores in shared memory, their exact max, then the exponentials and
+their sum, then p.v), the chunks merged by lse in a dependent launch.
+Any context the table holds launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
-from hpc_patterns_tpu_torch.ops import _build
 from hpc_patterns_tpu_torch.ops.flash_decode import (
     _check_paged,
-    _ptr,
-    check_kernel_operands,
     check_scales,
     flash_decode_paged_reference,
-    kernel_pos,
+    launch_paged,
 )
 
 #: the mask constant; equal to the flash routes' (a test pins it)
@@ -37,21 +33,6 @@ _NEG_INF = -1e30
 
 #: kernel launches in this process (the main-path witness)
 launches = 0
-
-#: dynamic shared memory one block of the H100 may use (232,448 bytes)
-SMEM_LIMIT = 227 * 1024
-_THREADS = 128
-
-
-def smem_bytes(H: int, Hkv: int, D: int, P: int, pages: int,
-               dtype: torch.dtype) -> int:
-    """Bytes of shared memory one launch needs (``csrc/paged_attention.cu``
-    ``smem_bytes``): the (g, D) queries, the (g, pages * P) score row and
-    the (RG, g, D) partial accumulators, all f32."""
-    g = H // Hkv
-    n = 16 // torch.empty((), dtype=dtype).element_size()  # values per load
-    rg = _THREADS // (D // n)
-    return 4 * (g * D + g * pages * P + rg * g * D)
 
 
 def paged_attention_decode(q, k_pool, v_pool, table, pos, *,
@@ -66,8 +47,10 @@ def paged_attention_decode(q, k_pool, v_pool, table, pos, *,
     dequant scales: required for one-byte pools, refused for
     compute-dtype ones. Returns (B, H, D) f32, the gather route's
     numbers. CUDA: the Hopper kernel (f32/bf16 q; pools of q's dtype or
-    one-byte; D in (16, 32, 64, 128); H / Hkv <= 8; a score row within
-    :data:`SMEM_LIMIT`); anything else raises. CPU: the gather route."""
+    one-byte; D in (16, 32, 64, 128); H / Hkv <= 8), with an f32
+    workspace of B * H * n_chunks * (D + 2) values when the table holds
+    more than one chunk; the host never reads ``pos``; anything else
+    raises. CPU: the gather route."""
     global launches
     _check_paged(q, k_pool, v_pool, table, pos)
     quantized = check_scales(k_pool, k_scale_pool, v_scale_pool)
@@ -75,41 +58,8 @@ def paged_attention_decode(q, k_pool, v_pool, table, pos, *,
         return flash_decode_paged_reference(
             q, k_pool, v_pool, table, pos, scale,
             k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    B, H, D = q.shape
-    n_pool, Hkv, P, _ = k_pool.shape
-    pages = table.shape[1]
-    if table.dtype != torch.int32:
-        raise ValueError(f"table must be int32, got {table.dtype}")
-    scales = ((("k_scale_pool", k_scale_pool),
-               ("v_scale_pool", v_scale_pool)) if quantized else ())
-    qc, kc = check_kernel_operands(
-        q, (("k_pool", k_pool), ("v_pool", v_pool)), scales,
-        (("table", table),))
-    need = smem_bytes(H, Hkv, D, P, pages, k_pool.dtype)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"paged_flash keeps the (g={H // Hkv}, pages*P={pages * P}) f32 "
-            f"score row in shared memory: {need} bytes > the {SMEM_LIMIT}-"
-            "byte limit of one block; serve this context on the online-"
-            "softmax route (decode_attn='flash')")
-    pos_ptr, pos_scalar = kernel_pos(pos, q)
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    fn = _build.load("paged_attention").paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                _ptr(k_scale_pool), _ptr(v_scale_pool), table.data_ptr(),
-                pos_ptr, pos_scalar, out.data_ptr(), B, H, Hkv, D, P, pages,
-                n_pool, float(scale), qc, kc, stream)
-    _build.check(rc, "paged_attention")
+    out = launch_paged("paged_attention", "paged_attention", q, k_pool,
+                       v_pool, table, pos, k_scale_pool, v_scale_pool,
+                       quantized, scale)
     launches += 1
     return out

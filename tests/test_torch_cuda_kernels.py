@@ -15,10 +15,12 @@ from bf16 scores: only the summation order differs); the three backward
 kernels 2e-2 x max|plain| (bf16 outputs, and P and dS rounded to bf16
 before their products, where an f32 difference in the last place can
 move a rounding); decode 1e-4 (f32 math on both
-sides, only the summation order differs; for one-byte caches the decode
-kernels fold the scales into scores and probabilities where the plain
-versions dequantize first, one more f32 rounding per term) — the paged,
-linear and exact-softmax decode kernels alike. Matmuls of the plain versions
+sides, only the summation order differs; for one-byte caches the linear
+and paged kernels fold the scales into scores and probabilities where the
+plain versions dequantize first, one more f32 rounding per term, and the
+exact-softmax kernel dequantizes first as they do) — the paged, linear
+and exact-softmax decode kernels alike, the split ones also a sequence
+alone and in a batch to equal bits. Matmuls of the plain versions
 run in full f32 (``allow_tf32`` off). The busy-wait and overlap-pipeline
 kernels equal their plain versions bit for bit (every step one fmaf
 rounding, checksums summed in the same order). The fused ring kernels
@@ -514,18 +516,65 @@ def test_paged_attention_kernel_matches_plain(gen, kv, H, Hkv, D, P, pages):
         assert (got - want).abs().max().item() <= 1e-4
 
 
-def test_paged_attention_raises_past_its_shared_memory_budget(gen):
-    # g 8 x 8192 score rows x 4 bytes = 256 KB > 227 KB: a ValueError that
-    # names the limit, never a quiet fallback; 4096 rows still launch
-    q, kp, vp, _, _, _ = _pools(gen, "bfloat16", 1, 8, 1, 64, 256, 1,
-                                torch.bfloat16)
-    table = torch.zeros(1, 32, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="limit"):
-        pa.paged_attention_decode(q, kp, vp, table, 5)
-    got = pa.paged_attention_decode(q, kp, vp, table[:, :16], 5)
-    torch.cuda.synchronize()
-    want = fd.flash_decode_paged_reference(q, kp, vp, table[:, :16], 5)
-    assert (got - want).abs().max().item() <= 1e-4
+def test_paged_attention_long_context_launches_and_matches_plain(gen):
+    # g 8 x 8192 rows (32 pages of 256): a score row of 256 KB that the
+    # one-CTA kernel could not hold in shared memory and refused; split into
+    # 128-row chunks it launches (64 chunks, merged by lse) and matches the
+    # plain version, at a fill inside the table and at its last row
+    q, kp, vp, _, _, table = _pools(gen, "bfloat16", 1, 8, 1, 64, 256, 32,
+                                    torch.bfloat16)
+    assert fd.paged_decode_plan(32, 256) == (64, 128)
+    for p in (5000, 32 * 256 - 1):
+        n = pa.launches
+        got = pa.paged_attention_decode(q, kp, vp, table, p)
+        torch.cuda.synchronize()
+        assert pa.launches == n + 1
+        want = fd.flash_decode_paged_reference(q, kp, vp, table, p)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+@pytest.mark.parametrize("H,Hkv,D,P", [(8, 8, 128, 256), (8, 1, 64, 16),
+                                       (8, 2, 32, 300)])
+def test_paged_attention_kernel_is_batch_invariant(gen, kv, H, Hkv, D, P):
+    # one sequence decoded alone (B 1, a table just wide enough) and as
+    # row 5 of a batch of 8 with a wider table gives equal bits, and two
+    # calls give equal bits: the chunk is fixed by the page size, not by
+    # the batch, the kv heads or the table width; fills on and next to the
+    # chunk edges (127, 128, 255, 256: the table holds three chunks or
+    # more) and inside the first chunk (one chunk normalised in place, no
+    # merge)
+    qdt = _qdtype(kv)
+    chunk = fd.paged_decode_chunk(P)
+    pages = max(4, -(-3 * chunk // P))
+    wide = pages + 3
+    kp, vp, ks, vs = _seq_pools(gen, kv, 8 * wide + 1, Hkv, D, P, qdt)
+    q = torch.randn(8, H, D, generator=gen, device="cuda").to(qdt)
+    table = torch.randperm(8 * wide + 1, generator=gen,
+                           device="cuda")[:8 * wide]
+    table = table.to(torch.int32).reshape(8, wide)
+    assert fd.paged_decode_plan(pages, P)[1] == chunk
+    assert fd.paged_decode_plan(wide, P)[1] == chunk
+    fills = sorted({p for c in (1, 2) for p in (c * chunk - 1, c * chunk)}
+                   | {0, chunk // 2, pages * P - 1})
+    assert fills[-1] < pages * P
+    for fill in fills:
+        pos = torch.randint(0, wide * P, (8,), generator=gen, device="cuda")
+        pos[5] = fill
+        pos = pos.to(torch.int32)
+        batch = pa.paged_attention_decode(q, kp, vp, table, pos,
+                                          k_scale_pool=ks, v_scale_pool=vs)
+        again = pa.paged_attention_decode(q, kp, vp, table, pos,
+                                          k_scale_pool=ks, v_scale_pool=vs)
+        alone = pa.paged_attention_decode(
+            q[5:6].clone(), kp, vp, table[5:6, :pages].clone(),
+            pos[5:6].clone(), k_scale_pool=ks, v_scale_pool=vs)
+        torch.cuda.synchronize()
+        assert torch.equal(batch, again), fill
+        assert torch.equal(alone[0], batch[5]), fill
+        want = fd.flash_decode_paged_reference(
+            q, kp, vp, table, pos, k_scale_pool=ks, v_scale_pool=vs)
+        assert (batch - want).abs().max().item() <= 1e-4, fill
 
 
 def test_decode_wrappers_reject_pool_dtypes_they_do_not_take(gen):
@@ -578,10 +627,11 @@ def test_busy_wait_kernel_equals_plain_bitwise(gen, n, trips):
                          ids=["4x64", "ragged-3x1064", "capped-ragged-2x14000",
                               "2x8", "bench-16x2048", "past-l2-16x32768"])
 def test_overlap_pipeline_kernel_equals_plain_bitwise(gen, mode, chunks, rows):
-    # on 132 SMs: 1064 rows split into 16-row stripes, the last block 8
-    # rows; 14000 rows into stripes capped at 104, the last block 64 rows;
-    # the overlap bench's two shapes: 128 blocks of 16 rows, and 316
-    # blocks of 104 rows (more than one wave), the last block 8 rows
+    # on 132 SMs (pipeline_plan): 64 rows on 8 blocks; 1064 rows on 132
+    # blocks of 32 or 33 units (1024 or 1056 floats); 14000 rows on 132
+    # blocks of 424 or 425 units in one tile; 8 rows on one block; the
+    # overlap bench's two shapes: 132 blocks of 62 or 63 units in one
+    # tile, and 132 blocks of 992 or 993 units in two tiles (one wave)
     x = torch.rand(chunks, rows, 128, generator=gen, device="cuda")
     out = torch.full_like(x, -1.0)
     before = pipeline.launches
@@ -591,6 +641,32 @@ def test_overlap_pipeline_kernel_equals_plain_bitwise(gen, mode, chunks, rows):
     want, written = pipeline.overlap_run_reference(x, mode=mode, tripcount=3,
                                                    passes=2)
     assert torch.equal(got, want)
+    if written is not None:
+        assert torch.equal(out, written)
+    else:
+        assert bool((out == -1.0).all())
+
+
+@pytest.mark.parametrize("mode", pipeline.MODES)
+@pytest.mark.parametrize("chunks,rows", [(3, 32776), (5, 2056)])
+def test_overlap_pipeline_partial_shares_and_tiles_equal_plain(gen, mode,
+                                                              chunks, rows):
+    # row counts that leave partial shares and tiles: 32776 rows are
+    # 131104 units over 132 blocks (993 or 994 each, cut into tiles of 496
+    # or 497 units), 2056 rows 8224 units (62 or 63); an odd chunk count,
+    # three passes, so steps change slot parity across passes and the
+    # seeded modes' slots follow the chunk, not the step
+    x = torch.rand(chunks, rows, 128, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, tiles = pipeline.pipeline_plan(rows, sms)
+    assert rows * 4 % blocks  # the shares are not all equal
+    out = torch.full_like(x, -1.0)
+    got = pipeline.overlap_run(x, mode=mode, tripcount=2, passes=3, out=out)
+    again = pipeline.overlap_run(x, mode=mode, tripcount=2, passes=3)
+    torch.cuda.synchronize()
+    want, written = pipeline.overlap_run_reference(x, mode=mode, tripcount=2,
+                                                   passes=3)
+    assert torch.equal(got, want) and torch.equal(again, want)
     if written is not None:
         assert torch.equal(out, written)
     else:

@@ -120,8 +120,20 @@ def test_mask_constant_matches_flash_routes():
         == jpa._NEG_INF
 
 
-def test_shared_memory_budget_formula():
-    # the score row is what grows: the serving shape (g 1, 4 pages of 256,
-    # D 128) fits with room; g 8 at 16k rows does not
-    assert tpa.smem_bytes(8, 8, 128, 256, 4, torch.bfloat16) < 16 * 1024
-    assert tpa.smem_bytes(8, 1, 128, 256, 64, torch.int8) > tpa.SMEM_LIMIT
+@pytest.mark.parametrize("P", [16, 64, 192, 256, 300, 1024])
+def test_exact_softmax_chunk_plan_follows_the_page_size_alone(P):
+    # kernel 7 splits each sequence's rows on kernel 6's plan (both launch
+    # through flash_decode.launch_paged): the chunk is set by the page size
+    # alone (never by the batch, the kv heads or the table width), so a
+    # sequence's bits do not depend on its batch; the chunks cover the
+    # table's pages * P rows, the last one partial at most; a chunk stays
+    # within the kernels' PAGED_CHUNK_MAX (256) rows and, for pages of a
+    # multiple of 64 rows, never straddles a page
+    chunk = fd.paged_decode_chunk(P)
+    assert 0 < chunk <= 256
+    if P % 64 == 0:
+        assert P % chunk == 0 or chunk % P == 0
+    for pages in (1, 3, 4, 7, 64):
+        n_chunks, c = fd.paged_decode_plan(pages, P)
+        assert c == chunk
+        assert (n_chunks - 1) * chunk < pages * P <= n_chunks * chunk

@@ -135,11 +135,24 @@ def test_bad_mode_shape_and_arguments():
         jax_pipeline.overlap_run(jnp.zeros((1, 8, 128)), mode="overlap_out")
 
 
-@pytest.mark.parametrize("rows,sms,want", [(2048, 132, 16), (32768, 132, 104),
-                                           (64, 132, 8), (8, 132, 8),
-                                           (4096, 16, 104), (200, 10, 24)])
-def test_default_stripe_rows(rows, sms, want):
-    assert pipeline.default_stripe_rows(rows, sms) == want
+@pytest.mark.parametrize("rows,sms,blocks,tiles", [
+    (2048, 132, 132, 1), (32768, 132, 132, 2), (64, 132, 8, 1),
+    (8, 132, 1, 1), (4096, 16, 16, 2), (200, 10, 10, 1),
+    (65536, 132, 132, 3), (1064, 132, 132, 1)])
+def test_pipeline_plan(rows, sms, blocks, tiles):
+    # one block an SM (fewer below 8 rows a block), each with an equal
+    # share of every chunk in 32-float units (shares differ by at most one
+    # unit), cut into tiles whose two slots fit shared memory; block 0's
+    # first tile holds rows 0-7. Both overlap shapes run one wave on 132
+    # SMs: 16 x 2048 in one tile a block, 16 x 32768 in two
+    assert pipeline.pipeline_plan(rows, sms) == (blocks, tiles)
+    units = rows * 4
+    shares = [(b + 1) * units // blocks - b * units // blocks
+              for b in range(blocks)]
+    assert max(shares) - min(shares) <= 1 and sum(shares) == units
+    slot_units = -(-max(shares) // tiles)
+    assert 2 * slot_units * pipeline.UNIT_BYTES <= 2 * pipeline.SLOT_BYTES_MAX
+    assert shares[0] // tiles * 32 >= 8 * 128
 
 
 def test_make_hbm_array_is_seeded():
