@@ -113,7 +113,27 @@ Phases, each printing JSON lines:
               arrays (2 x 8 a bf16 bundle, 4 x 8 an int8 one), every arena
               drained; wall time, tokens/s, goodput, the overlap fraction
               and bytes a round printed;
-9. kernel   — the training kernels (kernels 1-4) at one layer of the
+9. observe  — the observability layer: ``serve_app`` in-process at the
+              serve phase's model and stream with ``--metrics --trace
+              --reqtrace --log --trace-out``: SUCCESS, every sequence
+              equal to the untraced serve phase's byte for byte, the
+              Chrome JSON balanced with its decode-chunk slices timed by
+              CUDA events, the report's phase table, every request's
+              segments covering its life; the same engine untraced and
+              traced in turns (untraced, traced, traced, untraced, twice):
+              equal sequences, equal kernel 1 and 6 launches, tokens/s; on
+              one more traced run the decode-chunk windows' share of wall
+              time beside ``torch.profiler``'s device-busy share;
+              ``train_app --metrics --trace`` at the training widths and 2
+              layers for 3 steps (``train.steps``, ``train.step_s``,
+              ``train.step_time_s``); ``allreduce_app --sweep --min-p 3 -p
+              12 --metrics`` (each algorithm's busbw gauge equal to its
+              printed busbw) and one ``comm.allreduce`` span and
+              event-timed window per Communicator call; one closed-loop
+              1p/1d dma plane leg with ``emit=`` (its tokens equal to
+              phase 8's, one ``plane_migrate`` record and one window per
+              migration, every migrated bundle carrying its segments);
+10. kernel  — the training kernels (kernels 1-4) at one layer of the
               training benchmark's step (B 8, T 2048, H 8, D 128, causal,
               bf16): the forward with lse, the fused, dq and dkv backward
               kernels, each against its plain version (stated tolerances)
@@ -132,7 +152,7 @@ Phases, each printing JSON lines:
               its launches' plan (cluster size, tiles, waves,
               ``cudaOccupancyMaxActiveClusters``; the forwards clusters of
               more than one CTA);
-10. train   — ``train_app`` in-process at the training benchmark's chip
+11. train   — ``train_app`` in-process at the training benchmark's chip
               model (vocab 32768, d_model 1024, 8 heads of 128, 8 layers,
               d_ff 4096, bf16, flash, batch 8 x 2048; 8 steps, with
               --resume-check and --generate 16): SUCCESS, the first loss
@@ -157,7 +177,7 @@ Phases, each printing JSON lines:
               save-a forward once per layer), one step on the fused route
               (kernel 2 once per layer), and one step profiled
               (device-busy share, top kernels);
-11. the ``{"kernels": [...]}`` line, the card's name and power limit
+12. the ``{"kernels": [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -838,7 +858,8 @@ def phase_serve():
           f"engine vs standalone: {counts} {detail}")
     check(plain_counts["mismatch"] == 0,
           f"kernel route vs plain route: {plain_counts}")
-    return launches
+    return launches, {"params": params, "cfg": cfg, "reqs": reqs,
+                      "geom": geom, "out": out, "launches": launches}
 
 
 def phase_quant():
@@ -1035,6 +1056,10 @@ def busy_wait_case(gen):
     plain = device_ms(kernels.busy_wait_reference, sets, n=2)
     b_ms, b_by = bound(8.0 * n, 2.0 * n * 8 * trips, F32_FLOPS_PER_S)
     mhz = float(smi("clocks.max.sm").split()[0])
+    # one launch with no chain (trips 0: a load and a store a thread),
+    # back to back: the least time of any launch
+    launch_ms = device_ms(kernels.busy_wait, [(x, 0) for x, _ in sets])
+    floor_ms = 8 * trips * FFMA_LATENCY_CYCLES / (mhz * 1e6) * 1e3
     row = {"phase": "kernel", "name": "busy_wait",
            "shape": {"n": n, "trips": trips, "dtype": "float32"},
            "checked": {"n": [1024, 65536], "trips": [1, 7, 300],
@@ -1042,9 +1067,10 @@ def busy_wait_case(gen):
            "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain,
            "library_ms": None, "library": None, "bound_ms": b_ms,
            "bound_by": b_by,
-           # the dependent chain's floor: 8 * trips FFMAs of 4 cycles
-           "latency_floor_ms": 8 * trips * FFMA_LATENCY_CYCLES
-           / (mhz * 1e6) * 1e3, "sm_clock_max_mhz": mhz}
+           # the dependent chain's floor: 8 * trips FFMAs of 4 cycles;
+           # with one launch, the least time these inputs can take
+           "latency_floor_ms": floor_ms, "launch_ms": launch_ms,
+           "least_ms": floor_ms + launch_ms, "sm_clock_max_mhz": mhz}
     emit(row)
     return row
 
@@ -1445,7 +1471,7 @@ def fused_permute_case(gen):
     return row
 
 
-def alias_case(gen):
+def alias_case(gen, launch_ms: float):
     from hpc_patterns_tpu_torch.interop import device as idev
 
     dev = torch.device("cuda")
@@ -1467,7 +1493,9 @@ def alias_case(gen):
            "shape": {"rows": rows, "cols": cols, "dtype": "float32"},
            "max_abs_err": 0.0, "tol": 0.0, "ms": ms, "plain_ms": plain,
            "library_ms": lib, "library": "mul_(2).add_(1)",
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           # one launch: its 4 KB move in far less than any launch takes
+           "least_ms": launch_ms}
     emit(row)
     return row
 
@@ -2262,7 +2290,329 @@ def phase_plane():
           "note": "replicas are logical ranks 0 and 1 of one card; a "
                   "migration is a copy within its memory",
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, {"conf": conf, "geom": geom, "stream": stream,
+                      "dma_outs": outs["dma"]}
+
+
+# ------------------------------------------------------------ observability
+
+# the observe phase: training at the chip widths cut to this depth and
+# step count; the allreduce sweep's sizes
+OBSERVE_TRAIN = {"n_layers": 2, "steps": 3}
+OBSERVE_SWEEP = ["--sweep", "--min-p", "3", "-p", "12"]
+# serving untraced (False) and traced (True) in turns, the block twice:
+# the serve phase's tokens/s moves ~10% from run to run
+OBSERVE_TURNS = (False, True, True, False) * 2
+OBSERVE_CUTS = {"train": "8 layers x 8 steps -> 2 layers x 3 steps",
+                "comm": "p 3..25 -> p 3..12",
+                "plane": "one closed-loop 1p/1d dma leg"}
+
+
+def _observe_reset():
+    """Every registry and recorder back to its disabled state."""
+    from hpc_patterns_tpu_torch.harness import metrics, reqtrace, trace
+
+    metrics.configure(enabled=False)
+    trace.configure(enabled=False)
+    reqtrace.reset()
+
+
+def _balanced(chrome) -> bool:
+    depth = {}
+    for e in chrome["traceEvents"]:
+        if e["ph"] in ("B", "E"):
+            depth[e["tid"]] = depth.get(e["tid"], 0) + (
+                1 if e["ph"] == "B" else -1)
+            if depth[e["tid"]] < 0:
+                return False
+    return not any(depth.values())
+
+
+def _observe_serve(ctx, logs):
+    """serve_app traced at the serve phase's model and stream, then the
+    same engine untraced and traced in turns."""
+    from hpc_patterns_tpu_torch.apps import serve_app
+    from hpc_patterns_tpu_torch.apps.serve_app import CHIP_MODEL, CHIP_SERVE
+    from hpc_patterns_tpu_torch.harness import metrics, report, reqtrace
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.models.serving import ContinuousBatcher
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    s, cfg, want = CHIP_SERVE, ctx["cfg"], ctx["out"]
+    dev = torch.device("cuda")
+    runs = []
+
+    class Captured(ContinuousBatcher):
+        def run(self, **kw):
+            got = super().run(**kw)
+            runs.append(dict(got))
+            return got
+
+    log, out = logs / "serve.jsonl", logs / "serve.trace.json"
+    argv = ["--device", "cuda", "--dtype", CHIP_MODEL["dtype"],
+            "--vocab", str(CHIP_MODEL["vocab"]),
+            "--d-model", str(CHIP_MODEL["d_model"]),
+            "--n-layers", str(CHIP_MODEL["n_layers"]),
+            "--n-heads", str(CHIP_MODEL["n_heads"]),
+            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--chunk", str(s["chunk"]), "--page-size", str(s["page_size"]),
+            "--prompt-len", str(s["prompt_len"]),
+            "--budget", str(s["max_budget"]), "--metrics", "--trace",
+            "--reqtrace", "--trace-out", str(out)]
+    orig = serve_app.make_requests, serve_app.ContinuousBatcher
+    # the serve phase's stream (the benchmark's) in place of the app's
+    serve_app.make_requests = lambda n, plen, budget, vocab, mix: \
+        serve_app.bench_stream(n, plen, budget, vocab)
+    serve_app.ContinuousBatcher = Captured
+    try:
+        code, recs = run_app(serve_app.main, argv, log)
+    finally:
+        serve_app.make_requests, serve_app.ContinuousBatcher = orig
+        _observe_reset()
+    printed = log.with_suffix(".out").read_text()
+    check(code == 0 and "SUCCESS" in printed.splitlines(),
+          f"traced serve_app prints SUCCESS (rc {code})")
+    measured = runs[-1]
+    for i in range(N_REQUESTS):
+        check(np.array_equal(measured[i], want[i]),
+              f"traced serve_app seq {i} == the untraced serve phase's")
+    chrome = json.loads(out.read_text())
+    dev_x = [e for e in chrome["traceEvents"] if e["ph"] == "X"
+             and e["tid"] == tracelib.TID_DEVICE]
+    check(_balanced(chrome) and dev_x and all(
+        e["args"].get("clock") == tracelib.EVENT_CLOCK for e in dev_x),
+        f"Chrome JSON balanced, {len(dev_x)} decode-chunk slices timed "
+        "by CUDA events")
+    table = report.format_report(report.aggregate(recs))
+    check("span.serve.measure/serve.decode_round" in table
+          and "serve.tokens" in table, "report renders the phase table")
+    (rq,) = [r for r in recs if r["kind"] == "reqtrace"]
+    from hpc_patterns_tpu_torch.harness.reqtrace import coverage_frac
+
+    cover = [coverage_frac(r["segments"], r["t_submit"], r["t_finish"])
+             for r in rq["requests"].values()]
+    check(rq["n"] == N_REQUESTS and min(cover) > 0.999,
+          f"every request's segments cover its life (min {min(cover)})")
+    (snap,) = [r for r in recs if r["kind"] == "metrics"]
+    check(snap["counters"]["serve.admitted"] == N_REQUESTS
+          and snap["counters"]["serve.tokens"] == sum(
+              len(v) for v in want.values()),
+          f"counters of the measured run: {snap['counters']}")
+
+    # turns: the same engine and stream untraced / traced
+    def serve(traced):
+        if traced:
+            metrics.configure(enabled=True)
+            rec = tracelib.configure(enabled=True)
+            reqtrace.configure(enabled=True)
+        fa.launches["fwd"] = 0
+        fd.launches["paged_decode"] = 0
+        eng = ContinuousBatcher(ctx["params"], cfg, **ctx["geom"],
+                                device=dev)
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, b) for p, b in ctx["reqs"]]
+        got = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = (fa.launches["fwd"], fd.launches["paged_decode"])
+        share = None
+        if traced:
+            chunks = [e[5] for e in rec.events
+                      if e[0] == "X" and e[2] == "serve.chunk"]
+            share = sum(chunks) / dt
+        _observe_reset()
+        for i, sid in enumerate(ids):
+            check(np.array_equal(got[sid], want[i]),
+                  f"turn (traced {traced}) seq {i} == the serve phase's")
+        served = sum(len(v) for v in got.values())
+        return served / dt, launched, share
+
+    turns = []
+    for traced in OBSERVE_TURNS:
+        tps, launched, share = serve(traced)
+        turns.append({"traced": traced, "tokens_per_s": tps,
+                      "launches": launched, "chunk_window_share": share})
+    check(len({t["launches"] for t in turns}) == 1,
+          f"kernel 1 and 6 launches equal traced and untraced: "
+          f"{[t['launches'] for t in turns]}")
+    prof = {}
+
+    def profiled():
+        prof["tps"], _, prof["share"] = serve(True)
+
+    busy = device_profile(profiled)
+    emit({"phase": "observe", "part": "serve",
+          "tokens_per_s_turns": [[t["traced"], t["tokens_per_s"]]
+                                 for t in turns],
+          "launches_flash_prefill_paged_decode": turns[0]["launches"],
+          "chunk_window_share": [t["chunk_window_share"] for t in turns
+                                 if t["traced"]],
+          "profiled": {"chunk_window_share": prof["share"],
+                       "profiler_busy_share": busy["device_busy_frac"],
+                       "wall_s": busy["wall_s"],
+                       "device_kernels": busy["device_kernels"]},
+          "device_slices": len(dev_x),
+          "reqtrace_coverage_min": min(cover),
+          "trace_events": len(chrome["traceEvents"])})
+
+
+def _observe_train(logs):
+    from hpc_patterns_tpu_torch.apps import train_app
+
+    argv = list(TRAIN_BASE)
+    argv[argv.index("--n-layers") + 1] = str(OBSERVE_TRAIN["n_layers"])
+    argv += ["--steps", str(OBSERVE_TRAIN["steps"]), "--device", "cuda",
+             "--metrics", "--trace"]
+    try:
+        code, recs = run_app(train_app.main, argv, logs / "train.jsonl")
+    finally:
+        _observe_reset()
+    (res,) = [r for r in recs if r.get("kind") == "result"]
+    (snap,) = [r for r in recs if r.get("kind") == "metrics"]
+    steps = [r for r in recs if r.get("kind") == "step"]
+    n = OBSERVE_TRAIN["steps"]
+    check(code == 0 and res["success"], f"traced train_app rc {code}")
+    check(snap["counters"]["train.steps"] == n == len(steps),
+          f"train.steps {snap['counters']['train.steps']} == {n}")
+    check(snap["histograms"]["train.step_s"]["count"] == n - 1,
+          "train.step_s counts every step after the first")
+    check(snap["gauges"]["train.step_time_s"]["last"] == steps[-1]["dt_s"],
+          "train.step_time_s == the last step's time")
+    emit({"phase": "observe", "part": "train",
+          "steps_ms": [r["dt_s"] * 1e3 for r in steps],
+          "gauges": sorted(snap["gauges"])})
+
+
+def _observe_comm(logs):
+    from hpc_patterns_tpu_torch.apps import allreduce_app
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+    from hpc_patterns_tpu_torch.harness import metrics
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    try:
+        code, recs = run_app(
+            allreduce_app.main, OBSERVE_SWEEP + [
+                "--world", str(COMM_WORLD), "--device", "cuda",
+                "--metrics"], logs / "sweep.jsonl")
+    finally:
+        _observe_reset()
+    res = [r for r in recs if r.get("kind") == "result"]
+    (snap,) = [r for r in recs if r.get("kind") == "metrics"]
+    check(code == 0 and all(r["success"] for r in res),
+          f"allreduce sweep with --metrics rc {code}")
+    points = len(res) // len(allreduce_app.ALGORITHMS)
+    for alg in allreduce_app.ALGORITHMS:
+        last = [r for r in res if r["name"] == f"allreduce[{alg}]"][-1]
+        g = snap["gauges"][f"comm.allreduce.{alg}.busbw_gbps"]
+        check(g["last"] == last["busbw_gbps"] and g["n"] == points,
+              f"{alg}: busbw gauge {g} == the printed {last['busbw_gbps']}")
+    # one comm.allreduce span and device window per Communicator call
+    reg = metrics.configure(enabled=True)
+    rec = tracelib.configure(enabled=True)
+    try:
+        comm = Communicator({"x": COMM_WORLD}, "x", device="cuda")
+        x = comm.rank_filled(1 << 12)
+        calls = 0
+        for alg in allreduce_app.ALGORITHMS:
+            for _ in range(2):
+                comm.allreduce(x, alg)
+                calls += 1
+        comm.synchronize()
+        spans = reg.snapshot()["histograms"]["span.comm.allreduce"]["count"]
+        wins = [e for e in rec.events if e[0] == "X"
+                and e[2].startswith("comm.allreduce.")]
+    finally:
+        _observe_reset()
+    check(spans == calls == len(wins) and all(
+        e[6]["clock"] == tracelib.EVENT_CLOCK for e in wins),
+        f"{spans} comm.allreduce spans, {len(wins)} windows == {calls} calls")
+    emit({"phase": "observe", "part": "comm", "points": len(res),
+          "busbw_gauges": {alg: snap["gauges"][
+              f"comm.allreduce.{alg}.busbw_gbps"]["last"]
+              for alg in allreduce_app.ALGORITHMS},
+          "communicator_calls": calls})
+
+
+def _observe_plane(ctx):
+    from hpc_patterns_tpu_torch import bench_serving as bs
+    from hpc_patterns_tpu_torch.harness import metrics, reqtrace
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    records, carried = [], []
+    stream, geom = ctx["stream"], ctx["geom"]
+    reg = metrics.configure(enabled=True)
+    rec = tracelib.configure(enabled=True)
+    rtr = reqtrace.configure(enabled=True)
+    try:
+        plane = bs.make_plane(
+            stream, ("prefill", "decode"), **geom, migration="dma",
+            device=torch.device("cuda"), placed=True,
+            slo_targets=bs.slo.targets_from_classes(bs.SCENARIO_CLASSES),
+            emit=lambda **kw: records.append(kw))
+        dst = plane.replicas[1].engine
+        install = dst.install_migration
+
+        def carrying(bundle):
+            carried.append(bundle.segments is not None
+                           and bundle.segments[-1][0] == "migrating")
+            return install(bundle)
+
+        dst.install_migration = carrying
+        ids = {r.index: plane.submit(stream["prompts"][r.index], r.max_new,
+                                     priority=r.priority)
+               for r in stream["schedule"].requests}
+        got = plane.run()
+        torch.cuda.synchronize()
+        counters = reg.snapshot()["counters"]
+        windows = [e for e in rec.events if e[0] == "X"
+                   and e[2] == "plane.kv_migration"]
+        lives = [rtr.segments(rid) for rid in ids.values()]
+    finally:
+        _observe_reset()
+    for i, rid in ids.items():
+        check(np.array_equal(got[rid], ctx["dma_outs"][i]),
+              f"traced plane request {i} == the plane phase's dma leg")
+    migrates = [r for r in records if r["kind"] == "plane_migrate"]
+    check(len(migrates) == plane.migrations > 0
+          and counters["plane.migrations"] == plane.migrations,
+          f"{len(migrates)} plane_migrate records == {plane.migrations} "
+          "migrations")
+    check(len(carried) == plane.migrations and all(carried),
+          f"every migrated bundle carries segments ({sum(carried)}/"
+          f"{len(carried)})")
+    check(len(windows) == plane.migrations and all(
+        e[6]["clock"] == tracelib.EVENT_CLOCK for e in windows),
+        "one event-timed window per migration")
+    check(all("migrating" in [s[0] for s in life] for life in lives),
+          "every request's segments pass through migrating")
+    emit({"phase": "observe", "part": "plane",
+          "records": {k: sum(1 for r in records if r["kind"] == k)
+                      for k in sorted({r["kind"] for r in records})},
+          "migrations": plane.migrations, "counters": counters,
+          "migration_window_ms": [e[5] * 1e3 for e in windows][:8]})
+
+
+def phase_observe(serve_ctx, plane_ctx):
+    """The observability layer on the card: serve_app traced at the serve
+    phase's model and stream (SUCCESS, every sequence equal to the
+    untraced serve phase's, a balanced Chrome JSON whose decode-chunk
+    slices are timed by CUDA events, the report's phase table, request
+    segments covering every life), the engine untraced and traced in
+    turns (equal sequences, equal kernel 1 and 6 launches, tokens/s, the
+    chunk windows' share of wall time beside a profiler's busy share);
+    train_app traced; the allreduce sweep's bandwidth gauges and one span
+    per Communicator call; one closed-loop plane leg with emit=."""
+    t0 = time.perf_counter()
+    logs = ROOT / "build" / "smoke_observe"
+    logs.mkdir(parents=True, exist_ok=True)
+    _observe_serve(serve_ctx, logs)
+    _observe_train(logs)
+    _observe_comm(logs)
+    _observe_plane(plane_ctx)
+    emit({"phase": "observe", "cuts": OBSERVE_CUTS,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_train():
@@ -2528,18 +2878,19 @@ def main() -> int:
     busy = busy_wait_case(kgen)
     pipe_rows = pipeline_case(kgen)
     pipe = pipe_rows["overlap"]
-    launches = phase_serve()
+    launches, serve_ctx = phase_serve()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
     cgen = torch.Generator(device="cuda").manual_seed(4)
     ring_row = fused_allreduce_case(cgen)
     agmm_row = allgather_matmul_case(cgen)
     perm_row = fused_permute_case(cgen)
-    alias_row = alias_case(cgen)
+    alias_row = alias_case(cgen, busy["launch_ms"])
     mig_row = migration_case(cgen)
     launches_comm = phase_comm()
     launches_quant = phase_quant()
-    launches_plane = phase_plane()
+    launches_plane, plane_ctx = phase_plane()
+    phase_observe(serve_ctx, plane_ctx)
     tgen = torch.Generator(device="cuda").manual_seed(5)
     train_rows = train_kernel_cases(tgen, **TRAIN_KERNEL_SHAPE)
     train_kernel_cases(tgen, **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA

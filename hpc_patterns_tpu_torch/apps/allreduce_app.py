@@ -35,6 +35,9 @@ import sys
 import torch
 
 from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.comm.communicator import (
+    record_collective_bandwidth,
+)
 from hpc_patterns_tpu_torch.dtypes import get_traits
 from hpc_patterns_tpu_torch.harness.cli import (
     add_memory_kind_args,
@@ -160,7 +163,7 @@ def _run_point(args, log, comm, algorithm: str, log2_elements: int) -> int:
     x = comm.rank_filled(n, traits.dtype)
     step = comm.jit_allreduce(x, algorithm)
     result = measure(blocking(step, x), repetitions=args.repetitions,
-                     warmup=args.warmup)
+                     warmup=args.warmup, label=f"allreduce.{algorithm}")
     elapsed = max_across_processes(result.min_s)
 
     out = step(x)
@@ -185,6 +188,8 @@ def _run_point(args, log, comm, algorithm: str, log2_elements: int) -> int:
 
     nbytes = n * traits.itemsize
     busbw = common.allreduce_bus_bandwidth_gbps(nbytes, elapsed, world)
+    record_collective_bandwidth(f"allreduce.{algorithm}", nbytes, elapsed,
+                                busbw_gbps=busbw)
     log.result(f"allreduce[{algorithm}]", verdict, world=world, elements=n,
                dtype=traits.name, bytes_per_rank=nbytes, elapsed_s=elapsed,
                algbw_gbps=nbytes / elapsed / 1e9 if elapsed > 0 else
@@ -198,7 +203,7 @@ def _run_point(args, log, comm, algorithm: str, log2_elements: int) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Shared app scaffolding — the counterpart of
-``hpc_patterns_tpu/apps/common.py``: the communicator an app runs over
-and its reporting units.
+``hpc_patterns_tpu/apps/common.py``: the instrumented session every app
+runs through, the communicator an app runs over and its reporting
+units.
 
 The port runs every rank of a communicator in one process on one card
 (logical ranks, see :mod:`hpc_patterns_tpu_torch.comm`), so the
@@ -9,7 +10,47 @@ cross-process reductions of the JAX module are the identity here.
 
 from __future__ import annotations
 
+import os
+from typing import Callable
+
 from hpc_patterns_tpu_torch.comm.communicator import Communicator
+
+def run_instrumented(run_fn: Callable[[object], int], args) -> int:
+    """The shared ``--metrics``/``--trace`` session every app ``main()``
+    runs through: install a fresh process-wide metrics registry AND
+    flight recorder from the flags (both no-ops without their flag), run
+    the app, and on ANY exit path append the closing snapshot records to
+    ``--log``: one ``kind=metrics`` (``python -m hpc_patterns_tpu_torch.
+    harness.report``) and one ``kind=trace`` (``python -m
+    hpc_patterns_tpu_torch.harness.trace``). Appending keeps the app's
+    own records. With ``HPCPAT_TRACE_DIR`` set, a traced run also writes
+    its recorder snapshot there as ``rank<id>.trace.json`` — the same
+    snapshot as the log record."""
+    from hpc_patterns_tpu_torch.harness import metrics, trace
+    from hpc_patterns_tpu_torch.harness.runlog import RunLog
+
+    m = metrics.configure(enabled=getattr(args, "metrics", False))
+    trace_kw = {}
+    if getattr(args, "trace_capacity", None):
+        trace_kw["capacity"] = args.trace_capacity
+    rec = trace.configure(enabled=getattr(args, "trace", False),
+                          **trace_kw)
+    try:
+        return run_fn(args)
+    finally:
+        trace_dir = os.environ.get(trace.ENV_TRACE_DIR)
+        rec_snap = (rec.snapshot()
+                    if rec.enabled and (getattr(args, "log", None)
+                                        or trace_dir) else None)
+        if getattr(args, "log", None) and (m.enabled or rec.enabled):
+            log = RunLog(args.log, truncate=False)
+            if m.enabled:
+                log.emit(kind="metrics", **m.snapshot())
+            if rec.enabled:
+                log.emit(kind="trace", **rec_snap)
+        if rec.enabled and trace_dir:
+            trace.write_rank_snapshot(rec, trace_dir, snapshot=rec_snap)
+
 
 #: ranks when the app is not told (``--world -1``): the reference CTest's
 #: ``mpirun -np 4``

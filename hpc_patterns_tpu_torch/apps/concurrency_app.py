@@ -30,8 +30,10 @@ import sys
 
 import torch
 
+from hpc_patterns_tpu_torch.apps import common
 from hpc_patterns_tpu_torch.concurrency import autotune, engine
 from hpc_patterns_tpu_torch.concurrency import commands as cmds
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness.cli import AUTO, base_parser
 from hpc_patterns_tpu_torch.harness.profiling import maybe_trace
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
@@ -148,6 +150,23 @@ _RESOURCE = {"C": "core", "M2D": "hbm", "D2M": "hbm"}
 _ONCHIP_CHUNKS = 16
 
 
+def _record_overlap_metrics(engine_name, names, serial_s, concurrent_s,
+                            verdict) -> None:
+    """Overlap outcome gauges (no-op when --metrics is off): the serial /
+    concurrent pair and the achieved speedup, keyed by ``<engine>.<mode>``
+    and the command pair, so a sweep over modes keeps the whole matrix."""
+    m = metricslib.get_metrics()
+    if not m.enabled:
+        return
+    pair = "+".join(names)
+    m.gauge(f"concurrency.{engine_name}.{pair}.serial_s").set(serial_s)
+    m.gauge(f"concurrency.{engine_name}.{pair}.concurrent_s").set(
+        concurrent_s)
+    if verdict.speedup is not None:
+        m.gauge(f"concurrency.{engine_name}.{pair}.speedup").set(
+            verdict.speedup)
+
+
 def _onchip_supported(args, mode, device) -> bool:
     kinds = tuple(sorted(k.upper() for k in args.commands))
     return (kinds in _ONCHIP_PAIRS and mode in ("serial", "async")
@@ -216,6 +235,8 @@ def run_onchip(args, log, mode, device) -> int:
     resources = [_RESOURCE[k] for k in names]
     verdict = concurrency_verdict(per_times, t_concurrent, rule=args.rule,
                                   resources=resources)
+    _record_overlap_metrics(f"onchip.{mode}", names, t_serial, t_concurrent,
+                            verdict)
     log.result(
         f"concurrency[onchip:{'+'.join(names)}]", verdict,
         commands=names, mode=mode, engine="onchip", rule=args.rule,
@@ -267,6 +288,9 @@ def run(args) -> int:
 
     verdict = concurrency_verdict(per_times, concurrent.total.min_s,
                                   rule=args.rule)
+    _record_overlap_metrics(f"dispatch.{mode}", names,
+                            serial.best_serial_total_s,
+                            concurrent.total.min_s, verdict)
     log.result(
         f"concurrency[{mode}:{'+'.join(names)}]", verdict,
         commands=names, mode=mode, engine="dispatch", rule=args.rule,
@@ -277,7 +301,7 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ import sys
 
 import torch
 
+from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness.cli import base_parser
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
@@ -105,13 +107,18 @@ def run(args) -> int:
 
         source = synthetic_tokens(1, batch=args.batch, seq=args.seq,
                                   vocab=cfg.vocab, steps=args.batches)
+    m = metricslib.get_metrics()
     nlls = []
     with torch.no_grad():
         for b in source:
-            tokens = torch.from_numpy(b).to(dev)
-            nlls.append(float(loss_fn(params, tokens, cfg)))
+            with m.span("eval.batch"):
+                tokens = torch.from_numpy(b).to(dev)
+                # float() reads back, closing the span honestly
+                nlls.append(float(loss_fn(params, tokens, cfg)))
     mean_nll = sum(nlls) / len(nlls)
     ppl = math.exp(mean_nll)
+    m.gauge("eval.mean_nll").set(mean_nll)
+    m.gauge("eval.perplexity").set(ppl)
     finite = all(math.isfinite(x) for x in nlls)
     if args.checkpoint_dir is None:
         # untrained params ~ uniform predictor: ppl near vocab (an
@@ -131,7 +138,7 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -31,6 +31,8 @@ import sys
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness.cli import base_parser
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
@@ -88,6 +90,9 @@ def run(args) -> int:
                    f"{', plain version' if ev['interpret'] else ''})", ok_k))
 
     all_ok = all(ok for _, ok in checks)
+    m = metricslib.get_metrics()
+    m.gauge("interop.checks_total").set(len(checks))
+    m.gauge("interop.checks_ok").set(sum(ok for _, ok in checks))
     for i, (name, ok) in enumerate(checks):
         log.print(f"{'Passed' if ok else 'FAILED'} {i} ({name})")
     log.emit(kind="result", name="interop", success=all_ok,
@@ -100,7 +105,7 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

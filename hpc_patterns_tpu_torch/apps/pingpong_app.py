@@ -22,6 +22,9 @@ from __future__ import annotations
 import sys
 
 from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.comm.communicator import (
+    record_collective_bandwidth,
+)
 from hpc_patterns_tpu_torch.dtypes import get_traits
 from hpc_patterns_tpu_torch.harness.cli import (
     add_msg_size_args,
@@ -70,7 +73,7 @@ def run(args) -> int:
         x = comm.rank_filled(n, traits.dtype)
         exchange = comm.jit_pingpong(x, args.algorithm)
         result = measure(blocking(exchange, x), repetitions=args.repetitions,
-                         warmup=args.warmup)
+                         warmup=args.warmup, label="pingpong")
         elapsed = max_across_processes(result.min_s)
         out = exchange(x)
         comm.synchronize()  # raises if a fused launch timed out
@@ -80,6 +83,8 @@ def run(args) -> int:
         all_ok &= ok
         nbytes = n * traits.itemsize
         bw = nbytes / elapsed / 1e9 if elapsed > 0 else float("inf")
+        record_collective_bandwidth("pingpong", nbytes, elapsed,
+                                    latency_us=elapsed * 1e6)
         log.emit(kind="result", name=f"pingpong[p={p}]", success=ok,
                  algorithm=args.algorithm, elements=n,
                  bytes_per_rank=nbytes, world=comm.size,
@@ -94,7 +99,7 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

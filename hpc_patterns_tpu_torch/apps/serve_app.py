@@ -13,27 +13,39 @@ per-row scales (the standalone runs under the same quantized config, so
 the oracle stays within one precision); ``f32``/``bf16`` set the compute
 dtype instead. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
 
+``--metrics``, ``--trace`` and ``--reqtrace`` instrument the measured
+run (the warm-up stays out of the registry and the request trace); with
+``--log`` their snapshots close the log, and ``--trace-out`` writes the
+Chrome-trace timeline on any exit path:
+
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda \\
         --kv-dtype int8
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
-        --dtype float32
+        --dtype float32 --metrics --trace --reqtrace --log serve.jsonl \\
+        --trace-out serve.trace.json
+    python -m hpc_patterns_tpu_torch.harness.report serve.jsonl
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 import time
 
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.apps import common
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness.cli import (
     add_kv_dtype_arg,
+    add_reqtrace_arg,
+    base_parser,
     resolve_kv_cache_dtype,
 )
+from hpc_patterns_tpu_torch.harness.runlog import RunLog
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
 from hpc_patterns_tpu_torch.models.decode import paged_generate
 from hpc_patterns_tpu_torch.models.serving import (
@@ -94,9 +106,8 @@ def engine_geometry(reqs, *, slots: int, chunk: int, page_size: int,
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default=None,
-                   help="cuda (default; raises without a GPU) or cpu")
+    p = base_parser(__doc__.splitlines()[0])
+    add_reqtrace_arg(p)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=2,
                    help="concurrent rows in the pool")
@@ -119,6 +130,9 @@ def build_parser():
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"], help="compute dtype")
     add_kv_dtype_arg(p, default=None)
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="enable the flight recorder (implies --trace) and "
+                        "write the Chrome-trace JSON timeline here at exit")
     return p
 
 
@@ -140,10 +154,11 @@ def make_requests(n: int, prompt_len: int, budget: int, vocab: int,
 
 
 def run(args) -> int:
+    log = RunLog(args.log, truncate=not args.log_append)
     dev = resolve_device(args.device)
     if args.requests < 1 or args.slots < 1 or args.budget < 1:
-        print("ERROR: --requests/--slots/--budget must be >= 1")
-        print("FAILURE")
+        log.print("ERROR: --requests/--slots/--budget must be >= 1")
+        log.print("FAILURE")
         return 1
     need = args.prompt_len + args.budget
     dtype, kv_cache_dtype = args.dtype, "compute"
@@ -178,11 +193,23 @@ def run(args) -> int:
             torch.cuda.synchronize(dev)
         return {i: got[sid] for i, sid in enumerate(ids)}, eng
 
-    serve()  # warm-up: kernel build, library init, allocator
+    # warm-up (kernel build, library init, allocator), kept out of the
+    # registry: its counters would double every request
+    m = metricslib.get_metrics()
+    prev_enabled, m.enabled = m.enabled, False
+    try:
+        serve()
+    finally:
+        m.enabled = prev_enabled
+    if args.reqtrace:
+        # a fresh recorder for the measured run: one id space per run
+        reqtracelib.configure(enabled=True)
     t0 = time.perf_counter()
-    out, eng = serve()
+    with metricslib.span("serve.measure"):
+        out, eng = serve()
     dt = time.perf_counter() - t0
     served = sum(len(v) for v in out.values())
+    metricslib.get_metrics().gauge("serve.tokens_per_s").set(served / dt)
 
     tol = TIE_TOL[dtype]
     counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
@@ -194,24 +221,55 @@ def run(args) -> int:
                                     margins[0].cpu().numpy(), tol)
         counts[verdict] += 1
         if verdict == "mismatch":
-            print(f"MISMATCH seq {i}: engine {out[i][:8]}... vs "
-                  f"standalone {want[0, :8].tolist()}...")
+            log.print(f"MISMATCH seq {i}: engine {out[i][:8]}... vs "
+                      f"standalone {want[0, :8].tolist()}...")
     leaked = pool_pages - eng.free_page_count
     ok = counts["mismatch"] == 0 and served > 0 and leaked == 0
-    print(f"serve[{dev}, {dtype}, kv {kv_cache_dtype}, "
-          f"{args.slots} slots, pool {pool_pages}p x "
-          f"{args.page_size}] {args.requests} reqs, {served} tokens: "
-          f"{dt:.3f}s, {served / dt:,.1f} tok/s; oracle exact "
-          f"{counts['exact']}, near-tie {counts['near_tie']} (gap < {tol}),"
-          f" mismatch {counts['mismatch']}; pages leaked {leaked}")
+    log.emit(kind="result", name="serve", success=ok,
+             requests=args.requests, slots=args.slots,
+             pool_pages=pool_pages, page_size=args.page_size,
+             chunk=args.chunk, served_tokens=served,
+             tokens_per_s=served / dt, oracle=counts,
+             bubble_frac=eng.last_bubble_frac,
+             prompt_buckets=list(buckets), device=str(dev))
+    log.print(f"serve[{dev}, {dtype}, kv {kv_cache_dtype}, "
+              f"{args.slots} slots, pool {pool_pages}p x "
+              f"{args.page_size}] {args.requests} reqs, {served} tokens: "
+              f"{dt:.3f}s, {served / dt:,.1f} tok/s, bubble "
+              f"{eng.last_bubble_frac:.1%}; oracle exact "
+              f"{counts['exact']}, near-tie {counts['near_tie']} "
+              f"(gap < {tol}), mismatch {counts['mismatch']}; pages "
+              f"leaked {leaked}")
+    rtr = reqtracelib.active()
+    if rtr is not None:
+        snap = rtr.snapshot(eng.stats)
+        log.emit(kind="reqtrace", **snap)
+        log.print(f"reqtrace: {snap['n']} request(s), attribution "
+                  f"coverage {snap['coverage_frac']:.1%}")
     verdict = Verdict(success=ok,
                       messages=("SUCCESS" if ok else "FAILURE",))
-    print(verdict.summary_line())
+    log.print(verdict.summary_line())
     return verdict.exit_code
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.trace_out:
+        args.trace = True
+    try:
+        return common.run_instrumented(run, args)
+    finally:
+        # any exit path writes the timeline (run_instrumented leaves the
+        # run's recorder installed), and the request trace is dropped
+        reqtracelib.reset()
+        if args.trace_out:
+            from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+            rec = tracelib.get_tracer()
+            if rec is not None and rec.enabled:
+                out = rec.export(args.trace_out)
+                print(f"trace timeline: {out} (open in Perfetto / "
+                      "chrome://tracing)")
 
 
 if __name__ == "__main__":

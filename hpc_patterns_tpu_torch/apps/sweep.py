@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import sys
 
-from hpc_patterns_tpu_torch.apps import concurrency_app
+from hpc_patterns_tpu_torch.apps import common, concurrency_app
 from hpc_patterns_tpu_torch.harness.cli import base_parser
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
 
@@ -69,7 +69,10 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    # one registry for the whole sweep: the sub-runs go through
+    # concurrency_app.run in-process, so their spans and gauges land in
+    # the sweep's one closing kind=metrics snapshot
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

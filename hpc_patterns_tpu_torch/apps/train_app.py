@@ -40,6 +40,7 @@ import time
 
 import torch
 
+from hpc_patterns_tpu_torch.apps import common
 from hpc_patterns_tpu_torch.harness.cli import base_parser
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
@@ -48,6 +49,7 @@ from hpc_patterns_tpu_torch.models.train import (
     make_batch,
     make_optimizer,
     make_train_step,
+    record_step_metrics,
 )
 from hpc_patterns_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
@@ -186,6 +188,8 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn) -> int:
         t_steps.append(time.perf_counter() - t0)
         losses.append(loss_val)
         log.emit(kind="step", step=i, loss=loss_val, dt_s=t_steps[-1])
+        record_step_metrics(i, loss_val, t_steps[-1],
+                            args.batch * args.seq)
         if loss_val != loss_val or abs(loss_val) == float("inf"):
             log.print(f"ERROR: non-finite loss {loss_val} at step {i} — "
                       f"halting early ({args.steps - 1 - i} steps skipped)")
@@ -299,7 +303,7 @@ def run(args) -> int:
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    return common.run_instrumented(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -170,10 +170,11 @@ def plane_stream(*, cfg, n, prompt_len, max_budget, rate_rps, seed,
 
 def make_plane(stream: dict, roles, *, cfg, params, slots, chunk,
                page_size, migration, device, placed: bool,
-               slo_targets=None) -> ServingPlane:
+               slo_targets=None, emit=None) -> ServingPlane:
     """A plane of one replica per role; ``placed``: replica i on logical
     rank i of ``device`` (the weights shared), else host-shared (no
-    device, so ``device_put`` degrades to the ``local`` passthrough)."""
+    device, so ``device_put`` degrades to the ``local`` passthrough).
+    ``emit``: the plane's record sink (``ServingPlane(emit=)``)."""
     replicas = []
     for i, role in enumerate(roles):
         eng = EngineCore(params, cfg, slots=slots, pool_pages=stream["pool"],
@@ -183,7 +184,8 @@ def make_plane(stream: dict, roles, *, cfg, params, slots, chunk,
         replicas.append(Replica(
             eng, name=f"r{i}", role=role,
             device=LogicalDevice(device, i) if placed else None))
-    return ServingPlane(replicas, slo=slo_targets, migration=migration)
+    return ServingPlane(replicas, slo=slo_targets, migration=migration,
+                        emit=emit)
 
 
 class Oracle:
@@ -229,7 +231,7 @@ class Oracle:
 def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
               max_budget, rate_rps, seed=11, place_on_devices=False,
               migration="device_put", device=None, quiet=False,
-              oracle: Oracle | None = None):
+              oracle: Oracle | None = None, emit=None):
     """The serving-plane row (see the module docstring). ``dma`` forces
     placement on logical ranks (the exchange needs a reachable pair).
     Returns JAX's result keys: the legs' wall times and goodputs,
@@ -237,7 +239,8 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
     ``migration_bytes_per_round``, the transports, the ladders, and
     ``placement_shares_host`` (True: the replicas are logical ranks of
     one card) — plus the oracle verdicts. ``oracle``: an :class:`Oracle`
-    of this stream to reuse (its standalone runs are cached)."""
+    of this stream to reuse (its standalone runs are cached). ``emit``:
+    the two plane legs' record sink."""
     if migration not in MIGRATION_TRANSPORTS:
         raise SystemExit(f"--migration {migration!r} not in "
                          f"{'/'.join(MIGRATION_TRANSPORTS)}")
@@ -271,7 +274,8 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
 
     def run_plane_leg(roles):
         plane = make_plane(stream, roles, **geom, migration=migration,
-                           device=dev, placed=placed, slo_targets=targets)
+                           device=dev, placed=placed, slo_targets=targets,
+                           emit=emit)
         got = plane.run(arrivals=arrivals())
         sync()
         return got, plane

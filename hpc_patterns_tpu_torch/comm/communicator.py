@@ -13,6 +13,14 @@ whole ring inside one CUDA kernel (:mod:`.fused`).
 Every operation keeps a closure cached per (shape, dtype, axis,
 algorithm), as the JAX one caches its jitted closures, so a sweep that
 races algorithms at one shape builds each route once.
+
+Observability, as the JAX module's: every eager collective runs in a
+``comm.<op>`` span, takes a per-communicator sequence number, is
+fingerprinted into the schedule chain when anything consumes it, and —
+while something records — waits inside its span for an event recorded
+behind its work, so the span measures completion; with a flight recorder
+the collective is also a ``comm.<op>.<algorithm>`` device window. With
+nothing recording the path stays asynchronous and unchanged.
 """
 
 from __future__ import annotations
@@ -22,9 +30,63 @@ from typing import Literal
 import torch
 
 from hpc_patterns_tpu_torch.comm import collectives, fused, ring
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 Algorithm = Literal["collective", "ring", "ring_chunked", "fused"]
+
+
+def _open_window(device):
+    """A device window opened before a collective's work is enqueued,
+    or None with no recorder."""
+    rec = tracelib.active()
+    return rec.open_window(device) if rec is not None else None
+
+
+def _ready_in_span(result, device, window=None, op: str = "collective",
+                   seq: int | None = None, axis: str | None = None,
+                   algorithm: str | None = None):
+    """Complete the collective inside its open span when a span records:
+    with a recorder, close the ``comm.<op>`` device window (its end event
+    behind the work), wait for it and draw it, ``seq`` in its args; with
+    only metrics (or a profiler mirror), record one event behind the work
+    and wait for it. Every eager collective is also fingerprinted into
+    the schedule chain before the wait whenever anything consumes it.
+    With nothing recording the result returns unready: the disabled path
+    stays asynchronous."""
+    m = metricslib.get_metrics()
+    rec = tracelib.active()
+    if seq is not None and tracelib.schedule_consumer():
+        tracelib.record_collective(
+            op, seq, shape=tuple(result.shape),
+            dtype=str(result.dtype).removeprefix("torch."), axis=axis,
+            algorithm=algorithm)
+    if rec is not None:
+        attrs = None if seq is None else {"seq": seq}
+        rec.mark_dispatch(f"comm.{op}", args=attrs, window=window)
+        rec.wait_window(window)
+        rec.mark_complete(f"comm.{op}", window, args=attrs)
+    elif (m.enabled or m.mirror_traces) and device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+    return result
+
+
+def record_collective_bandwidth(op: str, nbytes: int, seconds: float,
+                                **attrs) -> None:
+    """Per-collective bandwidth gauge + latency histogram in the metrics
+    registry (no-op when disabled), so a sweep's ``kind=metrics``
+    snapshot carries the numbers its ``kind=result`` records do.
+    ``attrs`` become gauges too (``busbw_gbps=...``)."""
+    m = metricslib.get_metrics()
+    if not m.enabled or seconds <= 0:
+        return
+    m.gauge(f"comm.{op}.bandwidth_gbps").set(nbytes / seconds / 1e9)
+    m.histogram(f"comm.{op}.s").observe(seconds)
+    for key, value in attrs.items():
+        m.gauge(f"comm.{op}.{key}").set(value)
 
 # allreduce algorithm table: library collective vs hand-built rings vs the
 # device-initiated fused ring (SURVEY.md §2.3(b))
@@ -54,6 +116,26 @@ class Communicator:
         self.device = resolve_device(device)
         self._jit_allreduce_cache: dict = {}
         self._agmm_cache: dict = {}
+        # per-communicator collective counter: the SPMD ranks issue the
+        # same sequence, so (span name, seq) names one collective
+        self._seq = 0
+
+    def _next_seq(self) -> int:
+        s = self._seq
+        self._seq += 1
+        return s
+
+    def _eager(self, name: str, op: str, run, route=None, **attrs):
+        """One eager collective: ``run()`` enqueues it inside a
+        ``comm.<name>`` span (``attrs`` its args), then
+        :func:`_ready_in_span`; ``route`` is the fingerprint's
+        algorithm."""
+        seq = self._next_seq()
+        with metricslib.span(f"comm.{name}", **attrs):
+            window = _open_window(self.device)
+            return _ready_in_span(run(), self.device, window, op=op,
+                                  seq=seq, axis=self.axis,
+                                  algorithm=route)
 
     @property
     def size(self) -> int:
@@ -101,7 +183,9 @@ class Communicator:
         for ``"ring_chunked"``; the same ring inside one kernel for
         ``"fused"``)."""
         x = self.shard(x)
-        return self.jit_allreduce(x, algorithm)(x)
+        fn = self.jit_allreduce(x, algorithm)
+        return self._eager("allreduce", f"allreduce.{algorithm}",
+                           lambda: fn(x), algorithm, algorithm=algorithm)
 
     def jit_allreduce(self, x, algorithm: Algorithm = "collective"):
         """The allreduce closure for ``x``'s shape — what a benchmark
@@ -126,7 +210,8 @@ class Communicator:
         """Pairwise even/odd exchange: row r swaps with row r^1 — the
         pt2pt ping-pong config of BASELINE.json."""
         x = self.shard(x)
-        return self.jit_pingpong(x, algorithm)(x)
+        fn = self.jit_pingpong(x, algorithm)
+        return self._eager("pingpong", "pingpong", lambda: fn(x))
 
     def jit_pingpong(self, x, algorithm: str = "collective"):
         """The pairwise-exchange closure (for timing loops):
@@ -149,23 +234,32 @@ class Communicator:
     def sendrecv_ring(self, x, shift: int = 1) -> torch.Tensor:
         """One ring hop: row r moves to row (r+shift) % size
         (SendRecvRing, allreduce-mpi-sycl.cpp:43-59)."""
-        return ring.ring_shift(self.shard(x), shift)
+        x = self.shard(x)
+        return self._eager("sendrecv_ring", "sendrecv_ring",
+                           lambda: ring.ring_shift(x, shift), shift=shift)
 
     def all_gather(self, x) -> torch.Tensor:
         """Every rank receives every row: (size, n) -> (size, size, n)."""
-        return collectives.all_gather(self.shard(x), tiled=False)
+        x = self.shard(x)
+        return self._eager(
+            "all_gather", "all_gather",
+            lambda: collectives.all_gather(x, tiled=False))
 
     def reduce_scatter(self, x) -> torch.Tensor:
         """(size, size*n) rows -> (size, n): rank r gets chunk r of the
         sum."""
         x = self.shard(x)
-        return collectives.reduce_scatter(x, scatter_axis=x.dim() - 2)
+        return self._eager(
+            "reduce_scatter", "reduce_scatter",
+            lambda: collectives.reduce_scatter(x, scatter_axis=x.dim() - 2))
 
     def all_to_all(self, x) -> torch.Tensor:
         """Row r's chunk c goes to row c's chunk r (MPI_Alltoall)."""
         x = self.shard(x)
-        return collectives.all_to_all(x, split_axis=x.dim() - 2,
-                                      concat_axis=x.dim() - 2)
+        return self._eager(
+            "all_to_all", "all_to_all",
+            lambda: collectives.all_to_all(x, split_axis=x.dim() - 2,
+                                           concat_axis=x.dim() - 2))
 
     # -- fused collective + consumer ops -----------------------------------
 
@@ -196,7 +290,9 @@ class Communicator:
             else:
                 fn = fused.allgather_matmul_reference
             self._agmm_cache[key] = fn
-        return fn(x, w)
+        return self._eager("allgather_matmul",
+                           f"allgather_matmul.{algorithm}",
+                           lambda: fn(x, w), algorithm, algorithm=algorithm)
 
     def allreduce_into(self, x, bias=None, epilogue=None,
                        algorithm: str = "fused") -> torch.Tensor:
@@ -212,16 +308,21 @@ class Communicator:
         x = self.shard(x)
         row_bias = (None if bias is None else
                     torch.as_tensor(bias, device=self.device).to(x.dtype))
-        if algorithm == "fused":
-            return self._fused_call(
-                lambda a, geometry: fused.allreduce_into(
-                    a, bias=row_bias, epilogue=epilogue, geometry=geometry),
-                x)
-        out = collectives.allreduce(x, "sum")
-        if row_bias is not None:
-            out = out + row_bias
-        # the same dtype contract as the fused route
-        return fused._apply_epilogue(out, epilogue).to(x.dtype)
+
+        def run():
+            if algorithm == "fused":
+                return self._fused_call(
+                    lambda a, geometry: fused.allreduce_into(
+                        a, bias=row_bias, epilogue=epilogue,
+                        geometry=geometry), x)
+            out = collectives.allreduce(x, "sum")
+            if row_bias is not None:
+                out = out + row_bias
+            # the same dtype contract as the fused route
+            return fused._apply_epilogue(out, epilogue).to(x.dtype)
+
+        return self._eager("allreduce_into", f"allreduce_into.{algorithm}",
+                           run, algorithm, algorithm=algorithm)
 
     # -- miniapp-style buffer init -----------------------------------------
 

@@ -27,7 +27,38 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--log-append", action="store_true",
                    help="append to --log instead of truncating (for "
                         "harness-invoked runs)")
+    p.add_argument("--metrics", action="store_true",
+                   help="enable the metrics/span registry "
+                        "(harness/metrics.py); with --log, one final "
+                        "kind=metrics snapshot record is appended — "
+                        "aggregate with `python -m "
+                        "hpc_patterns_tpu_torch.harness.report`")
+    p.add_argument("--trace", action="store_true",
+                   help="enable the flight recorder (harness/trace.py): "
+                        "spans, device windows (CUDA events on a card), "
+                        "kernel builds and memory samples land in a "
+                        "bounded ring buffer; with --log, one kind=trace "
+                        "snapshot record is appended — export to "
+                        "Chrome-trace JSON with `python -m "
+                        "hpc_patterns_tpu_torch.harness.trace <log>`")
+    p.add_argument("--trace-capacity", type=int, default=None, metavar="N",
+                   help="flight-recorder ring size in events (default "
+                        "16384; oldest events evicted beyond it)")
     return p
+
+
+def add_reqtrace_arg(p: argparse.ArgumentParser) -> None:
+    """The serving ``--reqtrace`` flag: request-scoped lifecycle segments
+    (harness/reqtrace.py) for the measured run; with --log, one
+    kind=reqtrace record is appended (the JAX serving surfaces record the
+    same under ``--explain``, whose attribution table is a later slice
+    of the port)."""
+    p.add_argument("--reqtrace", action="store_true",
+                   help="trace request lifecycle segments (queued/"
+                        "admit_wait/prefill/decode/migrating/shed) of the "
+                        "measured run; with --log, a kind=reqtrace record "
+                        "with each request's segments and the run's "
+                        "attribution coverage is appended")
 
 
 def add_msg_size_args(p: argparse.ArgumentParser) -> None:

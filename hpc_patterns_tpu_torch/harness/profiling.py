@@ -20,18 +20,36 @@ import torch
 def maybe_trace(enabled: bool, logdir: str | None = None):
     """Trace the enclosed region with ``torch.profiler`` (CPU, plus CUDA
     where a card is present) when ``enabled``; yields the trace directory,
-    or None when disabled."""
+    or None when disabled. Inside the region metric spans mirror into
+    ``torch.profiler.record_function`` whether or not the registry
+    records, so the profiler's timeline and the run log name the same
+    phases; with a flight recorder the region is a ``profiler.trace``
+    window on its device track."""
     if not enabled:
         yield None
         return
+    from hpc_patterns_tpu_torch.harness import metrics, trace
+
     logdir = logdir or tempfile.mkdtemp(prefix="hpcpat_trace_")
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield logdir
-    Path(logdir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+    m = metrics.get_metrics()
+    prev = m.mirror_traces
+    m.mirror_traces = True
+    rec = trace.active()
+    t0 = rec.mark_dispatch("profiler.trace",
+                           {"logdir": logdir}) if rec else 0.0
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield logdir
+        Path(logdir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+    finally:
+        # restored on the captured registry even when the region raises
+        m.mirror_traces = prev
+        if rec:
+            rec.mark_complete("profiler.trace", t0, {"logdir": logdir})
 
 
 def union_us(intervals) -> float:

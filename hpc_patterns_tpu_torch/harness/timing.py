@@ -21,6 +21,8 @@ import dataclasses
 import time
 from typing import Callable
 
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+
 
 @dataclasses.dataclass(frozen=True)
 class TimingResult:
@@ -49,21 +51,67 @@ def bandwidth_gbps(nbytes: int, seconds: float) -> float:
 
 
 def measure(fn: Callable[[], object], *, repetitions: int = 10,
-            warmup: int = 1) -> TimingResult:
+            warmup: int = 1, label: str = "measure") -> TimingResult:
     """Time ``fn`` with the reference's protocol: ``warmup`` untimed calls
     (kernel build, allocator, library init), then ``repetitions`` timed
     calls; the caller consumes :attr:`TimingResult.min_s`. ``fn`` must
-    block until its device work completes."""
+    block until its device work completes.
+
+    With the metrics registry enabled (``--metrics``), the warmup and
+    timed phases become ``<label>.warmup`` / ``<label>.timed`` spans and
+    every repetition lands in the ``<label>.rep_s`` histogram. With a
+    flight recorder installed (``--trace``), each timed repetition is
+    also fingerprinted into the schedule chain and lands as a ``<label>``
+    device window carrying its ``seq`` (CUDA events around the
+    repetition on a card). Disabled (the default), this is the same code
+    path as always: no spans, no records, no extra work."""
     if repetitions < 1:
         raise ValueError("repetitions must be >= 1")
-    for _ in range(warmup):
-        fn()
+    m = metricslib.get_metrics()
+    if not (m.enabled or m.mirror_traces
+            or metricslib._trace_sink is not None):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(repetitions):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return TimingResult(tuple(times))
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    rec = tracelib.active()
+    device = _timed_device() if rec is not None else None
+    with m.span(f"{label}.warmup", repetitions=warmup):
+        for _ in range(warmup):
+            fn()
+    hist = m.histogram(f"{label}.rep_s")
     times = []
-    for _ in range(repetitions):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
+    with m.span(f"{label}.timed", repetitions=repetitions):
+        for seq in range(repetitions):
+            if rec is not None:
+                tracelib.record_collective(label, seq)
+                win = rec.open_window(device)
+            t0 = time.perf_counter()
+            fn()  # blocking by contract: completion, not dispatch
+            dt = time.perf_counter() - t0
+            if rec is not None:
+                rec.mark_dispatch(label, {"seq": seq}, window=win)
+                rec.wait_window(win)
+                rec.mark_complete(label, win, args={"seq": seq})
+            hist.observe(dt)
+            times.append(dt)
     return TimingResult(tuple(times))
+
+
+def _timed_device():
+    """The card a traced repetition's window times: the current CUDA
+    device once CUDA is initialized, else None (a host-clock window)."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
+    return None
 
 
 def blocking(fn: Callable[..., object], *args, **kwargs
@@ -90,7 +138,8 @@ def max_across_processes(seconds: float) -> float:
 
 
 def measure_forced(fn: Callable[[], object], *, repetitions: int = 5,
-                   warmup: int = 1) -> TimingResult:
+                   warmup: int = 1,
+                   label: str = "measure_forced") -> TimingResult:
     """Like :func:`measure`, but forces completion by reading the tensor
     ``fn`` returns back to the host: the readback waits for every kernel
     the result depends on. ``fn`` must return a tensor whose value
@@ -99,12 +148,14 @@ def measure_forced(fn: Callable[[], object], *, repetitions: int = 5,
     def forced():
         fn().cpu()
 
-    return measure(forced, repetitions=repetitions, warmup=warmup)
+    return measure(forced, repetitions=repetitions, warmup=warmup,
+                   label=label)
 
 
 def amortized_seconds(run_with_iters: Callable[[int], object], *,
                       iters: int = 64, repetitions: int = 5,
-                      warmup: int = 1, base_iters: int = 1) -> float:
+                      warmup: int = 1, base_iters: int = 1,
+                      label: str = "amortized") -> float:
     """Per-iteration device time via differencing: run the workload with
     ``iters`` internal repetitions and with ``base_iters``, both
     completion-forced, and return ``(t_iters - t_base) / (iters - base)``
@@ -118,7 +169,9 @@ def amortized_seconds(run_with_iters: Callable[[int], object], *,
     if not 1 <= base_iters < iters:
         raise ValueError(f"need 1 <= base_iters < iters, got {base_iters}")
     t_many = measure_forced(lambda: run_with_iters(iters),
-                            repetitions=repetitions, warmup=warmup).min_s
+                            repetitions=repetitions, warmup=warmup,
+                            label=f"{label}.many").min_s
     t_base = measure_forced(lambda: run_with_iters(base_iters),
-                            repetitions=repetitions, warmup=warmup).min_s
+                            repetitions=repetitions, warmup=warmup,
+                            label=f"{label}.base").min_s
     return max(t_many - t_base, 0.0) / (iters - base_iters)

@@ -24,7 +24,10 @@ counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
 Unlike JAX's immutable arrays, the port writes caches and pools IN PLACE
 (a copy per write would double the serving capacity), so the step
 functions return logits only. Sampling takes a ``torch.Generator``;
-its draws cannot match JAX's threefry stream.
+its draws cannot match JAX's threefry stream. :func:`generate` and
+:func:`paged_generate` run under ``harness.trace.compile_watch``, as
+JAX's do: with a flight recorder, a call that built kernels leaves a
+named compile event.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
     _rmsnorm,
@@ -390,11 +394,14 @@ def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
         raise ValueError(
             f"prompt {T} + new {new_tokens} exceeds max_seq {cfg.max_seq}")
     _check_sampling(cfg, temperature, top_k, generator)
-    logits, cache = prefill(params, prompt, cfg, T + new_tokens)
-    return _generation_loop(
-        lambda pos, tok: decode_step(params, cache, pos, tok, cfg),
-        logits, T, new_tokens,
-        lambda lg: _pick(lg, generator, temperature, top_k), with_margins)
+    with tracelib.compile_watch("decode.generate", batch=prompt.shape[0],
+                                prompt_len=T, new_tokens=new_tokens):
+        logits, cache = prefill(params, prompt, cfg, T + new_tokens)
+        return _generation_loop(
+            lambda pos, tok: decode_step(params, cache, pos, tok, cfg),
+            logits, T, new_tokens,
+            lambda lg: _pick(lg, generator, temperature, top_k),
+            with_margins)
 
 
 def greedy_generate(params, prompt, cfg: TransformerConfig,
@@ -582,9 +589,15 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
         raise ValueError(f"{pages_per_seq} pages of {page_size} < {need} "
                          "tokens")
     _check_sampling(cfg, temperature, top_k, generator)
-    cache = init_paged_cache(cfg, B, pages_per_seq, page_size, device=dev)
-    logits, cache = paged_prefill(params, prompt, cfg, cache, page_size)
-    return _generation_loop(
-        lambda pos, tok: paged_decode_step(params, cache, pos, tok, cfg),
-        logits, T, new_tokens,
-        lambda lg: _pick(lg, generator, temperature, top_k), with_margins)
+    with tracelib.compile_watch("decode.paged_generate", batch=B,
+                                prompt_len=T, new_tokens=new_tokens,
+                                page_size=page_size):
+        cache = init_paged_cache(cfg, B, pages_per_seq, page_size,
+                                 device=dev)
+        logits, cache = paged_prefill(params, prompt, cfg, cache, page_size)
+        return _generation_loop(
+            lambda pos, tok: paged_decode_step(params, cache, pos, tok,
+                                               cfg),
+            logits, T, new_tokens,
+            lambda lg: _pick(lg, generator, temperature, top_k),
+            with_margins)

@@ -41,13 +41,23 @@ values with per-row scale pools, served on any ``cfg.decode_attn``
 route ("flash", "paged_flash", "gather"); a bundle carries the scale
 pools beside the K/V pages.
 
+Observability (``harness/metrics.py``, ``trace.py``, ``reqtrace.py``),
+at the JAX engine's sites: the ``serve.queue_depth`` and
+``serve.free_pages`` gauges, the admission / finish / token / migration
+counters, the ``serve.prefill``, ``serve.decode_dispatch`` and
+``serve.decode_round`` spans, a device window for each admission (track
+``slot + 1``) and each decode chunk (track 0) — CUDA events on a card,
+read after the round's own readbacks — and each request's lifecycle
+segments, which a migrated bundle carries in ``segments``. With no
+registry, recorder or reqtrace enabled each site costs one check.
+
 Greedy only. Sampling (``temperature``/``top_k``), preemption,
 ``admit_highwater``, tiered residency (``export_swapped``), prefix
 sharing, draft-assisted rounds and meshes belong to later slices:
 asking for them raises ``ValueError``. A bundle from this engine carries
-``key = zeros(2, uint32)``, ``temp = 0.0`` and ``segments = None``; a
-destination always installs the whole payload (prefix resolution waits
-for the prefix cache), though ``rung`` and ``prefix_len`` are written.
+``key = zeros(2, uint32)`` and ``temp = 0.0``; a destination always
+installs the whole payload (prefix resolution waits for the prefix
+cache), though ``rung`` and ``prefix_len`` are written.
 
 Correctness contract: every sequence's tokens equal the standalone
 ``paged_generate`` for the same prompt, budget and config (exactly in f32
@@ -64,7 +74,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo as slolib
+from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.decode import (
     _pick,
     init_paged_cache,
@@ -234,8 +247,8 @@ class MigrationBundle:
     #: how the payload reached the installing replica: "local",
     #: "device_put", "dma" (comm/migration_dma.py) or "wire"
     transport: str = "local"
-    #: request-lifecycle segments carried across the handoff (None when
-    #: the donor traced nothing — always, until the trace slice)
+    #: request-lifecycle segments carried across the handoff
+    #: (``harness/reqtrace.py``; None when the donor traced nothing)
     segments: tuple | None = None
 
 
@@ -254,6 +267,8 @@ class _Slot:
     deadline_s: float | None = None
     prefix: list = field(default_factory=list)  # tokens before admission
     padded_len: int = 0      # the admission rung this row prefilled at
+    t_admit: float = 0.0     # host clock at admission / install
+    t_dispatch: object = None  # the admission's open device window
 
 
 def _chunk_step(params, cache, pos, limit, tokens, *, cfg, chunk, eos_id):
@@ -388,6 +403,9 @@ class EngineCore:
         #: checked against
         self.decode_steps = 0
         self.admissions = 0
+        #: admission host time with nothing in flight over the last
+        #: run's wall time (the admission bubble)
+        self.last_bubble_frac = 0.0
 
     # -- admission ---------------------------------------------------------
 
@@ -462,6 +480,12 @@ class EngineCore:
         self.stats[sid] = {"priority": int(priority), "t_submit": now,
                            "t_first": None, "t_finish": None, "tokens": 0,
                            "outcome": None, "preemptions": 0}
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            rtr.begin_request(sid, now)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.gauge("serve.queue_depth").set(len(self._queue))
         return sid
 
     def _queue_order(self) -> list[int]:
@@ -492,14 +516,27 @@ class EngineCore:
             if rec is not None:
                 rec["outcome"] = "shed"
                 rec["t_finish"] = now
+            rtr = reqtracelib.active()
+            if rtr is not None:
+                rtr.finish_request(req.seq_id, now, final="shed")
+            m = metricslib.get_metrics()
+            if m.enabled:
+                m.counter("serve.shed").inc()
         self._queue = kept
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.gauge("serve.queue_depth").set(len(self._queue))
 
-    def _try_admit(self) -> int:
+    def _try_admit(self, overlapped: bool = False) -> int:
         """One admission pass per round: shed, then walk the queue in
         :meth:`_queue_order`, admitting every request that fits (a large
-        request does not block a small one behind it). Returns the
-        number admitted."""
+        request does not block a small one behind it). ``overlapped``:
+        a decode chunk is in flight. Returns the number admitted."""
         self._shed_expired()
+        # one pass-start stamp: every request seated this round closes
+        # its queued segment here
+        t_pass = (time.perf_counter()
+                  if reqtracelib.active() is not None else None)
         admitted = 0
         for req in [self._queue[qi] for qi in self._queue_order()]:
             free_slot = next(
@@ -512,7 +549,7 @@ class EngineCore:
             # identity removal: Request holds an ndarray, so == is not
             # a usable comparison
             self._queue = [r for r in self._queue if r is not req]
-            self._admit(free_slot, req, need)
+            self._admit(free_slot, req, need, overlapped, t_pass)
             admitted += 1
         return admitted
 
@@ -526,10 +563,15 @@ class EngineCore:
             self.device)
         return row
 
-    def _admit(self, slot: int, req: Request, need: int):
+    def _admit(self, slot: int, req: Request, need: int,
+               overlapped: bool = False, t_pass: float | None = None):
         """Dispatch-only admission: table upload, one-row bucket-padded
         prefill through the shared pool, first-token pick and cursor
-        seeding all enqueue without a host readback."""
+        seeding all enqueue without a host readback. With a flight
+        recorder all of it lies in one device window on track
+        ``slot + 1``, closed by the first-token readback."""
+        rec = tracelib.active()
+        window = rec.open_window(self.device) if rec is not None else None
         pages = [self.free_pages.pop() for _ in range(need)]
         row = self._seat(slot, pages)
         T = int(req.prompt.size)
@@ -540,9 +582,14 @@ class EngineCore:
         # this row's own one-row table
         one = dict(self.cache)
         one["table"] = torch.from_numpy(row[None, :].copy()).to(self.device)
-        logits, _ = paged_prefill(
-            self.params, torch.from_numpy(prompt)[None, :].to(self.device),
-            self.cfg, one, self.page_size, last_pos=T - 1)
+        with metricslib.span("serve.prefill", prompt_len=T,
+                             padded_len=padded), \
+                tracelib.compile_watch("serving._prefill_one",
+                                       padded_len=padded):
+            logits, _ = paged_prefill(
+                self.params,
+                torch.from_numpy(prompt)[None, :].to(self.device),
+                self.cfg, one, self.page_size, last_pos=T - 1)
         first = _pick(logits)[0]
         # budget b emits 1 token at admission + (limit - T) from chunks
         lim = torch.full((), T + req.max_new - 1, dtype=torch.int32,
@@ -560,9 +607,34 @@ class EngineCore:
             deadline_s=req.deadline_s,
             prefix=([] if req.resume_prefix is None
                     else [int(t) for t in req.resume_prefix]),
-            padded_len=padded)
+            padded_len=padded, t_admit=time.perf_counter())
+        if rec is not None:
+            # every admission op is enqueued: the first-token readback
+            # in _resolve_pending closes the window
+            self._slots[slot].t_dispatch = rec.mark_dispatch(
+                "serve.admit", {"seq_id": req.seq_id, "slot": slot,
+                                "padded_len": padded,
+                                "overlapped": overlapped},
+                track=slot + 1, window=window)
         self._pending.append(slot)
         self.admissions += 1
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.gauge("serve.queue_depth").set(len(self._queue))
+            m.gauge("serve.free_pages").set(len(self.free_pages))
+            m.counter("serve.admitted").inc()
+            if overlapped:
+                m.counter("serve.admit_overlapped").inc()
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # queued closed at the pass start; admit_wait covers the
+            # host admission work, prefill runs to the first-token
+            # readback
+            st = self._slots[slot]
+            rtr.stamp_transition(
+                req.seq_id, "admit_wait",
+                st.t_admit if t_pass is None else t_pass)
+            rtr.stamp_transition(req.seq_id, "prefill")
 
     def _resolve_pending(self):
         """Read back the admissions' first tokens (the round's sync
@@ -574,9 +646,28 @@ class EngineCore:
             st.first_dev = None
             # a resumed row re-opens with everything it already emitted
             st.out = list(st.prefix) + [first]
+            tr = tracelib.active()
+            if tr is not None and st.t_dispatch:
+                # the readback IS completion: prefill + first-token pick
+                tr.mark_complete("serve.admit", st.t_dispatch,
+                                 {"seq_id": st.seq_id, "slot": slot},
+                                 track=slot + 1)
+                st.t_dispatch = None
+            now = time.perf_counter()
             rec = self.stats.get(st.seq_id)
             if rec is not None and rec["t_first"] is None:
-                rec["t_first"] = time.perf_counter()
+                rec["t_first"] = now
+            rtr = reqtracelib.active()
+            if rtr is not None:
+                rtr.stamp_transition(st.seq_id, "decode", now)
+            m = metricslib.get_metrics()
+            if m.enabled and not st.prefix:
+                # TTFT from submit (a resume keeps its first token time)
+                ttft = now - (st.t_submit or now)
+                m.histogram("serve.ttft_s").observe(ttft)
+                if self.slo is not None:
+                    m.histogram(
+                        f"serve.ttft_s.p{st.priority}").observe(ttft)
             if (self.eos_id >= 0 and first == self.eos_id) \
                     or st.budget == 1:
                 self._finish(slot)
@@ -597,11 +688,27 @@ class EngineCore:
     def _finish(self, slot: int):
         st = self._slots[slot]
         self.finished[st.seq_id] = np.asarray(st.out, np.int32)
+        now = time.perf_counter()
         rec = self.stats.get(st.seq_id)
         if rec is not None:
-            rec["t_finish"] = time.perf_counter()
+            rec["t_finish"] = now
             rec["tokens"] = len(st.out)
             rec["outcome"] = "ok"
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            rtr.finish_request(st.seq_id, now)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.histogram("serve.per_token_s").observe(
+                (now - st.t_admit) / max(1, len(st.out)))
+            if self.slo is not None and rec is not None \
+                    and rec["t_first"] is not None and len(st.out) > 1:
+                m.histogram(f"serve.tpot_s.p{st.priority}").observe(
+                    (now - rec["t_first"]) / (len(st.out) - 1))
+            m.counter("serve.finished").inc()
+            m.counter("serve.tokens").inc(len(st.out))
+            m.gauge("serve.free_pages").set(
+                len(self.free_pages) + len(st.pages))
         self._release_slot(slot)
 
     # -- the loop ----------------------------------------------------------
@@ -612,15 +719,29 @@ class EngineCore:
         # self.pos, which installs and completions write in place
         pos_start = self.pos.cpu().numpy().copy()
         parts = [i for i, s in enumerate(self._slots) if s.active]
-        self.pos, self.limit, self.tokens, out = _chunk_step(
-            self.params, self.cache, self.pos, self.limit, self.tokens,
-            cfg=self.cfg, chunk=self.chunk, eos_id=self.eos_id)
+        rec = tracelib.active()
+        window = rec.open_window(self.device) if rec is not None else None
+        with metricslib.span("serve.decode_dispatch", chunk=self.chunk), \
+                tracelib.compile_watch("serving._chunk_step",
+                                       chunk=self.chunk):
+            self.pos, self.limit, self.tokens, out = _chunk_step(
+                self.params, self.cache, self.pos, self.limit, self.tokens,
+                cfg=self.cfg, chunk=self.chunk, eos_id=self.eos_id)
         self.decode_steps += self.chunk
-        return parts, pos_start, out
+        t_disp = (rec.mark_dispatch(
+            "serve.chunk", {"chunk": self.chunk, "rows": len(parts)},
+            window=window) if rec is not None else None)
+        return parts, pos_start, out, t_disp
 
     def _collect_chunk(self, inflight):
-        parts, pos_start, out = inflight
-        out = out.cpu().numpy()  # (chunk, slots); readback = sync
+        parts, pos_start, out, t_disp = inflight
+        with metricslib.span("serve.decode_round", chunk=self.chunk):
+            out = out.cpu().numpy()  # (chunk, slots); readback = sync
+        rec = tracelib.active()
+        if rec is not None and t_disp:
+            # the readback resolved: the chunk's window is complete
+            rec.mark_complete("serve.chunk", t_disp,
+                              {"chunk": self.chunk, "rows": len(parts)})
         limit_new = self.limit.cpu().numpy()
         for i in parts:
             st = self._slots[i]
@@ -653,7 +774,7 @@ class EngineCore:
             inflight = self._dispatch_chunk()
             t_chunk0 = time.perf_counter()
         t0 = time.perf_counter()
-        admitted = self._try_admit()
+        admitted = self._try_admit(overlapped=inflight is not None)
         self._resolve_pending()
         exposed_s = 0.0
         stalled = False
@@ -762,6 +883,14 @@ class EngineCore:
         rec = self.stats.get(bundle.seq_id)
         if rec is not None:
             rec["outcome"] = "migrated"
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # decode closes into an open `migrating` segment; the copy
+            # rides the bundle so the installer closes it on its side
+            bundle.segments = rtr.export_history(bundle.seq_id)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("serve.migrated_out").inc()
         return bundle
 
     def install_migration(self, bundle: MigrationBundle) -> int:
@@ -791,7 +920,12 @@ class EngineCore:
         if self._known(bundle.seq_id):
             raise ValueError(
                 f"seq_id {bundle.seq_id} already known to this engine")
-        return self._attach_row(bundle)
+        slot = self._attach_row(bundle)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("serve.migrated_in").inc()
+            m.gauge("serve.free_pages").set(len(self.free_pages))
+        return slot
 
     def _attach_row(self, bundle: MigrationBundle) -> int:
         """Seat a detached row in this engine (admissibility is the
@@ -813,11 +947,18 @@ class EngineCore:
             budget=bundle.budget, out=list(bundle.out), active=True,
             t_submit=bundle.t_submit, prompt=prompt,
             priority=bundle.priority, deadline_s=bundle.deadline_s,
-            prefix=list(bundle.prefix), padded_len=int(bundle.rung))
+            prefix=list(bundle.prefix), padded_len=int(bundle.rung),
+            t_admit=time.perf_counter())
         self.stats[bundle.seq_id] = {
             "priority": bundle.priority, "t_submit": bundle.t_submit,
             "t_first": bundle.t_first, "t_finish": None, "tokens": 0,
             "outcome": None, "preemptions": bundle.preemptions}
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # adopt the carried history (a local one wins) and open decode
+            rtr.install_history(bundle.seq_id, bundle.segments,
+                                t=self._slots[slot].t_admit,
+                                t_submit=bundle.t_submit)
         return slot
 
 
@@ -838,6 +979,7 @@ class ContinuousBatcher(EngineCore):
         run never waits for a future arrival (undelivered arrivals are
         dropped: pass them to the continuing call)."""
         t_run0 = time.perf_counter()
+        t_exposed = 0.0
         pending = (deque(sorted(arrivals, key=lambda a: a[0]))
                    if arrivals else None)
         rounds = 0
@@ -847,6 +989,9 @@ class ContinuousBatcher(EngineCore):
                 sid = self.submit(**kw)
                 self._queue[-1].t_submit = t_run0 + t_arr
                 self.stats[sid]["t_submit"] = t_run0 + t_arr
+                rtr = reqtracelib.active()
+                if rtr is not None:
+                    rtr.restamp_submit(sid, t_run0 + t_arr)
             if not self.has_work():
                 if not pending or max_rounds is not None:
                     break
@@ -856,15 +1001,26 @@ class ContinuousBatcher(EngineCore):
             if max_rounds is not None and rounds >= max_rounds:
                 break
             rounds += 1
-            if self.service_round()["stalled"]:
+            r = self.service_round()
+            t_exposed += r["exposed_s"]
+            if r["stalled"]:
                 raise RuntimeError(
                     "serving deadlock: waiting requests but no admissible "
                     "slot/pages (pool too small for the smallest waiting "
                     "request)")
-        self._serve_s += time.perf_counter() - t_run0
+        total = time.perf_counter() - t_run0
+        self.last_bubble_frac = t_exposed / total if total > 0 else 0.0
+        self._serve_s += total
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.gauge("serve.admit_bubble_frac").set(self.last_bubble_frac)
         if self.slo is not None:
             self.last_slo = slolib.attainment(self.stats, self.slo,
                                               self._serve_s)
+            if m.enabled:
+                tot = self.last_slo["total"]
+                m.gauge("serve.tok_s").set(tot["tok_s"])
+                m.gauge("serve.goodput_tok_s").set(tot["goodput_tok_s"])
         return self.finished
 
 

@@ -18,9 +18,13 @@ adamw)`` written out, with optax's numbers:
 - the learning-rate schedule is read at the update count *before* the
   increment, so a warmup's first update has lr 0.
 
+Per-step telemetry goes to the metrics registry through
+:func:`record_step_metrics`, and the step is wrapped by
+``harness.trace.instrument_jit`` as JAX wraps its jitted step
+(``train.step``: a compile event for a step that built kernels).
+
 Not ported yet: host-offloaded optimizer state (``offload_opt_state``,
-``residency``; they wait for ``memory/``), the per-step metrics registry
-(``record_step_metrics``), meshes.
+``residency``; they wait for ``memory/``), meshes.
 """
 
 from __future__ import annotations
@@ -31,12 +35,35 @@ from typing import Callable
 
 import torch
 
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     loss_fn,
 )
 from hpc_patterns_tpu_torch.topology import resolve_device
+
+def record_step_metrics(step: int, loss: float, dt_s: float,
+                        tokens: int) -> None:
+    """Per-step training telemetry into the process-wide registry (no-op
+    when disabled): loss, step-time and throughput gauges, and a
+    step-time histogram by phase — step 0 builds the kernels, so it
+    lands in a ``train.compile_s`` gauge instead of the steady-state
+    ``train.step_s`` percentiles."""
+    m = metricslib.get_metrics()
+    if not m.enabled:
+        return
+    m.counter("train.steps").inc()
+    m.gauge("train.loss").set(loss)
+    m.gauge("train.step_time_s").set(dt_s)
+    if dt_s > 0:
+        m.gauge("train.tokens_per_s").set(tokens / dt_s)
+    if step == 0:
+        m.gauge("train.compile_s").set(dt_s)
+    else:
+        m.histogram("train.step_s").observe(dt_s)
+
 
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict in JAX's flatten order (keys
@@ -216,7 +243,7 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         optimizer.update(grads, opt_state, params)
         return loss, params, opt_state
 
-    return step
+    return tracelib.instrument_jit(step, "train.step")
 
 
 def init_train_state(generator: torch.Generator, cfg: TransformerConfig,

@@ -9,7 +9,9 @@ started together — and later calls reuse the loaded libraries. A
 library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header never
 loads a stale binary. A failed build raises with
-``nvcc``'s output.
+``nvcc``'s output. With a flight recorder active (``--trace``), each
+source compiled here lands as one compile event (``nvcc.<name>``, the
+seconds until its ``nvcc`` returned); a cached library is no build.
 """
 
 from __future__ import annotations
@@ -99,7 +101,28 @@ def build_all() -> dict[str, dict]:
                                + "\n".join(failed))
         for name in todo:
             _libs[name] = ctypes.CDLL(str(_target(name)))
+        _stamp_builds(procs, t0)
         return build_info
+
+
+def _stamp_builds(compiled, t0: float) -> None:
+    """One compile event per source compiled in this call, on the flight
+    recorder when one is active."""
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    rec = tracelib.active()
+    if rec is None:
+        return
+    for name in compiled:
+        secs = build_info[name]["seconds"]
+        rec.compile_event(f"nvcc.{name}", secs, t_end=t0 + secs,
+                          args={"source": f"csrc/{name}.cu"})
+
+
+def loaded_count() -> int:
+    """Kernel libraries built or loaded in this process — what
+    ``harness.trace.compile_watch`` diffs around a call."""
+    return len(_libs)
 
 
 def load(name: str) -> ctypes.CDLL:

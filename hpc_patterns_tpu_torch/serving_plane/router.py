@@ -44,8 +44,20 @@ clock); ``dma_migration_overlap_frac`` the same over ``dma`` bundles
 only (None when none rode it); ``migration_bytes_per_round``: payload
 bytes per plane round, transport-invariant.
 
-Later slices, which raise ``ValueError`` when asked for: the emit,
-metrics, trace, reqtrace and schedule-fingerprint hooks (``emit=``),
+Observability, at the JAX router's sites: ``emit=`` receives the
+``plane_route``, ``plane_transport_fallback``, ``plane_migrate`` and
+(with ``slo``) per-round ``plane_attainment`` records (a RunLog's
+``emit`` fits); the metrics registry gets the ``plane.routed``,
+``plane.migrations`` and ``plane.transport_fallbacks`` counters, per
+replica queue-depth and free-page gauges each round, the sliding-window
+attainment gauges and the end-of-run overlap, bytes and goodput gauges;
+with a flight recorder each migration is a ``plane.kv_migration`` device
+window on its migration lane (export and transfer, CUDA events on a
+card) and a ``kv_migration`` entry in the schedule chain (the resolved
+transport as its algorithm); reqtrace tags each request's open
+``migrating`` segment with the migration's ``seq``.
+
+Later slices, which raise ``ValueError`` when asked for:
 ``from_fitted`` (autofit), chaos and replica-death recovery, and the
 autoscaler.
 """
@@ -60,7 +72,10 @@ import numpy as np
 import torch
 
 from hpc_patterns_tpu_torch.comm import migration_dma
+from hpc_patterns_tpu_torch.harness import metrics as metricslib
+from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo as slolib
+from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.serving import EngineCore
 from hpc_patterns_tpu_torch.serving_plane.migration import (
     bundle_from_wire,
@@ -172,16 +187,13 @@ class ServingPlane:
     docstring). ``slo``: ``{priority: harness.slo.SLOTarget}`` — after
     each :meth:`run`, ``last_slo`` holds the plane-level attainment over
     the router's own stats table (a migrated request is judged once, end
-    to end)."""
+    to end). ``emit``: a ``**record`` callable receiving the plane's
+    records."""
 
     def __init__(self, replicas, *, policy: str = "least_loaded",
                  slo: dict | None = None,
                  placement_weights: dict | None = None,
                  migration: str = "device_put", emit=None):
-        if emit is not None:
-            raise ValueError(
-                "not ported yet: the plane's emit/metrics/trace hooks "
-                "come with the metrics and trace slice")
         self.replicas = list(replicas)
         if not self.replicas:
             raise ValueError("need at least one replica")
@@ -196,6 +208,7 @@ class ServingPlane:
             raise ValueError(
                 f"unknown migration transport {migration!r} "
                 f"(known: {', '.join(MIGRATION_TRANSPORTS)})")
+        self.policy_name = policy
         self.policy = PLACEMENT_POLICIES[policy]
         self.placement_weights = {
             str(k): float(v) for k, v in (placement_weights or {}).items()}
@@ -212,6 +225,7 @@ class ServingPlane:
             if r.can_decode:  # the overlap fraction reads their chunks
                 r.engine.track_chunk_windows = True
         self.slo = slo
+        self._emit = emit or (lambda **kw: None)
         self.migration = migration
         self.stats: dict[int, dict] = {}
         self.finished: dict[int, np.ndarray] = {}
@@ -226,8 +240,9 @@ class ServingPlane:
         self._transport_warned: set = set()
         #: Σ payload bytes over dispatched bundles (all transports)
         self.migration_bytes = 0
-        #: open migration windows: seq -> host clock at dispatch
-        self._mig_open: dict[int, float] = {}
+        #: open migration windows: seq -> (device window or None, host
+        #: clock at dispatch)
+        self._mig_open: dict[int, tuple] = {}
         self._mig_overlap_s = self._mig_total_s = 0.0
         self._dma_overlap_s = self._dma_total_s = 0.0
         self._serve_s = 0.0
@@ -236,6 +251,11 @@ class ServingPlane:
         self.last_slo: dict | None = None
         self.last_kv_migration_overlap_frac: float | None = None
         self.last_dma_migration_overlap_frac: float | None = None
+        #: the sliding-window attainment signal: requests judged as they
+        #: resolve, emitted per plane round (gauge, trace counter, record)
+        self.attain_window = slolib.AttainmentWindow()
+        self._plane_rounds = 0
+        self._attain_emitted = (0, 0)  # (judged, attained) last round
 
     @classmethod
     def from_fitted(cls, replicas, fitted, **kw):
@@ -302,6 +322,14 @@ class ServingPlane:
             "t_first": None, "t_finish": None, "tokens": 0,
             "outcome": None, "preemptions": 0, "replica": target.name}
         self._assignment[rid] = target
+        self._emit(kind="plane_route", seq_id=rid, replica=target.name,
+                   policy=self.policy_name, prompt_len=int(prompt.size),
+                   budget=int(max_new), priority=int(priority))
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("plane.routed").inc()
+            m.gauge(f"plane.{target.name}.queue_depth").set(
+                target.engine.queue_depth)
         return rid
 
     # -- the migration pipeline ------------------------------------------
@@ -356,6 +384,11 @@ class ServingPlane:
                 f"plane migration transport fell back "
                 f"{requested} -> {actual}: {reason}",
                 RuntimeWarning, stacklevel=3)
+        self._emit(kind="plane_transport_fallback", requested=requested,
+                   actual=actual, reason=reason)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("plane.transport_fallbacks").inc()
 
     def _resolve_transport(self, src: Replica, dst: Replica) -> str:
         """The transport to attempt for one (src, dst) pair: ``dma``
@@ -373,10 +406,21 @@ class ServingPlane:
 
     def _dispatch_migration(self, src: Replica, slot: int,
                             dst: Replica) -> None:
-        """Export + transfer dispatch; opens the migration's window."""
+        """Export + transfer dispatch; opens the migration's window (and,
+        with a recorder, its device window over the export and the
+        transfer) and fingerprints it into the schedule chain with the
+        resolved transport as its algorithm."""
+        rec = tracelib.active()
+        window = (rec.open_window(src.engine.device) if rec is not None
+                  else None)
         bundle = src.engine.export_migration(slot)
         bundle.seq = self._mig_seq
         self._mig_seq += 1
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # the engine opened `migrating` at export; tag it with the
+            # plane seq this migration's device window carries
+            rtr.annotate_open(bundle.seq_id, seq=bundle.seq)
         self.migration_bytes += sum(
             int(a.nbytes) for arrs in bundle.pages_payload.values()
             for a in arrs)
@@ -400,8 +444,27 @@ class ServingPlane:
         ps = self.stats.get(bundle.seq_id)
         if ps is not None and ps["t_first"] is None:
             ps["t_first"] = bundle.t_first
-        self._mig_open[bundle.seq] = time.perf_counter()
+        if rec is not None:
+            window = rec.mark_dispatch(
+                "plane.kv_migration",
+                {"seq": bundle.seq, "src": src.name, "dst": dst.name,
+                 "pages": bundle.n_pages, "seq_id": bundle.seq_id},
+                track=tracelib.migration_track(bundle.seq), window=window)
+        if tracelib.schedule_consumer():
+            kdt = str(bundle.pages_payload["k"][0].dtype)
+            tracelib.record_collective(
+                "kv_migration", bundle.seq,
+                shape=(bundle.n_pages, bundle.page_size),
+                dtype=kdt.removeprefix("torch."), axis="plane",
+                algorithm=bundle.transport)
+        self._mig_open[bundle.seq] = (window, time.perf_counter())
         dst.pending_migrations.append(bundle)
+        self._emit(kind="plane_migrate", seq=bundle.seq,
+                   seq_id=bundle.seq_id, src=src.name, dst=dst.name,
+                   pages=bundle.n_pages)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("plane.migrations").inc()
 
     def _install_pending(self, r: Replica, overlapped: bool) -> list:
         """The decode side, from ``service_round``'s ``pre_collect`` —
@@ -427,15 +490,17 @@ class ServingPlane:
         decode-chunk windows into the ledgers."""
         _wait_device(r.engine.device)
         t_done = time.perf_counter()
+        rec = tracelib.active()
         # chunk windows that ended before every open migration began
         # can intersect none of them
-        floor = min(self._mig_open.values(), default=t_done)
+        floor = min((t0 for _, t0 in self._mig_open.values()),
+                    default=t_done)
         while r.engine.chunk_windows \
                 and r.engine.chunk_windows[0][1] < floor:
             r.engine.chunk_windows.popleft()
         windows = list(r.engine.chunk_windows)
-        for bundle, _ in installed:
-            t0 = self._mig_open.pop(bundle.seq, t_done)
+        for bundle, overlapped in installed:
+            window, t0 = self._mig_open.pop(bundle.seq, (None, t_done))
             span = max(t_done - t0, 1e-9)
             under = min(span, sum(max(0.0, min(t_done, e) - max(t0, s))
                                   for s, e in windows))
@@ -444,6 +509,12 @@ class ServingPlane:
             if bundle.transport == "dma":
                 self._dma_total_s += span
                 self._dma_overlap_s += under
+            if rec is not None and window:
+                rec.mark_complete(
+                    "plane.kv_migration", window,
+                    {"seq": bundle.seq, "dst": r.name,
+                     "overlapped": overlapped},
+                    track=tracelib.migration_track(bundle.seq))
 
     # -- result collection -------------------------------------------------
 
@@ -466,8 +537,56 @@ class ServingPlane:
             ps["outcome"] = es.get("outcome") or "ok"
             ps["preemptions"] = int(es.get("preemptions") or 0)
             ps["replica"] = r.name
+            if self.slo is not None:
+                self.attain_window.judge(
+                    ps, self.slo.get(int(ps.get("priority") or 0),
+                                     slolib.SLOTarget()))
             n += 1
         return n
+
+    def _emit_attainment(self) -> None:
+        """The per-round sliding-window attainment: one number as a
+        metrics gauge, a trace counter and a ``plane_attainment``
+        record."""
+        if self.slo is None:
+            return
+        self._plane_rounds += 1
+        snap = self.attain_window.snapshot()
+        judged, attained = (self.attain_window.judged,
+                            self.attain_window.attained)
+        judged_round = judged - self._attain_emitted[0]
+        attained_round = attained - self._attain_emitted[1]
+        self._attain_emitted = (judged, attained)
+        m = metricslib.get_metrics()
+        if m.enabled and snap["overall"] is not None:
+            m.gauge("plane.attainment").set(snap["overall"])
+            for prio, frac in snap["per_class"].items():
+                m.gauge(f"plane.attainment.p{prio}").set(frac)
+        rec = tracelib.active()
+        if rec is not None and snap["overall"] is not None:
+            rec.counter("plane.attainment", {
+                "overall": snap["overall"],
+                **{f"p{prio}": frac
+                   for prio, frac in snap["per_class"].items()}})
+        self._emit(kind="plane_attainment", round=self._plane_rounds,
+                   overall=snap["overall"],
+                   per_class={str(p): f
+                              for p, f in snap["per_class"].items()},
+                   window_n=snap["n"], judged_round=judged_round,
+                   attained_round=attained_round,
+                   queued=sum(r.engine.queue_depth for r in self.replicas),
+                   active=sum(r.engine.active_count for r in self.replicas),
+                   replicas=len(self.replicas))
+
+    def _update_gauges(self) -> None:
+        m = metricslib.get_metrics()
+        if not m.enabled:
+            return
+        for r in self.replicas:
+            m.gauge(f"plane.{r.name}.queue_depth").set(
+                r.engine.queue_depth)
+            m.gauge(f"plane.{r.name}.free_pages").set(
+                r.engine.free_page_count)
 
     # -- the plane loop ----------------------------------------------------
 
@@ -517,6 +636,9 @@ class ServingPlane:
                 eng = self._assignment[rid].engine
                 eng._queue[-1].t_submit = t_abs
                 eng.stats[rid]["t_submit"] = t_abs
+                rtr = reqtracelib.active()
+                if rtr is not None:
+                    rtr.restamp_submit(rid, t_abs)
             if not self._has_work():
                 if not pending or max_rounds is not None:
                     break
@@ -531,6 +653,8 @@ class ServingPlane:
             for r in self._round_order():
                 progressed |= self._replica_round(r)
                 progressed |= self._collect_finished(r) > 0
+            self._update_gauges()
+            self._emit_attainment()
             if not progressed and not pending:
                 queued = {r.name: r.engine.queue_depth
                           for r in self.replicas}
@@ -547,9 +671,24 @@ class ServingPlane:
         if self._dma_total_s > 0:
             self.last_dma_migration_overlap_frac = (
                 self._dma_overlap_s / self._dma_total_s)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.gauge("plane.migrations").set(self.migrations)
+            if self.last_kv_migration_overlap_frac is not None:
+                m.gauge("plane.kv_migration_overlap_frac").set(
+                    self.last_kv_migration_overlap_frac)
+            if self.last_dma_migration_overlap_frac is not None:
+                m.gauge("plane.dma_migration_overlap_frac").set(
+                    self.last_dma_migration_overlap_frac)
+            m.gauge("plane.migration_bytes_per_round").set(
+                self.migration_bytes_per_round)
         if self.slo is not None:
             self.last_slo = slolib.attainment(self.stats, self.slo,
                                               self._serve_s)
+            if m.enabled:
+                tot = self.last_slo["total"]
+                m.gauge("plane.tok_s").set(tot["tok_s"])
+                m.gauge("plane.goodput_tok_s").set(tot["goodput_tok_s"])
         return self.finished
 
     @property

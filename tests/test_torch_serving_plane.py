@@ -15,7 +15,8 @@ tokens must be equal (no tolerance).
 - the transport ladder: a fallback warns and is counted, a kernel fault
   is no fallback;
 - export/install guards, the seq_id collision, ``resume_prefix``, the
-  priority order and deadline shedding, and later-slice options raising;
+  priority order and deadline shedding, ``emit=`` records arriving, and
+  later-slice options raising;
 - the wire codec in both directions between the packages: a JAX bundle
   installed into a port engine continues to the JAX colocated engine's
   tokens and vice versa, and a round trip is bit-identical in each
@@ -300,11 +301,27 @@ class TestRouterMechanics:
             plane.run()[rid],
             _standalone(tp, _tcfg(), np.arange(5, dtype=np.int32), 3))
 
-    @pytest.mark.parametrize("kw", [
-        {"emit": print}, {"migration": "carrier-pigeon"}])
+    @pytest.mark.parametrize("kw", [{"migration": "carrier-pigeon"}])
     def test_later_slice_and_unknown_options_raise(self, tp, kw):
         with pytest.raises(ValueError, match="not ported yet|transport"):
             ServingPlane([Replica(_eng(tp))], **kw)
+
+    def test_emit_records_arrive(self, tp):
+        # emit= is ported: every routed request and every migration
+        # reaches the sink as a record, in order
+        records = []
+        plane = _pd_plane(tp, "dma",
+                          emit=lambda **kw: records.append(kw))
+        reqs = _requests(4)
+        ids = [plane.submit(p, m) for p, m in reqs]
+        plane.run()
+        routes = [r for r in records if r["kind"] == "plane_route"]
+        migrates = [r for r in records if r["kind"] == "plane_migrate"]
+        assert [r["seq_id"] for r in routes] == ids
+        assert {r["replica"] for r in routes} == {"p"}
+        assert [r["seq"] for r in migrates] == list(range(plane.migrations))
+        assert sorted(r["seq_id"] for r in migrates) == ids
+        assert all(r["src"] == "p" and r["dst"] == "d" for r in migrates)
 
     def test_from_fitted_waits_for_autofit(self, tp):
         with pytest.raises(ValueError, match="autofit"):
