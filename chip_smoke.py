@@ -59,6 +59,23 @@ Phases, each printing JSON lines:
              counts read around the run, every sequence held against the
              standalone ``paged_generate`` with a tie-aware oracle, and
              two sequences against the all-plain route;
+3a. sample  — sampled serving at the serve phase's model and stream:
+              ``serve_app --temperature 0.8 --top-k 50`` in-process
+              (SUCCESS: each sequence on its standalone ``paged_generate``
+              with the request's key, tie-aware on the perturbed scores),
+              the measured run's kernel 1 and 6 launches equal to n_layers
+              x its flash admissions and decode steps, its tokens/s beside
+              the serve phase's; 8 rows sampled in one batch against each
+              alone;
+3b. scenario — ``bench_serving.run_scenario`` at the chip widths: (a) the
+              staged chaos schedule (page 16, 3 slots, pool 25, two seeded
+              stalls) whose pool forces a preemption (>= 1 asserted), (b)
+              the bursty stream (page 256, 8 slots, 32 requests at 16 rps,
+              pool 2.5 rows, high-water 0.95, a stall every 12 rounds):
+              every served sequence, resumed ones included, on its
+              standalone; the timed run's kernel 1 and 6 launches against
+              its counted calls; tokens/s, goodput, preemptions, sheds and
+              the static baseline printed;
 4. overlap  — the port bench's protocol (``hpc_patterns_tpu_torch.bench``)
               at the JAX bench shape 16 x 2048 x 128 (16 MiB, L2-resident)
               and at 16 x 32768 x 128 (256 MiB, past the 50 MB L2), with
@@ -112,7 +129,12 @@ Phases, each printing JSON lines:
               fails), kernel 13's launches == the dma bundles' payload
               arrays (2 x 8 a bf16 bundle, 4 x 8 an int8 one), every arena
               drained; wall time, tokens/s, goodput, the overlap fraction
-              and bytes a round printed;
+              and bytes a round printed; ``run_plane``'s sampled 1p/1d leg
+              and a closed-loop sampled 1p/1d leg over dma (T 0.8, top-k
+              50: every sequence on its standalone with its key, kernel
+              13's launches == the bundles' arrays); the 2-replica plane
+              with ``die:replica=1`` (``deaths == ["r1"]``, every casualty
+              shed and counted, every served sequence on its standalone);
 9. observe  — the observability layer: ``serve_app`` in-process at the
               serve phase's model and stream with ``--metrics --trace
               --reqtrace --log --trace-out``: SUCCESS, every sequence
@@ -859,7 +881,8 @@ def phase_serve():
     check(plain_counts["mismatch"] == 0,
           f"kernel route vs plain route: {plain_counts}")
     return launches, {"params": params, "cfg": cfg, "reqs": reqs,
-                      "geom": geom, "out": out, "launches": launches}
+                      "geom": geom, "out": out, "launches": launches,
+                      "tokens_per_s": served / dt}
 
 
 def phase_quant():
@@ -2135,23 +2158,266 @@ def _train_run(argv, log) -> dict:
             "out": log.with_suffix(".out").read_text()}
 
 
+# ------------------------------------------------ sampling and scenarios
+
+# the sample phase: serve_app's sampling flags; the batch-of-8 check's
+# prompt length and budget (the first 8 requests' prompts cut to it)
+SAMPLE_ARGS = dict(temperature=0.8, top_k=50, seed=0)
+SAMPLE_BATCH = dict(rows=8, prompt_len=256, budget=32)
+
+
+def _counting_engine(cls, runs: list):
+    """``cls`` with each ``run`` read around: kernel 1 and 6 launch counts
+    set to 0 just before it and read just after, beside the admissions,
+    the admissions whose padded prompt takes the flash prefill (a
+    multiple of 128), the decode steps and the tokens of that run."""
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    class Counting(cls):
+        def _admit(self, slot, req, need, *a, **kw):
+            self._flash_admits += self._bucket_len(req.prompt.size) % 128 \
+                == 0
+            return super()._admit(slot, req, need, *a, **kw)
+
+        def run(self, **kw):
+            self._flash_admits = 0
+            a0, d0 = self.admissions, self.decode_steps
+            torch.cuda.synchronize()
+            fa.launches["fwd"] = 0
+            fd.launches["paged_decode"] = 0
+            got = super().run(**kw)
+            torch.cuda.synchronize()
+            runs.append({"flash_prefill": fa.launches["fwd"],
+                         "paged_decode": fd.launches["paged_decode"],
+                         "flash_admissions": self._flash_admits,
+                         "admissions": self.admissions - a0,
+                         "decode_steps": self.decode_steps - d0,
+                         "n_layers": self.cfg.n_layers,
+                         "out": dict(got)})
+            return got
+
+    return Counting
+
+
+def _check_launches(run: dict, label: str) -> dict:
+    """A counted engine run's kernel 1 and 6 launches against the calls it
+    made: n_layers x its flash admissions and x its decode steps."""
+    L = run["n_layers"]
+    check(run["paged_decode"] > 0, f"{label}: kernel 6 launched")
+    check(run["flash_prefill"] == L * run["flash_admissions"],
+          f"{label}: prefill launches {run['flash_prefill']} == {L} x "
+          f"{run['flash_admissions']} flash admissions")
+    check(run["paged_decode"] == L * run["decode_steps"],
+          f"{label}: decode launches {run['paged_decode']} == {L} x "
+          f"{run['decode_steps']} decode steps")
+    return {k: run[k] for k in ("flash_prefill", "paged_decode",
+                                "flash_admissions", "admissions",
+                                "decode_steps")}
+
+
+def _sampler_times(keys, vocab: int, rows: int, chunk: int) -> dict:
+    """The sampler's pieces at one decode step's shape (``rows`` x
+    ``vocab`` f32 logits): each one's device time (CUDA events over 30
+    back-to-back calls) and host time a call (enqueue, 50 calls, no
+    sync inside), beside the greedy argmax's. ``sampled_pick`` draws its
+    own noise (the standalone's step); the engine draws a chunk's noise
+    in one pass (``chunk_noise``, ``chunk`` positions) and picks from a
+    step's slice of it (``engine_pick``)."""
+    from hpc_patterns_tpu_torch.models.decode import (
+        _as_keys,
+        _pick,
+        gumbel_noise,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sets = [(torch.randn(rows, vocab, generator=gen, device=dev),)
+            for _ in range(4)]
+    kd = _as_keys(keys[:rows], rows, dev)
+    temps = torch.full((rows,), SAMPLE_ARGS["temperature"], device=dev)
+    pos = torch.full((rows,), 600, dtype=torch.int32, device=dev)
+    steps = pos[None].long() + torch.arange(1, chunk + 1, device=dev)[:, None]
+    noise = gumbel_noise(kd, steps, vocab)[0]
+    top_k = SAMPLE_ARGS["top_k"]
+    fns = {"greedy_argmax": lambda lg: _pick(lg),
+           "sampled_pick": lambda lg: _pick(lg, temps, top_k, kd, pos),
+           "engine_pick": lambda lg: _pick(lg, temps, top_k, kd, pos,
+                                           noise),
+           "chunk_noise": lambda lg: gumbel_noise(kd, steps, vocab)}
+    out = {}
+    for name, fn in fns.items():
+        ms = device_ms(fn, sets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            fn(*sets[i % len(sets)])
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": ms, "host_us": host_us}
+    return out
+
+
+def phase_sample(ctx):
+    """Sampled serving at the serve phase's model and stream:
+    ``serve_app --temperature 0.8 --top-k 50`` in-process (SUCCESS: every
+    sequence on its standalone ``paged_generate`` with the request's key,
+    tie-aware on the perturbed scores), the measured engine run's kernel
+    1 and 6 launches against its counted prefills and decode steps, its
+    tokens/s beside the greedy serve phase's; then 8 rows sampled in one
+    batch against each alone."""
+    from hpc_patterns_tpu_torch.apps import serve_app
+    from hpc_patterns_tpu_torch.apps.serve_app import (
+        CHIP_MODEL,
+        CHIP_SERVE,
+        TIE_TOL,
+    )
+    from hpc_patterns_tpu_torch.models.decode import (
+        paged_generate,
+        sample_key,
+    )
+    from hpc_patterns_tpu_torch.models.serving import tie_aware_compare
+
+    t_phase = time.perf_counter()
+    s, cfg, dev = CHIP_SERVE, ctx["cfg"], torch.device("cuda")
+    logs = ROOT / "build" / "smoke_sample"
+    logs.mkdir(parents=True, exist_ok=True)
+    runs: list = []
+    argv = ["--device", "cuda", "--dtype", CHIP_MODEL["dtype"],
+            "--vocab", str(CHIP_MODEL["vocab"]),
+            "--d-model", str(CHIP_MODEL["d_model"]),
+            "--n-layers", str(CHIP_MODEL["n_layers"]),
+            "--n-heads", str(CHIP_MODEL["n_heads"]),
+            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--chunk", str(s["chunk"]), "--page-size", str(s["page_size"]),
+            "--prompt-len", str(s["prompt_len"]),
+            "--budget", str(s["max_budget"]),
+            "--temperature", str(SAMPLE_ARGS["temperature"]),
+            "--top-k", str(SAMPLE_ARGS["top_k"]),
+            "--seed", str(SAMPLE_ARGS["seed"])]
+    orig = serve_app.make_requests, serve_app.ContinuousBatcher
+    # the serve phase's stream (the benchmark's) in place of the app's
+    serve_app.make_requests = lambda n, plen, budget, vocab, mix: \
+        serve_app.bench_stream(n, plen, budget, vocab)
+    serve_app.ContinuousBatcher = _counting_engine(
+        serve_app.ContinuousBatcher, runs)
+    try:
+        code, recs = run_app(serve_app.main, argv, logs / "sample.jsonl")
+    finally:
+        serve_app.make_requests, serve_app.ContinuousBatcher = orig
+    printed = (logs / "sample.out").read_text()
+    (res,) = [r for r in recs if r["kind"] == "result"]
+    check(code == 0 and "SUCCESS" in printed.splitlines()
+          and res["oracle"]["mismatch"] == 0,
+          f"sampled serve_app prints SUCCESS, oracle {res['oracle']}")
+    measured = runs[-1]  # the warm-up ran first
+    launches = _check_launches(measured, "sample")
+    greedy = ctx["out"]
+    differs = sum(not np.array_equal(measured["out"][sid], greedy[i])
+                  for i, sid in enumerate(sorted(measured["out"])))
+    check(differs > 0, f"sampling moved {differs} of {N_REQUESTS} sequences "
+                       "off the greedy ones")
+
+    # one batch of 8 rows against each row alone (tie-aware on the
+    # perturbed scores: bf16 matmuls at batch 8 and 1 may round a near-tie
+    # either way)
+    b = SAMPLE_BATCH
+    prompts = np.stack([p[:b["prompt_len"]]
+                        for p, _ in ctx["reqs"][:b["rows"]]])
+    keys = np.stack([sample_key(SAMPLE_ARGS["seed"], i)
+                     for i in range(b["rows"])])
+    kw = dict(temperature=SAMPLE_ARGS["temperature"],
+              top_k=SAMPLE_ARGS["top_k"], page_size=s["page_size"],
+              device=dev, with_margins=True)
+    batch, _ = paged_generate(ctx["params"], torch.from_numpy(prompts), cfg,
+                              b["budget"], key=keys, **kw)
+    batch = batch.cpu().numpy()
+    alone = {"exact": 0, "near_tie": 0, "mismatch": 0}
+    for i in range(b["rows"]):
+        want, margins = paged_generate(
+            ctx["params"], torch.from_numpy(prompts[i:i + 1]), cfg,
+            b["budget"], key=keys[i], **kw)
+        alone[tie_aware_compare(batch[i], want[0].cpu().numpy(),
+                                margins[0].cpu().numpy(),
+                                TIE_TOL[cfg.dtype])] += 1
+    check(alone["mismatch"] == 0, f"batch of 8 vs alone: {alone}")
+    sampler = _sampler_times(keys, cfg.vocab, s["slots"], s["chunk"])
+    emit({"phase": "sample", "sampling": SAMPLE_ARGS,
+          "tokens_per_s": res["tokens_per_s"],
+          "greedy_tokens_per_s": ctx["tokens_per_s"],
+          "served_tokens": res["served_tokens"], "oracle": res["oracle"],
+          "tie_tol": TIE_TOL[cfg.dtype], "launches": launches,
+          "differs_from_greedy": differs, "batch_vs_alone": alone,
+          "batch_shape": SAMPLE_BATCH, "sampler": sampler,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_scenario():
+    """The robustness row at the chip widths: (a) the staged chaos
+    schedule (page 16, 3 slots, pool 25, the ladder over 192, two seeded
+    50 ms stalls), whose pool forces a preemption; (b) the bursty stream
+    at the chip shape (page 256, 8 slots, 32 requests at 16 rps, pool 2.5
+    rows, high-water 0.95, a stall every 12 rounds). Each through
+    ``bench_serving.run_scenario``: every served sequence (resumed ones
+    included) on its standalone, the timed engine run's kernel 1 and 6
+    launches against its counted calls; tokens/s, goodput, preemptions,
+    sheds and the static baseline printed."""
+    from hpc_patterns_tpu_torch import bench_serving as bs
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out, launches = {}, {"flash_prefill": 0, "paged_decode": 0}
+    orig = bs.ContinuousBatcher
+    for part, conf in (("staged", bs.scenario_smoke_config(dev, chip=True)),
+                       ("bursty", bs.scenario_full_config(dev))):
+        runs: list = []
+        bs.ContinuousBatcher = _counting_engine(orig, runs)
+        try:
+            res = bs.run_scenario(**conf)
+        finally:
+            bs.ContinuousBatcher = orig
+        timed = _check_launches(runs[-1], f"scenario {part}")
+        for k in launches:
+            launches[k] += timed[k]
+        check(res["stall_injections"] >= 1, f"scenario {part}: stalls fired")
+        if part == "staged":
+            check(res["preemptions"] >= 1,
+                  f"scenario staged: preemptions {res['preemptions']} >= 1")
+        out[part] = {k: v for k, v in res.items() if k != "schedule"}
+        out[part]["launches"] = timed
+        out[part]["config"] = {
+            k: conf[k] for k in ("page_size", "slots", "chunk", "pool_pages",
+                                 "pages_per_seq", "chaos_spec",
+                                 "admit_highwater")}
+        out[part]["config"]["buckets"] = list(conf["buckets"])
+        out[part]["config"]["schedule"] = conf["schedule"].spec
+    emit({"phase": "scenario", **out,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 # the plane phase's closed-loop transports and its int8 leg's requests
 PLANE_TRANSPORTS = ("dma", "device_put", "wire")
 PLANE_INT8_REQUESTS = 8
+# the death leg: replica 1 of a 2-replica fixed plane dies at its round 3
+PLANE_DEATH_SPEC = "die:replica=1,at=3,site=replica_round"
 
 
-def _plane_leg(bs, stream, oracle, geom, migration, label):
+def _plane_leg(bs, stream, oracle, geom, migration, label, **sampling):
     """One closed-loop 1p/1d leg (every request submitted up front, so the
     rounds are deterministic) on logical ranks 0 and 1 of the card:
     tie-aware oracle, transports, kernel 13's launches against the dma
-    bundles' payload arrays, arenas drained."""
+    bundles' payload arrays, arenas drained. ``sampling``: the replicas'
+    temperature, top-k and seed (the oracle's must match)."""
     from hpc_patterns_tpu_torch.comm import migration_dma as md
 
     dev = torch.device("cuda")
     plane = bs.make_plane(
         stream, ("prefill", "decode"), **geom, migration=migration,
         device=dev, placed=True,
-        slo_targets=bs.slo.targets_from_classes(bs.SCENARIO_CLASSES))
+        slo_targets=bs.slo.targets_from_classes(bs.SCENARIO_CLASSES),
+        **sampling)
     n0 = md.launches["migration_exchange"]
     t0 = time.perf_counter()
     ids = {r.index: plane.submit(stream["prompts"][r.index], r.max_new,
@@ -2162,6 +2428,8 @@ def _plane_leg(bs, stream, oracle, geom, migration, label):
     dt = time.perf_counter() - t0
     md.synchronize()
     launched = md.launches["migration_exchange"] - n0
+    check(all(rid == i for i, rid in ids.items()),
+          f"{label}: requests numbered in schedule order")
     outs = {i: got[rid] for i, rid in ids.items()}
     verdicts = oracle.check(outs, label)
     arrays = sum(len(v) for k, v in plane.replicas[0].engine.cache.items()
@@ -2191,12 +2459,65 @@ def _plane_leg(bs, stream, oracle, geom, migration, label):
         "oracle": verdicts}
 
 
+def _plane_death(bs, stream, oracle, geom):
+    """The fixed 2-replica plane (logical ranks 0 and 1, least-loaded) with
+    replica 1 killed by chaos at its round 3, closed loop: ``deaths ==
+    ["r1"]``, every casualty shed and counted (``shed_on_death`` == the
+    ``plane_shed`` records == the shed outcomes), every served sequence on
+    its standalone, the survivor's arena drained."""
+    from hpc_patterns_tpu_torch.harness import chaos
+
+    dev = torch.device("cuda")
+    records: list = []
+    plane = bs.make_plane(
+        stream, ("both", "both"), **geom, migration="dma", device=dev,
+        placed=True, emit=lambda **kw: records.append(kw))
+    ids = {r.index: plane.submit(stream["prompts"][r.index], r.max_new,
+                                 priority=r.priority)
+           for r in stream["schedule"].requests}
+    chaos.configure(PLANE_DEATH_SPEC)
+    t0 = time.perf_counter()
+    try:
+        got = plane.run()
+        torch.cuda.synchronize()
+        fired = chaos.injections()
+    finally:
+        chaos.reset()
+    dt = time.perf_counter() - t0
+    sheds = [r["seq_id"] for r in records
+             if r["kind"] == "plane_shed" and r["on_death"]]
+    shed_outcomes = [rid for rid in ids.values()
+                     if plane.stats[rid]["outcome"] == "shed"]
+    check(plane.deaths == ["r1"] and [e["kind"] for e in fired] == ["die"],
+          f"death leg: deaths {plane.deaths}, injections {fired}")
+    check(plane.shed_on_death > 0
+          and plane.shed_on_death == len(sheds) == len(shed_outcomes)
+          and sorted(sheds) == sorted(shed_outcomes),
+          f"death leg: {plane.shed_on_death} shed on death, {len(sheds)} "
+          f"plane_shed records, {len(shed_outcomes)} shed outcomes")
+    served = {i: got[rid] for i, rid in ids.items()
+              if plane.stats[rid]["outcome"] == "ok"}
+    check(len(served) + len(shed_outcomes) == len(ids),
+          "death leg: every request served or shed")
+    verdicts = oracle.check(served, "plane death leg")
+    check(plane.replicas[0].engine.free_page_count == stream["pool"],
+          "death leg: the survivor drained")
+    return {"spec": PLANE_DEATH_SPEC, "deaths": plane.deaths,
+            "shed_on_death": plane.shed_on_death, "served": len(served),
+            "seconds": dt, "oracle": verdicts,
+            "records": {k: sum(r["kind"] == k for r in records)
+                        for k in ("plane_replica_death", "plane_shed",
+                                  "plane_route")}}
+
+
 def phase_plane():
     """The serving plane at the chip model: the port's ``run_plane`` over
-    dma (single engine, 2-replica, 1p/1d), then closed-loop 1p/1d legs
-    over every transport (dma's tokens == wire's, byte for byte), then 8
-    requests at int8 KV over dma. Counts zeroed just before, read just
-    after; a transport fallback warning fails the phase."""
+    dma (single engine, 2-replica, 1p/1d, a sampled 1p/1d), then
+    closed-loop 1p/1d legs over every transport (dma's tokens == wire's,
+    byte for byte), 8 requests at int8 KV over dma, a sampled leg over
+    dma, and the 2-replica plane losing replica 1 to chaos. Counts zeroed
+    just before, read just after; a transport fallback warning fails the
+    phase."""
     import warnings
 
     from hpc_patterns_tpu_torch import bench_serving as bs
@@ -2220,9 +2541,13 @@ def phase_plane():
     stream = bs.plane_stream(**conf)
     oracle = bs.Oracle(stream, cfg=cfg, params=conf["params"],
                        page_size=conf["page_size"], device=dev)
+    soracle = bs.Oracle(stream, cfg=cfg, params=conf["params"],
+                        page_size=conf["page_size"], device=dev,
+                        **bs.PLANE_SAMPLING)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        res = bs.run_plane(**conf, migration="dma", oracle=oracle)
+        res = bs.run_plane(**conf, migration="dma", oracle=oracle,
+                           sampled_oracle=soracle)
         md.synchronize()
         k13_open = md.launches["migration_exchange"]
         closed, outs = {}, {}
@@ -2239,6 +2564,10 @@ def phase_plane():
                             page_size=conf["page_size"], device=dev)
         _, _, closed["dma_int8"] = _plane_leg(bs, qstream, qoracle, qgeom,
                                               "dma", "plane int8 dma")
+        _, _, closed["dma_sampled"] = _plane_leg(
+            bs, stream, soracle, geom, "dma", "plane sampled dma",
+            **bs.PLANE_SAMPLING)
+        death = _plane_death(bs, stream, oracle, geom)
     md.synchronize()
     launches = {"migration_exchange": md.launches["migration_exchange"],
                 "flash_prefill": fa.launches["fwd"],
@@ -2251,9 +2580,15 @@ def phase_plane():
           == {"dma": res["migrations"]},
           f"run_plane 1p/1d: every bundle over dma "
           f"{res['migration_transports']}")
-    check(k13_open == res["migrations"] * arrays,
+    check(res["sampled_migrations"] > 0 and res["sampled_migration_"
+                                              "transports"]
+          == {"dma": res["sampled_migrations"]},
+          f"run_plane sampled 1p/1d: every bundle over dma "
+          f"{res['sampled_migration_transports']}")
+    bundles = res["migrations"] + res["sampled_migrations"]
+    check(k13_open == bundles * arrays,
           f"run_plane: kernel 13 launches {k13_open} == {arrays} x "
-          f"{res['migrations']} bundles")
+          f"{bundles} bundles (greedy and sampled 1p/1d)")
     check(launches["flash_prefill"] > 0 and launches["paged_decode"] > 0,
           f"the plane ran kernels 1 and 6: {launches}")
     legs = {leg: {"seconds": res[f"t_{leg}"],
@@ -2261,6 +2596,11 @@ def phase_plane():
                   "goodput_tok_s": res[f"{leg}_goodput_tok_s"],
                   "oracle": res["oracle"][leg]}
             for leg in ("single", "plane", "disagg")}
+    legs["sampled"] = {"seconds": res["t_sampled"],
+                       "tokens_per_s": res["sampled_tok_s"],
+                       "migrations": res["sampled_migrations"],
+                       "oracle": res["oracle"]["sampled"],
+                       "sampling": bs.PLANE_SAMPLING}
     emit({"phase": "plane",
           "config": {"vocab": cfg.vocab, "d_model": cfg.d_model,
                      "n_heads": cfg.n_heads, "n_layers": cfg.n_layers,
@@ -2286,7 +2626,7 @@ def phase_plane():
                         "expected_padding_default":
                             res["expected_padding_default"],
                         "kernel13_launches": k13_open},
-          "closed_loop": closed, "launches": launches,
+          "closed_loop": closed, "death": death, "launches": launches,
           "note": "replicas are logical ranks 0 and 1 of one card; a "
                   "migration is a copy within its memory",
           "seconds": time.perf_counter() - t_phase})
@@ -2879,6 +3219,8 @@ def main() -> int:
     pipe_rows = pipeline_case(kgen)
     pipe = pipe_rows["overlap"]
     launches, serve_ctx = phase_serve()
+    launches_sample = phase_sample(serve_ctx)
+    launches_scenario = phase_scenario()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
     cgen = torch.Generator(device="cuda").manual_seed(4)
@@ -2908,16 +3250,25 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches["flash_prefill"]
+         + launches_sample["flash_prefill"]
+         + launches_scenario["flash_prefill"]
          + launches_plane["flash_prefill"],
          "launches_by_path": {"serve": launches["flash_prefill"],
+                              "sample": launches_sample["flash_prefill"],
+                              "scenario":
+                                  launches_scenario["flash_prefill"],
                               "plane": launches_plane["flash_prefill"]},
          **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)}},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
          "launches": launches["paged_decode"]
+         + launches_sample["paged_decode"]
+         + launches_scenario["paged_decode"]
          + launches_plane["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
+                              "sample": launches_sample["paged_decode"],
+                              "scenario": launches_scenario["paged_decode"],
                               "plane": launches_plane["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys}},
         {"name": "flash_decode", "route": "cuda",

@@ -1,14 +1,20 @@
 """Serve app: continuous batching over the paged KV cache, validated —
-the counterpart of ``hpc_patterns_tpu/apps/serve_app.py`` (greedy).
+the counterpart of ``hpc_patterns_tpu/apps/serve_app.py``.
 
 A stream of requests with varied prompt lengths (``--prompt-mix``) and
 budgets is served through ``models.serving.ContinuousBatcher`` (page
-free-list, bucketed admission, chunked ragged decode), then EVERY
-sequence is held against its standalone ``paged_generate``. On the card
-both run the hand-written kernels in bf16, where a batch-8 and a
-batch-1 matmul may round a near-tie differently: a divergence passes
-only where the standalone's top-1/top-2 logit gap at that step is below
-``TIE_TOL``. ``--kv-dtype int8|fp8`` serves one-byte KV pools with
+free-list, bucketed admission, overlapped prefill, chunked ragged
+decode, per-row sampling), then EVERY sequence is held against its
+standalone ``paged_generate`` — greedy, or sampled with the request's
+own key (``--temperature``/``--top-k``/``--seed``). On the card both run
+the hand-written kernels in bf16, where a batch-8 and a batch-1 matmul
+may round a near-tie differently: a divergence passes only where the
+standalone's top-1/top-2 gap at that step is below ``TIE_TOL`` (of the
+logits when greedy, of the perturbed scores ``logits / T + g`` when
+sampled). ``--eos-id`` truncates both at the first eos;
+``--checkpoint-dir`` serves ``train_app``'s checkpoint;
+``--static-compare`` also times static batching.
+``--kv-dtype int8|fp8`` serves one-byte KV pools with
 per-row scales (the standalone runs under the same quantized config, so
 the oracle stays within one precision); ``f32``/``bf16`` set the compute
 dtype instead. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
@@ -22,6 +28,9 @@ Chrome-trace timeline on any exit path:
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda \\
         --kv-dtype int8
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
+        --dtype float32 --prompt-mix --temperature 0.8 --top-k 8 \\
+        --static-compare
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
         --dtype float32 --metrics --trace --reqtrace --log serve.jsonl \\
         --trace-out serve.trace.json
     python -m hpc_patterns_tpu_torch.harness.report serve.jsonl
@@ -29,6 +38,7 @@ Chrome-trace timeline on any exit path:
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
@@ -42,7 +52,9 @@ from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness.cli import (
     add_kv_dtype_arg,
     add_reqtrace_arg,
+    add_serving_args,
     base_parser,
+    parse_buckets,
     resolve_kv_cache_dtype,
 )
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
@@ -60,9 +72,11 @@ from hpc_patterns_tpu_torch.models.transformer import (
 )
 from hpc_patterns_tpu_torch.topology import resolve_device
 
-#: top-1/top-2 logit gap below which an engine-vs-standalone divergence
-#: counts as a near-tie: bf16 matmuls at two batch sizes may round a
-#: near-tie either way; f32 on the CPU is exact in practice
+#: top-1/top-2 gap below which an engine-vs-standalone divergence counts
+#: as a near-tie: bf16 matmuls at two batch sizes may round a near-tie
+#: either way; f32 on the CPU is exact in practice. A sampled step reads
+#: the gap of its perturbed scores (``decode.sample_scores``), on the
+#: same scale
 TIE_TOL = {"bfloat16": 0.05, "float32": 1e-4}
 
 #: the serving benchmark's chip shape (``benchmarks/bench_serving.py``):
@@ -105,8 +119,39 @@ def engine_geometry(reqs, *, slots: int, chunk: int, page_size: int,
                 chunk=chunk, prompt_buckets=buckets)
 
 
+def static_batching(params, cfg, reqs, *, slots: int, page_size: int,
+                    device, temperature: float = 0.0, top_k: int = 0,
+                    seed: int = 0) -> dict:
+    """Static batching of a mixed-length stream — the baseline the engine
+    is measured against: batches of ``slots`` in arrival order, rows
+    inside a batch grouped by prompt length (rectangular batches only),
+    every row paying its batch's LONGEST budget. Returns {index: tokens
+    cut to the row's own budget}; sampled batches draw from one key
+    (``seed``), so only their timing is comparable."""
+    from hpc_patterns_tpu_torch.models.decode import sample_key
+
+    key = sample_key(seed) if temperature > 0 else None
+    outs = {}
+    for i in range(0, len(reqs), slots):
+        batch = reqs[i:i + slots]
+        run_len = max(b for _, b in batch)
+        bylen: dict[int, list] = {}
+        for j, (p, b) in enumerate(batch):
+            bylen.setdefault(len(p), []).append((i + j, p, b))
+        for group in bylen.values():
+            prompts = torch.from_numpy(np.stack([p for _, p, _ in group]))
+            toks = paged_generate(params, prompts, cfg, run_len,
+                                  page_size=page_size, device=device,
+                                  key=key, temperature=temperature,
+                                  top_k=top_k).cpu().numpy()
+            for j, (idx, _, b) in enumerate(group):
+                outs[idx] = toks[j, :b]
+    return outs
+
+
 def build_parser():
     p = base_parser(__doc__.splitlines()[0])
+    add_serving_args(p)
     add_reqtrace_arg(p)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=2,
@@ -120,6 +165,11 @@ def build_parser():
     p.add_argument("--budget", type=int, default=12,
                    help="max new tokens per request (actual budgets vary "
                         "1/4..1x)")
+    p.add_argument("--pool-pages", type=int, default=0,
+                   help="shared arena size (0 = slots x the pages the "
+                        "largest request needs)")
+    p.add_argument("--eos-id", type=int, default=-1,
+                   help=">= 0: end rows early at this token")
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--n-heads", type=int, default=4)
@@ -130,6 +180,25 @@ def build_parser():
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"], help="compute dtype")
     add_kv_dtype_arg(p, default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="serve a trained checkpoint (train_app "
+                        "--checkpoint-dir; the model flags must match "
+                        "it); default: random init")
+    p.add_argument("--static-compare", action="store_true",
+                   help="also time static batching (batches of --slots "
+                        "padded to the batch max budget)")
+    p.add_argument("--draft-pair", default=None, metavar="DIR",
+                   help="draft-assisted serving (not ported yet: the "
+                        "speculative-decoding slice)")
+    p.add_argument("--gamma", type=int, default=None,
+                   help="draft proposals per round with --draft-pair "
+                        "(not ported yet, as --draft-pair)")
+    p.add_argument("--autofit", default=None, metavar="PATH",
+                   help="fitted engine config (not ported yet: the "
+                        "autofit slice, ROADMAP item 2)")
+    p.add_argument("--explain", action="store_true",
+                   help="tail-attribution table (not ported yet: ROADMAP "
+                        "item 2; --reqtrace records the segments)")
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="enable the flight recorder (implies --trace) and "
                         "write the Chrome-trace JSON timeline here at exit")
@@ -153,13 +222,24 @@ def make_requests(n: int, prompt_len: int, budget: int, vocab: int,
     return reqs
 
 
+def _fail(log, msg: str) -> int:
+    log.print(f"ERROR: {msg}")
+    log.print("FAILURE")
+    return 1
+
+
 def run(args) -> int:
     log = RunLog(args.log, truncate=not args.log_append)
+    if args.draft_pair or args.gamma is not None:
+        return _fail(log, "--draft-pair/--gamma: not ported yet (the next "
+                          "slice, speculative decoding: models/"
+                          "speculative.py and decode.paged_extend_step)")
+    if args.autofit or args.explain:
+        return _fail(log, "--autofit/--explain: not ported yet (ROADMAP "
+                          "item 2, harness/autofit.py and explain.py)")
     dev = resolve_device(args.device)
     if args.requests < 1 or args.slots < 1 or args.budget < 1:
-        log.print("ERROR: --requests/--slots/--budget must be >= 1")
-        log.print("FAILURE")
-        return 1
+        return _fail(log, "--requests/--slots/--budget must be >= 1")
     need = args.prompt_len + args.budget
     dtype, kv_cache_dtype = args.dtype, "compute"
     if args.kv_dtype is not None:
@@ -174,55 +254,85 @@ def run(args) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, generator=gen, device=dev,
                          dtype=torch_dtype(dtype))
-    buckets = bucket_ladder(args.prompt_len)
+    if args.checkpoint_dir:
+        from hpc_patterns_tpu_torch.utils.checkpoint import restore_params
+
+        try:
+            params, step = restore_params(args.checkpoint_dir, device=dev)
+        except (FileNotFoundError, ValueError, KeyError) as e:
+            return _fail(log, f"cannot restore {args.checkpoint_dir}: {e}")
+        log.print(f"restored step {step} from {args.checkpoint_dir}")
+    try:
+        buckets = parse_buckets(args.prompt_buckets, args.prompt_len)
+        padded_max = pad_to_bucket(buckets, args.prompt_len)
+    except (ValueError, argparse.ArgumentTypeError) as e:
+        return _fail(log, str(e))
     pages_per_seq = ContinuousBatcher.pages_needed(
-        args.prompt_len, args.budget, args.page_size,
-        padded_len=pad_to_bucket(buckets, args.prompt_len))
-    pool_pages = args.slots * pages_per_seq
+        args.prompt_len, args.budget, args.page_size, padded_len=padded_max)
+    pool_pages = args.pool_pages or args.slots * pages_per_seq
     reqs = make_requests(args.requests, args.prompt_len, args.budget,
                          cfg.vocab, args.prompt_mix)
+    sampled = args.temperature > 0.0
 
     def serve():
-        eng = ContinuousBatcher(
-            params, cfg, slots=args.slots, pool_pages=pool_pages,
-            pages_per_seq=pages_per_seq, page_size=args.page_size,
-            chunk=args.chunk, prompt_buckets=buckets, device=dev)
-        ids = [eng.submit(p, b) for p, b in reqs]
-        got = eng.run()
+        # constructor/submit/run errors (a bad flag value, an oversize
+        # request, a pool too small) keep the ERROR/FAILURE contract
+        try:
+            eng = ContinuousBatcher(
+                params, cfg, slots=args.slots, pool_pages=pool_pages,
+                pages_per_seq=pages_per_seq, page_size=args.page_size,
+                chunk=args.chunk, prompt_buckets=buckets, device=dev,
+                eos_id=args.eos_id if args.eos_id >= 0 else None,
+                overlap=not args.no_overlap, temperature=args.temperature,
+                top_k=args.top_k, seed=args.seed, emit=log.emit)
+            ids = [eng.submit(p, b) for p, b in reqs]
+            got = eng.run()
+        except (ValueError, RuntimeError) as e:
+            return None, None, str(e)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        return {i: got[sid] for i, sid in enumerate(ids)}, eng
+        return {i: got[sid] for i, sid in enumerate(ids)}, eng, None
 
     # warm-up (kernel build, library init, allocator), kept out of the
     # registry: its counters would double every request
     m = metricslib.get_metrics()
     prev_enabled, m.enabled = m.enabled, False
     try:
-        serve()
+        _, _, err = serve()
     finally:
         m.enabled = prev_enabled
+    if err is not None:
+        return _fail(log, err)
     if args.reqtrace:
         # a fresh recorder for the measured run: one id space per run
         reqtracelib.configure(enabled=True)
     t0 = time.perf_counter()
     with metricslib.span("serve.measure"):
-        out, eng = serve()
+        out, eng, _ = serve()
     dt = time.perf_counter() - t0
     served = sum(len(v) for v in out.values())
     metricslib.get_metrics().gauge("serve.tokens_per_s").set(served / dt)
 
+    # the oracle: each sequence against its standalone paged_generate
+    # with the same key and temperature, truncated at eos as the engine
+    # truncates
     tol = TIE_TOL[dtype]
     counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
     for i, (prompt, budget) in enumerate(reqs):
         want, margins = paged_generate(
             params, torch.from_numpy(prompt)[None, :], cfg, budget,
-            page_size=args.page_size, device=dev, with_margins=True)
-        verdict = tie_aware_compare(out[i], want[0].cpu().numpy(),
-                                    margins[0].cpu().numpy(), tol)
+            page_size=args.page_size, device=dev, with_margins=True,
+            key=eng.request_key(i) if sampled else None,
+            temperature=args.temperature, top_k=args.top_k)
+        want, margins = want[0].cpu().numpy(), margins[0].cpu().numpy()
+        if args.eos_id >= 0 and np.any(want == args.eos_id):
+            cut = int(np.argmax(want == args.eos_id)) + 1
+            want, margins = want[:cut], margins[:cut]
+        verdict = tie_aware_compare(out[i], want, margins, tol)
         counts[verdict] += 1
         if verdict == "mismatch":
             log.print(f"MISMATCH seq {i}: engine {out[i][:8]}... vs "
-                      f"standalone {want[0, :8].tolist()}...")
+                      f"standalone {want[:8].tolist()}...")
     leaked = pool_pages - eng.free_page_count
     ok = counts["mismatch"] == 0 and served > 0 and leaked == 0
     log.emit(kind="result", name="serve", success=ok,
@@ -231,11 +341,14 @@ def run(args) -> int:
              chunk=args.chunk, served_tokens=served,
              tokens_per_s=served / dt, oracle=counts,
              bubble_frac=eng.last_bubble_frac,
-             prompt_buckets=list(buckets), device=str(dev))
+             prompt_buckets=list(buckets) if buckets else None,
+             temperature=args.temperature, top_k=args.top_k,
+             overlap=not args.no_overlap, device=str(dev))
+    mode = "sampled" if sampled else "greedy"
     log.print(f"serve[{dev}, {dtype}, kv {kv_cache_dtype}, "
               f"{args.slots} slots, pool {pool_pages}p x "
-              f"{args.page_size}] {args.requests} reqs, {served} tokens: "
-              f"{dt:.3f}s, {served / dt:,.1f} tok/s, bubble "
+              f"{args.page_size}, {mode}] {args.requests} reqs, {served} "
+              f"tokens: {dt:.3f}s, {served / dt:,.1f} tok/s, bubble "
               f"{eng.last_bubble_frac:.1%}; oracle exact "
               f"{counts['exact']}, near-tie {counts['near_tie']} "
               f"(gap < {tol}), mismatch {counts['mismatch']}; pages "
@@ -246,6 +359,19 @@ def run(args) -> int:
         log.emit(kind="reqtrace", **snap)
         log.print(f"reqtrace: {snap['n']} request(s), attribution "
                   f"coverage {snap['coverage_frac']:.1%}")
+    if args.static_compare:
+        kw = dict(slots=args.slots, page_size=args.page_size, device=dev,
+                  temperature=args.temperature, top_k=args.top_k,
+                  seed=args.seed)
+        static_batching(params, cfg, reqs, **kw)  # warm-up
+        t0 = time.perf_counter()
+        static_batching(params, cfg, reqs, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ts = time.perf_counter() - t0
+        log.emit(kind="static_compare", seconds=ts, engine_seconds=dt)
+        log.print(f"static batching: {ts:.3f}s ({served / ts:,.1f} tok/s)"
+                  f" — engine/static {ts / dt:.2f}x")
     verdict = Verdict(success=ok,
                       messages=("SUCCESS" if ok else "FAILURE",))
     log.print(verdict.summary_line())

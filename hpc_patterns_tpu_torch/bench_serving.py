@@ -1,26 +1,49 @@
-"""The serving plane's benchmark row — the counterpart of ``run_plane``
-(``--plane``) in ``benchmarks/bench_serving.py``.
+"""The serving benchmark's rows — the counterpart of
+``benchmarks/bench_serving.py``'s base row (``run_bench``), robustness
+row (``run_scenario``, ``--scenario``) and serving-plane row
+(``run_plane``, ``--plane``).
 
-One seeded open-loop two-class stream through three legs: a single
-engine (the baseline), a homogeneous 2-replica plane (least-loaded
-placement) and the disaggregated 1-prefill/1-decode plane, whose every
-request crosses the KV handoff over ``--migration dma|device_put|wire``.
-Every leg's sequences are held against the standalone
-``paged_generate`` before any number is believed (exact in f32; on the
-card in bf16 a divergence passes only at a top-1/top-2 gap below
-``serve_app.TIE_TOL``), and the bucket ladder is FIT to the stream's
-prompt lengths and must pad no worse than the default ladder.
+- **base**: the mixed-length, long-tail-budget stream through static
+  batching (batches of ``slots`` in arrival order, rectangular length
+  groups, every row paying its batch's longest budget) and through the
+  engine with bucketed, overlapped admission (``--temperature``,
+  ``--top-k``, ``--seed``, ``--no-overlap``, ``--prompt-buckets``);
+- **scenario**: an open-loop two-class stream (``harness/loadgen.py``)
+  under page pressure that forces preemption and resume, with a seeded
+  stalled-host chaos fault (``harness/chaos.py``) on the engine loop,
+  goodput (SLO-attained tokens/s, ``harness/slo.py``) beside raw
+  tokens/s, the preemption and shed counts, the request trace's
+  coverage; the engine runs against clean static batching;
+- **plane**: one open-loop two-class stream through a single engine, a
+  homogeneous 2-replica plane (least-loaded placement) and the
+  disaggregated 1-prefill/1-decode plane, whose every request crosses
+  the KV handoff over ``--migration dma|device_put|wire``; then a
+  sampled closed-loop 1p/1d leg over the same transport.
+
+Every leg's sequences are held against the standalone ``paged_generate``
+(with each request's key when sampled) before any number is believed:
+exact in f32; on the card in bf16 a divergence passes only at a
+top-1/top-2 gap below ``serve_app.TIE_TOL``. The plane row FITS its
+bucket ladder to the stream's prompt lengths and it must pad no worse
+than the default ladder.
 
 On one card, ``--migration dma`` puts the two replicas on two logical
 ranks of it (:class:`~hpc_patterns_tpu_torch.topology.LogicalDevice`),
 sharing the weights: the handoff is kernel 13's copy within the card's
 memory, not a transfer between cards, and the row says so.
 
+    python -m hpc_patterns_tpu_torch.bench_serving --device cpu --smoke
+    python -m hpc_patterns_tpu_torch.bench_serving --scenario --smoke \\
+        --device cpu
     python -m hpc_patterns_tpu_torch.bench_serving --plane --migration dma
     python -m hpc_patterns_tpu_torch.bench_serving --plane --migration dma \\
         --device cpu [--smoke] [--kv-dtype int8]
 
-The rest of the JAX benchmark's rows wait for the engine's later slices.
+The JAX benchmark's other rows wait for their slices: ``--offload``,
+``--shared`` and ``--slo-budget`` for tiered memory (ROADMAP item 3),
+``--fit`` for autofit (item 2), ``--elastic`` for the autoscaled plane
+(item 4) and ``--quant`` for the quantized row, which ``chip_smoke.py``
+phase ``quant`` drives meanwhile.
 """
 
 from __future__ import annotations
@@ -34,14 +57,19 @@ import time
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.apps.serve_app import static_batching
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness import chaos as chaoslib
 from hpc_patterns_tpu_torch.harness import loadgen
+from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo
 from hpc_patterns_tpu_torch.harness.cli import (
     add_kv_dtype_arg,
+    add_serving_args,
+    parse_buckets,
     resolve_kv_cache_dtype,
 )
-from hpc_patterns_tpu_torch.models.decode import paged_generate
+from hpc_patterns_tpu_torch.models.decode import paged_generate, sample_key
 from hpc_patterns_tpu_torch.models.serving import (
     ContinuousBatcher,
     EngineCore,
@@ -76,20 +104,377 @@ SCENARIO_CLASSES = (
 )
 
 
-def _model(device, *, gpu: bool):
+def _model(device, *, gpu: bool, max_seq: int | None = None):
+    """The benchmark's model: on the card the chip model (vocab 32768,
+    d_model 1024, 8 heads of 128, 8 layers, d_ff 4096, bf16, flash
+    decode), on the CPU the smoke model (vocab 256, d_model 256, 4 heads,
+    2 layers, d_ff 1024, f32, gather); random weights from seed 0."""
     cfg = TransformerConfig(
         vocab=32768 if gpu else 256,
         d_model=1024 if gpu else 256,
         n_heads=8 if gpu else 4,
         n_layers=8 if gpu else 2,
         d_ff=4096 if gpu else 1024,
-        max_seq=1024 if gpu else 256,
+        max_seq=max_seq or (1024 if gpu else 256),
         dtype="bfloat16" if gpu else "float32",
         decode_attn="flash" if gpu else "gather")
     gen = torch.Generator(device=device).manual_seed(0)
     return cfg, init_params(cfg, generator=gen, device=device,
                             dtype=torch_dtype(cfg.dtype))
 
+
+def _sync(dev):
+    return ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+            else (lambda: None))
+
+
+def _standalone(params, cfg, prompt, max_new, *, page_size, device,
+                key=None, temperature=0.0, top_k=0):
+    toks, margins = paged_generate(
+        params, torch.from_numpy(prompt)[None, :], cfg, max_new,
+        page_size=page_size, device=device, with_margins=True, key=key,
+        temperature=temperature, top_k=top_k)
+    return toks[0].cpu().numpy(), margins[0].cpu().numpy()
+
+
+def _held(got, want, margins, tol, label):
+    v = tie_aware_compare(got, want, margins, tol)
+    if v == "mismatch":
+        raise AssertionError(f"{label}: engine {np.asarray(got)[:8]} vs "
+                             f"standalone {want[:8]}")
+    return v
+
+
+# ------------------------------------------------------------ base row
+
+def smoke_config(device=None):
+    """The CI shape (JAX ``smoke_config``): the smoke model, 16 requests,
+    4 slots, chunk 16, page 16, prompts up to 32, budgets up to 192 — big
+    enough that static batching's padding and fragmentation outweigh the
+    engine's host work; two timed repetitions, min taken (the shield
+    against a loaded host)."""
+    dev = resolve_device(device)
+    cfg, params = _model(dev, gpu=False)
+    return dict(n=16, slots=4, chunk=16, page_size=16, prompt_len=32,
+                max_budget=192, reps=2, cfg=cfg, params=params, device=dev)
+
+
+def full_config(device=None):
+    """The re-grounding shape: on the card the chip model, 32 requests,
+    8 slots, chunk 16, page 256, prompts up to 512, budgets up to 512; on
+    the CPU the smoke shape's model at 16 requests."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    prompt_len, max_budget = (512, 512) if gpu else (32, 192)
+    cfg, params = _model(dev, gpu=gpu, max_seq=prompt_len + max_budget)
+    return dict(n=32 if gpu else 16, slots=8 if gpu else 4, chunk=16,
+                page_size=256 if gpu else 16, prompt_len=prompt_len,
+                max_budget=max_budget, reps=1, cfg=cfg, params=params,
+                device=dev)
+
+
+def bench_requests(n, prompt_len, max_budget, vocab, mix=True):
+    """The base row's stream (``RandomState(7)``): prompt lengths 1/2,
+    3/4 or 1x of ``prompt_len`` (``mix``), long-tail budgets 1/8, 1/4 or
+    1x of ``max_budget`` at 0.5/0.3/0.2."""
+    rng = np.random.RandomState(7)
+    lengths = ([prompt_len // 2, (3 * prompt_len) // 4, prompt_len]
+               if mix else [prompt_len])
+    reqs = []
+    for _ in range(n):
+        t = int(rng.choice(lengths))
+        prompt = rng.randint(0, vocab, size=t).astype(np.int32)
+        budget = int(rng.choice([max(1, max_budget // 8),
+                                 max(1, max_budget // 4), max_budget],
+                                p=[0.5, 0.3, 0.2]))
+        reqs.append((prompt, budget))
+    return reqs
+
+
+def run_bench(*, n, slots, chunk, page_size, prompt_len, max_budget, cfg,
+              params, mix=True, buckets="auto", overlap=True,
+              temperature=0.0, top_k=0, seed=0, reps=1, quiet=False,
+              device=None):
+    """One engine-vs-static comparison; returns JAX's result keys.
+    ``buckets``: 'auto', 'none', comma-separated rungs or a tuple.
+    ``reps``: timed repetitions per mode, min taken. The engine's rows are
+    held against the standalone (each request's key when sampled), the
+    greedy static rows too, and the engine's distinct prefill rungs
+    against the ladder, before any number returns."""
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    if isinstance(buckets, str):
+        buckets = parse_buckets(buckets, prompt_len)
+    reqs = bench_requests(n, prompt_len, max_budget, cfg.vocab, mix)
+    total_tokens = sum(b for _, b in reqs)
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(len(p), b, page_size,
+                                       padded_len=pad_to_bucket(buckets,
+                                                                len(p)))
+        for p, b in reqs)
+    sync = _sync(dev)
+    skw = dict(slots=slots, page_size=page_size, device=dev,
+               temperature=temperature, top_k=top_k, seed=seed)
+
+    def run_engine():
+        eng = ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=slots * pages_per_seq,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, overlap=overlap,
+            temperature=temperature, top_k=top_k, seed=seed, device=dev)
+        ids = [eng.submit(p, b) for p, b in reqs]
+        got = eng.run()
+        sync()
+        return {i: got[sid] for i, sid in enumerate(ids)}, eng
+
+    static_batching(params, cfg, reqs, **skw)  # warm-up
+    run_engine()
+    t_static = t_engine = float("inf")
+    bubble = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        static_out = static_batching(params, cfg, reqs, **skw)
+        sync()
+        t_static = min(t_static, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        engine_out, eng = run_engine()
+        te = time.perf_counter() - t0
+        if te < t_engine:
+            # the bubble of the rep whose time is reported
+            t_engine, bubble = te, eng.last_bubble_frac
+
+    tol = TIE_TOL[cfg.dtype]
+    sampled = temperature > 0
+    for i, (p, b) in enumerate(reqs):
+        want, margins = _standalone(
+            params, cfg, p, b, page_size=page_size, device=dev,
+            key=eng.request_key(i) if sampled else None,
+            temperature=temperature, top_k=top_k)
+        _held(engine_out[i], want, margins, tol, f"engine seq {i}")
+        if not sampled:
+            k = len(static_out[i])
+            _held(static_out[i], want[:k], margins[:k], tol,
+                  f"static seq {i}")
+    compiles = len(eng.prefill_rungs)
+    if buckets is not None:
+        assert compiles <= len(buckets), (
+            f"{compiles} prefill shapes > ladder size {len(buckets)}")
+    distinct = len({len(p) for p, _ in reqs})
+    out(f"serving[{'mixed' if mix else 'uniform'}, {dev}]: n={n} "
+        f"slots={slots} chunk={chunk} prompt<={prompt_len} ({distinct} "
+        f"lengths) budgets<={max_budget} tokens={total_tokens} "
+        f"buckets={buckets if buckets else 'off'} "
+        f"overlap={'on' if overlap else 'off'}"
+        + (f" temperature={temperature} top_k={top_k}" if sampled else ""))
+    out(f"  static  : {t_static:.3f}s  "
+        f"{total_tokens / t_static:,.1f} tok/s")
+    out(f"  engine  : {t_engine:.3f}s  {total_tokens / t_engine:,.1f} "
+        f"tok/s  bubble {bubble:.1%}  prefill shapes {compiles}"
+        f"{f' (ladder {len(buckets)})' if buckets else ''}")
+    out(f"  engine/static speedup: {t_static / t_engine:.3f}x "
+        "(every engine row on its standalone)")
+    return {
+        "t_static": t_static, "t_engine": t_engine,
+        "tokens": total_tokens,
+        "tokens_per_s_static": total_tokens / t_static,
+        "tokens_per_s_engine": total_tokens / t_engine,
+        "speedup": t_static / t_engine,
+        "bubble_frac": bubble,
+        "prefill_compiles": compiles,
+        "ladder": len(buckets) if buckets else None,
+        "distinct_lengths": distinct,
+    }
+
+
+# ------------------------------------------------------------ scenario row
+
+def scenario_smoke_config(device=None, *, chip: bool = False):
+    """The staged chaos scenario (JAX ``scenario_smoke_config``): two long
+    batch rows take the pool at t=0, then an interactive wave that cannot
+    get pages without evicting a batch row, a third batch row
+    interleaved, and two seeded engine stalls. The pool (25 pages of 16:
+    the two batch rows' 12 each plus one) forces the preemption whatever
+    the host's speed. ``chip``: the chip model's widths (the schedule,
+    pool and ladder unchanged)."""
+    dev = resolve_device(device)
+    cfg, params = _model(dev, gpu=chip)
+    inter, batch = SCENARIO_CLASSES
+    schedule = loadgen.staged_schedule([
+        (0.00, batch, 32, 160),
+        (0.00, batch, 32, 160),
+        (0.05, inter, 16, 16),
+        (0.10, batch, 32, 160),
+        (0.15, inter, 16, 24),
+        (0.20, inter, 16, 16),
+        (0.25, inter, 16, 24),
+        (0.30, inter, 16, 16),
+    ], spec={"name": "smoke-chaos"})
+    return dict(cfg=cfg, params=params, page_size=16, slots=3, chunk=8,
+                schedule=schedule, classes=SCENARIO_CLASSES,
+                pool_pages=25, pages_per_seq=12,
+                buckets=bucket_ladder(192),
+                chaos_spec="stall:at=3,delay_ms=50;stall:at=9,delay_ms=50",
+                # off in the smoke: its pool is sized to the page for the
+                # preemption trigger, and a reserve would reorder the
+                # staged admissions
+                admit_highwater=1.0, device=dev)
+
+
+def scenario_full_config(device=None):
+    """The re-grounding shape (JAX ``scenario_full_config``): a seeded
+    BURSTY open-loop stream of 32 requests at 16 rps (burst x8, seed 7)
+    over the two classes, prompts 1/2 and 1x of the top, budgets 1/8,
+    1/2 and 1x at 0.5/0.3/0.2, a pool of 2.5 widest rows, the high-water
+    mark at 0.95 and a stall every 12 rounds from round 5. On the card:
+    the chip model, page 256, 8 slots, prompts 64/128, budgets
+    32/128/256; on the CPU the smoke model, page 16, 4 slots, prompts
+    16/32, budgets 16/64/128."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    cfg, params = _model(dev, gpu=gpu)
+    prompt_top = 128 if gpu else 32
+    budget_top = 256 if gpu else 128
+    schedule = loadgen.make_schedule(
+        32, rate_rps=16.0, classes=SCENARIO_CLASSES,
+        prompt_lens=(prompt_top // 2, prompt_top),
+        budgets=(budget_top // 8, budget_top // 2, budget_top),
+        budget_probs=(0.5, 0.3, 0.2), process="bursty", seed=7,
+        burst_factor=8.0, mean_quiet_s=0.5, mean_burst_s=0.2)
+    page = 256 if gpu else 16
+    pps = ContinuousBatcher.pages_needed(prompt_top, budget_top, page,
+                                         padded_len=prompt_top)
+    return dict(cfg=cfg, params=params, page_size=page,
+                slots=8 if gpu else 4, chunk=16, schedule=schedule,
+                classes=SCENARIO_CLASSES, pool_pages=int(2.5 * pps),
+                pages_per_seq=pps,
+                buckets=bucket_ladder(prompt_top + budget_top),
+                chaos_spec="stall:at=5,delay_ms=80,every=12",
+                admit_highwater=0.95, device=dev)
+
+
+def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
+                 chunk, pool_pages, pages_per_seq, buckets,
+                 chaos_spec=None, admit_highwater=0.95, quiet=False,
+                 device=None):
+    """One robustness row: the open-loop schedule through (a) clean static
+    batching (closed loop, arrival order) and (b) the engine with priority
+    admission, preemption and resume, SLO accounting and the seeded chaos
+    faults active, under the request trace. Every served sequence,
+    preempted-and-resumed ones included, is held against its standalone
+    first, and the trace must cover >= 95% of every request's
+    life. Returns JAX's result keys but the tail-attribution shares,
+    which wait for ``harness/explain.py``."""
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    sync = _sync(dev)
+    rng = np.random.RandomState(13)
+    prompts = {r.index: rng.randint(0, cfg.vocab, size=r.prompt_len)
+               .astype(np.int32) for r in schedule.requests}
+    total_tokens = sum(r.max_new for r in schedule.requests)
+    targets = slo.targets_from_classes(classes)
+    reqs = [(prompts[r.index], r.max_new) for r in schedule.requests]
+
+    def run_engine():
+        eng = ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=pool_pages,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, preempt=True,
+            admit_highwater=admit_highwater, slo=targets, device=dev)
+        arrivals = [(r.t_arrival_s,
+                     dict(prompt=prompts[r.index], max_new=r.max_new,
+                          seq_id=r.index, priority=r.priority,
+                          deadline_s=r.deadline_s))
+                    for r in schedule.requests]
+        got = eng.run(arrivals=arrivals)
+        sync()
+        return got, eng
+
+    skw = dict(slots=slots, page_size=page_size, device=dev)
+    # warm-up with the faults off, then the timed legs: the engine leg
+    # runs under the seeded faults, static runs clean
+    static_batching(params, cfg, reqs, **skw)
+    run_engine()
+    t0 = time.perf_counter()
+    static_out = static_batching(params, cfg, reqs, **skw)
+    sync()
+    t_static = time.perf_counter() - t0
+    chaoslib.configure(chaos_spec)  # also clears the injection log
+    # the request trace is on for the timed leg (a fresh recorder: the
+    # warm-up reused the seq ids)
+    reqtracelib.configure(enabled=True)
+    try:
+        t0 = time.perf_counter()
+        engine_out, eng = run_engine()
+        t_engine = time.perf_counter() - t0
+        stalls = [e for e in chaoslib.injections()
+                  if e["site"] == "engine_round"]
+        req_snap = reqtracelib.active().snapshot(eng.stats)
+    finally:
+        chaoslib.reset()
+        reqtracelib.reset()
+
+    tol = TIE_TOL[cfg.dtype]
+    verdicts = {"exact": 0, "near_tie": 0}
+    for r in schedule.requests:
+        if eng.stats[r.index]["outcome"] != "ok":
+            continue  # shed: empty output by contract
+        want, margins = _standalone(params, cfg, prompts[r.index],
+                                    r.max_new, page_size=page_size,
+                                    device=dev)
+        verdicts[_held(engine_out[r.index], want, margins, tol,
+                       f"engine seq {r.index}")] += 1
+        k = len(static_out[r.index])
+        _held(static_out[r.index], want[:k], margins[:k], tol,
+              f"static seq {r.index}")
+    compiles = len(eng.prefill_rungs)
+    assert compiles <= len(buckets), (
+        f"{compiles} prefill shapes > ladder {len(buckets)}: resumed "
+        "prompts left the bucket ladder")
+    cover = req_snap["coverage_frac"]
+    assert cover >= 0.95, (
+        f"request-trace coverage {cover:.3f} < 0.95: a stamp site is "
+        "missing")
+    rep = eng.last_slo
+    tot = rep["total"]
+    served_tokens = tot["tokens"]
+    result = {
+        "t_static": t_static, "t_engine": t_engine,
+        "tokens": total_tokens, "served_tokens": served_tokens,
+        "tokens_per_s_static": total_tokens / t_static,
+        "tokens_per_s_engine": served_tokens / t_engine,
+        "speedup": (served_tokens / t_engine) / (total_tokens / t_static),
+        "goodput_tok_s": tot["goodput_tok_s"] * eng._serve_s / t_engine
+        if eng._serve_s else 0.0,
+        "attained_frac": tot["attained_frac"],
+        "preemptions": tot["preemptions"], "shed": tot["shed"],
+        "bubble_frac": eng.last_bubble_frac,
+        "stall_injections": len(stalls),
+        "stall_injected_s": sum(e["delay_s"] for e in stalls),
+        "prefill_compiles": compiles, "ladder": len(buckets),
+        "attribution_coverage_frac": cover,
+        "schedule": schedule.spec,
+        "oracle": verdicts, "admissions": eng.admissions,
+        "decode_steps": eng.decode_steps,
+    }
+    out(f"scenario[{schedule.spec.get('process', schedule.spec.get('name', '?'))}, "
+        f"{dev}]: n={schedule.n} slots={slots} chunk={chunk} "
+        f"pool={pool_pages}p tokens={total_tokens} "
+        f"chaos={chaos_spec or 'off'}")
+    out(f"  static  : {t_static:.3f}s  "
+        f"{result['tokens_per_s_static']:,.1f} tok/s (clean)")
+    out(f"  engine  : {t_engine:.3f}s  "
+        f"{result['tokens_per_s_engine']:,.1f} tok/s  goodput "
+        f"{result['goodput_tok_s']:,.1f} tok/s  bubble "
+        f"{result['bubble_frac']:.1%}  preempted {result['preemptions']}  "
+        f"shed {result['shed']}  stalls {result['stall_injections']} "
+        f"(+{result['stall_injected_s'] * 1e3:.0f}ms)")
+    out(f"  engine/static speedup under chaos: {result['speedup']:.3f}x "
+        f"(oracle {verdicts}, resumed rows included)")
+    out("  " + slo.format_slo(rep).replace("\n", "\n  "))
+    return result
+
+
+# ------------------------------------------------------------ plane row
 
 def plane_smoke_config(device=None):
     """The CI plane shape: the smoke model (vocab 256, d_model 256, 4
@@ -170,17 +555,19 @@ def plane_stream(*, cfg, n, prompt_len, max_budget, rate_rps, seed,
 
 def make_plane(stream: dict, roles, *, cfg, params, slots, chunk,
                page_size, migration, device, placed: bool,
-               slo_targets=None, emit=None) -> ServingPlane:
+               slo_targets=None, emit=None, **sampling) -> ServingPlane:
     """A plane of one replica per role; ``placed``: replica i on logical
     rank i of ``device`` (the weights shared), else host-shared (no
     device, so ``device_put`` degrades to the ``local`` passthrough).
-    ``emit``: the plane's record sink (``ServingPlane(emit=)``)."""
+    ``emit``: the plane's record sink (``ServingPlane(emit=)``).
+    ``sampling``: ``temperature``/``top_k``/``seed`` of every replica."""
     replicas = []
     for i, role in enumerate(roles):
         eng = EngineCore(params, cfg, slots=slots, pool_pages=stream["pool"],
                          pages_per_seq=stream["pages_per_seq"],
                          page_size=page_size, chunk=chunk,
-                         prompt_buckets=stream["buckets"], device=device)
+                         prompt_buckets=stream["buckets"], device=device,
+                         **sampling)
         replicas.append(Replica(
             eng, name=f"r{i}", role=role,
             device=LogicalDevice(device, i) if placed else None))
@@ -190,12 +577,17 @@ def make_plane(stream: dict, roles, *, cfg, params, slots, chunk,
 
 class Oracle:
     """Each request's standalone ``paged_generate`` (computed once: it
-    depends only on prompt and budget) and the tie-aware verdicts of
-    served outputs against it."""
+    depends only on prompt, budget and, sampled, the request's key) and
+    the tie-aware verdicts of served outputs against it. ``sampling``:
+    the engines' ``temperature``/``top_k``/``seed``; request ``i``'s key
+    is then ``sample_key(seed, i)``, the engine's ``request_key(i)`` of a
+    plane that numbered the requests in schedule order."""
 
-    def __init__(self, stream: dict, *, cfg, params, page_size, device):
+    def __init__(self, stream: dict, *, cfg, params, page_size, device,
+                 **sampling):
         self.stream, self.cfg, self.params = stream, cfg, params
         self.page_size, self.device = page_size, device
+        self.sampling = sampling
         self.tol = TIE_TOL[cfg.dtype]
         self._want: dict = {}
 
@@ -203,13 +595,14 @@ class Oracle:
         hit = self._want.get(i)
         if hit is None:
             r = self.stream["schedule"].requests[i]
-            toks, margins = paged_generate(
-                self.params,
-                torch.from_numpy(self.stream["prompts"][i])[None, :],
-                self.cfg, r.max_new, page_size=self.page_size,
-                device=self.device, with_margins=True)
-            hit = self._want[i] = (toks[0].cpu().numpy(),
-                                   margins[0].cpu().numpy())
+            kw = {}
+            if self.sampling.get("temperature", 0.0) > 0:
+                kw = dict(key=sample_key(self.sampling.get("seed", 0), i),
+                          temperature=self.sampling["temperature"],
+                          top_k=self.sampling.get("top_k", 0))
+            hit = self._want[i] = _standalone(
+                self.params, self.cfg, self.stream["prompts"][i], r.max_new,
+                page_size=self.page_size, device=self.device, **kw)
         return hit
 
     def check(self, outs: dict, label: str) -> dict:
@@ -228,18 +621,30 @@ class Oracle:
         return counts
 
 
+#: the plane row's sampled leg: every replica samples at this temperature
+#: and top-k from keys of this seed
+PLANE_SAMPLING = dict(temperature=0.8, top_k=50, seed=0)
+
+
 def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
               max_budget, rate_rps, seed=11, place_on_devices=False,
               migration="device_put", device=None, quiet=False,
-              oracle: Oracle | None = None, emit=None):
+              oracle: Oracle | None = None,
+              sampled_oracle: Oracle | None = None, emit=None):
     """The serving-plane row (see the module docstring). ``dma`` forces
     placement on logical ranks (the exchange needs a reachable pair).
-    Returns JAX's result keys: the legs' wall times and goodputs,
+    The sampled leg: the same requests closed-loop (submitted up front,
+    numbered in schedule order) through a sampling 1p/1d plane
+    (:data:`PLANE_SAMPLING`) over the same transport, each against its
+    standalone with its key. Returns JAX's result keys: the legs' wall
+    times and goodputs,
     ``kv_migration_overlap_frac``, ``dma_migration_overlap_frac``,
     ``migration_bytes_per_round``, the transports, the ladders, and
     ``placement_shares_host`` (True: the replicas are logical ranks of
-    one card) — plus the oracle verdicts. ``oracle``: an :class:`Oracle`
-    of this stream to reuse (its standalone runs are cached). ``emit``:
+    one card) — plus the oracle verdicts. ``oracle``/``sampled_oracle``:
+    :class:`Oracle` s of this stream (the second with
+    :data:`PLANE_SAMPLING`) to reuse: their standalone runs are cached.
+    ``emit``:
     the two plane legs' record sink."""
     if migration not in MIGRATION_TRANSPORTS:
         raise SystemExit(f"--migration {migration!r} not in "
@@ -290,14 +695,30 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
     t0 = time.perf_counter()
     disagg_out, disagg = run_plane_leg(["prefill", "decode"])
     t_disagg = time.perf_counter() - t0
+    splane = make_plane(stream, ["prefill", "decode"], **geom,
+                        migration=migration, device=dev, placed=placed,
+                        **PLANE_SAMPLING)
+    t0 = time.perf_counter()
+    sids = {r.index: splane.submit(stream["prompts"][r.index], r.max_new,
+                                   priority=r.priority)
+            for r in stream["schedule"].requests}
+    sgot = splane.run()
+    sync()
+    t_sampled = time.perf_counter() - t0
+    assert all(rid == i for i, rid in sids.items())
     if oracle is None:
         oracle = Oracle(stream, cfg=cfg, params=params,
                         page_size=page_size, device=dev)
     verdicts = {"single": oracle.check(single_out, "single"),
                 "plane": oracle.check(plane_out, "2-replica"),
-                "disagg": oracle.check(disagg_out, "1p/1d")}
+                "disagg": oracle.check(disagg_out, "1p/1d"),
+                "sampled": (sampled_oracle or Oracle(
+                    stream, cfg=cfg, params=params, page_size=page_size,
+                    device=dev, **PLANE_SAMPLING)).check(
+                    sgot, "sampled 1p/1d")}
     assert disagg.migrations > 0, "disaggregated leg migrated nothing"
-    for leg in (plane2, disagg):
+    assert splane.migrations > 0, "the sampled leg migrated nothing"
+    for leg in (plane2, disagg, splane):
         for r in leg.replicas:
             assert r.engine.free_page_count == stream["pool"], (
                 f"replica {r.name} leaked "
@@ -327,6 +748,10 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
         "migration_transports": dict(disagg.migration_transports),
         "placement_shares_host": shares_card,
         "migrations": disagg.migrations,
+        "t_sampled": t_sampled,
+        "sampled_tok_s": sum(len(v) for v in sgot.values()) / t_sampled,
+        "sampled_migrations": splane.migrations,
+        "sampled_migration_transports": dict(splane.migration_transports),
         "shed": tot2["shed"] + totd["shed"],
         "ladder_fit": list(stream["buckets"]),
         "ladder_default": list(stream["default_ladder"]),
@@ -356,30 +781,65 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
         out(f"  NOTE: the replicas are logical ranks 0 and 1 of one "
             f"device ({dev}), sharing its weights: a migration is a copy "
             "within that device's memory, not a transfer between cards")
-    out(f"  oracle on all three legs (migrated rows included): "
-        f"{verdicts}")
+    out(f"  sampled   : {t_sampled:.3f}s  "
+        f"{result['sampled_tok_s']:,.1f} tok/s  closed-loop 1p/1d at "
+        f"T {PLANE_SAMPLING['temperature']}, top-k "
+        f"{PLANE_SAMPLING['top_k']}, migrations {splane.migrations}")
+    out(f"  oracle on every leg (migrated rows included): {verdicts}")
     return result
+
+
+#: the JAX rows that wait for a later slice, each with what it waits for
+LATER_ROWS = {
+    "offload": "tiered memory (ROADMAP item 3)",
+    "shared": "the prefix cache (ROADMAP item 3)",
+    "slo_budget": "tiered memory and harness/budget.py (ROADMAP items 3 "
+                  "and 2)",
+    "fit": "autofit (ROADMAP item 2)",
+    "elastic": "the autoscaled plane (ROADMAP item 4)",
+    "quant": "the quantized row (chip_smoke.py phase quant drives its "
+             "path meanwhile)",
+}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_serving_args(p)
+    p.add_argument("--scenario", action="store_true",
+                   help="the robustness row (preemption, chaos, goodput)")
     p.add_argument("--plane", action="store_true",
-                   help="the serving-plane row (the only row ported)")
+                   help="the serving-plane row")
+    for row in LATER_ROWS:
+        p.add_argument(f"--{row.replace('_', '-')}", action="store_true",
+                       help=f"not ported yet: waits for {LATER_ROWS[row]}")
     p.add_argument("--migration", default="device_put",
                    choices=list(MIGRATION_TRANSPORTS))
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--smoke", action="store_true",
-                   help="the CI shape (12 requests, smoke model)")
+                   help="the CI shape (the smoke model)")
     add_kv_dtype_arg(p, default=None)
     args = p.parse_args(argv)
-    if not args.plane:
-        p.error("only --plane is ported; the other rows wait for the "
-                "engine's later slices")
-    conf = (plane_smoke_config if args.smoke else plane_full_config)(
-        args.device)
-    conf = with_kv_dtype(conf, args.kv_dtype)
-    result = run_plane(**conf, migration=args.migration)
+    for row, why in LATER_ROWS.items():
+        if getattr(args, row):
+            p.error(f"--{row.replace('_', '-')} is not ported yet: it "
+                    f"waits for {why}")
+    if args.plane:
+        conf = (plane_smoke_config if args.smoke else plane_full_config)(
+            args.device)
+        conf = with_kv_dtype(conf, args.kv_dtype)
+        result = run_plane(**conf, migration=args.migration)
+    elif args.scenario:
+        conf = (scenario_smoke_config if args.smoke
+                else scenario_full_config)(args.device)
+        result = run_scenario(**with_kv_dtype(conf, args.kv_dtype))
+    else:
+        conf = (smoke_config if args.smoke else full_config)(args.device)
+        result = run_bench(**with_kv_dtype(conf, args.kv_dtype),
+                           buckets=args.prompt_buckets,
+                           overlap=not args.no_overlap,
+                           temperature=args.temperature, top_k=args.top_k,
+                           seed=args.seed)
     print(json.dumps({k: v for k, v in result.items() if k != "schedule"}))
     return 0
 

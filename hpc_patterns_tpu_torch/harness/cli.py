@@ -55,10 +55,53 @@ def add_reqtrace_arg(p: argparse.ArgumentParser) -> None:
     of the port)."""
     p.add_argument("--reqtrace", action="store_true",
                    help="trace request lifecycle segments (queued/"
-                        "admit_wait/prefill/decode/migrating/shed) of the "
+                        "admit_wait/prefill/decode/preempted/migrating/"
+                        "shed) of the "
                         "measured run; with --log, a kind=reqtrace record "
                         "with each request's segments and the run's "
                         "attribution coverage is appended")
+
+
+def add_serving_args(p: argparse.ArgumentParser) -> None:
+    """The serving-engine knobs shared by the serving surfaces (serve_app;
+    bench_serving takes the same flags): the prompt-length bucket ladder,
+    the sampling mode and the admission-overlap toggle (JAX
+    ``harness/cli.py::add_serving_args``)."""
+    p.add_argument("--prompt-buckets", default="auto",
+                   help="prompt-length bucket ladder: 'auto' (power-of-"
+                        "two-ish ladder over the max prompt length, "
+                        "serving.bucket_ladder), 'none' (exact lengths), "
+                        "or comma-separated rungs, e.g. '16,32,64'")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature (0 = greedy; > 0 samples "
+                        "per-row key streams that stay standalone-exact)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="top-k sampling truncation (0 = off)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="base seed of the per-request sampling keys")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="disable overlapped admission (prefills serialize "
+                        "with decode chunks — the admission-bubble "
+                        "baseline)")
+
+
+def parse_buckets(spec: str, max_prompt_len: int):
+    """Resolve an ``--prompt-buckets`` value into a ladder tuple or None:
+    'none' disables bucketing, 'auto' builds the default ladder over
+    ``max_prompt_len``, anything else is comma-separated rungs."""
+    spec = (spec or "none").strip().lower()
+    if spec == "none":
+        return None
+    if spec == "auto":
+        from hpc_patterns_tpu_torch.models.serving import bucket_ladder
+
+        return bucket_ladder(max_prompt_len)
+    try:
+        return tuple(int(tok) for tok in spec.split(",") if tok.strip())
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(
+            f"--prompt-buckets must be 'auto', 'none', or comma-separated "
+            f"ints, got {spec!r}") from e
 
 
 def add_msg_size_args(p: argparse.ArgumentParser) -> None:

@@ -16,9 +16,11 @@ the queue, awaiting re-admission), ``swapped_out`` (paged to the host
 tier), ``prefetch_wait`` (host->HBM pull in flight), ``migrating``
 (exported from one engine, not yet installed in another), ``shed``
 (terminal zero-length marker), and ``untracked`` — the explicit filler
-for any span no stamp claimed. The port's greedy engine stamps queued,
-admit_wait, prefill, decode, migrating and shed; the other kinds wait
-for preemption and residency.
+for any span no stamp claimed. The port's engine stamps queued,
+admit_wait, prefill, decode, preempted, migrating and shed (and each
+token's availability instant in its stats row's ``token_ts``, which
+:meth:`ReqTrace.snapshot` carries); swapped_out and prefetch_wait
+wait for tiered residency.
 
 The load-bearing contract is the **coverage invariant**: a finished
 request's finalized segments tile ``[t_submit, t_finish]`` exactly

@@ -23,8 +23,19 @@ counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
 
 Unlike JAX's immutable arrays, the port writes caches and pools IN PLACE
 (a copy per write would double the serving capacity), so the step
-functions return logits only. Sampling takes a ``torch.Generator``;
-its draws cannot match JAX's threefry stream. :func:`generate` and
+functions return logits only.
+
+Sampling is Gumbel-max over a counter-based hash (:func:`sample_scores`):
+the token drawn at position ``t`` of a row is ``argmax(top_k_mask(
+logits) / T + g)``, where the Gumbel noise ``g`` is a pure function of
+the row's key ((2,) uint32, the shape of JAX's PRNG key and of the
+migration bundle's ``key`` field), ``t`` and the vocab index. The draw
+depends on nothing else: a row samples the same alone or in a batch, on
+the CPU or the card, in one batched pass with no host read, and the
+serving engine's rows (``models/serving.py``) reproduce the standalone
+:func:`paged_generate` token for token. Greedy (``temperature <= 0``)
+is a plain argmax that runs no noise op. The stream is not JAX's
+threefry stream; the two agree in law. :func:`generate` and
 :func:`paged_generate` run under ``harness.trace.compile_watch``, as
 JAX's do: with a flight recorder, a call that built kernels leaves a
 named compile event.
@@ -314,7 +325,8 @@ def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig):
 
 def _topk_mask(logits, top_k: int):
     """Top-k truncation (0 = off): everything below the kth-highest
-    logit goes to -inf; ties at the kth value all survive."""
+    logit goes to -inf; ties at the kth value all survive. The plain
+    statement of the law :func:`sample_scores` draws from."""
     if top_k:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits >= kth, logits,
@@ -322,21 +334,106 @@ def _topk_mask(logits, top_k: int):
     return logits
 
 
-def _pick(logits, generator: torch.Generator | None = None,
-          temperature: float = 0.0, top_k: int = 0):
-    """Next token, int32: argmax (first maximal index) when
-    ``temperature <= 0``; else a draw from softmax(top-k-masked logits /
-    temperature) with ``generator`` (required then, on the logits'
-    device)."""
-    if temperature <= 0.0:
+_M32 = 0xFFFFFFFF
+_M64 = 0xFFFFFFFFFFFFFFFF
+#: lowbias32's multipliers (the 32-bit integer hash of C. Wellons'
+#: hash-prospector) and the odd constants that spread a draw's inputs
+#: (key words, position, vocab index) before it
+_HASH_MUL = (0x7FEB352D, 0x846CA68B)
+_SPREAD = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
+
+
+def _hash32(x):
+    """lowbias32 on int64 lanes that hold uint32 values (the shifts are
+    logical because every lane is non-negative; products are masked back
+    to 32 bits, so int64 overflow never reaches a kept bit)."""
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MUL[0]) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _HASH_MUL[1]) & _M32
+    return x ^ (x >> 16)
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def sample_key(seed: int, *data: int):
+    """A sampler key, (2,) uint32 (low word, high word), from an int
+    ``seed`` with each of ``data`` folded in (splitmix64 on the host) —
+    the port's counterpart of ``jax.random.fold_in(PRNGKey(seed), d)``.
+    The serving engine's ``request_key(seq_id)`` is
+    ``sample_key(seed, seq_id)``."""
+    import numpy as np
+
+    z = _splitmix64(int(seed) & _M64)
+    for d in data:
+        z = _splitmix64(z ^ (int(d) & _M64))
+    return np.array([z & _M32, z >> 32], np.uint32)
+
+
+def _as_keys(key, batch: int, device) -> torch.Tensor:
+    """(B, 2) int64 lanes holding uint32 key words, from one (2,) key
+    (every row) or (B, 2) keys."""
+    import numpy as np
+
+    k = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
+    if k.shape == (2,):
+        k = k.expand(batch, 2)
+    if tuple(k.shape) != (batch, 2):
+        raise ValueError(f"key must be (2,) or ({batch}, 2) uint32, got "
+                         f"{tuple(k.shape)}")
+    return k.to(device).contiguous()
+
+
+def gumbel_noise(keys, pos, vocab: int):
+    """Gumbel noise (..., B, vocab) f32 for the tokens drawn at positions
+    ``pos`` of rows keyed by ``keys`` ((B, 2) int64 lanes of uint32
+    words): ``pos`` an int or (B,) for one draw a row, or (S, B) for S
+    draws a row at once. ``-log(-log u)`` with ``u`` in (0, 1) from 23
+    bits of a counter-based hash of (key, position, vocab index). A
+    row's noise is a function of its own key and position only."""
+    lo, hi = keys[:, 0], keys[:, 1]
+    salt = _hash32((lo * _SPREAD[0] + hi * _SPREAD[1]
+                    + torch.as_tensor(pos, device=keys.device)
+                    .to(torch.int64) * _SPREAD[2]) & _M32)
+    idx = torch.arange(vocab, device=keys.device, dtype=torch.int64)
+    x = _hash32((salt[..., None] + idx * _SPREAD[3]) & _M32)
+    # 23 bits and a half: every u is exact in f32, so none rounds to 1
+    u = ((x >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
+
+
+def sample_scores(logits, keys, pos, temps, top_k: int = 0, noise=None):
+    """The perturbed scores whose argmax is the sampled token:
+    ``top_k_mask(logits) / temps + g`` (f32; ``temps`` a float or (B,)).
+    argmax of them is a draw from softmax(top-k-masked logits / T) —
+    the Gumbel-max law ``jax.random.categorical`` uses. Their top-1 /
+    top-2 gap is what a tie-aware oracle reads for a sampled step.
+    ``noise``: ``g`` when the caller drew it already (the engine draws a
+    chunk's in one pass), else drawn here."""
+    t = torch.as_tensor(temps, dtype=torch.float32, device=logits.device)
+    if t.ndim == 1:
+        t = t[:, None]
+    if noise is None:
+        noise = gumbel_noise(keys, pos, logits.shape[-1])
+    return _topk_mask(logits.float(), top_k) / t + noise
+
+
+def _pick(logits, temperature=0.0, top_k: int = 0, keys=None, pos=None,
+          noise=None):
+    """Next token, int32: argmax (first maximal index) of the logits
+    when ``temperature`` is a float <= 0 (no noise op runs); else the
+    argmax of :func:`sample_scores` — ``temperature`` a float or (B,)
+    per-row tensor, ``keys`` (B, 2) int64 lanes, ``pos`` the position
+    the drawn token will take (int or (B,)), ``noise`` as there."""
+    if not torch.is_tensor(temperature) and temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    if generator is None:
-        raise ValueError("sampling (temperature > 0) needs a "
-                         "torch.Generator")
-    probs = torch.softmax(_topk_mask(logits.float(), top_k) / temperature,
-                          dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    return torch.argmax(sample_scores(logits, keys, pos, temperature,
+                                      top_k, noise), dim=-1).to(torch.int32)
 
 
 def _top2_margin(logits):
@@ -346,29 +443,47 @@ def _top2_margin(logits):
     return top[..., 0] - top[..., 1]
 
 
-def _check_sampling(cfg: TransformerConfig, temperature: float,
-                    top_k: int, generator):
-    if temperature > 0.0 and generator is None:
-        raise ValueError("sampling (temperature > 0) needs a "
-                         "torch.Generator")
+def _sampling_keys(cfg: TransformerConfig, temperature: float, top_k: int,
+                   key, generator, batch: int, device):
+    """The (B, 2) key lanes of a sampled generation (None when greedy):
+    ``key`` as given, else one key a row drawn from ``generator``."""
     if not 0 <= top_k <= cfg.vocab:
         raise ValueError(f"top_k {top_k} outside [0, vocab]")
+    if temperature <= 0.0:
+        return None
+    if key is not None:
+        return _as_keys(key, batch, device)
+    if generator is None:
+        raise ValueError("sampling (temperature > 0) needs a key or a "
+                         "torch.Generator")
+    return torch.randint(0, 1 << 32, (batch, 2), generator=generator,
+                         device=generator.device,
+                         dtype=torch.int64).to(device)
 
 
-def _generation_loop(step, logits, T: int, new_tokens: int, pick,
-                     with_margins: bool):
+def _generation_loop(step, logits, T: int, new_tokens: int, keys,
+                     temperature: float, top_k: int, with_margins: bool):
     """The loop shared by the linear and paged caches: pick the first
-    token from the prefill logits, then ``new_tokens - 1`` steps
-    ``step(pos, tok) -> logits``. Returns (B, new_tokens) int32 (and the
-    per-step top-1/top-2 gaps with ``with_margins``)."""
-    tok = pick(logits)
-    toks, margins = [tok], [_top2_margin(logits)] if with_margins else []
+    token (position ``T``) from the prefill logits, then ``new_tokens -
+    1`` steps ``step(pos, tok) -> logits``. Returns (B, new_tokens) int32
+    (and, with ``with_margins``, each step's top-1/top-2 gap of the
+    scores the pick took the argmax of: the logits when greedy, the
+    perturbed :func:`sample_scores` when sampled)."""
+
+    def pick(lg, pos):
+        if keys is None:
+            return torch.argmax(lg, dim=-1).to(torch.int32), lg
+        sc = sample_scores(lg, keys, pos, temperature, top_k)
+        return torch.argmax(sc, dim=-1).to(torch.int32), sc
+
+    tok, sc = pick(logits, T)
+    toks, margins = [tok], [_top2_margin(sc)] if with_margins else []
     for i in range(new_tokens - 1):
         logits = step(T + i, tok)
-        tok = pick(logits)
+        tok, sc = pick(logits, T + i + 1)
         toks.append(tok)
         if with_margins:
-            margins.append(_top2_margin(logits))
+            margins.append(_top2_margin(sc))
     out = torch.stack(toks, dim=1)
     if with_margins:
         return out, torch.stack(margins, dim=1)
@@ -376,15 +491,17 @@ def _generation_loop(step, logits, T: int, new_tokens: int, pick,
 
 
 def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
-             generator: torch.Generator | None = None,
+             key=None, generator: torch.Generator | None = None,
              temperature: float = 0.0, top_k: int = 0, device=None,
              with_margins: bool = False):
     """Continuation tokens (B, new_tokens) int32 from a fresh linear
     cache: one prefill, then ``new_tokens - 1`` :func:`decode_step` s.
     Greedy by default; temperature/top-k sampling when ``temperature >
-    0`` (``generator`` required then). ``device``: default ``cuda``;
-    params and prompt must live there. ``with_margins``: also return
-    each step's top-1/top-2 logit gap (B, new_tokens) f32."""
+    0``, from ``key`` ((2,) uint32 for every row, or (B, 2); see
+    :func:`sample_key`) or, without one, a key a row drawn from
+    ``generator``. ``device``: default ``cuda``; params and prompt must
+    live there. ``with_margins``: also return each step's top-1/top-2
+    gap (B, new_tokens) f32 of the scores picked from."""
     dev = resolve_device(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
@@ -393,15 +510,14 @@ def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
     if T + new_tokens > cfg.max_seq:
         raise ValueError(
             f"prompt {T} + new {new_tokens} exceeds max_seq {cfg.max_seq}")
-    _check_sampling(cfg, temperature, top_k, generator)
+    keys = _sampling_keys(cfg, temperature, top_k, key, generator,
+                          prompt.shape[0], dev)
     with tracelib.compile_watch("decode.generate", batch=prompt.shape[0],
                                 prompt_len=T, new_tokens=new_tokens):
         logits, cache = prefill(params, prompt, cfg, T + new_tokens)
         return _generation_loop(
             lambda pos, tok: decode_step(params, cache, pos, tok, cfg),
-            logits, T, new_tokens,
-            lambda lg: _pick(lg, generator, temperature, top_k),
-            with_margins)
+            logits, T, new_tokens, keys, temperature, top_k, with_margins)
 
 
 def greedy_generate(params, prompt, cfg: TransformerConfig,
@@ -562,18 +678,20 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
 
 def paged_generate(params, prompt, cfg: TransformerConfig,
                    new_tokens: int, *, page_size: int = 512,
-                   pages_per_seq: int | None = None,
+                   pages_per_seq: int | None = None, key=None,
                    generator: torch.Generator | None = None,
                    temperature: float = 0.0, top_k: int = 0, device=None,
                    with_margins: bool = False):
     """Continuation (B, new_tokens) int32 served from a fresh paged
     cache: one prefill, then ``new_tokens - 1`` decode steps at a shared
-    position. Greedy by default; temperature/top-k sampling when
-    ``temperature > 0`` (``generator`` required then). ``device``:
-    default ``cuda`` (raises without a GPU unless ``device="cpu"``);
-    params and prompt must live there. ``with_margins``: also return
-    each step's top-1/top-2 logit gap (B, new_tokens) f32 — what a
-    tie-aware comparison needs."""
+    position. Greedy by default; sampling when ``temperature > 0``, as
+    :func:`generate` (``key`` or ``generator``): with the serving
+    engine's ``request_key(seq_id)`` it reproduces that request's served
+    tokens. ``device``: default ``cuda`` (raises without a GPU unless
+    ``device="cpu"``); params and prompt must live there.
+    ``with_margins``: also return each step's top-1/top-2 gap (B,
+    new_tokens) f32 of the scores picked from — what a tie-aware
+    comparison needs."""
     dev = resolve_device(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
@@ -588,7 +706,7 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
     if pages_per_seq * page_size < need:
         raise ValueError(f"{pages_per_seq} pages of {page_size} < {need} "
                          "tokens")
-    _check_sampling(cfg, temperature, top_k, generator)
+    keys = _sampling_keys(cfg, temperature, top_k, key, generator, B, dev)
     with tracelib.compile_watch("decode.paged_generate", batch=B,
                                 prompt_len=T, new_tokens=new_tokens,
                                 page_size=page_size):
@@ -598,6 +716,4 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
         return _generation_loop(
             lambda pos, tok: paged_decode_step(params, cache, pos, tok,
                                                cfg),
-            logits, T, new_tokens,
-            lambda lg: _pick(lg, generator, temperature, top_k),
-            with_margins)
+            logits, T, new_tokens, keys, temperature, top_k, with_margins)

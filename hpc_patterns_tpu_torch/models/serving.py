@@ -1,6 +1,7 @@
-"""Continuous batching over the ragged paged cache — the greedy engine
-of ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
-``ContinuousBatcher``) and its half of the serving plane's KV handoff.
+"""Continuous batching over the ragged paged cache — the engine of
+``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
+``ContinuousBatcher``) without its draft, residency, prefix-cache and
+mesh branches, and its half of the serving plane's KV handoff.
 
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
@@ -14,27 +15,46 @@ of ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
   come from the last real token;
 - admission walks the queue in priority order (lower number first,
   resumes before fresh arrivals within a class, FCFS with skip inside
-  that), sheds fresh requests whose ``deadline_s`` expired, and happens
-  at chunk boundaries behind the already-enqueued decode chunk (the
-  CUDA stream orders them, as JAX's async dispatch did); the
+  that), sheds fresh requests whose ``deadline_s`` expired, holds fresh
+  admissions under ``admit_highwater`` of the pool, and (``overlap``)
+  happens at chunk boundaries behind the already-enqueued decode chunk
+  (the CUDA stream orders them, as JAX's async dispatch did); the
   first-token readback is deferred to the round's sync point;
 - a decode chunk is ``chunk`` ragged steps (``paged_decode_step`` with a
   (slots,) position vector): a row advances while ``pos < limit``; its
   position freezes at ``limit`` after it finishes, so a frozen write
   re-targets the row's own last slot; an emitted ``eos_id`` pulls the
   limit down;
+- sampling (``temperature > 0``, ``top_k``, ``seed``): each row draws
+  with the Gumbel-max sampler of ``models/decode.py`` from its own key
+  ((slots, 2) on the device; default :meth:`EngineCore.request_key`)
+  and temperature ((slots,)); a draw depends only on the row's key,
+  its position and its logits, so a sampled row's tokens equal
+  ``paged_generate(..., key=request_key(sid))``'s, preempted, resumed
+  or migrated. Greedy engines run a plain argmax and touch no key;
+- preemption (``preempt=True``): when the most urgent waiting request
+  cannot get pages, strictly lower classes are evicted at a chunk
+  boundary (lowest class first, most recently admitted first), their
+  tokens and keys to the host, their pages back to the arena, and they
+  re-enter through the ordinary prefill with prompt = original +
+  generated; causality makes the resumed cache the uninterrupted one;
 - every request has a ``stats`` row (``t_submit``, ``t_first``,
-  ``t_finish``, ``tokens``, ``outcome``, ``preemptions``); with
-  ``slo={priority: SLOTarget}`` each :meth:`ContinuousBatcher.run` ends
-  with the attainment rollup in ``last_slo`` (``harness/slo.py``);
+  ``t_finish``, ``tokens``, ``outcome``, ``preemptions``, ``token_ts``);
+  with ``slo={priority: SLOTarget}`` each :meth:`ContinuousBatcher.run`
+  ends with the attainment rollup in ``last_slo`` (``harness/slo.py``);
+- ``emit=``: a ``**record`` callable (``RunLog.emit`` fits) receiving
+  JAX's ``serve_shed``, ``serve_admit``, ``serve_finish``,
+  ``serve_preempt``, ``serve_migrate_out`` and ``serve_migrate_in``
+  records, field for field;
+- chaos: each round probes ``harness.chaos``'s ``engine_round`` site;
 - KV migration (the serving plane's prefill -> decode handoff,
   ``serving_plane/``): :meth:`EngineCore.export_migration` detaches a
-  row into a :class:`MigrationBundle` (cursors snapshot to host, its
-  pages gathered on the device into new tensors) and
-  :meth:`EngineCore.install_migration` seats one in another engine
-  (pages copied into the pool in place, cursors seeded; no readback).
-  A migrated row is structurally a resume on another engine, so its
-  tokens equal the colocated engine's byte for byte.
+  row into a :class:`MigrationBundle` (cursors, key and temperature
+  snapshot to host, its pages gathered on the device into new tensors)
+  and :meth:`EngineCore.install_migration` seats one in another engine
+  (pages copied into the pool in place, cursors and key seeded; no
+  readback). A migrated row is structurally a resume on another
+  engine, so its tokens equal the colocated engine's byte for byte.
 
 The pool stores ``cfg.kv_cache_dtype``: the compute dtype, or int8/fp8
 values with per-row scale pools, served on any ``cfg.decode_attn``
@@ -43,26 +63,26 @@ pools beside the K/V pages.
 
 Observability (``harness/metrics.py``, ``trace.py``, ``reqtrace.py``),
 at the JAX engine's sites: the ``serve.queue_depth`` and
-``serve.free_pages`` gauges, the admission / finish / token / migration
-counters, the ``serve.prefill``, ``serve.decode_dispatch`` and
-``serve.decode_round`` spans, a device window for each admission (track
-``slot + 1``) and each decode chunk (track 0) — CUDA events on a card,
-read after the round's own readbacks — and each request's lifecycle
-segments, which a migrated bundle carries in ``segments``. With no
-registry, recorder or reqtrace enabled each site costs one check.
+``serve.free_pages`` gauges, the admission / finish / token / shed /
+preemption / migration counters, the ``serve.prefill``,
+``serve.decode_dispatch`` and ``serve.decode_round`` spans, a device
+window for each admission (track ``slot + 1``) and each decode chunk
+(track 0) — CUDA events on a card, read after the round's own readbacks
+— and each request's lifecycle segments (``preempted`` included), which
+a migrated bundle carries in ``segments``. With no registry, recorder,
+reqtrace or chaos enabled each site costs one check.
 
-Greedy only. Sampling (``temperature``/``top_k``), preemption,
-``admit_highwater``, tiered residency (``export_swapped``), prefix
-sharing, draft-assisted rounds and meshes belong to later slices:
-asking for them raises ``ValueError``. A bundle from this engine carries
-``key = zeros(2, uint32)`` and ``temp = 0.0``; a destination always
-installs the whole payload (prefix resolution waits for the prefix
-cache), though ``rung`` and ``prefix_len`` are written.
+Later slices raise ``ValueError`` when asked for: tiered residency
+(``export_swapped``), prefix sharing, draft-assisted rounds and meshes.
+A destination always installs the whole payload (prefix resolution
+waits for the prefix cache), though ``rung`` and ``prefix_len`` are
+written.
 
 Correctness contract: every sequence's tokens equal the standalone
-``paged_generate`` for the same prompt, budget and config (exactly in f32
-on the CPU; up to near-ties where bf16 matmuls at batch 8 and batch 1
-round differently on the card), migrated or not.
+``paged_generate`` for the same prompt, budget, config and (sampled)
+key (exactly in f32 on the CPU; on the card up to near-ties where bf16
+matmuls at batch 8 and batch 1 round differently), preempted, resumed
+or migrated.
 """
 
 from __future__ import annotations
@@ -74,15 +94,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from hpc_patterns_tpu_torch.harness import chaos as chaoslib
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo as slolib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.decode import (
+    _as_keys,
     _pick,
+    gumbel_noise,
     init_paged_cache,
     paged_decode_step,
     paged_prefill,
+    sample_key,
 )
 from hpc_patterns_tpu_torch.models.transformer import TransformerConfig
 from hpc_patterns_tpu_torch.ops.flash_decode import raw
@@ -195,16 +219,21 @@ def pad_to_bucket(buckets, prompt_len: int) -> int:
 class Request:
     """One sequence to serve: ``prompt`` (T,) int32, up to ``max_new``
     generated tokens (fewer if ``eos_id`` fires). ``t_submit`` stamps
-    queue entry (time to first token counts from it). ``priority``:
-    lower number = more important (admission order). ``deadline_s``:
+    queue entry (time to first token counts from it).
+    ``temperature``/``key``: per-request sampling overrides (None = the
+    engine's defaults; the default key is
+    :meth:`EngineCore.request_key`). ``priority``: lower number = more
+    important (admission order; preemption eligibility). ``deadline_s``:
     queue-time shedding deadline relative to submit (None = never shed).
-    ``resume_prefix``: tokens this request already emitted elsewhere;
-    its prompt then carries them, and the engine prepends them to the
-    output."""
+    ``resume_prefix``: tokens this request already emitted (before a
+    preemption, or elsewhere); its prompt then carries them, and the
+    engine prepends them to the output."""
     prompt: np.ndarray
     max_new: int
     seq_id: int = -1
     t_submit: float = 0.0
+    temperature: float | None = None
+    key: np.ndarray | None = None
     priority: int = 0
     deadline_s: float | None = None
     resume_prefix: np.ndarray | None = None
@@ -218,8 +247,10 @@ class MigrationBundle:
     the wire codec (``serving_plane/migration.py``) stays byte-compatible
     across the two packages. ``pages_payload``: {cache key: per-layer
     tensors with leading dim ``n_pages``} — the K/V pages, plus the scale
-    pools of a quantized cache. A greedy engine's bundle carries ``key =
-    zeros(2, uint32)`` and ``temp = 0.0``."""
+    pools of a quantized cache. ``key`` is the row's sampler key (the
+    sampler's whole state: a draw depends on it and the position only);
+    a greedy engine's bundle carries ``key = zeros(2, uint32)`` and
+    ``temp = 0.0``."""
     seq_id: int
     prompt: np.ndarray       # THIS admission's (possibly resume) prompt
     out: list                # tokens emitted so far (prefix included)
@@ -228,7 +259,7 @@ class MigrationBundle:
     pos: int
     limit: int
     token: int               # current device token (== out[-1])
-    key: np.ndarray          # (2,) uint32 post-admission key state
+    key: np.ndarray          # (2,) uint32 sampler key
     temp: float              # effective per-row temperature
     temp_override: float | None
     priority: int
@@ -265,23 +296,36 @@ class _Slot:
     prompt: np.ndarray | None = None  # THIS admission's unpadded prompt
     priority: int = 0
     deadline_s: float | None = None
+    temp_override: float | None = None  # the request's own temperature
     prefix: list = field(default_factory=list)  # tokens before admission
     padded_len: int = 0      # the admission rung this row prefilled at
     t_admit: float = 0.0     # host clock at admission / install
     t_dispatch: object = None  # the admission's open device window
 
 
-def _chunk_step(params, cache, pos, limit, tokens, *, cfg, chunk, eos_id):
-    """``chunk`` ragged greedy decode steps, all enqueued without a host
-    sync: rows advance while ``pos < limit``; an emitted ``eos_id``
-    (>= 0) pulls the row's limit to its current end. Returns
-    (pos, limit, tokens, out (chunk, B) int32); the cache is updated in
-    place."""
+def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
+                chunk, eos_id, greedy, top_k):
+    """``chunk`` ragged decode steps, all enqueued without a host sync:
+    rows advance while ``pos < limit``; an emitted ``eos_id`` (>= 0)
+    pulls the row's limit to its current end. ``greedy`` picks the
+    argmax; otherwise each row draws the token at ``pos + 1`` from its
+    own key (``keys`` (B, 2)) at its own temperature (``temps`` (B,)) —
+    the draw :func:`~hpc_patterns_tpu_torch.models.decode.paged_generate`
+    makes at that position, so nothing advances on an inactive step.
+    Returns (pos, limit, tokens, out (chunk, B) int32); the cache is
+    updated in place."""
+    if not greedy:
+        # the chunk's noise in one pass: step j of an active row draws at
+        # pos + 1 + j (an idle row's draw is discarded)
+        steps = torch.arange(1, chunk + 1, device=pos.device)[:, None]
+        noise = gumbel_noise(keys, pos[None].long() + steps, cfg.vocab)
     outs = []
-    for _ in range(chunk):
+    for j in range(chunk):
         active = pos < limit
         logits = paged_decode_step(params, cache, pos, tokens, cfg)
-        nxt = torch.where(active, _pick(logits), tokens)
+        pick = (_pick(logits) if greedy
+                else _pick(logits, temps, top_k, keys, pos + 1, noise[j]))
+        nxt = torch.where(active, pick, tokens)
         if eos_id >= 0:
             limit = torch.where(active & (nxt == eos_id),
                                 torch.minimum(limit, pos + 1), limit)
@@ -289,6 +333,24 @@ def _chunk_step(params, cache, pos, limit, tokens, *, cfg, chunk, eos_id):
         tokens = nxt
         outs.append(nxt)
     return pos, limit, tokens, torch.stack(outs)
+
+
+def _chunk_step_rows(params, cache, pos, limit, tokens, keys, temps, rows,
+                     pages: int, **kw):
+    """:func:`_chunk_step` over the listed ``rows`` and the first ``pages``
+    columns of their tables: every other row is idle (``pos >= limit``),
+    keeps its cursors and emits its current token, as in the full step,
+    and no listed row reaches a later page within the chunk. Returns what
+    ``_chunk_step`` returns, over all rows."""
+    idx = torch.tensor(rows, device=pos.device)
+    sub = dict(cache, table=cache["table"][idx, :pages])
+    p, lim, tok, o = _chunk_step(params, sub, pos[idx], limit[idx],
+                                 tokens[idx], keys[idx], temps[idx], **kw)
+    out = tokens.expand(o.shape[0], -1).clone()
+    out[:, idx] = o
+    pos, limit, tokens = pos.clone(), limit.clone(), tokens.clone()
+    pos[idx], limit[idx], tokens[idx] = p, lim, tok
+    return pos, limit, tokens, out
 
 
 def _install_pages(pool, idx, payload):
@@ -314,41 +376,48 @@ class EngineCore:
     (one trash page is appended). ``pages_per_seq``: table width.
     ``chunk``: decode steps per dispatch (admission granularity).
     ``prompt_buckets``: the prompt ladder (None = exact lengths).
-    ``slo``: ``{priority: harness.slo.SLOTarget}`` — each
-    :meth:`ContinuousBatcher.run` then leaves its attainment rollup in
-    ``last_slo``. ``device``: default ``cuda`` (raises without a GPU
-    unless ``device="cpu"``); params must live there."""
-
-    #: a greedy engine (the router checks replicas agree on these)
-    greedy = True
-    temperature = 0.0
-    top_k = 0
+    ``overlap``: dispatch the decode chunk BEFORE the round's admissions
+    (False: admit, then decode — the measurable baseline).
+    ``temperature``/``top_k``/``seed``: sampling (temperature <= 0 is
+    greedy); per-request ``temperature``/``key`` at :meth:`submit`.
+    ``preempt``: evict strictly lower classes when the most urgent
+    waiting request cannot get pages. ``admit_highwater``: the fraction
+    of the pool FRESH admissions may fill (1.0 = off; resumes and
+    migrations bypass it). ``slo``: ``{priority: harness.slo.
+    SLOTarget}`` — each :meth:`ContinuousBatcher.run` then leaves its
+    attainment rollup in ``last_slo``. ``emit``: a ``**record``
+    callable receiving the engine's records (None = silent).
+    ``device``: default ``cuda`` (raises without a GPU unless
+    ``device="cpu"``); params must live there."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int,
                  pool_pages: int, pages_per_seq: int, page_size: int,
                  chunk: int = 8, eos_id: int | None = None,
-                 prompt_buckets=None, device=None, slo=None,
-                 temperature: float = 0.0, top_k: int = 0,
-                 preempt: bool = False, admit_highwater: float = 1.0,
-                 residency=None, prefix_cache: bool = False,
-                 draft_params=None, mesh=None):
-        later = {"temperature > 0 (sampling)": temperature > 0.0,
-                 "top_k > 0 (sampling)": top_k > 0,
-                 "preempt": preempt,
-                 "admit_highwater < 1": admit_highwater < 1.0,
-                 "residency": residency is not None,
+                 prompt_buckets=None, device=None, slo=None, emit=None,
+                 overlap: bool = True, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0, preempt: bool = False,
+                 admit_highwater: float = 1.0, residency=None,
+                 prefix_cache: bool = False, draft_params=None, mesh=None):
+        later = {"residency": residency is not None,
                  "prefix_cache": prefix_cache,
                  "draft_params": draft_params is not None,
                  "mesh": mesh is not None}
         asked = [name for name, on in later.items() if on]
         if asked:
-            raise ValueError(
-                f"not ported yet (greedy core only): {', '.join(asked)}")
+            raise ValueError(f"not ported yet: {', '.join(asked)} (later "
+                             "slices: residency and the prefix cache with "
+                             "tiered memory, draft_params with speculative "
+                             "decoding, mesh with parallelism)")
         if cfg.n_experts:
             raise ValueError("continuous batching: dense models only")
         if slots < 1 or chunk < 1:
             raise ValueError(f"need slots >= 1 and chunk >= 1, got "
                              f"{slots}/{chunk}")
+        if not 0 <= top_k <= cfg.vocab:
+            raise ValueError(f"top_k {top_k} outside [0, vocab]")
+        if not 0.0 < admit_highwater <= 1.0:
+            raise ValueError(
+                f"admit_highwater must be in (0, 1], got {admit_highwater}")
         if prompt_buckets is not None:
             rungs = tuple(sorted({int(b) for b in prompt_buckets}))
             if not rungs or rungs[0] < 1:
@@ -369,6 +438,14 @@ class EngineCore:
         self.eos_id = -1 if eos_id is None else int(eos_id)
         self.prompt_buckets = prompt_buckets
         self.slo = slo
+        self.overlap = bool(overlap)
+        self.preempt = bool(preempt)
+        self.admit_highwater = float(admit_highwater)
+        #: the sampling mode (the router checks replicas agree on these)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.greedy = self.temperature <= 0.0
+        self.seed = int(seed)
         self.trash = pool_pages  # the appended trash page's id
         self.pool_pages = pool_pages
         self._table = np.full((slots, pages_per_seq), self.trash, np.int32)
@@ -381,6 +458,12 @@ class EngineCore:
         self.pos = torch.zeros((slots,), **z)
         self.limit = torch.zeros((slots,), **z)
         self.tokens = torch.zeros((slots,), **z)
+        #: per-row sampler keys (uint32 words in int64 lanes) and
+        #: temperatures; a greedy engine never reads or writes them
+        self.keys = torch.zeros((slots, 2), dtype=torch.int64,
+                                device=self.device)
+        self.temps = torch.ones((slots,), dtype=torch.float32,
+                                device=self.device)
         self._slots = [_Slot() for _ in range(slots)]
         self._pending: list[int] = []  # admitted, first token unread
         self._queue: list[Request] = []
@@ -388,7 +471,8 @@ class EngineCore:
         self._next_id = 0
         #: per-request outcome table (``harness/slo.py``'s input), keyed
         #: by seq_id: priority, t_submit, t_first, t_finish, tokens,
-        #: outcome ("ok" | "shed" | "migrated"), preemptions
+        #: outcome ("ok" | "shed" | "migrated"), preemptions, token_ts
+        #: (host instants each token became available)
         self.stats: dict[int, dict] = {}
         self.last_slo: dict | None = None  # attainment of the last run
         self._serve_s = 0.0  # cumulative run() wall time (goodput base)
@@ -399,13 +483,17 @@ class EngineCore:
         self.track_chunk_windows = False
         self.chunk_windows: deque = deque(maxlen=8192)
         #: ragged decode steps dispatched (``chunk`` per dispatch) and
-        #: admissions (one prefill each) — what kernel launch counts are
-        #: checked against
+        #: admissions (one prefill each, resumes included) — what kernel
+        #: launch counts are checked against
         self.decode_steps = 0
         self.admissions = 0
+        #: the distinct padded prefill lengths admitted (the shapes a JAX
+        #: engine compiles one prefill for; bounded by the ladder)
+        self.prefill_rungs: set[int] = set()
         #: admission host time with nothing in flight over the last
         #: run's wall time (the admission bubble)
         self.last_bubble_frac = 0.0
+        self._emit = emit or (lambda **kw: None)
 
     # -- admission ---------------------------------------------------------
 
@@ -429,28 +517,53 @@ class EngineCore:
                 or any(r.seq_id == sid for r in self._queue)
                 or any(s.active and s.seq_id == sid for s in self._slots))
 
+    def request_key(self, seq_id: int) -> np.ndarray:
+        """The sampler key (2,) uint32 a default (key=None) submit gets:
+        the standalone-reproduction handle. A sampled row's served
+        tokens equal ``paged_generate(prompt, budget,
+        key=request_key(sid), temperature=engine.temperature,
+        top_k=engine.top_k)``'s."""
+        return sample_key(self.seed, seq_id)
+
     def submit(self, prompt, max_new: int, seq_id: int | None = None, *,
                temperature: float | None = None, key=None,
                priority: int = 0, deadline_s: float | None = None,
                resume_prefix=None) -> int:
         """Enqueue a sequence; returns its id. Tokens appear in
-        ``finished[id]`` once served. ``priority``: lower = more
-        important. ``deadline_s``: shed the request (empty output,
-        outcome ``"shed"``) if still queued this long after submit.
-        ``resume_prefix``: tokens this request already emitted
-        elsewhere — ``prompt`` must then be the original prompt plus
-        those tokens, and the engine prepends them to the output.
-        ``temperature``/``key`` need a sampling engine (a later slice):
-        a greedy engine raises rather than ignore them."""
+        ``finished[id]`` once served. ``temperature``/``key``: per-row
+        sampling overrides (sampling engines only; ``key`` (2,) uint32
+        defaults to :meth:`request_key`). ``priority``: lower = more
+        important (with ``preempt=True`` it may evict numerically
+        higher classes under page pressure). ``deadline_s``: shed the
+        request (empty output, outcome ``"shed"``) if still queued this
+        long after submit. ``resume_prefix``: tokens this request
+        already emitted elsewhere — ``prompt`` must then be the original
+        prompt plus those tokens, and the engine prepends them to the
+        output."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError(f"prompt must be 1-D nonempty, {prompt.shape}")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
-        if key is not None or temperature is not None:
+        if key is not None and self.greedy:
             raise ValueError(
-                "per-request temperature/key need a sampling engine; a "
-                "greedy engine would silently ignore them")
+                "per-request key needs a sampling engine (construct with "
+                "temperature > 0); a greedy engine never reads keys and "
+                "would silently ignore it")
+        if temperature is not None:
+            if self.greedy:
+                raise ValueError(
+                    "per-request temperature needs a sampling engine "
+                    "(construct with temperature > 0); a greedy engine "
+                    "runs the argmax path only")
+            if temperature <= 0.0:
+                raise ValueError(f"per-request temperature must be > 0, "
+                                 f"got {temperature}")
+        if key is not None:
+            key = np.asarray(key, np.uint32).copy()
+            if key.shape != (2,):
+                raise ValueError(f"key must be (2,) uint32, got "
+                                 f"{key.shape}")
         padded = self._bucket_len(int(prompt.size))  # raises off-ladder
         need = self._pages_for(prompt.size, max_new)
         if need > min(self.pages_per_seq, self.pool_pages):
@@ -474,12 +587,14 @@ class EngineCore:
         self._next_id = max(self._next_id, sid) + 1
         now = time.perf_counter()
         self._queue.append(Request(prompt, max_new, sid, t_submit=now,
+                                   temperature=temperature, key=key,
                                    priority=int(priority),
                                    deadline_s=deadline_s,
                                    resume_prefix=resume_prefix))
         self.stats[sid] = {"priority": int(priority), "t_submit": now,
                            "t_first": None, "t_finish": None, "tokens": 0,
-                           "outcome": None, "preemptions": 0}
+                           "outcome": None, "preemptions": 0,
+                           "token_ts": []}
         rtr = reqtracelib.active()
         if rtr is not None:
             rtr.begin_request(sid, now)
@@ -519,6 +634,9 @@ class EngineCore:
             rtr = reqtracelib.active()
             if rtr is not None:
                 rtr.finish_request(req.seq_id, now, final="shed")
+            self._emit(kind="serve_shed", seq_id=req.seq_id,
+                       priority=req.priority, waited_s=now - req.t_submit,
+                       deadline_s=req.deadline_s)
             m = metricslib.get_metrics()
             if m.enabled:
                 m.counter("serve.shed").inc()
@@ -530,8 +648,10 @@ class EngineCore:
     def _try_admit(self, overlapped: bool = False) -> int:
         """One admission pass per round: shed, then walk the queue in
         :meth:`_queue_order`, admitting every request that fits (a large
-        request does not block a small one behind it). ``overlapped``:
-        a decode chunk is in flight. Returns the number admitted."""
+        request does not block a small one behind it; fresh admissions
+        stay under ``admit_highwater``, resumes bypass it).
+        ``overlapped``: a decode chunk is in flight. Returns the number
+        admitted."""
         self._shed_expired()
         # one pass-start stamp: every request seated this round closes
         # its queued segment here
@@ -544,7 +664,9 @@ class EngineCore:
             if free_slot is None:
                 break
             need = self._pages_for(req.prompt.size, req.max_new)
-            if need > len(self.free_pages):
+            # ONE admissibility definition: the policy _maybe_preempt
+            # predicts with must be the one applied here
+            if not self._admissible(need, fresh=req.resume_prefix is None):
                 continue
             # identity removal: Request holds an ndarray, so == is not
             # a usable comparison
@@ -590,7 +712,19 @@ class EngineCore:
                 self.params,
                 torch.from_numpy(prompt)[None, :].to(self.device),
                 self.cfg, one, self.page_size, last_pos=T - 1)
-        first = _pick(logits)[0]
+        if self.greedy:
+            first = _pick(logits)[0]
+        else:
+            # the row's key and temperature, then the draw at position
+            # T — paged_generate's first pick
+            key = (req.key if req.key is not None
+                   else self.request_key(req.seq_id))
+            temp = max(req.temperature if req.temperature is not None
+                       else self.temperature, 1e-6)
+            self.keys[slot] = _as_keys(key, 1, self.device)[0]
+            self.temps[slot] = temp
+            first = _pick(logits, self.temps[slot:slot + 1], self.top_k,
+                          self.keys[slot:slot + 1], T)[0]
         # budget b emits 1 token at admission + (limit - T) from chunks
         lim = torch.full((), T + req.max_new - 1, dtype=torch.int32,
                          device=self.device)
@@ -604,7 +738,7 @@ class EngineCore:
             seq_id=req.seq_id, pages=pages, prompt_len=T,
             budget=req.max_new, active=True, t_submit=req.t_submit,
             first_dev=first, prompt=req.prompt, priority=req.priority,
-            deadline_s=req.deadline_s,
+            deadline_s=req.deadline_s, temp_override=req.temperature,
             prefix=([] if req.resume_prefix is None
                     else [int(t) for t in req.resume_prefix]),
             padded_len=padded, t_admit=time.perf_counter())
@@ -618,6 +752,14 @@ class EngineCore:
                 track=slot + 1, window=window)
         self._pending.append(slot)
         self.admissions += 1
+        self.prefill_rungs.add(padded)
+        self._emit(kind="serve_admit", seq_id=req.seq_id, slot=slot,
+                   pages=need, prompt_len=T, padded_len=padded,
+                   budget=req.max_new, overlapped=overlapped,
+                   free_pages=len(self.free_pages),
+                   queued=len(self._queue), priority=req.priority,
+                   resumed=req.resume_prefix is not None,
+                   matched_tokens=0, shared_pages=0)
         m = metricslib.get_metrics()
         if m.enabled:
             m.gauge("serve.queue_depth").set(len(self._queue))
@@ -657,6 +799,10 @@ class EngineCore:
             rec = self.stats.get(st.seq_id)
             if rec is not None and rec["t_first"] is None:
                 rec["t_first"] = now
+            if rec is not None:
+                # first-token availability (a resume stamps only its new
+                # token: the prefix's stamps rode the earlier life)
+                rec.setdefault("token_ts", []).append(now)
             rtr = reqtracelib.active()
             if rtr is not None:
                 rtr.stamp_transition(st.seq_id, "decode", now)
@@ -688,6 +834,8 @@ class EngineCore:
     def _finish(self, slot: int):
         st = self._slots[slot]
         self.finished[st.seq_id] = np.asarray(st.out, np.int32)
+        self._emit(kind="serve_finish", seq_id=st.seq_id, slot=slot,
+                   tokens=len(st.out), pages_freed=len(st.pages))
         now = time.perf_counter()
         rec = self.stats.get(st.seq_id)
         if rec is not None:
@@ -711,6 +859,134 @@ class EngineCore:
                 len(self.free_pages) + len(st.pages))
         self._release_slot(slot)
 
+    # -- preemption --------------------------------------------------------
+
+    def _admissible(self, need: int, fresh: bool) -> bool:
+        """Would a request needing ``need`` pages admit right now? A free
+        slot, the pages, and for a FRESH request the high-water mark —
+        the checks :meth:`_try_admit` applies and :meth:`_maybe_preempt`
+        predicts with."""
+        if all(s.active for s in self._slots):
+            return False
+        if need > len(self.free_pages):
+            return False
+        if fresh:
+            used = self.pool_pages - len(self.free_pages)
+            if used + need > self.admit_highwater * self.pool_pages:
+                return False
+        return True
+
+    def _row_freeable_pages(self, slot: int) -> int:
+        """Pages an eviction of this row would free (every page of a
+        private-pages engine; the prefix cache's shared pages would not
+        count)."""
+        return len(self._slots[slot].pages)
+
+    def _can_resume(self, slot: int) -> bool:
+        """Is this active row safely evictable? Its resume request
+        (prompt = this admission's prompt + the tokens generated since)
+        must fit the ladder, the table width and the arena — a victim
+        that could never re-admit must not be evicted."""
+        st = self._slots[slot]
+        if not st.active or slot in self._pending or st.prompt is None:
+            return False
+        emitted = len(st.out) - len(st.prefix)
+        remaining = st.budget - emitted
+        if remaining < 1:
+            return False  # about to finish; nothing left to resume
+        resumed_len = int(st.prompt.size) + emitted
+        if self.prompt_buckets is not None \
+                and resumed_len > max(self.prompt_buckets):
+            return False
+        pages = self._pages_for(resumed_len, remaining)
+        return pages <= min(self.pages_per_seq, self.pool_pages)
+
+    def _maybe_preempt(self):
+        """Preemption policy, decision half (at a chunk boundary, nothing
+        in flight): when the head of the admission order cannot be
+        admitted for lack of pages, evict strictly-lower-priority victims
+        — lowest class first, most recently admitted first within a class
+        (least sunk latency) — until it fits or no eligible victim
+        remains. Only the head is served per round (it stays the head
+        until admitted, so nothing starves)."""
+        # shed first: an expired request must not evict a victim only to
+        # be dropped by the admission pass right after
+        self._shed_expired()
+        if not self._queue:
+            return
+        req = self._queue[self._queue_order()[0]]
+        need = self._pages_for(req.prompt.size, req.max_new)
+        fresh = req.resume_prefix is None
+        if self._admissible(need, fresh):
+            return  # ordinary admission takes it this round
+        victims = [
+            v for v in sorted(
+                (i for i, s in enumerate(self._slots)
+                 if s.active and s.priority > req.priority),
+                key=lambda i: (-self._slots[i].priority,
+                               -self._slots[i].t_admit))
+            if self._can_resume(v)]
+        # feasibility BEFORE the first eviction: would evicting EVERY
+        # eligible victim admit the head? Pages held by non-victim rows
+        # still count toward the fresh high-water cap, so a head they
+        # keep over the mark must not trigger evictions — the victim's
+        # resume bypasses the mark and re-admits the same round, and the
+        # next round would evict it again: an evict/re-prefill thrash
+        # loop while the head stays stuck regardless
+        freeable = sum(self._row_freeable_pages(v) for v in victims)
+        if need > len(self.free_pages) + freeable:
+            return
+        if fresh:
+            used_after = self.pool_pages - len(self.free_pages) - freeable
+            if used_after + need > self.admit_highwater * self.pool_pages:
+                return
+        for v in victims:
+            if self._admissible(need, fresh):
+                break
+            self._preempt(v, for_sid=req.seq_id)
+
+    def _preempt(self, slot: int, for_sid: int | None = None):
+        """Evict one active row: its generated tokens and (sampled) its
+        key go to the host, its pages back to the arena, and it re-queues
+        as a RESUME whose prompt is this admission's prompt + the tokens
+        generated since. The resume's prefill rebuilds exactly the
+        uninterrupted cache (causality), and its draws are keyed by
+        position, so its remaining tokens equal an uninterrupted run's.
+        A deliberate sync point at a chunk boundary; ``tolist`` copies
+        (a host view of ``keys`` would change under a later in-place
+        admission write)."""
+        st = self._slots[slot]
+        new = st.out[len(st.prefix):]
+        remaining = st.budget - len(new)
+        key = (None if self.greedy else
+               np.asarray(self.keys[slot].tolist(), np.uint32))
+        prompt = (np.concatenate([st.prompt, np.asarray(new, np.int32)])
+                  if new else st.prompt)
+        req = Request(prompt, remaining, st.seq_id, t_submit=st.t_submit,
+                      temperature=st.temp_override, key=key,
+                      priority=st.priority, deadline_s=st.deadline_s,
+                      resume_prefix=np.asarray(st.out, np.int32))
+        rec = self.stats.get(st.seq_id)
+        if rec is not None:
+            rec["preemptions"] += 1
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # decode closes; preempted spans the wait for re-admission
+            rtr.stamp_transition(st.seq_id, "preempted")
+        self._emit(kind="serve_preempt", seq_id=st.seq_id, slot=slot,
+                   tokens_done=len(st.out), remaining=remaining,
+                   pages_freed=len(st.pages), priority=st.priority,
+                   for_seq_id=for_sid)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("serve.preempted").inc()
+            m.gauge("serve.free_pages").set(
+                len(self.free_pages) + self._row_freeable_pages(slot))
+        self._release_slot(slot)
+        self._queue.append(req)
+        if m.enabled:
+            m.gauge("serve.queue_depth").set(len(self._queue))
+
     # -- the loop ----------------------------------------------------------
 
     def _dispatch_chunk(self):
@@ -724,9 +1000,23 @@ class EngineCore:
         with metricslib.span("serve.decode_dispatch", chunk=self.chunk), \
                 tracelib.compile_watch("serving._chunk_step",
                                        chunk=self.chunk):
-            self.pos, self.limit, self.tokens, out = _chunk_step(
-                self.params, self.cache, self.pos, self.limit, self.tokens,
-                cfg=self.cfg, chunk=self.chunk, eos_id=self.eos_id)
+            kw = dict(cfg=self.cfg, chunk=self.chunk, eos_id=self.eos_id,
+                      greedy=self.greedy, top_k=self.top_k)
+            state = (self.params, self.cache, self.pos, self.limit,
+                     self.tokens, self.keys, self.temps)
+            # on the CPU a step's cost grows with its rows and pages, so
+            # the idle rows and the pages no row reaches in this chunk
+            # are left out (as the kernel's chunks past a fill exit); on
+            # the card the step is bound by its launches and keeps its
+            # fixed shape
+            if self.device.type == "cpu":
+                reach = int(pos_start[parts].max()) + self.chunk - 1
+                self.pos, self.limit, self.tokens, out = _chunk_step_rows(
+                    *state, parts, min(self.pages_per_seq,
+                                       reach // self.page_size + 1), **kw)
+            else:
+                self.pos, self.limit, self.tokens, out = _chunk_step(
+                    *state, **kw)
         self.decode_steps += self.chunk
         t_disp = (rec.mark_dispatch(
             "serve.chunk", {"chunk": self.chunk, "rows": len(parts)},
@@ -743,20 +1033,28 @@ class EngineCore:
             rec.mark_complete("serve.chunk", t_disp,
                               {"chunk": self.chunk, "rows": len(parts)})
         limit_new = self.limit.cpu().numpy()
+        # the chunk's tokens all became host-visible at this readback:
+        # one shared availability instant
+        now = time.perf_counter()
         for i in parts:
             st = self._slots[i]
             if not st.active:
                 continue
             valid = int(np.clip(limit_new[i] - pos_start[i], 0, self.chunk))
             st.out.extend(int(t) for t in out[:valid, i])
+            rec_s = self.stats.get(st.seq_id)
+            if rec_s is not None and valid:
+                rec_s.setdefault("token_ts", []).extend([now] * valid)
             if pos_start[i] + valid >= limit_new[i]:
                 self._finish(i)
 
-    def service_round(self, *, decode: bool = True,
+    def service_round(self, *, decode: bool = True, chaos_index=None,
                       pre_collect=None) -> dict:
-        """ONE scheduler round: dispatch the decode chunk for the rows
-        already running, admit behind it, read back first tokens, then
-        collect the chunk.
+        """ONE scheduler round: the chaos probe (``chaos_index``: this
+        round's index at the ``engine_round`` site), the preemption
+        policy, the decode chunk for the rows already running (first,
+        with ``overlap``), admissions behind it, first-token readbacks,
+        then the chunk's collection.
 
         ``decode=False`` is the prefill-role round: admissions run but no
         decode chunk is dispatched; admitted rows park at their first
@@ -767,10 +1065,14 @@ class EngineCore:
         the chunk. Returns ``{"admitted", "exposed_s" (admission host
         time with nothing in flight), "stalled" (requests wait, nothing
         admitted, nothing runs), "active"}``."""
+        if chaos_index is not None and chaoslib.active() is not None:
+            chaoslib.maybe_inject("engine_round", chaos_index)
+        if self.preempt:
+            self._maybe_preempt()
         active = lambda: any(s.active for s in self._slots)  # noqa: E731
         inflight = None
         t_chunk0 = 0.0
-        if decode and active():
+        if decode and self.overlap and active():
             inflight = self._dispatch_chunk()
             t_chunk0 = time.perf_counter()
         t0 = time.perf_counter()
@@ -855,6 +1157,11 @@ class EngineCore:
             raise ValueError(f"slot {slot} has no exportable row")
         pos, limit, token = torch.stack(
             [self.pos[slot], self.limit[slot], self.tokens[slot]]).tolist()
+        if self.greedy:
+            key, temp = np.zeros(2, np.uint32), 0.0
+        else:
+            key = np.asarray(self.keys[slot].tolist(), np.uint32)
+            temp = float(self.temps[slot])
         idx = torch.tensor(st.pages, dtype=torch.long, device=self.device)
         payload = {name: tuple(raw(pool)[idx].view(pool.dtype)
                                for pool in pools)
@@ -863,8 +1170,8 @@ class EngineCore:
         bundle = MigrationBundle(
             seq_id=st.seq_id, prompt=st.prompt, out=list(st.out),
             prefix=list(st.prefix), budget=st.budget, pos=pos,
-            limit=limit, token=token, key=np.zeros(2, np.uint32),
-            temp=0.0, temp_override=None, priority=st.priority,
+            limit=limit, token=token, key=key, temp=temp,
+            temp_override=st.temp_override, priority=st.priority,
             deadline_s=st.deadline_s, t_submit=st.t_submit,
             t_first=rec.get("t_first"),
             preemptions=int(rec.get("preemptions") or 0),
@@ -888,6 +1195,9 @@ class EngineCore:
             # decode closes into an open `migrating` segment; the copy
             # rides the bundle so the installer closes it on its side
             bundle.segments = rtr.export_history(bundle.seq_id)
+        self._emit(kind="serve_migrate_out", seq_id=bundle.seq_id,
+                   slot=slot, pages=bundle.n_pages,
+                   tokens_done=len(bundle.out))
         m = metricslib.get_metrics()
         if m.enabled:
             m.counter("serve.migrated_out").inc()
@@ -921,6 +1231,9 @@ class EngineCore:
             raise ValueError(
                 f"seq_id {bundle.seq_id} already known to this engine")
         slot = self._attach_row(bundle)
+        self._emit(kind="serve_migrate_in", seq_id=bundle.seq_id,
+                   slot=slot, pages=bundle.n_pages, seq=bundle.seq,
+                   tokens_done=len(bundle.out))
         m = metricslib.get_metrics()
         if m.enabled:
             m.counter("serve.migrated_in").inc()
@@ -942,17 +1255,26 @@ class EngineCore:
         self.pos[slot] = int(bundle.pos)
         self.limit[slot] = int(bundle.limit)
         self.tokens[slot] = int(bundle.token)
+        if not self.greedy:
+            self.keys[slot] = _as_keys(bundle.key, 1, self.device)[0]
+            self.temps[slot] = float(bundle.temp)
         self._slots[slot] = _Slot(
             seq_id=bundle.seq_id, pages=pages, prompt_len=int(prompt.size),
             budget=bundle.budget, out=list(bundle.out), active=True,
             t_submit=bundle.t_submit, prompt=prompt,
             priority=bundle.priority, deadline_s=bundle.deadline_s,
+            temp_override=bundle.temp_override,
             prefix=list(bundle.prefix), padded_len=int(bundle.rung),
             t_admit=time.perf_counter())
+        prior = self.stats.get(bundle.seq_id)
         self.stats[bundle.seq_id] = {
             "priority": bundle.priority, "t_submit": bundle.t_submit,
             "t_first": bundle.t_first, "t_finish": None, "tokens": 0,
-            "outcome": None, "preemptions": bundle.preemptions}
+            "outcome": None, "preemptions": bundle.preemptions,
+            # a migration install starts empty: the donor's stamps are
+            # its own host clock, not wire state
+            "token_ts": (list(prior.get("token_ts") or [])
+                         if prior is not None else [])}
         rtr = reqtracelib.active()
         if rtr is not None:
             # adopt the carried history (a local one wins) and open decode
@@ -977,11 +1299,17 @@ class ContinuousBatcher(EngineCore):
         instant (the wait the user saw, not when the loop got to it). The
         loop idles in bounded sleeps while nothing is servable. A bounded
         run never waits for a future arrival (undelivered arrivals are
-        dropped: pass them to the continuing call)."""
+        dropped: pass them to the continuing call); it parks at a chunk
+        boundary, and a later ``run()`` continues.
+
+        Each round probes the chaos ``engine_round`` site at its index
+        (when a chaos spec is active), then runs the preemption policy
+        (``preempt``) with nothing in flight, then the ordinary round."""
         t_run0 = time.perf_counter()
         t_exposed = 0.0
         pending = (deque(sorted(arrivals, key=lambda a: a[0]))
                    if arrivals else None)
+        chaos_on = chaoslib.active() is not None
         rounds = 0
         while True:
             while pending and pending[0][0] <= time.perf_counter() - t_run0:
@@ -1001,13 +1329,14 @@ class ContinuousBatcher(EngineCore):
             if max_rounds is not None and rounds >= max_rounds:
                 break
             rounds += 1
-            r = self.service_round()
+            r = self.service_round(
+                chaos_index=rounds - 1 if chaos_on else None)
             t_exposed += r["exposed_s"]
             if r["stalled"]:
                 raise RuntimeError(
                     "serving deadlock: waiting requests but no admissible "
                     "slot/pages (pool too small for the smallest waiting "
-                    "request)")
+                    "request, or admit_highwater leaves it no headroom)")
         total = time.perf_counter() - t_run0
         self.last_bubble_frac = t_exposed / total if total > 0 else 0.0
         self._serve_s += total

@@ -44,11 +44,22 @@ clock); ``dma_migration_overlap_frac`` the same over ``dma`` bundles
 only (None when none rode it); ``migration_bytes_per_round``: payload
 bytes per plane round, transport-invariant.
 
+Chaos (``harness/chaos.py``): each live replica probes the
+``replica_round`` site once per plane round at its own round counter and
+ordinal (``die:replica=N,site=replica_round``). A stall sleeps; a death
+marks the replica dead (every replica shares this process, so nothing is
+killed) and this fixed plane SHEDS everything it held — active rows,
+queued requests, bundles in flight toward it — each counted in the SLO
+table and ``shed_on_death``; later arrivals no survivor can place are
+shed too. ``deaths`` lists the dead replicas' names.
+
 Observability, at the JAX router's sites: ``emit=`` receives the
-``plane_route``, ``plane_transport_fallback``, ``plane_migrate`` and
-(with ``slo``) per-round ``plane_attainment`` records (a RunLog's
-``emit`` fits); the metrics registry gets the ``plane.routed``,
-``plane.migrations`` and ``plane.transport_fallbacks`` counters, per
+``plane_route``, ``plane_transport_fallback``, ``plane_migrate``,
+``plane_replica_death``, ``plane_shed`` and (with ``slo``) per-round
+``plane_attainment`` records (a RunLog's ``emit`` fits); the metrics
+registry gets the ``plane.routed``, ``plane.migrations``,
+``plane.transport_fallbacks``, ``plane.replica_deaths`` and
+``plane.shed`` counters, per
 replica queue-depth and free-page gauges each round, the sliding-window
 attainment gauges and the end-of-run overlap, bytes and goodput gauges;
 with a flight recorder each migration is a ``plane.kv_migration`` device
@@ -58,8 +69,8 @@ transport as its algorithm); reqtrace tags each request's open
 ``migrating`` segment with the migration's ``seq``.
 
 Later slices, which raise ``ValueError`` when asked for:
-``from_fitted`` (autofit), chaos and replica-death recovery, and the
-autoscaler.
+``from_fitted`` (autofit) and the autoscaled elastic plane (its
+checkpoint-resume recovery of a dead replica's work).
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ import numpy as np
 import torch
 
 from hpc_patterns_tpu_torch.comm import migration_dma
+from hpc_patterns_tpu_torch.harness import chaos as chaoslib
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo as slolib
@@ -116,8 +128,14 @@ class Replica:
         self.role = role
         self.device = device
         self.name = name or role
+        self.alive = True
         #: bundles transferred toward this replica, awaiting install
         self.pending_migrations: list = []
+        #: plane-assigned ordinal: the identity ``die:replica=N`` chaos
+        #: addresses
+        self.index = -1
+        #: replica-local round counter: the ``replica_round`` site's index
+        self.rounds = 0
 
     @property
     def can_prefill(self) -> bool:
@@ -131,7 +149,8 @@ class Replica:
 def _eligible(plane: "ServingPlane", prompt_len: int,
               max_new: int) -> list[Replica]:
     return [r for r in plane.replicas
-            if r.can_prefill and r.engine.would_fit(prompt_len, max_new)]
+            if r.alive and r.can_prefill
+            and r.engine.would_fit(prompt_len, max_new)]
 
 
 def _least_loaded(plane, prompt_len, max_new):
@@ -221,7 +240,8 @@ class ServingPlane:
                 raise ValueError("disaggregated plane has no "
                                  "decode-capable replica")
         self._validate_engines()
-        for r in self.replicas:
+        for i, r in enumerate(self.replicas):
+            r.index = i
             if r.can_decode:  # the overlap fraction reads their chunks
                 r.engine.track_chunk_windows = True
         self.slo = slo
@@ -256,6 +276,10 @@ class ServingPlane:
         self.attain_window = slolib.AttainmentWindow()
         self._plane_rounds = 0
         self._attain_emitted = (0, 0)  # (judged, attained) last round
+        #: replicas lost to chaos (by name, death order)
+        self.deaths: list[str] = []
+        #: requests shed BECAUSE their replica died
+        self.shed_on_death = 0
 
     @classmethod
     def from_fitted(cls, replicas, fitted, **kw):
@@ -265,7 +289,9 @@ class ServingPlane:
 
     def _validate_engines(self) -> None:
         """Replicas must agree on what a request's tokens depend on
-        (sampling mode, eos), and for a plane that migrates on the model
+        (sampling mode, eos, and a sampling plane's seed, from which
+        every replica derives the same ``request_key(sid)``), and for a
+        plane that migrates on the model
         config and page size, or routing would change outputs."""
         e0 = self.replicas[0].engine
         for r in self.replicas[1:]:
@@ -276,6 +302,10 @@ class ServingPlane:
                         f"replica {r.name!r} disagrees on {attr}: "
                         f"{getattr(e, attr)} vs {getattr(e0, attr)} — "
                         "routing would change outputs")
+            if not e0.greedy and e.seed != e0.seed:
+                raise ValueError(
+                    f"replica {r.name!r} was built with a different seed: "
+                    "request_key(sid) would differ by placement")
         if self.disaggregated:
             for r in self.replicas:
                 e = r.engine
@@ -303,7 +333,7 @@ class ServingPlane:
             # the row will LEAVE by migration: a decode replica must be
             # able to hold its pages, or it would park forever
             need = target.engine._pages_for(int(prompt.size), int(max_new))
-            if not any(r.can_decode
+            if not any(r.alive and r.can_decode
                        and need <= min(r.engine.pages_per_seq,
                                        r.engine.pool_pages)
                        for r in self.replicas):
@@ -343,7 +373,7 @@ class ServingPlane:
         flight toward it. Least-loaded first."""
         cand = []
         for r in self.replicas:
-            if not r.can_decode or r is src:
+            if not r.alive or not r.can_decode or r is src:
                 continue
             e = r.engine
             if e.slots - e.active_count - len(r.pending_migrations) < 1:
@@ -537,12 +567,17 @@ class ServingPlane:
             ps["outcome"] = es.get("outcome") or "ok"
             ps["preemptions"] = int(es.get("preemptions") or 0)
             ps["replica"] = r.name
-            if self.slo is not None:
-                self.attain_window.judge(
-                    ps, self.slo.get(int(ps.get("priority") or 0),
-                                     slolib.SLOTarget()))
+            self._judge_window(ps)
             n += 1
         return n
+
+    def _judge_window(self, ps: dict) -> None:
+        """Fold one resolved stats row (served or shed) into the sliding
+        attainment window, at resolution time."""
+        if self.slo is not None:
+            self.attain_window.judge(
+                ps, self.slo.get(int(ps.get("priority") or 0),
+                                 slolib.SLOTarget()))
 
     def _emit_attainment(self) -> None:
         """The per-round sliding-window attainment: one number as a
@@ -588,6 +623,84 @@ class ServingPlane:
             m.gauge(f"plane.{r.name}.free_pages").set(
                 r.engine.free_page_count)
 
+    # -- replica chaos and death -------------------------------------------
+
+    def _probe_replica_chaos(self, r: Replica) -> bool:
+        """The ``replica_round`` chaos site, probed once per live replica
+        per plane round at its round counter and ordinal. Executed here,
+        not by ``maybe_inject``: every replica shares this process, so a
+        ``die`` marks one replica dead (:meth:`_kill_replica`) instead of
+        killing the plane; a stall sleeps its delay. True when it
+        died."""
+        for f in chaoslib.matching("replica_round", r.rounds, r.index):
+            if f.kind == "die":
+                chaoslib.record_injection("replica_round", r.rounds, "die",
+                                          rank=r.index)
+                self._kill_replica(r)
+                return True
+            delay = f.delay_at("replica_round", r.rounds)
+            chaoslib.record_injection("replica_round", r.rounds, f.kind,
+                                      rank=r.index, delay_s=delay)
+            if delay > 0.0:
+                time.sleep(delay)
+        return False
+
+    def _kill_replica(self, r: Replica) -> None:
+        """An involuntary replica loss: the plane never touches its engine
+        again, and everything it held — active rows, queued requests,
+        bundles parked toward it — goes to :meth:`_recover_casualties`."""
+        if not r.alive:
+            return
+        r.alive = False
+        self.deaths.append(r.name)
+        active = [s.seq_id for s in r.engine._slots if s.active]
+        queued = [req.seq_id for req in r.engine._queue]
+        bundles = list(r.pending_migrations)
+        r.pending_migrations.clear()
+        for b in bundles:
+            # the handoff died with its destination: its window never
+            # completes
+            self._mig_open.pop(b.seq, None)
+        self._emit(kind="plane_replica_death", replica=r.name,
+                   active=len(active), queued=len(queued),
+                   bundles=len(bundles))
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("plane.replica_deaths").inc()
+        self._recover_casualties(r, active, queued, bundles)
+
+    def _recover_casualties(self, r: Replica, active_sids, queued_sids,
+                            bundles) -> None:
+        """The fixed plane's recovery: SHED every casualty, counted (the
+        elastic plane's checkpoint resume is a later slice)."""
+        for sid in [*active_sids, *queued_sids,
+                    *(b.seq_id for b in bundles)]:
+            self._shed_request(sid, on_death=True)
+
+    def _shed_request(self, sid: int, *, on_death: bool = False) -> None:
+        """Close one request as shed on the plane's side: empty output,
+        outcome ``"shed"``, judged by the attainment window."""
+        ps = self.stats.get(sid)
+        if ps is None or ps.get("outcome") is not None:
+            return
+        ps["outcome"] = "shed"
+        ps["t_finish"] = time.perf_counter()
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # the request may never have reached an engine's recorder:
+            # open its queued span so the shed life still tiles
+            if rtr.segments(sid) is None:
+                rtr.begin_request(sid, ps["t_submit"])
+            rtr.finish_request(sid, ps["t_finish"], final="shed")
+        self._judge_window(ps)  # a shed never attains: it counts
+        self.finished[sid] = np.zeros((0,), np.int32)
+        if on_death:
+            self.shed_on_death += 1
+        self._emit(kind="plane_shed", seq_id=sid, on_death=on_death)
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("plane.shed").inc()
+
     # -- the plane loop ----------------------------------------------------
 
     def _round_order(self) -> list[Replica]:
@@ -597,7 +710,7 @@ class ServingPlane:
                 + [r for r in self.replicas if r.role != "prefill"])
 
     def _has_work(self) -> bool:
-        return any(r.engine.has_work() or r.pending_migrations
+        return any(r.alive and (r.engine.has_work() or r.pending_migrations)
                    for r in self.replicas)
 
     def _replica_round(self, r: Replica) -> bool:
@@ -628,7 +741,22 @@ class ServingPlane:
         while True:
             while pending and pending[0][0] <= time.perf_counter() - t_run0:
                 t_arr, kw = pending.popleft()
-                rid = self.submit(**kw)
+                try:
+                    rid = self.submit(**kw)
+                except ValueError:
+                    if not self.deaths:
+                        raise  # a config error, not degradation
+                    # an arrival no surviving replica can place: the
+                    # degraded plane sheds it, counted
+                    rid = self._next_rid
+                    self._next_rid += 1
+                    self.stats[rid] = {
+                        "priority": int(kw.get("priority", 0)),
+                        "t_submit": t_run0 + t_arr, "t_first": None,
+                        "t_finish": None, "tokens": 0, "outcome": None,
+                        "preemptions": 0, "replica": None}
+                    self._shed_request(rid, on_death=True)
+                    continue
                 # the schedule's instant, end to end: the plane row, the
                 # replica's queue entry and its stats row
                 t_abs = t_run0 + t_arr
@@ -650,14 +778,21 @@ class ServingPlane:
             rounds += 1
             self.rounds_total += 1
             progressed = False
+            chaos_on = chaoslib.active() is not None
             for r in self._round_order():
+                if not r.alive:
+                    continue
+                if chaos_on and self._probe_replica_chaos(r):
+                    progressed = True  # the death recovery moved work
+                    continue
                 progressed |= self._replica_round(r)
+                r.rounds += 1
                 progressed |= self._collect_finished(r) > 0
             self._update_gauges()
             self._emit_attainment()
             if not progressed and not pending:
                 queued = {r.name: r.engine.queue_depth
-                          for r in self.replicas}
+                          for r in self.replicas if r.alive}
                 raise RuntimeError(
                     f"serving-plane deadlock: work remains but no replica "
                     f"can make progress (queues {queued}, pending "

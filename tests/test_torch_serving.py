@@ -146,9 +146,8 @@ def test_sizing_helpers_equal_jax(max_len):
 
 
 @pytest.mark.parametrize("kw", [
-    {"temperature": 0.7}, {"preempt": True}, {"residency": object()},
-    {"prefix_cache": True}, {"draft_params": {}}, {"mesh": object()},
-    {"admit_highwater": 0.9},
+    {"residency": object()}, {"prefix_cache": True}, {"draft_params": {}},
+    {"mesh": object()},
 ])
 def test_later_slice_options_raise(model, kw):
     _, tcfg, _, tp = model
@@ -156,6 +155,38 @@ def test_later_slice_options_raise(model, kw):
         tsrv.ContinuousBatcher(tp, tcfg, slots=1, pool_pages=4,
                                pages_per_seq=4, page_size=P,
                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"temperature": 0.7}, {"preempt": True}, {"admit_highwater": 0.9},
+])
+def test_former_later_slice_options_serve(model, kw):
+    # sampling, preemption and the high-water mark: each constructs and
+    # serves every request, equal to the standalone under the same
+    # options (the sampled one with each request's key)
+    _, tcfg, _, tp = model
+    reqs = _requests(seed=7)
+    buckets = tsrv.bucket_ladder(48)
+    pps = tsrv.EngineCore.pages_needed(40, 20, P, padded_len=48)
+    eng = tsrv.ContinuousBatcher(tp, tcfg, slots=3, pool_pages=3 * pps,
+                                 pages_per_seq=pps, page_size=P, chunk=4,
+                                 prompt_buckets=buckets, device="cpu", **kw)
+    ids = [eng.submit(p, b, priority=i % 2) for i, (p, b) in
+           enumerate(reqs)]
+    got = eng.run()
+    sampled = {"key": None, "temperature": kw.get("temperature", 0.0)}
+    for sid, (p, b) in zip(ids, reqs):
+        if sampled["temperature"]:
+            sampled["key"] = eng.request_key(sid)
+        want = paged_generate(tp, torch.from_numpy(p)[None], tcfg, b,
+                              page_size=P, device="cpu",
+                              **sampled)[0].numpy()
+        np.testing.assert_array_equal(got[sid], want)
+    assert eng.free_page_count == eng.pool_pages
+    with pytest.raises(ValueError, match="admit_highwater"):
+        tsrv.ContinuousBatcher(tp, tcfg, slots=1, pool_pages=4,
+                               pages_per_seq=4, page_size=P, device="cpu",
+                               admit_highwater=0.0)
 
 
 def test_submit_rejects_oversize_and_duplicates(model):
@@ -196,3 +227,38 @@ def test_serve_app_cpu_succeeds(capsys):
     out = capsys.readouterr().out
     assert rc == 0 and out.strip().endswith("SUCCESS"), out
     assert "mismatch 0" in out and "pages leaked 0" in out
+
+
+def test_serve_app_serves_a_train_app_checkpoint(tmp_path, capsys):
+    from hpc_patterns_tpu_torch.apps import train_app
+
+    ck = str(tmp_path / "ck")
+    dims = ["--d-model", "32", "--n-layers", "2", "--n-heads", "4",
+            "--vocab", "128"]
+    assert train_app.main(["--device", "cpu", "--batch", "2", "--seq", "32",
+                           "--steps", "1", "--checkpoint-dir", ck,
+                           *dims]) == 0
+    capsys.readouterr()
+    rc = serve_app.main(["--device", "cpu", "--dtype", "float32",
+                         "--checkpoint-dir", ck, "--requests", "3",
+                         "--prompt-mix", "--no-overlap", "--eos-id", "7",
+                         "--prompt-buckets", "none", "--pool-pages", "9",
+                         *dims])
+    out = capsys.readouterr().out
+    assert rc == 0 and "restored step 1" in out, out
+    assert out.strip().endswith("SUCCESS") and "mismatch 0" in out
+    assert serve_app.main(["--device", "cpu", "--checkpoint-dir",
+                           str(tmp_path / "nothing")]) == 1
+
+
+@pytest.mark.parametrize("flag,names", [
+    (["--draft-pair", "pair"], "speculative"),
+    (["--gamma", "2"], "speculative"),
+    (["--autofit", "fit.json"], "item 2"),
+    (["--explain"], "item 2"),
+])
+def test_serve_app_later_flags_name_their_slice(capsys, flag, names):
+    assert serve_app.main(["--device", "cpu", *flag]) == 1
+    out = capsys.readouterr().out
+    assert "not ported yet" in out and names in out
+    assert out.strip().endswith("FAILURE")

@@ -589,8 +589,10 @@ def test_bench_plane_row_cpu():
     assert res["migrations"] > 0 and res["placement_shares_host"]
     assert res["expected_padding_fit"] <= res["expected_padding_default"]
     assert res["dma_migration_overlap_frac"] is not None
-    for leg in ("single", "plane", "disagg"):
+    for leg in ("single", "plane", "disagg", "sampled"):
         assert res["oracle"][leg]["mismatch"] == 0
+    assert res["sampled_migration_transports"] == {
+        "dma": res["sampled_migrations"]} and res["sampled_migrations"] > 0
     assert {"t_single", "t_plane", "t_disagg", "plane_goodput_tok_s",
             "kv_migration_overlap_frac", "migration_bytes_per_round",
             "ladder_fit", "schedule"} <= set(res)
@@ -603,4 +605,5 @@ def test_bench_cli_cpu(capsys):
     res = json.loads(out.strip().splitlines()[-1])
     assert res["migration_transports"] == {"wire": res["migrations"]}
     with pytest.raises(SystemExit):
-        bench_serving.main(["--device", "cpu"])  # only --plane is ported
+        # a row that waits for its slice (tiered memory)
+        bench_serving.main(["--offload", "--device", "cpu"])
