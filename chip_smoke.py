@@ -76,6 +76,27 @@ Phases, each printing JSON lines:
               standalone; the timed run's kernel 1 and 6 launches against
               its counted calls; tokens/s, goodput, preemptions, sheds and
               the static baseline printed;
+3c. spec    — speculative decoding at the card widths: (a) the aligned
+              pair (``make_draft_pair`` at its card widths: vocab 32768,
+              d_model 1024, 8 heads with 2 KV heads, d_ff 4096, bf16,
+              rope; 8 target and 2 draft layers; 200 / 200 steps), which
+              must beat a random draft's greedy agreement and E[min(p,
+              q)] by > 0.05 each; (b) ``serve_app --draft-pair --gamma
+              4`` at the serve phase's geometry and stream (SUCCESS), then
+              the engine on 16 prompts of the pair's own Markov process:
+              greedy (each row on the target's standalone), sampled at T
+              0.8, top-k 50 (each row on ``speculative_generate_batched``
+              with the request's key; tie-aware on each decision's
+              margin, replayed over teacher-forced logits, at a fixed
+              0.05 / T) and the plain engine on the same stream, with
+              tokens/s, tokens a row a round and the acceptance a /
+              gamma; (c) 8 requests on int8 pools against the target's
+              own int8 standalone; (d) ``bench_speculative --pair --n
+              256`` at gamma 2, 4, 8, greedy and sampled, and
+              ``--batched 8`` at 64 tokens a call.
+              Every engine run's kernel 1 launches == (8 + 2) x its flash
+              admissions, kernel 6's (6q's on int8) == 2 x (gamma + 1) x
+              its rounds;
 4. overlap  — the port bench's protocol (``hpc_patterns_tpu_torch.bench``)
               at the JAX bench shape 16 x 2048 x 128 (16 MiB, L2-resident)
               and at 16 x 32768 x 128 (256 MiB, past the 50 MB L2), with
@@ -2183,6 +2204,7 @@ def _counting_engine(cls, runs: list):
         def run(self, **kw):
             self._flash_admits = 0
             a0, d0 = self.admissions, self.decode_steps
+            r0 = self.spec_rounds
             torch.cuda.synchronize()
             fa.launches["fwd"] = 0
             fd.launches["paged_decode"] = 0
@@ -2193,8 +2215,11 @@ def _counting_engine(cls, runs: list):
                          "flash_admissions": self._flash_admits,
                          "admissions": self.admissions - a0,
                          "decode_steps": self.decode_steps - d0,
+                         "spec_rounds": self.spec_rounds - r0,
                          "n_layers": self.cfg.n_layers,
-                         "out": dict(got)})
+                         "draft_layers": (self.draft_cfg.n_layers
+                                          if self.spec else 0),
+                         "gamma": self.gamma, "out": dict(got)})
             return got
 
     return Counting
@@ -2395,6 +2420,483 @@ def phase_scenario():
     emit({"phase": "scenario", **out,
           "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+# phase spec: the aligned pair at make_draft_pair's card widths, cut from
+# the JAX script's 400 / 400 steps to 200 / 200 (batch 16 x 256, the 2M
+# token corpus uncut); gamma 4 throughout (serve_app's default)
+SPEC_PAIR_STEPS = (200, 200)
+SPEC_GAMMA = 4
+# the engine legs' stream: prompts of 256 tokens from the pair's Markov
+# process on a disjoint path (draw_seed 777, as JAX's bench_speculative),
+# budgets 64/128/256 at 0.5/0.3/0.2 (RandomState(7)); page 256, 8 slots,
+# 4 rounds a dispatch (a round emits up to gamma + 1 tokens, so about the
+# plain engine's 16-step chunk); the int8 leg serves the first 8
+SPEC_STREAM = dict(requests=16, prompt_len=256, budgets=(64, 128, 256),
+                   p=(0.5, 0.3, 0.2))
+SPEC_CHUNK = 4
+SPEC_INT8_REQUESTS = 8
+# the benchmark: the gamma sweep at JAX's 256 tokens a call, the batched
+# rows at 64 (at 256 the vmap impl's eight one-row loops took most of the
+# 251 s the whole benchmark took on the H100)
+SPEC_BENCH = dict(n=256, temp=0.8, top_k=40, batched=8, batched_n=64)
+SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
+             "serve_app": "the serve phase's stream (16 requests)",
+             "int8_requests": "16 -> 8", "bench_batched_n": "256 -> 64"}
+
+
+def _spec_stream(vocab: int) -> list:
+    from hpc_patterns_tpu_torch.make_draft_pair import markov_corpus
+
+    s = SPEC_STREAM
+    L = s["prompt_len"]
+    corpus = markov_corpus(vocab, 2 * L * s["requests"], draw_seed=777)
+    rng = np.random.RandomState(7)
+    return [(corpus[2 * i * L:2 * i * L + L].copy(),
+             int(rng.choice(s["budgets"], p=s["p"])))
+            for i in range(s["requests"])]
+
+
+def _check_spec_launches(run: dict, label: str) -> dict:
+    """A counted draft-assisted run's kernel 1 and 6 launches against its
+    calls: (target + draft layers) x its flash admissions, and draft
+    layers x (gamma + 1) x its rounds."""
+    L, Ld, g = run["n_layers"], run["draft_layers"], run["gamma"]
+    check(run["paged_decode"] > 0, f"{label}: kernel 6 launched")
+    check(run["flash_prefill"] == (L + Ld) * run["flash_admissions"],
+          f"{label}: prefill launches {run['flash_prefill']} == ({L} + {Ld})"
+          f" x {run['flash_admissions']} flash admissions")
+    check(run["paged_decode"] == Ld * (g + 1) * run["spec_rounds"],
+          f"{label}: decode launches {run['paged_decode']} == {Ld} x "
+          f"{g + 1} x {run['spec_rounds']} rounds")
+    return {k: run[k] for k in ("flash_prefill", "paged_decode",
+                                "flash_admissions", "admissions",
+                                "spec_rounds")}
+
+
+def _tie_counts(pairs, tol: float) -> tuple[dict, list, int]:
+    """tie_aware_compare over (index, got, want, margins) tuples: the
+    verdict counts, each divergence's first step and gap, and the tokens
+    compared (a sequence's length, or its steps up to and with its first
+    divergence)."""
+    from hpc_patterns_tpu_torch.models.serving import tie_aware_compare
+
+    counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
+    detail = []
+    compared = 0
+    for i, got, want, margins in pairs:
+        v = tie_aware_compare(got, want, margins, tol)
+        counts[v] += 1
+        j = -1
+        if v != "exact":
+            j = int(np.nonzero(got != want)[0][0]) if got.shape == \
+                want.shape else -1
+            detail.append({"seq": i, "verdict": v, "step": j,
+                           "gap": float(margins[j]) if j >= 0 else None})
+        compared += len(want) if v == "exact" or j < 0 else j + 1
+    return counts, detail, compared
+
+
+# -- decision margins of sampled speculative tokens (the tie-aware oracle) --
+
+def _support(logits, top_k: int, t):
+    """Each token's top-k membership (..., V) bool and its distance to the
+    support's edge in score units (``logits / t``): above the (k+1)-th
+    logit for a member, below the k-th for the rest; inf without top-k."""
+    if not top_k or top_k >= logits.shape[-1]:
+        return (torch.ones_like(logits, dtype=torch.bool),
+                torch.full_like(logits, float("inf")))
+    vals = torch.topk(logits, top_k + 1, dim=-1).values
+    th, nx = vals[..., top_k - 1:top_k], vals[..., top_k:top_k + 1]
+    inside = logits >= th
+    return inside, torch.where(inside, logits - nx, th - logits) / t
+
+
+def _pick_margin(scores, raw, inside, member):
+    """The margin of a Gumbel-max pick over ``scores`` (-inf off the
+    support) with ``raw`` the scores every token would have inside it:
+    the smallest of the top-1/top-2 gap, the winner's distance to the
+    support's edge, and for each token outside, the larger of its
+    distance to the edge and how far its raw score lies below the
+    winner's (a token that would win must first enter)."""
+    top = torch.topk(scores, 2, dim=-1)
+    w = top.indices[..., :1]
+    entry = torch.where(inside, float("inf"),
+                        torch.maximum(member, top.values[..., :1] - raw))
+    return torch.minimum(
+        torch.minimum(top.values[..., 0] - top.values[..., 1],
+                      member.gather(-1, w)[..., 0]), entry.amin(dim=-1))
+
+
+def _position_margin(parts, x, dl, tl, g, top_k: int, t: float):
+    """The margin (N,) in score units of N positions' speculative
+    decisions, each decided alone (``speculative._accept_resample`` at
+    gamma 0 on ``parts``): how far either model's logits (``dl``, ``tl``
+    (N, V)) must move to change the token. The draft's pick of ``x``
+    (:func:`_pick_margin` on its noise ``g``) and the accept decision,
+    |log u - min(0, log p - log q)|, and the proposal's distance to the
+    target's top-k edge (off it, p = 0). A rejection adds the residual
+    draw's: for each other token c of the target's support, twice the
+    smallest shift d of both laws (p -> p(1 + d) against q -> q(1 - d))
+    that lets c's residual outscore the winner's under their noise, so a
+    residual of two close laws, which moves far more than either, counts
+    as close; the winner's distance to both supports' edges; a token off
+    the target's support that would win once it joined it, and one of
+    both supports that would win once it left the draft's (its residual
+    then p)."""
+    ins_q, mem_q = _support(dl, top_k, t)
+    raw_q = dl / t + g
+    masked_q = torch.where(ins_q, raw_q, torch.full_like(raw_q,
+                                                         float("-inf")))
+    ins_p, mem_p = _support(tl, top_k, t)
+    xi = x.long()[:, None]
+    acc = (torch.log(parts["u"][:, 0]) - torch.clamp(
+        torch.log(parts["p_at"][:, 0]) - torch.log(parts["q_at"][:, 0]),
+        max=0.0)).abs()
+    base = torch.minimum(_pick_margin(masked_q, raw_q, ins_q, mem_q),
+                         torch.minimum(acc, mem_p.gather(1, xi)[:, 0]))
+    # the residual draw
+    scores, res, noise = parts["scores"], parts["res"], parts["noise"]
+    p_a, q_a = parts["p_a"], parts["q_a"]
+    w = scores.argmax(dim=-1, keepdim=True)
+    others = torch.arange(scores.shape[-1], device=w.device) != w
+    e = torch.exp(noise - noise.gather(1, w))
+    shift = (res.gather(1, w) - (p_a - q_a) * e) / (
+        (p_a + q_a) * e + (p_a + q_a).gather(1, w))
+    close = 2.0 * torch.where(ins_p & others, shift,
+                              float("inf")).amin(dim=-1)
+    close = torch.minimum(close, torch.minimum(mem_p, mem_q).gather(
+        1, w)[:, 0])
+    # the supports' edges move a residual by a jump: a token off the
+    # target's support joins it (its score then its p over the support,
+    # as a share of the residual's mass), a token on both leaves the
+    # draft's (p's share)
+    log_mass = torch.log(res.sum(dim=-1, keepdim=True).clamp(min=1e-30))
+    s_w = scores.gather(1, w)
+    lt = tl / t
+    lp_join = lt - torch.logsumexp(torch.where(
+        ins_p, lt, float("-inf")), dim=-1, keepdim=True) + noise - log_mass
+    join = torch.where(ins_p, float("inf"),
+                       torch.maximum(mem_p, s_w - lp_join))
+    leave = torch.where(ins_p & ins_q, torch.maximum(
+        mem_q, s_w - torch.log(p_a + 1e-30) - noise + log_mass),
+        float("inf"))
+    close = torch.minimum(close, torch.where(
+        others, torch.minimum(join, leave), float("inf")).amin(dim=-1))
+    close = torch.where(parts["all_accepted"], float("inf"), close)
+    return torch.minimum(base, close)
+
+
+def _spec_margins(params, cfg, dparams, dcfg, prompts, toks, keys,
+                  temperature: float, top_k: int):
+    """Each sampled speculative token's decision margin (B, n) in score
+    units, and how many tokens the replay gives back. A token depends on
+    its row's key, its prefix and its position only
+    (``models/speculative.py``), so the decisions are replayed a position
+    at a time over both models' teacher-forced logits (``forward`` of
+    prompt + tokens): the first token the plain draw at T, each later
+    one the draft's pick on its position's draft noise and
+    ``_accept_resample`` at gamma 0 on its accept and residual draws."""
+    from hpc_patterns_tpu_torch.models.decode import (
+        _as_keys,
+        _topk_mask,
+        gumbel_noise,
+        sample_scores,
+    )
+    from hpc_patterns_tpu_torch.models.speculative import (
+        _accept_resample,
+        _warp,
+        spec_streams,
+    )
+    from hpc_patterns_tpu_torch.models.transformer import forward
+
+    B, T = prompts.shape
+    n, V = toks.shape[1], cfg.vocab
+    kt = _as_keys(keys, B, prompts.device)
+    margins, agree = [], 0
+    with torch.no_grad():
+        for b in range(B):
+            seq = torch.cat([prompts[b:b + 1], toks[b:b + 1]], dim=1)
+            tl = forward(params, seq, cfg)[0, T - 1:-1].float()  # (n, V)
+            dl = forward(dparams, seq, dcfg)[0, T - 1:-1].float()
+            k = kt[b:b + 1]
+            g0 = gumbel_noise(k, T, V)
+            sc = sample_scores(tl[:1], k, T, temperature, top_k, g0)
+            ins, mem = _support(tl[:1], top_k, temperature)
+            m0 = _pick_margin(sc, tl[:1] / temperature + g0, ins, mem)
+            first = torch.argmax(sc, dim=-1)
+            streams = spec_streams(k.expand(n - 1, 2).contiguous())
+            at = torch.arange(T + 1, T + n, device=prompts.device,
+                              dtype=torch.int32)
+            g = gumbel_noise(streams["draft"], at.long(), V)
+            masked = _topk_mask(dl[1:], top_k) / temperature
+            x = torch.argmax(masked + g, dim=-1).to(torch.int32)
+            _, nxt, parts = _accept_resample(
+                streams, at, x[:, None], torch.softmax(masked, -1)[:, None],
+                _warp(tl[1:], temperature, top_k)[:, None])
+            margins.append(torch.cat([m0, _position_margin(
+                parts, x, dl[1:], tl[1:], g, top_k, temperature)]))
+            agree += int((torch.cat([first.to(torch.int32), nxt])
+                          == toks[b]).sum())
+    return torch.stack(margins), agree
+
+
+def phase_spec():
+    """Speculative decoding at the card widths: (a) the aligned pair
+    (``make_draft_pair.build_pair``), which must beat a random draft on
+    both held-out diagnostics by > 0.05; (b) ``serve_app --draft-pair
+    --gamma 4`` at the serve phase's geometry and stream (SUCCESS: every
+    sequence on the target's standalone, tie-aware), then the engine
+    through its API on the pair's own prompts: greedy (each row on the
+    target's standalone ``paged_generate``), sampled at T 0.8, top-k 50
+    (each row on ``speculative_generate_batched`` with the request's key,
+    tie-aware on each decision's margin from :func:`_spec_margins` at the
+    fixed tolerance 0.05 / T) and the plain engine on the same stream;
+    (c) a draft-assisted engine on int8 pools against the target's own
+    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 256`` at
+    gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 64
+    tokens a call. Every engine run's kernel 1 and 6 launches against its counted
+    admissions and rounds; tokens/s, tokens a row a round and the
+    acceptance a / gamma printed."""
+    import dataclasses
+    import shutil
+
+    from hpc_patterns_tpu_torch import bench_speculative
+    from hpc_patterns_tpu_torch import make_draft_pair as mdp
+    from hpc_patterns_tpu_torch.apps import serve_app
+    from hpc_patterns_tpu_torch.apps.serve_app import (
+        CHIP_SERVE,
+        TIE_TOL,
+    )
+    from hpc_patterns_tpu_torch.models.decode import paged_generate
+    from hpc_patterns_tpu_torch.models.serving import (
+        ContinuousBatcher,
+        bucket_ladder,
+        pad_to_bucket,
+    )
+    from hpc_patterns_tpu_torch.models.speculative import (
+        speculative_generate_batched,
+    )
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    G = SPEC_GAMMA
+    work = ROOT / "build" / "smoke_spec"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pair = str(work / "pair")
+    launches = {"flash_prefill": 0, "paged_decode": 0,
+                "paged_decode_quant": 0}
+
+    # (a) the pair
+    base, layers, dlayers = mdp.widths(True)
+    steps, dsteps = SPEC_PAIR_STEPS
+    for k in fa.launches:
+        fa.launches[k] = 0
+    t0 = time.perf_counter()
+    meta = mdp.build_pair(pair, steps=steps, distill_steps=dsteps, batch=16,
+                          seq=256, n_corpus=2_000_000, base=base,
+                          layers=layers, draft_layers=dlayers, device=dev,
+                          log=lambda m: None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = {k: fa.launches[k] for k in ("fwd", "fwd_lse", "dq",
+                                                  "dkv")}
+    acc = meta["acceptance"]
+    emit({"phase": "spec", "leg": "pair", "config": meta["target_cfg"],
+          "draft_layers": dlayers, "steps": steps, "distill_steps": dsteps,
+          "acceptance": acc, "seconds": build_s,
+          "train_seconds": meta["seconds"], "launches": build_launches})
+    check(acc["aligned_greedy"] > acc["random_greedy"] + 0.05,
+          f"pair: greedy agreement {acc['aligned_greedy']:.3f} > random "
+          f"{acc['random_greedy']:.3f} + 0.05")
+    check(acc["aligned_minpq"] > acc["random_minpq"] + 0.05,
+          f"pair: E[min(p,q)] {acc['aligned_minpq']:.3f} > random "
+          f"{acc['random_minpq']:.3f} + 0.05")
+    check(build_launches["fwd_lse"] > 0 and build_launches["dq"] > 0
+          and build_launches["dkv"] > 0,
+          f"the pair trained on kernels 1, 3 and 4: {build_launches}")
+    torch.cuda.empty_cache()
+
+    # (b) serve_app with the pair, at the serve phase's geometry and stream
+    t0 = time.perf_counter()
+    s = CHIP_SERVE
+    runs: list = []
+    argv = ["--device", "cuda", "--draft-pair", pair, "--gamma", str(G),
+            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--chunk", str(SPEC_CHUNK), "--page-size", str(s["page_size"]),
+            "--prompt-len", str(s["prompt_len"]),
+            "--budget", str(s["max_budget"])]
+    orig = serve_app.make_requests, serve_app.ContinuousBatcher
+    serve_app.make_requests = lambda n, plen, budget, vocab, mix: \
+        serve_app.bench_stream(n, plen, budget, vocab)
+    serve_app.ContinuousBatcher = _counting_engine(
+        serve_app.ContinuousBatcher, runs)
+    try:
+        code, recs = run_app(serve_app.main, argv, work / "serve.jsonl")
+    finally:
+        serve_app.make_requests, serve_app.ContinuousBatcher = orig
+    printed = (work / "serve.out").read_text()
+    (res,) = [r for r in recs if r["kind"] == "result"]
+    emit({"phase": "spec", "leg": "serve_app", "gamma": G,
+          "chunk_rounds": SPEC_CHUNK, "tokens_per_s": res["tokens_per_s"],
+          "served_tokens": res["served_tokens"], "oracle": res["oracle"],
+          "spec_rounds": res["spec_rounds"],
+          "tokens_a_row_round": res["spec_tokens"]
+          / max(1, res["spec_row_rounds"]),
+          "acceptance": res["spec_accepted"]
+          / max(1, G * res["spec_row_rounds"]),
+          "seconds": time.perf_counter() - t0})
+    check(code == 0 and "SUCCESS" in printed.splitlines()
+          and res["oracle"]["mismatch"] == 0,
+          f"serve_app --draft-pair prints SUCCESS, oracle {res['oracle']}")
+    app_launches = _check_spec_launches(runs[-1], "spec serve_app")
+    for k in ("flash_prefill", "paged_decode"):
+        launches[k] += app_launches[k]
+
+    # the engine through its API on the pair's own prompts
+    reqs = _spec_stream(base["vocab"])
+    L, max_b = SPEC_STREAM["prompt_len"], max(SPEC_STREAM["budgets"])
+    cfg, params, dcfg, dparams, _ = mdp.load_pair(
+        pair, max_seq=L + max_b + G + 1, device=dev)
+    buckets = bucket_ladder(L)
+    pps = ContinuousBatcher.pages_needed(L, max_b, s["page_size"], gamma=G,
+                                         padded_len=pad_to_bucket(buckets, L))
+    geom = dict(slots=s["slots"], pool_pages=s["slots"] * pps,
+                pages_per_seq=pps, page_size=s["page_size"],
+                prompt_buckets=buckets, device=dev)
+    tol = TIE_TOL[cfg.dtype]
+    eruns: list = []
+    Counting = _counting_engine(ContinuousBatcher, eruns)
+
+    def serve(c, stream, **kw):
+        eng = Counting(params, c, **geom, **kw)
+        ids = [eng.submit(p, b) for p, b in stream]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = [got[sid] for sid in ids]
+        check(eng.free_page_count == eng.pool_pages,
+              f"every page back ({eng.free_page_count}/{eng.pool_pages})")
+        for (p, b), o in zip(stream, out):
+            check(o.shape == (b,) and o.min() >= 0 and o.max() < c.vocab,
+                  f"{b} tokens in [0, vocab)")
+        return eng, ids, out, sum(len(o) for o in out) / dt
+
+    def standalone(c, stream):
+        rows = []
+        for i, (p, b) in enumerate(stream):
+            w, m = paged_generate(params, torch.from_numpy(p)[None, :], c,
+                                  b, page_size=s["page_size"], device=dev,
+                                  with_margins=True)
+            rows.append((i, w[0].cpu().numpy(), m[0].cpu().numpy()))
+        return rows
+
+    def spec_stats(eng):
+        st = eng.spec_stats
+        return {"rounds": eng.spec_rounds,
+                "tokens_a_row_round": st["tokens"] / max(1,
+                                                         st["row_rounds"]),
+                "acceptance": st["accepted"] / max(1, G * st["row_rounds"])}
+
+    spec_kw = dict(draft_params=dparams, draft_cfg=dcfg, gamma=G,
+                   chunk=SPEC_CHUNK)
+    legs = {}
+    t0 = time.perf_counter()
+    eng, _, out, tps = serve(cfg, reqs, **spec_kw)
+    counts, detail, compared = _tie_counts(
+        [(i, out[i], w, m) for i, w, m in standalone(cfg, reqs)], tol)
+    legs["greedy"] = {"tokens_per_s": tps, "oracle": counts,
+                      "divergences": detail, "tokens_compared": compared,
+                      **spec_stats(eng),
+                      "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    emit({"phase": "spec", "leg": "greedy", **legs["greedy"]})
+    legs["greedy"]["launches"] = _check_spec_launches(eruns[-1],
+                                                      "spec greedy")
+    check(counts["mismatch"] == 0, f"spec greedy vs standalone: {counts}")
+    samp = dict(temperature=SAMPLE_ARGS["temperature"],
+                top_k=SAMPLE_ARGS["top_k"])
+    eng, ids, out, tps = serve(cfg, reqs, **spec_kw, **samp,
+                               seed=SAMPLE_ARGS["seed"])
+    prompts = torch.from_numpy(np.stack([p for p, _ in reqs])).to(dev)
+    keys = np.stack([eng.request_key(sid) for sid in ids])
+    want = speculative_generate_batched(
+        params, cfg, dparams, dcfg, prompts, max_b, gamma=G, key=keys,
+        device=dev, **samp)
+    margins, replayed = _spec_margins(params, cfg, dparams, dcfg, prompts,
+                                      want, keys, **samp)
+    # the greedy tolerance in logit units, as a score gap (margins are
+    # in units of logits / T)
+    tol_s = tol / samp["temperature"]
+    want, margins = want.cpu().numpy(), margins.cpu().numpy()
+    counts, detail, compared = _tie_counts(
+        [(i, out[i], want[i, :b], margins[i, :b])
+         for i, (_, b) in enumerate(reqs)], tol_s)
+    legs["sampled"] = {"tokens_per_s": tps, "oracle": counts,
+                       "divergences": detail, "tokens_compared": compared,
+                       "tokens_served": sum(b for _, b in reqs),
+                       "replay_agrees": replayed / want.size,
+                       **spec_stats(eng), "tie_tol": tol_s,
+                       "seconds": time.perf_counter() - t0}
+    emit({"phase": "spec", "leg": "sampled", **legs["sampled"]})
+    legs["sampled"]["launches"] = _check_spec_launches(eruns[-1],
+                                                       "spec sampled")
+    check(counts["mismatch"] == 0,
+          f"spec sampled vs speculative_generate_batched: {counts}")
+    _, _, _, tps = serve(cfg, reqs, chunk=s["chunk"])
+    legs["plain"] = {"tokens_per_s": tps, "chunk_steps": s["chunk"],
+                     "launches": _check_launches(eruns[-1], "spec plain")}
+    for leg in ("greedy", "sampled"):
+        for k in ("flash_prefill", "paged_decode"):
+            launches[k] += legs[leg]["launches"][k]
+
+    # (c) int8 pools for both models, against the target's own int8 decode
+    t0 = time.perf_counter()
+    qcfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    qdcfg = dataclasses.replace(dcfg, kv_cache_dtype="int8")
+    q_reqs = reqs[:SPEC_INT8_REQUESTS]
+    eng, _, out, tps = serve(qcfg, q_reqs, **dict(spec_kw,
+                                                  draft_cfg=qdcfg))
+    counts, detail, compared = _tie_counts(
+        [(i, out[i], w, m) for i, w, m in standalone(qcfg, q_reqs)], tol)
+    legs["int8"] = {"tokens_per_s": tps, "oracle": counts,
+                    "divergences": detail, "tokens_compared": compared,
+                    **spec_stats(eng),
+                    "seconds": time.perf_counter() - t0}
+    emit({"phase": "spec", "leg": "int8", **legs["int8"]})
+    legs["int8"]["launches"] = _check_spec_launches(eruns[-1], "spec int8")
+    check(counts["mismatch"] == 0, f"spec int8 vs int8 standalone: {counts}")
+    launches["paged_decode_quant"] += legs["int8"]["launches"]["paged_decode"]
+    launches["flash_prefill"] += legs["int8"]["launches"]["flash_prefill"]
+    emit({"phase": "spec", "leg": "engine", "gamma": G,
+          "chunk_rounds": SPEC_CHUNK, "stream": SPEC_STREAM,
+          "tie_tol": tol, **{k: {kk: vv for kk, vv in v.items()
+                                 if kk != "divergences"}
+                             for k, v in legs.items()}})
+
+    # (d) the benchmark
+    t0 = time.perf_counter()
+    fd.launches["flash_decode"] = 0
+    fd.launches["paged_decode"] = 0
+    bench_speculative.run_bench(pair=pair, device=dev, emit=emit,
+                                **SPEC_BENCH)
+    torch.cuda.synchronize()
+    bench_launches = {"flash_decode": fd.launches["flash_decode"],
+                      "paged_decode": fd.launches["paged_decode"]}
+    check(bench_launches["flash_decode"] > 0
+          and bench_launches["paged_decode"] > 0,
+          f"bench_speculative ran kernels 5 and 6: {bench_launches}")
+    emit({"phase": "spec", "leg": "done", "cuts": SPEC_CUTS,
+          "bench_launches": bench_launches,
+          "bench_seconds": time.perf_counter() - t0,
+          "seconds": time.perf_counter() - t_phase})
+    return {**launches, "flash_decode": bench_launches["flash_decode"],
+            "build": build_launches}
 
 
 # the plane phase's closed-loop transports and its int8 leg's requests
@@ -3221,6 +3723,7 @@ def main() -> int:
     launches, serve_ctx = phase_serve()
     launches_sample = phase_sample(serve_ctx)
     launches_scenario = phase_scenario()
+    launches_spec = phase_spec()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
     cgen = torch.Generator(device="cuda").manual_seed(4)
@@ -3252,12 +3755,16 @@ def main() -> int:
          "launches": launches["flash_prefill"]
          + launches_sample["flash_prefill"]
          + launches_scenario["flash_prefill"]
+         + launches_spec["flash_prefill"]
          + launches_plane["flash_prefill"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
                                   launches_scenario["flash_prefill"],
-                              "plane": launches_plane["flash_prefill"]},
+                              "spec": launches_spec["flash_prefill"],
+                              "plane": launches_plane["flash_prefill"],
+                              "spec_pair_build":
+                                  launches_spec["build"]["fwd"]},
          **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)}},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
@@ -3265,20 +3772,24 @@ def main() -> int:
          "launches": launches["paged_decode"]
          + launches_sample["paged_decode"]
          + launches_scenario["paged_decode"]
+         + launches_spec["paged_decode"]
          + launches_plane["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
+                              "spec": launches_spec["paged_decode"],
                               "plane": launches_plane["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys}},
         {"name": "flash_decode", "route": "cuda",
          "source": f"{PKG}/csrc/flash_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
          "launches": launches_quant["flash_decode"]
-         + launches_train["flash_decode"],
+         + launches_train["flash_decode"] + launches_spec["flash_decode"],
          "launches_by_path": {"quant": launches_quant["flash_decode"],
                               "train_generate":
-                              launches_train["flash_decode"]},
+                              launches_train["flash_decode"],
+                              "bench_speculative":
+                              launches_spec["flash_decode"]},
          **{k: rows["flash_decode"][k] for k in keys},
          "by_cache": {c: {k: r[k] for k in ("ms", "library_ms", "bound_ms",
                                             "max_abs_err", "n_chunks")}
@@ -3291,9 +3802,12 @@ def main() -> int:
         {"name": "paged_decode_quant", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
-         "launches": launches_quant["paged_decode"],
+         "launches": launches_quant["paged_decode"]
+         + launches_spec["paged_decode_quant"],
          "launches_by_path": {"quant_int8_flash":
-                              launches_quant["paged_decode"]},
+                              launches_quant["paged_decode"],
+                              "spec_int8":
+                              launches_spec["paged_decode_quant"]},
          **{k: rows["paged_decode_quant"][k] for k in keys}},
         {"name": "paged_attention", "route": "cuda",
          "source": f"{PKG}/csrc/paged_attention.cu",
@@ -3338,7 +3852,11 @@ def main() -> int:
         {"name": "flash_fwd_lse", "route": "cuda",
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
-         "launches": launches_train["flash_fwd_lse"],
+         "launches": launches_train["flash_fwd_lse"]
+         + launches_spec["build"]["fwd_lse"],
+         "launches_by_path": {"train": launches_train["flash_fwd_lse"],
+                              "spec_pair_build":
+                                  launches_spec["build"]["fwd_lse"]},
          **{k: train_rows["flash_fwd_lse"][k]
             for k in keys + ("tflops",)}},
         {"name": "fused_bwd", "route": "cuda",
@@ -3349,12 +3867,18 @@ def main() -> int:
         {"name": "dq", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
-         "launches": launches_train["dq"],
+         "launches": launches_train["dq"] + launches_spec["build"]["dq"],
+         "launches_by_path": {"train": launches_train["dq"],
+                              "spec_pair_build":
+                                  launches_spec["build"]["dq"]},
          **{k: train_rows["dq"][k] for k in keys + rel}},
         {"name": "dkv", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
-         "launches": launches_train["dkv"],
+         "launches": launches_train["dkv"] + launches_spec["build"]["dkv"],
+         "launches_by_path": {"train": launches_train["dkv"],
+                              "spec_pair_build":
+                                  launches_spec["build"]["dkv"]},
          **{k: train_rows["dkv"][k] for k in keys + rel}},
         *({"name": name, "route": "cuda",
            "source": f"{PKG}/csrc/fused_mlp.cu",

@@ -14,6 +14,13 @@ logits when greedy, of the perturbed scores ``logits / T + g`` when
 sampled). ``--eos-id`` truncates both at the first eos;
 ``--checkpoint-dir`` serves ``train_app``'s checkpoint;
 ``--static-compare`` also times static batching.
+``--draft-pair DIR`` serves an aligned draft/target pair built by
+``hpc_patterns_tpu_torch.make_draft_pair`` with speculative rounds
+inside the engine (``--gamma`` proposals a round; the pair's configs
+replace the model flags); a greedy run is held against the target's
+standalone ``paged_generate`` as above, a sampled one only on its
+tokens' range and count (the rounds keep the law, not the draws; its
+byte oracle is ``speculative_generate_batched``, in the tests).
 ``--kv-dtype int8|fp8`` serves one-byte KV pools with
 per-row scales (the standalone runs under the same quantized config, so
 the oracle stays within one precision); ``f32``/``bf16`` set the compute
@@ -30,6 +37,10 @@ Chrome-trace timeline on any exit path:
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
         --dtype float32 --prompt-mix --temperature 0.8 --top-k 8 \\
         --static-compare
+    python -m hpc_patterns_tpu_torch.make_draft_pair --device cpu \\
+        --out pair
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
+        --draft-pair pair --gamma 4 --prompt-mix
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
         --dtype float32 --metrics --trace --reqtrace --log serve.jsonl \\
         --trace-out serve.trace.json
@@ -59,6 +70,7 @@ from hpc_patterns_tpu_torch.harness.cli import (
 )
 from hpc_patterns_tpu_torch.harness.runlog import RunLog
 from hpc_patterns_tpu_torch.harness.verdict import Verdict
+from hpc_patterns_tpu_torch.make_draft_pair import load_pair
 from hpc_patterns_tpu_torch.models.decode import paged_generate
 from hpc_patterns_tpu_torch.models.serving import (
     ContinuousBatcher,
@@ -188,11 +200,13 @@ def build_parser():
                    help="also time static batching (batches of --slots "
                         "padded to the batch max budget)")
     p.add_argument("--draft-pair", default=None, metavar="DIR",
-                   help="draft-assisted serving (not ported yet: the "
-                        "speculative-decoding slice)")
-    p.add_argument("--gamma", type=int, default=None,
-                   help="draft proposals per round with --draft-pair "
-                        "(not ported yet, as --draft-pair)")
+                   help="serve an aligned draft/target pair "
+                        "(hpc_patterns_tpu_torch.make_draft_pair): "
+                        "speculative rounds inside the engine, rows "
+                        "advancing 1..gamma+1 tokens a round (the pair's "
+                        "configs replace the model flags)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="draft proposals per round with --draft-pair")
     p.add_argument("--autofit", default=None, metavar="PATH",
                    help="fitted engine config (not ported yet: the "
                         "autofit slice, ROADMAP item 2)")
@@ -230,30 +244,49 @@ def _fail(log, msg: str) -> int:
 
 def run(args) -> int:
     log = RunLog(args.log, truncate=not args.log_append)
-    if args.draft_pair or args.gamma is not None:
-        return _fail(log, "--draft-pair/--gamma: not ported yet (the next "
-                          "slice, speculative decoding: models/"
-                          "speculative.py and decode.paged_extend_step)")
     if args.autofit or args.explain:
         return _fail(log, "--autofit/--explain: not ported yet (ROADMAP "
                           "item 2, harness/autofit.py and explain.py)")
+    if args.draft_pair and args.checkpoint_dir:
+        return _fail(log, "--draft-pair serves the pair's own target "
+                          "checkpoint; --checkpoint-dir would be silently "
+                          "ignored — pass one or the other")
+    if args.draft_pair and args.kv_dtype not in (None, "bf16"):
+        return _fail(log, "--draft-pair serves from the pair's own "
+                          "compute-dtype caches (META.json configs); "
+                          f"--kv-dtype {args.kv_dtype} would be silently "
+                          "ignored — drop it or serve without the pair")
     dev = resolve_device(args.device)
     if args.requests < 1 or args.slots < 1 or args.budget < 1:
         return _fail(log, "--requests/--slots/--budget must be >= 1")
     need = args.prompt_len + args.budget
-    dtype, kv_cache_dtype = args.dtype, "compute"
-    if args.kv_dtype is not None:
-        compute, kv_cache_dtype = resolve_kv_cache_dtype(args.kv_dtype,
-                                                         device=dev)
-        dtype = compute or dtype
-    cfg = TransformerConfig(
-        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
-        n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=need,
-        n_kv_heads=args.n_kv_heads, pos_embed=args.pos_embed,
-        dtype=dtype, decode_attn="flash", kv_cache_dtype=kv_cache_dtype)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, generator=gen, device=dev,
-                         dtype=torch_dtype(dtype))
+    draft_params = draft_cfg = None
+    if args.draft_pair:
+        try:
+            cfg, params, draft_cfg, draft_params, _ = load_pair(
+                args.draft_pair, max_seq=need, device=dev)
+        except (OSError, ValueError, KeyError) as e:
+            return _fail(log, f"cannot load the pair {args.draft_pair}: "
+                              f"{e}")
+        dtype, kv_cache_dtype = cfg.dtype, cfg.kv_cache_dtype
+        log.print(f"aligned pair from {args.draft_pair} "
+                  f"(gamma={args.gamma})")
+    else:
+        dtype, kv_cache_dtype = args.dtype, "compute"
+        if args.kv_dtype is not None:
+            compute, kv_cache_dtype = resolve_kv_cache_dtype(args.kv_dtype,
+                                                             device=dev)
+            dtype = compute or dtype
+        cfg = TransformerConfig(
+            vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+            n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=need,
+            n_kv_heads=args.n_kv_heads, pos_embed=args.pos_embed,
+            dtype=dtype, decode_attn="flash",
+            kv_cache_dtype=kv_cache_dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, generator=gen, device=dev,
+                             dtype=torch_dtype(dtype))
+    spec = draft_params is not None
     if args.checkpoint_dir:
         from hpc_patterns_tpu_torch.utils.checkpoint import restore_params
 
@@ -267,8 +300,10 @@ def run(args) -> int:
         padded_max = pad_to_bucket(buckets, args.prompt_len)
     except (ValueError, argparse.ArgumentTypeError) as e:
         return _fail(log, str(e))
+    # the engine's sizing rule, the speculative slack included
     pages_per_seq = ContinuousBatcher.pages_needed(
-        args.prompt_len, args.budget, args.page_size, padded_len=padded_max)
+        args.prompt_len, args.budget, args.page_size,
+        gamma=args.gamma if spec else None, padded_len=padded_max)
     pool_pages = args.pool_pages or args.slots * pages_per_seq
     reqs = make_requests(args.requests, args.prompt_len, args.budget,
                          cfg.vocab, args.prompt_mix)
@@ -284,7 +319,9 @@ def run(args) -> int:
                 chunk=args.chunk, prompt_buckets=buckets, device=dev,
                 eos_id=args.eos_id if args.eos_id >= 0 else None,
                 overlap=not args.no_overlap, temperature=args.temperature,
-                top_k=args.top_k, seed=args.seed, emit=log.emit)
+                top_k=args.top_k, seed=args.seed, emit=log.emit,
+                draft_params=draft_params, draft_cfg=draft_cfg,
+                gamma=args.gamma)
             ids = [eng.submit(p, b) for p, b in reqs]
             got = eng.run()
         except (ValueError, RuntimeError) as e:
@@ -315,10 +352,18 @@ def run(args) -> int:
 
     # the oracle: each sequence against its standalone paged_generate
     # with the same key and temperature, truncated at eos as the engine
-    # truncates
+    # truncates. Draft-assisted sampling is the one law-only combination
+    # (its rounds keep the law, not the draws): a range and count check
     tol = TIE_TOL[dtype]
     counts = {"exact": 0, "near_tie": 0, "mismatch": 0}
     for i, (prompt, budget) in enumerate(reqs):
+        if sampled and spec:
+            ok_i = (1 <= len(out[i]) <= budget and np.all(out[i] >= 0)
+                    and np.all(out[i] < cfg.vocab))
+            counts["exact" if ok_i else "mismatch"] += 1
+            if not ok_i:
+                log.print(f"OUT-OF-BOUNDS seq {i}: {out[i][:8]}...")
+            continue
         want, margins = paged_generate(
             params, torch.from_numpy(prompt)[None, :], cfg, budget,
             page_size=args.page_size, device=dev, with_margins=True,
@@ -343,8 +388,14 @@ def run(args) -> int:
              bubble_frac=eng.last_bubble_frac,
              prompt_buckets=list(buckets) if buckets else None,
              temperature=args.temperature, top_k=args.top_k,
-             overlap=not args.no_overlap, device=str(dev))
-    mode = "sampled" if sampled else "greedy"
+             overlap=not args.no_overlap, device=str(dev),
+             gamma=args.gamma if spec else None,
+             **({"spec_rounds": eng.spec_rounds, **{
+                 f"spec_{k}": v for k, v in eng.spec_stats.items()}}
+                if spec else {}))
+    mode = ("draft+sampled law" if sampled and spec
+            else "draft greedy" if spec
+            else "sampled" if sampled else "greedy")
     log.print(f"serve[{dev}, {dtype}, kv {kv_cache_dtype}, "
               f"{args.slots} slots, pool {pool_pages}p x "
               f"{args.page_size}, {mode}] {args.requests} reqs, {served} "

@@ -19,7 +19,10 @@ counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
   pages_per_seq) int32 table; :func:`paged_decode_step` routes by
   ``cfg.decode_attn``: "flash" (``flash_decode_paged``), "paged_flash"
   (``ops.paged_attention.paged_attention_decode``, the exact-softmax
-  kernel) or "gather" (the plain table-gather view).
+  kernel) or "gather" (the plain table-gather view);
+  :func:`paged_extend_step` verifies a ragged multi-token chunk against
+  the pools (speculative decoding's target step; plain PyTorch, as JAX's
+  is XLA).
 
 Unlike JAX's immutable arrays, the port writes caches and pools IN PLACE
 (a copy per write would double the serving capacity), so the step
@@ -35,7 +38,9 @@ the CPU or the card, in one batched pass with no host read, and the
 serving engine's rows (``models/serving.py``) reproduce the standalone
 :func:`paged_generate` token for token. Greedy (``temperature <= 0``)
 is a plain argmax that runs no noise op. The stream is not JAX's
-threefry stream; the two agree in law. :func:`generate` and
+threefry stream; the two agree in law. Speculative decoding draws from
+three more streams of the same hash, each the row's key folded with its
+own tag (:data:`SPEC_STREAMS`, :func:`fold_keys`). :func:`generate` and
 :func:`paged_generate` run under ``harness.trace.compile_watch``, as
 JAX's do: with a flight recorder, a call that built kernels leaves a
 named compile event.
@@ -61,6 +66,7 @@ from hpc_patterns_tpu_torch.ops.flash_decode import (
     _NEG_INF,
     flash_decode_attention,
     flash_decode_attention_reference,
+    _gather_pages,
     flash_decode_paged,
     flash_decode_paged_reference,
     raw,
@@ -193,8 +199,10 @@ def _token_step(params, pos, tokens, cfg: TransformerConfig, attend):
     x = params["embed"].to(dt)[tokens]  # (B, D)
     if cfg.pos_embed == "learned":
         pe = params["pos_embed"].to(dt)
-        x = x + (pe[pos.long()] if torch.is_tensor(pos) and pos.ndim
-                 else pe[int(pos)])
+        # only a speculative round's overshoot past a row's budget reaches
+        # past max_seq; JAX's gather clamps it, and so does this one
+        x = x + (pe[pos.long().clamp(max=pe.shape[0] - 1)]
+                 if torch.is_tensor(pos) and pos.ndim else pe[int(pos)])
     for l in range(cfg.n_layers):
         lp = layer_params(params, l)
         hn = _rmsnorm(x, lp["ln1_scale"])
@@ -389,22 +397,42 @@ def _as_keys(key, batch: int, device) -> torch.Tensor:
     return k.to(device).contiguous()
 
 
-def gumbel_noise(keys, pos, vocab: int):
-    """Gumbel noise (..., B, vocab) f32 for the tokens drawn at positions
-    ``pos`` of rows keyed by ``keys`` ((B, 2) int64 lanes of uint32
-    words): ``pos`` an int or (B,) for one draw a row, or (S, B) for S
-    draws a row at once. ``-log(-log u)`` with ``u`` in (0, 1) from 23
-    bits of a counter-based hash of (key, position, vocab index). A
-    row's noise is a function of its own key and position only."""
+def uniform_noise(keys, pos, n: int):
+    """Uniforms (..., B, n) f32 in (0, 1) for rows keyed by ``keys``
+    ((B, 2) int64 lanes of uint32 words) at positions ``pos`` (an int or
+    (B,) for one set a row, or (S, B) for S sets a row at once): 23 bits
+    of a counter-based hash of (key, position, index). A row's uniforms
+    are a function of its own key and position only."""
     lo, hi = keys[:, 0], keys[:, 1]
     salt = _hash32((lo * _SPREAD[0] + hi * _SPREAD[1]
                     + torch.as_tensor(pos, device=keys.device)
                     .to(torch.int64) * _SPREAD[2]) & _M32)
-    idx = torch.arange(vocab, device=keys.device, dtype=torch.int64)
+    idx = torch.arange(n, device=keys.device, dtype=torch.int64)
     x = _hash32((salt[..., None] + idx * _SPREAD[3]) & _M32)
     # 23 bits and a half: every u is exact in f32, so none rounds to 1
-    u = ((x >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
-    return -torch.log(-torch.log(u))
+    return ((x >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel_noise(keys, pos, vocab: int):
+    """Gumbel noise (..., B, vocab) f32 for the tokens drawn at positions
+    ``pos`` of rows keyed by ``keys``: ``-log(-log u)`` over
+    :func:`uniform_noise`'s uniforms, one a vocab index."""
+    return -torch.log(-torch.log(uniform_noise(keys, pos, vocab)))
+
+
+#: the speculative sampler's streams (``models/speculative.py``): each
+#: draws from the row's key folded with its own tag, so no stream reuses
+#: the bits of another or of the plain draw (tag 0 is the key itself)
+SPEC_STREAMS = {"draft": 1, "accept": 2, "residual": 3}
+
+
+def fold_keys(keys, tag: int):
+    """(B, 2) key lanes folded with a stream ``tag`` > 0 on the device:
+    each word hashed with the tag (and the high one with the new low
+    word), so a folded key's draws share no inputs with ``keys``'."""
+    lo = _hash32(keys[:, 0] ^ ((tag * _SPREAD[0]) & _M32))
+    hi = _hash32((keys[:, 1] + lo + tag * _SPREAD[1]) & _M32)
+    return torch.stack([lo, hi], dim=1)
 
 
 def sample_scores(logits, keys, pos, temps, top_k: int = 0, noise=None):
@@ -674,6 +702,90 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
                          k_scale_pool=ks, v_scale_pool=vs, scale=scale)
 
     return _token_step(params, pos, tokens, cfg, attend)
+
+
+def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
+    """RAGGED multi-token extension against the paged cache (JAX
+    ``decode.py:1250-1372``): row ``b``'s chunk ``tokens[b]`` (B, c)
+    takes positions ``pos[b] .. pos[b]+c-1`` — the verification step of
+    per-row-progress speculative decoding (``models/speculative.py``).
+    ``pos``: (B,) int32 tensor.
+
+    The chunk's K/V scatter into the pools IN PLACE at per-row (page,
+    offset) pairs; a one-byte pool quantizes each row with
+    :func:`_quantize_rows` and writes its scales as
+    :func:`paged_decode_step` does. Attention is the gather form over the
+    table-linearized pools in f32 (dequantized for one-byte pools) with
+    the per-row mask ``row <= pos[b]+i``: plain PyTorch, as JAX's is XLA
+    (no kernel). Returns logits (B, c, vocab) f32.
+
+    CONTRACT (as :func:`paged_decode_step`'s): every touched position <
+    pages_per_seq * page_size. A CPU ``pos`` is checked; a CUDA one is
+    not (checking would force a sync) and past capacity the page index
+    clamps to the table's last page, as JAX's traced ``pos`` does."""
+    _check_supported(cfg)
+    B, c = tokens.shape
+    if not (torch.is_tensor(pos) and pos.ndim == 1 and pos.shape[0] == B):
+        raise ValueError(
+            f"pos must be (batch,)={B} per-row positions, got "
+            f"{tuple(pos.shape) if torch.is_tensor(pos) else pos!r}")
+    quant = _kv_quantized(cfg)
+    dt = torch_dtype(cfg.dtype)
+    table = cache["table"]
+    P = cache["k"][0].shape[2]
+    pages = table.shape[1]
+    if pos.device.type == "cpu" and int(pos.max()) + c > pages * P:
+        raise ValueError(f"chunk end {int(pos.max()) + c} past cache "
+                         f"capacity {pages * P} tokens")
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    Hkv, g, Dh = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim
+    dev = tokens.device
+    positions = pos.long()[:, None] + torch.arange(c, device=dev)  # (B, c)
+    x = params["embed"].to(dt)[tokens]  # (B, c, D)
+    if cfg.pos_embed == "learned":
+        pe = params["pos_embed"].to(dt)
+        x = x + pe[positions.clamp(max=pe.shape[0] - 1)]
+    tbl = table.long()
+    page = (positions // P).clamp(max=pages - 1)
+    pids = tbl.gather(1, page).reshape(-1)  # (B*c,)
+    off = (positions % P).reshape(-1)
+    S = pages * P
+    # query i of row b sees the rows <= pos[b] + i (its own included)
+    visible = (torch.arange(S, device=dev)[None, None, None, None, :]
+               <= positions[:, None, None, :, None])  # (B, 1, 1, c, S)
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        k_pool, v_pool = cache["k"][l], cache["v"][l]
+        hn = _rmsnorm(x, lp["ln1_scale"])
+        q, k_new, v_new = project_qkv(hn, lp, cfg)  # (B, c, H/Hkv, Dh)
+        if cfg.pos_embed == "rope":
+            q = apply_rope(q, positions, cfg)
+            k_new = apply_rope(k_new, positions, cfg)
+        rows_k = k_new.reshape(B * c, Hkv, Dh)
+        rows_v = v_new.reshape(B * c, Hkv, Dh)
+        if quant:
+            ks, vs = cache["k_scale"][l], cache["v_scale"][l]
+            rows_k, k_s = _quantize_rows(rows_k, cfg.kv_cache_dtype)
+            rows_v, v_s = _quantize_rows(rows_v, cfg.kv_cache_dtype)
+            _scale_write(ks, pids, off, k_s)
+            _scale_write(vs, pids, off, v_s)
+        _pool_write(k_pool, pids, off, rows_k)
+        _pool_write(v_pool, pids, off, rows_v)
+        kd = _gather_pages(k_pool, tbl).float()
+        vd = _gather_pages(v_pool, tbl).float()
+        if quant:
+            kd = kd * _gather_pages(ks.transpose(2, 3), tbl).float()
+            vd = vd * _gather_pages(vs.transpose(2, 3), tbl).float()
+        qg = q.reshape(B, c, Hkv, g, Dh).float()
+        s = torch.einsum("bckgd,bksd->bkgcs", qg, kd) * scale
+        s = torch.where(visible, s, torch.full_like(s, _NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgcs,bksd->bckgd", p, vd)
+        x = x + o.reshape(B, c, cfg.d_model).to(dt) @ matmul_weight(
+            lp, "wo", dt)
+        x = mlp(x, lp, cfg)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return (x @ matmul_weight(params, "lm_head", dt)).float()
 
 
 def paged_generate(params, prompt, cfg: TransformerConfig,

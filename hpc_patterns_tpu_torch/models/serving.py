@@ -1,7 +1,7 @@
 """Continuous batching over the ragged paged cache — the engine of
 ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
-``ContinuousBatcher``) without its draft, residency, prefix-cache and
-mesh branches, and its half of the serving plane's KV handoff.
+``ContinuousBatcher``) without its residency, prefix-cache and mesh
+branches, and its half of the serving plane's KV handoff.
 
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
@@ -47,6 +47,18 @@ mesh branches, and its half of the serving plane's KV handoff.
   ``serve_preempt``, ``serve_migrate_out`` and ``serve_migrate_in``
   records, field for field;
 - chaos: each round probes ``harness.chaos``'s ``engine_round`` site;
+- draft-assisted rounds (``draft_params``, ``draft_cfg``, ``gamma``):
+  a draft pool with the target's page geometry shares its page table;
+  admission prefills both; a dispatch is ``chunk`` rounds of
+  ``models/speculative.paged_round`` (:func:`_spec_chunk`), each row
+  advancing 1..gamma+1 tokens a round with budget and EOS truncation on
+  the device between rounds and one readback a chunk; requests hold
+  ``gamma + 1`` pages' worth of slack rows (``spec_slack``). A greedy row
+  equals the target's standalone ``paged_generate``; a sampled one equals
+  ``speculative_generate_batched`` with the request's key. A resumed draft
+  row re-prefills both caches with everything but its last token and
+  continues from that token, so its rounds start where an uninterrupted
+  run's do. Draft engines do not migrate (as in JAX);
 - KV migration (the serving plane's prefill -> decode handoff,
   ``serving_plane/``): :meth:`EngineCore.export_migration` detaches a
   row into a :class:`MigrationBundle` (cursors, key and temperature
@@ -73,7 +85,7 @@ a migrated bundle carries in ``segments``. With no registry, recorder,
 reqtrace or chaos enabled each site costs one check.
 
 Later slices raise ``ValueError`` when asked for: tiered residency
-(``export_swapped``), prefix sharing, draft-assisted rounds and meshes.
+(``export_swapped``), prefix sharing and meshes.
 A destination always installs the whole payload (prefix resolution
 waits for the prefix cache), though ``rung`` and ``prefix_len`` are
 written.
@@ -82,7 +94,8 @@ Correctness contract: every sequence's tokens equal the standalone
 ``paged_generate`` for the same prompt, budget, config and (sampled)
 key (exactly in f32 on the CPU; on the card up to near-ties where bf16
 matmuls at batch 8 and batch 1 round differently), preempted, resumed
-or migrated.
+or migrated; a sampled draft-assisted sequence equals
+``speculative_generate_batched``'s instead (the same law, other draws).
 """
 
 from __future__ import annotations
@@ -107,6 +120,10 @@ from hpc_patterns_tpu_torch.models.decode import (
     paged_decode_step,
     paged_prefill,
     sample_key,
+)
+from hpc_patterns_tpu_torch.models.speculative import (
+    paged_round,
+    spec_streams,
 )
 from hpc_patterns_tpu_torch.models.transformer import TransformerConfig
 from hpc_patterns_tpu_torch.ops.flash_decode import raw
@@ -301,6 +318,9 @@ class _Slot:
     padded_len: int = 0      # the admission rung this row prefilled at
     t_admit: float = 0.0     # host clock at admission / install
     t_dispatch: object = None  # the admission's open device window
+    #: a draft row resumed with its last token as the pending one (no
+    #: first-token pick at admission)
+    resumed_cur: bool = False
 
 
 def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
@@ -353,6 +373,43 @@ def _chunk_step_rows(params, cache, pos, limit, tokens, keys, temps, rows,
     return pos, limit, tokens, out
 
 
+def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
+                temps, *, cfg, dcfg, gamma, rounds, eos_id, greedy, top_k):
+    """``rounds`` draft-assisted rounds, all enqueued without a host sync
+    (JAX ``serving.py:458-519``): each round is ``paged_round`` at each
+    row's cursor; a row advances ``min(a + 1, limit - pos)`` tokens, cut
+    after an emitted ``eos_id`` (>= 0), which also pulls its limit to its
+    new end. A row at its limit steps at a cursor clamped to 0 (its
+    garbage lands in its own first page or the trash page) and advances
+    nothing. ``streams``: ``spec_streams`` of the rows' keys (None when
+    greedy); ``temps`` (B,). Returns (pos, limit, cur, out (rounds, B,
+    gamma + 3) int32): a round's tokens (gamma + 1), then its advance and
+    its accepted count (0 for an idle row). The caches are updated in
+    place."""
+    k = torch.arange(gamma + 1, device=pos.device)[None, :]
+    outs = []
+    for _ in range(rounds):
+        active = pos < limit
+        pos_eff = torch.where(active, pos, 0)
+        a, emit = paged_round(params, cfg, dparams, dcfg, cache, dcache,
+                              pos_eff, cur, gamma, streams, greedy, top_k,
+                              temps)
+        adv = torch.where(active, torch.minimum(a + 1, limit - pos), 0)
+        if eos_id >= 0:
+            is_eos = (emit == eos_id) & (k < adv[:, None])
+            has = is_eos.any(dim=1)
+            first = is_eos.to(torch.int32).argmax(dim=1).to(torch.int32)
+            adv = torch.where(has, first + 1, adv)
+        new_cur = emit.gather(1, (adv - 1).clamp(0, gamma).long()[:, None])
+        cur = torch.where(adv > 0, new_cur[:, 0], cur)
+        pos = pos + adv
+        if eos_id >= 0:
+            limit = torch.where(has, pos, limit)
+        outs.append(torch.cat([emit, adv[:, None],
+                               torch.where(adv > 0, a, 0)[:, None]], dim=1))
+    return pos, limit, cur, torch.stack(outs)
+
+
 def _install_pages(pool, idx, payload):
     """Copy a migrated row's pages into ``pool`` at page ids ``idx``, in
     place (``index_copy_``; JAX's ``pool.at[idx].set`` returns a new
@@ -387,6 +444,8 @@ class EngineCore:
     SLOTarget}`` — each :meth:`ContinuousBatcher.run` then leaves its
     attainment rollup in ``last_slo``. ``emit``: a ``**record``
     callable receiving the engine's records (None = silent).
+    ``draft_params``/``draft_cfg``/``gamma``: draft-assisted rounds,
+    ``gamma`` proposals a round (``chunk`` rounds a dispatch).
     ``device``: default ``cuda`` (raises without a GPU unless
     ``device="cpu"``); params must live there."""
 
@@ -397,19 +456,28 @@ class EngineCore:
                  overlap: bool = True, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, preempt: bool = False,
                  admit_highwater: float = 1.0, residency=None,
-                 prefix_cache: bool = False, draft_params=None, mesh=None):
+                 prefix_cache: bool = False, draft_params=None,
+                 draft_cfg: TransformerConfig | None = None, gamma: int = 4,
+                 mesh=None):
         later = {"residency": residency is not None,
                  "prefix_cache": prefix_cache,
-                 "draft_params": draft_params is not None,
                  "mesh": mesh is not None}
         asked = [name for name, on in later.items() if on]
         if asked:
             raise ValueError(f"not ported yet: {', '.join(asked)} (later "
                              "slices: residency and the prefix cache with "
-                             "tiered memory, draft_params with speculative "
-                             "decoding, mesh with parallelism)")
+                             "tiered memory, mesh with parallelism)")
         if cfg.n_experts:
             raise ValueError("continuous batching: dense models only")
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError("draft/target vocab mismatch")
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            if draft_cfg.n_experts:
+                raise ValueError("continuous batching: dense models only")
         if slots < 1 or chunk < 1:
             raise ValueError(f"need slots >= 1 and chunk >= 1, got "
                              f"{slots}/{chunk}")
@@ -446,6 +514,13 @@ class EngineCore:
         self.top_k = int(top_k)
         self.greedy = self.temperature <= 0.0
         self.seed = int(seed)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.gamma = int(gamma)
+        self.spec = draft_params is not None
+        # speculative rounds touch positions up to pos + gamma; the page
+        # allocation (not max_seq) must cover the overshoot
+        self.spec_slack = self.gamma + 1 if self.spec else 0
         self.trash = pool_pages  # the appended trash page's id
         self.pool_pages = pool_pages
         self._table = np.full((slots, pages_per_seq), self.trash, np.int32)
@@ -453,6 +528,14 @@ class EngineCore:
             cfg, slots, pages_per_seq, page_size,
             pool_pages=pool_pages + 1, table=self._table,
             device=self.device)
+        if self.spec:
+            # the draft pool mirrors the target's page geometry and SHARES
+            # its page table (one allocation serves both caches)
+            self.dcache = init_paged_cache(
+                draft_cfg, slots, pages_per_seq, page_size,
+                pool_pages=pool_pages + 1, table=self._table,
+                device=self.device)
+            self.dcache["table"] = self.cache["table"]
         self.free_pages = list(range(pool_pages))
         z = dict(dtype=torch.int32, device=self.device)
         self.pos = torch.zeros((slots,), **z)
@@ -484,9 +567,14 @@ class EngineCore:
         self.chunk_windows: deque = deque(maxlen=8192)
         #: ragged decode steps dispatched (``chunk`` per dispatch) and
         #: admissions (one prefill each, resumes included) — what kernel
-        #: launch counts are checked against
+        #: launch counts are checked against; a draft engine counts its
+        #: rounds (``chunk`` per dispatch, ``gamma + 1`` draft steps each)
+        #: and, over the rows a round advanced, their row-rounds, tokens
+        #: and accepted proposals
         self.decode_steps = 0
         self.admissions = 0
+        self.spec_rounds = 0
+        self.spec_stats = {"row_rounds": 0, "tokens": 0, "accepted": 0}
         #: the distinct padded prefill lengths admitted (the shapes a JAX
         #: engine compiles one prefill for; bounded by the ladder)
         self.prefill_rungs: set[int] = set()
@@ -499,10 +587,14 @@ class EngineCore:
 
     @staticmethod
     def pages_needed(prompt_len: int, max_new: int, page_size: int, *,
+                     gamma: int | None = None,
                      padded_len: int | None = None) -> int:
-        """Pages one request holds: prompt + budget, or the bucket-padded
-        prefill length if that reaches further — THE sizing rule."""
-        span = max(prompt_len + max_new, padded_len or 0)
+        """Pages one request holds: prompt + budget, plus the speculative
+        overshoot slack (gamma + 1) when a draft serves, or the
+        bucket-padded prefill length if that reaches further — THE sizing
+        rule; callers sizing their own pools (serve_app) use it."""
+        slack = (gamma + 1) if gamma is not None else 0
+        span = max(prompt_len + max_new + slack, padded_len or 0)
         return -(-span // page_size)
 
     def _bucket_len(self, prompt_len: int) -> int:
@@ -510,6 +602,7 @@ class EngineCore:
 
     def _pages_for(self, prompt_len: int, max_new: int) -> int:
         return self.pages_needed(prompt_len, max_new, self.page_size,
+                                 gamma=self.gamma if self.spec else None,
                                  padded_len=self._bucket_len(prompt_len))
 
     def _known(self, sid: int) -> bool:
@@ -683,6 +776,8 @@ class EngineCore:
         self._table[slot] = row
         self.cache["table"] = torch.from_numpy(self._table.copy()).to(
             self.device)
+        if self.spec:
+            self.dcache["table"] = self.cache["table"]
         return row
 
     def _admit(self, slot: int, req: Request, need: int,
@@ -696,10 +791,15 @@ class EngineCore:
         window = rec.open_window(self.device) if rec is not None else None
         pages = [self.free_pages.pop() for _ in range(need)]
         row = self._seat(slot, pages)
-        T = int(req.prompt.size)
+        # a resumed draft row prefills all but its last token, which stays
+        # pending (cur): its next round starts where an uninterrupted
+        # run's would, so its sampled draws are the same
+        resumed_cur = self.spec and req.resume_prefix is not None
+        T = int(req.prompt.size) - resumed_cur
         padded = self._bucket_len(T)
         prompt = np.zeros((padded,), np.int32)
-        prompt[:T] = req.prompt  # pad K/V is cursor-masked garbage
+        prompt[:T] = req.prompt[:T]  # pad K/V is cursor-masked garbage
+        prompt_dev = torch.from_numpy(prompt)[None, :].to(self.device)
         # the shared pools (scale pools too, for a one-byte cache) under
         # this row's own one-row table
         one = dict(self.cache)
@@ -708,27 +808,36 @@ class EngineCore:
                              padded_len=padded), \
                 tracelib.compile_watch("serving._prefill_one",
                                        padded_len=padded):
-            logits, _ = paged_prefill(
-                self.params,
-                torch.from_numpy(prompt)[None, :].to(self.device),
-                self.cfg, one, self.page_size, last_pos=T - 1)
-        if self.greedy:
-            first = _pick(logits)[0]
-        else:
-            # the row's key and temperature, then the draw at position
-            # T — paged_generate's first pick
+            logits, _ = paged_prefill(self.params, prompt_dev, self.cfg,
+                                      one, self.page_size, last_pos=T - 1)
+        if self.spec:
+            done = dict(self.dcache, table=one["table"])
+            with tracelib.compile_watch("serving._prefill_one[draft]",
+                                        padded_len=padded):
+                paged_prefill(self.draft_params, prompt_dev, self.draft_cfg,
+                              done, self.page_size, last_pos=T - 1)
+        if not self.greedy:
+            # the row's key and temperature
             key = (req.key if req.key is not None
                    else self.request_key(req.seq_id))
             temp = max(req.temperature if req.temperature is not None
                        else self.temperature, 1e-6)
             self.keys[slot] = _as_keys(key, 1, self.device)[0]
             self.temps[slot] = temp
+        if resumed_cur:
+            first = torch.tensor(int(req.prompt[-1]), dtype=torch.int32,
+                                 device=self.device)
+        elif self.greedy:
+            first = _pick(logits)[0]
+        else:
+            # the draw at position T — paged_generate's first pick
             first = _pick(logits, self.temps[slot:slot + 1], self.top_k,
                           self.keys[slot:slot + 1], T)[0]
-        # budget b emits 1 token at admission + (limit - T) from chunks
-        lim = torch.full((), T + req.max_new - 1, dtype=torch.int32,
-                         device=self.device)
-        if self.eos_id >= 0:
+        # budget b emits 1 token at admission + (limit - T) from chunks (a
+        # resumed draft row emits none at admission)
+        lim = torch.full((), T + req.max_new - 1 + resumed_cur,
+                         dtype=torch.int32, device=self.device)
+        if self.eos_id >= 0 and not resumed_cur:
             lim = torch.where(first == self.eos_id,
                               torch.full_like(lim, T), lim)
         self.pos[slot] = T
@@ -741,7 +850,8 @@ class EngineCore:
             deadline_s=req.deadline_s, temp_override=req.temperature,
             prefix=([] if req.resume_prefix is None
                     else [int(t) for t in req.resume_prefix]),
-            padded_len=padded, t_admit=time.perf_counter())
+            padded_len=padded, t_admit=time.perf_counter(),
+            resumed_cur=resumed_cur)
         if rec is not None:
             # every admission op is enqueued: the first-token readback
             # in _resolve_pending closes the window
@@ -786,8 +896,9 @@ class EngineCore:
             st = self._slots[slot]
             first = int(st.first_dev)
             st.first_dev = None
-            # a resumed row re-opens with everything it already emitted
-            st.out = list(st.prefix) + [first]
+            # a resumed row re-opens with everything it already emitted (a
+            # resumed draft row's first token is the last of those)
+            st.out = list(st.prefix) + ([] if st.resumed_cur else [first])
             tr = tracelib.active()
             if tr is not None and st.t_dispatch:
                 # the readback IS completion: prefill + first-token pick
@@ -799,7 +910,7 @@ class EngineCore:
             rec = self.stats.get(st.seq_id)
             if rec is not None and rec["t_first"] is None:
                 rec["t_first"] = now
-            if rec is not None:
+            if rec is not None and not st.resumed_cur:
                 # first-token availability (a resume stamps only its new
                 # token: the prefix's stamps rode the earlier life)
                 rec.setdefault("token_ts", []).append(now)
@@ -814,8 +925,9 @@ class EngineCore:
                 if self.slo is not None:
                     m.histogram(
                         f"serve.ttft_s.p{st.priority}").observe(ttft)
-            if (self.eos_id >= 0 and first == self.eos_id) \
-                    or st.budget == 1:
+            if not st.resumed_cur and (
+                    (self.eos_id >= 0 and first == self.eos_id)
+                    or st.budget == 1):
                 self._finish(slot)
         self._pending.clear()
 
@@ -1048,6 +1160,66 @@ class EngineCore:
             if pos_start[i] + valid >= limit_new[i]:
                 self._finish(i)
 
+    def _dispatch_spec(self):
+        """``chunk`` draft-assisted rounds a dispatch (:func:`_spec_chunk`:
+        budget and EOS truncation on the device between rounds, so an
+        over-acceptance past a limit is dropped there). With a flight
+        recorder the chunk is one device window on track 0."""
+        parts = [i for i, s in enumerate(self._slots) if s.active]
+        rec = tracelib.active()
+        window = rec.open_window(self.device) if rec is not None else None
+        with metricslib.span("serve.spec_dispatch", rounds=self.chunk,
+                             gamma=self.gamma), \
+                tracelib.compile_watch("serving._spec_chunk",
+                                       rounds=self.chunk, gamma=self.gamma):
+            self.pos, self.limit, self.tokens, out = _spec_chunk(
+                self.params, self.draft_params, self.cache, self.dcache,
+                self.pos, self.limit, self.tokens,
+                None if self.greedy else spec_streams(self.keys),
+                self.temps, cfg=self.cfg, dcfg=self.draft_cfg,
+                gamma=self.gamma, rounds=self.chunk, eos_id=self.eos_id,
+                greedy=self.greedy, top_k=self.top_k)
+        self.spec_rounds += self.chunk
+        t_disp = (rec.mark_dispatch(
+            "serve.spec_chunk", {"rounds": self.chunk, "gamma": self.gamma,
+                                 "rows": len(parts)}, window=window)
+                  if rec is not None else None)
+        return parts, out, t_disp
+
+    def _collect_spec(self, inflight):
+        parts, out, t_disp = inflight
+        g1 = self.gamma + 1
+        with metricslib.span("serve.spec_round", rounds=self.chunk,
+                             gamma=self.gamma):
+            out = out.cpu().numpy()  # (rounds, slots, gamma + 3); = sync
+        rec = tracelib.active()
+        if rec is not None and t_disp:
+            rec.mark_complete("serve.spec_chunk", t_disp,
+                              {"rounds": self.chunk, "rows": len(parts)})
+        emits, advs, accs = out[..., :g1], out[..., g1], out[..., g1 + 1]
+        self.spec_stats["row_rounds"] += int((advs > 0).sum())
+        self.spec_stats["tokens"] += int(advs.sum())
+        self.spec_stats["accepted"] += int(accs.sum())
+        pos_np = self.pos.cpu().numpy()
+        limit_np = self.limit.cpu().numpy()
+        # the chunk's tokens all became host-visible at this readback
+        now = time.perf_counter()
+        for i in parts:
+            st = self._slots[i]
+            if not st.active:
+                continue
+            accepted = 0
+            for r in range(advs.shape[0]):
+                v = int(advs[r, i])
+                if v:
+                    st.out.extend(int(t) for t in emits[r, i, :v])
+                    accepted += v
+            rec_s = self.stats.get(st.seq_id)
+            if rec_s is not None and accepted:
+                rec_s.setdefault("token_ts", []).extend([now] * accepted)
+            if pos_np[i] >= limit_np[i]:
+                self._finish(i)
+
     def service_round(self, *, decode: bool = True, chaos_index=None,
                       pre_collect=None) -> dict:
         """ONE scheduler round: the chaos probe (``chaos_index``: this
@@ -1070,10 +1242,12 @@ class EngineCore:
         if self.preempt:
             self._maybe_preempt()
         active = lambda: any(s.active for s in self._slots)  # noqa: E731
+        dispatch = self._dispatch_spec if self.spec else self._dispatch_chunk
+        collect = self._collect_spec if self.spec else self._collect_chunk
         inflight = None
         t_chunk0 = 0.0
         if decode and self.overlap and active():
-            inflight = self._dispatch_chunk()
+            inflight = dispatch()
             t_chunk0 = time.perf_counter()
         t0 = time.perf_counter()
         admitted = self._try_admit(overlapped=inflight is not None)
@@ -1083,14 +1257,14 @@ class EngineCore:
         if inflight is None:
             exposed_s = time.perf_counter() - t0
             if decode and active():
-                inflight = self._dispatch_chunk()
+                inflight = dispatch()
                 t_chunk0 = time.perf_counter()
             elif not active():
                 stalled = bool(self._queue) and not admitted
         if pre_collect is not None:
             pre_collect(inflight is not None)
         if inflight is not None:
-            self._collect_chunk(inflight)
+            collect(inflight)
             if self.track_chunk_windows:
                 self.chunk_windows.append((t_chunk0, time.perf_counter()))
         return {"admitted": admitted, "exposed_s": exposed_s,
@@ -1155,6 +1329,10 @@ class EngineCore:
         st = self._slots[slot]
         if not st.active or slot in self._pending or st.prompt is None:
             raise ValueError(f"slot {slot} has no exportable row")
+        if self.spec:
+            raise ValueError(
+                "draft-assisted engines do not migrate: the draft cache's "
+                "row state would have to move too")
         pos, limit, token = torch.stack(
             [self.pos[slot], self.limit[slot], self.tokens[slot]]).tolist()
         if self.greedy:
@@ -1211,6 +1389,8 @@ class EngineCore:
         plane calls this from ``service_round``'s ``pre_collect``).
         The whole payload is installed (prefix resolution waits for the
         prefix cache). Returns the slot."""
+        if self.spec:
+            raise ValueError("draft-assisted engines do not migrate")
         if bundle.page_size != self.page_size:
             raise ValueError(
                 f"page_size mismatch: bundle {bundle.page_size} vs "

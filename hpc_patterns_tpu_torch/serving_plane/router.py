@@ -118,6 +118,10 @@ class Replica:
                  role: str = "both", device=None):
         if role not in ROLES:
             raise ValueError(f"role {role!r} not in {ROLES}")
+        if engine.draft_params is not None and role != "both":
+            raise ValueError(
+                "draft-assisted engines cannot take a migration role "
+                "(the draft cache's row state does not migrate)")
         if device is not None:
             phys = migration_dma.endpoint(device)[0]
             if migration_dma.endpoint(engine.device)[0] != phys:

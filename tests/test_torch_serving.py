@@ -146,8 +146,7 @@ def test_sizing_helpers_equal_jax(max_len):
 
 
 @pytest.mark.parametrize("kw", [
-    {"residency": object()}, {"prefix_cache": True}, {"draft_params": {}},
-    {"mesh": object()},
+    {"residency": object()}, {"prefix_cache": True}, {"mesh": object()},
 ])
 def test_later_slice_options_raise(model, kw):
     _, tcfg, _, tp = model
@@ -155,6 +154,25 @@ def test_later_slice_options_raise(model, kw):
         tsrv.ContinuousBatcher(tp, tcfg, slots=1, pool_pages=4,
                                pages_per_seq=4, page_size=P,
                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({}, "draft_cfg"),
+    ({"draft_cfg": "vocab32"}, "vocab mismatch"),
+    ({"draft_cfg": "same", "gamma": 0}, "gamma"),
+])
+def test_draft_engine_guards(model, kw, match):
+    # JAX's engine guards (hpc_patterns_tpu/models/serving.py:721-727)
+    _, tcfg, _, tp = model
+    kw = dict(kw)
+    if kw.get("draft_cfg") == "vocab32":
+        kw["draft_cfg"] = dataclasses.replace(tcfg, vocab=32)
+    elif kw.get("draft_cfg") == "same":
+        kw["draft_cfg"] = tcfg
+    with pytest.raises(ValueError, match=match):
+        tsrv.ContinuousBatcher(tp, tcfg, slots=1, pool_pages=4,
+                               pages_per_seq=4, page_size=P, device="cpu",
+                               draft_params=tp, **kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -252,8 +270,6 @@ def test_serve_app_serves_a_train_app_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,names", [
-    (["--draft-pair", "pair"], "speculative"),
-    (["--gamma", "2"], "speculative"),
     (["--autofit", "fit.json"], "item 2"),
     (["--explain"], "item 2"),
 ])
@@ -262,3 +278,17 @@ def test_serve_app_later_flags_name_their_slice(capsys, flag, names):
     out = capsys.readouterr().out
     assert "not ported yet" in out and names in out
     assert out.strip().endswith("FAILURE")
+
+
+@pytest.mark.parametrize("flag,says", [
+    (["--checkpoint-dir", "ck"], "--checkpoint-dir would be silently"),
+    (["--kv-dtype", "int8"], "--kv-dtype int8 would be silently"),
+    ([], "cannot load the pair"),
+])
+def test_serve_app_draft_pair_guards(capsys, tmp_path, flag, says):
+    # JAX's app guards (hpc_patterns_tpu/apps/serve_app.py:132-146) and a
+    # pair directory that holds no pair
+    assert serve_app.main(["--device", "cpu", "--draft-pair",
+                           str(tmp_path / "no_pair"), *flag]) == 1
+    out = capsys.readouterr().out
+    assert says in out and out.strip().endswith("FAILURE"), out
