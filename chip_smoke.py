@@ -69,14 +69,47 @@ Phases, each printing JSON lines:
               alone;
 3b. scenario — ``bench_serving.run_scenario`` at the chip widths: (a) the
               staged chaos schedule (page 16, 3 slots, pool 25, two seeded
-              stalls) whose pool forces a preemption (>= 1 asserted), (b)
-              the bursty stream (page 256, 8 slots, 32 requests at 16 rps,
-              pool 2.5 rows, high-water 0.95, a stall every 12 rounds):
-              every served sequence, resumed ones included, on its
-              standalone; the timed run's kernel 1 and 6 launches against
-              its counted calls; tokens/s, goodput, preemptions, sheds and
-              the static baseline printed;
-3c. spec    — speculative decoding at the card widths: (a) the aligned
+              stalls, arrivals on the engine's progress clock) whose pool
+              forces a preemption (>= 1 asserted), (b) the bursty stream
+              (page 256, 8 slots, 32 requests at 16 rps, pool 2.5 rows,
+              high-water 0.95, a stall every 12 rounds): every served
+              sequence, resumed ones included, on its standalone; the
+              timed run's kernel 1 and 6 launches against its counted
+              calls; tokens/s, goodput, preemptions, sheds, the
+              attribution shares, the budget breaches and the static
+              baseline printed; each part's request trace and breach
+              records logged for phase fit;
+3c. fit     — the observability-and-control layer: (a) ``serve_app
+              --explain --explain-out`` at the serve phase's model and
+              stream (8 requests) logs a run (SUCCESS, the attribution
+              table and digest), ``python -m
+              hpc_patterns_tpu_torch.harness.autofit run.jsonl --emit``
+              fits a config from it (a ladder section, fitted E[pad] <=
+              the default's), ``serve_app --autofit`` replays it (SUCCESS,
+              the fitted ladder printed, every sequence on its
+              standalone); kernel 1 and 6 launches of both measured runs
+              against their counted calls; (b) ``bench_serving.run_fitted``
+              at ``fit_full_config`` (prompts 128/320/512 at 0.2/0.6/0.2,
+              page 256, 8 slots, 32 requests, budgets to 256): the strict
+              padding win and both legs on their standalone, the goodputs
+              and ``autofit_gain_frac`` printed, not asserted, every engine
+              run's launches counted; the explain CLI and the budget
+              evaluation over phase scenario's two request traces (the
+              breaches equal to the row's and to the logged records); (c)
+              two concurrent processes of ``allreduce_app --algorithm
+              fused --trace`` (world 4, 2^20 f32 a rank; ``HPCPAT_PROCESS_ID``
+              0/1, ``HPCPAT_NUM_PROCESSES`` 2, one ``HPCPAT_TRACE_DIR``),
+              each printing its kernel 11 launches, merged by ``python -m
+              hpc_patterns_tpu_torch.harness.collect DIR -o merged.json
+              --rollup-out rollup.json``: 2 pid lanes, matched collectives
+              whose flow events pair up, schedule ``consistent``, the
+              report's trace_merged line; (d) two ``hpc_patterns_tpu_torch.
+              bench --gate DIR`` rounds (0.05 s a pass): the gate's table
+              and exit code printed (0 or 1 asserted, the gated keys
+              named), then a copy of the newest round with its value
+              halved must exit 1. The bench rounds also launch kernels 11,
+              12 and 14; the table does not count them;
+3d. spec    — speculative decoding at the card widths: (a) the aligned
               pair (``make_draft_pair`` at its card widths: vocab 32768,
               d_model 1024, 8 heads with 2 KV heads, d_ff 4096, bf16,
               rope; 8 target and 2 draft layers; 200 / 200 steps), which
@@ -92,7 +125,7 @@ Phases, each printing JSON lines:
               tokens/s, tokens a row a round and the acceptance a /
               gamma; (c) 8 requests on int8 pools against the target's
               own int8 standalone; (d) ``bench_speculative --pair --n
-              256`` at gamma 2, 4, 8, greedy and sampled, and
+              128`` at gamma 2, 4, 8, greedy and sampled, and
               ``--batched 8`` at 64 tokens a call.
               Every engine run's kernel 1 launches == (8 + 2) x its flash
               admissions, kernel 6's (6q's on int8) == 2 x (gamma + 1) x
@@ -2381,25 +2414,33 @@ def phase_sample(ctx):
 def phase_scenario():
     """The robustness row at the chip widths: (a) the staged chaos
     schedule (page 16, 3 slots, pool 25, the ladder over 192, two seeded
-    50 ms stalls), whose pool forces a preemption; (b) the bursty stream
-    at the chip shape (page 256, 8 slots, 32 requests at 16 rps, pool 2.5
-    rows, high-water 0.95, a stall every 12 rounds). Each through
+    50 ms stalls, arrivals on the engine's progress clock), whose pool
+    forces a preemption; (b) the bursty stream at the chip shape (page
+    256, 8 slots, 32 requests at 16 rps on the wall clock, pool 2.5 rows,
+    high-water 0.95, a stall every 12 rounds). Each through
     ``bench_serving.run_scenario``: every served sequence (resumed ones
     included) on its standalone, the timed engine run's kernel 1 and 6
     launches against its counted calls; tokens/s, goodput, preemptions,
-    sheds and the static baseline printed."""
+    sheds, the attribution shares, the budget breaches and the static
+    baseline printed; each part's request trace and breach records land
+    in ``build/smoke_scenario/<part>.jsonl`` for phase fit."""
     from hpc_patterns_tpu_torch import bench_serving as bs
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     out, launches = {}, {"flash_prefill": 0, "paged_decode": 0}
+    logs = ROOT / "build" / "smoke_scenario"
+    logs.mkdir(parents=True, exist_ok=True)
+    ctx = {"logs": {}, "budget_breaches": {}}
     orig = bs.ContinuousBatcher
     for part, conf in (("staged", bs.scenario_smoke_config(dev, chip=True)),
                        ("bursty", bs.scenario_full_config(dev))):
         runs: list = []
+        log = ctx["logs"][part] = logs / f"{part}.jsonl"
+        log.unlink(missing_ok=True)
         bs.ContinuousBatcher = _counting_engine(orig, runs)
         try:
-            res = bs.run_scenario(**conf)
+            res = bs.run_scenario(**conf, log=log)
         finally:
             bs.ContinuousBatcher = orig
         timed = _check_launches(runs[-1], f"scenario {part}")
@@ -2411,13 +2452,369 @@ def phase_scenario():
                   f"scenario staged: preemptions {res['preemptions']} >= 1")
         out[part] = {k: v for k, v in res.items() if k != "schedule"}
         out[part]["launches"] = timed
+        ctx["budget_breaches"][part] = res["budget_breaches"]
         out[part]["config"] = {
-            k: conf[k] for k in ("page_size", "slots", "chunk", "pool_pages",
-                                 "pages_per_seq", "chaos_spec",
-                                 "admit_highwater")}
+            k: conf.get(k) for k in ("page_size", "slots", "chunk",
+                                     "pool_pages", "pages_per_seq",
+                                     "chaos_spec", "admit_highwater",
+                                     "arrival_round_s")}
         out[part]["config"]["buckets"] = list(conf["buckets"])
         out[part]["config"]["schedule"] = conf["schedule"].spec
     emit({"phase": "scenario", **out,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, ctx
+
+
+# phase fit: serve_app's record and replay legs serve 8 requests of the
+# serve phase's stream (cut from 16: each leg also runs every sequence's
+# standalone); the collect leg's two processes run one fused point of 2^20
+# f32 a rank at 4 logical ranks; the gate's bench rounds measure each pass
+# for 0.05 s after 100 calibration passes (the bench's defaults: 1 s, 1000)
+FIT_REQUESTS = 8
+FIT_COLLECT = dict(p=20, world=4, repetitions=5)
+FIT_GATE = ["--target-s", "0.05", "--cal-passes", "100"]
+FIT_CUTS = {"serve_app_requests": "16 -> 8",
+            "gate_bench": "per-pass 1 s -> 0.05 s, calibration 1000 -> 100"}
+
+
+def _fit_serve(argv_extra, log):
+    """serve_app in-process at the serve phase's model and stream (the
+    benchmark's), its engine runs counted: (exit code, records, printed
+    lines, counted runs)."""
+    from hpc_patterns_tpu_torch.apps import serve_app
+    from hpc_patterns_tpu_torch.apps.serve_app import CHIP_MODEL, CHIP_SERVE
+
+    s = CHIP_SERVE
+    argv = ["--device", "cuda", "--dtype", CHIP_MODEL["dtype"],
+            "--vocab", str(CHIP_MODEL["vocab"]),
+            "--d-model", str(CHIP_MODEL["d_model"]),
+            "--n-layers", str(CHIP_MODEL["n_layers"]),
+            "--n-heads", str(CHIP_MODEL["n_heads"]),
+            "--requests", str(FIT_REQUESTS), "--slots", str(s["slots"]),
+            "--chunk", str(s["chunk"]), "--page-size", str(s["page_size"]),
+            "--prompt-len", str(s["prompt_len"]),
+            "--budget", str(s["max_budget"]), *argv_extra]
+    runs: list = []
+    orig = serve_app.make_requests, serve_app.ContinuousBatcher
+    serve_app.make_requests = lambda n, plen, budget, vocab, mix: \
+        serve_app.bench_stream(n, plen, budget, vocab)
+    serve_app.ContinuousBatcher = _counting_engine(orig[1], runs)
+    try:
+        code, recs = run_app(serve_app.main, argv, log)
+    finally:
+        serve_app.make_requests, serve_app.ContinuousBatcher = orig
+    return code, recs, log.with_suffix(".out").read_text().splitlines(), runs
+
+
+def _fit_record_replay(logs) -> tuple[dict, dict]:
+    """(a): serve_app --explain records a run log, the autofit CLI fits a
+    config from it, serve_app --autofit replays it."""
+    from hpc_patterns_tpu_torch.harness import autofit
+
+    out, launches = {}, {"flash_prefill": 0, "paged_decode": 0}
+    log, digest = logs / "run.jsonl", logs / "digest.json"
+    code, recs, printed, runs = _fit_serve(
+        ["--explain", "--explain-out", str(digest)], log)
+    (res,) = [r for r in recs if r["kind"] == "result"]
+    check(code == 0 and "SUCCESS" in printed
+          and res["oracle"]["mismatch"] == 0,
+          f"fit: serve_app --explain prints SUCCESS, oracle {res['oracle']}")
+    dig = json.loads(digest.read_text())
+    check(dig["n"] == FIT_REQUESTS
+          and any(r["kind"] == "reqtrace" for r in recs)
+          and any(ln.startswith("request forensics") for ln in printed),
+          f"fit: the attribution table, the digest of {dig['n']} requests "
+          "and a kind=reqtrace record")
+    timed = _check_launches(runs[-1], "fit record")
+    out["record"] = {"tokens_per_s": res["tokens_per_s"],
+                     "oracle": res["oracle"], "launches": timed,
+                     "coverage_frac": dig["coverage_frac"],
+                     "ttft_p99_queue_share": dig["ttft_p99_queue_share"],
+                     "tpot_p99_stall_share": dig["tpot_p99_stall_share"]}
+    for k in launches:
+        launches[k] += timed[k]
+
+    fitted = logs / "fitted.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.harness.autofit", str(log), "--emit",
+         str(fitted)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    check(proc.returncode == 0, f"fit: autofit --emit exits 0 "
+          f"({proc.stdout.strip()} {proc.stderr.strip()[-500:]})")
+    cfg = autofit.load_fitted(fitted)
+    lad = cfg["ladder"]
+    check(lad is not None and lad["expected_padding"]
+          <= lad["default_expected_padding"],
+          f"fit: a ladder section, fitted E[pad] <= the default's ({lad})")
+    out["fitted"] = {"ladder": lad["buckets"],
+                     "default_ladder": lad["default_ladder"],
+                     "expected_padding": lad["expected_padding"],
+                     "default_expected_padding":
+                         lad["default_expected_padding"],
+                     "sections": [k for k in ("ladder", "residency",
+                                              "placement", "autoscaler",
+                                              "blame") if cfg.get(k)],
+                     "blame": cfg["blame"]}
+
+    code, recs, printed, runs = _fit_serve(["--autofit", str(fitted)],
+                                           logs / "replay.jsonl")
+    (res,) = [r for r in recs if r["kind"] == "result"]
+    from hpc_patterns_tpu_torch.apps.serve_app import CHIP_SERVE
+
+    ladder = list(autofit.ladder_from(cfg, max_seq=CHIP_SERVE["prompt_len"]))
+    check(code == 0 and "SUCCESS" in printed
+          and f"autofit ladder from {fitted}: {ladder}" in printed
+          and res["prompt_buckets"] == ladder
+          and res["oracle"]["mismatch"] == 0,
+          f"fit: serve_app --autofit serves the fitted ladder {ladder} to "
+          f"SUCCESS, every sequence on its standalone ({res['oracle']})")
+    timed = _check_launches(runs[-1], "fit replay")
+    out["replay"] = {"tokens_per_s": res["tokens_per_s"],
+                     "oracle": res["oracle"], "launches": timed,
+                     "prompt_buckets": res["prompt_buckets"]}
+    for k in launches:
+        launches[k] += timed[k]
+    return out, launches
+
+
+def _fit_row(scenario_ctx, logs) -> tuple[dict, dict]:
+    """(b): bench_serving's --fit row at fit_full_config on the card,
+    every engine run's launches counted; then the explain CLI and the
+    budget evaluation over the scenario phase's request traces."""
+    from hpc_patterns_tpu_torch import bench_serving as bs
+    from hpc_patterns_tpu_torch.harness import budget, slo
+    from hpc_patterns_tpu_torch.harness.report import load_records
+
+    dev = torch.device("cuda")
+    runs: list = []
+    orig = bs.ContinuousBatcher
+    bs.ContinuousBatcher = _counting_engine(orig, runs)
+    try:
+        res = bs.run_fitted(**bs.fit_full_config(dev), quiet=True)
+    finally:
+        bs.ContinuousBatcher = orig
+    launches = {"flash_prefill": 0, "paged_decode": 0}
+    for i, run in enumerate(runs):
+        timed = _check_launches(run, f"fit row run {i}")
+        for k in launches:
+            launches[k] += timed[k]
+    oracle = res["oracle"]
+    check(res["expected_padding_fitted"] < res["expected_padding_default"]
+          and all(v["exact"] + v["near_tie"] == 32 for v in oracle.values()),
+          f"fit row: strict padding win (E[pad] "
+          f"{res['expected_padding_default']} -> "
+          f"{res['expected_padding_fitted']}), both legs on their "
+          f"standalone ({oracle})")
+    out = {k: res[k] for k in (
+        "default_goodput_tok_s", "fitted_goodput_tok_s", "autofit_gain_frac",
+        "t_default", "t_fitted", "tokens", "ladder_default", "ladder_fitted",
+        "expected_padding_default", "expected_padding_fitted",
+        "config_sections", "oracle")}
+    out["engine_runs"] = len(runs)
+    out["blame_ab"] = "waits for the residency manager (ROADMAP item 3)"
+
+    targets = slo.targets_from_classes(bs.SCENARIO_CLASSES)
+    out["scenario_traces"] = {}
+    for part, log in scenario_ctx["logs"].items():
+        dig_path = logs / f"scenario_{part}.digest.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.harness.explain", str(log), "-o",
+             str(dig_path)], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0 and "request forensics" in proc.stdout,
+              f"fit: explain CLI over the scenario's {part} trace "
+              f"({proc.stderr.strip()[-500:]})")
+        recs = load_records([log])
+        (snap,) = [r for r in recs if r.get("kind") == "reqtrace"]
+        breaches = budget.evaluate(snap, targets)
+        n_records = sum(r.get("kind") == "slo_budget" for r in recs)
+        check(len(breaches) == n_records
+              == scenario_ctx["budget_breaches"][part],
+              f"fit: scenario {part} budget breaches {len(breaches)} == "
+              f"its slo_budget records {n_records} == the row's")
+        dig = json.loads(dig_path.read_text())
+        out["scenario_traces"][part] = {
+            "budget_breaches": len(breaches),
+            "breached_segments": sorted(budget.breached_segments(breaches)),
+            "coverage_frac": dig["coverage_frac"],
+            "ttft_p99_queue_share": dig["ttft_p99_queue_share"],
+            "tpot_p99_stall_share": dig["tpot_p99_stall_share"],
+            "table": proc.stdout.splitlines()[:4]}
+    return out, launches
+
+
+_RANK_MAIN = (
+    "import json, sys\n"
+    "from hpc_patterns_tpu_torch.apps import allreduce_app\n"
+    "from hpc_patterns_tpu_torch.comm import fused\n"
+    "rc = allreduce_app.main(sys.argv[1:])\n"
+    "print(json.dumps({'fused_allreduce': fused.launches['fused_allreduce']"
+    "}))\n"
+    "sys.exit(rc)\n")
+
+
+def _fit_collect(logs) -> tuple[dict, int]:
+    """(c): two processes of allreduce_app --algorithm fused --trace (its
+    ``main``, as ``python -m`` runs it, each printing its kernel 11
+    launch count after) under one HPCPAT_TRACE_DIR, then the collect CLI
+    over that directory, then the report over its trace_merged record."""
+    import os
+    import shutil
+
+    from hpc_patterns_tpu_torch.harness import report
+
+    ranks = logs / "ranks"
+    shutil.rmtree(ranks, ignore_errors=True)
+    c = FIT_COLLECT
+    argv = ["--algorithm", "fused", "--trace", "-p", str(c["p"]),
+            "--world", str(c["world"]), "--repetitions",
+            str(c["repetitions"]), "--device", "cuda"]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, HPCPAT_TRACE_DIR=str(ranks),
+                   HPCPAT_PROCESS_ID=str(rank), HPCPAT_NUM_PROCESSES="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_MAIN, *argv,
+             "--log", str(logs / f"rank{rank}.jsonl")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            outs.append((proc.returncode, stdout, stderr))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (rc, stdout, stderr) in enumerate(outs):
+        check(rc == 0 and "SUCCESS" in stdout,
+              f"fit: rank {rank} allreduce_app exits 0 with SUCCESS "
+              f"(rc {rc}: {stderr.strip()[-500:]})")
+    launches = [json.loads(o[1].strip().splitlines()[-1])["fused_allreduce"]
+                for o in outs]
+    check(all(n > 0 for n in launches),
+          f"fit: kernel 11 launched in both rank processes ({launches})")
+
+    merged, rollup_path = logs / "merged.json", logs / "rollup.json"
+    clog = logs / "collect.jsonl"
+    clog.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.harness.collect", str(ranks), "-o",
+         str(merged), "--rollup-out", str(rollup_path), "--log", str(clog)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"fit: collect exits 0 "
+          f"({proc.stderr.strip()[-500:]})")
+    chrome = json.loads(merged.read_text())
+    rollup = json.loads(rollup_path.read_text())
+    lanes = {e["pid"] for e in chrome["traceEvents"]
+             if e.get("name") == "process_name"}
+    flows: dict = {}
+    for e in chrome["traceEvents"]:
+        if e.get("cat") == "collective" and e["ph"] in ("s", "t", "f"):
+            flows.setdefault(e["id"], []).append(e["ph"])
+    paired = all(p[0] == "s" and p[-1] == "f" and len(p) >= 2
+                 for p in flows.values())
+    check(len(lanes) == 2, f"fit: 2 pid lanes in the merge ({lanes})")
+    check(rollup["n_matched"] >= 1 and len(flows) == rollup["n_matched"]
+          and paired,
+          f"fit: {rollup['n_matched']} matched collective(s), "
+          f"{len(flows)} flow chain(s), paired {paired}")
+    check(rollup["schedule"]["verdict"] == "consistent",
+          f"fit: schedule verdict {rollup['schedule']['verdict']}")
+    table = report.format_report(report.aggregate(
+        report.load_records([clog])))
+    line = [ln for ln in table.splitlines() if ln.startswith("trace_merged")]
+    check(bool(line) and "2 rank(s)" in line[0]
+          and str(rollup_path) in line[0],
+          f"fit: report renders the trace_merged record ({line})")
+    out = {"ranks": 2, "lanes": len(lanes), "n_matched": rollup["n_matched"],
+           "n_unmatched": rollup["n_unmatched"], "flows": len(flows),
+           "align": rollup["align"]["method"],
+           "schedule": rollup["schedule"], "skew": rollup["skew"],
+           "stragglers": rollup["stragglers"], "busy": rollup["busy"],
+           "launches_by_rank": launches, "report_line": line[0],
+           "config": FIT_COLLECT}
+    return out, sum(launches)
+
+
+def _fit_gate(logs) -> dict:
+    """(d): two ``bench --gate DIR`` rounds into a scratch directory, the
+    gate's table and exit code printed; then a copy of the newest round
+    with its value halved must fail the gate."""
+    import contextlib
+    import shutil
+
+    from hpc_patterns_tpu_torch import bench
+    from hpc_patterns_tpu_torch.harness import regress
+
+    gdir = logs / "gate"
+    shutil.rmtree(gdir, ignore_errors=True)
+    rounds = []
+    for i in range(2):
+        text = logs / f"gate{i}.out"
+        with open(text, "w") as f, contextlib.redirect_stdout(f):
+            rc = bench.main(["--gate", str(gdir), *FIT_GATE])
+        rounds.append((rc, text.read_text()))
+    rc, printed = rounds[-1]
+    table = printed[printed.index("newest comparable"):]
+    check(rc in (0, 1), f"fit: the gate's exit code {rc} is 0 or 1")
+    check(all(k in table for k in ("headline value", "vs_baseline",
+                                   "detail.fused_allreduce_gbps",
+                                   "detail.allreduce_busbw_gbps")),
+          "fit: the gate's table names the gated keys")
+    newest = json.loads((gdir / "BENCH_r02.json").read_text())
+    check(newest["parsed"] is not None, "fit: the second round parsed")
+    halved = dict(newest, n=3, parsed=dict(
+        newest["parsed"], value=newest["parsed"]["value"] / 2))
+    (gdir / "BENCH_r03.json").write_text(json.dumps(halved))
+    with open(logs / "gate_halved.out", "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc_halved = regress.main(sorted(map(str, gdir.glob("BENCH_r*.json"))))
+    check(rc_halved == 1, f"fit: a halved headline fails the gate "
+          f"(rc {rc_halved})")
+    return {"rcs": [r for r, _ in rounds], "table": table.splitlines(),
+            "halved_rc": rc_halved,
+            "values": [json.loads((gdir / f"BENCH_r0{n}.json").read_text())
+                       ["parsed"]["value"] for n in (1, 2)]}
+
+
+def phase_fit(scenario_ctx):
+    """The observability-and-control layer on the card: (a) serve_app
+    --explain records, the autofit CLI fits, serve_app --autofit replays
+    (SUCCESS, the fitted ladder, every sequence on its standalone,
+    kernel 1 and 6 launches against the counted calls); (b)
+    bench_serving's --fit row at fit_full_config (strict padding win,
+    both legs on their standalone; gain printed, not asserted), then the
+    explain CLI and the budget evaluation over phase scenario's request
+    traces; (c) two traced allreduce_app processes merged by the collect
+    CLI (2 lanes, matched collectives with paired flows, a consistent
+    schedule, the report's trace_merged line); (d) two bench --gate rounds
+    and a halved copy that must fail the gate."""
+    t_phase = time.perf_counter()
+    logs = ROOT / "build" / "smoke_fit"
+    logs.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    t = time.perf_counter()
+    record, launches = _fit_record_replay(logs)
+    seconds["record_fit_replay"] = time.perf_counter() - t
+    t = time.perf_counter()
+    row, row_launches = _fit_row(scenario_ctx, logs)
+    seconds["fit_row"] = time.perf_counter() - t
+    for k in launches:
+        launches[k] += row_launches[k]
+    t = time.perf_counter()
+    collect, ring_launches = _fit_collect(logs)
+    seconds["collect"] = time.perf_counter() - t
+    launches["fused_allreduce"] = ring_launches
+    t = time.perf_counter()
+    gate = _fit_gate(logs)
+    seconds["gate"] = time.perf_counter() - t
+    emit({"phase": "fit", "record_fit_replay": record, "fit_row": row,
+          "collect": collect, "gate": gate, "launches": launches,
+          "cuts": FIT_CUTS, "card": smi("name,power.limit"),
+          "seconds_by_part": seconds,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -2436,13 +2833,15 @@ SPEC_STREAM = dict(requests=16, prompt_len=256, budgets=(64, 128, 256),
                    p=(0.5, 0.3, 0.2))
 SPEC_CHUNK = 4
 SPEC_INT8_REQUESTS = 8
-# the benchmark: the gamma sweep at JAX's 256 tokens a call, the batched
-# rows at 64 (at 256 the vmap impl's eight one-row loops took most of the
-# 251 s the whole benchmark took on the H100)
-SPEC_BENCH = dict(n=256, temp=0.8, top_k=40, batched=8, batched_n=64)
+# the benchmark: the gamma sweep at 128 tokens a call, the batched rows at
+# 64 (at JAX's 256 the vmap impl's eight one-row loops took most of the
+# 251 s the whole benchmark took on the H100; the sweep at 256 took 173 s
+# of a 1032 s run once phase fit joined, so it was cut to 128)
+SPEC_BENCH = dict(n=128, temp=0.8, top_k=40, batched=8, batched_n=64)
 SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
              "serve_app": "the serve phase's stream (16 requests)",
-             "int8_requests": "16 -> 8", "bench_batched_n": "256 -> 64"}
+             "int8_requests": "16 -> 8", "bench_n": "256 -> 128",
+             "bench_batched_n": "256 -> 64"}
 
 
 def _spec_stream(vocab: int) -> list:
@@ -2653,7 +3052,7 @@ def phase_spec():
     tie-aware on each decision's margin from :func:`_spec_margins` at the
     fixed tolerance 0.05 / T) and the plain engine on the same stream;
     (c) a draft-assisted engine on int8 pools against the target's own
-    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 256`` at
+    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 128`` at
     gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 64
     tokens a call. Every engine run's kernel 1 and 6 launches against its counted
     admissions and rounds; tokens/s, tokens a row a round and the
@@ -3722,7 +4121,8 @@ def main() -> int:
     pipe = pipe_rows["overlap"]
     launches, serve_ctx = phase_serve()
     launches_sample = phase_sample(serve_ctx)
-    launches_scenario = phase_scenario()
+    launches_scenario, scenario_ctx = phase_scenario()
+    launches_fit = phase_fit(scenario_ctx)
     launches_spec = phase_spec()
     launches_overlap = phase_overlap()
     launches_dispatch = phase_dispatch()
@@ -3755,12 +4155,14 @@ def main() -> int:
          "launches": launches["flash_prefill"]
          + launches_sample["flash_prefill"]
          + launches_scenario["flash_prefill"]
+         + launches_fit["flash_prefill"]
          + launches_spec["flash_prefill"]
          + launches_plane["flash_prefill"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
                                   launches_scenario["flash_prefill"],
+                              "fit": launches_fit["flash_prefill"],
                               "spec": launches_spec["flash_prefill"],
                               "plane": launches_plane["flash_prefill"],
                               "spec_pair_build":
@@ -3772,11 +4174,13 @@ def main() -> int:
          "launches": launches["paged_decode"]
          + launches_sample["paged_decode"]
          + launches_scenario["paged_decode"]
+         + launches_fit["paged_decode"]
          + launches_spec["paged_decode"]
          + launches_plane["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
+                              "fit": launches_fit["paged_decode"],
                               "spec": launches_spec["paged_decode"],
                               "plane": launches_plane["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys}},
@@ -3831,8 +4235,10 @@ def main() -> int:
         {"name": "fused_allreduce", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:424",
-         "launches": launches_comm["fused_allreduce"],
-         "launches_by_path": launches_comm["fused_allreduce_by_path"],
+         "launches": launches_comm["fused_allreduce"]
+         + launches_fit["fused_allreduce"],
+         "launches_by_path": {**launches_comm["fused_allreduce_by_path"],
+                              "fit": launches_fit["fused_allreduce"]},
          **{k: ring_row[k] for k in keys + ("launch_plan",)}},
         {"name": "allgather_matmul", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",

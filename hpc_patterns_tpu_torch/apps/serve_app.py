@@ -29,7 +29,12 @@ dtype instead. Prints tokens/s and SUCCESS/FAILURE (exit 0/1).
 ``--metrics``, ``--trace`` and ``--reqtrace`` instrument the measured
 run (the warm-up stays out of the registry and the request trace); with
 ``--log`` their snapshots close the log, and ``--trace-out`` writes the
-Chrome-trace timeline on any exit path:
+Chrome-trace timeline on any exit path. ``--explain`` (or
+``--explain-out PATH``) records the request trace too and prints the
+per-class tail-attribution table (``harness/explain.py``), writing its
+digest JSON to PATH. ``--autofit CONFIG`` serves with the prompt ladder
+of a FittedConfig (``harness/autofit.py``; an explicit
+``--prompt-buckets`` wins):
 
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda
     python -m hpc_patterns_tpu_torch.apps.serve_app --device cuda \\
@@ -45,6 +50,13 @@ Chrome-trace timeline on any exit path:
         --dtype float32 --metrics --trace --reqtrace --log serve.jsonl \\
         --trace-out serve.trace.json
     python -m hpc_patterns_tpu_torch.harness.report serve.jsonl
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
+        --dtype float32 --prompt-mix --log run.jsonl --explain \\
+        --explain-out digest.json
+    python -m hpc_patterns_tpu_torch.harness.autofit run.jsonl \\
+        --emit fitted.json
+    python -m hpc_patterns_tpu_torch.apps.serve_app --device cpu \\
+        --dtype float32 --prompt-mix --autofit fitted.json
 """
 
 from __future__ import annotations
@@ -60,11 +72,16 @@ from hpc_patterns_tpu_torch.apps import common
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
+from hpc_patterns_tpu_torch.harness import explain as explainlib
 from hpc_patterns_tpu_torch.harness.cli import (
+    add_autofit_arg,
+    add_explain_args,
     add_kv_dtype_arg,
     add_reqtrace_arg,
     add_serving_args,
     base_parser,
+    explain_enabled,
+    load_autofit,
     parse_buckets,
     resolve_kv_cache_dtype,
 )
@@ -207,12 +224,8 @@ def build_parser():
                         "configs replace the model flags)")
     p.add_argument("--gamma", type=int, default=4,
                    help="draft proposals per round with --draft-pair")
-    p.add_argument("--autofit", default=None, metavar="PATH",
-                   help="fitted engine config (not ported yet: the "
-                        "autofit slice, ROADMAP item 2)")
-    p.add_argument("--explain", action="store_true",
-                   help="tail-attribution table (not ported yet: ROADMAP "
-                        "item 2; --reqtrace records the segments)")
+    add_autofit_arg(p)
+    add_explain_args(p)
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="enable the flight recorder (implies --trace) and "
                         "write the Chrome-trace JSON timeline here at exit")
@@ -244,9 +257,6 @@ def _fail(log, msg: str) -> int:
 
 def run(args) -> int:
     log = RunLog(args.log, truncate=not args.log_append)
-    if args.autofit or args.explain:
-        return _fail(log, "--autofit/--explain: not ported yet (ROADMAP "
-                          "item 2, harness/autofit.py and explain.py)")
     if args.draft_pair and args.checkpoint_dir:
         return _fail(log, "--draft-pair serves the pair's own target "
                           "checkpoint; --checkpoint-dir would be silently "
@@ -297,8 +307,20 @@ def run(args) -> int:
         log.print(f"restored step {step} from {args.checkpoint_dir}")
     try:
         buckets = parse_buckets(args.prompt_buckets, args.prompt_len)
+        if args.autofit is not None:
+            # the fitted ladder replaces the default 'auto' ladder; an
+            # explicit --prompt-buckets value still wins
+            from hpc_patterns_tpu_torch.harness import autofit as autofitlib
+
+            fitted_buckets = autofitlib.ladder_from(
+                load_autofit(args.autofit), max_seq=args.prompt_len)
+            if (args.prompt_buckets.strip().lower() == "auto"
+                    and fitted_buckets is not None):
+                buckets = fitted_buckets
+                log.print(f"autofit ladder from {args.autofit}: "
+                          f"{list(buckets)}")
         padded_max = pad_to_bucket(buckets, args.prompt_len)
-    except (ValueError, argparse.ArgumentTypeError) as e:
+    except (OSError, ValueError, argparse.ArgumentTypeError) as e:
         return _fail(log, str(e))
     # the engine's sizing rule, the speculative slack included
     pages_per_seq = ContinuousBatcher.pages_needed(
@@ -340,7 +362,7 @@ def run(args) -> int:
         m.enabled = prev_enabled
     if err is not None:
         return _fail(log, err)
-    if args.reqtrace:
+    if args.reqtrace or explain_enabled(args):
         # a fresh recorder for the measured run: one id space per run
         reqtracelib.configure(enabled=True)
     t0 = time.perf_counter()
@@ -410,6 +432,15 @@ def run(args) -> int:
         log.emit(kind="reqtrace", **snap)
         log.print(f"reqtrace: {snap['n']} request(s), attribution "
                   f"coverage {snap['coverage_frac']:.1%}")
+        if explain_enabled(args):
+            dig = explainlib.digest([snap])
+            log.print(explainlib.format_explain(dig))
+            if args.explain_out:
+                import json
+                from pathlib import Path
+
+                Path(args.explain_out).write_text(json.dumps(dig) + "\n")
+                log.print(f"explain digest -> {args.explain_out}")
     if args.static_compare:
         kw = dict(slots=args.slots, page_size=args.page_size, device=dev,
                   temperature=args.temperature, top_k=args.top_k,

@@ -28,6 +28,18 @@ over ``COMM_WORLD`` logical ranks on the card.
     python -m hpc_patterns_tpu_torch.bench                 # 16 x 2048 x 128
     python -m hpc_patterns_tpu_torch.bench --chunk-rows 32768   # past L2
     python -m hpc_patterns_tpu_torch.bench --device cpu    # 4 x 8 x 128
+    python -m hpc_patterns_tpu_torch.bench --gate build/bench_rounds
+    python -m hpc_patterns_tpu_torch.bench --target-s 0.1 --cal-passes 200
+
+``--target-s``/``--cal-passes`` shorten each per-pass measurement and
+its calibration (recorded in the line's detail).
+
+``--gate [DIR]`` (the JAX bench's ``--gate``): capture as usual, write
+the line as the next round ``BENCH_rNN.json`` under DIR (default
+``build/bench_rounds``; never the repository root, whose
+``BENCH_r*.json`` are the JAX package's) in the round schema ``{"n",
+"cmd", "rc", "tail", "parsed"}``, then run the regression gate
+(``harness/regress.py``) over DIR's rounds and exit with its status.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ import argparse
 import json
 import sys
 import time
+import traceback
+from pathlib import Path
 
 import torch
 
@@ -197,6 +211,11 @@ def fused_collective_detail(device) -> dict:
     }
 
 
+#: the repository root (the JAX package's checked-in rounds live here)
+REPO_ROOT = Path(__file__).resolve().parent.parent
+DEFAULT_GATE_DIR = REPO_ROOT / "build" / "bench_rounds"
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,
@@ -206,21 +225,82 @@ def build_parser():
     p.add_argument("--chunk-rows", type=int, default=None,
                    help=f"rows of 128 f32 per chunk (default {CHUNK_ROWS}; "
                         f"{CPU_CHUNK_ROWS} on cpu)")
+    p.add_argument("--target-s", type=float, default=None,
+                   help=f"seconds a per-pass measurement aims at (default "
+                        f"{TARGET_S}; {CPU_TARGET_S} on cpu)")
+    p.add_argument("--cal-passes", type=int, default=None,
+                   help=f"calibration passes (default {CAL_PASSES}; "
+                        f"{CPU_CAL_PASSES} on cpu)")
+    p.add_argument("--gate", nargs="?", const=str(DEFAULT_GATE_DIR),
+                   default=None, metavar="DIR",
+                   help="write the line as the next round under DIR "
+                        "(default build/bench_rounds), then gate DIR's "
+                        "rounds with harness/regress.py and exit with its "
+                        "status")
     return p
 
 
+def gate(line: str, rounds_dir, *, argv=()) -> int:
+    """Write ``line`` (the bench's JSON line, or an error text) as the
+    next ``BENCH_rNN.json`` round under ``rounds_dir``, then run the
+    regression gate over every round there. Returns the gate's exit
+    status (1 as well when the capture parsed to nothing)."""
+    from hpc_patterns_tpu_torch.harness import regress
+
+    d = Path(rounds_dir).resolve()
+    if d == REPO_ROOT:
+        raise SystemExit("--gate: the repository root holds the JAX "
+                         "package's BENCH_r*.json rounds; name another "
+                         "directory")
+    d.mkdir(parents=True, exist_ok=True)
+    prior = sorted(d.glob("BENCH_r*.json"))
+    n = 0
+    for path in prior:
+        try:
+            n = max(n, int(json.loads(path.read_text()).get("n", 0)))
+        except (OSError, ValueError, AttributeError):
+            continue
+    n += 1
+    try:
+        parsed = json.loads(line)
+    except ValueError:
+        parsed = None
+    out = d / f"BENCH_r{n:02d}.json"
+    out.write_text(json.dumps(
+        {"n": n, "cmd": " ".join(["python -m hpc_patterns_tpu_torch.bench",
+                                  *argv]),
+         "rc": 0 if parsed is not None else 1, "tail": line + "\n",
+         "parsed": parsed}, indent=2))
+    print(f"wrote round {n} -> {out}", flush=True)
+    rc = regress.main([*map(str, prior), str(out)])
+    return rc if parsed is not None else max(rc, 1)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
-    cpu = dev.type == "cpu"
-    chunks = args.chunks or (CPU_CHUNKS if cpu else NUM_CHUNKS)
-    rows = args.chunk_rows or (CPU_CHUNK_ROWS if cpu else CHUNK_ROWS)
-    x = pipeline.make_hbm_array(chunks, rows, device=dev)
-    rec = (overlap_headline(x, cal_passes=CPU_CAL_PASSES,
-                            target_s=CPU_TARGET_S) if cpu
-           else overlap_headline(x))
-    rec["detail"].update(fused_collective_detail(dev))
-    print(json.dumps(rec), flush=True)
+    try:
+        dev = resolve_device(args.device)
+        cpu = dev.type == "cpu"
+        chunks = args.chunks or (CPU_CHUNKS if cpu else NUM_CHUNKS)
+        rows = args.chunk_rows or (CPU_CHUNK_ROWS if cpu else CHUNK_ROWS)
+        x = pipeline.make_hbm_array(chunks, rows, device=dev)
+        rec = overlap_headline(
+            x, cal_passes=args.cal_passes or (CPU_CAL_PASSES if cpu
+                                              else CAL_PASSES),
+            target_s=args.target_s or (CPU_TARGET_S if cpu else TARGET_S))
+        rec["detail"].update(fused_collective_detail(dev))
+        line = json.dumps(rec)
+    except Exception as e:
+        if args.gate is None:
+            raise
+        # a failed capture is a round that measured nothing: recorded
+        # and skipped by the gate, and the exit status says it failed
+        traceback.print_exc()
+        line = f"{type(e).__name__}: {e}"
+    print(line, flush=True)
+    if args.gate is not None:
+        return gate(line, args.gate, argv=argv)
     return 0
 
 

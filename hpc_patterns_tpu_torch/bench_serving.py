@@ -1,7 +1,8 @@
 """The serving benchmark's rows — the counterpart of
 ``benchmarks/bench_serving.py``'s base row (``run_bench``), robustness
-row (``run_scenario``, ``--scenario``) and serving-plane row
-(``run_plane``, ``--plane``).
+row (``run_scenario``, ``--scenario``), serving-plane row
+(``run_plane``, ``--plane``) and autofit row (``run_fitted``,
+``--fit``).
 
 - **base**: the mixed-length, long-tail-budget stream through static
   batching (batches of ``slots`` in arrival order, rectangular length
@@ -13,12 +14,19 @@ row (``run_scenario``, ``--scenario``) and serving-plane row
   stalled-host chaos fault (``harness/chaos.py``) on the engine loop,
   goodput (SLO-attained tokens/s, ``harness/slo.py``) beside raw
   tokens/s, the preemption and shed counts, the request trace's
-  coverage; the engine runs against clean static batching;
+  coverage, its p99 queue and stall shares (``harness/explain.py``) and
+  the segment-budget breaches (``harness/budget.py``; ``--explain`` /
+  ``--explain-out`` print the tables and write the digest); the engine
+  runs against clean static batching;
 - **plane**: one open-loop two-class stream through a single engine, a
   homogeneous 2-replica plane (least-loaded placement) and the
   disaggregated 1-prefill/1-decode plane, whose every request crosses
   the KV handoff over ``--migration dma|device_put|wire``; then a
-  sampled closed-loop 1p/1d leg over the same transport.
+  sampled closed-loop 1p/1d leg over the same transport;
+- **fit**: a long-tail stream recorded to a RunLog under the default
+  ladder, a FittedConfig fitted from it (``harness/autofit.py``), then
+  the default engine against ``ContinuousBatcher.from_fitted`` on the
+  same pool geometry; the fitted ladder must pad strictly less.
 
 Every leg's sequences are held against the standalone ``paged_generate``
 (with each request's key when sampled) before any number is believed:
@@ -38,12 +46,14 @@ memory, not a transfer between cards, and the row says so.
     python -m hpc_patterns_tpu_torch.bench_serving --plane --migration dma
     python -m hpc_patterns_tpu_torch.bench_serving --plane --migration dma \\
         --device cpu [--smoke] [--kv-dtype int8]
+    python -m hpc_patterns_tpu_torch.bench_serving --fit --smoke \\
+        --device cpu [--fit-out fitted.json] [--autofit fitted.json]
 
 The JAX benchmark's other rows wait for their slices: ``--offload``,
 ``--shared`` and ``--slo-budget`` for tiered memory (ROADMAP item 3),
-``--fit`` for autofit (item 2), ``--elastic`` for the autoscaled plane
-(item 4) and ``--quant`` for the quantized row, which ``chip_smoke.py``
-phase ``quant`` drives meanwhile.
+``--elastic`` for the autoscaled plane (item 4) and ``--quant`` for the
+quantized row, which ``chip_smoke.py`` phase ``quant`` drives meanwhile.
+The ``--fit`` row's blame A/B waits for item 3 as well.
 """
 
 from __future__ import annotations
@@ -59,13 +69,17 @@ import torch
 
 from hpc_patterns_tpu_torch.apps.serve_app import static_batching
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.harness import budget as budgetlib
 from hpc_patterns_tpu_torch.harness import chaos as chaoslib
+from hpc_patterns_tpu_torch.harness import explain as explainlib
 from hpc_patterns_tpu_torch.harness import loadgen
 from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo
 from hpc_patterns_tpu_torch.harness.cli import (
+    add_explain_args,
     add_kv_dtype_arg,
     add_serving_args,
+    explain_enabled,
     parse_buckets,
     resolve_kv_cache_dtype,
 )
@@ -288,14 +302,27 @@ def run_bench(*, n, slots, chunk, page_size, prompt_len, max_budget, cfg,
 
 # ------------------------------------------------------------ scenario row
 
+#: the staged scenario's progress clock: schedule seconds a service
+#: round. The smoke engine's unloaded round on an 8-core x86 CPU at one
+#: thread took 26-29 ms (44 rounds in 1.1-1.3 s of its engine leg);
+#: rounded up, so the interactive wave lands no later in rounds than on
+#: that host, where it preempts twice (a clock of 0.025 s would
+#: preempt once)
+SCENARIO_ROUND_S = 0.03
+
+
 def scenario_smoke_config(device=None, *, chip: bool = False):
     """The staged chaos scenario (JAX ``scenario_smoke_config``): two long
     batch rows take the pool at t=0, then an interactive wave that cannot
     get pages without evicting a batch row, a third batch row
     interleaved, and two seeded engine stalls. The pool (25 pages of 16:
     the two batch rows' 12 each plus one) forces the preemption whatever
-    the host's speed. ``chip``: the chip model's widths (the schedule,
-    pool and ladder unchanged)."""
+    the host's speed. The arrivals run on the engine's progress clock,
+    :data:`SCENARIO_ROUND_S` a service round (JAX's run on the wall
+    clock): the same rounds admit, stall and preempt on any host, so a
+    loaded host slows the engine leg as it slows static batching and no
+    more. ``chip``: the chip model's widths (the schedule, pool, ladder
+    and clock unchanged)."""
     dev = resolve_device(device)
     cfg, params = _model(dev, gpu=chip)
     inter, batch = SCENARIO_CLASSES
@@ -317,7 +344,8 @@ def scenario_smoke_config(device=None, *, chip: bool = False):
                 # off in the smoke: its pool is sized to the page for the
                 # preemption trigger, and a reserve would reorder the
                 # staged admissions
-                admit_highwater=1.0, device=dev)
+                admit_highwater=1.0, arrival_round_s=SCENARIO_ROUND_S,
+                device=dev)
 
 
 def scenario_full_config(device=None):
@@ -355,15 +383,24 @@ def scenario_full_config(device=None):
 def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
                  chunk, pool_pages, pages_per_seq, buckets,
                  chaos_spec=None, admit_highwater=0.95, quiet=False,
-                 device=None):
+                 explain=False, explain_out=None, arrival_round_s=None,
+                 log=None, device=None):
     """One robustness row: the open-loop schedule through (a) clean static
     batching (closed loop, arrival order) and (b) the engine with priority
     admission, preemption and resume, SLO accounting and the seeded chaos
     faults active, under the request trace. Every served sequence,
     preempted-and-resumed ones included, is held against its standalone
-    first, and the trace must cover >= 95% of every request's
-    life. Returns JAX's result keys but the tail-attribution shares,
-    which wait for ``harness/explain.py``."""
+    first, and the trace must cover >= 95% of the finished requests'
+    wall time. Returns JAX's result keys: the attribution digest's
+    ``ttft_p99_queue_share`` and ``tpot_p99_stall_share``
+    (``harness/explain.py``) and the count of segment-budget breaches
+    (``harness/budget.py``) among them. ``explain``: also print the
+    attribution table and the budget section; ``explain_out``: write the
+    digest JSON there. ``arrival_round_s``: the engine leg's arrival
+    clock (``ContinuousBatcher.run(round_s=)``; None: the wall clock).
+    ``log``: a RunLog path that gets the timed leg's ``kind=reqtrace``
+    record and one ``kind=slo_budget`` record a breach
+    (``budget.publish``), for ``harness/explain.py`` and ``report``."""
     out = print if not quiet else (lambda *a, **k: None)
     dev = resolve_device(device)
     sync = _sync(dev)
@@ -385,7 +422,7 @@ def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
                           seq_id=r.index, priority=r.priority,
                           deadline_s=r.deadline_s))
                     for r in schedule.requests]
-        got = eng.run(arrivals=arrivals)
+        got = eng.run(arrivals=arrivals, round_s=arrival_round_s)
         sync()
         return got, eng
 
@@ -430,10 +467,21 @@ def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
     assert compiles <= len(buckets), (
         f"{compiles} prefill shapes > ladder {len(buckets)}: resumed "
         "prompts left the bucket ladder")
-    cover = req_snap["coverage_frac"]
+    # tail attribution over the timed leg; the coverage invariant is
+    # enforced here: a missing stamp site leaks untracked time
+    dig = explainlib.digest([req_snap])
+    cover = dig["coverage_frac"]
     assert cover >= 0.95, (
         f"request-trace coverage {cover:.3f} < 0.95: a stamp site is "
         "missing")
+    # did any ONE lifecycle segment alone blow a class's target?
+    breaches = budgetlib.evaluate(req_snap, targets)
+    if log is not None:
+        from hpc_patterns_tpu_torch.harness.runlog import RunLog
+
+        runlog = RunLog(log, truncate=False)
+        runlog.emit(kind="reqtrace", **req_snap)
+        budgetlib.publish(breaches, emit=runlog.emit)
     rep = eng.last_slo
     tot = rep["total"]
     served_tokens = tot["tokens"]
@@ -452,6 +500,9 @@ def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
         "stall_injected_s": sum(e["delay_s"] for e in stalls),
         "prefill_compiles": compiles, "ladder": len(buckets),
         "attribution_coverage_frac": cover,
+        "ttft_p99_queue_share": dig["ttft_p99_queue_share"],
+        "tpot_p99_stall_share": dig["tpot_p99_stall_share"],
+        "budget_breaches": len(breaches),
         "schedule": schedule.spec,
         "oracle": verdicts, "admissions": eng.admissions,
         "decode_steps": eng.decode_steps,
@@ -471,6 +522,14 @@ def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
     out(f"  engine/static speedup under chaos: {result['speedup']:.3f}x "
         f"(oracle {verdicts}, resumed rows included)")
     out("  " + slo.format_slo(rep).replace("\n", "\n  "))
+    if explain:
+        out("  " + explainlib.format_explain(dig).replace("\n", "\n  "))
+        out("  " + budgetlib.format_budget(breaches).replace("\n", "\n  "))
+    if explain_out:
+        from pathlib import Path
+
+        Path(explain_out).write_text(json.dumps(dig) + "\n")
+        out(f"  explain digest -> {explain_out}")
     return result
 
 
@@ -789,13 +848,229 @@ def run_plane(*, cfg, params, n, slots, chunk, page_size, prompt_len,
     return result
 
 
+# ------------------------------------------------------------ autofit row
+
+def fit_smoke_config(device=None):
+    """The CI autofit shape (JAX ``fit_smoke_config``): the smoke model
+    on a prefill-heavy long-tail stream whose bulk (60%) sits at a prompt
+    length the default ladder pads badly (40 -> 64), 16 requests, 4
+    slots, chunk 16, page 16, budgets up to 32, two timed repetitions."""
+    dev = resolve_device(device)
+    cfg, params = _model(dev, gpu=False)
+    return dict(cfg=cfg, params=params, n=16, slots=4, chunk=16,
+                page_size=16, max_budget=32, reps=2,
+                lengths=(16, 40, 64), length_probs=(0.2, 0.6, 0.2),
+                device=dev)
+
+
+def fit_full_config(device=None):
+    """The re-grounding shape (JAX ``fit_full_config``): the same length
+    mix scaled to the top prompt, 1/4, 5/8 and 1x of it at 0.2/0.6/0.2.
+    On the card the chip model, prompts 128/320/512, page 256, 8 slots,
+    32 requests, budgets up to 256; on the CPU the smoke model, prompts
+    16/40/64, page 16, 4 slots, 16 requests, budgets up to 32."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    cfg, params = _model(dev, gpu=gpu)
+    top = 512 if gpu else 64
+    return dict(cfg=cfg, params=params, n=32 if gpu else 16,
+                slots=8 if gpu else 4, chunk=16,
+                page_size=256 if gpu else 16,
+                max_budget=256 if gpu else 32, reps=2,
+                lengths=(top // 4, (5 * top) // 8, top),
+                length_probs=(0.2, 0.6, 0.2), device=dev)
+
+
+def fit_requests(n, lengths, length_probs, max_budget, vocab):
+    """The autofit row's stream (``RandomState(7)``): prompt lengths
+    drawn from ``lengths`` at ``length_probs``, budgets 1/8, 1/4 or 1x of
+    ``max_budget`` at 0.5/0.3/0.2."""
+    rng = np.random.RandomState(7)
+    reqs = []
+    for _ in range(n):
+        t = int(rng.choice(lengths, p=length_probs))
+        prompt = rng.randint(0, vocab, size=t).astype(np.int32)
+        budget = int(rng.choice([max(1, max_budget // 8),
+                                 max(1, max_budget // 4), max_budget],
+                                p=[0.5, 0.3, 0.2]))
+        reqs.append((prompt, budget))
+    return reqs
+
+
+def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
+               lengths, length_probs, reps=2, autofit_path=None,
+               fit_out=None, quiet=False, device=None):
+    """The autofit row (JAX ``run_fitted``): one long-tail stream served
+    three times.
+
+    1. The recording leg: the default-ladder engine, untimed, its
+       records (``serve_admit`` among them) captured to a RunLog JSONL.
+    2. ``harness/autofit.py`` fits a FittedConfig from that file through
+       the CLI's path (``fit_paths`` -> ``dumps_config`` ->
+       ``load_fitted``).
+    3. The A/B: the default-ladder engine against
+       ``ContinuousBatcher.from_fitted`` on the same stream and pool
+       geometry, both warmed, then timed min-of-``reps``.
+
+    The fitted ladder's expected padding must be strictly below the
+    default's on the observed lengths, asserted before any clock, and
+    every sequence of both legs is held against its standalone (exact in
+    f32; on the card a divergence only at a near-tie, ``TIE_TOL``).
+    Returns ``fitted_goodput_tok_s`` and ``autofit_gain_frac``
+    (default / fitted wall - 1) beside the ladders and paddings.
+
+    JAX's blame A/B (a seeded decode stall under a thrashing residency
+    tier, fitted and re-served) waits for the residency manager (ROADMAP
+    item 3): the row says so and its ``blame_*`` keys stay absent.
+
+    ``autofit_path``: skip the recording leg and apply an existing
+    FittedConfig; ``fit_out``: also write the fitted config there."""
+    import os
+    import tempfile
+
+    from hpc_patterns_tpu_torch.harness import autofit as autofitlib
+    from hpc_patterns_tpu_torch.harness.runlog import RunLog
+
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    sync = _sync(dev)
+    reqs = fit_requests(n, lengths, length_probs, max_budget, cfg.vocab)
+    total_tokens = sum(b for _, b in reqs)
+    obs_lengths = [len(p) for p, _ in reqs]
+    default_ladder = bucket_ladder(max(obs_lengths))
+
+    def mk_engine(buckets, pages, *, emit=None):
+        return ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=slots * pages,
+            pages_per_seq=pages, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, emit=emit, device=dev)
+
+    def serve(eng):
+        ids = [eng.submit(p, b) for p, b in reqs]
+        got = eng.run()
+        sync()
+        return {i: got[sid] for i, sid in enumerate(ids)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "fitted.json")
+        if autofit_path is None:
+            # the recording leg: the profile run the fitter consumes
+            log_path = os.path.join(tmp, "profile.jsonl")
+            pages_rec = max(
+                ContinuousBatcher.pages_needed(
+                    len(p), b, page_size,
+                    padded_len=pad_to_bucket(default_ladder, len(p)))
+                for p, b in reqs)
+            serve(mk_engine(default_ladder, pages_rec,
+                            emit=RunLog(log_path).emit))
+            with open(cfg_path, "w") as f:
+                f.write(autofitlib.dumps_config(
+                    autofitlib.fit_paths([log_path])))
+        else:
+            cfg_path = autofit_path
+        # the round trip every consumer uses (CLI parity)
+        fitted = autofitlib.load_fitted(cfg_path)
+        if fit_out:
+            with open(fit_out, "w") as f:
+                f.write(autofitlib.dumps_config(fitted))
+    fitted_ladder = autofitlib.ladder_from(fitted, max_seq=cfg.max_seq)
+    assert fitted_ladder is not None, (
+        "the fitted config carries no ladder: the recording leg emitted "
+        "no serve_admit records")
+
+    # the deterministic win before any clock
+    pad_fit = expected_padding(fitted_ladder, obs_lengths)
+    pad_default = expected_padding(default_ladder, obs_lengths)
+    assert pad_fit < pad_default, (
+        f"fitted ladder {fitted_ladder} does not beat default "
+        f"{default_ladder}: E[pad] {pad_fit:.2f} vs {pad_default:.2f}")
+
+    # one pool geometry for both legs (sized for whichever ladder pads a
+    # length worse), so the comparison is the ladder alone
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(
+            len(p), b, page_size,
+            padded_len=max(pad_to_bucket(default_ladder, len(p)),
+                           pad_to_bucket(fitted_ladder, len(p))))
+        for p, b in reqs)
+
+    def mk_fitted():
+        eng = ContinuousBatcher.from_fitted(
+            params, cfg, fitted, slots=slots,
+            pool_pages=slots * pages_per_seq,
+            pages_per_seq=pages_per_seq, page_size=page_size,
+            chunk=chunk, device=dev)
+        assert eng.prompt_buckets == fitted_ladder, (
+            "from_fitted did not apply the fitted ladder")
+        return eng
+
+    serve(mk_engine(default_ladder, pages_per_seq))  # warm-up
+    serve(mk_fitted())
+    t_default = t_fitted = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        default_out = serve(mk_engine(default_ladder, pages_per_seq))
+        t_default = min(t_default, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eng = mk_fitted()
+        fitted_out = serve(eng)
+        t_fitted = min(t_fitted, time.perf_counter() - t0)
+    assert len(eng.prefill_rungs) <= len(fitted_ladder), (
+        f"{len(eng.prefill_rungs)} prefill shapes > fitted ladder "
+        f"{len(fitted_ladder)}")
+
+    # the oracle before any number: the ladder changes padding, never
+    # tokens
+    tol = TIE_TOL[cfg.dtype]
+    verdicts = {"default": {"exact": 0, "near_tie": 0},
+                "fitted": {"exact": 0, "near_tie": 0}}
+    for i, (prompt, b) in enumerate(reqs):
+        want, margins = _standalone(params, cfg, prompt, b,
+                                    page_size=page_size, device=dev)
+        verdicts["default"][_held(default_out[i], want, margins, tol,
+                                  f"default seq {i}")] += 1
+        verdicts["fitted"][_held(fitted_out[i], want, margins, tol,
+                                 f"fitted seq {i}")] += 1
+
+    gain = t_default / t_fitted - 1.0
+    result = {
+        "t_default": t_default, "t_fitted": t_fitted,
+        "tokens": total_tokens,
+        "default_goodput_tok_s": total_tokens / t_default,
+        "fitted_goodput_tok_s": total_tokens / t_fitted,
+        "autofit_gain_frac": gain,
+        "ladder_default": list(default_ladder),
+        "ladder_fitted": list(fitted_ladder),
+        "expected_padding_default": pad_default,
+        "expected_padding_fitted": pad_fit,
+        "config_sections": sorted(
+            k for k in ("ladder", "residency", "placement", "autoscaler",
+                        "blame") if fitted.get(k)),
+        "oracle": verdicts,
+    }
+    out(f"autofit[{dev}]: n={n} slots={slots} chunk={chunk} "
+        f"lengths={sorted(set(obs_lengths))} tokens={total_tokens} "
+        f"({'replayed ' + str(autofit_path) if autofit_path else 'fitted from the recording leg'})")
+    out(f"  default : {t_default:.3f}s  "
+        f"{result['default_goodput_tok_s']:,.1f} tok/s  ladder "
+        f"{list(default_ladder)}  E[pad] {pad_default:.1f}")
+    out(f"  fitted  : {t_fitted:.3f}s  "
+        f"{result['fitted_goodput_tok_s']:,.1f} tok/s  ladder "
+        f"{list(fitted_ladder)}  E[pad] {pad_fit:.1f}")
+    out(f"  autofit gain {gain:+.1%} wall clock, E[pad] {pad_default:.1f} "
+        f"-> {pad_fit:.1f} tokens/req (oracle {verdicts}, strict padding "
+        "win asserted)")
+    out("  blame   : the blame A/B waits for the residency manager "
+        "(ROADMAP item 3); no blame_* keys")
+    return result
+
+
 #: the JAX rows that wait for a later slice, each with what it waits for
 LATER_ROWS = {
     "offload": "tiered memory (ROADMAP item 3)",
     "shared": "the prefix cache (ROADMAP item 3)",
-    "slo_budget": "tiered memory and harness/budget.py (ROADMAP items 3 "
-                  "and 2)",
-    "fit": "autofit (ROADMAP item 2)",
+    "slo_budget": "tiered memory: the seeded slow host transfer under the "
+                  "residency manager (ROADMAP item 3)",
     "elastic": "the autoscaled plane (ROADMAP item 4)",
     "quant": "the quantized row (chip_smoke.py phase quant drives its "
              "path meanwhile)",
@@ -809,6 +1084,15 @@ def main(argv=None) -> int:
                    help="the robustness row (preemption, chaos, goodput)")
     p.add_argument("--plane", action="store_true",
                    help="the serving-plane row")
+    p.add_argument("--fit", action="store_true",
+                   help="the autofit row: record, fit, then the default "
+                        "ladder against the fitted one")
+    p.add_argument("--autofit", default=None, metavar="CONFIG",
+                   help="with --fit: apply this FittedConfig instead of "
+                        "fitting one from the recording leg")
+    p.add_argument("--fit-out", default=None, metavar="PATH",
+                   help="with --fit: also write the fitted config here")
+    add_explain_args(p)
     for row in LATER_ROWS:
         p.add_argument(f"--{row.replace('_', '-')}", action="store_true",
                        help=f"not ported yet: waits for {LATER_ROWS[row]}")
@@ -829,10 +1113,18 @@ def main(argv=None) -> int:
             args.device)
         conf = with_kv_dtype(conf, args.kv_dtype)
         result = run_plane(**conf, migration=args.migration)
+    elif args.fit:
+        conf = (fit_smoke_config if args.smoke else fit_full_config)(
+            args.device)
+        result = run_fitted(**with_kv_dtype(conf, args.kv_dtype),
+                            autofit_path=args.autofit,
+                            fit_out=args.fit_out)
     elif args.scenario:
         conf = (scenario_smoke_config if args.smoke
                 else scenario_full_config)(args.device)
-        result = run_scenario(**with_kv_dtype(conf, args.kv_dtype))
+        result = run_scenario(**with_kv_dtype(conf, args.kv_dtype),
+                              explain=explain_enabled(args),
+                              explain_out=args.explain_out)
     else:
         conf = (smoke_config if args.smoke else full_config)(args.device)
         result = run_bench(**with_kv_dtype(conf, args.kv_dtype),

@@ -50,9 +50,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 def add_reqtrace_arg(p: argparse.ArgumentParser) -> None:
     """The serving ``--reqtrace`` flag: request-scoped lifecycle segments
     (harness/reqtrace.py) for the measured run; with --log, one
-    kind=reqtrace record is appended (the JAX serving surfaces record the
-    same under ``--explain``, whose attribution table is a later slice
-    of the port)."""
+    kind=reqtrace record is appended. ``--explain`` records the same and
+    also prints the attribution table (:func:`add_explain_args`)."""
     p.add_argument("--reqtrace", action="store_true",
                    help="trace request lifecycle segments (queued/"
                         "admit_wait/prefill/decode/preempted/migrating/"
@@ -102,6 +101,53 @@ def parse_buckets(spec: str, max_prompt_len: int):
         raise argparse.ArgumentTypeError(
             f"--prompt-buckets must be 'auto', 'none', or comma-separated "
             f"ints, got {spec!r}") from e
+
+
+def add_autofit_arg(p: argparse.ArgumentParser) -> None:
+    """The shared ``--autofit`` flag: every serving surface that consumes
+    a FittedConfig ingests it through :func:`load_autofit`, so a config
+    fitted once applies identically everywhere."""
+    p.add_argument(
+        "--autofit", default=None, metavar="CONFIG",
+        help="apply a FittedConfig JSON emitted by `python -m "
+             "hpc_patterns_tpu_torch.harness.autofit run.jsonl --emit "
+             "CONFIG` (either package's): the fitted prompt ladder "
+             "replaces the default 'auto' ladder; an explicit "
+             "--prompt-buckets still wins")
+
+
+def add_explain_args(p: argparse.ArgumentParser) -> None:
+    """The shared ``--explain``/``--explain-out`` pair: request-scoped
+    lifecycle tracing (harness/reqtrace.py) and the per-class
+    tail-attribution table (harness/explain.py) after the run's row."""
+    p.add_argument(
+        "--explain", action="store_true",
+        help="trace request lifecycle segments (queued/prefill/decode/"
+             "admit_wait/preempted/migrating/shed) and print the "
+             "per-class tail-attribution table; with --log, a "
+             "kind=reqtrace record is appended for `python -m "
+             "hpc_patterns_tpu_torch.harness.explain run.jsonl`")
+    p.add_argument(
+        "--explain-out", default=None, metavar="PATH",
+        help="also write the attribution digest as JSON (implies "
+             "--explain)")
+
+
+def explain_enabled(args) -> bool:
+    """Did this invocation ask for the attribution table?
+    (``--explain-out`` implies ``--explain``.)"""
+    return bool(getattr(args, "explain", False)
+                or getattr(args, "explain_out", None))
+
+
+def load_autofit(path):
+    """Load and validate an ``--autofit`` value (None passes through):
+    the one CLI ingestion point over ``autofit.load_fitted``."""
+    if not path:
+        return None
+    from hpc_patterns_tpu_torch.harness import autofit
+
+    return autofit.load_fitted(path)
 
 
 def add_msg_size_args(p: argparse.ArgumentParser) -> None:

@@ -40,9 +40,11 @@ and either package's ``report`` reads them. Routes out:
 - offline: the recorder's snapshot lands as one ``kind=trace`` run-log
   record (``apps/common.run_instrumented`` under ``--trace --log``), and
   ``python -m hpc_patterns_tpu_torch.harness.trace run.jsonl -o out.json``
-  rebuilds the Chrome JSON, one pid lane per snapshot;
+  rebuilds the Chrome JSON through ``harness/collect.py``'s merge (one
+  pid lane per process and file, clocks aligned);
 - per rank: with ``HPCPAT_TRACE_DIR`` set, the snapshot is also written
-  there (:func:`write_rank_snapshot`).
+  there (:func:`write_rank_snapshot`), and ``python -m
+  hpc_patterns_tpu_torch.harness.collect DIR`` merges the ranks.
 
 The collective-schedule fingerprint chain (:class:`CollectiveSchedule`,
 the JAX package's ``analysis/runtime.py`` copy) lives here too: every
@@ -839,23 +841,6 @@ def load_trace_snapshots(paths) -> list[dict[str, Any]]:
     return snaps
 
 
-def chrome_lanes(snaps: list[dict[str, Any]]) -> dict[str, Any]:
-    """Chrome JSON with one pid lane per snapshot (pid = its index + 1,
-    labelled with its source and process id), each lane on its own
-    snapshot's clock. The JAX CLI's cross-rank merge (clock alignment,
-    skew rollups, flow arrows) is a later slice of the port."""
-    events: list[dict[str, Any]] = []
-    for i, snap in enumerate(snaps):
-        lane = chrome_from_snapshots([snap], pid=i + 1)["traceEvents"]
-        for ev in lane:
-            if ev.get("name") == "process_name":
-                proc = snap.get("process", {}).get("process_id", 0)
-                ev["args"] = {"name": f"{snap.get('_source', 'trace')} "
-                                      f"(process {proc})"}
-        events.extend(lane)
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Export kind=trace runlog records as Chrome-trace "
@@ -880,15 +865,20 @@ def main(argv=None) -> int:
         return 2
     out = Path(args.out) if args.out else Path(
         args.logs[0]).with_suffix(".trace.json")
-    chrome = chrome_lanes(snaps)
+    # the cross-rank merge (harness/collect.py): one pid lane per source
+    # process and file, the clocks aligned, flow arrows across ranks
+    from hpc_patterns_tpu_torch.harness import collect as collectlib
+
+    chrome = collectlib.merge(snaps)["chrome"]
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as f:
         json.dump(chrome, f)
     n_ev = len(chrome["traceEvents"])
+    n_lanes = len({e["pid"] for e in chrome["traceEvents"]})
     n_comp = sum(s.get("compile", {}).get("count", 0) for s in snaps)
     dropped = sum(s.get("n_dropped", 0) for s in snaps)
     print(f"{out}: {n_ev} trace events from {len(snaps)} snapshot(s) "
-          f"on {len(snaps)} pid lane(s) ({n_comp} compiles, {dropped} "
+          f"on {n_lanes} pid lane(s) ({n_comp} compiles, {dropped} "
           f"evicted by the ring) — open in Perfetto (ui.perfetto.dev) "
           f"or chrome://tracing")
     return 0

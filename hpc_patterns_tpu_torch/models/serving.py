@@ -585,6 +585,22 @@ class EngineCore:
 
     # -- admission ---------------------------------------------------------
 
+    @classmethod
+    def from_fitted(cls, params, cfg: TransformerConfig, fitted, **kw):
+        """Build an engine from a :mod:`hpc_patterns_tpu_torch.harness.
+        autofit` ``FittedConfig`` (the dict ``autofit.load_fitted``
+        returns): the fitted prompt ladder becomes ``prompt_buckets``
+        (clamped to this model's ``max_seq``), everything else passes
+        through unchanged. An explicit ``prompt_buckets=`` wins."""
+        from hpc_patterns_tpu_torch.harness import autofit as autofitlib
+
+        fitted = autofitlib.validate_fitted(fitted)
+        if kw.get("prompt_buckets") is None:
+            buckets = autofitlib.ladder_from(fitted, max_seq=cfg.max_seq)
+            if buckets is not None:
+                kw["prompt_buckets"] = buckets
+        return cls(params, cfg, **kw)
+
     @staticmethod
     def pages_needed(prompt_len: int, max_new: int, page_size: int, *,
                      gamma: int | None = None,
@@ -1468,19 +1484,29 @@ class ContinuousBatcher(EngineCore):
     """The single-process serving engine: ``submit()`` requests, then
     :meth:`run` until everything drains."""
 
-    def run(self, *, arrivals=None, max_rounds: int | None = None):
+    def run(self, *, arrivals=None, max_rounds: int | None = None,
+            round_s: float | None = None):
         """Serve until queue, slots and (open-loop) arrivals drain (or
         ``max_rounds`` rounds ran). Returns ``finished``: {seq_id:
         np.ndarray of emitted tokens}.
 
         ``arrivals``: open-loop traffic — ``(t_rel_s, submit_kwargs)``
         pairs (``harness/loadgen.py`` schedules); each is submitted once
-        the run clock passes its instant, and its ``t_submit`` is that
-        instant (the wait the user saw, not when the loop got to it). The
-        loop idles in bounded sleeps while nothing is servable. A bounded
-        run never waits for a future arrival (undelivered arrivals are
-        dropped: pass them to the continuing call); it parks at a chunk
-        boundary, and a later ``run()`` continues.
+        the run clock passes its instant. A bounded run never waits for a
+        future arrival (undelivered arrivals are dropped: pass them to
+        the continuing call); it parks at a chunk boundary, and a later
+        ``run()`` continues.
+
+        ``round_s``: the run clock. None (JAX's): the wall clock since the
+        run began; an arrival's ``t_submit`` is its instant (the wait the
+        user saw, not when the loop got to it), and the loop idles in
+        bounded sleeps while nothing is servable. A float: the engine's
+        own progress, ``round_s`` schedule seconds a service round plus
+        each round's injected chaos delay; an arrival's ``t_submit`` is
+        the wall instant it is delivered, and with nothing servable the
+        clock jumps to the next arrival. Arrivals then land on the same
+        rounds however fast the host runs, so a loaded host costs time,
+        not extra queueing and preemption.
 
         Each round probes the chaos ``engine_round`` site at its index
         (when a chaos spec is active), then runs the preemption policy
@@ -1490,27 +1516,39 @@ class ContinuousBatcher(EngineCore):
         pending = (deque(sorted(arrivals, key=lambda a: a[0]))
                    if arrivals else None)
         chaos_on = chaoslib.active() is not None
+        progress = round_s is not None
+        clock = 0.0  # the progress clock (schedule seconds)
         rounds = 0
         while True:
-            while pending and pending[0][0] <= time.perf_counter() - t_run0:
+            now = clock if progress else time.perf_counter() - t_run0
+            while pending and pending[0][0] <= now:
                 t_arr, kw = pending.popleft()
                 sid = self.submit(**kw)
-                self._queue[-1].t_submit = t_run0 + t_arr
-                self.stats[sid]["t_submit"] = t_run0 + t_arr
-                rtr = reqtracelib.active()
-                if rtr is not None:
-                    rtr.restamp_submit(sid, t_run0 + t_arr)
+                if not progress:  # submit() stamped the delivery instant
+                    self._queue[-1].t_submit = t_run0 + t_arr
+                    self.stats[sid]["t_submit"] = t_run0 + t_arr
+                    rtr = reqtracelib.active()
+                    if rtr is not None:
+                        rtr.restamp_submit(sid, t_run0 + t_arr)
             if not self.has_work():
                 if not pending or max_rounds is not None:
                     break
-                wait = pending[0][0] - (time.perf_counter() - t_run0)
-                time.sleep(min(max(wait, 0.0), 0.005))
+                if progress:
+                    clock = pending[0][0]
+                else:
+                    wait = pending[0][0] - (time.perf_counter() - t_run0)
+                    time.sleep(min(max(wait, 0.0), 0.005))
                 continue
             if max_rounds is not None and rounds >= max_rounds:
                 break
             rounds += 1
+            n_inj = len(chaoslib.injections()) if progress and chaos_on \
+                else 0
             r = self.service_round(
                 chaos_index=rounds - 1 if chaos_on else None)
+            if progress:
+                clock += round_s + sum(
+                    e["delay_s"] for e in chaoslib.injections()[n_inj:])
             t_exposed += r["exposed_s"]
             if r["stalled"]:
                 raise RuntimeError(

@@ -12,8 +12,12 @@ KV handoff between them — the counterpart of
 - ``migration.py`` — the transfer between two engines: ``migrate_pages``
   and the wire codec, byte-compatible with the JAX package's.
 
+- ``autoscaler.py`` — the autoscaler's pure controller
+  (:class:`Autoscaler`, :class:`AutoscalerPolicy`), which
+  ``harness/autofit.py`` replays offline.
+
 Later slices: the cross-process socket plane (``service.py``), the
-autoscaler, chaos and death recovery. This ``__init__`` stays lazy, as
+autoscaler's warm spin-up and elastic plane, chaos and death recovery. This ``__init__`` stays lazy, as
 JAX's does.
 """
 
@@ -24,6 +28,8 @@ _LAZY = {
     "ServingPlane": "hpc_patterns_tpu_torch.serving_plane.router",
     "PLACEMENT_POLICIES": "hpc_patterns_tpu_torch.serving_plane.router",
     "MIGRATION_TRANSPORTS": "hpc_patterns_tpu_torch.serving_plane.router",
+    "Autoscaler": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
+    "AutoscalerPolicy": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
     "migrate_pages": "hpc_patterns_tpu_torch.serving_plane.migration",
     "bundle_to_wire": "hpc_patterns_tpu_torch.serving_plane.migration",
     "bundle_from_wire": "hpc_patterns_tpu_torch.serving_plane.migration",

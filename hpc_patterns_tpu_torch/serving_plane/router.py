@@ -286,10 +286,22 @@ class ServingPlane:
         self.shed_on_death = 0
 
     @classmethod
-    def from_fitted(cls, replicas, fitted, **kw):
-        raise ValueError(
-            "not ported yet: ServingPlane.from_fitted comes with the "
-            "autofit slice")
+    def from_fitted(cls, replicas, fitted, *, slo: dict | None = None,
+                    emit=None, **kw):
+        """Build a plane from an autofit ``FittedConfig``: the fitted
+        ``placement`` section picks the policy (``weighted`` routes by
+        the fitted per-replica capacity shares); a config with no
+        placement signal yields the default least-loaded plane. An
+        explicit ``policy=`` kwarg wins over the fit."""
+        from hpc_patterns_tpu_torch.harness import autofit as autofitlib
+
+        fitted = autofitlib.validate_fitted(fitted)
+        section = fitted.get("placement") or {}
+        if "policy" not in kw and section.get("policy"):
+            kw["policy"] = section["policy"]
+        if "placement_weights" not in kw and section.get("weights"):
+            kw["placement_weights"] = section["weights"]
+        return cls(replicas, slo=slo, emit=emit, **kw)
 
     def _validate_engines(self) -> None:
         """Replicas must agree on what a request's tokens depend on

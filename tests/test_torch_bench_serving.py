@@ -3,12 +3,15 @@ bench_serving``): JAX's own tier-1 tests of the base row
 (``test_smoke_engine_beats_static_on_mixed_workload``) and of the chaos
 scenario (``test_smoke_chaos_scenario_still_beats_static_and_reports_
 goodput``) run unchanged against the port's rows — the same verdicts on
-the same keys — and the rows return every key JAX's rows return but the
-tail-attribution shares, which wait for ``harness/explain.py``. Each row
-holds every sequence against its standalone before it returns.
+the same keys — and the rows return every key JAX's rows return, the
+scenario's tail-attribution shares and budget breaches among them (its
+digest, written through ``explain_out``, is the row's). Each row holds
+every sequence against its standalone before it returns. The ``--fit``
+row is held in ``tests/test_torch_autofit.py``.
 """
 
 import importlib.util
+import json
 import sys
 from pathlib import Path
 
@@ -24,14 +27,14 @@ ROOT = Path(__file__).resolve().parent.parent
 BENCH_KEYS = {"t_static", "t_engine", "tokens", "tokens_per_s_static",
               "tokens_per_s_engine", "speedup", "bubble_frac",
               "prefill_compiles", "ladder", "distinct_lengths"}
-#: run_scenario's (:581-605), without the explain/budget digest's
-#: ttft_p99_queue_share, tpot_p99_stall_share and budget_breaches
+#: run_scenario's (:581-605)
 SCENARIO_KEYS = {"t_static", "t_engine", "tokens", "served_tokens",
                  "tokens_per_s_static", "tokens_per_s_engine", "speedup",
                  "goodput_tok_s", "attained_frac", "preemptions", "shed",
                  "bubble_frac", "stall_injections", "stall_injected_s",
                  "prefill_compiles", "ladder", "attribution_coverage_frac",
-                 "schedule"}
+                 "ttft_p99_queue_share", "tpot_p99_stall_share",
+                 "budget_breaches", "schedule"}
 
 
 def _jax_tests():
@@ -43,7 +46,7 @@ def _jax_tests():
 
 
 @pytest.fixture()
-def jax_bench(monkeypatch):
+def jax_bench(monkeypatch, tmp_path):
     """JAX's bench module with its rows and configs swapped for the
     port's (on the CPU), so JAX's test bodies call the port. One intra-op
     thread while they run: under a parallel test run a worker's thread
@@ -66,8 +69,11 @@ def jax_bench(monkeypatch):
     monkeypatch.setattr(jbs, "run_bench", capture("bench", tbs.run_bench))
     monkeypatch.setattr(jbs, "scenario_smoke_config",
                         lambda: tbs.scenario_smoke_config("cpu"))
-    monkeypatch.setattr(jbs, "run_scenario",
-                        capture("scenario", tbs.run_scenario))
+    # the scenario row also writes its attribution digest
+    monkeypatch.setattr(jbs, "run_scenario", capture(
+        "scenario", lambda **kw: tbs.run_scenario(
+            **kw, explain_out=tmp_path / "digest.json")))
+    rows["digest"] = tmp_path / "digest.json"
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield rows
@@ -92,11 +98,26 @@ def test_jax_chaos_scenario_test_passes_on_the_port(jax_bench):
     assert r["oracle"]["exact"] == 8 and r["admissions"] == 8 + \
         r["preemptions"]
     assert r["attribution_coverage_frac"] >= 0.95
+    # the shares are the timed leg's attribution digest's
+    dig = json.loads(jax_bench["digest"].read_text())
+    assert r["ttft_p99_queue_share"] == dig["ttft_p99_queue_share"]
+    assert r["tpot_p99_stall_share"] == dig["tpot_p99_stall_share"]
+    assert r["attribution_coverage_frac"] == dig["coverage_frac"]
+    assert isinstance(r["budget_breaches"], int) and \
+        r["budget_breaches"] >= 0
 
 
-@pytest.mark.parametrize("flag", ["--offload", "--shared", "--fit",
-                                  "--elastic", "--slo-budget", "--quant"])
+@pytest.mark.parametrize("flag", ["--offload", "--shared", "--elastic",
+                                  "--slo-budget", "--quant"])
 def test_later_rows_name_what_they_wait_for(flag, capsys):
     with pytest.raises(SystemExit):
         tbs.main([flag, "--device", "cpu", "--smoke"])
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_slo_budget_waits_for_tiered_memory_only(capsys):
+    with pytest.raises(SystemExit):
+        tbs.main(["--slo-budget", "--device", "cpu", "--smoke"])
+    err = capsys.readouterr().err
+    assert "ROADMAP item 3" in err and "item 2" not in err
+    assert "fit" not in tbs.LATER_ROWS

@@ -324,8 +324,15 @@ class TestRouterMechanics:
         assert all(r["src"] == "p" and r["dst"] == "d" for r in migrates)
 
     def test_from_fitted_waits_for_autofit(self, tp):
-        with pytest.raises(ValueError, match="autofit"):
+        # autofit is ported: from_fitted takes only a FittedConfig, and
+        # one without a placement section builds the default plane
+        from hpc_patterns_tpu_torch.harness import autofit
+
+        with pytest.raises(ValueError, match="not a fitted config"):
             ServingPlane.from_fitted([Replica(_eng(tp))], {})
+        plane = ServingPlane.from_fitted([Replica(_eng(tp))],
+                                         autofit.fit([]))
+        assert plane.policy_name == "least_loaded"
 
 
 class TestTransportLadder:
