@@ -71,8 +71,9 @@ Phases, each printing JSON lines:
               staged chaos schedule (page 16, 3 slots, pool 25, two seeded
               stalls, arrivals on the engine's progress clock) whose pool
               forces a preemption (>= 1 asserted), (b) the bursty stream
-              (page 256, 8 slots, 32 requests at 16 rps, pool 2.5 rows,
-              high-water 0.95, a stall every 12 rounds): every served
+              (page 256, 8 slots, the first 16 of its 32 requests at 16
+              rps, pool 2.5 rows, high-water 0.95, a stall every 12
+              rounds): every served
               sequence, resumed ones included, on its standalone; the
               timed run's kernel 1 and 6 launches against its counted
               calls; tokens/s, goodput, preemptions, sheds, the
@@ -81,7 +82,7 @@ Phases, each printing JSON lines:
               records logged for phase fit;
 3c. fit     — the observability-and-control layer: (a) ``serve_app
               --explain --explain-out`` at the serve phase's model and
-              stream (8 requests) logs a run (SUCCESS, the attribution
+              stream (4 requests) logs a run (SUCCESS, the attribution
               table and digest), ``python -m
               hpc_patterns_tpu_torch.harness.autofit run.jsonl --emit``
               fits a config from it (a ladder section, fitted E[pad] <=
@@ -90,10 +91,15 @@ Phases, each printing JSON lines:
               standalone); kernel 1 and 6 launches of both measured runs
               against their counted calls; (b) ``bench_serving.run_fitted``
               at ``fit_full_config`` (prompts 128/320/512 at 0.2/0.6/0.2,
-              page 256, 8 slots, 32 requests, budgets to 256): the strict
+              page 256, 8 slots, 16 of its 32 requests, budgets to 256,
+              timed once): the strict
               padding win and both legs on their standalone, the goodputs
               and ``autofit_gain_frac`` printed, not asserted, every engine
-              run's launches counted; the explain CLI and the budget
+              run's launches counted, then its blame A/B (the
+              ``--slo-budget`` chassis, a tiny gather model: the fitter
+              blames ``prefetch_wait`` and the fitted residency shrinks
+              it; both stall legs on their standalone, the ``blame_*``
+              keys printed); the explain CLI and the budget
               evaluation over phase scenario's two request traces (the
               breaches equal to the row's and to the logged records); (c)
               two concurrent processes of ``allreduce_app --algorithm
@@ -109,24 +115,53 @@ Phases, each printing JSON lines:
               named), then a copy of the newest round with its value
               halved must exit 1. The bench rounds also launch kernels 11,
               12 and 14; the table does not count them;
+3e. tiered  — tiered memory (``memory/``): (a) ``bench_serving.
+              run_offload`` at ``offload_full_config`` (the serve model,
+              the first 12 of its 24 requests, 8 slots, chunk 16, page 256, prompts to 256,
+              budgets to 512; the pool 9 of the 24-page working set, host
+              48, cold-after-3) under the flight recorder: tiered ==
+              all-HBM == standalone (tie-aware), paging forced, every
+              host-tier tensor pinned, kernel 1 and 6 launches of every
+              engine run against its calls, the ``mem.prefetch`` /
+              ``mem.evict`` windows' device time and rate; (b)
+              ``run_shared`` at ``shared_full_config`` (24 of its 48
+              requests, 3 templates of 512, tails 16/32/64, budgets 64/128, gather):
+              both engines on the standalone, skip > 0.3, hits > 0; one
+              more sharing leg of the stream's first 8 requests on
+              ``flash`` at rungs off the
+              multiples of 128 (kernel 6 reads shared pages; launches ==
+              n_layers x decode steps, none of kernel 1) on the flash
+              standalone; the tail prefill's largest |difference| from a
+              monolithic prefill at one template on each ladder's first
+              rung; (c) ``run_slo_budget`` (breaches exactly
+              ``prefetch_wait``) beside phase fit's blame A/B; (d)
+              ``train_app`` at phase train's model, 8 steps, resident then
+              ``--offload-opt``: equal losses and final params bit for
+              bit, every moment leaf pinned between steps, kernels 1, 3
+              and 4 launched n_layers x grad passes, each step time and
+              the streamed pull's overlap; (e) ``allreduce_app
+              --algorithm fused`` at p 16, 20, 24, ``-D`` then ``-H``
+              (pinned operand and result, the copies on the stream around
+              kernel 11): the results bit-equal, each time printed;
 3d. spec    — speculative decoding at the card widths: (a) the aligned
               pair (``make_draft_pair`` at its card widths: vocab 32768,
               d_model 1024, 8 heads with 2 KV heads, d_ff 4096, bf16,
               rope; 8 target and 2 draft layers; 200 / 200 steps), which
               must beat a random draft's greedy agreement and E[min(p,
               q)] by > 0.05 each; (b) ``serve_app --draft-pair --gamma
-              4`` at the serve phase's geometry and stream (SUCCESS), then
-              the engine on 16 prompts of the pair's own Markov process:
+              4`` at the serve phase's geometry and its stream's first 8
+              requests (SUCCESS), then the engine on 8 prompts of the
+              pair's own Markov process:
               greedy (each row on the target's standalone), sampled at T
               0.8, top-k 50 (each row on ``speculative_generate_batched``
               with the request's key; tie-aware on each decision's
               margin, replayed over teacher-forced logits, at a fixed
               0.05 / T) and the plain engine on the same stream, with
               tokens/s, tokens a row a round and the acceptance a /
-              gamma; (c) 8 requests on int8 pools against the target's
+              gamma; (c) 4 requests on int8 pools against the target's
               own int8 standalone; (d) ``bench_speculative --pair --n
-              128`` at gamma 2, 4, 8, greedy and sampled, and
-              ``--batched 8`` at 64 tokens a call.
+              16`` at gamma 2, 4, 8, greedy and sampled, and
+              ``--batched 8`` at 16 tokens a call.
               Every engine run's kernel 1 launches == (8 + 2) x its flash
               admissions, kernel 6's (6q's on int8) == 2 x (gamma + 1) x
               its rounds;
@@ -161,7 +196,7 @@ Phases, each printing JSON lines:
               ``run_quantized``: the precision law on the chip model
               (bf16 KV against int8 KV, then fp8 KV; 4 prompts of 512, 8
               teacher-forced steps on the linear cache's flash route)
-              checked against ``DEFAULT_BOUNDS``; then 8 requests of the
+              checked against ``DEFAULT_BOUNDS``; then 4 requests of the
               bench stream served at int8 KV on the ``flash`` route and
               on the ``paged_flash`` route (and timed in bf16 for
               comparison), every sequence held against its standalone
@@ -170,8 +205,8 @@ Phases, each printing JSON lines:
               geometry; each decode kernel's launches equal to n_layers x
               the decode steps that ran it;
 8. plane    — the serving plane at the serve phase's model (page 256, 8
-              slots, chunk 16, the plane benchmark's stream: 32 requests,
-              Poisson at 32 rps, seed 11, prompts 32/64/128, budgets
+              slots, chunk 16, the plane benchmark's stream cut from 32
+              requests to 16, Poisson at 32 rps, seed 11, prompts 32/64/128, budgets
               32/128/256 at 0.5/0.3/0.2, two classes): the port's
               ``bench_serving.run_plane`` over dma (single engine,
               2-replica, 1 prefill + 1 decode replica on logical ranks 0
@@ -196,10 +231,12 @@ Phases, each printing JSON lines:
               Chrome JSON balanced with its decode-chunk slices timed by
               CUDA events, the report's phase table, every request's
               segments covering its life; the same engine untraced and
-              traced in turns (untraced, traced, traced, untraced, twice):
+              traced in turns (untraced, then traced):
               equal sequences, equal kernel 1 and 6 launches, tokens/s; on
-              one more traced run the decode-chunk windows' share of wall
-              time beside ``torch.profiler``'s device-busy share;
+              one more traced run (the stream's first 8 requests at 64
+              tokens each, their sequences the serve phase's first 64
+              tokens) the decode-chunk windows' share of wall time beside
+              ``torch.profiler``'s device-busy share;
               ``train_app --metrics --trace`` at the training widths and 2
               layers for 3 steps (``train.steps``, ``train.step_s``,
               ``train.step_time_s``); ``allreduce_app --sweep --min-p 3 -p
@@ -253,7 +290,8 @@ Phases, each printing JSON lines:
               save-a forward once per layer), one step on the fused route
               (kernel 2 once per layer), and one step profiled
               (device-busy share, top kernels);
-12. the ``{"kernels": [...]}`` line, the card's name and power limit
+12. the ``done`` line with each phase's wall seconds, the ``{"kernels":
+   [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -324,10 +362,11 @@ ALIAS_SHAPE = (8, 128)
 # sweep repetitions in the comm phase (the app's default is 10)
 SWEEP_REPS = 3
 # the serving benchmark's chip stream, cut from 32 requests to 16; the
-# quant phase serves 8 of them per route
+# quant phase serves 4 of them per route
 N_REQUESTS = 16
-N_QUANT_REQUESTS = 8
-SERVE_CUTS = {"requests": "32 -> 16", "quant_requests": "16 -> 8"}
+N_QUANT_REQUESTS = 4
+SERVE_CUTS = {"requests": "32 -> 16",
+              "quant_requests": f"16 -> {N_QUANT_REQUESTS}"}
 # the quant phase's precision law: prompts x length, teacher-forced steps
 LAW_PROMPTS, LAW_PROMPT_LEN, LAW_STEPS = 4, 512, 8
 # the training benchmark's chip model (benchmarks/bench_train.py:39-55:
@@ -2223,15 +2262,19 @@ SAMPLE_BATCH = dict(rows=8, prompt_len=256, budget=32)
 def _counting_engine(cls, runs: list):
     """``cls`` with each ``run`` read around: kernel 1 and 6 launch counts
     set to 0 just before it and read just after, beside the admissions,
-    the admissions whose padded prompt takes the flash prefill (a
-    multiple of 128), the decode steps and the tokens of that run."""
+    the admissions whose padded prompt takes the flash prefill (the
+    ``flash`` route, a multiple of 128, no prefix match: a matched
+    admission prefills its tail on the plain route), the decode steps and
+    the tokens of that run."""
     from hpc_patterns_tpu_torch.ops import flash_attention as fa
     from hpc_patterns_tpu_torch.ops import flash_decode as fd
 
     class Counting(cls):
         def _admit(self, slot, req, need, *a, **kw):
-            self._flash_admits += self._bucket_len(req.prompt.size) % 128 \
-                == 0
+            self._flash_admits += (
+                self.cfg.decode_attn == "flash"
+                and self._bucket_len(req.prompt.size) % 128 == 0
+                and not kw.get("chain"))
             return super()._admit(slot, req, need, *a, **kw)
 
         def run(self, **kw):
@@ -2250,6 +2293,7 @@ def _counting_engine(cls, runs: list):
                          "decode_steps": self.decode_steps - d0,
                          "spec_rounds": self.spec_rounds - r0,
                          "n_layers": self.cfg.n_layers,
+                         "decode_attn": self.cfg.decode_attn,
                          "draft_layers": (self.draft_cfg.n_layers
                                           if self.spec else 0),
                          "gamma": self.gamma, "out": dict(got)})
@@ -2260,15 +2304,20 @@ def _counting_engine(cls, runs: list):
 
 def _check_launches(run: dict, label: str) -> dict:
     """A counted engine run's kernel 1 and 6 launches against the calls it
-    made: n_layers x its flash admissions and x its decode steps."""
+    made: n_layers x its flash admissions and x its decode steps (on the
+    ``gather`` route neither kernel runs: 0 of each)."""
     L = run["n_layers"]
-    check(run["paged_decode"] > 0, f"{label}: kernel 6 launched")
+    on_route = run.get("decode_attn", "flash") == "flash"
+    if on_route:
+        check(run["paged_decode"] > 0, f"{label}: kernel 6 launched")
     check(run["flash_prefill"] == L * run["flash_admissions"],
           f"{label}: prefill launches {run['flash_prefill']} == {L} x "
           f"{run['flash_admissions']} flash admissions")
-    check(run["paged_decode"] == L * run["decode_steps"],
-          f"{label}: decode launches {run['paged_decode']} == {L} x "
-          f"{run['decode_steps']} decode steps")
+    want = L * run["decode_steps"] if on_route else 0
+    check(run["paged_decode"] == want,
+          f"{label}: decode launches {run['paged_decode']} == {want} "
+          f"({L} x {run['decode_steps']} decode steps on the "
+          f"{run.get('decode_attn', 'flash')} route)")
     return {k: run[k] for k in ("flash_prefill", "paged_decode",
                                 "flash_admissions", "admissions",
                                 "decode_steps")}
@@ -2411,12 +2460,18 @@ def phase_sample(ctx):
     return launches
 
 
+# phase scenario's bursty part serves the first 16 of
+# scenario_full_config's 32 requests (cut for the run's time)
+SCENARIO_BURSTY_REQUESTS = 16
+
+
 def phase_scenario():
     """The robustness row at the chip widths: (a) the staged chaos
     schedule (page 16, 3 slots, pool 25, the ladder over 192, two seeded
     50 ms stalls, arrivals on the engine's progress clock), whose pool
     forces a preemption; (b) the bursty stream at the chip shape (page
-    256, 8 slots, 32 requests at 16 rps on the wall clock, pool 2.5 rows,
+    256, 8 slots, the first SCENARIO_BURSTY_REQUESTS of its 32 requests
+    at 16 rps on the wall clock, pool 2.5 rows,
     high-water 0.95, a stall every 12 rounds). Each through
     ``bench_serving.run_scenario``: every served sequence (resumed ones
     included) on its standalone, the timed engine run's kernel 1 and 6
@@ -2424,6 +2479,8 @@ def phase_scenario():
     sheds, the attribution shares, the budget breaches and the static
     baseline printed; each part's request trace and breach records land
     in ``build/smoke_scenario/<part>.jsonl`` for phase fit."""
+    import dataclasses
+
     from hpc_patterns_tpu_torch import bench_serving as bs
 
     t_phase = time.perf_counter()
@@ -2433,8 +2490,13 @@ def phase_scenario():
     logs.mkdir(parents=True, exist_ok=True)
     ctx = {"logs": {}, "budget_breaches": {}}
     orig = bs.ContinuousBatcher
+    bursty = bs.scenario_full_config(dev)
+    first = bursty["schedule"].requests[:SCENARIO_BURSTY_REQUESTS]
+    bursty["schedule"] = dataclasses.replace(
+        bursty["schedule"], requests=first,
+        spec=dict(bursty["schedule"].spec, n=len(first)))
     for part, conf in (("staged", bs.scenario_smoke_config(dev, chip=True)),
-                       ("bursty", bs.scenario_full_config(dev))):
+                       ("bursty", bursty)):
         runs: list = []
         log = ctx["logs"][part] = logs / f"{part}.jsonl"
         log.unlink(missing_ok=True)
@@ -2465,15 +2527,20 @@ def phase_scenario():
     return launches, ctx
 
 
-# phase fit: serve_app's record and replay legs serve 8 requests of the
-# serve phase's stream (cut from 16: each leg also runs every sequence's
-# standalone); the collect leg's two processes run one fused point of 2^20
-# f32 a rank at 4 logical ranks; the gate's bench rounds measure each pass
-# for 0.05 s after 100 calibration passes (the bench's defaults: 1 s, 1000)
-FIT_REQUESTS = 8
+# phase fit: serve_app's record and replay legs serve 4 requests of the
+# serve phase's stream (cut from 16: each leg serves them twice and runs
+# every sequence's standalone); the --fit row serves 16 of
+# fit_full_config's 32 requests, timed once (JAX's reps 2); the collect
+# leg's two processes run one fused point of 2^20 f32 a rank at 4 logical
+# ranks; the gate's bench rounds measure each pass for 0.05 s after 100
+# calibration passes (the bench's defaults: 1 s, 1000)
+FIT_REQUESTS = 4
+FIT_ROW = {"n": 16, "reps": 1}
 FIT_COLLECT = dict(p=20, world=4, repetitions=5)
 FIT_GATE = ["--target-s", "0.05", "--cal-passes", "100"]
-FIT_CUTS = {"serve_app_requests": "16 -> 8",
+FIT_CUTS = {"serve_app_requests": f"16 -> {FIT_REQUESTS}",
+            "fit_row": f"32 requests x 2 reps -> {FIT_ROW['n']} x "
+                       f"{FIT_ROW['reps']}",
             "gate_bench": "per-pass 1 s -> 0.05 s, calibration 1000 -> 100"}
 
 
@@ -2578,7 +2645,8 @@ def _fit_record_replay(logs) -> tuple[dict, dict]:
 
 
 def _fit_row(scenario_ctx, logs) -> tuple[dict, dict]:
-    """(b): bench_serving's --fit row at fit_full_config on the card,
+    """(b): bench_serving's --fit row at fit_full_config (FIT_ROW) on the
+    card,
     every engine run's launches counted; then the explain CLI and the
     budget evaluation over the scenario phase's request traces."""
     from hpc_patterns_tpu_torch import bench_serving as bs
@@ -2590,7 +2658,8 @@ def _fit_row(scenario_ctx, logs) -> tuple[dict, dict]:
     orig = bs.ContinuousBatcher
     bs.ContinuousBatcher = _counting_engine(orig, runs)
     try:
-        res = bs.run_fitted(**bs.fit_full_config(dev), quiet=True)
+        res = bs.run_fitted(**dict(bs.fit_full_config(dev), **FIT_ROW),
+                            quiet=True)
     finally:
         bs.ContinuousBatcher = orig
     launches = {"flash_prefill": 0, "paged_decode": 0}
@@ -2599,19 +2668,26 @@ def _fit_row(scenario_ctx, logs) -> tuple[dict, dict]:
         for k in launches:
             launches[k] += timed[k]
     oracle = res["oracle"]
+    legs = {"default": FIT_ROW["n"], "fitted": FIT_ROW["n"],
+            "blame_recorded": 5, "blame_fitted": 5}
     check(res["expected_padding_fitted"] < res["expected_padding_default"]
-          and all(v["exact"] + v["near_tie"] == 32 for v in oracle.values()),
+          and all(oracle[k]["exact"] + oracle[k]["near_tie"] == n
+                  for k, n in legs.items()),
           f"fit row: strict padding win (E[pad] "
           f"{res['expected_padding_default']} -> "
-          f"{res['expected_padding_fitted']}), both legs on their "
+          f"{res['expected_padding_fitted']}), every leg on its "
           f"standalone ({oracle})")
+    check(res["blame_segment"] == "prefetch_wait"
+          and res["blame_share_fitted"] < res["blame_share_default"],
+          f"fit row: the blame A/B blamed prefetch_wait and shrank it "
+          f"({res['blame_share_default']} -> {res['blame_share_fitted']})")
     out = {k: res[k] for k in (
         "default_goodput_tok_s", "fitted_goodput_tok_s", "autofit_gain_frac",
         "t_default", "t_fitted", "tokens", "ladder_default", "ladder_fitted",
         "expected_padding_default", "expected_padding_fitted",
         "config_sections", "oracle")}
     out["engine_runs"] = len(runs)
-    out["blame_ab"] = "waits for the residency manager (ROADMAP item 3)"
+    out["blame_ab"] = {k: res[k] for k in res if k.startswith("blame")}
 
     targets = slo.targets_from_classes(bs.SCENARIO_CLASSES)
     out["scenario_traces"] = {}
@@ -2816,7 +2892,427 @@ def phase_fit(scenario_ctx):
           "cuts": FIT_CUTS, "card": smi("name,power.limit"),
           "seconds_by_part": seconds,
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, row["blame_ab"]
+
+
+# phase tiered: tiered memory on the card. (b)'s second sharing leg runs
+# the same stream's first SHARED_FLASH_REQUESTS requests on the flash
+# route with a ladder off the multiples of 128 (the engine refuses flash
+# with 128-multiple rungs), so kernel 6 reads shared pages; (d) trains
+# phase train's model with the moments resident and offloaded; (e) times
+# allreduce_app -H and -D. The whole script must end well inside its
+# 1200 s limit on a host that runs it a third slower than the fastest
+# seen, so (a) and (b) serve the first TIERED_OFFLOAD_REQUESTS and
+# TIERED_SHARED_REQUESTS of their configs' streams (every leg serves its
+# stream six or four times and runs each request's standalone; the pool
+# of 9 of 24 pages and the templates are the configs' own)
+TIERED_OFFLOAD_REQUESTS = 12
+TIERED_SHARED_REQUESTS = 24
+SHARED_FLASH_LADDER = (552, 600, 648, 664)
+SHARED_FLASH_REQUESTS = 8
+# phase train's 8 steps (at 4 the one static batch's loss had not yet
+# fallen below its first step's, which train_app's check asks)
+TIERED_TRAIN_STEPS = 8
+TIERED_ALLREDUCE_P = (16, 20, 24)
+TIERED_CUTS = {"allreduce": "p 3..25 sweep -> p 16, 20, 24 at -H and -D",
+               "offload_requests": f"24 -> {TIERED_OFFLOAD_REQUESTS}",
+               "shared_requests": f"48 -> {TIERED_SHARED_REQUESTS}",
+               "shared_flash_leg": "48 requests -> the stream's first "
+                                   f"{SHARED_FLASH_REQUESTS}"}
+
+
+def _pin_watch(managers: list):
+    """A ``ResidencyManager`` that counts the host-tier tensors it pushed
+    and those of them that are not pinned (the tier must have none)."""
+    from hpc_patterns_tpu_torch.memory import ResidencyManager
+    from hpc_patterns_tpu_torch.memory.kinds import tree_tensors
+
+    class Watched(ResidencyManager):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.host_tensors = self.unpinned = 0
+            managers.append(self)
+
+        def push_payload(self, payload, **kw):
+            out = super().push_payload(payload, **kw)
+            for t in tree_tensors(out):
+                self.host_tensors += 1
+                self.unpinned += not t.is_pinned()
+            return out
+
+    return Watched
+
+
+def _mem_windows(rec) -> dict:
+    """The flight recorder's mem.* device windows (CUDA-event clock):
+    count, bytes, device seconds and the rate they imply."""
+    out = {}
+    for name in ("mem.prefetch", "mem.evict"):
+        wins = [ev for ev in rec.events if ev[0] == "X"
+                and ev[1] == "device" and ev[2] == name]
+        nbytes = sum(ev[6]["bytes"] for ev in wins)
+        dev_s = sum(ev[5] for ev in wins)
+        out[name] = {"windows": len(wins), "bytes": nbytes,
+                     "device_s": dev_s,
+                     "event_clock": all(ev[6].get("clock") == "cuda_event"
+                                        for ev in wins),
+                     "gb_per_s": nbytes / dev_s / 1e9 if dev_s else None}
+    return out
+
+
+def _tiered_offload() -> tuple[dict, dict]:
+    """(a) bench_serving's --offload row at offload_full_config (its
+    stream's first TIERED_OFFLOAD_REQUESTS), under the
+    flight recorder (both legs alike): every engine run's kernel 1 and 6
+    launches counted, every host-tier tensor checked pinned, the mem.*
+    windows' device time and rate."""
+    from hpc_patterns_tpu_torch import bench_serving as bs
+    from hpc_patterns_tpu_torch import memory as memlib
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    dev = torch.device("cuda")
+    runs: list = []
+    managers: list = []
+    orig_eng, orig_mgr = bs.ContinuousBatcher, memlib.ResidencyManager
+    bs.ContinuousBatcher = _counting_engine(orig_eng, runs)
+    memlib.ResidencyManager = _pin_watch(managers)
+    rec = tracelib.configure(enabled=True, capacity=1 << 20)
+    try:
+        res = bs.run_offload(**dict(bs.offload_full_config(dev),
+                                    n=TIERED_OFFLOAD_REQUESTS), quiet=True)
+        windows = _mem_windows(rec)
+    finally:
+        tracelib.configure(enabled=False)
+        bs.ContinuousBatcher, memlib.ResidencyManager = orig_eng, orig_mgr
+    launches = {"flash_prefill": 0, "paged_decode": 0}
+    for i, run in enumerate(runs):
+        timed = _check_launches(run, f"offload row run {i}")
+        for k in launches:
+            launches[k] += timed[k]
+    oracle = res["oracle"]
+    check(res["swap_outs"] > 0 and res["swap_ins"] > 0
+          and res["hbm_pool"] == 9 and res["full_pool"] == 24,
+          f"offload: the cap (9 of 24 pages) forced paging "
+          f"({res['swap_outs']}/{res['swap_ins']})")
+    check(all(oracle[k]["exact"] + oracle[k]["near_tie"]
+              == TIERED_OFFLOAD_REQUESTS for k in ("full", "tiered")),
+          f"offload: both engines on their standalone ({oracle})")
+    check(len(managers) == 2 and all(m.unpinned == 0 and m.host_tensors
+                                     for m in managers),
+          "offload: every host-tier tensor pinned "
+          f"({[(m.host_tensors, m.unpinned) for m in managers]})")
+    check(windows["mem.prefetch"]["windows"] > 0
+          and windows["mem.prefetch"]["event_clock"],
+          "offload: mem.prefetch windows timed by CUDA events on the side "
+          "stream")
+    out = {k: res[k] for k in (
+        "offload_goodput_tok_s", "full_goodput_tok_s", "tokens_per_s_full",
+        "tokens_per_s_tiered", "t_full", "t_tiered", "tokens",
+        "prefetch_overlap_frac", "swap_outs", "swap_ins", "prefetch_bytes",
+        "evict_bytes", "hbm_pool", "full_pool", "bubble_frac", "oracle")}
+    out["mem_windows"] = windows
+    out["host_tensors_pushed"] = [m.host_tensors for m in managers]
+    out["engine_runs"] = len(runs)
+    return out, launches
+
+
+def _tail_delta(cfg, params, template, tails, rung, dev) -> dict:
+    """The largest |difference| between paged_tail_prefill's tail K/V and
+    logits and a monolithic paged_prefill's of the same prompt at
+    ``rung``, the prefix pages written by a same-rung prefill of another
+    prompt sharing ``template``."""
+    from hpc_patterns_tpu_torch.models import decode as dec
+
+    P = 256
+    m = len(template) // P
+    n = -(-rung // P)
+    a, b = (np.concatenate([template, t]).astype(np.int32) for t in tails)
+    pad = lambda x: np.pad(x, (0, rung - x.size))  # noqa: E731
+    T = b.size
+    cache = dec.init_paged_cache(cfg, 1, n, P, pool_pages=3 * n,
+                                 table=np.arange(n)[None], device=dev)
+    dec.paged_prefill(params, torch.from_numpy(pad(a))[None].to(dev), cfg,
+                      cache, P, last_pos=a.size - 1)
+    cache["table"] = torch.tensor([list(range(m)) + list(range(n, 2 * n - m))],
+                                  dtype=torch.int32, device=dev)
+    lt, _ = dec.paged_tail_prefill(
+        params, torch.from_numpy(pad(b)[m * P:])[None].to(dev), cfg, cache,
+        P, m, last_pos=T - 1 - m * P)
+    cache["table"] = torch.arange(2 * n, 3 * n, dtype=torch.int32,
+                                  device=dev)[None]
+    lm, _ = dec.paged_prefill(params, torch.from_numpy(pad(b))[None].to(dev),
+                              cfg, cache, P, last_pos=T - 1)
+    torch.cuda.synchronize()
+    d = {"rung": rung, "prefix": m * P, "tail": rung - m * P,
+         "logits": float((lt - lm).abs().max())}
+    for name in ("k", "v"):
+        d[name] = max(float((pool[n:2 * n - m].float()
+                             - pool[2 * n + m:3 * n].float()).abs().max())
+                      for pool in cache[name])
+    d["bitwise"] = d["logits"] == d["k"] == d["v"] == 0.0
+    return d
+
+
+def _tiered_shared() -> tuple[dict, dict]:
+    """(b) bench_serving's --shared row at shared_full_config (its
+    stream's first TIERED_SHARED_REQUESTS; gather, as JAX pins it), then one sharing leg of the stream's first requests on
+    the flash route at SHARED_FLASH_LADDER (kernel 6 reading shared pages, its
+    launches counted) held against the flash standalone; and the tail
+    prefill's |difference| from a monolithic prefill at one template, on
+    each ladder's rung."""
+    import dataclasses
+
+    from hpc_patterns_tpu_torch import bench_serving as bs
+    from hpc_patterns_tpu_torch.harness import loadgen
+    from hpc_patterns_tpu_torch.models.serving import pad_to_bucket
+
+    dev = torch.device("cuda")
+    conf = dict(bs.shared_full_config(dev), n=TIERED_SHARED_REQUESTS)
+    runs: list = []
+    orig = bs.ContinuousBatcher
+    bs.ContinuousBatcher = _counting_engine(orig, runs)
+    try:
+        res = bs.run_shared(**conf, quiet=True)
+    finally:
+        bs.ContinuousBatcher = orig
+    for i, run in enumerate(runs):
+        _check_launches(run, f"shared row run {i}")
+    n = conf["n"]
+    oracle = res["oracle"]
+    check(all(oracle[k]["exact"] + oracle[k]["near_tie"] == n
+              for k in oracle) and res["prefill_skip_frac"] > 0.3
+          and res["prefix_hits"] > 0,
+          f"shared: both engines on their standalone ({oracle}), skip "
+          f"{res['prefill_skip_frac']:.3f} > 0.3, hits {res['prefix_hits']}")
+    out = {k: res[k] for k in (
+        "shared_goodput_tok_s", "private_goodput_tok_s",
+        "tokens_per_s_private", "tokens_per_s_shared", "t_private",
+        "t_shared", "tokens", "prefill_skip_frac", "prefix_hits",
+        "prefix_misses", "ladder", "pool_pages", "bubble_frac", "oracle")}
+
+    # the flash leg: the same stream, the sharing engine only
+    cfg = dataclasses.replace(conf["cfg"], decode_attn="flash")
+    params = conf["params"]
+    schedule = loadgen.make_shared_prefix_schedule(
+        n, rate_rps=conf["rate_rps"], classes=bs.SCENARIO_CLASSES,
+        n_templates=conf["n_templates"], template_len=conf["template_len"],
+        tail_lens=conf["tail_lens"], budgets=conf["budgets"],
+        tree_frac=conf["tree_frac"], seed=conf["seed"])
+    leg = schedule.requests[:SHARED_FLASH_REQUESTS]
+    prompts = {r.index: loadgen.materialize_prompt(schedule, r.index,
+                                                   cfg.vocab)
+               for r in leg}
+    page = conf["page_size"]
+    pps = max(bs.ContinuousBatcher.pages_needed(
+        len(prompts[r.index]), r.max_new, page,
+        padded_len=pad_to_bucket(SHARED_FLASH_LADDER, len(prompts[r.index])))
+        for r in leg)
+    flash_runs: list = []
+    eng = _counting_engine(bs.ContinuousBatcher, flash_runs)(
+        params, cfg, slots=conf["slots"], pool_pages=conf["slots"] * pps,
+        pages_per_seq=pps, page_size=page, chunk=conf["chunk"],
+        prompt_buckets=SHARED_FLASH_LADDER, prefix_cache=True, device=dev)
+    t0 = time.perf_counter()
+    got = eng.run(arrivals=[(r.t_arrival_s, dict(
+        prompt=prompts[r.index], max_new=r.max_new, seq_id=r.index,
+        priority=r.priority, deadline_s=r.deadline_s)) for r in leg])
+    torch.cuda.synchronize()
+    t_flash = time.perf_counter() - t0
+    (run,) = flash_runs
+    launches = _check_launches(run, "shared flash leg")
+    check(launches["flash_prefill"] == 0,
+          "shared flash leg: no rung takes kernel 1")
+    tol = bs.TIE_TOL[cfg.dtype]
+    verdicts = {"exact": 0, "near_tie": 0}
+    for r in leg:
+        want, margins = bs._standalone(params, cfg, prompts[r.index],
+                                       r.max_new, page_size=page,
+                                       device=dev)
+        verdicts[bs._held(got[r.index], want, margins, tol,
+                          f"shared flash seq {r.index}")] += 1
+    tokens = sum(r.max_new for r in leg)
+    check(eng._prefix.hits > 0
+          and sum(verdicts.values()) == SHARED_FLASH_REQUESTS,
+          f"shared flash leg: {verdicts}, hits {eng._prefix.hits}")
+    out["flash_leg"] = {
+        "ladder": SHARED_FLASH_LADDER, "requests": len(leg),
+        "oracle": verdicts,
+        "prefill_skip_frac": eng.prefill_skip_frac,
+        "prefix_hits": eng._prefix.hits, "prefix_misses": eng._prefix.misses,
+        "tokens_per_s": tokens / t_flash, "t": t_flash, **launches}
+    # the tail's bits against a monolithic prefill at one template
+    t0 = loadgen.materialize_prompt(schedule, 0, cfg.vocab)
+    template = t0[:conf["template_len"]]
+    rng = np.random.RandomState(19)
+    tails = [rng.randint(0, cfg.vocab, size=40) for _ in range(2)]
+    out["tail_prefill_delta"] = [
+        _tail_delta(conf["cfg"], params, template, tails, res["ladder"][0],
+                    dev),
+        _tail_delta(cfg, params, template, tails, SHARED_FLASH_LADDER[0],
+                    dev)]
+    return out, {"paged_decode": launches["paged_decode"]}
+
+
+def _tiered_train(logs) -> tuple[dict, dict]:
+    """(d) train_app at phase train's model, TIERED_TRAIN_STEPS steps, the
+    moments resident and then --offload-opt: equal losses and final params
+    bit for bit, every moment leaf pinned between steps, kernels 1, 3 and
+    4 launched n_layers x grad passes; each run's step time and the
+    streamed step's prefetch overlap."""
+    from hpc_patterns_tpu_torch.memory.kinds import tree_tensors
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.utils.checkpoint import _load
+
+    argv = ["--steps", str(TIERED_TRAIN_STEPS), *TRAIN_BASE]
+    pinned: list = []
+    orig = tr._make_streamed_step
+
+    def watched(*a, **kw):
+        step = orig(*a, **kw)
+
+        def run(params, opt_state, tokens):
+            out = step(params, opt_state, tokens)
+            pinned.append(all(t.is_pinned() for k in tr.MOMENTS
+                              for t in tree_tensors(out[2][k])))
+            return out
+        return run
+
+    result, launches = {}, {}
+    for name, extra in (("resident", []), ("offload", ["--offload-opt"])):
+        tr._make_streamed_step = watched
+        try:
+            r = _train_run(argv + extra + ["--checkpoint-dir",
+                                           str(logs / name)],
+                           logs / f"train_{name}.jsonl")
+        finally:
+            tr._make_streamed_step = orig
+        check(r["code"] == 0, f"tiered train {name}: SUCCESS "
+              f"({r['out'][-2000:]})")
+        L = TRAIN_MODEL["n_layers"]
+        g = r["passes"]["grad"]
+        check(all(r["launches"][k] == L * g for k in ("fwd_lse", "dq",
+                                                      "dkv")),
+              f"tiered train {name}: fwd_lse/dq/dkv launches "
+              f"{[r['launches'][k] for k in ('fwd_lse', 'dq', 'dkv')]} == "
+              f"{L} x {g} grad passes")
+        result[name] = {"losses": r["losses"], "steps_ms": r["steps_ms"],
+                        "step_ms": r["res"]["step_time_s"] * 1e3,
+                        "peak_bytes": r["peak_bytes"],
+                        **{k: r["res"].get(k) for k in (
+                            "prefetch_overlap_frac", "prefetch_bytes",
+                            "evict_bytes") if name == "offload"}}
+        launches[name] = {k: r["launches"][k] for k in ("fwd_lse", "dq",
+                                                        "dkv")}
+        result[name]["out_tail"] = r["out"].splitlines()[-4:]
+    check(len(pinned) == TIERED_TRAIN_STEPS and all(pinned),
+          f"tiered train: every moment leaf pinned between steps {pinned}")
+    a, b = (_load(logs / n / f"step_{TIERED_TRAIN_STEPS}" / "params.pt",
+                  torch.device("cpu")) for n in ("resident", "offload"))
+    same = all(torch.equal(x, y) for x, y in zip(tr.tree_leaves(a),
+                                                 tr.tree_leaves(b)))
+    check(result["resident"]["losses"] == result["offload"]["losses"]
+          and same,
+          f"tiered train: losses {result['resident']['losses']} == "
+          f"{result['offload']['losses']} and final params bit-equal "
+          f"({same})")
+    result["params_bit_equal"] = same
+    moments = 2 * 4 * sum(x.numel() for x in tr.tree_leaves(a))
+    result["moment_bytes"] = moments
+    return result, {k: launches["offload"][k] for k in launches["offload"]}
+
+
+def _tiered_allreduce(logs) -> tuple[dict, int]:
+    """(e) allreduce_app --algorithm fused at TIERED_ALLREDUCE_P, -D then
+    -H (each timed by the app, kernel 11's launches counted), and the two
+    routes' results bit-equal on one operand a size."""
+    from hpc_patterns_tpu_torch.apps import allreduce_app, common
+    from hpc_patterns_tpu_torch.comm import fused
+    from hpc_patterns_tpu_torch.memory import kinds
+
+    comm = common.make_communicator("cuda", COMM_WORLD, even=True)
+    rows = {}
+    n_launch = 0
+    for p in TIERED_ALLREDUCE_P:
+        x = comm.rank_filled(1 << p, "float32")
+        step = comm.jit_allreduce(x, "fused")
+        want = step(x).cpu()
+        xh = kinds.move_to_kind(comm.device, "pinned_host")(x)
+        comm.synchronize()
+        got = allreduce_app.host_resident(step, comm.device)(xh)
+        comm.synchronize()
+        check(got.is_pinned() and torch.equal(got, want),
+              f"allreduce -H p={p}: pinned and bit-equal to -D")
+        del x, xh, got, want
+        rows[p] = {}
+        for flag in ("-D", "-H"):
+            fused.launches["fused_allreduce"] = 0
+            code, recs = run_app(allreduce_app.main, [
+                "-p", str(p), "--algorithm", "fused", flag, "--device",
+                "cuda", "--world", str(COMM_WORLD)],
+                logs / f"allreduce_{p}{flag}.jsonl")
+            comm.synchronize()
+            (res,) = [r for r in recs if r.get("kind") == "result"]
+            check(code == 0 and res["success"],
+                  f"allreduce_app {flag} p={p}: SUCCESS")
+            check(res["memory_kind"] == ("pinned_host" if flag == "-H"
+                                         else "device"),
+                  f"allreduce_app {flag} p={p} ran in {res['memory_kind']}")
+            if flag == "-H":
+                n_launch += fused.launches["fused_allreduce"]
+            rows[p][flag] = {"elapsed_ms": res["elapsed_s"] * 1e3,
+                             "busbw_gbps": res["busbw_gbps"],
+                             "launches": fused.launches["fused_allreduce"]}
+    return rows, n_launch
+
+
+def phase_tiered(blame_ab):
+    """Tiered memory on the card: (a) the --offload row at
+    offload_full_config (tiered == all-HBM == standalone, real paging,
+    every host-tier tensor pinned, the mem.* windows' device time); (b)
+    the --shared row at shared_full_config and a flash sharing leg (kernel
+    6 on shared pages), the tail prefill's bits against a monolithic one;
+    (c) the --slo-budget row (breaches exactly prefetch_wait) beside the
+    --fit row's blame A/B from phase fit; (d) train_app --offload-opt
+    against resident moments; (e) allreduce_app -H against -D."""
+    import shutil
+
+    from hpc_patterns_tpu_torch import bench_serving as bs
+
+    t_phase = time.perf_counter()
+    logs = ROOT / "build" / "smoke_tiered"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    seconds, launches = {}, {}
+    t = time.perf_counter()
+    offload, launches["offload"] = _tiered_offload()
+    seconds["offload"] = time.perf_counter() - t
+    t = time.perf_counter()
+    shared, launches["shared_flash"] = _tiered_shared()
+    seconds["shared"] = time.perf_counter() - t
+    t = time.perf_counter()
+    budget = bs.run_slo_budget(**bs.slo_budget_smoke_config("cuda"),
+                               quiet=True)
+    check(budget["budget_breach_segments"] == ["prefetch_wait"],
+          f"slo-budget: breaches {budget['budget_breach_segments']}")
+    seconds["slo_budget"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train, launches["train"] = _tiered_train(logs)
+    seconds["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    allreduce, launches["fused_allreduce"] = _tiered_allreduce(logs)
+    seconds["allreduce"] = time.perf_counter() - t
+    total = {"flash_prefill": launches["offload"]["flash_prefill"],
+             "paged_decode": launches["offload"]["paged_decode"]
+             + launches["shared_flash"]["paged_decode"],
+             **launches["train"],
+             "fused_allreduce": launches["fused_allreduce"]}
+    emit({"phase": "tiered", "offload": offload, "shared": shared,
+          "slo_budget": budget, "fit_blame_ab": blame_ab, "train": train,
+          "allreduce": allreduce, "launches": total,
+          "launches_by_part": launches, "cuts": TIERED_CUTS,
+          "card": smi("name,power.limit"), "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_phase})
+    return total
 
 
 # phase spec: the aligned pair at make_draft_pair's card widths, cut from
@@ -2828,20 +3324,28 @@ SPEC_GAMMA = 4
 # process on a disjoint path (draw_seed 777, as JAX's bench_speculative),
 # budgets 64/128/256 at 0.5/0.3/0.2 (RandomState(7)); page 256, 8 slots,
 # 4 rounds a dispatch (a round emits up to gamma + 1 tokens, so about the
-# plain engine's 16-step chunk); the int8 leg serves the first 8
-SPEC_STREAM = dict(requests=16, prompt_len=256, budgets=(64, 128, 256),
+# plain engine's 16-step chunk); 8 requests (16 before the run had to end
+# well inside its limit on a slower host), the int8 leg the first 4;
+# serve_app's leg the serve phase's first SPEC_APP_REQUESTS requests
+SPEC_STREAM = dict(requests=8, prompt_len=256, budgets=(64, 128, 256),
                    p=(0.5, 0.3, 0.2))
 SPEC_CHUNK = 4
-SPEC_INT8_REQUESTS = 8
-# the benchmark: the gamma sweep at 128 tokens a call, the batched rows at
-# 64 (at JAX's 256 the vmap impl's eight one-row loops took most of the
-# 251 s the whole benchmark took on the H100; the sweep at 256 took 173 s
-# of a 1032 s run once phase fit joined, so it was cut to 128)
-SPEC_BENCH = dict(n=128, temp=0.8, top_k=40, batched=8, batched_n=64)
+SPEC_INT8_REQUESTS = 4
+SPEC_APP_REQUESTS = 8
+# the benchmark: the gamma sweep and the batched rows at 16 tokens a call
+# (at JAX's 256 the vmap impl's eight one-row loops took most of the 251 s
+# the whole benchmark took on the H100; the sweep at 256 took 173 s of a
+# 1032 s run once phase fit joined, so it was cut to 128; with phase
+# tiered the run reached 1112 s with the sweep at 64 (72 s), so both went
+# to 32; a host that ran the script a third slower took both to 16)
+SPEC_BENCH = dict(n=16, temp=0.8, top_k=40, batched=8, batched_n=16)
 SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
-             "serve_app": "the serve phase's stream (16 requests)",
-             "int8_requests": "16 -> 8", "bench_n": "256 -> 128",
-             "bench_batched_n": "256 -> 64"}
+             "serve_app": "the serve phase's stream, its first "
+                          f"{SPEC_APP_REQUESTS} requests",
+             "engine_requests": f"16 -> {SPEC_STREAM['requests']}",
+             "int8_requests": f"16 -> {SPEC_INT8_REQUESTS}",
+             "bench_n": f"256 -> {SPEC_BENCH['n']}",
+             "bench_batched_n": f"256 -> {SPEC_BENCH['batched_n']}"}
 
 
 def _spec_stream(vocab: int) -> list:
@@ -3052,10 +3556,10 @@ def phase_spec():
     tie-aware on each decision's margin from :func:`_spec_margins` at the
     fixed tolerance 0.05 / T) and the plain engine on the same stream;
     (c) a draft-assisted engine on int8 pools against the target's own
-    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 128`` at
-    gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 64
-    tokens a call. Every engine run's kernel 1 and 6 launches against its counted
-    admissions and rounds; tokens/s, tokens a row a round and the
+    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 16`` at
+    gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 16
+    tokens a call. Every engine run's kernel 1 and 6 launches against its
+    counted admissions and rounds; tokens/s, tokens a row a round and the
     acceptance a / gamma printed."""
     import dataclasses
     import shutil
@@ -3124,7 +3628,7 @@ def phase_spec():
     s = CHIP_SERVE
     runs: list = []
     argv = ["--device", "cuda", "--draft-pair", pair, "--gamma", str(G),
-            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--requests", str(SPEC_APP_REQUESTS), "--slots", str(s["slots"]),
             "--chunk", str(SPEC_CHUNK), "--page-size", str(s["page_size"]),
             "--prompt-len", str(s["prompt_len"]),
             "--budget", str(s["max_budget"])]
@@ -3298,8 +3802,11 @@ def phase_spec():
             "build": build_launches}
 
 
-# the plane phase's closed-loop transports and its int8 leg's requests
+# the plane phase's closed-loop transports; the requests of every leg
+# (plane_full_config's 32, cut to 16 for the run's time) and of its int8
+# leg
 PLANE_TRANSPORTS = ("dma", "device_put", "wire")
+PLANE_REQUESTS = 16
 PLANE_INT8_REQUESTS = 8
 # the death leg: replica 1 of a 2-replica fixed plane dies at its round 3
 PLANE_DEATH_SPEC = "die:replica=1,at=3,site=replica_round"
@@ -3429,7 +3936,7 @@ def phase_plane():
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    conf = bs.plane_full_config(dev)
+    conf = dict(bs.plane_full_config(dev), n=PLANE_REQUESTS)
     cfg = conf["cfg"]
     check(all(getattr(cfg, k) == v for k, v in CHIP_MODEL.items())
           and cfg.decode_attn == "flash",
@@ -3512,6 +4019,7 @@ def phase_plane():
                                              "max_budget", "rate_rps",
                                              "seed")}},
           "cuts": {"chips": "2 -> 2 logical ranks of one card",
+                   "requests": f"32 -> {PLANE_REQUESTS}",
                    "int8_requests": f"32 -> {PLANE_INT8_REQUESTS}"},
           "open_loop": {**legs,
                         "migrations": res["migrations"],
@@ -3541,12 +4049,23 @@ def phase_plane():
 # step count; the allreduce sweep's sizes
 OBSERVE_TRAIN = {"n_layers": 2, "steps": 3}
 OBSERVE_SWEEP = ["--sweep", "--min-p", "3", "-p", "12"]
-# serving untraced (False) and traced (True) in turns, the block twice:
-# the serve phase's tokens/s moves ~10% from run to run
-OBSERVE_TURNS = (False, True, True, False) * 2
+# serving untraced (False) and traced (True) in turns, one pair since
+# phase tiered joined (the block (F, T, T, F) twice before): the serve
+# phase's tokens/s moves ~10% from run to run, so one pair shows equal
+# tokens and launches, not the tracing's cost
+OBSERVE_TURNS = (False, True)
+# the profiled serving run: the stream's first 8 requests at a budget of
+# 64 (each sequence the first 64 tokens of the serve phase's). The
+# profiler records every kernel and op, and the whole stream (~150k
+# kernels) took it about two minutes on the H100's host
+OBSERVE_PROFILE = {"requests": 8, "budget": 64}
 OBSERVE_CUTS = {"train": "8 layers x 8 steps -> 2 layers x 3 steps",
                 "comm": "p 3..25 -> p 3..12",
-                "plane": "one closed-loop 1p/1d dma leg"}
+                "plane": "one closed-loop 1p/1d dma leg",
+                "turns": "8 serving runs in turns -> 2",
+                "profiled": f"the stream -> its first "
+                            f"{OBSERVE_PROFILE['requests']} requests at "
+                            f"{OBSERVE_PROFILE['budget']} tokens"}
 
 
 def _observe_reset():
@@ -3642,8 +4161,9 @@ def _observe_serve(ctx, logs):
               len(v) for v in want.values()),
           f"counters of the measured run: {snap['counters']}")
 
-    # turns: the same engine and stream untraced / traced
-    def serve(traced):
+    # turns: the same engine and stream untraced / traced; ``n`` and
+    # ``budget`` serve the stream's first n requests, each cut to budget
+    def serve(traced, n=None, budget=None):
         if traced:
             metrics.configure(enabled=True)
             rec = tracelib.configure(enabled=True)
@@ -3653,7 +4173,8 @@ def _observe_serve(ctx, logs):
         eng = ContinuousBatcher(ctx["params"], cfg, **ctx["geom"],
                                 device=dev)
         t0 = time.perf_counter()
-        ids = [eng.submit(p, b) for p, b in ctx["reqs"]]
+        ids = [eng.submit(p, min(b, budget or b))
+               for p, b in ctx["reqs"][:n]]
         got = eng.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -3665,7 +4186,7 @@ def _observe_serve(ctx, logs):
             share = sum(chunks) / dt
         _observe_reset()
         for i, sid in enumerate(ids):
-            check(np.array_equal(got[sid], want[i]),
+            check(np.array_equal(got[sid], want[i][:budget]),
                   f"turn (traced {traced}) seq {i} == the serve phase's")
         served = sum(len(v) for v in got.values())
         return served / dt, launched, share
@@ -3681,7 +4202,9 @@ def _observe_serve(ctx, logs):
     prof = {}
 
     def profiled():
-        prof["tps"], _, prof["share"] = serve(True)
+        prof["tps"], _, prof["share"] = serve(
+            True, n=OBSERVE_PROFILE["requests"],
+            budget=OBSERVE_PROFILE["budget"])
 
     busy = device_profile(profiled)
     emit({"phase": "observe", "part": "serve",
@@ -3690,7 +4213,8 @@ def _observe_serve(ctx, logs):
           "launches_flash_prefill_paged_decode": turns[0]["launches"],
           "chunk_window_share": [t["chunk_window_share"] for t in turns
                                  if t["traced"]],
-          "profiled": {"chunk_window_share": prof["share"],
+          "profiled": {**OBSERVE_PROFILE,
+                       "chunk_window_share": prof["share"],
                        "profiler_busy_share": busy["device_busy_frac"],
                        "wall_s": busy["wall_s"],
                        "device_kernels": busy["device_kernels"]},
@@ -3848,12 +4372,16 @@ def phase_observe(serve_ctx, plane_ctx):
     t0 = time.perf_counter()
     logs = ROOT / "build" / "smoke_observe"
     logs.mkdir(parents=True, exist_ok=True)
-    _observe_serve(serve_ctx, logs)
-    _observe_train(logs)
-    _observe_comm(logs)
-    _observe_plane(plane_ctx)
+    seconds = {}
+    for part, fn in (("serve", lambda: _observe_serve(serve_ctx, logs)),
+                     ("train", lambda: _observe_train(logs)),
+                     ("comm", lambda: _observe_comm(logs)),
+                     ("plane", lambda: _observe_plane(plane_ctx))):
+        t = time.perf_counter()
+        fn()
+        seconds[part] = time.perf_counter() - t
     emit({"phase": "observe", "cuts": OBSERVE_CUTS,
-          "seconds": time.perf_counter() - t0})
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t0})
 
 
 def phase_train():
@@ -4113,36 +4641,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    phase_build()
-    rows = phase_kernels()
+    seconds: dict = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall seconds added to seconds[name]."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
     kgen = torch.Generator(device="cuda").manual_seed(2)
-    busy = busy_wait_case(kgen)
-    pipe_rows = pipeline_case(kgen)
+    busy = timed("kernels", busy_wait_case, kgen)
+    pipe_rows = timed("kernels", pipeline_case, kgen)
     pipe = pipe_rows["overlap"]
-    launches, serve_ctx = phase_serve()
-    launches_sample = phase_sample(serve_ctx)
-    launches_scenario, scenario_ctx = phase_scenario()
-    launches_fit = phase_fit(scenario_ctx)
-    launches_spec = phase_spec()
-    launches_overlap = phase_overlap()
-    launches_dispatch = phase_dispatch()
+    launches, serve_ctx = timed("serve", phase_serve)
+    launches_sample = timed("sample", phase_sample, serve_ctx)
+    launches_scenario, scenario_ctx = timed("scenario", phase_scenario)
+    launches_fit, blame_ab = timed("fit", phase_fit, scenario_ctx)
+    launches_tiered = timed("tiered", phase_tiered, blame_ab)
+    launches_spec = timed("spec", phase_spec)
+    launches_overlap = timed("overlap", phase_overlap)
+    launches_dispatch = timed("dispatch", phase_dispatch)
     cgen = torch.Generator(device="cuda").manual_seed(4)
-    ring_row = fused_allreduce_case(cgen)
-    agmm_row = allgather_matmul_case(cgen)
-    perm_row = fused_permute_case(cgen)
-    alias_row = alias_case(cgen, busy["launch_ms"])
-    mig_row = migration_case(cgen)
-    launches_comm = phase_comm()
-    launches_quant = phase_quant()
-    launches_plane, plane_ctx = phase_plane()
-    phase_observe(serve_ctx, plane_ctx)
+    ring_row = timed("kernels", fused_allreduce_case, cgen)
+    agmm_row = timed("kernels", allgather_matmul_case, cgen)
+    perm_row = timed("kernels", fused_permute_case, cgen)
+    alias_row = timed("kernels", alias_case, cgen, busy["launch_ms"])
+    mig_row = timed("kernels", migration_case, cgen)
+    launches_comm = timed("comm", phase_comm)
+    launches_quant = timed("quant", phase_quant)
+    launches_plane, plane_ctx = timed("plane", phase_plane)
+    timed("observe", phase_observe, serve_ctx, plane_ctx)
     tgen = torch.Generator(device="cuda").manual_seed(5)
-    train_rows = train_kernel_cases(tgen, **TRAIN_KERNEL_SHAPE)
-    train_kernel_cases(tgen, **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA
-    block_case(tgen)
-    mlp_rows = fused_mlp_cases(tgen, **MLP_SHAPE)
-    launches_train = phase_train()
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    train_rows = timed("kernels", train_kernel_cases, tgen,
+                       **TRAIN_KERNEL_SHAPE)
+    timed("kernels", train_kernel_cases, tgen,
+          **dict(TRAIN_KERNEL_SHAPE, Hkv=2))  # GQA
+    timed("kernels", block_case, tgen)
+    mlp_rows = timed("kernels", fused_mlp_cases, tgen, **MLP_SHAPE)
+    launches_train = timed("train", phase_train)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": seconds})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the backward rows also carry the error the check holds: relative to
@@ -4156,6 +4697,7 @@ def main() -> int:
          + launches_sample["flash_prefill"]
          + launches_scenario["flash_prefill"]
          + launches_fit["flash_prefill"]
+         + launches_tiered["flash_prefill"]
          + launches_spec["flash_prefill"]
          + launches_plane["flash_prefill"],
          "launches_by_path": {"serve": launches["flash_prefill"],
@@ -4163,6 +4705,7 @@ def main() -> int:
                               "scenario":
                                   launches_scenario["flash_prefill"],
                               "fit": launches_fit["flash_prefill"],
+                              "tiered": launches_tiered["flash_prefill"],
                               "spec": launches_spec["flash_prefill"],
                               "plane": launches_plane["flash_prefill"],
                               "spec_pair_build":
@@ -4175,12 +4718,14 @@ def main() -> int:
          + launches_sample["paged_decode"]
          + launches_scenario["paged_decode"]
          + launches_fit["paged_decode"]
+         + launches_tiered["paged_decode"]
          + launches_spec["paged_decode"]
          + launches_plane["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
                               "fit": launches_fit["paged_decode"],
+                              "tiered": launches_tiered["paged_decode"],
                               "spec": launches_spec["paged_decode"],
                               "plane": launches_plane["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys}},
@@ -4236,9 +4781,11 @@ def main() -> int:
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:424",
          "launches": launches_comm["fused_allreduce"]
-         + launches_fit["fused_allreduce"],
+         + launches_fit["fused_allreduce"]
+         + launches_tiered["fused_allreduce"],
          "launches_by_path": {**launches_comm["fused_allreduce_by_path"],
-                              "fit": launches_fit["fused_allreduce"]},
+                              "fit": launches_fit["fused_allreduce"],
+                              "tiered": launches_tiered["fused_allreduce"]},
          **{k: ring_row[k] for k in keys + ("launch_plan",)}},
         {"name": "allgather_matmul", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
@@ -4259,8 +4806,10 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_prefill.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches_train["flash_fwd_lse"]
+         + launches_tiered["fwd_lse"]
          + launches_spec["build"]["fwd_lse"],
          "launches_by_path": {"train": launches_train["flash_fwd_lse"],
+                              "tiered": launches_tiered["fwd_lse"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd_lse"]},
          **{k: train_rows["flash_fwd_lse"][k]
@@ -4273,16 +4822,20 @@ def main() -> int:
         {"name": "dq", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
-         "launches": launches_train["dq"] + launches_spec["build"]["dq"],
+         "launches": launches_train["dq"] + launches_tiered["dq"]
+         + launches_spec["build"]["dq"],
          "launches_by_path": {"train": launches_train["dq"],
+                              "tiered": launches_tiered["dq"],
                               "spec_pair_build":
                                   launches_spec["build"]["dq"]},
          **{k: train_rows["dq"][k] for k in keys + rel}},
         {"name": "dkv", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
-         "launches": launches_train["dkv"] + launches_spec["build"]["dkv"],
+         "launches": launches_train["dkv"] + launches_tiered["dkv"]
+         + launches_spec["build"]["dkv"],
          "launches_by_path": {"train": launches_train["dkv"],
+                              "tiered": launches_tiered["dkv"],
                               "spec_pair_build":
                                   launches_spec["build"]["dkv"]},
          **{k: train_rows["dkv"][k] for k in keys + rel}},

@@ -10,7 +10,12 @@ Reproduced semantics:
   inside one CUDA kernel, ``comm/fused.py``);
 - ``-p N`` → 2**N elements per rank, default 25 (:99,125-128);
 - ``-H/-D/-S`` allocator axis (:104-131): ``-D``/``-S`` run in device
-  memory; ``-H`` (pinned host) is not ported yet and raises;
+  memory; with ``-H`` the operand and the result live in pinned host
+  memory between repetitions, and each timed step copies the operand to
+  the card, runs the algorithm there and copies the result back, all on
+  the stream (``memory/kinds.py``'s transfer callables) — equal bit for
+  bit to ``-D``. Where pinned host memory is unusable (the CPU) it prints
+  JAX's note and runs on the device memory;
 - rank-valued init (:33-41), the analytic oracle size(size−1)/2 checked
   elementwise, per-rank "Passed r" lines (:192-206); rows past 256 MiB
   are checked on the card as a mismatch count;
@@ -52,6 +57,7 @@ from hpc_patterns_tpu_torch.harness.timing import (
     measure,
 )
 from hpc_patterns_tpu_torch.harness.verdict import Verdict, correctness_verdict
+from hpc_patterns_tpu_torch.memory import kinds as kindslib
 
 ALGORITHMS = ("ring", "ring_chunked", "collective", "fused")
 #: rows larger than this are checked on the card (a mismatch count), not
@@ -90,10 +96,6 @@ def resolve_algorithm(args) -> str:
 
 
 def run(args) -> int:
-    if args.memory_kind == "pinned_host":
-        raise NotImplementedError(
-            "-H (pinned host buffers) is not yet ported (ROADMAP item 7, "
-            "memory/kinds.py); use -D or -S")
     log = RunLog(args.log, truncate=not args.log_append)
     comm = common.make_communicator(args.device, args.world, even=True)
     if args.sweep:
@@ -124,6 +126,7 @@ def run_sweep(args, log, comm) -> int:
     algorithms = ([resolve_algorithm(args)]
                   if args.algorithm or args.allreduce else list(ALGORITHMS))
     n_ok = n_total = 0
+    kind_cache: dict = {}  # the memory kind's probe, resolved once
     for algorithm in algorithms:
         for p in range(args.min_p, args.log2_elements + 1):
             need = (WORKING_SET_COPIES * comm.size * (1 << p)
@@ -135,7 +138,8 @@ def run_sweep(args, log, comm) -> int:
                           f"working set exceeds free memory {budget >> 20} MiB")
                 continue
             n_total += 1
-            n_ok += _run_point(args, log, comm, algorithm, p) == 0
+            n_ok += _run_point(args, log, comm, algorithm, p,
+                               kind_cache) == 0
     ok = n_ok == n_total and n_total > 0
     log.print(f"sweep: {n_ok}/{n_total} points passed "
               f"(world={comm.size}, p={args.min_p}..{args.log2_elements}, "
@@ -153,15 +157,49 @@ def device_mismatches(row: torch.Tensor, expected: float, traits) -> int:
     return int(((row.double() - expected).abs() > tol).sum())
 
 
-def _run_point(args, log, comm, algorithm: str, log2_elements: int) -> int:
+def host_resident(step, device):
+    """``step`` over an operand in pinned host memory: copy it to the
+    card, run ``step`` there and copy the result into pinned host memory,
+    all enqueued on the current stream (the caller's synchronize is the
+    fence) — the ``-H`` route."""
+    to_dev = kindslib.move_to_kind(device, "device")
+    to_host = kindslib.move_to_kind(device, "pinned_host")
+    return lambda xh: to_host(step(to_dev(xh)))
+
+
+def _memory_kind(log, comm, want: str, kind_cache: dict | None):
+    """The memory kind a point runs in: ``want``, or None (device memory)
+    with JAX's note where pinned host transfers do not work here."""
+    if want == "device":
+        return None
+    if kind_cache is not None and "kind" in kind_cache:
+        return kind_cache["kind"]
+    kind = want
+    if comm.device.type != "cuda" \
+            or not kindslib.memory_kind_transfers_work(comm.device):
+        log.print(f"note: memory kind {want!r} unsupported here (no "
+                  f"page-locked memory on {comm.device.type}); using device")
+        kind = None
+    if kind_cache is not None:
+        kind_cache["kind"] = kind
+    return kind
+
+
+def _run_point(args, log, comm, algorithm: str, log2_elements: int,
+               kind_cache: dict | None = None) -> int:
     world = comm.size
     n = 1 << log2_elements
     traits = get_traits(args.dtype)
     if algorithm == "ring_chunked" and n % world:
         # the chunked ring needs size | n: pad up like a real collective
         n += world - n % world
+    memory_kind = _memory_kind(log, comm, args.memory_kind, kind_cache)
     x = comm.rank_filled(n, traits.dtype)
     step = comm.jit_allreduce(x, algorithm)
+    if memory_kind == "pinned_host":
+        step = host_resident(step, comm.device)
+        x = kindslib.move_to_kind(comm.device, "pinned_host")(x)
+        comm.synchronize()
     result = measure(blocking(step, x), repetitions=args.repetitions,
                      warmup=args.warmup, label=f"allreduce.{algorithm}")
     elapsed = max_across_processes(result.min_s)
@@ -194,7 +232,7 @@ def _run_point(args, log, comm, algorithm: str, log2_elements: int) -> int:
                dtype=traits.name, bytes_per_rank=nbytes, elapsed_s=elapsed,
                algbw_gbps=nbytes / elapsed / 1e9 if elapsed > 0 else
                float("inf"),
-               busbw_gbps=busbw, memory_kind=args.memory_kind,
+               busbw_gbps=busbw, memory_kind=memory_kind or "device",
                device=comm.device.type)
     log.print(f"{algorithm} world={world} n=2^{log2_elements} {traits.name}: "
               f"{elapsed * 1e3:.3f} ms, busbw {busbw:.2f} GB/s")

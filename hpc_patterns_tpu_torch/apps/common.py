@@ -89,6 +89,14 @@ def local_rows(global_tensor) -> list:
     return list(enumerate(global_tensor))
 
 
+def supports_memory_kind(kind: str) -> bool:
+    """Whether the device advertises the given memory kind. Delegates to
+    the single probe home (``memory/kinds.py``)."""
+    from hpc_patterns_tpu_torch.memory import kinds as kindslib
+
+    return kindslib.supports_memory_kind(kind)
+
+
 def all_processes_agree(ok: bool) -> bool:
     """Cross-process AND of a local verdict: the identity in one
     process."""

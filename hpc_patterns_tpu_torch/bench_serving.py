@@ -26,7 +26,19 @@ row (``run_scenario``, ``--scenario``), serving-plane row
 - **fit**: a long-tail stream recorded to a RunLog under the default
   ladder, a FittedConfig fitted from it (``harness/autofit.py``), then
   the default engine against ``ContinuousBatcher.from_fitted`` on the
-  same pool geometry; the fitted ladder must pad strictly less.
+  same pool geometry; the fitted ladder must pad strictly less. Then the
+  blame A/B: the ``--slo-budget`` chassis recorded, blame-fitted and
+  re-served under the fitted residency (the blamed share must shrink);
+- **offload**: the same stream through an all-HBM engine and one whose
+  pool is capped below the working set, fronting the residency manager's
+  pinned host tier (``memory/``): tiered equals all-HBM, the cap forces
+  paging; ``offload_goodput_tok_s``, ``prefetch_overlap_frac``;
+- **shared**: a template and conversation-tree stream through private
+  pages and the sharing-aware arena (``prefix_cache=True``):
+  ``prefill_skip_frac`` > 0.3, ``shared_goodput_tok_s``;
+- **slo-budget**: a seeded slow host transfer through a thrashing
+  2-resident tier must breach the ``prefetch_wait`` budget and nothing
+  else.
 
 Every leg's sequences are held against the standalone ``paged_generate``
 (with each request's key when sampled) before any number is believed:
@@ -48,12 +60,16 @@ memory, not a transfer between cards, and the row says so.
         --device cpu [--smoke] [--kv-dtype int8]
     python -m hpc_patterns_tpu_torch.bench_serving --fit --smoke \\
         --device cpu [--fit-out fitted.json] [--autofit fitted.json]
+    python -m hpc_patterns_tpu_torch.bench_serving --offload [--smoke] \\
+        [--device cpu]
+    python -m hpc_patterns_tpu_torch.bench_serving --shared [--smoke] \\
+        [--device cpu]
+    python -m hpc_patterns_tpu_torch.bench_serving --slo-budget \\
+        [--device cpu] [--explain]
 
-The JAX benchmark's other rows wait for their slices: ``--offload``,
-``--shared`` and ``--slo-budget`` for tiered memory (ROADMAP item 3),
-``--elastic`` for the autoscaled plane (item 4) and ``--quant`` for the
-quantized row, which ``chip_smoke.py`` phase ``quant`` drives meanwhile.
-The ``--fit`` row's blame A/B waits for item 3 as well.
+The JAX benchmark's other rows wait for their slices: ``--elastic`` for
+the autoscaled plane (ROADMAP item 4) and ``--quant`` for the quantized
+row, which ``chip_smoke.py`` phase ``quant`` drives meanwhile.
 """
 
 from __future__ import annotations
@@ -533,6 +549,466 @@ def run_scenario(*, cfg, params, schedule, classes, page_size, slots,
     return result
 
 
+# ------------------------------------------------------------ tiered rows
+
+def offload_smoke_config(device=None):
+    """The CI tiered-memory shape (JAX ``offload_smoke_config``): the
+    smoke model, an HBM pool capped at half the stream's working set (real
+    eviction by construction, asserted), a deterministic cold-after-2
+    rotation and a host pool big enough for everything paged out."""
+    base = smoke_config(device)
+    return dict(cfg=base["cfg"], params=base["params"], n=8, slots=4,
+                chunk=16, page_size=16, prompt_len=32, max_budget=96,
+                hbm_frac=0.5, cold_n=2, device=base["device"])
+
+
+def offload_full_config(device=None):
+    """The re-grounding shape (JAX ``offload_full_config``): on the card
+    the chip model, 24 requests, 8 slots, chunk 16, page 256, prompts to
+    256, budgets to 512, the HBM pool at 0.4 of the working set,
+    cold-after-3; on the CPU the smoke model at 8 requests, 4 slots, page
+    16, prompts to 32, budgets to 128."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    cfg, params = _model(dev, gpu=gpu)
+    return dict(cfg=cfg, params=params, n=24 if gpu else 8,
+                slots=8 if gpu else 4, chunk=16,
+                page_size=256 if gpu else 16,
+                prompt_len=256 if gpu else 32,
+                max_budget=512 if gpu else 128, hbm_frac=0.4, cold_n=3,
+                device=dev)
+
+
+def run_offload(*, cfg, params, n, slots, chunk, page_size, prompt_len,
+                max_budget, hbm_frac, cold_n, quiet=False, device=None):
+    """The tiered-memory row (JAX ``run_offload``): the same stream through
+    (a) an all-HBM engine (the pool holds the whole working set: the
+    baseline and the oracle) and (b) an engine whose pool is capped at
+    ``hbm_frac`` of that, fronting a host pool through the residency
+    manager (``memory/``): cold rows page out at chunk boundaries, swapped
+    rows prefetch back with the pull dispatched before the decode chunk.
+    Before any number: every tiered sequence equals the all-HBM one
+    (counted ``tiered_vs_full``) and both are held against the standalone
+    (exact in f32; on the card a divergence only at a near-tie), and the
+    cap forced real paging. Reports ``offload_goodput_tok_s`` and
+    ``prefetch_overlap_frac`` beside JAX's other keys."""
+    from hpc_patterns_tpu_torch.memory import (
+        ColdAfterNPolicy,
+        ResidencyManager,
+    )
+
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    sync = _sync(dev)
+    rng = np.random.RandomState(7)
+    lengths = [prompt_len // 2, (3 * prompt_len) // 4, prompt_len]
+    reqs = []
+    for _ in range(n):
+        t = int(rng.choice(lengths))
+        prompt = rng.randint(0, cfg.vocab, size=t).astype(np.int32)
+        budget = int(rng.choice(
+            [max(1, max_budget // 2), max_budget], p=[0.4, 0.6]))
+        reqs.append((prompt, budget))
+    total_tokens = sum(b for _, b in reqs)
+    buckets = bucket_ladder(prompt_len)
+    targets = slo.targets_from_classes(SCENARIO_CLASSES)
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(len(p), b, page_size,
+                                       padded_len=pad_to_bucket(buckets,
+                                                                len(p)))
+        for p, b in reqs)
+    full_pool = slots * pages_per_seq
+    hbm_pool = max(pages_per_seq, int(full_pool * hbm_frac))
+    assert hbm_pool < full_pool, (
+        f"hbm_frac {hbm_frac} does not constrain the pool ({hbm_pool} vs "
+        f"{full_pool}): nothing would evict")
+
+    def serve(pool, mgr=None):
+        eng = ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=pool,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, slo=targets, residency=mgr, device=dev)
+        ids = [eng.submit(p, b) for p, b in reqs]
+        got = eng.run()
+        sync()
+        return {i: got[s] for i, s in enumerate(ids)}, eng
+
+    def manager():
+        return ResidencyManager(host_blocks=2 * full_pool,
+                                policy=ColdAfterNPolicy(cold_n), device=dev)
+
+    # warm-up, then the timed legs
+    serve(full_pool)
+    serve(hbm_pool, manager())
+    t0 = time.perf_counter()
+    full_out, full_eng = serve(full_pool)
+    t_full = time.perf_counter() - t0
+    mgr = manager()
+    t0 = time.perf_counter()
+    tier_out, tier_eng = serve(hbm_pool, mgr)
+    t_tier = time.perf_counter() - t0
+
+    # the oracle before any number, and the cap really made the tier work
+    tol = TIE_TOL[cfg.dtype]
+    verdicts = {"full": {"exact": 0, "near_tie": 0},
+                "tiered": {"exact": 0, "near_tie": 0},
+                "tiered_vs_full": {"exact": 0, "differ": 0}}
+    for i, (prompt, b) in enumerate(reqs):
+        want, margins = _standalone(params, cfg, prompt, b,
+                                    page_size=page_size, device=dev)
+        verdicts["full"][_held(full_out[i], want, margins, tol,
+                               f"all-HBM seq {i}")] += 1
+        verdicts["tiered"][_held(tier_out[i], want, margins, tol,
+                                 f"tiered seq {i}")] += 1
+        verdicts["tiered_vs_full"][
+            "exact" if np.array_equal(tier_out[i], full_out[i])
+            else "differ"] += 1
+    assert mgr.swap_outs > 0 and mgr.swap_ins > 0, (
+        f"HBM cap {hbm_pool}/{full_pool} pages forced no paging: the row "
+        "measured nothing")
+
+    tot_full = full_eng.last_slo["total"]
+    tot_tier = tier_eng.last_slo["total"]
+    overlap = mgr.prefetch_overlap_frac or 0.0
+    result = {
+        "t_full": t_full, "t_tiered": t_tier, "tokens": total_tokens,
+        "tokens_per_s_full": total_tokens / t_full,
+        "tokens_per_s_tiered": total_tokens / t_tier,
+        "full_goodput_tok_s": tot_full["goodput_tok_s"]
+        * full_eng._serve_s / t_full if t_full > 0 else 0.0,
+        "offload_goodput_tok_s": tot_tier["goodput_tok_s"]
+        * tier_eng._serve_s / t_tier if t_tier > 0 else 0.0,
+        "prefetch_overlap_frac": overlap,
+        "swap_outs": mgr.swap_outs, "swap_ins": mgr.swap_ins,
+        "prefetch_bytes": mgr.prefetch_bytes,
+        "evict_bytes": mgr.evict_bytes,
+        "hbm_pool": hbm_pool, "full_pool": full_pool,
+        "bubble_frac": tier_eng.last_bubble_frac,
+        "oracle": verdicts,
+    }
+    out(f"offload[{dev}]: n={n} slots={slots} chunk={chunk} "
+        f"hbm={hbm_pool}p of {full_pool}p working set "
+        f"(host pool {2 * full_pool}p) tokens={total_tokens}")
+    out(f"  all-HBM : {t_full:.3f}s  "
+        f"{result['tokens_per_s_full']:,.1f} tok/s  "
+        f"goodput {result['full_goodput_tok_s']:,.1f}")
+    out(f"  tiered  : {t_tier:.3f}s  "
+        f"{result['tokens_per_s_tiered']:,.1f} tok/s  "
+        f"goodput {result['offload_goodput_tok_s']:,.1f}  "
+        f"swaps {mgr.swap_outs}/{mgr.swap_ins}  "
+        f"prefetch overlap {overlap:.1%}")
+    out(f"  capacity {t_full / t_tier:.3f}x wall cost for "
+        f"{full_pool / hbm_pool:.1f}x pool oversubscription "
+        f"(oracle {verdicts})")
+    return result
+
+
+def slo_budget_smoke_config(device=None):
+    """The segment-budget shape (JAX ``slo_budget_smoke_config``, one
+    shape on every device): a deliberately tiny model (vocab 64, d_model
+    32, 2 heads, 2 layers, f32, gather; random weights from seed 5) on a
+    5-request stream through a 2-resident tiered pool with a seeded
+    ``slow_host_transfer`` — every pull eats a known delay, so the decode
+    stall is injected into ONE mechanism and the budget must blame it."""
+    dev = resolve_device(device)
+    cfg = TransformerConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                            d_ff=64, max_seq=128, dtype="float32",
+                            decode_attn="gather")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = init_params(cfg, generator=gen, device=dev)
+    return dict(cfg=cfg, params=params, n=5, prompt_len=8, max_budget=24,
+                page_size=8, chunk=4, slots=5, hbm_seqs=2, cold_n=2,
+                delay_ms=60, ttft_slo_s=5.0, tpot_slo_s=0.08, device=dev)
+
+
+#: the seeded-stall budget (JAX's): prefetch_wait may eat 2% of the decode
+#: allowance (0.02 * 0.08 s * 23 tokens ~ 37 ms, less than one 60 ms
+#: injected transfer delay); every other segment most of the target
+SLO_BUDGET_SEEDED = budgetlib.SLOBudget(
+    ttft_shares={"queued": 0.9, "admit_wait": 0.9, "untracked": 0.5},
+    tpot_shares={"prefetch_wait": 0.02, "swapped_out": 0.9,
+                 "preempted": 0.9, "migrating": 0.9, "untracked": 0.5},
+)
+
+
+def _stall_prompts(n, prompt_len, vocab):
+    rng = np.random.RandomState(11)
+    return [rng.randint(0, vocab, size=prompt_len).astype(np.int32)
+            for _ in range(n)]
+
+
+def _tiered_stall_leg(*, cfg, params, n, prompt_len, max_budget,
+                      page_size, chunk, slots, hbm_seqs, cold_n,
+                      delay_ms, prefetch_depth=None,
+                      min_resident_rounds=1, emit=None, device=None):
+    """One tiered stream under a seeded ``slow_host_transfer`` with the
+    request trace on: a pool for ``hbm_seqs`` of the ``n``-row working set
+    forces the cold-after-N rotation to page, and every pull eats the
+    delay. Returns ``(outs, eng, mgr, snapshot, fired)`` — the chassis of
+    the ``--slo-budget`` row and the ``--fit`` blame A/B."""
+    from hpc_patterns_tpu_torch.memory import (
+        ColdAfterNPolicy,
+        ResidencyManager,
+    )
+
+    dev = resolve_device(device)
+    pps = ContinuousBatcher.pages_needed(prompt_len, max_budget, page_size)
+    prompts = _stall_prompts(n, prompt_len, cfg.vocab)
+    if delay_ms > 0:
+        chaoslib.configure(f"slow_host_transfer:delay_ms={delay_ms}")
+    reqtracelib.configure(enabled=True)
+    try:
+        mgr = ResidencyManager(host_blocks=n * pps,
+                               policy=ColdAfterNPolicy(cold_n),
+                               min_resident_rounds=min_resident_rounds,
+                               prefetch_depth=prefetch_depth, device=dev)
+        eng = ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=hbm_seqs * pps,
+            pages_per_seq=pps, page_size=page_size, chunk=chunk,
+            residency=mgr, emit=emit, device=dev)
+        ids = [eng.submit(p, max_budget) for p in prompts]
+        got = eng.run()
+        _sync(dev)()
+        fired = [e for e in chaoslib.injections()
+                 if e["site"] == "host_transfer"]
+        snap = reqtracelib.active().snapshot(eng.stats)
+    finally:
+        chaoslib.reset()
+        reqtracelib.reset()
+    return {i: got[s] for i, s in enumerate(ids)}, eng, mgr, snap, fired
+
+
+def _stall_oracle(outs, *, cfg, params, n, prompt_len, max_budget,
+                  page_size, device, label) -> dict:
+    """The stall legs' sequences against their standalone (exact in f32 on
+    the CPU; on the card a divergence only at a near-tie)."""
+    verdicts = {"exact": 0, "near_tie": 0}
+    for i, prompt in enumerate(_stall_prompts(n, prompt_len, cfg.vocab)):
+        want, margins = _standalone(params, cfg, prompt, max_budget,
+                                    page_size=page_size, device=device)
+        verdicts[_held(outs[i], want, margins, TIE_TOL[cfg.dtype],
+                       f"{label} seq {i}")] += 1
+    return verdicts
+
+
+def run_slo_budget(*, cfg, params, n, prompt_len, max_budget, page_size,
+                   chunk, slots, hbm_seqs, cold_n, delay_ms, ttft_slo_s,
+                   tpot_slo_s, quiet=False, explain=False, device=None):
+    """The segment-budget row (JAX ``run_slo_budget``): seeded chaos must
+    land in the budget bucket it was injected into. A
+    ``slow_host_transfer`` run is evaluated against
+    :data:`SLO_BUDGET_SEEDED`, and the row ASSERTS the breach set is
+    exactly ``{"prefetch_wait"}`` and that the inter-token digest
+    attributes a nonzero stall share. Every sequence is held against its
+    standalone first (paging and chaos change when tokens arrive, never
+    which). Reports ``tpot_p99_stall_share`` and
+    ``budget_breach_segments``."""
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    leg = dict(cfg=cfg, params=params, n=n, prompt_len=prompt_len,
+               max_budget=max_budget, page_size=page_size, chunk=chunk,
+               slots=slots, hbm_seqs=hbm_seqs, cold_n=cold_n, device=dev)
+    # warm-up with the delay off; the judged leg runs seeded
+    _tiered_stall_leg(**leg, delay_ms=0)
+    t0 = time.perf_counter()
+    outs, eng, mgr, snap, fired = _tiered_stall_leg(**leg,
+                                                    delay_ms=delay_ms)
+    wall = time.perf_counter() - t0
+
+    verdicts = _stall_oracle(outs, cfg=cfg, params=params, n=n,
+                             prompt_len=prompt_len, max_budget=max_budget,
+                             page_size=page_size, device=dev,
+                             label="budget")
+    assert mgr.swap_outs > 0 and fired, (
+        f"seeded stall row paged nothing (swap_outs={mgr.swap_outs}, "
+        f"injections={len(fired)}): the row measured nothing")
+
+    targets = {0: slo.SLOTarget(ttft_s=ttft_slo_s, tpot_s=tpot_slo_s)}
+    breaches = budgetlib.evaluate(snap, targets, SLO_BUDGET_SEEDED)
+    segs = budgetlib.breached_segments(breaches)
+    assert segs == {"prefetch_wait"}, (
+        f"seeded slow_host_transfer breached {sorted(segs)}: chaos must "
+        "land in the budget bucket it was injected into")
+    dig = explainlib.digest([snap])
+    assert dig["tpot_p99_stall_share"] > 0.0, (
+        "the inter-token digest attributes no stall time to a run whose "
+        "every pull was seeded slow")
+
+    result = {
+        "wall_s": wall, "n": n, "tokens": n * max_budget,
+        "swap_outs": mgr.swap_outs,
+        "stall_injections": len(fired),
+        "stall_injected_s": sum(e["delay_s"] for e in fired),
+        "attribution_coverage_frac": dig["coverage_frac"],
+        "tpot_p99_stall_share": dig["tpot_p99_stall_share"],
+        "budget_breach_segments": sorted(segs),
+        "budget_breaches": len(breaches),
+        "oracle": verdicts,
+    }
+    out(f"slo-budget[{dev}]: n={n} hbm={hbm_seqs}/{n} seqs resident "
+        f"chaos=slow_host_transfer:{delay_ms}ms "
+        f"targets ttft={ttft_slo_s}s tpot={tpot_slo_s}s")
+    out(f"  stream  : {wall:.3f}s  swaps {mgr.swap_outs}  injected "
+        f"{result['stall_injected_s'] * 1e3:.0f}ms over {len(fired)} "
+        f"pull(s) (oracle {verdicts})")
+    out(f"  tpot p99-gap stall share {dig['tpot_p99_stall_share']:.0%}  "
+        f"coverage {dig['coverage_frac']:.1%}")
+    out("  " + budgetlib.format_budget(breaches).replace("\n", "\n  "))
+    if explain:
+        out("  " + explainlib.format_explain(dig).replace("\n", "\n  "))
+    return result
+
+
+def shared_smoke_config(device=None):
+    """The CI prefix-sharing shape (JAX ``shared_smoke_config``): the
+    smoke model on a template-pool + conversation-tree stream (2 templates
+    of 32, tails 4/8/12, a quarter of arrivals extending an earlier
+    prompt), 16 requests at 200 rps."""
+    base = smoke_config(device)
+    return dict(cfg=base["cfg"], params=base["params"], n=16, slots=4,
+                chunk=8, page_size=16, n_templates=2, template_len=32,
+                tail_lens=(4, 8, 12), budgets=(16, 32), tree_frac=0.25,
+                rate_rps=200.0, seed=12, device=base["device"])
+
+
+def shared_full_config(device=None):
+    """The re-grounding shape (JAX ``shared_full_config``): on the card the
+    chip model on 48 requests at 64 rps, 8 slots, chunk 16, page 256, 3
+    templates of 512, tails 16/32/64, budgets 64/128; on the CPU the smoke
+    model at 24 requests, 4 slots, page 16, templates of 32. The decode
+    route is pinned to ``gather``, as JAX pins it: sharing mirrors the
+    plain prefill, and the engine refuses ``flash`` with 128-multiple
+    rungs (the ladder here is page multiples)."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    cfg, params = _model(dev, gpu=gpu)
+    cfg = dataclasses.replace(cfg, decode_attn="gather")
+    return dict(cfg=cfg, params=params, n=48 if gpu else 24,
+                slots=8 if gpu else 4, chunk=16,
+                page_size=256 if gpu else 16, n_templates=3,
+                template_len=512 if gpu else 32,
+                tail_lens=(16, 32, 64) if gpu else (4, 8, 12),
+                budgets=(64, 128) if gpu else (16, 32), tree_frac=0.25,
+                rate_rps=64.0, seed=12, device=dev)
+
+
+def run_shared(*, cfg, params, n, slots, chunk, page_size, n_templates,
+               template_len, tail_lens, budgets, tree_frac, rate_rps,
+               seed=12, quiet=False, device=None):
+    """The prefix-sharing row (JAX ``run_shared``): one shared-prefix
+    open-loop stream (``loadgen.make_shared_prefix_schedule``: template
+    pool and conversation-tree turns) served by (a) a private-pages engine
+    and (b) the sharing-aware arena (``prefix_cache=True``). Before any
+    number both engines are held against the standalone per request, and
+    ``prefill_skip_frac`` must exceed 0.3 with a prefix hit. Reports
+    ``shared_goodput_tok_s`` and ``prefill_skip_frac``."""
+    schedule = loadgen.make_shared_prefix_schedule(
+        n, rate_rps=rate_rps, classes=SCENARIO_CLASSES,
+        n_templates=n_templates, template_len=template_len,
+        tail_lens=tail_lens, budgets=budgets, tree_frac=tree_frac,
+        seed=seed)
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    sync = _sync(dev)
+    prompts = {r.index: loadgen.materialize_prompt(schedule, r.index,
+                                                   cfg.vocab)
+               for r in schedule.requests}
+    targets = slo.targets_from_classes(SCENARIO_CLASSES)
+    # an ALIGNED ladder (page multiples, which the sharing engine needs
+    # aligned to decode.PREFIX_ALIGN): sharing is rung-keyed, so rungs
+    # double as sharing scopes
+    buckets = tuple(sorted({-(-int(p.size) // page_size) * page_size
+                            for p in prompts.values()}))
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(
+            len(prompts[r.index]), r.max_new, page_size,
+            padded_len=pad_to_bucket(buckets, len(prompts[r.index])))
+        for r in schedule.requests)
+    pool_pages = slots * pages_per_seq
+    total_tokens = sum(r.max_new for r in schedule.requests)
+    arrivals = [(r.t_arrival_s, dict(prompt=prompts[r.index],
+                                     max_new=r.max_new, seq_id=r.index,
+                                     priority=r.priority,
+                                     deadline_s=r.deadline_s))
+                for r in schedule.requests]
+
+    def run_one(share: bool):
+        eng = ContinuousBatcher(
+            params, cfg, slots=slots, pool_pages=pool_pages,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, slo=targets, prefix_cache=share,
+            device=dev)
+        got = eng.run(arrivals=list(arrivals))
+        sync()
+        return got, eng
+
+    # warm-up and best of 2 (open-loop pacing changes admission grouping
+    # run to run): the (time, outputs, engine) triple of one rep
+    def best_of(share: bool, reps: int = 2):
+        best = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got, eng = run_one(share)
+            dt = time.perf_counter() - t0
+            if best is None or dt < best[0]:
+                best = (dt, got, eng)
+        return best
+
+    run_one(False)
+    run_one(True)
+    t_priv, priv_out, priv_eng = best_of(False)
+    t_shr, shr_out, shr_eng = best_of(True)
+
+    tol = TIE_TOL[cfg.dtype]
+    verdicts = {"private": {"exact": 0, "near_tie": 0},
+                "shared": {"exact": 0, "near_tie": 0}}
+    for r in schedule.requests:
+        want, margins = _standalone(params, cfg, prompts[r.index],
+                                    r.max_new, page_size=page_size,
+                                    device=dev)
+        verdicts["private"][_held(priv_out[r.index], want, margins, tol,
+                                  f"private seq {r.index}")] += 1
+        verdicts["shared"][_held(shr_out[r.index], want, margins, tol,
+                                 f"shared seq {r.index}")] += 1
+    skip = shr_eng.prefill_skip_frac
+    assert skip > 0.3, (
+        f"prefill_skip_frac {skip:.3f} <= 0.3 on the template mix: the "
+        "radix match is not finding the shared prefixes")
+    assert shr_eng._prefix.hits > 0, "no prefix-cache hit fired"
+
+    tot_priv = priv_eng.last_slo["total"]
+    tot_shr = shr_eng.last_slo["total"]
+    result = {
+        "t_private": t_priv, "t_shared": t_shr, "tokens": total_tokens,
+        "tokens_per_s_private": total_tokens / t_priv,
+        "tokens_per_s_shared": total_tokens / t_shr,
+        "private_goodput_tok_s": tot_priv["goodput_tok_s"]
+        * priv_eng._serve_s / t_priv if t_priv > 0 else 0.0,
+        "shared_goodput_tok_s": tot_shr["goodput_tok_s"]
+        * shr_eng._serve_s / t_shr if t_shr > 0 else 0.0,
+        "prefill_skip_frac": skip,
+        "prefix_hits": shr_eng._prefix.hits,
+        "prefix_misses": shr_eng._prefix.misses,
+        "ladder": buckets, "pool_pages": pool_pages,
+        "bubble_frac": shr_eng.last_bubble_frac,
+        "schedule": schedule.spec, "oracle": verdicts,
+    }
+    out(f"shared-prefix[{dev}, {cfg.decode_attn}]: n={n} slots={slots} "
+        f"chunk={chunk} templates={n_templates}x{template_len} "
+        f"tree={tree_frac:.0%} pool={pool_pages}p tokens={total_tokens}")
+    out(f"  private : {t_priv:.3f}s  "
+        f"{result['tokens_per_s_private']:,.1f} tok/s  "
+        f"goodput {result['private_goodput_tok_s']:,.1f}")
+    out(f"  shared  : {t_shr:.3f}s  "
+        f"{result['tokens_per_s_shared']:,.1f} tok/s  "
+        f"goodput {result['shared_goodput_tok_s']:,.1f}  skip {skip:.1%}  "
+        f"hits {shr_eng._prefix.hits}/"
+        f"{shr_eng._prefix.hits + shr_eng._prefix.misses}")
+    out(f"  prefill skipped {skip:.1%} of prompt tokens (oracle "
+        f"{verdicts})")
+    return result
+
+
 # ------------------------------------------------------------ plane row
 
 def plane_smoke_config(device=None):
@@ -919,9 +1395,13 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
     Returns ``fitted_goodput_tok_s`` and ``autofit_gain_frac``
     (default / fitted wall - 1) beside the ladders and paddings.
 
-    JAX's blame A/B (a seeded decode stall under a thrashing residency
-    tier, fitted and re-served) waits for the residency manager (ROADMAP
-    item 3): the row says so and its ``blame_*`` keys stay absent.
+    4. The blame A/B (JAX ``:2091-2136``): the ``--slo-budget`` chassis
+       (a seeded slow host transfer under a thrashing 2-resident tier) is
+       recorded (records and request trace), fitted, and re-served under
+       the blame-fitted residency (prefetch depth, anti-thrash floor). The
+       fitter must blame ``tpot``/``prefetch_wait``, and the blamed
+       segment's p99-gap-band share must strictly shrink; both stall legs
+       are held against their standalone. Returns the ``blame_*`` keys.
 
     ``autofit_path``: skip the recording leg and apply an existing
     FittedConfig; ``fit_out``: also write the fitted config there."""
@@ -1032,6 +1512,43 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
         verdicts["fitted"][_held(fitted_out[i], want, margins, tol,
                                  f"fitted seq {i}")] += 1
 
+    # the blame A/B: attribution becomes control
+    bcfg = slo_budget_smoke_config(dev)
+    bleg = {k: bcfg[k] for k in ("cfg", "params", "n", "prompt_len",
+                                 "max_budget", "page_size", "chunk",
+                                 "slots", "hbm_seqs", "cold_n", "device")}
+    _tiered_stall_leg(**bleg, delay_ms=0)  # warm-up
+    blame_records: list = []
+    outs_rec, _, _, snap_rec, _ = _tiered_stall_leg(
+        **bleg, delay_ms=bcfg["delay_ms"],
+        emit=lambda **kw: blame_records.append(kw))
+    blame_records.append(dict(snap_rec, kind="reqtrace"))
+    bfit = autofitlib.fit(blame_records)
+    blame = bfit.get("blame")
+    assert blame and blame["axis"] == "tpot" \
+        and blame["dominant"] == "prefetch_wait", (
+        f"the blame fitter read the seeded decode stall as {blame}: the "
+        "injected mechanism must be the one blamed")
+    bres = bfit.get("residency") or {}
+    outs_bfit, _, _, snap_fit, _ = _tiered_stall_leg(
+        **bleg, delay_ms=bcfg["delay_ms"],
+        prefetch_depth=bres.get("prefetch_depth"),
+        min_resident_rounds=int(bres.get("min_resident_rounds") or 1))
+    okw = {k: bcfg[k] for k in ("cfg", "params", "n", "prompt_len",
+                                "max_budget", "page_size", "device")}
+    verdicts["blame_recorded"] = _stall_oracle(outs_rec, **okw,
+                                               label="blame recorded")
+    verdicts["blame_fitted"] = _stall_oracle(outs_bfit, **okw,
+                                             label="blame fitted")
+    blame_share_default = float(blame["share"])
+    blame_share_fitted = float(
+        (explainlib.digest([snap_fit])["tpot_p99_band_shares"] or {})
+        .get("prefetch_wait", 0.0))
+    assert blame_share_fitted < blame_share_default, (
+        f"the blame-fitted config did not shrink the blamed segment: "
+        f"prefetch_wait p99-band share {blame_share_default:.3f} -> "
+        f"{blame_share_fitted:.3f}")
+
     gain = t_default / t_fitted - 1.0
     result = {
         "t_default": t_default, "t_fitted": t_fitted,
@@ -1043,6 +1560,10 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
         "ladder_fitted": list(fitted_ladder),
         "expected_padding_default": pad_default,
         "expected_padding_fitted": pad_fit,
+        "blame_segment": blame["dominant"],
+        "blame_share_default": blame_share_default,
+        "blame_share_fitted": blame_share_fitted,
+        "blame_actions": blame.get("actions"),
         "config_sections": sorted(
             k for k in ("ladder", "residency", "placement", "autoscaler",
                         "blame") if fitted.get(k)),
@@ -1060,17 +1581,14 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
     out(f"  autofit gain {gain:+.1%} wall clock, E[pad] {pad_default:.1f} "
         f"-> {pad_fit:.1f} tokens/req (oracle {verdicts}, strict padding "
         "win asserted)")
-    out("  blame   : the blame A/B waits for the residency manager "
-        "(ROADMAP item 3); no blame_* keys")
+    out(f"  blame   : {blame['axis']}.{blame['dominant']} p99-band share "
+        f"{blame_share_default:.0%} -> {blame_share_fitted:.0%} under "
+        f"{blame.get('actions')} (strict shrink asserted)")
     return result
 
 
 #: the JAX rows that wait for a later slice, each with what it waits for
 LATER_ROWS = {
-    "offload": "tiered memory (ROADMAP item 3)",
-    "shared": "the prefix cache (ROADMAP item 3)",
-    "slo_budget": "tiered memory: the seeded slow host transfer under the "
-                  "residency manager (ROADMAP item 3)",
     "elastic": "the autoscaled plane (ROADMAP item 4)",
     "quant": "the quantized row (chip_smoke.py phase quant drives its "
              "path meanwhile)",
@@ -1087,6 +1605,16 @@ def main(argv=None) -> int:
     p.add_argument("--fit", action="store_true",
                    help="the autofit row: record, fit, then the default "
                         "ladder against the fitted one")
+    p.add_argument("--offload", action="store_true",
+                   help="the tiered-memory row: all-HBM against a capped "
+                        "pool over the residency manager's host tier")
+    p.add_argument("--shared", action="store_true",
+                   help="the prefix-sharing row: private pages against the "
+                        "sharing-aware arena")
+    p.add_argument("--slo-budget", action="store_true",
+                   help="the segment-budget row: a seeded slow host "
+                        "transfer must breach prefetch_wait and nothing "
+                        "else")
     p.add_argument("--autofit", default=None, metavar="CONFIG",
                    help="with --fit: apply this FittedConfig instead of "
                         "fitting one from the recording leg")
@@ -1108,7 +1636,26 @@ def main(argv=None) -> int:
         if getattr(args, row):
             p.error(f"--{row.replace('_', '-')} is not ported yet: it "
                     f"waits for {why}")
-    if args.plane:
+    if args.shared:
+        if args.kv_dtype and args.kv_dtype not in ("f32", "bf16"):
+            # the documented refusal, surfaced before the engine's
+            p.error(f"--shared refuses --kv-dtype {args.kv_dtype}: prefix "
+                    "sharing needs exact KV pages (a tail computed from "
+                    "dequantized shared pages could not be bit-identical); "
+                    "run --shared at f32/bf16")
+        conf = (shared_smoke_config if args.smoke else shared_full_config)(
+            args.device)
+        result = run_shared(**with_kv_dtype(conf, args.kv_dtype))
+    elif args.offload:
+        conf = (offload_smoke_config if args.smoke
+                else offload_full_config)(args.device)
+        result = run_offload(**with_kv_dtype(conf, args.kv_dtype))
+    elif args.slo_budget:
+        # one shape on every device: the row's value is the seeded
+        # attribution assert, not throughput
+        result = run_slo_budget(**slo_budget_smoke_config(args.device),
+                                explain=explain_enabled(args))
+    elif args.plane:
         conf = (plane_smoke_config if args.smoke else plane_full_config)(
             args.device)
         conf = with_kv_dtype(conf, args.kv_dtype)

@@ -17,8 +17,11 @@ on the command's stream and records an event; it never synchronizes.
 
 The copies go between pinned host memory and the card: a pageable host
 buffer would turn ``copy_(non_blocking=True)`` into a synchronous copy
-and end the experiment. With ``device="cpu"`` the same classes run plain
-copies and the plain ``busy_wait``, with no streams.
+and end the experiment. Whether the host side is pinned is the memoized
+answer of ``memory/kinds.memory_kind_transfers_work`` (one probe home, as
+in JAX; the old private names stay as aliases). With ``device="cpu"`` the
+same classes run plain copies and the plain ``busy_wait``, with no
+streams.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ from __future__ import annotations
 import torch
 
 from hpc_patterns_tpu_torch.concurrency import kernels
+from hpc_patterns_tpu_torch.memory.kinds import (  # noqa: F401
+    kind_sharding as _kind_sharding,
+    memory_kind_transfers_work as _memory_kind_transfers_work,
+    move_to_kind as _move_to_kind,
+)
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 
@@ -105,7 +113,8 @@ class CopyM2DCommand(Command):
         super().__init__(device)
         self.n_elements = int(n_elements)
         self._host = torch.zeros(self.n_elements, dtype=dtype,
-                                 pin_memory=self.on_card)
+                                 pin_memory=_memory_kind_transfers_work(
+                                     self.device))
         self._dev = torch.empty(self.n_elements, dtype=dtype,
                                 device=self.device)
         self._ready()
@@ -131,7 +140,8 @@ class CopyD2MCommand(Command):
         self._dev = torch.zeros(self.n_elements, dtype=dtype,
                                 device=self.device)
         self._host = torch.empty(self.n_elements, dtype=dtype,
-                                 pin_memory=self.on_card)
+                                 pin_memory=_memory_kind_transfers_work(
+                                     self.device))
         self._ready()
 
     def _enqueue(self) -> None:

@@ -15,10 +15,11 @@ the same workload reproduces the same perturbation):
   replica dead instead (:func:`matching`);
 - ``slow_host_transfer``: injected delay at the ``host_transfer`` site.
 
-The port probes ``engine_round`` (``EngineCore.service_round``) and
-``replica_round`` (``ServingPlane.run``); the ``collective`` and
-``host_transfer`` probes come with the port's launcher and tiered
-memory, and until then their specs parse and never fire.
+The port probes ``engine_round`` (``EngineCore.service_round``),
+``replica_round`` (``ServingPlane.run``) and ``host_transfer``
+(``memory/residency.py``'s pull, between its window's opening and the
+copies' dispatch); the ``collective`` probe comes with the port's
+launcher, and until then its specs parse and never fire.
 
 Spec grammar (the ``HPCPAT_CHAOS`` env value; ``;``-separated faults)::
 
@@ -59,7 +60,7 @@ KINDS = ("straggler", "stall", "die", "slow_host_transfer")
 #: ``die:replica=2,at=5,site=replica_round`` kills one REPLICA of many
 #: mid-stream (``replica=`` is an alias for ``rank=``: in a launched
 #: plane each replica is one process). ``host_transfer``: the tiered-
-#: memory prefetch dispatch, probed once that slice lands.
+#: memory prefetch dispatch (``ResidencyManager.pull_payload``).
 SITES = ("collective", "engine_round", "replica_round",
          "host_transfer")
 

@@ -177,13 +177,13 @@ def add_memory_kind_args(p: argparse.ArgumentParser) -> None:
     """The reference's allocator axis (-H/-D/-S, allreduce-mpi-sycl.cpp:
     104-131). ``--device`` already names the card, so ``-D``'s long name
     is ``--device-memory``. ``-S`` (shared USM) runs in device memory, as
-    the JAX package treats it; ``-H`` (pinned host) is recorded and
-    refused by the apps until ``memory/kinds.py`` is ported."""
+    the JAX package treats it; ``-H`` (pinned host) keeps the buffers in
+    pinned host memory where ``memory/kinds.py`` finds it usable."""
     g = p.add_mutually_exclusive_group()
     g.add_argument("-H", "--host", dest="memory_kind", action="store_const",
                    const="pinned_host",
                    help="buffers in pinned host memory (reference -H, host "
-                        "USM); not yet ported")
+                        "USM); device memory with a note where unusable")
     g.add_argument("-D", "--device-memory", dest="memory_kind",
                    action="store_const", const="device",
                    help="buffers in device memory (reference -D, device "

@@ -630,6 +630,115 @@ def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
     return logits, cache
 
 
+#: row-alignment quantum for bitwise prefill parity (JAX
+#: ``models/decode.py:822``): a GEMM reproduces a row's dot products
+#: bitwise across different total row counts only when both counts are
+#: multiples of this on the CPU (JAX measured it on XLA:CPU; torch's CPU
+#: GEMMs gave identical rows for 8-, 16- and 32-row tails of a 40-row
+#: product). The sharing engine enforces rung and page alignment to it.
+PREFIX_ALIGN = 8
+
+
+def paged_tail_prefill(params, tail, cfg: TransformerConfig, cache,
+                       page_size: int, n_prefix_pages: int, last_pos=None):
+    """Prefill ONLY the tail of a prompt whose first ``n_prefix_pages``
+    pages of K/V already sit in the pool (the prefix-sharing arena's
+    admission path, ``models/serving.py``): positions ``[M, M + c)``, ``M
+    = n_prefix_pages * page_size``, are computed and scattered in place
+    into the pages ``table[0, n_prefix_pages:]``; the prefix pages are
+    gathered as attention context and never written. Returns ``(logits,
+    cache)`` like :func:`paged_prefill`, with ``last_pos`` TAIL-RELATIVE.
+
+    Parity: the tail's attention mirrors :func:`prefill`'s plain route
+    (``full_attention``) term for term — the same grouped scores, mask
+    constant and softmax over ``M + c`` keys — so on the CPU the tail
+    pages and the logits equal a monolithic :func:`paged_prefill` of the
+    whole ``M + c`` prompt bit for bit, provided the prefix pages hold
+    what a SAME-LENGTH prefill wrote (rung-keyed sharing), ``M`` and
+    ``c`` are multiples of :data:`PREFIX_ALIGN`, and the monolithic side
+    took the plain route (not kernel 1, which a 128-multiple length on
+    the ``flash`` route takes). On the card cuBLAS picks its kernel by
+    the row count, so the tail rows may differ from the monolithic ones
+    in their last bits.
+
+    Refused, as in JAX: quantized pools (the monolithic prefill attends
+    to the exact K/V and quantizes only for storage), ``B != 1`` and
+    misaligned ``M`` or ``c``."""
+    if _kv_quantized(cfg):
+        raise ValueError(
+            f"paged_tail_prefill: kv_cache_dtype={cfg.kv_cache_dtype!r} "
+            "pools cannot share prefixes bitwise — the monolithic prefill "
+            "attends to exact K/V and quantizes only for storage, so a "
+            "tail computed from dequantized shared pages would diverge; "
+            "serve quantized KV with prefix_cache=False")
+    B, c = tail.shape
+    if B != 1:
+        raise ValueError(
+            f"paged_tail_prefill is single-row (got B={B}): the prefix "
+            "context gathers through table[0]")
+    P = page_size
+    M = n_prefix_pages * P
+    if M % PREFIX_ALIGN or c % PREFIX_ALIGN:
+        raise ValueError(
+            f"paged_tail_prefill needs prefix length {M} and tail length "
+            f"{c} aligned to {PREFIX_ALIGN} rows (bitwise GEMM row "
+            "stability); pad the rung/page geometry")
+    table = cache["table"]
+    n_tail = -(-c // P)
+    if n_prefix_pages + n_tail > table.shape[1]:
+        raise ValueError(
+            f"tail needs pages {n_prefix_pages}..{n_prefix_pages + n_tail}"
+            f"; table has {table.shape[1]}")
+    _check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    Hkv, Dh = cfg.kv_heads, cfg.head_dim
+    pidx = table[0, :n_prefix_pages].long()
+
+    def context(pool):
+        # prefix pages (m, Hkv, P, D) -> (1, M, Hkv, D), pure layout
+        return raw(pool)[pidx].view(pool.dtype).permute(0, 2, 1, 3) \
+            .reshape(1, M, Hkv, Dh).to(dt)
+
+    x = params["embed"].to(dt)[tail]
+    pos = M + torch.arange(c, device=x.device)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"].to(dt)[pos]
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        hn = _rmsnorm(x, lp["ln1_scale"])
+        q, k, v = project_qkv(hn, lp, cfg)
+        if cfg.pos_embed == "rope":
+            q = apply_rope(q, pos, cfg)
+            k = apply_rope(k, pos, cfg)
+        k_ctx = torch.cat([context(cache["k"][l]), k], dim=1)
+        v_ctx = torch.cat([context(cache["v"][l]), v], dim=1)
+        o = full_attention(q, k_ctx, v_ctx, causal=True, q_offset=M)
+        x = x + o.reshape(B, c, cfg.d_model) @ matmul_weight(lp, "wo", dt)
+        x = mlp(x, lp, cfg)
+        ks.append(k.transpose(1, 2))  # (B, Hkv, c, D), as prefill stores
+        vs.append(v.transpose(1, 2))
+    x = _rmsnorm(x, params["ln_f_scale"])
+    if last_pos is None:
+        x_last = x[:, -1]
+    else:
+        x_last = x[:, int(last_pos)]
+    logits = x_last @ matmul_weight(params, "lm_head", dt)
+    # scatter the tail pages as paged_prefill does: zero-pad the tail
+    # K/V to the page boundary, page-blocked through the table
+    t_pad = n_tail * P
+    idx = table[:, n_prefix_pages:n_prefix_pages + n_tail].long()
+    for name, lin in (("k", ks), ("v", vs)):
+        for l, pool in enumerate(cache[name]):
+            a = lin[l]
+            if t_pad > c:
+                a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - c))
+            pages = a.reshape(B, Hkv, n_tail, P, Dh).transpose(1, 2)
+            dst = raw(pool)
+            dst[idx] = pages.to(pool.dtype).view(dst.dtype)
+    return logits.float(), cache
+
+
 def _pool_write(pool, page_ids, offset, rows):
     """Write one (B, Hkv, D) K/V row per sequence into page
     ``page_ids[b]`` at slot ``offset`` (int or (B,)) — an in-place

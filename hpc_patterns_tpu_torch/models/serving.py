@@ -1,7 +1,7 @@
 """Continuous batching over the ragged paged cache — the engine of
 ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
-``ContinuousBatcher``) without its residency, prefix-cache and mesh
-branches, and its half of the serving plane's KV handoff.
+``ContinuousBatcher``) without its mesh branch, and its half of the
+serving plane's KV handoff.
 
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
@@ -84,25 +84,48 @@ window for each admission (track ``slot + 1``) and each decode chunk
 a migrated bundle carries in ``segments``. With no registry, recorder,
 reqtrace or chaos enabled each site costs one check.
 
-Later slices raise ``ValueError`` when asked for: tiered residency
-(``export_swapped``), prefix sharing and meshes.
-A destination always installs the whole payload (prefix resolution
-waits for the prefix cache), though ``rung`` and ``prefix_len`` are
-written.
+Tiered residency (``residency=``, a ``memory.ResidencyManager``): the
+pool becomes a cache over the manager's host tier. At a chunk boundary,
+demanded and cold rows page out (:meth:`EngineCore._swap_out`: the
+migration snapshot, its gathered pages pushed to pinned host tensors on
+the manager's side stream); swapped rows prefetch back with the pull
+dispatched BEFORE the round's decode chunk and installed behind it, the
+compute stream waiting on the pull's event. Pages reserved for pulls in
+flight are not free to admissions. :meth:`EngineCore.export_swapped`
+hands a parked row to another engine without paging it back in. Records
+``serve_swap_out``, ``serve_prefetch`` and ``serve_swap_in``; request
+segments ``swapped_out`` and ``prefetch_wait``.
+
+Prefix sharing (``prefix_cache=True``): a radix index
+(``memory.RadixPrefixCache``) over admitted prompts, keyed by the
+admission rung, and refcounted pages. Admission maps the longest cached
+chain read-only into the row's table and prefills only the tail
+(``decode.paged_tail_prefill``); copy-on-write is resolved at admission
+(the boundary page is always private, decode writes start at the
+prompt's own tail); every release path decrefs. A migration destination
+resolves a bundle's ``prefix_len`` span to its own cached chain at the
+bundle's ``rung``, or installs the whole payload. A row that maps pages
+another row reads is pinned against paging. Refused: draft pairs,
+quantized pools, a missing or misaligned ladder, and on the ``flash``
+route rungs that are multiples of 128 (their monolithic prefill takes
+kernel 1, which the tail cannot mirror).
+
+``mesh`` raises ``ValueError`` (a later slice).
 
 Correctness contract: every sequence's tokens equal the standalone
 ``paged_generate`` for the same prompt, budget, config and (sampled)
 key (exactly in f32 on the CPU; on the card up to near-ties where bf16
-matmuls at batch 8 and batch 1 round differently), preempted, resumed
-or migrated; a sampled draft-assisted sequence equals
+matmuls at batch 8 and batch 1 round differently), preempted, resumed,
+migrated, paged through the host tier or served from shared pages; a sampled draft-assisted sequence equals
 ``speculative_generate_batched``'s instead (the same law, other draws).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -112,13 +135,16 @@ from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import reqtrace as reqtracelib
 from hpc_patterns_tpu_torch.harness import slo as slolib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
+from hpc_patterns_tpu_torch.memory.prefix_cache import RadixPrefixCache
 from hpc_patterns_tpu_torch.models.decode import (
+    PREFIX_ALIGN,
     _as_keys,
     _pick,
     gumbel_noise,
     init_paged_cache,
     paged_decode_step,
     paged_prefill,
+    paged_tail_prefill,
     sample_key,
 )
 from hpc_patterns_tpu_torch.models.speculative import (
@@ -321,6 +347,7 @@ class _Slot:
     #: a draft row resumed with its last token as the pending one (no
     #: first-token pick at admission)
     resumed_cur: bool = False
+    shared_pages: int = 0    # leading table entries mapped SHARED
 
 
 def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
@@ -446,8 +473,11 @@ class EngineCore:
     callable receiving the engine's records (None = silent).
     ``draft_params``/``draft_cfg``/``gamma``: draft-assisted rounds,
     ``gamma`` proposals a round (``chunk`` rounds a dispatch).
-    ``device``: default ``cuda`` (raises without a GPU unless
-    ``device="cpu"``); params must live there."""
+    ``residency``: a ``memory.ResidencyManager`` — tiered HBM <-> host
+    paging (the module docstring); bound to this engine's device.
+    ``prefix_cache``: the sharing-aware arena (radix index, refcounted
+    pages, tail-only prefill). ``device``: default ``cuda`` (raises
+    without a GPU unless ``device="cpu"``); params must live there."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int,
                  pool_pages: int, pages_per_seq: int, page_size: int,
@@ -459,14 +489,9 @@ class EngineCore:
                  prefix_cache: bool = False, draft_params=None,
                  draft_cfg: TransformerConfig | None = None, gamma: int = 4,
                  mesh=None):
-        later = {"residency": residency is not None,
-                 "prefix_cache": prefix_cache,
-                 "mesh": mesh is not None}
-        asked = [name for name, on in later.items() if on]
-        if asked:
-            raise ValueError(f"not ported yet: {', '.join(asked)} (later "
-                             "slices: residency and the prefix cache with "
-                             "tiered memory, mesh with parallelism)")
+        if mesh is not None:
+            raise ValueError("not ported yet: mesh (a later slice: "
+                             "parallelism, ROADMAP item 4)")
         if cfg.n_experts:
             raise ValueError("continuous batching: dense models only")
         if draft_params is not None:
@@ -496,6 +521,46 @@ class EngineCore:
                     f"bucket rung {rungs[-1]} exceeds max_seq "
                     f"{cfg.max_seq} (padded prompts must still fit)")
             prompt_buckets = rungs
+        if prefix_cache:
+            # the sharing arena's byte-exactness preconditions: rung-keyed
+            # chains need a ladder; row-stable GEMMs need aligned rungs and
+            # pages; the tail prefill mirrors the plain attention route and
+            # attends to exact (not re-quantized) prefix K/V
+            if draft_params is not None:
+                raise ValueError(
+                    "prefix sharing does not compose with draft-assisted "
+                    "serving: the draft cache's pages would need their own "
+                    "refcounted sharing tier")
+            if cfg.kv_cache_dtype != "compute":
+                raise ValueError(
+                    f"prefix sharing needs exact KV pages but "
+                    f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the monolithic "
+                    "prefill attends to unquantized K/V and quantizes only "
+                    "for storage, so a tail computed from dequantized shared "
+                    "pages could not be bit-identical to it — serve "
+                    "quantized KV with prefix_cache=False")
+            if prompt_buckets is None:
+                raise ValueError(
+                    "prefix sharing is RUNG-KEYED (prefix K/V bytes depend "
+                    "on the prefill row count): pass prompt_buckets so "
+                    "admissions land on shared rungs")
+            if page_size % PREFIX_ALIGN or any(
+                    r % PREFIX_ALIGN for r in prompt_buckets):
+                raise ValueError(
+                    f"prefix sharing needs page_size {page_size} and every "
+                    f"rung {prompt_buckets} aligned to {PREFIX_ALIGN} "
+                    "(bitwise GEMM row stability — decode.PREFIX_ALIGN)")
+            if cfg.decode_attn == "flash" and any(
+                    r % 128 == 0 for r in prompt_buckets):
+                raise ValueError(
+                    "prefix sharing mirrors the plain prefill route; a "
+                    "flash-attn config with 128-multiple rungs would send "
+                    "monolithic prefills through kernel 1 instead — use "
+                    "off-multiple rungs or decode_attn='gather'")
+        if residency is not None and draft_params is not None:
+            raise ValueError(
+                "draft-assisted engines do not page: the draft cache's row "
+                "state would have to tier too")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -581,6 +646,39 @@ class EngineCore:
         #: admission host time with nothing in flight over the last
         #: run's wall time (the admission bubble)
         self.last_bubble_frac = 0.0
+        # the sharing-aware arena: a radix index over admitted prompts and
+        # per-page refcounts — a page is owned by every row whose table
+        # maps it AND by the cache chain that indexes it; release paths
+        # decref and a page returns to free_pages only at refcount 0
+        self._prefix = RadixPrefixCache(page_size) if prefix_cache \
+            else None
+        self._page_refs: dict[int, int] = {}
+        self._match_memo: tuple | None = None
+        self._prefill_skip_tokens = 0
+        self._prefill_total_tokens = 0
+        # tiered residency: the pool as a cache over the manager's host
+        # tier — admission consults the manager instead of failing at
+        # free_pages == 0; cold rows page out at chunk boundaries and page
+        # back in with the pull dispatched before the decode chunk
+        self.residency = residency
+        self._swapped: dict[int, MigrationBundle] = {}
+        #: pulls in flight: (host bundle, device payload, pull handle)
+        self._prefetching: list[tuple] = []
+        #: installed this round, window completion pending
+        self._installed_prefetch: list[tuple] = []
+        self._external_demand = 0  # router-signaled install pressure
+        #: host-clock (dispatch start, readback) of the decode chunks: the
+        #: windows a pull's overlap is folded against
+        self._compute_windows: deque = deque(maxlen=8192)
+        self._page_nbytes = 0
+        if residency is not None:
+            residency.bind_device(self.device)
+            # per-page payload bytes (every non-table pool, all layers):
+            # the manager's block accounting unit
+            self._page_nbytes = sum(
+                arr.numel() * arr.element_size() // (pool_pages + 1)
+                for name, pools in self.cache.items() if name != "table"
+                for arr in pools)
         self._emit = emit or (lambda **kw: None)
 
     # -- admission ---------------------------------------------------------
@@ -624,7 +722,135 @@ class EngineCore:
     def _known(self, sid: int) -> bool:
         return (sid in self.finished
                 or any(r.seq_id == sid for r in self._queue)
+                or sid in self._swapped
+                or any(b.seq_id == sid for b, _, _ in self._prefetching)
                 or any(s.active and s.seq_id == sid for s in self._slots))
+
+    # -- the sharing-aware arena (refcounted pages + radix index) ----------
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Take ``n`` pages from the free list at refcount 1 (the caller
+        checked capacity)."""
+        pages = [self.free_pages.pop() for _ in range(n)]
+        if self._prefix is not None:
+            for p in pages:
+                self._page_refs[p] = 1
+        return pages
+
+    def _incref_pages(self, pages) -> None:
+        for p in pages:
+            self._page_refs[p] += 1
+
+    def _decref_pages(self, pages) -> None:
+        """THE release path: drop one reference per page, freeing only at
+        zero — completion, preemption, migration-out, swap-out and cache
+        eviction all come here, so a page another row (or the index)
+        still maps is never handed out twice. Without a cache: the plain
+        free-list append."""
+        if self._prefix is None:
+            self.free_pages.extend(pages)
+            return
+        for p in pages:
+            r = self._page_refs[p] - 1
+            if r:
+                self._page_refs[p] = r
+            else:
+                del self._page_refs[p]
+                self.free_pages.append(p)
+
+    def _prefix_match(self, prompt) -> list[int]:
+        """Longest cached chain for ``prompt`` at ITS rung, capped at
+        ``(T - 1) // page_size`` pages so the tail keeps the last true
+        token (the first-token logits are computed, never looked up). A
+        pure peek: no LRU touch, no hit/miss accounting."""
+        if self._prefix is None:
+            return []
+        T = int(prompt.size)
+        return self._prefix.match(
+            prompt, self._bucket_len(T),
+            max_pages=(T - 1) // self.page_size, touch=False)
+
+    def _memo_match(self, req: Request) -> list[int]:
+        """:meth:`_prefix_match` with a one-round, one-entry memo keyed by
+        request identity (the queue head is sized up to three times a
+        round: preemption, residency balance, admission), cleared at
+        :meth:`service_round` entry."""
+        memo = self._match_memo
+        if memo is not None and memo[0] is req:
+            return memo[1]
+        chain = self._prefix_match(req.prompt)
+        self._match_memo = (req, chain)
+        return chain
+
+    def _request_need(self, req: Request) -> int:
+        """PRIVATE pages this request needs now: the sizing rule minus what
+        a prefix match would map shared."""
+        need = self._pages_for(req.prompt.size, req.max_new)
+        if self._prefix is not None:
+            need -= len(self._memo_match(req))
+        return need
+
+    def _insert_prefix(self, prompt, rung: int, pages) -> None:
+        """Publish an admission's full-prompt pages (``[0, T //
+        page_size)``, pure-prompt K/V computed at ``rung``) into the
+        index; newly indexed pages take the cache's own reference."""
+        if self._prefix is None:
+            return
+        n_full = int(prompt.size) // self.page_size
+        if n_full:
+            self._incref_pages(
+                self._prefix.insert(prompt, rung, pages[:n_full]))
+
+    def _reclaim_cache_pages(self, need: int, fresh: bool,
+                             keep=()) -> int:
+        """Free LRU cache-only pages (refcount 1: no row maps them) until a
+        ``need``-page request could admit — the raw free count and, for a
+        fresh one, the high-water mark. ``keep``: the request's own
+        matched chain (evicting it would grow its need by as much).
+        Partial progress is kept."""
+        if self._prefix is None:
+            return 0
+        reserved = self._reserved_prefetch_pages()
+        shortfall = need - (len(self.free_pages) - reserved)
+        if fresh:
+            used = self.pool_pages - len(self.free_pages) + reserved
+            hw_cap = self.admit_highwater * self.pool_pages
+            shortfall = max(shortfall, math.ceil(used + need - hw_cap))
+        if shortfall <= 0:
+            return 0
+        kept = set(keep)
+        freed = self._prefix.evict(
+            shortfall,
+            lambda p: p not in kept and self._page_refs.get(p, 0) == 1)
+        self._decref_pages(freed)
+        return len(freed)
+
+    def _row_swappable(self, slot: int) -> bool:
+        """May the residency manager page this row out? Not while another
+        row maps any of its pages (refcount >= 2 net of the cache's own
+        reference); cache-only references do not block — those pages
+        stay resident and shareable while the row's private pages move."""
+        if self._prefix is None:
+            return True
+        for p in self._slots[slot].pages:
+            if (self._page_refs.get(p, 0)
+                    - (1 if self._prefix.has_page(p) else 0)) >= 2:
+                return False
+        return True
+
+    @property
+    def prefill_skip_frac(self) -> float:
+        """Fraction of admitted prompt tokens whose prefill a prefix match
+        skipped (``serve.prefill_skip_frac``)."""
+        if not self._prefill_total_tokens:
+            return 0.0
+        return self._prefill_skip_tokens / self._prefill_total_tokens
+
+    def release_prefix_cache(self) -> None:
+        """Drop every cached chain and return cache-only pages to the arena
+        (rows keep their own references)."""
+        if self._prefix is not None:
+            self._decref_pages(self._prefix.clear())
 
     def request_key(self, seq_id: int) -> np.ndarray:
         """The sampler key (2,) uint32 a default (key=None) submit gets:
@@ -772,15 +998,26 @@ class EngineCore:
                 (i for i, s in enumerate(self._slots) if not s.active), None)
             if free_slot is None:
                 break
+            fresh = req.resume_prefix is None
             need = self._pages_for(req.prompt.size, req.max_new)
+            # PRIVATE pages only: a prefix match maps the rest shared;
+            # cache-only pages are reclaimed LRU first when the request
+            # would not fit (never its own matched chain). With sharing
+            # the one sorted walk is one-round approximate: a request
+            # skipped earlier waits for the next round's pass
+            chain = self._memo_match(req)
+            if self._prefix is not None:
+                self._reclaim_cache_pages(need - len(chain), fresh,
+                                          keep=chain)
             # ONE admissibility definition: the policy _maybe_preempt
             # predicts with must be the one applied here
-            if not self._admissible(need, fresh=req.resume_prefix is None):
+            if not self._admissible(need - len(chain), fresh=fresh):
                 continue
             # identity removal: Request holds an ndarray, so == is not
             # a usable comparison
             self._queue = [r for r in self._queue if r is not req]
-            self._admit(free_slot, req, need, overlapped, t_pass)
+            self._admit(free_slot, req, need, overlapped, t_pass,
+                        chain=chain)
             admitted += 1
         return admitted
 
@@ -797,15 +1034,32 @@ class EngineCore:
         return row
 
     def _admit(self, slot: int, req: Request, need: int,
-               overlapped: bool = False, t_pass: float | None = None):
+               overlapped: bool = False, t_pass: float | None = None,
+               chain: list[int] | None = None):
         """Dispatch-only admission: table upload, one-row bucket-padded
         prefill through the shared pool, first-token pick and cursor
         seeding all enqueue without a host readback. With a flight
         recorder all of it lies in one device window on track
-        ``slot + 1``, closed by the first-token readback."""
+        ``slot + 1``, closed by the first-token readback.
+
+        Sharing-aware (``prefix_cache=True``): ``chain``, the cached
+        chain the caller's admissibility math walked, maps read-only into
+        the row's leading table entries (incref, no bytes move), private
+        pages are allocated for the rest, and the prefill computes only
+        the tail (``decode.paged_tail_prefill``)."""
         rec = tracelib.active()
         window = rec.open_window(self.device) if rec is not None else None
-        pages = [self.free_pages.pop() for _ in range(need)]
+        if chain is None:
+            chain = self._prefix_match(req.prompt)
+        m = len(chain)
+        if self._prefix is not None:
+            self._prefix.count_match(m)
+        self._incref_pages(chain)
+        pages = list(chain) + self._alloc_pages(need - m)
+        if self.residency is not None:
+            self.residency.register_group(
+                req.seq_id, need, need * self._page_nbytes, tier="hbm",
+                priority=req.priority)
         row = self._seat(slot, pages)
         # a resumed draft row prefills all but its last token, which stays
         # pending (cur): its next round starts where an uninterrupted
@@ -820,12 +1074,31 @@ class EngineCore:
         # this row's own one-row table
         one = dict(self.cache)
         one["table"] = torch.from_numpy(row[None, :].copy()).to(self.device)
-        with metricslib.span("serve.prefill", prompt_len=T,
-                             padded_len=padded), \
-                tracelib.compile_watch("serving._prefill_one",
-                                       padded_len=padded):
-            logits, _ = paged_prefill(self.params, prompt_dev, self.cfg,
-                                      one, self.page_size, last_pos=T - 1)
+        M = m * self.page_size
+        if m:
+            # tail-only prefill: positions [M, padded) against the mapped
+            # prefix pages; the matched span's compute and page writes are
+            # skipped (the TTFT lever prefill_skip_frac measures)
+            with metricslib.span("serve.prefill", prompt_len=T,
+                                 padded_len=padded, matched=M), \
+                    tracelib.compile_watch("serving._tail_prefill_one",
+                                           padded_len=padded, matched=M):
+                logits, _ = paged_tail_prefill(
+                    self.params, prompt_dev[:, M:], self.cfg, one,
+                    self.page_size, m, last_pos=T - 1 - M)
+        else:
+            with metricslib.span("serve.prefill", prompt_len=T,
+                                 padded_len=padded), \
+                    tracelib.compile_watch("serving._prefill_one",
+                                           padded_len=padded):
+                logits, _ = paged_prefill(self.params, prompt_dev, self.cfg,
+                                          one, self.page_size,
+                                          last_pos=T - 1)
+        # publish this admission's full-prompt pages so the next same-rung
+        # prompt shares them
+        self._insert_prefix(req.prompt, padded, pages)
+        self._prefill_total_tokens += T
+        self._prefill_skip_tokens += M
         if self.spec:
             done = dict(self.dcache, table=one["table"])
             with tracelib.compile_watch("serving._prefill_one[draft]",
@@ -867,7 +1140,7 @@ class EngineCore:
             prefix=([] if req.resume_prefix is None
                     else [int(t) for t in req.resume_prefix]),
             padded_len=padded, t_admit=time.perf_counter(),
-            resumed_cur=resumed_cur)
+            resumed_cur=resumed_cur, shared_pages=m)
         if rec is not None:
             # every admission op is enqueued: the first-token readback
             # in _resolve_pending closes the window
@@ -885,14 +1158,17 @@ class EngineCore:
                    free_pages=len(self.free_pages),
                    queued=len(self._queue), priority=req.priority,
                    resumed=req.resume_prefix is not None,
-                   matched_tokens=0, shared_pages=0)
-        m = metricslib.get_metrics()
-        if m.enabled:
-            m.gauge("serve.queue_depth").set(len(self._queue))
-            m.gauge("serve.free_pages").set(len(self.free_pages))
-            m.counter("serve.admitted").inc()
+                   matched_tokens=M, shared_pages=m)
+        mx = metricslib.get_metrics()
+        if mx.enabled:
+            mx.gauge("serve.queue_depth").set(len(self._queue))
+            mx.gauge("serve.free_pages").set(len(self.free_pages))
+            mx.counter("serve.admitted").inc()
             if overlapped:
-                m.counter("serve.admit_overlapped").inc()
+                mx.counter("serve.admit_overlapped").inc()
+            if m:
+                mx.counter("serve.prefix_matched_pages").inc(m)
+                mx.counter("serve.prefill_skip_tokens").inc(M)
         rtr = reqtracelib.active()
         if rtr is not None:
             # queued closed at the pass start; admit_wait covers the
@@ -950,17 +1226,25 @@ class EngineCore:
     # -- completion --------------------------------------------------------
 
     def _release_slot(self, slot: int):
-        """Return a row's pages to the free list, point its table row at
+        """Return a row's pages to the arena (decref: a page the index or
+        another row still maps stays allocated), point its table row at
         the trash page and zero its cursors — the shared tail of
-        completion and export."""
-        self.free_pages.extend(self._slots[slot].pages)
+        completion, preemption, export and swap-out."""
+        self._decref_pages(self._slots[slot].pages)
         self._seat(slot, [])
         self._slots[slot] = _Slot()
         self.pos[slot] = 0
         self.limit[slot] = 0
 
+    def _residency_release(self, seq_id: int) -> None:
+        """Drop a row's blocks from the residency accounting (it finished,
+        was preempted back to the queue, or migrated away)."""
+        if self.residency is not None:
+            self.residency.release_group(seq_id)
+
     def _finish(self, slot: int):
         st = self._slots[slot]
+        self._residency_release(st.seq_id)
         self.finished[st.seq_id] = np.asarray(st.out, np.int32)
         self._emit(kind="serve_finish", seq_id=st.seq_id, slot=slot,
                    tokens=len(st.out), pages_freed=len(st.pages))
@@ -983,32 +1267,44 @@ class EngineCore:
                     (now - rec["t_first"]) / (len(st.out) - 1))
             m.counter("serve.finished").inc()
             m.counter("serve.tokens").inc(len(st.out))
+            # shared pages do not free with the row
             m.gauge("serve.free_pages").set(
-                len(self.free_pages) + len(st.pages))
+                len(self.free_pages) + self._row_freeable_pages(slot))
         self._release_slot(slot)
 
     # -- preemption --------------------------------------------------------
 
+    def _reserved_prefetch_pages(self) -> int:
+        """Pages spoken for by pulls in flight (dispatched prefetches not
+        yet installed): admissions and preemption must not take them."""
+        return sum(b.n_pages for b, _, _ in self._prefetching)
+
     def _admissible(self, need: int, fresh: bool) -> bool:
-        """Would a request needing ``need`` pages admit right now? A free
-        slot, the pages, and for a FRESH request the high-water mark —
-        the checks :meth:`_try_admit` applies and :meth:`_maybe_preempt`
-        predicts with."""
-        if all(s.active for s in self._slots):
+        """Would a request needing ``need`` (private) pages admit right
+        now? A free slot, the pages, and for a FRESH request the
+        high-water mark — the checks :meth:`_try_admit` applies and
+        :meth:`_maybe_preempt` predicts with. Slots and pages reserved
+        for pulls in flight are not free, and count as USED for the
+        high-water mark (the staged swap-in will occupy them)."""
+        free_slots = sum(1 for s in self._slots if not s.active)
+        if free_slots <= len(self._prefetching):
             return False
-        if need > len(self.free_pages):
+        reserved = self._reserved_prefetch_pages()
+        if need > len(self.free_pages) - reserved:
             return False
         if fresh:
-            used = self.pool_pages - len(self.free_pages)
+            used = self.pool_pages - len(self.free_pages) + reserved
             if used + need > self.admit_highwater * self.pool_pages:
                 return False
         return True
 
     def _row_freeable_pages(self, slot: int) -> int:
-        """Pages an eviction of this row would free (every page of a
-        private-pages engine; the prefix cache's shared pages would not
-        count)."""
-        return len(self._slots[slot].pages)
+        """Pages an eviction of this row would ACTUALLY free (refcount 1):
+        the feasibility math must not count shared pages."""
+        if self._prefix is None:
+            return len(self._slots[slot].pages)
+        return sum(1 for p in self._slots[slot].pages
+                   if self._page_refs.get(p, 0) == 1)
 
     def _can_resume(self, slot: int) -> bool:
         """Is this active row safely evictable? Its resume request
@@ -1043,8 +1339,14 @@ class EngineCore:
         if not self._queue:
             return
         req = self._queue[self._queue_order()[0]]
-        need = self._pages_for(req.prompt.size, req.max_new)
+        # private pages only: the head's match maps the rest shared
+        chain = self._memo_match(req)
+        need = self._pages_for(req.prompt.size, req.max_new) - len(chain)
         fresh = req.resume_prefix is None
+        if self._prefix is not None:
+            # cache-only pages are cheaper to free than a victim's
+            # eviction and resume: reclaim first
+            self._reclaim_cache_pages(need, fresh, keep=chain)
         if self._admissible(need, fresh):
             return  # ordinary admission takes it this round
         victims = [
@@ -1110,6 +1412,7 @@ class EngineCore:
             m.counter("serve.preempted").inc()
             m.gauge("serve.free_pages").set(
                 len(self.free_pages) + self._row_freeable_pages(slot))
+        self._residency_release(st.seq_id)
         self._release_slot(slot)
         self._queue.append(req)
         if m.enabled:
@@ -1255,14 +1558,31 @@ class EngineCore:
         admitted, nothing runs), "active"}``."""
         if chaos_index is not None and chaoslib.active() is not None:
             chaoslib.maybe_inject("engine_round", chaos_index)
+        # fresh round, fresh head-match memo (its validity is one round's)
+        self._match_memo = None
         if self.preempt:
             self._maybe_preempt()
+        if self.residency is not None:
+            self.residency.begin_round()
+            for si, st in enumerate(self._slots):
+                if st.active:
+                    self.residency.touch_group(st.seq_id)
+                    if self._prefix is not None:
+                        # pin-while-shared: a row whose pages another row
+                        # maps must not page out while that reader runs
+                        self.residency.pin_group(
+                            st.seq_id, not self._row_swappable(si))
+            # pulls for swapped rows dispatch BEFORE the decode chunk: the
+            # host -> HBM copies run on the side stream while the chunk
+            # computes, and the install lands behind it (pre_collect)
+            self._dispatch_prefetch()
         active = lambda: any(s.active for s in self._slots)  # noqa: E731
         dispatch = self._dispatch_spec if self.spec else self._dispatch_chunk
         collect = self._collect_spec if self.spec else self._collect_chunk
         inflight = None
-        t_chunk0 = 0.0
+        t_chunk0 = t_launch = 0.0
         if decode and self.overlap and active():
+            t_launch = time.perf_counter()
             inflight = dispatch()
             t_chunk0 = time.perf_counter()
         t0 = time.perf_counter()
@@ -1273,16 +1593,32 @@ class EngineCore:
         if inflight is None:
             exposed_s = time.perf_counter() - t0
             if decode and active():
+                t_launch = time.perf_counter()
                 inflight = dispatch()
                 t_chunk0 = time.perf_counter()
             elif not active():
-                stalled = bool(self._queue) and not admitted
+                stalled = (bool(self._queue) and not admitted
+                           and not self._swapped and not self._prefetching)
+        if self.residency is not None:
+            self._install_prefetched(inflight is not None)
         if pre_collect is not None:
             pre_collect(inflight is not None)
         if inflight is not None:
             collect(inflight)
+            t_end = time.perf_counter()
             if self.track_chunk_windows:
-                self.chunk_windows.append((t_chunk0, time.perf_counter()))
+                self.chunk_windows.append((t_chunk0, t_end))
+            if self.residency is not None:
+                # the chunk computes while the host enqueues it (eager
+                # launches), so the window a pull hides under starts at
+                # the dispatch, not after it (JAX's one-call dispatch
+                # returns at once and makes no difference there)
+                self._compute_windows.append((t_launch, t_end))
+        if self.residency is not None:
+            # round boundary, nothing in flight: observe this round's
+            # prefetch completions, then run the eviction policy
+            self._complete_prefetches()
+            self._residency_balance()
         return {"admitted": admitted, "exposed_s": exposed_s,
                 "stalled": stalled, "active": active()}
 
@@ -1301,12 +1637,16 @@ class EngineCore:
         return sum(1 for s in self._slots if s.active)
 
     def has_work(self) -> bool:
-        return bool(self._queue) or any(s.active for s in self._slots)
+        return (bool(self._queue) or bool(self._swapped)
+                or bool(self._prefetching)
+                or any(s.active for s in self._slots))
 
     def request_pages(self, n_pages: int) -> None:
-        """Install pressure from the router. A no-op: without tiered
-        residency (a later slice) nothing can be evicted for it, and the
-        install waits for ordinary completions."""
+        """Install pressure from the router (a migration waiting to land):
+        the residency manager frees ``n_pages`` at this round's balance
+        point. Without a manager nothing acts on it, and the install waits
+        for ordinary completions."""
+        self._external_demand = max(self._external_demand, int(n_pages))
 
     def would_fit(self, prompt_len: int, max_new: int) -> bool:
         """Could this engine EVER serve the request (table width, pool,
@@ -1323,9 +1663,12 @@ class EngineCore:
 
     def migration_admissible(self, n_pages: int) -> bool:
         """Could :meth:`install_migration` of an ``n_pages`` bundle
-        succeed right now (a free slot and the pages)?"""
-        return (any(not s.active for s in self._slots)
+        succeed right now (a free slot and the pages, net of the pulls in
+        flight)? Migrations bypass the high-water mark, as resumes do."""
+        free_slots = sum(1 for s in self._slots if not s.active)
+        return (free_slots > len(self._prefetching)
                 and n_pages <= len(self.free_pages)
+                - self._reserved_prefetch_pages()
                 and n_pages <= self.pages_per_seq)
 
     def exportable_slots(self) -> list[int]:
@@ -1389,9 +1732,37 @@ class EngineCore:
             # decode closes into an open `migrating` segment; the copy
             # rides the bundle so the installer closes it on its side
             bundle.segments = rtr.export_history(bundle.seq_id)
+        self._residency_release(bundle.seq_id)
         self._emit(kind="serve_migrate_out", seq_id=bundle.seq_id,
                    slot=slot, pages=bundle.n_pages,
                    tokens_done=len(bundle.out))
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("serve.migrated_out").inc()
+        return bundle
+
+    def export_swapped(self, seq_id: int) -> MigrationBundle:
+        """Export a row parked in the HOST tier — the cross-tier migration
+        path: the plane can migrate a row the manager swapped out without
+        paging it back in. Its pushes are observed complete first, and the
+        payload is the host tier's tensors (plain CPU tensors on the CPU,
+        pinned ones on a card)."""
+        if self.residency is None or seq_id not in self._swapped:
+            raise ValueError(
+                f"seq_id {seq_id} is not swapped out of this engine")
+        self.residency.drain()
+        bundle = self._swapped.pop(seq_id)
+        rec = self.stats.get(seq_id)
+        if rec is not None:
+            rec["outcome"] = "migrated"
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            # the open swapped_out segment closes into migrating
+            bundle.segments = rtr.export_history(seq_id)
+        self._residency_release(seq_id)
+        self._emit(kind="serve_migrate_out", seq_id=seq_id, slot=-1,
+                   pages=bundle.n_pages, tokens_done=len(bundle.out),
+                   tier="host")
         m = metricslib.get_metrics()
         if m.enabled:
             m.counter("serve.migrated_out").inc()
@@ -1403,8 +1774,9 @@ class EngineCore:
         into the pool and the cursor seeding all enqueue without a host
         readback, so an in-flight decode chunk is never stalled (the
         plane calls this from ``service_round``'s ``pre_collect``).
-        The whole payload is installed (prefix resolution waits for the
-        prefix cache). Returns the slot."""
+        A sharing engine resolves the bundle's prefix span to its own
+        cached chain at the bundle's rung where it has it. Returns the
+        slot."""
         if self.spec:
             raise ValueError("draft-assisted engines do not migrate")
         if bundle.page_size != self.page_size:
@@ -1427,6 +1799,11 @@ class EngineCore:
             raise ValueError(
                 f"seq_id {bundle.seq_id} already known to this engine")
         slot = self._attach_row(bundle)
+        if self.residency is not None:
+            self.residency.register_group(
+                bundle.seq_id, bundle.n_pages,
+                bundle.n_pages * self._page_nbytes, tier="hbm",
+                priority=bundle.priority)
         self._emit(kind="serve_migrate_in", seq_id=bundle.seq_id,
                    slot=slot, pages=bundle.n_pages, seq=bundle.seq,
                    tokens_done=len(bundle.out))
@@ -1437,17 +1814,30 @@ class EngineCore:
         return slot
 
     def _attach_row(self, bundle: MigrationBundle) -> int:
-        """Seat a detached row in this engine (admissibility is the
-        caller's to have checked). Returns the slot."""
+        """Seat a detached row in this engine — the install half shared by
+        :meth:`install_migration` and the residency swap-in (admissibility
+        is the caller's to have checked). A sharing engine whose index
+        holds the bundle's pure-prompt span at its rung maps those cached
+        pages (incref; the same bytes) and installs only the rest; a cold
+        index installs everything. Returns the slot."""
         slot = next(i for i, s in enumerate(self._slots) if not s.active)
         prompt = np.asarray(bundle.prompt, np.int32)
-        pages = [self.free_pages.pop() for _ in range(bundle.n_pages)]
+        resolved: list[int] = []
+        if self._prefix is not None and bundle.rung and bundle.prefix_len:
+            resolved = self._prefix.match(
+                prompt[:bundle.prefix_len], bundle.rung,
+                max_pages=bundle.prefix_len // self.page_size)
+        m = len(resolved)
+        self._incref_pages(resolved)
+        pages = resolved + self._alloc_pages(bundle.n_pages - m)
         self._seat(slot, pages)
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        for name, pools in self.cache.items():
-            if name != "table":
-                for pool, pl in zip(pools, bundle.pages_payload[name]):
-                    _install_pages(pool, idx, pl)
+        if m < bundle.n_pages:
+            idx = torch.tensor(pages[m:], dtype=torch.long,
+                               device=self.device)
+            for name, pools in self.cache.items():
+                if name != "table":
+                    for pool, pl in zip(pools, bundle.pages_payload[name]):
+                        _install_pages(pool, idx, pl[m:] if m else pl)
         self.pos[slot] = int(bundle.pos)
         self.limit[slot] = int(bundle.limit)
         self.tokens[slot] = int(bundle.token)
@@ -1461,7 +1851,10 @@ class EngineCore:
             priority=bundle.priority, deadline_s=bundle.deadline_s,
             temp_override=bundle.temp_override,
             prefix=list(bundle.prefix), padded_len=int(bundle.rung),
-            t_admit=time.perf_counter())
+            t_admit=time.perf_counter(), shared_pages=m)
+        if bundle.rung:
+            # warm this engine's index with the installed chain
+            self._insert_prefix(prompt, int(bundle.rung), pages)
         prior = self.stats.get(bundle.seq_id)
         self.stats[bundle.seq_id] = {
             "priority": bundle.priority, "t_submit": bundle.t_submit,
@@ -1478,6 +1871,188 @@ class EngineCore:
                                 t=self._slots[slot].t_admit,
                                 t_submit=bundle.t_submit)
         return slot
+
+    # -- tiered residency (HBM <-> host paging, memory/residency.py) -------
+
+    def _swap_out(self, slot: int) -> None:
+        """Page one active row out to the host tier: detach it (the
+        migration snapshot — pages gathered into new tensors on the
+        compute stream, cursors and key to the host, slot and pages
+        released at once) and push the gathered payload through the
+        manager (the side stream waits for the gather). The row is not
+        re-prefilled on return: its KV bytes come back exactly."""
+        sid = self._slots[slot].seq_id
+        bundle = self._detach_row(slot)
+        host_payload = self.residency.push_payload(
+            bundle.pages_payload,
+            attrs={"seq_id": sid, "pages": bundle.n_pages})
+        self._swapped[sid] = replace(bundle, pages_payload=host_payload)
+        rtr = reqtracelib.active()
+        if rtr is not None:
+            rtr.stamp_transition(sid, "swapped_out")
+        self.residency.retier_group(sid, "host")
+        self._emit(kind="serve_swap_out", seq_id=sid, slot=slot,
+                   pages=bundle.n_pages, tokens_done=len(bundle.out),
+                   free_pages=len(self.free_pages))
+        m = metricslib.get_metrics()
+        if m.enabled:
+            m.counter("serve.swapped_out").inc()
+            m.gauge("serve.free_pages").set(len(self.free_pages))
+
+    def _dispatch_prefetch(self) -> None:
+        """Dispatch host -> HBM pulls for swapped rows that will fit,
+        BEFORE the round's decode chunk, so the copies run under it.
+        Priority class first, swap-out order within a class, with skip;
+        a strictly more urgent queued class outranks the swap-in; at most
+        the manager's ``prefetch_depth`` pulls in flight. Pulled pages and
+        slots stay reserved (:meth:`_reserved_prefetch_pages`) until the
+        install."""
+        if not self._swapped:
+            return
+        free_pages = len(self.free_pages) - self._reserved_prefetch_pages()
+        free_slots = (sum(1 for s in self._slots if not s.active)
+                      - len(self._prefetching))
+        q_min = min((r.priority for r in self._queue), default=None)
+        depth = self.residency.prefetch_depth
+        for sid, bundle in sorted(self._swapped.items(),
+                                  key=lambda kv: kv[1].priority):
+            if depth is not None and len(self._prefetching) >= depth:
+                break
+            if free_slots < 1:
+                break
+            if q_min is not None and q_min < bundle.priority:
+                break
+            if bundle.n_pages > free_pages:
+                continue
+            rtr = reqtracelib.active()
+            if rtr is not None:
+                # stamped before the pull so an injected slow host transfer
+                # lands inside prefetch_wait
+                rtr.stamp_transition(sid, "prefetch_wait")
+            payload, handle = self.residency.pull_payload(
+                bundle.pages_payload,
+                attrs={"seq_id": sid, "pages": bundle.n_pages})
+            self._prefetching.append((bundle, payload, handle))
+            del self._swapped[sid]
+            free_pages -= bundle.n_pages
+            free_slots -= 1
+            self._emit(kind="serve_prefetch", seq_id=sid,
+                       pages=bundle.n_pages)
+
+    def _install_prefetched(self, overlapped: bool) -> None:
+        """Seat arrived prefetches in the arena at the ``pre_collect``
+        position: behind the in-flight decode chunk when there is one
+        (``overlapped``), the compute stream waiting on each pull's event
+        first. A bundle that cannot seat yet stays staged."""
+        if not self._prefetching:
+            return
+        still = []
+        for bundle, payload, handle in self._prefetching:
+            free_slots = sum(1 for s in self._slots if not s.active)
+            if free_slots < 1 or bundle.n_pages > len(self.free_pages):
+                still.append((bundle, payload, handle))
+                continue
+            self.residency.wait_pull(handle)
+            slot = self._attach_row(replace(bundle, pages_payload=payload))
+            self.residency.retier_group(bundle.seq_id, "hbm")
+            self._installed_prefetch.append((bundle, handle))
+            self._emit(kind="serve_swap_in", seq_id=bundle.seq_id,
+                       slot=slot, pages=bundle.n_pages,
+                       overlapped=overlapped)
+            m = metricslib.get_metrics()
+            if m.enabled:
+                m.counter("serve.swapped_in").inc()
+        self._prefetching = still
+
+    def _complete_prefetches(self) -> None:
+        """Close this round's installed pulls at an observed completion and
+        fold their overlap against the decode chunks' compute windows
+        (dispatch start to readback) into the manager's
+        ``prefetch_overlap_frac``."""
+        if not self._installed_prefetch:
+            return
+        floor = min(h[3] for _, h in self._installed_prefetch)
+        windows = [w for w in self._compute_windows if w[1] >= floor]
+        for _bundle, handle in self._installed_prefetch:
+            self.residency.complete_pull(handle, chunk_windows=windows)
+        self._installed_prefetch.clear()
+
+    def _residency_balance(self) -> None:
+        """Eviction decision at the end of a round (chunk collected,
+        nothing in flight): free enough HBM for the most urgent demand —
+        router-signaled install pressure (:meth:`request_pages`), the head
+        queued request that cannot admit (only strictly less urgent rows
+        may make room for it), or the next swapped row due back in
+        (rotation within same-or-less-urgent classes) — by paging policy-
+        chosen victims out; then page out what the policy calls cold."""
+        r = self.residency
+        avail = len(self.free_pages) - self._reserved_prefetch_pages()
+        # pages a victim would ACTUALLY free (shared pages stay)
+        slot_of = {s.seq_id: i for i, s in enumerate(self._slots)
+                   if s.active}
+        sizes = {g.group: (self._row_freeable_pages(slot_of[g.group])
+                           if g.group in slot_of else g.n_blocks)
+                 for g in r.groups("hbm")}
+        victims: list = []
+
+        def planned_avail():
+            # pages this pass's earlier picks free count toward later
+            # demands (without the credit co-occurring demands over-evict)
+            return avail + sum(sizes.get(v, 0) for v in victims)
+
+        # (a) router-signaled install pressure: any victim class
+        demand = self._external_demand
+        self._external_demand = 0
+        if demand > planned_avail():
+            victims += r.victims(demand - planned_avail(), exclude=victims)
+        # (b) the head queued request that cannot admit
+        if self._queue:
+            req = self._queue[self._queue_order()[0]]
+            need = self._request_need(req)
+            fresh = req.resume_prefix is None
+            if not self._admissible(need, fresh=fresh):
+                # sized to the binding constraint: raw pages, and for a
+                # fresh head the high-water cap too
+                shortfall = need - planned_avail()
+                if fresh:
+                    used = (self.pool_pages - len(self.free_pages)
+                            + self._reserved_prefetch_pages()
+                            - (planned_avail() - avail))
+                    hw_cap = self.admit_highwater * self.pool_pages
+                    shortfall = max(shortfall,
+                                    math.ceil(used + need - hw_cap))
+                free_slots = (sum(1 for s in self._slots if not s.active)
+                              - len(self._prefetching))
+                if shortfall <= 0 and free_slots < 1:
+                    # the binding failure is the SLOT: any one victim
+                    # frees a whole slot
+                    shortfall = 1
+                if shortfall > 0:
+                    victims += r.victims(shortfall, exclude=victims,
+                                         min_priority=req.priority + 1)
+        # (c) the next swapped row due back in
+        if self._swapped and not victims:
+            head = sorted(self._swapped.values(),
+                          key=lambda b: b.priority)[0]
+            if head.n_pages > avail:
+                victims += r.victims(head.n_pages - avail, exclude=victims,
+                                     min_priority=head.priority)
+        cold = r.cold_groups(exclude=victims)
+        for sid in victims + cold:
+            slot = next((i for i, s in enumerate(self._slots)
+                         if s.active and s.seq_id == sid), None)
+            if slot is None or slot in self._pending:
+                continue
+            if not r.can_host(len(self._slots[slot].pages)):
+                # earlier picks in this pass took the host tier's room
+                continue
+            if sid in cold and sid not in victims \
+                    and sum(1 for s in self._slots if s.active) <= 1:
+                # proactive cold paging never empties the arena: one row
+                # keeps decoding, so next round's pulls have a chunk to
+                # hide under
+                continue
+            self._swap_out(slot)
 
 
 class ContinuousBatcher(EngineCore):
@@ -1556,11 +2131,16 @@ class ContinuousBatcher(EngineCore):
                     "slot/pages (pool too small for the smallest waiting "
                     "request, or admit_highwater leaves it no headroom)")
         total = time.perf_counter() - t_run0
+        if self.residency is not None:
+            self.residency.drain()  # close any open mem.evict windows
         self.last_bubble_frac = t_exposed / total if total > 0 else 0.0
         self._serve_s += total
         m = metricslib.get_metrics()
         if m.enabled:
             m.gauge("serve.admit_bubble_frac").set(self.last_bubble_frac)
+            if self._prefix is not None:
+                m.gauge("serve.prefill_skip_frac").set(
+                    self.prefill_skip_frac)
         if self.slo is not None:
             self.last_slo = slolib.attainment(self.stats, self.slo,
                                               self._serve_s)

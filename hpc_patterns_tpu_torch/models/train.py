@@ -23,8 +23,18 @@ Per-step telemetry goes to the metrics registry through
 ``harness.trace.instrument_jit`` as JAX wraps its jitted step
 (``train.step``: a compile event for a step that built kernels).
 
-Not ported yet: host-offloaded optimizer state (``offload_opt_state``,
-``residency``; they wait for ``memory/``), meshes.
+Host-offloaded optimizer state (JAX ``models/train.py:97-147``,
+``:254-351``): :func:`offload_opt_state` parks the AdamW moments in
+pinned host memory (on the CPU it leaves them in place with JAX's note);
+``make_train_step(..., offload_opt_example=...)`` pulls them to the card
+for the update and pushes them back, and with ``residency=`` (a
+``memory.ResidencyManager``) the step is STREAMED: the previous push is
+drained, the pull is dispatched on the manager's side stream before the
+gradient accumulation, the accumulation's end is observed before the
+pull's, and the update runs on the pulled moments before they are pushed
+back — the same kernels and the same numbers as resident moments.
+
+Not ported yet: meshes.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
+from hpc_patterns_tpu_torch.memory import kinds as kindslib
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
@@ -189,11 +200,66 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
     return AdamW(lr, weight_decay, grad_clip)
 
 
+#: the optimizer state's tensor subtrees (``count`` is a host int)
+MOMENTS = ("mu", "nu")
+
+
+def _moments(opt_state) -> dict:
+    return {k: opt_state[k] for k in MOMENTS}
+
+
 def offload_opt_state(opt_state, kind: str = "pinned_host"):
-    """Not ported yet: host-resident optimizer state waits for the
-    port's ``memory/`` (memory kinds, residency)."""
-    raise NotImplementedError(
-        "offload_opt_state is not ported yet (needs memory/)")
+    """Move the optimizer's moments to host memory. AdamW's moments are
+    twice the f32 parameter footprint and are touched once a step —
+    parking them in pinned host memory frees that card memory at the cost
+    of streaming them over PCIe each step. Pair with
+    ``make_train_step(..., offload_opt_example=...)``.
+
+    Gated on the placement probe (``memory/kinds.py``): where ``kind``
+    cannot be placed (the CPU has no page-locked memory) the input comes
+    back UNCHANGED with a printed note."""
+    leaves = kindslib.tree_tensors(_moments(opt_state))
+    device = leaves[0].device if leaves else None
+    if not kindslib.memory_kind_placement_works(device, kind):
+        print(f"note: backend has no usable {kind!r} memory kind; "
+              "optimizer state left in place (no offload benefit "
+              "available here)")
+        return opt_state
+    move = kindslib.move_to_kind(device, kind)
+    hosted = {**opt_state, **kindslib.tree_map(move, _moments(opt_state))}
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)  # the D2H copies land before use
+    return hosted
+
+
+def _placement_of(x: torch.Tensor):
+    if x.device.type == "cuda":
+        return kindslib.kind_sharding(x.device, "device")
+    if x.is_pinned():
+        return kindslib.kind_sharding(None, "pinned_host")
+    return kindslib.kind_sharding("cpu", "device")
+
+
+def offload_shardings(opt_state_host):
+    """(host placements, HBM placements) of a host-resident optimizer
+    state's moments — the pull/push targets of the offloaded update,
+    shared by :func:`make_train_step` and its measurements."""
+    moments = _moments(opt_state_host)
+    return (kindslib.tree_map(_placement_of, moments),
+            kindslib.memory_kind_shardings(moments, "device"))
+
+
+def offload_example_shardings(example):
+    """:func:`offload_shardings`, tolerant of the probe-gated identity
+    fallback: when :func:`offload_opt_state` left the state in place the
+    tiers collapse onto one memory and both targets are the example's own
+    placements (the staging still runs, as same-memory copies)."""
+    leaves = kindslib.tree_tensors(_moments(example))
+    if leaves and all(x.device.type == "cpu" and x.is_pinned()
+                      for x in leaves):
+        return offload_shardings(example)
+    host_sh = kindslib.tree_map(_placement_of, _moments(example))
+    return host_sh, host_sh
 
 
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
@@ -206,14 +272,26 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
     batch into that many micro-batches and takes the mean of their
     mean losses and gradients (accumulated in f32) before the one update
     — the same numbers as the whole batch, at a fraction of the
-    activation memory."""
-    if offload_opt_example is not None or residency is not None:
-        raise NotImplementedError(
-            "offloaded optimizer state / residency streaming is not "
-            "ported yet (needs memory/)")
+    activation memory.
+
+    ``offload_opt_example``: a host-resident state from
+    :func:`offload_opt_state`; the step pulls its moments to the card,
+    updates them and pushes them back, returning a host-resident state.
+    ``residency``: a ``memory.ResidencyManager`` — the STREAMED step
+    (module docstring), with measured ``mem.prefetch`` / ``mem.evict``
+    windows and ``prefetch_overlap_frac``; requires
+    ``offload_opt_example``."""
     optimizer = optimizer or make_optimizer()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if residency is not None and offload_opt_example is None:
+        raise ValueError(
+            "residency streaming needs offload_opt_example (a host-"
+            "resident opt state from offload_opt_state)")
+    if offload_opt_example is not None:
+        host_sh, hbm_sh = offload_example_shardings(offload_opt_example)
+    else:
+        host_sh = hbm_sh = None
 
     def grads_of(params, tokens):
         leaves = tree_leaves(params)
@@ -223,25 +301,76 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         loss = loss_fn(params, tokens, cfg)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
-    def step(params, opt_state, tokens):
+    def accum_grads(params, tokens):
         if accum_steps == 1:
-            loss, grads = grads_of(params, tokens)
-        else:
-            B = tokens.shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch {B} must divide by accum_steps "
-                                 f"{accum_steps}")
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            grads = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in tree_leaves(params)]
-            for mb in tokens.reshape(accum_steps, B // accum_steps, -1):
-                loss_i, g_i = grads_of(params, mb)
-                loss = loss + loss_i
-                grads = [a + b for a, b in zip(grads, g_i)]
-            scale = 1.0 / accum_steps
-            loss, grads = loss * scale, [g * scale for g in grads]
+            return grads_of(params, tokens)
+        B = tokens.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} must divide by accum_steps "
+                             f"{accum_steps}")
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        grads = [torch.zeros_like(p, dtype=torch.float32)
+                 for p in tree_leaves(params)]
+        for mb in tokens.reshape(accum_steps, B // accum_steps, -1):
+            loss_i, g_i = grads_of(params, mb)
+            loss = loss + loss_i
+            grads = [a + b for a, b in zip(grads, g_i)]
+        scale = 1.0 / accum_steps
+        return loss * scale, [g * scale for g in grads]
+
+    if residency is not None:
+        return _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
+                                   residency)
+
+    def step(params, opt_state, tokens):
+        if hbm_sh is not None:
+            opt_state = {**opt_state, **kindslib.tree_map(
+                lambda x, p: p.place(x), _moments(opt_state), hbm_sh)}
+        loss, grads = accum_grads(params, tokens)
         optimizer.update(grads, opt_state, params)
+        if host_sh is not None:
+            opt_state = {**opt_state, **kindslib.tree_map(
+                lambda x, p: p.place(x), _moments(opt_state), host_sh)}
         return loss, params, opt_state
+
+    return tracelib.instrument_jit(step, "train.step")
+
+
+def _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
+                        residency):
+    """The residency-managed offloaded step (JAX ``_make_streamed_step``):
+    the pull is dispatched first and runs on the manager's side stream
+    under the gradient accumulation; the accumulation's end is observed
+    before the pull's, so the wait that remains is the transfer time the
+    accumulation failed to hide, and the ``mem.prefetch`` window and the
+    overlap fraction report it."""
+    import time
+
+    def step(params, opt_state, tokens):
+        dev = tree_leaves(params)[0].device
+        residency.bind_device(dev)
+        # the previous step's push had a whole step to land: observe it
+        # (and close its mem.evict window) before its tensors are read
+        residency.drain()
+        opt_dev, handle = residency.pull_payload(
+            _moments(opt_state), shardings=hbm_sh,
+            attrs={"consumer": "train.accum"})
+        t_acc0 = time.perf_counter()
+        loss, grads = accum_grads(params, tokens)
+        # the consumer window ends when the hiding compute ended
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        t_acc1 = time.perf_counter()
+        residency.wait_pull(handle)
+        residency.complete_pull(handle, chunk_windows=((t_acc0, t_acc1),))
+        state = {**opt_state, **opt_dev}
+        optimizer.update(grads, state, params)
+        opt_host = residency.push_payload(
+            _moments(state), shardings=host_sh,
+            attrs={"consumer": "train.apply"})
+        return loss, params, {**state, **opt_host}
 
     return tracelib.instrument_jit(step, "train.step")
 

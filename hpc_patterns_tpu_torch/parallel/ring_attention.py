@@ -11,10 +11,13 @@ _NEG_INF = -1e30
 
 
 def full_attention(q, k, v, *, causal: bool = False,
-                   scale: float | None = None):
+                   scale: float | None = None, q_offset: int = 0):
     """Plain softmax attention, f32 scores, grouped-query: q (B, T, H, D)
     against possibly-narrow k/v (B, S, Hkv, D); q head h reads kv head
-    h // (H / Hkv) with no expanded K/V copy. Returns ``q.dtype``."""
+    h // (H / Hkv) with no expanded K/V copy. Returns ``q.dtype``.
+    ``q_offset``: the position of q's first row in k's sequence (a tail
+    prefill's rows start past a cached prefix); the causal mask keeps
+    key s for query t where s <= t + q_offset."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     if H % max(Hkv, 1) or v.shape[2] != Hkv:
@@ -26,7 +29,8 @@ def full_attention(q, k, v, *, causal: bool = False,
     qg = q.reshape(B, T, Hkv, H // Hkv, D).float()
     s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
     if causal:
-        mask = torch.ones(T, S, dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones(T, S, dtype=torch.bool,
+                          device=q.device).tril(q_offset)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", p, v.float())

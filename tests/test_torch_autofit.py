@@ -303,10 +303,15 @@ def test_fit_row_records_fits_and_wins_on_padding(tmp_path, capsys,
     assert r["expected_padding_fitted"] < r["expected_padding_default"]
     assert r["ladder_default"] == [16, 32, 64] and 40 in r["ladder_fitted"]
     assert r["oracle"] == {"default": {"exact": 16, "near_tie": 0},
-                           "fitted": {"exact": 16, "near_tie": 0}}
+                           "fitted": {"exact": 16, "near_tie": 0},
+                           "blame_recorded": {"exact": 5, "near_tie": 0},
+                           "blame_fitted": {"exact": 5, "near_tie": 0}}
     assert r["fitted_goodput_tok_s"] > 0 and "ladder" in r[
         "config_sections"]
-    assert not any(k.startswith("blame") for k in r)
+    # the blame A/B: the seeded stall blamed on its mechanism, and the
+    # blame-fitted residency shrank the blamed share
+    assert r["blame_segment"] == "prefetch_wait"
+    assert r["blame_share_fitted"] < r["blame_share_default"]
     fitted = tautofit.load_fitted(out)
     assert list(tautofit.ladder_from(fitted)) == r["ladder_fitted"]
     # the row replays an existing config through --autofit

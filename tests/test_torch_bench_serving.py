@@ -1,9 +1,11 @@
 """The port's serving benchmark rows on the CPU (``hpc_patterns_tpu_torch.
 bench_serving``): JAX's own tier-1 tests of the base row
-(``test_smoke_engine_beats_static_on_mixed_workload``) and of the chaos
+(``test_smoke_engine_beats_static_on_mixed_workload``), of the chaos
 scenario (``test_smoke_chaos_scenario_still_beats_static_and_reports_
-goodput``) run unchanged against the port's rows — the same verdicts on
-the same keys — and the rows return every key JAX's rows return, the
+goodput``) and of the tiered-memory rows (``test_smoke_offload_row_...``,
+``test_smoke_shared_row_...``, ``test_smoke_slo_budget_row_...``) run
+unchanged against the port's rows — the same verdicts on the same keys —
+and the rows return every key JAX's rows return, the
 scenario's tail-attribution shares and budget breaches among them (its
 digest, written through ``explain_out``, is the row's). Each row holds
 every sequence against its standalone before it returns. The ``--fit``
@@ -74,6 +76,14 @@ def jax_bench(monkeypatch, tmp_path):
         "scenario", lambda **kw: tbs.run_scenario(
             **kw, explain_out=tmp_path / "digest.json")))
     rows["digest"] = tmp_path / "digest.json"
+    # the tiered-memory rows
+    for name, conf in (("offload", tbs.offload_smoke_config),
+                       ("shared", tbs.shared_smoke_config),
+                       ("slo_budget", tbs.slo_budget_smoke_config)):
+        monkeypatch.setattr(jbs, f"{name}_smoke_config",
+                            lambda conf=conf: conf("cpu"))
+        monkeypatch.setattr(jbs, f"run_{name}",
+                            capture(name, getattr(tbs, f"run_{name}")))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield rows
@@ -107,17 +117,65 @@ def test_jax_chaos_scenario_test_passes_on_the_port(jax_bench):
         r["budget_breaches"] >= 0
 
 
-@pytest.mark.parametrize("flag", ["--offload", "--shared", "--elastic",
-                                  "--slo-budget", "--quant"])
+#: run_offload's keys (benchmarks/bench_serving.py:758-771)
+OFFLOAD_KEYS = {"t_full", "t_tiered", "tokens", "tokens_per_s_full",
+                "tokens_per_s_tiered", "full_goodput_tok_s",
+                "offload_goodput_tok_s", "prefetch_overlap_frac",
+                "swap_outs", "swap_ins", "prefetch_bytes", "hbm_pool",
+                "full_pool", "bubble_frac"}
+#: run_shared's (:1064-1081)
+SHARED_KEYS = {"t_private", "t_shared", "tokens", "tokens_per_s_private",
+               "tokens_per_s_shared", "private_goodput_tok_s",
+               "shared_goodput_tok_s", "prefill_skip_frac", "prefix_hits",
+               "prefix_misses", "ladder", "pool_pages", "bubble_frac",
+               "schedule"}
+#: run_slo_budget's (:916-926)
+SLO_BUDGET_KEYS = {"wall_s", "n", "tokens", "swap_outs", "stall_injections",
+                   "stall_injected_s", "attribution_coverage_frac",
+                   "tpot_p99_stall_share", "budget_breach_segments",
+                   "budget_breaches"}
+
+
+def test_jax_offload_row_test_passes_on_the_port(jax_bench):
+    _jax_tests().test_smoke_offload_row_forces_eviction_and_reports_overlap()
+    r = jax_bench["offload"]
+    assert OFFLOAD_KEYS <= set(r)
+    # the row held every tiered sequence against the all-HBM one and both
+    # against the standalone, exactly in f32
+    assert r["oracle"]["tiered_vs_full"] == {"exact": 8, "differ": 0}
+    assert r["oracle"]["tiered"] == {"exact": 8, "near_tie": 0}
+    assert r["evict_bytes"] == r["prefetch_bytes"] > 0
+
+
+def test_jax_shared_row_test_passes_on_the_port(jax_bench):
+    _jax_tests().test_smoke_shared_row_skips_prefill_and_reports_goodput()
+    r = jax_bench["shared"]
+    assert SHARED_KEYS <= set(r)
+    assert r["oracle"]["shared"]["exact"] == 16
+
+
+def test_jax_slo_budget_row_test_passes_on_the_port(jax_bench):
+    _jax_tests().test_smoke_slo_budget_row_blames_the_injected_mechanism()
+    r = jax_bench["slo_budget"]
+    assert SLO_BUDGET_KEYS <= set(r)
+    assert r["oracle"] == {"exact": 5, "near_tie": 0}
+
+
+def test_tiered_rows_through_the_cli(capsys):
+    assert tbs.main(["--slo-budget", "--device", "cpu", "--explain"]) == 0
+    out = capsys.readouterr().out
+    r = json.loads(out.strip().splitlines()[-1])
+    assert r["budget_breach_segments"] == ["prefetch_wait"]
+    assert "SLO BUDGET BREACHES" in out
+    with pytest.raises(SystemExit):
+        tbs.main(["--shared", "--smoke", "--device", "cpu", "--kv-dtype",
+                  "int8"])
+    assert "--shared refuses --kv-dtype int8" in capsys.readouterr().err
+    assert set(tbs.LATER_ROWS) == {"elastic", "quant"}
+
+
+@pytest.mark.parametrize("flag", ["--elastic", "--quant"])
 def test_later_rows_name_what_they_wait_for(flag, capsys):
     with pytest.raises(SystemExit):
         tbs.main([flag, "--device", "cpu", "--smoke"])
     assert "not ported yet" in capsys.readouterr().err
-
-
-def test_slo_budget_waits_for_tiered_memory_only(capsys):
-    with pytest.raises(SystemExit):
-        tbs.main(["--slo-budget", "--device", "cpu", "--smoke"])
-    err = capsys.readouterr().err
-    assert "ROADMAP item 3" in err and "item 2" not in err
-    assert "fit" not in tbs.LATER_ROWS

@@ -264,12 +264,32 @@ def test_allreduce_app_guards(capsys):
     assert allreduce_app.main(["--sweep", "--min-p", "9", "-p", "5",
                                "--device", "cpu"]) == 1
     assert "FAILURE" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        allreduce_app.main(["-p", "4", "-H", "--device", "cpu"])
+    # -H on the CPU: JAX's note, then the device memory
+    assert allreduce_app.main(["-p", "4", "-H", "--device", "cpu",
+                               "--repetitions", "1"]) == 0
+    assert "note: memory kind 'pinned_host' unsupported here" in \
+        capsys.readouterr().out
     # an odd world drops to even, as the reference's precondition asks
     assert allreduce_app.main(["-p", "4", "--device", "cpu", "--world", "5",
                                "--repetitions", "1"]) == 0
     assert "world=4" in capsys.readouterr().out
+
+
+def test_allreduce_app_host_kind_sweep_on_the_cpu(tmp_path, capsys):
+    # -H where pinned host memory is unusable: JAX's note once for the
+    # whole sweep, every point validated in device memory and logged so
+    log = tmp_path / "h.jsonl"
+    assert allreduce_app.main(["--sweep", "--min-p", "3", "-p", "4", "-H",
+                               "--algorithm", "fused", "--device", "cpu",
+                               "--repetitions", "1", "--log",
+                               str(log)]) == 0
+    out = capsys.readouterr().out
+    assert out.count("note: memory kind 'pinned_host' unsupported") == 1
+    results = [json.loads(line) for line in log.read_text().splitlines()
+               if '"kind": "result"' in line]
+    assert len(results) == 2
+    assert all(r["memory_kind"] == "device" and r["success"]
+               for r in results)
 
 
 def test_device_mismatch_count():

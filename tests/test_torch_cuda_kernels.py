@@ -39,7 +39,9 @@ in another order); each kernel twice for equal bits. The migration
 exchange (kernel 13) equals its plain version byte for byte (compared as
 uint8) at every pool dtype, ragged chunkings and rows that are not a
 multiple of 16 bytes; a launch one sender short never lands, and
-``synchronize()`` raises.
+``synchronize()`` raises. The residency manager's host tier on the card
+is pinned and round-trips bytes exactly; ``allreduce_app -H``'s
+host-resident route equals device memory bit for bit.
 """
 
 import ctypes
@@ -1164,3 +1166,43 @@ def test_migration_exchange_budget_refuses_before_launching(gen):
     with pytest.raises(md.MigrationDmaError, match="budget"):
         md.migration_exchange(big)
     assert md.launches["migration_exchange"] == n
+
+
+# ------------------------------------------------------------ tiered memory
+
+def test_residency_round_trip_on_the_card_is_pinned_and_exact(gen):
+    # the host tier on the card is pinned host memory, never pageable; a
+    # push (side stream, behind the producer) and a pull (side stream,
+    # the consumer waiting on its event) move every byte back exactly
+    from hpc_patterns_tpu_torch.memory import ResidencyManager
+    from hpc_patterns_tpu_torch.memory import kinds
+
+    assert kinds.memory_kind_transfers_work("cuda")
+    m = ResidencyManager(host_blocks=4, device="cuda")
+    src = torch.randn(3, 8, 256, 128, generator=gen, device="cuda")
+    payload = {"k": (src.to(torch.bfloat16),), "v": (src * 2,)}
+    host = m.push_payload(payload)
+    assert all(h.is_pinned() for h in (*host["k"], *host["v"]))
+    m.drain()
+    back, handle = m.pull_payload(host)
+    m.wait_pull(handle)
+    got = torch.cat([back["k"][0].float().flatten(), back["v"][0].flatten()])
+    m.complete_pull(handle)
+    want = torch.cat([payload["k"][0].float().flatten(),
+                      payload["v"][0].flatten()])
+    assert torch.equal(got, want)
+    assert m.swap_outs == m.swap_ins == 1
+
+
+def test_allreduce_host_kind_equals_device_kind_bitwise(gen):
+    from hpc_patterns_tpu_torch.apps import allreduce_app, common
+
+    comm = common.make_communicator("cuda", 4, even=True)
+    x = comm.rank_filled(1 << 16, "float32")
+    for algorithm in ("ring", "fused"):
+        step = comm.jit_allreduce(x, algorithm)
+        want = step(x).cpu()
+        xh = x.cpu().pin_memory()
+        got = allreduce_app.host_resident(step, comm.device)(xh)
+        comm.synchronize()
+        assert got.is_pinned() and torch.equal(got, want)

@@ -146,7 +146,7 @@ def test_sizing_helpers_equal_jax(max_len):
 
 
 @pytest.mark.parametrize("kw", [
-    {"residency": object()}, {"prefix_cache": True}, {"mesh": object()},
+    {"mesh": object()},
 ])
 def test_later_slice_options_raise(model, kw):
     _, tcfg, _, tp = model

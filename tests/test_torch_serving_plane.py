@@ -612,5 +612,5 @@ def test_bench_cli_cpu(capsys):
     res = json.loads(out.strip().splitlines()[-1])
     assert res["migration_transports"] == {"wire": res["migrations"]}
     with pytest.raises(SystemExit):
-        # a row that waits for its slice (tiered memory)
-        bench_serving.main(["--offload", "--device", "cpu"])
+        # a row that waits for its slice (the autoscaled plane)
+        bench_serving.main(["--elastic", "--device", "cpu"])
