@@ -290,7 +290,35 @@ Phases, each printing JSON lines:
               save-a forward once per layer), one step on the fused route
               (kernel 2 once per layer), and one step profiled
               (device-busy share, top kernels);
-12. the ``done`` line with each phase's wall seconds, the ``{"kernels":
+12. parallel — the sp and ep axes as logical ranks of the card, at the
+              training cell's widths, each part's line with the card's
+              name and power limit: (a) ``ring_attention`` alone on q/k/v
+              of sp 4 x B 2 x T_local 512 x H 8 x D 128 bf16 (and Hkv 2):
+              the fused (kernel 10) and ppermute shifts move equal bytes,
+              ring_flash and the dense ring within ``PAR_ATOL`` of
+              ``flash_attention`` on the gathered sequence, one counted
+              entry-point call launching kernel 10 2 x (sp - 1) times and
+              kernel 1 sp (sp + 1) / 2 times (fully-future causal blocks
+              are not launched), each route's device ms, Ulysses' flash
+              route beside them; (b) ``train_app --attention ring_flash
+              --sp 4`` and ``--attention ulysses_flash --sp 4``, 4 steps
+              each: SUCCESS, the first loss within ``PAR_LOSS_RTOL`` of
+              flash's at init, every gradient leaf's 1 - cosine against
+              flash's within ``PAR_GAP`` (one batch at init), kernel 1,
+              3 and 4 launches equal to n_layers x blocks a layer x grad
+              passes, step ms and tokens/s; (c) ``train_app --n-experts 8
+              --n-experts-top-k 2 --drop-rate-every 2 --generate 16`` (E
+              and k are Mixtral-8x7B's), 8 steps: SUCCESS, the loss
+              falling, the drop rates, step ms, tokens/s, TF/s with the
+              expert FLOPs counted by E x C slots, peak memory, and
+              generate's kernel 5 launches; (d) the MoE loss at
+              capacity_factor 8 (drop-free) on ``{"ep": 4}`` against no
+              mesh, no drops: on 2 rows (JAX's test's layout, routing
+              replicated with its warning) the loss, on the 8 the NLL,
+              within ``PAR_EP_RTOL``; (e) one profiled step each of the
+              MoE cell and of ring_flash at sp 4 (busy share, top
+              kernels);
+13. the ``done`` line with each phase's wall seconds, the ``{"kernels":
    [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +337,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -448,6 +477,38 @@ MLP_SHAPE = dict(N=8 * 2048, D=1024, F=4096)
 # in another order
 MLP_RTOL = 2e-2
 MLP_DW_RTOL = 1e-3
+# phase parallel: ring attention alone at sp 4 x B 2 x T_local 512 x H 8 x
+# D 128 bf16 (and Hkv 2), held against flash_attention on the gathered
+# sequence (max abs error: both round P to bf16 before P.V; the ring merges
+# its bf16 partials in f32 and rounds once more); the sp runs' first loss
+# and gradient cosines against flash at init (the limits of flash vs full
+# in phase train: the same roundings at other places); the MoE cell adds
+# Mixtral-8x7B's num_local_experts 8 and num_experts_per_tok 2 to the
+# training cell; ep 4 against no mesh at a drop-free capacity: the same
+# tokens reach the same experts, so the NLL moves only by the slots'
+# order in the expert products (bf16 outputs; 1.0e-5 relative on the
+# H100, PERF.md). With JAX's test's layout (2 rows: the batch does not
+# divide the ep ranks, so routing runs replicated and the aux is the
+# whole batch's) the loss is held; with the whole batch (routing
+# partitioned) the NLL is, since the aux is then a mean over the shards'
+# load-balance terms (JAX's pmean), another number by definition. The
+# ring's worst gradient leaf read 5.7e-5 (embed) on the H100 against
+# flash: its partials are rounded to bf16 before the merge
+PAR_RING = dict(P=4, B=2, T=512, H=8, D=128)
+PAR_ATOL = 2e-2
+PAR_LOSS_RTOL = 4e-5
+PAR_GAP = 3e-4
+PAR_EP_RTOL = 1e-4
+PAR_SP_STEPS = 5
+PAR_MOE = ["--n-experts", "8", "--n-experts-top-k", "2"]
+PAR_MOE_ARGV = ["--steps", "8", *TRAIN_BASE, *PAR_MOE, "--drop-rate-every",
+                "2", "--generate", "16"]
+# the sp runs: 5 steps, the first whose last loss can sit below the first
+# (the fourth spikes at lr 3e-4 from init, as in phase train's remat runs)
+PAR_CUTS = {"sp_steps": f"8 -> {PAR_SP_STEPS} (the sp runs)",
+            "ring_alone": "one layer's q/k/v at B 8 -> 2 (random, seeded)",
+            "ep_check": "no grad, 8 layers; the loss check on the first 2 "
+                        "of 8 rows (JAX's test's layout)"}
 
 
 def emit(obj) -> None:
@@ -4627,6 +4688,306 @@ def phase_train():
     return train_launches
 
 
+# ------------------------------------------------ parallel (logical ranks)
+
+
+def _par_argv(attention: str, steps: int, extra=()) -> list:
+    """The training cell's argv at ``attention``, ``steps`` steps."""
+    base = list(TRAIN_BASE)
+    base[base.index("--attention") + 1] = attention
+    return ["--steps", str(steps), *base, *extra]
+
+
+def _par_ring(gen) -> dict:
+    """(a) ``ring_attention`` alone: the shifts' bytes, ring_flash and the
+    dense ring (and Ulysses' flash route) against ``flash_attention`` on the
+    gathered sequence, one counted entry-point call, each route's ms."""
+    from hpc_patterns_tpu_torch.comm import fused
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.parallel.ring_attention import (
+        _kv_rotate,
+        ring_attention,
+    )
+    from hpc_patterns_tpu_torch.parallel.ulysses import ulysses_attention
+
+    P, B, T, H, D = PAR_RING.values()
+    rows, counted = {}, {}
+    for Hkv in (H, 2):
+        def qkv():
+            return [torch.randn(P, B, T, h, D, generator=gen, device="cuda")
+                    .bfloat16() for h in (H, Hkv, Hkv)]
+
+        q, k, v = qkv()
+        gathered = [t.movedim(0, 1).flatten(1, 2) for t in (q, k, v)]
+        ref = fa.flash_attention(*gathered, causal=True)
+
+        def err(o):
+            return (o.movedim(0, 1).flatten(1, 2).float()
+                    - ref.float()).abs().max().item()
+
+        shifted = [_kv_rotate(s)((k, v)) for s in ("fused", "ppermute")]
+        same_bytes = all(torch.equal(a, b) for a, b in zip(*shifted))
+        torch.cuda.synchronize()
+        for key in fa.launches:
+            fa.launches[key] = 0
+        fused.launches["fused_permute"] = 0
+        got = ring_attention(q, k, v, causal=True, impl="flash",
+                                shift_impl="fused")
+        torch.cuda.synchronize()
+        launches = {"fwd_lse": fa.launches["fwd_lse"],
+                    "fused_permute": fused.launches["fused_permute"]}
+        if Hkv == H:
+            counted = launches
+        pp = ring_attention(q, k, v, causal=True, impl="flash")
+        routes = {
+            "ring_flash_fused": got, "ring_flash_ppermute": pp,
+            "ring_dense": ring_attention(q, k, v, causal=True),
+            "ulysses_flash": ulysses_attention(q, k, v, causal=True,
+                                               impl="flash")}
+        row = {"Hkv": Hkv, "shifts_equal_bytes": same_bytes,
+               "fused_equals_ppermute": torch.equal(got, pp),
+               "max_abs_err": {n: err(o) for n, o in routes.items()},
+               "launches_a_call": launches,
+               "want_launches_a_call": {"fwd_lse": P * (P + 1) // 2,
+                                        "fused_permute": 2 * (P - 1)}}
+        check(same_bytes and row["fused_equals_ppermute"],
+              f"ring Hkv {Hkv}: the fused and ppermute shifts move equal "
+              "bytes")
+        check(all(e <= PAR_ATOL for e in row["max_abs_err"].values()),
+              f"ring Hkv {Hkv}: routes within {PAR_ATOL} of flash on the "
+              f"gathered sequence: {row['max_abs_err']}")
+        check(launches == row["want_launches_a_call"],
+              f"ring Hkv {Hkv}: launches {launches} == "
+              f"{row['want_launches_a_call']}")
+        if Hkv == H:
+            sets = [qkv() for _ in range(n_sets(3 * q.numel() * 2))]
+            gsets = [[t.movedim(0, 1).flatten(1, 2).contiguous() for t in x]
+                     for x in sets]
+            ms = {
+                "ring_flash_fused": device_ms(lambda *x: ring_attention(
+                    *x, causal=True, impl="flash", shift_impl="fused"),
+                    sets, 10),
+                "ring_flash_ppermute": device_ms(lambda *x: ring_attention(
+                    *x, causal=True, impl="flash"), sets, 10),
+                "ring_dense": device_ms(lambda *x: ring_attention(
+                    *x, causal=True), sets, 5),
+                "ulysses_flash": device_ms(lambda *x: ulysses_attention(
+                    *x, causal=True, impl="flash"), sets, 10),
+                "flash_gathered": device_ms(lambda *x: fa.flash_attention(
+                    *x, causal=True), gsets, 10)}
+            flops = 4 * B * H * (P * T) ** 2 * D / 2  # causal: half
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+            row["ms"] = ms
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+        rows[f"Hkv{Hkv}"] = row
+    return {"rows": rows, "counted": counted}
+
+
+def _par_grads(params, tokens, cfg, mesh=None):
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    leaves = tr.tree_leaves(params)
+    loss = tf.loss_fn(params, tokens, cfg, mesh)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def phase_parallel():
+    """The sp and ep axes as logical ranks of the card (module docstring,
+    item 12): (a) ring attention alone, (b) the sp training runs, (c) the
+    MoE training run with its generate, (d) ep 4 against no mesh."""
+    import dataclasses
+    import shutil
+
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_parallel"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+
+    ring = _par_ring(torch.Generator(device="cuda").manual_seed(7))
+    emit({"phase": "parallel", "part": "a_ring", "card": card,
+          "shape": PAR_RING, "tol": PAR_ATOL, **ring["rows"]})
+
+    # (b) the sp runs: the first loss and every gradient leaf at init
+    # against flash, then train_app at sp 4 for each flash route
+    L = TRAIN_MODEL["n_layers"]
+    B, T = TRAIN_BATCH
+    P = PAR_RING["P"]
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, max_seq=T, attention="flash")
+    params, _ = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           B, T, device=dev)
+    names = _leaf_names(params)
+    l_flash, g_flash = _par_grads(params, tokens, cfg)
+    launches = {"fwd_lse": ring["counted"]["fwd_lse"], "dq": 0, "dkv": 0,
+                "fwd": 0, "flash_decode": 0,
+                "fused_permute": ring["counted"]["fused_permute"]}
+    sp_rows = {}
+    for attention, blocks in (("ring_flash", P * (P + 1) // 2),
+                              ("ulysses_flash", 1)):
+        c = dataclasses.replace(cfg, attention=attention)
+        l_sp, g_sp = _par_grads(params, tokens, c, {"sp": P})
+        gaps = _cosine_gaps(names, g_flash, g_sp)
+        del g_sp
+        run = _train_run(_par_argv(attention, PAR_SP_STEPS,
+                                   ("--sp", str(P))),
+                         logs / f"{attention}.jsonl")
+        la, passes = run["launches"], run["passes"]["grad"]
+        res, losses = run["res"], run["losses"]
+        row = {"argv_attention": attention, "sp": P, "rc": run["code"],
+               "success": res["success"], "mesh": res.get("mesh"),
+               "mesh_ranks": res.get("mesh_ranks"), "losses": losses,
+               "loss_init": l_sp, "loss_flash_init": l_flash,
+               "loss_rel_diff": abs(l_sp - l_flash) / abs(l_flash),
+               "first_step_rel_diff": abs(losses[0] - l_flash) / abs(l_flash),
+               "worst_grad_gap": max(gaps.values()), "grad_gaps": gaps,
+               "step_ms": res["step_time_s"] * 1e3,
+               "steps_ms": run["steps_ms"],
+               "tokens_per_s": res["tokens_per_s"],
+               "peak_bytes": run["peak_bytes"], "launches": la,
+               "grad_passes": passes, "blocks_a_layer": blocks}
+        sp_rows[attention] = row
+        emit({"phase": "parallel", "part": "b_sp", "card": card, **row,
+              "tol": {"loss_rel": PAR_LOSS_RTOL, "gap": PAR_GAP}})
+        check(run["code"] == 0 and res["success"]
+              and res.get("mesh_ranks") == "logical ranks of one device",
+              f"train_app {attention} --sp {P} SUCCESS on logical ranks")
+        check(row["loss_rel_diff"] <= PAR_LOSS_RTOL
+              and row["first_step_rel_diff"] <= PAR_LOSS_RTOL
+              and row["worst_grad_gap"] <= PAR_GAP,
+              f"{attention} vs flash: loss {l_sp}/{losses[0]} vs {l_flash},"
+              f" worst leaf 1 - cosine {row['worst_grad_gap']}")
+        want = L * blocks * passes
+        check(la["fwd_lse"] == la["dq"] == la["dkv"] == want
+              and la["fused_bwd"] == 0,
+              f"{attention}: kernel 1/3/4 launches == {L} layers x {blocks} "
+              f"blocks x {passes} passes: {la}")
+        for key in ("fwd_lse", "dq", "dkv"):
+            launches[key] += la[key]
+    del g_flash
+
+    # (c) the MoE cell: train, drop rates, generate
+    run = _train_run(PAR_MOE_ARGV, logs / "moe.jsonl")
+    la, passes, res = run["launches"], run["passes"], run["res"]
+    steps = [json.loads(x) for x in (logs / "moe.jsonl").read_text()
+             .splitlines()]
+    drops = {r["step"]: r["moe_drop_rate"] for r in steps
+             if r.get("kind") == "step" and "moe_drop_rate" in r}
+    mcfg = dataclasses.replace(cfg, n_experts=8, n_experts_top_k=2)
+    E, k, D, F = 8, 2, mcfg.d_model, mcfg.d_ff
+    N = B * T
+    C = int(N * k * mcfg.capacity_factor / E)
+    mparams = tf.init_params(mcfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev,
+                             dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tr.tree_leaves(mparams))
+    n_expert = L * E * 2 * D * F
+    n_router = L * D * E
+    del mparams
+    # bench_train's 6 x params + attention per token for everything but the
+    # experts and the router; the experts by E x C slots as the code
+    # computes them (padding slots included), 3 x the forward's 4 E C D F
+    flops = (N * (6 * (n_params - n_expert - n_router)
+                  + 12 * L * T * D * 0.5)
+             + 12 * L * E * C * D * F + 6 * L * N * D * E)
+    step_s = res["step_time_s"]
+    moe_row = {"argv": PAR_MOE_ARGV, "rc": run["code"],
+               "success": res["success"], "losses": run["losses"],
+               "drop_rates": drops, "capacity": C, "n_params": n_params,
+               "expert_params": n_expert, "step_ms": step_s * 1e3,
+               "steps_ms": run["steps_ms"],
+               "tokens_per_s": res["tokens_per_s"],
+               "model_tflops": flops / step_s / 1e12,
+               "flops_counted": "experts by E x C slots",
+               "peak_bytes": run["peak_bytes"],
+               "peak_over_start_bytes": run["peak_over_start_bytes"],
+               "launches": la, "grad_passes": passes["grad"],
+               "decode_steps": passes["decode"]}
+    emit({"phase": "parallel", "part": "c_moe", "card": card, **moe_row})
+    losses = run["losses"]
+    check(run["code"] == 0 and res["success"], "MoE train_app SUCCESS")
+    check(losses[-1] < losses[0], f"MoE losses fall: {losses}")
+    check(sorted(drops) == [0, 2, 4, 6]
+          and all(0.0 <= d < 1.0 for d in drops.values()),
+          f"the drop rate on every second step: {drops}")
+    n_new = int(PAR_MOE_ARGV[PAR_MOE_ARGV.index("--generate") + 1])
+    check(passes["decode"] == n_new - 1
+          and la["flash_decode"] == L * passes["decode"],
+          f"MoE generate's {passes['decode']} decode steps ran kernel 5 once "
+          f"per layer: {la}")
+    check(la["fwd_lse"] == la["dq"] == la["dkv"] == L * passes["grad"]
+          and la["fwd"] == L * (1 + len(drops)),
+          f"MoE kernel 1/3/4 launches == {L} x {passes['grad']} passes, "
+          f"the forward once a layer for generate's prefill and each drop "
+          f"reading: {la}")
+    for key in ("fwd_lse", "dq", "dkv", "fwd", "flash_decode"):
+        launches[key] += la[key]
+
+    # (d) ep 4 on logical ranks against no mesh, drop-free
+    ecfg = dataclasses.replace(mcfg, capacity_factor=8.0)
+    eparams = tf.init_params(ecfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    ep_row = {"capacity_factor": 8.0, "ep": P, "tol": PAR_EP_RTOL}
+    with torch.no_grad(), warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        for rows in (2, B):
+            toks = tokens[:rows]
+            for name, mesh in (("ep1", None), (f"ep{P}", {"ep": P})):
+                logits, aux = tf.forward(eparams, toks, ecfg, mesh,
+                                         return_aux=True)
+                nll = tf.masked_causal_nll(logits, toks).item()
+                del logits
+                ep_row.setdefault(f"batch{rows}", {})[name] = {
+                    "nll": nll, "aux": aux.item(),
+                    "loss": nll + ecfg.moe_aux_weight * aux.item(),
+                    "drop_rate": tf.moe_drop_rates(eparams, toks, ecfg,
+                                                   mesh).max().item()}
+            one, many = (ep_row[f"batch{rows}"][n] for n in ("ep1",
+                                                               f"ep{P}"))
+            ep_row[f"batch{rows}"].update({
+                f"{k}_rel_diff": abs(many[k] - one[k]) / abs(one[k])
+                for k in ("nll", "loss")})
+            check(one["drop_rate"] == many["drop_rate"] == 0.0,
+                  f"ep at capacity_factor 8 drops nothing: {ep_row}")
+    ep_row["replicated_routing_warned"] = any(
+        "routing runs replicated" in str(w.message) for w in warned)
+    emit({"phase": "parallel", "part": "d_ep", "card": card, **ep_row})
+    check(ep_row["replicated_routing_warned"]
+          and ep_row["batch2"]["loss_rel_diff"] <= PAR_EP_RTOL
+          and ep_row[f"batch{B}"]["nll_rel_diff"] <= PAR_EP_RTOL,
+          f"ep {P} vs ep 1 drop-free: the loss (2 rows, routing "
+          f"replicated), the NLL ({B} rows, partitioned): {ep_row}")
+    del eparams
+
+    # (e) one profiled step of the MoE cell and of ring_flash at sp 4
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+
+    prof = {}
+    for name, c, mesh in (("moe", mcfg, None),
+                          ("ring_flash_sp4", dataclasses.replace(
+                              cfg, attention="ring_flash"), {"sp": P})):
+        p_, s_ = tr.init_train_state(torch.Generator(device=dev)
+                                     .manual_seed(0), c, device=dev)
+        step = tr.make_train_step(c, mesh=mesh)
+        step(p_, s_, tokens)[0].item()
+
+        def one_step():
+            return step(p_, s_, tokens)[0].item()
+
+        prof[name] = device_profile(one_step, top=8)
+        del p_, s_, step
+    emit({"phase": "parallel", "part": "e_profile", "card": card, **prof,
+          "seconds": time.perf_counter() - t_phase, "cuts": PAR_CUTS})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4682,6 +5043,7 @@ def main() -> int:
     timed("kernels", block_case, tgen)
     mlp_rows = timed("kernels", fused_mlp_cases, tgen, **MLP_SHAPE)
     launches_train = timed("train", phase_train)
+    launches_par = timed("parallel", phase_parallel)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4699,7 +5061,7 @@ def main() -> int:
          + launches_fit["flash_prefill"]
          + launches_tiered["flash_prefill"]
          + launches_spec["flash_prefill"]
-         + launches_plane["flash_prefill"],
+         + launches_plane["flash_prefill"] + launches_par["fwd"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
@@ -4708,6 +5070,7 @@ def main() -> int:
                               "tiered": launches_tiered["flash_prefill"],
                               "spec": launches_spec["flash_prefill"],
                               "plane": launches_plane["flash_prefill"],
+                              "parallel_moe": launches_par["fwd"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd"]},
          **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)}},
@@ -4733,10 +5096,12 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
          "launches": launches_quant["flash_decode"]
-         + launches_train["flash_decode"] + launches_spec["flash_decode"],
+         + launches_train["flash_decode"] + launches_spec["flash_decode"]
+         + launches_par["flash_decode"],
          "launches_by_path": {"quant": launches_quant["flash_decode"],
                               "train_generate":
                               launches_train["flash_decode"],
+                              "moe_generate": launches_par["flash_decode"],
                               "bench_speculative":
                               launches_spec["flash_decode"]},
          **{k: rows["flash_decode"][k] for k in keys},
@@ -4795,7 +5160,11 @@ def main() -> int:
         {"name": "fused_permute", "route": "cuda",
          "source": f"{PKG}/csrc/fused_ring.cu",
          "replaces": "hpc_patterns_tpu/comm/fused.py:335",
-         "launches": launches_comm["fused_permute"],
+         "launches": launches_comm["fused_permute"]
+         + launches_par["fused_permute"],
+         "launches_by_path": {"comm": launches_comm["fused_permute"],
+                              "ring_attention":
+                                  launches_par["fused_permute"]},
          **{k: perm_row[k] for k in keys}},
         {"name": "alias_inplace", "route": "cuda",
          "source": f"{PKG}/csrc/alias_inplace.cu",
@@ -4807,9 +5176,10 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches_train["flash_fwd_lse"]
          + launches_tiered["fwd_lse"]
-         + launches_spec["build"]["fwd_lse"],
+         + launches_spec["build"]["fwd_lse"] + launches_par["fwd_lse"],
          "launches_by_path": {"train": launches_train["flash_fwd_lse"],
                               "tiered": launches_tiered["fwd_lse"],
+                              "parallel": launches_par["fwd_lse"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd_lse"]},
          **{k: train_rows["flash_fwd_lse"][k]
@@ -4823,9 +5193,10 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
          "launches": launches_train["dq"] + launches_tiered["dq"]
-         + launches_spec["build"]["dq"],
+         + launches_spec["build"]["dq"] + launches_par["dq"],
          "launches_by_path": {"train": launches_train["dq"],
                               "tiered": launches_tiered["dq"],
+                              "parallel": launches_par["dq"],
                               "spec_pair_build":
                                   launches_spec["build"]["dq"]},
          **{k: train_rows["dq"][k] for k in keys + rel}},
@@ -4833,9 +5204,10 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
          "launches": launches_train["dkv"] + launches_tiered["dkv"]
-         + launches_spec["build"]["dkv"],
+         + launches_spec["build"]["dkv"] + launches_par["dkv"],
          "launches_by_path": {"train": launches_train["dkv"],
                               "tiered": launches_tiered["dkv"],
+                              "parallel": launches_par["dkv"],
                               "spec_pair_build":
                                   launches_spec["build"]["dkv"]},
          **{k: train_rows["dkv"][k] for k in keys + rel}},

@@ -1,6 +1,6 @@
 """Trainer app: the transformer trained end to end on one device — the
-counterpart of ``hpc_patterns_tpu/apps/train_app.py`` (its single-device
-path).
+counterpart of ``hpc_patterns_tpu/apps/train_app.py``, with its ``sp``
+and ``ep`` mesh axes as logical ranks of that device.
 
 Self-validating: the loss must be finite every step (the run halts at
 the first non-finite one) and fall over the run on one static batch;
@@ -36,9 +36,23 @@ note and trains with the moments in place:
         --steps 8 --batch 8 --seq 2048 --d-model 1024 --n-layers 8 \
         --n-heads 8 --vocab 32768 --offload-opt
 
+MoE layers (``--n-experts E --n-experts-top-k k``, ``--moe-dispatch``)
+route through ``parallel/moe.py``; ``--drop-rate-every N`` adds the
+routing drop rate to every N-th step record. ``--sp P`` runs the
+``ring``/``ring_flash``/``ulysses``/``ulysses_flash`` attentions over P
+sequence blocks and ``--ep P`` the expert-parallel MoE over P batch
+shards, as logical ranks of the one device (rank-stacked tensors, the
+all-to-alls and ring hops between them); every result line on a mesh
+says so. ``--generate`` decodes an MoE model drop-free:
+
+    python -m hpc_patterns_tpu_torch.apps.train_app --attention ring_flash \
+        --sp 4 --n-experts 8 --n-experts-top-k 2 --ep 4 --steps 8 \
+        --batch 8 --seq 2048 --d-model 1024 --n-layers 8 --n-heads 8 \
+        --vocab 32768 --generate 16
+
 Not ported yet (each prints ``ERROR: ... not ported yet`` and FAILURE):
-meshes (``--dp/--fsdp/--sp/--tp/--ep`` > 1, ``--dcn-dp``), ``--pp``,
-``--n-experts``, and the attention impls that need a mesh.
+parameter and batch sharding (``--dp/--fsdp/--tp`` > 1, ``--dcn-dp``)
+and ``--pp``, which need processes (the multi-process slice).
 """
 
 from __future__ import annotations
@@ -92,16 +106,22 @@ def build_parser():
                         "never materialize (0 = dense)")
     p.add_argument("--pos-embed", default="learned",
                    choices=["learned", "rope"])
-    for axis in ("dp", "fsdp", "sp", "tp", "pp", "ep"):
+    for axis in ("dp", "fsdp", "tp", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis size (only 1: meshes are not "
-                            "ported yet)")
+                       help="mesh axis size (only 1: needs the "
+                            "multi-process slice)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (logical ranks of one "
+                        "device) for the ring/ulysses attentions")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ranks (logical ranks of one "
+                        "device; requires --n-experts)")
     p.add_argument("--dcn-dp", action="store_true",
                    help="multi-slice placement (not ported yet)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="microbatches per step for --pp (not ported yet)")
     p.add_argument("--n-experts", type=int, default=0,
-                   help="MoE experts per layer (not ported yet; 0 = dense)")
+                   help="MoE experts per layer (0 = dense)")
     p.add_argument("--n-experts-top-k", type=int, default=1)
     p.add_argument("--moe-dispatch", default="auto",
                    choices=["auto", "einsum", "scatter"])
@@ -140,17 +160,33 @@ def build_parser():
     return p
 
 
+#: what the flags that need processes wait for
+MULTI_PROCESS = "the multi-process slice (apps/launch.py, torch.distributed)"
+
+
 def _unported(args) -> str | None:
     """The first flag this port cannot run yet, named, or None."""
-    for axis in ("dp", "fsdp", "sp", "tp", "ep"):
+    for axis in ("dp", "fsdp", "tp"):
         if getattr(args, axis) > 1:
-            return f"--{axis} {getattr(args, axis)} (meshes)"
-    checks = [(args.dcn_dp, "--dcn-dp (multi-slice meshes)"),
-              (args.pp > 1, f"--pp {args.pp} (pipeline parallelism)"),
-              (args.n_experts > 0, "--n-experts (MoE layers)"),
-              (args.attention not in ("full", "flash"),
-               f"--attention {args.attention} (needs a mesh)")]
+            return (f"--{axis} {getattr(args, axis)} (parameter/batch "
+                    f"sharding waits for {MULTI_PROCESS})")
+    checks = [(args.dcn_dp, f"--dcn-dp (multi-slice meshes wait for "
+                            f"{MULTI_PROCESS})"),
+              (args.pp > 1, f"--pp {args.pp} (pipeline parallelism waits "
+                            f"for {MULTI_PROCESS})")]
     return next((what for bad, what in checks if bad), None)
+
+
+def _mesh(args) -> dict | None:
+    """JAX's mesh for the ported axes: ``sp`` (always, once a mesh is
+    needed) and ``ep`` when > 1; None when every axis is 1 and the
+    attention needs no mesh. Its ranks are logical ranks of one device."""
+    if args.sp * args.ep == 1 and args.attention in ("full", "flash"):
+        return None
+    mesh = {"sp": args.sp}
+    if args.ep > 1:
+        mesh["ep"] = args.ep
+    return mesh
 
 
 def _fail(log, msg) -> int:
@@ -183,7 +219,7 @@ def _batches(args, cfg, dev):
 
 
 def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
-                residency=None) -> int:
+                residency=None, mesh=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = make_batch(gen, cfg, args.batch, args.seq, device=dev)
     batch_iter = _batches(args, cfg, dev)
@@ -197,7 +233,19 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
         loss_val = float(loss)  # blocks: the readback is the fence
         t_steps.append(time.perf_counter() - t0)
         losses.append(loss_val)
-        log.emit(kind="step", step=i, loss=loss_val, dt_s=t_steps[-1])
+        extra = {}
+        if cfg.n_experts and args.drop_rate_every > 0 \
+                and i % args.drop_rate_every == 0:
+            # capacity drops are otherwise invisible in training: one
+            # diagnostic forward on the step's batch, outside its time
+            from hpc_patterns_tpu_torch.models.transformer import (
+                moe_drop_rates,
+            )
+
+            drops = moe_drop_rates(params, batch, cfg, mesh)
+            extra["moe_drop_rate"] = round(float(drops.max()), 4)
+        log.emit(kind="step", step=i, loss=loss_val, dt_s=t_steps[-1],
+                 **extra)
         record_step_metrics(i, loss_val, t_steps[-1],
                             args.batch * args.seq)
         if loss_val != loss_val or abs(loss_val) == float("inf"):
@@ -278,11 +326,16 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
     steady = t_steps[1:] or t_steps  # the first step builds the kernels
     step_s = min(steady)
     tokens_per_s = args.batch * args.seq / step_s
+    ranks = {} if mesh is None else {
+        "mesh_ranks": "logical ranks of one device"}
     log.emit(kind="result", name="train", success=ok, steps=args.steps,
              loss_first=losses[0], loss_last=losses[-1], step_time_s=step_s,
-             tokens_per_s=tokens_per_s, mesh=None, attention=args.attention,
+             tokens_per_s=tokens_per_s, mesh=mesh, **ranks,
+             attention=args.attention, n_experts=cfg.n_experts,
              checkpoint=ckpt_path, device=str(dev), **offload)
-    log.print(f"train[{args.attention}] {args.steps} steps: loss "
+    on_mesh = ("" if mesh is None else
+               f" on mesh {mesh} (logical ranks of one device)")
+    log.print(f"train[{args.attention}] {args.steps} steps{on_mesh}: loss "
               f"{losses[0]:.4f}->{losses[-1]:.4f}, {step_s * 1e3:.1f} ms/step,"
               f" {tokens_per_s:,.0f} tok/s")
     verdict = Verdict(success=ok, messages=("SUCCESS" if ok else "FAILURE",))
@@ -305,6 +358,17 @@ def run(args) -> int:
     if args.accum > 1 and args.batch % args.accum:
         return _fail(log, f"--batch {args.batch} must divide by --accum "
                           f"{args.accum}")
+    if args.ep > 1 and not args.n_experts:
+        return _fail(log, "--ep requires --n-experts")
+    if args.n_experts and args.n_experts % max(args.ep, 1):
+        return _fail(log, f"--n-experts {args.n_experts} must divide by "
+                          f"--ep {args.ep}")
+    if args.attention == "flash" and args.sp > 1:
+        return _fail(log, "attention='flash' needs the sequence unsharded "
+                          "(--sp 1); use ring_flash for a sharded sequence")
+    if args.seq % args.sp:
+        return _fail(log, f"--seq {args.seq} must divide by --sp {args.sp}")
+    mesh = _mesh(args)
     try:
         cfg = TransformerConfig(
             vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
@@ -312,17 +376,20 @@ def run(args) -> int:
             attention=args.attention, n_kv_heads=args.n_kv_heads,
             pos_embed=args.pos_embed, loss_chunk=args.loss_chunk,
             remat=args.remat, remat_policy=args.remat_policy,
-            mlp_impl=args.mlp_impl)
+            mlp_impl=args.mlp_impl, n_experts=args.n_experts,
+            n_experts_top_k=args.n_experts_top_k,
+            moe_dispatch=args.moe_dispatch)
         optimizer = make_optimizer(args.lr, schedule=args.schedule,
                                    warmup_steps=args.warmup_steps,
                                    total_steps=args.steps)
         step_fn = make_train_step(cfg, optimizer=optimizer,
-                                  accum_steps=args.accum)
+                                  accum_steps=args.accum, mesh=mesh)
     except ValueError as e:
         return _fail(log, str(e))
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params, opt_state = init_train_state(gen, cfg, optimizer, device=dev)
+    params, opt_state = init_train_state(gen, cfg, optimizer, device=dev,
+                                         mesh=mesh)
     residency = None
     if args.offload_opt:
         from hpc_patterns_tpu_torch.memory import ResidencyManager
@@ -342,10 +409,10 @@ def run(args) -> int:
             step_fn = make_train_step(cfg, optimizer=optimizer,
                                       accum_steps=args.accum,
                                       offload_opt_example=opt_state,
-                                      residency=residency)
+                                      residency=residency, mesh=mesh)
             log.print("optimizer state offloaded to pinned_host")
     return _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
-                       residency)
+                       residency, mesh)
 
 
 def main(argv=None) -> int:

@@ -68,7 +68,7 @@ memory, not a transfer between cards, and the row says so.
         [--device cpu] [--explain]
 
 The JAX benchmark's other rows wait for their slices: ``--elastic`` for
-the autoscaled plane (ROADMAP item 4) and ``--quant`` for the quantized
+the autoscaled plane (ROADMAP item 5) and ``--quant`` for the quantized
 row, which ``chip_smoke.py`` phase ``quant`` drives meanwhile.
 """
 
@@ -1589,7 +1589,7 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
 
 #: the JAX rows that wait for a later slice, each with what it waits for
 LATER_ROWS = {
-    "elastic": "the autoscaled plane (ROADMAP item 4)",
+    "elastic": "the autoscaled plane (ROADMAP item 5)",
     "quant": "the quantized row (chip_smoke.py phase quant drives its "
              "path meanwhile)",
 }

@@ -24,6 +24,10 @@ counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
   the pools (speculative decoding's target step; plain PyTorch, as JAX's
   is XLA).
 
+Every path runs each layer's MLP through ``transformer.mlp``: the dense
+MLP for either ``mlp_impl`` (JAX decode never reads it), or for an MoE
+model the experts routed drop-free (capacity = the step's tokens).
+
 Unlike JAX's immutable arrays, the port writes caches and pools IN PLACE
 (a copy per write would double the serving capacity), so the step
 functions return logits only.
@@ -82,13 +86,6 @@ KV_QUANTIZED = ("int8", "fp8")
 FP8_MAX = 448.0
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    """Dense layers only; either ``mlp_impl`` decodes through the dense
-    :func:`mlp` (JAX decode never reads ``mlp_impl``)."""
-    if cfg.n_experts:
-        raise NotImplementedError("dense MLP models only in this slice")
-
-
 def _kv_quantized(cfg: TransformerConfig) -> bool:
     return cfg.kv_cache_dtype in KV_QUANTIZED
 
@@ -144,7 +141,6 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
     (B,) — the position whose logits come back (default the last): the
     bucketed-prompt route, where a prompt right-padded to a ladder rung
     answers for its true end."""
-    _check_supported(cfg)
     B, T = prompt.shape
     if not 0 < T <= max_len <= cfg.max_seq:
         raise ValueError(f"need 0 < prompt len {T} <= max_len {max_len} "
@@ -228,7 +224,6 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
     max_len, head_dim) in the storage dtype; a quantized
     ``cfg.kv_cache_dtype`` adds (B, kv_heads, max_len) f32
     "k_scale"/"v_scale" tuples. ``device``: default ``cuda``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
 
@@ -251,7 +246,6 @@ def decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
     place at row ``pos``, then attention runs per ``cfg.decode_attn``:
     "flash" is ``flash_decode_attention`` (the Hopper kernel on CUDA),
     anything else its plain version. Returns logits (B, vocab) f32."""
-    _check_supported(cfg)
     pos = int(pos)
     max_len = cache["k"][0].shape[2]
     if not 0 <= pos < max_len:
@@ -288,7 +282,6 @@ def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig):
     ``decode.py:510-583``)."""
     if cfg.kv_cache_dtype != "compute":
         raise ValueError("extend_step supports compute-dtype caches only")
-    _check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     B, c = tokens.shape
     pos = int(pos)
@@ -568,7 +561,6 @@ def init_paged_cache(cfg: TransformerConfig, batch: int,
     (sequence, slot)). A quantized ``cfg.kv_cache_dtype`` adds per-row
     f32 scale pools "k_scale"/"v_scale" (pool_pages, kv_heads, 1,
     page_size). ``device``: default ``cuda``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     if pool_pages is None:
         pool_pages = batch * pages_per_seq
@@ -689,7 +681,6 @@ def paged_tail_prefill(params, tail, cfg: TransformerConfig, cache,
         raise ValueError(
             f"tail needs pages {n_prefix_pages}..{n_prefix_pages + n_tail}"
             f"; table has {table.shape[1]}")
-    _check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     Hkv, Dh = cfg.kv_heads, cfg.head_dim
     pidx = table[0, :n_prefix_pages].long()
@@ -767,7 +758,6 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
     CONTRACT: every position < pages_per_seq * page_size. An int or CPU
     ``pos`` is checked here; a CUDA ``pos`` is not (checking would force
     a device sync) and the kernels clamp it to the table's last page."""
-    _check_supported(cfg)
     table = cache["table"]
     P = cache["k"][0].shape[2]
     pages = table.shape[1]
@@ -832,7 +822,6 @@ def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
     pages_per_seq * page_size. A CPU ``pos`` is checked; a CUDA one is
     not (checking would force a sync) and past capacity the page index
     clamps to the table's last page, as JAX's traced ``pos`` does."""
-    _check_supported(cfg)
     B, c = tokens.shape
     if not (torch.is_tensor(pos) and pos.ndim == 1 and pos.shape[0] == B):
         raise ValueError(

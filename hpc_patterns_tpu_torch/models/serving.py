@@ -491,7 +491,7 @@ class EngineCore:
                  mesh=None):
         if mesh is not None:
             raise ValueError("not ported yet: mesh (a later slice: "
-                             "parallelism, ROADMAP item 4)")
+                             "parallelism, ROADMAP item 5)")
         if cfg.n_experts:
             raise ValueError("continuous batching: dense models only")
         if draft_params is not None:

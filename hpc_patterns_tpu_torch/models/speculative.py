@@ -250,7 +250,7 @@ def _sampling_args(cfg: TransformerConfig, temperature: float, top_k: int,
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise ValueError("mesh=: not ported yet (ROADMAP queue 1 item 4, "
+        raise ValueError("mesh=: not ported yet (ROADMAP queue 1 item 5, "
                          "multi-process ranks and parallelism)")
 
 

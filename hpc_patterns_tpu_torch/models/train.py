@@ -34,7 +34,11 @@ gradient accumulation, the accumulation's end is observed before the
 pull's, and the update runs on the pulled moments before they are pushed
 back — the same kernels and the same numbers as resident moments.
 
-Not ported yet: meshes.
+``mesh=`` (a ``{axis: size}`` dict, ``transformer.logical_mesh``) runs
+the loss over logical ranks of one device: the ``sp`` attentions and the
+``ep`` MoE, the aux loss in the loss. The params stay whole (every rank's
+expert shard is a view of the one stack); dp/fsdp/tp sharding waits for
+the multi-process slice.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from hpc_patterns_tpu_torch.memory import kinds as kindslib
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
+    logical_mesh,
     loss_fn,
 )
 from hpc_patterns_tpu_torch.topology import resolve_device
@@ -264,7 +269,7 @@ def offload_example_shardings(example):
 
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
                     accum_steps: int = 1, offload_opt_example=None,
-                    residency=None):
+                    residency=None, *, mesh=None):
     """``step(params, opt_state, tokens) -> (loss, params, opt_state)``:
     the loss (f32, detached) of ``tokens`` at the params it was given,
     then the update applied in place (the same ``params`` and
@@ -280,8 +285,10 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
     ``residency``: a ``memory.ResidencyManager`` — the STREAMED step
     (module docstring), with measured ``mem.prefetch`` / ``mem.evict``
     windows and ``prefetch_overlap_frac``; requires
-    ``offload_opt_example``."""
+    ``offload_opt_example``. ``mesh``: the loss's logical ranks
+    (``transformer.forward_hidden``)."""
     optimizer = optimizer or make_optimizer()
+    logical_mesh(mesh, cfg)  # a mesh this slice cannot run raises here
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if residency is not None and offload_opt_example is None:
@@ -298,7 +305,7 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         for p in leaves:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss = loss_fn(params, tokens, cfg)
+        loss = loss_fn(params, tokens, cfg, mesh)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
     def accum_grads(params, tokens):
@@ -376,10 +383,13 @@ def _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
 
 
 def init_train_state(generator: torch.Generator, cfg: TransformerConfig,
-                     optimizer: AdamW | None = None, *, device=None):
+                     optimizer: AdamW | None = None, *, device=None,
+                     mesh=None):
     """(params, opt_state): f32 master params from ``generator`` on
     ``device`` (default ``cuda``), requiring grad, and the optimizer's
-    zero state beside them."""
+    zero state beside them. ``mesh`` is checked (``logical_mesh``); on
+    logical ranks of one device the params are not split."""
+    logical_mesh(mesh, cfg)
     optimizer = optimizer or make_optimizer()
     params = init_params(cfg, generator=generator, device=device)
     for p in tree_leaves(params):

@@ -9,6 +9,15 @@ kernels of ``ops/flash_attention.py``, ``mlp_impl="fused"`` through those
 of ``ops/fused_mlp.py``), with JAX's activation-checkpointing policies
 (``remat``, ``remat_policy``) on ``torch.utils.checkpoint``.
 
+Mixture-of-experts layers (``n_experts > 0``) route through
+``parallel/moe.py`` (:func:`_moe_block`). A ``mesh`` is a ``{axis: size}``
+dict whose ranks are logical ranks of one device: the ``sp`` axis runs
+the ring and Ulysses attentions over the sequence's blocks, the ``ep``
+axis the expert-parallel MoE over the batch's shards (rank-stacked
+tensors, ``models/sharding_util.to_ranks``); everything else computes
+once on the whole tensors, as every rank's replica would. Parameter and
+batch sharding (dp/fsdp/tp) need processes and raise.
+
 Params keep the JAX layout: a plain dict with the same keys, layer
 weights stacked on a leading ``n_layers`` axis, so a JAX params tree
 maps over key for key (``models/convert.py``) and both sides compute
@@ -22,6 +31,8 @@ skips the per-use cast.
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from functools import partial
 
 import torch
@@ -32,9 +43,20 @@ from torch.utils.checkpoint import (
 )
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
+from hpc_patterns_tpu_torch.models.sharding_util import (
+    from_ranks,
+    mesh_axis_size,
+    resolve_spec,
+    to_ranks,
+)
 from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
 from hpc_patterns_tpu_torch.ops.fused_mlp import fused_mlp
-from hpc_patterns_tpu_torch.parallel.ring_attention import full_attention
+from hpc_patterns_tpu_torch.parallel import moe
+from hpc_patterns_tpu_torch.parallel.ring_attention import (
+    full_attention,
+    ring_attention,
+)
+from hpc_patterns_tpu_torch.parallel.ulysses import ulysses_attention
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 ATTENTION_IMPLS = ("full", "flash", "ring", "ring_flash", "ulysses",
@@ -47,10 +69,12 @@ QUANT_SCALE_SUFFIX = "_qscale"
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX config (see its
-    docstrings for each knob); the port runs ``attention`` in
-    ("full", "flash"), dense layers with either ``mlp_impl`` (decode runs
-    the dense MLP for both, as in JAX), every ``remat_policy``, and KV
-    caches in the compute dtype, int8 or fp8."""
+    docstrings for each knob); the port runs every ``attention`` (the
+    sharded ones over a mesh's ``sp`` ranks), dense layers with either
+    ``mlp_impl`` (decode runs the dense MLP for both, as in JAX), MoE
+    layers with every ``moe_dispatch``, every ``remat_policy``, and KV
+    caches in the compute dtype, int8 or fp8. ``fsdp`` and the dp/fsdp/tp
+    axes wait for the multi-process slice."""
     vocab: int = 32768
     d_model: int = 768
     n_heads: int = 12
@@ -80,6 +104,19 @@ class TransformerConfig:
     axis_sp: str = "sp"
     axis_tp: str = "tp"
     axis_ep: str = "ep"
+
+    @property
+    def mesh_axes(self) -> frozenset:
+        """Declared axis names: the set ``resolve_spec`` may prune."""
+        return frozenset((self.axis_dp, self.axis_sp, self.axis_tp,
+                          self.axis_ep, self.axis_fsdp))
+
+    @property
+    def batch_axes(self) -> tuple:
+        """Mesh axes the batch dimension shards over (JAX's rule)."""
+        if self.fsdp and self.axis_fsdp != self.axis_dp:
+            return (self.axis_dp, self.axis_fsdp)
+        return (self.axis_dp,)
 
     @property
     def kv_heads(self) -> int:
@@ -144,10 +181,10 @@ def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
     (``transformer.py::init_params``): normal draws from ``generator``
     (on the generator's own device), then moved to ``device`` (default
     ``cuda``; raises without a GPU unless ``device="cpu"``) and stored
-    in ``dtype``. Dense models only."""
+    in ``dtype``. An MoE config draws ``router`` (L, D, E) and the expert
+    stacks ``w1`` (L, E, D, F), ``w2`` (L, E, F, D) in JAX's order and
+    scales."""
     dev = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError("MoE params belong to a later slice")
     D, Fd, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
 
     def initn(shape, scale):
@@ -164,9 +201,15 @@ def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
         "wqkv": initn((L, D, D + 2 * cfg.kv_heads * cfg.head_dim),
                       D ** -0.5),
         "wo": initn((L, D, D), (2 * D * L) ** -0.5),
-        "w1": initn((L, D, Fd), D ** -0.5),
-        "w2": initn((L, Fd, D), (2 * Fd * L) ** -0.5),
     }
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers["router"] = initn((L, D, E), D ** -0.5)
+        layers["w1"] = initn((L, E, D, Fd), D ** -0.5)
+        layers["w2"] = initn((L, E, Fd, D), (2 * Fd * L) ** -0.5)
+    else:
+        layers["w1"] = initn((L, D, Fd), D ** -0.5)
+        layers["w2"] = initn((L, Fd, D), (2 * Fd * L) ** -0.5)
     params = {"embed": initn((V, D), 0.02)}
     if cfg.pos_embed == "learned":
         params["pos_embed"] = initn((cfg.max_seq, D), 0.02)
@@ -286,32 +329,140 @@ def _mlp_fused(h, lp):
                      matmul_weight(lp, "w2", dt))
 
 
+def _resolve_dispatch(cfg: TransformerConfig, n_tokens: int,
+                      capacity: int) -> str:
+    """``cfg.moe_dispatch``, with "auto" resolved as JAX does: scatter
+    once the two live choice-major one-hots (k·N, E, C) f32 would pass
+    16 MiB, else einsum."""
+    if cfg.moe_dispatch != "auto":
+        return cfg.moe_dispatch
+    big = 2 * cfg.n_experts_top_k * n_tokens * cfg.n_experts * capacity * 4
+    return "scatter" if big > 16 << 20 else "einsum"
+
+
 def mlp(x, lp, cfg: TransformerConfig):
-    """Pre-norm dense MLP block with residual: decode's MLP for either
-    ``mlp_impl`` (the same function; JAX decode does the same)."""
-    return x + _mlp_dense(_rmsnorm(x, lp["ln2_scale"]), lp)
+    """Pre-norm MLP block with residual: decode's MLP for either
+    ``mlp_impl`` (the same function; JAX decode does the same). An MoE
+    layer routes drop-free, capacity = the token count (a token's k
+    choices are distinct experts, so no expert gets more): serving never
+    drops a token, and incremental decode equals a drop-free forward.
+    JAX's decode always takes the einsum dispatch; the port resolves
+    ``cfg.moe_dispatch`` (scatter past 16 MiB of one-hots: a chip
+    prefill's 8 x 1024 tokens would need 4 GiB each), with the same
+    assignments."""
+    h = _rmsnorm(x, lp["ln2_scale"])
+    if not cfg.n_experts:
+        return x + _mlp_dense(h, lp)
+    *lead, D = h.shape
+    flat = h.reshape(-1, D)
+    n = flat.shape[0]
+    y, _ = moe.moe_dense(flat, lp["router"], lp["w1"], lp["w2"],
+                         capacity=n, top_k=cfg.n_experts_top_k,
+                         dispatch=_resolve_dispatch(cfg, n, n))
+    return x + y.reshape(*lead, D).to(x.dtype)
 
 
-def attention(q, k, v, cfg: TransformerConfig):
-    """Causal self-attention per ``cfg.attention``: "flash" runs
-    ``ops.flash_attention`` (the Hopper kernels on CUDA, forward and
-    backward), "full" the dense grouped-query path. Sharded impls belong
-    to a later slice."""
+def logical_mesh(mesh, cfg: TransformerConfig) -> dict | None:
+    """The mesh's axes of size > 1, checked. Every axis must be one of the
+    config's; ``sp`` and ``ep`` run as logical ranks of one device, and a
+    dp/fsdp/tp axis of size > 1 raises: parameter and batch sharding wait
+    for the multi-process slice (``torch.distributed``). A size-1 axis
+    changes nothing and is dropped (an ``ep`` of 1 is ``moe_dense``'s
+    result; ``{}`` still routes the ring/Ulysses impls over one rank)."""
+    if mesh is None:
+        return None
+    ranked = (cfg.axis_sp, cfg.axis_ep)
+    for a, n in mesh.items():
+        if a not in cfg.mesh_axes:
+            raise ValueError(f"mesh axis {a!r} is not a declared model axis "
+                             f"{sorted(cfg.mesh_axes)}")
+        if int(n) < 1:
+            raise ValueError(f"mesh axis {a!r} has size {n}")
+        if int(n) > 1 and a not in ranked:
+            raise NotImplementedError(
+                f"mesh axis {a}={n} is not ported yet: dp/fsdp/tp sharding "
+                "arrives with the multi-process slice (torch.distributed); "
+                f"this one runs {ranked} as logical ranks of one device")
+    return {a: int(n) for a, n in mesh.items() if int(n) > 1}
+
+
+def attention(q, k, v, cfg: TransformerConfig, mesh=None):
+    """Causal self-attention per ``cfg.attention`` (JAX ``_attention``):
+    "flash" runs ``ops.flash_attention`` (the Hopper kernels on CUDA,
+    forward and backward) and needs the sequence unsharded; "full", or
+    any impl without a mesh, the dense grouped-query path; "ring[_flash]"
+    and "ulysses[_flash]" run over the ``sp`` ranks of ``mesh`` (a
+    :func:`logical_mesh`) on the rank-stacked sequence blocks."""
     if cfg.attention == "flash":
+        if mesh is not None and mesh_axis_size(mesh, cfg.axis_sp) > 1:
+            raise ValueError(
+                "attention='flash' needs the sequence unsharded (sp=1); "
+                "use 'ring_flash' to run the kernel per ring step over a "
+                "sharded sequence")
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
-    if cfg.attention == "full":
+    if cfg.attention == "full" or mesh is None:
         return full_attention(q, k, v, causal=True)
-    raise NotImplementedError(
-        f"attention {cfg.attention!r} needs a mesh; not ported yet")
+    sp = cfg.axis_sp
+    spec = resolve_spec((cfg.batch_axes, sp, cfg.axis_tp, None), mesh,
+                        cfg.mesh_axes)
+    base, _, variant = cfg.attention.partition("_")
+    impl_fn = ulysses_attention if base == "ulysses" else ring_attention
+    out = impl_fn(*(to_ranks(t, spec, mesh, (sp,)) for t in (q, k, v)),
+                  causal=True, impl=variant or "dense")
+    return from_ranks(out, spec, mesh, (sp,))
 
 
-def _check_trainable(cfg: TransformerConfig) -> None:
-    """The options of the JAX trunk this port does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE layers (n_experts > 0) are not ported yet: they arrive with "
-            "the parallelism slice (ep axis, models/pp.py)")
+def _moe_block(h, lp, cfg: TransformerConfig, mesh, with_stats=False):
+    """Top-k routed experts (JAX ``_moe_block``). Returns (out, aux), plus
+    the kept fraction with ``with_stats``. Without a mesh, all tokens and
+    experts at once. On a mesh (a :func:`logical_mesh`) the tokens shard
+    over the ``sp`` ranks by sequence and over the ``ep`` ranks by batch
+    when the batch divides them (else routing runs replicated across ep,
+    with JAX's warning); the capacity is per local shard, as in JAX,
+    since drops depend on it; each sp rank's ep group runs
+    ``moe.moe_ep`` (``moe_dense`` without an ep axis), and aux and kept
+    are averaged over every rank."""
+    B, T, D = h.shape
+    k, E = cfg.n_experts_top_k, cfg.n_experts
+    if mesh is None:
+        cap = moe.default_capacity(B * T * k, E, cfg.capacity_factor)
+        y, *rest = moe.moe_dense(
+            h.reshape(B * T, D), lp["router"], lp["w1"], lp["w2"],
+            capacity=cap, top_k=k, with_stats=with_stats,
+            dispatch=_resolve_dispatch(cfg, B * T, cap))
+        return (y.reshape(B, T, D), *rest)
+
+    sp, ep = cfg.axis_sp, cfg.axis_ep
+    bx = cfg.batch_axes
+    n_ep = mesh_axis_size(mesh, ep)
+    b_size = math.prod(mesh_axis_size(mesh, ax) for ax in bx)
+    batch_over_ep = B % (b_size * n_ep) == 0
+    if not batch_over_ep and n_ep > 1:
+        warnings.warn(
+            f"moe: batch {B} does not divide batch_shards*ep "
+            f"({b_size}*{n_ep}); routing runs replicated across ep (experts "
+            "still partitioned) — pad the batch to recover partitioned "
+            "routing", stacklevel=2)
+    b_shards = b_size * (n_ep if batch_over_ep else 1)
+    n_local = (B // b_shards) * (T // mesh_axis_size(mesh, sp))
+    cap = moe.default_capacity(n_local * k, E, cfg.capacity_factor)
+    disp = _resolve_dispatch(cfg, n_local, cap)
+    tok_spec = resolve_spec(((*bx, ep) if batch_over_ep else bx, sp, None),
+                            mesh, cfg.mesh_axes)
+    x = to_ranks(h, tok_spec, mesh, (sp, ep))  # (n_sp, n_ep, b, t, D)
+    n_sp, _, b, t, _ = x.shape
+    x = x.reshape(n_sp, n_ep, b * t, D)
+    w1 = lp["w1"].reshape(n_ep, E // n_ep, *lp["w1"].shape[1:])
+    w2 = lp["w2"].reshape(n_ep, E // n_ep, *lp["w2"].shape[1:])
+    outs = [moe.moe_ep(x[s], lp["router"], w1, w2, capacity=cap, top_k=k,
+                       with_stats=with_stats, dispatch=disp)
+            for s in range(n_sp)]
+    y = torch.stack([o[0] for o in outs]).reshape(n_sp, n_ep, b, t, D)
+    # moe_ep averaged over ep; fold the sp ranks for the global scalars
+    scalars = [torch.stack([o[i] for o in outs]).mean()
+               for i in range(1, len(outs[0]))]
+    return (from_ranks(y, tok_spec, mesh, (sp, ep)), *scalars)
 
 
 def _embed_tokens(params, tokens, cfg: TransformerConfig, dt):
@@ -384,49 +535,64 @@ def _post_attn(x, o, lp):
     return x, _rmsnorm(x, lp["ln2_scale"])
 
 
-def _post_block(x, o, lp, cfg: TransformerConfig):
-    """Post-attention: output projection, residual, norm, the MLP per
-    ``cfg.mlp_impl`` and its residual."""
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _post_block(x, o, lp, cfg: TransformerConfig, mesh=None,
+                with_stats: bool = False):
+    """Post-attention: output projection, residual, norm, the MLP (per
+    ``cfg.mlp_impl``) or the MoE block, and its residual. Returns (x,
+    moe aux), plus the MoE kept fraction with ``with_stats`` (1 for a
+    dense layer)."""
     x, h = _post_attn(x, o, lp)
-    if cfg.mlp_impl == "fused":
-        return x + _mlp_fused(h, lp)
-    return x + _mlp_dense(h, lp)
+    if cfg.n_experts:
+        h, aux, *st = _moe_block(h, lp, cfg, mesh, with_stats=with_stats)
+        return (x + h.to(x.dtype), aux, *st)
+    h = _mlp_fused(h, lp) if cfg.mlp_impl == "fused" else _mlp_dense(h, lp)
+    st = [torch.ones((), dtype=torch.float32, device=x.device)] \
+        if with_stats else []
+    return (x + h, _zero(x), *st)
 
 
-def _layer(x, lp, cfg: TransformerConfig, split_remat: bool = False,
-           tag_attn: bool = False):
-    """One pre-norm block: attention, then the MLP block.
+def _layer(x, lp, cfg: TransformerConfig, mesh=None,
+           split_remat: bool = False, tag_attn: bool = False):
+    """One pre-norm block: attention, then the MLP or MoE block. Returns
+    (x, moe aux).
 
     ``split_remat``: checkpoint the qkv block and the post block apart
     (the "dots" policy in each), with attention outside every region,
     so the flash kernel's residuals persist and its forward runs once;
-    with ``mlp_impl="fused"`` only o-proj/residual/norm are checkpointed
-    and the MLP kernel runs on the saved norm output, outside too.
-    ``tag_attn``: name the attention output for the "attn" policies."""
+    with ``mlp_impl="fused"`` (dense layers) only o-proj/residual/norm
+    are checkpointed and the MLP kernel runs on the saved norm output,
+    outside too. ``tag_attn``: name the attention output for the "attn"
+    policies."""
     pre, post = _qkv_block, _post_block
     if split_remat:
         pre, post = _remat(pre, "dots"), _remat(post, "dots")
     q, k, v = pre(x, lp, cfg)
-    o = attention(q, k, v, cfg)
+    o = attention(q, k, v, cfg, mesh)
     if tag_attn:
         o = attn_out(o)
-    if split_remat and cfg.mlp_impl == "fused":
+    if split_remat and cfg.mlp_impl == "fused" and not cfg.n_experts:
         x1, hn = _remat(_post_attn, "dots")(x, o, lp)
-        return x1 + _mlp_fused(hn, lp)
-    return post(x, o, lp, cfg)
+        return x1 + _mlp_fused(hn, lp), _zero(x)
+    return post(x, o, lp, cfg, mesh)
 
 
-def forward_hidden(params, tokens, cfg: TransformerConfig):
+def forward_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
     """The trunk of :func:`forward` without the LM head: final-norm
     hidden states (B, T, d_model) in the compute dtype, plus the summed
-    MoE aux loss (a zero for dense models). With ``cfg.remat`` (and
-    gradients enabled) each layer runs under its ``remat_policy``: a
-    checkpoint of the whole layer keeping :data:`REMAT_SAVES`, or the
-    per-block split of :func:`_layer`."""
-    _check_trainable(cfg)
+    MoE aux loss (a zero for dense models). ``mesh``: a ``{axis: size}``
+    dict of logical ranks (:func:`logical_mesh`) for the sharded
+    attentions and the expert-parallel MoE; None = one rank. With
+    ``cfg.remat`` (and gradients enabled) each layer runs under its
+    ``remat_policy``: a checkpoint of the whole layer keeping
+    :data:`REMAT_SAVES`, or the per-block split of :func:`_layer`."""
+    mesh = logical_mesh(mesh, cfg)
     dt = torch_dtype(cfg.dtype)
     x = _embed_tokens(params, tokens, cfg, dt)
-    layer = partial(_layer, cfg=cfg)
+    layer = partial(_layer, cfg=cfg, mesh=mesh)
     if cfg.remat and torch.is_grad_enabled():
         if cfg.remat_policy == "split":
             layer = partial(layer, split_remat=True)
@@ -436,19 +602,38 @@ def forward_hidden(params, tokens, cfg: TransformerConfig):
     # one unbind per stacked weight: its backward stacks the per-layer
     # grads once (indexing each layer would build L full-size zeros)
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    auxes = []
     for l in range(cfg.n_layers):
-        x = layer(x, {k: v[l] for k, v in layers.items()})
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _rmsnorm(x, params["ln_f_scale"]), aux
+        x, aux = layer(x, {k: v[l] for k, v in layers.items()})
+        auxes.append(aux)
+    return _rmsnorm(x, params["ln_f_scale"]), torch.stack(auxes).sum()
 
 
-def forward(params, tokens, cfg: TransformerConfig, *,
+def forward(params, tokens, cfg: TransformerConfig, mesh=None, *,
             return_aux: bool = False):
     """Next-token logits (B, T, vocab) f32 for ``tokens`` (B, T); with
     ``return_aux`` also the MoE aux loss (zero for dense models)."""
-    x, aux = forward_hidden(params, tokens, cfg)
+    x, aux = forward_hidden(params, tokens, cfg, mesh)
     logits = (x @ matmul_weight(params, "lm_head", x.dtype)).float()
     return (logits, aux) if return_aux else logits
+
+
+@torch.no_grad()
+def moe_drop_rates(params, tokens, cfg: TransformerConfig, mesh=None):
+    """Per-layer MoE routing drop rate on this batch: (n_layers,) f32, the
+    fraction of routed (token, choice) assignments that found no capacity
+    slot — the training forward's routing, without gradients."""
+    if not cfg.n_experts:
+        raise ValueError("moe_drop_rates needs an MoE config")
+    mesh = logical_mesh(mesh, cfg)
+    x = _embed_tokens(params, tokens, cfg, torch_dtype(cfg.dtype))
+    kepts = []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        o = attention(*_qkv_block(x, lp, cfg), cfg, mesh)
+        x, _aux, kept = _post_block(x, o, lp, cfg, mesh, with_stats=True)
+        kepts.append(kept)
+    return 1.0 - torch.stack(kepts)
 
 
 def _last_position_mask(tokens, dtype):
@@ -508,13 +693,19 @@ def chunked_masked_causal_nll(x, lm_head, tokens, *, chunk: int):
     return (nll * mask).sum() / mask.sum()
 
 
-def loss_fn(params, tokens, cfg: TransformerConfig):
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
     """Causal LM loss: predict token t+1 from the prefix up to t (mean
-    NLL), the final position masked out. ``cfg.loss_chunk`` picks the
-    chunked loss (no logits)."""
+    NLL), the final position masked out, plus ``moe_aux_weight`` x the
+    summed aux loss for an MoE config. ``cfg.loss_chunk`` picks the
+    chunked loss (no logits); ``mesh`` as :func:`forward_hidden`."""
     if cfg.loss_chunk:
-        x, _ = forward_hidden(params, tokens, cfg)
-        return chunked_masked_causal_nll(
+        x, aux = forward_hidden(params, tokens, cfg, mesh)
+        loss = chunked_masked_causal_nll(
             x, matmul_weight(params, "lm_head", x.dtype), tokens,
             chunk=cfg.loss_chunk)
-    return masked_causal_nll(forward(params, tokens, cfg), tokens)
+    else:
+        logits, aux = forward(params, tokens, cfg, mesh, return_aux=True)
+        loss = masked_causal_nll(logits, tokens)
+    if cfg.n_experts:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss

@@ -12,7 +12,7 @@ same decision log. ``harness/autofit.py`` replays recorded trajectories
 through it offline to fit the bands (``fit_autoscaler``), and
 :meth:`AutoscalerPolicy.from_fitted` applies them.
 
-Not here yet: the JAX module's actuation halves (ROADMAP item 4, with
+Not here yet: the JAX module's actuation halves (ROADMAP item 5, with
 the launched plane). ``WarmParamPool`` parks replica weights in the host
 tier through the residency manager (``memory/residency.py``), and
 ``ElasticServingPlane`` scales a live plane up and down over the router. :func:`spinup_track` names

@@ -41,7 +41,15 @@ uint8) at every pool dtype, ragged chunkings and rows that are not a
 multiple of 16 bytes; a launch one sender short never lands, and
 ``synchronize()`` raises. The residency manager's host tier on the card
 is pinned and round-trips bytes exactly; ``allreduce_app -H``'s
-host-resident route equals device memory bit for bit.
+host-resident route equals device memory bit for bit. The parallel layer
+over 4 logical ranks: ring attention's flash route (kernel 1 at offsets a
+rank and step, merged by lse) and Ulysses' flash route (kernel 1 on the
+head slices) against their plain routes on the same bf16 tensors within
+2e-2 (prefill's bound), the fused shift (kernel 10) equal bit for bit to
+the library roll, the flash ring's gradients against the dense ring's
+within 2e-2 x max|dense|; ``moe_dense`` on the card against its CPU
+plain version on the same f32 values within 1e-4 (f32 products and sums
+in another order; the same slots, so the same tokens drop).
 """
 
 import ctypes
@@ -1206,3 +1214,85 @@ def test_allreduce_host_kind_equals_device_kind_bitwise(gen):
         got = allreduce_app.host_resident(step, comm.device)(xh)
         comm.synchronize()
         assert got.is_pinned() and torch.equal(got, want)
+
+
+# ------------------------------------------------------- the parallel layer
+
+RING_SHAPE = dict(P=4, B=2, T=256, H=8, D=128)
+
+
+def _ring_qkv(gen, Hkv):
+    P, B, T, H, D = RING_SHAPE.values()
+    q = torch.randn(P, B, T, H, D, generator=gen, device="cuda")
+    k = torch.randn(P, B, T, Hkv, D, generator=gen, device="cuda")
+    v = torch.randn(P, B, T, Hkv, D, generator=gen, device="cuda")
+    return [t.bfloat16() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("Hkv", [8, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_and_fused_shift_match_plain_route(gen, Hkv, causal):
+    from hpc_patterns_tpu_torch.parallel.ring_attention import ring_attention
+
+    q, k, v = _ring_qkv(gen, Hkv)
+    P = RING_SHAPE["P"]
+    dense = ring_attention(q, k, v, causal=causal)
+    fa.launches["fwd_lse"] = 0
+    fused.launches["fused_permute"] = 0
+    flash = ring_attention(q, k, v, causal=causal, impl="flash",
+                              shift_impl="fused")
+    torch.cuda.synchronize()
+    assert fa.launches["fwd_lse"] == (P * (P + 1) // 2 if causal else P * P)
+    assert fused.launches["fused_permute"] == 2 * (P - 1)
+    assert (flash.float() - dense.float()).abs().max().item() <= 2e-2
+    again = ring_attention(q, k, v, causal=causal, impl="flash")
+    assert torch.equal(flash, again)  # the two shifts move the same bytes
+    for t in (k, v):
+        assert torch.equal(fused.fused_ring_shift(t, 1), torch.roll(t, 1, 0))
+
+
+def test_ring_flash_grads_match_dense_ring(gen):
+    from hpc_patterns_tpu_torch.parallel.ring_attention import ring_attention
+
+    base = _ring_qkv(gen, 2)
+    g = torch.randn(base[0].shape, generator=gen, device="cuda").bfloat16()
+    grads = []
+    for impl in ("flash", "dense"):
+        ts = [t.clone().requires_grad_(True) for t in base]
+        out = ring_attention(*ts, causal=True, impl=impl)
+        grads.append(torch.autograd.grad(out, ts, g))
+    for a, b in zip(*grads):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * b.float().abs().max().item()
+
+
+def test_ulysses_flash_matches_plain_route(gen):
+    from hpc_patterns_tpu_torch.parallel.ulysses import ulysses_attention
+
+    q, k, v = _ring_qkv(gen, 4)
+    fa.launches["fwd"] = 0
+    flash = ulysses_attention(q, k, v, causal=True, impl="flash")
+    torch.cuda.synchronize()
+    assert fa.launches["fwd"] == 1  # the ranks' head slices in one launch
+    dense = ulysses_attention(q, k, v, causal=True)
+    assert (flash.float() - dense.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_dense_scatter_on_the_card_matches_cpu(gen, top_k):
+    from hpc_patterns_tpu_torch.parallel import moe
+
+    N, D, F, E = 4096, 256, 512, 8
+    x = torch.randn(N, D, generator=gen, device="cuda")
+    router = torch.randn(D, E, generator=gen, device="cuda") / D ** 0.5
+    w1 = torch.randn(E, D, F, generator=gen, device="cuda") / D ** 0.5
+    w2 = torch.randn(E, F, D, generator=gen, device="cuda") / F ** 0.5
+    cap = moe.default_capacity(N * top_k, E)
+    got = moe.moe_dense(x, router, w1, w2, capacity=cap, top_k=top_k,
+                        with_stats=True, dispatch="scatter")
+    want = moe.moe_dense(*(t.cpu() for t in (x, router, w1, w2)),
+                         capacity=cap, top_k=top_k, with_stats=True,
+                         dispatch="scatter")
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-4
+    assert got[2].item() == want[2].item()
+    assert abs(got[1].item() - want[1].item()) <= 1e-5

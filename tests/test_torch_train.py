@@ -96,14 +96,14 @@ def test_chunked_loss_equals_dense_and_checks_the_chunk():
         ttf.chunked_masked_causal_nll(x, head, tokens, chunk=48)
 
 
-@pytest.mark.parametrize("kw", [{"n_experts": 2}])
+@pytest.mark.parametrize("kw", [{"mesh": {"dp": 2}}, {"mesh": {"tp": 2}},
+                                {"mesh": {"fsdp": 2}}])
 def test_unported_trunk_options_raise(kw):
     _, tcfg = _pair()
     jcfg, _ = _pair()
     _, tp = _params(jcfg)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttf.loss_fn(tp, torch.from_numpy(_tokens(3)),
-                    dataclasses.replace(tcfg, **kw))
+        ttf.loss_fn(tp, torch.from_numpy(_tokens(3)), tcfg, **kw)
 
 
 def _advance(opt, state, params, n, seed):
@@ -358,8 +358,8 @@ def test_train_app_data_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"],
-                                  ["--n-experts", "2"],
-                                  ["--dcn-dp"], ["--attention", "ring"]])
+                                  ["--dp", "2"],
+                                  ["--dcn-dp"], ["--fsdp", "2"]])
 def test_train_app_unported_flags_fail(flag, capsys):
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
     out = capsys.readouterr().out
