@@ -59,7 +59,8 @@ Phases, each printing JSON lines:
              counts read around the run, every sequence held against the
              standalone ``paged_generate`` with a tie-aware oracle, and
              two sequences against the all-plain route;
-3a. sample  — sampled serving at the serve phase's model and stream:
+3a. sample  — sampled serving at the serve phase's model and the first
+              8 requests of its stream:
               ``serve_app --temperature 0.8 --top-k 50`` in-process
               (SUCCESS: each sequence on its standalone ``paged_generate``
               with the request's key, tie-aware on the perturbed scores),
@@ -71,7 +72,7 @@ Phases, each printing JSON lines:
               staged chaos schedule (page 16, 3 slots, pool 25, two seeded
               stalls, arrivals on the engine's progress clock) whose pool
               forces a preemption (>= 1 asserted), (b) the bursty stream
-              (page 256, 8 slots, the first 16 of its 32 requests at 16
+              (page 256, 8 slots, the first 8 of its 32 requests at 16
               rps, pool 2.5 rows, high-water 0.95, a stall every 12
               rounds): every served
               sequence, resumed ones included, on its standalone; the
@@ -117,14 +118,14 @@ Phases, each printing JSON lines:
               12 and 14; the table does not count them;
 3e. tiered  — tiered memory (``memory/``): (a) ``bench_serving.
               run_offload`` at ``offload_full_config`` (the serve model,
-              the first 12 of its 24 requests, 8 slots, chunk 16, page 256, prompts to 256,
+              the first 4 of its 24 requests, 8 slots, chunk 16, page 256, prompts to 256,
               budgets to 512; the pool 9 of the 24-page working set, host
               48, cold-after-3) under the flight recorder: tiered ==
               all-HBM == standalone (tie-aware), paging forced, every
               host-tier tensor pinned, kernel 1 and 6 launches of every
               engine run against its calls, the ``mem.prefetch`` /
               ``mem.evict`` windows' device time and rate; (b)
-              ``run_shared`` at ``shared_full_config`` (24 of its 48
+              ``run_shared`` at ``shared_full_config`` (8 of its 48
               requests, 3 templates of 512, tails 16/32/64, budgets 64/128, gather):
               both engines on the standalone, skip > 0.3, hits > 0; one
               more sharing leg of the stream's first 8 requests on
@@ -149,8 +150,8 @@ Phases, each printing JSON lines:
               rope; 8 target and 2 draft layers; 200 / 200 steps), which
               must beat a random draft's greedy agreement and E[min(p,
               q)] by > 0.05 each; (b) ``serve_app --draft-pair --gamma
-              4`` at the serve phase's geometry and its stream's first 8
-              requests (SUCCESS), then the engine on 8 prompts of the
+              4`` at the serve phase's geometry and its stream's first 4
+              requests (SUCCESS), then the engine on 4 prompts of the
               pair's own Markov process:
               greedy (each row on the target's standalone), sampled at T
               0.8, top-k 50 (each row on ``speculative_generate_batched``
@@ -160,8 +161,8 @@ Phases, each printing JSON lines:
               tokens/s, tokens a row a round and the acceptance a /
               gamma; (c) 4 requests on int8 pools against the target's
               own int8 standalone; (d) ``bench_speculative --pair --n
-              16`` at gamma 2, 4, 8, greedy and sampled, and
-              ``--batched 8`` at 16 tokens a call.
+              8`` at gamma 2, 4, 8, greedy and sampled, and
+              ``--batched 8`` at 8 tokens a call.
               Every engine run's kernel 1 launches == (8 + 2) x its flash
               admissions, kernel 6's (6q's on int8) == 2 x (gamma + 1) x
               its rounds;
@@ -192,6 +193,29 @@ Phases, each printing JSON lines:
               through ``fused_permute``); ``interop_app`` (every leg);
               the port bench's collective keys. Each kernel's launches
               equal the calls of its entry point the phase counted;
+6a. stencil — ``stencil_app`` in this process on the card at world 8,
+              ``-p 22`` and ``-p 26`` (16 and 256 MiB of f32), 64 steps:
+              SUCCESS with both oracles (conservation, the dense replay,
+              and whether the two are equal bit for bit), the per-step
+              time and the domain's effective GB/s beside the bound (the
+              domain read once and written once a step over the card's
+              memory rate; the eager step makes about 12 passes);
+6b. launch  — real child processes on the one card through
+              ``apps/launch.py`` (2 processes x 2 logical ranks, a gloo
+              group; their collectives cross through pinned host memory):
+              (a) ``allreduce_app --sweep`` over ring, ring_chunked and
+              collective at p 16..22 (Passed 0..3, fused named as not
+              run), then every algorithm on seeded rows, each rank's
+              result digest equal to one process of 4 ranks on the card,
+              and ``stencil_app`` across the two processes equal to its
+              dense replay bit for bit (the one-process run here against
+              the same replay); the launched busbw printed as gloo over
+              host memory, not a card figure; (b) a traced
+              ``--chaos straggler:rank=1,delay_ms=40`` ping-pong merged
+              by the launcher: the rollup names rank 1, the schedule is
+              consistent, the clocks aligned on the barrier's anchors; (c)
+              ``--chaos die:rank=1,at=3``: the rank report names
+              ``killed (SIGKILL)``;
 7. quant    — the quantized-KV counterpart of the serving benchmark's
               ``run_quantized``: the precision law on the chip model
               (bf16 KV against int8 KV, then fp8 KV; 4 prompts of 512, 8
@@ -203,10 +227,16 @@ Phases, each printing JSON lines:
               ``paged_generate`` under the same config (tie-aware), no
               page leaked; the pool bytes against a bf16 pool of equal
               geometry; each decode kernel's launches equal to n_layers x
-              the decode steps that ran it;
+              the decode steps that ran it; then the ``bench_serving
+              --quant`` row (``run_quantized`` at ``quantized_full_config``,
+              its first 4 of 24 requests, budgets cut to 128): the law,
+              both engines on their
+              standalone, the pool-bytes fraction, goodput and the
+              gather vs ``paged_flash`` race, kernels 5, 6/6q and 7
+              launched;
 8. plane    — the serving plane at the serve phase's model (page 256, 8
               slots, chunk 16, the plane benchmark's stream cut from 32
-              requests to 16, Poisson at 32 rps, seed 11, prompts 32/64/128, budgets
+              requests to 8, Poisson at 32 rps, seed 11, prompts 32/64/128, budgets
               32/128/256 at 0.5/0.3/0.2, two classes): the port's
               ``bench_serving.run_plane`` over dma (single engine,
               2-replica, 1 prefill + 1 decode replica on logical ranks 0
@@ -317,7 +347,9 @@ Phases, each printing JSON lines:
               replicated with its warning) the loss, on the 8 the NLL,
               within ``PAR_EP_RTOL``; (e) one profiled step each of the
               MoE cell and of ring_flash at sp 4 (busy share, top
-              kernels);
+              kernels); (f) the scatter MoE at top-3 (``PAR_TOP3``: the
+              MoE cell's widths at 2 layers, 8 experts), loss and
+              gradients twice: equal bits;
 13. the ``done`` line with each phase's wall seconds, the ``{"kernels":
    [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -394,8 +426,17 @@ SWEEP_REPS = 3
 # quant phase serves 4 of them per route
 N_REQUESTS = 16
 N_QUANT_REQUESTS = 4
+# the bench_serving --quant row (quantized_full_config: 24 requests on
+# the card, budgets up to 256) at its first 4, budgets up to 128
+QUANT_ROW_REQUESTS, QUANT_ROW_BUDGET = 4, 128
+# phase sample's serve_app leg: the stream's first 8 (16 until a whole
+# run took 752 s on a slow host with phases stencil and launch)
+SAMPLE_REQUESTS = 8
 SERVE_CUTS = {"requests": "32 -> 16",
-              "quant_requests": f"16 -> {N_QUANT_REQUESTS}"}
+              "sample_requests": f"32 -> {SAMPLE_REQUESTS}",
+              "quant_requests": f"16 -> {N_QUANT_REQUESTS}",
+              "quant_row_requests": f"24 -> {QUANT_ROW_REQUESTS}",
+              "quant_row_budget": f"256 -> {QUANT_ROW_BUDGET}"}
 # the quant phase's precision law: prompts x length, teacher-forced steps
 LAW_PROMPTS, LAW_PROMPT_LEN, LAW_STEPS = 4, 512, 8
 # the training benchmark's chip model (benchmarks/bench_train.py:39-55:
@@ -505,10 +546,29 @@ PAR_MOE_ARGV = ["--steps", "8", *TRAIN_BASE, *PAR_MOE, "--drop-rate-every",
                 "2", "--generate", "16"]
 # the sp runs: 5 steps, the first whose last loss can sit below the first
 # (the fourth spikes at lr 3e-4 from init, as in phase train's remat runs)
+# the scatter dispatch at top-3, twice for equal bits: the MoE cell's
+# widths at 2 layers
+PAR_TOP3 = {"n_layers": 2, "n_experts": 8, "n_experts_top_k": 3}
 PAR_CUTS = {"sp_steps": f"8 -> {PAR_SP_STEPS} (the sp runs)",
             "ring_alone": "one layer's q/k/v at B 8 -> 2 (random, seeded)",
             "ep_check": "no grad, 8 layers; the loss check on the first 2 "
                         "of 8 rows (JAX's test's layout)"}
+
+
+# phase stencil: stencil_app at world 8 on the card, 16 and 256 MiB of f32
+STENCIL_P = (22, 26)
+STENCIL_ARGV = ["--world", "8", "--steps", "64", "--repetitions", "5",
+                "--warmup", "1", "--device", "cuda"]
+# phase launch: 2 processes x 2 logical ranks on the card through the
+# launcher (gloo over pinned host memory between them)
+LAUNCH_NP, LAUNCH_LOCAL = 2, 2
+LAUNCH_P = (16, 22)
+LAUNCH_ALGORITHMS = ("ring", "ring_chunked", "collective")
+LAUNCH_STENCIL = ["-p", "22", "--steps", "64", "--repetitions", "3",
+                  "--warmup", "1", "--device", "cuda"]
+LAUNCH_CHAOS = {"straggler": "straggler:rank=1,delay_ms=40",
+                "die": "die:rank=1,at=3"}
+LAUNCH_TIMEOUT_S = 240
 
 
 def emit(obj) -> None:
@@ -1197,10 +1257,38 @@ def phase_quant():
     emit({"phase": "quant", "kv_pool_bytes": q_bytes,
           "bf16_pool_bytes": bf16_bytes, "kv_pool_bytes_frac": frac,
           "closed_form": want_frac, "launches": launches,
-          "law_decode_steps": steps["n"],
-          "seconds": time.perf_counter() - t_phase})
+          "law_decode_steps": steps["n"]})
     check(abs(frac - want_frac) < 1e-9 and 0.5 < frac < 0.55,
           f"kv_pool_bytes_frac {frac} == (D + 4) / 2D = {want_frac}")
+
+    # 4. the bench_serving --quant row (run_quantized at
+    # quantized_full_config on the card, its first QUANT_ROW_REQUESTS
+    # requests): the law, each engine on its standalone, the route race
+    from hpc_patterns_tpu_torch import bench_serving as bs
+
+    conf = dict(bs.quantized_full_config(dev), n=QUANT_ROW_REQUESTS,
+                max_budget=QUANT_ROW_BUDGET)
+    fd.launches["paged_decode"] = fd.launches["flash_decode"] = 0
+    pa.launches = 0
+    t0 = time.perf_counter()
+    row = bs.run_quantized(**conf)
+    torch.cuda.synchronize()
+    row_launches = {"flash_decode": fd.launches["flash_decode"],
+                    "paged_decode": fd.launches["paged_decode"],
+                    "paged_attention": pa.launches}
+    emit({"phase": "quant", "row": "bench_serving --quant",
+          "requests": QUANT_ROW_REQUESTS, "page_size": conf["page_size"],
+          "prompt_len": conf["prompt_len"],
+          "max_budget": conf["max_budget"], **row,
+          "launches": row_launches, "seconds": time.perf_counter() - t0,
+          "seconds_phase": time.perf_counter() - t_phase})
+    check(row["kv_pool_bytes_frac"] <= 0.55
+          and 0.0 < row["quant_goodput_tok_s"]
+          and "tokens_per_s_paged_flash" in row
+          and all(n > 0 for n in row_launches.values()),
+          f"the --quant row: pool bytes, goodput, the route race, kernels "
+          f"5, 6/6q and 7 launched ({row_launches})")
+    launches["row"] = row_launches
     return launches
 
 
@@ -2456,7 +2544,7 @@ def phase_sample(ctx):
             "--d-model", str(CHIP_MODEL["d_model"]),
             "--n-layers", str(CHIP_MODEL["n_layers"]),
             "--n-heads", str(CHIP_MODEL["n_heads"]),
-            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--requests", str(SAMPLE_REQUESTS), "--slots", str(s["slots"]),
             "--chunk", str(s["chunk"]), "--page-size", str(s["page_size"]),
             "--prompt-len", str(s["prompt_len"]),
             "--budget", str(s["max_budget"]),
@@ -2483,7 +2571,7 @@ def phase_sample(ctx):
     greedy = ctx["out"]
     differs = sum(not np.array_equal(measured["out"][sid], greedy[i])
                   for i, sid in enumerate(sorted(measured["out"])))
-    check(differs > 0, f"sampling moved {differs} of {N_REQUESTS} sequences "
+    check(differs > 0, f"sampling moved {differs} of {SAMPLE_REQUESTS} sequences "
                        "off the greedy ones")
 
     # one batch of 8 rows against each row alone (tie-aware on the
@@ -2521,9 +2609,10 @@ def phase_sample(ctx):
     return launches
 
 
-# phase scenario's bursty part serves the first 16 of
-# scenario_full_config's 32 requests (cut for the run's time)
-SCENARIO_BURSTY_REQUESTS = 16
+# phase scenario's bursty part serves the first 8 of
+# scenario_full_config's 32 requests (cut for the run's time: 16 until
+# phases stencil and launch joined and a run took 832 s)
+SCENARIO_BURSTY_REQUESTS = 8
 
 
 def phase_scenario():
@@ -2966,9 +3055,11 @@ def phase_fit(scenario_ctx):
 # seen, so (a) and (b) serve the first TIERED_OFFLOAD_REQUESTS and
 # TIERED_SHARED_REQUESTS of their configs' streams (every leg serves its
 # stream six or four times and runs each request's standalone; the pool
-# of 9 of 24 pages and the templates are the configs' own)
-TIERED_OFFLOAD_REQUESTS = 12
-TIERED_SHARED_REQUESTS = 24
+# of 9 of 24 pages and the templates are the configs' own; 12 and 24
+# until phases stencil and launch joined and whole runs took 832 s, then
+# 6 and 12 until one took 752 s)
+TIERED_OFFLOAD_REQUESTS = 4
+TIERED_SHARED_REQUESTS = 8
 SHARED_FLASH_LADDER = (552, 600, 648, 664)
 SHARED_FLASH_REQUESTS = 8
 # phase train's 8 steps (at 4 the one static batch's loss had not yet
@@ -3385,21 +3476,23 @@ SPEC_GAMMA = 4
 # process on a disjoint path (draw_seed 777, as JAX's bench_speculative),
 # budgets 64/128/256 at 0.5/0.3/0.2 (RandomState(7)); page 256, 8 slots,
 # 4 rounds a dispatch (a round emits up to gamma + 1 tokens, so about the
-# plain engine's 16-step chunk); 8 requests (16 before the run had to end
-# well inside its limit on a slower host), the int8 leg the first 4;
+# plain engine's 16-step chunk); 4 requests (16, then 8, before the run
+# had to end well inside its limit on slower hosts), the int8 leg the
+# first 4;
 # serve_app's leg the serve phase's first SPEC_APP_REQUESTS requests
-SPEC_STREAM = dict(requests=8, prompt_len=256, budgets=(64, 128, 256),
+SPEC_STREAM = dict(requests=4, prompt_len=256, budgets=(64, 128, 256),
                    p=(0.5, 0.3, 0.2))
 SPEC_CHUNK = 4
 SPEC_INT8_REQUESTS = 4
-SPEC_APP_REQUESTS = 8
-# the benchmark: the gamma sweep and the batched rows at 16 tokens a call
+SPEC_APP_REQUESTS = 4
+# the benchmark: the gamma sweep and the batched rows at 8 tokens a call
 # (at JAX's 256 the vmap impl's eight one-row loops took most of the 251 s
 # the whole benchmark took on the H100; the sweep at 256 took 173 s of a
 # 1032 s run once phase fit joined, so it was cut to 128; with phase
 # tiered the run reached 1112 s with the sweep at 64 (72 s), so both went
-# to 32; a host that ran the script a third slower took both to 16)
-SPEC_BENCH = dict(n=16, temp=0.8, top_k=40, batched=8, batched_n=16)
+# to 32; a host that ran the script a third slower took both to 16, and
+# phases stencil and launch to 8)
+SPEC_BENCH = dict(n=8, temp=0.8, top_k=40, batched=8, batched_n=8)
 SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
              "serve_app": "the serve phase's stream, its first "
                           f"{SPEC_APP_REQUESTS} requests",
@@ -3617,8 +3710,8 @@ def phase_spec():
     tie-aware on each decision's margin from :func:`_spec_margins` at the
     fixed tolerance 0.05 / T) and the plain engine on the same stream;
     (c) a draft-assisted engine on int8 pools against the target's own
-    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 16`` at
-    gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 16
+    int8 ``paged_generate``; (d) ``bench_speculative --pair --n 8`` at
+    gamma 2, 4 and 8, greedy and sampled, and ``--batched 8`` at 8
     tokens a call. Every engine run's kernel 1 and 6 launches against its
     counted admissions and rounds; tokens/s, tokens a row a round and the
     acceptance a / gamma printed."""
@@ -3864,10 +3957,10 @@ def phase_spec():
 
 
 # the plane phase's closed-loop transports; the requests of every leg
-# (plane_full_config's 32, cut to 16 for the run's time) and of its int8
-# leg
+# (plane_full_config's 32, cut to 16 and, once phases stencil and launch
+# joined, to 8 for the run's time) and of its int8 leg
 PLANE_TRANSPORTS = ("dma", "device_put", "wire")
-PLANE_REQUESTS = 16
+PLANE_REQUESTS = 8
 PLANE_INT8_REQUESTS = 8
 # the death leg: replica 1 of a 2-replica fixed plane dies at its round 3
 PLANE_DEATH_SPEC = "die:replica=1,at=3,site=replica_round"
@@ -4983,9 +5076,265 @@ def phase_parallel():
 
         prof[name] = device_profile(one_step, top=8)
         del p_, s_, step
-    emit({"phase": "parallel", "part": "e_profile", "card": card, **prof,
-          "seconds": time.perf_counter() - t_phase, "cuts": PAR_CUTS})
+    emit({"phase": "parallel", "part": "e_profile", "card": card, **prof})
+
+    # (f) the scatter dispatch at top-3, twice: equal loss and gradient
+    # bits (three terms a token summed in a fixed order, not by atomics)
+    kcfg = dataclasses.replace(cfg, **PAR_TOP3, moe_dispatch="scatter")
+    kparams, _ = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), kcfg, device=dev)
+    t0 = time.perf_counter()
+    runs = [_par_grads(kparams, tokens, kcfg) for _ in range(2)]
+    (l0, g0), (l1, g1) = runs
+    equal = [bool(torch.equal(a, b)) for a, b in zip(g0, g1)]
+    top3 = {**PAR_TOP3, "dispatch": "scatter", "losses": [l0, l1],
+            "loss_equal": l0 == l1, "leaves": len(equal),
+            "leaves_equal": sum(equal),
+            "seconds": time.perf_counter() - t0}
+    emit({"phase": "parallel", "part": "f_top3_twice", "card": card,
+          **top3, "seconds_phase": time.perf_counter() - t_phase,
+          "cuts": PAR_CUTS})
+    check(top3["loss_equal"] and all(equal),
+          f"MoE scatter at top-3 twice: equal loss and gradient bits {top3}")
+    del kparams, runs, g0, g1
     return launches
+
+
+def phase_stencil() -> dict:
+    """``stencil_app`` in this process on the card at world 8, ``-p 22``
+    and ``-p 26`` (16 and 256 MiB of f32), 64 steps: both oracles, the
+    per-step time and the domain's effective GB/s beside the bound (the
+    domain read once and written once a step)."""
+    import shutil
+
+    from hpc_patterns_tpu_torch.apps import stencil_app
+
+    card = smi("name,power.limit")
+    logs = ROOT / "build" / "smoke_stencil"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    rows = {}
+    for p in STENCIL_P:
+        code, recs = run_app(stencil_app.main, ["-p", str(p), *STENCIL_ARGV],
+                             logs / f"p{p}.jsonl")
+        (res,) = [r for r in recs if r.get("kind") == "result"]
+        n = res["elements"]
+        bound_ms = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+        step_ms = res["per_step_us"] / 1e3
+        row = {"p": p, "rc": code, "success": res["success"],
+               "world": res["world"], "elements": n, "mib": n * 4 / 2 ** 20,
+               "steps": res["steps"], "per_step_us": res["per_step_us"],
+               "domain_gbps": res["domain_gbps"],
+               "bound_ms_a_step": bound_ms, "bound_by": "bytes",
+               "over_bound": step_ms / bound_ms,
+               "full_passes_a_step": 12,
+               "conserved": res["conserved"],
+               "matches_dense": res["matches_dense"],
+               "bitwise_dense": res["bitwise_dense"]}
+        rows[p] = row
+        emit({"phase": "stencil", "card": card, **row})
+        check(code == 0 and res["success"] and res["conserved"]
+              and res["matches_dense"],
+              f"stencil p {p}: SUCCESS with both oracles: {row}")
+    return rows
+
+
+# one launched process of phase launch's run (a): the allreduce sweep,
+# each algorithm's results on seeded rows as per-rank digests, the stencil
+_LAUNCH_CHILD = (
+    "import hashlib, json, os, sys\n"
+    "import numpy as np, torch\n"
+    "from hpc_patterns_tpu_torch.apps import allreduce_app, common, "
+    "stencil_app\n"
+    "out, lo, hi = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])\n"
+    "algs = sys.argv[4].split(',')\n"
+    "pid = int(os.environ['HPCPAT_PROCESS_ID'])\n"
+    "rc = allreduce_app.main(['--sweep', '--min-p', str(lo), '-p', str(hi),"
+    " '--repetitions', '3', '--warmup', '1', '--device', 'cuda', '--log',"
+    " f'{out}/allreduce{pid}.jsonl'])\n"
+    "comm = common.make_communicator('cuda')\n"
+    "print(json.dumps({'digests': 'start'}), flush=True)\n"
+    "dig = {}\n"
+    "sl = slice(comm.rank_offset, comm.rank_offset + comm.local_size)\n"
+    "for p in range(lo, hi + 1):\n"
+    "    rows = np.random.default_rng(p).standard_normal(\n"
+    "        (comm.size, 1 << p)).astype(np.float32)\n"
+    "    x = torch.from_numpy(rows[sl]).cuda()\n"
+    "    for a in algs:\n"
+    "        y = comm.allreduce(x, a).cpu().numpy()\n"
+    "        for i, row in enumerate(y):\n"
+    "            dig[f'{a}/{p}/{comm.rank_offset + i}'] = "
+    "hashlib.sha256(row.tobytes()).hexdigest()\n"
+    "json.dump(dig, open(f'{out}/digests{pid}.json', 'w'))\n"
+    "rs = stencil_app.main(sys.argv[5:] + ['--log', "
+    "f'{out}/stencil{pid}.jsonl'])\n"
+    "sys.exit(rc or rs)\n")
+
+
+def _start_launch(args, cmd) -> subprocess.Popen:
+    """``python -m ...apps.launch ARGS -- CMD`` from the checkout's root,
+    started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.apps.launch", "-np", str(LAUNCH_NP),
+         "--cpu-devices-per-proc", str(LAUNCH_LOCAL), "--timeout",
+         str(LAUNCH_TIMEOUT_S), *args, "--", *cmd],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_launch(proc: subprocess.Popen, out: Path, name: str
+                   ) -> tuple[int, str]:
+    """(exit code, printed lines) of a started launch, the lines also kept
+    in ``out/name.out``; the launcher is killed past its own timeout."""
+    try:
+        stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S + 60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    (out / f"{name}.out").write_text(stdout + stderr)
+    return proc.returncode, stdout
+
+
+def _digests(comm, lo: int, hi: int) -> dict:
+    """This process's counterpart of ``_LAUNCH_CHILD``'s digests."""
+    import hashlib
+
+    dig = {}
+    for p in range(lo, hi + 1):
+        rows = np.random.default_rng(p).standard_normal(
+            (comm.size, 1 << p)).astype(np.float32)
+        x = torch.from_numpy(rows).cuda()
+        for a in LAUNCH_ALGORITHMS:
+            y = comm.allreduce(x, a).cpu().numpy()
+            for r, row in enumerate(y):
+                dig[f"{a}/{p}/{r}"] = hashlib.sha256(row.tobytes()).hexdigest()
+    return dig
+
+
+def phase_launch() -> dict:
+    """Real child processes on the one card through the launcher (2
+    processes x 2 logical ranks, joined by gloo; their collectives cross
+    through pinned host memory): (a) the allreduce sweep over ring,
+    ring_chunked and collective at p 16..22 (Passed 0..3, fused named as
+    not run) with every algorithm's results on seeded rows equal bit for
+    bit to one process of 4 ranks on the card, and the stencil across the
+    two processes against its dense replay (the one-process run below
+    against the same replay); (b) a traced straggler run
+    (``straggler:rank=1,delay_ms=40``) merged: the rollup names rank 1,
+    the schedule is consistent; (c) a ``die:rank=1,at=3`` run whose rank
+    report names the fault kind. The launched busbw is gloo over host
+    memory, not a card figure."""
+    import shutil
+
+    from hpc_patterns_tpu_torch.apps import stencil_app
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    out = ROOT / "build" / "smoke_launch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    lo, hi = LAUNCH_P
+    world = LAUNCH_NP * LAUNCH_LOCAL
+
+    # (a) the sweep, the digests and the stencil in one launch
+    t0 = time.perf_counter()
+    code, text = _finish_launch(_start_launch(
+        [], [sys.executable, "-c", _LAUNCH_CHILD, str(out), str(lo), str(hi),
+             ",".join(LAUNCH_ALGORITHMS), *LAUNCH_STENCIL]), out, "a_sweep")
+    dt_a = time.perf_counter() - t0
+    check(code == 0 and "launch -np 2: exit codes [0, 0]" in text,
+          f"launch (a): every rank exits 0 ({code}; {text[-800:]})")
+    check(all(f"[{r // LAUNCH_LOCAL}] Passed {r}" in text
+              for r in range(world)),
+          "launch (a): Passed 0..3, each on the process that holds it")
+    check(text.count("fused: not run across processes") == LAUNCH_NP
+          and text.count("gloo over pinned host memory") >= LAUNCH_NP,
+          "launch (a): fused named as not run, the wire named")
+    got = {}
+    for pid in range(LAUNCH_NP):
+        got.update(json.loads((out / f"digests{pid}.json").read_text()))
+    want = _digests(Communicator({"x": world}, "x", device="cuda"), lo, hi)
+    check(got == want,
+          f"launch (a): {len(got)} rank results equal one process's bit for "
+          f"bit ({sum(got.get(k) == v for k, v in want.items())}/"
+          f"{len(want)})")
+    busbw = {}
+    for pid in range(LAUNCH_NP):
+        for r in (json.loads(x) for x in (out / f"allreduce{pid}.jsonl")
+                  .read_text().splitlines()):
+            if r.get("kind") == "result" and pid == 0:
+                name = r["name"][len("allreduce["):-1]
+                busbw.setdefault(name, {})[int(math.log2(r["elements"]))] = {
+                    "ms": r["elapsed_s"] * 1e3, "busbw_gbps": r["busbw_gbps"]}
+    sten = [json.loads(x) for pid in range(LAUNCH_NP) for x in
+            (out / f"stencil{pid}.jsonl").read_text().splitlines()]
+    sten = [r for r in sten if r.get("kind") == "result"]
+    check(len(sten) == LAUNCH_NP
+          and all(r["success"] and r["conserved"] and r["matches_dense"]
+                  and r["bitwise_dense"] for r in sten),
+          f"launch (a): the stencil across {LAUNCH_NP} processes on both "
+          f"oracles, bit-equal to its dense replay: {sten}")
+    one_code, one = run_app(stencil_app.main,
+                            ["--world", str(world), *LAUNCH_STENCIL],
+                            out / "stencil_one.jsonl")
+    (one,) = [r for r in one if r.get("kind") == "result"]
+    check(one_code == 0 and one["bitwise_dense"],
+          f"launch (a): the one-process stencil bit-equal to the same "
+          f"dense replay: {one}")
+    emit({"phase": "launch", "part": "a_sweep", "card": card,
+          "processes": LAUNCH_NP, "ranks_a_process": LAUNCH_LOCAL,
+          "wire": "gloo over pinned host memory (not a card figure)",
+          "digests_equal": len(want), "busbw_by_algorithm_p": busbw,
+          "stencil_launched_us": [r["per_step_us"] for r in sten],
+          "stencil_one_process_us": one["per_step_us"],
+          "seconds": dt_a})
+
+    # (b) a straggler, traced and merged, and (c) a worker death at
+    # collective 3, the two launches side by side (nothing timed)
+    t0 = time.perf_counter()
+    runlog = out / "b_straggler.jsonl"
+    straggler = _start_launch(
+        ["--chaos", LAUNCH_CHAOS["straggler"], "--trace-out",
+         str(out / "b_merged.json"), "--trace-dir", str(out / "b_ranks"),
+         "--log", str(runlog)],
+        [sys.executable, "-m", f"{PKG}.apps.pingpong_app", "-p", "16",
+         "--min-p", "16", "--repetitions", "5", "--device", "cuda",
+         "--trace"])
+    dielog = out / "c_die.jsonl"
+    death = _start_launch(
+        ["--chaos", LAUNCH_CHAOS["die"], "--trace-out",
+         str(out / "c_merged.json"), "--trace-dir", str(out / "c_ranks"),
+         "--log", str(dielog)],
+        [sys.executable, "-m", f"{PKG}.apps.allreduce_app", "-p", "16",
+         "--repetitions", "5", "--device", "cuda", "--trace"])
+    code, text = _finish_launch(straggler, out, "b_straggler")
+    die_code, die_text = _finish_launch(death, out, "c_die")
+    (tm,) = [json.loads(x) for x in runlog.read_text().splitlines()
+             if json.loads(x).get("kind") == "trace_merged"]
+    strag = tm["stragglers"]
+    emit({"phase": "launch", "part": "b_straggler", "card": card,
+          "chaos": LAUNCH_CHAOS["straggler"], "rc": code,
+          "align": tm["align"]["method"], "skew": tm["skew"],
+          "stragglers": strag, "schedule": tm["schedule"]["verdict"],
+          "seconds": time.perf_counter() - t0})
+    check(code == 0 and "straggler: rank 1 finished last" in text
+          and strag["1"]["last"] == strag["1"]["of"] > 0
+          and tm["schedule"]["verdict"] == "consistent"
+          and tm["align"]["method"] == "sync",
+          f"launch (b): the merged rollup names rank 1, schedule "
+          f"consistent, sync anchors ({text[-800:]})")
+
+    faults = [line.strip() for line in die_text.splitlines()
+              if "fault:" in line or ": was at " in line]
+    emit({"phase": "launch", "part": "c_die", "card": card,
+          "chaos": LAUNCH_CHAOS["die"], "rc": die_code, "report": faults})
+    check(die_code == 1 and "rank 1: fault: killed (SIGKILL)" in die_text
+          and "FAILURE" in die_text,
+          f"launch (c): the rank report names the fault kind ({faults})")
+    emit({"phase": "launch", "leg": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"digests": len(want), "busbw": busbw}
 
 
 def main() -> int:
@@ -5032,6 +5381,8 @@ def main() -> int:
     alias_row = timed("kernels", alias_case, cgen, busy["launch_ms"])
     mig_row = timed("kernels", migration_case, cgen)
     launches_comm = timed("comm", phase_comm)
+    timed("stencil", phase_stencil)
+    timed("launch", phase_launch)
     launches_quant = timed("quant", phase_quant)
     launches_plane, plane_ctx = timed("plane", phase_plane)
     timed("observe", phase_observe, serve_ctx, plane_ctx)
@@ -5096,9 +5447,12 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
          "launches": launches_quant["flash_decode"]
+         + launches_quant["row"]["flash_decode"]
          + launches_train["flash_decode"] + launches_spec["flash_decode"]
          + launches_par["flash_decode"],
          "launches_by_path": {"quant": launches_quant["flash_decode"],
+                              "quant_row_law":
+                              launches_quant["row"]["flash_decode"],
                               "train_generate":
                               launches_train["flash_decode"],
                               "moe_generate": launches_par["flash_decode"],
@@ -5117,16 +5471,24 @@ def main() -> int:
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
          "launches": launches_quant["paged_decode"]
+         + launches_quant["row"]["paged_decode"]
          + launches_spec["paged_decode_quant"],
          "launches_by_path": {"quant_int8_flash":
                               launches_quant["paged_decode"],
+                              "quant_row_bf16_and_int8":
+                              launches_quant["row"]["paged_decode"],
                               "spec_int8":
                               launches_spec["paged_decode_quant"]},
          **{k: rows["paged_decode_quant"][k] for k in keys}},
         {"name": "paged_attention", "route": "cuda",
          "source": f"{PKG}/csrc/paged_attention.cu",
          "replaces": "hpc_patterns_tpu/ops/paged_attention.py:61",
-         "launches": launches_quant["paged_attention"],
+         "launches": launches_quant["paged_attention"]
+         + launches_quant["row"]["paged_attention"],
+         "launches_by_path": {"quant_int8_paged_flash":
+                              launches_quant["paged_attention"],
+                              "quant_row_race":
+                              launches_quant["row"]["paged_attention"]},
          **{k: rows["paged_attention"][k] for k in keys},
          "by_cache": {c: {k: r[k] for k in keys + ("n_chunks",)}
                       for c, r in rows["paged_attention_by_cache"].items()}},

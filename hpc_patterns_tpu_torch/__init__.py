@@ -34,7 +34,12 @@ Ported so far, with kernels written by hand for ``sm_90a``:
   ``models/serving.py``, ``serving_plane/`` (router, transports, wire
   codec), ``harness/loadgen.py``, ``harness/slo.py`` and
   ``bench_serving.py``; ``csrc/migration_dma.cu`` (the migration
-  exchange between two logical ranks of one card).
+  exchange between two logical ranks of one card);
+- ranks beyond one process — ``apps/launch.py`` (the ``mpirun -np``
+  analog; children join a gloo group, ``topology.
+  init_distributed_from_env``), ``comm/processes.py`` (the block of
+  logical ranks a process holds, rows between processes through pinned
+  host memory), ``comm/halo.py`` and ``apps/stencil_app.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise

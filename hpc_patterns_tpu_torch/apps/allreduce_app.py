@@ -27,10 +27,17 @@ Reproduced semantics:
   JSONL result per point — the busbw-vs-size curve.
 
 On one card the "wire" is device memory, so these bandwidths measure a
-ring's traffic on the card, not a link.
+ring's traffic on the card, not a link. Under the launcher each process
+holds a block of the ranks and the collectives cross processes over gloo
+through host memory (a line says so); each process validates the rows
+it holds and the verdicts are ANDed across processes. ``fused`` runs
+every rank in one cooperative launch, so across processes it is refused
+(``--algorithm fused`` exits 2) and a sweep runs the other three.
 
     python -m hpc_patterns_tpu_torch.apps.allreduce_app --sweep --min-p 3 -p 25
     python -m hpc_patterns_tpu_torch.apps.allreduce_app -p 5 --world 8 --device cpu
+    python -m hpc_patterns_tpu_torch.apps.launch -np 2 -- \
+        python -m hpc_patterns_tpu_torch.apps.allreduce_app -p 8 --device cpu
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import sys
 import torch
 
 from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.comm import processes
 from hpc_patterns_tpu_torch.comm.communicator import (
     record_collective_bandwidth,
 )
@@ -98,6 +106,14 @@ def resolve_algorithm(args) -> str:
 def run(args) -> int:
     log = RunLog(args.log, truncate=not args.log_append)
     comm = common.make_communicator(args.device, args.world, even=True)
+    wire = common.wire_line(comm)
+    if wire:
+        log.print(wire)
+        if args.algorithm == "fused":
+            log.print("ERROR: --algorithm fused across processes is "
+                      f"refused: {processes.FUSED_ACROSS_PROCESSES}")
+            log.print("FAILURE")
+            return 2
     if args.sweep:
         return run_sweep(args, log, comm)
     return _run_point(args, log, comm, resolve_algorithm(args),
@@ -125,6 +141,10 @@ def run_sweep(args, log, comm) -> int:
         return 1
     algorithms = ([resolve_algorithm(args)]
                   if args.algorithm or args.allreduce else list(ALGORITHMS))
+    if comm.block is not None and "fused" in algorithms:
+        algorithms.remove("fused")
+        log.print("fused: not run across processes: "
+                  f"{processes.FUSED_ACROSS_PROCESSES}")
     n_ok = n_total = 0
     kind_cache: dict = {}  # the memory kind's probe, resolved once
     for algorithm in algorithms:
@@ -210,14 +230,14 @@ def _run_point(args, log, comm, algorithm: str, log2_elements: int,
     expected = comm.expected_allreduce_value()
     ok_local = True
     if n * traits.itemsize > HOST_CHECK_BYTES:
-        for r in range(world):
-            bad = device_mismatches(out[r], expected, traits)
+        for r, row in common.local_rows(out, comm):
+            bad = device_mismatches(row, expected, traits)
             log.print(f"Passed {r}" if bad == 0 else
                       f"rank {r}: {bad}/{n} elements wrong (device-side "
                       "oracle)")
             ok_local &= bad == 0
     else:
-        for r, row in common.local_rows(out.cpu()):
+        for r, row in common.local_rows(out.cpu(), comm):
             v = correctness_verdict(row, expected, dtype=traits.dtype, rank=r)
             log.print(f"Passed {r}" if v.success else v.messages[0])
             ok_local &= v.success

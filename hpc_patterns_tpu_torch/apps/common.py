@@ -3,9 +3,12 @@
 runs through, the communicator an app runs over and its reporting
 units.
 
-The port runs every rank of a communicator in one process on one card
-(logical ranks, see :mod:`hpc_patterns_tpu_torch.comm`), so the
-cross-process reductions of the JAX module are the identity here.
+A communicator's ranks are logical (:mod:`hpc_patterns_tpu_torch.comm`).
+Run alone, an app holds every rank in its process; under the launcher
+(``apps/launch.py``, the ``mpirun -np`` analog) each process joins a gloo
+process group and holds a block of consecutive ranks, and the
+cross-process reductions below run through that group (the identity in
+one process).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import os
 from typing import Callable
 
+from hpc_patterns_tpu_torch import topology
+from hpc_patterns_tpu_torch.comm import processes
 from hpc_patterns_tpu_torch.comm.communicator import Communicator
 
 def run_instrumented(run_fn: Callable[[object], int], args) -> int:
@@ -59,18 +64,50 @@ DEFAULT_WORLD = 4
 
 def make_communicator(device, world: int = -1, *, even: bool = False,
                       axis: str = "x") -> Communicator:
-    """The app's communicator: ``world`` logical ranks on a 1-D mesh
-    (``-1``: :data:`DEFAULT_WORLD`) on ``device`` (``cuda`` unless
-    ``"cpu"``). ``even=True`` reproduces the reference's even-rank-count
-    precondition (allreduce-mpi-sycl.cpp:95-97) by dropping one rank from
-    an odd world."""
+    """The app's communicator: ``world`` logical ranks on a 1-D mesh on
+    ``device`` (``cuda`` unless ``"cpu"``). ``even=True`` reproduces the
+    reference's even-rank-count precondition (allreduce-mpi-sycl.cpp:
+    95-97) by dropping one rank from an odd world.
+
+    Joins a launcher rendezvous first when one is in the environment
+    (:func:`topology.init_distributed_from_env`, the MPI_Init analog).
+    Under the launcher ``world=-1`` is processes x the ranks each holds
+    (``HPCPAT_LOCAL_RANKS``), an explicit world divides over the
+    processes, and this process holds its block of consecutive ranks; a
+    traced run then takes a barrier and records a sync anchor after it
+    (:func:`trace.mark_rendezvous`) for the cross-rank merge. Alone,
+    ``world=-1`` is :data:`DEFAULT_WORLD`."""
+    from hpc_patterns_tpu_torch.harness import trace as tracelib
+
+    topology.init_distributed_from_env()
+    nprocs = topology.process_env_info()[1] if topology.is_multihost() \
+        else 1
     if world == -1:
-        world = DEFAULT_WORLD
+        world = (nprocs * topology.local_ranks_from_env() if nprocs > 1
+                 else DEFAULT_WORLD)
     if world < 1:
         raise ValueError(f"world must be >= 1 or -1, got {world}")
     if even and world % 2 and world > 1:
+        if nprocs > 1:
+            raise ValueError(
+                f"world {world} across {nprocs} processes is odd: an "
+                "even rank count cannot drop a rank of another process")
         world -= 1
-    return Communicator({axis: world}, axis, device=device)
+    tracelib.mark_rendezvous("make_communicator")
+    return Communicator({axis: world}, axis, device=device,
+                        block=processes.current_block(world))
+
+
+def wire_line(comm: Communicator) -> str | None:
+    """The line an app prints when its collectives cross processes:
+    which backend and which memory carry them. None in one process."""
+    b = comm.block
+    if b is None:
+        return None
+    return (f"collectives: {b.num_processes} processes x {b.local} "
+            f"logical rank(s) (this process: ranks {b.start}.."
+            f"{b.start + b.local - 1}), across processes over "
+            f"{processes.wire(comm.device)}")
 
 
 def allreduce_bus_bandwidth_gbps(nbytes: int, seconds: float,
@@ -83,10 +120,14 @@ def allreduce_bus_bandwidth_gbps(nbytes: int, seconds: float,
     return (nbytes / seconds / 1e9) * (2 * (world - 1) / world)
 
 
-def local_rows(global_tensor) -> list:
-    """``(rank, row)`` pairs this process can address: every row, since
-    all ranks live in this process."""
-    return list(enumerate(global_tensor))
+def local_rows(tensor, comm: Communicator | None = None) -> list:
+    """``(rank, row)`` pairs this process holds: ``tensor`` is a
+    communicator's ``(local_size, ...)`` result and each row is paired
+    with its global rank (``comm``'s block; every row in one process).
+    Each process validates only its own ranks' buffers, as the
+    reference's per-rank asserts do (allreduce-mpi-sycl.cpp:192-206)."""
+    start = comm.rank_offset if comm is not None else 0
+    return [(start + i, row) for i, row in enumerate(tensor)]
 
 
 def supports_memory_kind(kind: str) -> bool:
@@ -97,7 +138,15 @@ def supports_memory_kind(kind: str) -> bool:
     return kindslib.supports_memory_kind(kind)
 
 
+def reduce_across_processes(value: float, op=None) -> float:
+    """Reduce a host scalar across the launched processes (default max —
+    the reference's MPI_Allreduce(MAX) timing convention) through the
+    gloo group; the identity in one process."""
+    values = processes.host_values(value)
+    return float((op or max)(values))
+
+
 def all_processes_agree(ok: bool) -> bool:
-    """Cross-process AND of a local verdict: the identity in one
-    process."""
-    return bool(ok)
+    """Cross-process AND of a local verdict (a distributed SUCCESS needs
+    every rank's assert to hold); the identity in one process."""
+    return reduce_across_processes(0.0 if ok else 1.0) == 0.0

@@ -11,6 +11,8 @@ the device issue the copies inside one kernel (``comm/fused.py``).
 Sweeps message sizes ``--min-p .. -p`` (default 3..25), reporting per-size
 exchange latency and per-rank bandwidth. Oracle: ``rank_filled`` makes
 row r the constant r, so after one exchange row r holds r^1 everywhere.
+Under the launcher each process checks the pairs it holds and the
+verdicts are ANDed across processes; ``fused`` is refused there (exit 2).
 
     python -m hpc_patterns_tpu_torch.apps.pingpong_app --min-p 3 -p 25
     python -m hpc_patterns_tpu_torch.apps.pingpong_app --algorithm fused
@@ -22,6 +24,7 @@ from __future__ import annotations
 import sys
 
 from hpc_patterns_tpu_torch.apps import common
+from hpc_patterns_tpu_torch.comm import processes
 from hpc_patterns_tpu_torch.comm.communicator import (
     record_collective_bandwidth,
 )
@@ -60,6 +63,14 @@ def run(args) -> int:
         log.print("FAILURE")
         return 1
     comm = common.make_communicator(args.device, args.world, even=True)
+    wire = common.wire_line(comm)
+    if wire:
+        log.print(wire)
+        if args.algorithm == "fused":
+            log.print("ERROR: --algorithm fused across processes is "
+                      f"refused: {processes.FUSED_ACROSS_PROCESSES}")
+            log.print("FAILURE")
+            return 2
     if comm.size < 2:
         log.print("SKIP: ping-pong needs >= 2 ranks (even ranks, "
                   "allreduce-mpi-sycl.cpp:95-97)")
@@ -78,7 +89,7 @@ def run(args) -> int:
         out = exchange(x)
         comm.synchronize()  # raises if a fused launch timed out
         ok = all(bool((row == partner[r]).all())
-                 for r, row in common.local_rows(out))
+                 for r, row in common.local_rows(out, comm))
         ok = common.all_processes_agree(ok)
         all_ok &= ok
         nbytes = n * traits.itemsize

@@ -67,9 +67,11 @@ memory, not a transfer between cards, and the row says so.
     python -m hpc_patterns_tpu_torch.bench_serving --slo-budget \\
         [--device cpu] [--explain]
 
-The JAX benchmark's other rows wait for their slices: ``--elastic`` for
-the autoscaled plane (ROADMAP item 5) and ``--quant`` for the quantized
-row, which ``chip_smoke.py`` phase ``quant`` drives meanwhile.
+    python -m hpc_patterns_tpu_torch.bench_serving --quant [--smoke] \
+        [--device cpu] [--kv-dtype int8|fp8] [--quant-weights]
+
+The JAX benchmark's ``--elastic`` row waits for its slice (the autoscaled
+plane, ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -1587,11 +1589,237 @@ def run_fitted(*, cfg, params, n, slots, chunk, page_size, max_budget,
     return result
 
 
+# ------------------------------------------------------- quantized row
+
+def quantized_smoke_config(device=None):
+    """The CI quantized-decode shape (JAX ``quantized_smoke_config``): the
+    smoke model served with an int8 KV pool — 8 requests, 4 slots, chunk
+    16, page 16, prompts up to 32, budgets up to 64."""
+    base = smoke_config(device)
+    return dict(cfg=base["cfg"], params=base["params"], n=8, slots=4,
+                chunk=16, page_size=16, prompt_len=32, max_budget=64,
+                kv_dtype="int8", device=base["device"])
+
+
+def quantized_full_config(device=None):
+    """The re-grounding shape (JAX ``quantized_full_config``): the
+    scenario row's model with the attention-route race on the card — the
+    quantized stream once on the gather route and once on
+    ``paged_flash`` (kernel 7). On the card the chip model, 24 requests,
+    8 slots, page 256, prompts up to 128, budgets up to 256; on the CPU
+    the smoke model, 12 requests, 4 slots, page 16, prompts 32, budgets
+    96, no race."""
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    cfg, params = _model(dev, gpu=gpu)
+    return dict(cfg=cfg, params=params, n=24 if gpu else 12,
+                slots=8 if gpu else 4, chunk=16,
+                page_size=256 if gpu else 16,
+                prompt_len=128 if gpu else 32,
+                max_budget=256 if gpu else 96, kv_dtype="int8",
+                race_attn=gpu, device=dev)
+
+
+def run_quantized(*, cfg, params, n, slots, chunk, page_size, prompt_len,
+                  max_budget, kv_dtype="int8", quant_weights=False,
+                  race_attn=False, quiet=False, device=None):
+    """The quantized-decode row (JAX ``run_quantized``): one mixed stream
+    served by (a) the compute-dtype baseline engine and (b) an engine
+    whose KV pool stores ``kv_dtype`` (int8/fp8 one-byte pages + per-row
+    f32 scales; ``quant_weights`` also runs the int8 per-output-channel
+    weight path, ``transformer.quantize_weights_int8``).
+
+    Two oracles before any number is believed: every sequence of each
+    engine equals its standalone ``paged_generate`` under the same config
+    (exactly on the CPU, tie-aware on the card as every row of the port
+    is), and the precision law across precisions
+    (``models/quantization.precision_law``, checked against its
+    bounds) — token identity cannot hold across precisions, so the law
+    is the contract.
+
+    Reports JAX's keys: ``quant_goodput_tok_s`` (SLO-attained tok/s of
+    the quantized engine) and ``kv_pool_bytes_frac`` (the quantized pool's
+    bytes over a bf16 pool at equal geometry, scale pools included).
+    ``race_attn``: the quantized stream also on ``decode_attn="gather"``
+    and ``"paged_flash"``, timed, their tokens equal on the CPU; on the
+    card, where a dequant's multiply order may differ by an ulp, each
+    sequence either equal or first apart at a near-tie of the gather
+    route's standalone trajectory (the tie-aware verdict every row of the
+    port takes on the card; JAX's TPU gate counts flipped tokens, >=
+    0.999, and one early near-tie flip changes the rest of a greedy
+    sequence), with the token agreement printed."""
+    from hpc_patterns_tpu_torch.models.decode import init_paged_cache
+    from hpc_patterns_tpu_torch.models.quantization import precision_law
+    from hpc_patterns_tpu_torch.models.transformer import (
+        quantize_weights_int8,
+    )
+
+    out = print if not quiet else (lambda *a, **k: None)
+    dev = resolve_device(device)
+    sync = _sync(dev)
+    compute_dt, kv = resolve_kv_cache_dtype(kv_dtype, note=out, device=dev)
+    if kv == "compute":
+        raise SystemExit(
+            f"--quant needs a quantized --kv-dtype (int8/fp8), got "
+            f"{kv_dtype!r} — the compute-dtype rows are the ordinary "
+            "serving benches")
+    over = {"kv_cache_dtype": kv}
+    if compute_dt:
+        over["dtype"] = compute_dt
+    cfg_q = dataclasses.replace(cfg, **over)
+    params_q = quantize_weights_int8(params) if quant_weights else params
+
+    rng = np.random.RandomState(7)
+    lengths = [prompt_len // 2, (3 * prompt_len) // 4, prompt_len]
+    reqs = []
+    for _ in range(n):
+        t = int(rng.choice(lengths))
+        prompt = rng.randint(0, cfg.vocab, size=t).astype(np.int32)
+        budget = int(rng.choice(
+            [max(1, max_budget // 2), max_budget], p=[0.4, 0.6]))
+        reqs.append((prompt, budget))
+    total_tokens = sum(b for _, b in reqs)
+    buckets = bucket_ladder(prompt_len)
+    targets = slo.targets_from_classes(SCENARIO_CLASSES)
+    pages_per_seq = max(
+        ContinuousBatcher.pages_needed(len(p), b, page_size,
+                                       padded_len=pad_to_bucket(
+                                           buckets, len(p)))
+        for p, b in reqs)
+    pool = slots * pages_per_seq
+
+    # the precision LAW gate first — broken dequant must fail before any
+    # throughput number exists (TV toward 1, agreement toward 1/V)
+    law_prompts = np.stack([
+        rng.randint(0, cfg.vocab, size=prompt_len).astype(np.int32)
+        for _ in range(4)])
+    law = precision_law(params, cfg, params_q, cfg_q, law_prompts, steps=8)
+    law.check()
+
+    def run_one(c, p):
+        eng = ContinuousBatcher(
+            p, c, slots=slots, pool_pages=pool,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, slo=targets, device=dev)
+        ids = [eng.submit(pr, b) for pr, b in reqs]
+        got = eng.run()
+        sync()
+        return {i: got[s] for i, s in enumerate(ids)}, eng
+
+    def timed(c, p):
+        run_one(c, p)  # warm-up (kernel builds, allocator)
+        t0 = time.perf_counter()
+        got, eng = run_one(c, p)
+        return time.perf_counter() - t0, got, eng
+
+    t_base, base_out, base_eng = timed(cfg, params)
+    t_q, q_out, q_eng = timed(cfg_q, params_q)
+
+    # the oracle WITHIN each precision: each engine's tokens on its
+    # standalone decode under the same config
+    tol = TIE_TOL[cfg.dtype]
+    verdicts = {"exact": 0, "near_tie": 0}
+    for i, (prompt, b) in enumerate(reqs):
+        for label, c, p, got in (("baseline", cfg, params, base_out),
+                                 ("quantized", cfg_q, params_q, q_out)):
+            want, margins = _standalone(p, c, prompt, b,
+                                        page_size=page_size, device=dev)
+            verdicts[_held(got[i], want, margins, tol,
+                           f"{label} seq {i}")] += 1
+
+    # pool bytes at EQUAL geometry: the quantized pool vs a bf16 pool
+    # (scale pools included, the table excluded on both sides)
+    def pool_bytes(c):
+        cache = init_paged_cache(c, slots, pages_per_seq, page_size,
+                                 pool_pages=pool + 1, device=dev)
+        return sum(t.numel() * t.element_size()
+                   for name, pools in cache.items() if name != "table"
+                   for t in pools)
+
+    bf16_cfg = dataclasses.replace(cfg, dtype="bfloat16",
+                                   kv_cache_dtype="compute")
+    q_bytes = pool_bytes(cfg_q)
+    bf16_bytes = pool_bytes(bf16_cfg)
+    bytes_frac = q_bytes / bf16_bytes
+
+    tot_base = base_eng.last_slo["total"]
+    tot_q = q_eng.last_slo["total"]
+    result = {
+        "t_baseline": t_base, "t_quant": t_q, "tokens": total_tokens,
+        "tokens_per_s_baseline": total_tokens / t_base,
+        "tokens_per_s_quant": total_tokens / t_q,
+        "baseline_goodput_tok_s": tot_base["goodput_tok_s"]
+        * base_eng._serve_s / t_base if t_base > 0 else 0.0,
+        "quant_goodput_tok_s": tot_q["goodput_tok_s"]
+        * q_eng._serve_s / t_q if t_q > 0 else 0.0,
+        "kv_pool_bytes_frac": bytes_frac,
+        "kv_pool_bytes": q_bytes, "bf16_pool_bytes": bf16_bytes,
+        "kv_dtype": kv, "quant_weights": bool(quant_weights),
+        "greedy_agreement": law.greedy_agreement,
+        "tv_mean": law.tv_mean, "tv_max": law.tv_max,
+        "baseline_bubble_frac": base_eng.last_bubble_frac,
+        "quant_bubble_frac": q_eng.last_bubble_frac,
+    }
+    out(f"quantized[{kv}{'+w8' if quant_weights else ''}]: n={n} "
+        f"slots={slots} chunk={chunk} pool={pool}p "
+        f"tokens={total_tokens}")
+    out(f"  baseline : {t_base:.3f}s  "
+        f"{result['tokens_per_s_baseline']:,.1f} tok/s  goodput "
+        f"{result['baseline_goodput_tok_s']:,.1f}  bubble "
+        f"{result['baseline_bubble_frac']:.1%}")
+    out(f"  {kv:<9}: {t_q:.3f}s  "
+        f"{result['tokens_per_s_quant']:,.1f} tok/s  goodput "
+        f"{result['quant_goodput_tok_s']:,.1f}  bubble "
+        f"{result['quant_bubble_frac']:.1%}")
+    out(f"  kv pool bytes {q_bytes:,} = {bytes_frac:.3f}x the bf16 "
+        f"pool ({bf16_bytes:,}) at equal residents")
+    out(f"  precision law: greedy agreement "
+        f"{law.greedy_agreement:.3f}, TV mean {law.tv_mean:.4f} / "
+        f"max {law.tv_max:.4f} over {law.steps} teacher-forced steps "
+        f"(on the standalone within the precision: {verdicts})")
+
+    if race_attn:
+        # the route race per precision: the same quantized stream on the
+        # gather route and on the exact-softmax paged kernel
+        cfg_pf = dataclasses.replace(cfg_q, decode_attn="paged_flash")
+        cfg_ga = dataclasses.replace(cfg_q, decode_attn="gather")
+        t_ga, ga_out, _ = timed(cfg_ga, params_q)
+        t_pf, pf_out, _ = timed(cfg_pf, params_q)
+        n_tok = n_flip = 0
+        race = {"exact": 0, "near_tie": 0}
+        for i in sorted(pf_out):
+            a, b = np.asarray(pf_out[i]), np.asarray(ga_out[i])
+            n_tok += a.size
+            n_flip += int(np.sum(a != b))
+            if np.array_equal(a, b):
+                race["exact"] += 1
+            elif dev.type == "cuda":
+                # a greedy sequence that flips once follows another
+                # continuation from there: the first flip must sit at a
+                # near-tie of the gather route's own trajectory
+                prompt, budget = reqs[i]
+                want, margins = _standalone(params_q, cfg_ga, prompt,
+                                            budget, page_size=page_size,
+                                            device=dev)
+                race[_held(a, want, margins, tol,
+                           f"paged_flash vs gather seq {i}")] += 1
+        agreement = 1.0 - n_flip / max(n_tok, 1)
+        assert dev.type == "cuda" or n_flip == 0, (
+            f"paged_flash vs gather: {n_flip}/{n_tok} token mismatches on "
+            "the CPU's plain versions")
+        result["tokens_per_s_gather"] = total_tokens / t_ga
+        result["tokens_per_s_paged_flash"] = total_tokens / t_pf
+        out(f"  route race [{kv}]: gather "
+            f"{result['tokens_per_s_gather']:,.1f} tok/s vs "
+            f"paged_flash {result['tokens_per_s_paged_flash']:,.1f} "
+            f"tok/s ({t_ga / t_pf:.2f}x), token agreement {agreement:.4f}, "
+            f"sequences {race}")
+    return result
+
+
 #: the JAX rows that wait for a later slice, each with what it waits for
 LATER_ROWS = {
     "elastic": "the autoscaled plane (ROADMAP item 5)",
-    "quant": "the quantized row (chip_smoke.py phase quant drives its "
-             "path meanwhile)",
 }
 
 
@@ -1611,6 +1839,12 @@ def main(argv=None) -> int:
     p.add_argument("--shared", action="store_true",
                    help="the prefix-sharing row: private pages against the "
                         "sharing-aware arena")
+    p.add_argument("--quant", action="store_true",
+                   help="the quantized-decode row: a compute-dtype engine "
+                        "against a quantized-KV one (--kv-dtype int8 by "
+                        "default, or fp8), the precision law first")
+    p.add_argument("--quant-weights", action="store_true",
+                   help="with --quant: int8 per-output-channel weights too")
     p.add_argument("--slo-budget", action="store_true",
                    help="the segment-budget row: a seeded slow host "
                         "transfer must breach prefetch_wait and nothing "
@@ -1636,7 +1870,13 @@ def main(argv=None) -> int:
         if getattr(args, row):
             p.error(f"--{row.replace('_', '-')} is not ported yet: it "
                     f"waits for {why}")
-    if args.shared:
+    if args.quant:
+        conf = (quantized_smoke_config if args.smoke
+                else quantized_full_config)(args.device)
+        if args.kv_dtype:
+            conf["kv_dtype"] = args.kv_dtype
+        result = run_quantized(**conf, quant_weights=args.quant_weights)
+    elif args.shared:
         if args.kv_dtype and args.kv_dtype not in ("f32", "bf16"):
             # the documented refusal, surfaced before the engine's
             p.error(f"--shared refuses --kv-dtype {args.kv_dtype}: prefix "

@@ -7,11 +7,19 @@ Every function takes the global ``(size, ...)`` tensor (row r = rank r's
 buffer, see :mod:`.ring`) and returns the global result, each rank's row
 holding what that rank would receive. These are plain PyTorch reductions
 over dim 0: the library route the hand-built rings are raced against.
+
+Across processes (``block``, a :class:`~.processes.RankBlock`), ``x``
+holds this process's rows only: the rows of every process are gathered
+through gloo (:func:`.processes.gather_rows`), reduced by the same
+one-process function, and this process keeps its own rows, so each
+result equals the one-process one bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hpc_patterns_tpu_torch.comm import processes
 
 
 def _pprod(x: torch.Tensor) -> torch.Tensor:
@@ -39,55 +47,67 @@ def _everywhere(reduced: torch.Tensor, size: int) -> torch.Tensor:
     return reduced.expand(size, *reduced.shape[1:]).contiguous()
 
 
-def allreduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def _across(fn, x: torch.Tensor, block) -> torch.Tensor:
+    """``fn`` over the global rows; this process's rows of its result."""
+    if not processes.spans(block):
+        return fn(x)
+    out = fn(processes.gather_rows(x, block))
+    return out[block.start:block.start + block.local].contiguous()
+
+
+def allreduce(x: torch.Tensor, op: str = "sum", *, block=None
+              ) -> torch.Tensor:
     """``MPI_Allreduce``: every rank gets the elementwise reduction."""
     try:
         fn = _REDUCE_OPS[op]
     except KeyError:
         raise ValueError(
             f"unknown reduce op {op!r}; have {sorted(_REDUCE_OPS)}") from None
-    return _everywhere(fn(x), x.shape[0])
+    return _across(lambda v: _everywhere(fn(v), v.shape[0]), x, block)
 
 
 def all_gather(x: torch.Tensor, *, tiled: bool = True,
-               gather_axis: int = 0) -> torch.Tensor:
+               gather_axis: int = 0, block=None) -> torch.Tensor:
     """``MPI_Allgather``: ``tiled`` concatenates the shards along
     ``gather_axis`` of the shard, else stacks them: ``(size, size,
     *shard)``."""
-    size = x.shape[0]
-    if tiled:
-        one = torch.cat(torch.unbind(x, dim=0),
-                        dim=gather_axis % (x.dim() - 1))[None]
-    else:
-        one = x[None]
-    return _everywhere(one, size)
+    def fn(v):
+        if tiled:
+            one = torch.cat(torch.unbind(v, dim=0),
+                            dim=gather_axis % (v.dim() - 1))[None]
+        else:
+            one = v[None]
+        return _everywhere(one, v.shape[0])
+    return _across(fn, x, block)
 
 
 def reduce_scatter(x: torch.Tensor, *, scatter_axis: int = 0,
-                   op: str = "sum") -> torch.Tensor:
+                   op: str = "sum", block=None) -> torch.Tensor:
     """``MPI_Reduce_scatter``: rank r gets chunk r of the sum along
     ``scatter_axis`` of the shard."""
     if op != "sum":
         raise ValueError("reduce_scatter supports op='sum'")
-    size = x.shape[0]
+    size = block.world if block is not None else x.shape[0]
     ax = scatter_axis % (x.dim() - 1) + 1
     if x.shape[ax] % size:
         raise ValueError(
             f"scatter axis length {x.shape[ax]} not divisible by {size}")
-    total = x.sum(dim=0, keepdim=True)
-    return torch.cat(torch.chunk(total, size, dim=ax), dim=0)
+    return _across(lambda v: torch.cat(torch.chunk(
+        v.sum(dim=0, keepdim=True), size, dim=ax), dim=0), x, block)
 
 
 def all_to_all(x: torch.Tensor, *, split_axis: int = 0,
-               concat_axis: int = 0) -> torch.Tensor:
+               concat_axis: int = 0, block=None) -> torch.Tensor:
     """``MPI_Alltoall``: rank r's chunk c lands on rank c at position r
     (the Ulysses sequence-parallel primitive)."""
-    size = x.shape[0]
-    nd = x.dim() - 1
-    chunks = torch.chunk(x, size, dim=split_axis % nd + 1)  # [c](size, ..)
-    return torch.stack(
-        [torch.cat(torch.unbind(chunks[c], dim=0), dim=concat_axis % nd)
-         for c in range(size)])
+    def fn(v):
+        size = v.shape[0]
+        nd = v.dim() - 1
+        chunks = torch.chunk(v, size, dim=split_axis % nd + 1)  # [c](size,)
+        return torch.stack(
+            [torch.cat(torch.unbind(chunks[c], dim=0), dim=concat_axis % nd)
+             for c in range(size)])
+    return _across(fn, x, block)
 
 
 def broadcast(x: torch.Tensor, *, root: int = 0) -> torch.Tensor:

@@ -21,6 +21,18 @@ while something records — waits inside its span for an event recorded
 behind its work, so the span measures completion; with a flight recorder
 the collective is also a ``comm.<op>.<algorithm>`` device window. With
 nothing recording the path stays asynchronous and unchanged.
+
+Chaos (``harness/chaos.py``): every eager collective probes the
+``collective`` site at its sequence number before its work is enqueued,
+so a seeded straggler's collective genuinely starts late and a seeded
+death happens at the named collective. One cached read with no chaos.
+
+A communicator may span processes (``block``, a
+:class:`~.processes.RankBlock`): its tensors then hold this process's
+rows, ``(block.local, ...)``, and the host-driven algorithms exchange
+rows with the other processes through gloo (:mod:`.processes`). The
+fused routes refuse across processes (:data:`.processes.
+FUSED_ACROSS_PROCESSES`): this is a refusal, not a fallback.
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ from typing import Literal
 
 import torch
 
-from hpc_patterns_tpu_torch.comm import collectives, fused, ring
+from hpc_patterns_tpu_torch.comm import collectives, fused, processes, ring
+from hpc_patterns_tpu_torch.harness import chaos as chaoslib
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.topology import resolve_device
@@ -74,6 +87,16 @@ def _ready_in_span(result, device, window=None, op: str = "collective",
     return result
 
 
+def _inject_chaos(seq: int) -> None:
+    """Chaos injection, straggler site — called by every collective
+    method before its work is enqueued, so the injected delay precedes
+    the dispatch itself: the straggler's collective ``seq`` genuinely
+    starts late, and the skew in the cross-rank merge is the real
+    perturbation. One cached-config read when no chaos is active."""
+    if chaoslib.active() is not None:
+        chaoslib.maybe_inject("collective", seq)
+
+
 def record_collective_bandwidth(op: str, nbytes: int, seconds: float,
                                 **attrs) -> None:
     """Per-collective bandwidth gauge + latency histogram in the metrics
@@ -91,11 +114,12 @@ def record_collective_bandwidth(op: str, nbytes: int, seconds: float,
 # allreduce algorithm table: library collective vs hand-built rings vs the
 # device-initiated fused ring (SURVEY.md §2.3(b))
 _ALLREDUCE = {
-    "collective": lambda x: collectives.allreduce(x, "sum"),
-    "ring": ring.ring_allreduce,
+    "collective": lambda x, block: collectives.allreduce(x, "sum",
+                                                         block=block),
+    "ring": lambda x, block: ring.ring_allreduce(x, block=block),
     # chunk over the trailing (data) axis of each rank's shard
-    "ring_chunked": lambda x: ring.ring_allreduce_chunked(
-        x, scatter_axis=x.dim() - 2),
+    "ring_chunked": lambda x, block: ring.ring_allreduce_chunked(
+        x, scatter_axis=x.dim() - 2, block=block),
 }
 
 
@@ -104,16 +128,26 @@ class Communicator:
 
     ``Communicator({"x": 4}, "x")`` plays ``MPI_COMM_WORLD`` over 4 ranks;
     ``size`` is ``MPI_Comm_size``. Tensors passed in have a leading
-    dimension equal to ``size`` (one row per rank) and are moved to the
-    communicator's device (``cuda`` unless ``device="cpu"``)."""
+    dimension equal to :attr:`local_size` (one row per rank this process
+    holds: ``size`` in one process) and are moved to the communicator's
+    device (``cuda`` unless ``device="cpu"``). ``block``: the ranks this
+    process holds when the communicator spans processes (a 1-D mesh
+    only)."""
 
-    def __init__(self, mesh_shape: dict, axis: str = "x", device=None):
+    def __init__(self, mesh_shape: dict, axis: str = "x", device=None,
+                 block: processes.RankBlock | None = None):
         if axis not in mesh_shape:
             raise ValueError(
                 f"axis {axis!r} not in mesh axes {tuple(mesh_shape)}")
         self.mesh_shape = {k: int(v) for k, v in mesh_shape.items()}
         self.axis = axis
         self.device = resolve_device(device)
+        if block is not None and (len(self.mesh_shape) != 1
+                                  or block.world != self.size):
+            raise ValueError(
+                f"a communicator across processes is a 1-D mesh of the "
+                f"block's {block.world} ranks, got {self.mesh_shape}")
+        self.block = block if processes.spans(block) else None
         self._jit_allreduce_cache: dict = {}
         self._agmm_cache: dict = {}
         # per-communicator collective counter: the SPMD ranks issue the
@@ -126,11 +160,12 @@ class Communicator:
         return s
 
     def _eager(self, name: str, op: str, run, route=None, **attrs):
-        """One eager collective: ``run()`` enqueues it inside a
-        ``comm.<name>`` span (``attrs`` its args), then
+        """One eager collective: the chaos probe, then ``run()`` enqueues
+        it inside a ``comm.<name>`` span (``attrs`` its args), then
         :func:`_ready_in_span`; ``route`` is the fingerprint's
         algorithm."""
         seq = self._next_seq()
+        _inject_chaos(seq)
         with metricslib.span(f"comm.{name}", **attrs):
             window = _open_window(self.device)
             return _ready_in_span(run(), self.device, window, op=op,
@@ -141,14 +176,31 @@ class Communicator:
     def size(self) -> int:
         return self.mesh_shape[self.axis]
 
-    def shard(self, x) -> torch.Tensor:
-        """A ``(size, ...)`` tensor on the communicator's device — each
-        rank's buffer allocated and initialized (allreduce-mpi-sycl.cpp:
-        154-164)."""
-        x = torch.as_tensor(x)
-        if x.shape[0] != self.size:
+    @property
+    def local_size(self) -> int:
+        """The ranks this process holds: ``size`` in one process."""
+        return self.block.local if self.block is not None else self.size
+
+    @property
+    def rank_offset(self) -> int:
+        """The global rank of this process's first row."""
+        return self.block.start if self.block is not None else 0
+
+    def _refuse_fused(self, what: str) -> None:
+        if self.block is not None:
             raise ValueError(
-                f"leading dim {x.shape[0]} != communicator size {self.size}")
+                f"{what} across {self.block.num_processes} processes is "
+                f"refused: {processes.FUSED_ACROSS_PROCESSES}")
+
+    def shard(self, x) -> torch.Tensor:
+        """A ``(local_size, ...)`` tensor on the communicator's device —
+        each rank's buffer allocated and initialized
+        (allreduce-mpi-sycl.cpp:154-164)."""
+        x = torch.as_tensor(x)
+        if x.shape[0] != self.local_size:
+            raise ValueError(
+                f"leading dim {x.shape[0]} != the {self.local_size} "
+                "rank(s) this process holds")
         return x.to(self.device)
 
     # -- the fused route over the mesh's flat rank order -------------------
@@ -166,6 +218,7 @@ class Communicator:
         mesh runs as is; a multi-axis mesh expands every operand's rows to
         the flat ranks (row f = ring position pos(f)), runs, and folds one
         representative row per position back (JAX ``_fused_shmap``)."""
+        self._refuse_fused("the fused route")
         g = self._geometry()
         if g is None:
             return fn(*xs, geometry=None)
@@ -197,12 +250,17 @@ class Communicator:
         fn = self._jit_allreduce_cache.get(key)
         if fn is None:
             if algorithm == "fused":
+                self._refuse_fused("allreduce 'fused'")
+
                 def fn(v):
                     return self._fused_call(
                         lambda a, geometry: fused.fused_allreduce(
                             a, geometry=geometry), v)
             else:
-                fn = _ALLREDUCE[algorithm]
+                impl, block = _ALLREDUCE[algorithm], self.block
+
+                def fn(v):
+                    return impl(v, block)
             self._jit_allreduce_cache[key] = fn
         return fn
 
@@ -219,10 +277,14 @@ class Communicator:
         (``ring.pairwise_exchange``); ``"fused"`` has the device issue the
         copies (:func:`fused.fused_permute`)."""
         if algorithm == "collective":
-            return ring.pairwise_exchange
+            block = self.block
+            if block is None:
+                return ring.pairwise_exchange
+            return lambda v: ring.pairwise_exchange(v, block=block)
         if algorithm != "fused":
             raise ValueError(f"pingpong algorithm {algorithm!r} not in "
                              "('collective', 'fused')")
+        self._refuse_fused("pingpong 'fused'")
         pairs = [(r, r ^ 1) for r in range(self.size)]
 
         def fn(v):
@@ -236,14 +298,17 @@ class Communicator:
         (SendRecvRing, allreduce-mpi-sycl.cpp:43-59)."""
         x = self.shard(x)
         return self._eager("sendrecv_ring", "sendrecv_ring",
-                           lambda: ring.ring_shift(x, shift), shift=shift)
+                           lambda: ring.ring_shift(x, shift,
+                                                   block=self.block),
+                           shift=shift)
 
     def all_gather(self, x) -> torch.Tensor:
         """Every rank receives every row: (size, n) -> (size, size, n)."""
         x = self.shard(x)
         return self._eager(
             "all_gather", "all_gather",
-            lambda: collectives.all_gather(x, tiled=False))
+            lambda: collectives.all_gather(x, tiled=False,
+                                           block=self.block))
 
     def reduce_scatter(self, x) -> torch.Tensor:
         """(size, size*n) rows -> (size, n): rank r gets chunk r of the
@@ -251,7 +316,8 @@ class Communicator:
         x = self.shard(x)
         return self._eager(
             "reduce_scatter", "reduce_scatter",
-            lambda: collectives.reduce_scatter(x, scatter_axis=x.dim() - 2))
+            lambda: collectives.reduce_scatter(x, scatter_axis=x.dim() - 2,
+                                               block=self.block))
 
     def all_to_all(self, x) -> torch.Tensor:
         """Row r's chunk c goes to row c's chunk r (MPI_Alltoall)."""
@@ -259,7 +325,8 @@ class Communicator:
         return self._eager(
             "all_to_all", "all_to_all",
             lambda: collectives.all_to_all(x, split_axis=x.dim() - 2,
-                                           concat_axis=x.dim() - 2))
+                                           concat_axis=x.dim() - 2,
+                                           block=self.block))
 
     # -- fused collective + consumer ops -----------------------------------
 
@@ -285,8 +352,20 @@ class Communicator:
         fn = self._agmm_cache.get(key)
         if fn is None:
             if algorithm == "fused":
+                self._refuse_fused("allgather_matmul 'fused'")
+
                 def fn(a, b):
                     return self._fused_call(fused.allgather_matmul, a, b)
+            elif self.block is not None:
+                block = self.block
+
+                def fn(a, b):
+                    # every rank's x through gloo, then this process's
+                    # panels: the plain version's f32 products
+                    g = processes.gather_rows(a, block)
+                    return torch.matmul(
+                        g.reshape(-1, g.shape[2]).float()[None],
+                        b.float()).to(a.dtype)
             else:
                 fn = fused.allgather_matmul_reference
             self._agmm_cache[key] = fn
@@ -305,6 +384,8 @@ class Communicator:
             raise ValueError(
                 f"allreduce_into algorithm {algorithm!r} not in "
                 "('fused', 'collective')")
+        if algorithm == "fused":
+            self._refuse_fused("allreduce_into 'fused'")
         x = self.shard(x)
         row_bias = (None if bias is None else
                     torch.as_tensor(bias, device=self.device).to(x.dtype))
@@ -315,7 +396,7 @@ class Communicator:
                     lambda a, geometry: fused.allreduce_into(
                         a, bias=row_bias, epilogue=epilogue,
                         geometry=geometry), x)
-            out = collectives.allreduce(x, "sum")
+            out = collectives.allreduce(x, "sum", block=self.block)
             if row_bias is not None:
                 out = out + row_bias
             # the same dtype contract as the fused route
@@ -333,8 +414,10 @@ class Communicator:
         from hpc_patterns_tpu_torch.dtypes import get_traits
 
         dt = get_traits(dtype).dtype
-        ranks = torch.arange(self.size, device=self.device).to(dt)
-        return ranks[:, None].expand(self.size, n).contiguous()
+        ranks = torch.arange(self.rank_offset,
+                             self.rank_offset + self.local_size,
+                             device=self.device).to(dt)
+        return ranks[:, None].expand(self.local_size, n).contiguous()
 
     def expected_allreduce_value(self) -> float:
         """The analytic oracle: Σ ranks = size(size-1)/2."""

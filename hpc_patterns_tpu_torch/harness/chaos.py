@@ -16,10 +16,13 @@ the same workload reproduces the same perturbation):
 - ``slow_host_transfer``: injected delay at the ``host_transfer`` site.
 
 The port probes ``engine_round`` (``EngineCore.service_round``),
-``replica_round`` (``ServingPlane.run``) and ``host_transfer``
+``replica_round`` (``ServingPlane.run``), ``host_transfer``
 (``memory/residency.py``'s pull, between its window's opening and the
-copies' dispatch); the ``collective`` probe comes with the port's
-launcher, and until then its specs parse and never fire.
+copies' dispatch) and ``collective``: every eager ``Communicator``
+collective at its sequence number before its work is enqueued
+(``comm/communicator.py``), and each timed repetition of
+``harness.timing.measure`` at its ``seq`` — the launched benchmarks'
+collective loop (``apps/launch.py --chaos``).
 
 Spec grammar (the ``HPCPAT_CHAOS`` env value; ``;``-separated faults)::
 

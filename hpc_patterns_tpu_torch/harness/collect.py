@@ -17,8 +17,10 @@ The pipeline:
    ``process`` identity, clock anchors and its collective-schedule
    chain) to ``HPCPAT_TRACE_DIR`` as ``rank<id>.trace.json``
    (apps/common.run_instrumented → trace.write_rank_snapshot). The
-   port has no multi-process launcher yet: the caller starts the
-   processes and sets the three variables.
+   launcher (``apps/launch.py``) sets the variables, and a traced
+   launched run records a sync anchor after a gloo barrier at its
+   rendezvous (``trace.mark_rendezvous``); processes started by hand
+   set the variables themselves and carry wall anchors only.
 2. **Clock-aligned merge** (this module) — per-rank clock offsets are
    estimated from each snapshot's two monotonic↔wall anchor pairs
    (drift-bounded by their disagreement), then refined by barrier-echo

@@ -11,8 +11,8 @@ counterpart of ``hpc_patterns_tpu/harness/timing.py``.
   launch and readback latency cancel;
 - :func:`blocking` wraps a call so that it ends in
   ``torch.cuda.synchronize``; :func:`max_across_processes` is the
-  distributed MAX of a time (allreduce-mpi-sycl.cpp:188-190), the
-  identity in one process, where every logical rank lives.
+  distributed MAX of a time (allreduce-mpi-sycl.cpp:188-190) over the
+  launched processes' gloo group, the identity in one process.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import dataclasses
 import time
 from typing import Callable
 
+from hpc_patterns_tpu_torch.harness import chaos as chaoslib
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 
 
@@ -64,19 +65,35 @@ def measure(fn: Callable[[], object], *, repetitions: int = 10,
     also fingerprinted into the schedule chain and lands as a ``<label>``
     device window carrying its ``seq`` (CUDA events around the
     repetition on a card). Disabled (the default), this is the same code
-    path as always: no spans, no records, no extra work."""
+    path as always: no spans, no records, no extra work.
+
+    Chaos (``harness/chaos.py``): each timed repetition probes the
+    ``collective`` site at its ``seq`` before it starts — the timed rep
+    IS the collective loop of the launched benchmarks, so a seeded
+    straggler rank is late in exactly the windows the cross-rank merge
+    measures — and claims the site while it runs, so an eager
+    collective inside it does not inject the same fault twice. One
+    cached-config read a rep with no chaos."""
     if repetitions < 1:
         raise ValueError("repetitions must be >= 1")
+    chaos_on = chaoslib.active() is not None
     m = metricslib.get_metrics()
     if not (m.enabled or m.mirror_traces
             or metricslib._trace_sink is not None):
         for _ in range(warmup):
             fn()
         times = []
-        for _ in range(repetitions):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
+        for seq in range(repetitions):
+            if chaos_on:
+                chaoslib.maybe_inject("collective", seq)
+                with chaoslib.suppress("collective"):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append(time.perf_counter() - t0)
+            else:
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
         return TimingResult(tuple(times))
     from hpc_patterns_tpu_torch.harness import trace as tracelib
 
@@ -89,11 +106,19 @@ def measure(fn: Callable[[], object], *, repetitions: int = 10,
     times = []
     with m.span(f"{label}.timed", repetitions=repetitions):
         for seq in range(repetitions):
+            if chaos_on:
+                # before the window opens: the delayed rank's window
+                # STARTS late, the shape a slow rank has in the skew fan
+                chaoslib.maybe_inject("collective", seq)
             if rec is not None:
                 tracelib.record_collective(label, seq)
                 win = rec.open_window(device)
             t0 = time.perf_counter()
-            fn()  # blocking by contract: completion, not dispatch
+            if chaos_on:
+                with chaoslib.suppress("collective"):
+                    fn()
+            else:
+                fn()  # blocking by contract: completion, not dispatch
             dt = time.perf_counter() - t0
             if rec is not None:
                 rec.mark_dispatch(label, {"seq": seq}, window=win)
@@ -131,10 +156,18 @@ def blocking(fn: Callable[..., object], *args, **kwargs
 
 
 def max_across_processes(seconds: float) -> float:
-    """Cross-process MAX of a local elapsed time. The port runs every
-    logical rank in one process (multi-process launches are not ported
-    yet), so it returns the input."""
-    return seconds
+    """Cross-process MAX of a local elapsed time, the distributed timing
+    convention of allreduce-mpi-sycl.cpp:188-190 (MPI_Allreduce(MAX)),
+    over the launched processes' gloo group; the input in one process."""
+    import sys
+
+    dist = sys.modules.get("torch.distributed")
+    if dist is None or not dist.is_available() \
+            or not dist.is_initialized() or dist.get_world_size() < 2:
+        return seconds
+    from hpc_patterns_tpu_torch.comm import processes
+
+    return max(processes.host_values(seconds))
 
 
 def measure_forced(fn: Callable[[], object], *, repetitions: int = 5,

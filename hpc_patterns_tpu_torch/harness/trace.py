@@ -71,6 +71,7 @@ from collections import deque
 from pathlib import Path
 from typing import Any
 
+from hpc_patterns_tpu_torch import topology
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 
 # Synthetic track ids for events that are not host-thread work (the JAX
@@ -461,22 +462,36 @@ class TraceRecorder:
         return path
 
 
-#: the launcher env protocol the JAX package's ``topology`` defines; the
-#: port reads the same names
-ENV_TRACE_DIR = "HPCPAT_TRACE_DIR"
-ENV_PROCESS_ID = "HPCPAT_PROCESS_ID"
-ENV_NUM_PROCESSES = "HPCPAT_NUM_PROCESSES"
+#: the launcher env protocol (``topology``'s names, the JAX package's)
+ENV_TRACE_DIR = topology.ENV_TRACE_DIR
+ENV_PROCESS_ID = topology.ENV_PROCESS_ID
+ENV_NUM_PROCESSES = topology.ENV_NUM_PROCESSES
 
 
 def _process_info() -> tuple[int, int, int]:
     """(process_id, num_processes, slice_id) from the launcher env
-    protocol, else (0, 1, 0): the port runs every rank in one process
-    until its multi-process launcher lands."""
+    protocol (``apps/launch.py``), else the process group, else (0, 1,
+    0)."""
     try:
-        return (int(os.environ.get(ENV_PROCESS_ID, 0)),
-                int(os.environ.get(ENV_NUM_PROCESSES, 1)), 0)
+        return topology.process_env_info()
     except ValueError:
         return 0, 1, 0
+
+
+def mark_rendezvous(name: str = "rendezvous") -> float | None:
+    """At a launched run's rendezvous: take a global barrier across the
+    process group and record a sync anchor right after it on the active
+    recorder (all ranks leave a barrier within its release window, so
+    the cross-rank merge aligns their clocks on these anchors, tighter
+    than the wall anchors). None — and no barrier — without a recorder
+    or without a group of more than one process; every rank runs the
+    same command line, so either all of them take the barrier or none
+    does."""
+    rec = active()
+    if rec is None or not topology.is_multihost():
+        return None
+    sys.modules["torch.distributed"].barrier()
+    return rec.mark_sync(name)
 
 
 def rank_snapshot_path(trace_dir: str | Path, process_id: int) -> Path:

@@ -77,11 +77,62 @@ def _dispatch_combine(x, router_w, n_experts: int, capacity: int,
     return dispatch, combine, _aux(gates, first, n_experts), kept_frac
 
 
+def _token_sum(rows, pos):
+    """``y[t] = 0 + rows[pos[t, 0]] + rows[pos[t, 1]] + ...``: each token's
+    k rows of the sorted array summed from zero in ``pos``'s column order
+    — a fixed order, where an ``index_add`` adds with float atomics on a
+    card (no fixed order once a token has three terms)."""
+    y = rows.new_zeros((pos.shape[0], rows.shape[1]))
+    for j in range(pos.shape[1]):
+        y = y + rows.index_select(0, pos[:, j])
+    return y
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, src)`` whose backward sums each token's k row
+    gradients with :func:`_token_sum` (``pos``: every token's positions
+    in ``src``), not with ``index_add``."""
+
+    @staticmethod
+    def forward(ctx, x, src, pos):
+        ctx.save_for_backward(pos)
+        return x.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        return _token_sum(g, pos), None, None
+
+
+class _CombineRows(torch.autograd.Function):
+    """:func:`_token_sum` with its backward as copies: every row of the
+    sorted array belongs to one token, so its gradient is that token's."""
+
+    @staticmethod
+    def forward(ctx, rows, pos):
+        ctx.save_for_backward(pos)
+        ctx.n_rows = rows.shape[0]
+        return _token_sum(rows, pos)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        grad = g.new_empty((ctx.n_rows, g.shape[1]))
+        for j in range(pos.shape[1]):
+            grad[pos[:, j]] = g
+        return grad, None
+
+
 def _scatter_dispatch(x, gates, n_experts: int, capacity: int, top_k: int):
     """Sort/scatter routing with the einsum form's assignments: a STABLE
     sort of the choice-major expert ids gives each (token, choice) the
     within-expert rank the cumsum computes. Returns (xin (E, C, D),
-    combine(out) -> y (N, D), aux, kept_frac)."""
+    combine(out) -> y (N, D), aux, kept_frac).
+
+    Each token's k terms (its gathered input's gradients, its expert
+    outputs) are summed in a fixed order: by their position in the sorted
+    array, i.e. by expert id, the order in which XLA's CPU scatter-add
+    applies JAX's ``.at[src_tok].add`` updates."""
     n, D = x.shape
     if top_k == 1:
         vals = gates.amax(-1, keepdim=True)
@@ -108,10 +159,15 @@ def _scatter_dispatch(x, gates, n_experts: int, capacity: int, top_k: int):
     slot = torch.where(keep, sorted_e * capacity + rank,
                        torch.full_like(rank, trash))
     src_tok = token_flat[order]
-    # index_select, not x[idx]: its backward is an index_add, where
-    # indexing's is a sort-based accumulate (half the MoE step on a card)
+    # pos[t]: token t's k positions in the sorted array, ascending (its
+    # choices are distinct experts, so ascending = by expert id)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(k * n, device=dev)
+    pos = inv.view(k, n).T.sort(dim=1).values.contiguous()
+    # a gather whose backward is a fixed-order sum, not x[idx]'s
+    # sort-based accumulate (half the MoE step on a card) nor an index_add
     xin = x.new_zeros((trash + 1, D)).index_put(
-        (slot,), x.index_select(0, src_tok))
+        (slot,), _GatherRows.apply(x, src_tok, pos))
     xin = xin[:-1].reshape(n_experts, capacity, D)
     gate_sorted = gate_flat[order]
 
@@ -122,9 +178,8 @@ def _scatter_dispatch(x, gates, n_experts: int, capacity: int, top_k: int):
                                                    slot.clamp(max=trash - 1)),
                              torch.zeros((), dtype=out_flat.dtype,
                                          device=dev))
-        y = out_flat.new_zeros((n, out_flat.shape[1]))
-        return y.index_add(0, src_tok,
-                           picked * gate_sorted[:, None].to(out_flat.dtype))
+        return _CombineRows.apply(
+            picked * gate_sorted[:, None].to(out_flat.dtype), pos)
 
     return xin, combine, _aux(gates, idx[:, 0], n_experts), kept_frac
 

@@ -3,7 +3,8 @@ bench_serving``): JAX's own tier-1 tests of the base row
 (``test_smoke_engine_beats_static_on_mixed_workload``), of the chaos
 scenario (``test_smoke_chaos_scenario_still_beats_static_and_reports_
 goodput``) and of the tiered-memory rows (``test_smoke_offload_row_...``,
-``test_smoke_shared_row_...``, ``test_smoke_slo_budget_row_...``) run
+``test_smoke_shared_row_...``, ``test_smoke_slo_budget_row_...``) and of
+the quantized row (``test_smoke_quantized_row_...``) run
 unchanged against the port's rows — the same verdicts on the same keys —
 and the rows return every key JAX's rows return, the
 scenario's tail-attribution shares and budget breaches among them (its
@@ -84,6 +85,11 @@ def jax_bench(monkeypatch, tmp_path):
                             lambda conf=conf: conf("cpu"))
         monkeypatch.setattr(jbs, f"run_{name}",
                             capture(name, getattr(tbs, f"run_{name}")))
+    # the quantized row
+    monkeypatch.setattr(jbs, "quantized_smoke_config",
+                        lambda: tbs.quantized_smoke_config("cpu"))
+    monkeypatch.setattr(jbs, "run_quantized",
+                        capture("quantized", tbs.run_quantized))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield rows
@@ -161,6 +167,42 @@ def test_jax_slo_budget_row_test_passes_on_the_port(jax_bench):
     assert r["oracle"] == {"exact": 5, "near_tie": 0}
 
 
+#: run_quantized's keys (benchmarks/bench_serving.py:1263-1278)
+QUANT_KEYS = {"t_baseline", "t_quant", "tokens", "tokens_per_s_baseline",
+              "tokens_per_s_quant", "baseline_goodput_tok_s",
+              "quant_goodput_tok_s", "kv_pool_bytes_frac", "kv_pool_bytes",
+              "bf16_pool_bytes", "kv_dtype", "quant_weights",
+              "greedy_agreement", "tv_mean", "tv_max",
+              "baseline_bubble_frac", "quant_bubble_frac"}
+
+
+def test_jax_quantized_row_test_passes_on_the_port(jax_bench):
+    _jax_tests().test_smoke_quantized_row_reports_goodput_and_pool_bytes()
+    r = jax_bench["quantized"]
+    assert set(r) == QUANT_KEYS
+    # one-byte values and an f32 scale a row and kv head over bf16: the
+    # closed form (D + 4) / 2D at the smoke model's head dim 64
+    assert r["kv_pool_bytes_frac"] == (64 + 4) / (2 * 64)
+    assert r["tv_max"] >= r["tv_mean"] >= 0.0
+
+
+def test_quant_row_through_the_cli_at_fp8(capsys):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert tbs.main(["--quant", "--smoke", "--device", "cpu",
+                         "--kv-dtype", "fp8"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    r = json.loads(out.strip().splitlines()[-1])
+    assert set(r) == QUANT_KEYS and r["kv_dtype"] == "fp8"
+    assert "precision law: greedy agreement" in out
+    with pytest.raises(SystemExit, match="needs a quantized --kv-dtype"):
+        tbs.main(["--quant", "--smoke", "--device", "cpu", "--kv-dtype",
+                  "bf16"])
+
+
 def test_tiered_rows_through_the_cli(capsys):
     assert tbs.main(["--slo-budget", "--device", "cpu", "--explain"]) == 0
     out = capsys.readouterr().out
@@ -171,10 +213,10 @@ def test_tiered_rows_through_the_cli(capsys):
         tbs.main(["--shared", "--smoke", "--device", "cpu", "--kv-dtype",
                   "int8"])
     assert "--shared refuses --kv-dtype int8" in capsys.readouterr().err
-    assert set(tbs.LATER_ROWS) == {"elastic", "quant"}
+    assert set(tbs.LATER_ROWS) == {"elastic"}
 
 
-@pytest.mark.parametrize("flag", ["--elastic", "--quant"])
+@pytest.mark.parametrize("flag", ["--elastic"])
 def test_later_rows_name_what_they_wait_for(flag, capsys):
     with pytest.raises(SystemExit):
         tbs.main([flag, "--device", "cpu", "--smoke"])

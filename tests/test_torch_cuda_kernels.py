@@ -49,7 +49,8 @@ head slices) against their plain routes on the same bf16 tensors within
 the library roll, the flash ring's gradients against the dense ring's
 within 2e-2 x max|dense|; ``moe_dense`` on the card against its CPU
 plain version on the same f32 values within 1e-4 (f32 products and sums
-in another order; the same slots, so the same tokens drop).
+in another order; the same slots, so the same tokens drop); the scatter
+MoE step at top-3 twice with equal loss and gradient bits.
 """
 
 import ctypes
@@ -1296,3 +1297,28 @@ def test_moe_dense_scatter_on_the_card_matches_cpu(gen, top_k):
     assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-4
     assert got[2].item() == want[2].item()
     assert abs(got[1].item() - want[1].item()) <= 1e-5
+
+
+def test_moe_scatter_step_at_top3_gives_equal_bits_twice(gen):
+    # three terms a token: the sum order is fixed by the dispatch (by
+    # expert id), not by float atomics, so two runs agree bit for bit
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = tf.TransformerConfig(
+        vocab=32768, d_model=1024, n_heads=8, n_layers=2, d_ff=4096,
+        dtype="bfloat16", max_seq=2048, attention="flash", n_experts=8,
+        n_experts_top_k=3, moe_dispatch="scatter")
+    params, _ = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           8, 2048, device=dev)
+    leaves = tr.tree_leaves(params)
+    runs = []
+    for _ in range(2):
+        loss = tf.loss_fn(params, tokens, cfg)
+        runs.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))

@@ -8,6 +8,13 @@ major, so at capacities that drop tokens the same ones drop: the outputs
 must agree to f32 rounding (atol 2e-5, JAX's own bound between its ep and
 dense forms), kept fractions exactly (counts over the same total), aux to
 rtol 1e-6, gradients to 3e-5 (JAX's bound between its dispatch forms).
+
+At top-3 the scatter dispatch sums three terms a token: the port sums
+them by expert id, the order XLA's CPU scatter-add applies JAX's
+``.at[src_tok].add``, so on the same gates, expert outputs and cotangent
+the combine and the gather's backward equal JAX's bit for bit (inputs
+spread over 2^±8 so that another order would show); the whole layer at
+top-3 is held within the tolerances above.
 """
 
 import numpy as np
@@ -33,6 +40,17 @@ def weights():
     return (rng.standard_normal((D, E)).astype(np.float32),
             (rng.standard_normal((E, D, F)) / 4).astype(np.float32),
             (rng.standard_normal((E, F, D)) / 6).astype(np.float32))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs: its tensors are tiny,
+    and under a parallel test run a worker's thread pool spinning on
+    cores the other workers hold made each op milliseconds long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _x(seed, n):
@@ -177,3 +195,57 @@ def test_default_capacity():
     for n, e in ((128, 8), (4, 64), (16384 * 2, 8)):
         assert tmoe.default_capacity(n, e) == jmoe.default_capacity(n, e)
     assert tmoe.default_capacity(128, 8) == 20
+
+
+@pytest.mark.parametrize("capacity", [2, 64])
+def test_scatter_sums_at_top3_equal_jax_bit_for_bit(capacity):
+    n, k = 64, 3
+    rng = np.random.default_rng(11)
+
+    def spread(*shape):
+        return (rng.standard_normal(shape)
+                * np.exp(rng.uniform(-8, 8, shape))).astype(np.float32)
+
+    x = spread(n, D)
+    # each token's top three gates are dyadic and sum to 1, so the
+    # normalized gates are exact under jit and op by op alike: what is
+    # held is the order of the three-term sums alone
+    gates = rng.uniform(0.0, 0.125, (n, E)).astype(np.float32)
+    for t in range(n):
+        gates[t, rng.permutation(E)[:k]] = (0.5, 0.3125, 0.1875)
+    out, cot = spread(E, capacity, D), spread(E, capacity, D)
+    jg = jnp.asarray(gates)
+    jcomb = jax.jit(lambda v, o: jmoe._scatter_dispatch(
+        v, jg, E, capacity, k)[1](o))
+    _, tcomb, _, _ = tmoe._scatter_dispatch(
+        torch.from_numpy(x), torch.from_numpy(gates), E, capacity, k)
+    np.testing.assert_array_equal(
+        tcomb(torch.from_numpy(out)).numpy(),
+        np.asarray(jcomb(jnp.asarray(x), jnp.asarray(out))))
+    want = jax.jit(jax.grad(lambda v: jnp.sum(
+        jmoe._scatter_dispatch(v, jg, E, capacity, k)[0] * cot)))(
+            jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tmoe._scatter_dispatch(xt, torch.from_numpy(gates), E, capacity, k)[0]
+     * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_dense_top3_matches_jax_with_grads(weights, dispatch):
+    x = _x(12, 32)
+
+    def f(*args):
+        y, aux = jmoe.moe_dense(*args, capacity=8, top_k=3,
+                                dispatch=dispatch)
+        return jnp.sum(y * y) + 0.01 * aux, y
+
+    (_, yj), gj = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2, 3),
+                                             has_aux=True))(
+        *map(jnp.asarray, (x, *weights)))
+    ts = [t.clone().requires_grad_(True) for t in _t(x, *weights)]
+    y, aux = tmoe.moe_dense(*ts, capacity=8, top_k=3, dispatch=dispatch)
+    ((y * y).sum() + 0.01 * aux).backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(yj), atol=ATOL)
+    for t, w in zip(ts, gj):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=3e-5)

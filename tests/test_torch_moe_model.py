@@ -43,6 +43,17 @@ LOSS_RTOL = 2e-5
 GRAD_ATOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs: its models are tiny,
+    and under a parallel test run a worker's thread pool spinning on
+    cores the other workers hold made each op milliseconds long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(**kw):
     fields = {**MOE_TINY, **kw}
     jcfg = jtf.TransformerConfig(**fields)

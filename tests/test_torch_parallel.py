@@ -39,6 +39,17 @@ R = 8
 ATOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs: its models are tiny,
+    and under a parallel test run a worker's thread pool spinning on
+    cores the other workers hold made each op milliseconds long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _arrays(seed, shapes, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(dtype) for s in shapes]
