@@ -350,6 +350,29 @@ Phases, each printing JSON lines:
               kernels); (f) the scatter MoE at top-3 (``PAR_TOP3``: the
               MoE cell's widths at 2 layers, 8 experts), loss and
               gradients twice: equal bits;
+12a. sharded — dp, fsdp and tp as logical ranks of the card at the
+              training cell's widths (``SHARD_*``), each part's line with
+              the card's name and power limit: (a) tp 4 with the fused
+              MLP: the first loss within ``SHARD_LOSS_RTOL`` and every
+              gradient leaf's 1 - cosine within ``SHARD_GAP`` of the
+              no-mesh step at init (also under the save-a backward), the
+              step's ms, busy share, kernels a step and peak memory
+              beside the no-mesh step's, then ``train_app --tp 4
+              --mlp-impl fused`` (SUCCESS; kernel 1, 3, 4 launches = n_
+              layers x grad passes, kernel 8 and 9 = tp x that); (b)
+              ``train_app --dp 2 --fsdp 2 --tp 2 --resume-check``: the
+              resume bit for bit, the loss falling, its step's stats; (c)
+              ``generate`` and ``paged_generate`` at ``{"tp": 4}`` on the
+              serving widths (page 256, 4 prompts of 512, 64 tokens) on
+              bf16 and int8 caches, tie-aware against the unsharded route
+              on the card, with kernels 1, 5, 6 and 6q launched n_layers
+              times a prefill / step; (d) ``launch.py -np 2`` with 2
+              logical ranks a process at ``SHARD_LAUNCH_ARGV``'s cut
+              widths: ``train_app --dp 4`` and ``--dcn-dp --dp -1 --tp 2
+              --slices 2``, each SUCCESS and each process's losses within
+              ``SHARD_LAUNCH_RTOL`` of one process's run of the same
+              global mesh; then kernels 1, 3, 4, 8, 8a, 9, 5, 6 and 6q at
+              their shard shapes against their plain versions;
 13. the ``done`` line with each phase's wall seconds, the ``{"kernels":
    [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -554,6 +577,42 @@ PAR_CUTS = {"sp_steps": f"8 -> {PAR_SP_STEPS} (the sp runs)",
             "ep_check": "no grad, 8 layers; the loss check on the first 2 "
                         "of 8 rows (JAX's test's layout)"}
 
+
+# phase sharded: the training cell on dp/fsdp/tp logical ranks. The tp 4
+# step against the no-mesh step at init: the row-parallel sums add each
+# rank's bf16 partial product (rounded once more than one GEMM's f32 sum)
+# and the vocab-sharded loss another association. Limits about 10x the
+# readings of a sound run on the H100 (loss 4.7e-6 relative, worst leaf
+# 8.2e-5 at embed; PERF.md)
+SHARD_TP = 4
+SHARD_STEPS = 5
+SHARD_LOSS_RTOL = 5e-5
+SHARD_GAP = 1e-3
+SHARD_MESHES = {"tp4": {"tp": 4}, "dp2_fsdp2_tp2":
+                {"dp": 2, "fsdp": 2, "tp": 2}}
+# (c) the serving widths: 4 prompts of 512 (a multiple of 128: kernel 1
+# prefills), 64 tokens, page 256; the tp prefill's logits against the
+# unsharded ones, max abs diff over max |logits| (bf16 logits of ~5 round
+# at ~0.02, and the row sums add roundings)
+SHARD_SERVE = {"rows": 4, "prompt_len": 512, "new_tokens": 64, "page": 256}
+SHARD_LOGITS_RTOL = 3e-2
+# (d) the launched legs, cut for the gloo wire: each step's gradient
+# (3.8 M f32 at these widths) crosses host TCP; each process's losses
+# against one process's at the same global mesh (bf16 GEMMs at another
+# row count may round differently): about 10x the readings of a sound
+# run on the H100 (1.5e-6 and 1.4e-5 relative; PERF.md)
+SHARD_LAUNCH_ARGV = ["--steps", "3", "--batch", "8", "--seq", "512",
+                     "--d-model", "256", "--n-layers", "2", "--n-heads", "4",
+                     "--vocab", "4096", "--attention", "flash", "--device",
+                     "cuda"]
+SHARD_LAUNCH_RTOL = 2e-4
+SHARD_CUTS = {"steps": f"8 -> {SHARD_STEPS} (train_app legs)",
+              "launched": "d_model 1024, 8 layers, vocab 32768, seq 2048 "
+                          "-> 256, 2, 4096, 512, 3 steps (a step's "
+                          "gradient crosses gloo over host TCP: 168 M f32 "
+                          "at full width)",
+              "serve": "16 requests of the serving cell -> 4 prompts of "
+                       "512 at 64 tokens through generate/paged_generate"}
 
 # phase stencil: stencil_app at world 8 on the card, 16 and 256 MiB of f32
 STENCIL_P = (22, 26)
@@ -5100,6 +5159,376 @@ def phase_parallel():
     return launches
 
 
+# ------------------------------------------------ sharded (dp/fsdp/tp)
+
+
+def _shard_grads(cfg, mesh, tokens):
+    """A train state on ``mesh`` (None: no mesh) from seed 0, and its
+    loss and global f32 gradients (in ``tree_leaves`` order) at init."""
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    params, opt = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+        mesh=mesh)
+    leaves = tr.tree_leaves(params)
+    loss = tf.loss_fn(params, tokens, cfg, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    if mesh is not None:
+        from hpc_patterns_tpu_torch.models import sharding as sh
+
+        grads = tr.tree_leaves(sh.unshard_params(tr.tree_map(
+            dict(zip(map(id, leaves), grads)).__getitem__,
+            tr.tree_map(id, params)), mesh, cfg))
+    return loss.item(), [g.float() for g in grads], params, opt
+
+
+def _shard_step_stats(cfg, mesh, tokens):
+    """:func:`_shard_grads`, then the state's step: its min ms over 3
+    timed steps, one profiled step (busy share, kernels), the wrappers'
+    launches a step and the peak memory over a step (from a reset with
+    the state resident)."""
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
+
+    loss, grads, params, opt = _shard_grads(cfg, mesh, tokens)
+    step = tr.make_train_step(cfg, mesh=mesh)
+    step(params, opt, tokens)[0].item()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, tokens)[0].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for counts in (fa.launches, fm.launches):
+        for key in counts:
+            counts[key] = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prof = device_profile(lambda: step(params, opt, tokens)[0].item())
+    peak = torch.cuda.max_memory_allocated()
+    stats = {"step_ms": min(times), "steps_ms": times,
+             "busy_frac": prof["device_busy_frac"],
+             "device_kernels_a_step": prof["device_kernels"],
+             "top_kernels": prof["top_kernels"][:3],
+             "launches_a_step": {**{f"flash_{k}": v for k, v in
+                                    fa.launches.items() if v},
+                                 **{f"mlp_{k}": v for k, v in
+                                    fm.launches.items() if v}},
+             "peak_bytes": peak, "peak_over_state_bytes": peak - base}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return loss, grads, stats
+
+
+def _shard_serve(cfg_base, dev):
+    """(c): generate and paged_generate at ``{"tp": SHARD_TP}`` on bf16
+    and int8 caches against the unsharded route on the card, tie-aware;
+    kernel 1, 5, 6 (6q) launches of the sharded runs counted."""
+    import dataclasses
+
+    from hpc_patterns_tpu_torch.bench_serving import TIE_TOL
+    from hpc_patterns_tpu_torch.models import decode as dec
+    from hpc_patterns_tpu_torch.models import sharding as sh
+    from hpc_patterns_tpu_torch.models.serving import tie_aware_compare
+    from hpc_patterns_tpu_torch.models.transformer import init_params
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    s = SHARD_SERVE
+    mesh = {"tp": SHARD_TP}
+    L = cfg_base.n_layers
+    tol = TIE_TOL[cfg_base.dtype]
+    prompt = torch.randint(0, cfg_base.vocab, (s["rows"], s["prompt_len"]),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), device=dev, dtype=torch.int32)
+    rows, launches = {}, {"fwd": 0, "flash_decode": 0, "paged_decode": 0,
+                          "paged_decode_quant": 0}
+    for kv in ("compute", "int8"):
+        cfg = dataclasses.replace(
+            cfg_base, kv_cache_dtype=kv,
+            max_seq=s["prompt_len"] + s["new_tokens"])
+        params = init_params(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev,
+                             dtype=torch.bfloat16)
+        sharded = sh.shard_params(params, mesh, cfg)
+        with torch.no_grad():
+            want_lg = dec.prefill(params, prompt, cfg, cfg.max_seq)[0]
+            got_lg = dec.prefill(sharded, prompt, cfg, cfg.max_seq,
+                                 mesh=mesh)[0]
+        lg_rel = ((got_lg - want_lg).abs().max()
+                  / want_lg.abs().max()).item()
+        check(lg_rel <= SHARD_LOGITS_RTOL,
+              f"tp prefill logits {kv}: {lg_rel} > {SHARD_LOGITS_RTOL}")
+        rows[f"prefill_logits_rel_diff_{kv}"] = lg_rel
+        if kv == "compute":  # one profiled call each: the busy shares
+            from hpc_patterns_tpu_torch.harness.profiling import (
+                device_profile,
+            )
+
+            with torch.no_grad():
+                rows["busy_frac_linear_unsharded"] = device_profile(
+                    lambda: dec.generate(params, prompt, cfg, 16,
+                                         device=dev))["device_busy_frac"]
+                rows["busy_frac_linear_tp4"] = device_profile(
+                    lambda: dec.generate(sharded, prompt, cfg, 16,
+                                         device=dev, mesh=mesh)
+                )["device_busy_frac"]
+        for route in ("linear", "paged"):
+            fn = (functools.partial(dec.paged_generate, page_size=s["page"])
+                  if route == "paged" else dec.generate)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                want, margins = fn(params, prompt, cfg, s["new_tokens"],
+                                   device=dev, with_margins=True)
+                torch.cuda.synchronize()
+                t_plain = time.perf_counter() - t0
+                fa.launches["fwd"] = 0
+                fd.launches["flash_decode"] = fd.launches["paged_decode"] = 0
+                t0 = time.perf_counter()
+                got = fn(sharded, prompt, cfg, s["new_tokens"], device=dev,
+                         mesh=mesh)
+                torch.cuda.synchronize()
+                t_tp = time.perf_counter() - t0
+            n = {"fwd": fa.launches["fwd"],
+                 "flash_decode": fd.launches["flash_decode"],
+                 "paged_decode": fd.launches["paged_decode"]}
+            key = "flash_decode" if route == "linear" else "paged_decode"
+            steps = s["new_tokens"] - 1
+            check(n["fwd"] == L and n[key] == L * steps
+                  and sum(n.values()) == L * (1 + steps),
+                  f"tp {route} {kv}: kernel 1 once and the decode kernel "
+                  f"{steps} times a layer, in one launch over the folded "
+                  f"ranks: {n}")
+            verdicts = [tie_aware_compare(got[i].cpu().numpy(),
+                                          want[i].cpu().numpy(),
+                                          margins[i].cpu().numpy(), tol)
+                        for i in range(s["rows"])]
+            check("mismatch" not in verdicts,
+                  f"tp {route} {kv} tokens tie-aware on the unsharded "
+                  f"route: {verdicts}")
+            launches["fwd"] += n["fwd"]
+            if route == "linear":
+                launches["flash_decode"] += n[key]
+            else:
+                launches["paged_decode_quant" if kv == "int8"
+                         else "paged_decode"] += n[key]
+            firsts = [int(np.nonzero((got[i] != want[i]).cpu().numpy())[0][0])
+                      if v != "exact" else None
+                      for i, v in enumerate(verdicts)]
+            rows[f"{route}_{kv}"] = {
+                "verdicts": verdicts, "first_divergence_step": firsts,
+                "launches": n,
+                "tp_ms_a_token": t_tp * 1e3 / s["new_tokens"],
+                "unsharded_ms_a_token": t_plain * 1e3 / s["new_tokens"]}
+        del params, sharded
+    return rows, launches
+
+
+def _shard_launched(out_dir):
+    """(d): the two launched legs (started together: they share the card
+    and the host), then each against one process's run of the same
+    global mesh."""
+    from hpc_patterns_tpu_torch.apps import train_app
+
+    legs = {"dp4": (["--dp", "4"], [], ["--dp", "4"]),
+            "dcn_dp": (["--dcn-dp", "--dp", "-1", "--tp", "2"],
+                       ["--slices", "2"], ["--dp", "2", "--tp", "2"])}
+    t0 = time.perf_counter()
+    procs = {name: _start_launch(launch_args, [
+        sys.executable, "-m", f"{PKG}.apps.train_app", *SHARD_LAUNCH_ARGV,
+        *flags]) for name, (flags, launch_args, _) in legs.items()}
+    done = {name: _finish_launch(proc, out_dir, name)
+            for name, proc in procs.items()}
+    wall = time.perf_counter() - t0
+    rows = {"wall_s_both": wall}
+    for name, (code, text) in done.items():
+        losses = [json.loads(ln.split("losses ", 1)[1])
+                  for ln in text.splitlines() if "one flat allreduce" in ln]
+        check(code == 0 and text.count("SUCCESS") >= 3 and len(losses) == 2
+              and losses[0] == losses[1],
+              f"launched {name}: exit {code}, both processes SUCCESS on "
+              f"one update: {losses} ({out_dir / name}.out)")
+        c1, recs = run_app(train_app.main, SHARD_LAUNCH_ARGV + legs[name][2],
+                           out_dir / f"{name}_one.jsonl")
+        (res,) = [r for r in recs if r.get("kind") == "result"]
+        one_losses = [r["loss"] for r in recs if r.get("kind") == "step"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], one_losses))
+        check(c1 == 0 and err <= SHARD_LAUNCH_RTOL,
+              f"launched {name} losses {losses[0]} vs one process "
+              f"{one_losses}: {err} > {SHARD_LAUNCH_RTOL}")
+        rows[name] = {"rc": code, "losses": losses[0],
+                      "one_process_losses": one_losses, "max_rel_err": err,
+                      "wire": [ln.split("over ", 1)[1].split(";")[0]
+                               for ln in text.splitlines()
+                               if "one flat allreduce" in ln][0],
+                      "launched_step_ms": [
+                          float(ln.split(" ms/step")[0].rsplit(" ", 1)[1])
+                          for ln in text.splitlines()
+                          if "ms/step" in ln and "train[" in ln],
+                      "one_process_step_ms": res["step_time_s"] * 1e3}
+    return rows
+
+
+def _shard_row(row: dict) -> dict:
+    """A kernel row's numbers at its shard shape, for the kernels line."""
+    return {k: row[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms") if k in row}
+
+
+def phase_sharded():
+    """dp, fsdp and tp as logical ranks of the card (module docstring,
+    item 12a). Returns the main path's launches by kernel and the shard
+    shapes' kernel rows."""
+    import dataclasses
+    import os
+    import shutil
+
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_sharded"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    L = TRAIN_MODEL["n_layers"]
+    B, T = TRAIN_BATCH
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, max_seq=T, attention="flash",
+                               mlp_impl="fused")
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           B, T, device=dev)
+    names = _leaf_names(tf.init_params(
+        dataclasses.replace(cfg, n_layers=1),
+        generator=torch.Generator().manual_seed(0), device="cpu"))
+    launches = {k: 0 for k in ("fwd", "fwd_lse", "dq", "dkv", "mlp_fwd",
+                               "mlp_fwd_save_a", "mlp_bwd_dx", "mlp_bwd_dw",
+                               "flash_decode", "paged_decode",
+                               "paged_decode_quant")}
+
+    # (a) tp 4 against no mesh at init, the two steps' stats, the app
+    l0, g0, st0 = _shard_step_stats(cfg, None, tokens)
+    mesh = {"tp": SHARD_TP}
+    l1, g1, st1 = _shard_step_stats(cfg, mesh, tokens)
+    gap = _cosine_gaps(names, g0, g1)
+    del g1
+    for key in fm.launches:
+        fm.launches[key] = 0
+    os.environ["HPCPAT_FUSED_MLP_BWD"] = "xla_a"
+    try:
+        la, ga = _shard_grads(cfg, mesh, tokens)[:2]
+    finally:
+        del os.environ["HPCPAT_FUSED_MLP_BWD"]
+    gap_a = _cosine_gaps(names, g0, ga)
+    del g0, ga
+    save_a = fm.launches["fwd_save_a"]
+    run = _train_run(["--steps", str(SHARD_STEPS), *TRAIN_BASE, "--tp",
+                      str(SHARD_TP), "--mlp-impl", "fused"],
+                     logs / "tp4.jsonl")
+    la_, ml, p = run["launches"], run["mlp_launches"], run["passes"]["grad"]
+    rel = abs(l1 - l0) / abs(l0)
+    emit({"phase": "sharded", "part": "a_tp4", "card": card,
+          "loss_no_mesh": l0, "loss_tp4": l1, "loss_rel_diff": rel,
+          "worst_gap": max(gap.values()), "grad_gap": gap,
+          "loss_tp4_xla_a": la, "worst_gap_xla_a": max(gap_a.values()),
+          "tol": {"loss_rel": SHARD_LOSS_RTOL, "gap": SHARD_GAP},
+          "no_mesh_step": st0, "tp4_step": st1,
+          "app": {"rc": run["code"], "success": run["res"]["success"],
+                  "losses": run["losses"], "step_ms":
+                  run["res"]["step_time_s"] * 1e3,
+                  "steps_ms": run["steps_ms"], "peak_bytes":
+                  run["peak_bytes"], "launches": la_, "mlp_launches": ml,
+                  "grad_passes": p}})
+    check(rel <= SHARD_LOSS_RTOL and max(gap.values()) <= SHARD_GAP
+          and max(gap_a.values()) <= SHARD_GAP,
+          f"tp 4 vs no mesh at init: loss {l1} vs {l0}, worst leaf 1 - "
+          f"cosine {max(gap.values())} (xla_a {max(gap_a.values())})")
+    check(save_a == SHARD_TP * L, f"xla_a at tp 4: the save-a forward "
+          f"once a rank and layer: {save_a}")
+    check(run["code"] == 0 and run["res"]["success"],
+          f"train_app --tp {SHARD_TP} SUCCESS (rc {run['code']})")
+    check(la_["fwd_lse"] == la_["dq"] == la_["dkv"] == L * p
+          and ml["fwd"] == ml["bwd_dx"] == ml["bwd_dw"] == SHARD_TP * L * p,
+          f"tp 4: kernel 1/3/4 once a layer (ranks folded), 8/9 once a "
+          f"rank and layer, x {p} grad passes: {la_} {ml}")
+    for k in ("fwd_lse", "dq", "dkv"):
+        launches[k] += la_[k]
+    for k in ("fwd", "bwd_dx", "bwd_dw"):
+        launches[f"mlp_{k}"] += ml[k]
+    launches["mlp_fwd_save_a"] += save_a
+
+    # (b) dp 2 x fsdp 2 x tp 2 with the resume check
+    dense = dataclasses.replace(cfg, mlp_impl="dense", fsdp=True)
+    _, _, st_dense = _shard_step_stats(
+        dataclasses.replace(dense, fsdp=False), None, tokens)
+    _, _, st2 = _shard_step_stats(dense, SHARD_MESHES["dp2_fsdp2_tp2"],
+                                  tokens)
+    run = _train_run(["--steps", str(SHARD_STEPS), *TRAIN_BASE, "--dp", "2",
+                      "--fsdp", "2", "--tp", "2", "--resume-check"],
+                     logs / "dp2_fsdp2_tp2.jsonl")
+    resume = [ln for ln in run["out"].splitlines() if "resume" in ln]
+    emit({"phase": "sharded", "part": "b_dp2_fsdp2_tp2", "card": card,
+          "rc": run["code"], "success": run["res"]["success"],
+          "losses": run["losses"], "step_ms": run["res"]["step_time_s"]
+          * 1e3, "steps_ms": run["steps_ms"], "peak_bytes":
+          run["peak_bytes"], "launches": run["launches"], "step": st2,
+          "no_mesh_dense_step": st_dense, "resume": resume})
+    check(run["code"] == 0 and run["res"]["success"]
+          and run["losses"][-1] < run["losses"][0] and resume,
+          f"dp2 fsdp2 tp2: SUCCESS with the resume bit for bit and the "
+          f"loss falling: {run['losses']} {resume}")
+    for k in ("fwd_lse", "dq", "dkv"):
+        launches[k] += run["launches"][k]
+
+    # (c) tp decode at the serving widths
+    serve_rows, n = _shard_serve(dataclasses.replace(
+        cfg, mlp_impl="dense"), dev)
+    for k, v in n.items():
+        launches[k] += v
+    emit({"phase": "sharded", "part": "c_tp4_decode", "card": card,
+          "shape": SHARD_SERVE, **serve_rows})
+
+    # (d) the launched legs
+    launched = _shard_launched(logs)
+    emit({"phase": "sharded", "part": "d_launched", "card": card,
+          "argv": SHARD_LAUNCH_ARGV, "tol": SHARD_LAUNCH_RTOL, **launched})
+    t_path = time.perf_counter() - t_phase
+
+    # the kernels at their shard shapes against their plain versions
+    kgen = torch.Generator(device="cuda").manual_seed(6)
+    tp = SHARD_TP
+    H = TRAIN_MODEL["n_heads"]
+    shard_rows = {"attention": train_kernel_cases(
+        kgen, B=B * tp, T=T, H=H // tp, Hkv=H // tp, D=128)}
+    shard_rows["mlp"] = fused_mlp_cases(kgen, N=B * T, D=TRAIN_MODEL[
+        "d_model"], F=TRAIN_MODEL["d_ff"] // tp)
+    s = SHARD_SERVE
+    S = s["prompt_len"] + s["new_tokens"]
+    shard_rows["flash_prefill"] = prefill_case(
+        kgen, B=s["rows"] * tp, T=s["prompt_len"], H=H // tp, Hkv=H // tp,
+        D=128)
+    for kv in ("bfloat16", "int8"):
+        shard_rows[f"flash_decode_{kv}"] = linear_decode_case(
+            kgen, B=s["rows"] * tp, H=H // tp, Hkv=H // tp, D=128, S=S,
+            pos=S - 1, kv=kv)
+        shard_rows[f"paged_decode_{kv}"] = decode_case(
+            kgen, B=s["rows"] * tp, H=H // tp, Hkv=H // tp, D=128,
+            P=s["page"], pages=-(-S // s["page"]), kv=kv)
+    for name, v in launches.items():
+        check(v > 0, f"sharded: {name} launched on the main path")
+    emit({"phase": "sharded", "part": "done", "cuts": SHARD_CUTS,
+          "launches": launches, "path_seconds": t_path,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, shard_rows
+
+
 def phase_stencil() -> dict:
     """``stencil_app`` in this process on the card at world 8, ``-p 22``
     and ``-p 26`` (16 and 256 MiB of f32), 64 steps: both oracles, the
@@ -5395,6 +5824,7 @@ def main() -> int:
     mlp_rows = timed("kernels", fused_mlp_cases, tgen, **MLP_SHAPE)
     launches_train = timed("train", phase_train)
     launches_par = timed("parallel", phase_parallel)
+    launches_sh, shard_rows = timed("sharded", phase_sharded)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5412,7 +5842,8 @@ def main() -> int:
          + launches_fit["flash_prefill"]
          + launches_tiered["flash_prefill"]
          + launches_spec["flash_prefill"]
-         + launches_plane["flash_prefill"] + launches_par["fwd"],
+         + launches_plane["flash_prefill"] + launches_par["fwd"]
+         + launches_sh["fwd"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
@@ -5422,9 +5853,11 @@ def main() -> int:
                               "spec": launches_spec["flash_prefill"],
                               "plane": launches_plane["flash_prefill"],
                               "parallel_moe": launches_par["fwd"],
+                              "sharded_tp4_decode": launches_sh["fwd"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd"]},
-         **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)}},
+         **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)},
+         "shard_shape": _shard_row(shard_rows["flash_prefill"])},
         {"name": "paged_decode", "route": "cuda",
          "source": f"{PKG}/csrc/paged_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
@@ -5434,22 +5867,24 @@ def main() -> int:
          + launches_fit["paged_decode"]
          + launches_tiered["paged_decode"]
          + launches_spec["paged_decode"]
-         + launches_plane["paged_decode"],
+         + launches_plane["paged_decode"] + launches_sh["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
                               "fit": launches_fit["paged_decode"],
                               "tiered": launches_tiered["paged_decode"],
                               "spec": launches_spec["paged_decode"],
-                              "plane": launches_plane["paged_decode"]},
-         **{k: rows["paged_decode"][k] for k in keys}},
+                              "plane": launches_plane["paged_decode"],
+                              "sharded_tp4": launches_sh["paged_decode"]},
+         **{k: rows["paged_decode"][k] for k in keys},
+         "shard_shape": _shard_row(shard_rows["paged_decode_bfloat16"])},
         {"name": "flash_decode", "route": "cuda",
          "source": f"{PKG}/csrc/flash_decode.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:84",
          "launches": launches_quant["flash_decode"]
          + launches_quant["row"]["flash_decode"]
          + launches_train["flash_decode"] + launches_spec["flash_decode"]
-         + launches_par["flash_decode"],
+         + launches_par["flash_decode"] + launches_sh["flash_decode"],
          "launches_by_path": {"quant": launches_quant["flash_decode"],
                               "quant_row_law":
                               launches_quant["row"]["flash_decode"],
@@ -5457,8 +5892,11 @@ def main() -> int:
                               launches_train["flash_decode"],
                               "moe_generate": launches_par["flash_decode"],
                               "bench_speculative":
-                              launches_spec["flash_decode"]},
+                              launches_spec["flash_decode"],
+                              "sharded_tp4": launches_sh["flash_decode"]},
          **{k: rows["flash_decode"][k] for k in keys},
+         "shard_shape": {kv: _shard_row(shard_rows[f"flash_decode_{kv}"])
+                         for kv in ("bfloat16", "int8")},
          "by_cache": {c: {k: r[k] for k in ("ms", "library_ms", "bound_ms",
                                             "max_abs_err", "n_chunks")}
                       for c, r in rows["flash_decode_by_cache"].items()},
@@ -5472,14 +5910,18 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/ops/flash_decode.py:216",
          "launches": launches_quant["paged_decode"]
          + launches_quant["row"]["paged_decode"]
-         + launches_spec["paged_decode_quant"],
+         + launches_spec["paged_decode_quant"]
+         + launches_sh["paged_decode_quant"],
          "launches_by_path": {"quant_int8_flash":
                               launches_quant["paged_decode"],
                               "quant_row_bf16_and_int8":
                               launches_quant["row"]["paged_decode"],
                               "spec_int8":
-                              launches_spec["paged_decode_quant"]},
-         **{k: rows["paged_decode_quant"][k] for k in keys}},
+                              launches_spec["paged_decode_quant"],
+                              "sharded_tp4_int8":
+                              launches_sh["paged_decode_quant"]},
+         **{k: rows["paged_decode_quant"][k] for k in keys},
+         "shard_shape": _shard_row(shard_rows["paged_decode_int8"])},
         {"name": "paged_attention", "route": "cuda",
          "source": f"{PKG}/csrc/paged_attention.cu",
          "replaces": "hpc_patterns_tpu/ops/paged_attention.py:61",
@@ -5538,14 +5980,17 @@ def main() -> int:
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:125",
          "launches": launches_train["flash_fwd_lse"]
          + launches_tiered["fwd_lse"]
-         + launches_spec["build"]["fwd_lse"] + launches_par["fwd_lse"],
+         + launches_spec["build"]["fwd_lse"] + launches_par["fwd_lse"]
+         + launches_sh["fwd_lse"],
          "launches_by_path": {"train": launches_train["flash_fwd_lse"],
                               "tiered": launches_tiered["fwd_lse"],
                               "parallel": launches_par["fwd_lse"],
+                              "sharded": launches_sh["fwd_lse"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd_lse"]},
          **{k: train_rows["flash_fwd_lse"][k]
-            for k in keys + ("tflops",)}},
+            for k in keys + ("tflops",)},
+         "shard_shape": _shard_row(shard_rows["attention"]["flash_fwd_lse"])},
         {"name": "fused_bwd", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:235",
@@ -5555,34 +6000,45 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
          "launches": launches_train["dq"] + launches_tiered["dq"]
-         + launches_spec["build"]["dq"] + launches_par["dq"],
+         + launches_spec["build"]["dq"] + launches_par["dq"]
+         + launches_sh["dq"],
          "launches_by_path": {"train": launches_train["dq"],
                               "tiered": launches_tiered["dq"],
                               "parallel": launches_par["dq"],
+                              "sharded": launches_sh["dq"],
                               "spec_pair_build":
                                   launches_spec["build"]["dq"]},
-         **{k: train_rows["dq"][k] for k in keys + rel}},
+         **{k: train_rows["dq"][k] for k in keys + rel},
+         "shard_shape": _shard_row(shard_rows["attention"]["dq"])},
         {"name": "dkv", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
          "launches": launches_train["dkv"] + launches_tiered["dkv"]
-         + launches_spec["build"]["dkv"] + launches_par["dkv"],
+         + launches_spec["build"]["dkv"] + launches_par["dkv"]
+         + launches_sh["dkv"],
          "launches_by_path": {"train": launches_train["dkv"],
                               "tiered": launches_tiered["dkv"],
                               "parallel": launches_par["dkv"],
+                              "sharded": launches_sh["dkv"],
                               "spec_pair_build":
                                   launches_spec["build"]["dkv"]},
-         **{k: train_rows["dkv"][k] for k in keys + rel}},
+         **{k: train_rows["dkv"][k] for k in keys + rel},
+         "shard_shape": _shard_row(shard_rows["attention"]["dkv"])},
         *({"name": name, "route": "cuda",
            "source": f"{PKG}/csrc/fused_mlp.cu",
            "replaces": f"hpc_patterns_tpu/ops/fused_mlp.py:{line}",
-           "launches": launches_train[name],
+           "launches": launches_train[name]
+           + launches_sh[name.replace("fused_", "")],
            **({"launches_by_run": {
-               r: m[name.replace("fused_mlp_", "")]
-               for r, m in launches_train["fused_mlp_by_run"].items()}}
+               **{r: m[name.replace("fused_mlp_", "")]
+                  for r, m in launches_train["fused_mlp_by_run"].items()},
+               "sharded": launches_sh[name.replace("fused_", "")]}}
               if name != "fused_mlp_fwd_save_a" else
-              {"launches_by_run": {"xla_a step": launches_train[name]}}),
-           **{k: mlp_rows[name][k] for k in keys + rel + ("launch_plan",)}}
+              {"launches_by_run": {
+                  "xla_a step": launches_train[name],
+                  "sharded_tp4_xla_a": launches_sh["mlp_fwd_save_a"]}}),
+           **{k: mlp_rows[name][k] for k in keys + rel + ("launch_plan",)},
+           "shard_shape": _shard_row(shard_rows["mlp"][name])}
           for name, line in (("fused_mlp_fwd", 65),
                              ("fused_mlp_fwd_save_a", 148),
                              ("fused_mlp_bwd_dx", 93),

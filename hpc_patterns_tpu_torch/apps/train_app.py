@@ -1,6 +1,6 @@
 """Trainer app: the transformer trained end to end on one device — the
-counterpart of ``hpc_patterns_tpu/apps/train_app.py``, with its ``sp``
-and ``ep`` mesh axes as logical ranks of that device.
+counterpart of ``hpc_patterns_tpu/apps/train_app.py``, with its dp,
+fsdp, sp, tp and ep mesh axes as logical ranks of that device.
 
 Self-validating: the loss must be finite every step (the run halts at
 the first non-finite one) and fall over the run on one static batch;
@@ -50,16 +50,42 @@ says so. ``--generate`` decodes an MoE model drop-free:
         --batch 8 --seq 2048 --d-model 1024 --n-layers 8 --n-heads 8 \
         --vocab 32768 --generate 16
 
-Not ported yet (each prints ``ERROR: ... not ported yet`` and FAILURE):
-parameter and batch sharding (``--dp/--fsdp/--tp`` > 1, ``--dcn-dp``)
-and ``--pp``, which need processes (the multi-process slice).
+``--dp``, ``--fsdp`` and ``--tp`` shard the batch, the params (and
+moments) and the heads/features as logical ranks too (JAX's mesh: dp,
+fsdp, sp, tp, ep; ``models/sharding.py``): the result line carries
+JAX's labels (``dp=``, ``fsdp=``, ``tp=``) and ``--resume-check`` holds
+bit for bit on the sharded state; ``--generate`` gathers the trained
+params and decodes unsharded:
+
+    python -m hpc_patterns_tpu_torch.apps.train_app --attention flash \
+        --dp 2 --fsdp 2 --tp 2 --steps 5 --batch 8 --seq 2048 \
+        --d-model 1024 --n-layers 8 --n-heads 8 --vocab 32768 \
+        --mlp-impl fused --resume-check
+
+Under ``apps/launch.py`` each process holds a block of the dp ranks and
+their rows of the batch; the gradient mean across processes is one flat
+allreduce over the gloo wire (the line says so). ``--dcn-dp`` lays dp
+across slices (``launch.py --slices``: one slice a process) and every
+other axis inside one; ``--dp -1`` takes the slice count, which in one
+process is 1:
+
+    python -m hpc_patterns_tpu_torch.apps.launch -np 2 \
+        --cpu-devices-per-proc 2 --slices 2 -- python -m \
+        hpc_patterns_tpu_torch.apps.train_app --dcn-dp --dp -1 --tp 2 \
+        --steps 2 --batch 4 --seq 32 --d-model 32 --n-layers 1 \
+        --vocab 128 --device cpu
+
+Not ported yet (prints ``ERROR: ... not ported yet`` and FAILURE):
+``--pp`` (ROADMAP queue 1 item 5.6).
 """
 
 from __future__ import annotations
 
+import math
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -77,6 +103,7 @@ from hpc_patterns_tpu_torch.models.train import (
 from hpc_patterns_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
     TransformerConfig,
+    shards_params,
 )
 from hpc_patterns_tpu_torch.topology import resolve_device
 
@@ -106,10 +133,17 @@ def build_parser():
                         "never materialize (0 = dense)")
     p.add_argument("--pos-embed", default="learned",
                    choices=["learned", "rope"])
-    for axis in ("dp", "fsdp", "tp", "pp"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis size (only 1: needs the "
-                            "multi-process slice)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks (logical ranks; the batch's "
+                        "row blocks; -1 with --dcn-dp = the slice count)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fully-sharded data parallelism (ZeRO-3): params, "
+                        "grads and moments shard over this many ranks, "
+                        "the batch over dp*fsdp")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron column/row)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (not ported yet)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks (logical ranks of one "
                         "device) for the ring/ulysses attentions")
@@ -117,7 +151,10 @@ def build_parser():
                    help="expert-parallel ranks (logical ranks of one "
                         "device; requires --n-experts)")
     p.add_argument("--dcn-dp", action="store_true",
-                   help="multi-slice placement (not ported yet)")
+                   help="multi-slice placement: dp across slices (one "
+                        "slice a launched process), every other axis "
+                        "within one; --dp must equal the slice count "
+                        "(-1 = auto, which in one process is dp=1)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="microbatches per step for --pp (not ported yet)")
     p.add_argument("--n-experts", type=int, default=0,
@@ -160,33 +197,74 @@ def build_parser():
     return p
 
 
-#: what the flags that need processes wait for
-MULTI_PROCESS = "the multi-process slice (apps/launch.py, torch.distributed)"
-
-
 def _unported(args) -> str | None:
     """The first flag this port cannot run yet, named, or None."""
-    for axis in ("dp", "fsdp", "tp"):
-        if getattr(args, axis) > 1:
-            return (f"--{axis} {getattr(args, axis)} (parameter/batch "
-                    f"sharding waits for {MULTI_PROCESS})")
-    checks = [(args.dcn_dp, f"--dcn-dp (multi-slice meshes wait for "
-                            f"{MULTI_PROCESS})"),
-              (args.pp > 1, f"--pp {args.pp} (pipeline parallelism waits "
-                            f"for {MULTI_PROCESS})")]
-    return next((what for bad, what in checks if bad), None)
+    if args.pp > 1:
+        return (f"--pp {args.pp} (pipeline parallelism: ROADMAP queue 1 "
+                "item 5.6)")
+    return None
 
 
-def _mesh(args) -> dict | None:
-    """JAX's mesh for the ported axes: ``sp`` (always, once a mesh is
-    needed) and ``ep`` when > 1; None when every axis is 1 and the
-    attention needs no mesh. Its ranks are logical ranks of one device."""
-    if args.sp * args.ep == 1 and args.attention in ("full", "flash"):
-        return None
-    mesh = {"sp": args.sp}
+def _ici_axes(args) -> dict:
+    """JAX's axes inside a slice, in its order: fsdp (when > 1), sp, tp,
+    ep (when > 1)."""
+    axes = {"fsdp": args.fsdp} if args.fsdp > 1 else {}
+    axes.update(sp=args.sp, tp=args.tp)
     if args.ep > 1:
-        mesh["ep"] = args.ep
-    return mesh
+        axes["ep"] = args.ep
+    return axes
+
+
+def _mesh(args, nprocs: int):
+    """(global mesh or None, label) — JAX's mesh (``train_app.py:
+    556-590``): dp, fsdp, sp, tp, ep, or with ``--dcn-dp`` dp across the
+    slices (``topology.make_hybrid_mesh``); None when every axis is 1
+    and the attention needs no mesh. Raises ``topology.TopologyError``
+    with JAX's messages."""
+    from hpc_patterns_tpu_torch import topology
+
+    if args.dcn_dp:
+        ici = _ici_axes(args)
+        ici_size = math.prod(ici.values())
+        # one process holds as many logical ranks as a slice needs; a
+        # launched one holds its --cpu-devices-per-proc
+        local = topology.local_ranks_from_env() if nprocs > 1 else ici_size
+        groups = topology.group_by_slice(local)
+        n_slices = len(groups)
+        dp = n_slices if args.dp == -1 else args.dp
+        if dp != n_slices:
+            raise topology.TopologyError(
+                f"--dcn-dp places dp across slices: --dp {args.dp} != "
+                f"slice count {n_slices} (use -1 for auto)")
+        picked = {s: r[:ici_size] for s, r in groups.items()}
+        try:
+            mesh = topology.make_hybrid_mesh({"dp": dp}, ici, picked)
+        except topology.TopologyError as e:
+            raise topology.TopologyError(f"--dcn-dp: {e}") from None
+        return mesh, f" dcn-dp={dp}"
+    axes = {"dp": args.dp, **_ici_axes(args)}
+    if math.prod(axes.values()) == 1 \
+            and args.attention in ("full", "flash"):
+        return None, ""
+    # the axes of size 1 other than sp carry nothing
+    mesh = {a: n for a, n in topology.make_mesh(axes).items()
+            if n > 1 or a == "sp"}
+    return mesh, f" dp={args.dp}" if args.dp > 1 else ""
+
+
+def _local_mesh(mesh, nprocs: int, batch: int):
+    """This process's block of ``mesh``: the dp ranks divide over the
+    processes (tp, fsdp, sp and ep stay inside a process, as JAX's
+    dcn-dp keeps them inside a slice). Raises ValueError."""
+    if nprocs == 1:
+        return mesh
+    dp = (mesh or {}).get("dp", 1)
+    if dp % nprocs or batch % nprocs:
+        raise ValueError(
+            f"dp {dp} and --batch {batch} must divide over the {nprocs} "
+            "processes (each holds a block of the dp ranks; tp, fsdp, sp "
+            "and ep stay inside a process)")
+    return {**mesh, "dp": dp // nprocs}
 
 
 def _fail(log, msg) -> int:
@@ -219,9 +297,13 @@ def _batches(args, cfg, dev):
 
 
 def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
-                residency=None, mesh=None) -> int:
+                residency=None, mesh=None, label="", procs=(0, 1)) -> int:
+    pid, nprocs = procs
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = make_batch(gen, cfg, args.batch, args.seq, device=dev)
+    if nprocs > 1:  # this process's dp ranks' rows of the global batch
+        rows = args.batch // nprocs
+        tokens = tokens[pid * rows:(pid + 1) * rows]
     batch_iter = _batches(args, cfg, dev)
     losses, t_steps = [], []
     ckpt_path = None
@@ -229,6 +311,9 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
     for i in range(args.steps):
         t0 = time.perf_counter()
         batch = next(batch_iter) if batch_iter is not None else tokens
+        if batch_iter is not None and nprocs > 1:
+            rows = batch.shape[0] // nprocs
+            batch = batch[pid * rows:(pid + 1) * rows]
         loss, params, opt_state = step_fn(params, opt_state, batch)
         loss_val = float(loss)  # blocks: the readback is the fence
         t_steps.append(time.perf_counter() - t0)
@@ -275,6 +360,9 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
                   "(diverged state)")
 
     resume_ok = True
+    # a sharded state saves its global tensors, restores into its layout
+    sharded = ({"mesh": mesh, "cfg": cfg} if shards_params(mesh, cfg)
+               else {})
     if diverged:
         pass
     elif args.resume_check:
@@ -283,9 +371,12 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
             save_checkpoint,
         )
 
-        ckdir = args.checkpoint_dir or tempfile.mkdtemp(prefix="hpcpat_ckpt_")
-        ckpt_path = save_checkpoint(ckdir, params, opt_state, step=args.steps)
-        r_params, r_opt, r_step = restore_checkpoint(ckdir, params, opt_state)
+        ckdir = _ckdir(args, pid, nprocs) or tempfile.mkdtemp(
+            prefix="hpcpat_ckpt_")
+        ckpt_path = save_checkpoint(ckdir, params, opt_state, step=args.steps,
+                                    **sharded)
+        r_params, r_opt, r_step = restore_checkpoint(ckdir, params, opt_state,
+                                                     **sharded)
         if residency is not None:
             from hpc_patterns_tpu_torch.models.train import offload_opt_state
 
@@ -299,23 +390,31 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
     elif args.checkpoint_dir:
         from hpc_patterns_tpu_torch.utils.checkpoint import save_checkpoint
 
-        ckpt_path = save_checkpoint(args.checkpoint_dir, params, opt_state,
-                                    step=args.steps)
+        ckpt_path = save_checkpoint(_ckdir(args, pid, nprocs), params,
+                                    opt_state, step=args.steps, **sharded)
         log.print(f"saved {ckpt_path}")
 
     generate_ok = True
     if diverged:
         pass
+    elif args.generate and nprocs > 1:
+        log.print("note: --generate skipped (multi-process run)")
     elif args.generate and args.seq // 2 + args.generate > cfg.max_seq:
         log.print(f"note: --generate {args.generate} skipped (prompt "
                   f"{args.seq // 2} + N > max_seq {cfg.max_seq})")
     elif args.generate:
         from hpc_patterns_tpu_torch.models.decode import greedy_generate
 
+        from hpc_patterns_tpu_torch.models.sharding import unshard_params
+
         prompt = tokens[:, :args.seq // 2]
         with torch.no_grad():
-            toks = greedy_generate(params, prompt, cfg, args.generate,
+            # sharded params are gathered first, as JAX decodes them
+            p_local = unshard_params(params, mesh, cfg) if sharded \
+                else params
+            toks = greedy_generate(p_local, prompt, cfg, args.generate,
                                    device=dev)
+            del p_local
         generate_ok = (tuple(toks.shape) == (prompt.shape[0], args.generate)
                        and int(toks.min()) >= 0
                        and int(toks.max()) < cfg.vocab)
@@ -328,6 +427,13 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
     tokens_per_s = args.batch * args.seq / step_s
     ranks = {} if mesh is None else {
         "mesh_ranks": "logical ranks of one device"}
+    if nprocs > 1:
+        from hpc_patterns_tpu_torch.comm.processes import wire
+
+        ranks = {"mesh_ranks": f"logical ranks of one device, a block of "
+                               f"the dp ranks in each of {nprocs} "
+                               "processes",
+                 "grad_mean": wire(dev), "losses": losses}
     log.emit(kind="result", name="train", success=ok, steps=args.steps,
              loss_first=losses[0], loss_last=losses[-1], step_time_s=step_s,
              tokens_per_s=tokens_per_s, mesh=mesh, **ranks,
@@ -335,15 +441,30 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
              checkpoint=ckpt_path, device=str(dev), **offload)
     on_mesh = ("" if mesh is None else
                f" on mesh {mesh} (logical ranks of one device)")
-    log.print(f"train[{args.attention}] {args.steps} steps{on_mesh}: loss "
-              f"{losses[0]:.4f}->{losses[-1]:.4f}, {step_s * 1e3:.1f} ms/step,"
-              f" {tokens_per_s:,.0f} tok/s")
+    if nprocs > 1:
+        log.print(f"process {pid} of {nprocs}: dp ranks {mesh} here; the "
+                  f"gradient mean across processes: one flat allreduce "
+                  f"over {ranks['grad_mean']}; losses {losses}")
+    log.print(f"train[{args.attention}{label}] {args.steps} steps{on_mesh}: "
+              f"loss {losses[0]:.4f}->{losses[-1]:.4f}, "
+              f"{step_s * 1e3:.1f} ms/step, {tokens_per_s:,.0f} tok/s")
     verdict = Verdict(success=ok, messages=("SUCCESS" if ok else "FAILURE",))
     log.print(verdict.summary_line())
     return verdict.exit_code
 
 
+def _ckdir(args, pid: int, nprocs: int):
+    """``--checkpoint-dir``, a subdirectory a process when launched."""
+    if not args.checkpoint_dir or nprocs == 1:
+        return args.checkpoint_dir
+    return str(Path(args.checkpoint_dir) / f"process_{pid}")
+
+
 def run(args) -> int:
+    from hpc_patterns_tpu_torch import topology
+
+    topology.init_distributed_from_env()  # no-op unless launched
+    pid, nprocs, _ = topology.process_env_info()
     log = RunLog(args.log, truncate=not args.log_append)
     if args.prefetch < 0:
         return _fail(log, f"--prefetch must be >= 0, got {args.prefetch}")
@@ -368,7 +489,29 @@ def run(args) -> int:
                           "(--sp 1); use ring_flash for a sharded sequence")
     if args.seq % args.sp:
         return _fail(log, f"--seq {args.seq} must divide by --sp {args.sp}")
-    mesh = _mesh(args)
+    if args.dp != 1 and not (args.dcn_dp and args.dp == -1) and args.dp < 1:
+        return _fail(log, f"--dp {args.dp} must be >= 1 (-1 only with "
+                          "--dcn-dp)")
+    try:
+        mesh, label = _mesh(args, nprocs)
+        dp = (mesh or {}).get("dp", 1)
+        if args.batch % (dp * args.fsdp):
+            raise ValueError(f"--batch {args.batch} must divide by dp*fsdp "
+                             f"({dp}*{args.fsdp})")
+        if args.tp > 1 and args.n_heads % args.tp:
+            raise ValueError(f"--n-heads {args.n_heads} must divide by "
+                             f"--tp {args.tp}")
+        if args.tp > 1 and (4 * args.d_model) % args.tp:
+            raise ValueError(f"d_ff {4 * args.d_model} must divide by "
+                             f"--tp {args.tp}")
+        if args.tp > 1 and args.vocab % args.tp:
+            raise ValueError(f"--vocab {args.vocab} must divide by "
+                             f"--tp {args.tp}")
+        label += (f" fsdp={args.fsdp}" if args.fsdp > 1 else "") + (
+            f" tp={args.tp}" if args.tp > 1 else "")
+        local = _local_mesh(mesh, nprocs, args.batch)
+    except ValueError as e:
+        return _fail(log, str(e))
     try:
         cfg = TransformerConfig(
             vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
@@ -378,18 +521,18 @@ def run(args) -> int:
             remat=args.remat, remat_policy=args.remat_policy,
             mlp_impl=args.mlp_impl, n_experts=args.n_experts,
             n_experts_top_k=args.n_experts_top_k,
-            moe_dispatch=args.moe_dispatch)
+            moe_dispatch=args.moe_dispatch, fsdp=args.fsdp > 1)
         optimizer = make_optimizer(args.lr, schedule=args.schedule,
                                    warmup_steps=args.warmup_steps,
                                    total_steps=args.steps)
         step_fn = make_train_step(cfg, optimizer=optimizer,
-                                  accum_steps=args.accum, mesh=mesh)
+                                  accum_steps=args.accum, mesh=local)
     except ValueError as e:
         return _fail(log, str(e))
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params, opt_state = init_train_state(gen, cfg, optimizer, device=dev,
-                                         mesh=mesh)
+                                         mesh=local)
     residency = None
     if args.offload_opt:
         from hpc_patterns_tpu_torch.memory import ResidencyManager
@@ -409,10 +552,10 @@ def run(args) -> int:
             step_fn = make_train_step(cfg, optimizer=optimizer,
                                       accum_steps=args.accum,
                                       offload_opt_example=opt_state,
-                                      residency=residency, mesh=mesh)
+                                      residency=residency, mesh=local)
             log.print("optimizer state offloaded to pinned_host")
     return _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
-                       residency, mesh)
+                       residency, local, label, (pid, nprocs))
 
 
 def main(argv=None) -> int:

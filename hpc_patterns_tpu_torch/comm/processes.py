@@ -190,6 +190,26 @@ def gather_rows(x: torch.Tensor, block: RankBlock) -> torch.Tensor:
     return _from_bytes(buf.reshape(block.world, -1), x, block.world)
 
 
+def allreduce_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` (f32) over every process of the group, in one
+    gloo ``all_reduce``: a card tensor goes through a pinned host copy
+    and back (on the compute stream's order); ``x`` itself with no
+    group."""
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() < 2:
+        return x
+    n = dist.get_world_size()
+    if x.device.type == "cuda":
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
+    else:
+        h = x.clone()
+    dist.all_reduce(h)
+    h /= n
+    return h.to(x.device, non_blocking=True) if x.is_cuda else h
+
+
 def host_values(value: float) -> list[float]:
     """``value`` from every process of the group, in process order; just
     ``[value]`` with no group."""

@@ -1,5 +1,5 @@
 """Prefill and decode over the linear and the paged KV cache: the
-counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
+counterpart of ``hpc_patterns_tpu/models/decode.py``.
 
 - :func:`prefill` runs the prompt in one batched pass and captures each
   layer's K/V (the bucketed ``last_pos`` route included); padded
@@ -23,6 +23,22 @@ counterpart of ``hpc_patterns_tpu/models/decode.py`` (no mesh).
   :func:`paged_extend_step` verifies a ragged multi-token chunk against
   the pools (speculative decoding's target step; plain PyTorch, as JAX's
   is XLA).
+
+``mesh=`` (a ``{axis: size}`` dict of logical ranks; only its ``tp`` axis
+shapes decode, as in JAX) is tp-sharded serving (JAX ``decode.py:64-131``):
+the params are their tp shards (``models/sharding.shard_params``, once a
+call), the qkv and MLP-in projections column-parallel, ``wo``, ``w2``
+row-parallel with the sums over the tp ranks, the logits vocab-sharded
+and gathered; where tp divides ``kv_heads`` (:func:`_kv_ranks`) the
+cache and the page pools are kv-head-sharded over tp in contiguous head
+blocks (q head k·g+j stays with kv head k), stored rank-stacked (tp, B,
+kv_heads/tp, ...), and every decode kernel runs on each rank's block in
+one launch over the folded ranks: kernel 5 on the linear cache, kernels
+6/6q (and 7) through the page table, kernel 1 for the prompt. Otherwise
+(JAX's warning, reworded: only the head sharding is lost) the cache
+stays whole and the same kernels run on it, q gathered, as without a
+mesh; JAX takes its gather route there only because its partitioner
+cannot split a kernel call.
 
 Every path runs each layer's MLP through ``transformer.mlp``: the dense
 MLP for either ``mlp_impl`` (JAX decode never reads it), or for an MoE
@@ -52,18 +68,27 @@ named compile event.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
 from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
+    _heads_to_ranks,
     _rmsnorm,
     apply_rope,
     layer_params,
+    lm_logits,
+    local_params,
+    logical_mesh,
     matmul_weight,
     mlp,
     project_qkv,
+    shards_params,
+    tp_size,
+    tp_stack,
 )
 from hpc_patterns_tpu_torch.ops.flash_attention import flash_attention
 from hpc_patterns_tpu_torch.ops.flash_decode import (
@@ -77,6 +102,7 @@ from hpc_patterns_tpu_torch.ops.flash_decode import (
 )
 from hpc_patterns_tpu_torch.ops.paged_attention import paged_attention_decode
 from hpc_patterns_tpu_torch.parallel.ring_attention import full_attention
+from hpc_patterns_tpu_torch.parallel.tensor import row_parallel_out
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 #: KV storage dtypes carrying per-row dequant scales
@@ -88,6 +114,57 @@ FP8_MAX = 448.0
 
 def _kv_quantized(cfg: TransformerConfig) -> bool:
     return cfg.kv_cache_dtype in KV_QUANTIZED
+
+
+def _kv_ranks(mesh, cfg: TransformerConfig) -> int:
+    """The tp ranks the cache is sharded over: tp where it divides
+    ``kv_heads`` (any route). The ONE tp layout of the linear and paged
+    routes: every cache, pool and scale leaf shards its kv-head dim in
+    contiguous blocks, stored stacked with the rank first (JAX
+    ``_tp_serving_specs``). Where tp does not divide ``kv_heads`` it is 1
+    with JAX's warning: the cache stays whole and every route, the
+    decode kernels included, runs on it as without a mesh."""
+    tp = tp_size(mesh, cfg)
+    if tp > 1 and cfg.kv_heads % tp:
+        warnings.warn(
+            f"decode: tp size {tp} does not divide kv_heads "
+            f"{cfg.kv_heads}; the KV cache stays unsharded and the decode "
+            "kernels run on it whole (only the kv-head sharding is lost) "
+            "— use a tp that divides kv_heads to shard the cache",
+            stacklevel=3)
+        return 1
+    return tp
+
+
+def _serving_params(params, cfg: TransformerConfig, mesh):
+    """The checked mesh and the params as the steps take them: their
+    shards on a mesh that shards params (one copy a call; a sharded tree
+    passes through)."""
+    mesh = logical_mesh(mesh, cfg)
+    if shards_params(mesh, cfg):
+        from hpc_patterns_tpu_torch.models.sharding import shard_params
+
+        params = shard_params(params, mesh, cfg)
+    return params, mesh
+
+
+def _fold(t):
+    """(tp, B, ...) -> (tp·B, ...): every rank's rows in one launch."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def _attn_out(o, lp, dt, lead, stacked: bool):
+    """The attention output through ``wo``: ``o`` (*lead, H, Dh), or its
+    tp ranks' head blocks (tp, *lead, H/tp, Dh) when ``stacked``;
+    row-parallel over tp-stacked ``wo`` (the partial products summed
+    over the ranks)."""
+    wo = matmul_weight(lp, "wo", dt)
+    tp = tp_stack(wo)
+    if tp == 1:
+        return o.reshape(*lead, wo.shape[0]).to(dt) @ wo
+    if not stacked:
+        o = o.reshape(*lead, tp, -1).movedim(-2, 0)
+    return row_parallel_out(o.reshape(tp, *lead, -1).to(dt), wo)
 
 
 def _kv_storage_dtype(cfg: TransformerConfig) -> torch.dtype:
@@ -132,7 +209,7 @@ def _quantize_cache(cache, cfg: TransformerConfig):
 
 
 def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
-            last_pos=None):
+            last_pos=None, mesh=None):
     """The prompt (B, T) in one pass, capturing K/V. Returns
     (logits (B, vocab) f32, cache): per-layer (B, kv_heads, max_len,
     head_dim) "k"/"v" in the compute dtype, zero past T — or, for a
@@ -140,19 +217,24 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
     (B, kv_heads, max_len) f32 "k_scale"/"v_scale". ``last_pos``: int or
     (B,) — the position whose logits come back (default the last): the
     bucketed-prompt route, where a prompt right-padded to a ladder rung
-    answers for its true end."""
+    answers for its true end. ``mesh``: tp-sharded serving (module
+    docstring); a kv-head-sharded cache comes back stacked (tp, B,
+    kv_heads/tp, max_len, head_dim) (scales (tp, B, kv_heads/tp,
+    max_len))."""
     B, T = prompt.shape
     if not 0 < T <= max_len <= cfg.max_seq:
         raise ValueError(f"need 0 < prompt len {T} <= max_len {max_len} "
                          f"<= max_seq {cfg.max_seq}")
+    params, mesh = _serving_params(params, cfg, mesh)
+    top, layers = local_params(params, cfg, mesh)
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"].to(dt)[prompt]
+    x = top["embed"].to(dt)[prompt]
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"].to(dt)[:T]
+        x = x + top["pos_embed"].to(dt)[:T]
     use_flash = cfg.decode_attn == "flash" and T % 128 == 0
+    tp = _kv_ranks(mesh, cfg)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+    for lp in layers:
         hn = _rmsnorm(x, lp["ln1_scale"])
         q, k, v = project_qkv(hn, lp, cfg)
         if cfg.pos_embed == "rope":
@@ -160,58 +242,63 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
             pos = torch.arange(T, device=x.device)
             q = apply_rope(q, pos, cfg)
             k = apply_rope(k, pos, cfg)
+        if tp > 1:  # each rank's head block, every rank in one launch
+            q, k, v = (_fold(_heads_to_ranks(t, tp)) for t in (q, k, v))
         if use_flash:
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
             o = full_attention(q, k, v, causal=True)
-        x = x + o.reshape(B, T, cfg.d_model) @ matmul_weight(lp, "wo", dt)
+        if tp > 1:
+            o, k, v = (t.reshape(tp, B, *t.shape[1:]) for t in (o, k, v))
+        x = x + _attn_out(o, lp, dt, (B, T), tp > 1)
         x = mlp(x, lp, cfg)
-        # capture in kernel layout (B, Hkv, max_len, D)
+        # capture in kernel layout ([tp,] B, Hkv[/tp], max_len, D)
         for store, t in ((ks, k), (vs, v)):
-            c = t.new_zeros((B, cfg.kv_heads, max_len, cfg.head_dim),
-                            dtype=dt)
-            c[:, :, :T] = t.transpose(1, 2)
+            c = t.new_zeros((*t.shape[:-3], t.shape[-2], max_len,
+                             cfg.head_dim), dtype=dt)
+            c[..., :T, :] = t.transpose(-3, -2)
             store.append(c)
-    x = _rmsnorm(x, params["ln_f_scale"])
+    x = _rmsnorm(x, top["ln_f_scale"])
     if last_pos is None:
         x_last = x[:, -1]
     else:
         lp_ = torch.as_tensor(last_pos, device=x.device).long()
         x_last = x[torch.arange(B, device=x.device),
                    lp_.expand(B) if lp_.ndim == 0 else lp_]
-    logits = x_last @ matmul_weight(params, "lm_head", dt)
-    return logits.float(), _quantize_cache({"k": tuple(ks), "v": tuple(vs)},
-                                           cfg)
+    return lm_logits(x_last, top), _quantize_cache(
+        {"k": tuple(ks), "v": tuple(vs)}, cfg)
 
 
-def _token_step(params, pos, tokens, cfg: TransformerConfig, attend):
+def _token_step(params, pos, tokens, cfg: TransformerConfig, attend,
+                mesh=None, stacked: bool = False):
     """Shared single-token skeleton: embed (+ learned position), per
     layer norm -> qkv -> rope at ``pos`` -> ``attend(l, q, k_new,
     v_new) -> o`` (the cache write + attention) -> wo -> MLP; final norm
-    and lm_head. Returns logits (B, vocab) f32."""
+    and lm_head. Returns logits (B, vocab) f32. ``mesh``: tp serving
+    (``params`` their shards); ``stacked``: ``attend`` returns the tp
+    ranks' head blocks (a kv-head-sharded cache)."""
     dt = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
-    x = params["embed"].to(dt)[tokens]  # (B, D)
+    top, layers = local_params(params, cfg, mesh)
+    x = top["embed"].to(dt)[tokens]  # (B, D)
     if cfg.pos_embed == "learned":
-        pe = params["pos_embed"].to(dt)
+        pe = top["pos_embed"].to(dt)
         # only a speculative round's overshoot past a row's budget reaches
         # past max_seq; JAX's gather clamps it, and so does this one
         x = x + (pe[pos.long().clamp(max=pe.shape[0] - 1)]
                  if torch.is_tensor(pos) and pos.ndim else pe[int(pos)])
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+    for l, lp in enumerate(layers):
         hn = _rmsnorm(x, lp["ln1_scale"])
         q, k_new, v_new = project_qkv(hn, lp, cfg)  # (B, H/Hkv, Dh)
         if cfg.pos_embed == "rope":
             q = apply_rope(q, pos, cfg)
             k_new = apply_rope(k_new, pos, cfg)
         o = attend(l, q, k_new, v_new)
-        x = x + o.reshape(B, cfg.d_model).to(dt) @ matmul_weight(
-            lp, "wo", dt)
+        x = x + _attn_out(o, lp, dt, (B,), stacked)
         x = mlp(x, lp, cfg)
-    x = _rmsnorm(x, params["ln_f_scale"])
-    return (x @ matmul_weight(params, "lm_head", dt)).float()
+    x = _rmsnorm(x, top["ln_f_scale"])
+    return lm_logits(x, top)
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +306,18 @@ def _token_step(params, pos, tokens, cfg: TransformerConfig, attend):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
-               device=None):
+               device=None, mesh=None):
     """Zeroed linear cache: "k"/"v" per-layer tuples of (B, kv_heads,
     max_len, head_dim) in the storage dtype; a quantized
     ``cfg.kv_cache_dtype`` adds (B, kv_heads, max_len) f32
-    "k_scale"/"v_scale" tuples. ``device``: default ``cuda``."""
+    "k_scale"/"v_scale" tuples. ``device``: default ``cuda``. ``mesh``:
+    kv-head-sharded over tp where tp divides kv_heads, stacked (tp, B,
+    kv_heads/tp, ...)."""
     dev = resolve_device(device)
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    tp = _kv_ranks(logical_mesh(mesh, cfg), cfg)
+    shape = (batch, cfg.kv_heads // tp, max_len, cfg.head_dim)
+    if tp > 1:
+        shape = (tp, *shape)
 
     def fresh(sh, dt):
         return tuple(torch.zeros(sh, dtype=dt, device=dev)
@@ -239,15 +331,21 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
     return cache
 
 
-def decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
+def decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
+                mesh=None):
     """One token for every sequence at the shared position ``pos`` (a
     host int: the true current length). ``tokens`` (B,) int. Each
     layer's new K/V row (quantized for a one-byte cache) is written in
     place at row ``pos``, then attention runs per ``cfg.decode_attn``:
     "flash" is ``flash_decode_attention`` (the Hopper kernel on CUDA),
-    anything else its plain version. Returns logits (B, vocab) f32."""
+    anything else its plain version. Returns logits (B, vocab) f32.
+    ``mesh``: tp serving on :func:`prefill`'s (or :func:`init_cache`'s)
+    cache for that mesh: a stacked cache's ranks run in one launch."""
     pos = int(pos)
-    max_len = cache["k"][0].shape[2]
+    params, mesh = _serving_params(params, cfg, mesh)
+    stacked = cache["k"][0].dim() == 5
+    tp = cache["k"][0].shape[0] if stacked else 1
+    max_len = cache["k"][0].shape[-2]
     if not 0 <= pos < max_len:
         raise ValueError(f"position {pos} outside the cache [0, {max_len})")
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -258,18 +356,26 @@ def decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
     def attend(l, q, k_new, v_new):
         kc, vc = cache["k"][l], cache["v"][l]
         ks = vs = None
+        if stacked:
+            q, k_new, v_new = (_heads_to_ranks(t, tp) for t in (q, k_new, v_new))
         if quant:
             ks, vs = cache["k_scale"][l], cache["v_scale"][l]
             k_new, k_s = _quantize_rows(k_new, cfg.kv_cache_dtype)
             v_new, v_s = _quantize_rows(v_new, cfg.kv_cache_dtype)
-            ks[:, :, pos] = k_s
-            vs[:, :, pos] = v_s
-        raw(kc)[:, :, pos] = raw(k_new.to(kc.dtype))
-        raw(vc)[:, :, pos] = raw(v_new.to(vc.dtype))
-        return attend_fn(q.contiguous(), kc, vc, pos, k_scale=ks,
-                         v_scale=vs, scale=scale)
+            ks[..., pos] = k_s
+            vs[..., pos] = v_s
+        raw(kc)[..., pos, :] = raw(k_new.to(kc.dtype))
+        raw(vc)[..., pos, :] = raw(v_new.to(vc.dtype))
+        if not stacked:
+            return attend_fn(q.contiguous(), kc, vc, pos, k_scale=ks,
+                             v_scale=vs, scale=scale)
+        o = attend_fn(_fold(q).contiguous(), _fold(kc), _fold(vc), pos,
+                      k_scale=None if ks is None else _fold(ks),
+                      v_scale=None if vs is None else _fold(vs),
+                      scale=scale)
+        return o.reshape(tp, -1, *o.shape[1:])
 
-    return _token_step(params, pos, tokens, cfg, attend)
+    return _token_step(params, pos, tokens, cfg, attend, mesh, stacked)
 
 
 def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig):
@@ -514,9 +620,10 @@ def _generation_loop(step, logits, T: int, new_tokens: int, keys,
 def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
              key=None, generator: torch.Generator | None = None,
              temperature: float = 0.0, top_k: int = 0, device=None,
-             with_margins: bool = False):
+             with_margins: bool = False, mesh=None):
     """Continuation tokens (B, new_tokens) int32 from a fresh linear
-    cache: one prefill, then ``new_tokens - 1`` :func:`decode_step` s.
+    cache (``mesh``: tp-sharded serving, module docstring): one prefill,
+    then ``new_tokens - 1`` :func:`decode_step` s.
     Greedy by default; temperature/top-k sampling when ``temperature >
     0``, from ``key`` ((2,) uint32 for every row, or (B, 2); see
     :func:`sample_key`) or, without one, a key a row drawn from
@@ -533,18 +640,22 @@ def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
             f"prompt {T} + new {new_tokens} exceeds max_seq {cfg.max_seq}")
     keys = _sampling_keys(cfg, temperature, top_k, key, generator,
                           prompt.shape[0], dev)
+    params, mesh = _serving_params(params, cfg, mesh)
     with tracelib.compile_watch("decode.generate", batch=prompt.shape[0],
                                 prompt_len=T, new_tokens=new_tokens):
-        logits, cache = prefill(params, prompt, cfg, T + new_tokens)
+        logits, cache = prefill(params, prompt, cfg, T + new_tokens,
+                                mesh=mesh)
         return _generation_loop(
-            lambda pos, tok: decode_step(params, cache, pos, tok, cfg),
+            lambda pos, tok: decode_step(params, cache, pos, tok, cfg,
+                                         mesh=mesh),
             logits, T, new_tokens, keys, temperature, top_k, with_margins)
 
 
 def greedy_generate(params, prompt, cfg: TransformerConfig,
-                    new_tokens: int, *, device=None):
+                    new_tokens: int, *, device=None, mesh=None):
     """Greedy continuation (B, new_tokens) int32 on the linear cache."""
-    return generate(params, prompt, cfg, new_tokens, device=device)
+    return generate(params, prompt, cfg, new_tokens, device=device,
+                    mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -554,14 +665,18 @@ def greedy_generate(params, prompt, cfg: TransformerConfig,
 def init_paged_cache(cfg: TransformerConfig, batch: int,
                      pages_per_seq: int, page_size: int,
                      pool_pages: int | None = None, table=None, *,
-                     device=None):
+                     device=None, mesh=None):
     """Zeroed per-layer page pools (pool_pages, kv_heads, page_size,
     head_dim) in the storage dtype plus a (batch, pages_per_seq) int32
     ``table`` (default: the identity layout, which needs a page per
     (sequence, slot)). A quantized ``cfg.kv_cache_dtype`` adds per-row
     f32 scale pools "k_scale"/"v_scale" (pool_pages, kv_heads, 1,
-    page_size). ``device``: default ``cuda``."""
+    page_size). ``device``: default ``cuda``. ``mesh``: pools
+    kv-head-sharded over tp where tp divides kv_heads, stacked (tp,
+    pool_pages, kv_heads/tp, ...); the table is every rank's."""
     dev = resolve_device(device)
+    tp = _kv_ranks(logical_mesh(mesh, cfg), cfg)
+    lead = (tp,) if tp > 1 else ()
     if pool_pages is None:
         pool_pages = batch * pages_per_seq
     if table is None:
@@ -578,22 +693,25 @@ def init_paged_cache(cfg: TransformerConfig, batch: int,
                      for _ in range(cfg.n_layers))
 
     dt = _kv_storage_dtype(cfg)
-    shape = (pool_pages, cfg.kv_heads, page_size, cfg.head_dim)
+    hkv = cfg.kv_heads // tp
+    shape = (*lead, pool_pages, hkv, page_size, cfg.head_dim)
     cache = {"k": fresh(shape, dt), "v": fresh(shape, dt),
              "table": torch.as_tensor(table, dtype=torch.int32).to(dev)}
     if _kv_quantized(cfg):
-        sshape = (pool_pages, cfg.kv_heads, 1, page_size)
+        sshape = (*lead, pool_pages, hkv, 1, page_size)
         cache["k_scale"] = fresh(sshape, torch.float32)
         cache["v_scale"] = fresh(sshape, torch.float32)
     return cache
 
 
 def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
-                  page_size: int, last_pos=None):
+                  page_size: int, last_pos=None, mesh=None):
     """Prompt pass writing into the paged cache: :func:`prefill` captures
     (and, for a one-byte cache, quantizes) K/V at the prompt length,
     then each layer's pages — and scale rows — scatter into the pools
-    through ``cache["table"]``, IN PLACE. Returns (last_logits, cache)."""
+    through ``cache["table"]``, IN PLACE. Returns (last_logits, cache).
+    ``mesh``: tp serving into :func:`init_paged_cache`'s pools for that
+    mesh (each rank's kv-head block into its own pool)."""
     B, T = prompt.shape
     P = page_size
     t_pad = -(-T // P) * P
@@ -602,23 +720,28 @@ def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
     if n_used > table.shape[1]:
         raise ValueError(f"prompt needs {n_used} pages; table has "
                          f"{table.shape[1]}")
-    logits, lin = prefill(params, prompt, cfg, T, last_pos=last_pos)
+    logits, lin = prefill(params, prompt, cfg, T, last_pos=last_pos,
+                          mesh=mesh)
     idx = table[:, :n_used].long()  # (B, n_used)
-    Hkv, Dh = cfg.kv_heads, cfg.head_dim
+    stacked = cache["k"][0].dim() == 5
     for name in lin:
         for l, pool in enumerate(cache[name]):
-            a = raw(lin[name][l])  # (B, Hkv, T[, D])
-            scales = a.ndim == 3
-            if scales:  # (pool, Hkv, 1, P) pools: pages as (Hkv, P, 1)
-                a = a[..., None]
-            if t_pad > T:
-                a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - T))
-            # (B, Hkv, t_pad, X) -> (B, n_used, Hkv, P, X) page blocks
-            pages = a.reshape(B, Hkv, n_used, P, a.shape[-1]).transpose(1, 2)
-            if scales:
-                pages = pages.transpose(-1, -2)
-            dst = raw(pool)
-            dst[idx] = pages.to(dst.dtype)  # in-place scatter
+            src = lin[name][l]
+            for a, dst in (zip(src.unbind(0), pool.unbind(0)) if stacked
+                           else ((src, pool),)):
+                a = raw(a)  # (B, Hkv, T[, D])
+                scales = a.ndim == 3
+                if scales:  # (pool, Hkv, 1, P) pools: pages as (Hkv, P, 1)
+                    a = a[..., None]
+                if t_pad > T:
+                    a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - T))
+                # (B, Hkv, t_pad, X) -> (B, n_used, Hkv, P, X) page blocks
+                pages = a.reshape(B, a.shape[1], n_used, P,
+                                  a.shape[-1]).transpose(1, 2)
+                if scales:
+                    pages = pages.transpose(-1, -2)
+                dst = raw(dst)
+                dst[idx] = pages.to(dst.dtype)  # in-place scatter
     return logits, cache
 
 
@@ -744,7 +867,8 @@ def _scale_write(pool, page_ids, offset, rows):
     pool[page_ids, :, 0, offset] = rows.to(pool.dtype)
 
 
-def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
+def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
+                      mesh=None):
     """One token per sequence against the paged cache. ``tokens`` (B,);
     ``pos``: a shared int or a (B,) int32 tensor of per-sequence
     positions (ragged). Each layer's new K/V row (quantized, with its
@@ -757,9 +881,16 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
 
     CONTRACT: every position < pages_per_seq * page_size. An int or CPU
     ``pos`` is checked here; a CUDA ``pos`` is not (checking would force
-    a device sync) and the kernels clamp it to the table's last page."""
+    a device sync) and the kernels clamp it to the table's last page.
+
+    ``mesh``: tp serving on :func:`paged_prefill`'s pools for that mesh:
+    a stacked pool's ranks run in one launch, the pools folded over the
+    ranks and each rank's table offset to its own pool."""
+    params, mesh = _serving_params(params, cfg, mesh)
     table = cache["table"]
-    P = cache["k"][0].shape[2]
+    stacked = cache["k"][0].dim() == 5
+    tp = cache["k"][0].shape[0] if stacked else 1
+    P = cache["k"][0].shape[-2]
     pages = table.shape[1]
     scale = 1.0 / (cfg.head_dim ** 0.5)
     quant = _kv_quantized(cfg)
@@ -781,26 +912,45 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig):
         offset = pos % P
     attend_fn = {"flash": flash_decode_paged,
                  "paged_flash": paged_attention_decode}.get(cfg.decode_attn)
+    t_att, pos_att, ids, offs = table, pos, page_ids, offset
+    if stacked:
+        # every rank's pool folded into one: rank r's rows read and write
+        # its own pool, through page ids offset by r pools
+        n_pool = cache["k"][0].shape[1]
+        off = torch.arange(tp, device=table.device) * n_pool
+        t_att = (table[None] + off[:, None, None].to(table.dtype)).reshape(
+            tp * table.shape[0], -1)
+        ids = (page_ids[None] + off[:, None]).reshape(-1)
+        if ragged:
+            pos_att, offs = pos.repeat(tp), offset.repeat(tp)
 
     def attend(l, q, k_new, v_new):
         k_pool, v_pool = cache["k"][l], cache["v"][l]
         ks = vs = None
         if quant:
             ks, vs = cache["k_scale"][l], cache["v_scale"][l]
+        if stacked:  # each rank's head block, all ranks in one call
+            q, k_new, v_new = (_fold(_heads_to_ranks(t, tp))
+                               for t in (q, k_new, v_new))
+            k_pool, v_pool = _fold(k_pool), _fold(v_pool)
+            ks, vs = (None if t is None else _fold(t) for t in (ks, vs))
+        if quant:
             k_new, k_s = _quantize_rows(k_new, cfg.kv_cache_dtype)
             v_new, v_s = _quantize_rows(v_new, cfg.kv_cache_dtype)
-            _scale_write(ks, page_ids, offset, k_s)
-            _scale_write(vs, page_ids, offset, v_s)
-        _pool_write(k_pool, page_ids, offset, k_new)
-        _pool_write(v_pool, page_ids, offset, v_new)
+            _scale_write(ks, ids, offs, k_s)
+            _scale_write(vs, ids, offs, v_s)
+        _pool_write(k_pool, ids, offs, k_new)
+        _pool_write(v_pool, ids, offs, v_new)
         if attend_fn is None:
-            return flash_decode_paged_reference(
-                q, k_pool, v_pool, table, pos, scale, k_scale_pool=ks,
+            o = flash_decode_paged_reference(
+                q, k_pool, v_pool, t_att, pos_att, scale, k_scale_pool=ks,
                 v_scale_pool=vs)
-        return attend_fn(q.contiguous(), k_pool, v_pool, table, pos,
-                         k_scale_pool=ks, v_scale_pool=vs, scale=scale)
+        else:
+            o = attend_fn(q.contiguous(), k_pool, v_pool, t_att, pos_att,
+                          k_scale_pool=ks, v_scale_pool=vs, scale=scale)
+        return o.reshape(tp, -1, *o.shape[1:]) if stacked else o
 
-    return _token_step(params, pos, tokens, cfg, attend)
+    return _token_step(params, pos, tokens, cfg, attend, mesh, stacked)
 
 
 def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
@@ -891,10 +1041,10 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
                    pages_per_seq: int | None = None, key=None,
                    generator: torch.Generator | None = None,
                    temperature: float = 0.0, top_k: int = 0, device=None,
-                   with_margins: bool = False):
+                   with_margins: bool = False, mesh=None):
     """Continuation (B, new_tokens) int32 served from a fresh paged
-    cache: one prefill, then ``new_tokens - 1`` decode steps at a shared
-    position. Greedy by default; sampling when ``temperature > 0``, as
+    cache (``mesh``: tp-sharded serving, module docstring): one prefill,
+    then ``new_tokens - 1`` decode steps at a shared position. Greedy by default; sampling when ``temperature > 0``, as
     :func:`generate` (``key`` or ``generator``): with the serving
     engine's ``request_key(seq_id)`` it reproduces that request's served
     tokens. ``device``: default ``cuda`` (raises without a GPU unless
@@ -920,10 +1070,12 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
     with tracelib.compile_watch("decode.paged_generate", batch=B,
                                 prompt_len=T, new_tokens=new_tokens,
                                 page_size=page_size):
+        params, mesh = _serving_params(params, cfg, mesh)
         cache = init_paged_cache(cfg, B, pages_per_seq, page_size,
-                                 device=dev)
-        logits, cache = paged_prefill(params, prompt, cfg, cache, page_size)
+                                 device=dev, mesh=mesh)
+        logits, cache = paged_prefill(params, prompt, cfg, cache, page_size,
+                                      mesh=mesh)
         return _generation_loop(
             lambda pos, tok: paged_decode_step(params, cache, pos, tok,
-                                               cfg),
+                                               cfg, mesh=mesh),
             logits, T, new_tokens, keys, temperature, top_k, with_margins)

@@ -88,16 +88,53 @@ def to_ranks(x: torch.Tensor, spec, mesh: dict, axes) -> torch.Tensor:
                     *y.shape[len(axes):])
 
 
-def from_ranks(y: torch.Tensor, spec, mesh: dict, axes) -> torch.Tensor:
+def from_ranks(y: torch.Tensor, spec, mesh: dict, axes,
+               keep=()) -> torch.Tensor:
     """The inverse of :func:`to_ranks`: the global tensor from its stacked
-    shards (rank 0's copy along an axis that shards nothing)."""
+    shards (rank 0's copy along an axis that shards nothing). ``keep``: a
+    subset of ``axes`` to leave stacked (in ``keep``'s order) while every
+    other rank axis is gathered — an fsdp all-gather that keeps the tp
+    shards, say. A kept axis must come before the gathered ones of a dim
+    it shares (major), so each kept rank's slab is whole."""
+    axes = tuple(axes)
+    keep = tuple(keep)
+    if set(keep) - set(axes):
+        raise ValueError(f"keep {keep} is not within the rank axes {axes}")
     groups = _groups(spec, y.dim() - len(axes))
     used = {a for g in groups for a in g}
-    y = y[tuple(slice(None) if a in used else 0 for a in axes)]
-    names = [a for a in axes if a in used]
+    y = y[tuple(slice(None) if a in used or a in keep else 0 for a in axes)]
+    names = [a for a in axes if a in used or a in keep]
     k = len(names)
-    perm, shape = [], []
+    perm = [names.index(a) for a in keep]
+    shape = [y.shape[names.index(a)] for a in keep]
     for d, g in enumerate(groups):
-        perm += [names.index(a) for a in g] + [k + d]
-        shape.append(math.prod(mesh[a] for a in g) * y.shape[k + d])
+        gathered = [a for a in g if a not in keep]
+        if any(g.index(a) > g.index(b) for a in g if a in keep
+               for b in gathered):
+            raise ValueError(f"dim {d} is sharded over {g}: kept axes "
+                             f"{keep} must be its major ones")
+        perm += [names.index(a) for a in gathered] + [k + d]
+        shape.append(math.prod(mesh[a] for a in gathered) * y.shape[k + d])
     return y.permute(perm).reshape(shape)
+
+
+def rank_axes(spec, mesh: dict) -> tuple:
+    """The mesh axes (in the mesh's order) a resolved ``spec`` shards
+    over: the leading rank dims of a tensor stored as its stacked shards
+    (:func:`to_ranks` over exactly these axes, so an axis that shards
+    nothing adds no dim and a replicated tensor is stored once)."""
+    used = {a for g in _groups(spec, len(tuple(spec))) for a in g}
+    return tuple(a for a in mesh if a in used)
+
+
+def is_stacked(leaf: torch.Tensor, spec) -> bool:
+    """Whether ``leaf`` is stored as rank-stacked shards (more dims than
+    its spec's global shape) rather than as the global tensor: the one
+    test of a leaf's storage form."""
+    return leaf.dim() > len(tuple(spec))
+
+
+def shard_at(y: torch.Tensor, spec, mesh: dict, coord: dict) -> torch.Tensor:
+    """The shard a rank at mesh coordinate ``coord`` (``{axis: index}``)
+    holds of a tensor stored stacked over ``rank_axes(spec, mesh)``."""
+    return y[tuple(int(coord.get(a, 0)) for a in rank_axes(spec, mesh))]

@@ -35,10 +35,22 @@ pull's, and the update runs on the pulled moments before they are pushed
 back — the same kernels and the same numbers as resident moments.
 
 ``mesh=`` (a ``{axis: size}`` dict, ``transformer.logical_mesh``) runs
-the loss over logical ranks of one device: the ``sp`` attentions and the
-``ep`` MoE, the aux loss in the loss. The params stay whole (every rank's
-expert shard is a view of the one stack); dp/fsdp/tp sharding waits for
-the multi-process slice.
+the step over logical ranks of one device (JAX ``train.py:148-322``):
+:func:`init_train_state` places the params and both AdamW moments per
+``models/sharding.param_specs`` (under fsdp the moments live sharded),
+the dp (and fsdp-as-data) gradient is the mean over those ranks (the
+weight-gradient products reduce over their rows), the fsdp gradient
+arrives reduce-scattered (the backward of the all-gather before use),
+and the update is elementwise on the shards. The clip norm is the global
+norm: every element of the model counted exactly once
+(:func:`global_sq_norm`; the layout stores each once).
+
+Across launched processes (``apps/launch.py``; a gloo group of more than
+one process is up) each process holds a block of the dp ranks and the
+rows of the batch they own; the step's gradients and loss are averaged
+across processes by one flat allreduce over the gloo wire
+(``comm/processes.allreduce_mean``) before the update, so every process
+applies the same update.
 """
 
 from __future__ import annotations
@@ -52,13 +64,15 @@ import torch
 from hpc_patterns_tpu_torch.harness import metrics as metricslib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.memory import kinds as kindslib
+from hpc_patterns_tpu_torch.models.sharding import batch_sharding, shard_params
 from hpc_patterns_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     logical_mesh,
     loss_fn,
+    shards_params,
 )
-from hpc_patterns_tpu_torch.topology import resolve_device
+from hpc_patterns_tpu_torch.topology import is_multihost, resolve_device
 
 def record_step_metrics(step: int, loss: float, dt_s: float,
                         tokens: int) -> None:
@@ -139,6 +153,14 @@ def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
                           else decay(count - warmup_steps))
 
 
+def global_sq_norm(grads: list) -> torch.Tensor:
+    """The squared global norm ``sum(g * g)`` over the stored leaves: the
+    sharded layout (``models/sharding.py``) stores every element of the
+    model exactly once (a replicated axis gets no rank dim, a sharded
+    one's shards partition the leaf), so this counts each once."""
+    return sum(torch.sum(g * g) for g in grads)
+
+
 @dataclasses.dataclass
 class AdamW:
     """optax ``chain(clip_by_global_norm(grad_clip), adamw(lr,
@@ -167,7 +189,7 @@ class AdamW:
         ``params``; the moments, the count and the params change."""
         ps = tree_leaves(params)
         mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        g_norm = torch.sqrt(global_sq_norm(grads))
         keep = g_norm < self.grad_clip
         count = state["count"]
         # bias corrections and the step size in f32, as optax computes them
@@ -285,12 +307,15 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
     ``residency``: a ``memory.ResidencyManager`` — the STREAMED step
     (module docstring), with measured ``mem.prefetch`` / ``mem.evict``
     windows and ``prefetch_overlap_frac``; requires
-    ``offload_opt_example``. ``mesh``: the loss's logical ranks
-    (``transformer.forward_hidden``)."""
+    ``offload_opt_example``. ``mesh``: the step's logical ranks (module
+    docstring); ``params`` then come from :func:`init_train_state` with
+    the same mesh (a global tree also works: its gradients come back
+    global)."""
     optimizer = optimizer or make_optimizer()
-    logical_mesh(mesh, cfg)  # a mesh this slice cannot run raises here
+    mesh = logical_mesh(mesh, cfg)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    n_data = _data_ranks(mesh, cfg)
     if residency is not None and offload_opt_example is None:
         raise ValueError(
             "residency streaming needs offload_opt_example (a host-"
@@ -308,13 +333,18 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         loss = loss_fn(params, tokens, cfg, mesh)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
-    def accum_grads(params, tokens):
-        if accum_steps == 1:
-            return grads_of(params, tokens)
+    def local_grads(params, tokens):
         B = tokens.shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} must divide by accum_steps "
                              f"{accum_steps}")
+        if (B // accum_steps) % n_data:
+            raise ValueError(
+                f"micro-batch {B // accum_steps} (batch {B} / accum "
+                f"{accum_steps}) must divide over the {n_data} data ranks "
+                f"{cfg.batch_axes}")
+        if accum_steps == 1:
+            return grads_of(params, tokens)
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         grads = [torch.zeros_like(p, dtype=torch.float32)
                  for p in tree_leaves(params)]
@@ -324,6 +354,24 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
             grads = [a + b for a, b in zip(grads, g_i)]
         scale = 1.0 / accum_steps
         return loss * scale, [g * scale for g in grads]
+
+    def accum_grads(params, tokens):
+        loss, grads = local_grads(params, tokens)
+        if is_multihost():
+            # the dp ranks of the other processes: one flat allreduce of
+            # the loss and the gradient tree over the gloo wire
+            from hpc_patterns_tpu_torch.comm.processes import allreduce_mean
+
+            flat = allreduce_mean(torch.cat(
+                [loss.reshape(1).float()]
+                + [g.reshape(-1).float() for g in grads]))
+            loss = flat[0]
+            out, at = [], 1
+            for g in grads:
+                out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+                at += g.numel()
+            grads = out
+        return loss, grads
 
     if residency is not None:
         return _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
@@ -382,25 +430,42 @@ def _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
     return tracelib.instrument_jit(step, "train.step")
 
 
+def _data_ranks(mesh, cfg: TransformerConfig) -> int:
+    """The ranks the batch's rows divide over (``cfg.batch_axes``)."""
+    return batch_sharding(mesh, cfg)[0]
+
+
 def init_train_state(generator: torch.Generator, cfg: TransformerConfig,
                      optimizer: AdamW | None = None, *, device=None,
                      mesh=None):
     """(params, opt_state): f32 master params from ``generator`` on
     ``device`` (default ``cuda``), requiring grad, and the optimizer's
-    zero state beside them. ``mesh`` is checked (``logical_mesh``); on
-    logical ranks of one device the params are not split."""
-    logical_mesh(mesh, cfg)
+    zero state beside them. On a ``mesh`` that shards params (tp, or fsdp
+    under ``cfg.fsdp``) the params are placed as their rank-stacked
+    shards (``sharding.shard_params``: the same numbers as without a
+    mesh), and both moments take that layout."""
+    mesh = logical_mesh(mesh, cfg)
     optimizer = optimizer or make_optimizer()
     params = init_params(cfg, generator=generator, device=device)
+    if shards_params(mesh, cfg):
+        params = shard_params(params, mesh, cfg)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     return params, optimizer.init(params)
 
 
 def make_batch(generator: torch.Generator, cfg: TransformerConfig,
-               batch: int, seq: int, *, device=None):
+               batch: int, seq: int, *, device=None, mesh=None):
     """Synthetic (batch, seq) int32 tokens drawn from ``generator`` (on
-    its own device), moved to ``device`` (default ``cuda``)."""
+    its own device), moved to ``device`` (default ``cuda``). ``mesh``:
+    the batch's rank layout (``sharding.batch_sharding``: rank r of the
+    batch axes owns the r-th block of rows, sp rank s the s-th block of
+    the sequence), checked to divide."""
+    n_data, n_sp = batch_sharding(logical_mesh(mesh, cfg), cfg)
+    if batch % n_data or seq % n_sp:
+        raise ValueError(
+            f"batch {batch} x seq {seq} does not divide over the data "
+            f"ranks {n_data} x sp {n_sp}")
     dev = resolve_device(device)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
                            device=generator.device, dtype=torch.int32)

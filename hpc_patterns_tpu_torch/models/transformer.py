@@ -11,12 +11,30 @@ of ``ops/fused_mlp.py``), with JAX's activation-checkpointing policies
 
 Mixture-of-experts layers (``n_experts > 0``) route through
 ``parallel/moe.py`` (:func:`_moe_block`). A ``mesh`` is a ``{axis: size}``
-dict whose ranks are logical ranks of one device: the ``sp`` axis runs
-the ring and Ulysses attentions over the sequence's blocks, the ``ep``
-axis the expert-parallel MoE over the batch's shards (rank-stacked
-tensors, ``models/sharding_util.to_ranks``); everything else computes
-once on the whole tensors, as every rank's replica would. Parameter and
-batch sharding (dp/fsdp/tp) need processes and raise.
+dict whose ranks are logical ranks of one device, JAX's axes in JAX's
+order (dp, fsdp, sp, tp, ep):
+
+- ``tp``: Megatron tensor parallelism. The params are stored as their
+  rank-stacked shards (``models/sharding.shard_params``); ``wqkv`` and
+  ``w1`` are column-parallel (one product over the folded tp ranks), the
+  heads split in contiguous blocks, attention runs on each (dp, tp)
+  shard, ``wo`` and ``w2`` are row-parallel (each rank's partial product,
+  summed over the tp ranks: ``parallel/tensor.row_parallel_out``), the
+  fused MLP kernels run on each rank's ``(D, F/tp)`` / ``(F/tp, D)``
+  shard, and the loss takes one log-sum-exp per row over the
+  vocab-sharded ``lm_head`` (no rank forms the full-vocab logits);
+- ``fsdp`` (with ``cfg.fsdp``): ZeRO-3. Each layer's weights, and the
+  embedding tables, are all-gathered over fsdp just before use (the
+  backward of the gather is the reduce-scatter of their gradients), and
+  the batch shards over dp x fsdp;
+- ``dp`` (and fsdp as data): the batch's row blocks. Every rank's rows go
+  through one launch over the folded rank dims, and the gradient mean
+  over those ranks is the weight-gradient product's reduction over them;
+- ``sp``: the ring and Ulysses attentions over the sequence's blocks;
+- ``ep``: the expert-parallel MoE over the batch's shards x ep.
+
+Everything else computes once on the whole tensors, as every rank's
+replica would.
 
 Params keep the JAX layout: a plain dict with the same keys, layer
 weights stacked on a leading ``n_layers`` axis, so a JAX params tree
@@ -45,7 +63,9 @@ from torch.utils.checkpoint import (
 from hpc_patterns_tpu_torch.dtypes import torch_dtype
 from hpc_patterns_tpu_torch.models.sharding_util import (
     from_ranks,
+    is_stacked,
     mesh_axis_size,
+    rank_axes,
     resolve_spec,
     to_ranks,
 )
@@ -55,6 +75,10 @@ from hpc_patterns_tpu_torch.parallel import moe
 from hpc_patterns_tpu_torch.parallel.ring_attention import (
     full_attention,
     ring_attention,
+)
+from hpc_patterns_tpu_torch.parallel.tensor import (
+    column_parallel_in,
+    row_parallel_out,
 )
 from hpc_patterns_tpu_torch.parallel.ulysses import ulysses_attention
 from hpc_patterns_tpu_torch.topology import resolve_device
@@ -73,8 +97,8 @@ class TransformerConfig:
     sharded ones over a mesh's ``sp`` ranks), dense layers with either
     ``mlp_impl`` (decode runs the dense MLP for both, as in JAX), MoE
     layers with every ``moe_dispatch``, every ``remat_policy``, and KV
-    caches in the compute dtype, int8 or fp8. ``fsdp`` and the dp/fsdp/tp
-    axes wait for the multi-process slice."""
+    caches in the compute dtype, int8 or fp8, and every mesh axis as
+    logical ranks of one device (module docstring)."""
     vocab: int = 32768
     d_model: int = 768
     n_heads: int = 12
@@ -271,6 +295,14 @@ def matmul_weight(tree, name: str, dt: torch.dtype):
     return (w.float() * qs.float()[..., None, :]).to(dt)
 
 
+def tp_stack(w) -> int:
+    """The tp ranks a 2-D matmul weight (``wqkv``, ``wo``, the dense
+    ``w1``/``w2``, ``lm_head``) in :func:`local_params`' form is stacked
+    over: (tp, in, out/tp) column or (tp, in/tp, out) row shards give tp,
+    the global (in, out) weight 1. The one test of that storage form."""
+    return w.shape[0] if w.dim() == 3 else 1
+
+
 def layer_params(params, l: int):
     """Layer ``l``'s slice of the stacked layer weights (views)."""
     return {k: v[l] for k, v in params["layers"].items()}
@@ -305,7 +337,14 @@ def project_qkv(h, lp, cfg: TransformerConfig):
     (..., n_heads, Dh), k/v (..., kv_heads, Dh)."""
     *lead, D = h.shape
     H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    qkv = h @ matmul_weight(lp, "wqkv", h.dtype)
+    w = matmul_weight(lp, "wqkv", h.dtype)
+    if tp_stack(w) > 1:
+        # column-parallel over the tp ranks' contiguous column blocks,
+        # then the blocks gathered back into the fused column order (the
+        # reshard JAX's partitioner inserts before the head split)
+        qkv = torch.movedim(column_parallel_in(h, w), 0, -2).flatten(-2)
+    else:
+        qkv = h @ w
     q, k, v = torch.split(qkv, [D, Hkv * Dh, Hkv * Dh], dim=-1)
     return (q.reshape(*lead, H, Dh), k.reshape(*lead, Hkv, Dh),
             v.reshape(*lead, Hkv, Dh))
@@ -313,20 +352,30 @@ def project_qkv(h, lp, cfg: TransformerConfig):
 
 def _mlp_dense(h, lp):
     """The dense MLP on post-norm activations (tanh gelu, as
-    ``jax.nn.gelu``'s default)."""
+    ``jax.nn.gelu``'s default). tp-stacked weights ((tp, D, F/tp) /
+    (tp, F/tp, D)): column-parallel in, gelu on each rank's shard,
+    row-parallel out."""
     dt = h.dtype
-    h = F.gelu(h @ matmul_weight(lp, "w1", dt), approximate="tanh")
-    return h @ matmul_weight(lp, "w2", dt)
+    w1, w2 = matmul_weight(lp, "w1", dt), matmul_weight(lp, "w2", dt)
+    if tp_stack(w1) > 1:
+        a = F.gelu(column_parallel_in(h, w1), approximate="tanh")
+        return row_parallel_out(a, w2)
+    return F.gelu(h @ w1, approximate="tanh") @ w2
 
 
 def _mlp_fused(h, lp):
     """The fused MLP kernels (``ops/fused_mlp.py``) on post-norm
     activations; a quantized tree is dequantized at entry (the kernels
-    take dense compute-dtype operands). Single device only: the mesh
-    branch of JAX's ``_mlp_fused`` belongs to the parallelism slice."""
+    take dense compute-dtype operands). tp-stacked weights (JAX's mesh
+    branch): the kernels on each tp rank's contiguous ``(D, F/tp)`` /
+    ``(F/tp, D)`` shard, the partial outputs summed over the tp ranks."""
     dt = h.dtype
-    return fused_mlp(h, matmul_weight(lp, "w1", dt),
-                     matmul_weight(lp, "w2", dt))
+    w1, w2 = matmul_weight(lp, "w1", dt), matmul_weight(lp, "w2", dt)
+    tp = tp_stack(w1)
+    if tp > 1:
+        return torch.stack([fused_mlp(h, w1[r], w2[r])
+                            for r in range(tp)]).sum(0)
+    return fused_mlp(h, w1, w2)
 
 
 def _resolve_dispatch(cfg: TransformerConfig, n_tokens: int,
@@ -363,27 +412,93 @@ def mlp(x, lp, cfg: TransformerConfig):
 
 
 def logical_mesh(mesh, cfg: TransformerConfig) -> dict | None:
-    """The mesh's axes of size > 1, checked. Every axis must be one of the
-    config's; ``sp`` and ``ep`` run as logical ranks of one device, and a
-    dp/fsdp/tp axis of size > 1 raises: parameter and batch sharding wait
-    for the multi-process slice (``torch.distributed``). A size-1 axis
-    changes nothing and is dropped (an ``ep`` of 1 is ``moe_dense``'s
-    result; ``{}`` still routes the ring/Ulysses impls over one rank)."""
+    """The mesh's axes of size > 1, checked: every axis must be one of the
+    config's, each runs as logical ranks of one device (module
+    docstring). A size-1 axis changes nothing and is dropped (an ``ep``
+    of 1 is ``moe_dense``'s result; ``{}`` still routes the ring/Ulysses
+    impls over one rank)."""
     if mesh is None:
         return None
-    ranked = (cfg.axis_sp, cfg.axis_ep)
     for a, n in mesh.items():
         if a not in cfg.mesh_axes:
             raise ValueError(f"mesh axis {a!r} is not a declared model axis "
                              f"{sorted(cfg.mesh_axes)}")
         if int(n) < 1:
             raise ValueError(f"mesh axis {a!r} has size {n}")
-        if int(n) > 1 and a not in ranked:
-            raise NotImplementedError(
-                f"mesh axis {a}={n} is not ported yet: dp/fsdp/tp sharding "
-                "arrives with the multi-process slice (torch.distributed); "
-                f"this one runs {ranked} as logical ranks of one device")
     return {a: int(n) for a, n in mesh.items() if int(n) > 1}
+
+
+def tp_size(mesh, cfg: TransformerConfig) -> int:
+    """The mesh's tp ranks (1 without a mesh)."""
+    return mesh_axis_size(mesh, cfg.axis_tp) if mesh is not None else 1
+
+
+def shards_params(mesh, cfg: TransformerConfig) -> bool:
+    """Whether params are stored as shards on ``mesh``: a tp axis, or an
+    fsdp axis under ``cfg.fsdp``."""
+    return mesh is not None and (
+        tp_size(mesh, cfg) > 1
+        or (cfg.fsdp and mesh_axis_size(mesh, cfg.axis_fsdp) > 1))
+
+
+def _only(spec, keep) -> tuple:
+    """``spec`` with every axis outside ``keep`` dropped."""
+    def fix(ax):
+        if isinstance(ax, tuple):
+            kept = tuple(a for a in ax if a in keep)
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return ax if ax in keep else None
+    return tuple(fix(ax) for ax in spec)
+
+
+def _local(leaf, spec, mesh, cfg: TransformerConfig):
+    """A param (or one layer's slice of it) as the layer code takes it:
+    stacked over the tp and ep ranks its spec names, every other rank
+    axis gathered (fsdp's all-gather just before use; its backward is
+    the gradients' reduce-scatter). A global leaf is split into a view."""
+    s = resolve_spec(spec, mesh, cfg.mesh_axes)
+    axes = rank_axes(s, mesh)
+    keep = tuple(a for a in axes if a in (cfg.axis_tp, cfg.axis_ep))
+    if is_stacked(leaf, spec):
+        return leaf if axes == keep else from_ranks(leaf, s, mesh, axes,
+                                                    keep)
+    return to_ranks(leaf, _only(s, keep), mesh, keep) if keep else leaf
+
+
+def local_params(params, cfg: TransformerConfig, mesh=None):
+    """(top, layers): the non-layer params and a list of per-layer dicts,
+    each leaf in :func:`_local`'s form (without a mesh: the params as
+    they are). On a mesh that shards params (:func:`shards_params`) a
+    global tree is first placed as its shards (``sharding.shard_params``,
+    a no-op on a sharded tree). One unbind per stacked weight: its
+    backward stacks the per-layer grads once (indexing each layer would
+    build L full-size zeros)."""
+    from hpc_patterns_tpu_torch.models import sharding
+
+    if shards_params(mesh, cfg):
+        params = sharding.shard_params(params, mesh, cfg)
+    specs = sharding.param_specs(cfg) if mesh is not None else {}
+    lspecs = specs.get("layers", {})
+
+    def loc(leaf, spec):
+        return leaf if spec is None else _local(leaf, spec, mesh, cfg)
+
+    top = {k: loc(v, specs.get(k)) for k, v in params.items()
+           if k != "layers"}
+    layers = [{} for _ in range(cfg.n_layers)]
+    for k, v in params["layers"].items():
+        spec = lspecs.get(k)
+        n_rank = 0 if spec is None else v.dim() - len(spec)
+        for l, piece in enumerate(v.unbind(n_rank)):
+            layers[l][k] = loc(piece, None if spec is None else spec[1:])
+    return top, layers
+
+
+def _heads_to_ranks(t, tp: int):
+    """(..., H, Dh) -> (tp, ..., H/tp, Dh): contiguous head blocks, so
+    q head k·g+j stays with kv head k."""
+    *lead, H, Dh = t.shape
+    return t.reshape(*lead, tp, H // tp, Dh).movedim(-3, 0)
 
 
 def attention(q, k, v, cfg: TransformerConfig, mesh=None):
@@ -392,7 +507,16 @@ def attention(q, k, v, cfg: TransformerConfig, mesh=None):
     forward and backward) and needs the sequence unsharded; "full", or
     any impl without a mesh, the dense grouped-query path; "ring[_flash]"
     and "ulysses[_flash]" run over the ``sp`` ranks of ``mesh`` (a
-    :func:`logical_mesh`) on the rank-stacked sequence blocks."""
+    :func:`logical_mesh`) on the rank-stacked sequence blocks.
+
+    tp-stacked heads (q (tp, B, T, H/tp, Dh), from :func:`_qkv_block`) and
+    the dp/fsdp batch shards fold into the batch: every (dp, tp) shard in
+    one launch over the folded rank dims. Returns q's form."""
+    if q.dim() == 5:
+        tp, B = q.shape[:2]
+        o = attention(*(t.reshape(tp * B, *t.shape[2:]) for t in (q, k, v)),
+                      cfg, mesh)
+        return o.reshape(tp, B, *o.shape[1:])
     if cfg.attention == "flash":
         if mesh is not None and mesh_axis_size(mesh, cfg.axis_sp) > 1:
             raise ValueError(
@@ -404,8 +528,7 @@ def attention(q, k, v, cfg: TransformerConfig, mesh=None):
     if cfg.attention == "full" or mesh is None:
         return full_attention(q, k, v, causal=True)
     sp = cfg.axis_sp
-    spec = resolve_spec((cfg.batch_axes, sp, cfg.axis_tp, None), mesh,
-                        cfg.mesh_axes)
+    spec = resolve_spec((None, sp, None, None), mesh, cfg.mesh_axes)
     base, _, variant = cfg.attention.partition("_")
     impl_fn = ulysses_attention if base == "ulysses" else ring_attention
     out = impl_fn(*(to_ranks(t, spec, mesh, (sp,)) for t in (q, k, v)),
@@ -450,19 +573,25 @@ def _moe_block(h, lp, cfg: TransformerConfig, mesh, with_stats=False):
     disp = _resolve_dispatch(cfg, n_local, cap)
     tok_spec = resolve_spec(((*bx, ep) if batch_over_ep else bx, sp, None),
                             mesh, cfg.mesh_axes)
-    x = to_ranks(h, tok_spec, mesh, (sp, ep))  # (n_sp, n_ep, b, t, D)
-    n_sp, _, b, t, _ = x.shape
-    x = x.reshape(n_sp, n_ep, b * t, D)
-    w1 = lp["w1"].reshape(n_ep, E // n_ep, *lp["w1"].shape[1:])
-    w2 = lp["w2"].reshape(n_ep, E // n_ep, *lp["w2"].shape[1:])
+    # the token shards range over the batch axes x sp (one ep group each)
+    # and over ep; x: (*batch ranks, n_sp, n_ep, b, t, D)
+    axes = (*(a for a in bx if a in mesh), sp, ep)
+    x = to_ranks(h, tok_spec, mesh, axes)
+    *grid, n_ep_, b, t, _ = x.shape
+    x = x.reshape(-1, n_ep, b * t, D)
+    # the expert stacks as (ep, E/ep, ...) whether stored global or
+    # stacked over ep (local_params)
+    w1 = lp["w1"].reshape(n_ep, E // n_ep, *lp["w1"].shape[-2:])
+    w2 = lp["w2"].reshape(n_ep, E // n_ep, *lp["w2"].shape[-2:])
     outs = [moe.moe_ep(x[s], lp["router"], w1, w2, capacity=cap, top_k=k,
                        with_stats=with_stats, dispatch=disp)
-            for s in range(n_sp)]
-    y = torch.stack([o[0] for o in outs]).reshape(n_sp, n_ep, b, t, D)
-    # moe_ep averaged over ep; fold the sp ranks for the global scalars
+            for s in range(x.shape[0])]
+    y = torch.stack([o[0] for o in outs]).reshape(*grid, n_ep_, b, t, D)
+    # moe_ep averaged over ep; fold the batch and sp ranks for the
+    # global scalars
     scalars = [torch.stack([o[i] for o in outs]).mean()
                for i in range(1, len(outs[0]))]
-    return (from_ranks(y, tok_spec, mesh, (sp, ep)), *scalars)
+    return (from_ranks(y, tok_spec, mesh, axes), *scalars)
 
 
 def _embed_tokens(params, tokens, cfg: TransformerConfig, dt):
@@ -515,7 +644,10 @@ def _remat(fn, policy: str):
 def _qkv_block(x, lp, cfg: TransformerConfig):
     """Pre-attention: norm, fused qkv projection and rope (the narrow
     K/V for GQA). Split out so ``remat_policy="split"`` can checkpoint it
-    apart from the attention kernel."""
+    apart from the attention kernel. With tp-stacked weights the heads
+    come back as their tp ranks' contiguous blocks (tp, B, T, H/tp, Dh);
+    GQA stays narrow only where tp divides ``kv_heads``, else K and V are
+    expanded to every head first, as JAX expands them."""
     T = x.shape[1]
     h = _rmsnorm(x, lp["ln1_scale"])
     q, k, v = project_qkv(h, lp, cfg)
@@ -523,15 +655,28 @@ def _qkv_block(x, lp, cfg: TransformerConfig):
         pos = torch.arange(T, device=x.device)
         q = apply_rope(q, pos, cfg)
         k = apply_rope(k, pos, cfg)
+    tp = tp_stack(lp["wqkv"])
+    if tp > 1:
+        if cfg.kv_heads % tp:
+            g = cfg.n_heads // cfg.kv_heads
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        q, k, v = (_heads_to_ranks(t, tp) for t in (q, k, v))
     return q, k, v
 
 
 def _post_attn(x, o, lp):
     """Output projection, residual and the pre-MLP norm: the first half
     of :func:`_post_block`, split out so split remat can checkpoint it
-    while the fused MLP kernel stays outside the region."""
+    while the fused MLP kernel stays outside the region. tp-stacked
+    heads: ``wo`` row-parallel over their blocks."""
     B, T, D = x.shape
-    x = x + o.reshape(B, T, D) @ matmul_weight(lp, "wo", x.dtype)
+    wo = matmul_weight(lp, "wo", x.dtype)
+    tp = tp_stack(wo)
+    if tp > 1:
+        x = x + row_parallel_out(o.reshape(tp, B, T, D // tp), wo)
+    else:
+        x = x + o.reshape(B, T, D) @ wo
     return x, _rmsnorm(x, lp["ln2_scale"])
 
 
@@ -584,14 +729,20 @@ def forward_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
     """The trunk of :func:`forward` without the LM head: final-norm
     hidden states (B, T, d_model) in the compute dtype, plus the summed
     MoE aux loss (a zero for dense models). ``mesh``: a ``{axis: size}``
-    dict of logical ranks (:func:`logical_mesh`) for the sharded
-    attentions and the expert-parallel MoE; None = one rank. With
-    ``cfg.remat`` (and gradients enabled) each layer runs under its
-    ``remat_policy``: a checkpoint of the whole layer keeping
-    :data:`REMAT_SAVES`, or the per-block split of :func:`_layer`."""
+    dict of logical ranks (:func:`logical_mesh`; module docstring);
+    None = one rank. ``params``: the global tree or its shards
+    (``sharding.shard_params``). With ``cfg.remat`` (and gradients
+    enabled) each layer runs under its ``remat_policy``: a checkpoint of
+    the whole layer keeping :data:`REMAT_SAVES`, or the per-block split
+    of :func:`_layer`."""
     mesh = logical_mesh(mesh, cfg)
+    return _trunk(*local_params(params, cfg, mesh), tokens, cfg, mesh)
+
+
+def _trunk(top, layers, tokens, cfg: TransformerConfig, mesh):
+    """:func:`forward_hidden` on :func:`local_params`' forms."""
     dt = torch_dtype(cfg.dtype)
-    x = _embed_tokens(params, tokens, cfg, dt)
+    x = _embed_tokens(top, tokens, cfg, dt)
     layer = partial(_layer, cfg=cfg, mesh=mesh)
     if cfg.remat and torch.is_grad_enabled():
         if cfg.remat_policy == "split":
@@ -599,22 +750,32 @@ def forward_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
         else:
             layer = _remat(partial(layer, tag_attn=cfg.remat_policy in (
                 "attn", "dots_attn")), cfg.remat_policy)
-    # one unbind per stacked weight: its backward stacks the per-layer
-    # grads once (indexing each layer would build L full-size zeros)
-    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     auxes = []
-    for l in range(cfg.n_layers):
-        x, aux = layer(x, {k: v[l] for k, v in layers.items()})
+    for lp in layers:
+        x, aux = layer(x, lp)
         auxes.append(aux)
-    return _rmsnorm(x, params["ln_f_scale"]), torch.stack(auxes).sum()
+    return _rmsnorm(x, top["ln_f_scale"]), torch.stack(auxes).sum()
+
+
+def lm_logits(x, top):
+    """``x @ lm_head`` as f32 logits (..., vocab); a vocab-sharded
+    (tp, D, V/tp) head gives each rank's logits, gathered in vocab
+    order."""
+    w = matmul_weight(top, "lm_head", x.dtype)
+    if tp_stack(w) > 1:
+        return torch.movedim(column_parallel_in(x, w), 0, -2).flatten(
+            -2).float()
+    return (x @ w).float()
 
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None, *,
             return_aux: bool = False):
     """Next-token logits (B, T, vocab) f32 for ``tokens`` (B, T); with
     ``return_aux`` also the MoE aux loss (zero for dense models)."""
-    x, aux = forward_hidden(params, tokens, cfg, mesh)
-    logits = (x @ matmul_weight(params, "lm_head", x.dtype)).float()
+    mesh = logical_mesh(mesh, cfg)
+    top, layers = local_params(params, cfg, mesh)
+    x, aux = _trunk(top, layers, tokens, cfg, mesh)
+    logits = lm_logits(x, top)
     return (logits, aux) if return_aux else logits
 
 
@@ -626,10 +787,10 @@ def moe_drop_rates(params, tokens, cfg: TransformerConfig, mesh=None):
     if not cfg.n_experts:
         raise ValueError("moe_drop_rates needs an MoE config")
     mesh = logical_mesh(mesh, cfg)
-    x = _embed_tokens(params, tokens, cfg, torch_dtype(cfg.dtype))
+    top, layers = local_params(params, cfg, mesh)
+    x = _embed_tokens(top, tokens, cfg, torch_dtype(cfg.dtype))
     kepts = []
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+    for lp in layers:
         o = attention(*_qkv_block(x, lp, cfg), cfg, mesh)
         x, _aux, kept = _post_block(x, o, lp, cfg, mesh, with_stats=True)
         kepts.append(kept)
@@ -693,19 +854,62 @@ def chunked_masked_causal_nll(x, lm_head, tokens, *, chunk: int):
     return (nll * mask).sum() / mask.sum()
 
 
+def vocab_parallel_nll(x, lm_head, tokens, *, chunk: int = 0):
+    """:func:`masked_causal_nll` over a vocab-sharded head ``lm_head``
+    (tp, d_model, V/tp) in the compute dtype: each tp rank runs the
+    online log-sum-exp over its own vocab block (in ``chunk`` columns
+    under ``torch.utils.checkpoint`` as :func:`chunked_masked_causal_nll`,
+    or its block's logits at once when ``chunk`` is 0), then one
+    log-sum-exp per row across the ranks (the max, then the rescaled
+    sums), and the gold logit from the rank whose block holds the
+    target. No rank forms the full-vocab logits."""
+    B, T = tokens.shape
+    tp, _, Vl = lm_head.shape
+    chunk = chunk or Vl
+    if Vl % chunk:
+        raise ValueError(f"loss chunk {chunk} must divide the vocab shard "
+                         f"{Vl} (vocab {tp * Vl} over tp {tp})")
+    targets = torch.roll(tokens, -1, dims=1).long()
+    ms, ss, golds = [], [], []
+    for r in range(tp):
+        m = torch.full((B, T), -torch.inf, dtype=torch.float32,
+                       device=x.device)
+        s = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+        gold = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+        for lo in range(0, Vl, chunk):
+            args = (m, s, gold, x, lm_head[r, :, lo:lo + chunk], targets,
+                    r * Vl + lo)
+            m, s, gold = (checkpoint(_nll_chunk, *args, use_reentrant=False)
+                          if chunk < Vl else _nll_chunk(*args))
+        ms.append(m)
+        ss.append(s)
+        # a rank whose block misses the target contributes 0
+        owns = (targets >= r * Vl) & (targets < (r + 1) * Vl)
+        golds.append(torch.where(owns, gold, torch.zeros_like(gold)))
+    m_all = torch.stack(ms).amax(0)
+    s_all = sum(s * torch.exp(m - m_all) for m, s in zip(ms, ss))
+    nll = m_all + torch.log(s_all) - torch.stack(golds).sum(0)
+    mask = _last_position_mask(tokens, nll.dtype)
+    return (nll * mask).sum() / mask.sum()
+
+
 def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
     """Causal LM loss: predict token t+1 from the prefix up to t (mean
     NLL), the final position masked out, plus ``moe_aux_weight`` x the
     summed aux loss for an MoE config. ``cfg.loss_chunk`` picks the
-    chunked loss (no logits); ``mesh`` as :func:`forward_hidden`."""
-    if cfg.loss_chunk:
-        x, aux = forward_hidden(params, tokens, cfg, mesh)
-        loss = chunked_masked_causal_nll(
-            x, matmul_weight(params, "lm_head", x.dtype), tokens,
-            chunk=cfg.loss_chunk)
+    chunked loss (no logits); ``mesh`` as :func:`forward_hidden`; a
+    vocab-sharded head (tp) takes :func:`vocab_parallel_nll`."""
+    mesh = logical_mesh(mesh, cfg)
+    top, layers = local_params(params, cfg, mesh)
+    x, aux = _trunk(top, layers, tokens, cfg, mesh)
+    head = matmul_weight(top, "lm_head", x.dtype)
+    if tp_stack(head) > 1:
+        loss = vocab_parallel_nll(x, head, tokens, chunk=cfg.loss_chunk)
+    elif cfg.loss_chunk:
+        loss = chunked_masked_causal_nll(x, head, tokens,
+                                         chunk=cfg.loss_chunk)
     else:
-        logits, aux = forward(params, tokens, cfg, mesh, return_aux=True)
-        loss = masked_causal_nll(logits, tokens)
+        loss = masked_causal_nll((x @ head).float(), tokens)
     if cfg.n_experts:
         loss = loss + cfg.moe_aux_weight * aux
     return loss

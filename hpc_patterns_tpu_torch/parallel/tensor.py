@@ -5,6 +5,12 @@ Megatron-style TP with the comm layer: the row-parallel reduction is the
 reference's allreduce, the library collective or the hand-built ring
 (allreduce-mpi-sycl.cpp:61-67 vs :173-182). Every tensor is rank-stacked
 (row r of the leading dim is rank r's shard or replica), as in ``comm/``.
+
+The trunk's forms (:func:`column_parallel_in`, :func:`row_parallel_out`)
+take a replicated input as the one tensor it is on every rank and give
+the row-parallel sum once (every rank's replica is that tensor), with the
+tp rank dim at any place among other rank dims: a replica is never a
+copy on one device.
 """
 
 from __future__ import annotations
@@ -18,8 +24,12 @@ ROW_ALGORITHMS = ("collective", "ring")
 
 
 def _local_matmul(x, w):
-    """Each rank's ``x_r @ w_r``: x (P, ..., d), w (P, d, f)."""
-    return torch.einsum("p...d,pdf->p...f", x, w)
+    """Each rank's ``x_r @ w_r`` as ONE batched product over the rank
+    dim: x (P, ..., d) (a stride-0 broadcast is read in place), w (P, d,
+    f) -> (P, ..., f)."""
+    P, lead = w.shape[0], x.shape[1:-1]
+    y = torch.matmul(x.reshape(P, -1, x.shape[-1]), w)
+    return y.reshape(P, *lead, w.shape[-1])
 
 
 def column_parallel(x, w_local, b_local=None):
@@ -64,3 +74,19 @@ def tp_mlp(x, w_in_local, w_out_local, *, activation=None,
     h = column_parallel(x, w_in_local)
     h = (activation or (lambda t: F.gelu(t, approximate="tanh")))(h)
     return row_parallel(h, w_out_local, algorithm=algorithm)
+
+
+def column_parallel_in(x, w_local):
+    """Column-parallel ``Y_r = x @ W_r`` with ``x`` replicated, given
+    once (no rank dim): w (P, d, f/P) -> (P, ..., f/P), one launch over
+    the ranks. Its backward sums the ranks' input gradients (the
+    allreduce Megatron's column-parallel input takes in the backward)."""
+    return column_parallel(x.expand(w_local.shape[0], *x.shape), w_local)
+
+
+def row_parallel_out(x_local, w_local, *, dim: int = 0):
+    """Row-parallel ``Y = sum_r x_r @ W_r``: the ranks' partial products
+    (one launch over the ranks), then the allreduce's sum over the rank
+    dim ``dim`` of ``x_local``'s leading rank dims, held once. x (...P...,
+    n, f/P) with the tp ranks at ``dim``, w (P, f/P, d)."""
+    return _local_matmul(torch.movedim(x_local, dim, 0), w_local).sum(0)

@@ -15,12 +15,21 @@ variables and joins it through ``torch.distributed`` on **gloo**
 ranks on one device, and one card is what the port has. torch is
 imported lazily here: the launcher is host code and imports this module
 without it.
+
+Meshes (:func:`make_mesh`, :func:`make_hybrid_mesh`) are ``{axis: size}``
+dicts over logical ranks, laid out row-major (later axes vary fastest).
+A slice (:func:`group_by_slice`) is the JAX package's multi-slice unit:
+in one process every rank is slice 0; across launched processes the
+process-keyed :data:`ENV_SLICE_GROUPING` (``launch.py --slices``) gives
+each process's block of ranks its slice.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
+from collections import defaultdict
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Mapping
 
@@ -199,3 +208,83 @@ def pump_lines(prefix: str, stream, sink) -> None:
         sink.write(f"{prefix}{line}")
         sink.flush()
     stream.close()
+
+
+class TopologyError(ValueError):
+    """A mesh the ranks cannot hold (JAX ``topology.TopologyError``)."""
+
+
+def factor_axes(n_ranks: int, axes: Mapping[str, int]) -> dict:
+    """Resolve -1 ("auto") axis sizes so the product equals ``n_ranks``:
+    the remainder to the first auto axis, 1 to the others (JAX
+    ``_factor_axes``)."""
+    sizes = dict(axes)
+    for k, v in sizes.items():
+        if v != -1 and v < 1:
+            raise TopologyError(
+                f"axis {k!r} has invalid size {v} (use -1 for auto)")
+    auto = [k for k, v in sizes.items() if v == -1]
+    fixed = math.prod(v for v in sizes.values() if v != -1)
+    if n_ranks % fixed:
+        raise TopologyError(
+            f"mesh axes {dict(axes)} do not divide {n_ranks} devices")
+    if not auto:
+        if fixed != n_ranks:
+            raise TopologyError(f"mesh axes {dict(axes)} use {fixed} "
+                                f"devices but {n_ranks} exist")
+        return sizes
+    for k in auto[1:]:
+        sizes[k] = 1
+    sizes[auto[0]] = n_ranks // fixed
+    return sizes
+
+
+def make_mesh(axes: Mapping[str, int], n_ranks: int | None = None) -> dict:
+    """A named-axis mesh over ``n_ranks`` logical ranks (default: the
+    product of the fixed sizes, no auto axis allowed then), row-major:
+    later axes vary fastest, so put the most communication-heavy (tp,
+    then sp) last, as JAX's ``make_mesh`` advises."""
+    if n_ranks is None:
+        if any(v == -1 for v in axes.values()):
+            raise TopologyError("an auto (-1) axis needs n_ranks")
+        n_ranks = math.prod(axes.values())
+    return factor_axes(n_ranks, axes)
+
+
+def group_by_slice(n_local: int | None = None, environ=None) -> dict:
+    """``{slice_id: [global logical ranks]}``. One process: its
+    ``n_local`` ranks (default :func:`local_ranks_from_env`) form slice
+    0. Launched processes: process ``p`` holds ranks ``[p·L, (p+1)·L)``
+    and its slice comes from the process-keyed
+    :data:`ENV_SLICE_GROUPING` (every process slice 0 without it)."""
+    env = os.environ if environ is None else environ
+    local = n_local or local_ranks_from_env()
+    _, nprocs, _ = process_env_info(env)
+    groups: dict = defaultdict(list)
+    for p in range(nprocs):
+        probe = dict(env)
+        probe[ENV_PROCESS_ID] = str(p)
+        probe[ENV_NUM_PROCESSES] = str(nprocs)
+        groups[process_env_info(probe)[2]] += range(p * local,
+                                                    (p + 1) * local)
+    return dict(groups)
+
+
+def make_hybrid_mesh(dcn_axes: Mapping[str, int],
+                     ici_axes: Mapping[str, int], groups: dict) -> dict:
+    """A multi-slice mesh (JAX ``hybrid_device_layout`` /
+    ``make_hybrid_mesh``): the DCN axes across the slices of ``groups``
+    (:func:`group_by_slice`), the ICI axes within one, DCN axes leading.
+    Slices must be equal-sized; -1 sizes auto-fill; on one slice the DCN
+    axes are 1."""
+    per_slice = {s: len(r) for s, r in groups.items()}
+    if len(set(per_slice.values())) != 1:
+        raise TopologyError(f"slices are unequal ({per_slice}); a hybrid "
+                            "mesh needs equal-sized slices")
+    dcn = factor_axes(len(groups), dcn_axes)
+    ici = factor_axes(next(iter(per_slice.values())), ici_axes)
+    overlap = set(dcn) & set(ici)
+    if overlap:
+        raise TopologyError(f"axes {sorted(overlap)} appear in both "
+                            "dcn_axes and ici_axes")
+    return {**dcn, **ici}

@@ -8,6 +8,11 @@ params and never the optimizer moments (twice the params' bytes). A
 step directory is written under a temporary name and renamed into place,
 so a reader never sees half a checkpoint. Files load with
 ``torch.load(weights_only=True)``: tensors, dicts and numbers only.
+
+A sharded state (``mesh=``/``cfg=``: the params and moments stored as
+their rank-stacked shards, ``models/sharding``) saves the GLOBAL tensors
+and restores into the mesh's layout, so a checkpoint does not depend on
+the mesh it was written from.
 """
 
 from __future__ import annotations
@@ -28,17 +33,37 @@ def _detached(tree):
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
-def save_checkpoint(path, params, opt_state, step: int = 0) -> str:
+def _layout(params, opt_state, mesh, cfg, fn):
+    """``fn`` (``shard_params`` or ``unshard_params``) over the params and
+    both moment trees; the state as it is without a mesh."""
+    if mesh is None:
+        return params, opt_state
+    if cfg is None:
+        raise ValueError("a sharded checkpoint needs cfg= beside mesh=")
+    opt = dict(opt_state)
+    for k in ("mu", "nu"):
+        if k in opt:
+            opt[k] = fn(opt[k], mesh, cfg)
+    return fn(params, mesh, cfg), opt
+
+
+def save_checkpoint(path, params, opt_state, step: int = 0, *, mesh=None,
+                    cfg=None) -> str:
     """Write {params, opt_state, step} to ``<path>/step_<step>``
-    (replacing one of that step), synchronized; returns its path."""
+    (replacing one of that step), synchronized; returns its path.
+    ``mesh``/``cfg``: a sharded state, saved as its global tensors."""
+    from hpc_patterns_tpu_torch.models.sharding import unshard_params
+
+    params, opt_state = _layout(_detached(params), _detached(opt_state),
+                                mesh, cfg, unshard_params)
     root = Path(path).resolve()
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step}"
     tmp = root / f".step_{step}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir()
-    torch.save(_detached(params), tmp / "params.pt")
-    torch.save(_detached(opt_state), tmp / "opt_state.pt")
+    torch.save(params, tmp / "params.pt")
+    torch.save(opt_state, tmp / "opt_state.pt")
     (tmp / "step.json").write_text(json.dumps({"step": int(step)}))
     old = None
     if final.exists():
@@ -92,18 +117,33 @@ def same_structure(a, b) -> bool:
 
 
 def restore_checkpoint(path, params_like, opt_state_like,
-                       step: int | None = None):
+                       step: int | None = None, *, mesh=None, cfg=None):
     """(params, opt_state, step). ``*_like`` give the structure, shapes,
     dtypes and devices the restored tensors must have (the live state
     created the same way as at save time); a mismatch raises
-    ``ValueError``."""
+    ``ValueError``. ``mesh``/``cfg``: ``*_like`` is a sharded state; the
+    global tensors are placed into its layout (params requiring grad as
+    ``*_like``'s do)."""
+    from hpc_patterns_tpu_torch.models.sharding import (
+        shard_params,
+        unshard_params,
+    )
+
     d = _step_dir(path, step)
-    like = {"params": params_like, "opt_state": opt_state_like}
+    with torch.no_grad():
+        like_p, like_o = _layout(params_like, opt_state_like, mesh, cfg,
+                                 unshard_params)
+    like = {"params": like_p, "opt_state": like_o}
     dev = tree_leaves(params_like)[0].device
     got = {"params": _load(d / "params.pt", dev),
            "opt_state": _load(d / "opt_state.pt", dev)}
     if not same_structure(like, got):
         raise ValueError(f"checkpoint {d} does not match the state's "
                          "structure, shapes or dtypes")
-    return (got["params"], got["opt_state"],
+    params, opt_state = _layout(got["params"], got["opt_state"], mesh, cfg,
+                                shard_params)
+    if mesh is not None:
+        for p, q in zip(tree_leaves(params), tree_leaves(params_like)):
+            p.requires_grad_(q.requires_grad)
+    return (params, opt_state,
             json.loads((d / "step.json").read_text())["step"])

@@ -50,7 +50,13 @@ the library roll, the flash ring's gradients against the dense ring's
 within 2e-2 x max|dense|; ``moe_dense`` on the card against its CPU
 plain version on the same f32 values within 1e-4 (f32 products and sums
 in another order; the same slots, so the same tokens drop); the scatter
-MoE step at top-3 twice with equal loss and gradient bits.
+MoE step at top-3 twice with equal loss and gradient bits. The tp shard
+shapes (2 logical tp ranks): kernels 1, 3, 4, 8 and 9 in a tp 2 loss and
+its gradients against the same on the CPU's plain versions (bf16 on both
+sides: loss rtol 1e-2, each leaf's cosine >= 0.999), and the prefill
+(kernel 1) and one linear (5) and paged (6/6q) step on the tp ranks'
+kv-head blocks within 2e-2 x max|plain| of the logits, each kernel
+launched once a layer over the folded ranks (kernels 8/9 once a rank).
 """
 
 import ctypes
@@ -1322,3 +1328,100 @@ def test_moe_scatter_step_at_top3_gives_equal_bits_twice(gen):
     (l0, g0), (l1, g1) = runs
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# ------------------------------------------- tp shard shapes (logical ranks)
+
+def _tp_model(**kw):
+    from hpc_patterns_tpu_torch.models import sharding as tsh
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    cfg = tf.TransformerConfig(vocab=512, d_model=256, n_heads=4,
+                               n_layers=2, d_ff=1024, max_seq=256,
+                               dtype="bfloat16", **kw)
+    params = tf.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    return cfg, params, tsh
+
+
+def test_tp_trunk_kernels_at_shard_shapes_match_plain(gen):
+    # tp 2: kernel 1 (with lse) and the split backward (3, 4) on the tp
+    # ranks' head blocks folded into the batch, one launch a layer; the
+    # fused MLP kernels (8, 9) on each rank's (D, F/2) / (F/2, D) shard;
+    # loss and every gradient leaf against the same step's plain versions
+    # on the CPU (bf16 on both sides): loss rtol 1e-2, each leaf's cosine
+    # >= 0.999
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    cfg, params, tsh = _tp_model(attention="flash", mlp_impl="fused")
+    mesh = {"tp": 2}
+    tokens = torch.randint(0, cfg.vocab, (4, 256),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tsh.shard_params({k: (v.to(dev) if torch.is_tensor(v) else
+                                  tr.tree_map(lambda t: t.to(dev), v))
+                              for k, v in params.items()}, mesh, cfg)
+        leaves = tr.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        n_fa, n_fm = dict(fa.launches), dict(fm.launches)
+        loss = tf.loss_fn(p, tokens.to(dev), cfg, mesh)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (loss.item(), [g.float().cpu() for g in grads])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.n_layers
+            assert {k: fa.launches[k] - n_fa[k] for k in
+                    ("fwd_lse", "dq", "dkv")} == {"fwd_lse": L, "dq": L,
+                                                  "dkv": L}
+            assert {k: fm.launches[k] - n_fm[k] for k in
+                    ("fwd", "bwd_dx", "bwd_dw")} == {
+                "fwd": 2 * L, "bwd_dx": 2 * L, "bwd_dw": 2 * L}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-2 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        cos = (a.flatten() @ b.flatten()) / (a.norm() * b.norm())
+        assert cos.item() >= 0.999
+
+
+@pytest.mark.parametrize("kv,n_kv,tp", [("compute", 4, 2), ("int8", 4, 2),
+                                         ("compute", 2, 4)],
+                         ids=["compute", "int8", "tp4-over-kv2"])
+def test_tp_decode_kernels_at_shard_shapes_match_plain(gen, kv, n_kv, tp):
+    # tp 2 over kv_heads 4: the prefill (kernel 1, T 128) and one linear
+    # (kernel 5) and one paged (kernel 6/6q) step on the tp ranks' kv-head
+    # blocks, one launch a layer, against the same calls' plain versions
+    # on the CPU: logits within 2e-2 x max|plain| (bf16 model). tp 4 over
+    # kv_heads 2: the same kernels, one launch a layer, on the unsharded
+    # cache (q gathered)
+    from hpc_patterns_tpu_torch.models import decode as dec
+
+    cfg, params, tsh = _tp_model(n_kv_heads=n_kv, kv_cache_dtype=kv)
+    mesh = {"tp": tp}
+    prompt = torch.randint(0, cfg.vocab, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    tok = torch.tensor([3, 5])
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = tsh.shard_params({k: (v.to(dev) if torch.is_tensor(v) else
+                                  {n: t.to(dev) for n, t in v.items()})
+                              for k, v in params.items()}, mesh, cfg)
+        n_fa, n_fd = dict(fa.launches), dict(fd.launches)
+        with torch.no_grad():
+            lg, cache = dec.prefill(p, prompt.to(dev), cfg, 136, mesh=mesh)
+            step = dec.decode_step(p, cache, 128, tok.to(dev), cfg,
+                                   mesh=mesh)
+            pc = dec.init_paged_cache(cfg, 2, 3, 64, device=dev, mesh=mesh)
+            dec.paged_prefill(p, prompt.to(dev), cfg, pc, 64, mesh=mesh)
+            paged = dec.paged_decode_step(p, pc, 128, tok.to(dev), cfg,
+                                          mesh=mesh)
+        got[dev] = [t.float().cpu() for t in (lg, step, paged)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.n_layers
+            assert fa.launches["fwd"] - n_fa["fwd"] == 2 * L
+            assert fd.launches["flash_decode"] - n_fd["flash_decode"] == L
+            assert fd.launches["paged_decode"] - n_fd["paged_decode"] == L
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()

@@ -234,14 +234,31 @@ def test_training_learns(mesh, attention):
 
 
 @pytest.mark.parametrize("mesh,err", [
-    ({"dp": 2}, NotImplementedError), ({"tp": 2}, NotImplementedError),
-    ({"fsdp": 2, "sp": 2}, NotImplementedError), ({"data": 2}, ValueError)])
+    ({"dp": 2}, None), ({"tp": 2}, None), ({"fsdp": 2, "sp": 2}, None),
+    ({"data": 2}, ValueError)])
 def test_unported_meshes_raise(mesh, err):
+    # dp, tp and fsdp now run as logical ranks; an undeclared axis still
+    # raises. dp: each row block routes alone (capacity per shard), so
+    # the loss is the mean of the halves' losses; tp leaves the MoE
+    # routing whole; fsdp without cfg.fsdp replicates (the sp loss)
     _, tcfg, _, tp = _pair()
-    with pytest.raises(err):
-        ttf.loss_fn(tp, torch.from_numpy(_tokens(2)), tcfg, mesh)
-    with pytest.raises(err):
-        ttrain.make_train_step(tcfg, mesh=mesh)
+    tokens = torch.from_numpy(_tokens(2))
+    if err is not None:
+        with pytest.raises(err):
+            ttf.loss_fn(tp, tokens, tcfg, mesh)
+        with pytest.raises(err):
+            ttrain.make_train_step(tcfg, mesh=mesh)
+        return
+    with torch.no_grad():
+        got = ttf.loss_fn(tp, tokens, tcfg, mesh).item()
+        if "dp" in mesh:
+            want = np.mean([ttf.loss_fn(tp, tokens[i:i + 1], tcfg).item()
+                            for i in range(tokens.shape[0])])
+        else:
+            want = ttf.loss_fn(tp, tokens, tcfg,
+                               {"sp": mesh.get("sp", 1)}).item()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    ttrain.make_train_step(tcfg, mesh=mesh)
 
 
 def test_flash_refuses_a_sharded_sequence():
@@ -285,14 +302,17 @@ def test_train_app_runs(flag, capsys):
 
 
 @pytest.mark.parametrize("flag,msg", [
-    (["--dp", "2"], "not ported yet"), (["--fsdp", "2"], "not ported yet"),
-    (["--tp", "2"], "not ported yet"), (["--pp", "2"], "not ported yet"),
-    (["--dcn-dp"], "not ported yet"), (["--ep", "2"], "requires"),
+    (["--dp", "3"], "divide"), (["--fsdp", "3"], "divide"),
+    (["--tp", "3"], "divide"), (["--pp", "2"], "not ported yet"),
+    (["--dcn-dp", "--dp", "2"], "slice count 1"), (["--ep", "2"], "requires"),
     (["--n-experts", "3", "--ep", "2"], "divide"),
     (["--attention", "flash", "--sp", "2"], "ring_flash")])
 def test_train_app_refusals(flag, msg, capsys):
+    # dp/fsdp/tp/dcn-dp run as logical ranks now: what they refuse is a
+    # size that does not divide (batch 4, heads 4) and, in one process,
+    # --dcn-dp with a dp other than the one slice
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
     out = capsys.readouterr().out
     assert "ERROR:" in out and msg in out and out.strip().endswith("FAILURE")
     if msg == "not ported yet":
-        assert "multi-process slice" in out
+        assert "item 5.6" in out

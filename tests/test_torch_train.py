@@ -96,16 +96,6 @@ def test_chunked_loss_equals_dense_and_checks_the_chunk():
         ttf.chunked_masked_causal_nll(x, head, tokens, chunk=48)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": {"dp": 2}}, {"mesh": {"tp": 2}},
-                                {"mesh": {"fsdp": 2}}])
-def test_unported_trunk_options_raise(kw):
-    _, tcfg = _pair()
-    jcfg, _ = _pair()
-    _, tp = _params(jcfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttf.loss_fn(tp, torch.from_numpy(_tokens(3)), tcfg, **kw)
-
-
 def _advance(opt, state, params, n, seed):
     """``n`` optax updates with seeded gradients: a mid-run state."""
     rng = np.random.default_rng(seed)
@@ -357,13 +347,32 @@ def test_train_app_data_file(tmp_path, capsys):
     assert capsys.readouterr().out.strip().endswith("SUCCESS")
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"],
-                                  ["--dp", "2"],
-                                  ["--dcn-dp"], ["--fsdp", "2"]])
+@pytest.mark.parametrize("flag", [["--pp", "2"]])
 def test_train_app_unported_flags_fail(flag, capsys):
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
     out = capsys.readouterr().out
     assert "ERROR:" in out and "not ported yet" in out
+    assert out.strip().endswith("FAILURE")
+
+
+@pytest.mark.parametrize("flag,label", [
+    (["--tp", "2"], "tp=2"), (["--dp", "2", "--fsdp", "2"], "fsdp=2"),
+    (["--dcn-dp", "--dp", "-1"], "dcn-dp=1")], ids=["tp", "dp-fsdp", "dcn"])
+def test_train_app_mesh_flags_pass(flag, label, capsys):
+    # JAX's labels; on one process --dcn-dp --dp -1 degenerates to dp 1
+    assert train_app.main(APP + ["--steps", "2", "--batch", "4"]
+                          + flag) == 0
+    out = capsys.readouterr().out
+    assert label in out and "logical ranks of one device" in out
+    assert out.strip().endswith("SUCCESS")
+
+
+def test_train_app_dcn_dp_refuses_dp_2_in_one_process(capsys):
+    assert train_app.main(APP + ["--steps", "1", "--dcn-dp", "--dp",
+                                 "2"]) == 1
+    out = capsys.readouterr().out
+    assert ("ERROR: --dcn-dp places dp across slices: --dp 2 != slice "
+            "count 1 (use -1 for auto)") in out
     assert out.strip().endswith("FAILURE")
 
 
