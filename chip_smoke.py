@@ -373,6 +373,38 @@ Phases, each printing JSON lines:
               ``SHARD_LAUNCH_RTOL`` of one process's run of the same
               global mesh; then kernels 1, 3, 4, 8, 8a, 9, 5, 6 and 6q at
               their shard shapes against their plain versions;
+12b. pipeline — pp and the tp serving engine as logical ranks of the card
+              (``PIPE_*``), each part's line with the card's name and
+              power limit: (a) pp 4 x 8 microbatches with the fused MLP
+              at the training cell: the loss within ``PIPE_LOSS_RTOL``
+              and every gradient leaf's 1 - cosine within ``PIPE_GAP``
+              of the no-mesh step at init, both steps' ms, busy share,
+              kernels and peak memory side by side, each stage's peak
+              stash within min(P - r, M), and a step's launches of
+              kernels 1 (forward, and with lse in the recompute), 3/4
+              and 8/9 equal to the 1F1B schedule's; (b) ``train_app
+              --pp 2 --tp 2`` and ``--dp 2 --pp 2`` (dense MLP,
+              ``PIPE_STEPS`` steps, ``--resume-check``): SUCCESS, the
+              resume bit for bit, each step's loss within ``PIPE_B_RTOL``
+              of the no-mesh step's; (c) ``train_app --pp 4
+              --microbatches 8``: SUCCESS; (d) ``launch.py -np 2
+              --slices 2 ... train_app --pp 2 --dcn-dp --dp -1`` at
+              ``SHARD_LAUNCH_ARGV``'s widths, each process's losses
+              within ``SHARD_LAUNCH_RTOL`` of one process of dp 2 x pp 2;
+              (e) the tp 4 engine at ``SHARD_SERVE``'s geometry on bf16
+              and int8 pools, tie-aware against the tp standalone
+              ``paged_generate`` (the prompts batched), tokens/s (best of
+              two runs) beside the unsharded engine and, on bf16, the
+              busy share of one steady decode round (kernel 1 and 6/6q
+              launches against the counted admissions and steps); one
+              tp bundle through
+              kernel 13 into an unsharded engine; the aligned pair
+              (phase spec's build) draft-assisted unsharded, at tp 4
+              (whole pools: tp does not divide its 2 kv heads) and at tp
+              2 (both caches' pools stacked), tie-aware against the
+              target's standalone; then kernels 1-4 at the microbatch
+              shape (B 1 x T 2048 x H 8) and 8, 8a and 9 at a
+              microbatch's MLP (N 2048 x D 1024 x F 4096);
 13. the ``done`` line with each phase's wall seconds, the ``{"kernels":
    [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -450,11 +482,13 @@ SWEEP_REPS = 3
 N_REQUESTS = 16
 N_QUANT_REQUESTS = 4
 # the bench_serving --quant row (quantized_full_config: 24 requests on
-# the card, budgets up to 256) at its first 4, budgets up to 128
-QUANT_ROW_REQUESTS, QUANT_ROW_BUDGET = 4, 128
-# phase sample's serve_app leg: the stream's first 8 (16 until a whole
-# run took 752 s on a slow host with phases stencil and launch)
-SAMPLE_REQUESTS = 8
+# the card, budgets up to 256) at its first 4, budgets up to 64 (128
+# until phase pipeline joined)
+QUANT_ROW_REQUESTS, QUANT_ROW_BUDGET = 4, 64
+# phase sample's serve_app leg: the stream's first 4 (16 until a whole
+# run took 752 s on a slow host with phases stencil and launch, 8 until
+# phase pipeline joined)
+SAMPLE_REQUESTS = 4
 SERVE_CUTS = {"requests": "32 -> 16",
               "sample_requests": f"32 -> {SAMPLE_REQUESTS}",
               "quant_requests": f"16 -> {N_QUANT_REQUESTS}",
@@ -613,6 +647,31 @@ SHARD_CUTS = {"steps": f"8 -> {SHARD_STEPS} (train_app legs)",
                           "at full width)",
               "serve": "16 requests of the serving cell -> 4 prompts of "
                        "512 at 64 tokens through generate/paged_generate"}
+
+# phase pipeline: pp and the tp engine on logical ranks of the card. (a)
+# pp 4 x 8 microbatches at the training cell (B 1 a microbatch) against
+# the no-mesh step at init: the loss and every gradient leaf as 1 -
+# cosine, limits about 10x a sound run's readings on the H100 (PERF.md;
+# the loss read bit-equal, so its limit is bf16 GEMM noise); (b) pp 2 x
+# tp 2 and dp 2 x pp 2 through train_app, each step's loss against the
+# no-mesh step's from the same seeds; (e) at SHARD_SERVE's geometry,
+# PIPE_SPEC's requests of the pair's stream for the draft leg
+PIPE_PP, PIPE_M = 4, 8
+PIPE_STEPS = 3
+PIPE_LOSS_RTOL = 1e-5  # a sound run's loss: bit-equal (0.0)
+PIPE_GAP = 3e-5        # its worst leaf 2.5e-6 (embed)
+PIPE_B_RTOL = 1e-4     # its (b) legs 7.6e-6 (pp 2 x tp 2), 3.5e-6
+PIPE_MESHES = {"pp2_tp2": ["--pp", "2", "--tp", "2", "--microbatches", "4"],
+               "dp2_pp2": ["--dp", "2", "--pp", "2", "--microbatches", "4"]}
+PIPE_SPEC = {"requests": 4, "budget": 32}
+PIPE_DRAFT_MESH = {"tp": 2}  # divides the pair's 2 kv heads: stacked pools
+PIPE_CUTS = {"steps": f"8 -> {PIPE_STEPS} (train_app legs)",
+             "launched": "the sharded phase's cut widths (d_model 256, "
+                         "2 layers, vocab 4096, seq 512)",
+             "serve": "16 requests of the serving cell -> 4 prompts of "
+                      "512 at 64 tokens",
+             "draft": f"16 requests -> {PIPE_SPEC['requests']} of the "
+                      f"pair's stream at {PIPE_SPEC['budget']} tokens"}
 
 # phase stencil: stencil_app at world 8 on the card, 16 and 256 MiB of f32
 STENCIL_P = (22, 26)
@@ -2738,19 +2797,23 @@ def phase_scenario():
 
 # phase fit: serve_app's record and replay legs serve 4 requests of the
 # serve phase's stream (cut from 16: each leg serves them twice and runs
-# every sequence's standalone); the --fit row serves 16 of
-# fit_full_config's 32 requests, timed once (JAX's reps 2); the collect
+# every sequence's standalone); the --fit row serves 8 of
+# fit_full_config's 32 requests (16 until phase pipeline joined; the
+# first 8 hold prompts of 320, which the default ladder pads to 512, so
+# the fitted ladder's padding win stays strict), timed once (JAX's reps
+# 2); the collect
 # leg's two processes run one fused point of 2^20 f32 a rank at 4 logical
-# ranks; the gate's bench rounds measure each pass for 0.05 s after 100
-# calibration passes (the bench's defaults: 1 s, 1000)
+# ranks; the gate's bench rounds measure each pass for 0.05 s after 50
+# calibration passes (the bench's defaults: 1 s, 1000; 100 until phase
+# pipeline joined)
 FIT_REQUESTS = 4
-FIT_ROW = {"n": 16, "reps": 1}
+FIT_ROW = {"n": 8, "reps": 1}
 FIT_COLLECT = dict(p=20, world=4, repetitions=5)
-FIT_GATE = ["--target-s", "0.05", "--cal-passes", "100"]
+FIT_GATE = ["--target-s", "0.05", "--cal-passes", "50"]
 FIT_CUTS = {"serve_app_requests": f"16 -> {FIT_REQUESTS}",
             "fit_row": f"32 requests x 2 reps -> {FIT_ROW['n']} x "
                        f"{FIT_ROW['reps']}",
-            "gate_bench": "per-pass 1 s -> 0.05 s, calibration 1000 -> 100"}
+            "gate_bench": "per-pass 1 s -> 0.05 s, calibration 1000 -> 50"}
 
 
 def _fit_serve(argv_extra, log):
@@ -3537,21 +3600,22 @@ SPEC_GAMMA = 4
 # 4 rounds a dispatch (a round emits up to gamma + 1 tokens, so about the
 # plain engine's 16-step chunk); 4 requests (16, then 8, before the run
 # had to end well inside its limit on slower hosts), the int8 leg the
-# first 4;
-# serve_app's leg the serve phase's first SPEC_APP_REQUESTS requests
+# first 2 (4 until phase pipeline joined);
+# serve_app's leg the serve phase's first SPEC_APP_REQUESTS requests (2;
+# 4 until phase pipeline joined)
 SPEC_STREAM = dict(requests=4, prompt_len=256, budgets=(64, 128, 256),
                    p=(0.5, 0.3, 0.2))
 SPEC_CHUNK = 4
-SPEC_INT8_REQUESTS = 4
-SPEC_APP_REQUESTS = 4
+SPEC_INT8_REQUESTS = 2
+SPEC_APP_REQUESTS = 2
 # the benchmark: the gamma sweep and the batched rows at 8 tokens a call
 # (at JAX's 256 the vmap impl's eight one-row loops took most of the 251 s
 # the whole benchmark took on the H100; the sweep at 256 took 173 s of a
 # 1032 s run once phase fit joined, so it was cut to 128; with phase
 # tiered the run reached 1112 s with the sweep at 64 (72 s), so both went
 # to 32; a host that ran the script a third slower took both to 16, and
-# phases stencil and launch to 8)
-SPEC_BENCH = dict(n=8, temp=0.8, top_k=40, batched=8, batched_n=8)
+# phases stencil and launch to 8; phase pipeline took both to 4)
+SPEC_BENCH = dict(n=4, temp=0.8, top_k=40, batched=8, batched_n=4)
 SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
              "serve_app": "the serve phase's stream, its first "
                           f"{SPEC_APP_REQUESTS} requests",
@@ -4261,21 +4325,26 @@ def phase_plane():
 # the observe phase: training at the chip widths cut to this depth and
 # step count; the allreduce sweep's sizes
 OBSERVE_TRAIN = {"n_layers": 2, "steps": 3}
-OBSERVE_SWEEP = ["--sweep", "--min-p", "3", "-p", "12"]
+OBSERVE_SWEEP = ["--sweep", "--min-p", "3", "-p", "10"]
 # serving untraced (False) and traced (True) in turns, one pair since
 # phase tiered joined (the block (F, T, T, F) twice before): the serve
 # phase's tokens/s moves ~10% from run to run, so one pair shows equal
 # tokens and launches, not the tracing's cost
 OBSERVE_TURNS = (False, True)
-# the profiled serving run: the stream's first 8 requests at a budget of
-# 64 (each sequence the first 64 tokens of the serve phase's). The
+# each turn serves the stream's first 8 requests (16 until phase pipeline
+# joined)
+OBSERVE_TURN_REQUESTS = 8
+# the profiled serving run: the stream's first 4 requests at a budget of
+# 32 (each sequence the first 32 tokens of the serve phase's). The
 # profiler records every kernel and op, and the whole stream (~150k
-# kernels) took it about two minutes on the H100's host
-OBSERVE_PROFILE = {"requests": 8, "budget": 64}
+# kernels) took it about two minutes on the H100's host (8 requests at 64
+# until phase pipeline joined)
+OBSERVE_PROFILE = {"requests": 4, "budget": 32}
 OBSERVE_CUTS = {"train": "8 layers x 8 steps -> 2 layers x 3 steps",
-                "comm": "p 3..25 -> p 3..12",
+                "comm": "p 3..25 -> p 3..10",
                 "plane": "one closed-loop 1p/1d dma leg",
-                "turns": "8 serving runs in turns -> 2",
+                "turns": "8 serving runs in turns -> 2, of the stream's "
+                         f"first {OBSERVE_TURN_REQUESTS} requests",
                 "profiled": f"the stream -> its first "
                             f"{OBSERVE_PROFILE['requests']} requests at "
                             f"{OBSERVE_PROFILE['budget']} tokens"}
@@ -4406,7 +4475,7 @@ def _observe_serve(ctx, logs):
 
     turns = []
     for traced in OBSERVE_TURNS:
-        tps, launched, share = serve(traced)
+        tps, launched, share = serve(traced, n=OBSERVE_TURN_REQUESTS)
         turns.append({"traced": traced, "tokens_per_s": tps,
                       "launches": launched, "chunk_window_share": share})
     check(len({t["launches"] for t in turns}) == 1,
@@ -5185,42 +5254,13 @@ def _shard_grads(cfg, mesh, tokens):
 
 
 def _shard_step_stats(cfg, mesh, tokens):
-    """:func:`_shard_grads`, then the state's step: its min ms over 3
-    timed steps, one profiled step (busy share, kernels), the wrappers'
-    launches a step and the peak memory over a step (from a reset with
-    the state resident)."""
-    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    """:func:`_shard_grads`, then the state's step's :func:`_step_stats`."""
     from hpc_patterns_tpu_torch.models import train as tr
-    from hpc_patterns_tpu_torch.ops import flash_attention as fa
-    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
 
     loss, grads, params, opt = _shard_grads(cfg, mesh, tokens)
-    step = tr.make_train_step(cfg, mesh=mesh)
-    step(params, opt, tokens)[0].item()  # warm-up
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, opt, tokens)[0].item()
-        times.append((time.perf_counter() - t0) * 1e3)
-    for counts in (fa.launches, fm.launches):
-        for key in counts:
-            counts[key] = 0
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    prof = device_profile(lambda: step(params, opt, tokens)[0].item())
-    peak = torch.cuda.max_memory_allocated()
-    stats = {"step_ms": min(times), "steps_ms": times,
-             "busy_frac": prof["device_busy_frac"],
-             "device_kernels_a_step": prof["device_kernels"],
-             "top_kernels": prof["top_kernels"][:3],
-             "launches_a_step": {**{f"flash_{k}": v for k, v in
-                                    fa.launches.items() if v},
-                                 **{f"mlp_{k}": v for k, v in
-                                    fm.launches.items() if v}},
-             "peak_bytes": peak, "peak_over_state_bytes": peak - base}
-    del params, opt, step
+    stats = _step_stats(tr.make_train_step(cfg, mesh=mesh), params, opt,
+                        tokens)
+    del params, opt
     torch.cuda.empty_cache()
     return loss, grads, stats
 
@@ -5529,6 +5569,483 @@ def phase_sharded():
     return launches, shard_rows
 
 
+# ------------------------------------------- pipeline and the tp engine
+
+
+def _pp_grads(cfg, tokens, stats):
+    """The pp 4 state from seed 0 (the no-mesh state's params) and its
+    pipeline loss and global f32 gradients at init, in ``tree_leaves``
+    order."""
+    from hpc_patterns_tpu_torch.models import pp as pplib
+    from hpc_patterns_tpu_torch.models import train as tr
+
+    dev = torch.device("cuda")
+    params, opt = pplib.init_pp_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    loss, grads = pplib.pp_loss_and_grads(
+        params, tokens, cfg, {"pp": PIPE_PP}, microbatches=PIPE_M,
+        stats=stats)
+    return loss.item(), [g.float() for g in tr.tree_leaves(grads)], params, \
+        opt
+
+
+def _step_stats(step, params, opt, tokens) -> dict:
+    """A step's min ms over 3 timed steps (after a warm-up), one profiled
+    step (busy share, kernels), the wrappers' launches in that step and
+    the peak memory over it (from a reset with the state resident)."""
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import fused_mlp as fm
+
+    step(params, opt, tokens)[0].item()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, tokens)[0].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for counts in (fa.launches, fm.launches):
+        for key in counts:
+            counts[key] = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prof = device_profile(lambda: step(params, opt, tokens)[0].item())
+    peak = torch.cuda.max_memory_allocated()
+    return {"step_ms": min(times), "steps_ms": times,
+            "busy_frac": prof["device_busy_frac"],
+            "device_kernels_a_step": prof["device_kernels"],
+            "top_kernels": prof["top_kernels"][:3],
+            "launches_a_step": {**{f"flash_{k}": v for k, v in
+                                   fa.launches.items()},
+                                **{f"mlp_{k}": v for k, v in
+                                   fm.launches.items()}},
+            "peak_bytes": peak, "peak_over_state_bytes": peak - base}
+
+
+def _pipe_a(cfg, tokens, names) -> dict:
+    """(a): pp 4 x 8 microbatches, fused MLP, at init against the no-mesh
+    step, both steps' stats side by side, the schedule's launches."""
+    from hpc_patterns_tpu_torch.models import pp as pplib
+    from hpc_patterns_tpu_torch.models import train as tr
+
+    L = cfg.n_layers
+    l0, g0, st0 = _shard_step_stats(cfg, None, tokens)
+    pipe = {}
+    l1, g1, params, opt = _pp_grads(cfg, tokens, pipe)
+    gap = _cosine_gaps(names, g0, g1)
+    del g0, g1
+    st1 = _step_stats(pplib.make_pp_train_step(
+        cfg, {"pp": PIPE_PP}, microbatches=PIPE_M), params, opt, tokens)
+    del params, opt
+    torch.cuda.empty_cache()
+    M, P_ = PIPE_M, PIPE_PP
+    want = {"flash_fwd": M * L, "flash_fwd_lse": M * L, "flash_dq": M * L,
+            "flash_dkv": M * L, "flash_fused_bwd": 0, "mlp_fwd": 2 * M * L,
+            "mlp_fwd_save_a": 0, "mlp_bwd_dx": M * L, "mlp_bwd_dw": M * L}
+    rel = abs(l1 - l0) / abs(l0)
+    row = {"loss_no_mesh": l0, "loss_pp": l1, "loss_rel_diff": rel,
+           "worst_gap": max(gap.values()), "grad_gap": gap,
+           "tol": {"loss_rel": PIPE_LOSS_RTOL, "gap": PIPE_GAP},
+           "peak_stash": pipe["peak_stash"], "ticks": pipe["ticks"],
+           "no_mesh_step": st0, "pp_step": st1,
+           "step_ratio": st1["step_ms"] / st0["step_ms"],
+           "schedule_launches": want}
+    check(rel <= PIPE_LOSS_RTOL and max(gap.values()) <= PIPE_GAP,
+          f"pp {P_} x {M} vs no mesh at init: loss {l1} vs {l0}, worst "
+          f"leaf 1 - cosine {max(gap.values())}")
+    check(all(n <= min(P_ - r, M) for r, n in
+              enumerate(pipe["peak_stash"])),
+          f"peak stash {pipe['peak_stash']} within min(P - r, M)")
+    check(st1["launches_a_step"] == want,
+          f"pp {P_} x {M}: a step's launches {st1['launches_a_step']} == "
+          f"the schedule's {want} (forward and recompute forward a "
+          "microbatch and layer, one backward each)")
+    return row
+
+
+def _pipe_b(cfg, logs) -> dict:
+    """(b): pp 2 x tp 2 and dp 2 x pp 2 through train_app (dense MLP,
+    PIPE_STEPS steps, --resume-check), their losses against the no-mesh
+    train step's from the same seeds."""
+    from hpc_patterns_tpu_torch.models import train as tr
+
+    dev = torch.device("cuda")
+    B, T = TRAIN_BATCH
+    params, opt = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           B, T, device=dev)
+    step = tr.make_train_step(cfg)
+    ref = [step(params, opt, tokens)[0].item() for _ in range(PIPE_STEPS)]
+    del params, opt, step
+    torch.cuda.empty_cache()
+    rows = {"no_mesh_losses": ref}
+    for name, flags in PIPE_MESHES.items():
+        run = _train_run(["--steps", str(PIPE_STEPS), *TRAIN_BASE, *flags,
+                          "--resume-check"], logs / f"{name}.jsonl")
+        resume = [ln for ln in run["out"].splitlines()
+                  if "resume-check" in ln]
+        err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref))
+        bits = resume and resume[0].rsplit("losses ", 1)[1].split(" vs ")
+        rows[name] = {"rc": run["code"], "label": run["res"].get("label"),
+                      "losses": run["losses"], "max_rel_err": err,
+                      "step_ms": run["res"]["step_time_s"] * 1e3,
+                      "steps_ms": run["steps_ms"],
+                      "peak_bytes": run["peak_bytes"],
+                      "launches": run["launches"], "resume": resume}
+        check(run["code"] == 0 and run["res"]["success"]
+              and err <= PIPE_B_RTOL and bits and bits[0] == bits[1],
+              f"{name}: SUCCESS, losses {run['losses']} within "
+              f"{PIPE_B_RTOL} of no mesh {ref} ({err}), resume {resume}")
+    return rows
+
+
+def _pipe_serve(dev) -> tuple[dict, dict]:
+    """(e): the tp 4 engine at SHARD_SERVE's geometry on bf16 and int8
+    pools against the tp standalone (tie-aware), tokens/s and busy share
+    beside the unsharded engine; one tp bundle installed in an unsharded
+    engine through kernel 13; the aligned pair's draft-assisted engine at
+    tp 4 (whole pools) and tp 2 (stacked pools) against the unsharded
+    one."""
+    from hpc_patterns_tpu_torch import topology
+    from hpc_patterns_tpu_torch.apps.serve_app import CHIP_MODEL, TIE_TOL
+    from hpc_patterns_tpu_torch.comm import migration_dma as md
+    from hpc_patterns_tpu_torch.harness.profiling import device_profile
+    from hpc_patterns_tpu_torch.models import decode as dec
+    from hpc_patterns_tpu_torch.models.serving import ContinuousBatcher
+    from hpc_patterns_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    s = SHARD_SERVE
+    mesh = {"tp": SHARD_TP}
+    tol = TIE_TOL[CHIP_MODEL["dtype"]]
+    pages = -(-(s["prompt_len"] + s["new_tokens"]) // s["page"])
+    geom = dict(slots=s["rows"], pool_pages=s["rows"] * pages,
+                pages_per_seq=pages, page_size=s["page"], chunk=16,
+                device=dev)
+    prompts = [torch.randint(0, CHIP_MODEL["vocab"], (s["prompt_len"],),
+                             generator=torch.Generator().manual_seed(10 + i))
+               .to(torch.int32).numpy() for i in range(s["rows"])]
+    rows, launches = {}, {"fwd": 0, "paged_decode": 0,
+                          "paged_decode_quant": 0, "migration_exchange": 0}
+    seconds = {}
+    for kv in ("compute", "int8"):
+        t_leg = time.perf_counter()
+        cfg = TransformerConfig(
+            **CHIP_MODEL, max_seq=s["prompt_len"] + s["new_tokens"],
+            decode_attn="flash", kv_cache_dtype=kv)
+        params = init_params(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev,
+                             dtype=torch.bfloat16)
+        legs = {}
+        for name, m in (("unsharded", None), ("tp4", mesh)):
+            runs: list = []
+            Counting = _counting_engine(ContinuousBatcher, runs)
+
+            def engine():
+                eng = Counting(params, cfg, **geom, mesh=m)
+                return eng, [eng.submit(p, s["new_tokens"]) for p in prompts]
+
+            dts = []
+            for _ in range(2):  # the host-paced run's best of two
+                eng, ids = engine()
+                t0 = time.perf_counter()
+                got = eng.run()
+                torch.cuda.synchronize()
+                dts.append(time.perf_counter() - t0)
+            dt = min(dts)
+            out = [got[i] for i in ids]
+            busy = None
+            if kv == "compute":
+                # the busy share of one steady decode round (16 steps of
+                # 4 rows; a whole run's profile costs the profiler tens
+                # of seconds to read back)
+                again = ContinuousBatcher(params, cfg, **geom, mesh=m)
+                for p in prompts:
+                    again.submit(p, s["new_tokens"])
+                again.service_round()
+                busy = device_profile(again.service_round)[
+                    "device_busy_frac"]
+                again.run()
+            legs[name] = {"tokens_per_s": sum(map(len, out)) / dt,
+                          "runs_s": dts,
+                          "busy_frac": busy, "out": out,
+                          "launches": _check_launches(runs[0],
+                                                      f"{name} {kv}")}
+            if m is not None:
+                check(eng.cache["k"][0].shape[0] == SHARD_TP,
+                      f"tp engine {kv}: pools stacked over tp")
+                launches["fwd"] += runs[0]["flash_prefill"]
+                launches["paged_decode_quant" if kv == "int8"
+                         else "paged_decode"] += runs[0]["paged_decode"]
+        with torch.no_grad():  # the tp standalone, the prompts batched
+            want, margins = dec.paged_generate(
+                params, torch.from_numpy(np.stack(prompts)).to(dev), cfg,
+                s["new_tokens"], page_size=s["page"], with_margins=True,
+                mesh=mesh, device=dev)
+        counts, detail, _ = _tie_counts(
+            [(i, legs["tp4"]["out"][i], want[i].cpu().numpy(),
+              margins[i].cpu().numpy()) for i in range(len(prompts))], tol)
+        check(counts["mismatch"] == 0,
+              f"tp 4 engine {kv} vs the tp standalone: {counts} {detail}")
+        for leg in legs.values():
+            del leg["out"]
+        seconds[kv] = time.perf_counter() - t_leg
+        rows[kv] = {**legs, "vs_tp_standalone": counts,
+                    "divergences": detail,
+                    "tp_over_unsharded_tokens_per_s":
+                        legs["tp4"]["tokens_per_s"]
+                        / legs["unsharded"]["tokens_per_s"]}
+        if kv == "compute":
+            # one tp bundle to an unsharded engine, through kernel 13
+            t_leg = time.perf_counter()
+            src = ContinuousBatcher(params, cfg, **geom, mesh=mesh)
+            dst = ContinuousBatcher(params, cfg, **geom)
+            sid = src.submit(prompts[0], s["new_tokens"])
+            src.service_round(decode=False)
+            [slot] = src.exportable_slots()
+            b = src.export_migration(slot)
+            md.launches["migration_exchange"] = 0
+            b = md.send_migration(b, topology.LogicalDevice(dev, 0),
+                                  topology.LogicalDevice(dev, 1))
+            md.synchronize()
+            n13 = md.launches["migration_exchange"]
+            dst.install_migration(md.recv_migration(
+                b, topology.LogicalDevice(dev, 1)))
+            got = dst.run()[sid]
+            with torch.no_grad():
+                want, margins = dec.paged_generate(
+                    params, torch.from_numpy(prompts[0])[None].to(dev), cfg,
+                    s["new_tokens"], page_size=s["page"],
+                    with_margins=True, device=dev)
+            verdict = _tie_counts([(0, got, want[0].cpu().numpy(),
+                                    margins[0].cpu().numpy())], tol)[0]
+            check(n13 == 2 * cfg.n_layers and verdict["mismatch"] == 0
+                  and b.pages_payload["k"][0].shape[1] == cfg.kv_heads,
+                  f"tp bundle into an unsharded engine: kernel 13 {n13} "
+                  f"launches (2 x {cfg.n_layers} layers), {verdict}")
+            launches["migration_exchange"] += n13
+            rows["bundle_tp4_to_unsharded"] = {
+                "kernel13_launches": n13, "n_pages": b.n_pages,
+                "verdict": verdict}
+            seconds["bundle"] = time.perf_counter() - t_leg
+            del src, dst
+        del params
+        torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    rows["draft"] = _pipe_draft(dev, mesh, launches)
+    seconds["draft"] = time.perf_counter() - t_leg
+    rows["seconds_by_leg"] = seconds
+    return rows, launches
+
+
+def _pipe_draft(dev, mesh, launches) -> dict:
+    """The aligned pair (phase spec's build) draft-assisted unsharded, at
+    ``mesh`` (tp 4, which does not divide the pair's 2 kv heads: JAX's
+    warning and whole pools) and at ``PIPE_DRAFT_MESH`` (tp 2: both
+    caches' pools kv-head-sharded and stacked, the verify extend and the
+    draft's steps on the folded ranks) on PIPE_SPEC's requests of the
+    pair's own stream: each sequence tie-aware on the target's unsharded
+    standalone, each tp run's kernel 1 and 6 launches against its
+    admissions and rounds."""
+    from hpc_patterns_tpu_torch import make_draft_pair as mdp
+    from hpc_patterns_tpu_torch.apps.serve_app import TIE_TOL
+    from hpc_patterns_tpu_torch.models.decode import paged_generate
+    from hpc_patterns_tpu_torch.models.serving import ContinuousBatcher
+
+    pair = ROOT / "build" / "smoke_spec" / "pair"
+    G, n, budget = SPEC_GAMMA, PIPE_SPEC["requests"], PIPE_SPEC["budget"]
+    L = SPEC_STREAM["prompt_len"]
+    cfg, params, dcfg, dparams, _ = mdp.load_pair(
+        str(pair), max_seq=L + budget + G + 1, device=dev)
+    reqs = [(p, budget) for p, _ in _spec_stream(cfg.vocab)[:n]]
+    pps = ContinuousBatcher.pages_needed(L, budget, SHARD_SERVE["page"],
+                                         gamma=G)
+    geom = dict(slots=n, pool_pages=n * pps, pages_per_seq=pps,
+                page_size=SHARD_SERVE["page"], chunk=SPEC_CHUNK, device=dev,
+                draft_params=dparams, draft_cfg=dcfg, gamma=G)
+    legs = {"unsharded": None, f"tp{mesh['tp']}": mesh,
+            f"tp{PIPE_DRAFT_MESH['tp']}": PIPE_DRAFT_MESH}
+    out = {}
+    for name, m in legs.items():
+        runs: list = []
+        with warnings.catch_warnings():
+            # tp 4 over 2 kv heads: JAX's warning, the pools whole
+            warnings.filterwarnings(
+                "ignore", message=r"decode: tp size \d+ does not divide "
+                r"kv_heads")
+            eng = _counting_engine(ContinuousBatcher, runs)(
+                params, cfg, **geom, mesh=m)
+            ids = [eng.submit(p, b) for p, b in reqs]
+            t0 = time.perf_counter()
+            got = eng.run()
+            dt = time.perf_counter() - t0
+        ranks = [eng.cache["k"][0].dim(), eng.dcache["k"][0].dim()]
+        if m is PIPE_DRAFT_MESH:
+            check(ranks == [5, 5] and eng.cache["k"][0].shape[0]
+                  == eng.dcache["k"][0].shape[0] == m["tp"],
+                  f"draft {name}: both pools stacked over tp "
+                  f"({tuple(eng.cache['k'][0].shape)}, "
+                  f"{tuple(eng.dcache['k'][0].shape)})")
+        out[name] = {"out": [got[i] for i in ids],
+                     "tokens_per_s": n * budget / dt,
+                     "pools_stacked": ranks == [5, 5],
+                     "launches": _check_spec_launches(runs[0],
+                                                      f"draft {name}")}
+        if m is not None:
+            launches["fwd"] += runs[0]["flash_prefill"]
+            launches["paged_decode"] += runs[0]["paged_decode"]
+    pairs = []
+    with torch.no_grad():
+        for i, (p, b) in enumerate(reqs):
+            want, margins = paged_generate(
+                params, torch.from_numpy(p)[None].to(dev), cfg, b,
+                page_size=SHARD_SERVE["page"], with_margins=True, device=dev)
+            for name in out:
+                pairs.append((f"{name}/{i}", out[name]["out"][i],
+                              want[0].cpu().numpy(),
+                              margins[0].cpu().numpy()))
+    counts, detail, _ = _tie_counts(pairs, TIE_TOL[cfg.dtype])
+    check(counts["mismatch"] == 0,
+          f"draft-assisted tp and unsharded vs the target's standalone: "
+          f"{counts} {detail}")
+    same = {f"{name}_equal_unsharded_rows":
+            sum(np.array_equal(a, b) for a, b in
+                zip(out[name]["out"], out["unsharded"]["out"]))
+            for name in out if name != "unsharded"}
+    for leg in out.values():
+        del leg["out"]
+    return {**out, "vs_target_standalone": counts, "divergences": detail,
+            **same, "requests": n, "budget": budget,
+            "kv_heads": cfg.kv_heads}
+
+
+def phase_pipeline():
+    """pp and the tp engine as logical ranks of the card (module
+    docstring, item 12b). Returns the main path's launches by kernel and
+    the kernels at the microbatch shape."""
+    import dataclasses
+    import shutil
+
+    from hpc_patterns_tpu_torch.apps import train_app
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    dev = torch.device("cuda")
+    logs = ROOT / "build" / "smoke_pipeline"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    L = TRAIN_MODEL["n_layers"]
+    B, T = TRAIN_BATCH
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, max_seq=T, attention="flash",
+                               mlp_impl="fused")
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           B, T, device=dev)
+    names = _leaf_names(tf.init_params(
+        dataclasses.replace(cfg, n_layers=1),
+        generator=torch.Generator().manual_seed(0), device="cpu"))
+    launches = {k: 0 for k in ("fwd", "fwd_lse", "dq", "dkv", "mlp_fwd",
+                               "mlp_bwd_dx", "mlp_bwd_dw", "paged_decode",
+                               "paged_decode_quant", "migration_exchange")}
+
+    # (a) pp 4 x 8 microbatches against no mesh
+    t0 = time.perf_counter()
+    row = _pipe_a(cfg, tokens, names)
+    emit({"phase": "pipeline", "part": "a_pp4_m8", "card": card, **row,
+          "seconds": time.perf_counter() - t0})
+    for k in ("fwd", "fwd_lse", "dq", "dkv"):
+        launches[k] += row["pp_step"]["launches_a_step"][f"flash_{k}"]
+    for k in ("fwd", "bwd_dx", "bwd_dw"):
+        launches[f"mlp_{k}"] += row["pp_step"]["launches_a_step"][f"mlp_{k}"]
+
+    # (d) started now: the launched leg runs beside (b) and (c)
+    proc = _start_launch(["--slices", "2"], [
+        sys.executable, "-m", f"{PKG}.apps.train_app", *SHARD_LAUNCH_ARGV,
+        "--pp", "2", "--dcn-dp", "--dp", "-1"])
+
+    # (b) pp 2 x tp 2 and dp 2 x pp 2, dense MLP
+    t0 = time.perf_counter()
+    rows_b = _pipe_b(dataclasses.replace(cfg, mlp_impl="dense"), logs)
+    emit({"phase": "pipeline", "part": "b_pp2_meshes", "card": card,
+          "tol": PIPE_B_RTOL, **rows_b, "seconds": time.perf_counter() - t0})
+    for name in PIPE_MESHES:
+        for k in ("fwd", "fwd_lse", "dq", "dkv"):
+            launches[k] += rows_b[name]["launches"][k]
+
+    # (c) train_app --pp 4 --microbatches 8
+    t0 = time.perf_counter()
+    run = _train_run(["--steps", str(PIPE_STEPS), *TRAIN_BASE, "--pp",
+                      str(PIPE_PP), "--microbatches", str(PIPE_M)],
+                     logs / "pp4.jsonl")
+    emit({"phase": "pipeline", "part": "c_train_app_pp4", "card": card,
+          "rc": run["code"], "success": run["res"]["success"],
+          "label": run["res"].get("label"), "losses": run["losses"],
+          "step_ms": run["res"]["step_time_s"] * 1e3,
+          "steps_ms": run["steps_ms"], "peak_bytes": run["peak_bytes"],
+          "launches": run["launches"], "seconds": time.perf_counter() - t0})
+    check(run["code"] == 0 and run["res"]["success"]
+          and "SUCCESS" in run["out"].splitlines()
+          and run["res"].get("label") == f"pp={PIPE_PP} 1f1b",
+          f"train_app --pp {PIPE_PP} --microbatches {PIPE_M} SUCCESS "
+          f"(rc {run['code']})")
+    for k in ("fwd", "fwd_lse", "dq", "dkv"):
+        launches[k] += run["launches"][k]
+
+    # (d) the launched leg against one process of dp 2 x pp 2
+    t0 = time.perf_counter()
+    code, text = _finish_launch(proc, logs, "pp2_dcn_dp")
+    t_wait = time.perf_counter() - t0
+    losses = [json.loads(ln.split("losses ", 1)[1])
+              for ln in text.splitlines() if "one flat allreduce" in ln]
+    check(code == 0 and text.count("SUCCESS") >= 3 and len(losses) == 2
+          and losses[0] == losses[1] and "dcn-dp=2" in text,
+          f"launched --pp 2 --dcn-dp: exit {code}, both processes SUCCESS "
+          f"on one update: {losses} ({logs / 'pp2_dcn_dp'}.out)")
+    c1, recs = run_app(train_app.main, SHARD_LAUNCH_ARGV
+                       + ["--pp", "2", "--dp", "2"], logs / "pp2_one.jsonl")
+    one = [r["loss"] for r in recs if r.get("kind") == "step"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], one))
+    emit({"phase": "pipeline", "part": "d_launched", "card": card,
+          "argv": SHARD_LAUNCH_ARGV, "losses": losses[0],
+          "one_process_losses": one, "max_rel_err": err,
+          "tol": SHARD_LAUNCH_RTOL, "wait_seconds": t_wait,
+          "seconds": time.perf_counter() - t0})
+    check(c1 == 0 and err <= SHARD_LAUNCH_RTOL,
+          f"launched pp losses {losses[0]} vs one process {one}: {err} > "
+          f"{SHARD_LAUNCH_RTOL}")
+
+    # (e) the tp 4 engine, its bundle, the draft-assisted rounds
+    t0 = time.perf_counter()
+    serve_rows, n = _pipe_serve(dev)
+    for k, v in n.items():
+        launches[k] += v
+    emit({"phase": "pipeline", "part": "e_tp4_engine", "card": card,
+          "shape": SHARD_SERVE, **serve_rows,
+          "seconds": time.perf_counter() - t0})
+    t_path = time.perf_counter() - t_phase
+
+    # kernels 1-4 at the microbatch shape (B 1 x T 2048 x H 8), and 8,
+    # 8a and 9 at a microbatch's MLP (N 2048 x D 1024 x F 4096)
+    kgen = torch.Generator(device="cuda").manual_seed(7)
+    mb_rows = train_kernel_cases(kgen, B=B // PIPE_M, T=T,
+                                 H=TRAIN_MODEL["n_heads"],
+                                 Hkv=TRAIN_MODEL["n_heads"], D=128)
+    mb_rows["mlp"] = fused_mlp_cases(kgen, N=(B // PIPE_M) * T,
+                                     D=TRAIN_MODEL["d_model"],
+                                     F=TRAIN_MODEL["d_ff"])
+    for name, v in launches.items():
+        check(v > 0, f"pipeline: {name} launched on the main path")
+    emit({"phase": "pipeline", "part": "done", "cuts": PIPE_CUTS,
+          "launches": launches, "path_seconds": t_path,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, mb_rows
+
+
 def phase_stencil() -> dict:
     """``stencil_app`` in this process on the card at world 8, ``-p 22``
     and ``-p 26`` (16 and 256 MiB of f32), 64 steps: both oracles, the
@@ -5825,6 +6342,7 @@ def main() -> int:
     launches_train = timed("train", phase_train)
     launches_par = timed("parallel", phase_parallel)
     launches_sh, shard_rows = timed("sharded", phase_sharded)
+    launches_pp, mb_rows = timed("pipeline", phase_pipeline)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5843,7 +6361,7 @@ def main() -> int:
          + launches_tiered["flash_prefill"]
          + launches_spec["flash_prefill"]
          + launches_plane["flash_prefill"] + launches_par["fwd"]
-         + launches_sh["fwd"],
+         + launches_sh["fwd"] + launches_pp["fwd"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
@@ -5854,6 +6372,7 @@ def main() -> int:
                               "plane": launches_plane["flash_prefill"],
                               "parallel_moe": launches_par["fwd"],
                               "sharded_tp4_decode": launches_sh["fwd"],
+                              "pipeline": launches_pp["fwd"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd"]},
          **{k: rows["flash_prefill"][k] for k in keys + ("tflops",)},
@@ -5867,7 +6386,8 @@ def main() -> int:
          + launches_fit["paged_decode"]
          + launches_tiered["paged_decode"]
          + launches_spec["paged_decode"]
-         + launches_plane["paged_decode"] + launches_sh["paged_decode"],
+         + launches_plane["paged_decode"] + launches_sh["paged_decode"]
+         + launches_pp["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
@@ -5875,7 +6395,9 @@ def main() -> int:
                               "tiered": launches_tiered["paged_decode"],
                               "spec": launches_spec["paged_decode"],
                               "plane": launches_plane["paged_decode"],
-                              "sharded_tp4": launches_sh["paged_decode"]},
+                              "sharded_tp4": launches_sh["paged_decode"],
+                              "pipeline_tp4_engine":
+                                  launches_pp["paged_decode"]},
          **{k: rows["paged_decode"][k] for k in keys},
          "shard_shape": _shard_row(shard_rows["paged_decode_bfloat16"])},
         {"name": "flash_decode", "route": "cuda",
@@ -5911,7 +6433,8 @@ def main() -> int:
          "launches": launches_quant["paged_decode"]
          + launches_quant["row"]["paged_decode"]
          + launches_spec["paged_decode_quant"]
-         + launches_sh["paged_decode_quant"],
+         + launches_sh["paged_decode_quant"]
+         + launches_pp["paged_decode_quant"],
          "launches_by_path": {"quant_int8_flash":
                               launches_quant["paged_decode"],
                               "quant_row_bf16_and_int8":
@@ -5919,7 +6442,9 @@ def main() -> int:
                               "spec_int8":
                               launches_spec["paged_decode_quant"],
                               "sharded_tp4_int8":
-                              launches_sh["paged_decode_quant"]},
+                              launches_sh["paged_decode_quant"],
+                              "pipeline_tp4_engine_int8":
+                              launches_pp["paged_decode_quant"]},
          **{k: rows["paged_decode_quant"][k] for k in keys},
          "shard_shape": _shard_row(shard_rows["paged_decode_int8"])},
         {"name": "paged_attention", "route": "cuda",
@@ -5981,64 +6506,74 @@ def main() -> int:
          "launches": launches_train["flash_fwd_lse"]
          + launches_tiered["fwd_lse"]
          + launches_spec["build"]["fwd_lse"] + launches_par["fwd_lse"]
-         + launches_sh["fwd_lse"],
+         + launches_sh["fwd_lse"] + launches_pp["fwd_lse"],
          "launches_by_path": {"train": launches_train["flash_fwd_lse"],
                               "tiered": launches_tiered["fwd_lse"],
                               "parallel": launches_par["fwd_lse"],
                               "sharded": launches_sh["fwd_lse"],
+                              "pipeline": launches_pp["fwd_lse"],
                               "spec_pair_build":
                                   launches_spec["build"]["fwd_lse"]},
          **{k: train_rows["flash_fwd_lse"][k]
             for k in keys + ("tflops",)},
-         "shard_shape": _shard_row(shard_rows["attention"]["flash_fwd_lse"])},
+         "shard_shape": _shard_row(shard_rows["attention"]["flash_fwd_lse"]),
+         "microbatch_shape": _shard_row(mb_rows["flash_fwd_lse"])},
         {"name": "fused_bwd", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:235",
          "launches": launches_train["fused_bwd"],
-         **{k: train_rows["fused_bwd"][k] for k in keys + rel}},
+         **{k: train_rows["fused_bwd"][k] for k in keys + rel},
+         "microbatch_shape": _shard_row(mb_rows["fused_bwd"])},
         {"name": "dq", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:188",
          "launches": launches_train["dq"] + launches_tiered["dq"]
          + launches_spec["build"]["dq"] + launches_par["dq"]
-         + launches_sh["dq"],
+         + launches_sh["dq"] + launches_pp["dq"],
          "launches_by_path": {"train": launches_train["dq"],
                               "tiered": launches_tiered["dq"],
                               "parallel": launches_par["dq"],
                               "sharded": launches_sh["dq"],
+                              "pipeline": launches_pp["dq"],
                               "spec_pair_build":
                                   launches_spec["build"]["dq"]},
          **{k: train_rows["dq"][k] for k in keys + rel},
-         "shard_shape": _shard_row(shard_rows["attention"]["dq"])},
+         "shard_shape": _shard_row(shard_rows["attention"]["dq"]),
+         "microbatch_shape": _shard_row(mb_rows["dq"])},
         {"name": "dkv", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention_bwd.cu",
          "replaces": "hpc_patterns_tpu/ops/flash_attention.py:297",
          "launches": launches_train["dkv"] + launches_tiered["dkv"]
          + launches_spec["build"]["dkv"] + launches_par["dkv"]
-         + launches_sh["dkv"],
+         + launches_sh["dkv"] + launches_pp["dkv"],
          "launches_by_path": {"train": launches_train["dkv"],
                               "tiered": launches_tiered["dkv"],
                               "parallel": launches_par["dkv"],
                               "sharded": launches_sh["dkv"],
+                              "pipeline": launches_pp["dkv"],
                               "spec_pair_build":
                                   launches_spec["build"]["dkv"]},
          **{k: train_rows["dkv"][k] for k in keys + rel},
-         "shard_shape": _shard_row(shard_rows["attention"]["dkv"])},
+         "shard_shape": _shard_row(shard_rows["attention"]["dkv"]),
+         "microbatch_shape": _shard_row(mb_rows["dkv"])},
         *({"name": name, "route": "cuda",
            "source": f"{PKG}/csrc/fused_mlp.cu",
            "replaces": f"hpc_patterns_tpu/ops/fused_mlp.py:{line}",
            "launches": launches_train[name]
-           + launches_sh[name.replace("fused_", "")],
+           + launches_sh[name.replace("fused_", "")]
+           + launches_pp.get(name.replace("fused_", ""), 0),
            **({"launches_by_run": {
                **{r: m[name.replace("fused_mlp_", "")]
                   for r, m in launches_train["fused_mlp_by_run"].items()},
-               "sharded": launches_sh[name.replace("fused_", "")]}}
+               "sharded": launches_sh[name.replace("fused_", "")],
+               "pipeline": launches_pp[name.replace("fused_", "")]}}
               if name != "fused_mlp_fwd_save_a" else
               {"launches_by_run": {
                   "xla_a step": launches_train[name],
                   "sharded_tp4_xla_a": launches_sh["mlp_fwd_save_a"]}}),
            **{k: mlp_rows[name][k] for k in keys + rel + ("launch_plan",)},
-           "shard_shape": _shard_row(shard_rows["mlp"][name])}
+           "shard_shape": _shard_row(shard_rows["mlp"][name]),
+           "microbatch_shape": _shard_row(mb_rows["mlp"][name])}
           for name, line in (("fused_mlp_fwd", 65),
                              ("fused_mlp_fwd_save_a", 148),
                              ("fused_mlp_bwd_dx", 93),
@@ -6046,7 +6581,11 @@ def main() -> int:
         {"name": "migration_exchange", "route": "cuda",
          "source": f"{PKG}/csrc/migration_dma.cu",
          "replaces": "hpc_patterns_tpu/comm/migration_dma.py:110",
-         "launches": launches_plane["migration_exchange"],
+         "launches": launches_plane["migration_exchange"]
+         + launches_pp["migration_exchange"],
+         "launches_by_path": {"plane": launches_plane["migration_exchange"],
+                              "pipeline_tp4_bundle":
+                                  launches_pp["migration_exchange"]},
          **{k: mig_row[k] for k in keys}},
     ]})
     print(smi("name,power.limit"), flush=True)

@@ -75,8 +75,23 @@ process is 1:
         --steps 2 --batch 4 --seq 32 --d-model 32 --n-layers 1 \
         --vocab 128 --device cpu
 
-Not ported yet (prints ``ERROR: ... not ported yet`` and FAILURE):
-``--pp`` (ROADMAP queue 1 item 5.6).
+``--pp P --microbatches M`` trains through the 1F1B pipeline
+(``models/pp.py``: P stages as logical ranks, M microbatches a step),
+composing with ``--dp`` (and ``--dcn-dp``), ``--fsdp`` (ZeRO-3 stage
+weights), ``--tp`` inside the stages (dense MLPs only), ``--n-experts``
+(stage-local experts) and ``--mlp-impl fused``; the result line carries
+JAX's label ``pp=P 1f1b [tp= fsdp= dcn-dp=]``, ``--resume-check`` holds
+bit for bit, and ``--generate`` is skipped with JAX's note. It refuses
+sp/ep axes, ring and Ulysses attention and ``--accum``, as JAX does:
+
+    python -m hpc_patterns_tpu_torch.apps.train_app --attention flash \
+        --pp 4 --microbatches 8 --steps 5 --batch 8 --seq 2048 \
+        --d-model 1024 --n-layers 8 --n-heads 8 --vocab 32768 \
+        --mlp-impl fused
+    python -m hpc_patterns_tpu_torch.apps.launch -np 2 --slices 2 -- \
+        python -m hpc_patterns_tpu_torch.apps.train_app --pp 2 \
+        --dcn-dp --dp -1 --steps 2 --batch 8 --seq 32 --d-model 32 \
+        --n-layers 2 --vocab 128 --device cpu
 """
 
 from __future__ import annotations
@@ -103,7 +118,6 @@ from hpc_patterns_tpu_torch.models.train import (
 from hpc_patterns_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
     TransformerConfig,
-    shards_params,
 )
 from hpc_patterns_tpu_torch.topology import resolve_device
 
@@ -143,7 +157,7 @@ def build_parser():
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (Megatron column/row)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (not ported yet)")
+                   help="pipeline stages (1F1B over logical ranks)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks (logical ranks of one "
                         "device) for the ring/ulysses attentions")
@@ -156,7 +170,7 @@ def build_parser():
                         "within one; --dp must equal the slice count "
                         "(-1 = auto, which in one process is dp=1)")
     p.add_argument("--microbatches", type=int, default=4,
-                   help="microbatches per step for --pp (not ported yet)")
+                   help="microbatches per step for --pp")
     p.add_argument("--n-experts", type=int, default=0,
                    help="MoE experts per layer (0 = dense)")
     p.add_argument("--n-experts-top-k", type=int, default=1)
@@ -195,14 +209,6 @@ def build_parser():
                    help="after training, greedy-decode N tokens from the "
                         "first half of the batch with the trained params")
     return p
-
-
-def _unported(args) -> str | None:
-    """The first flag this port cannot run yet, named, or None."""
-    if args.pp > 1:
-        return (f"--pp {args.pp} (pipeline parallelism: ROADMAP queue 1 "
-                "item 5.6)")
-    return None
 
 
 def _ici_axes(args) -> dict:
@@ -267,6 +273,24 @@ def _local_mesh(mesh, nprocs: int, batch: int):
     return {**mesh, "dp": dp // nprocs}
 
 
+def _config(args) -> TransformerConfig:
+    return TransformerConfig(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,
+        attention=args.attention, n_kv_heads=args.n_kv_heads,
+        pos_embed=args.pos_embed, loss_chunk=args.loss_chunk,
+        remat=args.remat, remat_policy=args.remat_policy,
+        mlp_impl=args.mlp_impl, n_experts=args.n_experts,
+        n_experts_top_k=args.n_experts_top_k,
+        moe_dispatch=args.moe_dispatch, fsdp=args.fsdp > 1)
+
+
+def _optimizer(args):
+    return make_optimizer(args.lr, schedule=args.schedule,
+                          warmup_steps=args.warmup_steps,
+                          total_steps=args.steps)
+
+
 def _fail(log, msg) -> int:
     log.print(f"ERROR: {msg}")
     log.print("FAILURE")
@@ -297,7 +321,13 @@ def _batches(args, cfg, dev):
 
 
 def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
-                residency=None, mesh=None, label="", procs=(0, 1)) -> int:
+                residency=None, mesh=None, label="", procs=(0, 1),
+                name="train", layout=None, result_extra=None) -> int:
+    """The steps, the resume check, checkpoints and ``--generate``.
+    ``name``: the result record's ("train_pp" labels the line with
+    ``label`` alone, as JAX's). ``layout``: the stored state's (shard,
+    unshard) pair (default: ``models/sharding.state_layout`` on
+    ``mesh``)."""
     pid, nprocs = procs
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = make_batch(gen, cfg, args.batch, args.seq, device=dev)
@@ -319,7 +349,7 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
         t_steps.append(time.perf_counter() - t0)
         losses.append(loss_val)
         extra = {}
-        if cfg.n_experts and args.drop_rate_every > 0 \
+        if cfg.n_experts and args.pp <= 1 and args.drop_rate_every > 0 \
                 and i % args.drop_rate_every == 0:
             # capacity drops are otherwise invisible in training: one
             # diagnostic forward on the step's batch, outside its time
@@ -361,8 +391,10 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
 
     resume_ok = True
     # a sharded state saves its global tensors, restores into its layout
-    sharded = ({"mesh": mesh, "cfg": cfg} if shards_params(mesh, cfg)
-               else {})
+    if layout is None and name == "train":
+        from hpc_patterns_tpu_torch.models.sharding import state_layout
+
+        layout = state_layout(mesh, cfg)
     if diverged:
         pass
     elif args.resume_check:
@@ -374,9 +406,9 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
         ckdir = _ckdir(args, pid, nprocs) or tempfile.mkdtemp(
             prefix="hpcpat_ckpt_")
         ckpt_path = save_checkpoint(ckdir, params, opt_state, step=args.steps,
-                                    **sharded)
+                                    layout=layout)
         r_params, r_opt, r_step = restore_checkpoint(ckdir, params, opt_state,
-                                                     **sharded)
+                                                     layout=layout)
         if residency is not None:
             from hpc_patterns_tpu_torch.models.train import offload_opt_state
 
@@ -391,12 +423,16 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
         from hpc_patterns_tpu_torch.utils.checkpoint import save_checkpoint
 
         ckpt_path = save_checkpoint(_ckdir(args, pid, nprocs), params,
-                                    opt_state, step=args.steps, **sharded)
+                                    opt_state, step=args.steps,
+                                    layout=layout)
         log.print(f"saved {ckpt_path}")
 
     generate_ok = True
     if diverged:
         pass
+    elif args.generate and name != "train":
+        log.print("note: --generate skipped (pp params are stage-local; "
+                  "decode serves the unpipelined flagship)")
     elif args.generate and nprocs > 1:
         log.print("note: --generate skipped (multi-process run)")
     elif args.generate and args.seq // 2 + args.generate > cfg.max_seq:
@@ -405,13 +441,10 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
     elif args.generate:
         from hpc_patterns_tpu_torch.models.decode import greedy_generate
 
-        from hpc_patterns_tpu_torch.models.sharding import unshard_params
-
         prompt = tokens[:, :args.seq // 2]
         with torch.no_grad():
             # sharded params are gathered first, as JAX decodes them
-            p_local = unshard_params(params, mesh, cfg) if sharded \
-                else params
+            p_local = layout[1](params) if layout else params
             toks = greedy_generate(p_local, prompt, cfg, args.generate,
                                    device=dev)
             del p_local
@@ -434,23 +467,127 @@ def _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
                                f"the dp ranks in each of {nprocs} "
                                "processes",
                  "grad_mean": wire(dev), "losses": losses}
-    log.emit(kind="result", name="train", success=ok, steps=args.steps,
+    log.emit(kind="result", name=name, success=ok, steps=args.steps,
              loss_first=losses[0], loss_last=losses[-1], step_time_s=step_s,
              tokens_per_s=tokens_per_s, mesh=mesh, **ranks,
              attention=args.attention, n_experts=cfg.n_experts,
-             checkpoint=ckpt_path, device=str(dev), **offload)
+             checkpoint=ckpt_path, device=str(dev), **offload,
+             **(result_extra or {}))
     on_mesh = ("" if mesh is None else
                f" on mesh {mesh} (logical ranks of one device)")
     if nprocs > 1:
         log.print(f"process {pid} of {nprocs}: dp ranks {mesh} here; the "
                   f"gradient mean across processes: one flat allreduce "
                   f"over {ranks['grad_mean']}; losses {losses}")
-    log.print(f"train[{args.attention}{label}] {args.steps} steps{on_mesh}: "
+    tag = label if name != "train" else f"{args.attention}{label}"
+    log.print(f"train[{tag}] {args.steps} steps{on_mesh}: "
               f"loss {losses[0]:.4f}->{losses[-1]:.4f}, "
               f"{step_s * 1e3:.1f} ms/step, {tokens_per_s:,.0f} tok/s")
     verdict = Verdict(success=ok, messages=("SUCCESS" if ok else "FAILURE",))
     log.print(verdict.summary_line())
     return verdict.exit_code
+
+
+def _run_pp(args, log, pid: int, nprocs: int) -> int:
+    """--pp: 1F1B pipeline training (``models/pp.py``; JAX ``_run_pp``),
+    with dp (``--dcn-dp`` included: a process holds every pp rank of its
+    dp block, the dp mean crossing gloo), fsdp stage weights, tp inside
+    the stages (dense MLPs only), the moments offloaded, and MoE."""
+    from hpc_patterns_tpu_torch import topology
+    from hpc_patterns_tpu_torch.models import pp as pplib
+
+    if args.sp > 1 or args.ep > 1:
+        return _fail(log, "--pp composes with --dp/--tp/--fsdp/--dcn-dp/"
+                          "--offload-opt and --n-experts only (no sp/ep "
+                          "axes inside pipeline stages — MoE experts "
+                          "route densely per stage)")
+    try:
+        cfg = _config(args)
+        optimizer = _optimizer(args)
+    except ValueError as e:
+        return _fail(log, str(e))
+    tp = args.tp if args.tp > 1 else 1
+    if tp > 1:
+        try:
+            pplib.check_tp(cfg, tp)
+        except ValueError as e:
+            return _fail(log, f"--pp --tp: {e}")
+    if args.attention not in ("full", "flash"):
+        return _fail(log, "--pp needs a stage-local attention "
+                          "(--attention full or flash)")
+    if args.microbatches < 1:
+        return _fail(log, f"--microbatches must be >= 1, got "
+                          f"{args.microbatches}")
+    if args.n_layers % args.pp:
+        return _fail(log, f"--n-layers {args.n_layers} must divide by "
+                          f"--pp {args.pp}")
+    fs = args.fsdp if args.fsdp > 1 else 1
+    ici = ({"fsdp": fs} if fs > 1 else {}) | {"pp": args.pp}
+    if tp > 1:
+        ici["tp"] = tp  # innermost, as JAX's
+    if args.dcn_dp:
+        ici_size = math.prod(ici.values())
+        local = topology.local_ranks_from_env() if nprocs > 1 else ici_size
+        groups = topology.group_by_slice(local)
+        dp = len(groups) if args.dp == -1 else args.dp
+        if dp != len(groups):
+            return _fail(log, f"--dcn-dp places dp across slices: --dp "
+                              f"{args.dp} != slice count {len(groups)} "
+                              "(use -1 for auto)")
+        try:
+            mesh = topology.make_hybrid_mesh(
+                {"dp": dp}, ici, {s: r[:ici_size] for s, r in
+                                  groups.items()})
+        except topology.TopologyError as e:
+            return _fail(log, f"--dcn-dp: {e}")
+    else:
+        dp = args.dp
+        if dp < 1:
+            return _fail(log, f"--dp {dp} must be >= 1 (-1 only with "
+                              "--dcn-dp)")
+        mesh = ({"dp": dp} if dp > 1 else {}) | ici
+    if args.batch % (args.microbatches * dp * fs):
+        return _fail(log, f"--batch {args.batch} must divide by "
+                          f"--microbatches*--dp*--fsdp = "
+                          f"{args.microbatches * dp * fs}")
+    try:
+        local = _local_mesh(mesh, nprocs, args.batch)
+    except ValueError as e:
+        return _fail(log, str(e))
+    dev = resolve_device(args.device)
+    axis_fsdp = "fsdp" if fs > 1 else None
+    params, opt_state = pplib.init_pp_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, optimizer,
+        device=dev, mesh=local, axis_fsdp=axis_fsdp)
+    offload_example = None
+    if args.offload_opt:
+        from hpc_patterns_tpu_torch.models.train import offload_opt_state
+
+        hosted = offload_opt_state(opt_state)
+        if hosted is opt_state:
+            log.print("note: pinned_host unusable on this backend; "
+                      "optimizer state left in place")
+        else:
+            opt_state = offload_example = hosted
+            log.print("optimizer state offloaded to pinned_host")
+    step_fn = pplib.make_pp_train_step(
+        cfg, local, microbatches=args.microbatches,
+        axis_dp="dp" if local.get("dp", 1) > 1 else None,
+        axis_fsdp=axis_fsdp, axis_tp="tp" if tp > 1 else None,
+        optimizer=optimizer, offload_opt_example=offload_example)
+    label = f"pp={args.pp} 1f1b"
+    if tp > 1:
+        label += f" tp={tp}"
+    if fs > 1:
+        label += f" fsdp={fs}"
+    if args.dcn_dp:
+        label += f" dcn-dp={dp}"
+    return _train_loop(args, log, cfg, dev, params, opt_state, step_fn,
+                       mesh=local, label=label, procs=(pid, nprocs),
+                       name="train_pp",
+                       layout=pplib.state_layout(cfg, axis_fsdp, fs),
+                       result_extra={"microbatches": args.microbatches,
+                                     "label": label})
 
 
 def _ckdir(args, pid: int, nprocs: int):
@@ -470,9 +607,9 @@ def run(args) -> int:
         return _fail(log, f"--prefetch must be >= 0, got {args.prefetch}")
     if args.steps < 1:
         return _fail(log, f"--steps must be >= 1, got {args.steps}")
-    unported = _unported(args)
-    if unported:
-        return _fail(log, f"{unported}: not ported yet")
+    if args.accum > 1 and args.pp > 1:
+        return _fail(log, "--accum composes with the sharded-train path; "
+                          "--pp already micro-batches via --microbatches")
     if args.remat_policy != "split" and not args.remat:
         return _fail(log, "--remat-policy has no effect without --remat (no "
                           "checkpointing happens; all activations are saved)")
@@ -484,6 +621,8 @@ def run(args) -> int:
     if args.n_experts and args.n_experts % max(args.ep, 1):
         return _fail(log, f"--n-experts {args.n_experts} must divide by "
                           f"--ep {args.ep}")
+    if args.pp > 1:
+        return _run_pp(args, log, pid, nprocs)
     if args.attention == "flash" and args.sp > 1:
         return _fail(log, "attention='flash' needs the sequence unsharded "
                           "(--sp 1); use ring_flash for a sharded sequence")
@@ -513,18 +652,8 @@ def run(args) -> int:
     except ValueError as e:
         return _fail(log, str(e))
     try:
-        cfg = TransformerConfig(
-            vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
-            n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,
-            attention=args.attention, n_kv_heads=args.n_kv_heads,
-            pos_embed=args.pos_embed, loss_chunk=args.loss_chunk,
-            remat=args.remat, remat_policy=args.remat_policy,
-            mlp_impl=args.mlp_impl, n_experts=args.n_experts,
-            n_experts_top_k=args.n_experts_top_k,
-            moe_dispatch=args.moe_dispatch, fsdp=args.fsdp > 1)
-        optimizer = make_optimizer(args.lr, schedule=args.schedule,
-                                   warmup_steps=args.warmup_steps,
-                                   total_steps=args.steps)
+        cfg = _config(args)
+        optimizer = _optimizer(args)
         step_fn = make_train_step(cfg, optimizer=optimizer,
                                   accum_steps=args.accum, mesh=local)
     except ValueError as e:

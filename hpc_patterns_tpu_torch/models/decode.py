@@ -148,9 +148,70 @@ def _serving_params(params, cfg: TransformerConfig, mesh):
     return params, mesh
 
 
+def pool_ranks(leaf) -> int:
+    """The tp ranks a cache or pool leaf is stacked over, 1 for a whole
+    one: THE test of the stacked form (:func:`init_cache`,
+    :func:`init_paged_cache`), a rank dim in front of a 4-D K/V leaf
+    (B | pages, kv_heads, S | P, D) or paged scale leaf."""
+    return leaf.shape[0] if leaf.dim() == 5 else 1
+
+
+def gather_pool_pages(pool, idx):
+    """The pages ``idx`` of a paged ``pool`` in the global layout
+    (n_pages, kv_heads, ...), gathered into new tensors on the device: a
+    stacked pool's tp ranks' head blocks side by side in head order (a
+    migration bundle's form)."""
+    if pool_ranks(pool) == 1:
+        return raw(pool)[idx].view(pool.dtype)
+    g = raw(pool)[:, idx]  # (tp, n, kv_heads/tp, ...)
+    return g.movedim(0, 1).reshape(g.shape[1], -1, *g.shape[3:]).view(
+        pool.dtype)
+
+
+def install_pool_pages(pool, idx, payload):
+    """The inverse of :func:`gather_pool_pages`: ``payload`` (n_pages,
+    kv_heads, ...) copied into ``pool`` at page ids ``idx`` in place
+    (``index_copy_``), a stacked pool taking each tp rank's head block
+    into its own pool. float8 moves through its byte view, as every
+    gather and scatter of the port does. ``payload`` must already have
+    the pool's dtype and page shape (nothing is cast), else
+    ``ValueError``."""
+    tp = pool_ranks(pool)
+    page = pool.shape[2:] if tp > 1 else pool.shape[1:]
+    want = (page[0] * tp, *page[1:])
+    if payload.dtype != pool.dtype or tuple(payload.shape[1:]) \
+            != tuple(want) or payload.shape[0] != idx.numel():
+        raise ValueError(
+            f"payload {tuple(payload.shape)} {payload.dtype} does not fit "
+            f"{idx.numel()} page(s) of a {tuple(pool.shape)} {pool.dtype} "
+            "pool")
+    src = raw(payload.to(pool.device))
+    if tp == 1:
+        raw(pool).index_copy_(0, idx, src)
+        return
+    src = src.reshape(src.shape[0], tp, *page).movedim(1, 0)
+    raw(pool).index_copy_(1, idx, src)
+
+
 def _fold(t):
     """(tp, B, ...) -> (tp·B, ...): every rank's rows in one launch."""
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def _fold_heads(t, tp: int):
+    """(B, ..., H, Dh) -> (tp·B, ..., H/tp, Dh): each tp rank's contiguous
+    head block (:func:`_heads_to_ranks`), the ranks folded into the batch
+    as a kv-head-sharded cache's rows are."""
+    return _fold(_heads_to_ranks(t, tp))
+
+
+def _rank_tables(table, tp: int, n_pool: int):
+    """A stacked pool's ranks folded into one pool of ``tp · n_pool``
+    pages: the (tp·B, pages) table whose rank r rows read rank r's pool
+    (page ids offset by r pools)."""
+    off = torch.arange(tp, device=table.device).to(table.dtype) * n_pool
+    return (table[None] + off[:, None, None]).reshape(
+        tp * table.shape[0], -1)
 
 
 def _attn_out(o, lp, dt, lead, stacked: bool):
@@ -343,8 +404,8 @@ def decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
     cache for that mesh: a stacked cache's ranks run in one launch."""
     pos = int(pos)
     params, mesh = _serving_params(params, cfg, mesh)
-    stacked = cache["k"][0].dim() == 5
-    tp = cache["k"][0].shape[0] if stacked else 1
+    tp = pool_ranks(cache["k"][0])
+    stacked = tp > 1
     max_len = cache["k"][0].shape[-2]
     if not 0 <= pos < max_len:
         raise ValueError(f"position {pos} outside the cache [0, {max_len})")
@@ -378,52 +439,62 @@ def decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
     return _token_step(params, pos, tokens, cfg, attend, mesh, stacked)
 
 
-def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig):
+def extend_step(params, cache, pos: int, tokens, cfg: TransformerConfig,
+                mesh=None):
     """Multi-token cache extension: ``tokens`` (B, c) at positions
     ``pos .. pos+c-1`` against the cache, writing their K/V in place and
     returning logits (B, c, vocab) f32 for every chunk position —
     :func:`decode_step` generalized from c = 1 (the verification
     primitive of speculative decoding). Query i attends rows <= pos+i.
     Compute-dtype caches only, always the gather form (JAX
-    ``decode.py:510-583``)."""
+    ``decode.py:510-583``). ``mesh``: tp serving on :func:`prefill`'s
+    cache for that mesh (JAX's extend is GSPMD-partitioned from its
+    sharded operands): the projections over the params' tp shards, a
+    kv-head-sharded cache's ranks folded into the batch."""
     if cfg.kv_cache_dtype != "compute":
         raise ValueError("extend_step supports compute-dtype caches only")
     dt = torch_dtype(cfg.dtype)
     B, c = tokens.shape
     pos = int(pos)
-    S = cache["k"][0].shape[2]
+    S = cache["k"][0].shape[-2]
     if pos < 0 or pos + c > S:
         raise ValueError(f"positions {pos}..{pos + c - 1} outside the "
                          f"cache [0, {S})")
+    params, mesh = _serving_params(params, cfg, mesh)
+    top, layers = local_params(params, cfg, mesh)
+    tp = pool_ranks(cache["k"][0])
+    stacked = tp > 1
     scale = 1.0 / (cfg.head_dim ** 0.5)
-    Hkv, g, Dh = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim
+    Hkv, g, Dh = cfg.kv_heads // tp, cfg.n_heads // cfg.kv_heads, \
+        cfg.head_dim
     dev = tokens.device
     positions = pos + torch.arange(c, device=dev)
-    x = params["embed"].to(dt)[tokens]  # (B, c, D)
+    x = top["embed"].to(dt)[tokens]  # (B, c, D)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"].to(dt)[pos:pos + c]
+        x = x + top["pos_embed"].to(dt)[pos:pos + c]
     # query i sees cache rows <= pos + i (its own row included)
     visible = torch.arange(S, device=dev)[None, :] <= positions[:, None]
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+    for l, lp in enumerate(layers):
         kc, vc = cache["k"][l], cache["v"][l]
         hn = _rmsnorm(x, lp["ln1_scale"])
         q, k_new, v_new = project_qkv(hn, lp, cfg)  # (B, c, H/Hkv, Dh)
         if cfg.pos_embed == "rope":
             q = apply_rope(q, positions, cfg)
             k_new = apply_rope(k_new, positions, cfg)
+        if stacked:  # each rank's head block, the ranks as batch rows
+            q, k_new, v_new = (_fold_heads(t, tp) for t in (q, k_new, v_new))
+            kc, vc = _fold(kc), _fold(vc)
         kc[:, :, pos:pos + c] = k_new.transpose(1, 2).to(dt)
         vc[:, :, pos:pos + c] = v_new.transpose(1, 2).to(dt)
-        qg = q.reshape(B, c, Hkv, g, Dh).float()
+        qg = q.reshape(q.shape[0], c, Hkv, g, Dh).float()
         s = torch.einsum("bckgd,bksd->bkgcs", qg, kc.float()) * scale
         s = torch.where(visible, s, torch.full_like(s, _NEG_INF))
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgcs,bksd->bckgd", p, vc.float())
-        x = x + o.reshape(B, c, cfg.d_model).to(dt) @ matmul_weight(
-            lp, "wo", dt)
+        o = o.reshape(tp, B, c, -1, Dh) if stacked else o
+        x = x + _attn_out(o.to(dt), lp, dt, (B, c), stacked)
         x = mlp(x, lp, cfg)
-    x = _rmsnorm(x, params["ln_f_scale"])
-    return (x @ matmul_weight(params, "lm_head", dt)).float()
+    return lm_logits(_rmsnorm(x, top["ln_f_scale"]), top)
 
 
 # ---------------------------------------------------------------------------
@@ -723,7 +794,7 @@ def paged_prefill(params, prompt, cfg: TransformerConfig, cache,
     logits, lin = prefill(params, prompt, cfg, T, last_pos=last_pos,
                           mesh=mesh)
     idx = table[:, :n_used].long()  # (B, n_used)
-    stacked = cache["k"][0].dim() == 5
+    stacked = pool_ranks(cache["k"][0]) > 1
     for name in lin:
         for l, pool in enumerate(cache[name]):
             src = lin[name][l]
@@ -755,7 +826,8 @@ PREFIX_ALIGN = 8
 
 
 def paged_tail_prefill(params, tail, cfg: TransformerConfig, cache,
-                       page_size: int, n_prefix_pages: int, last_pos=None):
+                       page_size: int, n_prefix_pages: int, last_pos=None,
+                       mesh=None):
     """Prefill ONLY the tail of a prompt whose first ``n_prefix_pages``
     pages of K/V already sit in the pool (the prefix-sharing arena's
     admission path, ``models/serving.py``): positions ``[M, M + c)``, ``M
@@ -778,7 +850,12 @@ def paged_tail_prefill(params, tail, cfg: TransformerConfig, cache,
 
     Refused, as in JAX: quantized pools (the monolithic prefill attends
     to the exact K/V and quantizes only for storage), ``B != 1`` and
-    misaligned ``M`` or ``c``."""
+    misaligned ``M`` or ``c``.
+
+    ``mesh``: tp serving into :func:`init_paged_cache`'s pools for that
+    mesh (JAX ``decode.py:822-824``), as :func:`paged_prefill`: each
+    rank's kv-head block attends its own prefix pages and writes its own
+    tail pages, the ranks folded into the batch."""
     if _kv_quantized(cfg):
         raise ValueError(
             f"paged_tail_prefill: kv_cache_dtype={cfg.kv_cache_dtype!r} "
@@ -805,52 +882,62 @@ def paged_tail_prefill(params, tail, cfg: TransformerConfig, cache,
             f"tail needs pages {n_prefix_pages}..{n_prefix_pages + n_tail}"
             f"; table has {table.shape[1]}")
     dt = torch_dtype(cfg.dtype)
-    Hkv, Dh = cfg.kv_heads, cfg.head_dim
-    pidx = table[0, :n_prefix_pages].long()
+    params, mesh = _serving_params(params, cfg, mesh)
+    top, layers = local_params(params, cfg, mesh)
+    tp = pool_ranks(cache["k"][0])
+    stacked = tp > 1
+    Hkv, Dh = cfg.kv_heads // tp, cfg.head_dim
+    tbl = table[:1].long()
+    if stacked:
+        tbl = _rank_tables(tbl, tp, cache["k"][0].shape[1])  # (tp, pages)
+    pidx = tbl[:, :n_prefix_pages]
 
     def context(pool):
-        # prefix pages (m, Hkv, P, D) -> (1, M, Hkv, D), pure layout
-        return raw(pool)[pidx].view(pool.dtype).permute(0, 2, 1, 3) \
-            .reshape(1, M, Hkv, Dh).to(dt)
+        # prefix pages (rows, m, Hkv, P, D) -> (rows, M, Hkv, D), layout
+        pool = _fold(pool) if stacked else pool
+        return raw(pool)[pidx].view(pool.dtype).permute(0, 1, 3, 2, 4) \
+            .reshape(tp, M, Hkv, Dh).to(dt)
 
-    x = params["embed"].to(dt)[tail]
+    x = top["embed"].to(dt)[tail]
     pos = M + torch.arange(c, device=x.device)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"].to(dt)[pos]
+        x = x + top["pos_embed"].to(dt)[pos]
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+    for l, lp in enumerate(layers):
         hn = _rmsnorm(x, lp["ln1_scale"])
         q, k, v = project_qkv(hn, lp, cfg)
         if cfg.pos_embed == "rope":
             q = apply_rope(q, pos, cfg)
             k = apply_rope(k, pos, cfg)
+        if stacked:  # each rank's head block, the ranks as batch rows
+            q, k, v = (_fold_heads(t, tp) for t in (q, k, v))
         k_ctx = torch.cat([context(cache["k"][l]), k], dim=1)
         v_ctx = torch.cat([context(cache["v"][l]), v], dim=1)
         o = full_attention(q, k_ctx, v_ctx, causal=True, q_offset=M)
-        x = x + o.reshape(B, c, cfg.d_model) @ matmul_weight(lp, "wo", dt)
+        o = o.reshape(tp, B, c, -1, Dh) if stacked else o
+        x = x + _attn_out(o, lp, dt, (B, c), stacked)
         x = mlp(x, lp, cfg)
-        ks.append(k.transpose(1, 2))  # (B, Hkv, c, D), as prefill stores
+        ks.append(k.transpose(1, 2))  # (rows, Hkv, c, D), as prefill stores
         vs.append(v.transpose(1, 2))
-    x = _rmsnorm(x, params["ln_f_scale"])
+    x = _rmsnorm(x, top["ln_f_scale"])
     if last_pos is None:
         x_last = x[:, -1]
     else:
         x_last = x[:, int(last_pos)]
-    logits = x_last @ matmul_weight(params, "lm_head", dt)
+    logits = lm_logits(x_last, top)
     # scatter the tail pages as paged_prefill does: zero-pad the tail
     # K/V to the page boundary, page-blocked through the table
     t_pad = n_tail * P
-    idx = table[:, n_prefix_pages:n_prefix_pages + n_tail].long()
+    idx = tbl[:, n_prefix_pages:n_prefix_pages + n_tail]
     for name, lin in (("k", ks), ("v", vs)):
         for l, pool in enumerate(cache[name]):
             a = lin[l]
             if t_pad > c:
                 a = torch.nn.functional.pad(a, (0, 0, 0, t_pad - c))
-            pages = a.reshape(B, Hkv, n_tail, P, Dh).transpose(1, 2)
-            dst = raw(pool)
+            pages = a.reshape(tp, Hkv, n_tail, P, Dh).transpose(1, 2)
+            dst = raw(_fold(pool) if stacked else pool)
             dst[idx] = pages.to(pool.dtype).view(dst.dtype)
-    return logits.float(), cache
+    return logits, cache
 
 
 def _pool_write(pool, page_ids, offset, rows):
@@ -888,8 +975,8 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
     ranks and each rank's table offset to its own pool."""
     params, mesh = _serving_params(params, cfg, mesh)
     table = cache["table"]
-    stacked = cache["k"][0].dim() == 5
-    tp = cache["k"][0].shape[0] if stacked else 1
+    tp = pool_ranks(cache["k"][0])
+    stacked = tp > 1
     P = cache["k"][0].shape[-2]
     pages = table.shape[1]
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -917,9 +1004,8 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
         # every rank's pool folded into one: rank r's rows read and write
         # its own pool, through page ids offset by r pools
         n_pool = cache["k"][0].shape[1]
+        t_att = _rank_tables(table, tp, n_pool)
         off = torch.arange(tp, device=table.device) * n_pool
-        t_att = (table[None] + off[:, None, None].to(table.dtype)).reshape(
-            tp * table.shape[0], -1)
         ids = (page_ids[None] + off[:, None]).reshape(-1)
         if ragged:
             pos_att, offs = pos.repeat(tp), offset.repeat(tp)
@@ -953,7 +1039,8 @@ def paged_decode_step(params, cache, pos, tokens, cfg: TransformerConfig,
     return _token_step(params, pos, tokens, cfg, attend, mesh, stacked)
 
 
-def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
+def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig,
+                      mesh=None):
     """RAGGED multi-token extension against the paged cache (JAX
     ``decode.py:1250-1372``): row ``b``'s chunk ``tokens[b]`` (B, c)
     takes positions ``pos[b] .. pos[b]+c-1`` — the verification step of
@@ -968,6 +1055,13 @@ def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
     the per-row mask ``row <= pos[b]+i``: plain PyTorch, as JAX's is XLA
     (no kernel). Returns logits (B, c, vocab) f32.
 
+    ``mesh``: tp serving on :func:`paged_prefill`'s pools for that mesh
+    (JAX's has no mesh argument: GSPMD partitions it from the sharded
+    params and pools; the port's are rank-stacked, so it takes the mesh
+    as the other steps do, and None changes nothing): the projections
+    over the params' tp shards, a stacked pool's ranks folded into one
+    pool with each rank's rows reading and writing its own.
+
     CONTRACT (as :func:`paged_decode_step`'s): every touched position <
     pages_per_seq * page_size. A CPU ``pos`` is checked; a CUDA one is
     not (checking would force a sync) and past capacity the page index
@@ -980,39 +1074,53 @@ def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
     quant = _kv_quantized(cfg)
     dt = torch_dtype(cfg.dtype)
     table = cache["table"]
-    P = cache["k"][0].shape[2]
+    P = cache["k"][0].shape[-2]
     pages = table.shape[1]
     if pos.device.type == "cpu" and int(pos.max()) + c > pages * P:
         raise ValueError(f"chunk end {int(pos.max()) + c} past cache "
                          f"capacity {pages * P} tokens")
+    params, mesh = _serving_params(params, cfg, mesh)
+    top, layers = local_params(params, cfg, mesh)
+    tp = pool_ranks(cache["k"][0])
+    stacked = tp > 1
     scale = 1.0 / (cfg.head_dim ** 0.5)
-    Hkv, g, Dh = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim
+    Hkv, g, Dh = cfg.kv_heads // tp, cfg.n_heads // cfg.kv_heads, \
+        cfg.head_dim
     dev = tokens.device
     positions = pos.long()[:, None] + torch.arange(c, device=dev)  # (B, c)
-    x = params["embed"].to(dt)[tokens]  # (B, c, D)
+    x = top["embed"].to(dt)[tokens]  # (B, c, D)
     if cfg.pos_embed == "learned":
-        pe = params["pos_embed"].to(dt)
+        pe = top["pos_embed"].to(dt)
         x = x + pe[positions.clamp(max=pe.shape[0] - 1)]
     tbl = table.long()
-    page = (positions // P).clamp(max=pages - 1)
-    pids = tbl.gather(1, page).reshape(-1)  # (B*c,)
-    off = (positions % P).reshape(-1)
+    rows_pos = positions
+    if stacked:
+        tbl = _rank_tables(tbl, tp, cache["k"][0].shape[1])
+        rows_pos = positions.repeat(tp, 1)
+    page = (rows_pos // P).clamp(max=pages - 1)
+    pids = tbl.gather(1, page).reshape(-1)  # (rows*c,)
+    off = (rows_pos % P).reshape(-1)
     S = pages * P
     # query i of row b sees the rows <= pos[b] + i (its own included)
     visible = (torch.arange(S, device=dev)[None, None, None, None, :]
-               <= positions[:, None, None, :, None])  # (B, 1, 1, c, S)
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
+               <= rows_pos[:, None, None, :, None])  # (rows, 1, 1, c, S)
+    for l, lp in enumerate(layers):
         k_pool, v_pool = cache["k"][l], cache["v"][l]
+        ks = vs = None
+        if quant:
+            ks, vs = cache["k_scale"][l], cache["v_scale"][l]
         hn = _rmsnorm(x, lp["ln1_scale"])
         q, k_new, v_new = project_qkv(hn, lp, cfg)  # (B, c, H/Hkv, Dh)
         if cfg.pos_embed == "rope":
             q = apply_rope(q, positions, cfg)
             k_new = apply_rope(k_new, positions, cfg)
-        rows_k = k_new.reshape(B * c, Hkv, Dh)
-        rows_v = v_new.reshape(B * c, Hkv, Dh)
+        if stacked:  # each rank's head block and pool, one folded pass
+            q, k_new, v_new = (_fold_heads(t, tp) for t in (q, k_new, v_new))
+            k_pool, v_pool = _fold(k_pool), _fold(v_pool)
+            ks, vs = (None if t is None else _fold(t) for t in (ks, vs))
+        rows_k = k_new.reshape(-1, Hkv, Dh)
+        rows_v = v_new.reshape(-1, Hkv, Dh)
         if quant:
-            ks, vs = cache["k_scale"][l], cache["v_scale"][l]
             rows_k, k_s = _quantize_rows(rows_k, cfg.kv_cache_dtype)
             rows_v, v_s = _quantize_rows(rows_v, cfg.kv_cache_dtype)
             _scale_write(ks, pids, off, k_s)
@@ -1024,16 +1132,15 @@ def paged_extend_step(params, cache, pos, tokens, cfg: TransformerConfig):
         if quant:
             kd = kd * _gather_pages(ks.transpose(2, 3), tbl).float()
             vd = vd * _gather_pages(vs.transpose(2, 3), tbl).float()
-        qg = q.reshape(B, c, Hkv, g, Dh).float()
+        qg = q.reshape(q.shape[0], c, Hkv, g, Dh).float()
         s = torch.einsum("bckgd,bksd->bkgcs", qg, kd) * scale
         s = torch.where(visible, s, torch.full_like(s, _NEG_INF))
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgcs,bksd->bckgd", p, vd)
-        x = x + o.reshape(B, c, cfg.d_model).to(dt) @ matmul_weight(
-            lp, "wo", dt)
+        o = o.reshape(tp, B, c, -1, Dh) if stacked else o
+        x = x + _attn_out(o.to(dt), lp, dt, (B, c), stacked)
         x = mlp(x, lp, cfg)
-    x = _rmsnorm(x, params["ln_f_scale"])
-    return (x @ matmul_weight(params, "lm_head", dt)).float()
+    return lm_logits(_rmsnorm(x, top["ln_f_scale"]), top)
 
 
 def paged_generate(params, prompt, cfg: TransformerConfig,

@@ -1,7 +1,6 @@
 """Continuous batching over the ragged paged cache — the engine of
 ``hpc_patterns_tpu/models/serving.py`` (``EngineCore`` +
-``ContinuousBatcher``) without its mesh branch, and its half of the
-serving plane's KV handoff.
+``ContinuousBatcher``), and its half of the serving plane's KV handoff.
 
 - a page free-list over one shared pool; each admitted sequence takes
   the pages its bucket-padded prompt + budget needs
@@ -110,7 +109,19 @@ quantized pools, a missing or misaligned ladder, and on the ``flash``
 route rungs that are multiples of 128 (their monolithic prefill takes
 kernel 1, which the tail cannot mirror).
 
-``mesh`` raises ``ValueError`` (a later slice).
+tp-sharded serving (``mesh=``, a ``{axis: size}`` dict whose ``tp`` axis
+shapes serving, as decode's): the params (and a draft's) are stored as
+their tp shards once, the pools kv-head-sharded over tp and stacked (tp,
+pool_pages, kv_heads/tp, ...) where tp divides kv_heads (else JAX's
+warning and whole pools), and every piece that touches them carries that
+layout: the one-row prefill and the tail prefill (kernel 1 on each
+rank's head block), the decode chunk and the draft rounds (kernels 6/6q
+or 7 on the folded ranks, the verify extend on the tp shards),
+preemption's re-prefill, the residency manager's swap-out and prefetch,
+and migration. A :class:`MigrationBundle` keeps JAX's global layout (all
+kv heads), so a bundle from a tp engine installs in an unsharded one
+and the reverse. The sampler reads the gathered logits, so a tp engine's
+rows equal the tp standalone ``paged_generate(..., mesh=)``'s.
 
 Correctness contract: every sequence's tokens equal the standalone
 ``paged_generate`` for the same prompt, budget, config and (sampled)
@@ -140,8 +151,10 @@ from hpc_patterns_tpu_torch.models.decode import (
     PREFIX_ALIGN,
     _as_keys,
     _pick,
+    gather_pool_pages,
     gumbel_noise,
     init_paged_cache,
+    install_pool_pages,
     paged_decode_step,
     paged_prefill,
     paged_tail_prefill,
@@ -151,8 +164,12 @@ from hpc_patterns_tpu_torch.models.speculative import (
     paged_round,
     spec_streams,
 )
-from hpc_patterns_tpu_torch.models.transformer import TransformerConfig
-from hpc_patterns_tpu_torch.ops.flash_decode import raw
+from hpc_patterns_tpu_torch.models.sharding import shard_params
+from hpc_patterns_tpu_torch.models.transformer import (
+    TransformerConfig,
+    logical_mesh,
+    shards_params,
+)
 from hpc_patterns_tpu_torch.topology import resolve_device
 
 
@@ -351,7 +368,7 @@ class _Slot:
 
 
 def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
-                chunk, eos_id, greedy, top_k):
+                chunk, eos_id, greedy, top_k, mesh=None):
     """``chunk`` ragged decode steps, all enqueued without a host sync:
     rows advance while ``pos < limit``; an emitted ``eos_id`` (>= 0)
     pulls the row's limit to its current end. ``greedy`` picks the
@@ -359,8 +376,8 @@ def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
     own key (``keys`` (B, 2)) at its own temperature (``temps`` (B,)) —
     the draw :func:`~hpc_patterns_tpu_torch.models.decode.paged_generate`
     makes at that position, so nothing advances on an inactive step.
-    Returns (pos, limit, tokens, out (chunk, B) int32); the cache is
-    updated in place."""
+    ``mesh``: tp serving on pools made for it. Returns (pos, limit,
+    tokens, out (chunk, B) int32); the cache is updated in place."""
     if not greedy:
         # the chunk's noise in one pass: step j of an active row draws at
         # pos + 1 + j (an idle row's draw is discarded)
@@ -369,7 +386,8 @@ def _chunk_step(params, cache, pos, limit, tokens, keys, temps, *, cfg,
     outs = []
     for j in range(chunk):
         active = pos < limit
-        logits = paged_decode_step(params, cache, pos, tokens, cfg)
+        logits = paged_decode_step(params, cache, pos, tokens, cfg,
+                                   mesh=mesh)
         pick = (_pick(logits) if greedy
                 else _pick(logits, temps, top_k, keys, pos + 1, noise[j]))
         nxt = torch.where(active, pick, tokens)
@@ -401,7 +419,8 @@ def _chunk_step_rows(params, cache, pos, limit, tokens, keys, temps, rows,
 
 
 def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
-                temps, *, cfg, dcfg, gamma, rounds, eos_id, greedy, top_k):
+                temps, *, cfg, dcfg, gamma, rounds, eos_id, greedy, top_k,
+                mesh=None):
     """``rounds`` draft-assisted rounds, all enqueued without a host sync
     (JAX ``serving.py:458-519``): each round is ``paged_round`` at each
     row's cursor; a row advances ``min(a + 1, limit - pos)`` tokens, cut
@@ -409,7 +428,8 @@ def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
     new end. A row at its limit steps at a cursor clamped to 0 (its
     garbage lands in its own first page or the trash page) and advances
     nothing. ``streams``: ``spec_streams`` of the rows' keys (None when
-    greedy); ``temps`` (B,). Returns (pos, limit, cur, out (rounds, B,
+    greedy); ``temps`` (B,); ``mesh``: tp rounds on caches made for it.
+    Returns (pos, limit, cur, out (rounds, B,
     gamma + 3) int32): a round's tokens (gamma + 1), then its advance and
     its accepted count (0 for an idle row). The caches are updated in
     place."""
@@ -420,7 +440,7 @@ def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
         pos_eff = torch.where(active, pos, 0)
         a, emit = paged_round(params, cfg, dparams, dcfg, cache, dcache,
                               pos_eff, cur, gamma, streams, greedy, top_k,
-                              temps)
+                              temps, mesh=mesh)
         adv = torch.where(active, torch.minimum(a + 1, limit - pos), 0)
         if eos_id >= 0:
             is_eos = (emit == eos_id) & (k < adv[:, None])
@@ -435,22 +455,6 @@ def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
         outs.append(torch.cat([emit, adv[:, None],
                                torch.where(adv > 0, a, 0)[:, None]], dim=1))
     return pos, limit, cur, torch.stack(outs)
-
-
-def _install_pages(pool, idx, payload):
-    """Copy a migrated row's pages into ``pool`` at page ids ``idx``, in
-    place (``index_copy_``; JAX's ``pool.at[idx].set`` returns a new
-    pool): the device half of :meth:`EngineCore.install_migration`.
-    float8 moves through its byte view, as every gather and scatter of
-    the port does. ``payload`` must already have the pool's dtype and
-    page shape: nothing is cast."""
-    if payload.dtype != pool.dtype or tuple(payload.shape[1:]) \
-            != tuple(pool.shape[1:]) or payload.shape[0] != idx.numel():
-        raise ValueError(
-            f"payload {tuple(payload.shape)} {payload.dtype} does not fit "
-            f"{idx.numel()} page(s) of a {tuple(pool.shape)} {pool.dtype} "
-            "pool")
-    raw(pool).index_copy_(0, idx, raw(payload.to(pool.device)))
 
 
 class EngineCore:
@@ -476,8 +480,10 @@ class EngineCore:
     ``residency``: a ``memory.ResidencyManager`` — tiered HBM <-> host
     paging (the module docstring); bound to this engine's device.
     ``prefix_cache``: the sharing-aware arena (radix index, refcounted
-    pages, tail-only prefill). ``device``: default ``cuda`` (raises
-    without a GPU unless ``device="cpu"``); params must live there."""
+    pages, tail-only prefill). ``mesh``: tp-sharded serving (the module
+    docstring; a draft must shard over the same tp). ``device``: default
+    ``cuda`` (raises without a GPU unless ``device="cpu"``); params must
+    live there."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int,
                  pool_pages: int, pages_per_seq: int, page_size: int,
@@ -489,9 +495,6 @@ class EngineCore:
                  prefix_cache: bool = False, draft_params=None,
                  draft_cfg: TransformerConfig | None = None, gamma: int = 4,
                  mesh=None):
-        if mesh is not None:
-            raise ValueError("not ported yet: mesh (a later slice: "
-                             "parallelism, ROADMAP item 5)")
         if cfg.n_experts:
             raise ValueError("continuous batching: dense models only")
         if draft_params is not None:
@@ -562,6 +565,13 @@ class EngineCore:
                 "draft-assisted engines do not page: the draft cache's row "
                 "state would have to tier too")
         self.device = resolve_device(device)
+        #: the checked mesh; the params (and a draft's) as their tp shards
+        self.mesh = logical_mesh(mesh, cfg)
+        if shards_params(self.mesh, cfg):
+            params = shard_params(params, self.mesh, cfg)
+            if draft_params is not None:
+                draft_params = shard_params(draft_params, self.mesh,
+                                            draft_cfg)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -592,14 +602,14 @@ class EngineCore:
         self.cache = init_paged_cache(
             cfg, slots, pages_per_seq, page_size,
             pool_pages=pool_pages + 1, table=self._table,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         if self.spec:
             # the draft pool mirrors the target's page geometry and SHARES
             # its page table (one allocation serves both caches)
             self.dcache = init_paged_cache(
                 draft_cfg, slots, pages_per_seq, page_size,
                 pool_pages=pool_pages + 1, table=self._table,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             self.dcache["table"] = self.cache["table"]
         self.free_pages = list(range(pool_pages))
         z = dict(dtype=torch.int32, device=self.device)
@@ -1085,7 +1095,7 @@ class EngineCore:
                                            padded_len=padded, matched=M):
                 logits, _ = paged_tail_prefill(
                     self.params, prompt_dev[:, M:], self.cfg, one,
-                    self.page_size, m, last_pos=T - 1 - M)
+                    self.page_size, m, last_pos=T - 1 - M, mesh=self.mesh)
         else:
             with metricslib.span("serve.prefill", prompt_len=T,
                                  padded_len=padded), \
@@ -1093,7 +1103,7 @@ class EngineCore:
                                            padded_len=padded):
                 logits, _ = paged_prefill(self.params, prompt_dev, self.cfg,
                                           one, self.page_size,
-                                          last_pos=T - 1)
+                                          last_pos=T - 1, mesh=self.mesh)
         # publish this admission's full-prompt pages so the next same-rung
         # prompt shares them
         self._insert_prefix(req.prompt, padded, pages)
@@ -1104,7 +1114,8 @@ class EngineCore:
             with tracelib.compile_watch("serving._prefill_one[draft]",
                                         padded_len=padded):
                 paged_prefill(self.draft_params, prompt_dev, self.draft_cfg,
-                              done, self.page_size, last_pos=T - 1)
+                              done, self.page_size, last_pos=T - 1,
+                              mesh=self.mesh)
         if not self.greedy:
             # the row's key and temperature
             key = (req.key if req.key is not None
@@ -1432,7 +1443,7 @@ class EngineCore:
                 tracelib.compile_watch("serving._chunk_step",
                                        chunk=self.chunk):
             kw = dict(cfg=self.cfg, chunk=self.chunk, eos_id=self.eos_id,
-                      greedy=self.greedy, top_k=self.top_k)
+                      greedy=self.greedy, top_k=self.top_k, mesh=self.mesh)
             state = (self.params, self.cache, self.pos, self.limit,
                      self.tokens, self.keys, self.temps)
             # on the CPU a step's cost grows with its rows and pages, so
@@ -1497,7 +1508,7 @@ class EngineCore:
                 None if self.greedy else spec_streams(self.keys),
                 self.temps, cfg=self.cfg, dcfg=self.draft_cfg,
                 gamma=self.gamma, rounds=self.chunk, eos_id=self.eos_id,
-                greedy=self.greedy, top_k=self.top_k)
+                greedy=self.greedy, top_k=self.top_k, mesh=self.mesh)
         self.spec_rounds += self.chunk
         t_disp = (rec.mark_dispatch(
             "serve.spec_chunk", {"rounds": self.chunk, "gamma": self.gamma,
@@ -1683,8 +1694,9 @@ class EngineCore:
         cursor snapshot is a deliberate sync point; ``tolist`` COPIES the
         values into host ints (a host view of a cursor tensor would
         change under a later in-place write). The K/V pages (and scale
-        pools) are gathered on the device with ``pool[idx]``, which
-        makes new tensors: the released pages may be reused at once."""
+        pools) are gathered on the device into new tensors in the
+        bundle's global layout (``decode.gather_pool_pages``): the
+        released pages may be reused at once."""
         st = self._slots[slot]
         if not st.active or slot in self._pending or st.prompt is None:
             raise ValueError(f"slot {slot} has no exportable row")
@@ -1700,7 +1712,7 @@ class EngineCore:
             key = np.asarray(self.keys[slot].tolist(), np.uint32)
             temp = float(self.temps[slot])
         idx = torch.tensor(st.pages, dtype=torch.long, device=self.device)
-        payload = {name: tuple(raw(pool)[idx].view(pool.dtype)
+        payload = {name: tuple(gather_pool_pages(pool, idx)
                                for pool in pools)
                    for name, pools in self.cache.items() if name != "table"}
         rec = self.stats.get(st.seq_id) or {}
@@ -1837,7 +1849,7 @@ class EngineCore:
             for name, pools in self.cache.items():
                 if name != "table":
                     for pool, pl in zip(pools, bundle.pages_payload[name]):
-                        _install_pages(pool, idx, pl[m:] if m else pl)
+                        install_pool_pages(pool, idx, pl[m:] if m else pl)
         self.pos[slot] = int(bundle.pos)
         self.limit[slot] = int(bundle.limit)
         self.tokens[slot] = int(bundle.token)

@@ -30,6 +30,7 @@ from hpc_patterns_tpu_torch.models.sharding_util import (
 from hpc_patterns_tpu_torch.models.transformer import (
     QUANT_SCALE_SUFFIX,
     TransformerConfig,
+    shards_params,
 )
 
 
@@ -136,6 +137,18 @@ def unshard_params(params, mesh: dict, cfg: TransformerConfig):
         return from_ranks(leaf, s, mesh, rank_axes(s, mesh)).contiguous()
 
     return _map_specs(gather, params, specs)
+
+
+def state_layout(mesh: dict | None, cfg: TransformerConfig):
+    """``(shard, unshard)`` tree functions of a sharded state's stored form
+    (:func:`shard_params`, :func:`unshard_params` on ``mesh``), for the
+    params and both moment trees: what a checkpoint saves global and
+    restores into the layout (``utils/checkpoint``'s ``layout=``). None
+    when the mesh shards nothing."""
+    if not shards_params(mesh, cfg):
+        return None
+    return (lambda t: shard_params(t, mesh, cfg),
+            lambda t: unshard_params(t, mesh, cfg))
 
 
 def param_shard_at(params, mesh: dict, cfg: TransformerConfig,

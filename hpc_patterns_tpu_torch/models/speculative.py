@@ -1,6 +1,6 @@
 """Speculative decoding: a small draft model proposes, the target
 verifies a chunk in one pass — the counterpart of
-``hpc_patterns_tpu/models/speculative.py`` (no mesh).
+``hpc_patterns_tpu/models/speculative.py``.
 
 A round: the draft runs ``gamma + 1`` single-token steps from each row's
 cursor (the extra one writes the last proposal's K/V, so a fully
@@ -51,6 +51,15 @@ draft's steps on kernel 6; ``impl="vmap"``: a loop of
 port unchanged) and :func:`paged_round`, the one round body the engine
 (``models/serving.py``) shares. Inside :func:`paged_round` nothing is
 read back to the host.
+
+``mesh=`` (a ``{axis: size}`` dict; its ``tp`` axis, as decode's) is
+tp-sharded serving: both models' params as their tp shards (once a
+call), both caches kv-head-sharded where tp divides their kv_heads; the
+prefills take kernel 1 on each rank's head block, the draft's steps the
+decode kernels through the table (5 on the linear cache, 6/6q paged), and
+the verify extend runs on the tp shards (``decode.extend_step`` /
+``paged_extend_step`` with ``mesh=``). ``impl="vmap"`` refuses a mesh, as
+JAX's does.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 from hpc_patterns_tpu_torch.models.decode import (
     SPEC_STREAMS,
     _as_keys,
+    _serving_params,
     _pick,
     _topk_mask,
     decode_step,
@@ -192,7 +202,8 @@ def _round(step, extend, vocab: int, pos, cur, gamma: int, streams,
 
 def paged_round(params, cfg: TransformerConfig, draft_params,
                 draft_cfg: TransformerConfig, cache, dcache, pos_eff, cur,
-                gamma: int, streams, greedy: bool, top_k: int, temperature):
+                gamma: int, streams, greedy: bool, top_k: int, temperature,
+                mesh=None):
     """ONE batched draft/verify round on the ragged paged caches — the
     round body :func:`speculative_generate_batched` (``impl="ragged"``)
     and the serving engine's draft-assisted chunks share (JAX
@@ -201,17 +212,18 @@ def paged_round(params, cfg: TransformerConfig, draft_params,
     ``pos_eff`` (B,) int32, then one :func:`~hpc_patterns_tpu_torch.
     models.decode.paged_extend_step` of ``[cur, proposals]``, then the
     acceptance. ``streams``: :func:`spec_streams` of the rows' keys (None
-    when greedy); ``temperature`` a float or per-row (B,). Both caches
-    are written in place; nothing is read back to the host. Returns what
-    :func:`_round` returns."""
+    when greedy); ``temperature`` a float or per-row (B,). ``mesh``:
+    tp-sharded rounds on caches made for it (module docstring). Both
+    caches are written in place; nothing is read back to the host.
+    Returns what :func:`_round` returns."""
 
     def step(j, tok):
         return paged_decode_step(draft_params, dcache, pos_eff + j, tok,
-                                 draft_cfg)
+                                 draft_cfg, mesh=mesh)
 
     return _round(step,
                   lambda chunk: paged_extend_step(params, cache, pos_eff,
-                                                  chunk, cfg),
+                                                  chunk, cfg, mesh=mesh),
                   cfg.vocab, pos_eff, cur, gamma, streams, greedy, top_k,
                   temperature)
 
@@ -248,12 +260,6 @@ def _sampling_args(cfg: TransformerConfig, temperature: float, top_k: int,
     return keys, greedy, int(top_k), max(float(temperature), 1e-6)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("mesh=: not ported yet (ROADMAP queue 1 item 5, "
-                         "multi-process ranks and parallelism)")
-
-
 def _first_pick(logits, keys, T: int, greedy: bool, top_k: int,
                 temperature: float):
     """The first token (position ``T``) from the prefill logits: the
@@ -263,16 +269,25 @@ def _first_pick(logits, keys, T: int, greedy: bool, top_k: int,
     return _pick(logits, temperature, top_k, keys, T)
 
 
+def _sharded(params, cfg, draft_params, draft_cfg, mesh):
+    """Both models' params as the steps take them on ``mesh`` (their tp
+    shards, once a call) and the checked mesh."""
+    params, mesh_t = _serving_params(params, cfg, mesh)
+    draft_params, _ = _serving_params(draft_params, draft_cfg, mesh)
+    return params, draft_params, mesh_t
+
+
 def _linear_generate(params, cfg, draft_params, draft_cfg, prompt,
                      new_tokens: int, gamma: int, keys, greedy: bool,
-                     top_k: int, temperature: float):
+                     top_k: int, temperature: float, mesh=None):
     """One row (prompt (1, T)) over linear caches: the batch-1 loop. The
     draft's ``decode_step`` takes a host position, so a round ends with
     one readback of ``a``."""
     T = prompt.shape[1]
     max_len = T + new_tokens + gamma + 1  # slack for the final round
-    logits, cache = prefill(params, prompt, cfg, max_len)
-    _, dcache = prefill(draft_params, prompt, draft_cfg, max_len)
+    logits, cache = prefill(params, prompt, cfg, max_len, mesh=mesh)
+    _, dcache = prefill(draft_params, prompt, draft_cfg, max_len,
+                        mesh=mesh)
     first = _first_pick(logits, keys, T, greedy, top_k, temperature)
     streams = None if greedy else spec_streams(keys)
     toks = [first[:, None]]
@@ -281,10 +296,12 @@ def _linear_generate(params, cfg, draft_params, draft_cfg, prompt,
         p = pos  # the round's host cursor
 
         def step(j, tok):
-            return decode_step(draft_params, dcache, p + j, tok, draft_cfg)
+            return decode_step(draft_params, dcache, p + j, tok, draft_cfg,
+                               mesh=mesh)
 
         a, emit = _round(
-            step, lambda chunk: extend_step(params, cache, p, chunk, cfg),
+            step, lambda chunk: extend_step(params, cache, p, chunk, cfg,
+                                            mesh=mesh),
             cfg.vocab, torch.full((1,), p, dtype=torch.int32,
                                   device=prompt.device),
             cur, gamma, streams, greedy, top_k, temperature)
@@ -308,9 +325,8 @@ def speculative_generate(params, cfg: TransformerConfig, draft_params,
     distributed as target-only sampling at that temperature and top-k
     (the same law, not the same draws). ``gamma``: proposals a round.
     Both configs share the vocabulary; compute-dtype caches (the linear
-    ``extend_step``). ``device``: default ``cuda``; params and prompt
-    must live there."""
-    _no_mesh(mesh)
+    ``extend_step``). ``mesh``: tp-sharded serving (module docstring).
+    ``device``: default ``cuda``; params and prompt must live there."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt).to(dev)
     if prompt.shape[0] != 1:
@@ -320,14 +336,16 @@ def speculative_generate(params, cfg: TransformerConfig, draft_params,
     _validate(cfg, draft_cfg, prompt.shape[1], new_tokens, gamma)
     keys, greedy, top_k, temperature = _sampling_args(
         cfg, temperature, top_k, key, 1, dev)
+    params, draft_params, mesh = _sharded(params, cfg, draft_params,
+                                          draft_cfg, mesh)
     return _linear_generate(params, cfg, draft_params, draft_cfg, prompt,
                             new_tokens, gamma, keys, greedy, top_k,
-                            temperature)
+                            temperature, mesh)
 
 
 def _ragged_generate(params, cfg, draft_params, draft_cfg, prompts,
                      new_tokens: int, gamma: int, keys, greedy: bool,
-                     top_k: int, temperature: float):
+                     top_k: int, temperature: float, mesh=None):
     """Per-row progress on the paged caches (JAX ``speculative.py:318-
     383``): one batched :func:`paged_round` an iteration at each row's own
     cursor. A row that has its ``new_tokens`` freezes: its cursor stops,
@@ -339,10 +357,11 @@ def _ragged_generate(params, cfg, draft_params, draft_cfg, prompts,
     max_len = T + new_tokens + gamma + 1
     page = 128 if max_len > 128 else 16
     pages = -(-max_len // page)
-    cache = init_paged_cache(cfg, B, pages, page, device=dev)
-    dcache = init_paged_cache(draft_cfg, B, pages, page, device=dev)
-    logits, _ = paged_prefill(params, prompts, cfg, cache, page)
-    paged_prefill(draft_params, prompts, draft_cfg, dcache, page)
+    cache = init_paged_cache(cfg, B, pages, page, device=dev, mesh=mesh)
+    dcache = init_paged_cache(draft_cfg, B, pages, page, device=dev,
+                              mesh=mesh)
+    logits, _ = paged_prefill(params, prompts, cfg, cache, page, mesh=mesh)
+    paged_prefill(draft_params, prompts, draft_cfg, dcache, page, mesh=mesh)
     first = _first_pick(logits, keys, T, greedy, top_k, temperature)
     streams = None if greedy else spec_streams(keys)
     width = new_tokens + gamma + 1
@@ -359,7 +378,7 @@ def _ragged_generate(params, cfg, draft_params, draft_cfg, prompts,
         pos_eff = torch.where(active, pos, 0)
         a, emit = paged_round(params, cfg, draft_params, draft_cfg, cache,
                               dcache, pos_eff, cur, gamma, streams, greedy,
-                              top_k, temperature)
+                              top_k, temperature, mesh=mesh)
         nxt = emit.gather(1, a.long()[:, None])[:, 0]
         # emitted this round: props[:a], then nxt; frozen rows rewrite
         # their own slots (gather, where, scatter)
@@ -391,8 +410,9 @@ def speculative_generate_batched(params, cfg: TransformerConfig,
     decode; sampled rows (``key`` (2,) uint32 for every row, or (B, 2))
     draw only from their own key and positions, so the two impls and the
     serving engine give the same tokens for a row and key. The call
-    returns when the slowest row finishes. ``device``: default ``cuda``."""
-    _no_mesh(mesh)
+    returns when the slowest row finishes. ``mesh``: tp-sharded serving on
+    the ragged route (module docstring); ``impl="vmap"`` refuses it, as
+    JAX's does. ``device``: default ``cuda``."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts).to(dev)
     if prompts.ndim != 2:
@@ -404,10 +424,16 @@ def speculative_generate_batched(params, cfg: TransformerConfig,
         cfg, temperature, top_k, key, B, dev)
     args = (gamma, keys, greedy, top_k, temperature)
     if impl == "ragged":
+        params, draft_params, mesh = _sharded(params, cfg, draft_params,
+                                              draft_cfg, mesh)
         return _ragged_generate(params, cfg, draft_params, draft_cfg,
-                                prompts, new_tokens, *args)
+                                prompts, new_tokens, *args, mesh=mesh)
     if impl != "vmap":
         raise ValueError(f"impl must be 'ragged' or 'vmap', got {impl!r}")
+    if mesh is not None:
+        raise ValueError(
+            "impl='vmap' is single-device (vmap over the shard_map "
+            "route is unsupported); use impl='ragged' with a mesh")
     rows = [_linear_generate(params, cfg, draft_params, draft_cfg,
                              prompts[b:b + 1], new_tokens, gamma,
                              None if keys is None else keys[b:b + 1],

@@ -356,22 +356,7 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         return loss * scale, [g * scale for g in grads]
 
     def accum_grads(params, tokens):
-        loss, grads = local_grads(params, tokens)
-        if is_multihost():
-            # the dp ranks of the other processes: one flat allreduce of
-            # the loss and the gradient tree over the gloo wire
-            from hpc_patterns_tpu_torch.comm.processes import allreduce_mean
-
-            flat = allreduce_mean(torch.cat(
-                [loss.reshape(1).float()]
-                + [g.reshape(-1).float() for g in grads]))
-            loss = flat[0]
-            out, at = [], 1
-            for g in grads:
-                out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
-                at += g.numel()
-            grads = out
-        return loss, grads
+        return process_mean(*local_grads(params, tokens))
 
     if residency is not None:
         return _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,
@@ -389,6 +374,23 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
         return loss, params, opt_state
 
     return tracelib.instrument_jit(step, "train.step")
+
+
+def process_mean(loss, grads: list):
+    """(loss, grads) averaged over the launched processes' dp ranks: one
+    flat allreduce of the loss and the gradient leaves over the gloo
+    wire (``comm/processes.allreduce_mean``); unchanged in one process."""
+    if not is_multihost():
+        return loss, grads
+    from hpc_patterns_tpu_torch.comm.processes import allreduce_mean
+
+    flat = allreduce_mean(torch.cat(
+        [loss.reshape(1).float()] + [g.reshape(-1).float() for g in grads]))
+    out, at = [], 1
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+        at += g.numel()
+    return flat[0], out
 
 
 def _make_streamed_step(optimizer, accum_grads, host_sh, hbm_sh,

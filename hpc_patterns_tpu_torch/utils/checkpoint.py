@@ -9,10 +9,10 @@ step directory is written under a temporary name and renamed into place,
 so a reader never sees half a checkpoint. Files load with
 ``torch.load(weights_only=True)``: tensors, dicts and numbers only.
 
-A sharded state (``mesh=``/``cfg=``: the params and moments stored as
-their rank-stacked shards, ``models/sharding``) saves the GLOBAL tensors
-and restores into the mesh's layout, so a checkpoint does not depend on
-the mesh it was written from.
+A sharded state (``layout=``: the params and moments stored as their
+rank-stacked shards, ``models/sharding`` or ``models/pp``) saves the
+GLOBAL tensors and restores into its layout, so a checkpoint does not
+depend on the mesh it was written from.
 """
 
 from __future__ import annotations
@@ -33,29 +33,27 @@ def _detached(tree):
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
-def _layout(params, opt_state, mesh, cfg, fn):
-    """``fn`` (``shard_params`` or ``unshard_params``) over the params and
-    both moment trees; the state as it is without a mesh."""
-    if mesh is None:
+def _layout(params, opt_state, fn):
+    """``fn`` (a shard or unshard tree function) over the params and both
+    moment trees; the state as it is without one."""
+    if fn is None:
         return params, opt_state
-    if cfg is None:
-        raise ValueError("a sharded checkpoint needs cfg= beside mesh=")
     opt = dict(opt_state)
     for k in ("mu", "nu"):
         if k in opt:
-            opt[k] = fn(opt[k], mesh, cfg)
-    return fn(params, mesh, cfg), opt
+            opt[k] = fn(opt[k])
+    return fn(params), opt
 
 
-def save_checkpoint(path, params, opt_state, step: int = 0, *, mesh=None,
-                    cfg=None) -> str:
+def save_checkpoint(path, params, opt_state, step: int = 0, *,
+                    layout=None) -> str:
     """Write {params, opt_state, step} to ``<path>/step_<step>``
     (replacing one of that step), synchronized; returns its path.
-    ``mesh``/``cfg``: a sharded state, saved as its global tensors."""
-    from hpc_patterns_tpu_torch.models.sharding import unshard_params
-
+    ``layout``: a sharded state's ``(shard, unshard)`` tree functions
+    (``models/sharding.state_layout``, ``models/pp.state_layout``); the
+    state is saved as its global tensors."""
     params, opt_state = _layout(_detached(params), _detached(opt_state),
-                                mesh, cfg, unshard_params)
+                                layout and layout[1])
     root = Path(path).resolve()
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step}"
@@ -117,22 +115,17 @@ def same_structure(a, b) -> bool:
 
 
 def restore_checkpoint(path, params_like, opt_state_like,
-                       step: int | None = None, *, mesh=None, cfg=None):
+                       step: int | None = None, *, layout=None):
     """(params, opt_state, step). ``*_like`` give the structure, shapes,
     dtypes and devices the restored tensors must have (the live state
     created the same way as at save time); a mismatch raises
-    ``ValueError``. ``mesh``/``cfg``: ``*_like`` is a sharded state; the
-    global tensors are placed into its layout (params requiring grad as
-    ``*_like``'s do)."""
-    from hpc_patterns_tpu_torch.models.sharding import (
-        shard_params,
-        unshard_params,
-    )
-
+    ``ValueError``. ``layout`` (as :func:`save_checkpoint`'s):
+    ``*_like`` is a sharded state; the global tensors are placed into its
+    layout (params requiring grad as ``*_like``'s do)."""
     d = _step_dir(path, step)
     with torch.no_grad():
-        like_p, like_o = _layout(params_like, opt_state_like, mesh, cfg,
-                                 unshard_params)
+        like_p, like_o = _layout(params_like, opt_state_like,
+                                 layout and layout[1])
     like = {"params": like_p, "opt_state": like_o}
     dev = tree_leaves(params_like)[0].device
     got = {"params": _load(d / "params.pt", dev),
@@ -140,9 +133,9 @@ def restore_checkpoint(path, params_like, opt_state_like,
     if not same_structure(like, got):
         raise ValueError(f"checkpoint {d} does not match the state's "
                          "structure, shapes or dtypes")
-    params, opt_state = _layout(got["params"], got["opt_state"], mesh, cfg,
-                                shard_params)
-    if mesh is not None:
+    params, opt_state = _layout(got["params"], got["opt_state"],
+                                layout and layout[0])
+    if layout is not None:
         for p, q in zip(tree_leaves(params), tree_leaves(params_like)):
             p.requires_grad_(q.requires_grad)
     return (params, opt_state,

@@ -1425,3 +1425,84 @@ def test_tp_decode_kernels_at_shard_shapes_match_plain(gen, kv, n_kv, tp):
             assert fd.launches["paged_decode"] - n_fd["paged_decode"] == L
     for a, b in zip(got["cuda"], got["cpu"]):
         assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+
+
+# ------------------------------------- pp and the tp engine (logical ranks)
+
+def test_pp_step_on_the_card_matches_the_no_mesh_step(gen):
+    # pp 2 x 4 microbatches, fused MLP: the loss and every gradient leaf
+    # against the no-mesh loss_fn's on the card (bf16 both: loss rtol
+    # 1e-2, each leaf's cosine >= 0.999); kernels 1, 3/4 and 8/9 launched
+    # as the schedule runs them: a forward and a recompute forward (with
+    # lse) per microbatch and layer, one backward per microbatch and layer
+    from hpc_patterns_tpu_torch.models import pp as pplib
+    from hpc_patterns_tpu_torch.models import train as tr
+    from hpc_patterns_tpu_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = tf.TransformerConfig(vocab=512, d_model=256, n_heads=4,
+                               n_layers=4, d_ff=1024, max_seq=256,
+                               dtype="bfloat16", attention="flash",
+                               mlp_impl="fused")
+    params, _ = tr.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    tokens = tr.make_batch(torch.Generator(device=dev).manual_seed(1), cfg,
+                           8, 256, device=dev)
+    leaves = tr.tree_leaves(params)
+    loss0 = tf.loss_fn(params, tokens, cfg)
+    g0 = torch.autograd.grad(loss0, leaves)
+    M, L = 4, cfg.n_layers
+    n_fa, n_fm = dict(fa.launches), dict(fm.launches)
+    stats = {}
+    loss1, grads = pplib.pp_loss_and_grads(params, tokens, cfg, {"pp": 2},
+                                           microbatches=M, stats=stats)
+    torch.cuda.synchronize()
+    assert {k: fa.launches[k] - n_fa[k] for k in
+            ("fwd", "fwd_lse", "dq", "dkv")} == {
+        "fwd": M * L, "fwd_lse": M * L, "dq": M * L, "dkv": M * L}
+    assert {k: fm.launches[k] - n_fm[k] for k in
+            ("fwd", "bwd_dx", "bwd_dw")} == {
+        "fwd": 2 * M * L, "bwd_dx": M * L, "bwd_dw": M * L}
+    assert stats["peak_stash"] == [2, 1]
+    assert abs(loss1.item() - loss0.item()) <= 1e-2 * abs(loss0.item())
+    for a, b in zip(tr.tree_leaves(grads), g0):
+        a, b = a.float().flatten(), b.float().flatten()
+        assert ((a @ b) / (a.norm() * b.norm())).item() >= 0.999
+
+
+def test_tp_engine_on_the_card_matches_its_standalone(gen):
+    # tp 2 over kv_heads 4 on bf16 pools: every request's tokens against
+    # the tp standalone paged_generate, tie-aware at bench_serving's bf16
+    # tolerance (batch 2 and batch 1 round the logits differently);
+    # kernel 1 once a layer an admission, kernel 6 once a layer a step
+    from hpc_patterns_tpu_torch.bench_serving import TIE_TOL
+    from hpc_patterns_tpu_torch.models import decode as dec
+    from hpc_patterns_tpu_torch.models import serving as srv
+
+    cfg, params, _ = _tp_model(n_kv_heads=4)
+    params = {k: (v.cuda() if torch.is_tensor(v) else
+                  {n: t.cuda() for n, t in v.items()})
+              for k, v in params.items()}
+    mesh = {"tp": 2}
+    eng = srv.ContinuousBatcher(params, cfg, slots=2, pool_pages=8,
+                                pages_per_seq=4, page_size=64, chunk=4,
+                                device="cuda", mesh=mesh)
+    assert eng.cache["k"][0].shape[:3] == (2, 9, 2)
+    prompts = [torch.randint(0, cfg.vocab, (128,),
+                             generator=torch.Generator().manual_seed(s))
+               .to(torch.int32).numpy() for s in range(3)]
+    n_fa, n_fd = dict(fa.launches), dict(fd.launches)
+    ids = [eng.submit(p, 32) for p in prompts]
+    got = eng.run()
+    L = cfg.n_layers
+    assert fa.launches["fwd"] - n_fa["fwd"] == L * eng.admissions
+    assert fd.launches["paged_decode"] - n_fd["paged_decode"] == \
+        L * eng.decode_steps
+    for sid, p in zip(ids, prompts):
+        with torch.no_grad():
+            want, margins = dec.paged_generate(
+                params, torch.from_numpy(p)[None].cuda(), cfg, 32,
+                page_size=64, with_margins=True, mesh=mesh)
+        assert srv.tie_aware_compare(
+            got[sid], want[0].cpu().numpy(), margins[0].cpu().numpy(),
+            TIE_TOL[cfg.dtype]) != "mismatch"

@@ -303,7 +303,8 @@ def test_train_app_runs(flag, capsys):
 
 @pytest.mark.parametrize("flag,msg", [
     (["--dp", "3"], "divide"), (["--fsdp", "3"], "divide"),
-    (["--tp", "3"], "divide"), (["--pp", "2"], "not ported yet"),
+    (["--tp", "3"], "divide"),
+    (["--pp", "2", "--n-experts", "4", "--ep", "2"], "no sp/ep axes"),
     (["--dcn-dp", "--dp", "2"], "slice count 1"), (["--ep", "2"], "requires"),
     (["--n-experts", "3", "--ep", "2"], "divide"),
     (["--attention", "flash", "--sp", "2"], "ring_flash")])
@@ -314,5 +315,5 @@ def test_train_app_refusals(flag, msg, capsys):
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
     out = capsys.readouterr().out
     assert "ERROR:" in out and msg in out and out.strip().endswith("FAILURE")
-    if msg == "not ported yet":
-        assert "item 5.6" in out
+    if msg == "no sp/ep axes":  # JAX's refusal of ep inside pp stages
+        assert "--pp composes with" in out

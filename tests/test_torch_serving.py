@@ -146,11 +146,13 @@ def test_sizing_helpers_equal_jax(max_len):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()},
+    {"mesh": {"tp": 3}},
 ])
 def test_later_slice_options_raise(model, kw):
+    # the tp engine serves (tests/test_torch_tp_serving.py); what a mesh
+    # still refuses is a tp that does not divide the model's widths
     _, tcfg, _, tp = model
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="divide"):
         tsrv.ContinuousBatcher(tp, tcfg, slots=1, pool_pages=4,
                                pages_per_seq=4, page_size=P,
                                device="cpu", **kw)

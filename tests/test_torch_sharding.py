@@ -292,12 +292,13 @@ def test_sharded_checkpoint_round_trip_bit_for_bit(tmp_path):
     step = ttrain.make_train_step(cfg, mesh=mesh)
     tokens = torch.from_numpy(_tokens())
     step(params, state, tokens)
-    path = tckpt.save_checkpoint(tmp_path, params, state, step=1, mesh=mesh,
-                                 cfg=cfg)
+    layout = tsh.state_layout(mesh, cfg)
+    path = tckpt.save_checkpoint(tmp_path, params, state, step=1,
+                                 layout=layout)
     saved, _ = tckpt.restore_params(tmp_path)
     assert saved["layers"]["wqkv"].shape == (2, 64, 192)  # global
     r_params, r_state, r_step = tckpt.restore_checkpoint(
-        tmp_path, params, state, mesh=mesh, cfg=cfg)
+        tmp_path, params, state, layout=layout)
     assert r_step == 1 and Path(path).is_dir()
     for a, b in zip(ttrain.tree_leaves({"p": params, **state}),
                     ttrain.tree_leaves({"p": r_params, **r_state})):

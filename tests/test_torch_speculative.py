@@ -238,9 +238,12 @@ def test_generator_guards():
     with pytest.raises(ValueError, match="max_seq"):
         tspec.speculative_generate(tp, tcfg, tp, tcfg, one, 20, gamma=4,
                                    device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
+    # a mesh runs on the ragged route (tests/test_torch_tp_serving.py);
+    # the vmap route refuses it, as JAX's does
+    with pytest.raises(ValueError, match="impl='vmap' is single-device"):
         tspec.speculative_generate_batched(tp, tcfg, tp, tcfg, two, 4,
-                                           mesh=object(), device="cpu")
+                                           impl="vmap", mesh={"tp": 2},
+                                           device="cpu")
     with pytest.raises(ValueError, match="impl"):
         tspec.speculative_generate_batched(tp, tcfg, tp, tcfg, two, 4,
                                            impl="scan", device="cpu")

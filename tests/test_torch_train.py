@@ -347,11 +347,13 @@ def test_train_app_data_file(tmp_path, capsys):
     assert capsys.readouterr().out.strip().endswith("SUCCESS")
 
 
-@pytest.mark.parametrize("flag", [["--pp", "2"]])
+@pytest.mark.parametrize("flag", [["--pp", "2", "--accum", "2"]])
 def test_train_app_unported_flags_fail(flag, capsys):
+    # --pp runs now (tests/test_torch_pp.py); what it refuses is JAX's
+    # refusal of --accum beside it
     assert train_app.main(APP + ["--steps", "1"] + flag) == 1
     out = capsys.readouterr().out
-    assert "ERROR:" in out and "not ported yet" in out
+    assert "ERROR:" in out and "--pp already micro-batches" in out
     assert out.strip().endswith("FAILURE")
 
 
