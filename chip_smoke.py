@@ -72,7 +72,7 @@ Phases, each printing JSON lines:
               staged chaos schedule (page 16, 3 slots, pool 25, two seeded
               stalls, arrivals on the engine's progress clock) whose pool
               forces a preemption (>= 1 asserted), (b) the bursty stream
-              (page 256, 8 slots, the first 8 of its 32 requests at 16
+              (page 256, 8 slots, the first 4 of its 32 requests at 16
               rps, pool 2.5 rows, high-water 0.95, a stall every 12
               rounds): every served
               sequence, resumed ones included, on its standalone; the
@@ -242,7 +242,7 @@ Phases, each printing JSON lines:
               2-replica, 1 prefill + 1 decode replica on logical ranks 0
               and 1 of the card), then closed-loop 1p/1d legs over dma,
               device_put and wire (dma's tokens == wire's byte for byte)
-              and 8 requests at int8 KV over dma: every sequence against
+              and 4 requests at int8 KV over dma: every sequence against
               its standalone ``paged_generate`` (tie-aware), migrations >
               0, every bundle over the asked transport (a fallback warning
               fails), kernel 13's launches == the dma bundles' payload
@@ -254,8 +254,42 @@ Phases, each printing JSON lines:
               13's launches == the bundles' arrays); the 2-replica plane
               with ``die:replica=1`` (``deaths == ["r1"]``, every casualty
               shed and counted, every served sequence on its standalone);
+8a. elastic — the launched and the elastic plane at the serve phase's
+              model: (a) ``bench_serving.run_elastic`` at
+              ``elastic_full_config`` (page 256, 4 slots, chunk 16,
+              prompts 64/128, budgets 128/256, diurnal at 24 rps, period
+              1 s, replica 1 dying at its round 3, the sampled leg), its
+              32 requests cut to 16 (``ELASTIC_CUTS``): the row's own
+              asserts (the fault fired, static sheds and elastic does not,
+              elastic attainment strictly above, every stream tie-aware on
+              its standalone, greedy and sampled), warm spin-up and cold
+              init printed side by side with the verdict, a scale-up on
+              load and a drain by migration, every rung a multiple of
+              128 and kernel 1 and 6 launches == n_layers x the engines'
+              admissions / decode steps (the oracle's own launches
+              apart); (b) two
+              ``plane_app`` replica processes (``--roles prefill,decode``,
+              the chip widths, prompts to 256, budget 64, 8 requests)
+              under the launcher's HPCPAT_* protocol with this process as
+              the router (``service.connect_replicas``,
+              ``service.PlaneRouter``): every request over the socket's KV
+              handoff, every stream tie-aware on ``paged_generate`` at the
+              replicas' seeded weights, each replica's printed kernel 1/6
+              launches == n_layers x its admissions / decode steps (the
+              replicas start once (a)'s timed work is done), the
+              export and handoff times and bytes, tokens/s of the two
+              time-sliced processes beside the in-process 1p/1d plane's
+              over the wire codec on the same arrivals; (c)
+              ``apps/launch.py -np 4 --chaos die:replica=2,at=3,...
+              plane_app --roles both,both,both --temperature 0.7``:
+              ``PLANE SUCCESS``, ``deaths=[2]``, a non-empty
+              ``resumed``, every request served, ``rank 2: fault: killed
+              (SIGKILL)``, the survivors' kernel 1/6 launches == n_layers
+              x their admissions / decode steps (started once (b)'s timed
+              runs are done, its start-up overlapping (b)'s oracle);
 9. observe  — the observability layer: ``serve_app`` in-process at the
-              serve phase's model and stream with ``--metrics --trace
+              serve phase's model and the first 8 requests of its stream
+              with ``--metrics --trace
               --reqtrace --log --trace-out``: SUCCESS, every sequence
               equal to the untraced serve phase's byte for byte, the
               Chrome JSON balanced with its decode-chunk slices timed by
@@ -2727,10 +2761,12 @@ def phase_sample(ctx):
     return launches
 
 
-# phase scenario's bursty part serves the first 8 of
+# phase scenario's bursty part serves the first 4 of
 # scenario_full_config's 32 requests (cut for the run's time: 16 until
-# phases stencil and launch joined and a run took 832 s)
-SCENARIO_BURSTY_REQUESTS = 8
+# phases stencil and launch joined and a run took 832 s, 8 until phase
+# elastic joined; the first 4 hold budgets 256/128/256/256, so the stall
+# every 12 rounds still fires)
+SCENARIO_BURSTY_REQUESTS = 4
 
 
 def phase_scenario():
@@ -3679,41 +3715,12 @@ def _tie_counts(pairs, tol: float) -> tuple[dict, list, int]:
 
 # -- decision margins of sampled speculative tokens (the tie-aware oracle) --
 
-def _support(logits, top_k: int, t):
-    """Each token's top-k membership (..., V) bool and its distance to the
-    support's edge in score units (``logits / t``): above the (k+1)-th
-    logit for a member, below the k-th for the rest; inf without top-k."""
-    if not top_k or top_k >= logits.shape[-1]:
-        return (torch.ones_like(logits, dtype=torch.bool),
-                torch.full_like(logits, float("inf")))
-    vals = torch.topk(logits, top_k + 1, dim=-1).values
-    th, nx = vals[..., top_k - 1:top_k], vals[..., top_k:top_k + 1]
-    inside = logits >= th
-    return inside, torch.where(inside, logits - nx, th - logits) / t
-
-
-def _pick_margin(scores, raw, inside, member):
-    """The margin of a Gumbel-max pick over ``scores`` (-inf off the
-    support) with ``raw`` the scores every token would have inside it:
-    the smallest of the top-1/top-2 gap, the winner's distance to the
-    support's edge, and for each token outside, the larger of its
-    distance to the edge and how far its raw score lies below the
-    winner's (a token that would win must first enter)."""
-    top = torch.topk(scores, 2, dim=-1)
-    w = top.indices[..., :1]
-    entry = torch.where(inside, float("inf"),
-                        torch.maximum(member, top.values[..., :1] - raw))
-    return torch.minimum(
-        torch.minimum(top.values[..., 0] - top.values[..., 1],
-                      member.gather(-1, w)[..., 0]), entry.amin(dim=-1))
-
-
 def _position_margin(parts, x, dl, tl, g, top_k: int, t: float):
     """The margin (N,) in score units of N positions' speculative
     decisions, each decided alone (``speculative._accept_resample`` at
     gamma 0 on ``parts``): how far either model's logits (``dl``, ``tl``
     (N, V)) must move to change the token. The draft's pick of ``x``
-    (:func:`_pick_margin` on its noise ``g``) and the accept decision,
+    (``decode.pick_margin`` on its noise ``g``) and the accept decision,
     |log u - min(0, log p - log q)|, and the proposal's distance to the
     target's top-k edge (off it, p = 0). A rejection adds the residual
     draw's: for each other token c of the target's support, twice the
@@ -3724,16 +3731,21 @@ def _position_margin(parts, x, dl, tl, g, top_k: int, t: float):
     the target's support that would win once it joined it, and one of
     both supports that would win once it left the draft's (its residual
     then p)."""
-    ins_q, mem_q = _support(dl, top_k, t)
+    from hpc_patterns_tpu_torch.models.decode import (
+        pick_margin,
+        support_edges,
+    )
+
+    ins_q, mem_q = support_edges(dl, top_k, t)
     raw_q = dl / t + g
     masked_q = torch.where(ins_q, raw_q, torch.full_like(raw_q,
                                                          float("-inf")))
-    ins_p, mem_p = _support(tl, top_k, t)
+    ins_p, mem_p = support_edges(tl, top_k, t)
     xi = x.long()[:, None]
     acc = (torch.log(parts["u"][:, 0]) - torch.clamp(
         torch.log(parts["p_at"][:, 0]) - torch.log(parts["q_at"][:, 0]),
         max=0.0)).abs()
-    base = torch.minimum(_pick_margin(masked_q, raw_q, ins_q, mem_q),
+    base = torch.minimum(pick_margin(masked_q, raw_q, ins_q, mem_q),
                          torch.minimum(acc, mem_p.gather(1, xi)[:, 0]))
     # the residual draw
     scores, res, noise = parts["scores"], parts["res"], parts["noise"]
@@ -3781,7 +3793,9 @@ def _spec_margins(params, cfg, dparams, dcfg, prompts, toks, keys,
         _as_keys,
         _topk_mask,
         gumbel_noise,
+        pick_margin,
         sample_scores,
+        support_edges,
     )
     from hpc_patterns_tpu_torch.models.speculative import (
         _accept_resample,
@@ -3802,8 +3816,8 @@ def _spec_margins(params, cfg, dparams, dcfg, prompts, toks, keys,
             k = kt[b:b + 1]
             g0 = gumbel_noise(k, T, V)
             sc = sample_scores(tl[:1], k, T, temperature, top_k, g0)
-            ins, mem = _support(tl[:1], top_k, temperature)
-            m0 = _pick_margin(sc, tl[:1] / temperature + g0, ins, mem)
+            ins, mem = support_edges(tl[:1], top_k, temperature)
+            m0 = pick_margin(sc, tl[:1] / temperature + g0, ins, mem)
             first = torch.argmax(sc, dim=-1)
             streams = spec_streams(k.expand(n - 1, 2).contiguous())
             at = torch.arange(T + 1, T + n, device=prompts.device,
@@ -4084,7 +4098,8 @@ def phase_spec():
 # joined, to 8 for the run's time) and of its int8 leg
 PLANE_TRANSPORTS = ("dma", "device_put", "wire")
 PLANE_REQUESTS = 8
-PLANE_INT8_REQUESTS = 8
+# the int8 leg: 4 requests (8 until phase elastic joined)
+PLANE_INT8_REQUESTS = 4
 # the death leg: replica 1 of a 2-replica fixed plane dies at its round 3
 PLANE_DEATH_SPEC = "die:replica=1,at=3,site=replica_round"
 
@@ -4199,7 +4214,7 @@ def phase_plane():
     """The serving plane at the chip model: the port's ``run_plane`` over
     dma (single engine, 2-replica, 1p/1d, a sampled 1p/1d), then
     closed-loop 1p/1d legs over every transport (dma's tokens == wire's,
-    byte for byte), 8 requests at int8 KV over dma, a sampled leg over
+    byte for byte), 4 requests at int8 KV over dma, a sampled leg over
     dma, and the 2-replica plane losing replica 1 to chaos. Counts zeroed
     just before, read just after; a transport fallback warning fails the
     phase."""
@@ -4320,6 +4335,381 @@ def phase_plane():
                       "dma_outs": outs["dma"]}
 
 
+# ------------------------------------------------------------ elastic plane
+
+# (a) bench_serving.run_elastic at elastic_full_config, its stream cut
+ELASTIC_REQUESTS = 16
+# (b) the launched 1p/1d plane and (c) the launched death drill: plane_app
+# replicas at the chip widths
+ELASTIC_MODEL = ["--vocab", "32768", "--d-model", "1024", "--n-heads", "8",
+                 "--n-layers", "8", "--d-ff", "4096", "--dtype", "bfloat16",
+                 "--decode-attn", "flash"]
+ELASTIC_PLANE = ["--page-size", "256", "--prompt-len", "256", "--budget",
+                 "64", "--rate", "10000", "--plane-timeout", "300"]
+ELASTIC_PD_REQUESTS = 8
+ELASTIC_DIE = "die:replica=2,at=3,site=replica_round"
+ELASTIC_DIE_REQUESTS = 9
+ELASTIC_CUTS = {"requests": f"32 -> {ELASTIC_REQUESTS} (run_elastic)",
+                "chips": "every replica an engine (or a process) on one "
+                         "card"}
+
+
+def _replica_counts(text: str) -> dict:
+    """{rank: the JSON counts line a real plane_app replica prints last}."""
+    out = {}
+    for line in text.splitlines():
+        line = re.sub(r"^\[\d+\] ", "", line.strip())
+        if line.startswith('{"replica"'):
+            rec = json.loads(line)
+            out[rec["replica"]] = rec
+    return out
+
+
+def _elastic_counted(bs, engines: list, oracle_launches: dict):
+    """``bs.EngineCore`` recording every engine it builds, and
+    ``bs._standalone`` tallying the oracle's own kernel 1/6 launches."""
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    class Counted(bs.EngineCore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    def standalone(*a, **kw):
+        f0, d0 = fa.launches["fwd"], fd.launches["paged_decode"]
+        out = orig(*a, **kw)
+        oracle_launches["flash_prefill"] += fa.launches["fwd"] - f0
+        oracle_launches["paged_decode"] += fd.launches["paged_decode"] - d0
+        return out
+
+    orig = bs._standalone
+    return Counted, standalone
+
+
+def _prefill_on_kernel(c: dict) -> bool:
+    """A replica's (or an engine's) every admission prefilled through
+    kernel 1: its rungs are multiples of 128 and its launches n_layers x
+    its admissions."""
+    return (c["admissions"] > 0
+            and all(r % 128 == 0 for r in c["prefill_rungs"])
+            and c["flash_prefill"] == c["n_layers"] * c["admissions"])
+
+
+def _elastic_run(bs, dev, after_timed) -> tuple[dict, dict]:
+    """(a): ``run_elastic`` at ``elastic_full_config`` (its asserts: the
+    fault fired on both legs, static sheds and elastic does not, elastic
+    attainment strictly above, every stream tie-aware on its standalone,
+    greedy and sampled; ``after_timed`` passed on), kernel 1 and 6
+    launches read around it: the engines' == n_layers x their admissions
+    (every rung a multiple of 128) / decode steps. Returns the engines'
+    launches, the oracle's apart."""
+    from hpc_patterns_tpu_torch.ops import flash_attention as fa
+    from hpc_patterns_tpu_torch.ops import flash_decode as fd
+
+    conf = dict(bs.elastic_full_config(dev), n=ELASTIC_REQUESTS)
+    engines: list = []
+    oracle = {"flash_prefill": 0, "paged_decode": 0}
+    orig = bs.EngineCore, bs._standalone
+    bs.EngineCore, bs._standalone = _elastic_counted(bs, engines, oracle)
+    try:
+        torch.cuda.synchronize()
+        fa.launches["fwd"] = 0
+        fd.launches["paged_decode"] = 0
+        t0 = time.perf_counter()
+        res = bs.run_elastic(**conf, after_timed=after_timed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"flash_prefill": fa.launches["fwd"],
+                    "paged_decode": fd.launches["paged_decode"]}
+    finally:
+        bs.EngineCore, bs._standalone = orig
+    L = conf["cfg"].n_layers
+    admits = sum(e.admissions for e in engines)
+    steps = sum(e.decode_steps for e in engines)
+    rungs = sorted(set().union(*(e.prefill_rungs for e in engines)))
+    engine_launches = {k: launches[k] - oracle[k] for k in launches}
+    check(_prefill_on_kernel({"admissions": admits, "prefill_rungs": rungs,
+                              "n_layers": L, **engine_launches}),
+          f"elastic (a): every admission through kernel 1: "
+          f"{engine_launches} == {L} x {admits} admissions, rungs {rungs}")
+    check(engine_launches["paged_decode"] == L * steps > 0,
+          f"elastic (a): kernel 6 launches == {L} x {steps} decode steps")
+    on_load = [r for r in res["spinup_reasons"]
+               if not r.startswith("below min_replicas")]
+    check(on_load and res["drained"],
+          f"elastic (a): a scale-up on load ({res['spinup_reasons']}) and "
+          f"a drain by migration ({res['drained']})")
+    return engine_launches, {
+        "config": {k: conf[k] for k in ("n", "slots", "chunk", "page_size",
+                                        "prompt_len", "max_budget",
+                                        "rate_rps", "period_s", "depth",
+                                        "die_replica", "die_at",
+                                        "sampled_n")},
+        **{k: res[k] for k in (
+            "elastic_slo_attainment", "static_slo_attainment",
+            "per_class_attainment", "goodput_per_replica_round",
+            "static_goodput_per_replica_round", "static_shed_on_death",
+            "elastic_shed_on_death", "spinups", "spinup_reasons",
+            "resumed", "drained",
+            "replica_rounds", "static_replica_rounds", "sampled_resumed",
+            "t_static", "t_elastic", "oracle", "warm_param_bytes")},
+        "warm_vs_cold": {"warm_spinup_ms": res["warm_spinup_s"] * 1e3,
+                         "cold_init_ms": res["cold_init_s"] * 1e3,
+                         "verdict": res["warm_vs_cold"]},
+        "engines": len(engines), "admissions": admits,
+        "prefill_rungs": rungs, "decode_steps": steps,
+        "launches": engine_launches, "oracle_launches": oracle,
+        "seconds": dt}
+
+
+def _start_replicas(argv: list, nprocs: int, out: Path) -> list:
+    """plane_app replica processes 1..nprocs-1 under the launcher's
+    HPCPAT_* protocol (this process plays rank 0, the router)."""
+    import os
+
+    procs = []
+    for rank in range(1, nprocs):
+        env = dict(os.environ, HPCPAT_PROCESS_ID=str(rank),
+                   HPCPAT_NUM_PROCESSES=str(nprocs))
+        env.pop("HPCPAT_COORDINATOR", None)
+        log = open(out / f"replica{rank}.out", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.apps.plane_app", *argv],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            text=True), log))
+    return procs
+
+
+def _elastic_pd(bs, dev, argv, procs, out: Path,
+                after_timed) -> tuple[dict, dict]:
+    """(b): this process is rank 0 of the launched 1p/1d plane
+    (``service.connect_replicas`` + ``service.PlaneRouter``) over the
+    replica processes ``_start_replicas`` started: every request crosses
+    the KV handoff over the socket; then the same arrivals through the
+    in-process 1p/1d plane over the wire codec, its tokens/s beside.
+    ``after_timed()`` runs once both timed runs are done (the death drill
+    starts there); then every stream of both is held tie-aware on
+    ``paged_generate`` at the replicas' seeded weights, and each
+    replica's kernel 1/6 launches == n_layers x its admissions / decode
+    steps."""
+    from hpc_patterns_tpu_torch.apps import plane_app
+    from hpc_patterns_tpu_torch.harness import slo as slolib
+    from hpc_patterns_tpu_torch.serving_plane import service
+
+    args = plane_app.build_parser().parse_args(argv)
+    sched, prompts, arrivals, classes = plane_app._schedule(args)
+    check([a[0] for a in arrivals] == sorted(a[0] for a in arrivals),
+          "elastic (b): request i is the i-th arrival (both routers number "
+          "requests in arrival order)")
+    t0 = time.perf_counter()
+    handles = service.connect_replicas(
+        args.rdv, [1, 2], wait_s=args.plane_timeout,
+        timeout_s=args.plane_timeout)
+    t_ready = time.perf_counter() - t0
+    router = service.PlaneRouter(
+        handles, slo_targets=slolib.targets_from_classes(classes))
+    report = router.run(arrivals, timeout_s=args.plane_timeout)
+    texts = []
+    for proc, log in procs:
+        try:
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs, start=1):
+        texts.append((out / f"replica{rank}.out").read_text())
+        check(proc.returncode == 0,
+              f"elastic (b): replica {rank} exits 0 ({texts[-1][-800:]})")
+    counts = _replica_counts("\n".join(texts))
+    n = ELASTIC_PD_REQUESTS
+    check(report["served"] == n and report["migrations"] == n
+          and not report["shed"] and not report["deaths"],
+          f"elastic (b): served {report['served']}/{n}, "
+          f"{report['migrations']} migrations over the socket, "
+          f"shed {report['shed']}")
+    cfg, params = plane_app.replica_model(args, dev)
+    # the same arrivals in one process, 1p/1d over the wire codec
+    stream_prompts = {i: np.asarray(p, np.int32) for i, p in prompts.items()}
+    ladder = plane_app.replica_ladder(args)
+    plane = bs.ServingPlane(
+        [bs.Replica(bs.EngineCore(params, cfg, prompt_buckets=ladder,
+                                  device=dev,
+                                  **plane_app.replica_engine_kw(args,
+                                                                ladder)),
+                    name=role, role=role)
+         for role in ("prefill", "decode")],
+        migration="wire", slo=slolib.targets_from_classes(classes))
+    t0 = time.perf_counter()
+    got = plane.run(arrivals=[
+        (t, dict(kw, prompt=stream_prompts[i]))
+        for i, (t, kw) in enumerate(arrivals)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after_timed()
+    tol = bs.TIE_TOL[cfg.dtype]
+    verdicts = {"exact": 0, "near_tie": 0}
+    for rid in sorted(router.finished):
+        want, margins = bs._standalone(
+            params, cfg, stream_prompts[rid], sched.requests[rid].max_new,
+            page_size=args.page_size, device=dev)
+        for label, toks in (("launched", router.finished[rid]),
+                            ("in-process", got[rid])):
+            verdicts[bs._held(toks, want, margins, tol,
+                              f"elastic (b) {label} request {rid}")] += 1
+    L = cfg.n_layers
+    pre, dec = counts.get(1), counts.get(2)
+    check(pre is not None and dec is not None
+          and pre["role"] == "prefill" and dec["role"] == "decode",
+          f"elastic (b): both replicas report their counts ({counts})")
+    check(_prefill_on_kernel(pre) and pre["admissions"] == n
+          and dec["paged_decode"] == L * dec["decode_steps"] > 0
+          and dec["flash_prefill"] == pre["paged_decode"] == 0,
+          f"elastic (b): kernel 1 == {L} x admissions on the prefill "
+          f"replica, kernel 6 == {L} x decode steps on the decode one "
+          f"({counts})")
+    tokens = sum(len(t) for t in router.finished.values())
+    launched = {
+        "requests": n, "tokens": tokens, "wall_s": report["wall_s"],
+        "tokens_per_s": tokens / report["wall_s"],
+        "note": "two replica processes time-slicing one card (no MPS)",
+        "replicas_ready_s": t_ready,
+        "migrations": report["migrations"],
+        "export_ms": [x * 1e3 for x in router.export_s],
+        "handoff_ms": [x * 1e3 for x in router.handoff_s],
+        "handoff_bytes": router.handoff_bytes,
+        "oracle": verdicts, "replicas": counts}
+    in_tokens = sum(len(t) for t in got.values())
+    in_process = {"tokens": in_tokens, "wall_s": dt,
+                  "tokens_per_s": in_tokens / dt,
+                  "migrations": plane.migrations,
+                  "transport": "wire (in one process)"}
+    return ({"flash_prefill": pre["flash_prefill"] + dec["flash_prefill"],
+             "paged_decode": pre["paged_decode"] + dec["paged_decode"]},
+            {"launched": launched, "in_process": in_process})
+
+
+def _start_die(out: Path) -> subprocess.Popen:
+    """(c), started: the real launcher, 3 real replicas at the chip widths,
+    sampled at T 0.7, replica 2 killed at its round 3."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.apps.launch", "-np", "4",
+         "--timeout", "400", "--chaos", ELASTIC_DIE, "--",
+         sys.executable, "-m", f"{PKG}.apps.plane_app", "--roles",
+         "both,both,both", "--temperature", "0.7", "--rdv",
+         str(out / "rdv_die"), "--requests", str(ELASTIC_DIE_REQUESTS),
+         "--device", "cuda", *ELASTIC_MODEL, *ELASTIC_PLANE],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+
+
+def _kill_group(proc: subprocess.Popen) -> None:
+    """Kill a started launcher and every process it started."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _elastic_die(proc: subprocess.Popen, t0: float,
+                 out: Path) -> tuple[dict, dict]:
+    """(c), finished: the plane recovers (``PLANE SUCCESS``,
+    ``deaths=[2]``, a non-empty ``resumed``, every request served) while
+    the launch fails loudly, naming the fault."""
+    try:
+        text, _ = proc.communicate(timeout=460)
+    finally:
+        _kill_group(proc)
+    (out / "c_die.out").write_text(text)
+    n = ELASTIC_DIE_REQUESTS
+    summary = [ln for ln in text.splitlines() if "plane: served" in ln]
+    check(proc.returncode == 1 and "PLANE SUCCESS" in text
+          and "deaths=[2]" in text and "resumed=[" in text
+          and "resumed=[]" not in text and f"served {n}/{n}" in text
+          and "rank 2: fault: killed (SIGKILL)" in text,
+          f"elastic (c): the plane recovered the death, the launch named "
+          f"it ({proc.returncode}; {text[-1500:]})")
+    counts = _replica_counts(text)
+    check(set(counts) == {1, 3} and all(
+        c["paged_decode"] == c["n_layers"] * c["decode_steps"] > 0
+        and _prefill_on_kernel(c) for c in counts.values()),
+        f"elastic (c): every survivor's admission through kernel 1, its "
+        f"decode steps through kernel 6 ({counts})")
+    return ({"flash_prefill": sum(c["flash_prefill"]
+                                  for c in counts.values()),
+             "paged_decode": sum(c["paged_decode"]
+                                 for c in counts.values())},
+            {"chaos": ELASTIC_DIE, "rc": proc.returncode,
+             "summary": summary, "replicas": counts,
+             "seconds": time.perf_counter() - t0})
+
+
+def phase_elastic() -> dict:
+    """The launched plane and the elastic plane at the chip widths: (a)
+    ``bench_serving.run_elastic`` at ``elastic_full_config`` (cut to
+    :data:`ELASTIC_REQUESTS`), warm spin-up and cold init printed side by
+    side; (b) the launched 1p/1d plane with this process as its router;
+    (c) the real launcher's replica-death drill. Kernel 1 and 6 launches:
+    (a)'s counted here, (b)'s and (c)'s as each replica process
+    reports them."""
+    import shutil
+
+    from hpc_patterns_tpu_torch import bench_serving as bs
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    card = smi("name,power.limit")
+    out = ROOT / "build" / "smoke_elastic"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pd_argv = ["--roles", "prefill,decode", "--rdv", str(out / "rdv_pd"),
+               "--requests", str(ELASTIC_PD_REQUESTS), "--device", "cuda",
+               *ELASTIC_MODEL, *ELASTIC_PLANE]
+    # (b)'s replicas start once (a)'s timed work is done: their start-up
+    # (imports, context, weights) overlaps (a)'s oracle and sampled leg;
+    # they then wait idle for the router. (c) starts once (b)'s timed runs
+    # are done: its processes' start-up overlaps (b)'s oracle
+    procs: list = []
+    die = {}
+
+    def start_replicas():
+        procs.extend(_start_replicas(pd_argv, 3, out))
+
+    def start_die():
+        die["t0"] = time.perf_counter()
+        die["proc"] = _start_die(out)
+
+    try:
+        la, a = _elastic_run(bs, dev, start_replicas)
+        emit({"phase": "elastic", "part": "a_run_elastic", "card": card,
+              **a})
+        lb, b = _elastic_pd(bs, dev, pd_argv, procs, out, start_die)
+    except BaseException:
+        if "proc" in die:
+            _kill_group(die["proc"])
+        raise
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    emit({"phase": "elastic", "part": "b_launched_pd", "card": card, **b})
+    lc, c = _elastic_die(die["proc"], die["t0"], out)
+    emit({"phase": "elastic", "part": "c_launched_death", "card": card,
+          **c})
+    launches = {k: {"run_elastic": la[k], "launched_pd": lb[k],
+                    "launched_death": lc[k]} for k in la}
+    emit({"phase": "elastic", "leg": "done", "cuts": ELASTIC_CUTS,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 # ------------------------------------------------------------ observability
 
 # the observe phase: training at the chip widths cut to this depth and
@@ -4340,6 +4730,10 @@ OBSERVE_TURN_REQUESTS = 8
 # kernels) took it about two minutes on the H100's host (8 requests at 64
 # until phase pipeline joined)
 OBSERVE_PROFILE = {"requests": 4, "budget": 32}
+# the traced serve_app run serves the stream's first 8 requests (16 until
+# phase elastic joined; the first 8 give the same engine geometry, so
+# each sequence still equals the serve phase's)
+OBSERVE_APP_REQUESTS = 8
 OBSERVE_CUTS = {"train": "8 layers x 8 steps -> 2 layers x 3 steps",
                 "comm": "p 3..25 -> p 3..10",
                 "plane": "one closed-loop 1p/1d dma leg",
@@ -4347,7 +4741,9 @@ OBSERVE_CUTS = {"train": "8 layers x 8 steps -> 2 layers x 3 steps",
                          f"first {OBSERVE_TURN_REQUESTS} requests",
                 "profiled": f"the stream -> its first "
                             f"{OBSERVE_PROFILE['requests']} requests at "
-                            f"{OBSERVE_PROFILE['budget']} tokens"}
+                            f"{OBSERVE_PROFILE['budget']} tokens",
+                "serve_app": f"{N_REQUESTS} -> {OBSERVE_APP_REQUESTS} "
+                             "requests (the traced app run)"}
 
 
 def _observe_reset():
@@ -4398,7 +4794,8 @@ def _observe_serve(ctx, logs):
             "--d-model", str(CHIP_MODEL["d_model"]),
             "--n-layers", str(CHIP_MODEL["n_layers"]),
             "--n-heads", str(CHIP_MODEL["n_heads"]),
-            "--requests", str(N_REQUESTS), "--slots", str(s["slots"]),
+            "--requests", str(OBSERVE_APP_REQUESTS),
+            "--slots", str(s["slots"]),
             "--chunk", str(s["chunk"]), "--page-size", str(s["page_size"]),
             "--prompt-len", str(s["prompt_len"]),
             "--budget", str(s["max_budget"]), "--metrics", "--trace",
@@ -4417,7 +4814,7 @@ def _observe_serve(ctx, logs):
     check(code == 0 and "SUCCESS" in printed.splitlines(),
           f"traced serve_app prints SUCCESS (rc {code})")
     measured = runs[-1]
-    for i in range(N_REQUESTS):
+    for i in range(OBSERVE_APP_REQUESTS):
         check(np.array_equal(measured[i], want[i]),
               f"traced serve_app seq {i} == the untraced serve phase's")
     chrome = json.loads(out.read_text())
@@ -4435,12 +4832,12 @@ def _observe_serve(ctx, logs):
 
     cover = [coverage_frac(r["segments"], r["t_submit"], r["t_finish"])
              for r in rq["requests"].values()]
-    check(rq["n"] == N_REQUESTS and min(cover) > 0.999,
+    check(rq["n"] == OBSERVE_APP_REQUESTS and min(cover) > 0.999,
           f"every request's segments cover its life (min {min(cover)})")
     (snap,) = [r for r in recs if r["kind"] == "metrics"]
-    check(snap["counters"]["serve.admitted"] == N_REQUESTS
+    check(snap["counters"]["serve.admitted"] == OBSERVE_APP_REQUESTS
           and snap["counters"]["serve.tokens"] == sum(
-              len(v) for v in want.values()),
+              len(want[i]) for i in range(OBSERVE_APP_REQUESTS)),
           f"counters of the measured run: {snap['counters']}")
 
     # turns: the same engine and stream untraced / traced; ``n`` and
@@ -6331,6 +6728,7 @@ def main() -> int:
     timed("launch", phase_launch)
     launches_quant = timed("quant", phase_quant)
     launches_plane, plane_ctx = timed("plane", phase_plane)
+    launches_elastic = timed("elastic", phase_elastic)
     timed("observe", phase_observe, serve_ctx, plane_ctx)
     tgen = torch.Generator(device="cuda").manual_seed(5)
     train_rows = timed("kernels", train_kernel_cases, tgen,
@@ -6360,8 +6758,9 @@ def main() -> int:
          + launches_fit["flash_prefill"]
          + launches_tiered["flash_prefill"]
          + launches_spec["flash_prefill"]
-         + launches_plane["flash_prefill"] + launches_par["fwd"]
-         + launches_sh["fwd"] + launches_pp["fwd"],
+         + launches_plane["flash_prefill"]
+         + sum(launches_elastic["flash_prefill"].values())
+         + launches_par["fwd"] + launches_sh["fwd"] + launches_pp["fwd"],
          "launches_by_path": {"serve": launches["flash_prefill"],
                               "sample": launches_sample["flash_prefill"],
                               "scenario":
@@ -6370,6 +6769,8 @@ def main() -> int:
                               "tiered": launches_tiered["flash_prefill"],
                               "spec": launches_spec["flash_prefill"],
                               "plane": launches_plane["flash_prefill"],
+                              **{f"elastic_{k}": v for k, v in
+                                 launches_elastic["flash_prefill"].items()},
                               "parallel_moe": launches_par["fwd"],
                               "sharded_tp4_decode": launches_sh["fwd"],
                               "pipeline": launches_pp["fwd"],
@@ -6386,8 +6787,9 @@ def main() -> int:
          + launches_fit["paged_decode"]
          + launches_tiered["paged_decode"]
          + launches_spec["paged_decode"]
-         + launches_plane["paged_decode"] + launches_sh["paged_decode"]
-         + launches_pp["paged_decode"],
+         + launches_plane["paged_decode"]
+         + sum(launches_elastic["paged_decode"].values())
+         + launches_sh["paged_decode"] + launches_pp["paged_decode"],
          "launches_by_path": {"serve": launches["paged_decode"],
                               "sample": launches_sample["paged_decode"],
                               "scenario": launches_scenario["paged_decode"],
@@ -6395,6 +6797,8 @@ def main() -> int:
                               "tiered": launches_tiered["paged_decode"],
                               "spec": launches_spec["paged_decode"],
                               "plane": launches_plane["paged_decode"],
+                              **{f"elastic_{k}": v for k, v in
+                                 launches_elastic["paged_decode"].items()},
                               "sharded_tp4": launches_sh["paged_decode"],
                               "pipeline_tp4_engine":
                                   launches_pp["paged_decode"]},

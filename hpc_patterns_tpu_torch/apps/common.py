@@ -8,17 +8,19 @@ Run alone, an app holds every rank in its process; under the launcher
 (``apps/launch.py``, the ``mpirun -np`` analog) each process joins a gloo
 process group and holds a block of consecutive ranks, and the
 cross-process reductions below run through that group (the identity in
-one process).
+one process). torch loads with the communicator's functions, not with
+this module: the serving plane's stub replicas run without it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 from hpc_patterns_tpu_torch import topology
-from hpc_patterns_tpu_torch.comm import processes
-from hpc_patterns_tpu_torch.comm.communicator import Communicator
+
+if TYPE_CHECKING:
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
 
 def run_instrumented(run_fn: Callable[[object], int], args) -> int:
     """The shared ``--metrics``/``--trace`` session every app ``main()``
@@ -77,6 +79,8 @@ def make_communicator(device, world: int = -1, *, even: bool = False,
     traced run then takes a barrier and records a sync anchor after it
     (:func:`trace.mark_rendezvous`) for the cross-rank merge. Alone,
     ``world=-1`` is :data:`DEFAULT_WORLD`."""
+    from hpc_patterns_tpu_torch.comm import processes
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
     from hpc_patterns_tpu_torch.harness import trace as tracelib
 
     topology.init_distributed_from_env()
@@ -101,6 +105,8 @@ def make_communicator(device, world: int = -1, *, even: bool = False,
 def wire_line(comm: Communicator) -> str | None:
     """The line an app prints when its collectives cross processes:
     which backend and which memory carry them. None in one process."""
+    from hpc_patterns_tpu_torch.comm import processes
+
     b = comm.block
     if b is None:
         return None
@@ -142,6 +148,8 @@ def reduce_across_processes(value: float, op=None) -> float:
     """Reduce a host scalar across the launched processes (default max —
     the reference's MPI_Allreduce(MAX) timing convention) through the
     gloo group; the identity in one process."""
+    from hpc_patterns_tpu_torch.comm import processes
+
     values = processes.host_values(value)
     return float((op or max)(values))
 

@@ -1,8 +1,9 @@
 """The serving benchmark's rows — the counterpart of
 ``benchmarks/bench_serving.py``'s base row (``run_bench``), robustness
 row (``run_scenario``, ``--scenario``), serving-plane row
-(``run_plane``, ``--plane``) and autofit row (``run_fitted``,
-``--fit``).
+(``run_plane``, ``--plane``), autofit row (``run_fitted``, ``--fit``),
+its tiered-memory and quantized rows and the elastic-plane row
+(``run_elastic``, ``--elastic``).
 
 - **base**: the mixed-length, long-tail-budget stream through static
   batching (batches of ``slots`` in arrival order, rectangular length
@@ -38,7 +39,13 @@ row (``run_scenario``, ``--scenario``), serving-plane row
   ``prefill_skip_frac`` > 0.3, ``shared_goodput_tok_s``;
 - **slo-budget**: a seeded slow host transfer through a thrashing
   2-resident tier must breach the ``prefetch_wait`` budget and nothing
-  else.
+  else;
+- **elastic**: a diurnal ramp under replica-death chaos through a fixed
+  2-replica plane and the autoscaled elastic plane (warm spin-up from
+  the residency host tier, checkpoint resume, drain by migration): the
+  static plane sheds, the elastic one serves everything at strictly
+  higher attainment; ``elastic_slo_attainment``,
+  ``goodput_per_replica_round``.
 
 Every leg's sequences are held against the standalone ``paged_generate``
 (with each request's key when sampled) before any number is believed:
@@ -69,9 +76,8 @@ memory, not a transfer between cards, and the row says so.
 
     python -m hpc_patterns_tpu_torch.bench_serving --quant [--smoke] \
         [--device cpu] [--kv-dtype int8|fp8] [--quant-weights]
-
-The JAX benchmark's ``--elastic`` row waits for its slice (the autoscaled
-plane, ROADMAP item 5).
+    python -m hpc_patterns_tpu_torch.bench_serving --elastic [--smoke] \
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ from hpc_patterns_tpu_torch.models.serving import (
     expected_padding,
     fit_bucket_ladder,
     pad_to_bucket,
+    prefill_ladder,
     tie_aware_compare,
 )
 from hpc_patterns_tpu_torch.models.transformer import (
@@ -1817,10 +1824,310 @@ def run_quantized(*, cfg, params, n, slots, chunk, page_size, prompt_len,
     return result
 
 
-#: the JAX rows that wait for a later slice, each with what it waits for
-LATER_ROWS = {
-    "elastic": "the autoscaled plane (ROADMAP item 5)",
-}
+ELASTIC_CLASSES = (
+    # generous latency targets: attainment in the CI shape is decided by
+    # SERVING (a shed never attains), not by wall-clock jitter
+    loadgen.PriorityClass("interactive", 0, weight=0.5,
+                          ttft_slo_s=30.0, tpot_slo_s=5.0),
+    loadgen.PriorityClass("batch", 1, weight=0.5),
+)
+
+
+def elastic_smoke_config(device=None):
+    """The CI elastic shape (JAX ``elastic_smoke_config``): the smoke model
+    on a diurnal open-loop ramp whose front-loaded peak oversubscribes a
+    2-replica plane, with a seeded ``die:replica=1`` chaos fault killing
+    one replica while it holds in-flight rows, on the chaos scenario's
+    engine geometry (ladder top 192, a 12-page table, a 25-page arena a
+    replica, budgets 16/24); the sampled leg is smaller still."""
+    base = smoke_config(device)
+    return dict(cfg=base["cfg"], params=base["params"], n=10, slots=3,
+                chunk=8, page_size=16, prompt_len=32, max_budget=24,
+                rate_rps=200.0, period_s=0.4, depth=0.8, seed=17,
+                die_replica=1, die_at=2, sampled_n=4,
+                ladder_top=192, pages_per_seq=12, pool_pages=25,
+                budgets=(16, 24), device=base["device"])
+
+
+def elastic_full_config(device=None):
+    """The re-grounding shape (JAX ``elastic_full_config``): the scenario
+    model on a longer diurnal ramp, 24 rps, period 1 s, depth 0.8, chunk
+    16, replica 1 dying at its round 3. On the card: the chip model, 32
+    requests, 4 slots, page 256, prompts 64/128, budgets 128/256; on the
+    CPU the smoke model, 20 requests, 2 slots, page 16, prompts 16/32,
+    budgets 32/64."""
+    base = scenario_full_config(device)
+    gpu = base["device"].type == "cuda"
+    return dict(cfg=base["cfg"], params=base["params"],
+                n=32 if gpu else 20, slots=4 if gpu else 2, chunk=16,
+                page_size=256 if gpu else 16,
+                prompt_len=128 if gpu else 32,
+                max_budget=256 if gpu else 64, rate_rps=24.0, period_s=1.0,
+                depth=0.8, seed=17, die_replica=1, die_at=3, sampled_n=6,
+                device=base["device"])
+
+
+def run_elastic(*, cfg, params, n, slots, chunk, page_size, prompt_len,
+                max_budget, rate_rps, period_s, depth, seed=17,
+                die_replica=1, die_at=2, sampled_n=5, ladder_top=None,
+                pages_per_seq=None, pool_pages=None, budgets=None,
+                device=None, quiet=False, after_timed=None):
+    """The ELASTIC-PLANE row (JAX ``run_elastic``): one diurnal open-loop
+    ramp under replica-death chaos, served by (a) a FIXED 2-replica plane
+    (a death there ends in shedding) and (b) the autoscaled
+    :class:`~hpc_patterns_tpu_torch.serving_plane.autoscaler.
+    ElasticServingPlane` — SLO-feedback scale-up on warm residency-pulled
+    params, checkpoint resume after the death, drain by migration on the
+    way down. Asserted before any number is believed:
+
+    - the seeded ``die`` fault FIRED on both legs;
+    - the static plane SHEDS (``shed_on_death >= 1``) while the elastic
+      plane serves everything;
+    - the elastic plane's SLO attainment STRICTLY exceeds the static's on
+      the same schedule;
+    - every served stream — death-resumed and drain-migrated rows
+      included — holds against the standalone ``paged_generate``: greedy,
+      and sampled (a smaller closed-loop leg whose death resumes from the
+      checkpointed keys) with each row's key; exact on the CPU,
+      tie-aware on the card (:func:`_held`, ``TIE_TOL``, on the
+      standalone's margins: a sampled step's whole decision margin);
+    - warm spin-up (the ``plane.spinup`` span) beats a cold
+      ``init_params`` + engine build — the row's own model's init, min of
+      2 — on the CPU. On the card it is a named verdict
+      (``warm_vs_cold``) printed with both times.
+
+    Reports ``elastic_slo_attainment`` and ``goodput_per_replica_round``
+    (SLO-attained tokens per live replica-round), each scale-up's reason
+    and the drained replicas. ``after_timed()``, when given, runs once
+    the timed work (both legs, warm spin-up and cold init) is done,
+    before the oracle and the sampled leg: a caller sharing the device
+    starts its own work there."""
+    from hpc_patterns_tpu_torch.serving_plane.autoscaler import (
+        Autoscaler,
+        AutoscalerPolicy,
+        ElasticServingPlane,
+        WarmParamPool,
+    )
+
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    sync = _sync(dev)
+    out = print if not quiet else (lambda *a, **k: None)
+    tol = TIE_TOL[cfg.dtype] if gpu else 0.0
+    schedule = loadgen.make_schedule(
+        n, rate_rps=rate_rps, classes=ELASTIC_CLASSES,
+        prompt_lens=(prompt_len // 2, prompt_len),
+        budgets=budgets or (max(1, max_budget // 2), max_budget),
+        process="diurnal", seed=seed, period_s=period_s, depth=depth)
+    rng = np.random.RandomState(seed + 1)
+    prompts = {r.index: rng.randint(0, cfg.vocab, size=r.prompt_len)
+               .astype(np.int32) for r in schedule.requests}
+    targets = slo.targets_from_classes(ELASTIC_CLASSES)
+    # the ladder covers prompt + budget: a death-resume's prompt is the
+    # original plus everything already emitted (rungs of 128 on the flash
+    # route: every admission prefills through the flash kernel)
+    buckets = prefill_ladder(ladder_top or (prompt_len + max_budget),
+                             cfg.decode_attn)
+    if pages_per_seq is None:
+        pages_per_seq = max(
+            EngineCore.pages_needed(r.prompt_len, r.max_new, page_size,
+                                    padded_len=pad_to_bucket(
+                                        buckets, r.prompt_len))
+            for r in schedule.requests)
+    pool = pool_pages or slots * pages_per_seq
+    chaos_spec = (f"die:replica={die_replica},at={die_at},"
+                  "site=replica_round")
+    policy = AutoscalerPolicy(min_replicas=2, max_replicas=4,
+                              up_queue=1.5, down_queue=0.25,
+                              cooldown_rounds=3, window=4)
+
+    def mk_engine(p, **skw):
+        return EngineCore(
+            p, cfg, slots=slots, pool_pages=pool,
+            pages_per_seq=pages_per_seq, page_size=page_size, chunk=chunk,
+            prompt_buckets=buckets, device=dev, **skw)
+
+    def arrivals(sched):
+        return [(r.t_arrival_s,
+                 dict(prompt=prompts[r.index], max_new=r.max_new,
+                      priority=r.priority, deadline_s=r.deadline_s))
+                for r in sched.requests]
+
+    def run_leg(plane, spec, submit=None):
+        """``plane`` under the ``spec`` fault: open loop on the schedule,
+        or closed loop on what ``submit`` submits; (outputs, its ids)."""
+        chaoslib.configure(spec)
+        try:
+            ids = submit() if submit is not None else None
+            got = (plane.run(arrivals=arrivals(schedule)) if submit is None
+                   else plane.run())
+            sync()
+            died = [e for e in chaoslib.injections() if e["kind"] == "die"]
+        finally:
+            chaoslib.reset()
+        assert died, "the seeded replica-death fault never fired"
+        return got, ids
+
+    def elastic_plane(**skw):
+        return ElasticServingPlane(
+            [Replica(mk_engine(params, **skw), name=f"r{i}")
+             for i in range(2)],
+            engine_factory=lambda p: mk_engine(p, **skw),
+            warm_pool=WarmParamPool(params),
+            autoscaler=Autoscaler(policy), slo=targets)
+
+    static = ServingPlane([Replica(mk_engine(params), name=f"r{i}")
+                           for i in range(2)], slo=targets)
+    t0 = time.perf_counter()
+    static_out, _ = run_leg(static, chaos_spec)
+    t_static = time.perf_counter() - t0
+    elastic = elastic_plane()
+    t0 = time.perf_counter()
+    elastic_out, _ = run_leg(elastic, chaos_spec)
+    t_elastic = time.perf_counter() - t0
+
+    # the fault did real damage: the fixed plane SHEDS, the elastic plane
+    # serves everything
+    assert static.deaths and elastic.deaths, "no replica died"
+    assert static.shed_on_death >= 1, (
+        "the static plane's dead replica held nothing — the death "
+        "perturbed neither leg, the comparison measured nothing")
+    assert elastic.shed_on_death == 0, (
+        f"elastic plane shed {elastic.shed_on_death} on the death it "
+        "exists to absorb")
+    assert len(elastic.spinup_s) >= 1, "the autoscaler never scaled up"
+
+    # warm spin-up vs cold init: the plane.spinup span (pull the parked
+    # host params + build the engine on them) against the row model's own
+    # init_params + engine build, min of 2 each side
+    def cold_once():
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = init_params(cfg, generator=gen, device=dev,
+                        dtype=torch_dtype(cfg.dtype))
+        mk_engine(p)
+        sync()
+        return time.perf_counter() - t
+
+    cold_init_s = min(cold_once() for _ in range(2))
+    if after_timed is not None:
+        after_timed()
+    warm_spinup_s = min(elastic.spinup_s)
+    warm_beats_cold = warm_spinup_s < cold_init_s
+    if not gpu:
+        assert warm_beats_cold, (
+            f"warm spin-up {warm_spinup_s * 1e3:.1f}ms not faster than "
+            f"cold init {cold_init_s * 1e3:.1f}ms — the residency-backed "
+            "pool bought nothing")
+
+    # the oracle before any number — death-resumed rows included
+    oracle: dict = {}
+    verdicts = {"exact": 0, "near_tie": 0}
+
+    def check(outs, plane, label):
+        for r in schedule.requests:
+            ps = plane.stats.get(r.index)
+            if ps is None or ps.get("outcome") != "ok":
+                continue
+            if r.index not in oracle:
+                oracle[r.index] = _standalone(
+                    params, cfg, prompts[r.index], r.max_new,
+                    page_size=page_size, device=dev)
+            want, margins = oracle[r.index]
+            verdicts[_held(outs[r.index], want, margins, tol,
+                           f"{label} seq {r.index}")] += 1
+
+    check(static_out, static, "static")
+    check(elastic_out, elastic, "elastic")
+    for r in schedule.requests:
+        assert elastic.stats[r.index]["outcome"] == "ok", (
+            f"elastic plane failed to serve seq {r.index}: "
+            f"{elastic.stats[r.index]}")
+
+    att_static = static.last_slo["total"]["attained_frac"]
+    att_elastic = elastic.last_slo["total"]["attained_frac"]
+    assert att_elastic > att_static, (
+        f"autoscaled attainment {att_elastic:.3f} does not exceed static "
+        f"{att_static:.3f} — the loop closed nothing")
+
+    # the SAMPLED leg, submitted up front so the victim structurally holds
+    # in-flight rows when the fault fires: its death-resumes continue from
+    # the checkpointed keys
+    sprompts = [rng.randint(0, cfg.vocab,
+                            size=int(rng.choice([prompt_len // 2,
+                                                 prompt_len])))
+                .astype(np.int32) for _ in range(sampled_n)]
+    sbudget = max(2 * chunk, max_budget // 4)
+    skw = dict(temperature=0.7, top_k=8, seed=0)
+    es = elastic_plane(**skw)
+    got_s, sids = run_leg(es, "die:replica=0,at=1,site=replica_round",
+                          lambda: [es.submit(p, sbudget) for p in sprompts])
+    assert es.deaths, "sampled-leg death never fired"
+    assert es.resumed, (
+        "the sampled-leg victim held no in-flight rows — the key-"
+        "checkpoint path went unexercised")
+    key_src = es.replicas[1].engine
+    for sid, p in zip(sids, sprompts):
+        assert es.stats[sid]["outcome"] == "ok", (
+            f"sampled seq {sid}: {es.stats[sid]}")
+        key = key_src.request_key(sid)
+        law = {k: skw[k] for k in ("temperature", "top_k")}
+        want, margins = _standalone(params, cfg, p, sbudget,
+                                    page_size=page_size, device=dev,
+                                    key=key, **law)
+        verdicts[_held(got_s[sid], want, margins, tol,
+                       f"sampled seq {sid}")] += 1
+
+    gppr = elastic.goodput_per_replica_round or 0.0
+    per_class = {
+        prio: {"static": static.last_slo["classes"]
+               .get(prio, {}).get("attained_frac"),
+               "elastic": elastic.last_slo["classes"]
+               .get(prio, {}).get("attained_frac")}
+        for prio in sorted({c.priority for c in ELASTIC_CLASSES})
+    }
+    result = {
+        "elastic_slo_attainment": att_elastic,
+        "static_slo_attainment": att_static,
+        "per_class_attainment": per_class,
+        "goodput_per_replica_round": gppr,
+        "static_goodput_per_replica_round":
+            static.goodput_per_replica_round or 0.0,
+        "static_shed_on_death": static.shed_on_death,
+        "elastic_shed_on_death": elastic.shed_on_death,
+        "spinups": len(elastic.spinup_s),
+        "spinup_reasons": [d.reason for d in elastic.autoscaler.decisions
+                           if d.action == "up"],
+        "warm_spinup_s": warm_spinup_s,
+        "cold_init_s": cold_init_s,
+        "warm_vs_cold": ("warm spin-up faster" if warm_beats_cold
+                         else "cold init faster"),
+        "warm_param_bytes": elastic.warm_pool.nbytes,
+        "resumed": sorted(elastic.resumed),
+        "drained": list(elastic.drained),
+        "replica_rounds": elastic.replica_rounds,
+        "static_replica_rounds": static.replica_rounds,
+        "sampled_resumed": sorted(es.resumed),
+        "t_static": t_static, "t_elastic": t_elastic,
+        "oracle": verdicts,
+        "schedule": schedule.spec,
+    }
+    out(f"elastic: n={n} slots={slots} chunk={chunk} pool={pool}p "
+        f"diurnal(period={period_s}s depth={depth}) chaos={chaos_spec}")
+    out(f"  static  : attained {att_static:.1%}  shed-on-death "
+        f"{static.shed_on_death}  replica-rounds {static.replica_rounds}")
+    out(f"  elastic : attained {att_elastic:.1%}  shed-on-death 0  "
+        f"spinups {len(elastic.spinup_s)}  drained {elastic.drained}  "
+        f"resumed {sorted(elastic.resumed)}  replica-rounds "
+        f"{elastic.replica_rounds}")
+    out(f"  warm spin-up {warm_spinup_s * 1e3:.1f}ms vs cold init "
+        f"{cold_init_s * 1e3:.1f}ms ({cold_init_s / warm_spinup_s:.1f}x): "
+        f"{result['warm_vs_cold']}")
+    out(f"  goodput/replica-round {gppr:,.2f} tok (static "
+        f"{result['static_goodput_per_replica_round']:,.2f})")
+    out(f"  every served stream on its standalone, greedy and sampled "
+        f"(death-resumed rows included): {verdicts}")
+    return result
 
 
 def main(argv=None) -> int:
@@ -1854,10 +2161,11 @@ def main(argv=None) -> int:
                         "fitting one from the recording leg")
     p.add_argument("--fit-out", default=None, metavar="PATH",
                    help="with --fit: also write the fitted config here")
+    p.add_argument("--elastic", action="store_true",
+                   help="the elastic-plane row: a diurnal ramp under "
+                        "replica-death chaos, fixed plane against the "
+                        "autoscaled one")
     add_explain_args(p)
-    for row in LATER_ROWS:
-        p.add_argument(f"--{row.replace('_', '-')}", action="store_true",
-                       help=f"not ported yet: waits for {LATER_ROWS[row]}")
     p.add_argument("--migration", default="device_put",
                    choices=list(MIGRATION_TRANSPORTS))
     p.add_argument("--device", default=None,
@@ -1866,11 +2174,11 @@ def main(argv=None) -> int:
                    help="the CI shape (the smoke model)")
     add_kv_dtype_arg(p, default=None)
     args = p.parse_args(argv)
-    for row, why in LATER_ROWS.items():
-        if getattr(args, row):
-            p.error(f"--{row.replace('_', '-')} is not ported yet: it "
-                    f"waits for {why}")
-    if args.quant:
+    if args.elastic:
+        conf = (elastic_smoke_config if args.smoke
+                else elastic_full_config)(args.device)
+        result = run_elastic(**with_kv_dtype(conf, args.kv_dtype))
+    elif args.quant:
         conf = (quantized_smoke_config if args.smoke
                 else quantized_full_config)(args.device)
         if args.kv_dtype:

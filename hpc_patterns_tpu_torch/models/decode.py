@@ -269,6 +269,12 @@ def _quantize_cache(cache, cfg: TransformerConfig):
     return out
 
 
+#: prefill lengths that are multiples of this go through the flash prefill
+#: kernel on the "flash" route (its 128-row tiles); others run
+#: ``full_attention``
+FLASH_PREFILL_ALIGN = 128
+
+
 def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
             last_pos=None, mesh=None):
     """The prompt (B, T) in one pass, capturing K/V. Returns
@@ -292,7 +298,7 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
     x = top["embed"].to(dt)[prompt]
     if cfg.pos_embed == "learned":
         x = x + top["pos_embed"].to(dt)[:T]
-    use_flash = cfg.decode_attn == "flash" and T % 128 == 0
+    use_flash = cfg.decode_attn == "flash" and T % FLASH_PREFILL_ALIGN == 0
     tp = _kv_ranks(mesh, cfg)
     ks, vs = [], []
     for lp in layers:
@@ -634,6 +640,37 @@ def _pick(logits, temperature=0.0, top_k: int = 0, keys=None, pos=None,
                                       top_k, noise), dim=-1).to(torch.int32)
 
 
+def support_edges(logits, top_k: int, t):
+    """Each token's top-k membership (..., V) bool and its distance to the
+    support's edge in score units (``logits / t``): above the (k+1)-th
+    logit for a member, below the k-th for the rest; inf without top-k."""
+    if not top_k or top_k >= logits.shape[-1]:
+        return (torch.ones_like(logits, dtype=torch.bool),
+                torch.full_like(logits, float("inf")))
+    vals = torch.topk(logits, top_k + 1, dim=-1).values
+    th, nx = vals[..., top_k - 1:top_k], vals[..., top_k:top_k + 1]
+    inside = logits >= th
+    return inside, torch.where(inside, logits - nx, th - logits) / t
+
+
+def pick_margin(scores, raw, inside, member):
+    """The margin of a Gumbel-max pick over ``scores`` (-inf off the
+    support) with ``raw`` the scores every token would have inside it
+    (``inside``, ``member``: :func:`support_edges`), in score units — how
+    far the logits must move to change the token:
+    the smallest of the top-1/top-2 gap, the winner's distance to the
+    support's edge, and for each token outside, the larger of its
+    distance to the edge and how far its raw score lies below the
+    winner's (a token that would win must first enter)."""
+    top = torch.topk(scores, 2, dim=-1)
+    w = top.indices[..., :1]
+    entry = torch.where(inside, float("inf"),
+                        torch.maximum(member, top.values[..., :1] - raw))
+    return torch.minimum(
+        torch.minimum(top.values[..., 0] - top.values[..., 1],
+                      member.gather(-1, w)[..., 0]), entry.amin(dim=-1))
+
+
 def _top2_margin(logits):
     """top-1 minus top-2 logit per row (how close the greedy pick was
     to a tie)."""
@@ -664,24 +701,32 @@ def _generation_loop(step, logits, T: int, new_tokens: int, keys,
     """The loop shared by the linear and paged caches: pick the first
     token (position ``T``) from the prefill logits, then ``new_tokens -
     1`` steps ``step(pos, tok) -> logits``. Returns (B, new_tokens) int32
-    (and, with ``with_margins``, each step's top-1/top-2 gap of the
-    scores the pick took the argmax of: the logits when greedy, the
-    perturbed :func:`sample_scores` when sampled)."""
+    (and, with ``with_margins``, each step's margin: the top-1/top-2
+    logit gap when greedy; when sampled, the whole margin of the pick
+    (:func:`pick_margin`: the perturbed scores' top-1/top-2 gap and the
+    distances to the top-k support's edge) — how far the logits must move
+    to change the token)."""
 
     def pick(lg, pos):
         if keys is None:
-            return torch.argmax(lg, dim=-1).to(torch.int32), lg
-        sc = sample_scores(lg, keys, pos, temperature, top_k)
-        return torch.argmax(sc, dim=-1).to(torch.int32), sc
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            return tok, _top2_margin(lg) if with_margins else None
+        g = gumbel_noise(keys, pos, lg.shape[-1])
+        sc = sample_scores(lg, keys, pos, temperature, top_k, g)
+        m = None
+        if with_margins:
+            lf = lg.float()
+            inside, member = support_edges(lf, top_k, temperature)
+            m = pick_margin(sc, lf / temperature + g, inside, member)
+        return torch.argmax(sc, dim=-1).to(torch.int32), m
 
-    tok, sc = pick(logits, T)
-    toks, margins = [tok], [_top2_margin(sc)] if with_margins else []
+    tok, m = pick(logits, T)
+    toks, margins = [tok], [m]
     for i in range(new_tokens - 1):
         logits = step(T + i, tok)
-        tok, sc = pick(logits, T + i + 1)
+        tok, m = pick(logits, T + i + 1)
         toks.append(tok)
-        if with_margins:
-            margins.append(_top2_margin(sc))
+        margins.append(m)
     out = torch.stack(toks, dim=1)
     if with_margins:
         return out, torch.stack(margins, dim=1)
@@ -699,8 +744,8 @@ def generate(params, prompt, cfg: TransformerConfig, new_tokens: int, *,
     0``, from ``key`` ((2,) uint32 for every row, or (B, 2); see
     :func:`sample_key`) or, without one, a key a row drawn from
     ``generator``. ``device``: default ``cuda``; params and prompt must
-    live there. ``with_margins``: also return each step's top-1/top-2
-    gap (B, new_tokens) f32 of the scores picked from."""
+    live there. ``with_margins``: also return each step's margin (B,
+    new_tokens) f32 (:func:`_generation_loop`)."""
     dev = resolve_device(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
@@ -1156,9 +1201,8 @@ def paged_generate(params, prompt, cfg: TransformerConfig,
     engine's ``request_key(seq_id)`` it reproduces that request's served
     tokens. ``device``: default ``cuda`` (raises without a GPU unless
     ``device="cpu"``); params and prompt must live there.
-    ``with_margins``: also return each step's top-1/top-2 gap (B,
-    new_tokens) f32 of the scores picked from — what a tie-aware
-    comparison needs."""
+    ``with_margins``: also return each step's margin (B, new_tokens) f32
+    (:func:`_generation_loop`) — what a tie-aware comparison needs."""
     dev = resolve_device(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")

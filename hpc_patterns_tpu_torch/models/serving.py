@@ -148,6 +148,7 @@ from hpc_patterns_tpu_torch.harness import slo as slolib
 from hpc_patterns_tpu_torch.harness import trace as tracelib
 from hpc_patterns_tpu_torch.memory.prefix_cache import RadixPrefixCache
 from hpc_patterns_tpu_torch.models.decode import (
+    FLASH_PREFILL_ALIGN,
     PREFIX_ALIGN,
     _as_keys,
     _pick,
@@ -189,6 +190,18 @@ def bucket_ladder(max_len: int, *, lo: int = 16,
         r = max(int(r * growth), r + 1)
     rungs.append(max_len)
     return tuple(rungs)
+
+
+def prefill_ladder(max_len: int, decode_attn: str) -> tuple[int, ...]:
+    """The default ladder for prompts up to ``max_len`` on a decode route:
+    :func:`bucket_ladder` on the plain routes; on the "flash" route rungs
+    that are all multiples of ``FLASH_PREFILL_ALIGN`` (128, 256, ...,
+    ``max_len`` rounded up), so that every admission prefills through
+    the flash prefill kernel."""
+    if decode_attn != "flash":
+        return bucket_ladder(max_len)
+    a = FLASH_PREFILL_ALIGN
+    return bucket_ladder(-(-max_len // a) * a, lo=a)
 
 
 

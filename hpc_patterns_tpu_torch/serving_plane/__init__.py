@@ -11,14 +11,18 @@ KV handoff between them — the counterpart of
   chunk.
 - ``migration.py`` — the transfer between two engines: ``migrate_pages``
   and the wire codec, byte-compatible with the JAX package's.
-
-- ``autoscaler.py`` — the autoscaler's pure controller
+- ``autoscaler.py`` — the autoscaler: the pure controller
   (:class:`Autoscaler`, :class:`AutoscalerPolicy`), which
-  ``harness/autofit.py`` replays offline.
+  ``harness/autofit.py`` replays offline, the residency-backed warm
+  weights (:class:`WarmParamPool`) and the elastic plane
+  (:class:`ElasticServingPlane`: warm spin-up, drain by migration,
+  checkpoint-resume of a dead replica's rows).
+- ``service.py``   — the launched plane: replica processes behind a
+  newline-JSON socket protocol (stub and real engines) and the router
+  process (``PlaneRouter``), driven by ``apps/plane_app.py`` under
+  ``apps/launch.py``; it imports no torch at module level.
 
-Later slices: the cross-process socket plane (``service.py``), the
-autoscaler's warm spin-up and elastic plane, chaos and death recovery. This ``__init__`` stays lazy, as
-JAX's does.
+This ``__init__`` stays lazy, as JAX's does.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ _LAZY = {
     "MIGRATION_TRANSPORTS": "hpc_patterns_tpu_torch.serving_plane.router",
     "Autoscaler": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
     "AutoscalerPolicy": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
+    "ElasticServingPlane": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
+    "WarmParamPool": "hpc_patterns_tpu_torch.serving_plane.autoscaler",
     "migrate_pages": "hpc_patterns_tpu_torch.serving_plane.migration",
     "bundle_to_wire": "hpc_patterns_tpu_torch.serving_plane.migration",
     "bundle_from_wire": "hpc_patterns_tpu_torch.serving_plane.migration",

@@ -68,9 +68,12 @@ card) and a ``kv_migration`` entry in the schedule chain (the resolved
 transport as its algorithm); reqtrace tags each request's open
 ``migrating`` segment with the migration's ``seq``.
 
-Later slices, which raise ``ValueError`` when asked for:
-``from_fitted`` (autofit) and the autoscaled elastic plane (its
-checkpoint-resume recovery of a dead replica's work).
+Elasticity: a :attr:`Replica.draining` replica serves what it holds but
+receives no routing and no migrations; :meth:`ServingPlane.
+_autoscale_round`, called once a plane round, is the hook the elastic
+plane (``autoscaler.ElasticServingPlane``) overrides — this fixed plane
+never changes shape. ``replica_rounds`` counts live replicas over plane
+rounds, the denominator of :attr:`ServingPlane.goodput_per_replica_round`.
 """
 
 from __future__ import annotations
@@ -140,6 +143,9 @@ class Replica:
         self.index = -1
         #: replica-local round counter: the ``replica_round`` site's index
         self.rounds = 0
+        #: a draining replica serves what it holds but receives no new
+        #: routing and no migrations (the voluntary scale-down state)
+        self.draining = False
 
     @property
     def can_prefill(self) -> bool:
@@ -153,7 +159,7 @@ class Replica:
 def _eligible(plane: "ServingPlane", prompt_len: int,
               max_new: int) -> list[Replica]:
     return [r for r in plane.replicas
-            if r.alive and r.can_prefill
+            if r.alive and not r.draining and r.can_prefill
             and r.engine.would_fit(prompt_len, max_new)]
 
 
@@ -284,6 +290,9 @@ class ServingPlane:
         self.deaths: list[str] = []
         #: requests shed BECAUSE their replica died
         self.shed_on_death = 0
+        #: Σ over plane rounds of the live replicas that served them: the
+        #: denominator of ``goodput_per_replica_round``
+        self.replica_rounds = 0
 
     @classmethod
     def from_fitted(cls, replicas, fitted, *, slo: dict | None = None,
@@ -389,7 +398,7 @@ class ServingPlane:
         flight toward it. Least-loaded first."""
         cand = []
         for r in self.replicas:
-            if not r.alive or not r.can_decode or r is src:
+            if not r.alive or not r.can_decode or r is src or r.draining:
                 continue
             e = r.engine
             if e.slots - e.active_count - len(r.pending_migrations) < 1:
@@ -625,9 +634,12 @@ class ServingPlane:
                               for p, f in snap["per_class"].items()},
                    window_n=snap["n"], judged_round=judged_round,
                    attained_round=attained_round,
-                   queued=sum(r.engine.queue_depth for r in self.replicas),
-                   active=sum(r.engine.active_count for r in self.replicas),
-                   replicas=len(self.replicas))
+                   queued=sum(r.engine.queue_depth for r in self.replicas
+                              if r.alive),
+                   active=sum(r.engine.active_count for r in self.replicas
+                              if r.alive),
+                   replicas=sum(1 for r in self.replicas
+                                if r.alive and not r.draining))
 
     def _update_gauges(self) -> None:
         m = metricslib.get_metrics()
@@ -717,6 +729,11 @@ class ServingPlane:
         if m.enabled:
             m.counter("plane.shed").inc()
 
+    def _autoscale_round(self) -> bool:
+        """Post-round scaling hook: this plane is fixed; the elastic plane
+        overrides it. True when the plane changed shape (progress)."""
+        return False
+
     # -- the plane loop ----------------------------------------------------
 
     def _round_order(self) -> list[Replica]:
@@ -803,9 +820,11 @@ class ServingPlane:
                     continue
                 progressed |= self._replica_round(r)
                 r.rounds += 1
+                self.replica_rounds += 1
                 progressed |= self._collect_finished(r) > 0
             self._update_gauges()
             self._emit_attainment()
+            progressed |= self._autoscale_round()
             if not progressed and not pending:
                 queued = {r.name: r.engine.queue_depth
                           for r in self.replicas if r.alive}
@@ -840,7 +859,21 @@ class ServingPlane:
                 tot = self.last_slo["total"]
                 m.gauge("plane.tok_s").set(tot["tok_s"])
                 m.gauge("plane.goodput_tok_s").set(tot["goodput_tok_s"])
+                if self.replica_rounds:
+                    m.gauge("plane.goodput_per_replica_round").set(
+                        self.goodput_per_replica_round or 0.0)
         return self.finished
+
+    @property
+    def goodput_per_replica_round(self) -> float | None:
+        """SLO-attained tokens per (live replica x plane round): a plane
+        that holds attainment by over-provisioning pays here, one that
+        sheds pays in the numerator. None until a run with ``slo=``."""
+        if self.last_slo is None or not self.replica_rounds:
+            return None
+        tot = self.last_slo["total"]
+        return tot["goodput_tok_s"] * self.last_slo["wall_s"] \
+            / self.replica_rounds
 
     @property
     def migration_bytes_per_round(self) -> float:

@@ -4,7 +4,8 @@ bench_serving``): JAX's own tier-1 tests of the base row
 scenario (``test_smoke_chaos_scenario_still_beats_static_and_reports_
 goodput``) and of the tiered-memory rows (``test_smoke_offload_row_...``,
 ``test_smoke_shared_row_...``, ``test_smoke_slo_budget_row_...``) and of
-the quantized row (``test_smoke_quantized_row_...``) run
+the quantized row (``test_smoke_quantized_row_...``) and of the elastic
+row (``test_smoke_elastic_row_beats_static_and_reports_efficiency``) run
 unchanged against the port's rows — the same verdicts on the same keys —
 and the rows return every key JAX's rows return, the
 scenario's tail-attribution shares and budget breaches among them (its
@@ -38,6 +39,15 @@ SCENARIO_KEYS = {"t_static", "t_engine", "tokens", "served_tokens",
                  "prefill_compiles", "ladder", "attribution_coverage_frac",
                  "ttft_p99_queue_share", "tpot_p99_stall_share",
                  "budget_breaches", "schedule"}
+
+
+#: run_elastic's (:1628-1646)
+ELASTIC_KEYS = {"elastic_slo_attainment", "static_slo_attainment",
+                "per_class_attainment", "goodput_per_replica_round",
+                "static_goodput_per_replica_round", "static_shed_on_death",
+                "elastic_shed_on_death", "spinups", "warm_spinup_s",
+                "cold_init_s", "resumed", "drained", "replica_rounds",
+                "static_replica_rounds", "sampled_resumed"}
 
 
 def _jax_tests():
@@ -90,6 +100,11 @@ def jax_bench(monkeypatch, tmp_path):
                         lambda: tbs.quantized_smoke_config("cpu"))
     monkeypatch.setattr(jbs, "run_quantized",
                         capture("quantized", tbs.run_quantized))
+    # the elastic row
+    monkeypatch.setattr(jbs, "elastic_smoke_config",
+                        lambda: tbs.elastic_smoke_config("cpu"))
+    monkeypatch.setattr(jbs, "run_elastic",
+                        capture("elastic", tbs.run_elastic))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield rows
@@ -213,11 +228,32 @@ def test_tiered_rows_through_the_cli(capsys):
         tbs.main(["--shared", "--smoke", "--device", "cpu", "--kv-dtype",
                   "int8"])
     assert "--shared refuses --kv-dtype int8" in capsys.readouterr().err
-    assert set(tbs.LATER_ROWS) == {"elastic"}
 
 
-@pytest.mark.parametrize("flag", ["--elastic"])
-def test_later_rows_name_what_they_wait_for(flag, capsys):
-    with pytest.raises(SystemExit):
-        tbs.main([flag, "--device", "cpu", "--smoke"])
-    assert "not ported yet" in capsys.readouterr().err
+def test_jax_elastic_row_test_passes_on_the_port(jax_bench):
+    _jax_tests().test_smoke_elastic_row_beats_static_and_reports_efficiency()
+    r = jax_bench["elastic"]
+    assert ELASTIC_KEYS <= set(r)
+    # every served stream held exactly on the CPU, resumed rows included
+    assert r["oracle"]["near_tie"] == 0 and r["oracle"]["exact"] > 0
+    assert r["warm_vs_cold"] == "warm spin-up faster"
+    assert r["replica_rounds"] > r["static_replica_rounds"] > 0
+
+
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread (the ``jax_bench`` fixture's reason)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_elastic_row_through_the_cli(capsys, one_thread):
+    assert tbs.main(["--elastic", "--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    r = json.loads(out.strip().splitlines()[-1])
+    assert ELASTIC_KEYS <= set(r) and "schedule" not in r
+    assert r["elastic_slo_attainment"] > r["static_slo_attainment"]
+    assert r["static_shed_on_death"] >= 1 and r["elastic_shed_on_death"] == 0
+    assert "every served stream on its standalone" in out

@@ -1,7 +1,8 @@
 """The port's chaos injectors (``hpc_patterns_tpu_torch/harness/chaos.py``,
 a copy of the JAX module): the JAX tests' parse, activation, matching and
-replica-site cases run against the port module, then the live wiring —
-the engine's ``engine_round`` stall and the serving plane's
+replica-site cases run against the port module (the replica site's
+stub-replica probe on the port's ``service.StubAdapter``), then the live
+wiring — the engine's ``engine_round`` stall and the serving plane's
 ``replica_round`` death — each beside the JAX package's result for the
 same spec on the same schedule. Both modules' global state is reset
 around every test.
@@ -142,6 +143,23 @@ class TestReplicaSite:
         assert f.matches("replica_round", 2, 1)
         assert not f.matches("engine_round", 2, 1)
         assert not f.matches("replica_round", 2, 0)
+
+    def test_stub_replica_round_probe_fires(self, monkeypatch):
+        # the plane's stub replica probes the site once per protocol
+        # round — the same probe the real adapter makes
+        from hpc_patterns_tpu_torch.serving_plane.service import StubAdapter
+
+        chaos.configure("stall:at=1,delay_ms=30,site=replica_round")
+        adapter = StubAdapter(slots=1, pool_pages=4, pages_per_seq=4,
+                              page_size=8, chunk=2)
+        t0 = time.perf_counter()
+        adapter.round(None)
+        adapter.round(None)  # index 1: the stall fires here
+        dt = time.perf_counter() - t0
+        fired = [e for e in chaos.injections()
+                 if e["site"] == "replica_round"]
+        assert len(fired) == 1 and fired[0]["index"] == 1
+        assert dt >= 0.03
 
 class TestMatching:
     """``matching``/``record_injection``: the caller-executed injection

@@ -1506,3 +1506,65 @@ def test_tp_engine_on_the_card_matches_its_standalone(gen):
         assert srv.tie_aware_compare(
             got[sid], want[0].cpu().numpy(), margins[0].cpu().numpy(),
             TIE_TOL[cfg.dtype]) != "mismatch"
+
+
+def test_real_adapter_wire_handoff_on_the_card(gen):
+    # the launched plane's replica adapters at the serving widths (vocab
+    # 32768, d_model 1024, 8 heads of 128, 8 layers, d_ff 4096, bf16, flash
+    # decode): a prefill-role RealAdapter exports every row over the wire
+    # (JSON both ways, as the socket carries it) into a decode-role one.
+    # Every sequence tie-aware against its standalone; kernel 1 once a
+    # layer an admission (256-token prompts), kernel 6 once a layer a
+    # decode step of the receiver
+    import json
+
+    from hpc_patterns_tpu_torch.bench_serving import TIE_TOL
+    from hpc_patterns_tpu_torch.models import decode as dec
+    from hpc_patterns_tpu_torch.models import serving as srv
+    from hpc_patterns_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from hpc_patterns_tpu_torch.serving_plane import service
+
+    cfg = TransformerConfig(vocab=32768, d_model=1024, n_heads=8,
+                            n_layers=8, d_ff=4096, max_seq=320,
+                            dtype="bfloat16", decode_attn="flash")
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda", dtype=torch.bfloat16)
+    kw = dict(slots=2, pool_pages=4, pages_per_seq=2, page_size=256,
+              chunk=4, prompt_buckets=(128, 256), device="cuda")
+    pre = service.RealAdapter(srv.EngineCore(params, cfg, **kw),
+                              role="prefill")
+    dst = service.RealAdapter(srv.EngineCore(params, cfg, **kw),
+                              role="decode")
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab, (256,), generator=rng)
+               .to(torch.int32).tolist() for _ in range(3)]
+    n_fa, n_fd = dict(fa.launches), dict(fd.launches)
+    for rid, p in enumerate(prompts):
+        pre.submit({"rid": rid, "prompt": p, "max_new": 32})
+    finished, exports = {}, 0
+    for _ in range(64):
+        r = pre.round(None)
+        for wire in r["exports"]:
+            exports += 1
+            service.recv_migration(json.loads(json.dumps(wire)), dst, None)
+        r = dst.round(None)
+        finished.update({int(k): v for k, v in r["finished"].items()})
+        if len(finished) == len(prompts):
+            break
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert exports == len(prompts) and len(finished) == len(prompts)
+    assert fa.launches["fwd"] - n_fa["fwd"] == L * pre.engine.admissions
+    assert fd.launches["paged_decode"] - n_fd["paged_decode"] == \
+        L * dst.engine.decode_steps > 0
+    for rid, p in enumerate(prompts):
+        with torch.no_grad():
+            want, margins = dec.paged_generate(
+                params, torch.tensor(p)[None].cuda(), cfg, 32,
+                page_size=256, with_margins=True)
+        assert srv.tie_aware_compare(
+            finished[rid], want[0].cpu().numpy(), margins[0].cpu().numpy(),
+            TIE_TOL[cfg.dtype]) != "mismatch"

@@ -3,7 +3,8 @@ cross-process communicator against the JAX package on the CPU.
 
 JAX's own tier-1 bodies of ``tests/test_launch.py`` (``TestLauncherMechanics``,
 ``TestCollectiveScheduleLaunch``, ``TestChaosLaunch``,
-``TestDistributedTraceMerge``) run unchanged on the port's launcher. Their
+``TestDistributedTraceMerge``, ``TestServingPlaneLaunch``) run unchanged on
+the port's launcher (the serving plane's on the port's ``plane_app``). Their
 children are command lines naming JAX's modules; :class:`_PortLaunch`
 hands the port's launcher the same command with every module the port
 has a counterpart of named instead (``analysis.runtime``'s collective
@@ -69,7 +70,8 @@ BODIES = parity.load("test_launch")
 BODIES.launch = _PortLaunch
 CASES = parity.cases(BODIES, ["TestLauncherMechanics",
                               "TestCollectiveScheduleLaunch",
-                              "TestChaosLaunch"])
+                              "TestChaosLaunch",
+                              "TestServingPlaneLaunch"])
 
 
 @pytest.mark.parametrize("cls,method", CASES)
@@ -91,6 +93,23 @@ MERGE_CASES = parity.cases(BODIES, ["TestDistributedTraceMerge"])
 def test_jax_trace_merge_body_on_the_port(cls, method, merged_run,
                                           request):
     parity.call(BODIES, cls, method, request, merged_run=merged_run)
+
+
+def test_launched_real_engine_plane(tmp_path, capsys):
+    # the real-engine shape of JAX's disaggregated stub plane: a router
+    # and one prefill + one decode replica serving the default tiny model
+    # on the CPU, every request crossing the KV handoff over the socket
+    code = tlaunch.main([
+        "-np", "3", "--timeout", "120", "--",
+        sys.executable, "-m", "hpc_patterns_tpu_torch.apps.plane_app",
+        "--roles", "prefill,decode", "--rdv", str(tmp_path / "rdv"),
+        "--requests", "4", "--rate", "10000", "--device", "cpu",
+        "--plane-timeout", "100",
+    ])
+    printed = capsys.readouterr().out
+    assert code == 0, printed
+    assert "PLANE SUCCESS" in printed
+    assert "served 4/4" in printed and "migrations=4" in printed
 
 
 def test_launcher_imports_no_torch():

@@ -12,6 +12,9 @@ tokens must be equal (no tolerance).
   engine;
 - EOS after migration, open-loop arrivals, the placement policies, the
   SLO rollup, the validation guards, rows no decode replica can hold;
+- what the elastic plane subclasses: ``replica_rounds``, ``rounds_total``
+  and ``goodput_per_replica_round`` equal JAX's plane's, and a draining
+  replica gets neither routing nor migrations;
 - the transport ladder: a fallback warns and is counted, a kernel fault
   is no fallback;
 - export/install guards, the seq_id collision, ``resume_prefix``, the
@@ -335,6 +338,64 @@ class TestRouterMechanics:
         assert plane.policy_name == "least_loaded"
 
 
+class TestElasticHooks:
+    """What the elastic plane subclasses: ``replica_rounds``, the
+    ``goodput_per_replica_round`` property and ``Replica.draining``."""
+
+    @pytest.mark.parametrize("roles", [("both", "both"),
+                                       ("prefill", "decode")])
+    def test_replica_rounds_and_goodput_equal_jax(self, jp, tp, roles):
+        reqs = _requests(6, seed=4)
+        slo_j = {0: jrouter.slolib.SLOTarget()}
+        jplane = jrouter.ServingPlane(
+            [jrouter.Replica(jsrv.EngineCore(jp, _jcfg(), **ENG), name=n,
+                             role=r) for n, r in zip("ab", roles)],
+            slo=slo_j)
+        plane = ServingPlane([Replica(_eng(tp), name=n, role=r)
+                              for n, r in zip("ab", roles)],
+                             slo={0: tslo.SLOTarget()})
+        assert plane.goodput_per_replica_round is None  # before a run
+        for pl in (jplane, plane):
+            for p, m in reqs:
+                pl.submit(p, m)
+            pl.run()
+        assert plane.replica_rounds == jplane.replica_rounds > 0
+        assert plane.rounds_total == jplane.rounds_total
+        assert plane.replica_rounds == 2 * plane.rounds_total
+        assert plane.goodput_per_replica_round == pytest.approx(
+            jplane.goodput_per_replica_round, rel=1e-9)
+        assert plane.goodput_per_replica_round == pytest.approx(
+            sum(m for _, m in reqs) / plane.replica_rounds, rel=1e-9)
+        assert plane._autoscale_round() is False  # the fixed plane
+
+    def test_draining_replica_gets_no_routing_or_migrations(self, tp):
+        plane = ServingPlane([
+            Replica(_eng(tp), name="p", role="prefill"),
+            Replica(_eng(tp), name="d0", role="decode"),
+            Replica(_eng(tp), name="d1", role="decode"),
+            Replica(_eng(tp), name="b", role="both")])
+        plane.replicas[1].draining = True   # d0
+        plane.replicas[3].draining = True   # b
+        records = []
+        plane._emit = lambda **kw: records.append(kw)
+        reqs = _requests(6, seed=8)
+        ids = [plane.submit(p, m) for p, m in reqs]
+        got = plane.run()
+        routes = {r["replica"] for r in records
+                  if r["kind"] == "plane_route"}
+        dsts = {r["dst"] for r in records if r["kind"] == "plane_migrate"}
+        assert routes == {"p"} and dsts == {"d1"}
+        assert plane.migrations == len(reqs)
+        for rid, (p, m) in zip(ids, reqs):
+            np.testing.assert_array_equal(got[rid],
+                                          _standalone(tp, _tcfg(), p, m))
+        # with every other prefill-capable replica draining, a request
+        # has nowhere to go
+        plane.replicas[0].draining = True
+        with pytest.raises(ValueError, match="no live replica"):
+            plane.submit(np.arange(5, dtype=np.int32), 3)
+
+
 class TestTransportLadder:
     def test_fallback_to_device_put_is_loud(self, tp):
         # device-less replicas cannot serve dma: exact all the same, but
@@ -612,5 +673,7 @@ def test_bench_cli_cpu(capsys):
     res = json.loads(out.strip().splitlines()[-1])
     assert res["migration_transports"] == {"wire": res["migrations"]}
     with pytest.raises(SystemExit):
-        # a row that waits for its slice (the autoscaled plane)
-        bench_serving.main(["--elastic", "--device", "cpu"])
+        # a transport the plane does not have is refused by the CLI (the
+        # elastic row, once refused here, runs: test_torch_bench_serving)
+        bench_serving.main(["--plane", "--migration", "carrier-pigeon",
+                            "--device", "cpu"])
