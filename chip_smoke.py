@@ -439,6 +439,31 @@ Phases, each printing JSON lines:
               target's standalone; then kernels 1-4 at the microbatch
               shape (B 1 x T 2048 x H 8) and 8, 8a and 9 at a
               microbatch's MLP (N 2048 x D 1024 x F 4096);
+12c. analysis — the static analyzer (``hpc_patterns_tpu_torch.analysis``)
+              and its runtime halves on the card: (a) ``--ci`` over the
+              port on this host (findings, the suppressed count, files,
+              seconds; every protocol kernel's static ledger analyzed,
+              none abstained); (b) each library's ``hpcpat_smem_rows``
+              (``cudaFuncGetAttributes``' static bytes and registers,
+              the launcher's dynamic request) against ``smem.py``'s row
+              of the same instantiation, a request set per call (kernels
+              8, 8a, 14) at the launchers' plans for the shapes this
+              script launches (``ANALYSIS_MLP_SHAPES``,
+              ``ANALYSIS_PIPELINE_ROWS``), every block within
+              ``cudaDevAttrMaxSharedMemoryPerBlockOptin`` (the table in
+              ``build/smem_table.json``, its non-decode rows printed);
+              (c) ``strict_dispatch``: the serve phase's engine sampling
+              with preemption (``ANALYSIS_SERVE``: one row evicted by a
+              higher-priority arrival and resumed), a ``Command`` submit
+              loop and one ``Communicator`` allreduce with the statically
+              clean dispatch-critical functions under the sync debug
+              mode's "error" — no synchronizing op raised, guarded calls
+              > 0, a preemption and its resume, the streams equal to the
+              unguarded run's; (d)
+              ``strict_barriers``: kernels 11 and 14 once each from the
+              ``-DHPCPAT_LEDGER`` build (compiled beside phase build's,
+              into ``build/ledger/``), each equal to its plain version,
+              the barrier and flag ledger balanced;
 13. the ``done`` line with each phase's wall seconds, the ``{"kernels":
    [...]}`` line, the card's name and power limit
    (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
@@ -800,8 +825,18 @@ def ptxas_kernels(log: str) -> list:
 def phase_build():
     from hpc_patterns_tpu_torch.ops import _build
 
+    import threading
+
+    from hpc_patterns_tpu_torch.analysis import runtime
+
     t0 = time.perf_counter()
+    # the ledger build of kernels 11 and 14 (phase analysis) compiles
+    # beside the timed sources, into build/ledger/
+    ledger = threading.Thread(target=_build.build_variant, args=(
+        runtime.LEDGER_SOURCES, ("HPCPAT_LEDGER",), "ledger"))
+    ledger.start()
     info = _build.build_all()
+    ledger.join()
     secs = time.perf_counter() - t0
     emit({"phase": "build", "seconds": secs,
           "sources": {k: {"seconds": v["seconds"], "cached": v["cached"],
@@ -3626,9 +3661,12 @@ def phase_tiered(blame_ab):
 
 
 # phase spec: the aligned pair at make_draft_pair's card widths, cut from
-# the JAX script's 400 / 400 steps to 200 / 200 (batch 16 x 256, the 2M
-# token corpus uncut); gamma 4 throughout (serve_app's default)
-SPEC_PAIR_STEPS = (200, 200)
+# the JAX script's 400 / 400 steps to 100 / 100 (batch 16 x 256, the 2M
+# token corpus uncut; 200 / 200 until phase analysis joined, when the
+# pair's greedy agreement read 0.598 against a random draft's 0.0, and
+# its E[min(p, q)] 0.770 against 0.330: the checks ask 0.05 over);
+# gamma 4 throughout (serve_app's default)
+SPEC_PAIR_STEPS = (100, 100)
 SPEC_GAMMA = 4
 # the engine legs' stream: prompts of 256 tokens from the pair's Markov
 # process on a disjoint path (draw_seed 777, as JAX's bench_speculative),
@@ -3652,7 +3690,7 @@ SPEC_APP_REQUESTS = 2
 # to 32; a host that ran the script a third slower took both to 16, and
 # phases stencil and launch to 8; phase pipeline took both to 4)
 SPEC_BENCH = dict(n=4, temp=0.8, top_k=40, batched=8, batched_n=4)
-SPEC_CUTS = {"pair_steps": "400 / 400 -> 200 / 200",
+SPEC_CUTS = {"pair_steps": "400 / 400 -> 100 / 100",
              "serve_app": "the serve phase's stream, its first "
                           f"{SPEC_APP_REQUESTS} requests",
              "engine_requests": f"16 -> {SPEC_STREAM['requests']}",
@@ -4721,9 +4759,9 @@ OBSERVE_SWEEP = ["--sweep", "--min-p", "3", "-p", "10"]
 # phase's tokens/s moves ~10% from run to run, so one pair shows equal
 # tokens and launches, not the tracing's cost
 OBSERVE_TURNS = (False, True)
-# each turn serves the stream's first 8 requests (16 until phase pipeline
-# joined)
-OBSERVE_TURN_REQUESTS = 8
+# each turn serves the stream's first 4 requests (16 until phase pipeline
+# joined, 8 until phase analysis did)
+OBSERVE_TURN_REQUESTS = 4
 # the profiled serving run: the stream's first 4 requests at a budget of
 # 32 (each sequence the first 32 tokens of the serve phase's). The
 # profiler records every kernel and op, and the whole stream (~150k
@@ -6680,6 +6718,200 @@ def phase_launch() -> dict:
     return {"digests": len(want), "busbw": busbw}
 
 
+# ---------------------------------------------------------------- analysis
+
+#: phase analysis (c): the serve phase's engine (its model, page size,
+#: chunk and prefill ladder) sampling, with preemption on: a low-priority
+#: request admitted first, and a high-priority one arriving at
+#: ``arrive_s`` of the progress clock (one round a second) whose pages
+#: evict it; the evicted row resumes after it (prompt + its tokens, its
+#: key uploaded from the host)
+ANALYSIS_SERVE = dict(prompts=(384, 256), budgets=(64, 32), priorities=(1, 0),
+                      arrive_s=2.0, temperature=0.8, top_k=50)
+#: phase analysis (b): the shapes chip_smoke launches the kernels whose
+#: shared memory is set per call at — 8 and 8a at the kernel rows' MLP,
+#: phase pipeline's microbatch and phase sharded's tp shard; 14 at
+#: pipeline_case's, the overlap phase's and the timed row's chunks
+ANALYSIS_MLP_SHAPES = (
+    (MLP_SHAPE["N"], MLP_SHAPE["D"], MLP_SHAPE["F"]),
+    (TRAIN_BATCH[0] // PIPE_M * TRAIN_BATCH[1], TRAIN_MODEL["d_model"],
+     TRAIN_MODEL["d_ff"]),
+    (TRAIN_BATCH[0] * TRAIN_BATCH[1], TRAIN_MODEL["d_model"],
+     TRAIN_MODEL["d_ff"] // SHARD_TP))
+ANALYSIS_PIPELINE_ROWS = tuple(sorted(
+    {64, PIPE_TIMED["rows"], *(R for _, R, _ in OVERLAP_SHAPES)}))
+
+
+def _strict_serve(runtime, serve_ctx):
+    """(c): the preempting sampled serve, a Command submit loop and one
+    Communicator collective under strict_dispatch."""
+    from hpc_patterns_tpu_torch.comm.communicator import Communicator
+    from hpc_patterns_tpu_torch.concurrency.commands import make_command
+    from hpc_patterns_tpu_torch.models.serving import (
+        ContinuousBatcher,
+        pad_to_bucket,
+    )
+
+    dev = torch.device("cuda")
+    a = ANALYSIS_SERVE
+    cfg, geom = serve_ctx["cfg"], serve_ctx["geom"]
+    page, buckets = geom["page_size"], geom["prompt_buckets"]
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in a["prompts"]]
+    need = [ContinuousBatcher.pages_needed(
+        n, b, page, padded_len=pad_to_bucket(buckets, n))
+        for n, b in zip(a["prompts"], a["budgets"])]
+    pool = max(need) + 1  # both rows never fit: the second evicts the first
+    check(sum(need) > pool, f"analysis (c): {need} pages overflow {pool}")
+    reqs = [dict(prompt=p, max_new=b, priority=pr) for p, b, pr in
+            zip(prompts, a["budgets"], a["priorities"])]
+
+    def serve():
+        eng = ContinuousBatcher(
+            serve_ctx["params"], cfg, slots=2, pool_pages=pool,
+            pages_per_seq=max(need), page_size=page, chunk=geom["chunk"],
+            prompt_buckets=buckets, device=dev, preempt=True,
+            temperature=a["temperature"], top_k=a["top_k"], seed=11)
+        got = eng.run(arrivals=[(0.0, reqs[0]), (a["arrive_s"], reqs[1])],
+                      round_s=1.0)
+        torch.cuda.synchronize()
+        return [got[sid] for sid in sorted(got)], eng
+
+    plain, _ = serve()  # libraries and allocator warm, outside the guard
+    cmds = [make_command(k, device=dev, copy_elements=1 << 16,
+                         tripcount=50) for k in ("C", "M2D", "D2M")]
+    comm = Communicator({"x": 4}, "x", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(4, 4096, generator=gen, device=dev)
+    want_ar = comm.allreduce(x)
+    torch.cuda.synchronize()
+    with runtime.strict_dispatch() as guard:
+        outs, eng = serve()
+        for _ in range(4):
+            for c in cmds:
+                c.submit()
+        for c in cmds:
+            c.block()
+        got_ar = comm.allreduce(x)
+        torch.cuda.synchronize()
+    preempted = sum(r["preemptions"] for r in eng.stats.values())
+    check(preempted >= 1 and eng.admissions == len(reqs) + preempted,
+          f"strict dispatch: {preempted} preemption(s), {eng.admissions} "
+          f"admissions (each evicted row resumed)")
+    check([list(o) for o in outs] == [list(o) for o in plain]
+          and [len(o) for o in outs] == list(a["budgets"]),
+          "strict dispatch: the sampled, preempted serve's streams == the "
+          "unguarded run's")
+    check(torch.equal(got_ar, want_ar),
+          "strict dispatch: the collective's result unchanged")
+    guard.preemptions = preempted
+    return guard
+
+
+def _strict_ledger(runtime):
+    """(d): kernels 11 and 14 once each from the ledger build, against
+    their plain versions, the ledger balanced."""
+    from hpc_patterns_tpu_torch.comm import fused
+    from hpc_patterns_tpu_torch.concurrency import pipeline as pl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    with runtime.strict_barriers() as sb:
+        x = torch.randn(COMM_WORLD, 1 << 20, generator=gen, device=dev)
+        sb.reset("fused_ring")
+        got = fused.fused_allreduce(x)
+        fused.synchronize()
+        led = sb.check("fused_ring", flags=True)
+        want = fused.fused_allreduce_reference(x, lane=fused.CARD_LANE)
+        check(torch.equal(got, want),
+              "ledger build: fused_allreduce == plain bitwise")
+        out["fused_allreduce"] = led["flags"]
+        xp = torch.rand(4, 64, 128, generator=gen, device=dev)
+        sb.reset("overlap_pipeline")
+        got = pl.overlap_run(xp, mode="overlap", tripcount=3, passes=2)
+        torch.cuda.synchronize()
+        led = sb.check("overlap_pipeline")
+        want, _ = pl.overlap_run_reference(xp, mode="overlap", tripcount=3,
+                                           passes=2)
+        check(torch.equal(got, want),
+              "ledger build: overlap_pipeline == plain bitwise")
+        out["overlap_pipeline"] = {
+            "barriers": len(led["bars"]),
+            "arrive": sum(r["arrive"] for r in led["bars"].values()),
+            "tx_bytes": sum(r["tx_copy"] for r in led["bars"].values()),
+            "wait": sum(r["wait"] for r in led["bars"].values())}
+    out["checked"] = sb.checked
+    return out
+
+
+def phase_analysis(serve_ctx):
+    """torchlint over the port on the card's host (a), its shared-memory
+    rows against the compiled kernels (b), the runtime guard on the
+    dispatch paths (c) and the ledger build of kernels 11 and 14 (d)."""
+    from hpc_patterns_tpu_torch.analysis import core, cuda_rules, runtime, smem
+    from hpc_patterns_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = core.run_paths([ROOT / PKG])
+    t_lint = time.perf_counter() - t0
+    for f in report.findings:
+        print(f.format(), flush=True)
+    ledgers = cuda_rules.kernel_report([ROOT / PKG / "csrc"])
+    emit({"phase": "analysis", "part": "a", "findings": len(report.findings),
+          "by_rule": report.by_rule(), "suppressed": len(report.suppressed),
+          "files": report.n_files, "seconds": t_lint,
+          "kernels_analyzed": sum(x.status == "analyzed" for x in ledgers),
+          "kernels_abstained": [x.kernel for x in ledgers
+                                if x.status != "analyzed"]})
+    check(report.ok, f"torchlint --ci over the port: "
+          f"{len(report.findings)} finding(s)")
+
+    plans = runtime.launch_plans(ANALYSIS_MLP_SHAPES, ANALYSIS_PIPELINE_ROWS)
+    rows, bad, optin = runtime.smem_card_rows(plans)
+    smem_path = ROOT / "build" / "smem_table.json"
+    smem_path.write_text(json.dumps(rows))
+    per_call = [r for r in rows if r["launcher_dynamic"] is None
+                or r.get("plan", "every call") != "every call"]
+    big = sorted((r for r in rows if r.get("total") is not None),
+                 key=lambda r: -r["total"])
+    emit({"phase": "analysis", "part": "b", "rows": len(rows),
+          "optin_bytes": optin, "mismatches": bad[:8],
+          "table": [r for r in rows if "chunk_kernel" not in r["kernel"]
+                    and r not in per_call] + big[:2],
+          "per_call_rows": per_call,
+          "decode_chunk_rows": sum("chunk_kernel" in r["kernel"]
+                                   for r in rows),
+          "full_table": str(smem_path.relative_to(ROOT))})
+    check(not bad, f"smem rows == cudaFuncGetAttributes + launch: {bad[:4]}")
+    held = {smem.canonical(r["kernel"]) for r in per_call
+            if r.get("total") is not None}
+    check(held == set(plans) and len(plans) == 12,
+          f"smem: kernels 8, 8a and 14 held at their launched shapes "
+          f"({sorted(held)})")
+
+    t1 = time.perf_counter()
+    guard = _strict_serve(runtime, serve_ctx)
+    emit({"phase": "analysis", "part": "c", "serve": ANALYSIS_SERVE,
+          "preemptions": guard.preemptions,
+          "guarded_calls": guard.guarded_calls,
+          "lifted_calls": guard.lifted_calls, "raised": guard.raised,
+          "functions_guarded": sum(guard.functions.values()),
+          "seconds": time.perf_counter() - t1})
+    check(guard.guarded_calls > 0 and not guard.raised,
+          f"strict dispatch: {guard.guarded_calls} guarded call(s), "
+          f"raised {guard.raised}")
+
+    t2 = time.perf_counter()
+    led = _strict_ledger(runtime)
+    emit({"phase": "analysis", "part": "d", **led,
+          "ledger_build_seconds": {k: v["seconds"] for k, v
+                                   in _build.build_info.items()
+                                   if k.startswith("ledger/")},
+          "seconds": time.perf_counter() - t2})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6741,6 +6973,7 @@ def main() -> int:
     launches_par = timed("parallel", phase_parallel)
     launches_sh, shard_rows = timed("sharded", phase_sharded)
     launches_pp, mb_rows = timed("pipeline", phase_pipeline)
+    timed("analysis", phase_analysis, serve_ctx)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

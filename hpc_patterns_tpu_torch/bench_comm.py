@@ -51,7 +51,7 @@ from pathlib import Path
 import torch
 
 from hpc_patterns_tpu_torch.bench_flash import _device_ms, _other_lib
-from hpc_patterns_tpu_torch.comm import fused
+from hpc_patterns_tpu_torch.comm import fused, ring
 from hpc_patterns_tpu_torch.comm import migration_dma as md
 
 HBM_BYTES_PER_S = 3.35e12
@@ -187,6 +187,7 @@ class _OtherRing:
 
     def permute(self, x, dst):
         W = x.shape[0]
+        ring.check_permutation(list(enumerate(dst)), W)
         row_bytes = x[0].numel() * x.element_size()
         G = max(1, min(self._per_rank(2, 0, W),
                        -(-row_bytes // (16 * 4 * 256))))

@@ -13,7 +13,11 @@ counterpart of one queue of the out-of-order pool, so independent
 commands share no dependencies and the card is free to overlap them
 (copy engines beside the SMs). :meth:`Command.submit` enqueues the work
 on the command's stream and records an event; it never synchronizes.
-:meth:`Command.block` waits on that event (``Q.wait()``).
+:meth:`Command.block` waits on that event (``Q.wait()``). ``submit`` and
+every ``_enqueue`` carry ``@dispatch_critical``: torchlint's
+``host-sync-in-dispatch`` audits them, and ``analysis.runtime
+.strict_dispatch`` runs them under the sync debug mode's "error" on the
+card.
 
 The copies go between pinned host memory and the card: a pageable host
 buffer would turn ``copy_(non_blocking=True)`` into a synchronous copy
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from hpc_patterns_tpu_torch.analysis import dispatch_critical
 from hpc_patterns_tpu_torch.concurrency import kernels
 from hpc_patterns_tpu_torch.memory.kinds import (  # noqa: F401
     kind_sharding as _kind_sharding,
@@ -51,6 +56,7 @@ class Command:
     def _enqueue(self) -> None:
         raise NotImplementedError
 
+    @dispatch_critical
     def submit(self) -> None:
         if not self.on_card:
             self._enqueue()
@@ -94,6 +100,7 @@ class ComputeCommand(Command):
         self._pending = None
         self._ready()
 
+    @dispatch_critical
     def _enqueue(self) -> None:
         self._pending = kernels.busy_wait(self.x, self.tripcount)
 
@@ -119,6 +126,7 @@ class CopyM2DCommand(Command):
                                 device=self.device)
         self._ready()
 
+    @dispatch_critical
     def _enqueue(self) -> None:
         self._dev.copy_(self._host, non_blocking=True)
 
@@ -144,6 +152,7 @@ class CopyD2MCommand(Command):
                                      self.device))
         self._ready()
 
+    @dispatch_critical
     def _enqueue(self) -> None:
         self._host.copy_(self._dev, non_blocking=True)
 

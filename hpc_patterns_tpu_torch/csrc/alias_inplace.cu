@@ -16,6 +16,7 @@
 // launch's latency. One thread per element.
 
 #include <cuda_runtime.h>
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -35,3 +36,5 @@ extern "C" int alias_inplace(float* x, long long n, void* stream) {
   }
   return (int)cudaGetLastError();
 }
+
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(0, alias_inplace_kernel))

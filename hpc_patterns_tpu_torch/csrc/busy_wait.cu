@@ -23,6 +23,7 @@
 // quantity the suite tunes (sycl_con.cpp:257-268).
 
 #include <cuda_runtime.h>
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -52,3 +53,5 @@ extern "C" int busy_wait(const float* x, float* out, int n, int trips,
   }
   return (int)cudaGetLastError();
 }
+
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(0, busy_wait_kernel))

@@ -104,6 +104,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -1024,3 +1025,11 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+
+#define HPCPAT_BWD_ROWS(DD)                                                   \
+  HPCPAT_SMEM_ROW((dkv::Cfg<DD, true>::bytes), dkv::dkv_kernel<DD, true>),    \
+      HPCPAT_SMEM_ROW((dkv::Cfg<DD, false>::bytes), dkv::dkv_kernel<DD, false>), \
+      HPCPAT_SMEM_ROW((dq::Cfg<DD>::bytes), dq::dq_kernel<DD>)
+HPCPAT_SMEM_EXPORT(HPCPAT_BWD_ROWS(16), HPCPAT_BWD_ROWS(32), HPCPAT_BWD_ROWS(64),
+                   HPCPAT_BWD_ROWS(128))
+#undef HPCPAT_BWD_ROWS

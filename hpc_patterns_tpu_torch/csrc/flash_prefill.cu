@@ -74,6 +74,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -571,3 +572,10 @@ int flash_attention_fwd_rows(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+
+#define HPCPAT_FWD_ROWS(DD)                                   \
+  HPCPAT_SMEM_ROW((Cfg<DD, 1>::bytes), flash_fwd_kernel<DD, 1>), \
+      HPCPAT_SMEM_ROW((Cfg<DD, 2>::bytes), flash_fwd_kernel<DD, 2>)
+HPCPAT_SMEM_EXPORT(HPCPAT_FWD_ROWS(16), HPCPAT_FWD_ROWS(32), HPCPAT_FWD_ROWS(64),
+                   HPCPAT_FWD_ROWS(128))
+#undef HPCPAT_FWD_ROWS

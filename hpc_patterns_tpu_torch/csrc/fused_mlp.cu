@@ -96,6 +96,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -926,3 +927,12 @@ int fused_mlp_plan(int kernel, int N, int D, int F, int* out) {
 }
 
 }  // extern "C"
+
+// mlp_kernel's dynamic bytes are its plan's (P.smem, set per call)
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(-1, mlp_kernel<128, false>),
+                   HPCPAT_SMEM_ROW(-1, mlp_kernel<128, true>),
+                   HPCPAT_SMEM_ROW(-1, mlp_kernel<256, false>),
+                   HPCPAT_SMEM_ROW(-1, mlp_kernel<256, true>),
+                   HPCPAT_SMEM_ROW(H_SMEM, gda_kernel),
+                   HPCPAT_SMEM_ROW(G_SMEM, gemm_kernel<0, 0, bf16>),
+                   HPCPAT_SMEM_ROW(G_SMEM, gemm_kernel<1, 1, float>))

@@ -88,6 +88,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "ledger.cuh"
+#include "smem_rows.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -113,11 +116,20 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 }
 
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  HPCPAT_LEDGER_FLAG(HPCPAT_F_RELEASE);
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
+  HPCPAT_LEDGER_FLAG(HPCPAT_F_RELEASE);
   asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A credit: a relaxed store (what orders it is the caller's; see
+// cta_credit)
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  HPCPAT_LEDGER_FLAG(HPCPAT_F_CREDIT);
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ unsigned long long globaltimer() {
@@ -197,6 +209,7 @@ __device__ bool cta_spin(const unsigned* flag, unsigned want, unsigned* seen, co
     if (it) __nanosleep(32);
     *seen = ld_acquire(flag);
   }
+  HPCPAT_LEDGER_FLAG(HPCPAT_F_SPIN_OK);
   return true;
 }
 
@@ -216,8 +229,7 @@ __device__ bool cta_wait_ge(const unsigned* flag, unsigned want, unsigned* seen,
 // suffices (no fence on the receive path).
 __device__ __forceinline__ void cta_credit(unsigned* flag, unsigned value) {
   __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(flag), "r"(value) : "memory");
+  if (threadIdx.x == 0) st_relaxed(flag, value);
 }
 
 // The load that produced v has returned: its registers are read here.
@@ -502,9 +514,7 @@ fused_allreduce_kernel(RingArgs a, Sync sync) {
     // is in registers: a relaxed store) and the tile sent is published
     __syncthreads();
     if (tid == 0) {
-      if (recv && !credit_later)
-        asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(consumed_in),
-                     "r"(base + k_in + 1u) : "memory");
+      if (recv && !credit_later) st_relaxed(consumed_in, base + k_in + 1u);
       if (send) st_release(arrived_out, base + k_out + 1u);
     }
     t0 = t1;
@@ -1088,3 +1098,12 @@ extern "C" int fused_permute(const void* x, void* out, const void* dst, void* co
   Sync s = make_sync(abort_word, epoch, timeout_ns);
   return launch(K_PERMUTE, 0, total * G, THREADS, &a, &s, stream);
 }
+
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(0, fused_allreduce_kernel<F32>),
+                   HPCPAT_SMEM_ROW(0, fused_allreduce_kernel<BF16>),
+                   HPCPAT_SMEM_ROW(0, fused_allreduce_kernel<I32>),
+                   HPCPAT_SMEM_ROW(AG_SMEM, allgather_matmul_kernel<F32, true>),
+                   HPCPAT_SMEM_ROW(AG_SMEM, allgather_matmul_kernel<F32, false>),
+                   HPCPAT_SMEM_ROW(AG_SMEM, allgather_matmul_kernel<BF16, false>),
+                   HPCPAT_SMEM_ROW(AG_SMEM, allgather_matmul_kernel<I32, false>),
+                   HPCPAT_SMEM_ROW(0, fused_permute_kernel))

@@ -25,6 +25,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "ledger.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------- PTX
@@ -36,14 +38,19 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(bar), "r"(count) : "memory");
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_INITS, 1);
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_COUNT, count);
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_ARRIVE, 1);
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_TX_EXPECT, bytes);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(bar), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_ARRIVE, 1);
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(bar) : "memory");
 }
@@ -60,6 +67,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_WAIT, 1);
 }
 
 // one box of a 4-D map (coordinates innermost first) into shared memory
@@ -184,6 +192,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
 // memory into shared memory, completing `bar`'s transaction count
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
+  HPCPAT_LEDGER_BAR(bar, HPCPAT_L_TX_COPY, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1], %2, [%3];\n"

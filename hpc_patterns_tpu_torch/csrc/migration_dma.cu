@@ -49,6 +49,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -170,3 +171,5 @@ extern "C" int migration_exchange(const void* x, void* landing, void* counters, 
   migration_exchange_kernel<<<senders, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(0, migration_exchange_kernel))

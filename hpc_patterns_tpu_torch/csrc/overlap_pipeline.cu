@@ -82,6 +82,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ledger.cuh"
+#include "smem_rows.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -110,14 +113,19 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(count) : "memory");
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_INITS, 1);
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_COUNT, count);
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_ARRIVE, 1);
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_TX_EXPECT, bytes);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_ARRIVE, 1);
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_addr(bar)) : "memory");
 }
@@ -134,6 +142,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+  HPCPAT_LEDGER_BAR(addr, HPCPAT_L_WAIT, 1);
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -143,6 +152,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // global -> shared, completing `bytes` of transactions on `bar`
 __device__ __forceinline__ void bulk_load(float* dst, const float* src,
                                           uint32_t bytes, uint64_t* bar) {
+  HPCPAT_LEDGER_BAR(smem_addr(bar), HPCPAT_L_TX_COPY, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
@@ -377,20 +387,26 @@ pipeline_kernel(const float* __restrict__ x, float* __restrict__ written,
       csum[tid + j * THREADS] = part[j];
 }
 
+// the elements of one slot: the largest tile, the largest share over
+// `tiles` rounded up; 0 when block 0's first tile cannot hold rows 0-7
+// (the checksum)
+int slot_elems_of(int chunk_rows, int blocks, int tiles) {
+  const long units = static_cast<long>(chunk_rows) * (LANES / UNIT);
+  const long share_max = (units + blocks - 1) / blocks;
+  const long slot_units = (share_max + tiles - 1) / tiles;
+  if (units / blocks / tiles * UNIT < CSUM) return 0;
+  return static_cast<int>(slot_units * UNIT);
+}
+
 template <int MODE>
 int launch(const float* x, float* written, float* csum, float* sink,
            int num_chunks, int chunk_rows, int blocks, int tiles, int trips,
            int passes, cudaStream_t stream) {
-  // the largest tile: the largest share over `tiles`, rounded up
-  const long units = static_cast<long>(chunk_rows) * (LANES / UNIT);
-  const long share_max = (units + blocks - 1) / blocks;
-  const long slot_units = (share_max + tiles - 1) / tiles;
-  // block 0's first tile must hold rows 0-7 (the checksum); the step
-  // counts stay within int
-  if (units / blocks / tiles * UNIT < CSUM ||
+  // the step counts stay within int
+  const int slot_elems = slot_elems_of(chunk_rows, blocks, tiles);
+  if (slot_elems == 0 ||
       static_cast<long>(passes) * num_chunks * tiles >= (1L << 31))
     return -3;
-  const int slot_elems = static_cast<int>(slot_units * UNIT);
   const int smem = 2 * slot_elems * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       pipeline_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -439,3 +455,24 @@ extern "C" int overlap_pipeline(const float* x, float* written, float* csum,
 
 // the threads of one block, for the wrapper's sink size
 extern "C" int overlap_pipeline_threads() { return THREADS; }
+
+// the dynamic shared memory bytes the launcher requests for this plan
+// (two slots; every mode the same), -3 as the launcher refuses the plan
+extern "C" int overlap_pipeline_smem(int chunk_rows, int blocks, int tiles) {
+  if (blocks < 1 || tiles < 1) return -3;
+  const int slot_elems = slot_elems_of(chunk_rows, blocks, tiles);
+  return slot_elems ? 2 * slot_elems * static_cast<int>(sizeof(float)) : -3;
+}
+
+// the shared memory of each mode's kernel (the dynamic bytes are the
+// plan's two slots: set per call)
+HPCPAT_SMEM_EXPORT(HPCPAT_SMEM_ROW(-1, pipeline_kernel<0>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<1>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<2>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<3>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<4>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<5>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<6>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<7>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<8>),
+                   HPCPAT_SMEM_ROW(-1, pipeline_kernel<9>))

@@ -53,6 +53,7 @@
 // The workspace is (B*H, n_chunks, D + 2) f32, from the caller.
 
 #include "decode_split.cuh"
+#include "smem_rows.cuh"
 
 namespace {
 
@@ -191,3 +192,19 @@ int paged_decode_split(const void* q, const void* k_pool, const void* v_pool,
 }
 
 }  // extern "C"
+
+#define HPCPAT_G_ROWS(K, TK, DD)                                          \
+  HPCPAT_SMEM_ROW(0, K<TK, DD, 1>), HPCPAT_SMEM_ROW(0, K<TK, DD, 2>),       \
+      HPCPAT_SMEM_ROW(0, K<TK, DD, 4>), HPCPAT_SMEM_ROW(0, K<TK, DD, 8>)
+#define HPCPAT_D_ROWS(K, TK)                                                \
+  HPCPAT_G_ROWS(K, TK, 16), HPCPAT_G_ROWS(K, TK, 32), HPCPAT_G_ROWS(K, TK, 64), \
+      HPCPAT_G_ROWS(K, TK, 128)
+#define HPCPAT_T_ROWS(K)                                                    \
+  HPCPAT_D_ROWS(K, float), HPCPAT_D_ROWS(K, __nv_bfloat16),                 \
+      HPCPAT_D_ROWS(K, int8_t), HPCPAT_D_ROWS(K, __nv_fp8_e4m3)
+// the merge's dynamic bytes are n_chunks floats, set per call
+HPCPAT_SMEM_EXPORT(HPCPAT_T_ROWS(paged_decode_chunk_kernel),
+                   HPCPAT_SMEM_ROW(-1, hpc_decode::paged_merge_kernel))
+#undef HPCPAT_T_ROWS
+#undef HPCPAT_D_ROWS
+#undef HPCPAT_G_ROWS

@@ -339,6 +339,8 @@ def make_shared_prefix_schedule(
             index=i, t_arrival_s=float(times[i]), cls=c.name,
             priority=c.priority, prompt_len=plen, max_new=int(news[i]),
             deadline_s=c.deadline_s, template=template, parent=par))
+    # torchlint: disable=record-kind-drift — a schedule descriptor's
+    # kind, not a RunLog record
     spec = {"process": process, "kind": "shared_prefix", "n": n,
             "rate_rps": rate_rps, "seed": seed,
             "n_templates": n_templates, "template_len": tlens,

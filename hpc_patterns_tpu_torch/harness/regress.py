@@ -90,8 +90,14 @@ SPECS: tuple[MetricSpec, ...] = (
     MetricSpec("vs_baseline", "higher"),
     MetricSpec("detail.dma_gbps", "higher", gated=False,
                label="dma_gbps (session health)"),
+    # torchlint: disable=gate-key-orphan — JAX's row; the port's bench
+    # emits no serving row yet, so the key stays absent, never faked
     MetricSpec("detail.serving_tok_s", "higher"),
+    # torchlint: disable=gate-key-orphan — JAX's row; the port's bench
+    # emits no serving row yet, so the key stays absent, never faked
     MetricSpec("detail.serving_bubble_frac", "lower", abs_slack=0.05),
+    # torchlint: disable=gate-key-orphan — JAX's row; the port's bench
+    # emits no serving row yet, so the key stays absent, never faked
     MetricSpec("detail.serving_prefill_compiles", "lower", abs_slack=1),
     MetricSpec("detail.allreduce_busbw_gbps", "higher"),
     # the robustness row (bench_serving --scenario): goodput is the
@@ -99,7 +105,11 @@ SPECS: tuple[MetricSpec, ...] = (
     # that keeps raw tok/s but blows the latency targets regresses
     # HERE; degraded-mode bubble gets the same near-zero slack as the
     # clean bubble fraction
+    # torchlint: disable=gate-key-orphan — JAX's row; the port's bench
+    # emits no serving row yet, so the key stays absent, never faked
     MetricSpec("detail.serving_goodput_tok_s", "higher"),
+    # torchlint: disable=gate-key-orphan — JAX's row; the port's bench
+    # emits no serving row yet, so the key stays absent, never faked
     MetricSpec("detail.serving_degraded_bubble_frac", "lower",
                abs_slack=0.05),
     # the device-initiated fused-collective row (comm/fused.py):

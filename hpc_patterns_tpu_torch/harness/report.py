@@ -81,16 +81,19 @@ def aggregate(records: list[dict[str, Any]]) -> dict[str, Any]:
             else:
                 n_bad += 1
         if kind == "analysis":
-            # the JAX package's static-analysis verdict (its
-            # ``analysis --log``): surfaced next to the runtime rollups
-            # so a log from either package renders the same
+            # a static-analysis verdict (``python -m
+            # hpc_patterns_tpu_torch.analysis --log``: torchlint, with its
+            # shared-memory rollup; a JAX package log's is jaxlint's, with
+            # its VMEM one), surfaced next to the runtime rollups
             analyses.append({
+                "tool": rec.get("tool", "jaxlint"),
                 "ok": rec.get("ok", False),
                 "findings": rec.get("findings", 0),
                 "suppressed": rec.get("suppressed", 0),
                 "baselined": rec.get("baselined", 0),
                 "files": rec.get("files", 0),
                 "by_rule": rec.get("by_rule", {}),
+                "smem": rec.get("smem"),
                 "vmem": rec.get("vmem"),
             })
         if kind == "trace_merged":
@@ -212,7 +215,22 @@ def format_report(agg: dict[str, Any], source: str = "") -> str:
             + (f" [{rules}]" if rules else "")
             + f", {a['suppressed']} suppressed"
             + (f", {a['baselined']} baselined" if a["baselined"] else "")
-            + f" across {a['files']} file(s) (jaxlint)")
+            + f" across {a['files']} file(s) ({a.get('tool', 'jaxlint')})")
+        sm = a.get("smem")
+        if sm:
+            # the shared-memory rollup (analysis/smem.py): every kernel
+            # instantiation, the ones whose bytes bind, the fullest named
+            bound = [r for r in sm.get("rows", [])
+                     if r.get("bytes") is not None]
+            worst = max(bound, key=lambda r: r["bytes"] / r["limit"],
+                        default=None)
+            line = (f"  smem: {sm.get('kernels', 0)} kernel(s), "
+                    f"{len(bound)} bound, {sm.get('over_limit', 0)} over "
+                    f"the opt-in limit")
+            if worst is not None:
+                line += (f"; fullest {worst['kernel']} "
+                         f"{worst['bytes']:,}/{worst['limit']:,} bytes")
+            lines.append(line)
         vm = a.get("vmem")
         if vm:
             # the pallaslint VMEM budget rollup (analysis/vmem.py):

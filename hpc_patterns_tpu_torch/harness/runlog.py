@@ -14,6 +14,44 @@ import time
 from pathlib import Path
 from typing import IO, Any
 
+#: Record kinds written for the FORENSIC stream — the raw per-event log a
+#: human (or replay tooling) greps after a bad run — and deliberately not
+#: string-dispatched by report/collect/autofit/explain (JAX's list, plus
+#: the engine's shed/finish events and serve_app's static comparison,
+#: which the port's harness reads as a stream, never by kind).
+#: contractlint's ``record-kind-drift`` treats membership here as
+#: consumption-by-declaration: a kind belongs on this list only if
+#: nothing *should* dispatch on it.
+FORENSIC_KINDS = (
+    # serving-engine lifecycle events (models/serving.py): the per-seq
+    # audit trail behind the aggregated windows autofit dispatches on
+    "serve_migrate_out",
+    "serve_migrate_in",
+    "serve_swap_in",
+    "serve_shed",
+    "serve_finish",
+    # serving-plane round events (serving_plane/): the elastic plane's
+    # decision journal
+    "plane_migrate",
+    "plane_route",
+    "plane_shed",
+    "plane_resume",
+    "plane_transport_fallback",
+    "plane_replica_death",
+    "plane_spinup",
+    "plane_drain",
+    "plane_retire",
+    # per-step training journal (apps/train_app.py)
+    "step",
+    # the versioned --rollup-out artifact envelope (harness/collect.py):
+    # consumers take the whole document
+    "trace_rollup",
+    # kernel autotune outcomes: cache-warm evidence
+    "autotune",
+    # serve_app --static-compare's one line beside the engine's
+    "static_compare",
+)
+
 
 class RunLog:
     def __init__(self, path: str | Path | None = None,

@@ -600,6 +600,8 @@ class ResidencyManager:
         rec = tracelib.active()
         for window, track, seq, attrs, done, _kept in self._open_evicts:
             if done is not None:
+                # torchlint: disable=host-sync-in-dispatch — completion of
+                # a push that had a round to land (the round boundary)
                 done.synchronize()
             if rec is not None and window is not None:
                 rec.mark_complete("mem.evict", window,

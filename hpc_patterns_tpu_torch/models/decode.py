@@ -329,6 +329,10 @@ def prefill(params, prompt, cfg: TransformerConfig, max_len: int,
     x = _rmsnorm(x, top["ln_f_scale"])
     if last_pos is None:
         x_last = x[:, -1]
+    elif isinstance(last_pos, int):
+        # a host position indexes on the host: no upload (the engine's
+        # admission dispatches this without a synchronizing copy)
+        x_last = x[:, last_pos]
     else:
         lp_ = torch.as_tensor(last_pos, device=x.device).long()
         x_last = x[torch.arange(B, device=x.device),
@@ -559,18 +563,29 @@ def sample_key(seed: int, *data: int):
     return np.array([z & _M32, z >> 32], np.uint32)
 
 
+def _upload(a, device) -> torch.Tensor:
+    """A host array on ``device`` without a synchronizing copy: on the card
+    staged in pinned memory and copied on the current stream
+    (``non_blocking``); on the CPU the array's own tensor."""
+    t = torch.from_numpy(a)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _as_keys(key, batch: int, device) -> torch.Tensor:
     """(B, 2) int64 lanes holding uint32 key words, from one (2,) key
-    (every row) or (B, 2) keys."""
+    (every row) or (B, 2) keys; uploaded through :func:`_upload`."""
     import numpy as np
 
-    k = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
+    k = np.asarray(key, np.uint32).astype(np.int64)
     if k.shape == (2,):
-        k = k.expand(batch, 2)
+        k = np.repeat(k[None], batch, axis=0)
     if tuple(k.shape) != (batch, 2):
         raise ValueError(f"key must be (2,) or ({batch}, 2) uint32, got "
                          f"{tuple(k.shape)}")
-    return k.to(device).contiguous()
+    return _upload(np.ascontiguousarray(k), device)
 
 
 def uniform_noise(keys, pos, n: int):
@@ -580,9 +595,14 @@ def uniform_noise(keys, pos, n: int):
     of a counter-based hash of (key, position, index). A row's uniforms
     are a function of its own key and position only."""
     lo, hi = keys[:, 0], keys[:, 1]
-    salt = _hash32((lo * _SPREAD[0] + hi * _SPREAD[1]
-                    + torch.as_tensor(pos, device=keys.device)
-                    .to(torch.int64) * _SPREAD[2]) & _M32)
+    if isinstance(pos, int):
+        # a host position rides the kernel's scalar argument (no upload);
+        # its low 32 bits are all the masked sum keeps
+        step = (pos * _SPREAD[2]) & _M32
+    else:
+        step = torch.as_tensor(pos, device=keys.device).to(
+            torch.int64) * _SPREAD[2]
+    salt = _hash32((lo * _SPREAD[0] + hi * _SPREAD[1] + step) & _M32)
     idx = torch.arange(n, device=keys.device, dtype=torch.int64)
     x = _hash32((salt[..., None] + idx * _SPREAD[3]) & _M32)
     # 23 bits and a half: every u is exact in f32, so none rounds to 1

@@ -152,6 +152,7 @@ from hpc_patterns_tpu_torch.models.decode import (
     PREFIX_ALIGN,
     _as_keys,
     _pick,
+    _upload,
     gather_pool_pages,
     gumbel_noise,
     init_paged_cache,
@@ -429,6 +430,12 @@ def _chunk_step_rows(params, cache, pos, limit, tokens, keys, temps, rows,
     pos, limit, tokens = pos.clone(), limit.clone(), tokens.clone()
     pos[idx], limit[idx], tokens[idx] = p, lim, tok
     return pos, limit, tokens, out
+
+
+def _furthest(pos, rows) -> int:
+    """The furthest cursor of the listed rows, on the CPU branch of the
+    dispatch (``pos`` a host tensor: nothing is read back)."""
+    return int(pos[rows].max())
 
 
 def _spec_chunk(params, dparams, cache, dcache, pos, limit, cur, streams,
@@ -1050,8 +1057,7 @@ class EngineCore:
         row = np.full((self.pages_per_seq,), self.trash, np.int32)
         row[:len(pages)] = pages
         self._table[slot] = row
-        self.cache["table"] = torch.from_numpy(self._table.copy()).to(
-            self.device)
+        self.cache["table"] = _upload(self._table.copy(), self.device)
         if self.spec:
             self.dcache["table"] = self.cache["table"]
         return row
@@ -1092,11 +1098,11 @@ class EngineCore:
         padded = self._bucket_len(T)
         prompt = np.zeros((padded,), np.int32)
         prompt[:T] = req.prompt[:T]  # pad K/V is cursor-masked garbage
-        prompt_dev = torch.from_numpy(prompt)[None, :].to(self.device)
+        prompt_dev = _upload(prompt, self.device)[None, :]
         # the shared pools (scale pools too, for a one-byte cache) under
         # this row's own one-row table
         one = dict(self.cache)
-        one["table"] = torch.from_numpy(row[None, :].copy()).to(self.device)
+        one["table"] = _upload(row[None, :].copy(), self.device)
         M = m * self.page_size
         if m:
             # tail-only prefill: positions [M, padded) against the mapped
@@ -1136,10 +1142,10 @@ class EngineCore:
             temp = max(req.temperature if req.temperature is not None
                        else self.temperature, 1e-6)
             self.keys[slot] = _as_keys(key, 1, self.device)[0]
-            self.temps[slot] = temp
+            self.temps[slot].fill_(temp)
         if resumed_cur:
-            first = torch.tensor(int(req.prompt[-1]), dtype=torch.int32,
-                                 device=self.device)
+            first = torch.full((), int(req.prompt[-1]), dtype=torch.int32,
+                               device=self.device)
         elif self.greedy:
             first = _pick(logits)[0]
         else:
@@ -1153,7 +1159,7 @@ class EngineCore:
         if self.eos_id >= 0 and not resumed_cur:
             lim = torch.where(first == self.eos_id,
                               torch.full_like(lim, T), lim)
-        self.pos[slot] = T
+        self.pos[slot].fill_(T)  # a fill, not a host-to-device copy
         self.limit[slot] = lim
         self.tokens[slot] = first
         self._slots[slot] = _Slot(
@@ -1413,6 +1419,9 @@ class EngineCore:
         new = st.out[len(st.prefix):]
         remaining = st.budget - len(new)
         key = (None if self.greedy else
+               # torchlint: disable=host-sync-in-dispatch — eviction IS a
+               # deliberate chunk-boundary sync: the key's copy rides the
+               # resume request
                np.asarray(self.keys[slot].tolist(), np.uint32))
         prompt = (np.concatenate([st.prompt, np.asarray(new, np.int32)])
                   if new else st.prompt)
@@ -1446,9 +1455,10 @@ class EngineCore:
 
     def _dispatch_chunk(self):
         # the chunk's start cursors (nothing is in flight at a round
-        # start) as a COPY: on the CPU .cpu().numpy() is a view of
-        # self.pos, which installs and completions write in place
-        pos_start = self.pos.cpu().numpy().copy()
+        # start) as a device COPY, read back with the chunk's tokens in
+        # _collect_chunk: no readback here, and no view of self.pos,
+        # which installs and completions write in place
+        pos_start = self.pos.clone()
         parts = [i for i, s in enumerate(self._slots) if s.active]
         rec = tracelib.active()
         window = rec.open_window(self.device) if rec is not None else None
@@ -1465,7 +1475,7 @@ class EngineCore:
             # the card the step is bound by its launches and keeps its
             # fixed shape
             if self.device.type == "cpu":
-                reach = int(pos_start[parts].max()) + self.chunk - 1
+                reach = _furthest(pos_start, parts) + self.chunk - 1
                 self.pos, self.limit, self.tokens, out = _chunk_step_rows(
                     *state, parts, min(self.pages_per_seq,
                                        reach // self.page_size + 1), **kw)
@@ -1482,6 +1492,7 @@ class EngineCore:
         parts, pos_start, out, t_disp = inflight
         with metricslib.span("serve.decode_round", chunk=self.chunk):
             out = out.cpu().numpy()  # (chunk, slots); readback = sync
+        pos_start = pos_start.cpu().numpy()
         rec = tracelib.active()
         if rec is not None and t_disp:
             # the readback resolved: the chunk's window is complete
@@ -1717,12 +1728,16 @@ class EngineCore:
             raise ValueError(
                 "draft-assisted engines do not migrate: the draft cache's "
                 "row state would have to move too")
+        # torchlint: disable=host-sync-in-dispatch — the chunk-boundary
+        # cursor snapshot the bundle carries (a deliberate sync point)
         pos, limit, token = torch.stack(
             [self.pos[slot], self.limit[slot], self.tokens[slot]]).tolist()
         if self.greedy:
             key, temp = np.zeros(2, np.uint32), 0.0
         else:
+            # torchlint: disable=host-sync-in-dispatch — the same snapshot
             key = np.asarray(self.keys[slot].tolist(), np.uint32)
+            # torchlint: disable=host-sync-in-dispatch — and its temperature
             temp = float(self.temps[slot])
         idx = torch.tensor(st.pages, dtype=torch.long, device=self.device)
         payload = {name: tuple(gather_pool_pages(pool, idx)
@@ -1857,18 +1872,18 @@ class EngineCore:
         pages = resolved + self._alloc_pages(bundle.n_pages - m)
         self._seat(slot, pages)
         if m < bundle.n_pages:
-            idx = torch.tensor(pages[m:], dtype=torch.long,
-                               device=self.device)
+            idx = _upload(np.asarray(pages[m:], np.int64), self.device)
             for name, pools in self.cache.items():
                 if name != "table":
                     for pool, pl in zip(pools, bundle.pages_payload[name]):
                         install_pool_pages(pool, idx, pl[m:] if m else pl)
-        self.pos[slot] = int(bundle.pos)
-        self.limit[slot] = int(bundle.limit)
-        self.tokens[slot] = int(bundle.token)
+        # fills, not host-to-device copies
+        self.pos[slot].fill_(int(bundle.pos))
+        self.limit[slot].fill_(int(bundle.limit))
+        self.tokens[slot].fill_(int(bundle.token))
         if not self.greedy:
             self.keys[slot] = _as_keys(bundle.key, 1, self.device)[0]
-            self.temps[slot] = float(bundle.temp)
+            self.temps[slot].fill_(float(bundle.temp))
         self._slots[slot] = _Slot(
             seq_id=bundle.seq_id, pages=pages, prompt_len=int(prompt.size),
             budget=bundle.budget, out=list(bundle.out), active=True,

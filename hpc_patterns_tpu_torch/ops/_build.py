@@ -12,6 +12,8 @@ loads a stale binary. A failed build raises with
 ``nvcc``'s output. With a flight recorder active (``--trace``), each
 source compiled here lands as one compile event (``nvcc.<name>``, the
 seconds until its ``nvcc`` returned); a cached library is no build.
+:func:`build_variant` builds a source with extra macros (the ledger build
+of ``analysis/runtime.py``) into a directory of its own.
 """
 
 from __future__ import annotations
@@ -36,8 +38,15 @@ SOURCES = ("flash_prefill", "flash_attention_bwd", "paged_decode",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+#: one lock for each build directory: a variant compiles beside build_all
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+#: builds of a source with extra macros (the ledger build), by macros,
+#: each in a directory of its own, never in place of the timed library
+_variants: dict[tuple[str, ...], dict[str, ctypes.CDLL]] = {}
+#: name -> library that load() returns instead of the timed one, while a
+#: caller routes the wrappers to a variant (analysis.runtime)
+_override: dict[str, ctypes.CDLL] = {}
 #: ``{name: {"seconds": wall, "log": ptxas report, "cached": bool}}``
 build_info: dict[str, dict] = {}
 
@@ -54,45 +63,53 @@ def _nvcc() -> str:
         "CUDA kernels build on first use on a machine with the toolkit")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: tuple[str, ...] = (),
+            subdir: str = "") -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    tag = hashlib.sha1(src + flags.encode()).hexdigest()[:12]
+    return (BUILD_DIR / subdir if subdir else BUILD_DIR) / f"lib{name}-{tag}.so"
 
 
-def build_all() -> dict[str, dict]:
-    """Build every source not yet built (in parallel) and load it.
-    Returns :data:`build_info`. Idempotent within a process."""
+def _compile(names, defines: tuple[str, ...] = (), subdir: str = "",
+             cache: dict[str, ctypes.CDLL] = _libs) -> dict[str, dict]:
+    """Build ``csrc/<name>.cu`` for each of ``names`` not yet in ``cache``
+    (one ``nvcc`` a source, all started together) with ``-D<define>``
+    each into ``build/<subdir>/``, and load it into ``cache``. Returns
+    :data:`build_info` (keyed ``<subdir>/<name>`` for a subdirectory)."""
     import time
 
-    with _lock:
-        todo = [n for n in SOURCES if n not in _libs]
+    with _locks.setdefault(subdir, threading.Lock()):
+        todo = [n for n in names if n not in cache]
         if not todo:
             return build_info
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         t0 = time.perf_counter()
         for name in todo:
-            out = _target(name)
+            if name not in SOURCES:
+                raise KeyError(f"unknown kernel source {name!r}")
+            key = f"{subdir}/{name}" if subdir else name
+            out = _target(name, defines, subdir)
             if out.is_file():
-                build_info[name] = {"seconds": 0.0, "log": "",
-                                    "cached": True}
+                build_info[key] = {"seconds": 0.0, "log": "", "cached": True}
                 continue
+            out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
+            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[key] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
         failed = []
-        for name, (proc, tmp, out) in procs.items():
+        for key, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "log": log, "cached": False}
+            build_info[key] = {"seconds": time.perf_counter() - t0,
+                               "log": log, "cached": False}
             if proc.returncode != 0:
-                failed.append(f"--- nvcc {name}.cu (rc={proc.returncode})"
-                              f" ---\n{log}")
+                flags = "".join(f"-D{d} " for d in defines)
+                failed.append(f"--- nvcc {flags}{key}.cu "
+                              f"(rc={proc.returncode}) ---\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)  # atomic: a reader never sees half
@@ -100,9 +117,28 @@ def build_all() -> dict[str, dict]:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
         for name in todo:
-            _libs[name] = ctypes.CDLL(str(_target(name)))
+            # torchlint: disable=rebuild-hazard — each library loads once,
+            # under the lock, into its process-wide cache
+            cache[name] = ctypes.CDLL(str(_target(name, defines, subdir)))
         _stamp_builds(procs, t0)
         return build_info
+
+
+def build_all() -> dict[str, dict]:
+    """Build every source not yet built (in parallel) and load it.
+    Returns :data:`build_info`. Idempotent within a process."""
+    return _compile(SOURCES)
+
+
+def build_variant(names, defines: tuple[str, ...],
+                  subdir: str) -> dict[str, ctypes.CDLL]:
+    """:func:`build_all` of ``names`` with ``-D<define>`` each, into
+    ``build/<subdir>/``. The timed library of the same source is
+    untouched: :func:`load` keeps returning it. Returns ``{name:
+    library}``; builds once per process."""
+    cache = _variants.setdefault(tuple(defines), {})
+    _compile(names, tuple(defines), subdir, cache)
+    return {n: cache[n] for n in names}
 
 
 def _stamp_builds(compiled, t0: float) -> None:
@@ -113,10 +149,10 @@ def _stamp_builds(compiled, t0: float) -> None:
     rec = tracelib.active()
     if rec is None:
         return
-    for name in compiled:
-        secs = build_info[name]["seconds"]
-        rec.compile_event(f"nvcc.{name}", secs, t_end=t0 + secs,
-                          args={"source": f"csrc/{name}.cu"})
+    for key in compiled:
+        secs = build_info[key]["seconds"]
+        rec.compile_event(f"nvcc.{key}", secs, t_end=t0 + secs,
+                          args={"source": f"csrc/{key.rsplit('/', 1)[-1]}.cu"})
 
 
 def loaded_count() -> int:
@@ -130,6 +166,9 @@ def load(name: str) -> ctypes.CDLL:
     on the first call in this process)."""
     if name not in SOURCES:
         raise KeyError(f"unknown kernel source {name!r}; have {SOURCES}")
+    lib = _override.get(name)
+    if lib is not None:
+        return lib
     lib = _libs.get(name)
     if lib is None:
         build_all()

@@ -428,6 +428,8 @@ class ElasticServingPlane(ServingPlane):
         # the keys' host copy (uint32 words in int64 lanes), after the
         # chunk's readback
         keys = (None if eng.greedy
+                # torchlint: disable=host-sync-in-dispatch — a deliberate
+                # round-boundary key snapshot, after the chunk's readback
                 else eng.keys.cpu().numpy().astype(np.uint32))
         for i, s in act:
             self._ckpt[s.seq_id] = {

@@ -218,7 +218,7 @@ def test_quant_row_through_the_cli_at_fp8(capsys):
                   "bf16"])
 
 
-def test_tiered_rows_through_the_cli(capsys):
+def test_tiered_rows_through_the_cli(capsys, one_thread):
     assert tbs.main(["--slo-budget", "--device", "cpu", "--explain"]) == 0
     out = capsys.readouterr().out
     r = json.loads(out.strip().splitlines()[-1])

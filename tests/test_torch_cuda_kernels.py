@@ -1568,3 +1568,55 @@ def test_real_adapter_wire_handoff_on_the_card(gen):
         assert srv.tie_aware_compare(
             finished[rid], want[0].cpu().numpy(), margins[0].cpu().numpy(),
             TIE_TOL[cfg.dtype]) != "mismatch"
+
+
+def test_smem_rows_equal_the_compiled_kernels(gen):
+    """Every library's exported rows (cudaFuncGetAttributes' static bytes
+    and the launcher's dynamic request) against analysis/smem.py's rows
+    from the same sources; the requests set per call (kernels 8, 8a and
+    14) at their launchers' plans; every block within the opt-in limit."""
+    from hpc_patterns_tpu_torch.analysis import runtime, smem
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert optin == smem.SMEM_LIMIT
+    plans = runtime.launch_plans([(2048, 1024, 4096), (512, 512, 2048)],
+                                 [64, 2048])
+    assert {k.split("<")[0] for k in plans} == {"mlp_kernel",
+                                                "pipeline_kernel"}
+    rows, bad, got_optin = runtime.smem_card_rows(plans)
+    assert not bad and got_optin == optin
+    held = {smem.canonical(r["kernel"]) for r in rows
+            if r.get("plan") not in (None, "every call")
+            and r.get("total") is not None}
+    assert held == set(plans)
+    assert all(r["total"] <= optin for r in rows if "total" in r)
+
+
+def test_ledger_build_balances_kernels_11_and_14(gen):
+    """The -DHPCPAT_LEDGER build of fused_ring.cu and overlap_pipeline.cu:
+    one launch each, its result equal to the plain version's, its barrier
+    and flag ledger balanced; the timed libraries untouched."""
+    from hpc_patterns_tpu_torch.analysis import runtime
+    from hpc_patterns_tpu_torch.ops import _build
+
+    timed = _build.load("fused_ring")
+    with runtime.strict_barriers() as sb:
+        assert _build.load("fused_ring") is sb.libs["fused_ring"]
+        x = torch.randn(4, 1 << 18, generator=gen, device="cuda")
+        sb.reset("fused_ring")
+        got = fused.fused_allreduce(x)
+        fused.synchronize()
+        led = sb.check("fused_ring", flags=True)
+        assert torch.equal(got, fused.fused_allreduce_reference(
+            x, lane=fused.CARD_LANE))
+        assert led["flags"]["release"] > 0
+        xp = torch.rand(4, 64, 128, generator=gen, device="cuda")
+        sb.reset("overlap_pipeline")
+        got = pipeline.overlap_run(xp, mode="overlap", tripcount=3, passes=2)
+        torch.cuda.synchronize()
+        led = sb.check("overlap_pipeline")
+        want, _ = pipeline.overlap_run_reference(xp, mode="overlap",
+                                                 tripcount=3, passes=2)
+        assert torch.equal(got, want)
+        assert led["bars"] and sb.checked == 2
+    assert _build.load("fused_ring") is timed
